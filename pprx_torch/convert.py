@@ -19,6 +19,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from pprx_torch.device import resolve_device
 from pprx_torch.engine.segsum import row_offsets
 from pprx_torch.engine.state import PprState
 from pprx_torch.engine.wl2 import KillGraph
@@ -35,15 +36,19 @@ def _t(a, device, dtype=None) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
 
-def state_from_arrays(p, r, mode: int, device: torch.device | str = "cpu") -> PprState:
-    """PprState from [N+1, S] reserve/residual arrays (dtype kept)."""
+def state_from_arrays(p, r, mode: int, device: torch.device | str | None = None) -> PprState:
+    """PprState from [N+1, S] reserve/residual arrays (dtype kept), on
+    ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     return PprState(p=_t(p, device), r=_t(r, device), mode=int(mode))
 
 
 def kill_graph_from_arrays(
-    arrays: Mapping[str, np.ndarray], device: torch.device | str = "cpu"
+    arrays: Mapping[str, np.ndarray], device: torch.device | str | None = None
 ) -> KillGraph:
-    """KillGraph from the reference's ``src, dst, deg`` and ``kg_*`` arrays."""
+    """KillGraph from the reference's ``src, dst, deg`` and ``kg_*`` arrays,
+    on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     window = WindowGraph(
         src=_t(arrays["src"], device, np.int32),
         dst=_t(arrays["dst"], device, np.int32),

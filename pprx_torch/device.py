@@ -14,3 +14,12 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available")
     return torch.device("cuda", 0)
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another. ``None`` means the first CUDA device and raises without one;
+    there is no fallback to the CPU."""
+    if device is None:
+        return require_cuda()
+    return torch.device(device)

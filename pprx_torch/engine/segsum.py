@@ -5,11 +5,19 @@ The hot op of every window-scale push round is
     r[w, :] += sum over delivery-sorted edges j with seg[j] == w of contrib[j, :]
 
 The edges are already grouped by destination row, so row w's contributions
-are the contiguous range ``[row_off[w], row_off[w+1])``.
+are the contiguous range ``[row_off[w], row_off[w+1])``. Two entries:
 
-- On CUDA tensors ``segsum_add_`` launches the hand-written Hopper kernel
-  ``pprx_torch/csrc/segsum.cu`` (built at first use by ``pprx_torch._ext``).
-- On CPU tensors it runs the plain version, ``segsum_add_plain``.
+- ``segsum_add_(rin, contribs, row_off)`` sums rows of a materialised
+  ``[W, S]`` array;
+- ``segsum_gather_add_(rin, table, gat, row_off)`` sums ``table[gat[j]]``,
+  what the reference's callers write as ``segsum_add(r, moving[gat], ...)``,
+  without the ``[W, S]`` array.
+
+On CUDA tensors both launch the hand-written Hopper kernels of
+``pprx_torch/csrc/segsum.cu`` (built at first use by ``pprx_torch._ext``):
+an edge-balanced pass and a small pass over the rows that span chunks,
+deterministic, no atomics. On CPU tensors they run the plain versions,
+``segsum_add_plain`` and ``segsum_gather_add_plain``.
 
 The TPU kernel's tile offsets, EC padding, ``[W_pad/128, 128]`` seg-id
 reshape and limb-split precision modes existed for Mosaic and are not
@@ -26,9 +34,18 @@ import torch
 
 from pprx_torch import _ext
 
-# Kernel launches since the last reset: a run shows that its main path went
-# through the kernel by setting this to 0 before and reading it after.
+# Calls that launched the kernels since the last reset, in all and by entry
+# ("segsum_add", "segsum_gather_add"): a run shows that its main path went
+# through a kernel by setting these to 0 before and reading them after.
 LAUNCHES = 0
+LAUNCHES_BY_ENTRY = {"segsum_add": 0, "segsum_gather_add": 0}
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+    for k in LAUNCHES_BY_ENTRY:
+        LAUNCHES_BY_ENTRY[k] = 0
 
 
 def row_offsets(sorted_ids: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -56,33 +73,108 @@ def segsum_add_plain(
     return rin.index_add_(0, segment_ids(row_off), contribs[lo:hi].to(rin.dtype))
 
 
+def segsum_gather_add_plain(
+    rin: torch.Tensor, table: torch.Tensor, gat: torch.Tensor, row_off: torch.Tensor
+) -> torch.Tensor:
+    """The plain version of the gather entry: ``rin[w] += table[gat[j]]``
+    for j in ``[row_off[w], row_off[w+1])``, in place, in ``rin``'s dtype."""
+    lo, hi = int(row_off[0]), int(row_off[-1])
+    return rin.index_add_(0, segment_ids(row_off), table[gat[lo:hi]].to(rin.dtype))
+
+
+_PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
 @functools.cache
-def _kernels() -> dict[torch.dtype, ctypes._CFuncPtr]:
+def _entries() -> dict:
+    """The C entry points of the built ``segsum`` library, by (source dtype,
+    index dtype or None for the unfused entry)."""
     lib = _ext.load("segsum")
     fns = {
-        torch.float32: lib.pprx_segsum_add_f32,
-        torch.bfloat16: lib.pprx_segsum_add_bf16,
+        (torch.float32, None): lib.pprx_segsum_add_f32,
+        (torch.bfloat16, None): lib.pprx_segsum_add_bf16,
+        (torch.float32, torch.int32): lib.pprx_segsum_gather_add_f32_i32,
+        (torch.float32, torch.int64): lib.pprx_segsum_gather_add_f32_i64,
+        (torch.bfloat16, torch.int32): lib.pprx_segsum_gather_add_bf16_i32,
+        (torch.bfloat16, torch.int64): lib.pprx_segsum_gather_add_bf16_i64,
     }
-    for fn in fns.values():
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+    for (_, idx), fn in fns.items():
+        # rin, source, [gat,] row_off, scratch, n_rows, s, n_edges, chunk, stream
+        ptrs = 4 if idx is None else 5
+        fn.argtypes = [*[_PTR] * ptrs, _INT, _INT, _LONG, _INT, _PTR]
+        fn.restype = _INT
+    lib.pprx_segsum_chunk.argtypes = [_LONG]
+    lib.pprx_segsum_chunk.restype = _INT
     return fns
 
 
-def _check(rin, contribs, row_off) -> None:
-    if rin.dim() != 2 or contribs.dim() != 2 or contribs.shape[1] != rin.shape[1]:
+def chunk_for(n_edges: int) -> int:
+    """Edges per chunk the kernels cut an edge array of this length into (a
+    function of the length alone; the card tests replace it to force a
+    split)."""
+    _entries()  # sets the argument types
+    return _ext.load("segsum").pprx_segsum_chunk(n_edges)
+
+
+def _check(what, rin, source, name, gat, row_off) -> None:
+    """Shapes, and for CUDA tensors what the kernels take; ``name`` is what
+    the entry calls its source operand."""
+    if rin.dim() != 2 or source.dim() != 2 or source.shape[1] != rin.shape[1]:
         raise ValueError(
-            f"rin [R, S] and contribs [W, S] expected, got {tuple(rin.shape)} "
-            f"and {tuple(contribs.shape)}"
+            f"{what}: rin [R, S] and {name} [*, S] expected, got "
+            f"{tuple(rin.shape)} and {tuple(source.shape)}"
         )
     if row_off.shape != (rin.shape[0] + 1,) or row_off.dtype != torch.int32:
-        raise ValueError(f"row_off must be int32 [{rin.shape[0] + 1}]")
-    devs = {t.device for t in (rin, contribs, row_off)}
+        raise ValueError(f"{what}: row_off must be int32 [{rin.shape[0] + 1}]")
+    operands = [rin, source, row_off]
+    if gat is not None:
+        if gat.dim() != 1 or gat.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"{what}: gat must be a 1-D int32 or int64 tensor")
+        operands.append(gat)
+    devs = {t.device for t in operands}
     if len(devs) != 1:
-        raise ValueError(f"all operands must be on one device, got {devs}")
+        raise ValueError(f"{what}: all operands must be on one device, got {devs}")
+    if rin.device.type == "cpu":
+        return
+    if rin.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {rin.device}")
+    if rin.dtype != torch.float32:
+        raise TypeError(f"{what} on CUDA takes an f32 rin, got {rin.dtype}")
+    if source.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what} on CUDA takes f32 or bf16 {name}, got {source.dtype}")
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError(f"{what} on CUDA needs contiguous operands")
+    if rin.data_ptr() % 16 or source.data_ptr() % 16:
+        raise ValueError(f"{what} on CUDA needs 16-byte-aligned rin and {name}")
+
+
+def _launch(entry: str, rin, source, gat, row_off) -> None:
+    """Both launches of one call on checked CUDA operands, on the current
+    stream. The grid and the scratch are sized from the length of the edge
+    array, which bounds ``row_off[R] - row_off[0]``: nothing is read back
+    from the device. With no rows or no edge array there is no launch and
+    no count."""
+    global LAUNCHES
+    n_rows, s = rin.shape
+    n_edges = source.shape[0] if gat is None else gat.shape[0]
+    if n_rows == 0 or n_edges == 0 or s == 0:
+        return
+    chunk = chunk_for(n_edges)
+    n_chunks = -(-n_edges // chunk)
+    # uninitialised on purpose: the second pass reads only what the first wrote
+    scratch = torch.empty((n_chunks, 2, s), dtype=torch.float32, device=rin.device)
+    fn = _entries()[source.dtype, None if gat is None else gat.dtype]
+    gat_ptr = () if gat is None else (gat.data_ptr(),)
+    with torch.cuda.device(rin.device):
+        stream = torch.cuda.current_stream(rin.device).cuda_stream
+        err = fn(
+            rin.data_ptr(), source.data_ptr(), *gat_ptr, row_off.data_ptr(),
+            scratch.data_ptr(), n_rows, s, n_edges, chunk, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    LAUNCHES_BY_ENTRY[entry] += 1
 
 
 def segsum_add_(
@@ -101,30 +193,32 @@ def segsum_add_(
         the edges' ascending row ids); the kernel and the plain version
         both read only these.
     """
-    global LAUNCHES
-    _check(rin, contribs, row_off)
+    _check("segsum_add_", rin, contribs, "contribs", None, row_off)
     if rin.device.type == "cpu":
         return segsum_add_plain(rin, contribs, row_off)
-    if rin.device.type != "cuda":
-        raise ValueError(f"segsum_add_: unsupported device {rin.device}")
-    if rin.dtype != torch.float32:
-        raise TypeError(f"segsum_add_ on CUDA takes an f32 rin, got {rin.dtype}")
-    if contribs.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(
-            f"segsum_add_ on CUDA takes f32 or bf16 contribs, got {contribs.dtype}"
-        )
-    if not (rin.is_contiguous() and contribs.is_contiguous() and row_off.is_contiguous()):
-        raise ValueError("segsum_add_ on CUDA needs contiguous rin, contribs, row_off")
-    if contribs.data_ptr() % 16:
-        raise ValueError("segsum_add_ on CUDA needs 16-byte-aligned contribs")
-    n_rows, s = rin.shape
-    with torch.cuda.device(rin.device):
-        stream = torch.cuda.current_stream(rin.device).cuda_stream
-        err = _kernels()[contribs.dtype](
-            rin.data_ptr(), contribs.data_ptr(), row_off.data_ptr(),
-            n_rows, s, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"segsum_add_ kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    _launch("segsum_add", rin, contribs, None, row_off)
+    return rin
+
+
+def segsum_gather_add_(
+    rin: torch.Tensor,
+    table: torch.Tensor,
+    gat: torch.Tensor,
+    row_off: torch.Tensor,
+) -> torch.Tensor:
+    """``rin[w] += sum_{j in [row_off[w], row_off[w+1])} table[gat[j]]``, in
+    place; returns ``rin``: ``segsum_add_(rin, table[gat], row_off)``
+    without the ``[W, S]`` array. Entries of ``gat`` outside
+    ``[row_off[0], row_off[R])`` are not read.
+
+    table: [T, S], f32 or bf16 on CUDA, with f32 accumulation into an f32
+        ``rin``; ``rin`` may have fewer or more rows than ``table``.
+    gat: int32 or int64 [W], row of ``table`` for each delivery-sorted
+        edge; the kernel does not check that they lie in ``[0, T)``.
+    row_off: int32 [R+1], as for ``segsum_add_``.
+    """
+    _check("segsum_gather_add_", rin, table, "table", gat, row_off)
+    if rin.device.type == "cpu":
+        return segsum_gather_add_plain(rin, table, gat, row_off)
+    _launch("segsum_gather_add", rin, table, gat, row_off)
     return rin

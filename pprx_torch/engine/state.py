@@ -12,6 +12,8 @@ from typing import Sequence
 
 import torch
 
+from pprx_torch.device import resolve_device
+
 FORWARD = 0
 REVERSE = 1
 
@@ -70,9 +72,11 @@ def init_state(
     queries: Sequence[int],
     mode: int = FORWARD,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> PprState:
-    """r = one-hot at each query, p = 0. ``queries`` indexes the S axis."""
+    """r = one-hot at each query, p = 0. ``queries`` indexes the S axis.
+    ``device=None`` is the card."""
+    device = resolve_device(device)
     q = torch.as_tensor(list(queries), dtype=torch.int64, device=device)
     s = q.shape[0]
     p = torch.zeros((n + 1, s), dtype=dtype, device=device)

@@ -22,10 +22,12 @@ How the port differs:
 - Multi-operand ``lax.sort`` becomes ``torch.sort(stable=True)`` plus
   gathers; the slot -> position maps are inverse permutations, built with
   one scatter of ``arange`` instead of a second sort.
-- Every delivery goes through ``segsum_add_`` (the Hopper kernel on CUDA
-  tensors, its plain version on CPU tensors). The TPU kernel's lane padding,
-  EC padding and tile offsets are gone; per-row offsets (``d_off``,
-  ``fd_off``) take their place.
+- Every sorted delivery goes through ``segsum_gather_add_`` (the Hopper
+  kernel on CUDA tensors, its plain version on CPU tensors), which reads
+  ``moving[gat[j]]`` itself: the ``[W, S]`` array ``moving[gat]`` that the
+  reference hands to its kernel is never built. The TPU kernel's lane
+  padding, EC padding and tile offsets are gone; per-row offsets
+  (``d_off``, ``fd_off``) take their place.
 - The scan round always computes the next frontier; the stats-skip rule
   (``STATS_GUARD``) is applied to the numbers afterwards, so the round
   schedule is the reference's. On this card the skipped pass is one read of
@@ -42,7 +44,7 @@ import torch
 
 from pprx_torch.config import PprConfig
 from pprx_torch.engine.push import _active_mask
-from pprx_torch.engine.segsum import row_offsets, segsum_add_
+from pprx_torch.engine.segsum import row_offsets, segsum_gather_add_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats
 from pprx_torch.graph.dynamic import WindowGraph
 
@@ -204,9 +206,9 @@ def dense_round_sorted(
     if bf16d:
         moving = moving.to(torch.bfloat16)
     # rows [0, n) only: the phantom row's edges (ring padding, unfilled
-    # fresh slots) would all run on one warp, and row n is zeroed anyway
-    segsum_add_(r2[:n], moving[kg.d_gat], kg.d_off[: n + 1])
-    segsum_add_(r2[:n], moving[kg.fd_gat], kg.fd_off[: n + 1])
+    # fresh slots) are never read, and row n is zeroed anyway
+    segsum_gather_add_(r2[:n], moving, kg.d_gat, kg.d_off[: n + 1])
+    segsum_gather_add_(r2[:n], moving, kg.fd_gat, kg.fd_off[: n + 1])
     edge_pushes = (act * deg[:, None]).sum()
     p2[-1] = 0.0
     r2[-1] = 0.0
@@ -328,7 +330,7 @@ def _compact_round(
         keys_s, order = torch.sort(keys, stable=True)
         # in place into state.r (nothing reads the pre-round r after this),
         # rows [0, n) only: masked lanes and padding all key the phantom row
-        segsum_add_(state.r[:n], vals[order], row_offsets(keys_s, n))
+        segsum_gather_add_(state.r[:n], vals, order, row_offsets(keys_s, n))
         r2 = state.r
     else:
         r2 = state.r.index_add_(0, keys, vals)

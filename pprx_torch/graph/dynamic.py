@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from pprx_torch.device import resolve_device
+
 
 @dataclasses.dataclass
 class WindowGraph:
@@ -34,8 +36,10 @@ class WindowGraph:
     @classmethod
     def from_coo(
         cls, src, dst, n: int, capacity: int | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> "WindowGraph":
+        """The window on ``device`` (``None``: the card)."""
+        device = resolve_device(device)
         src = np.asarray(src, dtype=np.int32)
         dst = np.asarray(dst, dtype=np.int32)
         m = src.shape[0]

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from pprx_torch.config import PprConfig, StreamConfig
+from pprx_torch.device import resolve_device
 from pprx_torch.convert import kill_graph_from_arrays, state_from_arrays
 from pprx_torch.engine.state import FORWARD, PprState, PushStats, init_state
 from pprx_torch.engine.update import apply_edge_batch
@@ -115,7 +116,7 @@ class FastStreamDriver:
         e_top: int | None = None,
         n_tiers: int = 5,
         bf16d: bool = False,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ):
         if mode != FORWARD:
             raise NotImplementedError(
@@ -129,7 +130,7 @@ class FastStreamDriver:
                 f"not expire between rebuilds): {rebuild_every} * {scfg.slide}"
                 f" > {scfg.window}"
             )
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.stream_src = np.asarray(stream_src, dtype=np.int32)
         self.stream_dst = np.asarray(stream_dst, dtype=np.int32)
         self.n = n
@@ -171,7 +172,7 @@ class FastStreamDriver:
         stream_dst: np.ndarray,
         arrays: Mapping[str, np.ndarray],
         meta: Mapping,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> "FastStreamDriver":
         """A driver mid-stream from the JAX package's fast-driver arrays and
         metadata, in the layout ``pprx.io.checkpoint.save_checkpoint``
@@ -181,7 +182,7 @@ class FastStreamDriver:
             raise ValueError(f"not a fast-driver state: engine={meta.get('engine')!r}")
         tune = meta["tuning"]
         drv = cls.__new__(cls)
-        drv.device = torch.device(device)
+        drv.device = resolve_device(device)
         drv.stream_src = np.asarray(stream_src, dtype=np.int32)
         drv.stream_dst = np.asarray(stream_dst, dtype=np.int32)
         drv.n = int(meta["n"])
@@ -207,7 +208,7 @@ class FastStreamDriver:
     @classmethod
     def from_checkpoint(
         cls, path: str, stream_src: np.ndarray, stream_dst: np.ndarray,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> "FastStreamDriver":
         """A driver from a JAX fast-driver checkpoint ``.npz``."""
         with np.load(path) as z:

@@ -17,12 +17,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pprx_torch.device import resolve_device
+
 
 def transition_matrix_t(
-    src: np.ndarray, dst: np.ndarray, n: int, device: torch.device | str = "cpu"
+    src: np.ndarray, dst: np.ndarray, n: int, device: torch.device | str | None = None
 ) -> torch.Tensor:
     """Sparse f64 P^T ([n, n], coalesced COO: parallel edges summed) of a
-    COO multi-edge list; a dangling vertex gets a self-loop."""
+    COO multi-edge list; a dangling vertex gets a self-loop. On ``device``
+    (``None``: the card)."""
+    device = resolve_device(device)
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
     deg = np.bincount(src, minlength=n).astype(np.float64)
@@ -45,10 +49,12 @@ def exact_ppr(
     alpha: float,
     tol: float = 1e-12,
     max_iter: int = 100_000,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> np.ndarray:
     """f64 [len(sources), n]: pi_s for each source, iterated until every
-    source's L1 step is below ``tol``."""
+    source's L1 step is below ``tol``. Iterates on ``device`` (``None``:
+    the card)."""
+    device = resolve_device(device)
     pt = transition_matrix_t(src, dst, n, device)
     src_idx = torch.as_tensor(np.asarray(sources, dtype=np.int64), device=device)
     k = src_idx.shape[0]

@@ -30,7 +30,7 @@ def test_jax_checkpoint_resumes_in_port(tmp_path):
     list(a.run(3))
     path = str(tmp_path / "fast.npz")
     save_checkpoint(path, a)
-    b = FastStreamDriver.from_checkpoint(path, src, dst)
+    b = FastStreamDriver.from_checkpoint(path, src, dst, device="cpu")
     assert (b.head, b.fcnt, b.step_idx, b.tiers) == (a.head, a.fcnt, a.step_idx, a.tiers)
     assert b.state.p.dtype == torch.float64
 
@@ -45,6 +45,6 @@ def test_jax_checkpoint_resumes_in_port(tmp_path):
 
 def test_state_from_arrays_keeps_dtype_and_mode():
     p = np.arange(6, dtype=np.float32).reshape(3, 2)
-    st = state_from_arrays(p, -p, FORWARD)
+    st = state_from_arrays(p, -p, FORWARD, device="cpu")
     assert st.p.dtype == torch.float32 and st.mode == FORWARD
     np.testing.assert_array_equal(st.r.numpy(), -p)

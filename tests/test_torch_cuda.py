@@ -15,8 +15,16 @@ import pytest
 import torch
 
 from pprx_torch.config import PprConfig, StreamConfig
+from pprx_torch.device import resolve_device
 from pprx_torch.engine import segsum
-from pprx_torch.engine.segsum import row_offsets, segsum_add_, segsum_add_plain
+from pprx_torch.engine.segsum import (
+    row_offsets,
+    segsum_add_,
+    segsum_add_plain,
+    segsum_gather_add_,
+    segsum_gather_add_plain,
+)
+from pprx_torch.engine.state import init_state
 from pprx_torch.graph.fast_stream import FastStreamDriver
 from pprx_torch.graph.io import synthetic_powerlaw_stream
 from pprx_torch.ref.exact import exact_ppr
@@ -72,12 +80,150 @@ def test_kernel_reads_only_the_given_rows():
     torch.testing.assert_close(out.double(), ref, rtol=1e-5, atol=1e-5)
 
 
+def _trouble_lens(case: str, c: int) -> tuple[list[int], int, int]:
+    """(edges per row, edges before row_off[0], edges past row_off[R]) for
+    the layouts the edge-balanced split can get wrong; ``c`` is the
+    kernel's chunk size."""
+    tail = [3, 0, 0, 7, 1, 1, 0, 2] * 5
+    return {
+        "hub_spans_many_chunks": (tail + [150 * c + 17] + tail, 0, 0),
+        "hub_first": ([120 * c + 5] + tail, 0, 0),
+        "hub_last": (tail + [120 * c + 5], 0, 0),
+        "hub_first_sliced": ([120 * c + 5] + tail, 3 * c + 11, 77),
+        "rows_end_on_chunk_boundaries": ([c, c, 2 * c, c // 2, c // 2, 0, 0, c, 3 * c], 0, 0),
+        "aligned_rows_shifted_start": ([c, c, 2 * c, c], 5, 0),
+        "empty_runs_across_boundaries": ([c - 1, 1] + [0] * 300 + [c + 1, c - 1] + [0] * 50, 0, 9),
+        "chunk_inside_one_row": ([1, 5 * c, 1], c - 1, 0),
+        "fewer_edges_than_a_chunk": ([3, 0, 4, 1], 0, 0),
+        "fewer_edges_than_a_chunk_sliced": ([3, 0, 4, 1], 2 * c + 1, 40),
+        "single_edge_rows": ([1] * (7 * c + 3), 0, 0),
+        "no_edges_in_range": ([0, 0, 0, 0], 0, 3 * c),
+    }[case]
+
+
+TROUBLE = [
+    "hub_spans_many_chunks", "hub_first", "hub_last", "hub_first_sliced",
+    "rows_end_on_chunk_boundaries", "aligned_rows_shifted_start",
+    "empty_runs_across_boundaries", "chunk_inside_one_row",
+    "fewer_edges_than_a_chunk", "fewer_edges_than_a_chunk_sliced",
+    "single_edge_rows", "no_edges_in_range",
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [128, 8, 3])
+@pytest.mark.parametrize("case", TROUBLE)
+@pytest.mark.parametrize("chunk", [64, 256])
+def test_both_entries_on_trouble_cases(monkeypatch, chunk, case, s, dtype):
+    """Both entries against their plain versions in f64 where the
+    edge-balanced split has its corners (rows shared between chunks, rows
+    ending on chunk boundaries, empty runs, a sliced ``row_off``), and
+    bit-identical results from two launches on the same inputs. rtol = atol
+    = 1e-4: f32 sums of up to ~2e4 terms in [0, 1)."""
+    dev = _cuda()
+    # every edge array in chunks of ``chunk`` edges, whatever its length (the
+    # kernels' own choice would give every small case here its smallest)
+    monkeypatch.setattr(segsum, "chunk_for", lambda n_edges: chunk)
+    lens, lead, trail = _trouble_lens(case, chunk)
+    rng = np.random.default_rng(len(case) + s)
+    off_np = lead + np.concatenate([[0], np.cumsum(lens)])
+    w, n_rows, n_table = int(off_np[-1]) + trail, len(lens), 1000
+    off = torch.from_numpy(off_np.astype(np.int32)).to(dev)
+    contrib = torch.from_numpy(rng.random((w, s), dtype=np.float32)).to(dev, dtype)
+    table = torch.from_numpy(rng.random((n_table, s), dtype=np.float32)).to(dev, dtype)
+    rin = torch.from_numpy(rng.random((n_rows, s), dtype=np.float32)).to(dev)
+    for gat_dtype in (torch.int32, torch.int64):
+        gat = torch.from_numpy(rng.integers(0, n_table, w)).to(dev, gat_dtype)
+        ref = segsum_gather_add_plain(rin.double(), table.double(), gat, off)
+        out = segsum_gather_add_(rin.clone(), table, gat, off)
+        again = segsum_gather_add_(rin.clone(), table, gat, off)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.double(), ref, rtol=1e-4, atol=1e-4)
+        assert torch.equal(out, again)
+    ref = segsum_add_plain(rin.double(), contrib.double(), off)
+    out = segsum_add_(rin.clone(), contrib, off)
+    again = segsum_add_(rin.clone(), contrib, off)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.double(), ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_repeat_launches_are_bit_identical_on_skewed_rows():
+    """What the kernels offer that ``index_add_`` on the card does not: no
+    atomics, so the same inputs give the same bits, hub row included."""
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    n_rows, w, s = 5000, 300_000, 128
+    seg = np.minimum(rng.zipf(1.3, size=w) % (n_rows - 1), n_rows - 2).astype(np.int32)
+    seg.sort()
+    off = row_offsets(torch.from_numpy(seg).to(dev), n_rows)
+    assert int(off.diff().max()) > 100 * segsum.chunk_for(w)
+    table = torch.from_numpy(rng.random((n_rows, s), dtype=np.float32)).to(dev)
+    gat = torch.from_numpy(rng.integers(0, n_rows, w).astype(np.int32)).to(dev)
+    rin = torch.from_numpy(rng.random((n_rows, s), dtype=np.float32)).to(dev)
+    outs = [segsum_gather_add_(rin.clone(), table, gat, off) for _ in range(3)]
+    outs += [segsum_add_(rin.clone(), table[gat], off) for _ in range(3)]
+    torch.cuda.synchronize()
+    # the two entries add the same values in the same order
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.cuda
+def test_no_edge_array_launches_nothing():
+    dev = _cuda()
+    rin = torch.ones(4, 8, device=dev)
+    off = torch.zeros(5, dtype=torch.int32, device=dev)
+    before = segsum.LAUNCHES
+    segsum_add_(rin, torch.empty(0, 8, device=dev), off)
+    segsum_gather_add_(rin, torch.ones(3, 8, device=dev),
+                       torch.empty(0, dtype=torch.int32, device=dev), off)
+    assert segsum.LAUNCHES == before
+    assert bool((rin == 1).all())
+
+
+@pytest.mark.cuda
+def test_gather_entry_counts_and_refuses():
+    dev = _cuda()
+    off = torch.tensor([0, 2, 4], dtype=torch.int32, device=dev)
+    gat = torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=dev)
+    table = torch.ones(2, 4, device=dev)
+    before = dict(segsum.LAUNCHES_BY_ENTRY)
+    out = segsum_gather_add_(torch.zeros(2, 4, device=dev), table, gat, off)
+    assert segsum.LAUNCHES_BY_ENTRY["segsum_gather_add"] == before["segsum_gather_add"] + 1
+    assert segsum.LAUNCHES_BY_ENTRY["segsum_add"] == before["segsum_add"]
+    assert bool((out == 2).all())
+    with pytest.raises(TypeError, match="table"):
+        segsum_gather_add_(torch.zeros(2, 4, device=dev), table.half(), gat, off)
+    with pytest.raises(ValueError, match="gat"):
+        segsum_gather_add_(torch.zeros(2, 4, device=dev), table, gat.short(), off)
+    with pytest.raises(ValueError, match="one device"):
+        segsum_gather_add_(torch.zeros(2, 4, device=dev), table, gat.cpu(), off)
+    with pytest.raises(ValueError, match="contiguous"):
+        segsum_gather_add_(torch.zeros(2, 4, device=dev), torch.ones(2, 8, device=dev)[:, ::2],
+                           gat, off)
+
+
+@pytest.mark.cuda
+def test_default_device_is_the_card():
+    _cuda()
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert resolve_device("cpu") == torch.device("cpu")
+    st = init_state(10, [0, 3])
+    assert st.r.device.type == "cuda"
+    src, dst, n = synthetic_powerlaw_stream(300, 2000, seed=3)
+    drv = FastStreamDriver(src, dst, n, [0, 5], PprConfig(alpha=0.15, eps=1e-6),
+                           StreamConfig(window=1000, slide=100), rebuild_every=2)
+    assert drv.device.type == "cuda" and drv.state.p.device.type == "cuda"
+
+
 @pytest.mark.cuda
 def test_exact_ppr_on_card_matches_cpu():
     dev = _cuda()
     src, dst, n = synthetic_powerlaw_stream(300, 2000, seed=3)
     on_card = exact_ppr(src, dst, n, [0, 5, 99], 0.15, tol=1e-13, device=dev)
-    on_cpu = exact_ppr(src, dst, n, [0, 5, 99], 0.15, tol=1e-13)
+    on_cpu = exact_ppr(src, dst, n, [0, 5, 99], 0.15, tol=1e-13, device="cpu")
     np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=1e-12)
 
 
@@ -104,7 +250,8 @@ def test_fast_stream_on_card_matches_cpu_f64():
     cfg = PprConfig(alpha=0.2, eps=1e-8, max_rounds=10_000)
     scfg = StreamConfig(window=250, slide=25)
     kw = dict(rebuild_every=3, e_top=64, n_tiers=3)
-    cpu = FastStreamDriver(src, dst, n, [0, 6, 17], cfg, scfg, dtype=torch.float64, **kw)
+    cpu = FastStreamDriver(src, dst, n, [0, 6, 17], cfg, scfg, dtype=torch.float64,
+                           device="cpu", **kw)
     gpu = FastStreamDriver(src, dst, n, [0, 6, 17], cfg, scfg, dtype=torch.float32,
                            device=dev, **kw)
     before = segsum.LAUNCHES

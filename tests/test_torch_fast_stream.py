@@ -29,7 +29,7 @@ def _pair():
     src, dst, _ = synthetic_powerlaw_stream(N, 500, seed=11)
     kw = dict(rebuild_every=3, e_top=64, n_tiers=3)
     a = JaxDriver(src, dst, N, QUERIES, CFG, SCFG, dtype=jnp.float64, segsum=False, **kw)
-    b = FastStreamDriver(src, dst, N, QUERIES, CFG, SCFG, dtype=torch.float64, **kw)
+    b = FastStreamDriver(src, dst, N, QUERIES, CFG, SCFG, dtype=torch.float64, device="cpu", **kw)
     return a, b
 
 
@@ -51,6 +51,31 @@ def test_fast_stream_matches_jax():
     # the port keeps the ring and its host mirror as the reference does
     np.testing.assert_array_equal(b.hsrc, a.hsrc)
     np.testing.assert_array_equal(b.graph.window.src.numpy(), np.asarray(a.graph.window.src))
+
+
+def test_fast_stream_sorted_compact_delivery_matches_jax(monkeypatch):
+    """``SORT_DELIVER_MIN`` lowered in both packages, so every compact round
+    of the stream sorts its lanes and delivers through the segment sum (the
+    port: the gather entry on ``vals`` under the sort order)."""
+    import pprx.engine.wl2 as jwl2
+    import pprx_torch.engine.wl2 as twl2
+
+    monkeypatch.setattr(jwl2, "SORT_DELIVER_MIN", 1)
+    monkeypatch.setattr(twl2, "SORT_DELIVER_MIN", 1)
+    calls = []
+    fused = twl2.segsum_gather_add_
+    monkeypatch.setattr(
+        twl2, "segsum_gather_add_",
+        lambda rin, table, gat, off: (calls.append(gat.dtype), fused(rin, table, gat, off))[1],
+    )
+    a, b = _pair()
+    a.seed(), b.seed()
+    ra = [(int(s.rounds), int(s.wl_rounds)) for s in a.run(6)]
+    rb = [(s.rounds, s.wl_rounds) for s in b.run(6)]
+    assert ra == rb and sum(wl for _, wl in rb) > 0
+    assert_same_state(a, b)
+    # compact rounds hand over torch.sort's int64 order, scan rounds int32 views
+    assert torch.int64 in calls and torch.int32 in calls
 
 
 def test_refine_then_topk_matches_jax():
@@ -86,7 +111,7 @@ def test_bf16_delivery_conserves_mass():
     def run(bf16d):
         drv = FastStreamDriver(
             src, dst, n, [0, 5, 11], cfg, scfg, dtype=torch.float32,
-            rebuild_every=3, bf16d=bf16d,
+            rebuild_every=3, bf16d=bf16d, device="cpu",
         )
         drv.seed()
         list(drv.run(4))
@@ -107,7 +132,7 @@ def test_f32_stream_against_exact_ppr():
     queries = list(range(0, 2000, 125))
     drv = FastStreamDriver(
         src, dst, n, queries, cfg, StreamConfig(window=w, slide=b),
-        dtype=torch.float32, rebuild_every=3,
+        dtype=torch.float32, rebuild_every=3, device="cpu",
     )
     drv.seed()
     stats = list(drv.run(4))
@@ -123,7 +148,7 @@ def test_f32_stream_against_exact_ppr():
 def test_driver_refuses_bad_configs():
     src, dst, _ = synthetic_powerlaw_stream(N, 500, seed=11)
     with pytest.raises(ValueError, match="rebuild_every"):
-        FastStreamDriver(src, dst, N, QUERIES, CFG, SCFG, rebuild_every=11)
+        FastStreamDriver(src, dst, N, QUERIES, CFG, SCFG, rebuild_every=11, device="cpu")
     with pytest.raises(NotImplementedError, match="reverse"):
-        FastStreamDriver(src, dst, N, QUERIES, CFG, SCFG, mode=1)
+        FastStreamDriver(src, dst, N, QUERIES, CFG, SCFG, mode=1, device="cpu")
 

@@ -65,7 +65,7 @@ def test_exact_ppr_matches_reference():
     dst = rng.integers(0, n, size=400)
     src, dst = np.concatenate([src, src[:30]]), np.concatenate([dst, dst[:30]])
     sources = [0, 7, n - 3]  # the last one is dangling
-    got = exact_ppr(src, dst, n, sources, 0.15, tol=1e-13)
+    got = exact_ppr(src, dst, n, sources, 0.15, tol=1e-13, device="cpu")
     assert got.shape == (3, n) and got.dtype == np.float64
     for row, s in zip(got, sources):
         ref = np_exact_ppr(src, dst, n, s, 0.15, tol=1e-13)

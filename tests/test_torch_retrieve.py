@@ -22,9 +22,9 @@ CFG = PprConfig(alpha=ALPHA, eps=1e-9, max_rounds=10_000)
 def test_topk_matches_exact_ranking():
     n, m = 120, 900
     src, dst, _ = synthetic_powerlaw_stream(n, m, seed=4)
-    kg = build_kill_graph(WindowGraph.from_coo(src, dst, n), FORWARD, fring=8)
+    kg = build_kill_graph(WindowGraph.from_coo(src, dst, n, device="cpu"), FORWARD, fring=8)
     queries = [0, 3, 17, 50]
-    state = init_state(n, queries, mode=FORWARD, dtype=torch.float64)
+    state = init_state(n, queries, mode=FORWARD, dtype=torch.float64, device="cpu")
     # c0ok=False: the first round is a scan, as refine starts
     state, stats = push_to_convergence_wl2(
         state, kg, CFG, torch.full((8,), n, dtype=torch.int32), 0, False,

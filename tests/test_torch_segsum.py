@@ -1,7 +1,8 @@
-"""Port of the segment sum (pprx_torch.engine.segsum): the plain version
-against the JAX Pallas kernel in interpret mode on the cases of
-tests/test_segsum.py, and against numpy in f64. The Hopper kernel against
-the plain version on the card is in tests/test_torch_cuda.py."""
+"""Port of the segment sum (pprx_torch.engine.segsum): the plain versions of
+both entries (``segsum_add_`` and ``segsum_gather_add_``, the gather fused
+in) against the JAX Pallas kernel in interpret mode on the cases of
+tests/test_segsum.py, and against numpy in f64. The Hopper kernels against
+the plain versions on the card are in tests/test_torch_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +11,12 @@ import torch
 
 from pprx.engine.segsum import pad_len, segsum_add as jax_segsum_add, tile_offsets
 from pprx_torch.engine import segsum
-from pprx_torch.engine.segsum import row_offsets, segment_ids, segsum_add_
+from pprx_torch.engine.segsum import (
+    row_offsets,
+    segment_ids,
+    segsum_add_,
+    segsum_gather_add_,
+)
 
 torch.set_num_threads(1)
 
@@ -32,33 +38,147 @@ def _port(rin, contrib, seg, n_rows):
     return segsum_add_(out, torch.from_numpy(contrib), row_offsets(seg_t, n_rows))
 
 
-@pytest.mark.parametrize("skew", [False, True])
-@pytest.mark.parametrize(
-    "n_rows,w,s,tr,ec",
-    [
-        (513, 6000, 128, 256, 2048),
-        (129, 2048, 8, 128, 256),
-        (1025, 10000, 128, 512, 1024),
-    ],
-)
-def test_plain_matches_pallas_interpret(rng, n_rows, w, s, tr, ec, skew):
-    seg, contrib, rin = _mk(rng, n_rows, w, s, skew)
-    contrib, rin = contrib.astype(np.float32), rin.astype(np.float32)
+def _mk_gather(rng, w, n_table, s):
+    """A table and one table row per edge, so that ``table[gat]`` stands
+    for the contributions."""
+    return rng.normal(size=(n_table, s)), rng.integers(0, n_table, size=w)
+
+
+def _port_gather(rin, table, gat, seg, n_rows):
+    out = torch.from_numpy(rin.copy())
+    return segsum_gather_add_(
+        out, torch.from_numpy(table), torch.from_numpy(gat),
+        row_offsets(torch.from_numpy(seg), n_rows),
+    )
+
+
+PALLAS_CASES = [
+    (513, 6000, 128, 256, 2048),
+    (129, 2048, 8, 128, 256),
+    (1025, 10000, 128, 512, 1024),
+]
+
+
+def _pallas(rin, contrib, seg, n_rows, w, s, tr, ec):
+    """The JAX kernel in interpret mode on ``contrib`` padded as
+    tests/test_segsum.py pads it."""
     w_pad = pad_len(w, ec)
     seg_p = np.full(w_pad, n_rows - 1, np.int32)
     seg_p[:w] = seg
     contrib_p = np.zeros((w_pad, s), np.float32)
     contrib_p[:w] = contrib
     offsets = np.concatenate([[0], np.cumsum(np.bincount(seg_p, minlength=n_rows))])
-    ref = jax_segsum_add(
+    return np.asarray(jax_segsum_add(
         jnp.asarray(rin), jnp.asarray(contrib_p), jnp.asarray(seg_p.reshape(-1, 128)),
         tile_offsets(jnp.asarray(offsets.astype(np.int32)), n_rows, tr),
         tr=tr, ec=ec, interpret=True,
-    )
+    ))
+
+
+@pytest.mark.parametrize("gat_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("n_rows,w,s,tr,ec", PALLAS_CASES)
+def test_gather_plain_matches_pallas_interpret(rng, n_rows, w, s, tr, ec, skew, gat_dtype):
+    """``segsum_gather_add_(rin, table, gat, ...)`` on CPU tensors against
+    the JAX ``segsum_add(rin, table[gat], ...)``; rtol = atol = 2e-4 as for
+    the unfused entry (the Pallas kernel's other f32 order)."""
+    seg, _, rin = _mk(rng, n_rows, w, s, skew)
+    table, gat = _mk_gather(rng, w, 777, s)
+    table, rin = table.astype(np.float32), rin.astype(np.float32)
+    ref = _pallas(rin, table[gat], seg, n_rows, w, s, tr, ec)
+    out = _port_gather(rin, table, gat.astype(gat_dtype), seg, n_rows)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("gat_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("skew", [False, True])
+def test_gather_plain_f64_matches_numpy(rng, skew, gat_dtype):
+    n_rows, w, s = 300, 5000, 16
+    seg, _, rin = _mk(rng, n_rows, w, s, skew)
+    table, gat = _mk_gather(rng, w, 211, s)
+    ref = rin.copy()
+    np.add.at(ref, seg, table[gat])
+    out = _port_gather(rin, table, gat.astype(gat_dtype), seg, n_rows)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 300), (40, 260), (100, 101), (299, 300), (7, 7)])
+def test_gather_sliced_row_off(rng, lo, hi):
+    """Rows [lo, hi) of a view with ``off[lo:hi+1]``: entries of ``gat``
+    before ``off[lo]`` and past ``off[hi]`` are not read (they hold an
+    index outside the table here, which would raise)."""
+    n_rows, w, s = 300, 5000, 4
+    seg, _, rin = _mk(rng, n_rows, w, s, True)
+    table, gat = _mk_gather(rng, w, 50, s)
+    off = row_offsets(torch.from_numpy(seg), n_rows)
+    a, b = int(off[lo]), int(off[hi])
+    ref = rin.copy()
+    np.add.at(ref, seg[a:b], table[gat[a:b]])
+    gat = gat.copy()
+    gat[:a] = 10**6
+    gat[b:] = 10**6
+    out = torch.from_numpy(rin.copy())
+    segsum_gather_add_(out[lo:hi], torch.from_numpy(table), torch.from_numpy(gat), off[lo:hi + 1])
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("w", [0, 9])
+def test_gather_no_edges(w):
+    """No edge in ``[row_off[0], row_off[R])``, with and without an edge
+    array: ``rin`` stays as it was and no launch is counted."""
+    rin = torch.ones(4, 3, dtype=torch.float64)
+    table = torch.full((5, 3), 7.0, dtype=torch.float64)
+    gat = torch.zeros(w, dtype=torch.int64)
+    off = torch.full((5,), min(w, 4), dtype=torch.int32)
+    before = dict(segsum.LAUNCHES_BY_ENTRY), segsum.LAUNCHES
+    out = segsum_gather_add_(rin, table, gat, off)
+    assert out is rin and bool((rin == 1).all())
+    segsum_add_(rin, table[gat], off)
+    assert bool((rin == 1).all())
+    assert (dict(segsum.LAUNCHES_BY_ENTRY), segsum.LAUNCHES) == before
+
+
+def test_gather_checks():
+    rin = torch.zeros(5, 3)
+    table = torch.ones(4, 3)
+    gat = torch.tensor([3, 2, 1, 0, 0, 1])
+    off = row_offsets(torch.tensor([0, 0, 2, 2, 2, 4], dtype=torch.int32), 5)
+    with pytest.raises(ValueError, match="table"):
+        segsum_gather_add_(rin, torch.ones(4, 2), gat, off)
+    with pytest.raises(ValueError, match="row_off"):
+        segsum_gather_add_(rin, table, gat, off[:-1])
+    with pytest.raises(ValueError, match="row_off"):
+        segsum_gather_add_(rin, table, gat, off.long())
+    with pytest.raises(ValueError, match="gat"):
+        segsum_gather_add_(rin, table, gat.float(), off)
+    with pytest.raises(ValueError, match="gat"):
+        segsum_gather_add_(rin, table, gat[:, None], off)
+    segsum_gather_add_(rin, table, gat, off)
+    np.testing.assert_array_equal(rin[:, 0].numpy(), [2, 0, 3, 0, 1])
+    # rin may have more rows than the table, or fewer
+    big = torch.zeros(9, 3)
+    off9 = torch.cat([off, torch.full((4,), 6, dtype=torch.int32)])
+    segsum_gather_add_(big, table, gat, off9)
+    np.testing.assert_array_equal(big[:, 0].numpy(), [2, 0, 3, 0, 1, 0, 0, 0, 0])
+
+
+def test_reset_launches():
+    segsum.LAUNCHES = 5
+    segsum.LAUNCHES_BY_ENTRY["segsum_add"] = 5
+    segsum.reset_launches()
+    assert segsum.LAUNCHES == 0 and set(segsum.LAUNCHES_BY_ENTRY.values()) == {0}
+
+
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("n_rows,w,s,tr,ec", PALLAS_CASES)
+def test_plain_matches_pallas_interpret(rng, n_rows, w, s, tr, ec, skew):
+    seg, contrib, rin = _mk(rng, n_rows, w, s, skew)
+    contrib, rin = contrib.astype(np.float32), rin.astype(np.float32)
+    ref = _pallas(rin, contrib, seg, n_rows, w, s, tr, ec)
     out = _port(rin, contrib, seg, n_rows)
     # tolerance of tests/test_segsum.py: the Pallas kernel sums per
     # 128-edge group by matmul, another (deterministic) f32 order
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("skew", [False, True])

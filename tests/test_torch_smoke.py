@@ -7,6 +7,15 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+import torch
+
+from pprx_torch.config import PprConfig, StreamConfig
+from pprx_torch.device import resolve_device
+from pprx_torch.engine.state import init_state
+from pprx_torch.graph.fast_stream import FastStreamDriver
+from pprx_torch.graph.io import synthetic_powerlaw_stream
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "pprx_torch"
 
@@ -61,3 +70,21 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _run_smoke(tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a card, an entry point called with no ``device`` raises: it
+    does not fall back to the CPU. With ``device="cpu"`` it runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src, dst, n = synthetic_powerlaw_stream(30, 300, seed=1)
+    args = (src, dst, n, [0, 3], PprConfig(alpha=0.2, eps=1e-6), StreamConfig(window=200, slide=20))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_state(n, [0, 3])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FastStreamDriver(*args, rebuild_every=2)
+    assert init_state(n, [0, 3], device="cpu").r.device.type == "cpu"
+    drv = FastStreamDriver(*args, rebuild_every=2, device="cpu")
+    drv.seed()
+    assert len(list(drv.run(2))) == 2 and drv.state.p.device.type == "cpu"

@@ -72,7 +72,7 @@ def test_forward_batch_matches_jax(seed):
     )
     tst, tw = apply_edge_batch(
         PprState(p=torch.from_numpy(p), r=torch.from_numpy(r), mode=FORWARD),
-        WindowGraph.from_coo(src, dst, n),
+        WindowGraph.from_coo(src, dst, n, device="cpu"),
         *(torch.from_numpy(x) for x in (ins_src, ins_dst, del_src, del_dst)),
         CFG,
     )
@@ -87,7 +87,7 @@ def test_reverse_mode_is_not_ported_yet():
     st = PprState(p=torch.zeros(n + 1, 1), r=torch.zeros(n + 1, 1), mode=1)
     e = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        apply_edge_batch(st, WindowGraph.from_coo([0], [1], n), e, e, e, e, CFG)
+        apply_edge_batch(st, WindowGraph.from_coo([0], [1], n, device="cpu"), e, e, e, e, CFG)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -123,7 +123,7 @@ def test_forward_batches_match_oracle_and_keep_invariant(seed):
         if step == 0:
             ins_src[0] = cur_src[0]  # and insert from it: from dangling
         state, _ = apply_edge_batch(
-            state, WindowGraph.from_coo(cur_src, cur_dst, n),
+            state, WindowGraph.from_coo(cur_src, cur_dst, n, device="cpu"),
             *(torch.from_numpy(x.astype(np.int32)) for x in (ins_src, ins_dst, del_src, del_dst)),
             cfg,
         )

@@ -48,8 +48,10 @@ def _case(tiers):
         st, kg, CFG, jnp.asarray(cand0), jnp.asarray(q.size, jnp.int32), True, tiers
     )
 
-    tkg = twl2.build_kill_graph(WindowGraph.from_coo(src, dst, n), FORWARD, fring=8)
-    tst = init_state(n, queries, mode=FORWARD, dtype=torch.float64)
+    tkg = twl2.build_kill_graph(
+        WindowGraph.from_coo(src, dst, n, device="cpu"), FORWARD, fring=8
+    )
+    tst = init_state(n, queries, mode=FORWARD, dtype=torch.float64, device="cpu")
     tst, ts = twl2.push_to_convergence_wl2(
         tst, tkg, CFG, torch.from_numpy(cand0), q.size, True, tiers
     )
@@ -82,7 +84,7 @@ def test_kill_graph_matches_jax():
     src, dst = random_multigraph(rng, n, m)
     jkg = jwl2.build_kill_graph(JaxWindow.from_coo(src, dst, n, capacity=160), FORWARD, fring=8)
     tkg = twl2.build_kill_graph(
-        WindowGraph.from_coo(src, dst, n, capacity=160), FORWARD, fring=8
+        WindowGraph.from_coo(src, dst, n, capacity=160, device="cpu"), FORWARD, fring=8
     )
     for f in ("offsets", "nbr", "row_len", "snap_pos", "d_pos", "f_off", "f_len"):
         np.testing.assert_array_equal(getattr(tkg, f).numpy(), np.asarray(getattr(jkg, f)), f)

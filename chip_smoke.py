@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the headline stream that bench.py times for
-the JAX package — once on the card, and checks it. Phases, one line each:
+Drives the port's paths once on the card, and checks them: the main path
+(the headline forward stream that bench.py times for the JAX package), the
+reverse stream, the static configs on the dense engine, and a checkpoint
+round trip. Phases, one line each:
 
 1. device: the card's name, count and nvidia-smi name/power limit;
 2. build: the segment-sum kernels from pprx_torch/csrc (seconds, ptxas lines);
@@ -16,6 +18,13 @@ the JAX package — once on the card, and checks it. Phases, one line each:
    two launches on the same inputs must agree bit for bit; then, in turns,
    each kernel's time, its plain version's, the library call's, the pair
    the fused entry replaces, and each kernel's bound from the byte counts;
+   then the scaled form of both entries (``row_scale``, what reverse scans
+   launch) at the window and fresh layouts, and both at S=8 (1.0M power-law
+   edges, R=100,001: config 3's width), with ``torch.sparse.addmm`` on a
+   CSR whose values are ``row_scale[row]`` as the library call; and, held
+   to the plain version without timing, every other layout config 3's
+   stream launches: window and fresh view (80k edges), scaled and not, at
+   S=8 and at S=128, and its 140,000-lane compact round (int64 ``gat``);
 4. stream f32: FastStreamDriver at N=200k, W=2M, b=160k, S=128, eps=1e-6,
    alpha=0.15 (bench.py's shapes): seed, warm-up, 8 timed slides; then two
    more slides under ``torch.profiler`` (a ``profile`` line: the device's
@@ -24,20 +33,42 @@ the JAX package — once on the card, and checks it. Phases, one line each:
 6. serve: refine to eps=5e-8 (timed on the second call), top-100, and the
    exact-PPR contract on 16 sampled sources (f64 power iteration on the
    card, ``pprx_torch.ref.exact``);
-7. parity: a small stream on the card in f32 against the CPU in f64.
+7. parity: a small stream on the card in f32 against the CPU in f64;
+8. reverse stream through ``FastStreamDriver(mode=REVERSE)``: config 3's
+   shapes (N=100k, W=1M, b=10k, ``rebuild_every=8``, 10 warm-up and 10
+   timed slides) at S=8 and at its S=128 co-batch, and bench.py's headline
+   shapes in reverse (N=200k, W=2M, b=160k, S=128, ``rebuild_every=2``, 4
+   warm-up and 8 timed slides, then 2 under the profiler); each then
+   refines to eps=5e-8 and is held to the reverse contract on up to 16
+   sampled targets (``max_v |p[v, j] - M[v, t_j]| <= 2 eps`` against
+   columns of M by f64 iteration on the card), with the f32 share of the
+   error measured: the invariant gap ``max |p + M r - M e_t|``, the
+   rounding of one slide's corrections against f64, and a cold control
+   (seed and refine on the final window, no slides) that must meet
+   ``2 eps``; each must launch the scaled entry;
+9. static: ``run_config(1)`` (with its exact check) and ``run_config(4)``
+   (cold dense push of 512 sources on 5M edges, top-100, 16 sampled
+   sources held to exact PPR) at scale 1;
+10. checkpoint: the f32 forward driver saved mid-stream and loaded; both
+   step one slide and are held to the exact-PPR contract and to each other.
 
-Then a JSON line of the kernels (launches counted on the main path, phases
-4 to 6, which must launch at least one entry), the nvidia-smi line, and
-last ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
-not 0 and the last line is not printed. There is no CPU path. Nothing of
+Then a JSON line of the kernels (``launches``: the main path's, phases 4 to
+6, which must launch at least one entry; ``launches_by_path``: every path's,
+each counted with the counts set to 0 before it: the main path, each of the
+three reverse runs of phase 8, phases 9 and 10),
+the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any failure
+raises: the exit code is not 0 and the last line is not printed. There is no CPU path. Nothing of
 JAX or of the JAX package ``pprx`` is imported.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,6 +76,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from pprx_torch import _ext
+from pprx_torch.bench.run import run_config
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.device import require_cuda
 from pprx_torch.engine import segsum
@@ -56,11 +88,18 @@ from pprx_torch.engine.segsum import (
     segsum_gather_add_,
     segsum_gather_add_plain,
 )
-from pprx_torch.engine.state import PprState
+from pprx_torch.engine.state import REVERSE, PprState
+from pprx_torch.engine.update import apply_edge_batch
 from pprx_torch.eval.metrics import l1_error, precision_at_k
-from pprx_torch.graph.fast_stream import FastStreamDriver
+from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
 from pprx_torch.graph.io import synthetic_powerlaw_stream
-from pprx_torch.ref.exact import exact_ppr
+from pprx_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from pprx_torch.ref.exact import (
+    exact_ppr,
+    exact_ppr_columns,
+    ppr_matrix_times,
+    reverse_invariant_gap,
+)
 from pprx_torch.retrieve.topk import topk_candidates
 from pprx_torch.sync import sync
 
@@ -127,7 +166,8 @@ def held_to_plain(tag: str, kernel, plain_f64: torch.Tensor, rin: torch.Tensor) 
     return err
 
 
-def check_layout(layout: str, rin, row_off, table, gat, contrib=None) -> dict:
+def check_layout(layout: str, rin, row_off, table, gat, contrib=None, row_scale=None,
+                 timed: bool = True) -> dict:
     """One edge layout: the gather entry (and ``segsum_add_`` where
     ``contrib`` is given) against the plain version's f64 sum of the same
     values, f32 and bf16 sources, repeat launches bit for bit. Then the
@@ -136,9 +176,15 @@ def check_layout(layout: str, rin, row_off, table, gat, contrib=None) -> dict:
     CSR sparse product ``torch.sparse.addmm`` with unit values, which for a
     bf16 table needs ``table.float()`` first, timed with it: two calls);
     and for the gather entry the pair it replaces (``table[gat]``, then
-    ``segsum_add_``) and ``index_add_`` of ``table[gat]``. Bounds from this
-    layout's byte and operation counts: the edges the offsets cover, the
-    table rows they name, ``rin`` read and written. Keys:
+    ``segsum_add_``) and ``index_add_`` of ``table[gat]``. With
+    ``row_scale`` (f32 ``[rows]``) every one of them computes the scaled
+    sum; the library call is then one ``torch.sparse.addmm`` for either
+    entry, on a CSR whose values are ``row_scale[row]`` (columns ``gat``, or
+    the edge's own position for ``segsum_add_``), and the pair and
+    ``index_add_`` figures are left out. Bounds from this layout's byte and
+    operation counts: the edges the offsets cover, the table rows they
+    name, ``rin`` read and written, the scale read. ``timed=False`` holds
+    the entries to the plain version and times nothing. Keys:
     ``<layout><entry>_<dtype>_<what>``."""
     rows, s = rin.shape
     lo, hi = int(row_off[0]), int(row_off[-1])
@@ -150,36 +196,50 @@ def check_layout(layout: str, rin, row_off, table, gat, contrib=None) -> dict:
         f"{layout}chunk": segsum.chunk_for(gat.shape[0]),
         f"{layout}max_row_edges": int(row_off.diff().max()),
     }
-    rin_bytes = 2 * rows * s * 4 + (rows + 1) * 4
-    table_rows = int(gat[lo:hi].unique().numel())
-    csr = torch.sparse_csr_tensor((row_off - lo).to(gat.dtype), gat[lo:hi],
-                                  torch.ones(used, device=rin.device),
-                                  size=(rows, table.shape[0]))
+    scaled = row_scale is not None
+    rin_bytes = 2 * rows * s * 4 + (rows + 1) * 4 + scaled * rows * 4
+    if timed:
+        table_rows = int(gat[lo:hi].unique().numel())
+        values = row_scale[ids] if scaled else torch.ones(used, device=rin.device)
+        crow = (row_off - lo).to(gat.dtype)
+        csr = torch.sparse_csr_tensor(crow, gat[lo:hi], values, size=(rows, table.shape[0]))
+    scale64 = row_scale.double() if scaled else None
     for dt in ("f32", "bf16"):
         tb = table if dt == "f32" else table.to(torch.bfloat16)
         add, gather = f"{layout}add_{dt}", f"{layout}gather_{dt}"
-        ref = segsum_gather_add_plain(rin.double(), tb.double(), gat, row_off)
+        ref = segsum_gather_add_plain(rin.double(), tb.double(), gat, row_off, scale64)
         res[f"{gather}_max_abs_err"] = held_to_plain(
-            gather, lambda r: segsum_gather_add_(r, tb, gat, row_off), ref, rin)
+            gather, lambda r: segsum_gather_add_(r, tb, gat, row_off, row_scale), ref, rin)
         del ref
+        if contrib is not None:
+            c = contrib if dt == "f32" else contrib.to(torch.bfloat16)
+            ref = segsum_add_plain(rin.double(), c.double(), row_off, scale64)
+            res[f"{add}_max_abs_err"] = held_to_plain(
+                add, lambda r: segsum_add_(r, c, row_off, row_scale), ref, rin)
+            del ref
+        if not timed:
+            continue
         acc = rin.clone()
         fns = {
             f"{gather}_library_ms": lambda: torch.sparse.addmm(acc, csr, tb.float()),
-            f"{gather}_ms": lambda: segsum_gather_add_(acc, tb, gat, row_off),
-            f"{gather}_plain_ms": lambda: segsum_gather_add_plain(acc, tb, gat, row_off),
-            f"{gather}_pair_ms": lambda: segsum_add_(acc, tb[gat], row_off),
-            f"{gather}_index_add_ms": lambda: acc.index_add_(0, ids, tb[gat[lo:hi]].to(acc.dtype)),
+            f"{gather}_ms": lambda: segsum_gather_add_(acc, tb, gat, row_off, row_scale),
+            f"{gather}_plain_ms": lambda: segsum_gather_add_plain(acc, tb, gat, row_off, row_scale),
         }
+        if not scaled:
+            fns[f"{gather}_pair_ms"] = lambda: segsum_add_(acc, tb[gat], row_off)
+            fns[f"{gather}_index_add_ms"] = lambda: acc.index_add_(
+                0, ids, tb[gat[lo:hi]].to(acc.dtype))
         entries = [gather]
         if contrib is not None:
-            c = contrib if dt == "f32" else contrib.to(torch.bfloat16)
-            ref = segsum_add_plain(rin.double(), c.double(), row_off)
-            res[f"{add}_max_abs_err"] = held_to_plain(
-                add, lambda r: segsum_add_(r, c, row_off), ref, rin)
-            del ref
-            fns[f"{add}_library_ms"] = lambda: acc.index_add_(0, ids, c[lo:hi].to(acc.dtype))
-            fns[f"{add}_ms"] = lambda: segsum_add_(acc, c, row_off)
-            fns[f"{add}_plain_ms"] = lambda: segsum_add_plain(acc, c, row_off)
+            if scaled:
+                own = torch.sparse_csr_tensor(
+                    crow, torch.arange(used, device=rin.device, dtype=gat.dtype), values,
+                    size=(rows, used))
+                fns[f"{add}_library_ms"] = lambda: torch.sparse.addmm(acc, own, c[lo:hi].float())
+            else:
+                fns[f"{add}_library_ms"] = lambda: acc.index_add_(0, ids, c[lo:hi].to(acc.dtype))
+            fns[f"{add}_ms"] = lambda: segsum_add_(acc, c, row_off, row_scale)
+            fns[f"{add}_plain_ms"] = lambda: segsum_add_plain(acc, c, row_off, row_scale)
             res[f"{add}_bound_ms"], res[f"{add}_bound_by"] = bound_ms(
                 used * s * c.element_size() + rin_bytes, used * s)
             entries.append(add)
@@ -222,6 +282,13 @@ def check_kernel(dev, n: int, n_edges: int, s: int) -> dict:
     res.update(check_layout("short_", rin, row_offsets(short, rows), table,
                             gat[:SHORT_EDGES].contiguous(),
                             contrib[:SHORT_EDGES].contiguous()))
+    # the scaled form, as reverse scans launch it: one 1/d_out per row
+    scale = 1.0 / torch.randint(1, 200, (rows,), generator=gen, device=dev).float()
+    res.update(check_layout("scaled_", rin, row_offsets(powerlaw, rows), table, gat, contrib,
+                            row_scale=scale))
+    res.update(check_layout("scaled_short_", rin, row_offsets(short, rows), table,
+                            gat[:SHORT_EDGES].contiguous(),
+                            contrib[:SHORT_EDGES].contiguous(), row_scale=scale))
     del contrib, table, gat
     keys = torch.from_numpy(dst[:COMPACT_LANES].astype(np.int64)).to(dev)
     masked = torch.rand(COMPACT_LANES, generator=gen, device=dev) < 1 / 3
@@ -229,6 +296,61 @@ def check_kernel(dev, n: int, n_edges: int, s: int) -> dict:
     vals = torch.rand((COMPACT_LANES, s), generator=gen, device=dev)
     res.update(check_layout("compact_", rin[:n], row_offsets(keys_s, n), vals, order))
     return res
+
+
+# config 3: N=100k, W=1M, and 8 slides of 10k edges in a full fresh view
+C3_ROWS, C3_EDGES, C3_FRESH = 100_001, 1_000_000, 80_000
+C3_COMPACT_LANES = 140_000  # its top tier's compact round at S=128: 40,000 + 80,000 + 20,000
+
+
+def check_kernel_config3(dev) -> dict:
+    """The entries at every layout config 3's reverse stream gives them, at
+    S=8 (``s8_*``) and at its S=128 co-batch (``c3_*``): the window view
+    (1.0M power-law edges sorted by ``src``, where reverse mode delivers)
+    and a full fresh view (80k edges, smaller chunks), each with the per-row
+    scale (a scan's delivery) and without (the row sums of the corrections);
+    and at S=128 the top tier's compact round (140,000 lanes under the int64
+    order of a stable sort, a third on the phantom row, ``rin`` a view of
+    ``n`` rows; at S=8 that round has 71,680 lanes, under the sorted
+    delivery's threshold). S=8 puts two of a warp's 32 lanes to work (4
+    columns a lane): the scaled window layout there is timed, to show what a
+    narrow state costs; the others are held to the plain version only."""
+    n = C3_ROWS - 1
+    src, _, _ = synthetic_powerlaw_stream(n, C3_EDGES, seed=3)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    window = torch.from_numpy(np.sort(src)).to(dev)
+    fresh = window[::C3_EDGES // C3_FRESH][:C3_FRESH].contiguous()
+    off, fresh_off = row_offsets(window, C3_ROWS), row_offsets(fresh, C3_ROWS)
+    gat = torch.randint(0, C3_ROWS, (C3_EDGES,), generator=gen, device=dev, dtype=torch.int32)
+    fresh_gat = gat[:C3_FRESH].contiguous()
+    scale = 1.0 / torch.randint(1, 200, (C3_ROWS,), generator=gen, device=dev).float()
+    res = {}
+    for s, tag in ((8, "s8_"), (128, "c3_")):
+        contrib = torch.rand((C3_EDGES, s), generator=gen, device=dev)
+        table = torch.rand((C3_ROWS, s), generator=gen, device=dev)
+        rin = torch.rand((C3_ROWS, s), generator=gen, device=dev)
+        res.update(check_layout(tag, rin, off, table, gat, contrib, row_scale=scale,
+                                timed=s == 8))
+        res.update(check_layout(f"{tag}plain_", rin, off, table, gat, contrib, timed=False))
+        res.update(check_layout(f"{tag}fresh_", rin, fresh_off, table, fresh_gat,
+                                row_scale=scale, timed=False))
+        res.update(check_layout(f"{tag}fresh_plain_", rin, fresh_off, table, fresh_gat,
+                                timed=False))
+    del contrib, table
+    keys = torch.from_numpy(src[:C3_COMPACT_LANES].astype(np.int64)).to(dev)
+    masked = torch.rand(C3_COMPACT_LANES, generator=gen, device=dev) < 1 / 3
+    keys_s, order = torch.sort(torch.where(masked, n, keys), stable=True)
+    vals = torch.rand((C3_COMPACT_LANES, 128), generator=gen, device=dev)
+    res.update(check_layout("c3_compact_", rin[:n], row_offsets(keys_s, n), vals, order,
+                            timed=False))
+    return res
+
+
+def launches_by_entry(since: dict | None = None, scaled: bool | None = None) -> dict:
+    """The segment-sum launches by entry since the last reset, or since
+    ``since`` (an earlier ``dict(segsum.LAUNCHES)``); ``scaled=True``: those
+    with a ``row_scale``."""
+    return {entry: segsum.launches(entry, scaled, since) for entry in segsum.ENTRIES}
 
 
 def run_stream(drv: FastStreamDriver, warmup: int, steps: int) -> dict:
@@ -242,12 +364,13 @@ def run_stream(drv: FastStreamDriver, warmup: int, steps: int) -> dict:
     for _ in drv.run(warmup):
         pass
     sync(dev)
-    launched = segsum.LAUNCHES
+    before = dict(segsum.LAUNCHES)
     t0 = time.perf_counter()
     stats = list(drv.run(steps))
     sync(dev)
     wall = time.perf_counter() - t0
-    launched = segsum.LAUNCHES - launched
+    launched = segsum.launches(since=before)
+    scaled = segsum.launches(scaled=True, since=before)
     if len(stats) != steps:
         raise AssertionError(f"stream ran {len(stats)} of {steps} slides")
     b = drv.scfg.slide
@@ -265,6 +388,7 @@ def run_stream(drv: FastStreamDriver, warmup: int, steps: int) -> dict:
         "scan_rounds_per_slide": per_slide(lambda st: st.scan_rounds),
         "syncs_per_slide": per_slide(lambda st: st.syncs),
         "kernel_launches_per_slide": launched / steps,
+        "scaled_launches_per_slide": scaled / steps,
         "edge_pushes_per_s": sum(st.edge_pushes for st in stats) / wall,
     }
 
@@ -314,11 +438,12 @@ def serve_check(drv: FastStreamDriver, eps_r: float, k: int) -> dict:
             "ids": ids.cpu().numpy()}
 
 
-def exact_contract(drv: FastStreamDriver, ids: np.ndarray, k: int, n_check: int,
+def exact_contract(drv: FastStreamDriver, ids: np.ndarray | None, k: int, n_check: int,
                    l1_bound: float) -> dict:
     """Hold ``n_check`` sampled sources to the exact-PPR contract: L1 within
-    the bound, mass conserved, mean precision@k >= 0.95. Exact PPR is a
-    power iteration in f64 on the driver's device."""
+    the bound, mass conserved, and, where the top-k ``ids`` of a refined
+    state are given, mean precision@k >= 0.95. Exact PPR is a power
+    iteration in f64 on the driver's device."""
     n = drv.n
     p = drv.state.p.cpu().double().numpy()
     r = drv.state.r.cpu().double().numpy()
@@ -331,15 +456,181 @@ def exact_contract(drv: FastStreamDriver, ids: np.ndarray, k: int, n_check: int,
     exact_s = time.perf_counter() - t0
     precs, l1s, mass = [], [], []
     for si, pi in zip(cols, pis):
-        precs.append(precision_at_k(ids[si], pi, k))
+        if ids is not None:
+            precs.append(precision_at_k(ids[si], pi, k))
         l1s.append(l1_error(p[:n, si], pi))
         mass.append(abs(p[:n, si].sum() + r[:n, si].sum() - 1.0))
-    res = {"sources": n_check, "precision_at_k": float(np.mean(precs)),
+    res = {"sources": n_check, "precision_at_k": float(np.mean(precs)) if precs else None,
            "l1_max": max(l1s), "l1_mean": float(np.mean(l1s)), "l1_bound": l1_bound,
            "mass_err_max": max(mass), "exact_s": exact_s}
-    if res["l1_max"] > l1_bound or res["mass_err_max"] > 1e-3 or res["precision_at_k"] < 0.95:
+    if res["l1_max"] > l1_bound or res["mass_err_max"] > 1e-3 or (precs and
+                                                                  res["precision_at_k"] < 0.95):
         raise AssertionError(f"exact-PPR contract failed: {res}")
     return res
+
+
+def reverse_contract(drv: FastStreamDriver, eps: float, gap_limit: float | None = None,
+                     n_check: int = 16) -> dict:
+    """Hold up to ``n_check`` sampled targets of a reverse state pushed to
+    ``eps`` to the reverse contract, against columns of M by f64 iteration
+    on the driver's device: every residual within ``eps``, and
+    ``max_v |p[v, j] - M[v, t_j]| <= 2 eps`` (``eps`` in exact arithmetic,
+    since the rows of M sum to 1, and as much again for f32).
+
+    The f32 share is measured, not assumed: ``invariant_gap`` is
+    ``max |p + M r - M e_t|`` on the same targets, 0 in exact arithmetic at
+    any eps, and what the error cannot go below however far r is pushed
+    (``error <= eps + gap``). The gap must stay within ``gap_limit`` (by
+    default ``eps``, which makes the bound ``2 eps``); a caller that allows
+    a gap above ``eps`` gets the bound ``eps + gap``, and ``within_2eps``
+    says whether ``2 eps`` held all the same."""
+    n = drv.n
+    p, r = drv.state.p, drv.state.r
+    if not (bool(torch.isfinite(p).all()) and bool(torch.isfinite(r).all())):
+        raise AssertionError("non-finite state")
+    cols = np.unique(np.linspace(0, p.shape[1] - 1, min(n_check, p.shape[1])).astype(int))
+    targets = [drv._queries[j] for j in cols]
+    at = torch.from_numpy(cols).to(p.device)
+    t0 = time.perf_counter()
+    exact = exact_ppr_columns(drv.hsrc, drv.hdst, n, targets, drv.cfg.alpha, tol=1e-11,
+                              device=drv.device)
+    gap = reverse_invariant_gap(drv.hsrc, drv.hdst, n, targets, p[:, at], r[:, at],
+                                drv.cfg.alpha, tol=1e-11)
+    exact_s = time.perf_counter() - t0
+    err = float(np.abs(p[:n, at].double().cpu().numpy() - exact.T).max())
+    gap_limit = eps if gap_limit is None else gap_limit
+    bound = eps + max(eps, gap)
+    res = {"targets": int(cols.size), "eps": eps, "max_abs_err": err, "bound": bound,
+           "within_2eps": err <= 2 * eps, "invariant_gap": gap, "gap_limit": gap_limit,
+           "max_abs_r": float(r.abs().max()), "exact_s": exact_s}
+    # the residuals by the engine's own test, in the state's dtype (eps
+    # rounds to f32 there)
+    if err > bound or gap > gap_limit or bool((r.abs() > eps).any()):
+        raise AssertionError(f"reverse contract failed: {res}")
+    return res
+
+
+def correction_rounding(drv: FastStreamDriver, n_check: int = 16) -> dict:
+    """What the next slide's corrections, as the driver computes them (f32,
+    the old window's row sums from the segment-sum kernel over the kill
+    graph's views), add to ``r`` beyond the same corrections in f64 with
+    the row sums from the COO ring: ``e = r_f32 - r_f64`` over all rows and
+    targets, and ``max |M e|`` on sampled targets, which is what the slide
+    adds to the invariant gap (M on the window after the slide). The state
+    does not advance. A row-sum fault would show here as an ``e`` far above
+    f32 rounding: ``max_abs_e`` is held to 1e-5."""
+    dev, b, w = drv.device, drv.scfg.slide, drv.scfg.window
+    if drv.steps_available < 1:
+        raise AssertionError("no slide left in the stream")
+    lo = drv.head
+    slots = np.arange(lo, lo + b) % w
+    ins = [torch.from_numpy(a[lo:lo + b]).to(dev) for a in (drv.stream_src, drv.stream_dst)]
+    win = drv.graph.window
+    at = torch.from_numpy(slots).to(dev)
+    dels = [win.src[at], win.dst[at]]
+    st = drv.state
+    got, _ = apply_edge_batch(st, win, *ins, *dels, drv.cfg,
+                              rowsum=window_row_sums(st.p, drv.graph))
+    st64 = PprState(p=st.p.double(), r=st.r.double(), mode=st.mode)
+    want, _ = apply_edge_batch(st64, win, *ins, *dels, drv.cfg)
+    e = got.r.double() - want.r
+    touched = int(((want.r - st64.r) != 0).any(dim=1).sum())
+    del got, want, st64
+    hsrc, hdst = drv.hsrc.copy(), drv.hdst.copy()
+    hsrc[slots], hdst[slots] = drv.stream_src[lo:lo + b], drv.stream_dst[lo:lo + b]
+    cols = np.unique(np.linspace(0, e.shape[1] - 1, min(n_check, e.shape[1])).astype(int))
+    image = ppr_matrix_times(hsrc, hdst, drv.n, e[:drv.n, torch.from_numpy(cols).to(dev)],
+                             drv.cfg.alpha, tol=1e-11)
+    res = {"rows_corrected": touched, "max_abs_e": float(e.abs().max()),
+           "max_abs_Me": float(image.abs().max())}
+    if res["max_abs_e"] > 1e-5:
+        raise AssertionError(f"f32 corrections are far from the f64 ones: {res}")
+    return res
+
+
+def reverse_run(dev, n: int, w: int, b: int, s: int, rebuild_every: int, warmup: int,
+                steps: int, seed: int, eps_r: float, prof_steps: int = 0) -> dict:
+    """One reverse stream through ``FastStreamDriver(mode=REVERSE)``: seed,
+    warm up, ``steps`` timed slides, the reverse contract at the maintained
+    eps, a timed refine to ``eps_r`` and the contract again, ``prof_steps``
+    slides under the profiler, and the rounding of the next slide's
+    corrections. The refined state's invariant gap may be what the stream has
+    left it (at most the maintained eps): its bound is ``eps_r + gap``
+    where that is above ``2 eps_r``. ``cold`` is the control with no
+    slides: a second driver seeded on the final window and refined to
+    ``eps_r``, which must meet ``2 eps_r``; its gap beside the stream's
+    says what the slides added. Fails unless the scaled entry of the
+    segment sum launched."""
+    src, dst, n = synthetic_powerlaw_stream(n, w + (steps + warmup + prof_steps + 1) * b,
+                                            seed=seed)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
+    scfg = StreamConfig(window=w, slide=b)
+    segsum.reset_launches()  # this run's path: from here to the profiled slides
+    torch.cuda.reset_peak_memory_stats()
+    drv = FastStreamDriver(src, dst, n, list(range(s)), cfg, scfg, mode=REVERSE,
+                           dtype=torch.float32, rebuild_every=rebuild_every, device=dev)
+    res = {"n": n, "window": w, "slide": b, "targets": s, "rebuild_every": rebuild_every,
+           "warmup": warmup, "steps": steps, "tiers": [list(t) for t in drv.tiers],
+           **run_stream(drv, warmup, steps)}
+    res["contract"] = reverse_contract(drv, cfg.eps)
+    t0 = time.perf_counter()
+    st = drv.refine(eps_r)
+    sync(dev)
+    res.update(refine_ms=(time.perf_counter() - t0) * 1e3, refine_rounds=st.rounds,
+               refine_scan_rounds=st.scan_rounds)
+    res["contract_refined"] = reverse_contract(drv, eps_r, gap_limit=cfg.eps)
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if prof_steps:
+        res["profile"] = profile_slides(drv, prof_steps)
+    res["launches_by_entry"] = launches_by_entry()
+    res["launches_scaled"] = launches_by_entry(scaled=True)
+    if res["launches_scaled"]["segsum_gather_add"] <= 0:
+        raise AssertionError(f"the reverse stream never launched the scaled entry: {res}")
+    # what follows compares and is not counted
+    res["correction_rounding"] = correction_rounding(drv)
+    # the control: the same engine on the final window (the ring's edges in
+    # ring order), with no slide behind it
+    cold = FastStreamDriver(drv.hsrc, drv.hdst, n, list(range(s)), cfg, scfg, mode=REVERSE,
+                            dtype=torch.float32, rebuild_every=rebuild_every, device=dev)
+    rounds = cold.seed().rounds + cold.refine(eps_r).rounds
+    res["cold"] = {"rounds": rounds, **reverse_contract(cold, eps_r, gap_limit=cfg.eps)}
+    if not res["cold"]["within_2eps"]:
+        raise AssertionError(f"a cold state refined to {eps_r} misses 2 eps: {res['cold']}")
+    return res
+
+
+def checkpoint_check(drv: FastStreamDriver, n_check: int, l1_bound: float) -> dict:
+    """Save ``drv`` mid-stream, load the file on the card, step both one
+    slide: each holds the exact-PPR contract (L1 and mass), and they agree
+    to 1e-5 (the small scatters use atomics on CUDA, so no bit-identity is
+    asserted)."""
+    dev = drv.device
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stream.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(path, drv)
+        save_s = time.perf_counter() - t0
+        size_mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        twin = load_checkpoint(path, drv.stream_src, drv.stream_dst, device=dev)
+        sync(dev)
+        load_s = time.perf_counter() - t0
+    if not isinstance(twin, FastStreamDriver) or (twin.head, twin.fcnt) != (drv.head, drv.fcnt):
+        raise AssertionError("the loaded driver is not where the saved one was")
+    rounds = []
+    for d in (drv, twin):
+        stats = list(d.run(1))
+        if len(stats) != 1:
+            raise AssertionError("no slide left in the stream")
+        rounds.append(stats[0].rounds)
+    sync(dev)
+    diff = float((drv.state.p - twin.state.p).abs().max())
+    if diff > 1e-5:
+        raise AssertionError(f"saved and loaded driver differ after one slide: max |dp| {diff}")
+    contracts = [exact_contract(d, None, 0, n_check, l1_bound) for d in (drv, twin)]
+    return {"save_s": save_s, "load_s": load_s, "file_mb": size_mb, "rounds": rounds,
+            "max_abs_dp": diff, "l1_max": [c["l1_max"] for c in contracts],
+            "mass_err_max": [c["mass_err_max"] for c in contracts], "l1_bound": l1_bound}
 
 
 def parity_small(dev) -> dict:
@@ -367,27 +658,38 @@ def parity_small(dev) -> dict:
 def kernel_entry(name: str, key: str, kern: dict, launches: dict) -> dict:
     """One entry of the kernels line from phase 3's numbers: the window
     scan's f32 figures (power-law rows) under the plain names; bf16, the
-    other layouts (uniform rows, the short fresh view, and for the gather
-    entry the compact round with int64 ``gat``) beside them."""
-    layouts = ["", "uniform_", "short_"] + (["compact_"] if key == "gather" else [])
+    other layouts (uniform rows, the short fresh view, for the gather entry
+    the compact round with int64 ``gat``; and with a per-row scale the
+    window, the fresh view and the S=8 window of config 3) beside them.
+    ``launches`` maps each path driven to its count by entry: the main
+    (forward) path's is the entry's ``launches``, and every path's stands
+    under ``launches_by_path``. ``max_abs_err`` is the largest over every
+    layout held, config 3's untimed ones (``held_untimed``) included."""
+    plain = ["", "uniform_", "short_"] + (["compact_"] if key == "gather" else [])
+    scaled = ["scaled_", "scaled_short_", "s8_"]
+    errs = {k: v for k, v in kern.items()
+            if re.fullmatch(rf"\w*?{key}_(f32|bf16)_max_abs_err", k)}
+    timed = {f"{lay}{key}_{dt}_max_abs_err" for lay in plain + scaled for dt in ("f32", "bf16")}
     whats = ["ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound"]
-    if key == "gather":
-        whats += ["pair_ms", "index_add_ms"]
+    by_path = {path: counts[name] for path, counts in launches.items()}
     out = {
         "name": name,
         "route": "cuda",
         "source": "pprx_torch/csrc/segsum.cu",
         "replaces": "pprx/engine/segsum.py:184",
-        "launches": launches[name],
-        "max_abs_err": max(kern[f"{lay}{key}_{dt}_max_abs_err"]
-                           for lay in layouts for dt in ("f32", "bf16")),
+        "launches": by_path["forward"],
+        "launches_by_path": by_path,
+        "max_abs_err": max(errs.values()),
+        "held_untimed": sorted({k.split(f"{key}_")[0] for k in set(errs) - timed}),
         "library_call": ("torch.sparse.addmm on a unit-valued CSR (a bf16 table through "
                          "table.float() first, timed with it: two calls)"
                          if key == "gather" else "index_add_ on prebuilt ids"),
+        "scaled_library_call": "torch.sparse.addmm on a CSR whose values are row_scale[row]",
     }
-    for lay in layouts:
+    for lay in plain + scaled:
         out[f"{lay}chunk"] = kern[f"{lay}chunk"]
-        for what in whats:
+        extra = ["pair_ms", "index_add_ms"] if key == "gather" and lay in plain else []
+        for what in whats + extra:
             out[f"{lay}{what}"] = kern[f"{lay}{key}_f32_{what}"]
             out[f"{lay}bf16_{what}"] = kern[f"{lay}{key}_bf16_{what}"]
     return out
@@ -408,6 +710,7 @@ def main() -> None:
 
     n, w, b, s = 200_000, 2_000_000, 160_000, 128
     kern = check_kernel(dev, n, w, s)
+    kern.update(check_kernel_config3(dev))
     log("3 kernel", **kern)
     torch.cuda.empty_cache()
 
@@ -427,7 +730,7 @@ def main() -> None:
     drv = FastStreamDriver(src, dst, n, queries, cfg, scfg, dtype=torch.float32,
                            rebuild_every=rebuild_every, device=dev)
     f32 = run_stream(drv, warmup, steps)
-    f32["launches"] = segsum.LAUNCHES
+    f32["launches"] = segsum.launches()
     if f32["launches"] <= 0:
         raise AssertionError("the f32 stream never launched the segment-sum kernel")
     f32["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -437,18 +740,18 @@ def main() -> None:
 
     drv16 = FastStreamDriver(src, dst, n, queries, cfg, scfg, dtype=torch.float32,
                              rebuild_every=rebuild_every, bf16d=True, device=dev)
-    l0 = segsum.LAUNCHES
+    before = dict(segsum.LAUNCHES)
     bf16 = run_stream(drv16, warmup, steps)
-    bf16["launches"] = segsum.LAUNCHES - l0
+    bf16["launches"] = segsum.launches(since=before)
     log("5 stream bf16", **bf16)
     del drv16
     torch.cuda.empty_cache()
 
     k = 100
     serve = serve_check(drv, eps_r=5e-8, k=k)
-    launches = segsum.LAUNCHES
-    by_entry = dict(segsum.LAUNCHES_BY_ENTRY)
-    if launches <= 0 or sum(by_entry.values()) != launches:
+    launches = segsum.launches()
+    by_entry = launches_by_entry()
+    if launches <= 0:
         raise AssertionError(f"the main path never launched a segment-sum kernel: {by_entry}")
     contract = exact_contract(drv, serve.pop("ids"), k, 16, l1_bound=cfg.eps * w)
     log("6 serve", eps_retrieve=5e-8, k=k, **serve, **contract, launches_total=launches,
@@ -457,11 +760,47 @@ def main() -> None:
     parity = parity_small(dev)
     log("7 parity", **parity)
 
+    # the reverse path: config 3's shapes at S=8 and S=128, then full width;
+    # each run sets the counts to 0 and reads them itself
+    c3 = dict(n=100_000, w=1_000_000, b=10_000, rebuild_every=8, warmup=10, steps=10, seed=3,
+              eps_r=5e-8)
+    reverse = {
+        "config3_s8": reverse_run(dev, s=8, **c3),
+        "config3_s128": reverse_run(dev, s=128, **c3),
+        "headline": reverse_run(
+            dev, n=n, w=w, b=b, s=s, rebuild_every=rebuild_every, warmup=warmup, steps=steps,
+            seed=7, eps_r=5e-8, prof_steps=prof_steps),
+    }
+    for tag, res in reverse.items():
+        log(f"8 reverse {tag.replace('_', ' ')}", **res)
+    torch.cuda.empty_cache()
+
+    # the static configs on the dense engine (plain torch ops: no kernel)
+    segsum.reset_launches()
+    c1 = run_config(1, device=dev)
+    if not c1["within_bound"]:
+        raise AssertionError(f"config 1 misses its L1 bound: {c1}")
+    log("9 static config1", **c1)
+    torch.cuda.reset_peak_memory_stats()
+    c4 = run_config(4, device=dev, check_exact=16)
+    if not c4["within_bound"]:
+        raise AssertionError(f"config 4's pushed state misses exact PPR: {c4}")
+    log("9 static config4", **c4, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    static_by_entry = launches_by_entry()
+    torch.cuda.empty_cache()
+
+    segsum.reset_launches()
+    log("10 checkpoint", **checkpoint_check(drv, 16, l1_bound=cfg.eps * w))
+    ckpt_by_entry = launches_by_entry()
+
     if "jax" in sys.modules or "pprx" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
+    launches = {"forward": by_entry,
+                **{f"reverse_{tag}": res["launches_by_entry"] for tag, res in reverse.items()},
+                "static": static_by_entry, "checkpoint": ckpt_by_entry}
     print(json.dumps({"kernels": [
-        kernel_entry("segsum_add", "add", kern, by_entry),
-        kernel_entry("segsum_gather_add", "gather", kern, by_entry),
+        kernel_entry("segsum_add", "add", kern, launches),
+        kernel_entry("segsum_gather_add", "gather", kern, launches),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -1,15 +1,19 @@
-"""State carried across from the JAX package (numpy arrays -> port tensors).
+"""State carried between the JAX package and the port (numpy arrays <->
+port tensors).
 
-The array names are the ones ``pprx.io.checkpoint.save_checkpoint`` writes
-for the fast driver: ``p, r, src, dst, deg`` and ``kg_<field>`` for every
-KillGraph field. Two layout differences are bridged here:
+The array names are the ones ``pprx.io.checkpoint.save_checkpoint`` writes:
+``p, r, src, dst, deg`` and, for the fast driver, ``kg_<field>`` for every
+KillGraph field of the reference. Two layout differences are bridged here,
+in both directions:
 
 - the reference pads its delivery-sorted views (``d_*``, ``fd_*``) to a
   multiple of its kernel's chunk size with phantom edges; the port keeps
-  them at ring length, so the padding is stripped;
-- the reference stores per-tile offsets for its TPU kernel
-  (``d_toff``/``fd_toff``); the port recomputes per-row offsets
-  (``d_off``/``fd_off``) from the sorted scatter endpoints and ignores them.
+  them at ring length, so the padding is stripped on the way in and put
+  back on the way out;
+- the reference keeps the sorted scatter ids (``d_sca``/``fd_sca``) and
+  per-tile offsets for its TPU kernel (``d_toff``/``fd_toff``); the port
+  keeps per-row offsets (``d_off``/``fd_off``), computed from the ids on
+  the way in, and rebuilds ids and tile offsets from them on the way out.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from pprx_torch.device import resolve_device
-from pprx_torch.engine.segsum import row_offsets
+from pprx_torch.engine.segsum import row_offsets, segment_ids
 from pprx_torch.engine.state import PprState
 from pprx_torch.engine.wl2 import KillGraph
 from pprx_torch.graph.dynamic import WindowGraph
@@ -30,6 +34,27 @@ _KG_FIELDS = (
     "fr_gat", "fr_sca", "f_off", "f_nbr", "f_len",
     "d_gat", "d_pos", "fd_gat",
 )
+
+# The reference's TPU kernel layout (``pprx/engine/segsum.py``): edge arrays
+# padded to a multiple of EC_PAD, tile offsets for tiles of SEGSUM_TR rows.
+# Own copies of the two constants and the two small formulas: importing the
+# reference's module would load JAX.
+EC_PAD = 2048
+SEGSUM_TR = 256
+
+
+def pad_len(w: int, ec: int = EC_PAD) -> int:
+    """Edge-array length padded to the reference's chunk size."""
+    return ((w + ec - 1) // ec) * ec
+
+
+def tile_offsets(offsets: np.ndarray, n_rows: int, tr: int = SEGSUM_TR) -> np.ndarray:
+    """int32 ``tile_off[i] = offsets[min(i*tr, n_rows)]`` from CSR offsets
+    ``[n_rows+1]``: tile i of ``tr`` rows owns edges
+    ``[tile_off[i], tile_off[i+1])``."""
+    ntiles = (n_rows + tr - 1) // tr
+    idx = np.minimum(np.arange(ntiles + 1) * tr, n_rows)
+    return np.asarray(offsets)[idx].astype(np.int32)
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -43,17 +68,26 @@ def state_from_arrays(p, r, mode: int, device: torch.device | str | None = None)
     return PprState(p=_t(p, device), r=_t(r, device), mode=int(mode))
 
 
+def window_from_arrays(
+    arrays: Mapping[str, np.ndarray], device: torch.device | str | None = None
+) -> WindowGraph:
+    """WindowGraph from the ``src, dst, deg`` arrays, on ``device``
+    (``None``: the card)."""
+    device = resolve_device(device)
+    return WindowGraph(
+        src=_t(arrays["src"], device, np.int32),
+        dst=_t(arrays["dst"], device, np.int32),
+        deg=_t(arrays["deg"], device, np.int32),
+    )
+
+
 def kill_graph_from_arrays(
     arrays: Mapping[str, np.ndarray], device: torch.device | str | None = None
 ) -> KillGraph:
     """KillGraph from the reference's ``src, dst, deg`` and ``kg_*`` arrays,
     on ``device`` (``None``: the card)."""
     device = resolve_device(device)
-    window = WindowGraph(
-        src=_t(arrays["src"], device, np.int32),
-        dst=_t(arrays["dst"], device, np.int32),
-        deg=_t(arrays["deg"], device, np.int32),
-    )
+    window = window_from_arrays(arrays, device)
     # the sorted scatter ids d_sca/fd_sca become per-row offsets
     names = (*_KG_FIELDS, "d_sca", "fd_sca")
     f = {k: _t(arrays[f"kg_{k}"], device, np.int32) for k in names}
@@ -68,3 +102,35 @@ def kill_graph_from_arrays(
     d_off = row_offsets(f.pop("d_sca"), n + 1)
     fd_off = row_offsets(f.pop("fd_sca"), n + 1)
     return KillGraph(window=window, d_off=d_off, fd_off=fd_off, **f)
+
+
+def _reference_view(gat: torch.Tensor, off: torch.Tensor, n: int):
+    """One delivery-sorted view in the reference's layout: (gat, sca, toff)
+    with ``gat`` and the scatter ids rebuilt from ``off`` phantom-padded to
+    ``pad_len``, and tile offsets over the padded array (the padding lies
+    in the phantom row's range)."""
+    size = gat.shape[0]
+    pad = np.full(pad_len(size) - size, n, np.int32)
+    sca = segment_ids(off).cpu().numpy().astype(np.int32)  # all of them: off[-1] == size
+    offs = off.cpu().numpy().astype(np.int64)
+    offs[-1] = pad_len(size)
+    return (
+        np.concatenate([gat.cpu().numpy().astype(np.int32), pad]),
+        np.concatenate([sca, pad]),
+        tile_offsets(offs, n + 1),
+    )
+
+
+def kill_graph_to_arrays(kg: KillGraph) -> dict[str, np.ndarray]:
+    """The reference's ``kg_*`` arrays of a port KillGraph (int32, on the
+    host): the inverse of ``kill_graph_from_arrays``."""
+    n = kg.n
+    out = {
+        f"kg_{k}": getattr(kg, k).cpu().numpy().astype(np.int32)
+        for k in _KG_FIELDS if k not in ("d_gat", "fd_gat")
+    }
+    out["kg_d_gat"], out["kg_d_sca"], out["kg_d_toff"] = _reference_view(kg.d_gat, kg.d_off, n)
+    out["kg_fd_gat"], out["kg_fd_sca"], out["kg_fd_toff"] = _reference_view(
+        kg.fd_gat, kg.fd_off, n
+    )
+    return out

@@ -3,6 +3,13 @@
 //   segsum_add:         rin[w, :] += sum_{j in [row_off[w], row_off[w+1])} contribs[j, :]
 //   segsum_gather_add:  rin[w, :] += sum_{j in [row_off[w], row_off[w+1])} table[gat[j], :]
 //
+// Both take an optional per-row scale (f32 [R], or null): with it the row's
+// sum is multiplied by row_scale[w] before it is added. Reverse push needs
+// this: the reference multiplies every edge's contribution by
+// inv_deg[d_sca[j]] before its kernel (pprx/engine/wl2.py:256-274), and
+// d_sca[j] is the output row, so that is one factor per row on the row's
+// sum.
+//
 // Replaces the Pallas TPU kernel pprx/engine/segsum.py `_segsum_kernel`
 // (launched by `segsum_add`, segsum.py:184) and, in the second entry, the
 // gather its callers ran before it (`segsum_add(r2, moving[kg.d_gat], ...)`,
@@ -37,6 +44,12 @@
 //    written, and the loads go out kSpanUnroll at a time, independent of
 //    each other, so a hub's few hundred partials cost a few L2 round trips,
 //    not one per partial. It reads only slots that pass 1 wrote.
+//
+// The scale is applied where a row's sum meets rin, and only there: at the
+// flush of a row that lies wholly inside a chunk (pass 1), and once on the
+// sum of a spanning row's partials (pass 2). The partials themselves stay
+// unscaled. SCALED is a template flag, so a call without a scale runs the
+// code it ran before the flag existed.
 //
 // No atomics: every rin row has one writer per launch and every sum has a
 // fixed order, so two runs on the same inputs give the same bits.
@@ -171,12 +184,22 @@ struct Cols<1> {
   __device__ static void store(float* p, const float* v) { *p = v[0]; }
 };
 
-template <int VEC>
-__device__ void add_into(float* p, const float* acc) {
+// rin row w += acc, or += row_scale[w] * acc (every lane reads the same
+// factor: one broadcast load).
+template <int VEC, bool SCALED>
+__device__ void add_into(float* rin, const float* __restrict__ row_scale, int w,
+                         int s, int c, const float* acc) {
+  float* p = rin + static_cast<long long>(w) * s + c;
   float cur[VEC];
   Cols<VEC>::load(p, cur);
+  if constexpr (SCALED) {
+    const float sc = __ldg(row_scale + w);
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) cur[k] += acc[k];
+    for (int k = 0; k < VEC; ++k) cur[k] += sc * acc[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) cur[k] += acc[k];
+  }
   Cols<VEC>::store(p, cur);
 }
 
@@ -200,10 +223,11 @@ __device__ int find_row(const int* __restrict__ row_off, int n_rows, long long e
 }
 
 // Pass 1: one warp per chunk of `chunk` edges.
-template <typename T, typename I, int VEC, bool GATHER>
+template <typename T, typename I, int VEC, bool GATHER, bool SCALED>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 segsum_chunks_kernel(float* __restrict__ rin, const T* __restrict__ src,
                      const I* __restrict__ gat, const int* __restrict__ row_off,
+                     const float* __restrict__ row_scale,
                      float* __restrict__ scratch, int n_rows, int s, int chunk_edges) {
   const int lane = threadIdx.x % kWarp;
   const long long chunk =
@@ -265,7 +289,7 @@ segsum_chunks_kernel(float* __restrict__ rin, const T* __restrict__ src,
               // row w is complete inside this chunk
               if (active) {
                 if (head) Cols<VEC>::store(part + c, acc);
-                else add_into<VEC>(rin + static_cast<long long>(w) * s + c, acc);
+                else add_into<VEC, SCALED>(rin, row_scale, w, s, c, acc);
               }
               head = false;
 #pragma unroll
@@ -286,20 +310,22 @@ segsum_chunks_kernel(float* __restrict__ rin, const T* __restrict__ src,
         }
       }
     }
-    // the chunk's last row: shared if it began before the chunk or runs past it
+    // the chunk's last row: shared if it began before the chunk or runs past
+    // it, and then its partial is stored unscaled (pass 2 scales the sum)
     if (active) {
       if (head) Cols<VEC>::store(part + c, acc);
       else if (row_end > e_hi) Cols<VEC>::store(part + s + c, acc);
-      else add_into<VEC>(rin + static_cast<long long>(w) * s + c, acc);
+      else add_into<VEC, SCALED>(rin, row_scale, w, s, c, acc);
     }
   }
 }
 
 // Pass 2: one warp per chunk boundary; boundary b lies between chunks b and
 // b + 1, at edge row_off[0] + (b + 1) * chunk_edges.
-template <int VEC>
+template <int VEC, bool SCALED>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 segsum_spans_kernel(float* __restrict__ rin, const int* __restrict__ row_off,
+                    const float* __restrict__ row_scale,
                     const float* __restrict__ scratch, int n_rows, int s,
                     int chunk_edges) {
   const int lane = threadIdx.x % kWarp;
@@ -335,7 +361,8 @@ segsum_spans_kernel(float* __restrict__ rin, const int* __restrict__ row_off,
         for (int k = 0; k < VEC; ++k) acc[k] += v[u][k];
       }
     }
-    add_into<VEC>(rin + static_cast<long long>(w) * s + c, acc);
+    // the one place a spanning row is scaled: on the sum of its partials
+    add_into<VEC, SCALED>(rin, row_scale, w, s, c, acc);
   }
 }
 
@@ -354,39 +381,46 @@ int chunk_for(long long n_edges) {
   return c;
 }
 
+// Both launches at one vector width, with or without the scale.
+template <typename T, typename I, int VEC, bool GATHER, bool SCALED>
+int launch_as(float* rin, const T* src, const I* gat, const int* row_off,
+              const float* row_scale, float* scratch, int n_rows, int s,
+              long long chunks, int chunk, cudaStream_t st) {
+  const int threads = kWarp * kWarpsPerBlock;
+  segsum_chunks_kernel<T, I, VEC, GATHER, SCALED><<<grid_for(chunks), threads, 0, st>>>(
+      rin, src, gat, row_off, row_scale, scratch, n_rows, s, chunk);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || chunks < 2) return err;
+  segsum_spans_kernel<VEC, SCALED><<<grid_for(chunks - 1), threads, 0, st>>>(
+      rin, row_off, row_scale, scratch, n_rows, s, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Both launches. n_edges is the length of the edge array (contribs rows or
 // gat entries): the range [row_off[0], row_off[R]) lies inside it, so
 // ceil(n_edges / chunk) chunks cover it and the surplus warps return at
 // once. scratch holds that many [2, s] f32 partials. chunk is the edges per
 // chunk the caller sized the scratch for: chunk_for(n_edges), or another
-// value where a test wants a given split.
+// value where a test wants a given split. row_scale is null for a plain sum.
 template <typename T, typename I, bool GATHER>
 int launch(float* rin, const T* src, const I* gat, const int* row_off,
-           float* scratch, int n_rows, int s, long long n_edges, int chunk,
-           void* stream) {
+           const float* row_scale, float* scratch, int n_rows, int s,
+           long long n_edges, int chunk, void* stream) {
   if (n_rows <= 0 || n_edges <= 0 || s <= 0) return 0;
   if (chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = kWarp * kWarpsPerBlock;
   const long long chunks = (n_edges + chunk - 1) / chunk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec4 = s % 4 == 0;
-  if (vec4) {
-    segsum_chunks_kernel<T, I, 4, GATHER><<<grid_for(chunks), threads, 0, st>>>(
-        rin, src, gat, row_off, scratch, n_rows, s, chunk);
-  } else {
-    segsum_chunks_kernel<T, I, 1, GATHER><<<grid_for(chunks), threads, 0, st>>>(
-        rin, src, gat, row_off, scratch, n_rows, s, chunk);
+  if (row_scale != nullptr) {
+    return vec4 ? launch_as<T, I, 4, GATHER, true>(rin, src, gat, row_off, row_scale,
+                                                   scratch, n_rows, s, chunks, chunk, st)
+                : launch_as<T, I, 1, GATHER, true>(rin, src, gat, row_off, row_scale,
+                                                   scratch, n_rows, s, chunks, chunk, st);
   }
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0 || chunks < 2) return err;
-  if (vec4) {
-    segsum_spans_kernel<4><<<grid_for(chunks - 1), threads, 0, st>>>(
-        rin, row_off, scratch, n_rows, s, chunk);
-  } else {
-    segsum_spans_kernel<1><<<grid_for(chunks - 1), threads, 0, st>>>(
-        rin, row_off, scratch, n_rows, s, chunk);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return vec4 ? launch_as<T, I, 4, GATHER, false>(rin, src, gat, row_off, nullptr,
+                                                  scratch, n_rows, s, chunks, chunk, st)
+              : launch_as<T, I, 1, GATHER, false>(rin, src, gat, row_off, nullptr,
+                                                  scratch, n_rows, s, chunks, chunk, st);
 }
 
 }  // namespace
@@ -397,52 +431,57 @@ extern "C" {
 // scratch as [ceil(n_edges / chunk), 2, s] f32 and passes the chunk on.
 int pprx_segsum_chunk(long long n_edges) { return chunk_for(n_edges); }
 
+// Every entry below takes row_scale, f32 [n_rows] or null for a plain sum.
+
 int pprx_segsum_add_f32(float* rin, const float* contribs, const int* row_off,
-                        float* scratch, int n_rows, int s, long long n_edges,
-                        int chunk, void* stream) {
-  return launch<float, int, false>(rin, contribs, nullptr, row_off, scratch,
-                                   n_rows, s, n_edges, chunk, stream);
+                        const float* row_scale, float* scratch, int n_rows, int s,
+                        long long n_edges, int chunk, void* stream) {
+  return launch<float, int, false>(rin, contribs, nullptr, row_off, row_scale,
+                                   scratch, n_rows, s, n_edges, chunk, stream);
 }
 
 int pprx_segsum_add_bf16(float* rin, const void* contribs, const int* row_off,
-                         float* scratch, int n_rows, int s, long long n_edges,
-                         int chunk, void* stream) {
+                         const float* row_scale, float* scratch, int n_rows, int s,
+                         long long n_edges, int chunk, void* stream) {
   return launch<__nv_bfloat16, int, false>(
       rin, static_cast<const __nv_bfloat16*>(contribs), nullptr, row_off,
-      scratch, n_rows, s, n_edges, chunk, stream);
+      row_scale, scratch, n_rows, s, n_edges, chunk, stream);
 }
 
 int pprx_segsum_gather_add_f32_i32(float* rin, const float* table, const int* gat,
-                                   const int* row_off, float* scratch, int n_rows,
-                                   int s, long long n_edges, int chunk, void* stream) {
-  return launch<float, int, true>(rin, table, gat, row_off, scratch, n_rows, s,
-                                  n_edges, chunk, stream);
+                                   const int* row_off, const float* row_scale,
+                                   float* scratch, int n_rows, int s,
+                                   long long n_edges, int chunk, void* stream) {
+  return launch<float, int, true>(rin, table, gat, row_off, row_scale, scratch,
+                                  n_rows, s, n_edges, chunk, stream);
 }
 
 int pprx_segsum_gather_add_f32_i64(float* rin, const float* table,
                                    const long long* gat, const int* row_off,
-                                   float* scratch, int n_rows, int s,
-                                   long long n_edges, int chunk, void* stream) {
-  return launch<float, long long, true>(rin, table, gat, row_off, scratch,
-                                        n_rows, s, n_edges, chunk, stream);
+                                   const float* row_scale, float* scratch,
+                                   int n_rows, int s, long long n_edges, int chunk,
+                                   void* stream) {
+  return launch<float, long long, true>(rin, table, gat, row_off, row_scale,
+                                        scratch, n_rows, s, n_edges, chunk, stream);
 }
 
 int pprx_segsum_gather_add_bf16_i32(float* rin, const void* table, const int* gat,
-                                    const int* row_off, float* scratch,
-                                    int n_rows, int s, long long n_edges,
-                                    int chunk, void* stream) {
+                                    const int* row_off, const float* row_scale,
+                                    float* scratch, int n_rows, int s,
+                                    long long n_edges, int chunk, void* stream) {
   return launch<__nv_bfloat16, int, true>(
-      rin, static_cast<const __nv_bfloat16*>(table), gat, row_off, scratch,
-      n_rows, s, n_edges, chunk, stream);
+      rin, static_cast<const __nv_bfloat16*>(table), gat, row_off, row_scale,
+      scratch, n_rows, s, n_edges, chunk, stream);
 }
 
 int pprx_segsum_gather_add_bf16_i64(float* rin, const void* table,
                                     const long long* gat, const int* row_off,
-                                    float* scratch, int n_rows, int s,
-                                    long long n_edges, int chunk, void* stream) {
+                                    const float* row_scale, float* scratch,
+                                    int n_rows, int s, long long n_edges, int chunk,
+                                    void* stream) {
   return launch<__nv_bfloat16, long long, true>(
-      rin, static_cast<const __nv_bfloat16*>(table), gat, row_off, scratch,
-      n_rows, s, n_edges, chunk, stream);
+      rin, static_cast<const __nv_bfloat16*>(table), gat, row_off, row_scale,
+      scratch, n_rows, s, n_edges, chunk, stream);
 }
 
 }  // extern "C"

@@ -13,6 +13,10 @@ are the contiguous range ``[row_off[w], row_off[w+1])``. Two entries:
   what the reference's callers write as ``segsum_add(r, moving[gat], ...)``,
   without the ``[W, S]`` array.
 
+Both take an optional ``row_scale`` (one factor per output row on the row's
+sum): reverse push multiplies every edge's contribution by the inverse
+out-degree of its destination row, which is one factor per row.
+
 On CUDA tensors both launch the hand-written Hopper kernels of
 ``pprx_torch/csrc/segsum.cu`` (built at first use by ``pprx_torch._ext``):
 an edge-balanced pass and a small pass over the rows that span chunks,
@@ -34,18 +38,28 @@ import torch
 
 from pprx_torch import _ext
 
-# Calls that launched the kernels since the last reset, in all and by entry
-# ("segsum_add", "segsum_gather_add"): a run shows that its main path went
-# through a kernel by setting these to 0 before and reading them after.
-LAUNCHES = 0
-LAUNCHES_BY_ENTRY = {"segsum_add": 0, "segsum_gather_add": 0}
+# Calls that launched the kernels since the last reset, by (entry, whether
+# the call had a ``row_scale``): a run shows that its main path went through
+# a kernel by setting these to 0 before and reading them after.
+ENTRIES = ("segsum_add", "segsum_gather_add")
+LAUNCHES = {(entry, scaled): 0 for entry in ENTRIES for scaled in (False, True)}
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
-    for k in LAUNCHES_BY_ENTRY:
-        LAUNCHES_BY_ENTRY[k] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def launches(entry: str | None = None, scaled: bool | None = None,
+             since: dict | None = None) -> int:
+    """Launches counted since the last reset, or since ``since`` (an earlier
+    ``dict(LAUNCHES)``): of one entry or of both, with a ``row_scale``,
+    without, or either."""
+    return sum(
+        count - (since[key] if since else 0)
+        for key, count in LAUNCHES.items()
+        if entry in (None, key[0]) and scaled in (None, key[1])
+    )
 
 
 def row_offsets(sorted_ids: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -63,23 +77,42 @@ def segment_ids(row_off: torch.Tensor) -> torch.Tensor:
     return torch.repeat_interleave(rows, row_off.diff())
 
 
+def _add_rows_plain(rin, ids, rows, row_scale) -> torch.Tensor:
+    """``rin[ids[j]] += rows[j]``, or with a scale the rows' sums times
+    ``row_scale`` (summed unscaled first, as the kernel does)."""
+    if row_scale is None:
+        return rin.index_add_(0, ids, rows)
+    sums = torch.zeros_like(rin).index_add_(0, ids, rows)
+    return rin.add_(sums * row_scale.to(rin.dtype)[:, None])
+
+
 def segsum_add_plain(
-    rin: torch.Tensor, contribs: torch.Tensor, row_off: torch.Tensor
+    rin: torch.Tensor,
+    contribs: torch.Tensor,
+    row_off: torch.Tensor,
+    row_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The plain version, from the same row ranges the kernel reads:
-    ``rin[w] += contribs[j]`` for j in ``[row_off[w], row_off[w+1])``, in
-    place, in ``rin``'s dtype."""
+    ``rin[w] += [row_scale[w] *] sum of contribs[j]`` for j in
+    ``[row_off[w], row_off[w+1])``, in place, in ``rin``'s dtype."""
     lo, hi = int(row_off[0]), int(row_off[-1])
-    return rin.index_add_(0, segment_ids(row_off), contribs[lo:hi].to(rin.dtype))
+    rows = contribs[lo:hi].to(rin.dtype)
+    return _add_rows_plain(rin, segment_ids(row_off), rows, row_scale)
 
 
 def segsum_gather_add_plain(
-    rin: torch.Tensor, table: torch.Tensor, gat: torch.Tensor, row_off: torch.Tensor
+    rin: torch.Tensor,
+    table: torch.Tensor,
+    gat: torch.Tensor,
+    row_off: torch.Tensor,
+    row_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The plain version of the gather entry: ``rin[w] += table[gat[j]]``
-    for j in ``[row_off[w], row_off[w+1])``, in place, in ``rin``'s dtype."""
+    """The plain version of the gather entry: ``rin[w] += [row_scale[w] *]
+    sum of table[gat[j]]`` for j in ``[row_off[w], row_off[w+1])``, in
+    place, in ``rin``'s dtype."""
     lo, hi = int(row_off[0]), int(row_off[-1])
-    return rin.index_add_(0, segment_ids(row_off), table[gat[lo:hi]].to(rin.dtype))
+    rows = table[gat[lo:hi]].to(rin.dtype)
+    return _add_rows_plain(rin, segment_ids(row_off), rows, row_scale)
 
 
 _PTR, _INT, _LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -99,8 +132,9 @@ def _entries() -> dict:
         (torch.bfloat16, torch.int64): lib.pprx_segsum_gather_add_bf16_i64,
     }
     for (_, idx), fn in fns.items():
-        # rin, source, [gat,] row_off, scratch, n_rows, s, n_edges, chunk, stream
-        ptrs = 4 if idx is None else 5
+        # rin, source, [gat,] row_off, row_scale, scratch, n_rows, s, n_edges,
+        # chunk, stream
+        ptrs = 5 if idx is None else 6
         fn.argtypes = [*[_PTR] * ptrs, _INT, _INT, _LONG, _INT, _PTR]
         fn.restype = _INT
     lib.pprx_segsum_chunk.argtypes = [_LONG]
@@ -116,7 +150,7 @@ def chunk_for(n_edges: int) -> int:
     return _ext.load("segsum").pprx_segsum_chunk(n_edges)
 
 
-def _check(what, rin, source, name, gat, row_off) -> None:
+def _check(what, rin, source, name, gat, row_off, row_scale) -> None:
     """Shapes, and for CUDA tensors what the kernels take; ``name`` is what
     the entry calls its source operand."""
     if rin.dim() != 2 or source.dim() != 2 or source.shape[1] != rin.shape[1]:
@@ -131,6 +165,10 @@ def _check(what, rin, source, name, gat, row_off) -> None:
         if gat.dim() != 1 or gat.dtype not in (torch.int32, torch.int64):
             raise ValueError(f"{what}: gat must be a 1-D int32 or int64 tensor")
         operands.append(gat)
+    if row_scale is not None:
+        if row_scale.shape != (rin.shape[0],) or not row_scale.is_floating_point():
+            raise ValueError(f"{what}: row_scale must be a float [{rin.shape[0]}] tensor")
+        operands.append(row_scale)
     devs = {t.device for t in operands}
     if len(devs) != 1:
         raise ValueError(f"{what}: all operands must be on one device, got {devs}")
@@ -142,19 +180,20 @@ def _check(what, rin, source, name, gat, row_off) -> None:
         raise TypeError(f"{what} on CUDA takes an f32 rin, got {rin.dtype}")
     if source.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what} on CUDA takes f32 or bf16 {name}, got {source.dtype}")
+    if row_scale is not None and row_scale.dtype != torch.float32:
+        raise TypeError(f"{what} on CUDA takes an f32 row_scale, got {row_scale.dtype}")
     if not all(t.is_contiguous() for t in operands):
         raise ValueError(f"{what} on CUDA needs contiguous operands")
     if rin.data_ptr() % 16 or source.data_ptr() % 16:
         raise ValueError(f"{what} on CUDA needs 16-byte-aligned rin and {name}")
 
 
-def _launch(entry: str, rin, source, gat, row_off) -> None:
+def _launch(entry: str, rin, source, gat, row_off, row_scale) -> None:
     """Both launches of one call on checked CUDA operands, on the current
     stream. The grid and the scratch are sized from the length of the edge
     array, which bounds ``row_off[R] - row_off[0]``: nothing is read back
     from the device. With no rows or no edge array there is no launch and
     no count."""
-    global LAUNCHES
     n_rows, s = rin.shape
     n_edges = source.shape[0] if gat is None else gat.shape[0]
     if n_rows == 0 or n_edges == 0 or s == 0:
@@ -169,21 +208,22 @@ def _launch(entry: str, rin, source, gat, row_off) -> None:
         stream = torch.cuda.current_stream(rin.device).cuda_stream
         err = fn(
             rin.data_ptr(), source.data_ptr(), *gat_ptr, row_off.data_ptr(),
+            None if row_scale is None else row_scale.data_ptr(),
             scratch.data_ptr(), n_rows, s, n_edges, chunk, stream,
         )
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
-    LAUNCHES_BY_ENTRY[entry] += 1
+    LAUNCHES[entry, row_scale is not None] += 1
 
 
 def segsum_add_(
     rin: torch.Tensor,
     contribs: torch.Tensor,
     row_off: torch.Tensor,
+    row_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """``rin[w] += sum_{j in [row_off[w], row_off[w+1])} contribs[j]``, in
-    place; returns ``rin``. Edges outside ``[row_off[0], row_off[R])`` are
+    """``rin[w] += [row_scale[w] *] sum_{j in [row_off[w], row_off[w+1])}
+    contribs[j]``, in place; returns ``rin``. Edges outside ``[row_off[0], row_off[R])`` are
     not read: a caller drops the phantom row's padding edges by passing
     ``rin[:n]`` and ``row_off[:n+1]``.
 
@@ -192,11 +232,14 @@ def segsum_add_(
     row_off: int32 [R+1] per-row edge ranges (``row_offsets(ids, R)`` of
         the edges' ascending row ids); the kernel and the plain version
         both read only these.
+    row_scale: optional [R], one factor per row on the row's sum (f32 on
+        CUDA); ``None`` is the plain sum, bit for bit what it was without
+        the argument.
     """
-    _check("segsum_add_", rin, contribs, "contribs", None, row_off)
+    _check("segsum_add_", rin, contribs, "contribs", None, row_off, row_scale)
     if rin.device.type == "cpu":
-        return segsum_add_plain(rin, contribs, row_off)
-    _launch("segsum_add", rin, contribs, None, row_off)
+        return segsum_add_plain(rin, contribs, row_off, row_scale)
+    _launch("segsum_add", rin, contribs, None, row_off, row_scale)
     return rin
 
 
@@ -205,10 +248,12 @@ def segsum_gather_add_(
     table: torch.Tensor,
     gat: torch.Tensor,
     row_off: torch.Tensor,
+    row_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """``rin[w] += sum_{j in [row_off[w], row_off[w+1])} table[gat[j]]``, in
-    place; returns ``rin``: ``segsum_add_(rin, table[gat], row_off)``
-    without the ``[W, S]`` array. Entries of ``gat`` outside
+    """``rin[w] += [row_scale[w] *] sum_{j in [row_off[w], row_off[w+1])}
+    table[gat[j]]``, in place; returns ``rin``:
+    ``segsum_add_(rin, table[gat], row_off, row_scale)`` without the
+    ``[W, S]`` array. Entries of ``gat`` outside
     ``[row_off[0], row_off[R])`` are not read.
 
     table: [T, S], f32 or bf16 on CUDA, with f32 accumulation into an f32
@@ -216,9 +261,10 @@ def segsum_gather_add_(
     gat: int32 or int64 [W], row of ``table`` for each delivery-sorted
         edge; the kernel does not check that they lie in ``[0, T)``.
     row_off: int32 [R+1], as for ``segsum_add_``.
+    row_scale: optional [R], as for ``segsum_add_``.
     """
-    _check("segsum_gather_add_", rin, table, "table", gat, row_off)
+    _check("segsum_gather_add_", rin, table, "table", gat, row_off, row_scale)
     if rin.device.type == "cpu":
-        return segsum_gather_add_plain(rin, table, gat, row_off)
-    _launch("segsum_gather_add", rin, table, gat, row_off)
+        return segsum_gather_add_plain(rin, table, gat, row_off, row_scale)
+    _launch("segsum_gather_add", rin, table, gat, row_off, row_scale)
     return rin

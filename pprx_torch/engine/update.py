@@ -10,6 +10,18 @@ d, k edges deleted then (with p', d' the post-delete values) k' inserted:
                  d' >= 1:         p'[u] *= (d'+k')/d'; r[u] -= k'*p'[u]/(alpha*d')
                  d' == 0, k'>=1:  p'[u] *= k';         r[u] -= (k'-alpha)*p'[u]/alpha
 
+Reverse mode (p unchanged; needs the row means of p over each out-row):
+
+  r[u] += beta * ((P'p)(u) - (Pp)(u))
+  (Pp)(u) = mean of p over u's out-row, or p(u) if u is dangling.
+
+``(P'p) - (Pp)`` is non-zero only at rows whose out-edges changed, so the
+new row sums are the old ones plus two batch-sized scatters. The old row
+sums are one sweep of the whole window: the caller passes them in
+(``rowsum``; the fast driver gets them from the segment-sum kernel over its
+delivery-sorted views), or they are summed here from the COO ring in edge
+blocks, so that no ``[W, S]`` array is built.
+
 Batches are phantom-padded (u = w = N); phantom entries are exact no-ops
 because p[N] = 0. The per-edge scatters use ``index_add_``, which runs on
 atomics on CUDA: f32 sums there may differ from run to run in the last bits
@@ -24,12 +36,32 @@ from pprx_torch.config import PprConfig
 from pprx_torch.engine.state import FORWARD, PprState
 from pprx_torch.graph.dynamic import WindowGraph
 
+# Most bytes of gathered rows a COO sweep holds at once (its edge block).
+EDGE_BLOCK_BYTES = 1 << 28
+
 
 def _counts(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
     """int32 histogram of ``idx`` over ``n_rows`` bins. (``torch.bincount``
     on CUDA reads the max back to the host; this does not.)"""
     out = torch.zeros(n_rows, dtype=torch.int32, device=idx.device)
     return out.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+
+
+def edge_blocks(n_edges: int, row_bytes: int):
+    """``(lo, hi)`` ranges that cut ``n_edges`` edges into blocks whose
+    gathered rows (``row_bytes`` each) stay within ``EDGE_BLOCK_BYTES``."""
+    block = max(1, EDGE_BLOCK_BYTES // max(row_bytes, 1))
+    for lo in range(0, n_edges, block):
+        yield lo, min(lo + block, n_edges)
+
+
+def out_row_sums(p: torch.Tensor, graph: WindowGraph) -> torch.Tensor:
+    """``rowsum[u] = sum of p[w] over the window's edges (u, w)``, from the
+    COO ring in edge blocks (``index_add_`` per block)."""
+    rowsum = torch.zeros_like(p)
+    for lo, hi in edge_blocks(graph.capacity, p.shape[1] * p.element_size()):
+        rowsum.index_add_(0, graph.src[lo:hi], p[graph.dst[lo:hi]])
+    return rowsum
 
 
 def apply_edge_batch(
@@ -40,19 +72,20 @@ def apply_edge_batch(
     del_src: torch.Tensor,
     del_dst: torch.Tensor,
     cfg: PprConfig,
+    rowsum: torch.Tensor | None = None,
 ) -> tuple[PprState, WindowGraph]:
-    """Apply one batch of edge deletions then insertions (forward mode).
+    """Apply one batch of edge deletions then insertions.
 
-    Returns new ``p``/``r`` tensors and a new ``deg``; the inputs are not
-    modified, and the COO ring itself is rewritten by the stream driver.
-    Deletion batches must be valid: every (u,w) currently in the graph, with
-    multiplicity.
+    Returns a new ``r`` (and in forward mode a new ``p``) and a new ``deg``;
+    the inputs are not modified, and the COO ring itself is rewritten by
+    the stream driver: reverse-mode corrections read the old ring, so call
+    this before overwriting expiring slots. Deletion batches must be valid:
+    every (u,w) currently in the graph, with multiplicity.
+
+    ``rowsum`` (reverse mode only): the ``[N+1, S]`` sums of ``p`` over each
+    vertex's out-row in the old window, where the caller has them;
+    ``None`` sums them here (``out_row_sums``).
     """
-    if state.mode != FORWARD:
-        raise NotImplementedError(
-            "reverse-mode corrections are not ported yet "
-            "(ROADMAP queue 1, item 4 reverse / item 12)"
-        )
     dtype = state.r.dtype
     n_rows = state.p.shape[0]
     alpha = cfg.alpha
@@ -61,6 +94,22 @@ def apply_edge_batch(
     k_del = _counts(del_src, n_rows)
     k_ins = _counts(ins_src, n_rows)
     p, r = state.p, state.r
+    deg_new = d0 - k_del + k_ins
+    deg_new[-1] = 0  # phantom row degree pinned
+    new_graph = WindowGraph(src=graph.src, dst=graph.dst, deg=deg_new)
+
+    if state.mode != FORWARD:
+        if rowsum is None:
+            rowsum = out_row_sums(p, graph)
+        d0f = d0.clamp(min=1).to(dtype)
+        pp_old = torch.where((d0 == 0)[:, None], p, rowsum / d0f[:, None])
+        s_new = rowsum.index_add(0, del_src, p[del_dst], alpha=-1)
+        s_new.index_add_(0, ins_src, p[ins_dst])
+        d_newf = deg_new.clamp(min=1).to(dtype)
+        pp_new = torch.where((deg_new == 0)[:, None], p, s_new / d_newf[:, None])
+        r = r + beta * (pp_new - pp_old)
+        r[-1] = 0.0
+        return PprState(p=p, r=r, mode=state.mode), new_graph
 
     # ---- delete phase (old p, old degrees) ----
     d0f = d0.clamp(min=1).to(dtype)
@@ -93,11 +142,6 @@ def apply_edge_batch(
     r = r - r_sub[:, None] * p
     p = p * scale_p[:, None]
 
-    deg_new = d0 - k_del + k_ins
-    deg_new[-1] = 0  # phantom row degree pinned
     p[-1] = 0.0
     r[-1] = 0.0
-    return (
-        PprState(p=p, r=r, mode=state.mode),
-        WindowGraph(src=graph.src, dst=graph.dst, deg=deg_new),
-    )
+    return PprState(p=p, r=r, mode=state.mode), new_graph

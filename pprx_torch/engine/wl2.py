@@ -1,4 +1,4 @@
-"""Compact-frontier push engine v2 (port of ``pprx.engine.wl2``, forward).
+"""Compact-frontier push engine v2 (port of ``pprx.engine.wl2``).
 
 What the engine does is the reference's (see ``pprx/engine/wl2.py``):
 
@@ -32,8 +32,11 @@ How the port differs:
   (``STATS_GUARD``) is applied to the numbers afterwards, so the round
   schedule is the reference's. On this card the skipped pass is one read of
   ``r``, and skipping it would cost a second sync.
-
-Reverse mode is not ported yet (ROADMAP queue 1, item 12).
+- Reverse scan rounds hand the receiver's 1/d_out to the segment sum as its
+  per-row scale (the delivery row is the receiver), where the reference
+  either folds it into every edge or factors it out of a window-sized
+  delta array. Their count of edge pushes gathers the per-row count of
+  active queries, not the ``[W, S]`` mask.
 """
 
 from __future__ import annotations
@@ -61,18 +64,13 @@ SORT_DELIVER_MIN = 131_072
 _BIG = 2**31 // 2 - 1  # the reference's "skip" sentinel (int32 max // 2)
 
 
-def _not_forward(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: reverse mode is not ported yet (ROADMAP queue 1, item 12)"
-    )
-
-
 @dataclasses.dataclass
 class KillGraph:
     """COO window + kill-in-place CSR snapshot + fresh mini-CSR.
 
-    offsets/nbr/row_len: CSR snapshot sorted by the gather endpoint (src
-        forward); ``nbr`` holds the scatter endpoint, killed slots hold N.
+    offsets/nbr/row_len: CSR snapshot sorted by the mode's gather endpoint
+        (src forward, dst reverse); ``nbr`` holds the scatter endpoint,
+        killed slots hold N.
     snap_pos: int32[capacity] ring slot -> snapshot position.
     fr_gat/fr_sca: raw fresh-edge ring (insertion order; phantom-padded).
     f_off/f_nbr/f_len: fresh mini-CSR re-sorted from the ring each slide.
@@ -128,11 +126,9 @@ def compact(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
 def build_kill_graph(window: WindowGraph, mode: int, fring: int) -> KillGraph:
     """Snapshot build: stable-sort the window by gather endpoint, plus a
     second view sorted by scatter endpoint for scan rounds."""
-    if mode != FORWARD:
-        raise _not_forward("build_kill_graph")
     n = window.n
     dev = window.src.device
-    key, other = window.src, window.dst
+    key, other = (window.src, window.dst) if mode == FORWARD else (window.dst, window.src)
     key_s, order = torch.sort(key, stable=True)
     nbr = other[order]
     snap_pos = _inverse_perm(order)
@@ -189,9 +185,8 @@ def dense_round_sorted(
     scalars.
 
     ``bf16d`` delivers the increments in bf16 (f32 accumulation); the
-    residual removal stays exact in the state's dtype."""
-    if state.mode != FORWARD:
-        raise _not_forward("dense_round_sorted")
+    residual removal, and in reverse mode the per-row scale, stay exact in
+    the state's dtype."""
     dtype = state.r.dtype
     alpha = cfg.alpha
     n = kg.n
@@ -201,15 +196,26 @@ def dense_round_sorted(
     dangling = (deg == 0)[:, None]
     p2 = state.p + torch.where(dangling, mass, alpha * mass)
     r2 = state.r - mass
-    inv_deg = (1.0 / deg.clamp(min=1).to(dtype))[:, None]
-    moving = (1.0 - alpha) * mass * inv_deg
+    inv_deg = 1.0 / deg.clamp(min=1).to(dtype)
+    if state.mode == FORWARD:
+        moving = (1.0 - alpha) * mass * inv_deg[:, None]
+        scale = None
+        edge_pushes = (act * deg[:, None]).sum()
+    else:
+        beta = (1.0 - alpha) / alpha
+        moving = torch.where(dangling, beta * mass, (1.0 - alpha) * mass)
+        # the delivery row is the receiver: its 1/d_out is one factor on
+        # the row's sum
+        scale = inv_deg[:n]
+        # killed and unfilled slots name row n, whose count is 0
+        n_act = act.sum(dim=1)
+        edge_pushes = n_act[kg.d_gat].sum() + n_act[kg.fr_gat].sum()
     if bf16d:
         moving = moving.to(torch.bfloat16)
     # rows [0, n) only: the phantom row's edges (ring padding, unfilled
     # fresh slots) are never read, and row n is zeroed anyway
-    segsum_gather_add_(r2[:n], moving, kg.d_gat, kg.d_off[: n + 1])
-    segsum_gather_add_(r2[:n], moving, kg.fd_gat, kg.fd_off[: n + 1])
-    edge_pushes = (act * deg[:, None]).sum()
+    segsum_gather_add_(r2[:n], moving, kg.d_gat, kg.d_off[: n + 1], row_scale=scale)
+    segsum_gather_add_(r2[:n], moving, kg.fd_gat, kg.fd_off[: n + 1], row_scale=scale)
     p2[-1] = 0.0
     r2[-1] = 0.0
     return PprState(p=p2, r=r2, mode=state.mode), act.sum(), edge_pushes
@@ -299,16 +305,23 @@ def _compact_round(
 
     r_c = state.r[cand]  # [w, S], a copy: read before r is updated below
     deg_c = deg[cand]
-    th = cfg.eps * deg_c.clamp(min=1).to(dtype)
-    act_c = r_c.abs() > th[:, None]
+    if state.mode == FORWARD:
+        th = cfg.eps * deg_c.clamp(min=1).to(dtype)
+        act_c = r_c.abs() > th[:, None]
+    else:
+        act_c = r_c.abs() > cfg.eps
     any_c = act_c.any(dim=1)
     n_active = act_c.sum()
 
     mass = torch.where(act_c, r_c, 0.0)
     dang_c = (deg_c == 0)[:, None]
     p2 = state.p.index_add_(0, cand, torch.where(dang_c, mass, alpha * mass))
-    inv_deg_c = 1.0 / deg_c.clamp(min=1).to(dtype)
-    moving = (1.0 - alpha) * mass * inv_deg_c[:, None]
+    if state.mode == FORWARD:
+        inv_deg_c = 1.0 / deg_c.clamp(min=1).to(dtype)
+        moving = (1.0 - alpha) * mass * inv_deg_c[:, None]
+    else:
+        beta = (1.0 - alpha) / alpha
+        moving = torch.where(dang_c, beta * mass, (1.0 - alpha) * mass)
 
     live_row = any_c & (cand != n)
     # snapshot expansion (killed slots have nbr == n and are masked below)
@@ -321,6 +334,12 @@ def _compact_round(
     t2, pos2, val2 = rld_expand(kg.f_off[cand], len_f, g_cap)
     nbr2 = torch.where(val2, kg.f_nbr[pos2], n)
     c2 = moving[t2] * (val2 & (nbr2 != n)).to(dtype)[:, None]
+    if state.mode != FORWARD:
+        # the receiver's 1/d_out per lane: the sorted delivery below carries
+        # -mass at cand unscaled in the same vals, so it takes no row scale
+        inv_deg = 1.0 / deg.clamp(min=1).to(dtype)
+        c1 = c1 * inv_deg[nbr1][:, None]
+        c2 = c2 * inv_deg[nbr2][:, None]
 
     # one delivery: residual removal at cand + delivery at both target lists
     tgt_d = torch.cat([nbr1, nbr2])
@@ -384,8 +403,6 @@ def push_to_convergence_wl2(
     update the state's tensors in place: callers must not keep the input
     state.
     """
-    if state.mode != FORWARD:
-        raise _not_forward("push_to_convergence_wl2")
     n = kg.n
     dev = cand0.device
     tiers = tuple(tiers)

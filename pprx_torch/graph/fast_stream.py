@@ -10,7 +10,6 @@ sorts and the candidate seeds are derived on the device.
 from __future__ import annotations
 
 import dataclasses
-import json
 from typing import Iterator, Mapping
 
 import numpy as np
@@ -19,6 +18,7 @@ import torch
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.device import resolve_device
 from pprx_torch.convert import kill_graph_from_arrays, state_from_arrays
+from pprx_torch.engine.segsum import segsum_gather_add_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats, init_state
 from pprx_torch.engine.update import apply_edge_batch
 from pprx_torch.engine.wl2 import (
@@ -30,6 +30,22 @@ from pprx_torch.engine.wl2 import (
     refresh_fresh_csr,
 )
 from pprx_torch.graph.dynamic import WindowGraph
+
+
+def window_row_sums(p: torch.Tensor, kg: KillGraph) -> torch.Tensor:
+    """Reverse mode's ``rowsum[u] = sum of p[w] over the window's edges
+    (u, w)`` from the kill graph's delivery views, through the segment sum.
+
+    In reverse mode both views are sorted by ``src`` with ``d_gat = dst``,
+    and before a slide's kills and ring writes the live snapshot slots and
+    the fresh ring together are the old window (killed and unfilled slots
+    name row N, which is zero in ``p``). So the sweep is two launches of the
+    gather entry into zeros, with no ``[W, S]`` array and no atomics."""
+    n = kg.n
+    rowsum = torch.zeros_like(p)
+    segsum_gather_add_(rowsum[:n], p, kg.d_gat, kg.d_off[: n + 1])
+    segsum_gather_add_(rowsum[:n], p, kg.fd_gat, kg.fd_off[: n + 1])
+    return rowsum
 
 
 def wl2_slide_step(
@@ -49,10 +65,6 @@ def wl2_slide_step(
     Updates ``kg``'s tensors in place (the ring, the kill marks, the fresh
     ring): callers must not keep the pre-slide graph.
     """
-    if state.mode != FORWARD:
-        raise NotImplementedError(
-            "wl2_slide_step: reverse mode is not ported yet (ROADMAP queue 1, item 12)"
-        )
     n = kg.n
     dev = pack.device
     b = pack.shape[0] // 2
@@ -66,9 +78,10 @@ def wl2_slide_step(
     slots0 = (head + torch.arange(b, device=dev)) % wcap
     old_src0 = kg.window.src[slots0]
     old_dst0 = kg.window.dst[slots0]
-    # sort both batches by their correction-scatter endpoint (dst forward)
-    _, pn = torch.sort(new_dst0, stable=True)
-    _, po = torch.sort(old_dst0, stable=True)
+    # sort both batches by their correction-scatter endpoint
+    forward = state.mode == FORWARD
+    _, pn = torch.sort(new_dst0 if forward else new_src0, stable=True)
+    _, po = torch.sort(old_dst0 if forward else old_src0, stable=True)
     new_src, new_dst = new_src0[pn], new_dst0[pn]
     old_src, old_dst = old_src0[po], old_dst0[po]
     slots = slots0[pn]
@@ -78,8 +91,12 @@ def wl2_slide_step(
         mark[ends] = True
     c0n = mark[:n].sum()
     cand0 = compact(mark[:n], min(4 * b, n + 1), n)
-    # corrections read the old degrees, so they run before any mutation
-    state, w = apply_edge_batch(state, kg.window, new_src, new_dst, old_src, old_dst, cfg)
+    # corrections read the old degrees (and in reverse mode the old window's
+    # row sums), so they run before any mutation
+    rowsum = None if forward else window_row_sums(state.p, kg)
+    state, w = apply_edge_batch(
+        state, kg.window, new_src, new_dst, old_src, old_dst, cfg, rowsum=rowsum
+    )
     # kill the expiring edges in both snapshot views (their slots are
     # snapshot-era: the driver keeps rebuild_every * slide <= window)
     kg.nbr[kg.snap_pos[slots]] = n
@@ -88,9 +105,10 @@ def wl2_slide_step(
     w.src[slots] = new_src
     w.dst[slots] = new_dst
     # append the fresh edges to the ring + incremental per-row counts
-    kg.fr_gat[fcnt:fcnt + b] = new_src
-    kg.fr_sca[fcnt:fcnt + b] = new_dst
-    kg.f_len.index_add_(0, new_src, torch.ones_like(new_src))
+    new_gat, new_sca = (new_src, new_dst) if forward else (new_dst, new_src)
+    kg.fr_gat[fcnt:fcnt + b] = new_gat
+    kg.fr_sca[fcnt:fcnt + b] = new_sca
+    kg.f_len.index_add_(0, new_gat, torch.ones_like(new_gat))
     kg.f_len[n] = 0
     kg = refresh_fresh_csr(dataclasses.replace(kg, window=w))
     state, stats = push_to_convergence_wl2(
@@ -118,10 +136,6 @@ class FastStreamDriver:
         bf16d: bool = False,
         device: torch.device | str | None = None,
     ):
-        if mode != FORWARD:
-            raise NotImplementedError(
-                "FastStreamDriver: reverse mode is not ported yet (ROADMAP queue 1, item 12)"
-            )
         if stream_src.shape[0] < scfg.window:
             raise ValueError("stream shorter than one window")
         if rebuild_every * scfg.slide > scfg.window:
@@ -210,11 +224,14 @@ class FastStreamDriver:
         cls, path: str, stream_src: np.ndarray, stream_dst: np.ndarray,
         device: torch.device | str | None = None,
     ) -> "FastStreamDriver":
-        """A driver from a JAX fast-driver checkpoint ``.npz``."""
-        with np.load(path) as z:
-            arrays = {k: z[k] for k in z.files}
-        meta = json.loads(bytes(arrays.pop("meta")).decode())
-        return cls.from_arrays(stream_src, stream_dst, arrays, meta, device)
+        """A driver from a fast-driver checkpoint ``.npz`` of either package
+        (``pprx_torch.io.checkpoint.load_checkpoint``)."""
+        from pprx_torch.io.checkpoint import load_checkpoint  # imports this module
+
+        drv = load_checkpoint(path, stream_src, stream_dst, device)
+        if not isinstance(drv, cls):
+            raise ValueError(f"{path}: not a fast-driver checkpoint")
+        return drv
 
     def seed(self) -> PushStats:
         q = np.unique(np.asarray(self._queries, np.int32))

@@ -1,0 +1,140 @@
+"""Sliding-window stream driver on the dense engine (port of
+``pprx.graph.stream``).
+
+The host loop slides the window one batch per step: the b new edges
+overwrite the ring slots of the b expiring ones, the state is corrected
+(``apply_edge_batch``) and pushed back to convergence over the whole COO
+window (``push_to_convergence``). ``slide=1`` is the per-edge mode: every
+edge event is absorbed before the next is read.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Mapping
+
+import numpy as np
+import torch
+
+from pprx_torch.config import PprConfig, StreamConfig
+from pprx_torch.convert import state_from_arrays, window_from_arrays
+from pprx_torch.device import resolve_device
+from pprx_torch.engine.push import push_to_convergence
+from pprx_torch.engine.state import FORWARD, PprState, PushStats, init_state
+from pprx_torch.engine.update import apply_edge_batch
+from pprx_torch.graph.dynamic import WindowGraph
+
+
+def slide_step(
+    state: PprState,
+    graph: WindowGraph,
+    new_src: torch.Tensor,
+    new_dst: torch.Tensor,
+    slots: torch.Tensor,
+    cfg: PprConfig,
+) -> tuple[PprState, WindowGraph, PushStats]:
+    """One window slide: delete the expiring edges at ``slots``, insert the
+    new ones there, correct the state, push to convergence. Rewrites the
+    ring in place: callers must not keep the pre-slide graph."""
+    old_src = graph.src[slots]
+    old_dst = graph.dst[slots]
+    # corrections read the old ring (reverse-mode row sums) and old degrees
+    state, graph = apply_edge_batch(state, graph, new_src, new_dst, old_src, old_dst, cfg)
+    graph.src[slots] = new_src
+    graph.dst[slots] = new_dst
+    state, stats = push_to_convergence(state, graph, cfg)
+    return state, graph, stats
+
+
+class StreamDriver:
+    """Host loop over the slide steps. Holds the full stream in host
+    memory; the device holds the live window and the PPR state. ``queries``
+    selects the batched query vertices (sources in forward mode, targets in
+    reverse mode)."""
+
+    def __init__(
+        self,
+        stream_src: np.ndarray,
+        stream_dst: np.ndarray,
+        n: int,
+        queries,
+        cfg: PprConfig,
+        scfg: StreamConfig,
+        mode: int = FORWARD,
+        dtype: torch.dtype = torch.float32,
+        device: torch.device | str | None = None,
+    ):
+        if stream_src.shape[0] < scfg.window:
+            raise ValueError("stream shorter than one window")
+        self.device = resolve_device(device)
+        self.stream_src = np.asarray(stream_src, dtype=np.int32)
+        self.stream_dst = np.asarray(stream_dst, dtype=np.int32)
+        self.n = n
+        self.cfg = cfg
+        self.scfg = scfg
+        self.mode = mode
+        w = scfg.window
+        self.graph = WindowGraph.from_coo(
+            self.stream_src[:w], self.stream_dst[:w], n, capacity=w, device=self.device
+        )
+        self.state = init_state(n, queries, mode=mode, dtype=dtype, device=self.device)
+        self.head = w  # next stream position to insert
+        self.step_idx = 0
+
+    @classmethod
+    def from_arrays(
+        cls,
+        stream_src: np.ndarray,
+        stream_dst: np.ndarray,
+        arrays: Mapping[str, np.ndarray],
+        meta: Mapping,
+        device: torch.device | str | None = None,
+    ) -> "StreamDriver":
+        """A driver mid-stream from checkpoint arrays (``p, r, src, dst,
+        deg``) and metadata (``n, head, step_idx, mode, cfg, scfg``)."""
+        if meta.get("engine", "dense") != "dense":
+            raise ValueError(f"not a dense-driver state: engine={meta.get('engine')!r}")
+        drv = cls.__new__(cls)
+        drv.device = resolve_device(device)
+        drv.stream_src = np.asarray(stream_src, dtype=np.int32)
+        drv.stream_dst = np.asarray(stream_dst, dtype=np.int32)
+        drv.n = int(meta["n"])
+        drv.cfg = PprConfig(**meta["cfg"])
+        drv.scfg = StreamConfig(**meta["scfg"])
+        drv.mode = int(meta["mode"])
+        drv.state = state_from_arrays(arrays["p"], arrays["r"], drv.mode, drv.device)
+        drv.graph = window_from_arrays(arrays, drv.device)
+        drv.head = int(meta["head"])
+        drv.step_idx = int(meta["step_idx"])
+        return drv
+
+    def seed(self) -> PushStats:
+        """Static push on the initial window."""
+        self.state, stats = push_to_convergence(self.state, self.graph, self.cfg)
+        return stats
+
+    @property
+    def steps_available(self) -> int:
+        return (self.stream_src.shape[0] - self.head) // self.scfg.slide
+
+    def run(self, n_steps: int | None = None) -> Iterator[PushStats]:
+        """Slide the window ``n_steps`` times (default: until the stream
+        ends)."""
+        b = self.scfg.slide
+        w = self.scfg.window
+        total = self.steps_available if n_steps is None else n_steps
+        for _ in range(total):
+            if self.head + b > self.stream_src.shape[0]:
+                return
+            # one int32 transfer per slide: [new_src, new_dst, slots]
+            pack = np.concatenate([
+                self.stream_src[self.head : self.head + b],
+                self.stream_dst[self.head : self.head + b],
+                (np.arange(self.head, self.head + b) % w).astype(np.int32),
+            ])
+            pack = torch.from_numpy(pack).to(self.device)
+            self.state, self.graph, stats = slide_step(
+                self.state, self.graph, pack[:b], pack[b : 2 * b], pack[2 * b :], self.cfg
+            )
+            self.head += b
+            self.step_idx += 1
+            yield stats

@@ -1,0 +1,186 @@
+"""Checkpoints of the port (pprx_torch.io.checkpoint) against the JAX
+package's (pprx.io.checkpoint): files written by either package load in the
+other mid-stream and continue to the same state, f64 on the CPU at 1e-12,
+for the dense and the fast driver in both modes."""
+
+import dataclasses
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pprx.config import PprConfig, StreamConfig
+from pprx.graph.fast_stream import FastStreamDriver as JaxFastDriver
+from pprx.graph.io import synthetic_powerlaw_stream
+from pprx.graph.stream import StreamDriver as JaxDenseDriver
+from pprx.io.checkpoint import load_checkpoint as jax_load
+from pprx.io.checkpoint import save_checkpoint as jax_save
+from pprx_torch.convert import pad_len, tile_offsets
+from pprx_torch.engine.state import FORWARD, REVERSE
+from pprx_torch.graph.fast_stream import FastStreamDriver
+from pprx_torch.graph.stream import StreamDriver
+from pprx_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+torch.set_num_threads(1)
+
+CFG = PprConfig(alpha=0.2, eps=1e-8, max_rounds=10_000)
+SCFG = StreamConfig(window=250, slide=25)
+N, QUERIES = 35, [0, 6, 17]
+MODES = [FORWARD, REVERSE]
+FAST = dict(rebuild_every=3, e_top=64, n_tiers=3)
+
+
+def _stream():
+    src, dst, _ = synthetic_powerlaw_stream(N, 500, seed=11)
+    return src, dst
+
+
+def _jax(engine, mode):
+    src, dst = _stream()
+    if engine == "fast":
+        return JaxFastDriver(src, dst, N, QUERIES, CFG, SCFG, mode=mode, dtype=jnp.float64,
+                             segsum=False, **FAST)
+    return JaxDenseDriver(src, dst, N, QUERIES, CFG, SCFG, mode=mode, dtype=jnp.float64)
+
+
+def _port(engine, mode):
+    src, dst = _stream()
+    if engine == "fast":
+        return FastStreamDriver(src, dst, N, QUERIES, CFG, SCFG, mode=mode,
+                                dtype=torch.float64, device="cpu", **FAST)
+    return StreamDriver(src, dst, N, QUERIES, CFG, SCFG, mode=mode, dtype=torch.float64,
+                        device="cpu")
+
+
+def _window(drv):
+    return getattr(drv.graph, "window", drv.graph)
+
+
+def _assert_same(jdrv, tdrv):
+    np.testing.assert_allclose(tdrv.state.p.numpy(), np.asarray(jdrv.state.p), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(tdrv.state.r.numpy(), np.asarray(jdrv.state.r), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_array_equal(_window(tdrv).deg.numpy(), np.asarray(_window(jdrv).deg))
+    np.testing.assert_array_equal(_window(tdrv).src.numpy(), np.asarray(_window(jdrv).src))
+    assert (tdrv.head, tdrv.step_idx) == (jdrv.head, jdrv.step_idx)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("engine", ["dense", "fast"])
+def test_jax_checkpoint_resumes_in_port(tmp_path, engine, mode):
+    """JAX driver, 4 slides (one slide past a rebuild: kills and a
+    part-filled ring), save; the port loads it; both go on 4 slides (across
+    the next rebuild): equal rounds, the same state."""
+    a = _jax(engine, mode)
+    a.seed()
+    list(a.run(4))
+    path = str(tmp_path / "ck.npz")
+    jax_save(path, a)
+    b = load_checkpoint(path, *_stream(), device="cpu")
+    assert type(b) is (FastStreamDriver if engine == "fast" else StreamDriver)
+    assert b.mode == mode and b.state.p.dtype == torch.float64
+    assert dataclasses.asdict(b.cfg) == dataclasses.asdict(CFG)
+    _assert_same(a, b)
+    ra = [int(s.rounds) for s in a.run(4)]
+    rb = [s.rounds for s in b.run(4)]
+    assert ra == rb
+    _assert_same(a, b)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("engine", ["dense", "fast"])
+def test_port_checkpoint_resumes_in_jax(tmp_path, engine, mode):
+    """The other way: the port saves mid-stream, the JAX package loads the
+    file (its fast driver resumes on its kernel, in interpret mode here, as
+    the file's ``segsum`` says), both go on 4 slides."""
+    b = _port(engine, mode)
+    b.seed()
+    list(b.run(4))
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, b)
+    a = jax_load(path, *_stream())
+    assert type(a) is (JaxFastDriver if engine == "fast" else JaxDenseDriver)
+    if engine == "fast":
+        assert a.segsum is True and a.tiers == b.tiers and a.fcnt == b.fcnt == 25
+    _assert_same(a, b)
+    ra = [int(s.rounds) for s in a.run(4)]
+    rb = [s.rounds for s in b.run(4)]
+    assert ra == rb
+    _assert_same(a, b)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("slides", [0, 2, 3])
+def test_port_file_holds_the_reference_layout(tmp_path, slides, mode):
+    """The port's file, array by array, against the file the JAX driver
+    writes in the same state (an empty, a part-filled and a full fresh
+    ring): the padded delivery views, their scatter ids and tile offsets
+    included; the metadata but for ``segsum``."""
+    a, b = _jax("fast", mode), _port("fast", mode)
+    a.seed(), b.seed()
+    list(a.run(slides)), list(b.run(slides))
+    jax_save(str(tmp_path / "a.npz"), a)
+    save_checkpoint(str(tmp_path / "b.npz"), b)
+    with np.load(tmp_path / "a.npz") as za, np.load(tmp_path / "b.npz") as zb:
+        assert set(za.files) == set(zb.files)
+        for k in za.files:
+            if k in ("meta", "p", "r"):
+                continue
+            assert zb[k].dtype == za[k].dtype == np.int32, k
+            np.testing.assert_array_equal(zb[k], za[k], k)
+        np.testing.assert_allclose(zb["p"], za["p"], rtol=0, atol=1e-12)
+        ma = json.loads(bytes(za["meta"]).decode())
+        mb = json.loads(bytes(zb["meta"]).decode())
+    assert mb["tuning"].pop("segsum") is True and ma["tuning"].pop("segsum") is False
+    assert ma == mb
+
+
+@pytest.mark.parametrize("engine", ["dense", "fast"])
+def test_port_checkpoint_resumes_in_port(tmp_path, engine):
+    """A resumed port driver goes on bit for bit as the one that wrote the
+    file (CPU: the plain versions are deterministic)."""
+    b = _port(engine, REVERSE)
+    b.seed()
+    list(b.run(5))
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, b)
+    c = load_checkpoint(path, *_stream(), device="cpu")
+    if engine == "fast":
+        for attr in ("tiers", "rebuild_every", "e_top", "fring", "cap0", "fcnt", "bf16d"):
+            assert getattr(c, attr) == getattr(b, attr), attr
+        assert FastStreamDriver.from_checkpoint(path, *_stream(), device="cpu").head == b.head
+    assert [s.rounds for s in b.run(4)] == [s.rounds for s in c.run(4)]
+    assert torch.equal(b.state.p, c.state.p) and torch.equal(b.state.r, c.state.r)
+
+
+def test_other_engines_are_refused(tmp_path):
+    b = _port("dense", FORWARD)
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, b)
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(arrays["meta"]).decode())
+    meta["engine"] = "hybrid"
+    arrays["meta"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez_compressed(path, **arrays)
+    with pytest.raises(ValueError, match="hybrid.*not ported"):
+        load_checkpoint(path, *_stream(), device="cpu")
+    with pytest.raises(ValueError, match="not a fast-driver"):
+        save_checkpoint(path, b)
+        FastStreamDriver.from_checkpoint(path, *_stream(), device="cpu")
+
+
+@pytest.mark.parametrize("w,n_rows", [(1, 5), (2048, 256), (2049, 257), (250, 36), (75, 36)])
+def test_layout_formulas_match_reference(w, n_rows):
+    from pprx.engine.segsum import SEGSUM_TR, pad_len as jax_pad_len
+    from pprx.engine.segsum import tile_offsets as jax_tile_offsets
+
+    assert pad_len(w) == jax_pad_len(w)
+    offs = np.sort(np.random.default_rng(w).integers(0, w + 1, n_rows + 1)).astype(np.int32)
+    np.testing.assert_array_equal(
+        tile_offsets(offs, n_rows), np.asarray(jax_tile_offsets(jnp.asarray(offs), n_rows, SEGSUM_TR))
+    )
+

@@ -24,10 +24,13 @@ from pprx_torch.engine.segsum import (
     segsum_gather_add_,
     segsum_gather_add_plain,
 )
-from pprx_torch.engine.state import init_state
-from pprx_torch.graph.fast_stream import FastStreamDriver
+from pprx_torch.engine.state import REVERSE, init_state
+from pprx_torch.engine.update import out_row_sums
+from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
 from pprx_torch.graph.io import synthetic_powerlaw_stream
-from pprx_torch.ref.exact import exact_ppr
+from pprx_torch.graph.stream import StreamDriver
+from pprx_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from pprx_torch.ref.exact import exact_ppr, exact_ppr_columns
 
 
 def _cuda() -> torch.device:
@@ -53,10 +56,10 @@ def test_kernel_matches_plain(s, dtype):
     rin = torch.from_numpy(rng.random((n_rows, s), dtype=np.float32)).to(dev)
     off = row_offsets(seg_t, n_rows)
     ref = segsum_add_plain(rin.double(), contrib.double(), off)
-    before = segsum.LAUNCHES
+    before = segsum.launches()
     out = segsum_add_(rin.clone(), contrib, off)
     torch.cuda.synchronize()
-    assert segsum.LAUNCHES == before + 1
+    assert segsum.launches() == before + 1
     torch.testing.assert_close(out.double(), ref, rtol=1e-4, atol=1e-4)
 
 
@@ -149,6 +152,120 @@ def test_both_entries_on_trouble_cases(monkeypatch, chunk, case, s, dtype):
     assert torch.equal(out, again)
 
 
+def _span_lens(spans: int, c: int) -> list[int]:
+    """A hub row that reaches into ``spans`` chunks of ``c`` edges (it
+    starts mid-chunk), between short rows and empty ones."""
+    return [3, 0, c // 2 - 3, (spans - 1) * c + 9, 0, 5, 1] + [2] * c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [128, 8, 3])
+@pytest.mark.parametrize("spans", [1, 2, 3, 150])
+@pytest.mark.parametrize("chunk", [64, 256])
+def test_row_scale_on_spanning_rows(monkeypatch, chunk, spans, s, dtype):
+    """Both entries with a per-row scale far from 1 where a double or a
+    missing scale would show: a row inside one chunk, and rows that span 2,
+    3 and 150 chunks (their partials are scaled once, on their sum).
+    Against the plain version in f64, rtol = atol = 1e-4 (f32 sums of up to
+    ~4e4 terms in [0, 1) times a factor in [2, 6]); two launches agree bit
+    for bit."""
+    dev = _cuda()
+    monkeypatch.setattr(segsum, "chunk_for", lambda n_edges: chunk)
+    lens = _span_lens(spans, chunk)
+    rng = np.random.default_rng(spans + s)
+    off_np = np.concatenate([[0], np.cumsum(lens)])
+    w, n_rows, n_table = int(off_np[-1]), len(lens), 500
+    assert (off_np[4] - 1) // chunk - off_np[3] // chunk == spans - 1
+    off = torch.from_numpy(off_np.astype(np.int32)).to(dev)
+    scale = torch.from_numpy(2.0 + 4.0 * rng.random(n_rows, dtype=np.float32)).to(dev)
+    contrib = torch.from_numpy(rng.random((w, s), dtype=np.float32)).to(dev, dtype)
+    table = torch.from_numpy(rng.random((n_table, s), dtype=np.float32)).to(dev, dtype)
+    gat = torch.from_numpy(rng.integers(0, n_table, w).astype(np.int32)).to(dev)
+    rin = torch.from_numpy(rng.random((n_rows, s), dtype=np.float32)).to(dev)
+    before = dict(segsum.LAUNCHES)
+    for kernel, plain, source in (
+        (lambda r: segsum_add_(r, contrib, off, scale),
+         lambda r: segsum_add_plain(r, contrib.double(), off, scale.double()), "add"),
+        (lambda r: segsum_gather_add_(r, table, gat, off, row_scale=scale),
+         lambda r: segsum_gather_add_plain(r, table.double(), gat, off, scale.double()),
+         "gather"),
+    ):
+        ref = plain(rin.double())
+        out, again = kernel(rin.clone()), kernel(rin.clone())
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.double(), ref, rtol=1e-4, atol=1e-4, msg=source)
+        assert torch.equal(out, again), source
+    assert segsum.launches("segsum_add", scaled=True, since=before) == 2
+    assert segsum.launches("segsum_gather_add", scaled=True, since=before) == 2
+    assert segsum.launches(scaled=False, since=before) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TROUBLE)
+@pytest.mark.parametrize("chunk", [64, 256])
+def test_row_scale_on_trouble_cases(monkeypatch, chunk, case):
+    """The scaled form at the corners of the edge-balanced split (S=128 and
+    S=8, f32), sliced ``row_off`` included: ``row_scale[w]`` belongs to row
+    w of the rows given."""
+    dev = _cuda()
+    monkeypatch.setattr(segsum, "chunk_for", lambda n_edges: chunk)
+    lens, lead, trail = _trouble_lens(case, chunk)
+    rng = np.random.default_rng(len(case))
+    off_np = lead + np.concatenate([[0], np.cumsum(lens)])
+    w, n_rows, n_table = int(off_np[-1]) + trail, len(lens), 1000
+    off = torch.from_numpy(off_np.astype(np.int32)).to(dev)
+    scale = torch.from_numpy(0.25 + rng.random(n_rows, dtype=np.float32)).to(dev)
+    gat = torch.from_numpy(rng.integers(0, n_table, w)).to(dev)
+    for s in (128, 8):
+        table = torch.from_numpy(rng.random((n_table, s), dtype=np.float32)).to(dev)
+        rin = torch.from_numpy(rng.random((n_rows, s), dtype=np.float32)).to(dev)
+        ref = segsum_gather_add_plain(rin.double(), table.double(), gat, off, scale.double())
+        out = segsum_gather_add_(rin.clone(), table, gat, off, row_scale=scale)
+        again = segsum_gather_add_(rin.clone(), table, gat, off, row_scale=scale)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.double(), ref, rtol=1e-4, atol=1e-4)
+        assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_unit_scale_matches_no_scale():
+    """A scale of ones against no scale on skewed rows: the same sums (the
+    scaled path multiplies by 1.0, which is exact), bit for bit."""
+    dev = _cuda()
+    rng = np.random.default_rng(8)
+    n_rows, w, s = 5000, 300_000, 128
+    seg = np.minimum(rng.zipf(1.3, size=w) % (n_rows - 1), n_rows - 2).astype(np.int32)
+    seg.sort()
+    off = row_offsets(torch.from_numpy(seg).to(dev), n_rows)
+    table = torch.from_numpy(rng.random((n_rows, s), dtype=np.float32)).to(dev)
+    gat = torch.from_numpy(rng.integers(0, n_rows, w).astype(np.int32)).to(dev)
+    rin = torch.from_numpy(rng.random((n_rows, s), dtype=np.float32)).to(dev)
+    ones = torch.ones(n_rows, device=dev)
+    plain = segsum_gather_add_(rin.clone(), table, gat, off)
+    scaled = segsum_gather_add_(rin.clone(), table, gat, off, row_scale=ones)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, scaled)
+
+
+@pytest.mark.cuda
+def test_row_scale_refuses():
+    dev = _cuda()
+    off = torch.tensor([0, 2, 4], dtype=torch.int32, device=dev)
+    contrib = torch.ones(4, 4, device=dev)
+    rin = torch.zeros(2, 4, device=dev)
+    with pytest.raises(TypeError, match="f32 row_scale"):
+        segsum_add_(rin, contrib, off, torch.ones(2, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError, match="row_scale"):
+        segsum_add_(rin, contrib, off, torch.ones(3, device=dev))
+    with pytest.raises(ValueError, match="one device"):
+        segsum_add_(rin, contrib, off, torch.ones(2))
+    with pytest.raises(ValueError, match="contiguous"):
+        segsum_add_(rin, contrib, off, torch.ones(4, device=dev)[::2])
+    out = segsum_add_(rin, contrib, off, torch.tensor([0.5, 3.0], device=dev))
+    assert out[:, 0].tolist() == [1.0, 6.0]
+
+
 @pytest.mark.cuda
 def test_repeat_launches_are_bit_identical_on_skewed_rows():
     """What the kernels offer that ``index_add_`` on the card does not: no
@@ -175,11 +292,11 @@ def test_no_edge_array_launches_nothing():
     dev = _cuda()
     rin = torch.ones(4, 8, device=dev)
     off = torch.zeros(5, dtype=torch.int32, device=dev)
-    before = segsum.LAUNCHES
+    before = segsum.launches()
     segsum_add_(rin, torch.empty(0, 8, device=dev), off)
     segsum_gather_add_(rin, torch.ones(3, 8, device=dev),
                        torch.empty(0, dtype=torch.int32, device=dev), off)
-    assert segsum.LAUNCHES == before
+    assert segsum.launches() == before
     assert bool((rin == 1).all())
 
 
@@ -189,10 +306,10 @@ def test_gather_entry_counts_and_refuses():
     off = torch.tensor([0, 2, 4], dtype=torch.int32, device=dev)
     gat = torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=dev)
     table = torch.ones(2, 4, device=dev)
-    before = dict(segsum.LAUNCHES_BY_ENTRY)
+    before = dict(segsum.LAUNCHES)
     out = segsum_gather_add_(torch.zeros(2, 4, device=dev), table, gat, off)
-    assert segsum.LAUNCHES_BY_ENTRY["segsum_gather_add"] == before["segsum_gather_add"] + 1
-    assert segsum.LAUNCHES_BY_ENTRY["segsum_add"] == before["segsum_add"]
+    assert segsum.launches("segsum_gather_add", since=before) == 1
+    assert segsum.launches("segsum_add", since=before) == 0
     assert bool((out == 2).all())
     with pytest.raises(TypeError, match="table"):
         segsum_gather_add_(torch.zeros(2, 4, device=dev), table.half(), gat, off)
@@ -254,9 +371,79 @@ def test_fast_stream_on_card_matches_cpu_f64():
                            device="cpu", **kw)
     gpu = FastStreamDriver(src, dst, n, [0, 6, 17], cfg, scfg, dtype=torch.float32,
                            device=dev, **kw)
-    before = segsum.LAUNCHES
+    before = segsum.launches()
     for d in (cpu, gpu):
         d.seed()
         list(d.run(10))
-    assert segsum.LAUNCHES > before
+    assert segsum.launches() > before
     np.testing.assert_allclose(gpu.state.p.cpu().numpy(), cpu.state.p.numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_reverse_stream_on_card_matches_cpu_f64():
+    """The reverse stream on the card in f32 (scan rounds and row sums
+    through the scaled and the plain gather entry) against the CPU in f64,
+    then the reverse contract against exact columns of M: within 2 eps."""
+    dev = _cuda()
+    n = 35
+    src, dst, _ = synthetic_powerlaw_stream(n, 500, seed=11)
+    cfg = PprConfig(alpha=0.2, eps=1e-6, max_rounds=10_000)
+    scfg = StreamConfig(window=250, slide=25)
+    kw = dict(mode=REVERSE, rebuild_every=3, e_top=16, n_tiers=1)
+    cpu = FastStreamDriver(src, dst, n, [0, 6, 17], cfg, scfg, dtype=torch.float64,
+                           device="cpu", **kw)
+    gpu = FastStreamDriver(src, dst, n, [0, 6, 17], cfg, scfg, dtype=torch.float32,
+                           device=dev, **kw)
+    before = dict(segsum.LAUNCHES)
+    for d in (cpu, gpu):
+        d.seed()
+        list(d.run(10))
+    scaled = segsum.launches("segsum_gather_add", scaled=True, since=before)
+    total = segsum.launches("segsum_gather_add", since=before)
+    assert scaled > 0 and total >= scaled + 20  # scans, and two row-sum launches a slide
+    np.testing.assert_allclose(gpu.state.p.cpu().numpy(), cpu.state.p.numpy(), atol=1e-5)
+    views = window_row_sums(gpu.state.p, gpu.graph)
+    sweep = out_row_sums(gpu.state.p, gpu.graph.window)
+    torch.testing.assert_close(views, sweep, rtol=1e-5, atol=1e-6)
+    cols = exact_ppr_columns(gpu.hsrc, gpu.hdst, n, [0, 6, 17], cfg.alpha, device=dev)
+    assert np.abs(gpu.state.p[:n].cpu().double().numpy() - cols.T).max() <= 2 * cfg.eps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, REVERSE])
+def test_dense_stream_on_card_matches_fast_stream(mode):
+    dev = _cuda()
+    n = 35
+    src, dst, _ = synthetic_powerlaw_stream(n, 500, seed=11)
+    cfg = PprConfig(alpha=0.2, eps=1e-6, max_rounds=10_000)
+    scfg = StreamConfig(window=250, slide=25)
+    a = StreamDriver(src, dst, n, [0, 6, 17], cfg, scfg, mode=mode, device=dev)
+    b = FastStreamDriver(src, dst, n, [0, 6, 17], cfg, scfg, mode=mode, rebuild_every=3,
+                         device=dev)
+    for d in (a, b):
+        d.seed()
+        list(d.run(6))
+    assert a.state.p.device.type == "cuda"
+    torch.testing.assert_close(a.state.p, b.state.p, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(tmp_path):
+    """Save on the card, load on the card and on the CPU, one slide each:
+    the same state to 1e-5 (the small scatters use atomics on CUDA)."""
+    dev = _cuda()
+    src, dst, n = synthetic_powerlaw_stream(300, 3000, seed=3)
+    cfg = PprConfig(alpha=0.15, eps=1e-6)
+    a = FastStreamDriver(src, dst, n, [0, 5, 9], cfg, StreamConfig(window=1500, slide=100),
+                         mode=REVERSE, rebuild_every=2, device=dev)
+    a.seed()
+    list(a.run(3))
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, a)
+    b = load_checkpoint(path, src, dst)
+    c = load_checkpoint(path, src, dst, device="cpu")
+    assert b.device.type == "cuda" and c.device.type == "cpu"
+    for d in (a, b, c):
+        list(d.run(1))
+    np.testing.assert_allclose(b.state.p.cpu().numpy(), a.state.p.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(c.state.p.numpy(), a.state.p.cpu().numpy(), atol=1e-5)

@@ -1,5 +1,6 @@
 """Port of the fast stream driver (pprx_torch.graph.fast_stream) against the
-JAX FastStreamDriver on the same stream, and against exact PPR."""
+JAX FastStreamDriver and the dense drivers on the same stream, both modes,
+and against exact PPR."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,9 +11,14 @@ from pprx.config import PprConfig, StreamConfig
 from pprx.eval.metrics import l1_error
 from pprx.graph.fast_stream import FastStreamDriver as JaxDriver
 from pprx.graph.io import synthetic_powerlaw_stream
+from pprx.graph.stream import StreamDriver as JaxDenseDriver
 from pprx.ref.exact import exact_ppr
 from pprx.retrieve.topk import topk_candidates as jax_topk
-from pprx_torch.graph.fast_stream import FastStreamDriver
+from pprx_torch.engine.state import FORWARD, REVERSE
+from pprx_torch.engine.update import out_row_sums
+from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
+from pprx_torch.graph.stream import StreamDriver
+from pprx_torch.ref.exact import exact_ppr_columns
 from pprx_torch.retrieve.topk import topk_candidates
 
 torch.set_num_threads(1)
@@ -23,11 +29,11 @@ QUERIES = [0, 6, 17]
 N = 35
 
 
-def _pair():
+def _pair(mode=FORWARD):
     """The JAX and port drivers on tests/test_wl2.py's stream, f64,
     rebuild_every=3 (several snapshot rebuilds in 10 slides)."""
     src, dst, _ = synthetic_powerlaw_stream(N, 500, seed=11)
-    kw = dict(rebuild_every=3, e_top=64, n_tiers=3)
+    kw = dict(mode=mode, rebuild_every=3, e_top=64, n_tiers=3)
     a = JaxDriver(src, dst, N, QUERIES, CFG, SCFG, dtype=jnp.float64, segsum=False, **kw)
     b = FastStreamDriver(src, dst, N, QUERIES, CFG, SCFG, dtype=torch.float64, device="cpu", **kw)
     return a, b
@@ -53,6 +59,84 @@ def test_fast_stream_matches_jax():
     np.testing.assert_array_equal(b.graph.window.src.numpy(), np.asarray(a.graph.window.src))
 
 
+def test_fast_stream_reverse_matches_jax():
+    a, b = _pair(REVERSE)
+    assert b.tiers == a.tiers
+    sa, sb = a.seed(), b.seed()
+    assert sb.rounds == int(sa.rounds)
+    ra = [(int(s.rounds), int(s.wl_rounds)) for s in a.run(10)]
+    rb = [(s.rounds, s.wl_rounds) for s in b.run(10)]
+    assert ra == rb and sum(wl for _, wl in rb) > 0
+    assert_same_state(a, b)
+    np.testing.assert_array_equal(b.hsrc, a.hsrc)
+    # the reverse kill graph gathers by dst: the fresh ring holds (dst, src)
+    np.testing.assert_array_equal(b.graph.fr_gat.numpy(), np.asarray(a.graph.fr_gat))
+    np.testing.assert_array_equal(b.graph.fr_sca.numpy(), np.asarray(a.graph.fr_sca))
+    np.testing.assert_array_equal(b.graph.f_len.numpy(), np.asarray(a.graph.f_len))
+
+
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+def test_fast_stream_matches_dense_stream(mode):
+    """tests/test_wl2.py's test of the same name on the port: the fast
+    driver against the port's dense driver and the JAX dense driver, equal
+    rounds per slide, p/r at 1e-12, ``deg`` equal."""
+    src, dst, _ = synthetic_powerlaw_stream(N, 500, seed=11)
+    j = JaxDenseDriver(src, dst, N, QUERIES, CFG, SCFG, mode=mode, dtype=jnp.float64)
+    a = StreamDriver(src, dst, N, QUERIES, CFG, SCFG, mode=mode, dtype=torch.float64,
+                     device="cpu")
+    b = FastStreamDriver(src, dst, N, QUERIES, CFG, SCFG, mode=mode, dtype=torch.float64,
+                         rebuild_every=3, e_top=64, n_tiers=3, device="cpu")
+    j.seed(), a.seed(), b.seed()
+    rj = [int(s.rounds) for s in j.run(10)]
+    ra = [s.rounds for s in a.run(10)]
+    rb = [s.rounds for s in b.run(10)]
+    assert rj == ra == rb
+    for ref_p, ref_r, ref_deg in ((a.state.p.numpy(), a.state.r.numpy(), a.graph.deg.numpy()),
+                                  (np.asarray(j.state.p), np.asarray(j.state.r),
+                                   np.asarray(j.graph.deg))):
+        np.testing.assert_allclose(b.state.p.numpy(), ref_p, rtol=0, atol=1e-12)
+        np.testing.assert_allclose(b.state.r.numpy(), ref_r, rtol=0, atol=1e-12)
+        np.testing.assert_array_equal(b.graph.window.deg.numpy(), ref_deg)
+
+
+def test_reverse_rowsum_routes_agree_on_every_slide():
+    """The reverse corrections' old row sums by both routes, before every
+    slide of a stream that crosses three rebuilds: from the kill graph's
+    delivery views through the segment sum (killed snapshot slots, a fresh
+    ring that is empty, part-filled and full) against the COO sweep of the
+    ring, f64, 1e-12."""
+    _, b = _pair(REVERSE)
+    b.seed()
+    seen = set()
+    for _ in range(10):
+        views = window_row_sums(b.state.p, b.graph)
+        sweep = out_row_sums(b.state.p, b.graph.window)
+        np.testing.assert_allclose(views.numpy(), sweep.numpy(), rtol=0, atol=1e-12)
+        assert float(sweep.abs().sum()) > 0
+        seen.add((b.fcnt, int((b.graph.d_gat == N).sum())))
+        assert len(list(b.run(1))) == 1
+    # (ring fill, killed slots) before each slide: 1, 2 and 3 slides after a
+    # rebuild (the driver rebuilds, back to (0, 0), inside the slide that
+    # finds the ring full): three rebuilds in 10 slides
+    assert seen == {(0, 0), (25, 25), (50, 50), (75, 75)} and b.step_idx == 10
+
+
+def test_reverse_stream_against_exact_columns():
+    """The reverse contract after a stream and a refine: max_v |p[v, j] -
+    M[v, t_j]| <= eps in f64 (|r| <= eps and the rows of M sum to 1)."""
+    a, b = _pair(REVERSE)
+    a.seed(), b.seed()
+    list(a.run(7)), list(b.run(7))
+    cols = exact_ppr_columns(b.hsrc, b.hdst, N, QUERIES, CFG.alpha, tol=1e-14, device="cpu")
+    p = b.state.p.numpy()[:N]
+    assert np.abs(p - cols.T).max() <= CFG.eps
+    assert float(b.state.r.abs().max()) <= CFG.eps
+    sa, sb = a.refine(5e-10), b.refine(5e-10)
+    assert sb.rounds == int(sa.rounds) > 0
+    assert_same_state(a, b)
+    assert np.abs(b.state.p.numpy()[:N] - cols.T).max() <= 5e-10
+
+
 def test_fast_stream_sorted_compact_delivery_matches_jax(monkeypatch):
     """``SORT_DELIVER_MIN`` lowered in both packages, so every compact round
     of the stream sorts its lanes and delivers through the segment sum (the
@@ -66,7 +150,8 @@ def test_fast_stream_sorted_compact_delivery_matches_jax(monkeypatch):
     fused = twl2.segsum_gather_add_
     monkeypatch.setattr(
         twl2, "segsum_gather_add_",
-        lambda rin, table, gat, off: (calls.append(gat.dtype), fused(rin, table, gat, off))[1],
+        lambda rin, table, gat, off, **kw: (
+            calls.append(gat.dtype), fused(rin, table, gat, off, **kw))[1],
     )
     a, b = _pair()
     a.seed(), b.seed()
@@ -149,6 +234,6 @@ def test_driver_refuses_bad_configs():
     src, dst, _ = synthetic_powerlaw_stream(N, 500, seed=11)
     with pytest.raises(ValueError, match="rebuild_every"):
         FastStreamDriver(src, dst, N, QUERIES, CFG, SCFG, rebuild_every=11, device="cpu")
-    with pytest.raises(NotImplementedError, match="reverse"):
-        FastStreamDriver(src, dst, N, QUERIES, CFG, SCFG, mode=1, device="cpu")
+    with pytest.raises(ValueError, match="shorter"):
+        FastStreamDriver(src[:100], dst[:100], N, QUERIES, CFG, SCFG, device="cpu")
 

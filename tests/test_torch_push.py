@@ -1,0 +1,166 @@
+"""Port of the dense engine and its driver (pprx_torch.engine.push,
+pprx_torch.graph.stream) against the JAX package in f64: element by element
+at 1e-12 with equal rounds (the same arithmetic in the same order on the
+CPU), and against the exact-PPR matrix, both modes."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pprx_torch.engine.update as tupdate
+from pprx.config import PprConfig, StreamConfig
+from pprx.engine.push import push_round as jax_push_round
+from pprx.engine.push import push_to_convergence as jax_push_to_convergence
+from pprx.engine.state import init_state as jax_init_state
+from pprx.graph.dynamic import WindowGraph as JaxWindow
+from pprx.graph.io import synthetic_powerlaw_stream
+from pprx.graph.stream import StreamDriver as JaxStreamDriver
+from pprx.ref.exact import exact_ppr_matrix
+from pprx_torch.engine.push import push_round, push_round_given_act, push_to_convergence
+from pprx_torch.engine.state import FORWARD, REVERSE, init_state
+from pprx_torch.graph.dynamic import WindowGraph
+from pprx_torch.graph.stream import StreamDriver
+from tests.conftest import random_multigraph
+
+torch.set_num_threads(1)
+
+ALPHA = 0.2
+CFG = PprConfig(alpha=ALPHA, eps=1e-7, max_rounds=10_000)
+MODES = [FORWARD, REVERSE]
+
+
+def _graph(seed, n=25, m=120, dangling=(3, 11)):
+    """A multigraph in which the ``dangling`` vertices have no out-edge
+    (one of them is a query below), in a ring with phantom padding."""
+    rng = np.random.default_rng(seed)
+    src, dst = random_multigraph(rng, n, m)
+    for v in dangling:
+        src[src == v] = (v + 1) % n
+    dst[src == dst] = (dst[src == dst] + 1) % n
+    return src, dst, n
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_push_to_convergence_matches_jax(mode, seed):
+    src, dst, n = _graph(seed)
+    queries = [0, 3, 7, 7, 24]  # a dangling query and a duplicate
+    jst, jstats = jax_push_to_convergence(
+        jax_init_state(n, queries, mode=mode, dtype=jnp.float64),
+        JaxWindow.from_coo(src, dst, n, capacity=130), CFG)
+    tst, tstats = push_to_convergence(
+        init_state(n, queries, mode=mode, dtype=torch.float64, device="cpu"),
+        WindowGraph.from_coo(src, dst, n, capacity=130, device="cpu"), CFG)
+    assert tstats.rounds == int(jstats.rounds) > 0
+    assert tstats.syncs == tstats.rounds + 1
+    assert tstats.pushes == float(jstats.pushes)
+    assert tstats.edge_pushes == float(jstats.edge_pushes)
+    np.testing.assert_allclose(tst.p.numpy(), np.asarray(jst.p), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(tst.r.numpy(), np.asarray(jst.r), rtol=0, atol=1e-12)
+    assert tst.p[-1].abs().sum() == 0 and tst.r[-1].abs().sum() == 0
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_push_matches_exact_and_invariant(mode, seed):
+    """The tests of tests/test_push_jax.py on the port: the invariant to
+    1e-10 and p within eps * n of the exact matrix."""
+    src, dst, n = _graph(seed)
+    queries = [0, 3, 7, 7, 24]
+    st, stats = push_to_convergence(
+        init_state(n, queries, mode=mode, dtype=torch.float64, device="cpu"),
+        WindowGraph.from_coo(src, dst, n, device="cpu"), CFG)
+    assert stats.rounds > 0 and stats.pushes > 0
+    M = exact_ppr_matrix(src, dst, n, ALPHA)
+    p, r = st.p.numpy()[:n], st.r.numpy()[:n]
+    for j, q in enumerate(queries):
+        if mode == FORWARD:
+            lhs, tgt = p[:, j] + r[:, j] @ M, M[q]
+        else:
+            lhs, tgt = p[:, j] + M @ r[:, j], M[:, q]
+        np.testing.assert_allclose(lhs, tgt, rtol=0, atol=1e-10)
+        assert np.abs(p[:, j] - tgt).max() < CFG.eps * n
+
+
+@pytest.mark.parametrize("block_edges", [1, 9, 10**6])
+@pytest.mark.parametrize("mode", MODES)
+def test_push_round_in_edge_blocks_matches_jax(monkeypatch, mode, block_edges):
+    """One round from a mid-push state with the ring cut into edge blocks of
+    any size: the state and both counts are the reference's."""
+    src, dst, n = _graph(2)
+    queries = [0, 3, 9]
+    cfg = PprConfig(alpha=ALPHA, eps=1e-3)
+    jw = JaxWindow.from_coo(src, dst, n, capacity=128)
+    tw = WindowGraph.from_coo(src, dst, n, capacity=128, device="cpu")
+    jst = jax_init_state(n, queries, mode=mode, dtype=jnp.float64)
+    tst = init_state(n, queries, mode=mode, dtype=torch.float64, device="cpu")
+    monkeypatch.setattr(tupdate, "EDGE_BLOCK_BYTES", block_edges * len(queries) * 8)
+    for _ in range(3):
+        jst, jna, jew = jax_push_round(jst, jw, cfg)
+        tst, tna, tew = push_round(tst, tw, cfg)
+        assert int(tna) == float(jna) and int(tew) == float(jew) and int(tew) > 0
+        np.testing.assert_allclose(tst.p.numpy(), np.asarray(jst.p), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(tst.r.numpy(), np.asarray(jst.r), rtol=0, atol=1e-12)
+
+
+def test_push_round_given_act_uses_the_callers_mask():
+    src, dst, n = _graph(3)
+    tw = WindowGraph.from_coo(src, dst, n, device="cpu")
+    st = init_state(n, [0, 5], dtype=torch.float64, device="cpu")
+    act = torch.zeros_like(st.r, dtype=torch.bool)
+    st2, na, ew = push_round_given_act(st, act, tw, CFG)
+    assert int(na) == 0 and int(ew) == 0
+    assert torch.equal(st2.r, st.r) and torch.equal(st2.p, st.p)
+
+
+def _drivers(mode, scfg, seed=11, n=35, total=500, queries=(0, 6, 17)):
+    src, dst, _ = synthetic_powerlaw_stream(n, total, seed=seed)
+    cfg = PprConfig(alpha=0.2, eps=1e-8, max_rounds=10_000)
+    a = JaxStreamDriver(src, dst, n, list(queries), cfg, scfg, mode=mode, dtype=jnp.float64)
+    b = StreamDriver(src, dst, n, list(queries), cfg, scfg, mode=mode, dtype=torch.float64,
+                     device="cpu")
+    return a, b, src, dst
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_dense_stream_matches_jax(mode):
+    a, b, _, _ = _drivers(mode, StreamConfig(window=250, slide=25))
+    assert b.seed().rounds == int(a.seed().rounds)
+    assert b.steps_available == a.steps_available == 10
+    ra = [int(s.rounds) for s in a.run(10)]
+    rb = [s.rounds for s in b.run(10)]
+    assert ra == rb
+    np.testing.assert_allclose(b.state.p.numpy(), np.asarray(a.state.p), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(b.state.r.numpy(), np.asarray(a.state.r), rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(b.graph.deg.numpy(), np.asarray(a.graph.deg))
+    np.testing.assert_array_equal(b.graph.src.numpy(), np.asarray(a.graph.src))
+    assert (b.head, b.step_idx, b.steps_available) == (a.head, a.step_idx, 0)
+    assert list(b.run()) == []  # the stream has ended
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_dense_stream_per_edge_mode(mode):
+    """``slide=1``: every edge event is absorbed before the next is read.
+    Equal to the JAX driver after 40 events, and exact on the final window
+    to eps * n."""
+    n, w = 20, 60
+    a, b, src, dst = _drivers(mode, StreamConfig(window=w, slide=1), seed=2, n=n, total=100,
+                              queries=(1, 4))
+    a.seed(), b.seed()
+    ra = [int(s.rounds) for s in a.run(40)]
+    rb = [s.rounds for s in b.run(40)]
+    assert ra == rb and b.head == w + 40
+    np.testing.assert_allclose(b.state.p.numpy(), np.asarray(a.state.p), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(b.state.r.numpy(), np.asarray(a.state.r), rtol=0, atol=1e-12)
+    M = exact_ppr_matrix(src[40 : w + 40], dst[40 : w + 40], n, 0.2)
+    p = b.state.p.numpy()[:n]
+    for j, q in enumerate((1, 4)):
+        tgt = M[q] if mode == FORWARD else M[:, q]
+        assert np.abs(p[:, j] - tgt).max() < 1e-8 * n
+
+
+def test_dense_driver_refuses_a_short_stream():
+    src, dst, _ = synthetic_powerlaw_stream(20, 50, seed=1)
+    with pytest.raises(ValueError, match="shorter"):
+        StreamDriver(src, dst, 20, [0], CFG, StreamConfig(window=60, slide=5), device="cpu")

@@ -13,9 +13,10 @@ import pprx_torch.config as tcfg
 from pprx.eval import metrics as jmetrics
 from pprx.graph.io import synthetic_powerlaw_stream as jax_stream
 from pprx.ref.exact import exact_ppr as np_exact_ppr
+from pprx.ref.exact import exact_ppr_matrix
 from pprx_torch.eval import metrics as tmetrics
 from pprx_torch.graph.io import synthetic_powerlaw_stream
-from pprx_torch.ref.exact import exact_ppr
+from pprx_torch.ref.exact import exact_ppr, exact_ppr_columns, reverse_invariant_gap
 
 torch.set_num_threads(1)
 
@@ -71,6 +72,48 @@ def test_exact_ppr_matches_reference():
         ref = np_exact_ppr(src, dst, n, s, 0.15, tol=1e-13)
         np.testing.assert_allclose(row, ref, rtol=0, atol=1e-12)
         assert abs(row.sum() - 1.0) < 1e-12
+
+
+def test_exact_ppr_columns_match_the_matrix():
+    """The reverse oracle: column t of M = alpha (I - (1-alpha) P)^-1 by
+    batched iteration against the dense inverse, on a graph with parallel
+    edges and dangling vertices (one of them a target); and the rows
+    against the same matrix. atol 1e-12 (iterated to an L1 step of 1e-14)."""
+    rng = np.random.default_rng(6)
+    n = 50
+    src = rng.integers(0, n - 8, size=300)  # vertices n-8.. are dangling
+    dst = rng.integers(0, n, size=300)
+    src, dst = np.concatenate([src, src[:25]]), np.concatenate([dst, dst[:25]])
+    M = exact_ppr_matrix(src, dst, n, 0.15)
+    targets = [0, 9, n - 2, 9]  # a dangling one and a repeat
+    cols = exact_ppr_columns(src, dst, n, targets, 0.15, tol=1e-14, device="cpu")
+    assert cols.shape == (4, n) and cols.dtype == np.float64
+    np.testing.assert_allclose(cols, M[:, targets].T, rtol=0, atol=1e-12)
+    rows = exact_ppr(src, dst, n, targets, 0.15, tol=1e-14, device="cpu")
+    np.testing.assert_allclose(rows, M[targets], rtol=0, atol=1e-12)
+    assert np.abs(cols - rows).max() > 1e-3  # columns are not rows
+
+
+def test_reverse_invariant_gap_matches_the_matrix():
+    """``max |p + M r - M e_t|`` by one batched solve against the same
+    expression from the dense inverse: on a random (p, r), whose gap is
+    large, and on a state that holds the invariant, whose gap is 0; extra
+    rows past n (the phantom row) are not read. atol 1e-12."""
+    rng = np.random.default_rng(8)
+    n = 50
+    src = rng.integers(0, n - 8, size=300)  # vertices n-8.. are dangling
+    dst = rng.integers(0, n, size=300)
+    M = exact_ppr_matrix(src, dst, n, 0.15)
+    targets = [3, n - 1, 17]
+    p = rng.random((n + 1, 3))
+    r = rng.random((n + 1, 3)) - 0.5
+    want = np.abs(p[:n] + M @ r[:n] - M[:, targets]).max()
+    got = reverse_invariant_gap(src, dst, n, targets, torch.from_numpy(p),
+                                torch.from_numpy(r), 0.15, tol=1e-14)
+    assert want > 0.1 and abs(got - want) < 1e-12
+    p[:n] = M[:, targets] - M @ r[:n]
+    assert reverse_invariant_gap(src, dst, n, targets, torch.from_numpy(p),
+                                 torch.from_numpy(r), 0.15, tol=1e-14) < 1e-12
 
 
 def test_metrics_match_reference():

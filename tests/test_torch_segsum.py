@@ -130,12 +130,12 @@ def test_gather_no_edges(w):
     table = torch.full((5, 3), 7.0, dtype=torch.float64)
     gat = torch.zeros(w, dtype=torch.int64)
     off = torch.full((5,), min(w, 4), dtype=torch.int32)
-    before = dict(segsum.LAUNCHES_BY_ENTRY), segsum.LAUNCHES
+    before = dict(segsum.LAUNCHES)
     out = segsum_gather_add_(rin, table, gat, off)
     assert out is rin and bool((rin == 1).all())
     segsum_add_(rin, table[gat], off)
     assert bool((rin == 1).all())
-    assert (dict(segsum.LAUNCHES_BY_ENTRY), segsum.LAUNCHES) == before
+    assert segsum.LAUNCHES == before
 
 
 def test_gather_checks():
@@ -163,10 +163,16 @@ def test_gather_checks():
 
 
 def test_reset_launches():
-    segsum.LAUNCHES = 5
-    segsum.LAUNCHES_BY_ENTRY["segsum_add"] = 5
+    before = dict(segsum.LAUNCHES)
+    segsum.LAUNCHES["segsum_add", False] += 3
+    segsum.LAUNCHES["segsum_add", True] += 2
+    segsum.LAUNCHES["segsum_gather_add", True] += 4
+    assert segsum.launches(since=before) == 9
+    assert segsum.launches("segsum_add", since=before) == 5
+    assert segsum.launches(scaled=True, since=before) == 6
+    assert segsum.launches("segsum_gather_add", scaled=False, since=before) == 0
     segsum.reset_launches()
-    assert segsum.LAUNCHES == 0 and set(segsum.LAUNCHES_BY_ENTRY.values()) == {0}
+    assert segsum.launches() == 0 and set(segsum.LAUNCHES.values()) == {0}
 
 
 @pytest.mark.parametrize("skew", [False, True])
@@ -221,9 +227,9 @@ def test_row_offsets_and_checks():
         segsum_add_(rin, torch.ones(6, 3), row_offsets(seg, 4))
     with pytest.raises(ValueError, match="contribs"):
         segsum_add_(rin, torch.ones(6, 2), off)
-    before = segsum.LAUNCHES
+    before = segsum.launches()
     segsum_add_(rin, torch.ones(6, 3), off)
-    assert segsum.LAUNCHES == before  # CPU tensors take the plain version
+    assert segsum.launches() == before  # CPU tensors take the plain version
     np.testing.assert_array_equal(rin[:, 0].numpy(), [2, 0, 3, 0, 1])
     # edges past the last row's range (the phantom row's) are not read
     segsum_add_(rin[:4], torch.ones(6, 3), row_offsets(seg, 4))
@@ -243,3 +249,97 @@ def test_offsets_round_trip(rng, skew):
     assert ids.dtype == torch.int32
     np.testing.assert_array_equal(ids.numpy(), seg)
 
+
+
+# ---- the per-row scale (reverse push: one 1/d_out per delivery row) ----
+
+
+def _pallas_f64(rin, contrib, seg, n_rows, w, s, tr, ec):
+    """The JAX kernel in interpret mode in f64 (its limb split of f64 values
+    is exact to f64 rounding)."""
+    w_pad = pad_len(w, ec)
+    seg_p = np.full(w_pad, n_rows - 1, np.int32)
+    seg_p[:w] = seg
+    contrib_p = np.zeros((w_pad, s), np.float64)
+    contrib_p[:w] = contrib
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(seg_p, minlength=n_rows))])
+    return np.asarray(jax_segsum_add(
+        jnp.asarray(rin), jnp.asarray(contrib_p), jnp.asarray(seg_p.reshape(-1, 128)),
+        tile_offsets(jnp.asarray(offsets.astype(np.int32)), n_rows, tr),
+        tr=tr, ec=ec, interpret=True,
+    ))
+
+
+@pytest.mark.parametrize("entry", ["add", "gather"])
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("n_rows,w,s,tr,ec", PALLAS_CASES)
+def test_row_scale_matches_pallas_interpret(rng, n_rows, w, s, tr, ec, skew, entry):
+    """Both entries with ``row_scale`` against the JAX kernel fed
+    ``contrib * scale[seg]`` (how the reference's reverse scans scale, per
+    edge), f64; atol 1e-12: the same sums in another order (row sums of up
+    to a few thousand N(0,1) terms)."""
+    seg, contrib, rin = _mk(rng, n_rows, w, s, skew)
+    scale = 1.0 / rng.integers(1, 50, size=n_rows)
+    off = row_offsets(torch.from_numpy(seg), n_rows)
+    out = torch.from_numpy(rin.copy())
+    if entry == "add":
+        segsum_add_(out, torch.from_numpy(contrib), off, torch.from_numpy(scale))
+    else:
+        table, gat = _mk_gather(rng, w, 777, s)
+        contrib = table[gat]
+        segsum_gather_add_(out, torch.from_numpy(table), torch.from_numpy(gat), off,
+                           row_scale=torch.from_numpy(scale))
+    ref = _pallas_f64(rin, contrib * scale[seg][:, None], seg, n_rows, w, s, tr, ec)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 300), (40, 260), (299, 300), (7, 7)])
+def test_row_scale_on_sliced_rows(rng, lo, hi):
+    """``row_scale`` belongs to the rows given: rows [lo, hi) of a view take
+    ``scale[lo:hi]``, and rows outside stay as they were."""
+    n_rows, w, s = 300, 5000, 4
+    seg, contrib, rin = _mk(rng, n_rows, w, s, True)
+    scale = rng.normal(size=n_rows)
+    off = row_offsets(torch.from_numpy(seg), n_rows)
+    a, b = int(off[lo]), int(off[hi])
+    ref = rin.copy()
+    np.add.at(ref, seg[a:b], contrib[a:b] * scale[seg[a:b]][:, None])
+    out = torch.from_numpy(rin.copy())
+    segsum_add_(out[lo:hi], torch.from_numpy(contrib), off[lo:hi + 1],
+                torch.from_numpy(scale[lo:hi].copy()))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-12)
+
+
+def test_row_scale_none_is_the_plain_sum(rng):
+    """No scale and a scale of ones give the same sums, and ``None`` takes
+    the unscaled path bit for bit (one ``index_add_`` into ``rin``)."""
+    n_rows, w, s = 200, 3000, 8
+    seg, contrib, rin = _mk(rng, n_rows, w, s, True)
+    table, gat = _mk_gather(rng, w, 99, s)
+    direct = torch.from_numpy(rin.copy()).index_add_(
+        0, torch.from_numpy(seg), torch.from_numpy(contrib))
+    assert torch.equal(_port(rin, contrib, seg, n_rows), direct)
+    off = row_offsets(torch.from_numpy(seg), n_rows)
+    ones = torch.ones(n_rows, dtype=torch.float64)
+    scaled = segsum_add_(torch.from_numpy(rin.copy()), torch.from_numpy(contrib), off, ones)
+    np.testing.assert_allclose(scaled.numpy(), direct.numpy(), rtol=0, atol=1e-12)
+    g0 = _port_gather(rin, table, gat, seg, n_rows)
+    g1 = segsum_gather_add_(torch.from_numpy(rin.copy()), torch.from_numpy(table),
+                            torch.from_numpy(gat), off, ones)
+    np.testing.assert_allclose(g1.numpy(), g0.numpy(), rtol=0, atol=1e-12)
+
+
+def test_row_scale_checks():
+    rin = torch.zeros(5, 3)
+    off = row_offsets(torch.tensor([0, 0, 2, 2, 2, 4], dtype=torch.int32), 5)
+    contrib = torch.ones(6, 3)
+    with pytest.raises(ValueError, match="row_scale"):
+        segsum_add_(rin, contrib, off, torch.ones(4))
+    with pytest.raises(ValueError, match="row_scale"):
+        segsum_add_(rin, contrib, off, torch.ones(5, dtype=torch.int32))
+    with pytest.raises(ValueError, match="row_scale"):
+        segsum_gather_add_(rin, contrib, torch.arange(6), off, torch.ones(5, 1))
+    # f32 state with the scale in another float type: cast to rin's
+    segsum_add_(rin, contrib, off, torch.tensor([2.0, 1, 0.5, 1, 3], dtype=torch.float64))
+    np.testing.assert_array_equal(rin[:, 0].numpy(), [4, 0, 1.5, 0, 3])
+    assert {entry for entry, _ in segsum.LAUNCHES} == set(segsum.ENTRIES)

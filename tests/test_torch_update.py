@@ -1,6 +1,6 @@
-"""Port of the batched forward corrections (pprx_torch.engine.update)
-against the JAX apply_edge_batch and the sequential per-edge oracle, f64,
-atol 1e-12 (same arithmetic; the summation order may differ)."""
+"""Port of the batched corrections (pprx_torch.engine.update), forward and
+reverse, against the JAX apply_edge_batch and the sequential per-edge
+oracle, f64, atol 1e-12 (same arithmetic; the summation order may differ)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,10 +12,15 @@ from pprx.engine.state import PprState as JaxState
 from pprx.engine.update import apply_edge_batch as jax_apply
 from pprx.graph.dynamic import WindowGraph as JaxWindow
 from pprx.ref.exact import exact_ppr_matrix
-from pprx.ref.push import OracleGraph, PushState, apply_edge_event, forward_push
-from pprx_torch.engine.state import FORWARD, PprState
-from pprx_torch.engine.update import apply_edge_batch
+from pprx.ref.push import (
+    OracleGraph, PushState, apply_edge_event, forward_push, reverse_push,
+)
+import pprx_torch.engine.update as tupdate
+from pprx_torch.engine.state import FORWARD, REVERSE, PprState
+from pprx_torch.engine.update import apply_edge_batch, out_row_sums
+from pprx_torch.engine.wl2 import build_kill_graph
 from pprx_torch.graph.dynamic import WindowGraph
+from pprx_torch.graph.fast_stream import window_row_sums
 from tests.conftest import random_multigraph
 
 torch.set_num_threads(1)
@@ -82,12 +87,139 @@ def test_forward_batch_matches_jax(seed):
     assert tst.p[-1].abs().sum() == 0 and tst.r[-1].abs().sum() == 0
 
 
-def test_reverse_mode_is_not_ported_yet():
-    n = 4
-    st = PprState(p=torch.zeros(n + 1, 1), r=torch.zeros(n + 1, 1), mode=1)
-    e = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        apply_edge_batch(st, WindowGraph.from_coo([0], [1], n, device="cpu"), e, e, e, e, CFG)
+def _rowsum_route(route, monkeypatch, p, window):
+    """The reverse corrections' old row sums by each route: summed inside
+    ``apply_edge_batch`` from the COO ring (in one block, or in blocks of 7
+    edges), or handed in from the kill graph's delivery views through the
+    segment sum, as the fast driver does."""
+    if route == "views":
+        return window_row_sums(p, build_kill_graph(window, REVERSE, fring=8))
+    if route == "blocks":
+        monkeypatch.setattr(tupdate, "EDGE_BLOCK_BYTES", 7 * p.shape[1] * p.element_size())
+    return None
+
+
+@pytest.mark.parametrize("route", ["sweep", "blocks", "views"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_reverse_batch_matches_jax(monkeypatch, seed, route):
+    """Reverse corrections with every dangling case in one batch: a vertex
+    that loses every out-edge and gets none (d_new == 0), one that loses
+    them all and inserts again, one that was dangling (d0 == 0) and
+    inserts; phantom padding in both batches and in the ring."""
+    rng = np.random.default_rng(seed)
+    n, m, s, b = 30, 160, 4, 32
+    src, dst = random_multigraph(rng, n, m)
+    src[src == 7] = 8  # vertex 7 starts with no out-edges
+    dst[src == dst] = (dst[src == dst] + 1) % n
+    deg0 = np.bincount(src, minlength=n + 1)
+    hub = int(deg0.argmax())
+    gone = int(np.flatnonzero((deg0 >= 1) & (deg0 <= 4))[0])  # loses every out-edge
+    rest = rng.choice(np.flatnonzero((src != hub) & (src != gone)), size=5, replace=False)
+    sel = np.concatenate([np.flatnonzero(src == hub), np.flatnonzero(src == gone), rest])
+    del_src = np.full(b, n, np.int32)
+    del_dst = np.full(b, n, np.int32)
+    del_src[: sel.size], del_dst[: sel.size] = src[sel], dst[sel]
+    ins_src = rng.integers(0, n, size=b).astype(np.int32)
+    ins_src[ins_src == gone] = hub
+    ins_src[:3] = hub  # inserts again after losing every out-edge
+    ins_src[3:5] = 7  # inserts from dangling
+    ins_dst = ((ins_src + 1 + rng.integers(0, n - 1, size=b)) % n).astype(np.int32)
+    ins_src[-2:] = ins_dst[-2:] = n
+    d_new = deg0 - np.bincount(del_src, minlength=n + 1) + np.bincount(ins_src, minlength=n + 1)
+    assert deg0[7] == 0 and d_new[gone] == 0 and deg0[hub] == np.sum(del_src == hub)
+    p = np.abs(rng.normal(size=(n + 1, s))) * 1e-2
+    r = rng.normal(size=(n + 1, s)) * 1e-3
+    p[-1] = r[-1] = 0.0
+
+    jst, jw = jax_apply(
+        JaxState(p=jnp.asarray(p), r=jnp.asarray(r), mode=REVERSE),
+        JaxWindow.from_coo(src, dst, n, capacity=src.size + 5),
+        *(jnp.asarray(x) for x in (ins_src, ins_dst, del_src, del_dst)),
+        CFG,
+    )
+    window = WindowGraph.from_coo(src, dst, n, capacity=src.size + 5, device="cpu")
+    state = PprState(p=torch.from_numpy(p), r=torch.from_numpy(r), mode=REVERSE)
+    rowsum = _rowsum_route(route, monkeypatch, state.p, window)
+    tst, tw = apply_edge_batch(
+        state, window,
+        *(torch.from_numpy(x.astype(np.int32)) for x in (ins_src, ins_dst, del_src, del_dst)),
+        CFG, rowsum=rowsum,
+    )
+    np.testing.assert_array_equal(tw.deg.numpy(), np.asarray(jw.deg))
+    np.testing.assert_array_equal(tst.p.numpy(), p)  # reverse corrections leave p alone
+    np.testing.assert_allclose(tst.r.numpy(), np.asarray(jst.r), rtol=0, atol=1e-12)
+    assert tst.r[-1].abs().sum() == 0
+    np.testing.assert_array_equal(state.r.numpy(), r)  # the input state is not modified
+
+
+@pytest.mark.parametrize("block_edges", [1, 7, 64, 10**6])
+def test_out_row_sums_in_blocks(monkeypatch, block_edges):
+    """The COO sweep cut into edge blocks of any size, against numpy; the
+    ring's phantom padding adds nothing."""
+    rng = np.random.default_rng(4)
+    n, m, s = 25, 130, 3
+    src, dst = random_multigraph(rng, n, m)
+    p = rng.normal(size=(n + 1, s))
+    p[-1] = 0.0
+    monkeypatch.setattr(tupdate, "EDGE_BLOCK_BYTES", block_edges * s * 8)
+    got = out_row_sums(torch.from_numpy(p),
+                       WindowGraph.from_coo(src, dst, n, capacity=m + 9, device="cpu"))
+    ref = np.zeros_like(p)
+    np.add.at(ref, src, p[dst])
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("route", ["sweep", "views"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_reverse_batches_match_oracle_and_keep_invariant(monkeypatch, seed, route):
+    """Reverse mode on a pushed state: the port equals the sequential
+    per-edge oracle (pprx.ref.push.apply_edge_event) to 1e-12, and the
+    reverse invariant p + M r = M[:, t] holds on the new graph to 1e-10."""
+    alpha = 0.2
+    cfg = PprConfig(alpha=alpha, eps=1e-6)
+    rng = np.random.default_rng(seed)
+    n, targets = 12, [0, 5]
+    src, dst = random_multigraph(rng, n, 40)
+    graphs = [OracleGraph(n, src, dst) for _ in targets]
+    sts = [PushState.init(n, t, "reverse") for t in targets]
+    for g, st in zip(graphs, sts):
+        reverse_push(g, st, alpha, eps=1e-4)
+    pad = np.zeros((1, len(targets)))
+    state = PprState(
+        p=torch.from_numpy(np.vstack([np.stack([st.p for st in sts], 1), pad])),
+        r=torch.from_numpy(np.vstack([np.stack([st.r for st in sts], 1), pad])),
+        mode=REVERSE,
+    )
+    for step in range(4):
+        cur_src, cur_dst = graphs[0].coo()
+        ins_src = rng.integers(0, n, size=6)
+        if step == 0:  # every out-edge of one vertex, and none comes: left dangling
+            lone = int(cur_src[0])
+            sel = np.flatnonzero(cur_src == lone)
+            ins_src[ins_src == lone] = (lone + 1) % n
+        else:
+            sel = rng.choice(cur_src.size, size=5, replace=False)
+        if step == 1:
+            ins_src[0] = lone  # inserts from dangling
+        del_src, del_dst = cur_src[sel], cur_dst[sel]
+        ins_dst = (ins_src + 1 + rng.integers(0, n - 1, size=6)) % n
+        window = WindowGraph.from_coo(cur_src, cur_dst, n, device="cpu")
+        state, _ = apply_edge_batch(
+            state, window,
+            *(torch.from_numpy(x.astype(np.int32)) for x in (ins_src, ins_dst, del_src, del_dst)),
+            cfg, rowsum=_rowsum_route(route, monkeypatch, state.p, window),
+        )
+        for g, st in zip(graphs, sts):
+            for u, w in zip(del_src.tolist(), del_dst.tolist()):
+                apply_edge_event(g, st, u, w, insert=False, alpha=alpha)
+            for u, w in zip(ins_src.tolist(), ins_dst.tolist()):
+                apply_edge_event(g, st, u, w, insert=True, alpha=alpha)
+        p, r = state.p.numpy()[:n], state.r.numpy()[:n]
+        M = exact_ppr_matrix(*graphs[0].coo(), n, alpha)
+        for j, (t, st) in enumerate(zip(targets, sts)):
+            np.testing.assert_allclose(p[:, j], st.p, rtol=0, atol=1e-12)
+            np.testing.assert_allclose(r[:, j], st.r, rtol=0, atol=1e-12)
+            np.testing.assert_allclose(p[:, j] + M @ r[:, j], M[:, t], rtol=0, atol=1e-10)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

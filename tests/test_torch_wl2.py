@@ -1,8 +1,9 @@
 """Port of the wl2 engine (pprx_torch.engine.wl2) against the JAX engine on
-the graph and tier ladders of tests/test_wl2.py, forward, f64.
+the graph and tier ladders of tests/test_wl2.py, both modes, f64.
 
 The JAX side runs with segsum=False, the XLA path whose scatters do the
-same arithmetic as the port's plain segment sum on the CPU. The JAX engines
+same arithmetic as the port's plain segment sum on the CPU (in reverse mode
+both factor the receiver's 1/d_out out of the row's sum). The JAX engines
 agree with each other at 1e-12/1e-13 (tests/test_wl2.py), so p and r are
 held at 1e-12, and the round schedule must be equal.
 """
@@ -14,11 +15,13 @@ import torch
 
 import pprx.engine.wl2 as jwl2
 import pprx_torch.engine.wl2 as twl2
-from pprx.config import PprConfig
+from pprx.config import PprConfig, StreamConfig
 from pprx.engine.state import init_state as jax_init_state
 from pprx.graph.dynamic import WindowGraph as JaxWindow
+from pprx.graph.io import synthetic_powerlaw_stream
 from pprx_torch.engine.segsum import segment_ids
-from pprx_torch.engine.state import FORWARD, init_state
+from pprx_torch.engine.push import push_to_convergence
+from pprx_torch.engine.state import FORWARD, REVERSE, init_state
 from pprx_torch.engine.wl2 import compact, make_tiers2, rld_expand
 from pprx_torch.graph.dynamic import WindowGraph
 from tests.conftest import random_multigraph
@@ -34,7 +37,7 @@ TIERS = [
 ]
 
 
-def _case(tiers):
+def _case(tiers, mode=FORWARD):
     rng = np.random.default_rng(7)
     n, m = 40, 200
     src, dst = random_multigraph(rng, n, m)
@@ -42,16 +45,16 @@ def _case(tiers):
     q = np.unique(np.asarray(queries, np.int32))
     cand0 = np.concatenate([q, np.full(8 - q.size, n, np.int32)])
 
-    kg = jwl2.build_kill_graph(JaxWindow.from_coo(src, dst, n), FORWARD, fring=8)
-    st = jax_init_state(n, queries, mode=FORWARD, dtype=jnp.float64)
+    kg = jwl2.build_kill_graph(JaxWindow.from_coo(src, dst, n), mode, fring=8)
+    st = jax_init_state(n, queries, mode=mode, dtype=jnp.float64)
     st, js = jwl2.push_to_convergence_wl2(
         st, kg, CFG, jnp.asarray(cand0), jnp.asarray(q.size, jnp.int32), True, tiers
     )
 
     tkg = twl2.build_kill_graph(
-        WindowGraph.from_coo(src, dst, n, device="cpu"), FORWARD, fring=8
+        WindowGraph.from_coo(src, dst, n, device="cpu"), mode, fring=8
     )
-    tst = init_state(n, queries, mode=FORWARD, dtype=torch.float64, device="cpu")
+    tst = init_state(n, queries, mode=mode, dtype=torch.float64, device="cpu")
     tst, ts = twl2.push_to_convergence_wl2(
         tst, tkg, CFG, torch.from_numpy(cand0), q.size, True, tiers
     )
@@ -60,13 +63,64 @@ def _case(tiers):
     np.testing.assert_allclose(tst.r.numpy(), np.asarray(st.r), rtol=0, atol=1e-12)
     assert ts.rounds == int(js.rounds)
     assert ts.wl_rounds == int(js.wl_rounds)
+    assert ts.edge_pushes == float(js.edge_pushes)  # feeds the stats-skip rule
     assert ts.syncs == ts.rounds + 1  # one read-back per round + the first
     assert ts.wl_rounds > 0  # every ladder runs compact rounds too
+    # and the port's own dense engine on the same graph: the same schedule
+    dst_, dstats = push_to_convergence(
+        init_state(n, queries, mode=mode, dtype=torch.float64, device="cpu"),
+        WindowGraph.from_coo(src, dst, n, device="cpu"), CFG)
+    assert dstats.rounds == ts.rounds
+    np.testing.assert_allclose(tst.p.numpy(), dst_.p.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(tst.r.numpy(), dst_.r.numpy(), rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("tiers", TIERS)
 def test_wl2_convergence_matches_jax(tiers):
     _case(tiers)
+
+
+@pytest.mark.parametrize("tiers", TIERS)
+def test_wl2_reverse_convergence_matches_jax(tiers):
+    _case(tiers, REVERSE)
+
+
+@pytest.mark.parametrize("tiers", TIERS)
+def test_wl2_reverse_sorted_delivery_matches_jax(monkeypatch, tiers):
+    """Reverse mode with every compact round on the sorted delivery: the
+    lanes carry their receiver's 1/d_out and the residual removal at the
+    candidates goes unscaled in the same sum."""
+    monkeypatch.setattr(jwl2, "SORT_DELIVER_MIN", 1)
+    monkeypatch.setattr(twl2, "SORT_DELIVER_MIN", 1)
+    _case(tiers, REVERSE)
+
+
+def test_reverse_scan_round_matches_jax_with_kills_and_fresh_edges():
+    """One reverse scan round on a kill graph mid-stream (killed snapshot
+    slots, a part-filled fresh ring) against both forms of the reference:
+    ``segsum=False`` factors 1/d_out out, ``segsum=True`` folds it into
+    every edge before its kernel (interpret mode). State and both counts."""
+    from pprx.graph.fast_stream import FastStreamDriver as JaxDriver
+    from pprx_torch.graph.fast_stream import FastStreamDriver
+
+    n = 35
+    src, dst, _ = synthetic_powerlaw_stream(n, 500, seed=11)
+    scfg = StreamConfig(window=250, slide=25)
+    kw = dict(mode=REVERSE, rebuild_every=3, e_top=64, n_tiers=3)
+    a = JaxDriver(src, dst, n, [0, 6, 17], CFG, scfg, dtype=jnp.float64, segsum=False, **kw)
+    b = FastStreamDriver(src, dst, n, [0, 6, 17], CFG, scfg, dtype=torch.float64,
+                         device="cpu", **kw)
+    a.seed(), b.seed()
+    list(a.run(5)), list(b.run(5))  # a rebuild, then two slides of kills
+    assert b.fcnt == 50 and int((b.graph.d_gat == n).sum()) == 50
+    loose = PprConfig(alpha=0.2, eps=1e-10)
+    t2, tna, tew = twl2.dense_round_sorted(b.state, b.graph, loose)
+    assert int(tna) > 0 and int(tew) > 0
+    for segsum in (False, True):
+        j2, jna, jew = jwl2.dense_round_sorted(a.state, a.graph, loose, segsum=segsum)
+        assert (int(tna), int(tew)) == (float(jna), float(jew))
+        np.testing.assert_allclose(t2.p.numpy(), np.asarray(j2.p), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(t2.r.numpy(), np.asarray(j2.r), rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("tiers", TIERS)
@@ -78,13 +132,14 @@ def test_wl2_sorted_delivery_matches_jax(monkeypatch, tiers):
     _case(tiers)
 
 
-def test_kill_graph_matches_jax():
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+def test_kill_graph_matches_jax(mode):
     rng = np.random.default_rng(3)
     n, m = 30, 150
     src, dst = random_multigraph(rng, n, m)
-    jkg = jwl2.build_kill_graph(JaxWindow.from_coo(src, dst, n, capacity=160), FORWARD, fring=8)
+    jkg = jwl2.build_kill_graph(JaxWindow.from_coo(src, dst, n, capacity=160), mode, fring=8)
     tkg = twl2.build_kill_graph(
-        WindowGraph.from_coo(src, dst, n, capacity=160, device="cpu"), FORWARD, fring=8
+        WindowGraph.from_coo(src, dst, n, capacity=160, device="cpu"), mode, fring=8
     )
     for f in ("offsets", "nbr", "row_len", "snap_pos", "d_pos", "f_off", "f_len"):
         np.testing.assert_array_equal(getattr(tkg, f).numpy(), np.asarray(getattr(jkg, f)), f)

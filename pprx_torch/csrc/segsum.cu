@@ -26,7 +26,8 @@
 //    whatever rows they fall in, so a hub row of tens of thousands of edges
 //    is as many equal pieces on as many warps. The chunk is 256 edges for a
 //    window-sized edge array and is halved, down to 64, for a shorter one
-//    (`chunk_for`), so that a fresh view or a compact round still spreads
+//    (`chunk_for` in the wrapper, pprx_torch/engine/segsum.py, which passes
+//    it down), so that a fresh view or a compact round still spreads
 //    over every SM. The warp finds its first row by a 32-way search in
 //    row_off (each lane probes one position, a ballot counts), then walks
 //    its edges with lanes over the S columns (16-byte loads for f32, 8-byte
@@ -59,6 +60,12 @@
 // indices 32 at a time, coalesced, one block ahead of the rows it is
 // summing, and hands them out by shuffle.
 //
+// A state whose S columns fewer than 32 lanes cover (S < 65 in 16-byte
+// loads, S < 17 otherwise) takes the narrow kernels further down, with
+// several edges per warp step; the TPU kernel ran such states by padding
+// its lanes to 128, which is not carried over. The wrapper chooses
+// (`layout_for`): the wide kernels below are what every wider state runs.
+//
 // What of Hopper this uses: 132 SMs kept busy to the end by the edge split,
 // 16-byte read-only loads with many warps in flight, the 50 MB L2 for the
 // offsets, the partials and (gather entry) the table. What it does not:
@@ -75,7 +82,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-// Tunables. Swept in turns within one run on an H100 80GB HBM3 at 700 W
+// Tunables of the wide kernels (the chunk sizes are `CHUNK_WIDE` in the
+// wrapper). Swept in turns within one run on an H100 80GB HBM3 at 700 W
 // (variants built with these constants changed), R=200,001 rows, S=128; ms
 // for segsum_add / segsum_gather_add on 2.0M power-law sorted edges (a
 // window scan) and on 320k (a full fresh view), f32 then bf16:
@@ -112,19 +120,18 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kChunkMax = 256;       // most edges per warp; a multiple of 32
-constexpr int kChunkMin = 64;        // fewest edges per warp, for short edge arrays
-constexpr int kChunksWanted = 4096;  // chunks below which the chunk is halved
 constexpr int kWarpsPerBlock = 8;
 constexpr int kUnroll = 4;           // loads in flight per lane; divides 32
 constexpr int kSpanUnroll = 8;
-
-static_assert(kChunkMin > 0 && kChunkMin % kWarp == 0 && kChunkMax >= kChunkMin &&
-                  (kChunkMax / kChunkMin & (kChunkMax / kChunkMin - 1)) == 0 &&
-                  kChunkMax % kChunkMin == 0,
-              "chunk sizes: multiples of 32, the largest a power of two times the smallest");
+// narrow layout: steps whose loads go out together, and partials in flight
+// per group in the second pass
+constexpr int kNarrowUnroll = 4;
+constexpr int kSpanNarrowUnroll = 2;
 
 static_assert(kUnroll > 0 && kWarp % kUnroll == 0, "unroll must divide 32");
+static_assert(kNarrowUnroll > 0 && (kNarrowUnroll & (kNarrowUnroll - 1)) == 0 &&
+                  kNarrowUnroll <= kWarp,
+              "narrow unroll: a power of two up to 32");
 
 // Load VEC consecutive columns of one edge row as f32.
 template <typename T, int VEC>
@@ -206,10 +213,11 @@ __device__ void add_into(float* rin, const float* __restrict__ row_scale, int w,
 // The row that holds edge e: the w with row_off[w] <= e < row_off[w + 1].
 // Needs row_off[0] <= e < row_off[n_rows]; the whole warp calls it together.
 // Each step probes 32 positions, one per lane, and keeps the 1/33 of the
-// range that holds the answer: 4 steps for 200k rows.
-__device__ int find_row(const int* __restrict__ row_off, int n_rows, long long e,
+// range that holds the answer: 4 steps for 200k rows. `lo` is a row known to
+// begin at or before e (0 where nothing is known).
+__device__ int find_row(const int* __restrict__ row_off, int lo, int n_rows, long long e,
                         int lane) {
-  int lo = 0, hi = n_rows;  // row_off[lo] <= e < row_off[hi]
+  int hi = n_rows;  // row_off[lo] <= e < row_off[hi]
   while (hi - lo > 1) {
     const int stride = (hi - lo + kWarp) / (kWarp + 1);
     const long long idx = lo + static_cast<long long>(lane + 1) * stride;
@@ -237,7 +245,7 @@ segsum_chunks_kernel(float* __restrict__ rin, const T* __restrict__ src,
   const long long e_lo = e0 + chunk * chunk_edges;
   if (e_lo >= e1) return;
   const long long e_hi = e_lo + chunk_edges < e1 ? e_lo + chunk_edges : e1;
-  const int w0 = find_row(row_off, n_rows, e_lo, lane);
+  const int w0 = find_row(row_off, 0, n_rows, e_lo, lane);
   const bool head0 = __ldg(row_off + w0) < e_lo;  // row w0 began in an earlier chunk
   float* part = scratch + chunk * 2 * s;
 
@@ -300,7 +308,7 @@ segsum_chunks_kernel(float* __restrict__ rin, const T* __restrict__ src,
               ++w;
               row_end = __ldg(row_off + w + 1);
               if (row_end <= e) {
-                w = find_row(row_off, n_rows, e, lane);
+                w = find_row(row_off, 0, n_rows, e, lane);
                 row_end = __ldg(row_off + w + 1);
               }
             }
@@ -335,7 +343,7 @@ segsum_spans_kernel(float* __restrict__ rin, const int* __restrict__ row_off,
   const long long e1 = __ldg(row_off + n_rows);
   const long long x = e0 + (b + 1) * chunk_edges;
   if (x >= e1) return;
-  const int w = find_row(row_off, n_rows, x, lane);
+  const int w = find_row(row_off, 0, n_rows, x, lane);
   const long long start = __ldg(row_off + w);
   // no row crosses here, or the crossing row began before chunk b and the
   // warp of its first chunk adds it
@@ -366,122 +374,430 @@ segsum_spans_kernel(float* __restrict__ rin, const int* __restrict__ row_off,
   }
 }
 
+// ---- The narrow layout: a state of S columns that G < 32 lanes cover ----
+//
+// Lanes over columns alone would leave 32 - G lanes of every warp idle (30
+// of 32 at S=8). Here a warp's lanes form 32 / G groups of G lanes, and in
+// one step group q loads edge eb + q: a step covers 32 / G consecutive
+// edges (for the unfused entry one contiguous run of bytes), and with the
+// same number of loads in flight a warp has 32 / G times the bytes under
+// way. The chunk, the partials and the second launch are as above.
+//
+// Rows: the warp takes its chunk 32 edges at a time. Each lane finds the
+// row of one of the 32 (a binary search in row_off between the row of the
+// block's first edge and the row of the chunk's last, which the warp looks
+// up once: a few probes that hit L1, none inside a hub row), and the
+// block's steps read their groups' rows by shuffle, as they read the
+// gather indices. The loads of the block's first steps go out before the
+// search.
+//
+// Sums: within a step the groups' values are added by an inclusive scan
+// over groups keyed by row (log2(32 / G) shuffle steps; rows are ascending,
+// so equal rows are neighbours). The last group of each row's run holds the
+// run's sum. A run that another row follows within the step is complete and
+// its group adds it to rin, or stores it as the head partial, in parallel
+// with the other groups. The run of the step's last edge stays open: every
+// group keeps a copy (`acc`, `acc_row`), the next step's first group adds
+// it to its edge before the scan if the row goes on, or flushes it if not.
+// The order of the additions is a function of row_off, S and the chunk
+// alone: no atomics, and two runs give the same bits, as above.
+//
+// Edge positions and table rows are 32-bit here (row_off is int32; the
+// wrapper refuses a table of 2^31 rows): with 64-bit positions the build
+// before ran S=8's window at 30-33 us against 28-30 (two calls on the same
+// card and limit).
+//
+// Sweep of the chunk (chip_smoke.py phase 3, `*_ms_by_chunk`: the wrapper's
+// `chunk_for` replaced by each forced chunk; H100 80GB HBM3 at 700 W; device
+// time in us, all variants in turns, twice; f32 / bf16 sources). S=8:
+// R=100,001, with the row scale, 1.0M sorted power-law edges and a fresh view
+// of 80k; S=16: R=200,001, no scale, 2.0M edges and a fresh view of 160k:
+//
+//   chunk   S=8 1.0M add      gather        80k add       gather
+//   32      52.8 / 50.7   52.0 / 52.5   11.1 / 11.1   11.4 / 11.6
+//   64      38.3 / 36.0   37.3 / 37.9   12.2 / 12.3   12.8 / 13.2
+//   128     33.4 / 31.0   33.1 / 33.7   15.9 / 15.9   17.0 / 17.5
+//   256     29.9 / 27.5   28.3 / 29.2   24.1 / 24.3   26.5 / 28.0
+//   512     38.3 / 31.2   35.3 / 37.9   42.1 / 42.2   46.9 / 49.5
+//   chunk   S=16 2.0M add     gather        160k add      gather
+//   32     138.4 / 129.8 135.3 / 122.1  16.5 / 16.7   16.9 / 16.9
+//   64     102.7 / 93.1   93.8 / 89.3   16.8 / 17.1   17.6 / 17.8
+//   128     88.5 / 79.8   78.5 / 76.2   20.9 / 21.3   22.3 / 22.5
+//   256     87.9 / 81.0   78.2 / 74.3   33.1 / 33.7   35.3 / 36.0
+//   512     85.1 / 81.0   78.3 / 76.1   59.5 / 60.2   64.1 / 65.3
+//
+// A short array's time is one warp's walk (it doubles with the chunk), so it
+// takes the fewest edges per chunk; a window-sized one wants 256, where the
+// two row searches a chunk and its partials are spread over more edges, and
+// at S=8 loses again at 512, where the card's warp slots are no longer
+// filled (S=16's 2.0M edges are flat from 128 to 512). So `CHUNK_NARROW` in
+// the wrapper is (256, 64, 2048): the same ladder as the wide kernels',
+// halved while the array gives fewer than 2048 chunks and not 4096, so that
+// 1.0M edges keep 256. 32 edges a chunk gain a tenth at S=8's fresh view
+// and nothing at S=16's: not taken. The unroll (steps whose loads go out
+// together; builds with the constant changed, same timer, chunk 256 at the
+// window and 64 at the fresh view, f32): 2 / 4 / 8 give 32.8 / 32.7 / 32.6
+// (add) and 30.4 / 30.2 / 30.3 (gather) at S=8's window, where a block has
+// two steps and all three load them together; 93.6 / 90.3 / 90.3 and 86.5 /
+// 80.9 / 81.3 at S=16's; 17.3 / 17.0 / 17.0 at its fresh view. 4 is kept.
+//
+// Tried and dropped: the other narrow form, in which each group of G lanes
+// walks its own stretch of the chunk with the wide kernel's per-row logic
+// (no scan, no carry; a pair of partials per group, so 32 / G times the
+// partials and boundaries for the second launch, which stayed as it is
+// here; each lane reads its group's gather index itself). Built as a
+// variant of this file and run through the same phase 3 functions in turns
+// with this form, same card; us at its best stretch per group of those
+// swept (4 to 256 edges), f32 / bf16, against this form at its own chunk:
+//
+//   S=8 1.0M    add 46.6 / 40.8 (32 a group)   against 29.9 / 27.5
+//               gather 43.9 / 44.7 (32)        against 28.3 / 29.2
+//   S=8 80k     add 19.4 / 19.4 (8)            against 12.2 / 12.3
+//               gather 19.8 / 20.0 (8)         against 12.8 / 13.2
+//   S=16 2.0M   add 101.8 / 89.6 (64)          against 87.9 / 81.0
+//               gather 79.9 / 73.8 (64)        against 78.2 / 74.3
+//   S=16 160k   add 26.4 / 25.9 (8)            against 16.8 / 17.1
+//               gather 27.8 / 26.6 (8)         against 17.6 / 17.8
+//
+// It loses by a half at S=8 and at both fresh views (a group's walk is a
+// chain of dependent loads a sixteenth or an eighth as wide as a warp's,
+// and a short stretch pays a row search and a pair of partials for a few
+// edges), by a sixth at S=16's unfused window, and ties its fused window.
+
+// A complete sum of row w meets rin, or is the head partial of its chunk
+// (rin_c and part point at this lane's columns).
+template <int VEC, bool SCALED>
+__device__ void flush_row(float* rin_c, const float* __restrict__ row_scale, float* part,
+                          int head_row, int w, int s, const float* sum) {
+  if (w == head_row) Cols<VEC>::store(part, sum);
+  else add_into<VEC, SCALED>(rin_c, row_scale, w, s, 0, sum);
+}
+
+// Pass 1, narrow: one warp per chunk, G lanes per edge.
+template <typename T, typename I, int VEC, int G, bool GATHER, bool SCALED>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+segsum_chunks_narrow_kernel(float* __restrict__ rin, const T* __restrict__ src,
+                            const I* __restrict__ gat, const int* __restrict__ row_off,
+                            const float* __restrict__ row_scale,
+                            float* __restrict__ scratch, int n_rows, int s,
+                            int chunk_edges) {
+  constexpr int kEdges = kWarp / G;  // edges per step; a block of 32 edges is G steps
+  constexpr int kBatch = G < kNarrowUnroll ? G : kNarrowUnroll;  // steps loaded together
+  const int lane = threadIdx.x % kWarp;
+  const int q = lane / G;            // this lane's group
+  const int c = (lane % G) * VEC;    // and its columns
+  const bool active = c < s;
+  const long long chunk =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
+  const int e1 = __ldg(row_off + n_rows);
+  if (__ldg(row_off) + chunk * chunk_edges >= e1) return;
+  // edge positions fit 32 bits (row_off is int32); so must the table's rows
+  const int e_lo = static_cast<int>(__ldg(row_off) + chunk * chunk_edges);
+  const int e_hi = e1 - e_lo > chunk_edges ? e_lo + chunk_edges : e1;
+  const int w0 = find_row(row_off, 0, n_rows, e_lo, lane);
+  const int w_last = find_row(row_off, w0, n_rows, e_hi - 1, lane);
+  // the row whose sum here is a head partial: w0 if it began in an earlier chunk
+  const int head_row = __ldg(row_off + w0) < e_lo ? w0 : -1;
+  float* part = scratch + chunk * 2 * s + c;
+  const T* src_c = src + c;
+  float* rin_c = rin + c;
+
+  float acc[VEC];  // the open row's sum so far, a copy in every group
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+  int acc_row = w0;
+  int w_blk = w0;  // the row of the block's first edge, or one before it
+  int w_mine = w0;
+  int g = 0, g_next = 0;
+  if constexpr (GATHER) {
+    if (e_lo + lane < e_hi) g_next = static_cast<int>(__ldg(gat + e_lo + lane));
+  }
+  for (int eb = e_lo; eb < e_hi; eb += kWarp) {
+    if constexpr (GATHER) {
+      g = g_next;
+      g_next = 0;
+      if (eb + kWarp + lane < e_hi) g_next = static_cast<int>(__ldg(gat + eb + kWarp + lane));
+    }
+#pragma unroll 1
+    for (int j0 = 0; j0 < G && eb + j0 * kEdges < e_hi; j0 += kBatch) {
+      float v[kBatch][VEC];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int idx = (j0 + u) * kEdges + q;  // this group's edge within the block
+        int row = eb + idx;
+        const bool here = active && row < e_hi;
+        if constexpr (GATHER) row = __shfl_sync(kFull, g, idx);
+        if (here) {
+          Vec<T, VEC>::load(src_c + static_cast<long long>(row) * s, v[u]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) v[u][k] = 0.f;
+        }
+      }
+      if (j0 == 0) {
+        // the row of edge eb + lane (of the chunk's last edge past the end):
+        // the w in [w_blk, w_last] with row_off[w] <= e < row_off[w + 1];
+        // every lane takes the same number of probes
+        const int e_mine = eb + lane < e_hi ? eb + lane : e_hi - 1;
+        int lo = w_blk, hi = w_last;
+        for (int n = w_last - w_blk + 1; n > 1; n = (n + 1) / 2) {
+          const int mid = (lo + hi + 1) / 2;
+          if (__ldg(row_off + mid) <= e_mine) lo = mid;
+          else hi = mid - 1;
+        }
+        w_mine = lo;
+        w_blk = __shfl_sync(kFull, w_mine, kWarp - 1);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int e_step = eb + (j0 + u) * kEdges;
+        if (e_step >= e_hi) break;  // the whole warp leaves together
+        int r = __shfl_sync(kFull, w_mine, (j0 + u) * kEdges + q);
+        if (e_step + q >= e_hi) r = -1;  // no edge: its zeros join no row
+        if (q == 0) {
+          if (r == acc_row) {
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) v[u][k] += acc[k];
+          } else if (active) {
+            // the open row ended with the step before
+            flush_row<VEC, SCALED>(rin_c, row_scale, part, head_row, acc_row, s, acc);
+          }
+        }
+#pragma unroll
+        for (int d = G; d < kWarp; d *= 2) {
+          const int r_up = __shfl_up_sync(kFull, r, d);
+          float up[VEC];
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) up[k] = __shfl_up_sync(kFull, v[u][k], d);
+          if (lane >= d && r_up == r) {
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) v[u][k] += up[k];
+          }
+        }
+        const int n_here = e_hi - e_step < kEdges ? e_hi - e_step : kEdges;
+        const int r_down = __shfl_down_sync(kFull, r, G);
+        if (active && q < n_here - 1 && r_down != r) {
+          // another row follows within the step: this run is its row's last
+          flush_row<VEC, SCALED>(rin_c, row_scale, part, head_row, r, s, v[u]);
+        }
+        // the step's last edge leaves its row open
+        const int last = (n_here - 1) * G;
+        acc_row = __shfl_sync(kFull, r, last);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] = __shfl_sync(kFull, v[u][k], last + lane % G);
+      }
+    }
+  }
+  // the chunk's last row: shared if it began before the chunk or runs past
+  // it, and then its partial is stored unscaled (pass 2 scales the sum)
+  if (q == 0 && active) {
+    if (acc_row != head_row && __ldg(row_off + acc_row + 1) > e_hi) {
+      Cols<VEC>::store(part + s, acc);
+    } else {
+      flush_row<VEC, SCALED>(rin_c, row_scale, part, head_row, acc_row, s, acc);
+    }
+  }
+}
+
+// Pass 2, narrow: one warp per chunk boundary as above; the crossing row's
+// partials go round the warp's 32 / G groups (group q takes every
+// (32 / G)-th from the q-th on, in chunk order) and the groups' sums are
+// added in a fixed tree.
+template <int VEC, int G, bool SCALED>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+segsum_spans_narrow_kernel(float* __restrict__ rin, const int* __restrict__ row_off,
+                           const float* __restrict__ row_scale,
+                           const float* __restrict__ scratch, int n_rows, int s,
+                           int chunk_edges) {
+  constexpr int kGroups = kWarp / G;
+  const int lane = threadIdx.x % kWarp;
+  const int q = lane / G;
+  const int c = (lane % G) * VEC;
+  const bool active = c < s;
+  const long long b =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
+  const long long e0 = __ldg(row_off);
+  const long long e1 = __ldg(row_off + n_rows);
+  const long long x = e0 + (b + 1) * chunk_edges;
+  if (x >= e1) return;
+  const int w = find_row(row_off, 0, n_rows, x, lane);
+  const long long start = __ldg(row_off + w);
+  if (start >= x || start < x - chunk_edges) return;
+  const long long last = (__ldg(row_off + w + 1) - 1 - e0) / chunk_edges;  // > b
+  float acc[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
+  if (active) {
+    if (q == 0) Cols<VEC>::load(scratch + (b * 2 + 1) * s + c, acc);
+    for (long long j = b + 1 + q; j <= last; j += kGroups * kSpanNarrowUnroll) {
+      float v[kSpanNarrowUnroll][VEC];
+#pragma unroll
+      for (int u = 0; u < kSpanNarrowUnroll; ++u) {
+        if (j + u * kGroups <= last) {
+          Cols<VEC>::load(scratch + (j + u * kGroups) * 2 * s + c, v[u]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) v[u][k] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSpanNarrowUnroll; ++u) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] += v[u][k];
+      }
+    }
+  }
+#pragma unroll
+  for (int d = kWarp / 2; d >= G; d /= 2) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] += __shfl_down_sync(kFull, acc[k], d);
+  }
+  // the one place a spanning row is scaled: on the sum of its partials
+  if (q == 0 && active) add_into<VEC, SCALED>(rin, row_scale, w, s, c, acc);
+}
+
 int grid_for(long long warps) {
   return static_cast<int>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
-// Edges per chunk for an edge array of n_edges: the largest of kChunkMax,
-// kChunkMax / 2, ... kChunkMin that still cuts it into kChunksWanted pieces
-// (about one per warp the card holds at once), so that a short call (a
-// fresh view, a compact round) spreads as wide as a window scan does. A
-// function of n_edges alone: the same inputs are always cut the same way.
-int chunk_for(long long n_edges) {
-  int c = kChunkMax;
-  while (c > kChunkMin && n_edges / c < kChunksWanted) c /= 2;
-  return c;
-}
-
-// Both launches at one vector width, with or without the scale.
-template <typename T, typename I, int VEC, bool GATHER, bool SCALED>
+// Both launches at one vector width and G lanes per edge (32: lanes over
+// columns alone, the wide kernels), with or without the scale.
+template <typename T, typename I, int VEC, int G, bool GATHER, bool SCALED>
 int launch_as(float* rin, const T* src, const I* gat, const int* row_off,
               const float* row_scale, float* scratch, int n_rows, int s,
               long long chunks, int chunk, cudaStream_t st) {
   const int threads = kWarp * kWarpsPerBlock;
-  segsum_chunks_kernel<T, I, VEC, GATHER, SCALED><<<grid_for(chunks), threads, 0, st>>>(
-      rin, src, gat, row_off, row_scale, scratch, n_rows, s, chunk);
+  if constexpr (G == kWarp) {
+    segsum_chunks_kernel<T, I, VEC, GATHER, SCALED><<<grid_for(chunks), threads, 0, st>>>(
+        rin, src, gat, row_off, row_scale, scratch, n_rows, s, chunk);
+  } else {
+    segsum_chunks_narrow_kernel<T, I, VEC, G, GATHER, SCALED>
+        <<<grid_for(chunks), threads, 0, st>>>(rin, src, gat, row_off, row_scale, scratch,
+                                               n_rows, s, chunk);
+  }
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || chunks < 2) return err;
-  segsum_spans_kernel<VEC, SCALED><<<grid_for(chunks - 1), threads, 0, st>>>(
-      rin, row_off, row_scale, scratch, n_rows, s, chunk);
+  if constexpr (G == kWarp) {
+    segsum_spans_kernel<VEC, SCALED><<<grid_for(chunks - 1), threads, 0, st>>>(
+        rin, row_off, row_scale, scratch, n_rows, s, chunk);
+  } else {
+    segsum_spans_narrow_kernel<VEC, G, SCALED><<<grid_for(chunks - 1), threads, 0, st>>>(
+        rin, row_off, row_scale, scratch, n_rows, s, chunk);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename I, int VEC, bool GATHER, bool SCALED>
+int launch_lanes(float* rin, const T* src, const I* gat, const int* row_off,
+                 const float* row_scale, float* scratch, int n_rows, int s,
+                 long long chunks, int chunk, int lanes, cudaStream_t st) {
+#define PPRX_SEGSUM_LANES(G)                                                             \
+  case G:                                                                                \
+    return launch_as<T, I, VEC, G, GATHER, SCALED>(rin, src, gat, row_off, row_scale,    \
+                                                   scratch, n_rows, s, chunks, chunk, st)
+  switch (lanes) {
+    PPRX_SEGSUM_LANES(1);
+    PPRX_SEGSUM_LANES(2);
+    PPRX_SEGSUM_LANES(4);
+    PPRX_SEGSUM_LANES(8);
+    PPRX_SEGSUM_LANES(16);
+    PPRX_SEGSUM_LANES(32);
+  }
+#undef PPRX_SEGSUM_LANES
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Both launches. n_edges is the length of the edge array (contribs rows or
 // gat entries): the range [row_off[0], row_off[R]) lies inside it, so
 // ceil(n_edges / chunk) chunks cover it and the surplus warps return at
-// once. scratch holds that many [2, s] f32 partials. chunk is the edges per
-// chunk the caller sized the scratch for: chunk_for(n_edges), or another
-// value where a test wants a given split. row_scale is null for a plain sum.
+// once. scratch holds that many [2, s] f32 partials. The layout is the
+// caller's (pprx_torch/engine/segsum.py `layout_for`, which also sizes the
+// scratch): chunk edges per warp, vec columns per lane (4 needs s % 4 ==
+// 0), lanes per edge (a power of two; under 32 only where lanes * vec
+// covers s). row_scale is null for a plain sum.
 template <typename T, typename I, bool GATHER>
 int launch(float* rin, const T* src, const I* gat, const int* row_off,
            const float* row_scale, float* scratch, int n_rows, int s,
-           long long n_edges, int chunk, void* stream) {
+           long long n_edges, int chunk, int vec, int lanes, void* stream) {
   if (n_rows <= 0 || n_edges <= 0 || s <= 0) return 0;
-  if (chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (chunk <= 0 || (vec != 1 && vec != 4) || s % vec != 0 ||
+      (lanes < kWarp && lanes * vec < s)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long chunks = (n_edges + chunk - 1) / chunk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec4 = s % 4 == 0;
   if (row_scale != nullptr) {
-    return vec4 ? launch_as<T, I, 4, GATHER, true>(rin, src, gat, row_off, row_scale,
-                                                   scratch, n_rows, s, chunks, chunk, st)
-                : launch_as<T, I, 1, GATHER, true>(rin, src, gat, row_off, row_scale,
-                                                   scratch, n_rows, s, chunks, chunk, st);
+    return vec == 4 ? launch_lanes<T, I, 4, GATHER, true>(rin, src, gat, row_off, row_scale,
+                                                          scratch, n_rows, s, chunks, chunk,
+                                                          lanes, st)
+                    : launch_lanes<T, I, 1, GATHER, true>(rin, src, gat, row_off, row_scale,
+                                                          scratch, n_rows, s, chunks, chunk,
+                                                          lanes, st);
   }
-  return vec4 ? launch_as<T, I, 4, GATHER, false>(rin, src, gat, row_off, nullptr,
-                                                  scratch, n_rows, s, chunks, chunk, st)
-              : launch_as<T, I, 1, GATHER, false>(rin, src, gat, row_off, nullptr,
-                                                  scratch, n_rows, s, chunks, chunk, st);
+  return vec == 4 ? launch_lanes<T, I, 4, GATHER, false>(rin, src, gat, row_off, nullptr,
+                                                         scratch, n_rows, s, chunks, chunk,
+                                                         lanes, st)
+                  : launch_lanes<T, I, 1, GATHER, false>(rin, src, gat, row_off, nullptr,
+                                                         scratch, n_rows, s, chunks, chunk,
+                                                         lanes, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Edges per chunk for an edge array of n_edges: the wrapper sizes the
-// scratch as [ceil(n_edges / chunk), 2, s] f32 and passes the chunk on.
-int pprx_segsum_chunk(long long n_edges) { return chunk_for(n_edges); }
-
-// Every entry below takes row_scale, f32 [n_rows] or null for a plain sum.
+// Every entry below takes row_scale, f32 [n_rows] or null for a plain sum,
+// and the layout: chunk, vec, lanes (see `launch`).
 
 int pprx_segsum_add_f32(float* rin, const float* contribs, const int* row_off,
                         const float* row_scale, float* scratch, int n_rows, int s,
-                        long long n_edges, int chunk, void* stream) {
+                        long long n_edges, int chunk, int vec, int lanes, void* stream) {
   return launch<float, int, false>(rin, contribs, nullptr, row_off, row_scale,
-                                   scratch, n_rows, s, n_edges, chunk, stream);
+                                   scratch, n_rows, s, n_edges, chunk, vec, lanes, stream);
 }
 
 int pprx_segsum_add_bf16(float* rin, const void* contribs, const int* row_off,
                          const float* row_scale, float* scratch, int n_rows, int s,
-                         long long n_edges, int chunk, void* stream) {
+                         long long n_edges, int chunk, int vec, int lanes, void* stream) {
   return launch<__nv_bfloat16, int, false>(
       rin, static_cast<const __nv_bfloat16*>(contribs), nullptr, row_off,
-      row_scale, scratch, n_rows, s, n_edges, chunk, stream);
+      row_scale, scratch, n_rows, s, n_edges, chunk, vec, lanes, stream);
 }
 
 int pprx_segsum_gather_add_f32_i32(float* rin, const float* table, const int* gat,
                                    const int* row_off, const float* row_scale,
-                                   float* scratch, int n_rows, int s,
-                                   long long n_edges, int chunk, void* stream) {
+                                   float* scratch, int n_rows, int s, long long n_edges,
+                                   int chunk, int vec, int lanes, void* stream) {
   return launch<float, int, true>(rin, table, gat, row_off, row_scale, scratch,
-                                  n_rows, s, n_edges, chunk, stream);
+                                  n_rows, s, n_edges, chunk, vec, lanes, stream);
 }
 
 int pprx_segsum_gather_add_f32_i64(float* rin, const float* table,
                                    const long long* gat, const int* row_off,
                                    const float* row_scale, float* scratch,
                                    int n_rows, int s, long long n_edges, int chunk,
-                                   void* stream) {
-  return launch<float, long long, true>(rin, table, gat, row_off, row_scale,
-                                        scratch, n_rows, s, n_edges, chunk, stream);
+                                   int vec, int lanes, void* stream) {
+  return launch<float, long long, true>(rin, table, gat, row_off, row_scale, scratch,
+                                        n_rows, s, n_edges, chunk, vec, lanes, stream);
 }
 
 int pprx_segsum_gather_add_bf16_i32(float* rin, const void* table, const int* gat,
                                     const int* row_off, const float* row_scale,
-                                    float* scratch, int n_rows, int s,
-                                    long long n_edges, int chunk, void* stream) {
+                                    float* scratch, int n_rows, int s, long long n_edges,
+                                    int chunk, int vec, int lanes, void* stream) {
   return launch<__nv_bfloat16, int, true>(
       rin, static_cast<const __nv_bfloat16*>(table), gat, row_off, row_scale,
-      scratch, n_rows, s, n_edges, chunk, stream);
+      scratch, n_rows, s, n_edges, chunk, vec, lanes, stream);
 }
 
 int pprx_segsum_gather_add_bf16_i64(float* rin, const void* table,
                                     const long long* gat, const int* row_off,
                                     const float* row_scale, float* scratch,
                                     int n_rows, int s, long long n_edges, int chunk,
-                                    void* stream) {
+                                    int vec, int lanes, void* stream) {
   return launch<__nv_bfloat16, long long, true>(
       rin, static_cast<const __nv_bfloat16*>(table), gat, row_off, row_scale,
-      scratch, n_rows, s, n_edges, chunk, stream);
+      scratch, n_rows, s, n_edges, chunk, vec, lanes, stream);
 }
 
 }  // extern "C"

@@ -20,18 +20,23 @@ out-degree of its destination row, which is one factor per row.
 On CUDA tensors both launch the hand-written Hopper kernels of
 ``pprx_torch/csrc/segsum.cu`` (built at first use by ``pprx_torch._ext``):
 an edge-balanced pass and a small pass over the rows that span chunks,
-deterministic, no atomics. On CPU tensors they run the plain versions,
-``segsum_add_plain`` and ``segsum_gather_add_plain``.
+deterministic, no atomics. A state that fills a warp's lanes runs the wide
+kernels (lanes over columns); a narrower one (S=8, S=16: configs 3 and 2)
+the narrow ones, where several edges share a warp step. ``layout_for``
+chooses, from S and the length of the edge array alone. On CPU tensors
+they run the plain versions, ``segsum_add_plain`` and
+``segsum_gather_add_plain``.
 
-The TPU kernel's tile offsets, EC padding, ``[W_pad/128, 128]`` seg-id
-reshape and limb-split precision modes existed for Mosaic and are not
-ported: the port keeps per-row offsets (``row_offsets``) and accumulates in
-f32.
+The TPU kernel's tile offsets, EC padding, lane padding of narrow states
+to 128, ``[W_pad/128, 128]`` seg-id reshape and limb-split precision modes
+existed for Mosaic and are not ported: the port keeps per-row offsets
+(``row_offsets``) and accumulates in f32.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -133,21 +138,65 @@ def _entries() -> dict:
     }
     for (_, idx), fn in fns.items():
         # rin, source, [gat,] row_off, row_scale, scratch, n_rows, s, n_edges,
-        # chunk, stream
+        # chunk, vec, lanes, stream
         ptrs = 5 if idx is None else 6
-        fn.argtypes = [*[_PTR] * ptrs, _INT, _INT, _LONG, _INT, _PTR]
+        fn.argtypes = [*[_PTR] * ptrs, _INT, _INT, _LONG, _INT, _INT, _INT, _PTR]
         fn.restype = _INT
-    lib.pprx_segsum_chunk.argtypes = [_LONG]
-    lib.pprx_segsum_chunk.restype = _INT
     return fns
 
 
-def chunk_for(n_edges: int) -> int:
-    """Edges per chunk the kernels cut an edge array of this length into (a
-    function of the length alone; the card tests replace it to force a
-    split)."""
-    _entries()  # sets the argument types
-    return _ext.load("segsum").pprx_segsum_chunk(n_edges)
+# ---- the layout of a call: a pure function of (S, length of the edge array)
+# that the kernels are told, so that the scratch is sized from the same
+# numbers and a CPU test can pin them. The source types (f32, bf16) share it.
+
+WARP = 32
+# Edges per chunk (one warp's share): the most, the fewest, and the number
+# of chunks below which the chunk is halved; swept on the card, the tables
+# are in the kernel source. Wide: lanes over columns alone (32 lanes an
+# edge). Narrow: 1.0M edges keep 256 (3,906 chunks), a fresh view gets 64.
+CHUNK_WIDE = (256, 64, 4096)
+CHUNK_NARROW = (256, 64, 2048)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How the kernels walk one call's edges."""
+
+    vec: int  # columns a lane loads at once (4: 16 bytes of f32, 8 of bf16)
+    lanes: int  # lanes per edge, a power of two; 32: the wide kernels
+    edges_per_step: int  # edges a warp loads in one step: 32 // lanes
+    chunk: int  # edges per warp
+
+
+def lanes_for(s: int) -> tuple[int, int]:
+    """(columns per lane, lanes per edge) for a state of ``s`` columns: 4
+    columns a lane where ``s`` is a multiple of 4, else 1, and the least
+    power of two of lanes that covers ``s``, at most a warp (a wider state
+    goes round the warp's lanes again)."""
+    vec = 4 if s % 4 == 0 else 1
+    lanes = 1
+    while lanes < WARP and lanes * vec < s:
+        lanes *= 2
+    return vec, lanes
+
+
+def chunk_for(n_edges: int, s: int) -> int:
+    """Edges per chunk for an edge array of ``n_edges`` at ``s`` columns:
+    the largest of most, most / 2, ... fewest that still cuts the array
+    into the wanted number of chunks (about one per warp the card holds at
+    once), so that a short call (a fresh view, a compact round) spreads as
+    wide as a window scan does. The same inputs are always cut the same
+    way; the card tests replace this function to force a split."""
+    most, fewest, wanted = CHUNK_WIDE if lanes_for(s)[1] == WARP else CHUNK_NARROW
+    c = most
+    while c > fewest and n_edges // c < wanted:
+        c //= 2
+    return c
+
+
+def layout_for(s: int, n_edges: int) -> Layout:
+    vec, lanes = lanes_for(s)
+    return Layout(vec, lanes, WARP // lanes, chunk_for(n_edges, s))
 
 
 def _check(what, rin, source, name, gat, row_off, row_scale) -> None:
@@ -184,6 +233,8 @@ def _check(what, rin, source, name, gat, row_off, row_scale) -> None:
         raise TypeError(f"{what} on CUDA takes an f32 row_scale, got {row_scale.dtype}")
     if not all(t.is_contiguous() for t in operands):
         raise ValueError(f"{what} on CUDA needs contiguous operands")
+    if source.shape[0] >= 2**31:
+        raise ValueError(f"{what} on CUDA takes fewer than 2**31 rows of {name}")
     if rin.data_ptr() % 16 or source.data_ptr() % 16:
         raise ValueError(f"{what} on CUDA needs 16-byte-aligned rin and {name}")
 
@@ -198,8 +249,8 @@ def _launch(entry: str, rin, source, gat, row_off, row_scale) -> None:
     n_edges = source.shape[0] if gat is None else gat.shape[0]
     if n_rows == 0 or n_edges == 0 or s == 0:
         return
-    chunk = chunk_for(n_edges)
-    n_chunks = -(-n_edges // chunk)
+    lay = layout_for(s, n_edges)
+    n_chunks = -(-n_edges // lay.chunk)
     # uninitialised on purpose: the second pass reads only what the first wrote
     scratch = torch.empty((n_chunks, 2, s), dtype=torch.float32, device=rin.device)
     fn = _entries()[source.dtype, None if gat is None else gat.dtype]
@@ -209,7 +260,7 @@ def _launch(entry: str, rin, source, gat, row_off, row_scale) -> None:
         err = fn(
             rin.data_ptr(), source.data_ptr(), *gat_ptr, row_off.data_ptr(),
             None if row_scale is None else row_scale.data_ptr(),
-            scratch.data_ptr(), n_rows, s, n_edges, chunk, stream,
+            scratch.data_ptr(), n_rows, s, n_edges, lay.chunk, lay.vec, lay.lanes, stream,
         )
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")

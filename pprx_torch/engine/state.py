@@ -39,6 +39,26 @@ class PprState:
         return self.p.shape[1]
 
 
+def settled_distance(a: PprState, b: PprState, alpha: float) -> float:
+    """``max |(p_a + alpha r_a) - (p_b + alpha r_b)|`` of two forward states
+    (``b`` is brought to ``a``'s device and dtype).
+
+    Two runs of the same pushes on different devices, or twice on a card,
+    differ in the last bits of their sums, and a residual that lies at its
+    push threshold is then pushed in one run and not in the other. That
+    push moves ``alpha * r``, up to ``alpha * eps * deg`` (1e-5 from 67
+    edges on at eps = 1e-6, alpha = 0.15), from ``r`` to ``p``: ``max |dp|``
+    reads it as a difference although both states are as close to exact
+    PPR. ``p + alpha * r`` is what a vertex holds whether or not it has
+    pushed: a push leaves it as it was at the pushed vertex and adds
+    ``alpha (1 - alpha) r / deg <= alpha (1 - alpha) eps`` at each receiver
+    (``(1 - alpha) r`` at a vertex without out-edges, whose whole residual
+    settles). So it compares what two runs hold, not which pushes they
+    made."""
+    bp, br = (t.to(device=a.p.device, dtype=a.p.dtype) for t in (b.p, b.r))
+    return float(((a.p - bp) + alpha * (a.r - br)).abs().max())
+
+
 @dataclasses.dataclass
 class PushStats:
     """Host-side counters of one convergence loop.

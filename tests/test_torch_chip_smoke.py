@@ -1,0 +1,84 @@
+"""The smoke script's own checks (chip_smoke.py) on the CPU at a small size:
+its main() needs a card, the comparisons it makes do not."""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from pprx_torch.config import PprConfig, StreamConfig
+from pprx_torch.engine.push import push_to_convergence
+from pprx_torch.engine.state import FORWARD, PprState, settled_distance
+from pprx_torch.graph.dynamic import WindowGraph
+from pprx_torch.graph.fast_stream import FastStreamDriver
+from pprx_torch.graph.io import synthetic_powerlaw_stream
+
+torch.set_num_threads(1)
+
+
+def test_settled_distance_ignores_a_push_at_the_threshold():
+    """Two states that differ by a hair at a 200-edge vertex's push
+    threshold: one run pushes it and the other does not, so ``p`` differs
+    by alpha * eps * deg = 3e-5, above the 1e-5 two runs of one slide are
+    held to, while ``p + alpha r`` differs by alpha (1 - alpha) eps at the
+    receivers and by the hair at the vertex."""
+    n, d = 300, 200
+    hub = np.zeros(d, np.int32)
+    src = np.concatenate([hub, np.arange(1, n, dtype=np.int32)])
+    dst = np.concatenate([np.arange(1, d + 1, dtype=np.int32),
+                          np.roll(np.arange(1, n, dtype=np.int32), 1)])
+    cfg = PprConfig(alpha=0.15, eps=1e-6)
+    graph = WindowGraph.from_coo(src, dst, n, device="cpu")
+    states = []
+    for hair in (1.001, 0.999):
+        r = torch.zeros((n + 1, 1), dtype=torch.float64)
+        r[0, 0] = hair * cfg.eps * d
+        st = PprState(p=torch.zeros_like(r), r=r, mode=FORWARD)
+        st, stats = push_to_convergence(st, graph, cfg)
+        states.append((st, stats.rounds))
+    (pushed, rounds_a), (held, rounds_b) = states
+    assert rounds_a >= 1 and rounds_b == 0
+    assert float((pushed.p - held.p).abs().max()) > 2.9e-5
+    assert settled_distance(pushed, held, cfg.alpha) < 1.5e-7
+    assert settled_distance(pushed, pushed, cfg.alpha) == 0.0
+
+
+def test_dense_check_on_the_cpu():
+    """Phase 12 as the card runs it, on the CPU: both modes, slides of 100
+    edges and of 1 edge, every query within its bound of exact PPR, and no
+    launch of the segment sum."""
+    res = chip_smoke.dense_check(torch.device("cpu"))
+    assert res["kernel_launches"] == 0
+    for mode in ("forward", "reverse"):
+        for b in (100, 1):
+            assert res[f"{mode}_slide{b}_err"] <= res[f"{mode}_slide{b}_bound"]
+            assert res[f"{mode}_slide{b}_rounds"] > 0
+
+
+def test_exact_contract_holds_bf16_mass_to_a_witness():
+    """bf16 delivery loses mass whatever sums it: the contract then holds a
+    run's mass to a second run's reading within 1e-4 (here both on the CPU),
+    and fails when the two differ by more; without a witness it holds mass
+    to 1 within 1e-3."""
+    w, b = 4000, 100
+    src, dst, n = synthetic_powerlaw_stream(500, w + 8 * b, seed=2)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
+    runs = []
+    for _ in range(2):
+        drv = FastStreamDriver(src, dst, n, list(range(16)), cfg, StreamConfig(window=w, slide=b),
+                               dtype=torch.float32, rebuild_every=4, bf16d=True, device="cpu")
+        drv.seed()
+        list(drv.run(6))
+        runs.append(drv)
+    drv, twin = runs
+    mass = chip_smoke.state_mass(twin, 4)
+    assert mass.shape == (4,) and 1e-6 < np.abs(mass - 1.0).max() < 1e-2
+    res = chip_smoke.exact_contract(drv, None, 10, 4, cfg.eps * w, mass)
+    assert res["mass_off_ref"] == 0.0 and res["mass_bound"] == 1e-4
+    assert res["mass_err_max"] == res["mass_err_max_ref"]
+    with pytest.raises(AssertionError, match="contract failed"):
+        chip_smoke.exact_contract(drv, None, 10, 4, cfg.eps * w, mass + 2e-4)
+    # without a witness mass is held to 1 within 1e-3, which bf16 delivery misses
+    assert res["mass_err_max"] > 1e-3
+    with pytest.raises(AssertionError, match="'mass_bound': 0.001"):
+        chip_smoke.exact_contract(drv, None, 10, 4, cfg.eps * w)

@@ -24,13 +24,20 @@ from pprx_torch.engine.segsum import (
     segsum_gather_add_,
     segsum_gather_add_plain,
 )
-from pprx_torch.engine.state import REVERSE, init_state
+from pprx_torch.engine.state import REVERSE, init_state, settled_distance
 from pprx_torch.engine.update import out_row_sums
 from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
 from pprx_torch.graph.io import synthetic_powerlaw_stream
 from pprx_torch.graph.stream import StreamDriver
 from pprx_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from pprx_torch.ref.exact import exact_ppr, exact_ppr_columns
+
+# every lanes-per-edge the kernels have (1, 2, 4, 8, 16 and the wide 32), a
+# width of one column a lane (3), and widths whose last lane is idle (3, 100)
+WIDTHS = [1, 3, 4, 8, 16, 32, 64, 100, 128]
+# forced edges per chunk: 24 cuts inside the 32-edge blocks a warp walks, so
+# rows span groups, steps, blocks and chunks
+CHUNKS = [24, 64, 256]
 
 
 def _cuda() -> torch.device:
@@ -41,7 +48,7 @@ def _cuda() -> torch.device:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s", [128, 8, 3])
+@pytest.mark.parametrize("s", WIDTHS)
 def test_kernel_matches_plain(s, dtype):
     """The Hopper kernel against the plain version (in f64) on a skewed
     segment set with empty rows; rtol = atol = 1e-4 for f32 sums of up to
@@ -115,9 +122,9 @@ TROUBLE = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s", [128, 8, 3])
+@pytest.mark.parametrize("s", WIDTHS)
 @pytest.mark.parametrize("case", TROUBLE)
-@pytest.mark.parametrize("chunk", [64, 256])
+@pytest.mark.parametrize("chunk", CHUNKS)
 def test_both_entries_on_trouble_cases(monkeypatch, chunk, case, s, dtype):
     """Both entries against their plain versions in f64 where the
     edge-balanced split has its corners (rows shared between chunks, rows
@@ -127,7 +134,7 @@ def test_both_entries_on_trouble_cases(monkeypatch, chunk, case, s, dtype):
     dev = _cuda()
     # every edge array in chunks of ``chunk`` edges, whatever its length (the
     # kernels' own choice would give every small case here its smallest)
-    monkeypatch.setattr(segsum, "chunk_for", lambda n_edges: chunk)
+    monkeypatch.setattr(segsum, "chunk_for", lambda n_edges, s: chunk)
     lens, lead, trail = _trouble_lens(case, chunk)
     rng = np.random.default_rng(len(case) + s)
     off_np = lead + np.concatenate([[0], np.cumsum(lens)])
@@ -160,9 +167,9 @@ def _span_lens(spans: int, c: int) -> list[int]:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s", [128, 8, 3])
+@pytest.mark.parametrize("s", WIDTHS)
 @pytest.mark.parametrize("spans", [1, 2, 3, 150])
-@pytest.mark.parametrize("chunk", [64, 256])
+@pytest.mark.parametrize("chunk", CHUNKS)
 def test_row_scale_on_spanning_rows(monkeypatch, chunk, spans, s, dtype):
     """Both entries with a per-row scale far from 1 where a double or a
     missing scale would show: a row inside one chunk, and rows that span 2,
@@ -171,7 +178,7 @@ def test_row_scale_on_spanning_rows(monkeypatch, chunk, spans, s, dtype):
     ~4e4 terms in [0, 1) times a factor in [2, 6]); two launches agree bit
     for bit."""
     dev = _cuda()
-    monkeypatch.setattr(segsum, "chunk_for", lambda n_edges: chunk)
+    monkeypatch.setattr(segsum, "chunk_for", lambda n_edges, s: chunk)
     lens = _span_lens(spans, chunk)
     rng = np.random.default_rng(spans + s)
     off_np = np.concatenate([[0], np.cumsum(lens)])
@@ -203,13 +210,13 @@ def test_row_scale_on_spanning_rows(monkeypatch, chunk, spans, s, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", TROUBLE)
-@pytest.mark.parametrize("chunk", [64, 256])
+@pytest.mark.parametrize("chunk", CHUNKS)
 def test_row_scale_on_trouble_cases(monkeypatch, chunk, case):
-    """The scaled form at the corners of the edge-balanced split (S=128 and
-    S=8, f32), sliced ``row_off`` included: ``row_scale[w]`` belongs to row
-    w of the rows given."""
+    """The scaled form at the corners of the edge-balanced split (every
+    width, f32), sliced ``row_off`` included: ``row_scale[w]`` belongs to
+    row w of the rows given."""
     dev = _cuda()
-    monkeypatch.setattr(segsum, "chunk_for", lambda n_edges: chunk)
+    monkeypatch.setattr(segsum, "chunk_for", lambda n_edges, s: chunk)
     lens, lead, trail = _trouble_lens(case, chunk)
     rng = np.random.default_rng(len(case))
     off_np = lead + np.concatenate([[0], np.cumsum(lens)])
@@ -217,7 +224,7 @@ def test_row_scale_on_trouble_cases(monkeypatch, chunk, case):
     off = torch.from_numpy(off_np.astype(np.int32)).to(dev)
     scale = torch.from_numpy(0.25 + rng.random(n_rows, dtype=np.float32)).to(dev)
     gat = torch.from_numpy(rng.integers(0, n_table, w)).to(dev)
-    for s in (128, 8):
+    for s in WIDTHS:
         table = torch.from_numpy(rng.random((n_table, s), dtype=np.float32)).to(dev)
         rin = torch.from_numpy(rng.random((n_rows, s), dtype=np.float32)).to(dev)
         ref = segsum_gather_add_plain(rin.double(), table.double(), gat, off, scale.double())
@@ -229,21 +236,29 @@ def test_row_scale_on_trouble_cases(monkeypatch, chunk, case):
 
 
 @pytest.mark.cuda
-def test_unit_scale_matches_no_scale():
-    """A scale of ones against no scale on skewed rows: the same sums (the
-    scaled path multiplies by 1.0, which is exact), bit for bit."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", WIDTHS)
+def test_unit_scale_matches_no_scale(s, dtype):
+    """A scale of ones against no scale on skewed rows, both entries: the
+    same sums (the scaled path multiplies by 1.0, which is exact), bit for
+    bit."""
     dev = _cuda()
     rng = np.random.default_rng(8)
-    n_rows, w, s = 5000, 300_000, 128
+    n_rows, w = 5000, 300_000
     seg = np.minimum(rng.zipf(1.3, size=w) % (n_rows - 1), n_rows - 2).astype(np.int32)
     seg.sort()
     off = row_offsets(torch.from_numpy(seg).to(dev), n_rows)
-    table = torch.from_numpy(rng.random((n_rows, s), dtype=np.float32)).to(dev)
+    table = torch.from_numpy(rng.random((n_rows, s), dtype=np.float32)).to(dev, dtype)
+    contrib = torch.from_numpy(rng.random((w, s), dtype=np.float32)).to(dev, dtype)
     gat = torch.from_numpy(rng.integers(0, n_rows, w).astype(np.int32)).to(dev)
     rin = torch.from_numpy(rng.random((n_rows, s), dtype=np.float32)).to(dev)
     ones = torch.ones(n_rows, device=dev)
     plain = segsum_gather_add_(rin.clone(), table, gat, off)
     scaled = segsum_gather_add_(rin.clone(), table, gat, off, row_scale=ones)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, scaled)
+    plain = segsum_add_(rin.clone(), contrib, off)
+    scaled = segsum_add_(rin.clone(), contrib, off, ones)
     torch.cuda.synchronize()
     assert torch.equal(plain, scaled)
 
@@ -267,16 +282,17 @@ def test_row_scale_refuses():
 
 
 @pytest.mark.cuda
-def test_repeat_launches_are_bit_identical_on_skewed_rows():
+@pytest.mark.parametrize("s", WIDTHS)
+def test_repeat_launches_are_bit_identical_on_skewed_rows(s):
     """What the kernels offer that ``index_add_`` on the card does not: no
     atomics, so the same inputs give the same bits, hub row included."""
     dev = _cuda()
     rng = np.random.default_rng(5)
-    n_rows, w, s = 5000, 300_000, 128
+    n_rows, w = 5000, 300_000
     seg = np.minimum(rng.zipf(1.3, size=w) % (n_rows - 1), n_rows - 2).astype(np.int32)
     seg.sort()
     off = row_offsets(torch.from_numpy(seg).to(dev), n_rows)
-    assert int(off.diff().max()) > 100 * segsum.chunk_for(w)
+    assert int(off.diff().max()) > 100 * segsum.chunk_for(w, s)
     table = torch.from_numpy(rng.random((n_rows, s), dtype=np.float32)).to(dev)
     gat = torch.from_numpy(rng.integers(0, n_rows, w).astype(np.int32)).to(dev)
     rin = torch.from_numpy(rng.random((n_rows, s), dtype=np.float32)).to(dev)
@@ -377,6 +393,49 @@ def test_fast_stream_on_card_matches_cpu_f64():
         list(d.run(10))
     assert segsum.launches() > before
     np.testing.assert_allclose(gpu.state.p.cpu().numpy(), cpu.state.p.numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16d", [False, True])
+def test_config2_stream_on_card_matches_cpu_f64(bf16d):
+    """Config 2's stream (forward, 16 sources: four lanes an edge) cut to
+    N=2,000, W=20,000, b=200, on the card in f32 against the CPU port (the
+    plain version, no kernel). f32 delivery, against the CPU in f64:
+    ``p + alpha r`` within 1e-5 everywhere (``settled_distance``: ``p`` alone
+    differs by up to alpha * eps * deg wherever a residual at its push
+    threshold was pushed in one run only), and mass within 1e-3. bf16
+    delivery rounds every scan round's contributions to 8 bits while ``r``
+    gives up the exact amounts, so mass drifts on any device: that run is
+    held to the CPU port with bf16 delivery in f32, mass within 1e-4 of its
+    reading per source. Both: the forward contract against exact PPR."""
+    dev = _cuda()
+    w, b = 20_000, 200
+    src, dst, n = synthetic_powerlaw_stream(2000, w + 20 * b, seed=2)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
+    scfg = StreamConfig(window=w, slide=b)
+    queries = list(range(16))
+    cpu = FastStreamDriver(src, dst, n, queries, cfg, scfg, rebuild_every=8, bf16d=bf16d,
+                           dtype=torch.float32 if bf16d else torch.float64, device="cpu")
+    gpu = FastStreamDriver(src, dst, n, queries, cfg, scfg, dtype=torch.float32,
+                           rebuild_every=8, bf16d=bf16d, device=dev)
+    before = segsum.launches()
+    for d in (cpu, gpu):
+        d.seed()
+        list(d.run(12))
+    assert segsum.launches() > before
+
+    def mass(st):
+        return (st.p[:n].double().sum(0) + st.r[:n].double().sum(0)).cpu().numpy()
+
+    if bf16d:
+        np.testing.assert_allclose(mass(gpu.state), mass(cpu.state), rtol=0, atol=1e-4)
+    else:
+        assert settled_distance(gpu.state, cpu.state, cfg.alpha) <= 1e-5
+        np.testing.assert_allclose(mass(gpu.state), 1.0, rtol=0, atol=1e-3)
+    p = gpu.state.p.cpu().double().numpy()
+    exact = exact_ppr(gpu.hsrc, gpu.hdst, n, queries, cfg.alpha, tol=1e-11, device=dev)
+    for j, pi in enumerate(exact):
+        assert np.abs(p[:n, j] - pi).sum() <= cfg.eps * w
 
 
 @pytest.mark.cuda

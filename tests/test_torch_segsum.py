@@ -343,3 +343,87 @@ def test_row_scale_checks():
     segsum_add_(rin, contrib, off, torch.tensor([2.0, 1, 0.5, 1, 3], dtype=torch.float64))
     np.testing.assert_array_equal(rin[:, 0].numpy(), [4, 0, 1.5, 0, 3])
     assert {entry for entry, _ in segsum.LAUNCHES} == set(segsum.ENTRIES)
+
+
+# ---- the layout the card's kernels are told, and narrow states ----
+
+
+@pytest.mark.parametrize("s", range(1, 129))
+def test_layout_for_every_width(s):
+    """Lanes per edge: the least power of two that covers ceil(S / VEC)
+    columns-per-lane loads, at most a warp; edges per step times lanes per
+    edge is a warp; every chunk is a whole number of steps. The layout does
+    not depend on the source type: f32 and bf16 sources share it."""
+    vec, lanes = segsum.lanes_for(s)
+    assert vec == (4 if s % 4 == 0 else 1)
+    need = -(-s // vec)
+    assert lanes in (1, 2, 4, 8, 16, 32)
+    assert lanes == 32 or (lanes >= need and lanes // 2 < need)
+    assert (lanes == 32) == (need > 16)
+    for n_edges in (1, 70_000, 80_000, 160_000, 1_000_000, 2_000_000, 10**8):
+        lay = segsum.layout_for(s, n_edges)
+        assert (lay.vec, lay.lanes) == (vec, lanes)
+        assert lay.edges_per_step * lay.lanes == 32
+        assert lay.chunk > 0 and lay.chunk % lay.edges_per_step == 0
+        assert lay.chunk == segsum.chunk_for(n_edges, s)
+        # shorter arrays never get larger chunks
+        assert segsum.chunk_for(max(1, n_edges // 2), s) <= lay.chunk
+
+
+@pytest.mark.parametrize("n_edges,chunk", [
+    (2_000_000, 256), (320_000, 64), (458_752, 64), (1_048_576, 256), (1_048_575, 128),
+    (1, 64),
+])
+@pytest.mark.parametrize("s", [128, 100, 68, 17])
+def test_wide_chunks_are_what_they_were(s, n_edges, chunk):
+    """A state that fills a warp's lanes keeps the chunks the headline
+    stream was swept with: 256 edges for its window scan, 64 for its fresh
+    view and its compact round."""
+    assert segsum.lanes_for(s)[1] == 32
+    assert segsum.chunk_for(n_edges, s) == chunk
+
+
+NARROW = [1, 3, 8, 16]
+
+
+@pytest.mark.parametrize("entry", ["add", "gather"])
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("s", NARROW)
+def test_narrow_plain_matches_pallas_interpret(rng, s, skew, entry):
+    """Both entries on CPU tensors at narrow states against the JAX kernel
+    in interpret mode, f32; rtol = atol = 2e-4 as at S=128 (the Pallas
+    kernel's other f32 order)."""
+    n_rows, w, tr, ec = 129, 2048, 128, 256
+    seg, contrib, rin = _mk(rng, n_rows, w, s, skew)
+    contrib, rin = contrib.astype(np.float32), rin.astype(np.float32)
+    if entry == "add":
+        out = _port(rin, contrib, seg, n_rows)
+    else:
+        table, gat = _mk_gather(rng, w, 333, s)
+        table = table.astype(np.float32)
+        contrib = table[gat]
+        out = _port_gather(rin, table, gat, seg, n_rows)
+    ref = _pallas(rin, contrib, seg, n_rows, w, s, tr, ec)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("entry", ["add", "gather"])
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("s", NARROW)
+def test_narrow_row_scale_matches_pallas_interpret(rng, s, skew, entry):
+    """The same with ``row_scale``, f64, against the JAX kernel fed
+    ``contrib * scale[seg]``; atol 1e-12 as at S=128."""
+    n_rows, w, tr, ec = 129, 2048, 128, 256
+    seg, contrib, rin = _mk(rng, n_rows, w, s, skew)
+    scale = 1.0 / rng.integers(1, 50, size=n_rows)
+    off = row_offsets(torch.from_numpy(seg), n_rows)
+    out = torch.from_numpy(rin.copy())
+    if entry == "add":
+        segsum_add_(out, torch.from_numpy(contrib), off, torch.from_numpy(scale))
+    else:
+        table, gat = _mk_gather(rng, w, 333, s)
+        contrib = table[gat]
+        segsum_gather_add_(out, torch.from_numpy(table), torch.from_numpy(gat), off,
+                           row_scale=torch.from_numpy(scale))
+    ref = _pallas_f64(rin, contrib * scale[seg][:, None], seg, n_rows, w, s, tr, ec)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-12)

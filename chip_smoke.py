@@ -65,19 +65,39 @@ round trip. Phases, one line each:
    must launch the segment sum;
 12. dense driver: ``StreamDriver`` in both modes on a small window, with
    slides of 100 edges and of 1 edge, held to exact PPR. It runs plain
-   torch ops: no kernel launch is expected, and any is a failure.
+   torch ops: no kernel launch is expected, and any is a failure;
+13. the command line (``pprx_torch.cli.main`` called in this process, its
+   output captured; ``cli_phase``) at bench.py's headline shapes: 13a
+   ``convert`` of the headline stream written as text, held to the port's
+   ``renumber`` of it, with the native and the Python parsers held to each
+   other on its first 200k lines; 13b ``serve`` in budget mode and 13c in
+   event mode on the converted file, the last read's 16 id rows held to
+   exact PPR of the final window (precision@100 >= 0.95); 13d ``stream``
+   with a checkpoint, ``retrieve --from-checkpoint --refine-eps``, and on
+   small graphs ``static --check-exact``, a cold ``retrieve`` and ``stream
+   --engine dense``; 13e ``bench`` (the headline runner at its defaults:
+   precision@100 >= 0.95, L1 mean <= eps * W) and ``bench --config 2`` on
+   the converted file; 13f ``python3 -m pprx_torch.cli static`` in a
+   subprocess. Each run through the fast driver must launch the gather
+   entry; the static, cold and dense runs must launch nothing. Then
+   ``serve_split``: the budget-mode loop with the slide, the budgeted
+   refine and the top-k read each timed apart, with the driver's default
+   ``rebuild_every`` (8, as ``serve`` runs) and with bench.py's rule (2).
 
 Then a JSON line of the kernels (``launches``: the main path's, phases 4 to
 6, which must launch at least one entry; ``launches_by_path``: every path's,
 each counted with the counts set to 0 before it: the main path, each of the
-three reverse runs of phase 8, phases 9 and 10, each run of phase 11),
-the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any failure
+three reverse runs of phase 8, phases 9 and 10, each run of phase 11, each
+command of phase 13), the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``. Any failure
 raises: the exit code is not 0 and the last line is not printed. There is no CPU path. Nothing of
 JAX or of the JAX package ``pprx`` is imported.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -90,7 +110,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from pprx_torch import _ext
+from pprx_torch import _ext, cli
 from pprx_torch.bench.run import run_config
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.device import require_cuda
@@ -107,7 +127,14 @@ from pprx_torch.engine.state import REVERSE, PprState, settled_distance
 from pprx_torch.engine.update import apply_edge_batch
 from pprx_torch.eval.metrics import l1_error, precision_at_k
 from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
-from pprx_torch.graph.io import synthetic_powerlaw_stream
+from pprx_torch.graph import native_io
+from pprx_torch.graph.io import (
+    load_edge_list,
+    load_packed,
+    renumber,
+    save_packed,
+    synthetic_powerlaw_stream,
+)
 from pprx_torch.graph.stream import StreamDriver
 from pprx_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from pprx_torch.ref.exact import (
@@ -904,6 +931,214 @@ def parity_small(dev) -> dict:
     return {"max_abs_dp": err, "rounds_cpu_f64": rounds[0], "rounds_dev_f32": rounds[1]}
 
 
+def run_cli(argv: list[str]) -> dict:
+    """``pprx_torch.cli.main(argv)`` in this process, with the segment-sum
+    counts set to 0 before it: its summary (the last line it prints, as
+    JSON), its wall seconds and its launches by entry."""
+    out = io.StringIO()
+    segsum.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    wall = time.perf_counter() - t0
+    res = json.loads(out.getvalue().strip().splitlines()[-1])
+    return {**res, "cli_s": wall, "launches_by_entry": launches_by_entry()}
+
+
+def write_edge_text(path: str, src: np.ndarray, dst: np.ndarray) -> None:
+    """The stream as ``src dst t`` lines, ``t`` the edge's position."""
+    np.savetxt(path, np.column_stack([src, dst, np.arange(src.shape[0])]), fmt="%d")
+
+
+def read_log(path: str, event: str) -> list[dict]:
+    with open(path) as f:
+        return [rec for rec in map(json.loads, f) if rec["event"] == event]
+
+
+def serve_precision(log_path: str, graph: str, head: int, w: int, queries: list[int], k: int,
+                    dev) -> dict:
+    """The last serve event's id rows (``--emit-ids``) against exact PPR of
+    the window that read saw (``[head - w, head)`` of the packed stream; f64
+    power iteration on ``dev``): mean precision@k, which must be >= 0.95."""
+    ids = np.asarray(read_log(log_path, "serve")[-1]["ids"])
+    src, dst, n = load_packed(graph)
+    pis = exact_ppr(src[head - w:head], dst[head - w:head], n, queries[:ids.shape[0]], 0.15,
+                    tol=1e-10, device=dev)
+    prec = float(np.mean([precision_at_k(row, pi, k) for row, pi in zip(ids, pis)]))
+    if prec < 0.95:
+        raise AssertionError(f"served top-{k} precision {prec} < 0.95 ({log_path})")
+    return {"precision_at_k": prec, "sources": int(ids.shape[0])}
+
+
+FAST_CLI_PATHS = ("cli_serve_budget", "cli_serve_event", "cli_stream", "cli_retrieve_refine",
+                  "cli_bench_headline", "cli_bench_config2")
+PLAIN_CLI_PATHS = ("cli_static", "cli_retrieve_cold", "cli_stream_dense")
+
+
+def cli_phase(dev, tmp: str, n: int, w: int, b: int, s: int, k: int = 100,
+              small: tuple = (1000, 100_000), dense: tuple = (300, 1500, 100)) -> dict:
+    """Phase 13: the command line through ``run_cli`` on ``dev``, files
+    under ``tmp``, on the headline stream (``n`` vertices, window ``w``,
+    slide ``b``, ``s`` served sources; seed 7), config 1's graph size
+    (``small``: vertices, edges) and a small dense stream (``dense``:
+    vertices, window, slide). Raises where a command's output is wrong.
+    Returns each command's summary under its path's name; each carries its
+    launches by entry, which ``check_cli_launches`` holds."""
+    dv = ["--device", str(dev)]
+    res = {}
+    # 13a convert: text -> packed, held to renumber(); parsers held to each other
+    m = w + 10 * b
+    src, dst, _ = synthetic_powerlaw_stream(n, m, seed=7)
+    text, graph = os.path.join(tmp, "stream.txt"), os.path.join(tmp, "stream.npz")
+    t0 = time.perf_counter()
+    write_edge_text(text, src, dst)
+    write_s = time.perf_counter() - t0
+    conv = run_cli(["convert", text, graph])
+    want = renumber(src, dst)
+    got = load_packed(graph)
+    if (conv["n"], conv["edges"]) != (want[2], m) or got[2] != want[2] or not (
+            np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+        raise AssertionError(f"convert disagrees with renumber(): {conv}")
+    head_text = os.path.join(tmp, "head.txt")
+    lines = min(m, 200_000)
+    write_edge_text(head_text, src[:lines], dst[:lines])
+    nat, py = (load_edge_list(head_text, use_native=u) for u in (True, False))
+    if nat[2] != py[2] or not all(np.array_equal(a, c) for a, c in zip(nat[:2], py[:2])):
+        raise AssertionError("the native and the Python parsers disagree")
+    t0 = time.perf_counter()
+    native_io.parse_edgelist_raw(text)
+    res["cli_convert"] = {**conv, "text_write_s": write_s, "parsers_held_lines": lines,
+                          "native_parse_s": time.perf_counter() - t0}
+    n_graph = conv["n"]
+    queries = list(range(min(s, n_graph)))
+    qs = ["--queries", ",".join(map(str, queries))]
+    shape = ["--window", str(w), "--slide", str(b)]
+
+    # 13b, 13c serve: budget mode, then event mode
+    for tag, steps, extra in (("cli_serve_budget", 8, ["--refine-budget", "6"]),
+                              ("cli_serve_event", 4, ["--refine-budget", "0"])):
+        log_path = os.path.join(tmp, f"{tag}.jsonl")
+        out = run_cli(["serve", graph, *shape, "--steps", str(steps), *extra,
+                       "--serve-every", "4", "--k", str(k), "--emit-ids", "16", *qs,
+                       "--log", log_path, *dv])
+        if (out["steps"], out["serve_events"]) != (steps, steps // 4):
+            raise AssertionError(f"{tag}: {out}")
+        slides = read_log(log_path, "slide")
+        out["slide_wall_ms"] = [rec["wall_ms"] for rec in slides]
+        out["refine_rounds"] = [rec.get("refine_rounds") for rec in slides]
+        out["event_refines"] = read_log(log_path, "event_refine")
+        out["read_ms"] = [rec["latency_ms"] for rec in read_log(log_path, "serve")]
+        out["exact"] = serve_precision(log_path, graph, w + steps * b, w, queries, k, dev)
+        res[tag] = out
+
+    # 13d stream with a checkpoint, then retrieve from it with a refine
+    ck = os.path.join(tmp, "ck.npz")
+    res["cli_stream"] = run_cli(["stream", graph, *shape, "--steps", "4", *qs, "--checkpoint",
+                                 ck, "--checkpoint-every", "4", "--log",
+                                 os.path.join(tmp, "stream.jsonl"), *dv])
+    out = run_cli(["retrieve", graph, "--from-checkpoint", ck, "--k", str(k), "--refine-eps",
+                   "5e-8", *dv])
+    if out["batch"] != len(queries) or out["refine_rounds"] <= 0:
+        raise AssertionError(f"retrieve --from-checkpoint did not refine: {out}")
+    res["cli_retrieve_refine"] = out
+    # ... and the paths that run plain torch ops, on small graphs
+    small_graph = os.path.join(tmp, "small.npz")
+    save_packed(small_graph, *synthetic_powerlaw_stream(small[0], small[1], seed=1))
+    out = run_cli(["static", small_graph, "--check-exact", *dv])
+    if not all(e <= out["l1_bound"] for e in out["l1_error"]):
+        raise AssertionError(f"static --check-exact misses its L1 bound: {out}")
+    res["cli_static"] = out
+    out = run_cli(["retrieve", small_graph, "--queries", "random", "--batch", "64", "--k",
+                   str(k), *dv])
+    if out["batch"] != 64 or out["push_rounds"] <= 0:
+        raise AssertionError(f"cold retrieve: {out}")
+    res["cli_retrieve_cold"] = out
+    dense_graph = os.path.join(tmp, "dense.npz")
+    dn, dw, db = dense
+    save_packed(dense_graph, *synthetic_powerlaw_stream(dn, dw + 4 * db, seed=5))
+    out = run_cli(["stream", dense_graph, "--window", str(dw), "--slide", str(db), "--steps",
+                   "3", "--engine", "dense", "--queries", "0,7,99", *dv])
+    if out["steps"] != 3 or out["rounds"] <= 0:
+        raise AssertionError(f"dense stream: {out}")
+    res["cli_stream_dense"] = out
+
+    # 13e bench: the headline runner at its settings, then config 2 on the file
+    out = run_cli(["bench", *dv])
+    if (out["top100_precision"] < 0.95 or out["l1_vs_exact_mean"] > out["l1_bound_eps_E"]
+            or not out["bf16_updates_per_sec"]):
+        raise AssertionError(f"bench (headline): {out}")
+    res["cli_bench_headline"] = out
+    out = run_cli(["bench", "--config", "2", "--graph", graph, *dv])
+    if out["n"] != n_graph or out["steps"] != 10 or out["updates_per_sec"] <= 0:
+        raise AssertionError(f"bench --config 2 --graph: {out}")
+    res["cli_bench_config2"] = out
+
+    # 13f the module as users start it: its own process (on the card unless
+    # this phase runs elsewhere)
+    argv = [sys.executable, "-m", "pprx_torch.cli", "static", small_graph, "--check-exact"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv + ([] if dev.type == "cuda" else dv), capture_output=True,
+                          text=True, timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(argv)} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    if out["rounds"] != res["cli_static"]["rounds"] or not all(
+            e <= out["l1_bound"] for e in out["l1_error"]):
+        raise AssertionError(f"the subprocess's static run: {out}")
+    res["cli_subprocess_static"] = {**out, "process_s": time.perf_counter() - t0}
+    return res
+
+
+def serve_split(dev, graph: str, w: int, b: int, s: int, steps: int = 8, budget: int = 6,
+                serve_every: int = 4, k: int = 100, eps_r: float = 5e-8,
+                rebuild_every: int = 8) -> dict:
+    """Where ``serve``'s slide stall goes: its budget-mode loop on the
+    packed ``graph`` (f32 on ``dev``, sources ``0..s-1``), with a device sync
+    after each part, so that each is timed apart on the host clock: the
+    slide, the budgeted refine, and at each serve event the top-k read.
+    ``rebuild_every``: 8 is the driver's default, which ``serve`` uses."""
+    src, dst, n = load_packed(graph)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
+    drv = FastStreamDriver(src, dst, n, list(range(min(s, n))), cfg,
+                           StreamConfig(window=w, slide=b), rebuild_every=rebuild_every,
+                           device=dev)
+    drv.seed()
+    drv.refine(eps_r)
+    sync(dev)
+    parts = {"slide_ms": [], "refine_ms": [], "read_ms": [], "refine_rounds": []}
+    for i in range(steps):
+        t0 = time.perf_counter()
+        list(drv.run(1))
+        sync(dev)
+        t1 = time.perf_counter()
+        st = drv.refine(eps_r, rounds=budget)
+        sync(dev)
+        t2 = time.perf_counter()
+        parts["slide_ms"].append((t1 - t0) * 1e3)
+        parts["refine_ms"].append((t2 - t1) * 1e3)
+        parts["refine_rounds"].append(st.rounds)
+        if (i + 1) % serve_every == 0:
+            topk_candidates(drv.state.p, k)
+            sync(dev)
+            parts["read_ms"].append((time.perf_counter() - t2) * 1e3)
+    means = {f"{key}_mean": float(np.mean(v)) for key, v in parts.items() if key != "refine_rounds"}
+    return {**parts, **means, "budget": budget, "rebuild_every": rebuild_every,
+            "sources": drv.state.p.shape[1]}
+
+
+def check_cli_launches(res: dict) -> dict:
+    """Phase 13's launches by path: every path through the fast driver
+    launched the gather entry, and the plain paths launched nothing."""
+    by_path = {path: res[path]["launches_by_entry"] for path in FAST_CLI_PATHS + PLAIN_CLI_PATHS}
+    for path in FAST_CLI_PATHS:
+        if by_path[path]["segsum_gather_add"] <= 0:
+            raise AssertionError(f"{path} never launched segsum_gather_add: {by_path[path]}")
+    for path in PLAIN_CLI_PATHS:
+        if any(by_path[path].values()):
+            raise AssertionError(f"{path} runs plain torch ops but launched {by_path[path]}")
+    return by_path
+
+
 def kernel_entry(name: str, key: str, kern: dict, launches: dict) -> dict:
     """One entry of the kernels line from phase 3's numbers: the window
     scan's f32 figures (power-law rows) under the plain names; bf16, the
@@ -1065,6 +1300,18 @@ def main() -> None:
 
     log("12 dense driver", **dense_check(dev),
         note="plain torch ops on the card: no kernel launch is expected")
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_res = cli_phase(dev, tmp, n=200_000, w=w, b=b, s=s, k=k)
+        for tag, res in cli_res.items():
+            log(f"13 {tag.replace('_', ' ')}", **res)
+        cli_by_path = check_cli_launches(cli_res)
+        # as serve runs (the driver's default rebuild_every), then with bench's rule
+        for every in (8, rebuild_every):
+            log(f"13 serve split rebuild_every={every}",
+                **serve_split(dev, os.path.join(tmp, "stream.npz"), w, b, s, k=k,
+                              rebuild_every=every))
 
     if "jax" in sys.modules or "pprx" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
@@ -1072,7 +1319,7 @@ def main() -> None:
                 **{f"forward_config2_{tag}": res["launches_by_entry"]
                    for tag, res in config2.items()},
                 **{f"reverse_{tag}": res["launches_by_entry"] for tag, res in reverse.items()},
-                "static": static_by_entry, "checkpoint": ckpt_by_entry}
+                "static": static_by_entry, "checkpoint": ckpt_by_entry, **cli_by_path}
     print(json.dumps({"kernels": [
         kernel_entry("segsum_add", "add", kern, launches),
         kernel_entry("segsum_gather_add", "gather", kern, launches),

@@ -3,8 +3,10 @@
 Each config runs on the synthetic power-law stand-in for its dataset (the
 same stream as the reference's for the same seed), with the reference's
 arguments, and returns the reference's keys plus ``"device"``: the card's
-name, or ``"cpu"``. ``device=None`` is the card. ``graph=`` (a packed edge
-file) waits for the port's loader, and config 5 for its sharded engines.
+name, or ``"cpu"``. ``device=None`` is the card. ``graph=`` runs a config
+on a packed edge file instead (``pprx_torch.graph.io.load_packed``; the
+``convert`` subcommand writes one). Config 5 waits for the port's sharded
+engines.
 """
 
 from __future__ import annotations
@@ -15,32 +17,32 @@ import numpy as np
 import torch
 
 from pprx_torch.config import PprConfig, StreamConfig
-from pprx_torch.device import resolve_device
+from pprx_torch.device import device_name, resolve_device
 from pprx_torch.engine.push import push_to_convergence
 from pprx_torch.engine.state import FORWARD, REVERSE, init_state
 from pprx_torch.eval.metrics import l1_error
 from pprx_torch.eval.perf import summarize
 from pprx_torch.graph.dynamic import WindowGraph
 from pprx_torch.graph.fast_stream import FastStreamDriver
-from pprx_torch.graph.io import synthetic_powerlaw_stream
+from pprx_torch.graph.io import load_packed, synthetic_powerlaw_stream
 from pprx_torch.ref.exact import exact_ppr
 from pprx_torch.retrieve.topk import topk_candidates
 from pprx_torch.sync import sync
 
 
 def _stream(graph: str | None, n: int, need: int, seed: int):
-    """Edge stream for a config: the synthetic power-law stand-in.
-    Returns (src, dst, n)."""
-    if graph is not None:
-        raise NotImplementedError(
-            "graph= (a packed edge file): not ported (it needs the port's "
-            "load_packed, which comes with the CLI)"
-        )
-    return synthetic_powerlaw_stream(n, need, seed=seed)
-
-
-def _device_name(device: torch.device) -> str:
-    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    """Edge stream for a config: the packed ``.npz`` ``graph`` (``n`` from
+    the file) where one is given, else the synthetic power-law stand-in. A
+    file shorter than the ``need`` edges the config slides over is tiled
+    cyclically (the window stays exact; edges repeat). Returns (src, dst,
+    n)."""
+    if graph is None:
+        return synthetic_powerlaw_stream(n, need, seed=seed)
+    src, dst, n_file = load_packed(graph)
+    if src.shape[0] < need:
+        reps = -(-need // src.shape[0])
+        src, dst = np.tile(src, reps), np.tile(dst, reps)
+    return src[:need], dst[:need], n_file
 
 
 def config1_static_forward(scale: int = 1, check_exact: bool = True,
@@ -67,7 +69,7 @@ def config1_static_forward(scale: int = 1, check_exact: bool = True,
         "rounds": stats.rounds,
         "wall_s": round(time.perf_counter() - t0, 4),
         "l1_bound": cfg.eps * m,
-        "device": _device_name(device),
+        "device": device_name(device),
     }
     if check_exact and n <= 4000:
         pis = exact_ppr(src, dst, n, queries, cfg.alpha, device=device)
@@ -109,7 +111,7 @@ def config2_sliding_window(scale: int = 1, graph: str | None = None,
     )
     rep = _timed_stream(drv, warm, steps)
     return {"config": 2, "n": n, "window": w, "slide": b, **rep,
-            "device": _device_name(device)}
+            "device": device_name(device)}
 
 
 def config3_reverse_dynamic(scale: int = 1, graph: str | None = None,
@@ -132,7 +134,7 @@ def config3_reverse_dynamic(scale: int = 1, graph: str | None = None,
     )
     rep = _timed_stream(drv, warm, steps)
     return {"config": 3, "n": n, "window": w, "slide": b, "sources": s, **rep,
-            "device": _device_name(device)}
+            "device": device_name(device)}
 
 
 def config4_retrieval(scale: int = 1, s: int = 512, k: int = 100,
@@ -181,7 +183,7 @@ def config4_retrieval(scale: int = 1, s: int = 512, k: int = 100,
         "retrieval_ms_exact": round(lat(True), 3),
         # torch has no approximate top-k: this is the exact head's time again
         "retrieval_ms_approx": round(lat(False), 3),
-        "device": _device_name(device),
+        "device": device_name(device),
     }
     if check_exact:
         cols = np.unique(np.linspace(0, s - 1, min(check_exact, s)).astype(int))

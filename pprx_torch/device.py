@@ -23,3 +23,8 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
     if device is None:
         return require_cuda()
     return torch.device(device)
+
+
+def device_name(device: torch.device) -> str:
+    """What a report names as its device: the card's name, or ``"cpu"``."""
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"

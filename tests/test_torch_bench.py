@@ -1,12 +1,14 @@
-"""The milestone configs 1-4 of the port (pprx_torch.bench.run) and its
-throughput summary (pprx_torch.eval.perf) against the JAX package's: the
-same keys (plus ``device``), the same counts, at a tiny scale on the CPU.
+"""The milestone configs 1-4 of the port (pprx_torch.bench.run), its
+headline runner (pprx_torch.bench.headline) and its throughput summary
+(pprx_torch.eval.perf) against the JAX package's (and bench.py's): the same
+keys (plus ``device``), the same counts, at a tiny scale on the CPU.
 
 Both packages' ``_stream`` is replaced by the same synthetic stream on a
 hundredth of the vertices and edges a config asks for, so that the configs
 run their own code at a size the CPU test can afford."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -16,9 +18,12 @@ import pprx.bench.run as jrun
 import pprx_torch.bench.run as trun
 from pprx.engine.state import PushStats as JaxPushStats
 from pprx.eval.perf import summarize as jax_summarize
-from pprx.graph.io import synthetic_powerlaw_stream
+from pprx.graph.io import save_packed, synthetic_powerlaw_stream
+from pprx_torch.bench import headline
+from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.engine.state import PushStats
 from pprx_torch.eval.perf import PerfReport, summarize
+from pprx_torch.graph.fast_stream import FastStreamDriver
 
 torch.set_num_threads(1)
 
@@ -100,12 +105,115 @@ def test_config4_exact_check(small, monkeypatch):
 
 
 def test_what_is_not_ported_says_so():
+    """Config 5 waits for the sharded engines; ``graph=`` is ported, so a
+    file that is not there is an error of the file, not of the port."""
     with pytest.raises(NotImplementedError, match="config5_sharded: not ported"):
         trun.run_config(5)
     for idx in (1, 2, 3, 4):
-        with pytest.raises(NotImplementedError, match="graph=.*not ported"):
+        with pytest.raises(FileNotFoundError):
             trun.run_config(idx, graph="some.npz", device="cpu")
     assert sorted(trun.CONFIGS) == sorted(jrun.CONFIGS)
+
+
+@pytest.fixture
+def packed(tmp_path):
+    src, dst, n = synthetic_powerlaw_stream(50, 600, seed=1)
+    path = str(tmp_path / "g.npz")
+    save_packed(path, src, dst, n)
+    return path
+
+
+@pytest.mark.parametrize("idx", [2, 3])
+def test_stream_configs_on_packed_graph(packed, idx):
+    """Configs 2 and 3 on a packed file of 600 edges: ``n`` from the file,
+    the stream tiled cyclically to cover the window and the slides, the
+    reference's sizes and keys."""
+    args = dict(graph=packed, w=400, b=40, steps=2)
+    port, ref = trun.run_config(idx, device="cpu", **args), jrun.run_config(idx, **args)
+    _same_keys(port, ref)
+    assert port["n"] == ref["n"] == 50
+    assert (port["window"], port["slide"]) == (ref["window"], ref["slide"]) == (400, 40)
+    assert port["steps"] == 2 and port["rounds"] > 0 and port["updates_per_sec"] > 0
+
+
+def test_stream_tiles_a_short_file(packed):
+    src, dst, n = trun._stream(packed, 999, 1500, seed=0)
+    ref = jrun._stream(packed, 999, 1500, seed=0)
+    assert n == ref[2] == 50 and src.shape == (1500,)
+    np.testing.assert_array_equal(src, ref[0])
+    np.testing.assert_array_equal(dst, ref[1])
+    np.testing.assert_array_equal(src[600:1200], src[:600])
+
+
+HEADLINE_ENV = dict(N=300, W=1500, B=100, S=4, STEPS=2, REPS=2)
+
+
+def test_headline_has_bench_keys(monkeypatch, capsys):
+    """The port's headline runner at tiny shapes (the same environment as
+    bench.py) gives bench.py's keys plus ``impl`` and ``device``, and its
+    numbers: blocks, the other delivery mode, refine, precision."""
+    import bench
+
+    for k, v in HEADLINE_ENV.items():
+        monkeypatch.setenv(f"PPRX_BENCH_{k}", str(v))
+    out = headline.run(device="cpu")
+    monkeypatch.setenv("PPRX_BENCH_DUAL", "0")  # the keys, not the work
+    monkeypatch.setenv("PPRX_BENCH_PRECISION", "0")
+    bench.main()
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(out) == list(ref) + ["impl", "device"]
+    assert list(out["config"]) == list(ref["config"]) and out["config"] == ref["config"]
+    assert out["impl"] == "pprx_torch" and out["device"] == "cpu"
+    assert len(out["blocks"]) == 2 and out["value"] == max(out["blocks"])
+    assert out["bf16_updates_per_sec"] > 0 and out["refine_ms"] > 0
+    assert out["top100_precision"] == 1.0
+    assert out["l1_vs_exact_mean"] <= out["l1_bound_eps_E"]
+
+
+@pytest.mark.parametrize("env,reason", [
+    ({"PPRX_BENCH_ENGINE": "hybrid"}, "hybrid engine is not ported"),
+    ({"PPRX_BENCH_SEGSUM": "0"}, "no delivery path without its segment-sum kernel"),
+    ({"PPRX_BENCH_SEGSUM": "2"}, "PPRX_BENCH_SEGSUM must be '0' or '1'"),
+])
+def test_headline_refuses(monkeypatch, env, reason):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(SystemExit, match=reason):
+        headline.run(device="cpu")
+
+
+def test_headline_dense_engine(monkeypatch):
+    for k, v in {**HEADLINE_ENV, "ENGINE": "dense"}.items():
+        monkeypatch.setenv(f"PPRX_BENCH_{k}", str(v))
+    out = headline.run(device="cpu")
+    assert len(out["blocks"]) == 1 and out["bf16_updates_per_sec"] is None
+    assert out["refine_ms"] is None and out["top100_precision"] > 0.9
+
+
+def test_restored_blocks_are_bit_identical():
+    """Every block after the first starts from a clone of the state before
+    the first: the same per-slide stats, and the same ``p`` and ``r`` after
+    each block (the slide step writes into the graph's tensors in place, so
+    a snapshot that kept any of them would start block 2 where block 1
+    ended)."""
+    src, dst, n = synthetic_powerlaw_stream(300, 1500 + 12 * 100, seed=7)
+    cfg, scfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000), StreamConfig(1500, 100)
+    drv = FastStreamDriver(src, dst, n, list(range(4)), cfg, scfg, rebuild_every=2,
+                           device="cpu")
+    drv.seed()
+    list(drv.run(3))
+    ends = []
+    for _, stats in headline.timed_blocks(drv, 4, 3):
+        ends.append(([dataclasses.astuple(st) for st in stats], drv.state.p.clone(),
+                     drv.state.r.clone(), drv.head, drv.fcnt, drv.hsrc.copy()))
+    assert len(ends) == 3 and ends[0][3] == 1500 + 7 * 100
+    first = ends[0]
+    for other in ends[1:]:
+        assert other[0] == first[0] and other[3:5] == first[3:5]
+        assert torch.equal(other[1], first[1]) and torch.equal(other[2], first[2])
+        np.testing.assert_array_equal(other[5], first[5])
+    # rounds were pushed; with rebuild_every=2 a block rebuilds the graph twice
+    assert sum(st[0] for st in first[0]) > 0
 
 
 def test_configs_default_to_the_card(monkeypatch):

@@ -11,7 +11,7 @@ from pprx_torch.engine.push import push_to_convergence
 from pprx_torch.engine.state import FORWARD, PprState, settled_distance
 from pprx_torch.graph.dynamic import WindowGraph
 from pprx_torch.graph.fast_stream import FastStreamDriver
-from pprx_torch.graph.io import synthetic_powerlaw_stream
+from pprx_torch.graph.io import save_packed, synthetic_powerlaw_stream
 
 torch.set_num_threads(1)
 
@@ -82,3 +82,40 @@ def test_exact_contract_holds_bf16_mass_to_a_witness():
     assert res["mass_err_max"] > 1e-3
     with pytest.raises(AssertionError, match="'mass_bound': 0.001"):
         chip_smoke.exact_contract(drv, None, 10, 4, cfg.eps * w)
+
+
+def test_serve_split_on_the_cpu(tmp_path):
+    graph = str(tmp_path / "g.npz")
+    save_packed(graph, *synthetic_powerlaw_stream(500, 4000 + 9 * 200, seed=7))
+    res = chip_smoke.serve_split(torch.device("cpu"), graph, 4000, 200, 8, k=10)
+    assert [len(res[k]) for k in ("slide_ms", "refine_ms", "read_ms")] == [8, 8, 2]
+    assert all(0 <= r <= 6 for r in res["refine_rounds"]) and res["sources"] == 8
+
+
+def test_cli_phase_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 13 as the card runs it, on the CPU at a small size (the
+    headline runner through its environment): every command's checks pass,
+    and no run launches a kernel here, which the launch check refuses for
+    the paths through the fast driver."""
+    for k, v in dict(N=300, W=1500, B=100, S=4, STEPS=2, REPS=2).items():
+        monkeypatch.setenv(f"PPRX_BENCH_{k}", str(v))
+    res = chip_smoke.cli_phase(torch.device("cpu"), str(tmp_path), n=2000, w=6000, b=300, s=16,
+                               k=20, small=(300, 3000))
+    paths = chip_smoke.FAST_CLI_PATHS + chip_smoke.PLAIN_CLI_PATHS
+    assert set(paths) | {"cli_convert", "cli_subprocess_static"} == set(res)
+    assert res["cli_convert"]["edges"] == 6000 + 10 * 300
+    assert res["cli_serve_budget"]["exact"]["precision_at_k"] >= 0.95
+    assert len(res["cli_serve_budget"]["refine_rounds"]) == 8
+    assert len(res["cli_serve_event"]["event_refines"]) == 1
+    assert res["cli_retrieve_refine"]["batch"] == 16
+    assert res["cli_subprocess_static"]["device"] == "cpu"
+    assert all(res[p]["device"] == "cpu" for p in paths)
+    assert not any(any(res[p]["launches_by_entry"].values()) for p in paths)
+    with pytest.raises(AssertionError, match="cli_serve_budget never launched"):
+        chip_smoke.check_cli_launches(res)
+    for p in chip_smoke.FAST_CLI_PATHS:
+        res[p]["launches_by_entry"] = {"segsum_add": 0, "segsum_gather_add": 3}
+    assert chip_smoke.check_cli_launches(res)["cli_bench_config2"]["segsum_gather_add"] == 3
+    res["cli_static"]["launches_by_entry"]["segsum_add"] = 1
+    with pytest.raises(AssertionError, match="cli_static runs plain torch ops"):
+        chip_smoke.check_cli_launches(res)

@@ -1,0 +1,295 @@
+"""The port's command line (pprx_torch.cli) against the JAX package's
+(pprx.cli): every case of tests/test_cli.py that the port runs, through both
+CLIs on the same packed file with ``--device cpu`` for the port, held to
+each other in f64 (equal rounds and counts, errors within 1e-12, the same
+ids), checkpoints crossing between the two, and what the port refuses."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from pprx import cli as jcli
+from pprx.graph.io import save_packed as jax_save_packed
+from pprx.graph.io import synthetic_powerlaw_stream
+from pprx_torch import cli as tcli
+
+torch.set_num_threads(1)
+
+CPU = ["--device", "cpu"]
+
+
+@pytest.fixture
+def graph_npz(tmp_path):
+    src, dst, n = synthetic_powerlaw_stream(50, 600, seed=1)
+    path = str(tmp_path / "g.npz")
+    jax_save_packed(path, src, dst, n)
+    return path
+
+
+def run_cli(capsys, main, argv):
+    main(argv)
+    out = capsys.readouterr().out.strip().splitlines()
+    return json.loads(out[-1])
+
+
+def both(capsys, argv):
+    """The same command through the JAX CLI and the port's (on the CPU)."""
+    return run_cli(capsys, jcli.main, argv), run_cli(capsys, tcli.main, argv + CPU)
+
+
+def records(path, event):
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r["event"] == event]
+
+
+def test_convert(tmp_path, capsys):
+    txt = tmp_path / "g.txt"
+    txt.write_text("# c\n1 2\n2 3\n3 1\n")
+    ref = run_cli(capsys, jcli.main, ["convert", str(txt), str(tmp_path / "j.npz")])
+    out = run_cli(capsys, tcli.main, ["convert", str(txt), str(tmp_path / "t.npz")])
+    assert out["n"] == ref["n"] == 3 and out["edges"] == ref["edges"] == 3
+    with np.load(tmp_path / "j.npz") as j, np.load(tmp_path / "t.npz") as t:
+        assert sorted(j.files) == sorted(t.files)
+        for k in j.files:
+            assert j[k].dtype == t[k].dtype
+            np.testing.assert_array_equal(j[k], t[k])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--queries", "0,3", "--eps", "1e-7"],
+    ["--mode", "rev"],
+], ids=["forward", "reverse"])
+def test_static_check_exact(graph_npz, capsys, argv):
+    """test_static_check_exact and test_static_reverse: the same rounds and
+    pushes, and the L1 error to exact PPR within 1e-12 of the reference's
+    (its exact matrix is an inverse, the port's a power iteration)."""
+    ref, out = both(capsys, ["static", graph_npz, *argv, "--f64", "--check-exact"])
+    assert set(out) == set(ref) | {"device"} and out["device"] == "cpu"
+    assert out["rounds"] == ref["rounds"] > 0
+    assert (out["pushes"], out["edge_pushes"]) == (ref["pushes"], ref["edge_pushes"])
+    np.testing.assert_allclose(out["l1_error"], ref["l1_error"], rtol=0, atol=1e-12)
+    assert out["l1_bound"] == ref["l1_bound"]
+    assert all(e < out["l1_bound"] for e in out["l1_error"])
+
+
+@pytest.mark.parametrize("engine", ["fast", "dense"])
+def test_stream_with_checkpoint(graph_npz, tmp_path, capsys, engine):
+    """Per slide, the same rounds, pushes and edge pushes in both logs; the
+    same summary keys plus ``device``; the checkpoint written."""
+    outs, logs = [], []
+    for tag, main, dev in (("jax", jcli.main, []), ("torch", tcli.main, CPU)):
+        log, ck = str(tmp_path / f"{tag}.jsonl"), str(tmp_path / f"{tag}.npz")
+        outs.append(run_cli(capsys, main, [
+            "stream", graph_npz, "--window", "300", "--slide", "30", "--steps", "5",
+            "--engine", engine, "--log", log, "--checkpoint", ck, "--checkpoint-every", "2",
+            "--f64", *dev]))
+        logs.append(log)
+    ref, out = outs
+    assert set(out) == set(ref) | {"device"}
+    assert out["steps"] == 5 and out["updates_per_sec"] > 0
+    events = [json.loads(line) for line in open(logs[1])]
+    assert [e["event"] for e in events][:2] == ["seed", "slide"]
+    assert sum(e["event"] == "checkpoint" for e in events) == 2
+    assert events[-1]["event"] == "summary"
+    keys = ("step", "rounds", "pushes", "edge_pushes")
+    want, got = ([tuple(r[k] for k in keys) for r in records(p, "slide")] for p in logs)
+    assert got == want and len(got) == 5
+    assert records(logs[1], "seed")[0]["rounds"] == records(logs[0], "seed")[0]["rounds"]
+
+
+def test_retrieve(graph_npz, capsys):
+    ref, out = both(capsys, ["retrieve", graph_npz, "--queries", "random", "--batch", "16",
+                             "--k", "10", "--f64"])
+    assert set(out) == set(ref) | {"device"}
+    assert out["batch"] == ref["batch"] == 16 and out["k"] == 10
+    assert out["push_rounds"] == ref["push_rounds"] > 0
+    assert out["top1"] == ref["top1"]
+    assert out["retrieval_ms"] > 0
+
+
+def test_retrieve_from_checkpoint(graph_npz, tmp_path, capsys):
+    """The serving loop end to end, with the checkpoint crossing: a
+    checkpoint the JAX CLI's stream wrote is served by the port's retrieve,
+    and the port's by the JAX CLI's; each reads the same top1 and refines by
+    the same rounds as the CLI that wrote it."""
+    cks = {}
+    for tag, main, dev in (("jax", jcli.main, []), ("torch", tcli.main, CPU)):
+        cks[tag] = str(tmp_path / f"{tag}.npz")
+        run_cli(capsys, main, ["stream", graph_npz, "--window", "300", "--slide", "30",
+                               "--steps", "3", "--queries", "0,5,9", "--checkpoint", cks[tag],
+                               "--checkpoint-every", "3", "--f64", *dev])
+    reads = {}
+    for ck_tag, ck in cks.items():
+        for tag, main, dev in (("jax", jcli.main, []), ("torch", tcli.main, CPU)):
+            reads[ck_tag, tag] = run_cli(capsys, main, [
+                "retrieve", graph_npz, "--from-checkpoint", ck, "--k", "5",
+                "--refine-eps", "1e-7", "--approx", *dev])
+    for (ck_tag, tag), out in reads.items():
+        assert out["k"] == 5 and out["batch"] == 3 and len(out["top1"]) == 3
+        assert out["refine_eps"] == 1e-7 and out["refine_rounds"] > 0
+    for ck_tag in cks:
+        ref, out = reads[ck_tag, "jax"], reads[ck_tag, "torch"]
+        assert set(out) == set(ref) | {"device"}
+        assert out["top1"] == ref["top1"]
+        assert out["refine_rounds"] == ref["refine_rounds"]
+    assert reads["jax", "torch"]["top1"] == reads["torch", "torch"]["top1"]
+
+
+def _serve_both(capsys, tmp_path, argv):
+    outs, logs = [], []
+    for tag, main, dev in (("jax", jcli.main, []), ("torch", tcli.main, CPU)):
+        log = str(tmp_path / f"serve_{tag}.jsonl")
+        outs.append(run_cli(capsys, main, ["serve", *argv, "--log", log, "--f64", *dev]))
+        logs.append(log)
+    return outs, logs
+
+
+def test_serve_incremental(graph_npz, tmp_path, capsys):
+    """Budget mode: the reference's summary keys (less its transport note,
+    plus ``updates_per_sec_end_to_end`` and ``device``), the same refine
+    rounds per slide and the same ids at every read."""
+    (ref, out), logs = _serve_both(capsys, tmp_path, [
+        graph_npz, "--window", "300", "--slide", "25", "--steps", "8", "--queries", "0,3,7",
+        "--k", "5", "--eps", "1e-6", "--eps-retrieve", "1e-7", "--refine-budget", "4",
+        "--serve-every", "4", "--emit-ids", "2"])
+    assert set(out) == (set(ref) - {"note"}) | {"updates_per_sec_end_to_end", "device"}
+    assert out["mode"] == "serve" and out["steps"] == 8 and out["serve_events"] == 2
+    assert out["slide_ms_worst"] is not None and out["retrieval_ms_mean"] is not None
+    assert out["refine_budget_rounds"] == 4
+    for event, key in (("ramp_refine", "rounds"), ("slide", "refine_rounds")):
+        want, got = ([r[key] for r in records(p, event)] for p in logs)
+        assert got == want and got
+    want, got = (records(p, "serve") for p in logs)
+    assert [r["step"] for r in got] == [r["step"] for r in want] == [3, 7]
+    # no two of these scores tie, so the ids agree as ranked lists
+    assert [r["ids"] for r in got] == [r["ids"] for r in want]
+    assert len(got[0]["ids"]) == 2 and len(got[0]["ids"][0]) == 5
+
+
+def test_serve_event_mode(graph_npz, tmp_path, capsys):
+    """--refine-budget 0: a full refine at each read, the same rounds as
+    the reference's and the same ids."""
+    (ref, out), logs = _serve_both(capsys, tmp_path, [
+        graph_npz, "--window", "300", "--slide", "25", "--steps", "4", "--queries", "0,3",
+        "--k", "5", "--refine-budget", "0", "--serve-every", "2", "--emit-ids", "2"])
+    assert out["mode"] == "serve" and out["serve_events"] == ref["serve_events"] == 2
+    want, got = ([r["rounds"] for r in records(p, "event_refine")] for p in logs)
+    assert got == want and len(got) == 2
+    want, got = ([r["ids"] for r in records(p, "serve")] for p in logs)
+    assert got == want and len(got) == 2
+
+
+def test_serve_rate_counts_slide_walls_only(graph_npz, tmp_path, capsys):
+    """``updates_per_sec_incl_refine`` is 2 * slide * steps over the sum of
+    the slide walls (the slide, its budgeted refine, one sync): in event
+    mode the event refines and the reads are outside it, so the whole
+    loop's rate (``updates_per_sec_end_to_end``) is lower."""
+    log = str(tmp_path / "serve.jsonl")
+    out = run_cli(capsys, tcli.main, [
+        "serve", graph_npz, "--window", "300", "--slide", "25", "--steps", "6",
+        "--queries", "0,3", "--k", "5", "--refine-budget", "0", "--serve-every", "2",
+        "--log", log, *CPU])
+    walls = [r["wall_ms"] for r in records(log, "slide")]
+    assert len(walls) == 6 and len(records(log, "event_refine")) == 3
+    want = 2 * 25 * 6 / (sum(walls) / 1e3)
+    # each logged wall is rounded to 0.05 ms, the rate to 0.05 updates/s
+    rel = 0.05 * len(walls) / sum(walls)
+    assert out["updates_per_sec_incl_refine"] == pytest.approx(want, rel=rel, abs=0.05)
+    assert out["updates_per_sec_end_to_end"] < out["updates_per_sec_incl_refine"]
+    assert records(log, "summary")[0]["updates_per_sec_incl_refine"] == (
+        out["updates_per_sec_incl_refine"])
+
+
+def test_bench_config_on_packed_graph(graph_npz, capsys):
+    """``bench --config 1 --graph``: config 1 on the packed file (n from the
+    file, the stream tiled to its 100k edges), the reference's keys plus
+    ``device`` and its rounds."""
+    ref, out = both(capsys, ["bench", "--config", "1", "--graph", graph_npz])
+    assert set(out) == set(ref) | {"device"}
+    assert out["n"] == ref["n"] == 50 and out["edges"] == ref["edges"] == 100_000
+    assert out["rounds"] == ref["rounds"] > 0 and out["within_bound"] is True
+
+
+def test_bench_without_config_runs_the_headline(monkeypatch, capsys):
+    """``bench`` with no ``--config`` is the headline runner, set by the
+    same environment as bench.py."""
+    for k, v in dict(N=300, W=1500, B=100, S=4, STEPS=2, REPS=2, DUAL=0, PRECISION=0).items():
+        monkeypatch.setenv(f"PPRX_BENCH_{k}", str(v))
+    out = run_cli(capsys, tcli.main, ["bench", *CPU])
+    assert out["impl"] == "pprx_torch" and out["device"] == "cpu"
+    assert out["config"]["window"] == 1500 and len(out["blocks"]) == 2
+
+
+@pytest.mark.parametrize("argv,reason", [
+    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "hybrid"],
+     "superseded by the fast engine, not ported"),
+    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "sharded", "--mesh", "4,2"],
+     r"--engine sharded: not ported \(ROADMAP item 14\)"),
+    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "sharded-wl"],
+     r"--engine sharded-wl: not ported \(ROADMAP item 14\)"),
+    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "sharded-wlp",
+      "--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "0",
+      "--ecap", "100"], r"--engine sharded-wlp: not ported \(ROADMAP item 14\)"),
+    (["bench", "--config", "5"], r"bench --config 5: .*not ported \(ROADMAP item 14\)"),
+    (["static", "G", "--queries", "0,50", *CPU], r"vertex id 50 is outside \[0, n\) for n = 50"),
+    (["static", "G", "--queries", "-1", *CPU], r"vertex id -1 is outside \[0, n\)"),
+    (["stream", "G", "--window", "300", "--slide", "30", "--queries", "3,60", *CPU],
+     r"vertex id 60 is outside \[0, n\) for n = 50"),
+    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "dense", "--queries",
+      "50", *CPU], r"vertex id 50 is outside"),
+    (["retrieve", "G", "--queries", "7,50", *CPU], r"vertex id 50 is outside"),
+    (["serve", "G", "--window", "300", "--slide", "30", "--queries", "0,99", *CPU],
+     r"vertex id 99 is outside \[0, n\) for n = 50"),
+    (["serve", "G", "--window", "300", "--slide", "30", "--mode", "rev", *CPU],
+     "forward mode only"),
+    (["stream", "G", "--window", "300", "--slide", "30", "--f64", "--device", "cuda"],
+     "--f64 on cuda: the fast engine's segment-sum kernel takes f32 or bf16 only"),
+    (["serve", "G", "--window", "300", "--slide", "30", "--f64", "--device", "cuda"],
+     "serve: --f64 on cuda"),
+    (["retrieve", "G", "--from-checkpoint", "G", "--refine-eps", "1e-7", "--f64", "--device",
+      "cuda"], "retrieve --refine-eps: --f64 on cuda"),
+], ids=["hybrid", "sharded", "sharded-wl", "sharded-wlp", "config5", "static-query-n",
+        "static-query-negative", "stream-query", "dense-query", "retrieve-query", "serve-query",
+        "serve-reverse", "stream-f64-cuda", "serve-f64-cuda", "retrieve-f64-cuda"])
+def test_refusals_name_the_reason(graph_npz, monkeypatch, argv, reason):
+    """What the port does not run exits with a message that names why, before
+    any state is built (the f64 refusals before any device is touched)."""
+    def no_state(*a, **k):
+        raise AssertionError("state was built before the refusal")
+
+    import pprx_torch.engine.state as tstate
+
+    monkeypatch.setattr(tstate, "init_state", no_state)
+    monkeypatch.setattr("pprx_torch.graph.fast_stream.init_state", no_state)
+    monkeypatch.setattr("pprx_torch.graph.stream.init_state", no_state)
+    argv = [graph_npz if a == "G" else a for a in argv]
+    with pytest.raises(SystemExit, match=reason):
+        tcli.main(argv)
+
+
+def test_sharded_checkpoint_is_refused(graph_npz, tmp_path):
+    """A checkpoint whose metadata says ``sharded`` gets the reference's
+    message, and a dense one refuses a refine."""
+    ck = str(tmp_path / "sharded.npz")
+    np.savez(ck, meta=np.frombuffer(json.dumps({"kind": "sharded"}).encode(), np.uint8))
+    with pytest.raises(SystemExit, match="SHARDED checkpoint"):
+        tcli.main(["retrieve", graph_npz, "--from-checkpoint", ck, *CPU])
+    dense = str(tmp_path / "dense.npz")
+    tcli.main(["stream", graph_npz, "--window", "300", "--slide", "30", "--steps", "1",
+               "--engine", "dense", "--checkpoint", dense, "--checkpoint-every", "1",
+               "--log", str(tmp_path / "log.jsonl"), *CPU])
+    with pytest.raises(SystemExit, match="--refine-eps needs a fast-engine checkpoint"):
+        tcli.main(["retrieve", graph_npz, "--from-checkpoint", dense, "--refine-eps", "1e-7",
+                   *CPU])
+
+
+def test_entry_points_default_to_the_card(graph_npz, monkeypatch):
+    """Without ``--device`` a subcommand runs on the card, and raises where
+    there is none: it does not fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["static", graph_npz], ["bench", "--config", "1"],
+                 ["serve", graph_npz, "--window", "300", "--slide", "30"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcli.main(argv)

@@ -506,3 +506,56 @@ def test_checkpoint_round_trip_on_card(tmp_path):
         list(d.run(1))
     np.testing.assert_allclose(b.state.p.cpu().numpy(), a.state.p.cpu().numpy(), atol=1e-5)
     np.testing.assert_allclose(c.state.p.numpy(), a.state.p.cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cli_fast_engine_refuses_f64_on_card(tmp_path):
+    """``--f64`` meets the kernel's f32/bf16 only: the fast engine's
+    subcommands exit with the reason before any work; the dense engine runs
+    f64 on the card."""
+    from pprx_torch import cli
+    from pprx_torch.graph.io import save_packed
+
+    dev = _cuda()
+    graph = str(tmp_path / "g.npz")
+    save_packed(graph, *synthetic_powerlaw_stream(50, 600, seed=1))
+    before = segsum.launches()
+    for argv in (["stream", graph, "--window", "300", "--slide", "30", "--f64"],
+                 ["serve", graph, "--window", "300", "--slide", "30", "--f64"]):
+        with pytest.raises(SystemExit, match="segment-sum kernel takes f32 or bf16 only"):
+            cli.main(argv + ["--device", str(dev)])
+    cli.main(["stream", graph, "--window", "300", "--slide", "30", "--steps", "2", "--f64",
+              "--engine", "dense", "--log", str(tmp_path / "log.jsonl")])
+    assert segsum.launches() == before
+
+
+@pytest.mark.cuda
+def test_cli_serve_on_card_launches_the_kernel(tmp_path, capsys):
+    """A small ``serve`` on the card (no ``--device``: the card is the
+    default) launches the gather entry, and at every serve event each row
+    of ids shares at least 9 of its 10 with the CPU run in f64 (f32 on the
+    card may swap scores near the k-th place)."""
+    import json
+
+    from pprx_torch import cli
+    from pprx_torch.graph.io import save_packed
+
+    _cuda()
+    graph = str(tmp_path / "g.npz")
+    save_packed(graph, *synthetic_powerlaw_stream(300, 3000, seed=2))
+    argv = ["serve", graph, "--window", "1500", "--slide", "100", "--steps", "8",
+            "--queries", "0,3,7,11", "--k", "10", "--emit-ids", "4", "--refine-budget", "6"]
+    ids = {}
+    for tag, extra in (("card", []), ("cpu", ["--device", "cpu", "--f64"])):
+        segsum.reset_launches()
+        cli.main(argv + extra + ["--log", str(tmp_path / f"{tag}.jsonl")])
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert out["steps"] == 8 and out["serve_events"] == 2
+        if tag == "card":
+            assert out["device"] == torch.cuda.get_device_name(0)
+            assert segsum.launches("segsum_gather_add") > 0
+        with open(tmp_path / f"{tag}.jsonl") as f:
+            ids[tag] = [r["ids"] for r in map(json.loads, f) if r["event"] == "serve"]
+    for card, cpu in zip(ids["card"], ids["cpu"]):
+        for a, b in zip(card, cpu):
+            assert len(set(a) & set(b)) >= 9, (a, b)

@@ -82,13 +82,29 @@ round trip. Phases, one line each:
    entry; the static, cold and dense runs must launch nothing. Then
    ``serve_split``: the budget-mode loop with the slide, the budgeted
    refine and the top-k read each timed apart, with the driver's default
-   ``rebuild_every`` (8, as ``serve`` runs) and with bench.py's rule (2).
+   ``rebuild_every`` (8, as ``serve`` runs) and with bench.py's rule (2);
+14. the sharded engines (``pprx_torch.dist``) at mesh 1x1, where every
+   collective is absent: 14a config 5 (``run_config(5)``'s run: N=200k,
+   W=2M, b=160k, S=128, the compact-frontier engine, stream seed 5; seed, 3
+   warm-up and 5 timed slides), f32 and with bf16 delivery, each held to
+   exact PPR on 16 sampled sources (L1 within eps * W; mass within 1e-3 in
+   f32, and in bf16 within 1e-4 of the same run through the port on the
+   CPU) and its sharded top-100 to the single-device head's;
+   14b the sharding tax: ``FastStreamDriver`` on the same stream and shapes,
+   timed the same way; 14c the dense sharded engine in both modes on phase
+   12's stream, held to exact PPR, launching nothing; 14e ``stream --engine
+   sharded-wl --mesh 1,1`` on phase 13's file and ``bench --config 5``;
+   14d last: each collective wrapper once through a process group of one on
+   NCCL (a ``FileStore``), held to its K=1 meaning. Every run through the
+   compact-frontier engine must launch the gather entry (its dense rounds'
+   local-first delivery).
 
 Then a JSON line of the kernels (``launches``: the main path's, phases 4 to
 6, which must launch at least one entry; ``launches_by_path``: every path's,
 each counted with the counts set to 0 before it: the main path, each of the
 three reverse runs of phase 8, phases 9 and 10, each run of phase 11, each
-command of phase 13), the nvidia-smi line, and last
+command of phase 13, each config 5 run and sharded command of phase 14), the
+nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure
 raises: the exit code is not 0 and the last line is not printed. There is no CPU path. Nothing of
 JAX or of the JAX package ``pprx`` is imported.
@@ -108,12 +124,16 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from pprx_torch import _ext, cli
-from pprx_torch.bench.run import run_config
+from pprx_torch.bench.run import config5_run, run_config
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.device import require_cuda
+from pprx_torch.dist.mesh import all_to_all_rows, gather_stats, make_row_mesh, reduce_scatter_rows
+from pprx_torch.dist.retrieve import make_sharded_topk
+from pprx_torch.dist.stream import ShardedStreamDriver
 from pprx_torch.engine import segsum
 from pprx_torch.engine.segsum import (
     row_offsets,
@@ -549,10 +569,11 @@ def run_stream(drv: FastStreamDriver, warmup: int, steps: int) -> dict:
     }
 
 
-def profile_slides(drv: FastStreamDriver, steps: int, top: int = 10) -> dict:
-    """``steps`` slides under ``torch.profiler``: wall time on the host
-    clock, device busy time as the sum of the device-side kernel and copy
-    times (one stream, so they do not overlap), and the ``top`` of them."""
+def profile_slides(drv, steps: int, top: int = 10) -> dict:
+    """``steps`` slides of a driver (fast or sharded) under
+    ``torch.profiler``: wall time on the host clock, device busy time as the
+    sum of the device-side kernel and copy times (one stream, so they do not
+    overlap), and the ``top`` of them."""
     dev = drv.device
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -566,7 +587,8 @@ def profile_slides(drv: FastStreamDriver, steps: int, top: int = 10) -> dict:
     # a profiler that sees no device activity measures nothing: say so
     busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3 if on_dev else None
     return {
-        "slides": steps, "rounds": [st.rounds for st in stats], "wall_ms": wall_ms,
+        "slides": steps, "wall_ms": wall_ms,
+        "rounds": [st["rounds"] if isinstance(st, dict) else st.rounds for st in stats],
         "device_busy_ms": busy_ms,
         "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
         "top": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3, "calls": e.count}
@@ -1139,6 +1161,224 @@ def check_cli_launches(res: dict) -> dict:
     return by_path
 
 
+def peak_gib(dev) -> float | None:
+    return torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+
+
+def sharded_contract(drv: ShardedStreamDriver, n_check: int,
+                     twin: ShardedStreamDriver | None = None) -> dict:
+    """A sharded forward state against the exact-PPR contract on ``n_check``
+    sampled sources: L1 to exact PPR of the final window (f64 power iteration
+    on the driver's device) within eps * W, and ``|sum p + sum r - 1|``
+    within 1e-3; with a ``twin`` (the same run where no kernel sums: bf16
+    delivery conserves mass on no device) the mass within 1e-4 of the
+    twin's instead."""
+    n, w, head = drv.n, drv.scfg.window, drv.head
+
+    def masses(d):
+        p, r = d.host_p()[:n].astype(np.float64), d.host_r()[:n].astype(np.float64)
+        return p, p[:, cols].sum(0) + r[:, cols].sum(0), r
+
+    cols = np.linspace(0, drv.eng.s_total - 1, n_check).astype(int)
+    p, mass, r = masses(drv)
+    if not (np.isfinite(p).all() and np.isfinite(r).all()):
+        raise AssertionError("non-finite sharded state")
+    t0 = time.perf_counter()
+    pis = exact_ppr(drv.stream_src[head - w:head], drv.stream_dst[head - w:head], n,
+                    [int(c) for c in cols], drv.cfg.alpha, tol=1e-10, device=drv.device)
+    l1 = [l1_error(p[:, c], pi) for c, pi in zip(cols, pis)]
+    res = {"sources": n_check, "l1_max": max(l1), "l1_mean": float(np.mean(l1)),
+           "l1_bound": drv.cfg.eps * w, "mass_err_max": float(np.abs(mass - 1.0).max()),
+           "exact_s": time.perf_counter() - t0}
+    if twin is None:
+        mass_off, res["mass_bound"] = res["mass_err_max"], 1e-3
+    else:
+        ref = masses(twin)[1]
+        mass_off, res["mass_bound"] = float(np.abs(mass - ref).max()), 1e-4
+        res.update(mass_err_max_ref=float(np.abs(ref - 1.0).max()), mass_off_ref=mass_off)
+    if res["l1_max"] > res["l1_bound"] or mass_off > res["mass_bound"]:
+        raise AssertionError(f"sharded exact-PPR contract failed: {res}")
+    return res
+
+
+def sharded_topk_check(drv: ShardedStreamDriver, k: int) -> dict:
+    """``make_sharded_topk`` on a 1x1 driver's reserve against
+    ``topk_candidates`` on the same ``p``: equal scores, equal ids wherever a
+    score is not tied with its neighbour in the row; each timed once warm."""
+    if drv.mesh.size != 1:
+        raise AssertionError("the single-device head needs the whole reserve: a 1x1 mesh")
+    topk = make_sharded_topk(drv.mesh, drv.n, drv.eng.n_local, k)
+    times = {}
+    for tag, fn in (("sharded", lambda: topk(drv.p)), ("single", lambda: topk_candidates(drv.p, k))):
+        fn()
+        sync(drv.device)
+        t0 = time.perf_counter()
+        sc, ids = fn()
+        sync(drv.device)
+        times[f"{tag}_ms"] = (time.perf_counter() - t0) * 1e3
+        times[tag] = (sc.cpu().numpy(), ids.cpu().numpy())
+    (sc, ids), (ref_sc, ref_ids) = times.pop("sharded"), times.pop("single")
+    tied = np.zeros(ref_sc.shape, bool)
+    tied[:, 1:] |= ref_sc[:, 1:] == ref_sc[:, :-1]
+    tied[:, :-1] |= ref_sc[:, :-1] == ref_sc[:, 1:]
+    if not np.array_equal(sc, ref_sc) or not np.array_equal(ids[~tied], ref_ids[~tied]):
+        raise AssertionError("sharded top-k differs from the single-device head")
+    return {"k": k, "ids_equal": bool(np.array_equal(ids, ref_ids)), "tied": int(tied.sum()),
+            **times}
+
+
+def config5_check(dev, bf16d: bool, n_check: int = 16, k: int = 100, prof: bool = False,
+                  **shape) -> dict:
+    """14a: ``config5_run`` (``run_config(5)``'s run: the headline shapes
+    unless ``shape`` says otherwise; stream seed 5; seed, 3 warm-up and 5
+    timed slides at mesh 1x1), with the counts set to 0 before it; with
+    ``prof`` the stream's one slide left under the profiler; then the
+    contract and the sharded top-k against the single-device head. With
+    bf16 delivery the mass is held to a witness: the same run through the
+    port on the CPU, where the plain version sums and no kernel runs
+    (``cpu_witness_s``: what it took); the loss is the reference's too
+    (PERF.md §2)."""
+    segsum.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rep, drv = config5_run(device=dev, bf16d=bf16d, **shape)
+    res = {**rep, "bf16d": bf16d, "rounds_per_slide": rep["rounds"] / rep["steps"],
+           "wl_rounds_per_slide": rep["wl_rounds"] / rep["steps"]}
+    if prof:
+        res["profile"] = profile_slides(drv, 1)
+    res.update(launches_by_entry=launches_by_entry(), peak_mem_gib=peak_gib(dev))
+    twin = None
+    if bf16d:
+        t0 = time.perf_counter()
+        twin = config5_run(device="cpu", bf16d=True, **shape)[1]
+        res["cpu_witness_s"] = time.perf_counter() - t0
+    res["contract"] = sharded_contract(drv, n_check, twin)
+    res["topk"] = sharded_topk_check(drv, k)
+    return res
+
+
+def sharding_tax(dev, sharded_ups: float, n: int = 200_000, w: int = 2_000_000,
+                 b: int = 160_000, s: int = 128, steps: int = 5) -> dict:
+    """14b: ``FastStreamDriver`` on config 5's stream and shapes, rebuilding
+    every 2 slides as the sharded engine's fresh ring of 2b does (bench.py's
+    rule gives 2 at the headline too), timed as config 5 times itself: seed,
+    3 warm-up, ``steps`` timed slides. The tax is the single-device rate over
+    the sharded one at mesh 1x1."""
+    src, dst, n = synthetic_powerlaw_stream(n, w + (steps + 4) * b, seed=5)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
+    drv = FastStreamDriver(src, dst, n, list(range(s)), cfg, StreamConfig(window=w, slide=b),
+                           rebuild_every=2, device=dev)
+    drv.seed()
+    list(drv.run(3))
+    sync(dev)
+    t0 = time.perf_counter()
+    stats = list(drv.run(steps))
+    sync(dev)
+    ups = 2 * b * steps / (time.perf_counter() - t0)
+    return {"fast_updates_per_s": ups, "sharded_updates_per_s": sharded_ups,
+            "tax": ups / sharded_ups, "fast_rounds_per_slide": sum(st.rounds for st in stats) / steps,
+            "rebuild_every": drv.rebuild_every}
+
+
+def sharded_dense_check(dev) -> dict:
+    """14c: ``ShardedStreamDriver(engine="dense")`` at mesh 1x1 in both modes
+    on phase 12's stream (N=300, W=1,500; slides of 100 edges and of 1),
+    every query held to exact PPR on the window it then holds, as phase 12
+    holds the dense driver. Plain torch ops: no kernel launch."""
+    w = 1500
+    src, dst, n = synthetic_powerlaw_stream(300, 3000, seed=5)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
+    queries = [0, 7, 99]
+    segsum.reset_launches()
+    res = {"n": n, "window": w, "queries": len(queries)}
+    for mode, tag in ((0, "forward"), (REVERSE, "reverse")):
+        for b, slides in ((100, 8), (1, 60)):
+            drv = ShardedStreamDriver(src, dst, n, queries, cfg, StreamConfig(window=w, slide=b),
+                                      make_row_mesh(1, 1), mode=mode, engine="dense", device=dev)
+            rounds = drv.seed()["rounds"] + sum(st["rounds"] for st in drv.run(slides))
+            hs, hd = src[drv.head - w:drv.head], dst[drv.head - w:drv.head]
+            p = drv.host_p()[:n].astype(np.float64)
+            if mode == REVERSE:
+                exact = exact_ppr_columns(hs, hd, n, queries, cfg.alpha, tol=1e-12, device=dev)
+                err, bound = float(np.abs(p - exact.T).max()), 2 * cfg.eps
+            else:
+                exact = exact_ppr(hs, hd, n, queries, cfg.alpha, tol=1e-12, device=dev)
+                err, bound = max(l1_error(p[:, j], pi) for j, pi in enumerate(exact)), cfg.eps * w
+                mass = float(np.abs(p.sum(0) + drv.host_r()[:n].sum(0) - 1.0).max())
+                res[f"{tag}_slide{b}_mass_err"] = mass
+                if mass > 1e-3:
+                    raise AssertionError(f"sharded dense {tag}, slide {b}: mass off by {mass}")
+            res.update({f"{tag}_slide{b}_rounds": rounds, f"{tag}_slide{b}_err": err,
+                        f"{tag}_slide{b}_bound": bound})
+            if not err <= bound:
+                raise AssertionError(f"sharded dense {tag}, slide {b}: error {err} > {bound}")
+    res["kernel_launches"] = segsum.launches()
+    if res["kernel_launches"] != 0:
+        raise AssertionError("the sharded dense engine launched the segment sum")
+    return res
+
+
+def collectives_check(dev, tmp: str) -> dict:
+    """14d: each collective wrapper of ``pprx_torch.dist.mesh`` once through a
+    real process group of one (NCCL on the card, gloo on the CPU; a
+    ``FileStore`` under ``tmp``), on the device's tensors: each result must
+    be what the collective means at K=1 (its own input), and the stats
+    reduction the values it was given."""
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        x = torch.arange(24, dtype=torch.float32, device=dev).reshape(12, 2)
+        ids = torch.arange(16, dtype=torch.int32, device=dev).reshape(1, 16)
+        mass = torch.rand((1, 16, 8), generator=torch.Generator().manual_seed(0)).to(dev)
+        checks = {
+            "reduce_scatter_f32": torch.equal(reduce_scatter_rows(x, group), x),
+            "all_to_all_int32": torch.equal(all_to_all_rows(ids, group), ids),
+            "all_to_all_f32": torch.equal(all_to_all_rows(mass, group), mass),
+            "all_to_all_bf16": torch.equal(all_to_all_rows(mass.bfloat16(), group),
+                                           mass.bfloat16()),
+            "stats": gather_stats([torch.tensor(3, device=dev), 5, torch.tensor(True, device=dev)],
+                                  group, dev).tolist() == [[3, 5, 1]],
+        }
+    finally:
+        dist.destroy_process_group()
+    if not all(checks.values()):
+        raise AssertionError(f"a collective wrapper on {backend} differs from its K=1 meaning: "
+                             f"{checks}")
+    return {"backend": backend, **checks}
+
+
+SHARDED_CLI_PATHS = ("cli_stream_sharded_wl", "cli_bench_config5")
+
+
+def sharded_cli(dev, tmp: str, graph: str, w: int, b: int, s: int) -> dict:
+    """14e: ``stream --engine sharded-wl --mesh 1,1`` (4 slides) on phase
+    13's converted file and ``bench --config 5``, in this process."""
+    n_graph = int(load_packed(graph)[2])
+    queries = ",".join(map(str, range(min(s, n_graph))))
+    dv = ["--device", str(dev)]
+    res = {"cli_stream_sharded_wl": run_cli([
+        "stream", graph, "--window", str(w), "--slide", str(b), "--steps", "4", "--engine",
+        "sharded-wl", "--mesh", "1,1", "--queries", queries, "--log",
+        os.path.join(tmp, "sharded.jsonl"), *dv])}
+    if res["cli_stream_sharded_wl"]["steps"] != 4 or res["cli_stream_sharded_wl"]["n_chips"] != 1:
+        raise AssertionError(f"stream --engine sharded-wl: {res['cli_stream_sharded_wl']}")
+    out = run_cli(["bench", "--config", "5", *dv])
+    if out["config"] != 5 or out["mesh"] != "1x1" or out["updates_per_sec"] <= 0:
+        raise AssertionError(f"bench --config 5: {out}")
+    res["cli_bench_config5"] = out
+    return res
+
+
+def check_launched(by_path: dict, entry: str = "segsum_gather_add") -> dict:
+    """Every path named launched ``entry``."""
+    for path, counts in by_path.items():
+        if counts[entry] <= 0:
+            raise AssertionError(f"{path} never launched {entry}: {counts}")
+    return by_path
+
+
 def kernel_entry(name: str, key: str, kern: dict, launches: dict) -> dict:
     """One entry of the kernels line from phase 3's numbers: the window
     scan's f32 figures (power-law rows) under the plain names; bf16, the
@@ -1312,6 +1552,27 @@ def main() -> None:
             log(f"13 serve split rebuild_every={every}",
                 **serve_split(dev, os.path.join(tmp, "stream.npz"), w, b, s, k=k,
                               rebuild_every=every))
+        torch.cuda.empty_cache()
+
+        # the sharded engines at mesh 1x1; each run sets the counts to 0 itself
+        config5 = {tag: config5_check(dev, bf16d=tag == "bf16", prof=tag == "f32")
+                   for tag in ("f32", "bf16")}
+        for tag, res in config5.items():
+            log(f"14a config5 {tag}", **res)
+        sharded_by_path = check_launched({f"config5_{tag}": res["launches_by_entry"]
+                                          for tag, res in config5.items()})
+        torch.cuda.empty_cache()
+        log("14b sharding tax", **sharding_tax(dev, config5["f32"]["updates_per_sec"]))
+        torch.cuda.empty_cache()
+        log("14c sharded dense", **sharded_dense_check(dev),
+            note="plain torch ops on the card: no kernel launch is expected")
+        cli5 = sharded_cli(dev, tmp, os.path.join(tmp, "stream.npz"), w, b, s)
+        for tag, res in cli5.items():
+            log(f"14e {tag.replace('_', ' ')}", **res)
+        sharded_by_path.update(check_launched({path: cli5[path]["launches_by_entry"]
+                                               for path in SHARDED_CLI_PATHS}))
+        torch.cuda.empty_cache()
+        log("14d collectives", **collectives_check(dev, tmp))
 
     if "jax" in sys.modules or "pprx" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
@@ -1319,7 +1580,8 @@ def main() -> None:
                 **{f"forward_config2_{tag}": res["launches_by_entry"]
                    for tag, res in config2.items()},
                 **{f"reverse_{tag}": res["launches_by_entry"] for tag, res in reverse.items()},
-                "static": static_by_entry, "checkpoint": ckpt_by_entry, **cli_by_path}
+                "static": static_by_entry, "checkpoint": ckpt_by_entry, **cli_by_path,
+                **sharded_by_path}
     print(json.dumps({"kernels": [
         kernel_entry("segsum_add", "add", kern, launches),
         kernel_entry("segsum_gather_add", "gather", kern, launches),

@@ -5,8 +5,9 @@ same stream as the reference's for the same seed), with the reference's
 arguments, and returns the reference's keys plus ``"device"``: the card's
 name, or ``"cpu"``. ``device=None`` is the card. ``graph=`` runs a config
 on a packed edge file instead (``pprx_torch.graph.io.load_packed``; the
-``convert`` subcommand writes one). Config 5 waits for the port's sharded
-engines.
+``convert`` subcommand writes one). Config 5 runs the sharded engines on
+this process's shard of the mesh (``pprx_torch.dist``): a mesh of one on
+one card, or one process per shard started by ``torchrun``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.device import device_name, resolve_device
@@ -203,9 +205,82 @@ def config4_retrieval(scale: int = 1, s: int = 512, k: int = 100,
     return out
 
 
+def config5_run(
+    n_rows: int = 0,
+    n_srcs: int = 1,
+    engine: str = "wl",
+    n: int = 0,
+    w: int = 0,
+    b: int = 0,
+    s: int = 0,
+    steps: int = 5,
+    graph: str | None = None,
+    scale: int = 1,
+    ccap: int = 0,
+    e_top: int = 0,
+    fring: int = 0,
+    bf16d: bool = False,
+    mode: str = "forward",
+    device: torch.device | str | None = None,
+):
+    """Config 5 (``config5_sharded``) and the driver it ran, for callers that
+    go on to check the state: (report, driver)."""
+    from pprx_torch.dist.mesh import make_row_mesh
+    from pprx_torch.dist.stream import ShardedStreamDriver
+
+    device = resolve_device(device)
+    if n_rows == 0:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        n_rows = max(1, world // n_srcs)
+    mesh = make_row_mesh(n_rows, n_srcs)
+    n = n or 200_000 * scale
+    w = w or 2_000_000 * scale
+    b = b or 160_000 * scale
+    s = s or 128
+    src, dst, n = _stream(graph, n, w + (steps + 4) * b, seed=5)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
+    chips = n_rows * n_srcs
+    # ccap/e_top tuning lives in ShardedWlEngine's defaults
+    drv = ShardedStreamDriver(
+        src, dst, n, list(range(s)), cfg, StreamConfig(window=w, slide=b), mesh,
+        mode=REVERSE if mode == "reverse" else FORWARD, engine=engine, ccap=ccap or None,
+        e_top=e_top or None, fring=fring or None, bf16d=bf16d, device=device,
+    )
+    drv.seed()
+    for _ in drv.run(3):
+        pass
+    sync(device)
+    t0 = time.perf_counter()
+    stats = list(drv.run(steps))
+    sync(device)
+    wall = time.perf_counter() - t0
+    return {
+        "config": 5,
+        "mesh": f"{n_rows}x{n_srcs}",
+        "engine": engine,
+        "mode": mode,
+        "n": n,
+        "window": w,
+        "slide": b,
+        "sources": s,
+        "steps": steps,
+        "wall_s": round(wall, 4),
+        "updates_per_sec": round(2 * b * steps / wall, 1),
+        "updates_per_sec_per_chip": round(2 * b * steps / wall / chips, 1),
+        "rounds": sum(st["rounds"] for st in stats),
+        "wl_rounds": sum(st.get("wl_rounds", 0) for st in stats),
+        "device": device_name(device),
+    }, drv
+
+
 def config5_sharded(**kw) -> dict:
-    """The sharded slide step: waits for the port's sharded engines."""
-    raise NotImplementedError("config5_sharded: not ported (ROADMAP item 14)")
+    """The row-sharded slide step at the headline shapes (N=200k, W=2M,
+    b=160k, S=128; stream seed 5): seed, 3 warm-up and ``steps`` timed
+    slides on this process's shard. ``n_rows=0`` is the world's size (one
+    shard per process; 1 without a process group). Engines: 'wl' (the
+    default, compact-frontier rounds) and 'dense' (reduce-scatter rounds);
+    'wlp' is not ported yet. Pass small n/w/b/s for a CPU run."""
+    return config5_run(**kw)[0]
 
 
 CONFIGS = {

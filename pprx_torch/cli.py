@@ -8,13 +8,18 @@
   retrieve  multi-source batched top-k candidates
   serve     bounded-stall serving loop: maintain, refine within a budget of
             rounds each slide, and read the top-k every few slides
-  bench     the headline updates/s benchmark, or one of configs 1-4
+  bench     the headline updates/s benchmark, or one of configs 1-5
 
 The subcommands, flags and JSON keys are the reference's. Every subcommand
 that computes takes ``--device`` (default: the card; ``cpu`` runs the plain
 versions, as the tests do) and names it under ``"device"`` in its summary.
-What is not ported says so and exits: the hybrid engine (the fast engine
-superseded it) and the sharded engines and config 5 (ROADMAP item 14).
+``stream --engine sharded|sharded-wl`` and ``bench --config 5`` run one
+shard per process (``pprx_torch.dist``): a ``--mesh 1,1`` in one process, or
+one process per shard, started by torchrun or given ``--coordinator``,
+``--num-processes`` and ``--process-id``; only rank 0 prints. What is not
+ported says so and exits: the hybrid engine (the fast engine superseded it),
+and ``sharded-wlp``, ``sharded-wl --mode rev`` and sharded checkpoints
+(ROADMAP item 14, PR 7).
 
 The fast engine delivers through the segment-sum kernel, which takes f32
 or bf16: ``--f64`` with the fast engine on a CUDA device exits before any
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 SHARDED_ENGINES = ("sharded", "sharded-wl", "sharded-wlp")
+NOT_PORTED = "not ported (ROADMAP item 14, PR 7)"
 
 
 def _add_common(p):
@@ -150,24 +156,89 @@ def cmd_static(args):
     print(json.dumps({**out, **_device_key(device)}))
 
 
-def _make_stream_driver(args, src, dst, n, queries, scfg, device):
-    """The engine ``--engine`` names: the fast (wl2) or the dense driver."""
+def _make_stream_driver(args, src, dst, n, queries, scfg, device, mesh=None):
+    """The engine ``--engine`` names: the fast (wl2) or the dense driver, or,
+    on a ``mesh``, this process's shard of a sharded one."""
     from pprx_torch.graph.fast_stream import FastStreamDriver
     from pprx_torch.graph.stream import StreamDriver
 
+    common = dict(mode=_mode(args), dtype=_dtype(args), device=device)
+    if mesh is not None:
+        from pprx_torch.dist.stream import ShardedStreamDriver
+
+        engine = {"sharded-wl": "wl"}.get(args.engine, "dense")
+        return ShardedStreamDriver(src, dst, n, queries, _cfg(args), scfg, mesh, ecap=args.ecap,
+                                   engine=engine, **common)
     ctor = {"fast": FastStreamDriver, "dense": StreamDriver}[args.engine]
-    return ctor(src, dst, n, queries, _cfg(args), scfg, mode=_mode(args), dtype=_dtype(args),
-                device=device)
+    return ctor(src, dst, n, queries, _cfg(args), scfg, **common)
+
+
+def _sharded_mesh(args):
+    """The process group and the ``--mesh`` (rows,srcs; by default one row
+    per process) of a sharded run, built as the reference builds them:
+    ``--coordinator``, ``--num-processes`` and ``--process-id``, or
+    torchrun's variables. Exits where the world cannot hold the mesh."""
+    from pprx_torch.dist.init import init_distributed
+    from pprx_torch.dist.mesh import make_row_mesh
+
+    init_distributed(args.coordinator, args.num_processes, args.process_id, device=args.device)
+    rows, srcs = (int(x) for x in args.mesh.split(",")) if args.mesh else (_world(), 1)
+    try:
+        return make_row_mesh(rows, srcs)
+    except ValueError as err:
+        raise SystemExit(f"--engine {args.engine}: {err}; start one process per shard "
+                         "(torchrun, or --coordinator/--num-processes/--process-id)") from err
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _rank() -> int:
+    """This process's rank (0 without a process group): only rank 0 prints."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _shard_device(args) -> torch.device:
+    """The device of this process's shard: in a multi-process run on the
+    card, the card ``init_distributed`` gave this rank."""
+    device = _device(args)
+    if device.type == "cuda" and _world() > 1:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _check_engine(args) -> None:
+    """Refuse what is not ported before any work."""
     if args.engine == "hybrid":
         raise SystemExit("--engine hybrid: superseded by the fast engine, not ported")
-    if args.engine in SHARDED_ENGINES:
-        raise SystemExit(f"--engine {args.engine}: not ported (ROADMAP item 14)")
+    if args.engine not in SHARDED_ENGINES:
+        return
+    if args.engine == "sharded-wlp":
+        raise SystemExit(f"--engine sharded-wlp: {NOT_PORTED}")
+    if args.engine == "sharded-wl" and args.mode != "fwd":
+        raise SystemExit(f"--engine sharded-wl --mode {args.mode}: the reverse wl slide is "
+                         f"{NOT_PORTED}")
+    if args.checkpoint:
+        raise SystemExit(f"--engine {args.engine} --checkpoint: sharded checkpoints are "
+                         f"{NOT_PORTED}")
+
+
+def _as_push_stats(rec):
+    """A sharded driver's record (a dict) as the ``PushStats`` the summary sums."""
+    from pprx_torch.engine.state import PushStats
+
+    return PushStats(rounds=rec["rounds"], pushes=rec["pushes"],
+                     edge_pushes=rec["edge_pushes"], wl_rounds=rec.get("wl_rounds", 0))
 
 
 def cmd_stream(args):
+    import os
+
     from pprx_torch.config import StreamConfig
     from pprx_torch.eval.perf import summarize
     from pprx_torch.io.checkpoint import save_checkpoint
@@ -175,19 +246,24 @@ def cmd_stream(args):
     from pprx_torch.sync import sync
 
     _check_engine(args)
-    device = _device(args)
-    if args.engine == "fast":
-        _kernel_dtype(args, device, "stream --engine fast")
+    sharded = args.engine in SHARDED_ENGINES
+    mesh = _sharded_mesh(args) if sharded else None
+    device = _shard_device(args)
+    if args.engine in ("fast", "sharded-wl"):
+        _kernel_dtype(args, device, f"stream --engine {args.engine}")
     src, dst, n = _load(args)
     queries = _queries(args, n)
     scfg = StreamConfig(window=args.window, slide=args.slide)
-    drv = _make_stream_driver(args, src, dst, n, queries, scfg, device)
-    with JsonlLogger(args.log) as log:
-        seed_stats = drv.seed()
+    drv = _make_stream_driver(args, src, dst, n, queries, scfg, device, mesh)
+    stats_of = _as_push_stats if sharded else (lambda s: s)
+    rank = _rank()
+    with JsonlLogger(args.log if rank == 0 else os.devnull) as log:
+        seed_stats = stats_of(drv.seed())
         log.log("seed", rounds=int(seed_stats.rounds), pushes=float(seed_stats.pushes))
         t0 = time.perf_counter()
         stats_list = []
         for i, s in enumerate(drv.run(args.steps)):
+            s = stats_of(s)
             stats_list.append(s)
             log.log(
                 "slide",
@@ -201,10 +277,12 @@ def cmd_stream(args):
                 log.log("checkpoint", step=i, path=args.checkpoint)
         sync(device)
         wall = time.perf_counter() - t0
-        rep = {**summarize(stats_list, wall, edges_per_step=2 * args.slide).as_dict(),
+        rep = {**summarize(stats_list, wall, edges_per_step=2 * args.slide,
+                           n_chips=mesh.size if sharded else 1).as_dict(),
                **_device_key(device)}
         log.log("summary", **rep)
-    print(json.dumps(rep))
+    if rank == 0:
+        print(json.dumps(rep))
 
 
 def _checkpoint_kind(path: str) -> str | None:
@@ -237,11 +315,7 @@ def cmd_retrieve(args):
 
         if _checkpoint_kind(args.from_checkpoint) == "sharded":
             raise SystemExit(
-                "this is a SHARDED checkpoint; serve it through the sharded "
-                "driver (pprx.io.checkpoint.load_sharded_checkpoint + "
-                "pprx.dist.retrieve.make_sharded_topk), not "
-                "`retrieve --from-checkpoint`"
-            )
+                f"this is a SHARDED checkpoint; sharded checkpoints are {NOT_PORTED}")
         drv = load_checkpoint(args.from_checkpoint, src, dst, device=device)
         if args.refine_eps:
             if not hasattr(drv, "refine"):
@@ -404,9 +478,11 @@ def cmd_serve(args):
 
 def cmd_bench(args):
     if args.config == 5:
-        raise SystemExit("bench --config 5: the sharded slide step is not ported "
-                         "(ROADMAP item 14)")
-    device = _device(args)
+        from pprx_torch.dist.init import init_distributed
+
+        # one shard per process under torchrun; a mesh of one otherwise
+        init_distributed(device=args.device)
+    device = _shard_device(args)
     if args.config:
         from pprx_torch.bench.run import run_config
 
@@ -415,7 +491,9 @@ def cmd_bench(args):
             kw["graph"] = args.graph
         if args.scale != 1:
             kw["scale"] = args.scale
-        print(json.dumps(run_config(args.config, device=device, **kw)))
+        out = run_config(args.config, device=device, **kw)
+        if _rank() == 0:
+            print(json.dumps(out))
         return
     from pprx_torch.bench import headline
 
@@ -448,15 +526,17 @@ def main(argv=None):
         choices=["fast", "hybrid", "dense", *SHARDED_ENGINES],
         default="fast",
         help="fast = compact-frontier wl2 engine (default); dense = rounds over "
-        "the whole COO window; hybrid and the sharded engines are not ported",
+        "the whole COO window; sharded, sharded-wl = the row-sharded dense and "
+        "compact-frontier engines; hybrid and sharded-wlp are not ported",
     )
-    # the sharded engines' flags parse, so that command lines stay the
-    # reference's; those engines exit before reading them
-    p.add_argument("--mesh", type=str, default=None, help="sharded engines (not ported)")
-    p.add_argument("--coordinator", type=str, default=None, help="sharded engines (not ported)")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="sharded engines: rows,srcs (default: one row per process)")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="sharded engines: host:port of process 0 (or torchrun's variables)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
-    p.add_argument("--ecap", type=int, default=None, help="sharded engines (not ported)")
+    p.add_argument("--ecap", type=int, default=None,
+                   help="sharded engines: edge slots per shard (default: the window)")
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--log", type=str, default=None, help="JSONL log path (default stdout)")
     p.add_argument("--checkpoint", type=str, default=None)
@@ -517,7 +597,8 @@ def main(argv=None):
         type=int,
         choices=[1, 2, 3, 4, 5],
         default=0,
-        help="run one of the milestone configs 1-4 instead (5 is not ported)",
+        help="run one of the milestone configs 1-5 instead (5: the sharded slide step on "
+        "this process's shard)",
     )
     p.add_argument(
         "--graph",

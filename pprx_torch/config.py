@@ -2,8 +2,9 @@
 
 The same frozen dataclasses, fields and checks as the reference, so a
 configuration means the same in both packages; the port keeps its own copy
-so that nothing of the JAX package is imported. ``MeshConfig`` comes with
-the sharded engines.
+so that nothing of the JAX package is imported. The reference's
+``MeshConfig`` has no caller there and is not ported: the sharded engines
+take a ``pprx_torch.dist.mesh.RowMesh``.
 """
 
 from __future__ import annotations

@@ -26,7 +26,7 @@ import torch
 from pprx_torch.device import resolve_device
 from pprx_torch.engine.segsum import row_offsets, segment_ids
 from pprx_torch.engine.state import PprState
-from pprx_torch.engine.wl2 import KillGraph
+from pprx_torch.engine.wl2 import KillGraph, refresh_fresh_csr
 from pprx_torch.graph.dynamic import WindowGraph
 
 _KG_FIELDS = (
@@ -85,23 +85,34 @@ def kill_graph_from_arrays(
     arrays: Mapping[str, np.ndarray], device: torch.device | str | None = None
 ) -> KillGraph:
     """KillGraph from the reference's ``src, dst, deg`` and ``kg_*`` arrays,
-    on ``device`` (``None``: the card)."""
+    on ``device`` (``None``: the card). Without ``kg_fd_*`` (files older than
+    the reference's delivery-sorted fresh view) the view is rebuilt with
+    ``refresh_fresh_csr``."""
     device = resolve_device(device)
     window = window_from_arrays(arrays, device)
-    # the sorted scatter ids d_sca/fd_sca become per-row offsets
-    names = (*_KG_FIELDS, "d_sca", "fd_sca")
-    f = {k: _t(arrays[f"kg_{k}"], device, np.int32) for k in names}
+    # a file older than the reference's delivery-sorted fresh view has no
+    # kg_fd_*: that view is derived state, rebuilt from the fresh ring
+    has_fd = "kg_fd_gat" in arrays
+    views = ("d", "fd") if has_fd else ("d",)
+    f = {k: _t(arrays[f"kg_{k}"], device, np.int32) for k in _KG_FIELDS
+         if has_fd or k != "fd_gat"}
     n = window.n
-    cap = window.capacity
-    fring = f["fr_gat"].shape[0]
-    # strip the chunk padding (phantom edges at the sorted tail)
-    for k, size in (("d_gat", cap), ("d_sca", cap), ("fd_gat", fring), ("fd_sca", fring)):
-        if f[k].shape[0] < size or bool((f[k][size:] != n).any()):
-            raise ValueError(f"kg_{k}: expected {size} edges plus phantom padding")
-        f[k] = f[k][:size].clone()
-    d_off = row_offsets(f.pop("d_sca"), n + 1)
-    fd_off = row_offsets(f.pop("fd_sca"), n + 1)
-    return KillGraph(window=window, d_off=d_off, fd_off=fd_off, **f)
+    sizes = {"d": window.capacity, "fd": f["fr_gat"].shape[0]}
+    offs = {}
+    for v in views:
+        # strip the chunk padding (phantom edges at the sorted tail); the
+        # sorted scatter ids become per-row offsets
+        size, sca = sizes[v], _t(arrays[f"kg_{v}_sca"], device, np.int32)
+        for k, a in ((f"{v}_gat", f[f"{v}_gat"]), (f"{v}_sca", sca)):
+            if a.shape[0] < size or bool((a[size:] != n).any()):
+                raise ValueError(f"kg_{k}: expected {size} edges plus phantom padding")
+        f[f"{v}_gat"] = f[f"{v}_gat"][:size].clone()
+        offs[f"{v}_off"] = row_offsets(sca[:size], n + 1)
+    if has_fd:
+        return KillGraph(window=window, **offs, **f)
+    empty = torch.zeros(n + 2, dtype=torch.int32, device=device)
+    return refresh_fresh_csr(KillGraph(window=window, fd_gat=f["fr_gat"].clone(), fd_off=empty,
+                                       **offs, **f))
 
 
 def _reference_view(gat: torch.Tensor, off: torch.Tensor, n: int):

@@ -1,0 +1,624 @@
+"""Sharded compact-frontier push engine (port of ``pprx.dist.wl``).
+
+What the engine does is the reference's: the wl2 compact-frontier machinery
+runs per shard. Each shard keeps a kill-in-place CSR snapshot of its window
+edges (gather endpoint local, scatter endpoint global; expired slots point
+at the phantom ``n_pad``) and a fresh mini-CSR re-sorted each slide. A round
+pushes only the shard's candidate rows (unique and ascending), expands them
+with the edge-balanced run-length decode, deduplicates the targets and
+ships per-destination buckets of (local id, mass) over one all-to-all along
+the row group, with per-tier quotas; what overflows waits in a carry, and a
+pending carry forces a dense round (the whole window in delivery order,
+then the carry, one reduce-scatter and a rescan). Tier and dense choices
+are the same on every rank of a row group: they come from the group's
+maxima of the frontier counts (the uniform-branch rule); groups of
+different ``srcs`` decide alone. At ``K = 1`` every collective is absent:
+compact rounds deliver their deduplicated emission straight into ``r``, and
+the carry is a dummy.
+
+How the port differs:
+
+- One process per shard, a host loop with one stats reduction a round
+  (``mesh.gather_stats`` over the world: the next decision's counts, the
+  pending carry, the active pairs and edge pushes); every rank reads the
+  same world sums and its row group's maxima from it.
+- The delivery views keep per-row edge ranges instead of the TPU kernel's
+  tile offsets: ``*_loff`` over the shard's rows for the local segment,
+  ``*_roff`` over the global rows for the remote one (K > 1; it starts past
+  the local segment). Both segments go through ``segsum_gather_add_``: the
+  kernel reads exact edge ranges, so the remote accumulator has none of
+  the TPU kernel's boundary-chunk double count and rides it too.
+- The K = 1 compact round is the single-device port's sorted delivery
+  (``pprx_torch.engine.wl2.sorted_deliver_``).
+- The dense round's stats-skip is a branch: it reads back the frontier's
+  edge mass first (the row group's maximum) and runs the rescan only for a
+  light round. Its threshold is ``STATS_GUARD * (e_top + g_top)``, the
+  single-device form, where the reference leaves out the fresh cap.
+- The forward slide's slot ring keeps its arrays on the device and its
+  three counters on the host, which knows each slide's counts already; the
+  slide's one transfer is this shard's fresh edges.
+
+Not ported yet (ROADMAP item 14, PR 7): the reverse slide and the
+memory-proportional loop (``proportional=True``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pprx_torch.config import PprConfig
+from pprx_torch.dist.mesh import RowMesh, all_to_all_rows, gather_stats, reduce_scatter_rows
+from pprx_torch.dist.sharded import (
+    ShardedEngine,
+    forward_corrections,
+    forward_corrections_pairs,
+    write_window_,
+)
+from pprx_torch.engine.segsum import segsum_gather_add_
+from pprx_torch.engine.state import FORWARD
+from pprx_torch.engine.wl2 import (
+    _BIG,
+    STATS_GUARD,
+    _inverse_perm,
+    compact,
+    rld_expand,
+    sorted_deliver_,
+)
+
+NOT_PORTED = "not ported (ROADMAP item 14, PR 7)"
+
+
+def make_wl_tiers(
+    n_local: int,
+    ecap: int,
+    fring: int,
+    e_top: int,
+    w_top: int,
+    n_tiers: int = 4,
+    div: int = 4,
+    min_w: int = 512,
+    min_e: int = 1024,
+    min_g: int = 256,
+) -> tuple[tuple[int, int, int], ...]:
+    """Per-shard geometric (w, e, g) capacity ladder, smallest first: w the
+    candidate rows, e the snapshot-expansion lanes, g the fresh ones;
+    ``min_*`` are cutoffs, not clamps. The reference's ladder."""
+    e_top = max(min(e_top, ecap), 1)
+    g_top = max(min(fring, max(e_top // 4, 1)), 1)
+    w_top = min(max(w_top, min_w), n_local + 1)
+    tiers = [(w_top, e_top, g_top)]
+    for _ in range(n_tiers - 1):
+        w2, e2, g2 = tiers[0]
+        nxt = (
+            min(max(w2 // div, 1), n_local + 1),
+            max(e2 // div, 1),
+            max(g2 // div, 1),
+        )
+        if nxt[0] < min_w or nxt[1] < min_e or nxt[2] < min_g:
+            break
+        tiers.insert(0, nxt)
+    return tuple(tiers)
+
+
+# K > 1 compact rounds dedup and bucket by sort from this many emission
+# lanes on (tuned on the TPU, kept for parity)
+SORT_BUCKET_MIN = 65_536
+
+# The per-shard snapshot's keys. The reference's d_sca/d_toff/d_toffl (and
+# fd_*) are the per-row ranges d_loff/d_roff here; fcnt is a host integer.
+WL_SNAP_KEYS = (
+    "soff", "snbr", "srl", "spos",
+    "d_gat", "d_pos", "d_loff", "d_roff",
+    "fd_gat", "fd_loff", "fd_roff",
+    "fr_gat", "fr_sca", "f_off", "f_nbr", "f_len", "fcnt",
+)
+
+# The forward slide's slot ring: a FIFO of occupied slots in insertion order
+# (each shard's expiring edges are its oldest entries) and a LIFO stack of
+# free slots; the reference's keys. oring and fstack live on the device, the
+# three counters on the host.
+WL_RING_KEYS = ("oring", "hd", "tl", "fstack", "ftop")
+
+
+def sorted_bucket(ids, vals, k: int, n_local: int, n_pad: int, ccap: int, ccarry: int):
+    """Dedup by sort and owner-bucket (global id, mass) pairs: ``ids`` [L]
+    (invalid = n_pad), ``vals`` [L, S]. See ``sorted_bucket_rows``."""
+    rows = torch.arange(ids.shape[0], device=ids.device)
+    return sorted_bucket_rows(ids, rows, vals, k, n_local, n_pad, ccap, ccarry)
+
+
+def sorted_bucket_rows(ids, rows, moving, k: int, n_local: int, n_pad: int, ccap: int,
+                       ccarry: int):
+    """``sorted_bucket`` where lane j's mass is ``moving[rows[j]]``: one
+    stable sort groups duplicate ids, a sorted segment sum adds each group's
+    mass, the owners are contiguous in the sorted order, and the ``[K,
+    ccap]`` send buffers are gathers from it. Returns (send_ids [K*ccap]
+    local ids, pad n_local; send_mass [K*ccap, S]; carry_ids [ccarry]
+    sorted global ids, pad n_pad; carry_mass [ccarry, S]; pend), the
+    entries past each owner's quota in the carry. The carry must hold the
+    unique ids past quota: ``ccarry >= min(L, n_pad)`` guarantees it."""
+    length = ids.shape[0]
+    if ccarry < min(length, n_pad):
+        raise ValueError(f"sorted_bucket_rows carry contract violated: ccarry={ccarry} < "
+                         f"min(L={length}, n_pad={n_pad})")
+    ids_s, order = torch.sort(ids, stable=True)
+    rows_s = rows[order]
+    seg_start = torch.ones_like(ids_s, dtype=torch.bool)
+    seg_start[1:] = ids_s[1:] != ids_s[:-1]
+    sidx = torch.cumsum(seg_start, 0) - 1
+    # one group = one id, so duplicate writes carry the same value; groups
+    # past the last real one keep n_pad
+    gids = torch.full((length,), n_pad, dtype=torch.int32, device=ids.device)
+    gids.scatter_(0, sidx, ids_s.to(torch.int32))
+    gmass = torch.zeros((length, moving.shape[1]), dtype=moving.dtype, device=moving.device)
+    gmass.index_add_(0, sidx, moving[rows_s])
+    return _bucket_tail(gids, gmass, k, n_local, n_pad, ccap, ccarry)
+
+
+def _bucket_tail(gids, gmass, k: int, n_local: int, n_pad: int, ccap: int, ccarry: int):
+    dev = gids.device
+    bounds = torch.arange(k + 1, dtype=gids.dtype, device=dev) * n_local
+    starts = torch.searchsorted(gids, bounds)
+    counts = starts[1:] - starts[:-1]  # unique ids per owner
+    # send buffers by gather: slot (k, j) <- sorted position starts[k] + j
+    j_ix = torch.arange(ccap, device=dev)[None, :].expand(k, ccap)
+    valid = j_ix < counts.clamp(max=ccap)[:, None]
+    g_idx = torch.where(valid, starts[:k, None] + j_ix, 0).reshape(-1)
+    valid = valid.reshape(-1)
+    k_of = torch.arange(k, device=dev)[:, None].expand(k, ccap).reshape(-1)
+    send_ids = torch.where(valid, gids[g_idx] - k_of * n_local, n_local).to(torch.int32)
+    send_mass = gmass[g_idx] * valid[:, None].to(gmass.dtype)
+    # overflow -> compact carry, also by gather
+    oc = (counts - ccap).clamp(min=0)
+    base = torch.cat([torch.zeros(1, dtype=oc.dtype, device=dev), torch.cumsum(oc, 0)])
+    pend = base[k]
+    ci = torch.arange(ccarry, device=dev)
+    own = (torch.searchsorted(base, ci, right=True) - 1).clamp(0, k - 1)
+    ok = ci < pend
+    c_idx = torch.where(ok, starts[own] + ccap + (ci - base[own]), 0)
+    carry_ids = torch.where(ok, gids[c_idx], n_pad).to(torch.int32)
+    carry_mass = gmass[c_idx] * ok[:, None].to(gmass.dtype)
+    return send_ids, send_mass, carry_ids, carry_mass, pend
+
+
+class ShardedWlEngine(ShardedEngine):
+    """Row-sharded engine whose push loop runs compact-frontier rounds with
+    a bucketed all-to-all, in both modes (reverse applies the receiver's
+    1/d_out as the dense engine does). The window and its slides come from
+    the parent (``init_state``, ``device_graph``); the snapshot, the push
+    and the forward slide are here."""
+
+    def __init__(
+        self,
+        mesh: RowMesh,
+        n: int,
+        s_total: int,
+        ecap: int,
+        bcap: int,
+        cfg: PprConfig,
+        mode: int = FORWARD,
+        dtype: torch.dtype = torch.float32,
+        ccap: int | None = None,
+        fring: int | None = None,
+        e_top: int | None = None,
+        n_tiers: int = 4,
+        proportional: bool = False,
+        bf16d: bool = False,
+        device: torch.device | str | None = None,
+    ):
+        """``ccap`` caps every tier's all-to-all quota (None: the quotas
+        alone); ``fring`` the fresh ring (default 2 * bcap); ``e_top`` the
+        ladder's top (default min(65,536, ecap)). ``bf16d``: dense-round
+        deliveries and the all-to-all's mass travel in bf16 (f32 sums);
+        residual removal, thresholds and the carry stay exact."""
+        if proportional:
+            raise NotImplementedError(
+                f"ShardedWlEngine(proportional=True): the memory-proportional loop is {NOT_PORTED}")
+        super().__init__(mesh, n, s_total, ecap, bcap, cfg, mode=mode, dtype=dtype,
+                         exchange="dense_rs", ccap=2048 if ccap is None else ccap, device=device)
+        if 2 * self.n_pad >= 2**31:
+            raise ValueError(f"n_pad {self.n_pad}: delivery keys need 2 * n_pad < 2**31")
+        self.bf16d = bool(bf16d)
+        self.fring = max(bcap, fring if fring is not None else 2 * bcap)
+        self.e_top = e_top if e_top is not None else min(65_536, ecap)
+        self.tiers = make_wl_tiers(self.n_local, ecap, self.fring, self.e_top,
+                                   w_top=max(self.e_top // 2, 512), n_tiers=n_tiers)
+        # per-tier all-to-all quotas: the deduped emission of tier i fits
+        # under balanced ownership; an explicit ccap caps them (K = 1 has no
+        # wire, so there it sizes nothing)
+        quotas = []
+        for (_, e_i, g_i) in self.tiers:
+            q = max(1024, -(-(e_i + g_i) // self.n_rows))
+            if ccap is not None:
+                q = min(q, ccap)
+            quotas.append(min(q, self.n_local))
+        self.ccaps = tuple(quotas)
+        # candidates are unique local rows: n_local + 1 bounds every list
+        self.wcarry = self.n_local + 1
+        _, e_top_, g_top_ = self.tiers[-1]
+        self.heavy_ew = STATS_GUARD * (e_top_ + g_top_)
+
+    # ------------------------------------------------------------------
+    # the snapshot and its delivery views
+    # ------------------------------------------------------------------
+    def _delivery_view(self, dst, gat, live, need_pos: bool = True):
+        """One edge set in delivery order, local destinations first (by
+        dst), then remote ones (by dst), dead last. Returns (gat_s, pos,
+        loff, roff): the sorted gather rows (dead: the zero row n_local), the
+        slot -> position map (or None), per-row ranges of the local segment
+        over this shard's rows, and of the remote one over the global rows
+        (empty for local rows; None at K = 1, where there is none)."""
+        n_local, n_pad, base = self.n_local, self.n_pad, self.row0
+        is_loc = (dst >= base) & (dst < base + n_local)
+        key = torch.where(live, torch.where(is_loc, dst - base, dst + n_pad), 2 * n_pad)
+        key_s, order = torch.sort(key, stable=True)
+        gat_s = torch.where(live, gat, n_local)[order].to(torch.int32)
+        pos = _inverse_perm(order) if need_pos else None
+        bounds = torch.arange(n_local + 1, dtype=key_s.dtype, device=key_s.device)
+        loff = torch.searchsorted(key_s, bounds, out_int32=True)
+        roff = None
+        if self.n_rows > 1:
+            bounds = n_pad + torch.arange(n_pad + 1, dtype=key_s.dtype, device=key_s.device)
+            roff = torch.searchsorted(key_s, bounds, out_int32=True)
+        return gat_s, pos, loff, roff
+
+    def rebuild(self, egl, eog, eva) -> dict:
+        """Re-sort this shard's window slots into a fresh snapshot and an
+        empty fresh ring (the driver calls it before the ring would overflow
+        or a fresh edge could expire)."""
+        n_local, n_pad, dev = self.n_local, self.n_pad, egl.device
+        live = eva > 0
+        _, order = torch.sort(torch.where(live, egl, n_local), stable=True)
+        counts = torch.zeros(n_local, dtype=torch.int32, device=dev).index_add_(0, egl, eva)
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        dst = torch.where(live, eog, n_pad)
+        d_gat, d_pos, d_loff, d_roff = self._delivery_view(dst, egl, live)
+        ring = self.fring + 1  # + the trash slot padding writes land in
+        return {
+            "soff": torch.cat([zero, torch.cumsum(counts, 0, dtype=torch.int32)]),
+            "snbr": dst[order],
+            "srl": counts,
+            "spos": _inverse_perm(order),
+            "d_gat": d_gat, "d_pos": d_pos, "d_loff": d_loff, "d_roff": d_roff,
+            "fd_gat": torch.full((ring,), n_local, dtype=torch.int32, device=dev),
+            "fd_loff": torch.zeros(n_local + 1, dtype=torch.int32, device=dev),
+            "fd_roff": None if d_roff is None else torch.zeros_like(d_roff),
+            "fr_gat": torch.full((ring,), n_local, dtype=torch.int32, device=dev),
+            "fr_sca": torch.full((ring,), n_pad, dtype=torch.int32, device=dev),
+            "f_off": torch.zeros(n_local + 1, dtype=torch.int32, device=dev),
+            "f_nbr": torch.full((ring,), n_pad, dtype=torch.int32, device=dev),
+            "f_len": torch.zeros(n_local, dtype=torch.int32, device=dev),
+            "fcnt": 0,
+        }
+
+    def device_graph_wl(self, src, dst):
+        """``device_graph`` plus the snapshot: (deg, egl, eog, eva, counts,
+        snap)."""
+        deg, egl, eog, eva, counts = self.device_graph(src, dst)
+        return deg, egl, eog, eva, counts, self.rebuild(egl, eog, eva)
+
+    def _mutate(self, snap: dict, clear_slots, gat, sca, val, cnt: int) -> None:
+        """Kill the expiring edges in the snapshot (both views; their slots
+        are snapshot-era, which the driver's rebuild rule keeps true),
+        append the fresh batch to the ring (a valid prefix of ``cnt``
+        edges; padding lands in the trash slot) and re-sort the fresh
+        mini-CSR and its delivery view. In place."""
+        n_local, n_pad, fring = self.n_local, self.n_pad, self.fring
+        fcnt = snap["fcnt"]
+        if fcnt + cnt > fring:
+            raise ValueError(f"fresh ring overflow: fcnt {fcnt} + {cnt} > fring {fring}")
+        snap["snbr"][snap["spos"][clear_slots]] = n_pad
+        # the delivery view: point the gather at the zero row (ranges stay)
+        snap["d_gat"][snap["d_pos"][clear_slots]] = n_local
+        iota = torch.arange(gat.shape[0], device=gat.device)
+        on = val > 0
+        pos = torch.where(on, fcnt + iota, fring)
+        fr_gat, fr_sca = snap["fr_gat"], snap["fr_sca"]
+        fr_gat[pos] = torch.where(on, gat, n_local)
+        fr_gat[fring] = n_local
+        fr_sca[pos] = torch.where(on, sca, n_pad)
+        fr_sca[fring] = n_pad
+        snap["f_len"].index_add_(0, gat.clamp(0, n_local - 1), val)
+        _, order = torch.sort(fr_gat, stable=True)
+        zero = torch.zeros(1, dtype=torch.int32, device=gat.device)
+        fd_gat, _, fd_loff, fd_roff = self._delivery_view(fr_sca, fr_gat, fr_sca < n_pad,
+                                                          need_pos=False)
+        snap.update(f_nbr=fr_sca[order],
+                    f_off=torch.cat([zero, torch.cumsum(snap["f_len"], 0, dtype=torch.int32)]),
+                    fd_gat=fd_gat, fd_loff=fd_loff, fd_roff=fd_roff, fcnt=fcnt + cnt)
+
+    # ------------------------------------------------------------------
+    # the push loop (block-local)
+    # ------------------------------------------------------------------
+    def _moving(self, mass, dang, inv_deg):
+        alpha = self.cfg.alpha
+        if self.mode == FORWARD:
+            return (1.0 - alpha) * mass * inv_deg
+        return torch.where(dang, (1.0 - alpha) / alpha * mass, (1.0 - alpha) * mass)
+
+    def _compact_round(self, i: int, p, r, deg, snap, cand, carry, pend: int):
+        """One push round at tier ``i`` over the candidate rows, in place in
+        ``p`` and ``r``. Returns (cand2, carry, stats) with stats the
+        round's [cn2, fed2, fre2, ok2, pend2, na, ew]."""
+        w_i, e_i, g_i = self.tiers[i]
+        n_local, n_pad, k = self.n_local, self.n_pad, self.n_rows
+        alpha, dtype, s = self.cfg.alpha, p.dtype, p.shape[1]
+        srl, f_len = snap["srl"], snap["f_len"]
+        candw = cand[:w_i]
+        live = candw < n_local
+        cc = candw.clamp(0, n_local - 1)
+        r_c = torch.where(live[:, None], r[cc], 0.0)
+        deg_c = deg[cc]
+        act = self._active(r_c, deg_c) & live[:, None]
+        mass = torch.where(act, r_c, 0.0)
+        dang_c = (deg_c == 0)[:, None]
+        # candidate rows are unique (ascending): plain adds, no collisions
+        p.index_add_(0, cc, torch.where(dang_c, mass, alpha * mass))
+        r.index_add_(0, cc, -mass)
+        moving = self._moving(mass, dang_c, (1.0 / deg_c.clamp(min=1).to(dtype))[:, None])
+        anyact = act.any(dim=1)
+        n_act = act.sum(dim=1)
+        na = n_act.sum()
+        ew = (n_act * (srl[cc] + f_len[cc])).sum()
+        # snapshot + fresh expansion (targets are global ids)
+        t1, pos1, val1 = rld_expand(snap["soff"][cc], torch.where(anyact, srl[cc], 0), e_i)
+        g1 = torch.where(val1, snap["snbr"][pos1.clamp(0, self.slot_stride - 1)], n_pad)
+        t2, pos2, val2 = rld_expand(snap["f_off"][cc], torch.where(anyact, f_len[cc], 0), g_i)
+        g2 = torch.where(val2, snap["f_nbr"][pos2.clamp(0, self.fring)], n_pad)
+        ids = torch.cat([g1, g2])  # [L], invalid = n_pad
+        inv_deg = None if self.mode == FORWARD else 1.0 / deg.clamp(min=1).to(dtype)
+        wcarry = self.wcarry
+        if k == 1:
+            # no wire: one stable sort dedups the emission, which runs
+            # straight into r; its ascending unique ids are the next list
+            # (n_pad == n_local, so the id pad is the candidate pad)
+            keys_s = sorted_deliver_(r, ids, moving, torch.cat([t1, t2]), row_scale=inv_deg)
+            return self._next_candidates(keys_s, snap, carry, pend, na, ew)
+        length = ids.shape[0]
+        ccap = self.ccaps[i]
+        if length >= SORT_BUCKET_MIN:
+            send_ids, send_mass, cids, cmass, pend2 = sorted_bucket_rows(
+                ids, torch.cat([t1, t2]), moving, k, n_local, n_pad, ccap, min(length, n_pad))
+            carry.index_add_(0, cids.clamp(0, n_pad - 1),
+                             cmass * (cids < n_pad).to(dtype)[:, None])
+            pend = pend + pend2
+        else:
+            vals = torch.cat([moving[t1] * (g1 < n_pad).to(dtype)[:, None],
+                              moving[t2] * (g2 < n_pad).to(dtype)[:, None]])
+            lane = torch.arange(length, device=ids.device)
+            ids64 = ids.long()
+            # winner-dedup over global ids: the last lane wins, as the
+            # reference's sequential scatter does on the CPU
+            scratch = torch.zeros(n_pad + 1, dtype=torch.int64, device=ids.device)
+            scratch.scatter_reduce_(0, ids64, lane, reduce="amax")
+            win = (scratch[ids64] == lane) & (ids < n_pad)
+            ucnt = win.sum()
+            cpos = compact(win, length, 0)
+            inr = lane < ucnt
+            uids = torch.where(inr, ids64[cpos], n_pad)
+            cidx = torch.zeros(n_pad + 1, dtype=torch.int64, device=ids.device)
+            cidx[uids] = lane
+            cbuf = torch.zeros((length, s), dtype=dtype, device=ids.device)
+            cbuf.index_add_(0, cidx[ids64], vals)
+            owner = torch.where(inr, uids // n_local, k)
+            rank = torch.zeros_like(owner)
+            for kk in range(k):
+                mk = owner == kk
+                rank = torch.where(mk, torch.cumsum(mk, 0) - 1, rank)
+            sendable = (owner < k) & (rank < ccap)
+            flat = torch.where(sendable, owner * ccap + rank, k * ccap)
+            send_ids = torch.full((k * ccap + 1,), n_local, dtype=torch.int32, device=ids.device)
+            send_ids[flat] = torch.where(sendable, uids - owner * n_local, n_local).to(torch.int32)
+            send_ids = send_ids[: k * ccap]
+            send_mass = torch.zeros((k * ccap + 1, s), dtype=dtype, device=ids.device)
+            send_mass[flat] = cbuf * sendable.to(dtype)[:, None]
+            send_mass = send_mass[: k * ccap]
+            # leftovers wait in the carry (flushed by dense rounds)
+            left = (owner < k) & (rank >= ccap)
+            carry.index_add_(0, uids.clamp(0, n_pad - 1), cbuf * left.to(dtype)[:, None])
+            pend = pend + left.sum()
+        # THE exchange: one all-to-all of (local id, mass) buckets
+        if self.bf16d:
+            send_mass = send_mass.to(torch.bfloat16)
+        group = self.mesh.row_group
+        recv_ids = all_to_all_rows(send_ids.reshape(k, ccap), group).reshape(-1)
+        recv_mass = all_to_all_rows(send_mass.reshape(k, ccap, s), group).reshape(-1, s)
+        # received blocks are sorted per sender only: one sort makes the
+        # delivery sorted and gives the next list, ascending
+        rid_s, order_r = torch.sort(recv_ids, stable=True)
+        rm_s = recv_mass[order_r].to(dtype) * (rid_s < n_local).to(dtype)[:, None]
+        rcs = rid_s.clamp(0, n_local - 1)
+        r.index_add_(0, rcs, rm_s if inv_deg is None else rm_s * inv_deg[rcs, None])
+        return self._next_candidates(rid_s, snap, carry, pend, na, ew)
+
+    def _next_candidates(self, keys_s, snap, carry, pend, na, ew):
+        """The next list from ascending delivered ids (padding >= n_local):
+        the first lane of each run of a live id, and its counts."""
+        n_local, wcarry = self.n_local, self.wcarry
+        win = torch.ones_like(keys_s, dtype=torch.bool)
+        win[1:] = keys_s[1:] != keys_s[:-1]
+        win &= keys_s < n_local
+        cn2 = win.sum()
+        m = min(keys_s.shape[0], wcarry)
+        cpos = compact(win, m, 0)
+        cand2 = torch.full((wcarry,), n_local, dtype=torch.int32, device=keys_s.device)
+        cand2[:m] = torch.where(torch.arange(m, device=keys_s.device) < cn2, keys_s[cpos],
+                                n_local)
+        kc = keys_s.clamp(0, n_local - 1)
+        fed2 = torch.where(win, snap["srl"][kc], 0).sum()
+        fre2 = torch.where(win, snap["f_len"][kc], 0).sum()
+        return cand2, carry, [cn2, fed2, fre2, cn2 <= wcarry, pend, na, ew]
+
+    def _dense_round(self, p, r, deg, snap, carry):
+        """One round over every active pair, delivered local-first through
+        the segment sum (window view, then fresh view); at K > 1 the remote
+        segments and the carry go into ``acc`` and one reduce-scatter. Then
+        the rescan, unless the row group's heaviest frontier is above the
+        stats-skip threshold (read back first: a skipped rescan is not
+        run). Returns (p, r, cand2, carry, stats)."""
+        alpha, dtype, s = self.cfg.alpha, p.dtype, p.shape[1]
+        n_local, mesh = self.n_local, self.mesh
+        act = self._active(r, deg)
+        mass = torch.where(act, r, 0.0)
+        dang = (deg == 0)[:, None]
+        inv_deg = 1.0 / deg.clamp(min=1).to(dtype)
+        p = p + torch.where(dang, mass, alpha * mass)
+        r = r - mass
+        moving = self._moving(mass, dang, inv_deg[:, None])
+        moving_ext = torch.cat([moving, torch.zeros((1, s), dtype=dtype, device=p.device)])
+        if self.bf16d:
+            moving_ext = moving_ext.to(torch.bfloat16)
+        scale = None if self.mode == FORWARD else inv_deg
+        for view in ("d", "fd"):
+            segsum_gather_add_(r, moving_ext, snap[f"{view}_gat"], snap[f"{view}_loff"],
+                               row_scale=scale)
+        if self.n_rows > 1:
+            # the carry outbox joins the remote mass; the owners apply
+            # 1/d_out after the reduce-scatter in reverse mode
+            for view in ("d", "fd"):
+                segsum_gather_add_(carry, moving_ext, snap[f"{view}_gat"], snap[f"{view}_roff"])
+            delta = reduce_scatter_rows(carry, mesh.row_group)
+            r = r + (delta if scale is None else delta * inv_deg[:, None])
+            carry.zero_()
+        srl, f_len = snap["srl"], snap["f_len"]
+        n_act = act.sum(dim=1)
+        edges = srl + f_len
+        heavy_in = [torch.where(n_act > 0, edges, 0).sum(), n_act.sum(), (n_act * edges).sum()]
+        got = gather_stats(heavy_in, mesh.row_group, self.device)
+        na, ew = (int(v) for v in got[mesh.row if mesh.row_group is not None else 0, 1:])
+        if int(got[:, 0].max()) > self.heavy_ew:
+            # the successor is another dense round: no rescan
+            return p, r, None, carry, [_BIG, _BIG, _BIG, 0, 0, na, ew]
+        any2 = self._active(r, deg).any(dim=1)
+        cand2 = compact(any2, self.wcarry, n_local)
+        stats = [any2.sum(), torch.where(any2, srl, 0).sum(), torch.where(any2, f_len, 0).sum(),
+                 1, 0, na, ew]
+        return p, r, cand2, carry, stats
+
+    def _wl_loop(self, p, r, deg, snap, cand0, ok0: int):
+        """Push to convergence: (p, r, rounds, pushes, edge_pushes,
+        wl_rounds), the counts summed over the world and ``wl_rounds`` this
+        row group's. ``cand0`` [wcarry]: unique ascending local rows,
+        padded with n_local, covering every active row when ``ok0`` (else
+        the first round is a dense rescan). Compact rounds update ``p`` and
+        ``r`` in place: callers keep only what is returned."""
+        n_local, mesh = self.n_local, self.mesh
+        w_t, e_t, g_t = self.tiers[-1]
+        live0 = cand0 < n_local
+        c0 = cand0.clamp(0, n_local - 1)
+        counts0 = [live0.sum(), torch.where(live0, snap["srl"][c0], 0).sum(),
+                   torch.where(live0, snap["f_len"][c0], 0).sum(), int(ok0), 0, 0, 0]
+        got = self._world(counts0)
+        carry = None
+        if self.n_rows > 1:  # at K = 1 the carry is never fed
+            carry = torch.zeros((self.n_pad, p.shape[1]), dtype=p.dtype, device=p.device)
+        rows = list(mesh.row_ranks)
+        cand = cand0
+        rounds = wl = pushes = epushes = 0
+        work = 1  # the first round always runs
+        while work > 0 and rounds < self.cfg.max_rounds:
+            # the uniform decision: this row group's maxima (min of ok)
+            grp = got[rows]
+            cn, fed, fre, pend_g = (int(grp[:, c].max()) for c in (0, 1, 2, 4))
+            use_wl = (int(grp[:, 3].min()) > 0 and cn <= w_t and fed <= e_t and fre <= g_t
+                      and pend_g == 0)
+            if use_wl:
+                tier = sum(not (cn <= w_i and fed <= e_i and fre <= g_i)
+                           for (w_i, e_i, g_i) in self.tiers[:-1])
+                cand, carry, stats = self._compact_round(
+                    tier, p, r, deg, snap, cand, carry, int(got[mesh.rank, 4]))
+                wl += 1
+            else:
+                p, r, cand, carry, stats = self._dense_round(p, r, deg, snap, carry)
+            got = self._world(stats)
+            total = got.sum(axis=0)
+            work = int(total[5]) + int((got[:, 4] > 0).sum())
+            rounds += 1
+            pushes += int(total[5])
+            epushes += int(total[6])
+        return p, r, rounds, pushes, epushes, wl
+
+    # ------------------------------------------------------------------
+    def push_wl(self, p, r, deg, snap, cand0=None, ok0: int = 0):
+        """Push to convergence with the compact-frontier loop. With no
+        ``cand0`` the first round is a dense rescan (exact)."""
+        if cand0 is None:
+            cand0 = torch.full((self.wcarry,), self.n_local, dtype=torch.int32,
+                               device=self.device)
+            ok0 = 0
+        return self._wl_loop(p, r, deg, snap, cand0, ok0)
+
+    def slide_wl(self, p, r, deg, egl, eog, eva, snap, pack, ring, counts):
+        """One forward window slide on the compact-frontier loop. ``pack``
+        is this shard's fresh edges on the device (``ins_u`` local, then
+        ``ins_w`` global, ``bcap`` each, a valid prefix), ``counts`` the
+        host's (fresh, expiring) counts for this shard. The expiring edges
+        and the slot schedule come from ``ring``, the corrections' touched
+        rows seed the candidate list. Returns (p, r, rounds, pushes,
+        edge_pushes, wl_rounds, deg2, egl, eog, eva, snap, ring), the
+        buffers, the snapshot and the ring updated in place."""
+        if self.mode != FORWARD:
+            raise NotImplementedError(f"ShardedWlEngine.slide_wl in reverse mode: {NOT_PORTED}")
+        cnt_w, cnt_c = (int(c) for c in counts)
+        b, ecap, n_local, n_pad = self.bcap, self.ecap, self.n_local, self.n_pad
+        alpha, dev = self.cfg.alpha, pack.device
+        ins_u, ins_w = pack[:b], pack[b:2 * b]
+        iota = torch.arange(b, device=dev)
+        ins_v = (iota < cnt_w).to(torch.int32)
+        rcap = ecap + 1  # FIFO ring modulus (live slots <= ecap)
+        hd, tl, ft = ring["hd"], ring["tl"], ring["ftop"]
+        oring, fstack = ring["oring"], ring["fstack"]
+        # expiring slots: this shard's cnt_c oldest ring entries
+        clear_slots = torch.where(iota < cnt_c, oring[(hd + iota) % rcap], ecap)
+        # push the freed slots (index ecap is the stack's dump), then pop
+        # the fresh batch's top first (entry i <-> ins_* i)
+        fstack[torch.where(iota < cnt_c, ft + iota, ecap)] = clear_slots
+        ft += cnt_c
+        write_slots = torch.where(iota < cnt_w, fstack[(ft - 1 - iota).clamp(0, ecap)], ecap)
+        ft -= cnt_w
+        # the claimed slots join the ring's tail (index rcap is its dump)
+        oring[torch.where(iota < cnt_w, (tl + iota) % rcap, rcap)] = write_slots
+        ring = {"oring": oring, "fstack": fstack, "hd": (hd + cnt_c) % rcap,
+                "tl": (tl + cnt_w) % rcap, "ftop": ft}
+        del_u, del_w, del_v = egl[clear_slots], eog[clear_slots], eva[clear_slots]
+        mark = torch.zeros(n_local + 1, dtype=torch.bool, device=dev)
+        mark[torch.where(del_v > 0, del_u, n_local)] = True
+        mark[torch.where(ins_v > 0, ins_u, n_local)] = True
+        if self.n_rows == 1:
+            # no wire: the correction pairs run straight into r
+            p, r, ids, vals, deg2 = forward_corrections_pairs(
+                p, r, deg, del_u, del_w, del_v, ins_u, ins_w, ins_v, alpha, n_pad)
+            valid = ids < n_pad
+            r.index_add_(0, ids.clamp(0, n_local - 1), vals * valid.to(p.dtype)[:, None])
+            mark[torch.where(valid, ids, n_local)] = True
+        else:
+            p, r, acc, deg2 = forward_corrections(
+                p, r, deg, del_u, del_w, del_v, ins_u, ins_w, ins_v, alpha, n_pad)
+            delta = reduce_scatter_rows(acc, self.mesh.row_group)
+            r = r + delta
+            mark[:n_local] |= (delta != 0).any(dim=1)
+        cand0 = compact(mark[:n_local], self.wcarry, n_local)
+        write_window_(egl, eog, eva, clear_slots, write_slots, ins_u, ins_w, ins_v)
+        self._mutate(snap, clear_slots, ins_u, ins_w, ins_v, cnt_w)
+        p, r, rounds, pushes, epushes, wl = self._wl_loop(p, r, deg2, snap, cand0, 1)
+        return p, r, rounds, pushes, epushes, wl, deg2, egl, eog, eva, snap, ring
+
+    def make_ring(self, oring, hd, tl, fstack, ftop) -> dict:
+        """This shard's slot ring from the host's ``[K, ...]`` arrays: oring
+        [K, ecap+2] (slot ids, oldest first from hd; dump at ecap+1), hd, tl,
+        ftop [K], fstack [K, ecap+1] (free slots, LIFO; dump at ecap)."""
+        row = self.mesh.row
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a[row], np.int32)).to(self.device)
+
+        return {"oring": put(oring), "fstack": put(fstack), "hd": int(hd[row]),
+                "tl": int(tl[row]), "ftop": int(ftop[row])}
+
+    def cand0_rows(self, rows_per_shard: np.ndarray) -> torch.Tensor:
+        """This shard's row of the host's per-shard local candidate lists
+        (``[K, wcarry]``, each unique ascending, padded with n_local: the
+        compact rounds' sorted-candidate contract)."""
+        return torch.from_numpy(np.ascontiguousarray(
+            rows_per_shard[self.mesh.row], np.int32)).to(self.device)

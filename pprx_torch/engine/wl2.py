@@ -280,6 +280,22 @@ def _frontier_stats(state: PprState, kg: KillGraph, cfg: PprConfig, emit_w: int)
     return cand2, cn2, fed2, fre2
 
 
+def sorted_deliver_(
+    rin: torch.Tensor, keys: torch.Tensor, table: torch.Tensor,
+    rows: torch.Tensor | None = None, row_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``rin[keys[j]] += table[rows[j]]`` (``table[j]`` without ``rows``)
+    for every lane whose key lies in ``[0, R)``, R = ``rin``'s rows, in
+    place: one stable sort of the keys, then the segment sum's gather
+    entry over the sorted lanes (no ``[L, S]`` array of sorted rows is
+    built), each row's sum times ``row_scale[row]`` where one is given.
+    Lanes keyed R or above are dropped. Returns the sorted keys."""
+    keys_s, order = torch.sort(keys, stable=True)
+    gat = order if rows is None else rows[order]
+    segsum_gather_add_(rin, table, gat, row_offsets(keys_s, rin.shape[0]), row_scale=row_scale)
+    return keys_s
+
+
 def _compact_round(
     state: PprState,
     kg: KillGraph,
@@ -346,10 +362,9 @@ def _compact_round(
     keys = torch.cat([cand, tgt_d])
     vals = torch.cat([-mass, c1, c2])
     if keys.shape[0] >= SORT_DELIVER_MIN:
-        keys_s, order = torch.sort(keys, stable=True)
         # in place into state.r (nothing reads the pre-round r after this),
         # rows [0, n) only: masked lanes and padding all key the phantom row
-        segsum_gather_add_(state.r[:n], vals, order, row_offsets(keys_s, n))
+        sorted_deliver_(state.r[:n], keys, vals)
         r2 = state.r
     else:
         r2 = state.r.index_add_(0, keys, vals)

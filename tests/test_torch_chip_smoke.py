@@ -119,3 +119,46 @@ def test_cli_phase_on_the_cpu(tmp_path, monkeypatch):
     res["cli_static"]["launches_by_entry"]["segsum_add"] = 1
     with pytest.raises(AssertionError, match="cli_static runs plain torch ops"):
         chip_smoke.check_cli_launches(res)
+
+
+def test_sharded_phase_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 14 as the card runs it, on the CPU at a small size: config 5
+    (f32 and bf16) within its contract with the sharded top-k equal to the
+    single-device head, the sharding tax, the dense sharded engine, the
+    collective wrappers through a gloo group of one, and the CLI; no run
+    launches a kernel here, which the launch check refuses."""
+    import functools
+
+    import pprx_torch.bench.run as trun
+
+    dev = torch.device("cpu")
+    # a window whose bound eps * W (6e-3) is above bf16's rounding of the
+    # moved mass (about 1e-3 here; the headline's bound is 2.0)
+    shape = dict(n=2000, w=6000, b=300, s=8)
+    runs = {tag: chip_smoke.config5_check(dev, bf16d=tag == "bf16", n_check=4, k=10, **shape)
+            for tag in ("f32", "bf16")}
+    for tag, res in runs.items():
+        assert (res["mesh"], res["engine"], res["steps"]) == ("1x1", "wl", 5)
+        assert res["contract"]["mass_bound"] == (1e-4 if tag == "bf16" else 1e-3)
+        assert res["contract"]["l1_max"] <= res["contract"]["l1_bound"] == 1e-6 * 6000
+        assert res["topk"]["k"] == 10 and res["wl_rounds_per_slide"] > 0
+    # the bf16 run is held to its twin on the CPU: here the same run twice
+    assert runs["bf16"]["contract"]["mass_off_ref"] == 0.0
+    assert runs["bf16"]["contract"]["mass_err_max_ref"] > 1e-6
+    with pytest.raises(AssertionError, match="config5_f32 never launched"):
+        chip_smoke.check_launched({"config5_f32": runs["f32"]["launches_by_entry"]})
+    tax = chip_smoke.sharding_tax(dev, runs["f32"]["updates_per_sec"], **shape)
+    assert tax["tax"] > 0 and tax["rebuild_every"] == 2
+    dense = chip_smoke.sharded_dense_check(dev)
+    assert dense["kernel_launches"] == 0
+    assert all(dense[f"{m}_slide{b}_err"] <= dense[f"{m}_slide{b}_bound"]
+               for m in ("forward", "reverse") for b in (100, 1))
+    coll = chip_smoke.collectives_check(dev, str(tmp_path))
+    assert coll.pop("backend") == "gloo" and all(coll.values())
+    graph = str(tmp_path / "g.npz")
+    save_packed(graph, *synthetic_powerlaw_stream(2000, 6000 + 6 * 300, seed=7))
+    monkeypatch.setitem(trun.CONFIGS, 5, functools.partial(trun.config5_sharded, **shape))
+    cli = chip_smoke.sharded_cli(dev, str(tmp_path), graph, 6000, 300, 8)
+    assert set(cli) == set(chip_smoke.SHARDED_CLI_PATHS)
+    assert cli["cli_bench_config5"]["window"] == 6000
+    assert not any(any(r["launches_by_entry"].values()) for r in cli.values())

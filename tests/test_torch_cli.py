@@ -99,6 +99,31 @@ def test_stream_with_checkpoint(graph_npz, tmp_path, capsys, engine):
     assert records(logs[1], "seed")[0]["rounds"] == records(logs[0], "seed")[0]["rounds"]
 
 
+@pytest.mark.parametrize("engine,mode", [("sharded-wl", "fwd"), ("sharded", "fwd"),
+                                         ("sharded", "rev")])
+def test_sharded_stream_at_mesh_1x1(graph_npz, tmp_path, capsys, engine, mode):
+    """``stream --engine sharded-wl|sharded --mesh 1,1`` through both CLIs in
+    f64: per slide the same rounds, pushes and edge pushes, the same summary
+    keys plus ``device``, one chip."""
+    outs, logs = [], []
+    for tag, main, dev in (("jax", jcli.main, []), ("torch", tcli.main, CPU)):
+        log = str(tmp_path / f"{tag}.jsonl")
+        outs.append(run_cli(capsys, main, [
+            "stream", graph_npz, "--window", "300", "--slide", "30", "--steps", "5",
+            "--engine", engine, "--mesh", "1,1", "--mode", mode, "--queries", "0,3,7",
+            "--log", log, "--f64", *dev]))
+        logs.append(log)
+    ref, out = outs
+    assert set(out) == set(ref) | {"device"}
+    assert out["steps"] == 5 and out["n_chips"] == ref["n_chips"] == 1
+    assert (out["rounds"], out["wl_rounds"]) == (ref["rounds"], ref["wl_rounds"])
+    keys = ("step", "rounds", "pushes", "edge_pushes")
+    want, got = ([tuple(r[k] for k in keys) for r in records(p, "slide")] for p in logs)
+    assert got == want and len(got) == 5
+    seeds = [records(p, "seed")[0] for p in logs]
+    assert (seeds[1]["rounds"], seeds[1]["pushes"]) == (seeds[0]["rounds"], seeds[0]["pushes"])
+
+
 def test_retrieve(graph_npz, capsys):
     ref, out = both(capsys, ["retrieve", graph_npz, "--queries", "random", "--batch", "16",
                              "--k", "10", "--f64"])
@@ -226,13 +251,16 @@ def test_bench_without_config_runs_the_headline(monkeypatch, capsys):
     (["stream", "G", "--window", "300", "--slide", "30", "--engine", "hybrid"],
      "superseded by the fast engine, not ported"),
     (["stream", "G", "--window", "300", "--slide", "30", "--engine", "sharded", "--mesh", "4,2"],
-     r"--engine sharded: not ported \(ROADMAP item 14\)"),
-    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "sharded-wl"],
-     r"--engine sharded-wl: not ported \(ROADMAP item 14\)"),
+     r"--engine sharded: mesh 4x2 needs 8 processes, the world has 1"),
+    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "sharded-wl", "--mode",
+      "rev"], r"--engine sharded-wl --mode rev: .*not ported \(ROADMAP item 14, PR 7\)"),
     (["stream", "G", "--window", "300", "--slide", "30", "--engine", "sharded-wlp",
       "--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "0",
-      "--ecap", "100"], r"--engine sharded-wlp: not ported \(ROADMAP item 14\)"),
-    (["bench", "--config", "5"], r"bench --config 5: .*not ported \(ROADMAP item 14\)"),
+      "--ecap", "100"], r"--engine sharded-wlp: not ported \(ROADMAP item 14, PR 7\)"),
+    # config 5's stream cannot checkpoint yet
+    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "sharded-wl", "--mesh",
+      "1,1", "--checkpoint", "ck.npz", *CPU],
+     r"sharded checkpoints are not ported \(ROADMAP item 14, PR 7\)"),
     (["static", "G", "--queries", "0,50", *CPU], r"vertex id 50 is outside \[0, n\) for n = 50"),
     (["static", "G", "--queries", "-1", *CPU], r"vertex id -1 is outside \[0, n\)"),
     (["stream", "G", "--window", "300", "--slide", "30", "--queries", "3,60", *CPU],
@@ -270,11 +298,11 @@ def test_refusals_name_the_reason(graph_npz, monkeypatch, argv, reason):
 
 
 def test_sharded_checkpoint_is_refused(graph_npz, tmp_path):
-    """A checkpoint whose metadata says ``sharded`` gets the reference's
-    message, and a dense one refuses a refine."""
+    """A checkpoint whose metadata says ``sharded`` is refused, naming the
+    PR that ports sharded checkpoints, and a dense one refuses a refine."""
     ck = str(tmp_path / "sharded.npz")
     np.savez(ck, meta=np.frombuffer(json.dumps({"kind": "sharded"}).encode(), np.uint8))
-    with pytest.raises(SystemExit, match="SHARDED checkpoint"):
+    with pytest.raises(SystemExit, match=r"SHARDED checkpoint.*\(ROADMAP item 14, PR 7\)"):
         tcli.main(["retrieve", graph_npz, "--from-checkpoint", ck, *CPU])
     dense = str(tmp_path / "dense.npz")
     tcli.main(["stream", graph_npz, "--window", "300", "--slide", "30", "--steps", "1",

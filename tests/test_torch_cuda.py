@@ -559,3 +559,98 @@ def test_cli_serve_on_card_launches_the_kernel(tmp_path, capsys):
     for card, cpu in zip(ids["card"], ids["cpu"]):
         for a, b in zip(card, cpu):
             assert len(set(a) & set(b)) >= 9, (a, b)
+
+
+def _shard_views(n_rows: int, rank: int, src, dst, n, s, dev):
+    """Shard ``rank``'s snapshot of a K-row mesh, built without a process
+    group (the views are block-local: no collective runs)."""
+    from pprx_torch.dist.mesh import RowMesh
+    from pprx_torch.dist.wl import ShardedWlEngine
+
+    mesh = RowMesh(n_rows, 1, rank, None, None, tuple(range(n_rows)))
+    eng = ShardedWlEngine(mesh, n, s, ecap=src.size, bcap=64, cfg=PprConfig(), device=dev)
+    return eng, eng.device_graph_wl(src, dst)[-1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [8, 128])
+def test_sharded_views_through_the_kernel(s, dtype):
+    """Both shards of a 2-row mesh (at S=8: where the reference gates its
+    lane-padded TPU kernel off for nondeterministic reads): the local
+    segment into the shard's rows and the remote one into the global rows
+    (its ranges start past the local segment) through the kernel, against
+    the plain version, bit-identical on repeat; and the two segments of
+    both shards together deliver every live edge once."""
+    dev = _cuda()
+    src, dst, n = synthetic_powerlaw_stream(20_000, 200_000, seed=3)
+    total = direct = None
+    for rank in range(2):
+        eng, snap = _shard_views(2, rank, src, dst, n, s, dev)
+        if total is None:
+            total = torch.zeros((eng.n_pad, s), dtype=torch.float64)
+            direct = torch.zeros_like(total)
+        table = torch.rand((eng.n_local + 1, s), generator=torch.Generator().manual_seed(rank))
+        table[-1] = 0  # the zero row dead edges gather
+        table = table.to(dtype)
+        lo, hi = eng.row0, eng.row0 + eng.n_local
+        for seg, out in (("loff", total[lo:hi]), ("roff", total)):
+            off, gat = snap[f"d_{seg}"], snap["d_gat"]
+            rows = out.shape[0]
+            got = segsum_gather_add_(torch.zeros((rows, s), device=dev), table.to(dev), gat, off)
+            again = segsum_gather_add_(torch.zeros((rows, s), device=dev), table.to(dev), gat,
+                                       off)
+            want = segsum_gather_add_plain(torch.zeros((rows, s), dtype=torch.float64),
+                                           table.double(), gat.cpu(), off.cpu())
+            assert torch.equal(got, again)
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+            out += want
+        mine = (src >= lo) & (src < hi)
+        direct.index_add_(0, torch.from_numpy(dst[mine].astype(np.int64)),
+                          table.double()[torch.from_numpy((src[mine] - lo).astype(np.int64))])
+    np.testing.assert_allclose(total.numpy(), direct.numpy(), rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16d", [False, True])
+def test_sharded_stream_on_card_matches_cpu(bf16d):
+    """ShardedStreamDriver(engine='wl') at mesh 1x1 on a small config-5-like
+    stream: the card (f32, the kernel) against the CPU (plain version; f64,
+    or f32 with the same bf16 delivery): ``p + alpha r`` within 1e-5, and
+    with bf16 the mass within 1e-4 of the CPU's; the card launches the
+    gather entry."""
+    from pprx_torch.dist.mesh import make_row_mesh
+    from pprx_torch.dist.stream import ShardedStreamDriver
+    from pprx_torch.engine.state import PprState
+
+    dev = _cuda()
+    n, w, b, s = 2000, 20_000, 2000, 16
+    src, dst, n = synthetic_powerlaw_stream(n, w + 8 * b, seed=5)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
+    runs = {}
+    for tag, device, dtype in (("card", dev, torch.float32),
+                               ("cpu", "cpu", torch.float32 if bf16d else torch.float64)):
+        segsum.reset_launches()
+        drv = ShardedStreamDriver(src, dst, n, list(range(s)), cfg, StreamConfig(w, b),
+                                  make_row_mesh(1, 1), engine="wl", dtype=dtype, bf16d=bf16d,
+                                  device=device)
+        drv.seed()
+        list(drv.run(6))
+        runs[tag] = (drv, segsum.launches("segsum_gather_add"))
+    (card, launched), (cpu, _) = runs["card"], runs["cpu"]
+    assert launched > 0
+    a, c = (PprState(p=d.p[:n], r=d.r[:n]) for d in (card, cpu))
+    assert settled_distance(a, c, cfg.alpha) <= 1e-5
+    if bf16d:
+        mass = [(d.p[:n].double().sum(0) + d.r[:n].double().sum(0)).cpu() for d in (card, cpu)]
+        np.testing.assert_allclose(mass[0].numpy(), mass[1].numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_collective_wrappers_on_nccl(tmp_path):
+    """Each wrapper once through an NCCL group of one, on the card's
+    tensors, equal to its K=1 meaning (chip_smoke.py's phase 14d)."""
+    import chip_smoke
+
+    res = chip_smoke.collectives_check(_cuda(), str(tmp_path))
+    assert res.pop("backend") == "nccl" and all(res.values())

@@ -1,0 +1,342 @@
+"""The port's sharded compact-frontier engine (pprx_torch.dist.wl) and its
+forward slide through ShardedStreamDriver(engine='wl'), against the JAX
+package's ShardedWlEngine on its virtual 8-device CPU mesh of the same
+shape.
+
+The port runs in real gloo process groups, one world per mesh shape for the
+module (tests/_torch_dist_worker.py), f64 unless stated. Without overflow
+p and r are held at 1e-12 with equal rounds, counts and wl rounds; where a
+tiny quota sends mass to the carry, deliveries reorder, and the state is
+held to the accuracy bound m * eps and forward mass at 1e-9, as
+tests/test_dist_wl.py holds the reference. On the CPU the reference's
+sharded engine delivers by sorted scatters (its kernel is TPU-only there);
+the port's plain segment sum stands where its kernel runs on the card."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pprx.dist.wl as jwl
+from pprx.config import PprConfig, StreamConfig
+from pprx.dist.mesh import make_row_mesh
+from pprx.dist.stream import ShardedStreamDriver
+from pprx.engine.push import push_to_convergence
+from pprx.engine.state import FORWARD, REVERSE, init_state
+from pprx.graph.dynamic import WindowGraph
+from pprx.ref.exact import exact_ppr
+from pprx_torch.config import PprConfig as TorchConfig, StreamConfig as TorchStream
+from pprx_torch.dist import wl as twl
+from pprx_torch.dist.mesh import make_row_mesh as torch_mesh
+from pprx_torch.dist.stream import ShardedStreamDriver as TorchDriver
+from tests._torch_dist_worker import graph, stream, worlds
+
+torch.set_num_threads(1)
+
+CFG = PprConfig(alpha=0.15, eps=1e-8, max_rounds=10_000)
+MODES = [FORWARD, REVERSE]
+SHAPES = [(1, 1), (2, 1), (4, 1), (2, 2)]
+Q8 = (0, 7, 13, 25, 31, 44, 7, 2)
+# the stats-skip pin: a graph where the port's threshold 2 * (e_top + g_top)
+# and the reference's 2 * e_top classify a dense round apart
+PIN = dict(seed=0, n=200, m=2000, eps=1e-4, e_top=32, fring=32, queries=(0, 7, 13, 25))
+
+# name -> (shapes, worker case, kwargs)
+CASES = {
+    **{f"push-{mode}": (SHAPES, "wl_push", dict(mode=mode)) for mode in MODES},
+    **{f"carry-{mode}": ([(4, 1)], "wl_push", dict(mode=mode, ccap=3, seed=4, n=40, m=200,
+                                                   queries=(0, 9, 21, 33))) for mode in MODES},
+    **{f"sorted-{mode}": ([(4, 1)], "wl_push", dict(mode=mode, queries=(0, 7, 13, 25),
+                                                    sort_bucket_min=1)) for mode in MODES},
+    **{f"k1ccap-{mode}": ([(1, 1)], "wl_push", dict(mode=mode, ccap=2, kind="star",
+                                                    n=64, queries=(3, 0))) for mode in MODES},
+    "star": ([(4, 1)], "wl_push", dict(mode=FORWARD, ccap=2, kind="star", n=64, queries=(3, 0))),
+    "seeded": ([(4, 1)], "wl_push", dict(mode=FORWARD, seed=7, queries=(0, 7, 13, 25),
+                                         seeded=True)),
+    "bf16": ([(2, 1)], "wl_push", dict(mode=FORWARD, seed=2, queries=(0, 7, 13, 25),
+                                       dtype="f32", eps=1e-6, bf16d=True)),
+    "pin": ([(1, 1)], "wl_push", dict(mode=FORWARD, **PIN)),
+    "pin_ref": ([(1, 1)], "wl_push", dict(mode=FORWARD, heavy_ew=2 * PIN["e_top"], **PIN)),
+    "slide": (SHAPES, "slides", dict(engine="wl", ccap=64, fring=60)),
+    "slide_carry": ([(4, 1)], "slides", dict(engine="wl", ccap=3, fring=60, seed=3,
+                                             queries=(0, 5))),
+    "slide_s8": ([(2, 1)], "slides", dict(engine="wl", ccap=64, fring=60,
+                                          queries=(0, 5, 11, 33, 2, 17, 23, 39))),
+}
+
+
+def _shape_cases(shape):
+    return {name: (fn, kw) for name, (shapes, fn, kw) in CASES.items() if shape in shapes}
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """shape -> {case: arrays}; every shape's world starts with the module."""
+    return worlds(SHAPES, _shape_cases, tmp_path_factory, "wl")
+
+
+def _jax_push(shape, mode=FORWARD, ccap=64, kind="random", seed=0, n=50, m=300, queries=Q8,
+              dtype="f64", eps=1e-8, bf16d=False, seeded=False, sort_bucket_min=None,
+              e_top=None, fring=None, heavy_ew=None):
+    """The reference's push_wl on the same inputs (``heavy_ew`` is the
+    port's knob and has no counterpart there)."""
+    del heavy_ew
+    src, dst, n = graph(kind, seed, n, m)
+    cfg = PprConfig(alpha=0.15, eps=eps, max_rounds=10_000)
+    eng = jwl.ShardedWlEngine(make_row_mesh(*shape), n, len(queries), ecap=src.size, bcap=8,
+                              cfg=cfg, mode=mode,
+                              dtype=jnp.float64 if dtype == "f64" else jnp.float32,
+                              ccap=ccap, bf16d=bf16d, e_top=e_top, fring=fring)
+    p, r = eng.init_state(list(queries))
+    deg, egl, eog, eva, counts, snap = eng.device_graph_wl(src, dst)
+    cand0, ok0 = None, 0
+    if seeded:
+        rows = np.full((eng.n_rows, eng.wcarry), eng.n_local, np.int32)
+        for q in sorted(set(queries)):
+            k, loc = divmod(q, eng.n_local)
+            rows[k][int((rows[k] != eng.n_local).sum())] = loc
+        cand0, ok0 = eng.cand0_rows(rows), 1
+    if sort_bucket_min is not None:
+        old, jwl.SORT_BUCKET_MIN = jwl.SORT_BUCKET_MIN, sort_bucket_min
+    try:
+        out = eng.push_wl(p, r, deg, snap, cand0=cand0, ok0=ok0)
+    finally:
+        if sort_bucket_min is not None:
+            jwl.SORT_BUCKET_MIN = old
+    p, r, rounds, pushes, epushes, wl_rounds = out
+    return {"p": np.asarray(p), "r": np.asarray(r), "rounds": int(rounds),
+            "pushes": float(pushes), "epushes": float(epushes), "wl_rounds": int(wl_rounds),
+            "n": n, "src": src, "dst": dst, "queries": list(queries)}
+
+
+def _single_device(src, dst, n, queries, mode):
+    state = init_state(n, list(queries), mode=mode, dtype=jnp.float64)
+    state, _ = push_to_convergence(state, WindowGraph.from_coo(src, dst, n), CFG)
+    return np.asarray(state.p)[:n], np.asarray(state.r)[:n]
+
+
+def _held(got, want, exact: bool, m: int, eps: float = CFG.eps, forward: bool = True):
+    n = want["n"]
+    if exact:
+        assert (int(got["rounds"]), int(got["wl_rounds"]), float(got["pushes"]),
+                float(got["epushes"])) == (want["rounds"], want["wl_rounds"], want["pushes"],
+                                           want["epushes"])
+    tol = 1e-12 if exact else m * eps
+    np.testing.assert_allclose(got["p"][:n], want["p"][:n], atol=tol)
+    np.testing.assert_allclose(got["r"][:n], want["r"][:n], atol=tol)
+    assert np.abs(got["p"][n:]).max(initial=0.0) == 0.0  # padding rows stay zero
+    if forward:
+        np.testing.assert_allclose(got["p"][:n].sum(0) + got["r"][:n].sum(0), 1.0, atol=1e-9)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("mode", MODES)
+def test_push_matches_jax(world, shape, mode):
+    want = _jax_push(shape, mode)
+    got = world(shape)[f"push-{mode}"]
+    _held(got, want, exact=True, m=300, forward=mode == FORWARD)
+    assert int(got["wl_rounds"]) > 0, "worklist rounds never engaged"
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_carry_and_dense_flush(world, mode):
+    """ccap=3 at (4, 1): leftovers wait in the carry and dense rounds flush
+    them; the bound, and no mass dropped."""
+    want = _jax_push((4, 1), mode, ccap=3, seed=4, n=40, m=200, queries=(0, 9, 21, 33))
+    got = world((4, 1))[f"carry-{mode}"]
+    assert int(got["ccaps"].max()) == 3 < int(got["n_local"]) * 4
+    assert int(got["rounds"]) < CFG.max_rounds
+    _held(got, want, exact=False, m=200, forward=mode == FORWARD)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_sorted_bucket_path(world, mode):
+    """Every K > 1 compact round through sorted_bucket_rows."""
+    want = _jax_push((4, 1), mode, queries=(0, 7, 13, 25), sort_bucket_min=1)
+    got = world((4, 1))[f"sorted-{mode}"]
+    _held(got, want, exact=True, m=300, forward=mode == FORWARD)
+
+
+def test_skewed_star(world):
+    """One shard owns the hub that fans out to every other shard; with
+    ccap=2 one shard pair overflows persistently."""
+    want = _jax_push((4, 1), ccap=2, kind="star", n=64, queries=(3, 0))
+    got = world((4, 1))["star"]
+    _held(got, want, exact=False, m=126)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_k1_explicit_ccap_loses_no_mass(world, mode):
+    """At K = 1 compact rounds deliver the whole deduplicated emission: an
+    explicit ccap sizes no wire, so it cannot send mass to the carry."""
+    want = _jax_push((1, 1), mode, ccap=2, kind="star", n=64, queries=(3, 0))
+    got = world((1, 1))[f"k1ccap-{mode}"]
+    _held(got, want, exact=True, m=126, forward=mode == FORWARD)
+
+
+def test_seeded_candidates_never_scan(world):
+    want = _jax_push((4, 1), seed=7, queries=(0, 7, 13, 25), seeded=True)
+    got = world((4, 1))["seeded"]
+    _held(got, want, exact=True, m=300)
+    assert int(got["wl_rounds"]) == int(got["rounds"]), "a seeded run should never scan"
+
+
+def test_bf16_delivery_close(world):
+    """F4, sharded (2x1, f32, eps=1e-6): both packages' bf16 delivery
+    converge and track exact PPR within the documented 2^-9-relative
+    rounding. The port also rounds its dense rounds' deliveries (the
+    reference rounds those only on its TPU kernel, and on the CPU only the
+    all-to-all's mass), so it loses more mass here: 8e-4 more at most on
+    this graph, held within 5e-3 of the reference's."""
+    want = _jax_push((2, 1), seed=2, queries=(0, 7, 13, 25), dtype="f32", eps=1e-6, bf16d=True)
+    got = world((2, 1))["bf16"]
+    n = want["n"]
+    p_ref, _ = _single_device(want["src"], want["dst"], n, (0, 7, 13, 25), FORWARD)
+    for st in (got, want):
+        assert int(st["rounds"]) < 5000
+        np.testing.assert_allclose(st["p"][:n], p_ref, atol=1e-2)
+        np.testing.assert_allclose(st["p"][:n].sum(0) + st["r"][:n].sum(0), 1.0, atol=1e-2)
+    mass = [st["p"][:n].sum(0) + st["r"][:n].sum(0) for st in (got, want)]
+    np.testing.assert_allclose(mass[0], mass[1], atol=5e-3)
+
+
+def test_stats_skip_threshold_pinned(world):
+    """The port's stats-skip threshold is 2 * (e_top + g_top), the
+    reference's 2 * e_top (a fault not copied). On this graph they part:
+    with the reference's threshold the port follows the reference's
+    schedule exactly; with its own it runs another compact round in place
+    of a scan, and holds the contract (the bound, and mass)."""
+    want = _jax_push((1, 1), **PIN)
+    res = world((1, 1))
+    m, eps = PIN["m"], PIN["eps"]
+    _held(res["pin_ref"], want, exact=True, m=m, eps=eps)
+    assert int(res["pin"]["wl_rounds"]) != want["wl_rounds"]
+    _held(res["pin"], want, exact=False, m=m, eps=eps)
+
+
+def _jax_slides(shape, ccap=64, fring=60, seed=2, queries=(0, 5, 11, 33), steps=6):
+    src, dst, n = stream(seed)
+    drv = ShardedStreamDriver(src, dst, n, list(queries), CFG, StreamConfig(300, 25),
+                              make_row_mesh(*shape), dtype=jnp.float64, engine="wl",
+                              ccap=ccap, fring=fring)
+    st = [drv.seed()] + list(drv.run(steps))
+    return drv, st, src, dst, n
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_forward_slides_match_jax(world, shape):
+    """Six forward slides with fring=60 (a rebuild every two slides):
+    per-slide rounds and wl rounds, the state and the degrees."""
+    drv, st, src, dst, n = _jax_slides(shape)
+    got = world(shape)["slide"]
+    np.testing.assert_array_equal(got["rounds"], [s["rounds"] for s in st])
+    np.testing.assert_array_equal(got["wl_rounds"], [s["wl_rounds"] for s in st])
+    assert got["wl_rounds"].sum() > 0
+    np.testing.assert_allclose(got["p"][:n], drv.host_p()[:n], atol=1e-12)
+    np.testing.assert_allclose(got["r"][:n], drv.host_r()[:n], atol=1e-12)
+    np.testing.assert_array_equal(got["deg"], drv.host_deg())
+
+
+def test_slides_with_carry_stay_within_bound(world):
+    """ccap=3 during a stream: carry and dense-flush rounds reorder
+    deliveries; exact PPR on the final window, and mass."""
+    got = world((4, 1))["slide_carry"]
+    src, dst, n = stream(3)
+    head = int(got["head"])
+    for qi, q in enumerate((0, 5)):
+        pi = exact_ppr(src[head - 300:head], dst[head - 300:head], n, q, CFG.alpha, tol=1e-13)
+        assert np.abs(got["p"][:n, qi] - pi).max() < 50 * CFG.eps
+    np.testing.assert_allclose(got["p"][:n].sum(0) + got["r"][:n].sum(0), 1.0, atol=1e-9)
+
+
+def test_narrow_state_at_two_shards(world):
+    """S=8 at K=2: the reference gates its lane-padded TPU kernel off here
+    (nondeterministic reads in interpret mode) and delivers by sorted
+    scatter; the port's segment sum agrees with that path at 1e-12."""
+    queries = (0, 5, 11, 33, 2, 17, 23, 39)
+    drv, st, src, dst, n = _jax_slides((2, 1), queries=queries)
+    got = world((2, 1))["slide_s8"]
+    np.testing.assert_array_equal(got["rounds"], [s["rounds"] for s in st])
+    np.testing.assert_allclose(got["p"][:n], drv.host_p()[:n], atol=1e-12)
+    np.testing.assert_allclose(got["r"][:n], drv.host_r()[:n], atol=1e-12)
+
+
+@pytest.mark.parametrize("n_rows", [2, 4])
+def test_local_and_remote_segments_deliver_each_edge_once(n_rows):
+    """A K-row mesh's delivery views (built shard by shard, no collective
+    runs): each shard's local segment into its rows plus its remote segment
+    into the global rows, over all shards, equal the window delivered edge
+    by edge. The reference keeps its remote accumulator off its TPU kernel
+    (a boundary chunk could add local edges twice); the port's segment sum
+    reads exact ranges, so both segments go through it."""
+    from pprx_torch.dist.mesh import RowMesh
+    from pprx_torch.engine.segsum import segsum_gather_add_
+
+    src, dst, n = stream(2, n=400, total=3000)
+    total = direct = None
+    for rank in range(n_rows):
+        mesh = RowMesh(n_rows, 1, rank, None, None, tuple(range(n_rows)))
+        eng = twl.ShardedWlEngine(mesh, n, 3, ecap=src.size, bcap=8, cfg=TorchConfig(),
+                                  dtype=torch.float64, device="cpu")
+        snap = eng.device_graph_wl(src, dst)[-1]
+        if total is None:
+            total = torch.zeros((eng.n_pad, 3), dtype=torch.float64)
+            direct = torch.zeros_like(total)
+        table = torch.rand((eng.n_local + 1, 3), generator=torch.Generator().manual_seed(rank),
+                           dtype=torch.float64)
+        table[-1] = 0  # the zero row dead edges gather
+        lo, hi = eng.row0, eng.row0 + eng.n_local
+        segsum_gather_add_(total[lo:hi], table, snap["d_gat"], snap["d_loff"])
+        assert int(snap["d_roff"][0]) == int(snap["d_loff"][-1])  # remote after local
+        segsum_gather_add_(total, table, snap["d_gat"], snap["d_roff"])
+        mine = (src >= lo) & (src < hi)
+        direct.index_add_(0, torch.from_numpy(dst[mine].astype(np.int64)),
+                          table[torch.from_numpy((src[mine] - lo).astype(np.int64))])
+    np.testing.assert_allclose(total.numpy(), direct.numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("args", [
+    (50, 300, 60, 64, 512), (13, 300, 60, 64, 512), (200_001, 2_000_000, 320_000, 65_536, 32_768),
+    (50_001, 500_000, 80_000, 65_536, 32_768), (1000, 5000, 16, 4096, 2048),
+])
+def test_tiers_match_jax(args):
+    assert twl.make_wl_tiers(*args) == jwl.make_wl_tiers(*args)
+
+
+@pytest.mark.parametrize("k,ccap,length", [(1, 64, 300), (4, 8, 300), (4, 2, 50)])
+def test_sorted_bucket_matches_jax(k, ccap, length):
+    rng = np.random.default_rng(k * 100 + ccap)
+    n_local = 30
+    n_pad = n_local * k
+    ids = rng.integers(0, n_pad + 1, size=length).astype(np.int32)  # n_pad: invalid
+    vals = rng.random((length, 3))
+    ccarry = min(length, n_pad)
+    got = twl.sorted_bucket(torch.from_numpy(ids), torch.from_numpy(vals), k, n_local, n_pad,
+                            ccap, ccarry)
+    want = jwl.sorted_bucket(jnp.asarray(ids), jnp.asarray(vals), k, n_local, n_pad, ccap,
+                             ccarry, jnp.float64)
+    for a, b in zip(got[:4], want[:4]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-12, rtol=0)
+    assert int(got[4]) == int(want[4])
+    with pytest.raises(ValueError, match="carry contract"):
+        twl.sorted_bucket(torch.from_numpy(ids), torch.from_numpy(vals), k, n_local, n_pad,
+                          ccap, ccarry - 1)
+
+
+def test_what_is_not_ported_says_so():
+    """The reverse slide, the memory-proportional loop and 'wlp' name the
+    PR that ports them."""
+    src, dst, n = stream(2)
+    cfg, scfg = TorchConfig(eps=1e-8), TorchStream(300, 25)
+    mesh = torch_mesh(1, 1)
+    with pytest.raises(NotImplementedError, match="PR 7"):
+        twl.ShardedWlEngine(mesh, n, 4, ecap=300, bcap=25, cfg=cfg, proportional=True,
+                            device="cpu")
+    for engine, mode in (("wlp", FORWARD), ("wl", REVERSE)):
+        with pytest.raises(NotImplementedError, match="PR 7"):
+            TorchDriver(src, dst, n, [0, 5], cfg, scfg, mesh, mode=mode, engine=engine,
+                        device="cpu")
+    eng = twl.ShardedWlEngine(mesh, n, 4, ecap=300, bcap=25, cfg=cfg, mode=REVERSE,
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="PR 7"):
+        eng.slide_wl(None, None, None, None, None, None, None, None, None, (0, 0))

@@ -30,6 +30,8 @@ def _modules():
 def test_port_imports_without_jax():
     mods = list(_modules())
     assert "pprx_torch.engine.wl2" in mods and "pprx_torch.graph.fast_stream" in mods
+    assert {f"pprx_torch.dist.{m}" for m in ("mesh", "init", "sharded", "wl", "stream",
+                                             "retrieve")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -84,6 +86,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
         init_state(n, [0, 3])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FastStreamDriver(*args, rebuild_every=2)
+    from pprx_torch.dist.mesh import make_row_mesh
+    from pprx_torch.dist.stream import ShardedStreamDriver
+
+    for engine in ("dense", "wl"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ShardedStreamDriver(*args, make_row_mesh(1, 1), engine=engine)
     assert init_state(n, [0, 3], device="cpu").r.device.type == "cpu"
     drv = FastStreamDriver(*args, rebuild_every=2, device="cpu")
     drv.seed()

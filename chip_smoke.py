@@ -94,16 +94,36 @@ round trip. Phases, one line each:
    timed the same way; 14c the dense sharded engine in both modes on phase
    12's stream, held to exact PPR, launching nothing; 14e ``stream --engine
    sharded-wl --mesh 1,1`` on phase 13's file and ``bench --config 5``;
-   14d last: each collective wrapper once through a process group of one on
+   14d: each collective wrapper once through a process group of one on
    NCCL (a ``FileStore``), held to its K=1 meaning. Every run through the
    compact-frontier engine must launch the gather entry (its dense rounds'
-   local-first delivery).
+   local-first delivery);
+15. the rest of the sharded engines at mesh 1x1 on config 5's stream and
+   shapes: 15a the wl engine in reverse (``config5_run(mode="reverse")``,
+   with 6 slides to spare, the stream's first edges again): updates/s,
+   rounds, one slide under
+   the profiler, the gather entry's scaled and unscaled launches (the
+   rounds' receiver 1/d_out, the row-sum sweep), peak memory, the
+   reverse contract on 16 sampled
+   targets, and ``FastStreamDriver`` in reverse on the same stream timed
+   the same way (the reverse sharding tax); 15b anomaly (ii): on 3 slides
+   the sweep through the kernel against its plain version in f64 on the
+   same views (1e-5 relative to max |s|, bit for bit on repeat); 15c
+   ``wlp``, forward (``config5_run(engine="wlp")``): rates, round kinds,
+   its last slide under the profiler with that slide's peak memory beside
+   14a's wl engine's, the exact-PPR
+   contract; 15d a sharded checkpoint of 15a's driver: save and load timed
+   apart, both stepped 2 slides and held to each other as phase 10 holds
+   its pair, and to the reverse contract; 15e ``stream --engine sharded-wl
+   --mode rev`` and ``stream --engine sharded-wlp`` (``--mesh 1,1``) on
+   phase 13's file. Each path must launch the gather entry.
 
 Then a JSON line of the kernels (``launches``: the main path's, phases 4 to
 6, which must launch at least one entry; ``launches_by_path``: every path's,
 each counted with the counts set to 0 before it: the main path, each of the
 three reverse runs of phase 8, phases 9 and 10, each run of phase 11, each
-command of phase 13, each config 5 run and sharded command of phase 14), the
+command of phase 13, each config 5 run and sharded command of phases 14
+and 15), the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure
 raises: the exit code is not 0 and the last line is not printed. There is no CPU path. Nothing of
@@ -121,6 +141,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -156,7 +177,12 @@ from pprx_torch.graph.io import (
     synthetic_powerlaw_stream,
 )
 from pprx_torch.graph.stream import StreamDriver
-from pprx_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from pprx_torch.io.checkpoint import (
+    load_checkpoint,
+    load_sharded_checkpoint,
+    save_checkpoint,
+    save_sharded_checkpoint,
+)
 from pprx_torch.ref.exact import (
     exact_ppr,
     exact_ppr_columns,
@@ -1232,21 +1258,26 @@ def config5_check(dev, bf16d: bool, n_check: int = 16, k: int = 100, prof: bool 
     """14a: ``config5_run`` (``run_config(5)``'s run: the headline shapes
     unless ``shape`` says otherwise; stream seed 5; seed, 3 warm-up and 5
     timed slides at mesh 1x1), with the counts set to 0 before it; with
-    ``prof`` the stream's one slide left under the profiler; then the
-    contract and the sharded top-k against the single-device head. With
-    bf16 delivery the mass is held to a witness: the same run through the
-    port on the CPU, where the plain version sums and no kernel runs
-    (``cpu_witness_s``: what it took); the loss is the reference's too
-    (PERF.md §2)."""
+    ``prof`` the stream's one slide left under the profiler, with the peak
+    memory of that slide alone (``slide_peak_gib``); then the contract and
+    the sharded top-k against the single-device head. With bf16 delivery the mass is
+    held to a witness: the same run through the port on the CPU, where the
+    plain version sums and no kernel runs (``cpu_witness_s``: what it took);
+    the loss is the reference's too (PERF.md §2). 15c runs it with
+    ``engine="wlp"``; ``round_kinds`` counts the engine's rounds by kind."""
     segsum.reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     rep, drv = config5_run(device=dev, bf16d=bf16d, **shape)
     res = {**rep, "bf16d": bf16d, "rounds_per_slide": rep["rounds"] / rep["steps"],
-           "wl_rounds_per_slide": rep["wl_rounds"] / rep["steps"]}
+           "wl_rounds_per_slide": rep["wl_rounds"] / rep["steps"], "peak_mem_gib": peak_gib(dev)}
     if prof:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         res["profile"] = profile_slides(drv, 1)
-    res.update(launches_by_entry=launches_by_entry(), peak_mem_gib=peak_gib(dev))
+        res["slide_peak_gib"] = peak_gib(dev)
+    res.update(launches_by_entry=launches_by_entry(),
+               round_kinds=dict(getattr(drv.eng, "round_kinds", {})))
     twin = None
     if bf16d:
         t0 = time.perf_counter()
@@ -1258,16 +1289,16 @@ def config5_check(dev, bf16d: bool, n_check: int = 16, k: int = 100, prof: bool 
 
 
 def sharding_tax(dev, sharded_ups: float, n: int = 200_000, w: int = 2_000_000,
-                 b: int = 160_000, s: int = 128, steps: int = 5) -> dict:
+                 b: int = 160_000, s: int = 128, steps: int = 5, mode: int = 0) -> dict:
     """14b: ``FastStreamDriver`` on config 5's stream and shapes, rebuilding
     every 2 slides as the sharded engine's fresh ring of 2b does (bench.py's
     rule gives 2 at the headline too), timed as config 5 times itself: seed,
     3 warm-up, ``steps`` timed slides. The tax is the single-device rate over
-    the sharded one at mesh 1x1."""
+    the sharded one at mesh 1x1. 15a: in reverse (``mode``)."""
     src, dst, n = synthetic_powerlaw_stream(n, w + (steps + 4) * b, seed=5)
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
     drv = FastStreamDriver(src, dst, n, list(range(s)), cfg, StreamConfig(window=w, slide=b),
-                           rebuild_every=2, device=dev)
+                           mode=mode, rebuild_every=2, device=dev)
     drv.seed()
     list(drv.run(3))
     sync(dev)
@@ -1368,6 +1399,158 @@ def sharded_cli(dev, tmp: str, graph: str, w: int, b: int, s: int) -> dict:
     if out["config"] != 5 or out["mesh"] != "1x1" or out["updates_per_sec"] <= 0:
         raise AssertionError(f"bench --config 5: {out}")
     res["cli_bench_config5"] = out
+    return res
+
+
+def as_fast(drv: ShardedStreamDriver) -> types.SimpleNamespace:
+    """A 1x1 sharded driver as the contracts read a ``FastStreamDriver``:
+    its state, its window's edges, its queries (config 5's are 0..S-1)."""
+    if drv.mesh.size != 1:
+        raise AssertionError("the contracts need the whole state: a 1x1 mesh")
+    w, head = drv.scfg.window, drv.head
+    return types.SimpleNamespace(
+        state=PprState(p=drv.p, r=drv.r, mode=drv.mode), n=drv.n, cfg=drv.cfg,
+        device=drv.device, _queries=list(range(drv.eng.s_total)),
+        hsrc=drv.stream_src[head - w:head], hdst=drv.stream_dst[head - w:head])
+
+
+REVERSE_SPARE = 6  # 15a's profiled slide, 15b's 3 and 15d's 2 after 15a's run
+
+
+def config5_reverse_check(dev, n_check: int = 16, prof: bool = False,
+                          **shape) -> tuple[dict, ShardedStreamDriver]:
+    """15a: ``config5_run(mode="reverse")`` (the wl engine at config 5's
+    shapes, ``REVERSE_SPARE`` slides of stream left for 15a's profile, 15b
+    and 15d) with the counts set to 0 before it: updates/s, rounds a slide,
+    with ``prof`` one more slide under the profiler, the gather entry's
+    launches scaled (the dense and compact rounds' receiver 1/d_out) and
+    unscaled (the row-sum sweep) apart, peak memory, and the reverse
+    contract on ``n_check`` sampled targets (phase 8's). Returns (result,
+    driver)."""
+    segsum.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rep, drv = config5_run(device=dev, mode="reverse", extra_slides=REVERSE_SPARE - 1, **shape)
+    res = {**rep, "rounds_per_slide": rep["rounds"] / rep["steps"],
+           "wl_rounds_per_slide": rep["wl_rounds"] / rep["steps"], "peak_mem_gib": peak_gib(dev)}
+    if prof:
+        res["profile"] = profile_slides(drv, 1)
+    res.update(launches_by_entry=launches_by_entry(),
+               launches_scaled=launches_by_entry(scaled=True))
+    res["launches_unscaled"] = {e: res["launches_by_entry"][e] - res["launches_scaled"][e]
+                                for e in segsum.ENTRIES}
+    res["contract"] = reverse_contract(as_fast(drv), drv.cfg.eps, n_check=n_check)
+    return res, drv
+
+
+def rowsum_compare(eng, p, snap, egl, eog, eva, pack, counts) -> dict:
+    """One reverse slide's row sums, before the slide runs: the sweep as
+    the engine runs it (``rowsum_sweep``, twice: the launches must agree
+    bit for bit) and its plain version in f64 on the same views, old
+    (``s_old``) and with the batch's delta (``s_new``, the delta in the
+    state's dtype for the engine's, in f64 for the plain one). At 1x1 the
+    sweep is all local."""
+    b, dev = eng.bcap, p.device
+    _, _, clear, _, wdl, wsg = pack.reshape(6, b).unbind(0)
+    got, again = (eng.rowsum_sweep(p, snap)[0] for _ in range(2))
+    p64 = p.double()
+    p_ext = torch.cat([p64, torch.zeros((1, p.shape[1]), dtype=p64.dtype, device=dev)])
+    want = torch.zeros_like(p64)
+    for v in ("d", "fd"):
+        segsum_gather_add_plain(want, p_ext, snap[f"{v}_gat"], snap[f"{v}_loff"])
+    wv = (torch.arange(b, device=dev) < int(counts[2]))[:, None]
+    deltas = []
+    for q in (p, p64):
+        d = torch.zeros_like(q)
+        d.index_add_(0, eog[clear], -q[egl[clear]] * eva[clear].to(q.dtype)[:, None])
+        d.index_add_(0, wsg, q[wdl] * wv.to(q.dtype))
+        deltas.append(d)
+    s_new, s_new_plain = got + deltas[0], want + deltas[1]
+    scale = max(float(want.abs().max()), float(s_new_plain.abs().max()))
+    return {"bit_identical": torch.equal(got, again),
+            "s_old_rel_err": float((got.double() - want).abs().max()) / scale,
+            "s_new_rel_err": float((s_new.double() - s_new_plain).abs().max()) / scale,
+            "max_abs_s": scale}
+
+
+def sweep_check(drv: ShardedStreamDriver, slides: int = 3) -> dict:
+    """15b, anomaly (ii) on the card: on each of ``slides`` slides of a 1x1
+    reverse wl driver, ``rowsum_compare`` before the slide runs. The sweep
+    must agree with its plain version within 1e-5 relative to max |s| and
+    repeat bit for bit. Its launches are comparisons and count on no path."""
+    eng = drv.eng
+    checks = []
+
+    def checked(p, r, deg, egl, eog, eva, snap, pack, ring, counts):
+        checks.append(rowsum_compare(eng, p, snap, egl, eog, eva, pack, counts))
+        return type(eng).slide_wl(eng, p, r, deg, egl, eog, eva, snap, pack, ring, counts)
+
+    eng.slide_wl = checked
+    try:
+        ran = len(list(drv.run(slides)))
+    finally:
+        del eng.slide_wl
+    res = {"slides": ran, "tol": 1e-5,
+           **{key: [c[key] for c in checks] for key in checks[0]}}
+    if ran != slides or not all(res["bit_identical"]) or max(
+            res["s_old_rel_err"] + res["s_new_rel_err"]) > 1e-5:
+        raise AssertionError(f"the reverse row-sum sweep differs from its plain version: {res}")
+    return res
+
+
+def sharded_checkpoint_check(drv: ShardedStreamDriver, tmp: str, n_check: int = 16) -> dict:
+    """15d: a sharded checkpoint of 15a's reverse driver on the card: the
+    save and the load timed apart; both drivers step 2 slides and must agree
+    to 1e-5 in ``settled_distance``, as phase 10 holds its pair (the small
+    scatters use atomics on CUDA: no bit-identity here), and each holds the
+    reverse contract."""
+    dev = drv.device
+    path = os.path.join(tmp, "sharded.npz")
+    t0 = time.perf_counter()
+    save_sharded_checkpoint(path, drv)
+    save_s = time.perf_counter() - t0
+    size_mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    twin = load_sharded_checkpoint(path, drv.stream_src, drv.stream_dst, drv.mesh, device=dev)
+    sync(dev)
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    if (twin.head, twin.step_idx, twin.eng.tiers) != (drv.head, drv.step_idx, drv.eng.tiers):
+        raise AssertionError("the loaded sharded driver is not where the saved one was")
+    rounds = [[st["rounds"] for st in d.run(2)] for d in (drv, twin)]
+    if any(len(r) != 2 for r in rounds):
+        raise AssertionError("no 2 slides left in the stream")
+    sync(dev)
+    diff = settled_distance(PprState(drv.p, drv.r, drv.mode), PprState(twin.p, twin.r, twin.mode),
+                            drv.cfg.alpha)
+    if diff > 1e-5:
+        raise AssertionError(
+            f"saved and loaded sharded drivers differ after 2 slides: max |d(p + alpha r)| {diff}")
+    contracts = [reverse_contract(as_fast(d), d.cfg.eps, n_check=n_check) for d in (drv, twin)]
+    return {"save_s": save_s, "load_s": load_s, "file_mb": size_mb, "rounds": rounds,
+            "max_abs_settled": diff, "max_abs_dp": float((drv.p - twin.p).abs().max()),
+            "max_abs_err": [c["max_abs_err"] for c in contracts],
+            "bound": [c["bound"] for c in contracts]}
+
+
+SHARDED_CLI_PATHS_15 = ("cli_stream_sharded_wl_rev", "cli_stream_sharded_wlp")
+
+
+def sharded_cli_15(dev, tmp: str, graph: str, w: int, b: int, s: int) -> dict:
+    """15e: ``stream --engine sharded-wl --mode rev --mesh 1,1`` and
+    ``stream --engine sharded-wlp --mesh 1,1`` (4 slides each) on phase
+    13's converted file, in this process."""
+    n_graph = int(load_packed(graph)[2])
+    queries = ",".join(map(str, range(min(s, n_graph))))
+    res = {}
+    for path, extra in zip(SHARDED_CLI_PATHS_15, (["sharded-wl", "--mode", "rev"],
+                                                  ["sharded-wlp"])):
+        out = run_cli(["stream", graph, "--window", str(w), "--slide", str(b), "--steps", "4",
+                       "--engine", *extra, "--mesh", "1,1", "--queries", queries, "--log",
+                       os.path.join(tmp, f"{path}.jsonl"), "--device", str(dev)])
+        if out["steps"] != 4 or out["n_chips"] != 1 or out["updates_per_sec"] <= 0:
+            raise AssertionError(f"{path}: {out}")
+        res[path] = out
     return res
 
 
@@ -1573,6 +1756,29 @@ def main() -> None:
                                                for path in SHARDED_CLI_PATHS}))
         torch.cuda.empty_cache()
         log("14d collectives", **collectives_check(dev, tmp))
+
+        # the rest of the sharded engines at mesh 1x1: the wl engine's
+        # reverse slide, the memory-proportional loop, sharded checkpoints
+        rev, rev_drv = config5_reverse_check(dev, prof=True)
+        rev["tax"] = sharding_tax(dev, rev["updates_per_sec"], mode=REVERSE)
+        log("15a config5 reverse", **rev)
+        log("15b reverse rowsum sweep", **sweep_check(rev_drv))
+        wlp = config5_check(dev, bf16d=False, prof=True, engine="wlp")
+        wlp["wl_slide_peak_gib"] = config5["f32"].get("slide_peak_gib")
+        log("15c config5 wlp", **wlp)
+        log("15d sharded checkpoint", **sharded_checkpoint_check(rev_drv, tmp))
+        del rev_drv
+        torch.cuda.empty_cache()
+        cli15 = sharded_cli_15(dev, tmp, os.path.join(tmp, "stream.npz"), w, b, s)
+        for tag, res in cli15.items():
+            log(f"15e {tag.replace('_', ' ')}", **res)
+        sharded_by_path.update(check_launched(
+            {"config5_rev": rev["launches_by_entry"], "config5_wlp": wlp["launches_by_entry"],
+             **{path: cli15[path]["launches_by_entry"] for path in SHARDED_CLI_PATHS_15}}))
+        if min(rev["launches_unscaled"]["segsum_gather_add"],
+               rev["launches_scaled"]["segsum_gather_add"]) <= 0:
+            raise AssertionError(f"config5_rev: the sweep or the scaled rounds never launched "
+                                 f"the gather entry: {rev['launches_scaled']}")
 
     if "jax" in sys.modules or "pprx" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")

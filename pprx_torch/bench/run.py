@@ -222,9 +222,12 @@ def config5_run(
     bf16d: bool = False,
     mode: str = "forward",
     device: torch.device | str | None = None,
+    extra_slides: int = 0,
 ):
     """Config 5 (``config5_sharded``) and the driver it ran, for callers that
-    go on to check the state: (report, driver)."""
+    go on to check the state: (report, driver). The driver has one slide of
+    stream left, and ``extra_slides`` more that repeat the stream's first
+    edges (the run's own slides are config 5's whatever their number)."""
     from pprx_torch.dist.mesh import make_row_mesh
     from pprx_torch.dist.stream import ShardedStreamDriver
 
@@ -238,6 +241,8 @@ def config5_run(
     b = b or 160_000 * scale
     s = s or 128
     src, dst, n = _stream(graph, n, w + (steps + 4) * b, seed=5)
+    spare = extra_slides * b
+    src, dst = np.concatenate([src, src[:spare]]), np.concatenate([dst, dst[:spare]])
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
     chips = n_rows * n_srcs
     # ccap/e_top tuning lives in ShardedWlEngine's defaults
@@ -278,8 +283,9 @@ def config5_sharded(**kw) -> dict:
     b=160k, S=128; stream seed 5): seed, 3 warm-up and ``steps`` timed
     slides on this process's shard. ``n_rows=0`` is the world's size (one
     shard per process; 1 without a process group). Engines: 'wl' (the
-    default, compact-frontier rounds) and 'dense' (reduce-scatter rounds);
-    'wlp' is not ported yet. Pass small n/w/b/s for a CPU run."""
+    default, compact-frontier rounds), 'wlp' (its memory-proportional
+    carry and drain rounds) and 'dense' (reduce-scatter rounds); ``mode``
+    'forward' or 'reverse'. Pass small n/w/b/s for a CPU run."""
     return config5_run(**kw)[0]
 
 

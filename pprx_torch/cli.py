@@ -13,13 +13,13 @@
 The subcommands, flags and JSON keys are the reference's. Every subcommand
 that computes takes ``--device`` (default: the card; ``cpu`` runs the plain
 versions, as the tests do) and names it under ``"device"`` in its summary.
-``stream --engine sharded|sharded-wl`` and ``bench --config 5`` run one
-shard per process (``pprx_torch.dist``): a ``--mesh 1,1`` in one process, or
-one process per shard, started by torchrun or given ``--coordinator``,
-``--num-processes`` and ``--process-id``; only rank 0 prints. What is not
-ported says so and exits: the hybrid engine (the fast engine superseded it),
-and ``sharded-wlp``, ``sharded-wl --mode rev`` and sharded checkpoints
-(ROADMAP item 14, PR 7).
+``stream --engine sharded|sharded-wl|sharded-wlp`` and ``bench --config 5``
+run one shard per process (``pprx_torch.dist``): a ``--mesh 1,1`` in one
+process, or one process per shard, started by torchrun or given
+``--coordinator``, ``--num-processes`` and ``--process-id``; only rank 0
+prints, and ``--checkpoint`` writes the reference's sharded file. As in the
+reference, ``retrieve --from-checkpoint`` refuses a sharded file. The hybrid
+engine is not ported (the fast engine superseded it) and says so.
 
 The fast engine delivers through the segment-sum kernel, which takes f32
 or bf16: ``--f64`` with the fast engine on a CUDA device exits before any
@@ -36,7 +36,6 @@ import numpy as np
 import torch
 
 SHARDED_ENGINES = ("sharded", "sharded-wl", "sharded-wlp")
-NOT_PORTED = "not ported (ROADMAP item 14, PR 7)"
 
 
 def _add_common(p):
@@ -166,7 +165,7 @@ def _make_stream_driver(args, src, dst, n, queries, scfg, device, mesh=None):
     if mesh is not None:
         from pprx_torch.dist.stream import ShardedStreamDriver
 
-        engine = {"sharded-wl": "wl"}.get(args.engine, "dense")
+        engine = {"sharded-wl": "wl", "sharded-wlp": "wlp"}.get(args.engine, "dense")
         return ShardedStreamDriver(src, dst, n, queries, _cfg(args), scfg, mesh, ecap=args.ecap,
                                    engine=engine, **common)
     ctor = {"fast": FastStreamDriver, "dense": StreamDriver}[args.engine]
@@ -216,16 +215,6 @@ def _check_engine(args) -> None:
     """Refuse what is not ported before any work."""
     if args.engine == "hybrid":
         raise SystemExit("--engine hybrid: superseded by the fast engine, not ported")
-    if args.engine not in SHARDED_ENGINES:
-        return
-    if args.engine == "sharded-wlp":
-        raise SystemExit(f"--engine sharded-wlp: {NOT_PORTED}")
-    if args.engine == "sharded-wl" and args.mode != "fwd":
-        raise SystemExit(f"--engine sharded-wl --mode {args.mode}: the reverse wl slide is "
-                         f"{NOT_PORTED}")
-    if args.checkpoint:
-        raise SystemExit(f"--engine {args.engine} --checkpoint: sharded checkpoints are "
-                         f"{NOT_PORTED}")
 
 
 def _as_push_stats(rec):
@@ -241,7 +230,7 @@ def cmd_stream(args):
 
     from pprx_torch.config import StreamConfig
     from pprx_torch.eval.perf import summarize
-    from pprx_torch.io.checkpoint import save_checkpoint
+    from pprx_torch.io.checkpoint import save_checkpoint, save_sharded_checkpoint
     from pprx_torch.logging import JsonlLogger
     from pprx_torch.sync import sync
 
@@ -249,7 +238,7 @@ def cmd_stream(args):
     sharded = args.engine in SHARDED_ENGINES
     mesh = _sharded_mesh(args) if sharded else None
     device = _shard_device(args)
-    if args.engine in ("fast", "sharded-wl"):
+    if args.engine in ("fast", "sharded-wl", "sharded-wlp"):
         _kernel_dtype(args, device, f"stream --engine {args.engine}")
     src, dst, n = _load(args)
     queries = _queries(args, n)
@@ -273,7 +262,7 @@ def cmd_stream(args):
                 edge_pushes=float(s.edge_pushes),
             )
             if args.checkpoint and (i + 1) % args.checkpoint_every == 0:
-                save_checkpoint(args.checkpoint, drv)
+                (save_sharded_checkpoint if sharded else save_checkpoint)(args.checkpoint, drv)
                 log.log("checkpoint", step=i, path=args.checkpoint)
         sync(device)
         wall = time.perf_counter() - t0
@@ -315,7 +304,9 @@ def cmd_retrieve(args):
 
         if _checkpoint_kind(args.from_checkpoint) == "sharded":
             raise SystemExit(
-                f"this is a SHARDED checkpoint; sharded checkpoints are {NOT_PORTED}")
+                "this is a SHARDED checkpoint; serve it through the sharded driver "
+                "(pprx_torch.io.checkpoint.load_sharded_checkpoint + "
+                "pprx_torch.dist.retrieve.make_sharded_topk), not `retrieve --from-checkpoint`")
         drv = load_checkpoint(args.from_checkpoint, src, dst, device=device)
         if args.refine_eps:
             if not hasattr(drv, "refine"):
@@ -527,7 +518,8 @@ def main(argv=None):
         default="fast",
         help="fast = compact-frontier wl2 engine (default); dense = rounds over "
         "the whole COO window; sharded, sharded-wl = the row-sharded dense and "
-        "compact-frontier engines; hybrid and sharded-wlp are not ported",
+        "compact-frontier engines; sharded-wlp = sharded-wl with the "
+        "memory-proportional carry and drain rounds; hybrid is not ported",
     )
     p.add_argument("--mesh", type=str, default=None,
                    help="sharded engines: rows,srcs (default: one row per process)")

@@ -14,6 +14,11 @@ in both directions:
   per-tile offsets for its TPU kernel (``d_toff``/``fd_toff``); the port
   keeps per-row offsets (``d_off``/``fd_off``), computed from the ids on
   the way in, and rebuilds ids and tile offsets from them on the way out.
+
+The sharded wl engine's per-shard snapshot crosses the same way
+(``wl_snap_to_arrays``, ``wl_snap_from_arrays``): its local-first views are
+``d_sca``, ``d_toffl`` and ``d_toff`` (and ``fd_*``) in the reference, the
+local and remote per-row ranges ``d_loff`` and ``d_roff`` in the port.
 """
 
 from __future__ import annotations
@@ -145,3 +150,78 @@ def kill_graph_to_arrays(kg: KillGraph) -> dict[str, np.ndarray]:
         kg.fd_gat, kg.fd_off, n
     )
     return out
+
+
+# The sharded wl engine's snapshot keys in the reference's files (its
+# WL_SNAP_KEYS), each array per shard.
+REFERENCE_WL_SNAP_KEYS = (
+    "soff", "snbr", "srl", "spos",
+    "d_gat", "d_sca", "d_pos", "d_toff", "d_toffl",
+    "fd_gat", "fd_sca", "fd_toff", "fd_toffl",
+    "fr_gat", "fr_sca", "f_off", "f_nbr", "f_len", "fcnt",
+)
+_WL_SAME = ("soff", "snbr", "srl", "spos", "d_pos", "fr_gat", "fr_sca", "f_off", "f_nbr", "f_len")
+
+
+def _np32(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().astype(np.int32)
+
+
+def _sharded_view_out(gat, loff, roff, n_local: int, n_pad: int, row0: int):
+    """One local-first view of a shard in the reference's layout: (gat,
+    sca, toff, toffl), ``gat`` and the scatter ids rebuilt from the ranges
+    padded to ``pad_len`` (dead and padding edges: gather row n_local,
+    scatter id n_pad), tile offsets over the local rows and the global
+    ones (at K = 1 the remote segment is empty: its ranges all start past
+    the local one)."""
+    size = gat.shape[0]
+    loff_h = loff.cpu().numpy().astype(np.int64)
+    lloc = int(loff_h[-1])
+    roff_h = (np.full(n_pad + 1, lloc, np.int64) if roff is None
+              else roff.cpu().numpy().astype(np.int64))
+    sca = np.full(pad_len(size), n_pad, np.int32)
+    sca[:lloc] = row0 + np.repeat(np.arange(n_local), np.diff(loff_h))
+    sca[lloc:int(roff_h[-1])] = np.repeat(np.arange(n_pad), np.diff(roff_h))
+    gat_out = np.full(pad_len(size), n_local, np.int32)
+    gat_out[:size] = _np32(gat)
+    return gat_out, sca, tile_offsets(roff_h, n_pad), tile_offsets(loff_h, n_local)
+
+
+def wl_snap_to_arrays(snap: Mapping, n_local: int, n_pad: int, row0: int) -> dict:
+    """A shard's snapshot of the port's sharded wl engine as the reference's
+    per-shard arrays (int32, on the host; ``fcnt`` a 1-element array)."""
+    out = {k: _np32(snap[k]) for k in _WL_SAME}
+    out["fcnt"] = np.asarray([snap["fcnt"]], np.int32)
+    for v in ("d", "fd"):
+        (out[f"{v}_gat"], out[f"{v}_sca"], out[f"{v}_toff"],
+         out[f"{v}_toffl"]) = _sharded_view_out(snap[f"{v}_gat"], snap[f"{v}_loff"],
+                                                snap[f"{v}_roff"], n_local, n_pad, row0)
+    return out
+
+
+def wl_snap_from_arrays(arrays: Mapping[str, np.ndarray], n_local: int, n_pad: int, row0: int,
+                        n_rows: int, ring: int, device) -> dict:
+    """The inverse of ``wl_snap_to_arrays`` for one shard: the port's
+    snapshot on ``device`` from the reference's per-shard arrays. The view
+    ranges come from the scatter ids (local segment first, then the remote
+    one, dead last); ``ring`` is the fresh ring's length with its trash
+    slot."""
+    snap = {k: _t(arrays[k], device, np.int32) for k in _WL_SAME}
+    snap["fcnt"] = int(np.asarray(arrays["fcnt"]).reshape(-1)[0])
+    sizes = {"d": snap["spos"].shape[0], "fd": ring}
+    for v in ("d", "fd"):
+        size = sizes[v]
+        gat, sca = np.asarray(arrays[f"{v}_gat"]), np.asarray(arrays[f"{v}_sca"]).astype(np.int64)
+        if (gat.shape[0] < size or (gat[size:] != n_local).any()
+                or (sca[size:] != n_pad).any()):
+            raise ValueError(f"snap_{v}_gat: expected {size} edges plus phantom padding")
+        sca = sca[:size]
+        is_loc = (sca >= row0) & (sca < row0 + n_local)
+        key = np.where(is_loc, sca - row0, np.where(sca < n_pad, sca + n_pad, 2 * n_pad))
+        if (np.diff(key) < 0).any():
+            raise ValueError(f"snap_{v}_sca: not in the local-first delivery order")
+        snap[f"{v}_gat"] = _t(gat[:size], device, np.int32)
+        snap[f"{v}_loff"] = _t(np.searchsorted(key, np.arange(n_local + 1)), device, np.int32)
+        snap[f"{v}_roff"] = (None if n_rows == 1 else _t(
+            np.searchsorted(key, n_pad + np.arange(n_pad + 1)), device, np.int32))
+    return snap

@@ -10,9 +10,9 @@ rows); the only Python loops are over the K shards' stacks.
 How the port differs: every process runs the same host bookkeeping over
 the whole stream (it is deterministic, so the ranks agree), then uploads
 only its own shard's row of the batch, as one int32 transfer a slide. The
-wl engine's slide ships the shard's fresh edges; its counts stay on the
-host. ``host_p``, ``host_r`` and ``host_deg`` assemble the global arrays
-over the world.
+wl engines' forward slide ships the shard's fresh edges, their reverse
+slide its six batch rows; the counts stay on the host. ``host_p``,
+``host_r`` and ``host_deg`` assemble the global arrays over the world.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.dist.mesh import RowMesh, all_gather_rows
 from pprx_torch.dist.sharded import ShardedEngine
-from pprx_torch.dist.wl import NOT_PORTED, ShardedWlEngine
+from pprx_torch.dist.wl import ShardedWlEngine
 from pprx_torch.engine.state import FORWARD
 
 
@@ -75,18 +75,14 @@ class ShardedStreamDriver:
         bf16d: bool = False,
         device: torch.device | str | None = None,
     ):
-        """engine: 'dense' (reduce-scatter rounds, ``pprx_torch.dist.sharded``)
-        or 'wl' (compact-frontier rounds with a bucketed all-to-all,
-        ``pprx_torch.dist.wl``; forward mode). 'wlp' and the wl engine's
-        reverse slide are not ported yet."""
+        """engine: 'dense' (reduce-scatter rounds, ``pprx_torch.dist.sharded``),
+        'wl' (compact-frontier rounds with a bucketed all-to-all,
+        ``pprx_torch.dist.wl``) or 'wlp' (wl with the memory-proportional
+        carry and drain rounds: no ``[n_pad, S]`` array on the push path)."""
         if stream_src.shape[0] < scfg.window:
             raise ValueError("stream shorter than one window")
-        if engine == "wlp":
-            raise NotImplementedError(f"sharded engine 'wlp': {NOT_PORTED}")
-        if engine not in ("dense", "wl"):
+        if engine not in ("dense", "wl", "wlp"):
             raise ValueError(f"unknown sharded engine {engine!r}")
-        if engine == "wl" and mode != FORWARD:
-            raise NotImplementedError(f"the sharded wl engine's reverse slide: {NOT_PORTED}")
         self.stream_src = np.asarray(stream_src, dtype=np.int32)
         self.stream_dst = np.asarray(stream_dst, dtype=np.int32)
         self.n = n
@@ -94,14 +90,15 @@ class ShardedStreamDriver:
         self.scfg = scfg
         self.mode = mode
         self.mesh = mesh
-        self._wl = engine == "wl"
+        self._wl = engine in ("wl", "wlp")
         w = scfg.window
         queries = list(queries)
         common = dict(ecap=w if ecap is None else ecap, bcap=scfg.slide, cfg=cfg, mode=mode,
                       dtype=dtype, device=device)
         if self._wl:
             self.eng = ShardedWlEngine(mesh, n, len(queries), ccap=ccap, fring=fring,
-                                       e_top=e_top, bf16d=bf16d, **common)
+                                       e_top=e_top, proportional=engine == "wlp", bf16d=bf16d,
+                                       **common)
         else:
             self.eng = ShardedEngine(mesh, n, len(queries),
                                      ccap=2048 if ccap is None else ccap, **common)
@@ -136,7 +133,7 @@ class ShardedStreamDriver:
             self._free_top[k] = c
         self.head = w
         self.step_idx = 0
-        self.ring = self._device_ring() if self._wl else None
+        self.ring = self._device_ring() if self._wl and mode == FORWARD else None
 
     # -- helpers -------------------------------------------------------
     def _device_ring(self) -> dict:
@@ -237,7 +234,17 @@ class ShardedStreamDriver:
                     self.snap = eng.rebuild(self.egl, self.eog, self.eva)
                     self._fcnt_host[:] = 0
                     self._since_rb = 0
+            if self._wl and self.mode == FORWARD:
                 batch = [ins_u, _pack(flat_n, dstv[fresh].astype(np.int32), k_rows * b)]
+                counts = (cnt_w, cnt_c)
+            elif self._wl:
+                batch = [
+                    _pack(flat_o, (src[expire] - oo * n_local).astype(np.int32), k_rows * b),
+                    ins_u, clear_slots, write_slots,
+                    _pack(flat_w, (dstv[fresh] - gn * n_local).astype(np.int32), k_rows * b),
+                    _pack(flat_w, src[fresh].astype(np.int32), k_rows * b),
+                ]
+                counts = (cnt_o, cnt_n, cnt_w)
             elif self.mode == FORWARD:
                 batch = [
                     _pack(flat_o, (src[expire] - oo * n_local).astype(np.int32), k_rows * b),
@@ -266,7 +273,7 @@ class ShardedStreamDriver:
                 (self.p, self.r, rounds, pushes, epushes, wl, self.deg, self.egl, self.eog,
                  self.eva, self.snap, self.ring) = eng.slide_wl(
                     self.p, self.r, self.deg, self.egl, self.eog, self.eva, self.snap,
-                    dev_batch.reshape(-1), self.ring, (cnt_w[row], cnt_c[row]))
+                    dev_batch.reshape(-1), self.ring, [c[row] for c in counts])
                 extra = {"wl_rounds": wl}
                 self._fcnt_host += cnt_w
                 self._since_rb += 1

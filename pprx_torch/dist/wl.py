@@ -36,10 +36,25 @@ How the port differs:
   single-device form, where the reference leaves out the fresh cap.
 - The forward slide's slot ring keeps its arrays on the device and its
   three counters on the host, which knows each slide's counts already; the
-  slide's one transfer is this shard's fresh edges.
+  slide's one transfer is this shard's fresh edges. The reverse slide's
+  transfer is its six batch rows (the reference's ``PACK_R`` words but for
+  the three counts, which stay on the host).
+- The reverse slide's row-sum sweep runs through ``segsum_gather_add_``
+  over the same local-first views as the dense rounds (the reference keeps
+  it on a sorted scatter; its anomaly (ii)). The view ranges are exact, so
+  the local and the remote segments each add every live edge once.
 
-Not ported yet (ROADMAP item 14, PR 7): the reverse slide and the
-memory-proportional loop (``proportional=True``).
+``proportional=True`` is the reference's memory-proportional loop (``wlp``):
+no ``[n_pad, S]`` array on the push path. Every round emits through
+``sorted_bucket_rows``; what overflows a quota waits in a compact sorted
+carry of ``ccarry`` (id, mass) pairs that drain rounds ship; a frontier the
+ladder cannot hold runs the all-covering top tier seeded with every local
+row (a rescan). Each branch is chosen from the row group's maxima, as in
+the wl loop, and a drain round's all-to-all is joined by every rank of the
+group, its own carry empty or not. The forward slide's corrections ride
+one bucketed all-to-all too, their overflow seeding the loop's carry; the
+reverse slide keeps its one ``[n_pad, 2S]`` reduce-scatter (the
+reference's documented gap).
 """
 
 from __future__ import annotations
@@ -53,6 +68,7 @@ from pprx_torch.dist.sharded import (
     ShardedEngine,
     forward_corrections,
     forward_corrections_pairs,
+    reverse_apply,
     write_window_,
 )
 from pprx_torch.engine.segsum import segsum_gather_add_
@@ -65,8 +81,6 @@ from pprx_torch.engine.wl2 import (
     rld_expand,
     sorted_deliver_,
 )
-
-NOT_PORTED = "not ported (ROADMAP item 14, PR 7)"
 
 
 def make_wl_tiers(
@@ -211,19 +225,29 @@ class ShardedWlEngine(ShardedEngine):
         alone); ``fring`` the fresh ring (default 2 * bcap); ``e_top`` the
         ladder's top (default min(65,536, ecap)). ``bf16d``: dense-round
         deliveries and the all-to-all's mass travel in bf16 (f32 sums);
-        residual removal, thresholds and the carry stay exact."""
-        if proportional:
-            raise NotImplementedError(
-                f"ShardedWlEngine(proportional=True): the memory-proportional loop is {NOT_PORTED}")
+        residual removal, thresholds and the carry stay exact.
+        ``proportional``: the memory-proportional loop (module docstring)."""
         super().__init__(mesh, n, s_total, ecap, bcap, cfg, mode=mode, dtype=dtype,
                          exchange="dense_rs", ccap=2048 if ccap is None else ccap, device=device)
         if 2 * self.n_pad >= 2**31:
             raise ValueError(f"n_pad {self.n_pad}: delivery keys need 2 * n_pad < 2**31")
         self.bf16d = bool(bf16d)
+        self.proportional = bool(proportional)
+        # what a checkpoint keeps: the caller's quota cap, not the quotas
+        self.user_ccap = ccap
+        self.n_tiers = n_tiers
         self.fring = max(bcap, fring if fring is not None else 2 * bcap)
         self.e_top = e_top if e_top is not None else min(65_536, ecap)
         self.tiers = make_wl_tiers(self.n_local, ecap, self.fring, self.e_top,
                                    w_top=max(self.e_top // 2, 512), n_tiers=n_tiers)
+        if self.proportional:
+            # an all-covering top tier (any frontier fits: srl sums <= ecap,
+            # f_len sums <= fring) takes the dense round's place; the carry
+            # holds one round's deduplicated emission, which n_pad bounds too
+            top = (self.n_local + 1, ecap, self.fring)
+            self.tiers = tuple(t for t in self.tiers
+                               if t[0] < top[0] or t[1] < top[1] or t[2] < top[2]) + (top,)
+            self.ccarry = min(max(e + g for (_, e, g) in self.tiers), self.n_pad)
         # per-tier all-to-all quotas: the deduped emission of tier i fits
         # under balanced ownership; an explicit ccap caps them (K = 1 has no
         # wire, so there it sizes nothing)
@@ -234,10 +258,13 @@ class ShardedWlEngine(ShardedEngine):
                 q = min(q, ccap)
             quotas.append(min(q, self.n_local))
         self.ccaps = tuple(quotas)
+        self.wl_ccap = self.ccaps[-1]  # the top tier's: corrections and drains
         # candidates are unique local rows: n_local + 1 bounds every list
         self.wcarry = self.n_local + 1
         _, e_top_, g_top_ = self.tiers[-1]
         self.heavy_ew = STATS_GUARD * (e_top_ + g_top_)
+        # rounds of each kind over the engine's life (read, not reset, here)
+        self.round_kinds = dict.fromkeys(("compact", "dense", "drain", "rescan"), 0)
 
     # ------------------------------------------------------------------
     # the snapshot and its delivery views
@@ -337,15 +364,15 @@ class ShardedWlEngine(ShardedEngine):
             return (1.0 - alpha) * mass * inv_deg
         return torch.where(dang, (1.0 - alpha) / alpha * mass, (1.0 - alpha) * mass)
 
-    def _compact_round(self, i: int, p, r, deg, snap, cand, carry, pend: int):
-        """One push round at tier ``i`` over the candidate rows, in place in
-        ``p`` and ``r``. Returns (cand2, carry, stats) with stats the
-        round's [cn2, fed2, fre2, ok2, pend2, na, ew]."""
-        w_i, e_i, g_i = self.tiers[i]
-        n_local, n_pad, k = self.n_local, self.n_pad, self.n_rows
-        alpha, dtype, s = self.cfg.alpha, p.dtype, p.shape[1]
+    def _expand(self, i: int, p, r, deg, snap, candw):
+        """Push the candidate rows ``candw`` (unique, ascending, padded with
+        n_local) in place in ``p`` and ``r``, and expand them at tier ``i``:
+        (ids, rows, moving, na, ew) with ``ids`` [L] the global targets
+        (invalid = n_pad) and lane j's mass ``moving[rows[j]]``."""
+        _, e_i, g_i = self.tiers[i]
+        n_local, n_pad = self.n_local, self.n_pad
+        alpha, dtype = self.cfg.alpha, p.dtype
         srl, f_len = snap["srl"], snap["f_len"]
-        candw = cand[:w_i]
         live = candw < n_local
         cc = candw.clamp(0, n_local - 1)
         r_c = torch.where(live[:, None], r[cc], 0.0)
@@ -366,26 +393,36 @@ class ShardedWlEngine(ShardedEngine):
         g1 = torch.where(val1, snap["snbr"][pos1.clamp(0, self.slot_stride - 1)], n_pad)
         t2, pos2, val2 = rld_expand(snap["f_off"][cc], torch.where(anyact, f_len[cc], 0), g_i)
         g2 = torch.where(val2, snap["f_nbr"][pos2.clamp(0, self.fring)], n_pad)
-        ids = torch.cat([g1, g2])  # [L], invalid = n_pad
-        inv_deg = None if self.mode == FORWARD else 1.0 / deg.clamp(min=1).to(dtype)
-        wcarry = self.wcarry
+        return torch.cat([g1, g2]), torch.cat([t1, t2]), moving, na, ew
+
+    def _inv_deg(self, deg, dtype):
+        """The receiver's 1/d_out of a reverse delivery (None forward)."""
+        return None if self.mode == FORWARD else 1.0 / deg.clamp(min=1).to(dtype)
+
+    def _compact_round(self, i: int, p, r, deg, snap, cand, carry, pend: int):
+        """One push round at tier ``i`` over the candidate rows, in place in
+        ``p`` and ``r``. Returns (cand2, carry, stats) with stats the
+        round's [cn2, fed2, fre2, ok2, pend2, na, ew]."""
+        n_local, n_pad, k = self.n_local, self.n_pad, self.n_rows
+        dtype, s = p.dtype, p.shape[1]
+        ids, rows, moving, na, ew = self._expand(i, p, r, deg, snap, cand[:self.tiers[i][0]])
+        inv_deg = self._inv_deg(deg, dtype)
         if k == 1:
             # no wire: one stable sort dedups the emission, which runs
             # straight into r; its ascending unique ids are the next list
             # (n_pad == n_local, so the id pad is the candidate pad)
-            keys_s = sorted_deliver_(r, ids, moving, torch.cat([t1, t2]), row_scale=inv_deg)
+            keys_s = sorted_deliver_(r, ids, moving, rows, row_scale=inv_deg)
             return self._next_candidates(keys_s, snap, carry, pend, na, ew)
         length = ids.shape[0]
         ccap = self.ccaps[i]
         if length >= SORT_BUCKET_MIN:
             send_ids, send_mass, cids, cmass, pend2 = sorted_bucket_rows(
-                ids, torch.cat([t1, t2]), moving, k, n_local, n_pad, ccap, min(length, n_pad))
+                ids, rows, moving, k, n_local, n_pad, ccap, min(length, n_pad))
             carry.index_add_(0, cids.clamp(0, n_pad - 1),
                              cmass * (cids < n_pad).to(dtype)[:, None])
             pend = pend + pend2
         else:
-            vals = torch.cat([moving[t1] * (g1 < n_pad).to(dtype)[:, None],
-                              moving[t2] * (g2 < n_pad).to(dtype)[:, None]])
+            vals = moving[rows] * (ids < n_pad).to(dtype)[:, None]
             lane = torch.arange(length, device=ids.device)
             ids64 = ids.long()
             # winner-dedup over global ids: the last lane wins, as the
@@ -529,8 +566,10 @@ class ShardedWlEngine(ShardedEngine):
                 cand, carry, stats = self._compact_round(
                     tier, p, r, deg, snap, cand, carry, int(got[mesh.rank, 4]))
                 wl += 1
+                self.round_kinds["compact"] += 1
             else:
                 p, r, cand, carry, stats = self._dense_round(p, r, deg, snap, carry)
+                self.round_kinds["dense"] += 1
             got = self._world(stats)
             total = got.sum(axis=0)
             work = int(total[5]) + int((got[:, 4] > 0).sum())
@@ -540,26 +579,141 @@ class ShardedWlEngine(ShardedEngine):
         return p, r, rounds, pushes, epushes, wl
 
     # ------------------------------------------------------------------
+    # the memory-proportional loop (proportional=True)
+    # ------------------------------------------------------------------
+    def _deliver(self, r, send_ids, send_mass, inv_deg):
+        """The proportional rounds' exchange: one all-to-all of this shard's
+        ``[K * q]`` (local id, mass) buckets, the received mass into ``r``
+        (sorted through the segment sum from ``SORT_BUCKET_MIN`` lanes on,
+        else by ``index_add_``; padding ids n_local add nothing). Returns
+        the received ids."""
+        k, n_local, s = self.n_rows, self.n_local, send_mass.shape[1]
+        q = send_ids.shape[0] // k
+        if self.bf16d:
+            send_mass = send_mass.to(torch.bfloat16)
+        group = self.mesh.row_group
+        recv_ids = all_to_all_rows(send_ids.reshape(k, q), group).reshape(-1)
+        recv_mass = all_to_all_rows(send_mass.reshape(k, q, s), group).reshape(-1, s)
+        recv_mass = recv_mass.to(r.dtype)
+        if recv_ids.shape[0] >= SORT_BUCKET_MIN:
+            sorted_deliver_(r, recv_ids, recv_mass, row_scale=inv_deg)
+        else:
+            rc = recv_ids.clamp(0, n_local - 1)
+            r.index_add_(0, rc, recv_mass if inv_deg is None else recv_mass * inv_deg[rc, None])
+        return recv_ids
+
+    def _next_marked(self, snap, recv_ids, cand=None):
+        """The next list from an O(n_local) mark array: the rows ``recv_ids``
+        delivered to, with ``cand``'s live rows kept (drain rounds). Returns
+        (cand2, cn2, fed2, fre2)."""
+        n_local = self.n_local
+        mark = torch.zeros(n_local + 1, dtype=torch.bool, device=recv_ids.device)
+        if cand is not None:
+            mark[cand.clamp(0, n_local)] = True
+        mark[recv_ids.clamp(0, n_local)] = True
+        any2 = mark[:n_local]
+        return (compact(any2, self.wcarry, n_local), any2.sum(),
+                torch.where(any2, snap["srl"], 0).sum(), torch.where(any2, snap["f_len"], 0).sum())
+
+    def _prop_compact(self, i: int, p, r, deg, snap, candw):
+        """A proportional push round at tier ``i`` over ``candw``: every
+        emission through ``sorted_bucket_rows`` and one all-to-all, the
+        overflow into a fresh carry. Returns (cand2, (cids, cmass, pend),
+        stats) with stats [cn2, fed2, fre2, ok2, pend2, work, na, ew]."""
+        ids, rows, moving, na, ew = self._expand(i, p, r, deg, snap, candw)
+        send_ids, send_mass, cids, cmass, pend = sorted_bucket_rows(
+            ids, rows, moving, self.n_rows, self.n_local, self.n_pad, self.ccaps[i], self.ccarry)
+        recv_ids = self._deliver(r, send_ids, send_mass, self._inv_deg(deg, p.dtype))
+        cand2, cn2, fed2, fre2 = self._next_marked(snap, recv_ids)
+        return cand2, (cids, cmass, pend), [cn2, fed2, fre2, 1, pend, na, na, ew]
+
+    def _drain_round(self, r, deg, snap, cand, carry, ok: int):
+        """Ship the carry (re-bucketed at the top tier's quota) over one
+        all-to-all; what still overflows stays. Nothing is pushed."""
+        cids, cmass, _ = carry
+        send_ids, send_mass, cids2, cmass2, pend2 = sorted_bucket(
+            cids, cmass, self.n_rows, self.n_local, self.n_pad, self.wl_ccap, self.ccarry)
+        recv_ids = self._deliver(r, send_ids, send_mass, self._inv_deg(deg, r.dtype))
+        cand2, cn2, fed2, fre2 = self._next_marked(snap, recv_ids, cand)
+        return cand2, (cids2, cmass2, pend2), [cn2, fed2, fre2, ok, pend2, cn2 > 0, 0, 0]
+
+    def _prop_loop(self, p, r, deg, snap, cand0, ok0: int, carry0=None):
+        """``_wl_loop`` for ``proportional=True``: each round a compact
+        round at the smallest tier that holds the row group's frontier, a
+        drain round while any rank of the group has a pending carry, or a
+        rescan (the top tier over every local row) when a list is not
+        known to cover the frontier. ``carry0``: (cids, cmass, pend) left by
+        the corrections. ``p`` and ``r`` are updated in place."""
+        n_local, mesh, n_t = self.n_local, self.mesh, len(self.tiers)
+        dev, s = p.device, p.shape[1]
+        if carry0 is None:
+            carry0 = (torch.full((self.ccarry,), self.n_pad, dtype=torch.int32, device=dev),
+                      torch.zeros((self.ccarry, s), dtype=p.dtype, device=dev), 0)
+        carry, cand = carry0, cand0
+        live0 = cand0 < n_local
+        c0 = cand0.clamp(0, n_local - 1)
+        got = self._world([live0.sum(), torch.where(live0, snap["srl"][c0], 0).sum(),
+                           torch.where(live0, snap["f_len"][c0], 0).sum(), int(ok0), carry[2],
+                           0, 0, 0])
+        rows = list(mesh.row_ranks)
+        every_row = torch.arange(n_local + 1, dtype=torch.int32, device=dev)
+        rounds = pushes = epushes = 0
+        work = 1  # the first round always runs
+        while work > 0 and rounds < self.cfg.max_rounds:
+            # the uniform decision: this row group's maxima (min of ok)
+            grp = got[rows]
+            cn, fed, fre, pend_g = (int(grp[:, c].max()) for c in (0, 1, 2, 4))
+            if pend_g > 0:
+                kind = "drain"
+                cand, carry, stats = self._drain_round(r, deg, snap, cand, carry,
+                                                       int(got[mesh.rank, 3]))
+            elif int(grp[:, 3].min()) > 0:
+                kind = "compact"
+                tier = sum(not (cn <= w_i and fed <= e_i and fre <= g_i)
+                           for (w_i, e_i, g_i) in self.tiers[:-1])
+                cand, carry, stats = self._prop_compact(tier, p, r, deg, snap,
+                                                        cand[:self.tiers[tier][0]])
+            else:
+                kind = "rescan"
+                cand, carry, stats = self._prop_compact(n_t - 1, p, r, deg, snap, every_row)
+            self.round_kinds[kind] += 1
+            got = self._world(stats)
+            total = got.sum(axis=0)
+            work = int(total[5]) + int((got[:, 4] > 0).sum())
+            rounds += 1
+            pushes += int(total[6])
+            epushes += int(total[7])
+        return p, r, rounds, pushes, epushes, rounds
+
+    def _loop(self, p, r, deg, snap, cand0, ok0: int, carry0=None):
+        if self.proportional:
+            return self._prop_loop(p, r, deg, snap, cand0, ok0, carry0)
+        return self._wl_loop(p, r, deg, snap, cand0, ok0)
+
+    # ------------------------------------------------------------------
     def push_wl(self, p, r, deg, snap, cand0=None, ok0: int = 0):
-        """Push to convergence with the compact-frontier loop. With no
-        ``cand0`` the first round is a dense rescan (exact)."""
+        """Push to convergence with the compact-frontier loop (or the
+        proportional one). With no ``cand0`` the first round is a dense
+        round or a rescan (exact)."""
         if cand0 is None:
             cand0 = torch.full((self.wcarry,), self.n_local, dtype=torch.int32,
                                device=self.device)
             ok0 = 0
-        return self._wl_loop(p, r, deg, snap, cand0, ok0)
+        return self._loop(p, r, deg, snap, cand0, ok0)
 
     def slide_wl(self, p, r, deg, egl, eog, eva, snap, pack, ring, counts):
-        """One forward window slide on the compact-frontier loop. ``pack``
-        is this shard's fresh edges on the device (``ins_u`` local, then
-        ``ins_w`` global, ``bcap`` each, a valid prefix), ``counts`` the
-        host's (fresh, expiring) counts for this shard. The expiring edges
-        and the slot schedule come from ``ring``, the corrections' touched
+        """One window slide on the compact-frontier loop (or the
+        proportional one). Forward: ``pack`` is this shard's fresh edges on
+        the device (``ins_u`` local, then ``ins_w`` global, ``bcap`` each, a
+        valid prefix), ``counts`` the host's (fresh, expiring) counts for
+        this shard; the expiring edges and the slot schedule come from
+        ``ring``. Reverse: ``pack`` is the six batch rows ``_slide_reverse``
+        reads, and ``counts`` its three, ``ring`` None. The corrections' touched
         rows seed the candidate list. Returns (p, r, rounds, pushes,
         edge_pushes, wl_rounds, deg2, egl, eog, eva, snap, ring), the
         buffers, the snapshot and the ring updated in place."""
         if self.mode != FORWARD:
-            raise NotImplementedError(f"ShardedWlEngine.slide_wl in reverse mode: {NOT_PORTED}")
+            return (*self._slide_reverse(p, r, deg, egl, eog, eva, snap, pack, counts), None)
         cnt_w, cnt_c = (int(c) for c in counts)
         b, ecap, n_local, n_pad = self.bcap, self.ecap, self.n_local, self.n_pad
         alpha, dev = self.cfg.alpha, pack.device
@@ -585,7 +739,21 @@ class ShardedWlEngine(ShardedEngine):
         mark = torch.zeros(n_local + 1, dtype=torch.bool, device=dev)
         mark[torch.where(del_v > 0, del_u, n_local)] = True
         mark[torch.where(ins_v > 0, ins_u, n_local)] = True
-        if self.n_rows == 1:
+        carry0 = None
+        if self.proportional:
+            # the correction pairs ride one bucketed all-to-all (exact mass);
+            # what overflows seeds the loop's carry
+            p, r, ids, vals, deg2 = forward_corrections_pairs(
+                p, r, deg, del_u, del_w, del_v, ins_u, ins_w, ins_v, alpha, n_pad)
+            k, q, group = self.n_rows, self.wl_ccap, self.mesh.row_group
+            send_ids, send_mass, cids, cmass, pend = sorted_bucket(
+                ids, vals, k, n_local, n_pad, q, self.ccarry)
+            recv_ids = all_to_all_rows(send_ids.reshape(k, q), group).reshape(-1)
+            recv_mass = all_to_all_rows(send_mass.reshape(k, q, -1), group)
+            r.index_add_(0, recv_ids.clamp(0, n_local - 1), recv_mass.reshape(k * q, -1))
+            mark[recv_ids.clamp(0, n_local)] = True
+            carry0 = (cids, cmass, pend)
+        elif self.n_rows == 1:
             # no wire: the correction pairs run straight into r
             p, r, ids, vals, deg2 = forward_corrections_pairs(
                 p, r, deg, del_u, del_w, del_v, ins_u, ins_w, ins_v, alpha, n_pad)
@@ -601,8 +769,65 @@ class ShardedWlEngine(ShardedEngine):
         cand0 = compact(mark[:n_local], self.wcarry, n_local)
         write_window_(egl, eog, eva, clear_slots, write_slots, ins_u, ins_w, ins_v)
         self._mutate(snap, clear_slots, ins_u, ins_w, ins_v, cnt_w)
-        p, r, rounds, pushes, epushes, wl = self._wl_loop(p, r, deg2, snap, cand0, 1)
+        p, r, rounds, pushes, epushes, wl = self._loop(p, r, deg2, snap, cand0, 1, carry0)
         return p, r, rounds, pushes, epushes, wl, deg2, egl, eog, eva, snap, ring
+
+    def rowsum_sweep(self, p, snap):
+        """The reverse slide's row sums of ``p`` over the live window edges
+        (the snapshot's view after kills plus the fresh view), local-first
+        through the segment sum: (s_loc [n_local, S], the sums of this
+        shard's rows over the edges it holds; acc [n_pad, S], the rest by
+        global row, None at K = 1)."""
+        s = p.shape[1]
+        p_ext = torch.cat([p, torch.zeros((1, s), dtype=p.dtype, device=p.device)])
+        s_loc = torch.zeros_like(p)
+        for view in ("d", "fd"):
+            segsum_gather_add_(s_loc, p_ext, snap[f"{view}_gat"], snap[f"{view}_loff"])
+        if self.n_rows == 1:
+            return s_loc, None
+        acc = torch.zeros((self.n_pad, s), dtype=p.dtype, device=p.device)
+        for view in ("d", "fd"):
+            segsum_gather_add_(acc, p_ext, snap[f"{view}_gat"], snap[f"{view}_roff"])
+        return s_loc, acc
+
+    def _slide_reverse(self, p, r, deg, egl, eog, eva, snap, pack, counts):
+        """The reverse slide: ``pack`` holds ``del_u``, ``ins_u`` (by source
+        owner), ``clear_slots``, ``write_slots``, ``write_dl``, ``write_sg``
+        (by destination owner), ``bcap`` each; ``counts`` the host's
+        (expiring, fresh, written) counts for this shard. The old row sums
+        come from the sweep, the batch's delta beside them in one
+        ``[n_pad, 2S]`` reduce-scatter along the row group."""
+        cnt_o, cnt_n, cnt_w = (int(c) for c in counts)
+        b, n_local, dtype = self.bcap, self.n_local, p.dtype
+        del_u, ins_u, clear_slots, write_slots, write_dl, write_sg = pack.reshape(6, b).unbind(0)
+        iota = torch.arange(b, device=pack.device)
+        del_v, ins_v, write_v = ((iota < c).to(torch.int32) for c in (cnt_o, cnt_n, cnt_w))
+        s_loc, acc_old = self.rowsum_sweep(p, snap)
+        # the batch's delta by global row: expiring edges out, fresh ones in
+        acc_d = torch.zeros((self.n_pad, p.shape[1]), dtype=dtype, device=p.device)
+        old_v = eva[clear_slots].to(dtype)[:, None]
+        acc_d.index_add_(0, eog[clear_slots], -p[egl[clear_slots]] * old_v)
+        acc_d.index_add_(0, write_sg, p[write_dl] * write_v.to(dtype)[:, None])
+        if acc_old is None:
+            s_old = s_loc
+            s_new = s_old + acc_d
+        else:
+            s = p.shape[1]
+            red = reduce_scatter_rows(torch.cat([acc_old, acc_d], dim=1), self.mesh.row_group)
+            s_old = s_loc + red[:, :s]
+            s_new = s_old + red[:, s:]
+        write_window_(egl, eog, eva, clear_slots, write_slots, write_dl, write_sg, write_v)
+        r, d_new = reverse_apply(p, r, deg, del_u, del_v, ins_u, ins_v, s_old, s_new,
+                                 self.cfg.alpha)
+        # a row whose correction is not zero has a changed row sum or degree
+        mark = torch.zeros(n_local + 1, dtype=torch.bool, device=p.device)
+        mark[torch.where(del_v > 0, del_u, n_local)] = True
+        mark[torch.where(ins_v > 0, ins_u, n_local)] = True
+        mark[:n_local] |= (s_new != s_old).any(dim=1) | (d_new != deg)
+        cand0 = compact(mark[:n_local], self.wcarry, n_local)
+        self._mutate(snap, clear_slots, write_dl, write_sg, write_v, cnt_w)
+        p, r, rounds, pushes, epushes, wl = self._loop(p, r, d_new, snap, cand0, 1)
+        return p, r, rounds, pushes, epushes, wl, d_new, egl, eog, eva, snap
 
     def make_ring(self, oring, hd, tl, fstack, ftop) -> dict:
         """This shard's slot ring from the host's ``[K, ...]`` arrays: oring

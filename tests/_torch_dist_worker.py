@@ -168,16 +168,17 @@ def slides(mesh, engine: str, mode: int = 0, seed: int = 2, steps: int = 6,
 def wl_push(mesh, mode: int, ccap=64, kind="random", seed: int = 0, n: int = 50, m: int = 300,
             queries=(0, 7, 13, 25, 31, 44, 7, 2), dtype: str = "f64", eps: float = 1e-8,
             bf16d: bool = False, seeded: bool = False, sort_bucket_min=None, e_top=None,
-            fring=None, heavy_ew=None):
+            fring=None, heavy_ew=None, proportional: bool = False):
     """ShardedWlEngine.push_wl from the one-hot state; ``seeded``: with the
     query rows as the first candidate list; ``heavy_ew`` replaces the
-    stats-skip threshold."""
+    stats-skip threshold; ``proportional``: the wlp loop, with its round
+    kinds counted."""
     import pprx_torch.dist.wl as wl
 
     src, dst, n = graph(kind, seed, n, m)
     eng = wl.ShardedWlEngine(mesh, n, len(queries), ecap=src.size, bcap=8, cfg=_cfg(eps),
                              mode=mode, dtype=_dtype(dtype), ccap=ccap, bf16d=bf16d,
-                             e_top=e_top, fring=fring, device="cpu")
+                             e_top=e_top, fring=fring, proportional=proportional, device="cpu")
     if heavy_ew is not None:
         eng.heavy_ew = heavy_ew
     p, r = eng.init_state(queries)
@@ -197,7 +198,91 @@ def wl_push(mesh, mode: int, ccap=64, kind="random", seed: int = 0, n: int = 50,
     finally:
         wl.SORT_BUCKET_MIN = old
     return _assembled(mesh, p, r, rounds=rounds, pushes=pushes, epushes=epushes,
-                      wl_rounds=wl_rounds, n_local=eng.n_local, ccaps=np.asarray(eng.ccaps))
+                      wl_rounds=wl_rounds, n_local=eng.n_local, ccaps=np.asarray(eng.ccaps),
+                      **{f"{kind}_rounds": c for kind, c in eng.round_kinds.items()})
+
+
+def rowsum_sweeps(mesh, s: int = 8, seed: int = 2, steps: int = 6, fring: int = 60):
+    """A reverse wl stream of ``s`` targets (the stream's vertices in turn):
+    on every slide, the row-sum sweep the slide is about to run (its local
+    part plus the row group's remote parts), assembled over the world."""
+    from pprx_torch.dist.mesh import reduce_scatter_rows
+    from pprx_torch.dist.stream import assemble
+
+    queries = [i % 40 for i in range(s)]
+    drv = _driver(mesh, "wl", 1, seed, queries, ccap=64, fring=fring)
+    eng, sweeps = drv.eng, []
+    slide = eng.slide_wl
+
+    def recording(p, r, deg, egl, eog, eva, snap, *rest):
+        s_loc, acc = eng.rowsum_sweep(p, snap)
+        s_old = s_loc if acc is None else s_loc + reduce_scatter_rows(acc, mesh.row_group)
+        sweeps.append(assemble(s_old, mesh))
+        return slide(p, r, deg, egl, eog, eva, snap, *rest)
+
+    eng.slide_wl = recording
+    st = [drv.seed()] + list(drv.run(steps))
+    return {"s_old": np.stack(sweeps), "rounds": np.asarray([x["rounds"] for x in st]),
+            "p": drv.host_p()}
+
+
+def membound(mesh, proportional: bool, reverse_slide: bool = False, seed: int = 1,
+             ecap: int = 1600):
+    """The largest float tensor an op returns on this shard: in push_wl from
+    a dense round or rescan (then the push's state), or in a reverse slide
+    of an empty batch (``reverse_slide``), on a 4,000-vertex graph with 8
+    sources; and the sizes it is held to."""
+    from pprx_torch.dist.wl import ShardedWlEngine
+    from pprx_torch.eval.membound import max_float_temp_size
+
+    src, dst, n = graph("random", seed, 4000, 6000)
+    queries = list(range(8))
+    eng = ShardedWlEngine(mesh, n, len(queries), ecap=ecap, bcap=8, cfg=_cfg(), mode=int(
+        reverse_slide), dtype=torch.float64, ccap=128, proportional=proportional, device="cpu")
+    p, r = eng.init_state(queries)
+    deg, egl, eog, eva, _, snap = eng.device_graph_wl(src, dst)
+    out = {"n_local": eng.n_local, "n_pad": eng.n_pad, "s": len(queries),
+           "ccarry": getattr(eng, "ccarry", 0)}
+    if reverse_slide:
+        pack = torch.zeros(6 * eng.bcap, dtype=torch.int32)
+        out["biggest"] = max_float_temp_size(eng.slide_wl, p, r, deg, egl, eog, eva, snap, pack,
+                                             None, (0, 0, 0))
+        return out
+    cand0 = torch.full((eng.wcarry,), eng.n_local, dtype=torch.int32)
+    out["biggest"] = max_float_temp_size(eng.push_wl, p.clone(), r.clone(), deg, snap, cand0, 0)
+    p, r, rounds, *_ = eng.push_wl(p, r, deg, snap)
+    return _assembled(mesh, p, r, rounds=rounds, **out)
+
+
+def sharded_resume(mesh, engine: str, mode: int, out_dir: str, before: int = 2, after: int = 4,
+                   jax_file: str | None = None):
+    """A sharded stream (fring 60: a rebuild every 2 slides) seeded and run
+    ``before`` slides, saved to ``out_dir``, run ``after`` more; the file
+    loaded (with this mesh) and run ``after`` slides beside it. With
+    ``jax_file``: that file loaded, saved again at once, and run ``after``
+    slides."""
+    from pprx_torch.io.checkpoint import load_sharded_checkpoint, save_sharded_checkpoint
+
+    tag = f"{engine}-{mode}-{mesh.n_rows}x{mesh.n_srcs}"
+    kw = {} if engine == "dense" else dict(ccap=64, fring=60)
+    src, dst, _ = stream(11)
+    a = _driver(mesh, engine, mode, 11, (0, 5, 9, 17), **kw)
+    a.seed()
+    list(a.run(before))
+    path = os.path.join(out_dir, f"port-{tag}.npz")
+    save_sharded_checkpoint(path, a)
+    rounds_a = [x["rounds"] for x in a.run(after)]
+    b = load_sharded_checkpoint(path, src, dst, mesh, device="cpu")
+    res = {"head_b": b.head, "rounds_b": np.asarray([x["rounds"] for x in b.run(after)]),
+           "rounds_a": np.asarray(rounds_a),
+           "same": all(torch.equal(getattr(a, k), getattr(b, k)) for k in ("p", "r", "deg")),
+           "pa": a.host_p(), "ra": a.host_r(), "deg": a.host_deg(), "pb": b.host_p()}
+    if jax_file is not None:
+        c = load_sharded_checkpoint(jax_file, src, dst, mesh, device="cpu")
+        save_sharded_checkpoint(os.path.join(out_dir, f"again-{tag}.npz"), c)
+        res.update(rounds_c=np.asarray([x["rounds"] for x in c.run(after)]), pc=c.host_p(),
+                   rc=c.host_r())
+    return res
 
 
 def topk(mesh, n: int, s: int, k: int, seed: int, ties: bool = False, poison: bool = False):

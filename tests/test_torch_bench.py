@@ -104,25 +104,24 @@ def test_config4_exact_check(small, monkeypatch):
     assert trun.run_config(4, s=8, k=10, device="cpu", check_exact=3)["within_bound"] is False
 
 
-def test_what_is_not_ported_says_so():
-    """Config 5's 'wlp' engine and its reverse wl slide name the PR that
-    ports them; ``graph=`` is ported, so a file that is not there is an
-    error of the file, not of the port."""
-    small = dict(n=300, w=1500, b=100, s=8, device="cpu")
-    for kw in (dict(engine="wlp"), dict(mode="reverse")):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 14, PR 7"):
-            trun.run_config(5, **small, **kw)
+def test_a_missing_graph_is_an_error_of_the_file():
+    """``graph=`` is ported for every config: a file that is not there is
+    an error of the file; the port has the reference's configs."""
     for idx in (1, 2, 3, 4, 5):
         with pytest.raises(FileNotFoundError):
             trun.run_config(idx, graph="some.npz", device="cpu")
     assert sorted(trun.CONFIGS) == sorted(jrun.CONFIGS)
 
 
-@pytest.mark.parametrize("engine", ["wl", "dense"])
-def test_config5_matches_jax(engine):
+@pytest.mark.parametrize("engine,mode", [("wl", "forward"), ("dense", "forward"),
+                                         ("wlp", "forward"), ("wl", "reverse")],
+                         ids=["wl", "dense", "wlp", "wl-reverse"])
+def test_config5_matches_jax(engine, mode):
     """Config 5 at mesh 1x1 on a small stream (f32 on the CPU in both): the
-    reference's keys plus ``device``, the same rounds and wl rounds."""
-    kw = dict(n_rows=1, engine=engine, n=300, w=1500, b=100, s=8, steps=3)
+    reference's keys plus ``device``, the same rounds and wl rounds, for
+    the wl engine in both modes, the memory-proportional one and the dense
+    one."""
+    kw = dict(n_rows=1, engine=engine, mode=mode, n=300, w=1500, b=100, s=8, steps=3)
     ref = jrun.config5_sharded(**kw)
     out = trun.config5_sharded(**kw, device="cpu")
     assert set(out) == set(ref) | {"device"} and out["device"] == "cpu"

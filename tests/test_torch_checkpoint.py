@@ -1,7 +1,13 @@
 """Checkpoints of the port (pprx_torch.io.checkpoint) against the JAX
 package's (pprx.io.checkpoint): files written by either package load in the
 other mid-stream and continue to the same state, f64 on the CPU at 1e-12,
-for the dense and the fast driver in both modes."""
+for the dense and the fast driver in both modes, and for the sharded
+drivers (dense, wl and wlp engines, both modes) at mesh 1x1 and 2x2: the
+port's file is the reference's layout array by array, a file crosses
+either way bit for bit, a resumed driver goes on as the one that wrote the
+file (bit-identical in the port, across a fresh-ring rebuild) and as the
+other package's (equal rounds, 1e-12). The 2x2 port runs in a gloo world
+(tests/_torch_dist_worker.py); the JAX package on its virtual mesh."""
 
 import dataclasses
 import json
@@ -12,16 +18,27 @@ import pytest
 import torch
 
 from pprx.config import PprConfig, StreamConfig
+from pprx.dist.mesh import make_row_mesh as jax_mesh
+from pprx.dist.stream import ShardedStreamDriver as JaxShardedDriver
 from pprx.graph.fast_stream import FastStreamDriver as JaxFastDriver
 from pprx.graph.io import synthetic_powerlaw_stream
 from pprx.graph.stream import StreamDriver as JaxDenseDriver
 from pprx.io.checkpoint import load_checkpoint as jax_load
+from pprx.io.checkpoint import load_sharded_checkpoint as jax_load_sharded
 from pprx.io.checkpoint import save_checkpoint as jax_save
+from pprx.io.checkpoint import save_sharded_checkpoint as jax_save_sharded
 from pprx_torch.convert import pad_len, tile_offsets
+from pprx_torch.dist.mesh import make_row_mesh
 from pprx_torch.engine.state import FORWARD, REVERSE
 from pprx_torch.graph.fast_stream import FastStreamDriver
 from pprx_torch.graph.stream import StreamDriver
-from pprx_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from pprx_torch.io.checkpoint import (
+    load_checkpoint,
+    load_sharded_checkpoint,
+    save_checkpoint,
+    save_sharded_checkpoint,
+)
+from tests._torch_dist_worker import _driver, sharded_resume, stream, worlds
 
 torch.set_num_threads(1)
 
@@ -206,3 +223,160 @@ def test_checkpoint_without_fresh_view_resumes(tmp_path, mode):
     _assert_same(ja, tb)
     assert [int(s.rounds) for s in ja.run(2)] == [s.rounds for s in tb.run(2)]
     _assert_same(ja, tb)
+
+
+# ---------------------------------------------------------------- sharded
+SHARDED = [(engine, mode) for engine in ("dense", "wl", "wlp") for mode in MODES]
+SH_CFG = PprConfig(alpha=0.15, eps=1e-8, max_rounds=10_000)
+BEFORE, AFTER = 2, 4  # slides before the save and after it (fring 60: a rebuild every 2)
+
+
+def _sh_tag(engine, mode, shape):
+    return f"{engine}-{mode}-{shape[0]}x{shape[1]}"
+
+
+def _jax_sharded(engine, mode, shape):
+    src, dst, n = stream(11)
+    kw = {} if engine == "dense" else dict(ccap=64, fring=60)
+    drv = JaxShardedDriver(src, dst, n, [0, 5, 9, 17], SH_CFG, StreamConfig(300, 25),
+                           jax_mesh(*shape), mode=mode, dtype=jnp.float64, engine=engine, **kw)
+    drv.seed()
+    list(drv.run(BEFORE))
+    return drv
+
+
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    """The JAX package's 2x2 files (``BEFORE`` slides in) and its runs on
+    from them, then the port's 2x2 world: ``sharded_resume`` of every
+    engine and mode, each also loading the JAX file."""
+    out = str(tmp_path_factory.mktemp("sharded"))
+    jax_runs = {}
+    for engine, mode in SHARDED:
+        drv = _jax_sharded(engine, mode, (2, 2))
+        path = f"{out}/jax-{_sh_tag(engine, mode, (2, 2))}.npz"
+        jax_save_sharded(path, drv)
+        rounds = [s["rounds"] for s in drv.run(AFTER)]
+        jax_runs[engine, mode] = {"path": path, "rounds": rounds, "p": drv.host_p(),
+                                  "r": drv.host_r()}
+
+    def cases(shape):
+        return {f"{e}-{m}": ("sharded_resume", dict(engine=e, mode=m, out_dir=out,
+                                                     jax_file=jax_runs[e, m]["path"]))
+                for e, m in SHARDED}
+
+    get = worlds([(2, 2)], cases, tmp_path_factory, "ck")
+    return out, jax_runs, lambda engine, mode: get((2, 2))[f"{engine}-{mode}"]
+
+
+def _same_files(a: str, b: str, p_atol: float = 0.0):
+    """Every array of two sharded files equal (p and r within ``p_atol``),
+    and the metadata but for the reference's resolved ``segsum`` flag."""
+    with np.load(a) as za, np.load(b) as zb:
+        assert set(za.files) == set(zb.files)
+        for k in za.files:
+            if k == "meta":
+                continue
+            assert za[k].dtype == zb[k].dtype, k
+            if k in ("p", "r"):
+                np.testing.assert_allclose(za[k], zb[k], rtol=0, atol=p_atol, err_msg=k)
+            else:
+                np.testing.assert_array_equal(za[k], zb[k], k)
+        ma, mb = (json.loads(bytes(z["meta"]).decode()) for z in (za, zb))
+    for m in (ma, mb):
+        m.get("wl_tuning", {}).pop("segsum", None)
+    assert ma == mb
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+@pytest.mark.parametrize("engine,mode", SHARDED)
+def test_sharded_resume_in_port_is_bit_identical(tmp_path, sharded, engine, mode, shape):
+    """Saved ``BEFORE`` slides in, loaded on the same mesh: the resumed
+    driver runs ``AFTER`` slides (across a rebuild for the wl engines) to
+    the writer's state bit for bit, with its rounds."""
+    if shape == (1, 1):
+        res = sharded_resume(make_row_mesh(1, 1), engine, mode, str(tmp_path))
+    else:
+        res = sharded[2](engine, mode)
+    assert bool(res["same"])
+    assert int(res["head_b"]) == 300 + BEFORE * 25
+    np.testing.assert_array_equal(res["rounds_b"], res["rounds_a"])
+    np.testing.assert_array_equal(res["pb"], res["pa"])
+
+
+@pytest.mark.parametrize("engine,mode", SHARDED)
+def test_port_sharded_file_holds_the_reference_layout(sharded, engine, mode):
+    """At 2x2, the port's file and the JAX package's, written at the same
+    point of the same stream: the window, the host bookkeeping and every
+    shard's snapshot in the reference's layout (padded views, scatter ids,
+    tile offsets) equal array by array; p and r at 1e-12."""
+    out, jax_runs, _ = sharded
+    _same_files(jax_runs[engine, mode]["path"], f"{out}/port-{_sh_tag(engine, mode, (2, 2))}.npz",
+                p_atol=1e-12)
+
+
+@pytest.mark.parametrize("engine,mode", SHARDED)
+def test_jax_sharded_file_resumes_in_port(sharded, engine, mode):
+    """The JAX package's 2x2 file loaded by the port's world: saved again at
+    once it is the same file bit for bit; run on ``AFTER`` slides it keeps
+    the JAX package's rounds and state (1e-12)."""
+    out, jax_runs, get = sharded
+    ref = jax_runs[engine, mode]
+    _same_files(ref["path"], f"{out}/again-{_sh_tag(engine, mode, (2, 2))}.npz")
+    res = get(engine, mode)
+    np.testing.assert_array_equal(res["rounds_c"], ref["rounds"])
+    np.testing.assert_allclose(res["pc"], ref["p"], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(res["rc"], ref["r"], rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("engine,mode", SHARDED)
+def test_port_sharded_file_resumes_in_jax(tmp_path, sharded, engine, mode):
+    """The port's 2x2 file loaded by the JAX package on its 2x2 mesh: saved
+    again at once it is the same file bit for bit; run on ``AFTER`` slides
+    it keeps the port's rounds and state (1e-12)."""
+    out, _, get = sharded
+    path = f"{out}/port-{_sh_tag(engine, mode, (2, 2))}.npz"
+    src, dst, _ = stream(11)
+    drv = jax_load_sharded(path, src, dst, jax_mesh(2, 2))
+    again = str(tmp_path / "again.npz")
+    jax_save_sharded(again, drv)
+    _same_files(path, again)
+    res = get(engine, mode)
+    assert [s["rounds"] for s in drv.run(AFTER)] == list(res["rounds_a"])
+    np.testing.assert_allclose(drv.host_p(), res["pa"], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(drv.host_r(), res["ra"], rtol=0, atol=1e-12)
+
+
+def test_sharded_checkpoint_refusals(tmp_path):
+    """A wl file whose tiers or quotas the engine does not rebuild, a file
+    of another mesh, and a file that is not sharded are refused, in the
+    reference's words where it has them."""
+    src, dst, n = stream(11)
+    mesh = make_row_mesh(1, 1)
+    drv = _driver(mesh, "wl", FORWARD, 11, (0, 5, 9, 17), ccap=64, fring=60)
+    path = str(tmp_path / "ck.npz")
+    save_sharded_checkpoint(path, drv)
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(arrays["meta"]).decode())
+
+    def rewrite(**tuning):
+        m = json.loads(json.dumps(meta))
+        m["wl_tuning"].update(tuning)
+        bad = str(tmp_path / "bad.npz")
+        np.savez(bad, **{**arrays, "meta": np.frombuffer(json.dumps(m).encode(), np.uint8)})
+        return bad
+
+    with pytest.raises(ValueError, match="wl checkpoint tier mismatch"):
+        load_sharded_checkpoint(rewrite(tiers=[[1, 2, 3]]), src, dst, mesh, device="cpu")
+    with pytest.raises(ValueError, match="wl checkpoint quota mismatch"):
+        load_sharded_checkpoint(rewrite(ccaps=[7]), src, dst, mesh, device="cpu")
+    jpath = str(tmp_path / "j.npz")
+    jax_save_sharded(jpath, _jax_sharded("dense", FORWARD, (2, 1)))
+    with pytest.raises(ValueError, match="another mesh"):
+        load_sharded_checkpoint(jpath, src, dst, mesh, device="cpu")
+    single = str(tmp_path / "single.npz")
+    save_checkpoint(single, _port("dense", FORWARD))
+    with pytest.raises(ValueError, match="not a sharded checkpoint"):
+        load_sharded_checkpoint(single, src, dst, mesh, device="cpu")
+

@@ -162,3 +162,43 @@ def test_sharded_phase_on_the_cpu(tmp_path, monkeypatch):
     assert set(cli) == set(chip_smoke.SHARDED_CLI_PATHS)
     assert cli["cli_bench_config5"]["window"] == 6000
     assert not any(any(r["launches_by_entry"].values()) for r in cli.values())
+
+
+def test_sharded_phase_15_on_the_cpu(tmp_path):
+    """Phase 15 as the card runs it, on the CPU at a small size: config 5
+    in reverse within the reverse contract and its tax, the row-sum sweep
+    against its f64 plain version on 3 slides, wlp within the exact-PPR
+    contract with its round kinds and one slide's peak, a sharded
+    checkpoint round trip of the reverse driver, and the two CLI commands;
+    no run launches a kernel here, which the launch check refuses."""
+    from pprx_torch.engine.state import REVERSE
+
+    dev = torch.device("cpu")
+    shape = dict(n=2000, w=6000, b=300, s=8)
+    rev, drv = chip_smoke.config5_reverse_check(dev, n_check=4, prof=True, **shape)
+    assert (rev["mesh"], rev["engine"], rev["mode"]) == ("1x1", "wl", "reverse")
+    assert rev["contract"]["max_abs_err"] <= rev["contract"]["bound"]
+    assert len(rev["profile"]["rounds"]) == 1
+    assert drv.steps_available == chip_smoke.REVERSE_SPARE - 1
+    assert not any(rev["launches_by_entry"].values())
+    with pytest.raises(AssertionError, match="config5_rev never launched"):
+        chip_smoke.check_launched({"config5_rev": rev["launches_by_entry"]})
+    tax = chip_smoke.sharding_tax(dev, rev["updates_per_sec"], mode=REVERSE, **shape)
+    assert tax["tax"] > 0
+    sweep = chip_smoke.sweep_check(drv)
+    assert sweep["slides"] == 3 and all(sweep["bit_identical"])
+    assert max(sweep["s_old_rel_err"] + sweep["s_new_rel_err"]) <= 1e-5
+    assert "slide_wl" not in vars(drv.eng)
+    wlp = chip_smoke.config5_check(dev, bf16d=False, n_check=4, k=10, prof=True, engine="wlp",
+                                   **shape)
+    assert wlp["engine"] == "wlp" and wlp["contract"]["l1_max"] <= wlp["contract"]["l1_bound"]
+    assert wlp["round_kinds"]["rescan"] >= 1 and wlp["round_kinds"]["dense"] == 0
+    assert len(wlp["profile"]["rounds"]) == 1 and wlp["slide_peak_gib"] is None
+    ck = chip_smoke.sharded_checkpoint_check(drv, str(tmp_path), n_check=4)
+    assert ck["max_abs_settled"] <= 1e-5 and len(ck["rounds"][0]) == 2
+    assert ck["rounds"][0] == ck["rounds"][1] and ck["max_abs_dp"] == 0.0
+    graph = str(tmp_path / "g.npz")
+    save_packed(graph, *synthetic_powerlaw_stream(2000, 6000 + 6 * 300, seed=7))
+    cli = chip_smoke.sharded_cli_15(dev, str(tmp_path), graph, 6000, 300, 8)
+    assert set(cli) == set(chip_smoke.SHARDED_CLI_PATHS_15)
+    assert not any(any(r["launches_by_entry"].values()) for r in cli.values())

@@ -100,11 +100,12 @@ def test_stream_with_checkpoint(graph_npz, tmp_path, capsys, engine):
 
 
 @pytest.mark.parametrize("engine,mode", [("sharded-wl", "fwd"), ("sharded", "fwd"),
-                                         ("sharded", "rev")])
+                                         ("sharded", "rev"), ("sharded-wl", "rev"),
+                                         ("sharded-wlp", "fwd"), ("sharded-wlp", "rev")])
 def test_sharded_stream_at_mesh_1x1(graph_npz, tmp_path, capsys, engine, mode):
-    """``stream --engine sharded-wl|sharded --mesh 1,1`` through both CLIs in
-    f64: per slide the same rounds, pushes and edge pushes, the same summary
-    keys plus ``device``, one chip."""
+    """``stream --engine sharded|sharded-wl|sharded-wlp --mesh 1,1`` through
+    both CLIs in f64, in both modes: per slide the same rounds, pushes and
+    edge pushes, the same summary keys plus ``device``, one chip."""
     outs, logs = [], []
     for tag, main, dev in (("jax", jcli.main, []), ("torch", tcli.main, CPU)):
         log = str(tmp_path / f"{tag}.jsonl")
@@ -252,15 +253,6 @@ def test_bench_without_config_runs_the_headline(monkeypatch, capsys):
      "superseded by the fast engine, not ported"),
     (["stream", "G", "--window", "300", "--slide", "30", "--engine", "sharded", "--mesh", "4,2"],
      r"--engine sharded: mesh 4x2 needs 8 processes, the world has 1"),
-    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "sharded-wl", "--mode",
-      "rev"], r"--engine sharded-wl --mode rev: .*not ported \(ROADMAP item 14, PR 7\)"),
-    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "sharded-wlp",
-      "--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "0",
-      "--ecap", "100"], r"--engine sharded-wlp: not ported \(ROADMAP item 14, PR 7\)"),
-    # config 5's stream cannot checkpoint yet
-    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "sharded-wl", "--mesh",
-      "1,1", "--checkpoint", "ck.npz", *CPU],
-     r"sharded checkpoints are not ported \(ROADMAP item 14, PR 7\)"),
     (["static", "G", "--queries", "0,50", *CPU], r"vertex id 50 is outside \[0, n\) for n = 50"),
     (["static", "G", "--queries", "-1", *CPU], r"vertex id -1 is outside \[0, n\)"),
     (["stream", "G", "--window", "300", "--slide", "30", "--queries", "3,60", *CPU],
@@ -278,7 +270,7 @@ def test_bench_without_config_runs_the_headline(monkeypatch, capsys):
      "serve: --f64 on cuda"),
     (["retrieve", "G", "--from-checkpoint", "G", "--refine-eps", "1e-7", "--f64", "--device",
       "cuda"], "retrieve --refine-eps: --f64 on cuda"),
-], ids=["hybrid", "sharded", "sharded-wl", "sharded-wlp", "config5", "static-query-n",
+], ids=["hybrid", "sharded", "static-query-n",
         "static-query-negative", "stream-query", "dense-query", "retrieve-query", "serve-query",
         "serve-reverse", "stream-f64-cuda", "serve-f64-cuda", "retrieve-f64-cuda"])
 def test_refusals_name_the_reason(graph_npz, monkeypatch, argv, reason):
@@ -297,13 +289,61 @@ def test_refusals_name_the_reason(graph_npz, monkeypatch, argv, reason):
         tcli.main(argv)
 
 
-def test_sharded_checkpoint_is_refused(graph_npz, tmp_path):
-    """A checkpoint whose metadata says ``sharded`` is refused, naming the
-    PR that ports sharded checkpoints, and a dense one refuses a refine."""
-    ck = str(tmp_path / "sharded.npz")
-    np.savez(ck, meta=np.frombuffer(json.dumps({"kind": "sharded"}).encode(), np.uint8))
-    with pytest.raises(SystemExit, match=r"SHARDED checkpoint.*\(ROADMAP item 14, PR 7\)"):
-        tcli.main(["retrieve", graph_npz, "--from-checkpoint", ck, *CPU])
+def _sharded_checkpoints(graph_npz, tmp_path, capsys, engine):
+    """``stream --engine <engine> --mesh 1,1 --checkpoint`` through both
+    CLIs (f64, 4 slides, a file every 2): (JAX summary, port summary), and
+    the two files."""
+    outs, cks = [], []
+    for tag, main, dev in (("jax", jcli.main, []), ("torch", tcli.main, CPU)):
+        ck = str(tmp_path / f"{tag}-{engine}.npz")
+        outs.append(run_cli(capsys, main, [
+            "stream", graph_npz, "--window", "300", "--slide", "30", "--steps", "4",
+            "--engine", engine, "--mesh", "1,1", "--queries", "0,3,7", "--checkpoint", ck,
+            "--checkpoint-every", "2", "--log", str(tmp_path / f"{tag}.jsonl"), "--f64", *dev]))
+        cks.append(ck)
+    return outs, cks
+
+
+@pytest.mark.parametrize("engine", ["sharded", "sharded-wl", "sharded-wlp"])
+def test_sharded_stream_checkpoint(graph_npz, tmp_path, capsys, engine):
+    """A sharded ``stream --checkpoint`` written by each CLI: the same
+    rounds, and two files of one layout (every array equal, p and r within
+    1e-12; the metadata but for the reference's resolved ``segsum``), each
+    of which the port resumes from where it was written."""
+    from pprx_torch.dist.mesh import make_row_mesh
+    from pprx_torch.graph.io import load_packed
+    from pprx_torch.io.checkpoint import load_sharded_checkpoint
+
+    (ref, out), cks = _sharded_checkpoints(graph_npz, tmp_path, capsys, engine)
+    assert (out["rounds"], out["wl_rounds"]) == (ref["rounds"], ref["wl_rounds"])
+    with np.load(cks[0]) as za, np.load(cks[1]) as zb:
+        assert set(za.files) == set(zb.files)
+        for k in set(za.files) - {"meta", "p", "r"}:
+            np.testing.assert_array_equal(za[k], zb[k], k)
+        for k in ("p", "r"):
+            np.testing.assert_allclose(za[k], zb[k], rtol=0, atol=1e-12)
+        metas = [json.loads(bytes(z["meta"]).decode()) for z in (za, zb)]
+    for m in metas:
+        m.get("wl_tuning", {}).pop("segsum", None)
+    assert metas[0] == metas[1] and metas[1]["kind"] == "sharded"
+    src, dst, _ = load_packed(graph_npz)
+    for ck in cks:
+        drv = load_sharded_checkpoint(ck, src, dst, make_row_mesh(1, 1), device="cpu")
+        assert (drv.head, drv.step_idx) == (300 + 4 * 30, 4)
+
+
+def test_sharded_checkpoint_is_refused(graph_npz, tmp_path, capsys):
+    """``retrieve --from-checkpoint`` refuses a sharded checkpoint, as the
+    reference does, naming the port's way to serve it (a file of either
+    CLI); a dense one refuses a refine."""
+    _, cks = _sharded_checkpoints(graph_npz, tmp_path, capsys, "sharded-wl")
+    for ck in cks:
+        with pytest.raises(SystemExit, match=r"SHARDED checkpoint; serve it through the sharded "
+                           r"driver \(pprx_torch.io.checkpoint.load_sharded_checkpoint \+ "
+                           r"pprx_torch.dist.retrieve.make_sharded_topk\)"):
+            tcli.main(["retrieve", graph_npz, "--from-checkpoint", ck, *CPU])
+        with pytest.raises(SystemExit, match=r"SHARDED checkpoint; serve it through"):
+            jcli.main(["retrieve", graph_npz, "--from-checkpoint", ck])
     dense = str(tmp_path / "dense.npz")
     tcli.main(["stream", graph_npz, "--window", "300", "--slide", "30", "--steps", "1",
                "--engine", "dense", "--checkpoint", dense, "--checkpoint-every", "1",

@@ -654,3 +654,94 @@ def test_collective_wrappers_on_nccl(tmp_path):
 
     res = chip_smoke.collectives_check(_cuda(), str(tmp_path))
     assert res.pop("backend") == "nccl" and all(res.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [8, 128])
+def test_reverse_rowsum_sweep_through_the_kernel(s, dtype):
+    """Anomaly (ii) on the card: both shards of a 2-row mesh in reverse
+    (views by destination owner), the row-sum sweep's local and remote
+    segments through the kernel (with an f32 table, as ``rowsum_sweep``
+    runs it; with a bf16 table through the entry), against the plain
+    version, bit-identical on repeat; over both shards, every live edge
+    once: the window's row sums of the table."""
+    dev = _cuda()
+    src, dst, n = synthetic_powerlaw_stream(20_000, 200_000, seed=4)
+    total = direct = None
+    for rank in range(2):
+        from pprx_torch.dist.mesh import RowMesh
+        from pprx_torch.dist.wl import ShardedWlEngine
+
+        mesh = RowMesh(2, 1, rank, None, None, (0, 1))
+        eng = ShardedWlEngine(mesh, n, s, ecap=src.size, bcap=64, cfg=PprConfig(), mode=REVERSE,
+                              device=dev)
+        snap = eng.device_graph_wl(src, dst)[-1]
+        if total is None:
+            total = torch.zeros((eng.n_pad, s), dtype=torch.float64)
+            direct = torch.zeros_like(total)
+        p = torch.rand((eng.n_local, s), generator=torch.Generator().manual_seed(rank)).to(dtype)
+        table = torch.cat([p, torch.zeros((1, s), dtype=dtype)])
+        lo, hi = eng.row0, eng.row0 + eng.n_local
+        if dtype == torch.float32:
+            got = [eng.rowsum_sweep(p.to(dev), snap) for _ in range(2)]
+        else:
+            got = []
+            for _ in range(2):
+                pair = []
+                for seg, rows in (("loff", eng.n_local), ("roff", eng.n_pad)):
+                    out = torch.zeros((rows, s), device=dev)
+                    for v in ("d", "fd"):
+                        segsum_gather_add_(out, table.to(dev), snap[f"{v}_gat"],
+                                           snap[f"{v}_{seg}"])
+                    pair.append(out)
+                got.append(pair)
+        for (a, b), seg, out in zip(zip(*got), ("loff", "roff"), (total[lo:hi], total)):
+            assert torch.equal(a, b)
+            want = torch.zeros((a.shape[0], s), dtype=torch.float64)
+            for v in ("d", "fd"):
+                segsum_gather_add_plain(want, table.double(), snap[f"{v}_gat"].cpu(),
+                                        snap[f"{v}_{seg}"].cpu())
+            np.testing.assert_allclose(a.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+            out += want
+        mine = (dst >= lo) & (dst < hi)
+        direct.index_add_(0, torch.from_numpy(src[mine].astype(np.int64)),
+                          table.double()[torch.from_numpy((dst[mine] - lo).astype(np.int64))])
+    np.testing.assert_allclose(total.numpy(), direct.numpy(), rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,mode", [("wl", REVERSE), ("wlp", 0), ("wlp", REVERSE)])
+def test_sharded_reverse_and_wlp_streams_on_card_match_cpu(monkeypatch, engine, mode):
+    """The wl engine's reverse slide and the wlp loop at mesh 1x1 on a small
+    config-5-like stream: the card (f32, the kernel) against the CPU (f64,
+    plain version): ``p + alpha r`` within 1e-5; the card launches the
+    gather entry (reverse: the sweep unscaled, the rounds scaled). Every
+    wlp receive side takes the sorted delivery here (SORT_BUCKET_MIN=1 in
+    both runs), as the headline's large ones do."""
+    import pprx_torch.dist.wl as twl
+    from pprx_torch.dist.mesh import make_row_mesh
+    from pprx_torch.dist.stream import ShardedStreamDriver
+    from pprx_torch.engine.state import PprState
+
+    dev = _cuda()
+    monkeypatch.setattr(twl, "SORT_BUCKET_MIN", 1)
+    n, w, b, s = 2000, 20_000, 2000, 16
+    src, dst, n = synthetic_powerlaw_stream(n, w + 8 * b, seed=5)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
+    runs = {}
+    for tag, device, dtype in (("card", dev, torch.float32), ("cpu", "cpu", torch.float64)):
+        segsum.reset_launches()
+        drv = ShardedStreamDriver(src, dst, n, list(range(s)), cfg, StreamConfig(w, b),
+                                  make_row_mesh(1, 1), mode=mode, engine=engine, dtype=dtype,
+                                  device=device)
+        drv.seed()
+        list(drv.run(6))
+        runs[tag] = (drv, segsum.launches("segsum_gather_add"),
+                     segsum.launches("segsum_gather_add", scaled=True))
+    (card, launched, scaled), (cpu, _, _) = runs["card"], runs["cpu"]
+    assert launched > 0
+    if mode == REVERSE:
+        assert 0 < scaled < launched
+    a, c = (PprState(p=d.p[:n], r=d.r[:n], mode=mode) for d in (card, cpu))
+    assert settled_distance(a, c, cfg.alpha) <= 1e-5

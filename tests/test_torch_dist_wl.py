@@ -1,7 +1,8 @@
 """The port's sharded compact-frontier engine (pprx_torch.dist.wl) and its
-forward slide through ShardedStreamDriver(engine='wl'), against the JAX
-package's ShardedWlEngine on its virtual 8-device CPU mesh of the same
-shape.
+slides in both modes through ShardedStreamDriver(engine='wl'), against the
+JAX package's ShardedWlEngine on its virtual 8-device CPU mesh of the same
+shape, and the reverse slide's row-sum sweep against the reference's
+scatter form (its anomaly (ii)).
 
 The port runs in real gloo process groups, one world per mesh shape for the
 module (tests/_torch_dist_worker.py), f64 unless stated. Without overflow
@@ -25,10 +26,9 @@ from pprx.engine.push import push_to_convergence
 from pprx.engine.state import FORWARD, REVERSE, init_state
 from pprx.graph.dynamic import WindowGraph
 from pprx.ref.exact import exact_ppr
-from pprx_torch.config import PprConfig as TorchConfig, StreamConfig as TorchStream
+from pprx_torch.config import PprConfig as TorchConfig
 from pprx_torch.dist import wl as twl
-from pprx_torch.dist.mesh import make_row_mesh as torch_mesh
-from pprx_torch.dist.stream import ShardedStreamDriver as TorchDriver
+from pprx_torch.ref.exact import exact_ppr_columns
 from tests._torch_dist_worker import graph, stream, worlds
 
 torch.set_num_threads(1)
@@ -58,6 +58,10 @@ CASES = {
     "pin": ([(1, 1)], "wl_push", dict(mode=FORWARD, **PIN)),
     "pin_ref": ([(1, 1)], "wl_push", dict(mode=FORWARD, heavy_ew=2 * PIN["e_top"], **PIN)),
     "slide": (SHAPES, "slides", dict(engine="wl", ccap=64, fring=60)),
+    "slide_rev": (SHAPES, "slides", dict(engine="wl", mode=REVERSE, ccap=64, fring=60)),
+    "slide_carry_rev": ([(4, 1)], "slides", dict(engine="wl", mode=REVERSE, ccap=3, fring=60,
+                                                 seed=3, queries=(0, 5))),
+    **{f"sweep_s{s}": ([(1, 1), (2, 1)], "rowsum_sweeps", dict(s=s)) for s in (8, 128)},
     "slide_carry": ([(4, 1)], "slides", dict(engine="wl", ccap=3, fring=60, seed=3,
                                              queries=(0, 5))),
     "slide_s8": ([(2, 1)], "slides", dict(engine="wl", ccap=64, fring=60,
@@ -214,10 +218,11 @@ def test_stats_skip_threshold_pinned(world):
     _held(res["pin"], want, exact=False, m=m, eps=eps)
 
 
-def _jax_slides(shape, ccap=64, fring=60, seed=2, queries=(0, 5, 11, 33), steps=6):
+def _jax_slides(shape, ccap=64, fring=60, seed=2, queries=(0, 5, 11, 33), steps=6,
+                mode=FORWARD):
     src, dst, n = stream(seed)
     drv = ShardedStreamDriver(src, dst, n, list(queries), CFG, StreamConfig(300, 25),
-                              make_row_mesh(*shape), dtype=jnp.float64, engine="wl",
+                              make_row_mesh(*shape), mode=mode, dtype=jnp.float64, engine="wl",
                               ccap=ccap, fring=fring)
     st = [drv.seed()] + list(drv.run(steps))
     return drv, st, src, dst, n
@@ -235,6 +240,96 @@ def test_forward_slides_match_jax(world, shape):
     np.testing.assert_allclose(got["p"][:n], drv.host_p()[:n], atol=1e-12)
     np.testing.assert_allclose(got["r"][:n], drv.host_r()[:n], atol=1e-12)
     np.testing.assert_array_equal(got["deg"], drv.host_deg())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_reverse_slides_match_jax(world, shape):
+    """Six reverse slides across rebuilds (fring=60), the counterpart of
+    tests/test_dist_wl.py's reverse slide: per-slide rounds and wl rounds
+    equal, the state at 1e-12, the degrees; the touched-row seed keeps the
+    compact rounds going."""
+    drv, st, src, dst, n = _jax_slides(shape, mode=REVERSE)
+    got = world(shape)["slide_rev"]
+    np.testing.assert_array_equal(got["rounds"], [s["rounds"] for s in st])
+    np.testing.assert_array_equal(got["wl_rounds"], [s["wl_rounds"] for s in st])
+    assert got["wl_rounds"][1:].sum() > 0
+    np.testing.assert_allclose(got["p"][:n], drv.host_p()[:n], atol=1e-12)
+    np.testing.assert_allclose(got["r"][:n], drv.host_r()[:n], atol=1e-12)
+    np.testing.assert_array_equal(got["deg"], drv.host_deg())
+
+
+def test_reverse_slides_with_carry_hold_the_reverse_contract(world):
+    """ccap=3 at (4, 1) in reverse: carried deliveries and dense flushes
+    reorder the stream, so the final state is held to the reverse contract
+    on its window: every |r| <= eps, and |p - M e_t| <= eps (f64, the rows
+    of M sum to 1)."""
+    got = world((4, 1))["slide_carry_rev"]
+    src, dst, n = stream(3)
+    head = int(got["head"])
+    cols = exact_ppr_columns(src[head - 300:head], dst[head - 300:head], n, [0, 5], CFG.alpha,
+                             tol=1e-14, device="cpu")
+    assert np.abs(got["r"][:n]).max() <= CFG.eps
+    assert np.abs(got["p"][:n] - cols.T).max() <= CFG.eps
+    assert np.abs(got["p"][n:]).max(initial=0.0) == 0.0
+
+
+def _scatter_sweep(eng, p, snap) -> np.ndarray:
+    """The reference's reverse row-sum sweep in its scatter form
+    (pprx/dist/wl.py:1515-1570), shard by shard over its global arrays:
+    each shard's local-destination edges into its rows, the rest into the
+    global rows, summed as its reduce-scatter sums them."""
+    k_rows, nl, n_pad = eng.n_rows, eng.n_local, eng.n_pad
+    p = jnp.asarray(p)
+    s = p.shape[1]
+    total = jnp.zeros((n_pad, s), p.dtype)
+    for k in range(k_rows):
+        base = k * nl
+        p_ext = jnp.concatenate([p[base:base + nl], jnp.zeros((1, s), p.dtype)])
+        s_loc, acc = jnp.zeros((nl, s), p.dtype), jnp.zeros((n_pad, s), p.dtype)
+        for v in ("d", "fd"):
+            sca = jnp.split(snap[f"{v}_sca"], k_rows)[k]
+            contrib = p_ext[jnp.split(snap[f"{v}_gat"], k_rows)[k]]
+            inn = ((sca >= base) & (sca < base + nl))[:, None].astype(p.dtype)
+            s_loc = s_loc.at[jnp.clip(sca - base, 0, nl - 1)].add(contrib * inn)
+            acc = acc.at[jnp.clip(sca, 0, n_pad - 1)].add(contrib * (1 - inn))
+        total = total.at[base:base + nl].add(s_loc) + acc
+    return np.asarray(total)
+
+
+@pytest.mark.parametrize("s", [8, 128])
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1)])
+def test_reverse_rowsum_sweep_equals_the_scatter_form(world, shape, s):
+    """Anomaly (ii): the reference keeps its reverse row-sum sweep off its
+    kernel after a mid-stream mismatch. The port's sweep runs through the
+    segment sum's local-first views; on every slide of a reverse stream
+    (kills, a part-filled fresh view, rebuilds) its plain version equals
+    the reference's scatter form over the reference's own views, and both
+    equal the window's row sums of p, at K = 1 and K = 2."""
+    queries = [i % 40 for i in range(s)]
+    src, dst, n = stream(2)
+    drv = ShardedStreamDriver(src, dst, n, queries, CFG, StreamConfig(300, 25),
+                              make_row_mesh(*shape), mode=REVERSE, dtype=jnp.float64,
+                              engine="wl", ccap=64, fring=60)
+    want, direct = [], []
+    slide = drv.eng.slide_wl
+
+    def recording(p, r, deg, egl, eog, eva, snap, *rest):
+        want.append(_scatter_sweep(drv.eng, p, snap))
+        lo, ph = drv.head - 300, np.asarray(p)
+        rows = np.zeros_like(ph)
+        np.add.at(rows, src[lo:drv.head], ph[dst[lo:drv.head]])
+        direct.append(rows)
+        return slide(p, r, deg, egl, eog, eva, snap, *rest)
+
+    drv.eng.slide_wl = recording
+    st = [drv.seed()] + list(drv.run(6))
+    got = world(shape)[f"sweep_s{s}"]
+    np.testing.assert_array_equal(got["rounds"], [x["rounds"] for x in st])
+    assert got["s_old"].shape == (6, drv.eng.n_pad, s)
+    for i in range(6):
+        np.testing.assert_allclose(got["s_old"][i], want[i], rtol=0, atol=1e-12, err_msg=str(i))
+        np.testing.assert_allclose(want[i][:n], direct[i][:n], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got["p"][:n], drv.host_p()[:n], atol=1e-12)
 
 
 def test_slides_with_carry_stay_within_bound(world):
@@ -321,22 +416,3 @@ def test_sorted_bucket_matches_jax(k, ccap, length):
     with pytest.raises(ValueError, match="carry contract"):
         twl.sorted_bucket(torch.from_numpy(ids), torch.from_numpy(vals), k, n_local, n_pad,
                           ccap, ccarry - 1)
-
-
-def test_what_is_not_ported_says_so():
-    """The reverse slide, the memory-proportional loop and 'wlp' name the
-    PR that ports them."""
-    src, dst, n = stream(2)
-    cfg, scfg = TorchConfig(eps=1e-8), TorchStream(300, 25)
-    mesh = torch_mesh(1, 1)
-    with pytest.raises(NotImplementedError, match="PR 7"):
-        twl.ShardedWlEngine(mesh, n, 4, ecap=300, bcap=25, cfg=cfg, proportional=True,
-                            device="cpu")
-    for engine, mode in (("wlp", FORWARD), ("wl", REVERSE)):
-        with pytest.raises(NotImplementedError, match="PR 7"):
-            TorchDriver(src, dst, n, [0, 5], cfg, scfg, mesh, mode=mode, engine=engine,
-                        device="cpu")
-    eng = twl.ShardedWlEngine(mesh, n, 4, ecap=300, bcap=25, cfg=cfg, mode=REVERSE,
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="PR 7"):
-        eng.slide_wl(None, None, None, None, None, None, None, None, None, (0, 0))

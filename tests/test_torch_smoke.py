@@ -32,6 +32,7 @@ def test_port_imports_without_jax():
     assert "pprx_torch.engine.wl2" in mods and "pprx_torch.graph.fast_stream" in mods
     assert {f"pprx_torch.dist.{m}" for m in ("mesh", "init", "sharded", "wl", "stream",
                                              "retrieve")} <= set(mods)
+    assert {"pprx_torch.io.checkpoint", "pprx_torch.eval.membound"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -74,7 +75,7 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert '"ok"' not in out.stdout
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """Without a card, an entry point called with no ``device`` raises: it
     does not fall back to the CPU. With ``device="cpu"`` it runs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -89,9 +90,20 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from pprx_torch.dist.mesh import make_row_mesh
     from pprx_torch.dist.stream import ShardedStreamDriver
 
-    for engine in ("dense", "wl"):
+    from pprx_torch.io.checkpoint import load_sharded_checkpoint, save_sharded_checkpoint
+
+    for engine in ("dense", "wl", "wlp"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ShardedStreamDriver(*args, make_row_mesh(1, 1), engine=engine)
+    sharded = ShardedStreamDriver(*args, make_row_mesh(1, 1), engine="wlp", device="cpu")
+    sharded.seed()
+    list(sharded.run(1))
+    path = str(tmp_path / "sharded.npz")
+    save_sharded_checkpoint(path, sharded)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_sharded_checkpoint(path, src, dst, make_row_mesh(1, 1))
+    again = load_sharded_checkpoint(path, src, dst, make_row_mesh(1, 1), device="cpu")
+    assert again.p.device.type == "cpu" and again.eng.proportional
     assert init_state(n, [0, 3], device="cpu").r.device.type == "cpu"
     drv = FastStreamDriver(*args, rebuild_every=2, device="cpu")
     drv.seed()

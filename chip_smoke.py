@@ -116,14 +116,32 @@ round trip. Phases, one line each:
    apart, both stepped 2 slides and held to each other as phase 10 holds
    its pair, and to the reverse contract; 15e ``stream --engine sharded-wl
    --mode rev`` and ``stream --engine sharded-wlp`` (``--mesh 1,1``) on
-   phase 13's file. Each path must launch the gather entry.
+   phase 13's file. Each path must launch the gather entry;
+16. the hybrid engine (``HybridStreamDriver``: CSR snapshot, signed overlay,
+   worklist and scan rounds of plain torch ops): 16a the headline runner
+   with ``PPRX_BENCH_ENGINE=hybrid`` (precision@100 >= 0.95), then the
+   driver forward at its defaults (``rebuild_every=4``) on that stream: 6
+   warm-up and 8 timed slides (updates/s, rounds a slide by kind, scans by
+   reason, syncs a slide, rebuilds), peak memory, one slide under the
+   profiler, the exact-PPR contract on 16 sampled sources, and
+   ``FastStreamDriver`` timed the same way on the same stream (both rates
+   and their ratio; at one head the two states within 1e-5 settled, and
+   each one's maintained precision@100); 16d a checkpoint round trip of that driver (the
+   writer's tuning carried, both stepped 2 slides, within 1e-5 settled,
+   both held to the contract); 16b reverse at the headline shapes (2
+   warm-up and 3 timed slides) held to the reverse contract; 16c
+   ``worklist=False`` on a small stream (N=20k, W=200k, b=4k, S=16) whose
+   scan rounds run sparse, held to the contract and to the worklist
+   driver; 16e ``stream --engine hybrid`` in both modes on phase 13's file
+   and ``retrieve --from-checkpoint`` on the forward stream's file. Every
+   hybrid path must launch no segment-sum entry.
 
 Then a JSON line of the kernels (``launches``: the main path's, phases 4 to
 6, which must launch at least one entry; ``launches_by_path``: every path's,
 each counted with the counts set to 0 before it: the main path, each of the
 three reverse runs of phase 8, phases 9 and 10, each run of phase 11, each
 command of phase 13, each config 5 run and sharded command of phases 14
-and 15), the
+and 15, each hybrid run and command of phase 16), the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure
 raises: the exit code is not 0 and the last line is not printed. There is no CPU path. Nothing of
@@ -149,13 +167,14 @@ import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from pprx_torch import _ext, cli
+from pprx_torch.bench import headline
 from pprx_torch.bench.run import config5_run, run_config
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.device import require_cuda
 from pprx_torch.dist.mesh import all_to_all_rows, gather_stats, make_row_mesh, reduce_scatter_rows
 from pprx_torch.dist.retrieve import make_sharded_topk
 from pprx_torch.dist.stream import ShardedStreamDriver
-from pprx_torch.engine import segsum
+from pprx_torch.engine import segsum, sparse
 from pprx_torch.engine.segsum import (
     row_offsets,
     segment_ids,
@@ -169,6 +188,8 @@ from pprx_torch.engine.update import apply_edge_batch
 from pprx_torch.eval.metrics import l1_error, precision_at_k
 from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
 from pprx_torch.graph import native_io
+from pprx_torch.graph.hybrid_stream import TUNING as HYBRID_TUNING
+from pprx_torch.graph.hybrid_stream import HybridStreamDriver
 from pprx_torch.graph.io import (
     load_edge_list,
     load_packed,
@@ -1554,6 +1575,304 @@ def sharded_cli_15(dev, tmp: str, graph: str, w: int, b: int, s: int) -> dict:
     return res
 
 
+HYBRID_CLI_PATHS = ("cli_stream_hybrid", "cli_stream_hybrid_rev", "cli_retrieve_hybrid")
+
+
+def window_of(drv: HybridStreamDriver, queries) -> types.SimpleNamespace:
+    """A hybrid driver as the contracts read a ``FastStreamDriver``: its
+    state, its window's edges (the stream's last W before the head), its
+    queries."""
+    w, head = drv.scfg.window, drv.head
+    return types.SimpleNamespace(
+        state=drv.state, n=drv.n, cfg=drv.cfg, device=drv.device, _queries=list(queries),
+        hsrc=drv.stream_src[head - w:head], hdst=drv.stream_dst[head - w:head])
+
+
+@contextlib.contextmanager
+def environ(**env):
+    """``os.environ`` with ``env`` set, restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def scan_kinds():
+    """Counts of the hybrid engine's scan rounds by kind while the block
+    runs: ``sparse`` (a frontier round at a capacity tier) and ``dense``
+    (the COO round), read from the calls ``sparse._tiered_round`` makes."""
+    kinds = {"sparse": 0, "dense": 0}
+    own = {k: getattr(sparse, k) for k in ("sparse_round_given_act", "push_round_given_act")}
+
+    def counted(kind, fn):
+        def call(*a, **kw):
+            kinds[kind] += 1
+            return fn(*a, **kw)
+        return call
+
+    sparse.sparse_round_given_act = counted("sparse", own["sparse_round_given_act"])
+    sparse.push_round_given_act = counted("dense", own["push_round_given_act"])
+    try:
+        yield kinds
+    finally:
+        for k, fn in own.items():
+            setattr(sparse, k, fn)
+
+
+def hybrid_bench(dev, **env) -> dict:
+    """16a, first: the headline runner with ``PPRX_BENCH_ENGINE=hybrid``
+    (bench.py's protocol and keys, the hybrid driver at its defaults, one
+    block), with the counts set to 0 before it; the mean L1 within eps * W.
+    Its precision@100 is the maintained state's (eps, no refine: bench.py
+    refines only the fast driver), reported and not held to 0.95
+    (``maintained_precision`` in 16a puts the fast driver's beside it).
+    ``env``: more ``PPRX_BENCH_*`` settings."""
+    segsum.reset_launches()
+    with environ(PPRX_BENCH_ENGINE="hybrid", **{f"PPRX_BENCH_{k}": v for k, v in env.items()}):
+        out = headline.run(dev)
+    out["launches_by_entry"] = launches_by_entry()
+    if (out["config"]["engine"] != "hybrid" or len(out["blocks"]) != 1
+            or not out["l1_vs_exact_mean"] <= out["l1_bound_eps_E"]
+            or out["impl"] != "pprx_torch"):
+        raise AssertionError(f"bench (hybrid): {out}")
+    return out
+
+
+def hybrid_timed(drv: HybridStreamDriver, warmup: int, steps: int) -> dict:
+    """Seed, warm up, then time ``steps`` slides of a hybrid driver (host
+    clock around a device sync): updates/s, rounds a slide and their kinds
+    (worklist rounds; scans by reason: candidate list, edge bound,
+    live-overlay bound; sparse and dense scans), syncs a slide, snapshot
+    rebuilds in the timed slides."""
+    dev, b = drv.device, drv.scfg.slide
+    t0 = time.perf_counter()
+    seed = drv.seed()
+    sync(dev)
+    seed_s = time.perf_counter() - t0
+    list(drv.run(warmup))
+    sync(dev)
+    stats, rebuilds, snap = [], 0, drv.graph.snap
+    with scan_kinds() as kinds:
+        t0 = time.perf_counter()
+        for st in drv.run(steps):
+            stats.append(st)
+            rebuilds += drv.graph.snap is not snap
+            snap = drv.graph.snap
+        sync(dev)
+        wall = time.perf_counter() - t0
+    if len(stats) != steps:
+        raise AssertionError(f"stream ran {len(stats)} of {steps} slides")
+    per = {f"{k}_per_slide": sum(getattr(st, k) for st in stats) / steps
+           for k in ("rounds", "wl_rounds", "scans_cand", "scans_fed", "scans_liv", "syncs")}
+    return {"updates_per_s": 2 * b * steps / wall, "wall_s": wall, "seed_s": seed_s,
+            "seed_rounds": seed.rounds, "warmup": warmup, "steps": steps, **per,
+            "rounds": [st.rounds for st in stats],
+            "sparse_scans_per_slide": kinds["sparse"] / steps,
+            "dense_scans_per_slide": kinds["dense"] / steps, "rebuilds": rebuilds,
+            "edge_pushes_per_s": sum(st.edge_pushes for st in stats) / wall}
+
+
+def hybrid_forward(dev, n: int, w: int, b: int, s: int, warmup: int = 6, steps: int = 8,
+                   prof_steps: int = 1, spare: int = 2, n_check: int = 16
+                   ) -> tuple[dict, HybridStreamDriver]:
+    """16a: ``HybridStreamDriver`` forward at its defaults
+    (``rebuild_every=4``) on the headline runner's stream (seed 7, its
+    first edges repeated for the slides past the runner's), with the counts
+    set to 0 before it: ``hybrid_timed``, peak memory, ``prof_steps``
+    slides under the profiler, the exact-PPR contract on ``n_check``
+    sampled sources. Then ``FastStreamDriver`` (bench.py's rebuild rule) on
+    the same stream, timed the same way: both rates and their ratio. Leaves
+    ``spare`` slides for 16d. Both at one head, the two states must agree
+    to 1e-5 in ``settled_distance``; each one's maintained precision@100 is
+    reported. Returns (result, hybrid driver)."""
+    every = max(1, min(8, w // (6 * b)))
+    src, dst, n = synthetic_powerlaw_stream(n, w + (8 + every + 2 + 1) * b, seed=7)
+    more = (warmup + steps + prof_steps + spare + 1) * b + w - src.shape[0]
+    if more > 0:
+        src, dst = np.concatenate([src, src[:more]]), np.concatenate([dst, dst[:more]])
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
+    scfg = StreamConfig(window=w, slide=b)
+    segsum.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    drv = HybridStreamDriver(src, dst, n, list(range(s)), cfg, scfg, device=dev)
+    res = {"n": n, "window": w, "slide": b, "sources": s, "rebuild_every": drv.rebuild_every,
+           "tiers": [list(t) for t in drv.tiers], "fcap": drv.fcap, "scan_ecap": drv.scan_ecap,
+           "overlay_cap": int(drv.graph.ov.src.shape[0]), **hybrid_timed(drv, warmup, steps),
+           "peak_mem_gib": peak_gib(dev)}
+    if prof_steps:
+        res["profile"] = profile_slides(drv, prof_steps)
+    res["launches_by_entry"] = launches_by_entry()
+    res["contract"] = exact_contract(window_of(drv, range(s)), None, 0, n_check, cfg.eps * w)
+    fast = FastStreamDriver(src, dst, n, list(range(s)), cfg, scfg, rebuild_every=every,
+                            device=dev)
+    ft = run_stream(fast, warmup, steps)
+    res["fast"] = {k: ft[k] for k in ("updates_per_s", "rounds_per_slide", "syncs_per_slide")}
+    res["fast"]["rebuild_every"] = every
+    res["fast_over_hybrid"] = ft["updates_per_s"] / res["updates_per_s"]
+    # both at one head: the two engines' states side by side, held to each
+    # other as phase 10 holds a saved and a loaded driver
+    list(fast.run(prof_steps))
+    res["maintained_precision"] = maintained_precision({"hybrid": drv, "fast": fast}, 100,
+                                                       n_check)
+    res["settled_vs_fast"] = settled_distance(drv.state, fast.state, cfg.alpha)
+    if res["settled_vs_fast"] > 1e-5:
+        raise AssertionError(f"the hybrid and the fast driver differ: {res}")
+    return res, drv
+
+
+def maintained_precision(drivers: dict, k: int, n_check: int) -> dict:
+    """Forward drivers at one head of one stream: mean precision@k of each
+    maintained state (its eps, no refine) against exact PPR of the window
+    on ``n_check`` sampled sources (f64 power iteration on the device)."""
+    drv = next(iter(drivers.values()))
+    view = window_of(drv, range(drv.state.p.shape[1]))
+    if any(d.head != drv.head for d in drivers.values()):
+        raise AssertionError("the drivers are not at one head")
+    cols = np.linspace(0, drv.state.p.shape[1] - 1, n_check).astype(int)
+    pis = exact_ppr(view.hsrc, view.hdst, drv.n, [int(c) for c in cols], drv.cfg.alpha,
+                    tol=1e-10, device=drv.device)
+    out = {}
+    for name, d in drivers.items():
+        ids = topk_candidates(d.state.p, k)[1].cpu().numpy()
+        out[name] = float(np.mean([precision_at_k(ids[c], pi, k) for c, pi in zip(cols, pis)]))
+    return out
+
+
+def hybrid_reverse(dev, n: int, w: int, b: int, s: int, warmup: int = 2, steps: int = 3,
+                   n_check: int = 16) -> dict:
+    """16b: ``HybridStreamDriver(mode=REVERSE)`` at its defaults on the
+    headline stream (seed 7), with the counts set to 0 before it:
+    ``hybrid_timed``, peak memory and the reverse contract on ``n_check``
+    sampled targets at the maintained eps (phase 8's)."""
+    src, dst, n = synthetic_powerlaw_stream(n, w + (warmup + steps + 1) * b, seed=7)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
+    segsum.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    drv = HybridStreamDriver(src, dst, n, list(range(s)), cfg, StreamConfig(window=w, slide=b),
+                             mode=REVERSE, device=dev)
+    res = {"n": n, "window": w, "slide": b, "targets": s, **hybrid_timed(drv, warmup, steps),
+           "peak_mem_gib": peak_gib(dev), "launches_by_entry": launches_by_entry()}
+    res["contract"] = reverse_contract(window_of(drv, range(s)), cfg.eps, n_check=n_check)
+    return res
+
+
+def hybrid_no_worklist(dev, n: int = 20_000, w: int = 200_000, b: int = 4000, s: int = 16,
+                       steps: int = 4, n_check: int = 8) -> dict:
+    """16c: ``worklist=False`` (``push_to_convergence_hybrid``: every round a
+    scan, sparse where the frontier fits and is worth it) on a small stream
+    (seed 3) whose overlay is small beside the window, with the counts set
+    to 0 before it: seed and ``steps`` slides, the exact-PPR contract, and
+    the worklist driver on the same stream within 1e-5 in
+    ``settled_distance``. Must run sparse scan rounds."""
+    src, dst, n = synthetic_powerlaw_stream(n, w + (steps + 1) * b, seed=3)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
+    scfg = StreamConfig(window=w, slide=b)
+    segsum.reset_launches()
+    res, drivers = {"n": n, "window": w, "slide": b, "sources": s}, {}
+    for wl in (False, True):
+        drv = HybridStreamDriver(src, dst, n, list(range(s)), cfg, scfg, worklist=wl,
+                                 device=dev)
+        with scan_kinds() as kinds:
+            rounds = [drv.seed().rounds] + [st.rounds for st in drv.run(steps)]
+        sync(dev)
+        tag = "worklist" if wl else "no_worklist"
+        res[f"{tag}_rounds"], res[f"{tag}_scan_kinds"] = rounds, kinds
+        drivers[wl] = drv
+    res["launches_by_entry"] = launches_by_entry()
+    res["contract"] = exact_contract(window_of(drivers[False], range(s)), None, 0, n_check,
+                                     cfg.eps * w)
+    res["settled_distance"] = settled_distance(drivers[False].state, drivers[True].state,
+                                               cfg.alpha)
+    if res["settled_distance"] > 1e-5 or res["no_worklist_scan_kinds"]["sparse"] <= 0:
+        raise AssertionError(f"worklist=False: {res}")
+    return res
+
+
+def hybrid_checkpoint_check(drv: HybridStreamDriver, n_check: int, l1_bound: float) -> dict:
+    """16d: save 16a's driver mid-stream, load the file on the card: the
+    writer's tuning carried attribute by attribute, a fresh snapshot and an
+    empty overlay; both step 2 slides, hold the exact-PPR contract and
+    agree to 1e-5 in ``settled_distance`` (phase 10's pair), with the
+    counts set to 0 before it."""
+    dev = drv.device
+    segsum.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hybrid.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(path, drv)
+        save_s = time.perf_counter() - t0
+        size_mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        twin = load_checkpoint(path, drv.stream_src, drv.stream_dst, device=dev)
+        sync(dev)
+        load_s = time.perf_counter() - t0
+    if (not isinstance(twin, HybridStreamDriver) or (twin.head, twin.step_idx) != (drv.head,
+            drv.step_idx) or twin.ov_count != 0
+            or any(getattr(twin, a) != getattr(drv, a) for a in HYBRID_TUNING)):
+        raise AssertionError("the loaded hybrid driver is not where the saved one was")
+    rounds = [[st.rounds for st in d.run(2)] for d in (drv, twin)]
+    if any(len(r) != 2 for r in rounds):
+        raise AssertionError("no 2 slides left in the stream")
+    sync(dev)
+    diff = settled_distance(drv.state, twin.state, drv.cfg.alpha)
+    if diff > 1e-5:
+        raise AssertionError(
+            f"saved and loaded hybrid drivers differ after 2 slides: max |d(p + alpha r)| {diff}")
+    queries = range(drv.state.p.shape[1])
+    contracts = [exact_contract(window_of(d, queries), None, 0, n_check, l1_bound)
+                 for d in (drv, twin)]
+    return {"save_s": save_s, "load_s": load_s, "file_mb": size_mb, "rounds": rounds,
+            "ov_count_saved": drv.ov_count, "max_abs_settled": diff,
+            "max_abs_dp": float((drv.state.p - twin.state.p).abs().max()),
+            "l1_max": [c["l1_max"] for c in contracts],
+            "mass_err_max": [c["mass_err_max"] for c in contracts],
+            "launches_by_entry": launches_by_entry()}
+
+
+def hybrid_cli(dev, tmp: str, graph: str, w: int, b: int, s: int, k: int = 100) -> dict:
+    """16e: ``stream --engine hybrid`` (4 slides, forward with a checkpoint
+    at its end, and ``--mode rev``) on phase 13's converted file, then
+    ``retrieve --from-checkpoint`` on the forward stream's file, each with
+    the counts set to 0 before it (``run_cli``)."""
+    n_graph = int(load_packed(graph)[2])
+    qs = ["--queries", ",".join(map(str, range(min(s, n_graph))))]
+    shape = ["--window", str(w), "--slide", str(b), "--steps", "4", "--engine", "hybrid"]
+    ck = os.path.join(tmp, "hybrid_ck.npz")
+    res = {}
+    for path, extra in zip(HYBRID_CLI_PATHS[:2], (["--checkpoint", ck, "--checkpoint-every", "4"],
+                                                  ["--mode", "rev"])):
+        out = run_cli(["stream", graph, *shape, *qs, *extra, "--log",
+                       os.path.join(tmp, f"{path}.jsonl"), "--device", str(dev)])
+        if out["steps"] != 4 or out["updates_per_sec"] <= 0 or out["rounds"] <= 0:
+            raise AssertionError(f"{path}: {out}")
+        res[path] = out
+    out = run_cli(["retrieve", graph, "--from-checkpoint", ck, "--k", str(k), "--device",
+                   str(dev)])
+    if out["batch"] != min(s, n_graph) or out["k"] != k or out["queries_known"]:
+        raise AssertionError(f"retrieve --from-checkpoint on a hybrid file: {out}")
+    res["cli_retrieve_hybrid"] = out
+    os.remove(ck)
+    return res
+
+
+def check_no_launch(by_path: dict) -> dict:
+    """Every path named launched no segment-sum entry: it runs plain torch
+    ops."""
+    for path, counts in by_path.items():
+        if any(counts.values()):
+            raise AssertionError(f"{path} runs plain torch ops but launched {counts}")
+    return by_path
+
+
 def check_launched(by_path: dict, entry: str = "segsum_gather_add") -> dict:
     """Every path named launched ``entry``."""
     for path, counts in by_path.items():
@@ -1780,6 +2099,30 @@ def main() -> None:
             raise AssertionError(f"config5_rev: the sweep or the scaled rounds never launched "
                                  f"the gather entry: {rev['launches_scaled']}")
 
+        # the hybrid engine (plain torch ops: no kernel); each run sets the
+        # counts to 0 itself
+        hybrid = {"hybrid_bench": hybrid_bench(dev)}
+        log("16a bench hybrid", **hybrid["hybrid_bench"])
+        res16, hyb = hybrid_forward(dev, n=200_000, w=w, b=b, s=s)
+        hybrid["hybrid_forward"] = res16
+        log("16a hybrid forward", **res16)
+        hybrid["hybrid_checkpoint"] = hybrid_checkpoint_check(hyb, 16, l1_bound=cfg.eps * w)
+        log("16d hybrid checkpoint", **hybrid["hybrid_checkpoint"])
+        del hyb
+        torch.cuda.empty_cache()
+        hybrid["hybrid_reverse"] = hybrid_reverse(dev, n=200_000, w=w, b=b, s=s)
+        log("16b hybrid reverse", **hybrid["hybrid_reverse"])
+        torch.cuda.empty_cache()
+        hybrid["hybrid_no_worklist"] = hybrid_no_worklist(dev)
+        log("16c hybrid no worklist", **hybrid["hybrid_no_worklist"])
+        cli16 = hybrid_cli(dev, tmp, os.path.join(tmp, "stream.npz"), w, b, s, k=k)
+        for tag, res in cli16.items():
+            log(f"16e {tag.replace('_', ' ')}", **res)
+        hybrid_by_path = check_no_launch(
+            {**{path: res["launches_by_entry"] for path, res in hybrid.items()},
+             **{path: cli16[path]["launches_by_entry"] for path in HYBRID_CLI_PATHS}})
+        torch.cuda.empty_cache()
+
     if "jax" in sys.modules or "pprx" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     launches = {"forward": by_entry,
@@ -1787,7 +2130,7 @@ def main() -> None:
                    for tag, res in config2.items()},
                 **{f"reverse_{tag}": res["launches_by_entry"] for tag, res in reverse.items()},
                 "static": static_by_entry, "checkpoint": ckpt_by_entry, **cli_by_path,
-                **sharded_by_path}
+                **sharded_by_path, **hybrid_by_path}
     print(json.dumps({"kernels": [
         kernel_entry("segsum_add", "add", kern, launches),
         kernel_entry("segsum_gather_add", "gather", kern, launches),

@@ -31,15 +31,16 @@ Defaults: N=200k vertices, W=2M window, b=160k slide, S=128 sources, 8
 slides a block, 3 blocks, ``rebuild_every = max(1, min(8, W // (6 b)))``.
 The same environment variables as ``bench.py`` override them:
   PPRX_BENCH_N, PPRX_BENCH_W, PPRX_BENCH_B, PPRX_BENCH_S,
-  PPRX_BENCH_STEPS, PPRX_BENCH_REPS, PPRX_BENCH_ENGINE (fast|dense),
+  PPRX_BENCH_STEPS, PPRX_BENCH_REPS, PPRX_BENCH_ENGINE (fast|hybrid|dense),
   PPRX_BENCH_GRAPH (a packed .npz stream instead of the synthetic one),
   PPRX_BENCH_BF16 (1: bf16 delivery is the headline; default 0),
   PPRX_BENCH_DUAL (0: skip the other delivery mode),
   PPRX_BENCH_EPS_R (the retrieval refine's eps; 0 skips the refine),
   PPRX_BENCH_PRECISION (0: skip the exact-PPR check).
-Refused with a message: PPRX_BENCH_ENGINE=hybrid (that engine is not
-ported: the fast one superseded it) and PPRX_BENCH_SEGSUM=0 (the port
-delivers through its segment-sum kernel on the card, and has no other
+As in bench.py, the hybrid engine runs ``HybridStreamDriver`` at its own
+defaults (``rebuild_every=4``), and the hybrid and dense engines time one
+block and skip the refine. Refused with a message: PPRX_BENCH_SEGSUM=0 (the
+port delivers through its segment-sum kernel on the card, and has no other
 path there).
 """
 
@@ -60,6 +61,7 @@ from pprx_torch.device import device_name, resolve_device
 from pprx_torch.engine.state import PprState, PushStats
 from pprx_torch.eval.metrics import precision_at_k
 from pprx_torch.graph.fast_stream import FastStreamDriver
+from pprx_torch.graph.hybrid_stream import HybridStreamDriver
 from pprx_torch.graph.stream import StreamDriver
 from pprx_torch.ref.exact import exact_ppr
 from pprx_torch.sync import sync
@@ -111,11 +113,8 @@ def timed_blocks(drv, steps: int, reps: int) -> Iterator[tuple[float, list[PushS
 def _env_settings() -> dict:
     env = os.environ.get
     engine = env("PPRX_BENCH_ENGINE", "fast")
-    if engine == "hybrid":
-        raise SystemExit("PPRX_BENCH_ENGINE=hybrid: the hybrid engine is not ported "
-                         "(the fast engine superseded it); use fast or dense")
-    if engine not in ("fast", "dense"):
-        raise SystemExit(f"PPRX_BENCH_ENGINE must be fast or dense, got {engine!r}")
+    if engine not in ("fast", "hybrid", "dense"):
+        raise SystemExit(f"PPRX_BENCH_ENGINE must be fast, hybrid or dense, got {engine!r}")
     segsum = env("PPRX_BENCH_SEGSUM")
     if segsum is not None and segsum not in ("0", "1"):
         raise SystemExit(f"PPRX_BENCH_SEGSUM must be '0' or '1', got {segsum!r}")
@@ -164,8 +163,11 @@ def run(device: torch.device | str | None = None) -> dict:
             pass
         sync(device)
 
-    drv = (fast(opt["bf16d"]) if engine == "fast"
-           else StreamDriver(src, dst, n, queries, cfg, scfg, device=device))
+    if engine == "fast":
+        drv = fast(opt["bf16d"])
+    else:
+        ctor = HybridStreamDriver if engine == "hybrid" else StreamDriver
+        drv = ctor(src, dst, n, queries, cfg, scfg, device=device)
     warm(drv)
     blocks, best = [], None
     for wall, stats in timed_blocks(drv, steps, opt["reps"]):

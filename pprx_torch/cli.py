@@ -18,12 +18,12 @@ run one shard per process (``pprx_torch.dist``): a ``--mesh 1,1`` in one
 process, or one process per shard, started by torchrun or given
 ``--coordinator``, ``--num-processes`` and ``--process-id``; only rank 0
 prints, and ``--checkpoint`` writes the reference's sharded file. As in the
-reference, ``retrieve --from-checkpoint`` refuses a sharded file. The hybrid
-engine is not ported (the fast engine superseded it) and says so.
+reference, ``retrieve --from-checkpoint`` refuses a sharded file.
 
 The fast engine delivers through the segment-sum kernel, which takes f32
 or bf16: ``--f64`` with the fast engine on a CUDA device exits before any
-work. The dense engine runs plain torch ops in any dtype on any device.
+work. The dense and the hybrid engine run plain torch ops in any dtype on
+any device.
 """
 
 from __future__ import annotations
@@ -156,9 +156,10 @@ def cmd_static(args):
 
 
 def _make_stream_driver(args, src, dst, n, queries, scfg, device, mesh=None):
-    """The engine ``--engine`` names: the fast (wl2) or the dense driver, or,
-    on a ``mesh``, this process's shard of a sharded one."""
+    """The engine ``--engine`` names: the fast (wl2), the hybrid or the dense
+    driver, or, on a ``mesh``, this process's shard of a sharded one."""
     from pprx_torch.graph.fast_stream import FastStreamDriver
+    from pprx_torch.graph.hybrid_stream import HybridStreamDriver
     from pprx_torch.graph.stream import StreamDriver
 
     common = dict(mode=_mode(args), dtype=_dtype(args), device=device)
@@ -168,7 +169,8 @@ def _make_stream_driver(args, src, dst, n, queries, scfg, device, mesh=None):
         engine = {"sharded-wl": "wl", "sharded-wlp": "wlp"}.get(args.engine, "dense")
         return ShardedStreamDriver(src, dst, n, queries, _cfg(args), scfg, mesh, ecap=args.ecap,
                                    engine=engine, **common)
-    ctor = {"fast": FastStreamDriver, "dense": StreamDriver}[args.engine]
+    ctor = {"fast": FastStreamDriver, "hybrid": HybridStreamDriver,
+            "dense": StreamDriver}[args.engine]
     return ctor(src, dst, n, queries, _cfg(args), scfg, **common)
 
 
@@ -211,12 +213,6 @@ def _shard_device(args) -> torch.device:
     return device
 
 
-def _check_engine(args) -> None:
-    """Refuse what is not ported before any work."""
-    if args.engine == "hybrid":
-        raise SystemExit("--engine hybrid: superseded by the fast engine, not ported")
-
-
 def _as_push_stats(rec):
     """A sharded driver's record (a dict) as the ``PushStats`` the summary sums."""
     from pprx_torch.engine.state import PushStats
@@ -234,7 +230,6 @@ def cmd_stream(args):
     from pprx_torch.logging import JsonlLogger
     from pprx_torch.sync import sync
 
-    _check_engine(args)
     sharded = args.engine in SHARDED_ENGINES
     mesh = _sharded_mesh(args) if sharded else None
     device = _shard_device(args)
@@ -516,10 +511,11 @@ def main(argv=None):
         "--engine",
         choices=["fast", "hybrid", "dense", *SHARDED_ENGINES],
         default="fast",
-        help="fast = compact-frontier wl2 engine (default); dense = rounds over "
+        help="fast = compact-frontier wl2 engine (default); hybrid = CSR "
+        "snapshot + signed overlay with worklist rounds; dense = rounds over "
         "the whole COO window; sharded, sharded-wl = the row-sharded dense and "
         "compact-frontier engines; sharded-wlp = sharded-wl with the "
-        "memory-proportional carry and drain rounds; hybrid is not ported",
+        "memory-proportional carry and drain rounds",
     )
     p.add_argument("--mesh", type=str, default=None,
                    help="sharded engines: rows,srcs (default: one row per process)")

@@ -19,6 +19,13 @@ The sharded wl engine's per-shard snapshot crosses the same way
 (``wl_snap_to_arrays``, ``wl_snap_from_arrays``): its local-first views are
 ``d_sca``, ``d_toffl`` and ``d_toff`` (and ``fd_*``) in the reference, the
 local and remote per-row ranges ``d_loff`` and ``d_roff`` in the port.
+
+The hybrid engine's graph (``hybrid_graph_from_arrays``,
+``hybrid_graph_to_arrays``) has one layout in both packages: the window
+(``src, dst, deg``), the CSR snapshot (``snap_offsets, snap_nbr,
+snap_row_len``) and the signed overlay (``ov_src, ov_dst, ov_sign``), so a
+mid-stream graph with a stale snapshot and a live overlay crosses as it
+is. Checkpoints hold only the window: the snapshot is rebuilt on load.
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ import numpy as np
 import torch
 
 from pprx_torch.device import resolve_device
+from pprx_torch.engine.frontier import CsrSnapshot, Overlay
 from pprx_torch.engine.segsum import row_offsets, segment_ids
+from pprx_torch.engine.sparse import HybridGraph
 from pprx_torch.engine.state import PprState
 from pprx_torch.engine.wl2 import KillGraph, refresh_fresh_csr
 from pprx_torch.graph.dynamic import WindowGraph
@@ -63,7 +72,11 @@ def tile_offsets(offsets: np.ndarray, n_rows: int, tr: int = SEGSUM_TR) -> np.nd
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+    """A tensor on ``device`` that owns its memory where the array is
+    read-only (a view of another package's buffer): the port writes into
+    its graphs in place."""
+    a = np.ascontiguousarray(a, dtype=dtype)
+    return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
 
 
 def state_from_arrays(p, r, mode: int, device: torch.device | str | None = None) -> PprState:
@@ -84,6 +97,29 @@ def window_from_arrays(
         dst=_t(arrays["dst"], device, np.int32),
         deg=_t(arrays["deg"], device, np.int32),
     )
+
+
+_HYBRID_PARTS = {"snap": (CsrSnapshot, ("offsets", "nbr", "row_len")),
+                 "ov": (Overlay, ("src", "dst", "sign"))}
+
+
+def hybrid_graph_from_arrays(
+    arrays: Mapping[str, np.ndarray], device: torch.device | str | None = None
+) -> HybridGraph:
+    """HybridGraph from the window, ``snap_*`` and ``ov_*`` arrays, on
+    ``device`` (``None``: the card)."""
+    device = resolve_device(device)
+    parts = {part: cls(**{k: _t(arrays[f"{part}_{k}"], device, np.int32) for k in keys})
+             for part, (cls, keys) in _HYBRID_PARTS.items()}
+    return HybridGraph(window=window_from_arrays(arrays, device), **parts)
+
+
+def hybrid_graph_to_arrays(graph: HybridGraph) -> dict[str, np.ndarray]:
+    """The inverse of ``hybrid_graph_from_arrays`` (int32, on the host)."""
+    out = {k: _np32(getattr(graph.window, k)) for k in ("src", "dst", "deg")}
+    for part, (_, keys) in _HYBRID_PARTS.items():
+        out.update({f"{part}_{k}": _np32(getattr(getattr(graph, part), k)) for k in keys})
+    return out
 
 
 def kill_graph_from_arrays(

@@ -1,17 +1,19 @@
 """Stream checkpoint/resume (port of ``pprx.io.checkpoint``, single device).
 
 One ``.npz`` in the reference's layout: a ``meta`` JSON (n, head, step_idx,
-mode, engine, cfg, scfg, and for the fast driver its tuning), ``p, r, src,
-dst, deg``, and for the fast driver every ``kg_*`` array of the reference's
-KillGraph (the kill-in-place snapshot and the fresh ring are part of the
-exact round schedule). Files load both ways: a checkpoint of either package
-resumes in the other (``pprx_torch.convert`` bridges the two layouts of the
+mode, engine, cfg, scfg, and for the fast and the hybrid driver its
+tuning), ``p, r, src, dst, deg``, and for the fast driver every ``kg_*``
+array of the reference's KillGraph (the kill-in-place snapshot and the
+fresh ring are part of the exact round schedule). The hybrid driver's
+snapshot and overlay are derived state: its file holds the window, and the
+loader rebuilds the snapshot with an empty overlay; its tuning
+(``pprx_torch.graph.hybrid_stream.TUNING``) is the writer's. Files load both ways: a checkpoint of either package resumes in
+the other (``pprx_torch.convert`` bridges the two layouts of the
 delivery-sorted views).
 
-``meta["tuning"]["segsum"]`` is written true: the port always delivers
-through its segment sum, and the reference resumes on its kernel.
-Checkpoints of the reference's hybrid driver are refused: that engine is
-not ported.
+``meta["tuning"]["segsum"]`` is written true for the fast driver: the port
+always delivers through its segment sum, and the reference resumes on its
+kernel.
 
 Sharded checkpoints (``save_sharded_checkpoint``, ``load_sharded_checkpoint``)
 are the reference's too: one ``.npz`` of the global arrays (``p, r, deg``,
@@ -43,27 +45,35 @@ from pprx_torch.dist.mesh import RowMesh, all_gather_rows
 from pprx_torch.dist.sharded import ShardedEngine
 from pprx_torch.dist.stream import ShardedStreamDriver, assemble
 from pprx_torch.dist.wl import ShardedWlEngine
+from pprx_torch.engine.sparse import HybridGraph
 from pprx_torch.engine.state import FORWARD
 from pprx_torch.engine.wl2 import KillGraph
 from pprx_torch.graph.fast_stream import FastStreamDriver
+from pprx_torch.graph.hybrid_stream import TUNING as HYBRID_TUNING
+from pprx_torch.graph.hybrid_stream import HybridStreamDriver
 from pprx_torch.graph.stream import StreamDriver
 
+Driver = StreamDriver | FastStreamDriver | HybridStreamDriver
 
-def save_checkpoint(path: str, drv: StreamDriver | FastStreamDriver) -> None:
-    """Write ``drv`` (a ``StreamDriver`` or a ``FastStreamDriver``)
-    mid-stream to ``path``."""
+
+def save_checkpoint(path: str, drv: Driver) -> None:
+    """Write ``drv`` (a ``StreamDriver``, ``FastStreamDriver`` or
+    ``HybridStreamDriver``) mid-stream to ``path``."""
     is_fast = isinstance(drv.graph, KillGraph)
-    window = drv.graph.window if is_fast else drv.graph
+    is_hybrid = isinstance(drv.graph, HybridGraph)
+    window = drv.graph.window if (is_fast or is_hybrid) else drv.graph
     meta = {
         "n": drv.n,
         "head": drv.head,
         "step_idx": drv.step_idx,
         "mode": drv.mode,
-        "engine": "fast" if is_fast else "dense",
+        "engine": "hybrid" if is_hybrid else ("fast" if is_fast else "dense"),
         "cfg": dataclasses.asdict(drv.cfg),
         "scfg": dataclasses.asdict(drv.scfg),
     }
     extra = {}
+    if is_hybrid:
+        meta["tuning"] = {k: getattr(drv, k) for k in HYBRID_TUNING}
     if is_fast:
         meta["tuning"] = {
             "tiers": [list(t) for t in drv.tiers],
@@ -94,7 +104,7 @@ def load_checkpoint(
     stream_src: np.ndarray,
     stream_dst: np.ndarray,
     device: torch.device | str | None = None,
-) -> StreamDriver | FastStreamDriver:
+) -> Driver:
     """Rebuild a driver mid-stream on ``device`` (``None``: the card) from a
     checkpoint of either package. The caller re-supplies the stream (it is
     input data, not state); everything else comes from the file."""
@@ -102,14 +112,10 @@ def load_checkpoint(
         arrays = {k: z[k] for k in z.files}
     meta = json.loads(bytes(arrays.pop("meta")).decode())
     engine = meta.get("engine", "dense")
-    if engine == "fast":
-        return FastStreamDriver.from_arrays(stream_src, stream_dst, arrays, meta, device)
-    if engine == "dense":
-        return StreamDriver.from_arrays(stream_src, stream_dst, arrays, meta, device)
-    raise ValueError(
-        f"checkpoint of engine {engine!r}: not ported (the port has the dense and "
-        "the fast driver; the hybrid engine was superseded by the fast one)"
-    )
+    drivers = {"fast": FastStreamDriver, "hybrid": HybridStreamDriver, "dense": StreamDriver}
+    if engine not in drivers:
+        raise ValueError(f"checkpoint of unknown engine {engine!r}")
+    return drivers[engine].from_arrays(stream_src, stream_dst, arrays, meta, device)
 
 
 def _row_blocks(arrays: dict[str, np.ndarray], mesh: RowMesh, device) -> dict[str, np.ndarray]:

@@ -187,7 +187,6 @@ def test_headline_has_bench_keys(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("env,reason", [
-    ({"PPRX_BENCH_ENGINE": "hybrid"}, "hybrid engine is not ported"),
     ({"PPRX_BENCH_SEGSUM": "0"}, "no delivery path without its segment-sum kernel"),
     ({"PPRX_BENCH_SEGSUM": "2"}, "PPRX_BENCH_SEGSUM must be '0' or '1'"),
 ])
@@ -196,6 +195,25 @@ def test_headline_refuses(monkeypatch, env, reason):
         monkeypatch.setenv(k, v)
     with pytest.raises(SystemExit, match=reason):
         headline.run(device="cpu")
+
+
+def test_headline_hybrid_engine(monkeypatch, capsys):
+    """``PPRX_BENCH_ENGINE=hybrid``: bench.py's keys and config from the
+    hybrid driver at its own defaults, one block, no refine and no other
+    delivery mode, as bench.py runs it; top-100 against exact PPR."""
+    import bench
+
+    for k, v in {**HEADLINE_ENV, "ENGINE": "hybrid"}.items():
+        monkeypatch.setenv(f"PPRX_BENCH_{k}", str(v))
+    out = headline.run(device="cpu")
+    monkeypatch.setenv("PPRX_BENCH_PRECISION", "0")
+    bench.main()
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(out) == list(ref) + ["impl", "device"]
+    assert out["config"] == ref["config"] and out["config"]["engine"] == "hybrid"
+    assert len(out["blocks"]) == len(ref["blocks"]) == 1
+    assert out["bf16_updates_per_sec"] is None and out["refine_ms"] is None
+    assert out["top100_precision"] > 0.9 and out["l1_vs_exact_mean"] <= out["l1_bound_eps_E"]
 
 
 def test_headline_dense_engine(monkeypatch):

@@ -1,7 +1,8 @@
 """Checkpoints of the port (pprx_torch.io.checkpoint) against the JAX
 package's (pprx.io.checkpoint): files written by either package load in the
 other mid-stream and continue to the same state, f64 on the CPU at 1e-12,
-for the dense and the fast driver in both modes, and for the sharded
+for the dense, the fast and the hybrid driver (its writer's tuning carried,
+its snapshot rebuilt on load) in both modes, and for the sharded
 drivers (dense, wl and wlp engines, both modes) at mesh 1x1 and 2x2: the
 port's file is the reference's layout array by array, a file crosses
 either way bit for bit, a resumed driver goes on as the one that wrote the
@@ -21,6 +22,7 @@ from pprx.config import PprConfig, StreamConfig
 from pprx.dist.mesh import make_row_mesh as jax_mesh
 from pprx.dist.stream import ShardedStreamDriver as JaxShardedDriver
 from pprx.graph.fast_stream import FastStreamDriver as JaxFastDriver
+from pprx.graph.hybrid_stream import HybridStreamDriver as JaxHybridDriver
 from pprx.graph.io import synthetic_powerlaw_stream
 from pprx.graph.stream import StreamDriver as JaxDenseDriver
 from pprx.io.checkpoint import load_checkpoint as jax_load
@@ -31,6 +33,8 @@ from pprx_torch.convert import pad_len, tile_offsets
 from pprx_torch.dist.mesh import make_row_mesh
 from pprx_torch.engine.state import FORWARD, REVERSE
 from pprx_torch.graph.fast_stream import FastStreamDriver
+from pprx_torch.graph.hybrid_stream import TUNING as HYBRID_TUNING
+from pprx_torch.graph.hybrid_stream import HybridStreamDriver
 from pprx_torch.graph.stream import StreamDriver
 from pprx_torch.io.checkpoint import (
     load_checkpoint,
@@ -47,6 +51,8 @@ SCFG = StreamConfig(window=250, slide=25)
 N, QUERIES = 35, [0, 6, 17]
 MODES = [FORWARD, REVERSE]
 FAST = dict(rebuild_every=3, e_top=64, n_tiers=3)
+HYBRID = dict(rebuild_every=3, ecap=16)  # sparse scan rounds and edge-bound scans
+ENGINES = ["dense", "fast", "hybrid"]
 
 
 def _stream():
@@ -59,6 +65,9 @@ def _jax(engine, mode):
     if engine == "fast":
         return JaxFastDriver(src, dst, N, QUERIES, CFG, SCFG, mode=mode, dtype=jnp.float64,
                              segsum=False, **FAST)
+    if engine == "hybrid":
+        return JaxHybridDriver(src, dst, N, QUERIES, CFG, SCFG, mode=mode, dtype=jnp.float64,
+                               **HYBRID)
     return JaxDenseDriver(src, dst, N, QUERIES, CFG, SCFG, mode=mode, dtype=jnp.float64)
 
 
@@ -67,6 +76,9 @@ def _port(engine, mode):
     if engine == "fast":
         return FastStreamDriver(src, dst, N, QUERIES, CFG, SCFG, mode=mode,
                                 dtype=torch.float64, device="cpu", **FAST)
+    if engine == "hybrid":
+        return HybridStreamDriver(src, dst, N, QUERIES, CFG, SCFG, mode=mode,
+                                  dtype=torch.float64, device="cpu", **HYBRID)
     return StreamDriver(src, dst, N, QUERIES, CFG, SCFG, mode=mode, dtype=torch.float64,
                         device="cpu")
 
@@ -85,19 +97,35 @@ def _assert_same(jdrv, tdrv):
     assert (tdrv.head, tdrv.step_idx) == (jdrv.head, jdrv.step_idx)
 
 
+PORT_DRIVERS = {"dense": StreamDriver, "fast": FastStreamDriver, "hybrid": HybridStreamDriver}
+JAX_DRIVERS = {"dense": JaxDenseDriver, "fast": JaxFastDriver, "hybrid": JaxHybridDriver}
+
+
+def _assert_tuning(got, want):
+    """The hybrid tuning of the driver that wrote a file, attribute by
+    attribute, and a fresh snapshot with an empty overlay."""
+    for attr in HYBRID_TUNING:
+        assert getattr(got, attr) == getattr(want, attr), attr
+    assert got.ov_count == 0 and not np.asarray(got.graph.ov.sign).any()
+
+
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("engine", ["dense", "fast"])
+@pytest.mark.parametrize("engine", ENGINES)
 def test_jax_checkpoint_resumes_in_port(tmp_path, engine, mode):
     """JAX driver, 4 slides (one slide past a rebuild: kills and a
-    part-filled ring), save; the port loads it; both go on 4 slides (across
-    the next rebuild): equal rounds, the same state."""
+    part-filled ring; for the hybrid driver a stale snapshot and a live
+    overlay), save; the port loads it; both go on 4 slides (across the
+    next rebuild): equal rounds, the same state."""
     a = _jax(engine, mode)
     a.seed()
     list(a.run(4))
     path = str(tmp_path / "ck.npz")
     jax_save(path, a)
     b = load_checkpoint(path, *_stream(), device="cpu")
-    assert type(b) is (FastStreamDriver if engine == "fast" else StreamDriver)
+    assert type(b) is PORT_DRIVERS[engine]
+    if engine == "hybrid":
+        assert a.ov_count == 50
+        _assert_tuning(b, a)
     assert b.mode == mode and b.state.p.dtype == torch.float64
     assert dataclasses.asdict(b.cfg) == dataclasses.asdict(CFG)
     _assert_same(a, b)
@@ -108,7 +136,7 @@ def test_jax_checkpoint_resumes_in_port(tmp_path, engine, mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("engine", ["dense", "fast"])
+@pytest.mark.parametrize("engine", ENGINES)
 def test_port_checkpoint_resumes_in_jax(tmp_path, engine, mode):
     """The other way: the port saves mid-stream, the JAX package loads the
     file (its fast driver resumes on its kernel, in interpret mode here, as
@@ -119,9 +147,11 @@ def test_port_checkpoint_resumes_in_jax(tmp_path, engine, mode):
     path = str(tmp_path / "ck.npz")
     save_checkpoint(path, b)
     a = jax_load(path, *_stream())
-    assert type(a) is (JaxFastDriver if engine == "fast" else JaxDenseDriver)
+    assert type(a) is JAX_DRIVERS[engine]
     if engine == "fast":
         assert a.segsum is True and a.tiers == b.tiers and a.fcnt == b.fcnt == 25
+    if engine == "hybrid":
+        _assert_tuning(a, b)
     _assert_same(a, b)
     ra = [int(s.rounds) for s in a.run(4)]
     rb = [s.rounds for s in b.run(4)]
@@ -155,10 +185,11 @@ def test_port_file_holds_the_reference_layout(tmp_path, slides, mode):
     assert ma == mb
 
 
-@pytest.mark.parametrize("engine", ["dense", "fast"])
+@pytest.mark.parametrize("engine", ENGINES)
 def test_port_checkpoint_resumes_in_port(tmp_path, engine):
     """A resumed port driver goes on bit for bit as the one that wrote the
-    file (CPU: the plain versions are deterministic)."""
+    file (CPU: the plain versions are deterministic; the hybrid driver's
+    rebuilt snapshot stands for its stale one and the overlay)."""
     b = _port(engine, REVERSE)
     b.seed()
     list(b.run(5))
@@ -169,25 +200,64 @@ def test_port_checkpoint_resumes_in_port(tmp_path, engine):
         for attr in ("tiers", "rebuild_every", "e_top", "fring", "cap0", "fcnt", "bf16d"):
             assert getattr(c, attr) == getattr(b, attr), attr
         assert FastStreamDriver.from_checkpoint(path, *_stream(), device="cpu").head == b.head
+    if engine == "hybrid":
+        assert b.ov_count == 100
+        _assert_tuning(c, b)
     assert [s.rounds for s in b.run(4)] == [s.rounds for s in c.run(4)]
     assert torch.equal(b.state.p, c.state.p) and torch.equal(b.state.r, c.state.r)
 
 
 def test_other_engines_are_refused(tmp_path):
-    b = _port("dense", FORWARD)
+    """A hybrid file now loads as the hybrid driver; the fast driver's own
+    loader refuses a dense file."""
     path = str(tmp_path / "ck.npz")
-    save_checkpoint(path, b)
-    with np.load(path) as z:
-        arrays = {k: z[k] for k in z.files}
-    meta = json.loads(bytes(arrays["meta"]).decode())
-    meta["engine"] = "hybrid"
-    arrays["meta"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
-    np.savez_compressed(path, **arrays)
-    with pytest.raises(ValueError, match="hybrid.*not ported"):
-        load_checkpoint(path, *_stream(), device="cpu")
+    save_checkpoint(path, _port("hybrid", FORWARD))
+    assert type(load_checkpoint(path, *_stream(), device="cpu")) is HybridStreamDriver
+    b = _port("dense", FORWARD)
     with pytest.raises(ValueError, match="not a fast-driver"):
         save_checkpoint(path, b)
         FastStreamDriver.from_checkpoint(path, *_stream(), device="cpu")
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_hybrid_file_holds_the_reference_layout(tmp_path, mode):
+    """The port's hybrid file against the JAX driver's in the same state
+    (two slides: a stale snapshot and a live overlay, neither of which is
+    written): the same arrays, p and r at 1e-12, the same metadata."""
+    a, b = _jax("hybrid", mode), _port("hybrid", mode)
+    a.seed(), b.seed()
+    list(a.run(2)), list(b.run(2))
+    jax_save(str(tmp_path / "a.npz"), a)
+    save_checkpoint(str(tmp_path / "b.npz"), b)
+    with np.load(tmp_path / "a.npz") as za, np.load(tmp_path / "b.npz") as zb:
+        assert sorted(za.files) == sorted(zb.files) == ["deg", "dst", "meta", "p", "r", "src"]
+        for k in ("src", "dst", "deg"):
+            assert zb[k].dtype == za[k].dtype == np.int32
+            np.testing.assert_array_equal(zb[k], za[k], k)
+        for k in ("p", "r"):
+            np.testing.assert_allclose(zb[k], za[k], rtol=0, atol=1e-12)
+        ma, mb = (json.loads(bytes(z["meta"]).decode()) for z in (za, zb))
+    assert ma == mb and mb["engine"] == "hybrid"
+    assert set(mb["tuning"]) == set(HYBRID_TUNING)
+
+
+def test_hybrid_runs_are_bitwise_deterministic():
+    """tests/test_checkpoint.py::test_determinism_bitwise on the port, on
+    the CPU: two f32 hybrid runs are bit-identical (on the card the scatters
+    use atomics, and the contract is exact PPR, not bit identity)."""
+    src, dst, n = synthetic_powerlaw_stream(60, 800, seed=13)
+    scfg = StreamConfig(window=400, slide=40)
+    cfg = PprConfig(alpha=0.15, eps=1e-7)
+
+    def run():
+        drv = HybridStreamDriver(src, dst, n, [0, 7, 31], cfg, scfg, dtype=torch.float32,
+                                 device="cpu")
+        drv.seed()
+        list(drv.run(6))
+        return drv.state
+
+    s1, s2 = run(), run()
+    assert torch.equal(s1.p, s2.p) and torch.equal(s1.r, s2.r)
 
 
 @pytest.mark.parametrize("w,n_rows", [(1, 5), (2048, 256), (2049, 257), (250, 36), (75, 36)])

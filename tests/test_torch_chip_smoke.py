@@ -202,3 +202,43 @@ def test_sharded_phase_15_on_the_cpu(tmp_path):
     cli = chip_smoke.sharded_cli_15(dev, str(tmp_path), graph, 6000, 300, 8)
     assert set(cli) == set(chip_smoke.SHARDED_CLI_PATHS_15)
     assert not any(any(r["launches_by_entry"].values()) for r in cli.values())
+
+
+def test_hybrid_phase_16_on_the_cpu(tmp_path):
+    """Phase 16 as the card runs it, on the CPU at a small size: the
+    headline runner on the hybrid engine, the forward driver (its rebuilds,
+    scan kinds, profile, contract and the fast driver's rate beside it), a
+    checkpoint round trip, reverse within the reverse contract,
+    ``worklist=False`` with sparse scan rounds, and the CLI; no run launches
+    a kernel, which is what the launch check holds every hybrid path to."""
+    dev = torch.device("cpu")
+    bench = chip_smoke.hybrid_bench(dev, N=300, W=1500, B=100, S=4, STEPS=2, REPS=2)
+    assert bench["device"] == "cpu" and bench["refine_ms"] is None
+    shape = dict(n=2000, w=6000, b=300, s=8)
+    fwd, drv = chip_smoke.hybrid_forward(dev, n_check=4, **shape)
+    assert fwd["rebuild_every"] == 4 and fwd["rebuilds"] == 2 and len(fwd["rounds"]) == 8
+    assert fwd["wl_rounds_per_slide"] > 0 and fwd["syncs_per_slide"] > fwd["rounds_per_slide"]
+    assert fwd["contract"]["l1_max"] <= fwd["contract"]["l1_bound"] == 1e-6 * 6000
+    assert len(fwd["profile"]["rounds"]) == 1 and fwd["peak_mem_gib"] is None
+    assert fwd["fast_over_hybrid"] > 0 and fwd["fast"]["rebuild_every"] == 3
+    assert set(fwd["maintained_precision"]) == {"hybrid", "fast"}
+    assert fwd["settled_vs_fast"] <= 1e-5
+    assert drv.steps_available == 3
+    ck = chip_smoke.hybrid_checkpoint_check(drv, 4, l1_bound=1e-6 * 6000)
+    assert ck["max_abs_settled"] <= 1e-5 and ck["ov_count_saved"] > 0
+    assert ck["rounds"][0] == ck["rounds"][1]
+    rev = chip_smoke.hybrid_reverse(dev, n_check=4, **shape)
+    assert rev["contract"]["max_abs_err"] <= rev["contract"]["bound"]
+    nowl = chip_smoke.hybrid_no_worklist(dev, n=2000, w=20_000, b=400, s=4, n_check=4)
+    assert nowl["no_worklist_scan_kinds"]["sparse"] > 0
+    assert nowl["worklist_rounds"] == nowl["no_worklist_rounds"]
+    graph = str(tmp_path / "g.npz")
+    save_packed(graph, *synthetic_powerlaw_stream(2000, 6000 + 6 * 300, seed=7))
+    cli = chip_smoke.hybrid_cli(dev, str(tmp_path), graph, 6000, 300, 8, k=10)
+    assert set(cli) == set(chip_smoke.HYBRID_CLI_PATHS)
+    by_path = {"hybrid_forward": fwd["launches_by_entry"], **{
+        p: r["launches_by_entry"] for p, r in cli.items()}}
+    assert chip_smoke.check_no_launch(by_path) == by_path
+    by_path["hybrid_forward"] = {"segsum_add": 0, "segsum_gather_add": 1}
+    with pytest.raises(AssertionError, match="hybrid_forward runs plain torch ops"):
+        chip_smoke.check_no_launch(by_path)

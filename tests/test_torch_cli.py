@@ -74,7 +74,7 @@ def test_static_check_exact(graph_npz, capsys, argv):
     assert all(e < out["l1_bound"] for e in out["l1_error"])
 
 
-@pytest.mark.parametrize("engine", ["fast", "dense"])
+@pytest.mark.parametrize("engine", ["fast", "dense", "hybrid"])
 def test_stream_with_checkpoint(graph_npz, tmp_path, capsys, engine):
     """Per slide, the same rounds, pushes and edge pushes in both logs; the
     same summary keys plus ``device``; the checkpoint written."""
@@ -163,6 +163,43 @@ def test_retrieve_from_checkpoint(graph_npz, tmp_path, capsys):
     assert reads["jax", "torch"]["top1"] == reads["torch", "torch"]["top1"]
 
 
+@pytest.mark.parametrize("mode", ["fwd", "rev"])
+def test_hybrid_stream_checkpoint_and_retrieve(graph_npz, tmp_path, capsys, mode):
+    """``stream --engine hybrid --checkpoint`` through both CLIs in f64:
+    per slide the same rounds and counts, two files whose states agree at
+    1e-12; ``retrieve --from-checkpoint`` reads the same top1 from either
+    file through either CLI; ``--refine-eps`` on a hybrid file exits with
+    the reference's message."""
+    logs, cks = {}, {}
+    for tag, main, dev in (("jax", jcli.main, []), ("torch", tcli.main, CPU)):
+        logs[tag], cks[tag] = str(tmp_path / f"{tag}.jsonl"), str(tmp_path / f"{tag}.npz")
+        run_cli(capsys, main, ["stream", graph_npz, "--window", "300", "--slide", "30",
+                               "--steps", "5", "--engine", "hybrid", "--mode", mode,
+                               "--queries", "0,5,9", "--log", logs[tag], "--checkpoint",
+                               cks[tag], "--checkpoint-every", "5", "--f64", *dev])
+    keys = ("step", "rounds", "pushes", "edge_pushes")
+    want, got = ([tuple(r[k] for k in keys) for r in records(logs[t], "slide")]
+                 for t in ("jax", "torch"))
+    assert got == want and len(got) == 5 and sum(r[1] for r in got) > 0
+    with np.load(cks["jax"]) as a, np.load(cks["torch"]) as b:
+        assert json.loads(bytes(a["meta"]).decode()) == json.loads(bytes(b["meta"]).decode())
+        for k in ("p", "r"):
+            np.testing.assert_allclose(b[k], a[k], rtol=0, atol=1e-12)
+        for k in ("src", "dst", "deg"):
+            np.testing.assert_array_equal(b[k], a[k])
+    tops = set()
+    for ck in cks.values():
+        ref, out = both(capsys, ["retrieve", graph_npz, "--from-checkpoint", ck, "--k", "5"])
+        assert set(out) == set(ref) | {"device"} and out["batch"] == ref["batch"] == 3
+        assert out["top1"] == ref["top1"] and out["queries_known"] is False
+        tops.add(tuple(out["top1"]))
+    assert len(tops) == 1
+    for main, dev in ((jcli.main, []), (tcli.main, CPU)):
+        with pytest.raises(SystemExit, match="--refine-eps needs a fast-engine checkpoint"):
+            main(["retrieve", graph_npz, "--from-checkpoint", cks["torch"], "--refine-eps",
+                  "1e-9", *dev])
+
+
 def _serve_both(capsys, tmp_path, argv):
     outs, logs = [], []
     for tag, main, dev in (("jax", jcli.main, []), ("torch", tcli.main, CPU)):
@@ -249,8 +286,6 @@ def test_bench_without_config_runs_the_headline(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,reason", [
-    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "hybrid"],
-     "superseded by the fast engine, not ported"),
     (["stream", "G", "--window", "300", "--slide", "30", "--engine", "sharded", "--mesh", "4,2"],
      r"--engine sharded: mesh 4x2 needs 8 processes, the world has 1"),
     (["static", "G", "--queries", "0,50", *CPU], r"vertex id 50 is outside \[0, n\) for n = 50"),
@@ -270,7 +305,7 @@ def test_bench_without_config_runs_the_headline(monkeypatch, capsys):
      "serve: --f64 on cuda"),
     (["retrieve", "G", "--from-checkpoint", "G", "--refine-eps", "1e-7", "--f64", "--device",
       "cuda"], "retrieve --refine-eps: --f64 on cuda"),
-], ids=["hybrid", "sharded", "static-query-n",
+], ids=["sharded", "static-query-n",
         "static-query-negative", "stream-query", "dense-query", "retrieve-query", "serve-query",
         "serve-reverse", "stream-f64-cuda", "serve-f64-cuda", "retrieve-f64-cuda"])
 def test_refusals_name_the_reason(graph_npz, monkeypatch, argv, reason):

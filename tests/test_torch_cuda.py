@@ -27,6 +27,7 @@ from pprx_torch.engine.segsum import (
 from pprx_torch.engine.state import REVERSE, init_state, settled_distance
 from pprx_torch.engine.update import out_row_sums
 from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
+from pprx_torch.graph.hybrid_stream import TUNING, HybridStreamDriver
 from pprx_torch.graph.io import synthetic_powerlaw_stream
 from pprx_torch.graph.stream import StreamDriver
 from pprx_torch.io.checkpoint import load_checkpoint, save_checkpoint
@@ -745,3 +746,99 @@ def test_sharded_reverse_and_wlp_streams_on_card_match_cpu(monkeypatch, engine, 
         assert 0 < scaled < launched
     a, c = (PprState(p=d.p[:n], r=d.r[:n], mode=mode) for d in (card, cpu))
     assert settled_distance(a, c, cfg.alpha) <= 1e-5
+
+
+def _hybrid_pair(dev, mode, worklist, **kw):
+    """The hybrid driver on ``dev`` in f32 and on the CPU in f64, on a stream
+    whose scan rounds run sparse (slides of 25 beside a window of 1,500:
+    the overlay is small), rebuilding every 3 slides."""
+    src, dst, n = synthetic_powerlaw_stream(300, 3000, seed=3)
+    cfg = PprConfig(alpha=0.15, eps=1e-6)
+    scfg = StreamConfig(window=1500, slide=25)
+    kw = dict(mode=mode, rebuild_every=3, worklist=worklist, **kw)
+    return [HybridStreamDriver(src, dst, n, [0, 5, 9], cfg, scfg, dtype=dt, device=d, **kw)
+            for dt, d in ((torch.float32, dev), (torch.float64, "cpu"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("worklist", [True, False])
+@pytest.mark.parametrize("mode", [0, REVERSE])
+def test_hybrid_stream_on_card_matches_cpu(mode, worklist):
+    """The hybrid driver on the card (f32) and on the CPU (f64), 8 slides
+    across rebuilds: each query held to exact PPR on the final window
+    (forward: L1 within eps * W and mass within 1e-3; reverse: within
+    2 eps), the two states within 1e-5, and no segment-sum launch."""
+    dev = _cuda()
+    gpu, cpu = _hybrid_pair(dev, mode, worklist)
+    before = segsum.launches()
+    for d in (gpu, cpu):
+        d.seed()
+        assert len(list(d.run(8))) == 8
+    assert segsum.launches() == before
+    assert gpu.state.p.device.type == "cuda"
+    n, w, head = gpu.n, gpu.scfg.window, gpu.head
+    hs, hd = gpu.stream_src[head - w:head], gpu.stream_dst[head - w:head]
+    p = gpu.state.p[:n].double().cpu().numpy()
+    if mode == REVERSE:
+        exact = exact_ppr_columns(hs, hd, n, [0, 5, 9], 0.15, tol=1e-12, device=dev)
+        assert np.abs(p - exact.T).max() <= 2e-6
+        np.testing.assert_allclose(p, cpu.state.p[:n].numpy(), rtol=0, atol=1e-5)
+    else:
+        exact = exact_ppr(hs, hd, n, [0, 5, 9], 0.15, tol=1e-12, device=dev)
+        assert max(np.abs(p[:, j] - pi).sum() for j, pi in enumerate(exact)) <= 1e-6 * w
+        mass = p.sum(0) + gpu.state.r[:n].double().cpu().numpy().sum(0)
+        assert np.abs(mass - 1.0).max() <= 1e-3
+        assert settled_distance(gpu.state, cpu.state, 0.15) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_hybrid_checkpoint_on_card(tmp_path):
+    """A hybrid checkpoint saved on the card loads on the card and on the
+    CPU with the writer's tuning; one slide each: the same state to 1e-5
+    (the scatters use atomics on CUDA), and no segment-sum launch."""
+    dev = _cuda()
+    a, _ = _hybrid_pair(dev, 0, True, ecap=64)
+    before = segsum.launches()
+    a.seed()
+    list(a.run(4))
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, a)
+    b = load_checkpoint(path, a.stream_src, a.stream_dst)
+    c = load_checkpoint(path, a.stream_src, a.stream_dst, device="cpu")
+    assert b.device.type == "cuda" and c.device.type == "cpu"
+    for d in (b, c):
+        assert isinstance(d, HybridStreamDriver) and d.ov_count == 0
+        for attr in TUNING:
+            assert getattr(d, attr) == getattr(a, attr), attr
+        assert d.ecap == 64
+    for d in (a, b, c):
+        list(d.run(1))
+    assert segsum.launches() == before
+    for d in (b, c):
+        assert settled_distance(a.state, d.state, 0.15) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cli_hybrid_engine_on_card(tmp_path, capsys):
+    """``stream --engine hybrid`` runs on the card in f32 and in f64 (plain
+    torch ops: no dtype refusal), both modes, and ``retrieve
+    --from-checkpoint`` reads its file; nothing launches the kernel."""
+    import json
+
+    from pprx_torch import cli
+    from pprx_torch.graph.io import save_packed
+
+    _cuda()
+    graph, ck = str(tmp_path / "g.npz"), str(tmp_path / "ck.npz")
+    save_packed(graph, *synthetic_powerlaw_stream(50, 600, seed=1))
+    before = segsum.launches()
+    for extra in (["--f64"], ["--mode", "rev"], ["--checkpoint", ck, "--checkpoint-every", "2"]):
+        cli.main(["stream", graph, "--window", "300", "--slide", "30", "--steps", "2",
+                  "--engine", "hybrid", "--queries", "0,3", "--log",
+                  str(tmp_path / "log.jsonl"), *extra])
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert out["steps"] == 2 and out["device"] == torch.cuda.get_device_name(0)
+    cli.main(["retrieve", graph, "--from-checkpoint", ck, "--k", "5"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["batch"] == 2 and len(out["top1"]) == 2
+    assert segsum.launches() == before

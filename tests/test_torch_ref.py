@@ -126,3 +126,23 @@ def test_metrics_match_reference():
             assert tmetrics.precision_at_k(pred, exact, k) == jmetrics.precision_at_k(
                 pred, exact, k)
         assert tmetrics.l1_error(approx, exact) == jmetrics.l1_error(approx, exact)
+
+
+def test_max_error_and_tie_aware_recall_match_reference():
+    """The last two functions of pprx/eval/metrics.py: ``max_error``, and
+    ``recall_at_k_ties`` on rankings with many ties at the k-th score,
+    where tied vertices must not stand in for a missed better one."""
+    rng = np.random.default_rng(11)
+    for _ in range(5):
+        exact = rng.random(500).round(2)
+        approx = exact + rng.normal(scale=1e-2, size=500)
+        pred = np.argsort(-approx)
+        assert tmetrics.max_error(approx, exact) == jmetrics.max_error(approx, exact)
+        for k in (1, 10, 100):
+            assert tmetrics.recall_at_k_ties(pred, exact, k) == jmetrics.recall_at_k_ties(
+                pred, exact, k)
+    # a tied boundary at k: 2 strictly above, 3 tied for the last 2 slots
+    exact = np.array([0.9, 0.8, 0.5, 0.5, 0.5, 0.1])
+    for pred, want in (([0, 1, 2, 3], 1.0), ([2, 3, 4, 5], 0.5), ([0, 2, 3, 4], 0.75)):
+        got = tmetrics.recall_at_k_ties(np.array(pred), exact, 4)
+        assert got == jmetrics.recall_at_k_ties(np.array(pred), exact, 4) == want

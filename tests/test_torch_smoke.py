@@ -33,6 +33,8 @@ def test_port_imports_without_jax():
     assert {f"pprx_torch.dist.{m}" for m in ("mesh", "init", "sharded", "wl", "stream",
                                              "retrieve")} <= set(mods)
     assert {"pprx_torch.io.checkpoint", "pprx_torch.eval.membound"} <= set(mods)
+    assert {"pprx_torch.engine.frontier", "pprx_torch.engine.sparse",
+            "pprx_torch.graph.hybrid_stream"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -108,3 +110,24 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     drv = FastStreamDriver(*args, rebuild_every=2, device="cpu")
     drv.seed()
     assert len(list(drv.run(2))) == 2 and drv.state.p.device.type == "cpu"
+
+
+def test_hybrid_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """The hybrid driver and its checkpoint loader, called with no
+    ``device``, raise without a card; with ``device="cpu"`` they run."""
+    from pprx_torch.graph.hybrid_stream import HybridStreamDriver
+    from pprx_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src, dst, n = synthetic_powerlaw_stream(30, 300, seed=1)
+    args = (src, dst, n, [0, 3], PprConfig(alpha=0.2, eps=1e-6), StreamConfig(window=200, slide=20))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HybridStreamDriver(*args)
+    drv = HybridStreamDriver(*args, device="cpu")
+    drv.seed()
+    assert len(list(drv.run(2))) == 2 and drv.state.p.device.type == "cpu"
+    path = str(tmp_path / "hybrid.npz")
+    save_checkpoint(path, drv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint(path, src, dst)
+    assert load_checkpoint(path, src, dst, device="cpu").graph.snap.nbr.device.type == "cpu"

@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (pprx_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --turns [--out FILE] ROOT [ROOT ...]
 
 Drives the port's paths once on the card, and checks them: the main path
 (the headline forward stream that bench.py times for the JAX package), the
@@ -28,9 +29,16 @@ round trip. Phases, one line each:
    stream launches: window and fresh view (80k edges), scaled and not, at
    S=8 and at S=128, and its 140,000-lane compact round (int64 ``gat``);
 4. stream f32: FastStreamDriver at N=200k, W=2M, b=160k, S=128, eps=1e-6,
-   alpha=0.15 (bench.py's shapes): seed, warm-up, 8 timed slides; then two
-   more slides under ``torch.profiler`` (a ``profile`` line: the device's
-   busy and idle shares and the kernels that took the most device time);
+   alpha=0.15 (bench.py's shapes): seed, warm-up, 8 timed slides, with the
+   driver's captured rounds (``graphs``: graphs held, captures and their
+   seconds; in the timed slides the replays a round and the rounds run
+   eagerly, which should be 0); then two more slides under
+   ``torch.profiler`` (a ``profile`` line: the device's busy and idle
+   shares, the kernels that took the most device time, kernels inside
+   replayed graphs among them, and the host's launch calls a slide by API:
+   ``cudaGraphLaunch`` the replays, the rest eager launches and copies) and
+   two with a sync where the loop starts (a ``prologue`` line: the slide's
+   prologue, itself one captured graph, against its loop of replays);
 5. stream bf16: the same segment with bf16 delivery;
 6. serve: refine to eps=5e-8 (timed on the second call), top-100, and the
    exact-PPR contract on 16 sampled sources (f64 power iteration on the
@@ -40,7 +48,8 @@ round trip. Phases, one line each:
    shapes (N=100k, W=1M, b=10k, ``rebuild_every=8``, 10 warm-up and 10
    timed slides) at S=8 and at its S=128 co-batch, and bench.py's headline
    shapes in reverse (N=200k, W=2M, b=160k, S=128, ``rebuild_every=2``, 4
-   warm-up and 8 timed slides, then 2 under the profiler); each then
+   warm-up and 8 timed slides, then 2 under the profiler; the captured
+   rounds as in phase 4); each then
    refines to eps=5e-8 and is held to the reverse contract on up to 16
    sampled targets (``max_v |p[v, j] - M[v, t_j]| <= 2 eps`` against
    columns of M by f64 iteration on the card), with the f32 share of the
@@ -57,7 +66,8 @@ round trip. Phases, one line each:
    threshold a run happened to push);
 11. config 2 at its full shapes (forward, N=200k, W=2M, b=20k, S=16,
    ``rebuild_every=8``, seed 2; 10 warm-up and 10 timed slides, and 2 more
-   under the profiler in the f32 run), with f32 and with bf16 delivery:
+   under the profiler in the f32 run; the captured rounds as in phase 4),
+   with f32 and with bf16 delivery:
    the forward contract at eps=1e-6, a refine to 5e-8, top-100, and the
    contract again with precision@100 (bf16 delivery does not conserve
    mass, on any device: that run's mass is held within 1e-4 to the same
@@ -146,6 +156,17 @@ nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure
 raises: the exit code is not 0 and the last line is not printed. There is no CPU path. Nothing of
 JAX or of the JAX package ``pprx`` is imported.
+
+``--turns`` compares trees on one card instead: each ROOT (the root of a
+checkout of this repository) is a turn, one process started there that
+imports that root's ``chip_smoke`` and ``pprx_torch`` and drives
+``FastStreamDriver`` over the stream shapes of this file's phases 4, 5, 8
+and 11 (``turn_shapes``: the headline forward in f32 and with bf16
+delivery, the headline in reverse, config 2, config 3 at S=8) through that
+root's ``run_stream`` and ``profile_slides``. One summary line a shape goes
+to stdout, each whole record, with the card's name and power limit, to
+``--out`` (JSON lines). Compare two trees only inside one run, in turns
+(A, B, B, A).
 """
 
 from __future__ import annotations
@@ -175,6 +196,7 @@ from pprx_torch.dist.mesh import all_to_all_rows, gather_stats, make_row_mesh, r
 from pprx_torch.dist.retrieve import make_sharded_topk
 from pprx_torch.dist.stream import ShardedStreamDriver
 from pprx_torch.engine import segsum, sparse
+from pprx_torch.engine.graphs import copy_into_
 from pprx_torch.engine.segsum import (
     row_offsets,
     segment_ids,
@@ -186,6 +208,7 @@ from pprx_torch.engine.segsum import (
 from pprx_torch.engine.state import REVERSE, PprState, settled_distance
 from pprx_torch.engine.update import apply_edge_batch
 from pprx_torch.eval.metrics import l1_error, precision_at_k
+from pprx_torch.graph import fast_stream
 from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
 from pprx_torch.graph import native_io
 from pprx_torch.graph.hybrid_stream import TUNING as HYBRID_TUNING
@@ -212,6 +235,19 @@ from pprx_torch.ref.exact import (
 )
 from pprx_torch.retrieve.topk import topk_candidates
 from pprx_torch.sync import sync
+
+# the streams' shapes: phases 4-6 (the headline), 8 (config 3 and the
+# headline in reverse) and 11 (config 2; its S is C2_S, below)
+HEADLINE = dict(n=200_000, w=2_000_000, b=160_000, s=128, steps=8, prof_steps=2, seed=7)
+CONFIG3 = dict(n=100_000, w=1_000_000, b=10_000, rebuild_every=8, warmup=10, steps=10, seed=3)
+CONFIG2 = dict(n=200_000, w=2_000_000, b=20_000, rebuild_every=8, warmup=10, steps=10, seed=2)
+
+
+def headline_schedule(w: int, b: int) -> tuple[int, int]:
+    """(rebuild_every, warm-up slides) of the headline stream."""
+    rebuild_every = max(1, min(8, w // (6 * b)))
+    return rebuild_every, rebuild_every + 2
+
 
 KERNEL_TOL = 1e-4  # rtol = atol: f32 sums of up to ~4e4 terms in [0, 1)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -578,7 +614,11 @@ def launches_by_entry(since: dict | None = None, scaled: bool | None = None) -> 
 
 def run_stream(drv: FastStreamDriver, warmup: int, steps: int) -> dict:
     """Seed, warm up, then time ``steps`` slides (host clock around a
-    device sync) and summarise the per-slide push statistics."""
+    device sync) and summarise the per-slide push statistics, with the
+    driver's captured rounds (``graphs``: graphs held, captures and their
+    seconds since the driver was made; ``replays_per_round`` and
+    ``eager_rounds`` in the timed slides: every round there should be a
+    replay)."""
     dev = drv.device
     t0 = time.perf_counter()
     seed = drv.seed()
@@ -588,15 +628,18 @@ def run_stream(drv: FastStreamDriver, warmup: int, steps: int) -> dict:
         pass
     sync(dev)
     before = dict(segsum.LAUNCHES)
+    g0 = drv.round_graphs.summary()
     t0 = time.perf_counter()
     stats = list(drv.run(steps))
     sync(dev)
     wall = time.perf_counter() - t0
+    g1 = drv.round_graphs.summary()
     launched = segsum.launches(since=before)
     scaled = segsum.launches(scaled=True, since=before)
     if len(stats) != steps:
         raise AssertionError(f"stream ran {len(stats)} of {steps} slides")
     b = drv.scfg.slide
+    rounds = sum(st.rounds for st in stats)
 
     def per_slide(f):
         return sum(f(st) for st in stats) / steps
@@ -604,23 +647,36 @@ def run_stream(drv: FastStreamDriver, warmup: int, steps: int) -> dict:
     return {
         "updates_per_s": 2 * b * steps / wall,
         "wall_s": wall,
+        "wall_per_round_ms": wall * 1e3 / rounds,
         "seed_s": seed_s,
         "seed_rounds": seed.rounds,
         "rounds_per_slide": per_slide(lambda st: st.rounds),
         "wl_rounds_per_slide": per_slide(lambda st: st.wl_rounds),
         "scan_rounds_per_slide": per_slide(lambda st: st.scan_rounds),
         "syncs_per_slide": per_slide(lambda st: st.syncs),
+        "stats_reads_per_slide": per_slide(lambda st: st.stats_reads),
         "kernel_launches_per_slide": launched / steps,
         "scaled_launches_per_slide": scaled / steps,
         "edge_pushes_per_s": sum(st.edge_pushes for st in stats) / wall,
+        "graphs": g1,
+        "replays_per_round": (g1["replays"] - g0["replays"]) / rounds,
+        "eager_rounds": g1["eager_rounds"] - g0["eager_rounds"],
     }
+
+
+# Host-side calls that put work on the card, as torch.profiler names them
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+               "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def profile_slides(drv, steps: int, top: int = 10) -> dict:
     """``steps`` slides of a driver (fast or sharded) under
     ``torch.profiler``: wall time on the host clock, device busy time as the
     sum of the device-side kernel and copy times (one stream, so they do not
-    overlap), and the ``top`` of them."""
+    overlap; kernels inside a replayed CUDA graph are traced one by one),
+    the ``top`` of them, and the host's launch calls a slide by API
+    (``launches_per_slide``: ``cudaGraphLaunch`` is a round's replay, the
+    others are eager launches and copies)."""
     dev = drv.device
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -628,8 +684,8 @@ def profile_slides(drv, steps: int, top: int = 10) -> dict:
         stats = list(drv.run(steps))
         sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    on_dev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    on_dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     on_dev.sort(key=lambda e: e.self_device_time_total, reverse=True)
     # a profiler that sees no device activity measures nothing: say so
     busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3 if on_dev else None
@@ -638,19 +694,56 @@ def profile_slides(drv, steps: int, top: int = 10) -> dict:
         "rounds": [st["rounds"] if isinstance(st, dict) else st.rounds for st in stats],
         "device_busy_ms": busy_ms,
         "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+        "device_ops_per_slide": sum(e.count for e in on_dev) / steps,
+        "launches_per_slide": {e.key: e.count / steps for e in events
+                               if e.device_type != torch.autograd.DeviceType.CUDA
+                               and e.key in LAUNCH_APIS},
         "top": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3, "calls": e.count}
                 for e in on_dev[:top]],
     }
+
+
+def prologue_split(drv: FastStreamDriver, steps: int) -> dict:
+    """Where a slide's wall goes: ``steps`` slides with a device sync where
+    the convergence loop starts, the slide's prologue (the rebuild when one
+    is due, the batch's upload, and the replay of the captured prologue:
+    sorts, corrections, kills, ring append, fresh re-sort, first counts)
+    timed apart from its loop (round replays and their reads). The sync
+    adds one wait a slide, so these slides are not the timed ones."""
+    dev = drv.device
+    loop = fast_stream.converge_wl2
+    marks = []
+
+    def timed_loop(*args, **kw):
+        sync(dev)
+        marks.append(time.perf_counter())
+        return loop(*args, **kw)
+
+    fast_stream.converge_wl2 = timed_loop
+    try:
+        pro, tot = [], []
+        for _ in range(steps):
+            sync(dev)
+            t0 = time.perf_counter()
+            if len(list(drv.run(1))) != 1:
+                raise AssertionError("no slide left in the stream")
+            sync(dev)
+            tot.append(time.perf_counter() - t0)
+            pro.append(marks[-1] - t0)
+    finally:
+        fast_stream.converge_wl2 = loop
+    return {"slides": steps, "prologue_ms": [x * 1e3 for x in pro],
+            "slide_ms": [x * 1e3 for x in tot], "prologue_share": sum(pro) / sum(tot)}
 
 
 def serve_check(drv: FastStreamDriver, eps_r: float, k: int) -> dict:
     """Refine twice from the same state (the second call is timed), then
     read the top-k."""
     dev = drv.device
-    p0, r0 = drv.state.p.clone(), drv.state.r.clone()
+    saved = PprState(p=drv.state.p.clone(), r=drv.state.r.clone(), mode=drv.state.mode)
     drv.refine(eps_r)
     sync(dev)
-    drv.state = PprState(p=p0, r=r0, mode=drv.state.mode)
+    copy_into_(drv.state, saved)
     t0 = time.perf_counter()
     st = drv.refine(eps_r)
     sync(dev)
@@ -1944,19 +2037,17 @@ def main() -> None:
     ptxas = sorted({ln.split(":", 1)[1].strip() for ln in built.log.splitlines() if "Used" in ln})
     log("2 build", seconds=built.seconds, library=built.path.name, ptxas=ptxas)
 
-    n, w, b, s = 200_000, 2_000_000, 160_000, 128
+    n, w, b, s = (HEADLINE[k] for k in "nwbs")
     kern = check_kernel(dev, n, w, s)
     kern.update(check_kernel_config3(dev))
     kern.update(check_kernel_config2(dev))
     log("3 kernel", **kern)
     torch.cuda.empty_cache()
 
-    steps = 8
-    rebuild_every = max(1, min(8, w // (6 * b)))
-    warmup = rebuild_every + 2
-    prof_steps = 2
-    need = w + (steps + warmup + prof_steps + 1) * b
-    src, dst, n = synthetic_powerlaw_stream(n, need, seed=7)
+    steps, prof_steps = HEADLINE["steps"], HEADLINE["prof_steps"]
+    rebuild_every, warmup = headline_schedule(w, b)
+    need = w + (steps + warmup + 2 * prof_steps + 1) * b
+    src, dst, n = synthetic_powerlaw_stream(n, need, seed=HEADLINE["seed"])
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
     scfg = StreamConfig(window=w, slide=b)
     queries = list(range(s))
@@ -1974,6 +2065,8 @@ def main() -> None:
     log("4 stream f32", n=n, window=w, slide=b, sources=s, rebuild_every=rebuild_every,
         tiers=[list(t) for t in drv.tiers], **f32)
     log("4 profile", **profile_slides(drv, prof_steps))
+    log("4 prologue", **prologue_split(drv, prof_steps),
+        note="the slide's prologue (one replay) against its loop of graph replays")
 
     drv16 = FastStreamDriver(src, dst, n, queries, cfg, scfg, dtype=torch.float32,
                              rebuild_every=rebuild_every, bf16d=True, device=dev)
@@ -1999,14 +2092,13 @@ def main() -> None:
 
     # the reverse path: config 3's shapes at S=8 and S=128, then full width;
     # each run sets the counts to 0 and reads them itself
-    c3 = dict(n=100_000, w=1_000_000, b=10_000, rebuild_every=8, warmup=10, steps=10, seed=3,
-              eps_r=5e-8)
+    c3 = dict(CONFIG3, eps_r=5e-8)
     reverse = {
         "config3_s8": reverse_run(dev, s=8, **c3),
         "config3_s128": reverse_run(dev, s=128, **c3),
         "headline": reverse_run(
             dev, n=n, w=w, b=b, s=s, rebuild_every=rebuild_every, warmup=warmup, steps=steps,
-            seed=7, eps_r=5e-8, prof_steps=prof_steps),
+            seed=HEADLINE["seed"], eps_r=5e-8, prof_steps=prof_steps),
     }
     for tag, res in reverse.items():
         log(f"8 reverse {tag.replace('_', ' ')}", **res)
@@ -2032,8 +2124,7 @@ def main() -> None:
 
     # config 2 at its full shapes, f32 and bf16 delivery; each run sets the
     # counts to 0 and reads them itself
-    c2 = dict(n=200_000, w=2_000_000, b=20_000, s=C2_S, rebuild_every=8, warmup=10, steps=10,
-              seed=2, eps_r=5e-8, k=k)
+    c2 = dict(CONFIG2, s=C2_S, eps_r=5e-8, k=k)
     config2 = {"f32": forward_run(dev, prof_steps=prof_steps, **c2),
                "bf16": forward_run(dev, bf16d=True, **c2)}
     for tag, res in config2.items():
@@ -2139,5 +2230,88 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
 
 
+def turn_shapes() -> list[dict]:
+    """The stream shapes ``--turns`` drives: phases 4 and 5 (the headline
+    forward, f32 and bf16 delivery), phase 8's headline reverse and config 3
+    at S=8, phase 11's config 2 in f32."""
+    h = dict(HEADLINE)
+    h["rebuild_every"], h["warmup"] = headline_schedule(h["w"], h["b"])
+    c3 = dict(CONFIG3, s=8, prof_steps=h["prof_steps"])
+    c2 = dict(CONFIG2, s=C2_S, prof_steps=h["prof_steps"])
+    return [dict(h, tag="headline_fwd_f32", reverse=False, bf16d=False),
+            dict(h, tag="headline_fwd_bf16", reverse=False, bf16d=True),
+            dict(h, tag="headline_rev", reverse=True, bf16d=False),
+            dict(c2, tag="config2_f32", reverse=False, bf16d=False),
+            dict(c3, tag="config3_s8_rev", reverse=True, bf16d=False)]
+
+
+# one turn: run in a tree's root, so that its chip_smoke and pprx_torch load
+TURN = """
+import json, sys, torch
+import chip_smoke as cs
+from pprx_torch.config import PprConfig, StreamConfig
+from pprx_torch.engine.state import FORWARD, REVERSE
+from pprx_torch.graph.fast_stream import FastStreamDriver
+from pprx_torch.graph.io import synthetic_powerlaw_stream
+
+smi = cs.nvidia_smi()
+for sh in json.loads(sys.argv[1]):
+    n, w, b = sh["n"], sh["w"], sh["b"]
+    src, dst, n = synthetic_powerlaw_stream(
+        n, w + (sh["warmup"] + sh["steps"] + sh["prof_steps"] + 1) * b, seed=sh["seed"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    drv = FastStreamDriver(src, dst, n, list(range(sh["s"])),
+                           PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000),
+                           StreamConfig(window=w, slide=b),
+                           mode=REVERSE if sh["reverse"] else FORWARD, dtype=torch.float32,
+                           rebuild_every=sh["rebuild_every"], bf16d=sh["bf16d"],
+                           device=torch.device("cuda", 0))
+    res = cs.run_stream(drv, sh["warmup"], sh["steps"])
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["profile"] = cs.profile_slides(drv, sh["prof_steps"])
+    print(json.dumps({"shape": sh["tag"], "nvidia_smi": smi, **res}), flush=True)
+    del drv
+"""
+
+TURN_SUMMARY = ("updates_per_s", "rounds_per_slide", "syncs_per_slide", "wall_per_round_ms",
+                "peak_mem_gib", "kernel_launches_per_slide", "replays_per_round", "eager_rounds")
+
+
+def turns(argv: list[str]) -> int:
+    """``--turns [--out FILE] ROOT ...``: each root's stream shapes in turn."""
+    out = os.devnull
+    if argv[:1] == ["--out"]:
+        out, argv = argv[1], argv[2:]
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    shapes = json.dumps(turn_shapes())
+    with open(out, "w") as rec_file:
+        for i, root in enumerate(argv):
+            root = os.path.abspath(root)
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", TURN, shapes], cwd=root,
+                                  env=dict(os.environ, PYTHONPATH=root),
+                                  capture_output=True, text=True)
+            for line in proc.stdout.splitlines():
+                if not line.startswith("{"):
+                    continue
+                rec = {"turn": i, "root": root, **json.loads(line)}
+                rec_file.write(json.dumps(rec) + "\n")
+                prof = rec["profile"]
+                print(json.dumps({"turn": i, "root": root, "shape": rec["shape"],
+                                  **{k: rec.get(k) for k in TURN_SUMMARY},
+                                  "idle": prof["device_idle_share"],
+                                  "busy_ms": prof["device_busy_ms"],
+                                  "api": prof.get("launches_per_slide")}), flush=True)
+            print(json.dumps({"turn": i, "root": root, "rc": proc.returncode,
+                              "seconds": time.perf_counter() - t0}), flush=True)
+            if proc.returncode:
+                print(proc.stderr[-4000:], file=sys.stderr)
+                return proc.returncode
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--turns"]:
+        sys.exit(turns(sys.argv[2:]))
     main()

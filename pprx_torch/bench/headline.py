@@ -58,7 +58,8 @@ import torch
 from pprx_torch.bench.run import _stream
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.device import device_name, resolve_device
-from pprx_torch.engine.state import PprState, PushStats
+from pprx_torch.engine.graphs import copy_into_
+from pprx_torch.engine.state import PushStats
 from pprx_torch.eval.metrics import precision_at_k
 from pprx_torch.graph.fast_stream import FastStreamDriver
 from pprx_torch.graph.hybrid_stream import HybridStreamDriver
@@ -85,10 +86,12 @@ def snapshot(drv: FastStreamDriver) -> tuple:
 
 
 def restore(drv: FastStreamDriver, snap: tuple) -> None:
-    """Put ``drv`` back where ``snapshot`` found it, from fresh clones, so
-    that ``snap`` can be restored again."""
+    """Put ``drv`` back where ``snapshot`` found it, copying into the
+    driver's own tensors (its captured rounds read them), so that ``snap``
+    can be restored again."""
     state, graph, drv.fcnt, drv.head, drv.step_idx, hsrc, hdst = snap
-    drv.state, drv.graph = _clone(state), _clone(graph)
+    copy_into_(drv.state, state)
+    copy_into_(drv.graph, graph)
     drv.hsrc, drv.hdst = hsrc.copy(), hdst.copy()
 
 
@@ -201,10 +204,10 @@ def run(device: torch.device | str | None = None) -> dict:
     if opt["precision"]:
         if eps_r and eps_r < cfg.eps and isinstance(drv, FastStreamDriver):
             # twice from the same state; the second call is the one timed
-            p0, r0 = drv.state.p.clone(), drv.state.r.clone()
+            saved = _clone(drv.state)
             drv.refine(eps_r)
             sync(device)
-            drv.state = PprState(p=p0, r=r0, mode=drv.state.mode)
+            copy_into_(drv.state, saved)
             t0 = time.perf_counter()
             drv.refine(eps_r)
             sync(device)

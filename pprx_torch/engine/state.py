@@ -70,7 +70,9 @@ class PushStats:
     candidate-list overflow, snapshot-edge bound, fresh-edge bound).
 
     The port's loop runs on the host, so it adds ``syncs``: the number of
-    device-to-host reads the loop waited on.
+    device-to-host reads the loop waited on; and ``stats_reads``: the scan
+    rounds of the wl2 loop that read their counts before they ran their
+    next-frontier stats (the light scans, a second read each: F1).
     """
 
     rounds: int = 0
@@ -81,6 +83,7 @@ class PushStats:
     scans_fed: int = 0
     scans_liv: int = 0
     syncs: int = 0
+    stats_reads: int = 0
 
     @property
     def scan_rounds(self) -> int:

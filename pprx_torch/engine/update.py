@@ -95,7 +95,7 @@ def apply_edge_batch(
     k_ins = _counts(ins_src, n_rows)
     p, r = state.p, state.r
     deg_new = d0 - k_del + k_ins
-    deg_new[-1] = 0  # phantom row degree pinned
+    deg_new[-1:].fill_(0)  # phantom row degree pinned (a slice: capturable)
     new_graph = WindowGraph(src=graph.src, dst=graph.dst, deg=deg_new)
 
     if state.mode != FORWARD:

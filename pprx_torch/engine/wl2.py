@@ -14,9 +14,12 @@ What the engine does is the reference's (see ``pprx/engine/wl2.py``):
 How the port differs:
 
 - The loop runs on the host. Per round, the device scalars the next
-  decision needs (cn, fed, fre, na, ew) are packed into one small tensor
-  and read back once: one host sync per round, counted in
-  ``PushStats.syncs``.
+  decision needs (cn, fed, fre, na, ew) land in one small buffer that is
+  read back once: one host sync per round, counted in ``PushStats.syncs``.
+  On CUDA every round is the replay of a captured graph
+  (``pprx_torch.engine.graphs``: the counterpart of the reference's jitted
+  programs); rounds update the state in place and hand the next candidate
+  list over in a static buffer, so that a graph's addresses stay fixed.
 - ``jnp.nonzero(size=, fill_value=)`` becomes ``compact``: a fixed-size
   cumsum-scatter compaction with no sync and a static shape.
 - Multi-operand ``lax.sort`` becomes ``torch.sort(stable=True)`` plus
@@ -28,10 +31,11 @@ How the port differs:
   reference hands to its kernel is never built. The TPU kernel's lane
   padding, EC padding and tile offsets are gone; per-row offsets
   (``d_off``, ``fd_off``) take their place.
-- The scan round always computes the next frontier; the stats-skip rule
-  (``STATS_GUARD``) is applied to the numbers afterwards, so the round
-  schedule is the reference's. On this card the skipped pass is one read of
-  ``r``, and skipping it would cost a second sync.
+- A scan round's next-frontier stats are a graph of their own
+  (``_frontier_stats``), run after the scan's counts are read and only for
+  a light scan, as the reference's ``lax.cond`` skips them: a second read
+  in light scan rounds (``PushStats.stats_reads``). The round schedule is
+  the reference's.
 - Reverse scan rounds hand the receiver's 1/d_out to the segment sum as its
   per-row scale (the delivery row is the receiver), where the reference
   either folds it into every edge or factors it out of a window-sized
@@ -46,6 +50,7 @@ import dataclasses
 import torch
 
 from pprx_torch.config import PprConfig
+from pprx_torch.engine.graphs import RoundGraphs, copy_into_
 from pprx_torch.engine.push import _active_mask
 from pprx_torch.engine.segsum import row_offsets, segsum_gather_add_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats
@@ -138,7 +143,7 @@ def build_kill_graph(window: WindowGraph, mode: int, fring: int) -> KillGraph:
     d_pos = _inverse_perm(order_d)
     # the empty fresh view: every ring entry is phantom, owned by row n
     fd_off = torch.zeros(n + 2, dtype=torch.int32, device=dev)
-    fd_off[n + 1] = fring
+    fd_off[n + 1:].fill_(fring)
     full_n = torch.full((fring,), n, dtype=torch.int32, device=dev)
     return KillGraph(
         window=window,
@@ -159,21 +164,27 @@ def build_kill_graph(window: WindowGraph, mode: int, fring: int) -> KillGraph:
     )
 
 
+def rebuild_kill_graph_(kg: KillGraph, mode: int, fring: int) -> KillGraph:
+    """``build_kill_graph`` of ``kg``'s window, written into ``kg``'s own
+    tensors (a captured round keeps reading them); returns ``kg``."""
+    copy_into_(kg, build_kill_graph(kg.window, mode, fring))
+    return kg
+
+
 def refresh_fresh_csr(kg: KillGraph) -> KillGraph:
     """Re-sort the fresh ring into the mini-CSR and the delivery-sorted
-    fresh view (once per slide, after the ring append). ``f_len`` is kept
-    incrementally by the slide step; phantom padding sorts to the tail."""
+    fresh view (once per slide, after the ring append), in place; returns
+    ``kg``. ``f_len`` is kept incrementally by the slide step; phantom
+    padding sorts to the tail."""
     n = kg.n
     _, order = torch.sort(kg.fr_gat, stable=True)
     fd_sca, order_d = torch.sort(kg.fr_sca, stable=True)
-    zero = torch.zeros(1, dtype=torch.int32, device=kg.f_len.device)
-    return dataclasses.replace(
-        kg,
-        f_nbr=kg.fr_sca[order],
-        f_off=torch.cat([zero, torch.cumsum(kg.f_len, 0, dtype=torch.int32)]),
-        fd_gat=kg.fr_gat[order_d],
-        fd_off=row_offsets(fd_sca, n + 1),
-    )
+    kg.f_nbr.copy_(kg.fr_sca[order])
+    kg.f_off[:1].fill_(0)
+    kg.f_off[1:].copy_(torch.cumsum(kg.f_len, 0, dtype=torch.int32))
+    kg.fd_gat.copy_(kg.fr_gat[order_d])
+    kg.fd_off.copy_(row_offsets(fd_sca, n + 1))
+    return kg
 
 
 def dense_round_sorted(
@@ -181,8 +192,8 @@ def dense_round_sorted(
 ) -> tuple[PprState, torch.Tensor, torch.Tensor]:
     """One push round over every active (vertex, query) pair, delivered in
     scatter-endpoint order through the segment sum (window view, then
-    fresh view). Returns (state2, n_active, edge_pushes) with int64 device
-    scalars.
+    fresh view). Updates ``state.p`` and ``state.r`` in place and returns
+    (state, n_active, edge_pushes) with int64 device scalars.
 
     ``bf16d`` delivers the increments in bf16 (f32 accumulation); the
     residual removal, and in reverse mode the per-row scale, stay exact in
@@ -194,8 +205,8 @@ def dense_round_sorted(
     act = _active_mask(state, kg.window, cfg)
     mass = torch.where(act, state.r, 0.0)
     dangling = (deg == 0)[:, None]
-    p2 = state.p + torch.where(dangling, mass, alpha * mass)
-    r2 = state.r - mass
+    state.p.add_(torch.where(dangling, mass, alpha * mass))
+    state.r.sub_(mass)
     inv_deg = 1.0 / deg.clamp(min=1).to(dtype)
     if state.mode == FORWARD:
         moving = (1.0 - alpha) * mass * inv_deg[:, None]
@@ -214,11 +225,11 @@ def dense_round_sorted(
         moving = moving.to(torch.bfloat16)
     # rows [0, n) only: the phantom row's edges (ring padding, unfilled
     # fresh slots) are never read, and row n is zeroed anyway
-    segsum_gather_add_(r2[:n], moving, kg.d_gat, kg.d_off[: n + 1], row_scale=scale)
-    segsum_gather_add_(r2[:n], moving, kg.fd_gat, kg.fd_off[: n + 1], row_scale=scale)
-    p2[-1] = 0.0
-    r2[-1] = 0.0
-    return PprState(p=p2, r=r2, mode=state.mode), act.sum(), edge_pushes
+    segsum_gather_add_(state.r[:n], moving, kg.d_gat, kg.d_off[: n + 1], row_scale=scale)
+    segsum_gather_add_(state.r[:n], moving, kg.fd_gat, kg.fd_off[: n + 1], row_scale=scale)
+    state.p[-1] = 0.0
+    state.r[-1] = 0.0
+    return state, act.sum(), edge_pushes
 
 
 def rld_expand(
@@ -331,7 +342,7 @@ def _compact_round(
 
     mass = torch.where(act_c, r_c, 0.0)
     dang_c = (deg_c == 0)[:, None]
-    p2 = state.p.index_add_(0, cand, torch.where(dang_c, mass, alpha * mass))
+    state.p.index_add_(0, cand, torch.where(dang_c, mass, alpha * mass))
     if state.mode == FORWARD:
         inv_deg_c = 1.0 / deg_c.clamp(min=1).to(dtype)
         moving = (1.0 - alpha) * mass * inv_deg_c[:, None]
@@ -365,17 +376,15 @@ def _compact_round(
         # in place into state.r (nothing reads the pre-round r after this),
         # rows [0, n) only: masked lanes and padding all key the phantom row
         sorted_deliver_(state.r[:n], keys, vals)
-        r2 = state.r
     else:
-        r2 = state.r.index_add_(0, keys, vals)
+        state.r.index_add_(0, keys, vals)
 
     edge_work = (act_c * (kg.row_len[cand] + kg.f_len[cand])[:, None]).sum()
-    state2 = PprState(p=p2, r=r2, mode=state.mode)
 
     if rescan_emit:
         # big rounds: a full activity rescan is cheaper than winner-dedup
         # over O(e_cap) targets, and tightens the counts to the true frontier
-        cand2, cn2, fed2, fre2 = _frontier_stats(state2, kg, cfg, emit_w)
+        cand2, cn2, fed2, fre2 = _frontier_stats(state, kg, cfg, emit_w)
     else:
         # winner-dedup: the lane that reads back its own id owns the row.
         # amax makes the last lane the winner, as the reference's sequential
@@ -390,7 +399,7 @@ def _compact_round(
         cand2 = torch.where(in_r, tgt_d[cpos], n)
         fed2 = torch.where(win, kg.row_len[tgt_d], 0).sum()
         fre2 = torch.where(win, kg.f_len[tgt_d], 0).sum()
-    return state2, cand2, cn2, fed2, fre2, n_active, edge_work
+    return state, cand2, cn2, fed2, fre2, n_active, edge_work
 
 
 def _fit(cand: torch.Tensor, w: int, n: int) -> torch.Tensor:
@@ -399,6 +408,56 @@ def _fit(cand: torch.Tensor, w: int, n: int) -> torch.Tensor:
         return cand[:w]
     pad = torch.full((w - cand.shape[0],), n, dtype=cand.dtype, device=cand.device)
     return torch.cat([cand, pad])
+
+
+# ---- the rounds as the loop runs them: each reads the candidate list from
+# the RoundGraphs buffer and writes its list and counts back there, so that
+# on CUDA each is one captured graph
+
+def first_count(kg: KillGraph, g: RoundGraphs) -> None:
+    """The seed list's exact counts (cn, fed, fre): its first ``c0n``
+    entries that are not phantom."""
+    n = kg.n
+    cand = g.cand
+    live = (cand != n) & (torch.arange(cand.shape[0], device=cand.device) < g.c0n)
+    g.put(0, live.sum(), torch.where(live, kg.row_len[cand], 0).sum(),
+          torch.where(live, kg.f_len[cand], 0).sum())
+
+
+def _compact_step(state, kg, cfg, g: RoundGraphs, tier, emit_w: int, rescan: bool) -> None:
+    w_i, e_i, g_i = tier
+    _, cand2, cn2, fed2, fre2, na, ew = _compact_round(
+        state, kg, cfg, g.cand[:w_i], e_i, g_i, emit_w, rescan)
+    g.emit(cand2)
+    g.put(0, cn2, fed2, fre2, na, ew)
+
+
+def _scan_step(state, kg, cfg, g: RoundGraphs, bf16d: bool) -> None:
+    _, na, ew = dense_round_sorted(state, kg, cfg, bf16d=bf16d)
+    g.put(3, na, ew)
+
+
+def _stats_step(state, kg, cfg, g: RoundGraphs) -> None:
+    cand2, cn2, fed2, fre2 = _frontier_stats(state, kg, cfg, kg.n + 1)
+    g.emit(cand2)
+    g.put(0, cn2, fed2, fre2)
+
+
+def round_graphs_for(state: PprState, kg: KillGraph, tiers, device,
+                     graphs: RoundGraphs | None) -> RoundGraphs:
+    """``graphs`` (a new cache where it is ``None``) bound to ``state`` and
+    ``kg``, with a candidate buffer as wide as the ladder's top tier."""
+    g = RoundGraphs(kg.n, tiers[-1][0], device) if graphs is None else graphs
+    if g.cand.shape[0] < tiers[-1][0]:
+        raise ValueError(f"a candidate buffer of {g.cand.shape[0]} is narrower than "
+                         f"tier {tiers[-1][0]}")
+    g.bind(state, kg)
+    return g
+
+
+def graph_key(state: PprState, cfg: PprConfig, bf16d: bool) -> tuple:
+    """What a captured program bakes in besides its shapes."""
+    return (state.mode, bool(bf16d), cfg.eps, cfg.alpha)
 
 
 def push_to_convergence_wl2(
@@ -410,32 +469,49 @@ def push_to_convergence_wl2(
     c0ok: bool,
     tiers: tuple[tuple[int, int, int], ...],
     bf16d: bool = False,
+    graphs: RoundGraphs | None = None,
 ) -> tuple[PprState, PushStats]:
     """Push to convergence; each round runs at the smallest capacity tier
     whose exact frontier counts fit, or as one dense delivery-sorted round
     when nothing fits. ``cand0`` seeds the candidate list (its first ``c0n``
-    entries); pass ``c0ok=False`` to start with a scan. Compact rounds
-    update the state's tensors in place: callers must not keep the input
-    state.
+    entries); pass ``c0ok=False`` to start with a scan. Rounds update the
+    state's tensors in place and return it.
+
+    ``graphs``: the caller's round buffers and, on CUDA, its captured
+    rounds, bound to ``state`` and ``kg`` (a driver keeps one for its
+    life); ``None`` makes a new one, which on CUDA captures every round
+    kind this call meets.
     """
+    tiers = tuple(tiers)
+    g = round_graphs_for(state, kg, tiers, cand0.device, graphs)
+    g.seed(cand0, c0n)
+    g.run((*graph_key(state, cfg, bf16d), "first"), lambda: first_count(kg, g))
+    return state, converge_wl2(state, kg, cfg, c0ok, tiers, g, bf16d)
+
+
+def converge_wl2(
+    state: PprState,
+    kg: KillGraph,
+    cfg: PprConfig,
+    c0ok: bool,
+    tiers: tuple[tuple[int, int, int], ...],
+    g: RoundGraphs,
+    bf16d: bool = False,
+) -> PushStats:
+    """The convergence loop of ``push_to_convergence_wl2`` from a candidate
+    list and its exact counts already in ``g`` (``cand``, ``counts[:3]``;
+    the slide step's prologue writes them)."""
     n = kg.n
-    dev = cand0.device
     tiers = tuple(tiers)
     w_top, e_top, g_top = tiers[-1]
     scan_w = n + 1
     heavy_ew = STATS_GUARD * (e_top + g_top)
     stats = PushStats()
+    key = graph_key(state, cfg, bf16d)
 
-    live0 = (cand0 != n) & (torch.arange(cand0.shape[0], device=dev) < c0n)
-    first = torch.stack([
-        live0.sum(),
-        torch.where(live0, kg.row_len[cand0], 0).sum(),
-        torch.where(live0, kg.f_len[cand0], 0).sum(),
-    ]).tolist()
+    cn, fed, fre = g.read()[:3]
     stats.syncs += 1
-    cn, fed, fre = first
     ok = bool(c0ok)
-    cand = cand0
     # zero candidates in a valid list means zero active rows (candidates
     # are a frontier superset); otherwise force one scan round
     na = int(cn > 0) if ok else 1
@@ -451,21 +527,30 @@ def push_to_convergence_wl2(
             # big tiers reseed by rescan (cheaper than slot-dedup there)
             rescan = (e_i + g_i) > max(n // 2, 4096)
             emit_w = scan_w if rescan else tiers[min(i + 1, len(tiers) - 1)][0]
-            state, cand2, cn2, fed2, fre2, na_t, ew_t = _compact_round(
-                state, kg, cfg, _fit(cand, w_i, n), e_i, g_i, emit_w, rescan
-            )
+            g.run((*key, "compact", tiers[i], emit_w, rescan),
+                  lambda: _compact_step(state, kg, cfg, g, tiers[i], emit_w, rescan))
+            # the round's one host sync: everything the next decision reads
+            cn2, fed2, fre2, na, ew = g.read()
+            stats.syncs += 1
+            ok2 = cn2 <= emit_w
         else:
-            state, na_t, ew_t = dense_round_sorted(state, kg, cfg, bf16d=bf16d)
-            emit_w = scan_w
-            cand2, cn2, fed2, fre2 = _frontier_stats(state, kg, cfg, scan_w)
-        # the round's one host sync: everything the next decision reads
-        cn2, fed2, fre2, na, ew = torch.stack([cn2, fed2, fre2, na_t, ew_t]).tolist()
-        stats.syncs += 1
-        ok2 = cn2 <= emit_w
-        if not use_wl and ew > heavy_ew:
-            # stats-skip: the successor round is another scan
-            cn2 = fed2 = fre2 = _BIG
-            ok2 = False
+            g.run((*key, "scan"), lambda: _scan_step(state, kg, cfg, g, bf16d))
+            na, ew = g.read()[3:]
+            stats.syncs += 1
+            # the stats only where a round follows and may use them
+            heavy = ew > heavy_ew
+            if not heavy and na > 0 and stats.rounds + 1 < cfg.max_rounds:
+                g.run((*key, "stats"), lambda: _stats_step(state, kg, cfg, g))
+                cn2, fed2, fre2 = g.read()[:3]
+                stats.syncs += 1
+                stats.stats_reads += 1
+            else:
+                cn2 = fed2 = fre2 = 0
+            ok2 = True
+            if heavy:
+                # stats-skip: the successor round is another scan
+                cn2 = fed2 = fre2 = _BIG
+                ok2 = False
         stats.rounds += 1
         stats.pushes += na
         stats.edge_pushes += ew
@@ -474,5 +559,5 @@ def push_to_convergence_wl2(
             stats.scans_cand += int(not ok)
             stats.scans_fed += int(fed > e_top)
             stats.scans_liv += int(fre > g_top)
-        cand, cn, fed, fre, ok = cand2, cn2, fed2, fre2, ok2
-    return state, stats
+        cn, fed, fre, ok = cn2, fed2, fre2, ok2
+    return stats

@@ -5,6 +5,12 @@ join a mini-CSR re-sorted each slide, and the convergence loop runs compact
 rounds with exact tier selection (``pprx_torch.engine.wl2``). The new batch
 goes to the device in one int32 transfer; the expiring batch, the endpoint
 sorts and the candidate seeds are derived on the device.
+
+The driver's state and kill graph are its buffers for its whole life: the
+slide step, the rebuild and ``from_arrays`` write into their tensors, never
+rebind them, because on CUDA the convergence rounds are captured graphs
+(``pprx_torch.engine.graphs``) that read fixed addresses. A caller that
+puts a saved state back copies into them (``copy_into_``).
 """
 
 from __future__ import annotations
@@ -18,16 +24,22 @@ import torch
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.device import resolve_device
 from pprx_torch.convert import kill_graph_from_arrays, state_from_arrays
+from pprx_torch.engine.graphs import RoundGraphs, copy_into_
 from pprx_torch.engine.segsum import segsum_gather_add_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats, init_state
 from pprx_torch.engine.update import apply_edge_batch
 from pprx_torch.engine.wl2 import (
     KillGraph,
+    first_count,
     build_kill_graph,
     compact,
+    converge_wl2,
+    graph_key,
     make_tiers2,
     push_to_convergence_wl2,
+    rebuild_kill_graph_,
     refresh_fresh_csr,
+    round_graphs_for,
 )
 from pprx_torch.graph.dynamic import WindowGraph
 
@@ -52,30 +64,50 @@ def wl2_slide_step(
     state: PprState,
     kg: KillGraph,
     pack: torch.Tensor,
-    head: int,
     fcnt: int,
     cfg: PprConfig,
     tiers: tuple[tuple[int, int, int], ...],
     bf16d: bool = False,
+    graphs: RoundGraphs | None = None,
 ) -> tuple[PprState, KillGraph, PushStats]:
-    """One window slide. ``pack`` is int32 [2b] = [new_src, new_dst] in
-    stream order, already on the device; ``head`` is the stream position of
-    the batch and ``fcnt`` the fresh-ring fill.
+    """One window slide. ``pack`` is int32 ``[2b + 2]`` on the device: the
+    batch's new_src and new_dst in stream order, then its first ring slot
+    (its stream position modulo the window's capacity) and the fresh-ring
+    fill ``fcnt``, which the host passes too, to refuse an overflow.
 
-    Updates ``kg``'s tensors in place (the ring, the kill marks, the fresh
-    ring): callers must not keep the pre-slide graph.
+    Updates the tensors of ``state`` and ``kg`` in place (the state, the
+    degrees, the ring, the kill marks, the fresh ring and its views) and
+    returns the same objects; ``graphs`` as for ``push_to_convergence_wl2``,
+    bound to ``pack`` too. On CUDA the prologue (everything before the first
+    round) is one captured graph that reads ``pack`` where it lies: a driver
+    uploads each batch into the same tensor.
     """
-    n = kg.n
-    dev = pack.device
-    b = pack.shape[0] // 2
+    b = (pack.shape[0] - 2) // 2
     fring = kg.fr_gat.shape[0]
     if fcnt + b > fring:
         # the reference's dynamic_update_slice would clamp the start and
         # overwrite live fresh edges; the driver rebuilds before that
         raise ValueError(f"fresh ring overflow: fcnt {fcnt} + b {b} > fring {fring}")
-    new_src0, new_dst0 = pack[:b], pack[b:]
-    wcap = kg.window.capacity
-    slots0 = (head + torch.arange(b, device=dev)) % wcap
+    tiers = tuple(tiers)
+    g = round_graphs_for(state, kg, tiers, pack.device, graphs)
+    g.bind(state, kg, pack)
+    g.run((*graph_key(state, cfg, bf16d), "slide", b),
+          lambda: _slide_prologue(state, kg, pack, cfg, g))
+    return state, kg, converge_wl2(state, kg, cfg, True, tiers, g, bf16d)
+
+
+def _slide_prologue(state: PprState, kg: KillGraph, pack: torch.Tensor, cfg: PprConfig,
+                    g: RoundGraphs) -> None:
+    """A slide up to its first round: the corrections, the kills, the ring
+    writes, the fresh re-sort, and the first candidate list with its exact
+    counts in ``g``. Shapes depend on ``b`` alone; the ring slot and the
+    fresh-ring fill are read from ``pack`` on the device."""
+    n = kg.n
+    dev = pack.device
+    b = (pack.shape[0] - 2) // 2
+    new_src0, new_dst0 = pack[:b], pack[b:2 * b]
+    lane = torch.arange(b, dtype=torch.int32, device=dev)
+    slots0 = (pack[2 * b] + lane) % kg.window.capacity
     old_src0 = kg.window.src[slots0]
     old_dst0 = kg.window.dst[slots0]
     # sort both batches by their correction-scatter endpoint
@@ -86,35 +118,39 @@ def wl2_slide_step(
     old_src, old_dst = old_src0[po], old_dst0[po]
     slots = slots0[pn]
     # initial candidates: every endpoint the slide touches, unique ascending
+    # (index_fill_, not ``x[idx] = scalar``: that copies the scalar from the
+    # host, which a capture refuses; so does ``x[i] = scalar`` on a 1-D x)
     mark = torch.zeros(n + 1, dtype=torch.bool, device=dev)
     for ends in (old_src0, old_dst0, new_src0, new_dst0):
-        mark[ends] = True
+        mark.index_fill_(0, ends.long(), True)
     c0n = mark[:n].sum()
     cand0 = compact(mark[:n], min(4 * b, n + 1), n)
     # corrections read the old degrees (and in reverse mode the old window's
     # row sums), so they run before any mutation
     rowsum = None if forward else window_row_sums(state.p, kg)
-    state, w = apply_edge_batch(
+    corrected, w = apply_edge_batch(
         state, kg.window, new_src, new_dst, old_src, old_dst, cfg, rowsum=rowsum
     )
+    copy_into_(state, corrected)
+    kg.window.deg.copy_(w.deg)
+    del corrected, w
     # kill the expiring edges in both snapshot views (their slots are
     # snapshot-era: the driver keeps rebuild_every * slide <= window)
-    kg.nbr[kg.snap_pos[slots]] = n
-    kg.d_gat[kg.d_pos[slots]] = n
+    kg.nbr.index_fill_(0, kg.snap_pos[slots].long(), n)
+    kg.d_gat.index_fill_(0, kg.d_pos[slots].long(), n)
     # recycle the ring slots with the fresh batch
-    w.src[slots] = new_src
-    w.dst[slots] = new_dst
+    kg.window.src[slots] = new_src
+    kg.window.dst[slots] = new_dst
     # append the fresh edges to the ring + incremental per-row counts
     new_gat, new_sca = (new_src, new_dst) if forward else (new_dst, new_src)
-    kg.fr_gat[fcnt:fcnt + b] = new_gat
-    kg.fr_sca[fcnt:fcnt + b] = new_sca
+    ring = pack[2 * b + 1] + lane
+    kg.fr_gat[ring] = new_gat
+    kg.fr_sca[ring] = new_sca
     kg.f_len.index_add_(0, new_gat, torch.ones_like(new_gat))
-    kg.f_len[n] = 0
-    kg = refresh_fresh_csr(dataclasses.replace(kg, window=w))
-    state, stats = push_to_convergence_wl2(
-        state, kg, cfg, cand0, c0n, True, tiers, bf16d=bf16d
-    )
-    return state, kg, stats
+    kg.f_len[n:].fill_(0)
+    refresh_fresh_csr(kg)
+    g.seed(cand0, c0n)
+    first_count(kg, g)
 
 
 class FastStreamDriver:
@@ -178,6 +214,8 @@ class FastStreamDriver:
         self._queries = list(queries)
         # bf16 scan-round delivery; residual removal stays exact
         self.bf16d = bool(bf16d)
+        self.round_graphs = RoundGraphs(n, self.tiers[-1][0], self.device)
+        self._pack = torch.zeros(2 * b + 2, dtype=torch.int32, device=self.device)
 
     @classmethod
     def from_arrays(
@@ -217,6 +255,8 @@ class FastStreamDriver:
         drv.step_idx = int(meta["step_idx"])
         drv.hsrc = np.asarray(arrays["src"], dtype=np.int32).copy()
         drv.hdst = np.asarray(arrays["dst"], dtype=np.int32).copy()
+        drv.round_graphs = RoundGraphs(drv.n, drv.tiers[-1][0], drv.device)
+        drv._pack = torch.zeros(2 * drv.scfg.slide + 2, dtype=torch.int32, device=drv.device)
         return drv
 
     @classmethod
@@ -237,10 +277,10 @@ class FastStreamDriver:
         q = np.unique(np.asarray(self._queries, np.int32))
         cand0 = np.full(max(q.size, 8), self.n, np.int32)
         cand0[: q.size] = q
-        self.state, stats = push_to_convergence_wl2(
+        _, stats = push_to_convergence_wl2(
             self.state, self.graph, self.cfg,
             torch.from_numpy(cand0).to(self.device), q.size, True, self.tiers,
-            bf16d=self.bf16d,
+            bf16d=self.bf16d, graphs=self.round_graphs,
         )
         return stats
 
@@ -256,9 +296,9 @@ class FastStreamDriver:
         # c0ok=False: the first round is a scan, which reseeds the
         # candidate list exactly for the tighter threshold
         cand0 = torch.full((8,), self.n, dtype=torch.int32, device=self.device)
-        self.state, stats = push_to_convergence_wl2(
+        _, stats = push_to_convergence_wl2(
             self.state, self.graph, cfg_r, cand0, 0, False, self.tiers,
-            bf16d=self.bf16d,
+            bf16d=self.bf16d, graphs=self.round_graphs,
         )
         return stats
 
@@ -274,15 +314,19 @@ class FastStreamDriver:
             if self.head + b > self.stream_src.shape[0]:
                 return
             if self.fcnt + b > self.fring:
-                self.graph = build_kill_graph(self.graph.window, self.mode, self.fring)
+                self.round_graphs.run(
+                    ("rebuild", self.mode, self.fring),
+                    lambda: rebuild_kill_graph_(self.graph, self.mode, self.fring))
                 self.fcnt = 0
             slots = np.arange(self.head, self.head + b) % w
             new_src = self.stream_src[self.head : self.head + b]
             new_dst = self.stream_dst[self.head : self.head + b]
-            pack = torch.from_numpy(np.concatenate([new_src, new_dst])).to(self.device)
-            self.state, self.graph, stats = wl2_slide_step(
-                self.state, self.graph, pack, self.head, self.fcnt,
-                self.cfg, self.tiers, bf16d=self.bf16d,
+            # the batch's one upload, into the tensor the captured prologue reads
+            self._pack.copy_(torch.from_numpy(
+                np.concatenate([new_src, new_dst, [self.head % w, self.fcnt]]).astype(np.int32)))
+            _, _, stats = wl2_slide_step(
+                self.state, self.graph, self._pack, self.fcnt,
+                self.cfg, self.tiers, bf16d=self.bf16d, graphs=self.round_graphs,
             )
             self.hsrc[slots] = new_src
             self.hdst[slots] = new_dst

@@ -842,3 +842,295 @@ def test_cli_hybrid_engine_on_card(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["batch"] == 2 and len(out["top1"]) == 2
     assert segsum.launches() == before
+
+
+# ---- the convergence rounds as captured CUDA graphs (pprx_torch.engine.graphs)
+
+ROUND_KINDS = ["first", "scan", "stats", "compact0", "compact1", "compact2",
+               "compact0_sorted", "compact1_sorted", "compact2_sorted"]
+
+
+def _graph_driver(dev, mode: int, bf16d: bool) -> FastStreamDriver:
+    """A driver mid-stream at a size whose ladder has three tiers (N=20k,
+    W=200k, b=20k, S=16: (1,250, 2,560, 640), (5,000, 10,240, 2,560),
+    (20,001, 40,960, 10,240))."""
+    n, w, b = 20_000, 200_000, 20_000
+    src, dst, n = synthetic_powerlaw_stream(n, w + 4 * b, seed=5)
+    drv = FastStreamDriver(src, dst, n, list(range(16)), PprConfig(alpha=0.15, eps=1e-6),
+                           StreamConfig(window=w, slide=b), mode=mode, rebuild_every=3,
+                           bf16d=bf16d, device=dev)
+    assert len(drv.tiers) == 3
+    drv.seed()
+    list(drv.run(2))
+    return drv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ROUND_KINDS)
+@pytest.mark.parametrize("bf16d", [False, True])
+@pytest.mark.parametrize("mode", [0, REVERSE])
+def test_round_replay_matches_the_eager_round(monkeypatch, mode, bf16d, kind):
+    """One round replayed from its captured graph against the same round
+    function run eagerly on the same inputs (state, candidate list,
+    counters), with the launches it counts. The scan round, the stats, the
+    first count and the compact rounds whose delivery is sorted (the
+    segment-sum kernel; ``SORT_DELIVER_MIN`` lowered) are deterministic and
+    must agree bit for bit; an unsorted compact round scatters through
+    ``index_add_`` atomics, whose f32 sums may differ in the last bits:
+    within 1e-6 (entries are at most 1), counters equal."""
+    from pprx_torch.engine import wl2
+    from pprx_torch.engine.graphs import RoundGraphs
+
+    dev = _cuda()
+    if kind.endswith("_sorted"):
+        monkeypatch.setattr(wl2, "SORT_DELIVER_MIN", 1)
+    drv = _graph_driver(dev, mode, bf16d)
+    st, kg, cfg, n = drv.state, drv.graph, drv.cfg, drv.n
+    g = RoundGraphs(n, drv.tiers[-1][0], dev)
+    g.bind(st, kg)
+    g.c0n.fill_(int(g.cand.shape[0]))
+    wl2._stats_step(st, kg, cfg, g)  # the current frontier as the list
+    if kind == "first":
+        fn = lambda: wl2.first_count(kg, g)  # noqa: E731
+    elif kind == "scan":
+        fn = lambda: wl2._scan_step(st, kg, cfg, g, bf16d)  # noqa: E731
+    elif kind == "stats":
+        fn = lambda: wl2._stats_step(st, kg, cfg, g)  # noqa: E731
+    else:
+        i = int(kind[7])
+        tier = drv.tiers[i]
+        rescan = tier[1] + tier[2] > max(n // 2, 4096)
+        emit_w = n + 1 if rescan else drv.tiers[min(i + 1, 2)][0]
+        fn = lambda: wl2._compact_step(st, kg, cfg, g, tier, emit_w, rescan)  # noqa: E731
+    saved = [t.clone() for t in (st.p, st.r, g.cand, g.counts)]
+
+    def put_back():
+        for t, s in zip((st.p, st.r, g.cand, g.counts), saved):
+            t.copy_(s)
+
+    def taken():
+        torch.cuda.synchronize()
+        return [t.clone() for t in (st.p, st.r, g.cand, g.counts)]
+
+    before = dict(segsum.LAUNCHES)
+    fn()
+    eager, eager_launches = taken(), segsum.launches(since=before)
+    put_back()
+    g.run(kind, fn)  # the warm-up (the round itself), then the capture
+    assert (g.captures, g.eager, g.replays) == (1, 1, 0)
+    put_back()
+    before = dict(segsum.LAUNCHES)
+    g.run(kind, fn)
+    replayed = taken()
+    assert g.replays == 1 and segsum.launches(since=before) == eager_launches
+    if kind in ("scan",) or kind.endswith("_sorted"):
+        assert eager_launches > 0
+    exact = not kind.startswith("compact") or kind.endswith("_sorted")
+    for a, b in zip(replayed, eager):
+        if exact or not a.is_floating_point():
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_kernel_launch_lands_in_the_graph():
+    """The ctypes entry launches on the capturing stream, so its kernel is
+    a node of the graph: each replay adds the segment sum once more into
+    ``rin`` (a kernel missing from the graph would leave ``rin`` as the
+    warm-up left it), and each replay counts one launch."""
+    from pprx_torch.engine.graphs import RoundGraphs
+
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    n_rows, w, s = 3000, 60_000, 128
+    seg = torch.from_numpy(np.sort(rng.integers(0, n_rows, w)).astype(np.int32)).to(dev)
+    off = row_offsets(seg, n_rows)
+    table = torch.from_numpy(rng.random((500, s), dtype=np.float32)).to(dev)
+    gat = torch.from_numpy(rng.integers(0, 500, w).astype(np.int32)).to(dev)
+    rin = torch.zeros(n_rows, s, device=dev)
+    once = segsum_gather_add_plain(torch.zeros(n_rows, s, dtype=torch.float64, device=dev),
+                                   table.double(), gat, off)
+    g = RoundGraphs(10, 10, dev)
+    before = dict(segsum.LAUNCHES)
+    for _ in range(3):
+        g.run("sum", lambda: segsum_gather_add_(rin, table, gat, off))
+    torch.cuda.synchronize()
+    assert (g.eager, g.replays) == (1, 2) and segsum.launches(since=before) == 3
+    torch.testing.assert_close(rin.double(), 3 * once, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises():
+    """A host sync inside a captured round (an ``int()`` of a device count)
+    makes the capture fail, and the failure raises: there is no fall-back
+    to eager launches. In a process of its own, so that a failed capture
+    leaves nothing behind for the other tests."""
+    import subprocess
+    import sys
+    import textwrap
+
+    _cuda()
+    prog = textwrap.dedent("""
+        import torch
+        from pprx_torch.config import PprConfig, StreamConfig
+        from pprx_torch.engine import wl2
+        from pprx_torch.graph.fast_stream import FastStreamDriver
+        from pprx_torch.graph.io import synthetic_powerlaw_stream
+
+        first = wl2.first_count
+
+        def with_a_sync(kg, g):
+            first(kg, g)
+            int(g.counts[0])
+
+        wl2.first_count = with_a_sync
+        src, dst, n = synthetic_powerlaw_stream(300, 2000, seed=3)
+        drv = FastStreamDriver(src, dst, n, [0, 5], PprConfig(alpha=0.15, eps=1e-6),
+                               StreamConfig(window=1000, slide=100), rebuild_every=2,
+                               device="cuda")
+        try:
+            drv.seed()
+        except RuntimeError as e:
+            print("RAISED", drv.round_graphs.eager, drv.round_graphs.captures, repr(e)[:300])
+        else:
+            print("NO ERROR", drv.round_graphs.summary())
+    """)
+    proc = subprocess.run([sys.executable, "-c", prog], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("RAISED 1 0"), proc.stdout + proc.stderr[-3000:]
+
+
+@pytest.mark.cuda
+def test_driver_rounds_replay_once_captured():
+    """A driver's slides after its rounds are captured run by replay alone:
+    the same slides again from a restored snapshot capture nothing new and
+    run no round eagerly, replay at least one graph a round, and land
+    where the first pass landed (within the atomics' last bits, settled);
+    the buffers keep their addresses throughout."""
+    from pprx_torch.bench import headline
+    from pprx_torch.engine.graphs import tensor_ptrs
+
+    dev = _cuda()
+    drv = _graph_driver(dev, 0, False)
+    ptrs = tensor_ptrs(drv.state) + tensor_ptrs(drv.graph)
+    snap = headline.snapshot(drv)
+    first = [st.rounds for st in drv.run(2)]
+    end = headline.snapshot(drv)
+    g0 = drv.round_graphs.summary()
+    headline.restore(drv, snap)
+    again = [st.rounds for st in drv.run(2)]
+    g1 = drv.round_graphs.summary()
+    assert tensor_ptrs(drv.state) + tensor_ptrs(drv.graph) == ptrs
+    assert (g1["captures"], g1["eager_rounds"]) == (g0["captures"], g0["eager_rounds"])
+    assert g1["replays"] - g0["replays"] >= sum(again) + 2
+    assert abs(sum(again) - sum(first)) <= 1
+    assert settled_distance(drv.state, end[0], 0.15) <= 1e-5
+
+
+def _tensors(obj) -> list:
+    """Every tensor of a dataclass of tensors (nested too), in field order."""
+    import dataclasses
+
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif dataclasses.is_dataclass(v):
+            out.extend(_tensors(v))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", ["slide", "rebuild"])
+@pytest.mark.parametrize("mode", [0, REVERSE])
+def test_slide_prologue_replay_matches_eager(mode, part):
+    """A slide's prologue (sorts, corrections, kills, ring writes, fresh
+    re-sort, first list and counts; the reverse one launches the row-sum
+    sweep) and the kill graph's rebuild, each replayed from its captured
+    graph, against the same function run eagerly from the same driver
+    state: every integer tensor of the kill graph and of the round buffers
+    bit for bit, ``p`` and ``r`` within 1e-6 (the corrections scatter
+    through ``index_add_`` atomics), and the same launches counted."""
+    from pprx_torch.bench import headline
+    from pprx_torch.engine.graphs import RoundGraphs
+    from pprx_torch.engine.wl2 import rebuild_kill_graph_
+    from pprx_torch.graph import fast_stream
+
+    dev = _cuda()
+    drv = _graph_driver(dev, mode, False)
+    b, w, h = drv.scfg.slide, drv.scfg.window, drv.head
+    g = RoundGraphs(drv.n, drv.tiers[-1][0], dev)
+    g.bind(drv.state, drv.graph)
+    pack = torch.from_numpy(np.concatenate([
+        drv.stream_src[h:h + b], drv.stream_dst[h:h + b], [h % w, drv.fcnt]]).astype(np.int32)
+    ).to(dev)
+    if part == "slide":
+        fn = lambda: fast_stream._slide_prologue(drv.state, drv.graph, pack, drv.cfg, g)  # noqa: E731
+    else:
+        fn = lambda: rebuild_kill_graph_(drv.graph, drv.mode, drv.fring)  # noqa: E731
+    snap = headline.snapshot(drv)
+    bufs = (g.cand, g.counts, g.c0n)
+    saved = [t.clone() for t in bufs]
+
+    def put_back():
+        headline.restore(drv, snap)
+        for t, s in zip(bufs, saved):
+            t.copy_(s)
+
+    def taken():
+        torch.cuda.synchronize()
+        return [t.clone() for t in (*_tensors(drv.state), *_tensors(drv.graph), *bufs)]
+
+    before = dict(segsum.LAUNCHES)
+    fn()
+    eager, eager_launches = taken(), segsum.launches(since=before)
+    put_back()
+    g.run(part, fn)
+    put_back()
+    before = dict(segsum.LAUNCHES)
+    g.run(part, fn)
+    replayed = taken()
+    assert (g.eager, g.captures, g.replays) == (1, 1, 1)
+    assert segsum.launches(since=before) == eager_launches == (2 if (part, mode) == (
+        "slide", REVERSE) else 0)
+    if part == "slide":
+        assert not torch.equal(eager[1], snap[0].r)  # the corrections moved r
+    for a, e in zip(replayed, eager):
+        if a.is_floating_point():
+            torch.testing.assert_close(a, e, rtol=0, atol=1e-6)
+        else:
+            assert torch.equal(a, e)
+
+
+@pytest.mark.cuda
+def test_driver_on_an_explicit_index_replays_its_rounds(monkeypatch):
+    """A driver built on an explicit device index (the last card) while
+    the current device is card 0 captures on its own card's stream: two
+    slides run by replay from a snapshot land where the same two slides
+    land with every step run eagerly (rounds within 1, settled within
+    1e-5), and the replays moved the state. A capture recorded on another
+    card's stream would replay an empty graph and leave the state alone."""
+    from pprx_torch.bench import headline
+    from pprx_torch.engine.graphs import RoundGraphs
+
+    _cuda()
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    with torch.cuda.device(0):
+        drv = _graph_driver(dev, 0, False)
+        list(drv.run(1))
+        snap = headline.snapshot(drv)
+        g0 = drv.round_graphs.summary()
+        replayed = [st.rounds for st in drv.run(2)]
+        g1 = drv.round_graphs.summary()
+        end = headline.snapshot(drv)
+        assert g1["replays"] - g0["replays"] >= sum(replayed)
+        assert settled_distance(end[0], snap[0], 0.15) > 1e-4
+        headline.restore(drv, snap)
+        monkeypatch.setattr(RoundGraphs, "run", lambda g, key, fn: fn())
+        eager = [st.rounds for st in drv.run(2)]
+        torch.cuda.synchronize(dev)
+    assert abs(sum(eager) - sum(replayed)) <= 1
+    assert settled_distance(drv.state, end[0], 0.15) <= 1e-5

@@ -253,7 +253,7 @@ def test_f32_stream_against_exact_ppr():
     )
     drv.seed()
     stats = list(drv.run(4))
-    assert all(s.rounds > 0 and s.syncs == s.rounds + 1 for s in stats)
+    assert all(s.rounds > 0 and s.syncs == s.rounds + 1 + s.stats_reads for s in stats)
     p = drv.state.p.numpy().astype(np.float64)
     r = drv.state.r.numpy().astype(np.float64)
     np.testing.assert_allclose(p[:n].sum(0) + r[:n].sum(0), 1.0, atol=1e-4)
@@ -269,3 +269,136 @@ def test_driver_refuses_bad_configs():
     with pytest.raises(ValueError, match="shorter"):
         FastStreamDriver(src[:100], dst[:100], N, QUERIES, CFG, SCFG, device="cpu")
 
+
+
+def _buffer_ptrs(drv):
+    """The addresses a captured round reads: p, r, and every tensor of the
+    kill graph and its window (deg among them)."""
+    from pprx_torch.engine.graphs import tensor_ptrs
+
+    return tensor_ptrs(drv.state) + tensor_ptrs(drv.graph)
+
+
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+def test_driver_buffers_keep_their_addresses(mode):
+    """The precondition of the card's captured rounds: ``data_ptr()`` of
+    ``p``, ``r``, ``deg`` and every ``KillGraph`` tensor is the same across
+    slides, across rebuilds (rebuild_every=3: three in 10 slides), after a
+    refine and after ``headline.restore``, and the state still follows the
+    reference's through all of them."""
+    from pprx_torch.bench import headline
+
+    a, b = _pair(mode)
+    a.seed(), b.seed()
+    ptrs = _buffer_ptrs(b)
+    assert len(ptrs) == 2 + 3 + 14  # p, r; the window's src, dst, deg; 14 kill-graph views
+    rebuilds, snap = 0, None
+    for step in range(10):
+        if step == 7:
+            snap = headline.snapshot(b)
+        fcnt = b.fcnt
+        list(a.run(1)), list(b.run(1))
+        rebuilds += b.fcnt < fcnt
+        assert _buffer_ptrs(b) == ptrs
+    assert rebuilds == 3
+    assert_same_state(a, b)
+    sa, sb = a.refine(5e-10), b.refine(5e-10)
+    assert sb.rounds == int(sa.rounds) > 0 and _buffer_ptrs(b) == ptrs
+    assert_same_state(a, b)
+    headline.restore(b, snap)
+    assert _buffer_ptrs(b) == ptrs
+    np.testing.assert_array_equal(b.state.p.numpy(), snap[0].p.numpy())
+    np.testing.assert_array_equal(b.graph.d_gat.numpy(), snap[1].d_gat.numpy())
+    assert len(list(b.run(1))) == 1 and _buffer_ptrs(b) == ptrs
+
+
+def test_rebound_state_is_refused():
+    """A state rebound to new tensors after the rounds were bound raises
+    (on the card its captured graphs would read the old ones)."""
+    from pprx_torch.engine.state import PprState
+
+    _, b = _pair()
+    b.seed()
+    b.state = PprState(p=b.state.p.clone(), r=b.state.r.clone(), mode=b.state.mode)
+    with pytest.raises(RuntimeError, match="rebound"):
+        list(b.run(1))
+
+
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+def test_rebound_pack_is_refused(mode):
+    """``wl2_slide_step`` with the driver's round graphs and a batch in a
+    new tensor raises: the captured prologue reads the pack it was bound
+    to, and a graph a pack would pile up without bound. The driver's own
+    pack, with the next batch uploaded into it, goes through."""
+    from pprx_torch.graph.fast_stream import wl2_slide_step
+
+    _, b = _pair(mode)
+    b.seed()
+    list(b.run(1))
+    with pytest.raises(RuntimeError, match="pack was rebound"):
+        wl2_slide_step(b.state, b.graph, b._pack.clone(), b.fcnt, b.cfg, b.tiers,
+                       graphs=b.round_graphs)
+    assert len(list(b.run(1))) == 1
+
+
+class _HostValues:
+    """A dispatch mode that records ops taking a tensor made from a Python
+    value (``lift_fresh``), ``fill_`` apart: on the card such a value is
+    copied from the host, which a CUDA graph capture refuses."""
+
+    def __new__(cls):
+        import weakref
+
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        class Mode(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.lifted = weakref.WeakValueDictionary()
+                self.taken = []
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                if func is not torch.ops.aten.fill_.Tensor:
+                    self.taken += [str(func) for a in tree_leaves((args, kwargs))
+                                   if isinstance(a, torch.Tensor) and self.lifted.get(id(a)) is a]
+                out = func(*args, **kwargs)
+                if func is torch.ops.aten.lift_fresh.default:
+                    self.lifted[id(out)] = out
+                return out
+
+        return Mode()
+
+
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+def test_captured_steps_take_nothing_from_the_host(monkeypatch, mode):
+    """Every step a driver captures on the card (the rounds, a seed's first
+    count, the slide's prologue, the rebuild) runs here under a dispatch
+    mode that finds host values: ``x[idx] = True``, or ``x[i] = 0`` where
+    ``x[i]`` is one element, copy their value from the host, and a capture
+    on the card refuses that. Seed, 4 slides (a rebuild among them) and a
+    refine: every step kind, none takes a host value."""
+    from pprx_torch.engine.graphs import RoundGraphs
+
+    watch = _HostValues()
+    with watch:
+        x = torch.zeros(4, dtype=torch.int32)
+        x[2] = 0  # the detector finds what it looks for
+    assert watch.taken == ["aten.copy_.default"]
+    watch.taken.clear()
+    kinds = set()
+    run = RoundGraphs.run
+
+    def watched(g, key, fn):
+        kinds.add(next(k for k in key if isinstance(k, str)))
+        with watch:
+            run(g, key, fn)
+
+    monkeypatch.setattr(RoundGraphs, "run", watched)
+    _, b = _pair(mode)
+    b.seed()
+    list(b.run(4))
+    b.refine(5e-10)
+    assert kinds == {"first", "compact", "scan", "stats", "slide", "rebuild"}
+    assert watch.taken == []

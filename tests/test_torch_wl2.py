@@ -64,7 +64,9 @@ def _case(tiers, mode=FORWARD):
     assert ts.rounds == int(js.rounds)
     assert ts.wl_rounds == int(js.wl_rounds)
     assert ts.edge_pushes == float(js.edge_pushes)  # feeds the stats-skip rule
-    assert ts.syncs == ts.rounds + 1  # one read-back per round + the first
+    # one read-back per round + the first, + the light scans' second reads
+    assert ts.syncs == ts.rounds + 1 + ts.stats_reads
+    assert ts.stats_reads <= ts.rounds - ts.wl_rounds  # at most one a scan round
     assert ts.wl_rounds > 0  # every ladder runs compact rounds too
     # and the port's own dense engine on the same graph: the same schedule
     dst_, dstats = push_to_convergence(
@@ -182,3 +184,128 @@ def test_rld_expand_matches_jax():
 def test_make_tiers2_matches_jax(args):
     assert make_tiers2(*args) == jwl2.make_tiers2(*args)
     assert make_tiers2(*args, n_tiers=3) == jwl2.make_tiers2(*args, n_tiers=3)
+
+
+def _push_both(tiers, mode, c0ok=True):
+    """``_case``'s graph pushed by both engines: (port state, port stats,
+    reference state, reference stats); ``c0ok=False`` starts with a scan."""
+    rng = np.random.default_rng(7)
+    n, m = 40, 200
+    src, dst = random_multigraph(rng, n, m)
+    queries = [0, 13, 26]
+    q = np.unique(np.asarray(queries, np.int32))
+    cand0 = np.concatenate([q, np.full(8 - q.size, n, np.int32)])
+    kg = jwl2.build_kill_graph(JaxWindow.from_coo(src, dst, n), mode, fring=8)
+    st, js = jwl2.push_to_convergence_wl2(
+        jax_init_state(n, queries, mode=mode, dtype=jnp.float64), kg, CFG,
+        jnp.asarray(cand0), jnp.asarray(q.size, jnp.int32), c0ok, tiers)
+    tkg = twl2.build_kill_graph(WindowGraph.from_coo(src, dst, n, device="cpu"), mode, fring=8)
+    tst, ts = twl2.push_to_convergence_wl2(
+        init_state(n, queries, mode=mode, dtype=torch.float64, device="cpu"), tkg, CFG,
+        torch.from_numpy(cand0), q.size, c0ok, tiers)
+    np.testing.assert_allclose(tst.p.numpy(), np.asarray(st.p), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(tst.r.numpy(), np.asarray(st.r), rtol=0, atol=1e-12)
+    assert (ts.rounds, ts.wl_rounds) == (int(js.rounds), int(js.wl_rounds))
+    return tst, ts, st, js
+
+
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+def test_wider_tier_reads_n_past_a_narrower_emit(monkeypatch, mode):
+    """The candidate list crosses rounds in one static buffer. A round at
+    the bottom tier of a three-tier ladder emits a list 8 wide; the next
+    round's edge counts fit only the top tier, which reads 64 entries: the
+    56 past the emitted list must read ``n`` (what the reference's ``_fit``
+    pads with), and the push stays the reference's."""
+    from pprx_torch.engine.graphs import RoundGraphs
+
+    tiers = ((4, 16, 4), (8, 64, 8), (64, 512, 16))
+    n = 40
+    seen, last = [], [None]
+    emit, step = RoundGraphs.emit, twl2._compact_step
+
+    def spy_emit(g, cand2):
+        emit(g, cand2)
+        last[0] = cand2.shape[0]
+
+    def spy_step(state, kg, cfg, g, tier, emit_w, rescan):
+        if last[0] is not None and tier[0] > last[0]:
+            seen.append(g.cand[last[0]:tier[0]].tolist())
+        step(state, kg, cfg, g, tier, emit_w, rescan)
+
+    monkeypatch.setattr(RoundGraphs, "emit", spy_emit)
+    monkeypatch.setattr(twl2, "_compact_step", spy_step)
+    _push_both(tiers, mode)
+    assert seen and all(v == [n] * len(v) for v in seen)
+
+
+def test_candidate_buffer_pads_with_n():
+    """``RoundGraphs``' list buffer: a seed list longer than the buffer is
+    cut, a shorter one and every emitted list are followed by ``n``; the
+    counters land at their offsets."""
+    from pprx_torch.engine.graphs import RoundGraphs
+
+    g = RoundGraphs(9, 6, "cpu")
+    assert g.cand.tolist() == [9] * 10
+    g.cand.fill_(3)
+    g.emit(torch.tensor([1, 2], dtype=torch.int32))
+    assert g.cand.tolist() == [1, 2] + [9] * 8
+    g.cand.fill_(3)
+    g.seed(torch.arange(12, dtype=torch.int32), torch.tensor(4))
+    assert g.cand.tolist() == list(range(10)) and int(g.c0n) == 4
+    g.seed(torch.tensor([5, 9], dtype=torch.int32), 1)
+    assert g.cand.tolist() == [5] + [9] * 9 and int(g.c0n) == 1
+    g.put(3, torch.tensor(7), torch.tensor(8))
+    assert g.read() == [0, 0, 0, 7, 8]
+    assert RoundGraphs(4, 64, "cpu").cand.shape == (64,)
+
+
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+@pytest.mark.parametrize(
+    "tiers,c0ok", [(t, True) for t in TIERS[2:]] + [(t, False) for t in TIERS])
+def test_stats_run_only_for_light_scans(monkeypatch, tiers, c0ok, mode):
+    """A scan round's next-frontier stats (F1) run after a first read and
+    only for a light scan, as the reference's ``lax.cond`` skips them: the
+    round schedule and the push are the reference's, a light scan round
+    reads twice, and the stats run in no more rounds than there are scans
+    (forward from a valid list: fewer, some scans are heavy). ``c0ok=False``
+    starts every ladder with a scan."""
+    runs = []
+    stats_step = twl2._stats_step
+    monkeypatch.setattr(twl2, "_stats_step", lambda *a: (runs.append(1), stats_step(*a)))
+    _, ts, _, _ = _push_both(tiers, mode, c0ok)
+    scans = ts.rounds - ts.wl_rounds
+    assert scans > 0
+    assert len(runs) == ts.stats_reads <= scans and ts.syncs == ts.rounds + 1 + len(runs)
+    assert mode == REVERSE or not c0ok or len(runs) < scans
+
+
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+def test_rounds_update_the_state_in_place(mode):
+    """A scan round and a compact round write into the state's own tensors
+    (a captured round reads fixed addresses) and return the same state."""
+    from pprx_torch.engine.graphs import RoundGraphs
+
+    rng = np.random.default_rng(7)
+    n = 40
+    src, dst = random_multigraph(rng, n, 200)
+    kg = twl2.build_kill_graph(WindowGraph.from_coo(src, dst, n, device="cpu"), mode, fring=8)
+    st = init_state(n, [0, 13, 26], mode=mode, dtype=torch.float64, device="cpu")
+    ptrs = (st.p.data_ptr(), st.r.data_ptr())
+    st2, na, _ = twl2.dense_round_sorted(st, kg, CFG)
+    assert st2 is st and int(na) == 3 and (st.p.data_ptr(), st.r.data_ptr()) == ptrs
+    g = RoundGraphs(n, 64, "cpu")
+    twl2._stats_step(st, kg, CFG, g)
+    r0 = st.r.clone()
+    twl2._compact_step(st, kg, CFG, g, (64, 512, 16), n + 1, True)
+    assert (st.p.data_ptr(), st.r.data_ptr()) == ptrs and not torch.equal(st.r, r0)
+
+
+def test_copy_into_refuses_other_shapes():
+    from pprx_torch.engine.graphs import copy_into_
+    from pprx_torch.engine.state import PprState
+
+    a = PprState(p=torch.zeros(3, 2), r=torch.zeros(3, 2))
+    copy_into_(a, PprState(p=torch.ones(3, 2), r=torch.full((3, 2), 2.0)))
+    assert float(a.p.sum()) == 6 and float(a.r.sum()) == 12
+    with pytest.raises(ValueError, match="cannot copy"):
+        copy_into_(a, PprState(p=torch.ones(1, 2), r=torch.ones(3, 2)))

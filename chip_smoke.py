@@ -9,7 +9,8 @@ reverse stream, the static configs on the dense engine, and a checkpoint
 round trip. Phases, one line each:
 
 1. device: the card's name, count and nvidia-smi name/power limit;
-2. build: the segment-sum kernels from pprx_torch/csrc (seconds, ptxas lines);
+2. build: both kernel sources of pprx_torch/csrc, the segment sum and the
+   row passes, one ``nvcc`` each, started together (seconds, ptxas lines);
 3. kernel: both entries (``segsum_add_`` and ``segsum_gather_add_``, the
    gather fused in) against their plain PyTorch versions at the shapes the
    stream gives them (R=200,001 rows, S=128: a window scan of 2.0M sorted
@@ -28,6 +29,14 @@ round trip. Phases, one line each:
    to the plain version without timing, every other layout config 3's
    stream launches: window and fresh view (80k edges), scaled and not, at
    S=8 and at S=128, and its 140,000-lane compact round (int64 ``gat``);
+3b. row passes: ``scan_pass_`` (K2, a scan round's elementwise work) and
+   ``frontier_rows`` (K3, the rescan) against their plain versions, bit for
+   bit with equal counts, at the headline's (R=200,001, S=128), config 2's
+   (S=16) and config 3's (R=100,001, S=8) shapes, both modes, K2 with f32
+   and bf16 ``moving``, on states with entries exactly at the threshold and
+   dangling rows; two launches bit for bit; in turns each kernel's device
+   time, its time with the host side, its plain version's and its bound
+   from the bytes this run moves (``check_rowpass``);
 4. stream f32: FastStreamDriver at N=200k, W=2M, b=160k, S=128, eps=1e-6,
    alpha=0.15 (bench.py's shapes): seed, warm-up, 8 timed slides, with the
    driver's captured rounds (``graphs``: graphs held, captures and their
@@ -56,7 +65,7 @@ round trip. Phases, one line each:
    error measured: the invariant gap ``max |p + M r - M e_t|``, the
    rounding of one slide's corrections against f64, and a cold control
    (seed and refine on the final window, no slides) that must meet
-   ``2 eps``; each must launch the scaled entry;
+   ``2 eps``; each must launch the scaled entry and the scan pass;
 9. static: ``run_config(1)`` (with its exact check) and ``run_config(4)``
    (cold dense push of 512 sources on 5M edges, top-100, 16 sampled
    sources held to exact PPR) at scale 1;
@@ -72,7 +81,7 @@ round trip. Phases, one line each:
    contract again with precision@100 (bf16 delivery does not conserve
    mass, on any device: that run's mass is held within 1e-4 to the same
    stream through the port on the CPU, where no kernel runs); each run
-   must launch the segment sum;
+   must launch the segment sum and the scan pass;
 12. dense driver: ``StreamDriver`` in both modes on a small window, with
    slides of 100 edges and of 1 edge, held to exact PPR. It runs plain
    torch ops: no kernel launch is expected, and any is a failure;
@@ -144,10 +153,11 @@ round trip. Phases, one line each:
    scan rounds run sparse, held to the contract and to the worklist
    driver; 16e ``stream --engine hybrid`` in both modes on phase 13's file
    and ``retrieve --from-checkpoint`` on the forward stream's file. Every
-   hybrid path must launch no segment-sum entry.
+   hybrid path must launch no kernel (no segment-sum entry, no row pass).
 
-Then a JSON line of the kernels (``launches``: the main path's, phases 4 to
-6, which must launch at least one entry; ``launches_by_path``: every path's,
+Then a JSON line of the kernels, the segment sum's two entries and the two
+row passes (``launches``: the main path's, phases 4 to 6, which must launch
+the gather entry and both row passes; ``launches_by_path``: every path's,
 each counted with the counts set to 0 before it: the main path, each of the
 three reverse runs of phase 8, phases 9 and 10, each run of phase 11, each
 command of phase 13, each config 5 run and sharded command of phases 14
@@ -163,7 +173,8 @@ imports that root's ``chip_smoke`` and ``pprx_torch`` and drives
 ``FastStreamDriver`` over the stream shapes of this file's phases 4, 5, 8
 and 11 (``turn_shapes``: the headline forward in f32 and with bf16
 delivery, the headline in reverse, config 2, config 3 at S=8) through that
-root's ``run_stream`` and ``profile_slides``. One summary line a shape goes
+root's ``run_stream`` and ``profile_slides``, then refines to 5e-8 twice
+from the same state (the first call captures the new eps's rounds). One summary line a shape goes
 to stdout, each whole record, with the card's name and power limit, to
 ``--out`` (JSON lines). Compare two trees only inside one run, in turns
 (A, B, B, A).
@@ -171,6 +182,7 @@ to stdout, each whole record, with the card's name and power limit, to
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -195,7 +207,7 @@ from pprx_torch.device import require_cuda
 from pprx_torch.dist.mesh import all_to_all_rows, gather_stats, make_row_mesh, reduce_scatter_rows
 from pprx_torch.dist.retrieve import make_sharded_topk
 from pprx_torch.dist.stream import ShardedStreamDriver
-from pprx_torch.engine import segsum, sparse
+from pprx_torch.engine import rowpass, segsum, sparse
 from pprx_torch.engine.graphs import copy_into_
 from pprx_torch.engine.segsum import (
     row_offsets,
@@ -204,6 +216,12 @@ from pprx_torch.engine.segsum import (
     segsum_add_plain,
     segsum_gather_add_,
     segsum_gather_add_plain,
+)
+from pprx_torch.engine.rowpass import (
+    frontier_rows,
+    frontier_rows_plain,
+    scan_pass_,
+    scan_pass_plain,
 )
 from pprx_torch.engine.state import REVERSE, PprState, settled_distance
 from pprx_torch.engine.update import apply_edge_batch
@@ -605,11 +623,156 @@ def check_kernel_config2(dev) -> dict:
     return res
 
 
-def launches_by_entry(since: dict | None = None, scaled: bool | None = None) -> dict:
-    """The segment-sum launches by entry since the last reset, or since
-    ``since`` (an earlier ``dict(segsum.LAUNCHES)``); ``scaled=True``: those
-    with a ``row_scale``."""
-    return {entry: segsum.launches(entry, scaled, since) for entry in segsum.ENTRIES}
+# phase 3b: the row passes at the streams' shapes: (tag, rows, S, stream
+# seed, window) of the headline, config 2 and config 3
+ROWPASS_SHAPES = (("headline", HEADLINE["n"] + 1, HEADLINE["s"], HEADLINE["seed"], HEADLINE["w"]),
+                  ("config2", C2_ROWS, C2_S, CONFIG2["seed"], CONFIG2["w"]),
+                  ("config3", C3_ROWS, 8, CONFIG3["seed"], CONFIG3["w"]))
+ROWPASS_EPS, ROWPASS_ALPHA = 1e-6, 0.15
+ROWPASS_AT_THRESHOLD = 1000  # entries set exactly at the threshold: not active
+
+
+def window_degrees(dev, rows: int, seed: int, w: int) -> torch.Tensor:
+    """int32 out-degrees of a stream's first window of ``w`` edges, the
+    phantom row's 0."""
+    src, _, _ = synthetic_powerlaw_stream(rows - 1, w, seed=seed)
+    deg = torch.from_numpy(np.bincount(src, minlength=rows).astype(np.int32)).to(dev)
+    deg[-1:].fill_(0)
+    return deg
+
+
+def rowpass_inputs(deg: torch.Tensor, s: int, seed: int, forward: bool) -> dict:
+    """A state at a scan round's start on the degrees ``deg`` (dangling
+    rows among them): ``p`` in [0, 1e-3), ``|r|`` uniform below twice each
+    row's push threshold (about half of the pairs active, at both signs),
+    ``ROWPASS_AT_THRESHOLD`` entries exactly at it, the phantom row zero;
+    ``row_len`` the degrees, ``f_len`` a few fresh edges a row."""
+    dev, rows = deg.device, deg.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    th = ROWPASS_EPS * deg.clamp(min=1).float() if forward else torch.full(
+        (rows,), ROWPASS_EPS, device=dev)
+    r = (torch.rand((rows, s), generator=gen, device=dev) * 4 - 2) * th[:, None]
+    at = torch.randint(0, (rows - 1) * s, (ROWPASS_AT_THRESHOLD,), generator=gen, device=dev)
+    r.view(-1)[at] = th.repeat_interleave(s)[at] * torch.sign(r.view(-1)[at])
+    r[-1] = 0.0
+    p = torch.rand((rows, s), generator=gen, device=dev) * 1e-3
+    p[-1] = 0.0
+    f_len = torch.randint(0, 4, (rows,), generator=gen, device=dev, dtype=torch.int32)
+    return {"p": p, "r": r, "deg": deg, "row_len": deg.clone(), "f_len": f_len,
+            "dangling_rows": int((deg[:-1] == 0).sum())}
+
+
+def _scan_outputs(fn, inp: dict, forward: bool, mdt) -> list:
+    """``fn`` (``scan_pass_`` or its plain version) on copies of the state:
+    p, r, moving, counts and (reverse) each row's count."""
+    p, r = inp["p"].clone(), inp["r"].clone()
+    moving = torch.empty(r.shape, dtype=mdt, device=r.device)
+    counts = torch.zeros(2, dtype=torch.int64, device=r.device)
+    row_act = None if forward else torch.empty(r.shape[0], dtype=torch.int32, device=r.device)
+    fn(p, r, inp["deg"], moving, counts, row_act, eps=ROWPASS_EPS, alpha=ROWPASS_ALPHA,
+       forward=forward)
+    return [p, r, moving, counts] + ([] if forward else [row_act])
+
+
+def bit_for_bit(tag: str, got: list, again: list, plain: list) -> float:
+    """Two launches must give the same bits, and the plain version's: every
+    output, floats and counts. Returns the largest absolute difference from
+    the plain version (0 where the bits agree)."""
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: two launches on the same inputs differ")
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, plain))
+    for a, b in zip(got, plain):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{tag}: the kernel's bits are not the plain version's "
+                                 f"(max abs err {err}; {a.dtype} against {b.dtype})")
+    return err
+
+
+def check_rowpass(dev) -> dict:
+    """Phase 3b: ``scan_pass_`` (K2) and ``frontier_rows`` (K3) against
+    their plain versions on the card, bit for bit with equal counts, at the
+    headline's, config 2's and config 3's shapes, both modes, K2 with f32
+    and with bf16 ``moving``; two launches bit for bit. Then, in turns, each
+    kernel's device time (``ms``, calls queued behind a spinning kernel),
+    the same calls back to back with their host side (``call_ms``), the
+    plain version's time, and the bound from this run's bytes: K2 reads
+    ``r``, ``p`` and ``deg`` and writes ``r``, ``p``, ``moving`` (and in
+    reverse ``row_act``); K3 reads ``r`` (and forward ``deg``), the two
+    lengths of the rows it finds active, and writes one byte a row. No
+    single PyTorch call computes either: ``library_ms`` is null. Keys:
+    ``<shape>_<fwd|rev>_<scan_pass_f32|scan_pass_bf16|frontier_rows>_<what>``."""
+    res = {}
+    for shape, rows, s, seed, w in ROWPASS_SHAPES:
+        deg = window_degrees(dev, rows, seed, w)
+        for forward in (True, False):
+            inp = rowpass_inputs(deg, s, seed, forward)
+            pre = f"{shape}_{'fwd' if forward else 'rev'}_"
+            res[f"{pre}rows"], res[f"{pre}s"] = rows, s
+            res[f"{pre}dangling_rows"] = inp["dangling_rows"]
+            elems = rows * s
+            for mdt, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                tag = f"{pre}scan_pass_{dt}"
+                got = _scan_outputs(scan_pass_, inp, forward, mdt)
+                again = _scan_outputs(scan_pass_, inp, forward, mdt)
+                plain = _scan_outputs(scan_pass_plain, inp, forward, mdt)
+                res[f"{tag}_max_abs_err"] = bit_for_bit(tag, got, again, plain)
+                res[f"{tag}_active_pairs"] = int(got[3][0])
+                del got, again, plain
+                p, r = inp["p"].clone(), inp["r"].clone()
+                moving = torch.empty(r.shape, dtype=mdt, device=dev)
+                counts = torch.zeros(2, dtype=torch.int64, device=dev)
+                row_act = None if forward else torch.empty(rows, dtype=torch.int32, device=dev)
+                kw = dict(eps=ROWPASS_EPS, alpha=ROWPASS_ALPHA, forward=forward)
+                args = (p, r, inp["deg"], moving, counts, row_act)
+                fns = {f"{tag}_ms": lambda: scan_pass_(*args, **kw),
+                       f"{tag}_plain_ms": lambda: scan_pass_plain(*args, **kw)}
+                res.update(in_turns(fns))
+                res.update(in_turns({f"{tag}_call_ms": fns[f"{tag}_ms"]}, primed=False))
+                n_bytes = elems * (4 * 4 + moving.element_size()) + rows * 4 * (1 + (not forward))
+                res[f"{tag}_bound_ms"], res[f"{tag}_bound_by"] = bound_ms(n_bytes, 8 * elems)
+                res[f"{tag}_share_of_bound"] = res[f"{tag}_bound_ms"] / res[f"{tag}_ms"]
+                del p, r, moving, args, fns
+            tag = f"{pre}frontier_rows"
+            view = (inp["r"][:-1], inp["deg"][:-1], inp["row_len"][:-1], inp["f_len"][:-1])
+            kw = dict(eps=ROWPASS_EPS, forward=forward)
+            got, again = frontier_rows(*view, **kw), frontier_rows(*view, **kw)
+            plain = frontier_rows_plain(*view, **kw)
+            res[f"{tag}_max_abs_err"] = bit_for_bit(tag, list(got), list(again), list(plain))
+            res[f"{tag}_rows_active"] = n_hit = int(got[1])
+            fns = {f"{tag}_ms": lambda: frontier_rows(*view, **kw),
+                   f"{tag}_plain_ms": lambda: frontier_rows_plain(*view, **kw)}
+            res.update(in_turns(fns))
+            res.update(in_turns({f"{tag}_call_ms": fns[f"{tag}_ms"]}, primed=False))
+            n = rows - 1
+            n_bytes = n * s * 4 + forward * n * 4 + n_hit * 8 + n
+            res[f"{tag}_bound_ms"], res[f"{tag}_bound_by"] = bound_ms(n_bytes, 2 * n * s)
+            res[f"{tag}_share_of_bound"] = res[f"{tag}_bound_ms"] / res[f"{tag}_ms"]
+            del inp, view, got, again, plain, fns
+        torch.cuda.empty_cache()
+    return res
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0."""
+    segsum.reset_launches()
+    rowpass.reset_launches()
+
+
+def all_launches() -> int:
+    """Launches of every kernel since the last reset."""
+    return segsum.launches() + rowpass.launches()
+
+
+def launches_by_entry(scaled: bool | None = None) -> dict:
+    """The launches by entry since the last reset: the segment sum's and
+    the row passes'; ``scaled=True``: the segment sum's with a
+    ``row_scale`` alone."""
+    out = {entry: segsum.launches(entry, scaled) for entry in segsum.ENTRIES}
+    if scaled is None:
+        out.update({entry: rowpass.launches(entry) for entry in rowpass.ENTRIES})
+    return out
 
 
 def run_stream(drv: FastStreamDriver, warmup: int, steps: int) -> dict:
@@ -627,7 +790,7 @@ def run_stream(drv: FastStreamDriver, warmup: int, steps: int) -> dict:
     for _ in drv.run(warmup):
         pass
     sync(dev)
-    before = dict(segsum.LAUNCHES)
+    before, rows_before = dict(segsum.LAUNCHES), dict(rowpass.LAUNCHES)
     g0 = drv.round_graphs.summary()
     t0 = time.perf_counter()
     stats = list(drv.run(steps))
@@ -636,6 +799,7 @@ def run_stream(drv: FastStreamDriver, warmup: int, steps: int) -> dict:
     g1 = drv.round_graphs.summary()
     launched = segsum.launches(since=before)
     scaled = segsum.launches(scaled=True, since=before)
+    row_passes = {e: rowpass.launches(e, since=rows_before) / steps for e in rowpass.ENTRIES}
     if len(stats) != steps:
         raise AssertionError(f"stream ran {len(stats)} of {steps} slides")
     b = drv.scfg.slide
@@ -657,6 +821,7 @@ def run_stream(drv: FastStreamDriver, warmup: int, steps: int) -> dict:
         "stats_reads_per_slide": per_slide(lambda st: st.stats_reads),
         "kernel_launches_per_slide": launched / steps,
         "scaled_launches_per_slide": scaled / steps,
+        "row_pass_launches_per_slide": row_passes,
         "edge_pushes_per_s": sum(st.edge_pushes for st in stats) / wall,
         "graphs": g1,
         "replays_per_round": (g1["replays"] - g0["replays"]) / rounds,
@@ -738,7 +903,8 @@ def prologue_split(drv: FastStreamDriver, steps: int) -> dict:
 
 def serve_check(drv: FastStreamDriver, eps_r: float, k: int) -> dict:
     """Refine twice from the same state (the second call is timed), then
-    read the top-k."""
+    read the top-k (timed on its second call, as the CLI's serve loop reads
+    it warm)."""
     dev = drv.device
     saved = PprState(p=drv.state.p.clone(), r=drv.state.r.clone(), mode=drv.state.mode)
     drv.refine(eps_r)
@@ -748,6 +914,8 @@ def serve_check(drv: FastStreamDriver, eps_r: float, k: int) -> dict:
     st = drv.refine(eps_r)
     sync(dev)
     refine_ms = (time.perf_counter() - t0) * 1e3
+    topk_candidates(drv.state.p, k)
+    sync(dev)
     t0 = time.perf_counter()
     _, ids = topk_candidates(drv.state.p, k)
     sync(dev)
@@ -899,7 +1067,7 @@ def reverse_run(dev, n: int, w: int, b: int, s: int, rebuild_every: int, warmup:
                                             seed=seed)
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
     scfg = StreamConfig(window=w, slide=b)
-    segsum.reset_launches()  # this run's path: from here to the profiled slides
+    reset_launches()  # this run's path: from here to the profiled slides
     torch.cuda.reset_peak_memory_stats()
     drv = FastStreamDriver(src, dst, n, list(range(s)), cfg, scfg, mode=REVERSE,
                            dtype=torch.float32, rebuild_every=rebuild_every, device=dev)
@@ -920,6 +1088,8 @@ def reverse_run(dev, n: int, w: int, b: int, s: int, rebuild_every: int, warmup:
     res["launches_scaled"] = launches_by_entry(scaled=True)
     if res["launches_scaled"]["segsum_gather_add"] <= 0:
         raise AssertionError(f"the reverse stream never launched the scaled entry: {res}")
+    if res["launches_by_entry"]["scan_pass"] <= 0:
+        raise AssertionError(f"the reverse stream never launched the scan pass: {res}")
     # what follows compares and is not counted
     res["correction_rounding"] = correction_rounding(drv)
     # the control: the same engine on the final window (the ring's edges in
@@ -953,7 +1123,7 @@ def forward_run(dev, n: int, w: int, b: int, s: int, rebuild_every: int, warmup:
     src, dst, n = synthetic_powerlaw_stream(n, w + (steps + warmup + prof_steps + 1) * b,
                                             seed=seed)
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
-    segsum.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     kw = dict(dtype=torch.float32, rebuild_every=rebuild_every, bf16d=bf16d)
     drv = FastStreamDriver(src, dst, n, list(range(s)), cfg, StreamConfig(window=w, slide=b),
@@ -976,8 +1146,8 @@ def forward_run(dev, n: int, w: int, b: int, s: int, rebuild_every: int, warmup:
                                      twin and state_mass(twin, 16))
     serve = serve_check(drv, eps_r=eps_r, k=k)
     res["launches_by_entry"] = launches_by_entry()
-    if res["launches_by_entry"]["segsum_gather_add"] <= 0:
-        raise AssertionError(f"the stream never launched the segment sum: {res}")
+    if min(res["launches_by_entry"][e] for e in ("segsum_gather_add", "scan_pass")) <= 0:
+        raise AssertionError(f"the stream never launched the segment sum or the scan pass: {res}")
     # what follows compares and launches nothing of the port's on the card
     if twin:
         t0 = time.perf_counter()
@@ -1000,7 +1170,7 @@ def dense_check(dev) -> dict:
     src, dst, n = synthetic_powerlaw_stream(300, 3000, seed=5)
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
     queries = [0, 7, 99]
-    segsum.reset_launches()
+    reset_launches()
     res = {"n": n, "window": w, "queries": len(queries)}
     for mode, tag in ((0, "forward"), (REVERSE, "reverse")):
         for b, slides in ((100, 8), (1, 60)):
@@ -1027,9 +1197,9 @@ def dense_check(dev) -> dict:
                         f"{tag}_slide{b}_bound": bound})
             if not err <= bound:
                 raise AssertionError(f"dense {tag} stream, slide {b}: error {err} > {bound}")
-    res["kernel_launches"] = segsum.launches()
+    res["kernel_launches"] = all_launches()
     if res["kernel_launches"] != 0:
-        raise AssertionError("the dense driver launched the segment sum")
+        raise AssertionError("the dense driver launched a kernel")
     return res
 
 
@@ -1098,7 +1268,7 @@ def run_cli(argv: list[str]) -> dict:
     counts set to 0 before it: its summary (the last line it prints, as
     JSON), its wall seconds and its launches by entry."""
     out = io.StringIO()
-    segsum.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         cli.main(argv)
@@ -1379,7 +1549,7 @@ def config5_check(dev, bf16d: bool, n_check: int = 16, k: int = 100, prof: bool 
     plain version sums and no kernel runs (``cpu_witness_s``: what it took);
     the loss is the reference's too (PERF.md §2). 15c runs it with
     ``engine="wlp"``; ``round_kinds`` counts the engine's rounds by kind."""
-    segsum.reset_launches()
+    reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     rep, drv = config5_run(device=dev, bf16d=bf16d, **shape)
@@ -1434,7 +1604,7 @@ def sharded_dense_check(dev) -> dict:
     src, dst, n = synthetic_powerlaw_stream(300, 3000, seed=5)
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
     queries = [0, 7, 99]
-    segsum.reset_launches()
+    reset_launches()
     res = {"n": n, "window": w, "queries": len(queries)}
     for mode, tag in ((0, "forward"), (REVERSE, "reverse")):
         for b, slides in ((100, 8), (1, 60)):
@@ -1457,9 +1627,9 @@ def sharded_dense_check(dev) -> dict:
                         f"{tag}_slide{b}_bound": bound})
             if not err <= bound:
                 raise AssertionError(f"sharded dense {tag}, slide {b}: error {err} > {bound}")
-    res["kernel_launches"] = segsum.launches()
+    res["kernel_launches"] = all_launches()
     if res["kernel_launches"] != 0:
-        raise AssertionError("the sharded dense engine launched the segment sum")
+        raise AssertionError("the sharded dense engine launched a kernel")
     return res
 
 
@@ -1541,7 +1711,7 @@ def config5_reverse_check(dev, n_check: int = 16, prof: bool = False,
     unscaled (the row-sum sweep) apart, peak memory, and the reverse
     contract on ``n_check`` sampled targets (phase 8's). Returns (result,
     driver)."""
-    segsum.reset_launches()
+    reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     rep, drv = config5_run(device=dev, mode="reverse", extra_slides=REVERSE_SPARE - 1, **shape)
@@ -1727,7 +1897,7 @@ def hybrid_bench(dev, **env) -> dict:
     refines only the fast driver), reported and not held to 0.95
     (``maintained_precision`` in 16a puts the fast driver's beside it).
     ``env``: more ``PPRX_BENCH_*`` settings."""
-    segsum.reset_launches()
+    reset_launches()
     with environ(PPRX_BENCH_ENGINE="hybrid", **{f"PPRX_BENCH_{k}": v for k, v in env.items()}):
         out = headline.run(dev)
     out["launches_by_entry"] = launches_by_entry()
@@ -1792,7 +1962,7 @@ def hybrid_forward(dev, n: int, w: int, b: int, s: int, warmup: int = 6, steps: 
         src, dst = np.concatenate([src, src[:more]]), np.concatenate([dst, dst[:more]])
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
     scfg = StreamConfig(window=w, slide=b)
-    segsum.reset_launches()
+    reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     drv = HybridStreamDriver(src, dst, n, list(range(s)), cfg, scfg, device=dev)
@@ -1847,7 +2017,7 @@ def hybrid_reverse(dev, n: int, w: int, b: int, s: int, warmup: int = 2, steps: 
     sampled targets at the maintained eps (phase 8's)."""
     src, dst, n = synthetic_powerlaw_stream(n, w + (warmup + steps + 1) * b, seed=7)
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
-    segsum.reset_launches()
+    reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     drv = HybridStreamDriver(src, dst, n, list(range(s)), cfg, StreamConfig(window=w, slide=b),
@@ -1869,7 +2039,7 @@ def hybrid_no_worklist(dev, n: int = 20_000, w: int = 200_000, b: int = 4000, s:
     src, dst, n = synthetic_powerlaw_stream(n, w + (steps + 1) * b, seed=3)
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
     scfg = StreamConfig(window=w, slide=b)
-    segsum.reset_launches()
+    reset_launches()
     res, drivers = {"n": n, "window": w, "slide": b, "sources": s}, {}
     for wl in (False, True):
         drv = HybridStreamDriver(src, dst, n, list(range(s)), cfg, scfg, worklist=wl,
@@ -1897,7 +2067,7 @@ def hybrid_checkpoint_check(drv: HybridStreamDriver, n_check: int, l1_bound: flo
     agree to 1e-5 in ``settled_distance`` (phase 10's pair), with the
     counts set to 0 before it."""
     dev = drv.device
-    segsum.reset_launches()
+    reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "hybrid.npz")
         t0 = time.perf_counter()
@@ -1958,8 +2128,8 @@ def hybrid_cli(dev, tmp: str, graph: str, w: int, b: int, s: int, k: int = 100) 
 
 
 def check_no_launch(by_path: dict) -> dict:
-    """Every path named launched no segment-sum entry: it runs plain torch
-    ops."""
+    """Every path named launched no kernel (no segment-sum entry, no row
+    pass): it runs plain torch ops."""
     for path, counts in by_path.items():
         if any(counts.values()):
             raise AssertionError(f"{path} runs plain torch ops but launched {counts}")
@@ -2024,6 +2194,54 @@ def kernel_entry(name: str, key: str, kern: dict, launches: dict) -> dict:
     return {**out, **rows}
 
 
+# the row passes' entries of the kernels line: (TPU work they stand for,
+# its lines in the reference) and the phase 3b case that is the main path's
+ROWPASS_KERNELS = {
+    "scan_pass": ("pprx/engine/wl2.py:201", "XLA's fusion of dense_round_sorted's elementwise "
+                  "work (pprx/engine/wl2.py:201-219, 246, 283-288); no pl.pallas_call",
+                  "headline_fwd_scan_pass_f32"),
+    "frontier_rows": ("pprx/engine/wl2.py:510", "XLA's fusion of the rescan "
+                      "(pprx/engine/wl2.py:510-516, 640-649); no pl.pallas_call",
+                      "headline_fwd_frontier_rows"),
+}
+
+
+def rowpass_entry(name: str, rp: dict, launches: dict) -> dict:
+    """One row pass's entry of the kernels line from phase 3b's numbers: the
+    headline forward case (f32 ``moving`` for K2) under the plain names,
+    every case held and timed beside them. ``launches`` as for
+    ``kernel_entry``."""
+    replaces, tpu, main = ROWPASS_KERNELS[name]
+    by_path = {path: counts[name] for path, counts in launches.items()}
+    out = {
+        "name": name, "route": "cuda", "source": "pprx_torch/csrc/rowpass.cu",
+        "replaces": replaces, "tpu_work": tpu,
+        "launches": by_path["forward"], "launches_by_path": by_path,
+        "max_abs_err": max(v for k, v in rp.items()
+                           if k.endswith("_max_abs_err") and f"_{name}" in k),
+        "library_ms": None, "library_call": "none: no single PyTorch call computes this",
+    }
+    for what in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound", "call_ms"):
+        out[what] = rp[f"{main}_{what}"]
+    out["cases"] = {k[:-3]: {what: rp[f"{k[:-3]}_{what}"] for what in (
+        "ms", "plain_ms", "bound_ms", "share_of_bound", "call_ms", "max_abs_err")}
+        for k in rp if k.endswith("_ms") and f"_{name}" in k and not k.endswith(
+            ("_plain_ms", "_bound_ms", "_call_ms"))}
+    return out
+
+
+def build_all() -> dict:
+    """Every kernel source built at once, one ``nvcc`` each, in parallel."""
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        builds = dict(zip(KERNEL_SOURCES, pool.map(_ext.build, KERNEL_SOURCES)))
+    for name in KERNEL_SOURCES:
+        _ext.load(name)
+    return builds
+
+
+KERNEL_SOURCES = ("segsum", "rowpass")
+
+
 def main() -> None:
     dev = require_cuda()
     name = torch.cuda.get_device_name(0)
@@ -2032,16 +2250,22 @@ def main() -> None:
     log("1 device", name=name, count=count, nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
 
-    built = _ext.build("segsum")
-    _ext.load("segsum")
-    ptxas = sorted({ln.split(":", 1)[1].strip() for ln in built.log.splitlines() if "Used" in ln})
-    log("2 build", seconds=built.seconds, library=built.path.name, ptxas=ptxas)
+    t0 = time.perf_counter()
+    builds = build_all()
+    log("2 build", seconds=time.perf_counter() - t0, **{name: {
+        "seconds": b.seconds, "library": b.path.name,
+        "ptxas": sorted({ln.split(":", 1)[1].strip() for ln in b.log.splitlines() if "Used" in ln})}
+        for name, b in builds.items()})
 
     n, w, b, s = (HEADLINE[k] for k in "nwbs")
     kern = check_kernel(dev, n, w, s)
     kern.update(check_kernel_config3(dev))
     kern.update(check_kernel_config2(dev))
     log("3 kernel", **kern)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rp = check_rowpass(dev)
+    log("3b row passes", **rp, seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
 
     steps, prof_steps = HEADLINE["steps"], HEADLINE["prof_steps"]
@@ -2053,7 +2277,7 @@ def main() -> None:
     queries = list(range(s))
 
     # the main path: every launch from here to the top-k read counts
-    segsum.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     drv = FastStreamDriver(src, dst, n, queries, cfg, scfg, dtype=torch.float32,
                            rebuild_every=rebuild_every, device=dev)
@@ -2081,8 +2305,8 @@ def main() -> None:
     serve = serve_check(drv, eps_r=5e-8, k=k)
     launches = segsum.launches()
     by_entry = launches_by_entry()
-    if launches <= 0:
-        raise AssertionError(f"the main path never launched a segment-sum kernel: {by_entry}")
+    if min(launches, by_entry["scan_pass"], by_entry["frontier_rows"]) <= 0:
+        raise AssertionError(f"the main path never launched one of its kernels: {by_entry}")
     contract = exact_contract(drv, serve.pop("ids"), k, 16, l1_bound=cfg.eps * w)
     log("6 serve", eps_retrieve=5e-8, k=k, **serve, **contract, launches_total=launches,
         launches_by_entry=by_entry)
@@ -2105,7 +2329,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # the static configs on the dense engine (plain torch ops: no kernel)
-    segsum.reset_launches()
+    reset_launches()
     c1 = run_config(1, device=dev)
     if not c1["within_bound"]:
         raise AssertionError(f"config 1 misses its L1 bound: {c1}")
@@ -2118,7 +2342,7 @@ def main() -> None:
     static_by_entry = launches_by_entry()
     torch.cuda.empty_cache()
 
-    segsum.reset_launches()
+    reset_launches()
     log("10 checkpoint", **checkpoint_check(drv, 16, l1_bound=cfg.eps * w))
     ckpt_by_entry = launches_by_entry()
 
@@ -2225,6 +2449,7 @@ def main() -> None:
     print(json.dumps({"kernels": [
         kernel_entry("segsum_add", "add", kern, launches),
         kernel_entry("segsum_gather_add", "gather", kern, launches),
+        *(rowpass_entry(name, rp, launches) for name in ROWPASS_KERNELS),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
@@ -2247,7 +2472,7 @@ def turn_shapes() -> list[dict]:
 
 # one turn: run in a tree's root, so that its chip_smoke and pprx_torch load
 TURN = """
-import json, sys, torch
+import json, sys, time, torch
 import chip_smoke as cs
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.engine.state import FORWARD, REVERSE
@@ -2270,12 +2495,25 @@ for sh in json.loads(sys.argv[1]):
     res = cs.run_stream(drv, sh["warmup"], sh["steps"])
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     res["profile"] = cs.profile_slides(drv, sh["prof_steps"])
+    # the refine to 5e-8: its first call (the new eps's captures in it), then
+    # again from the same state
+    saved = (drv.state.p.clone(), drv.state.r.clone())
+    for tag in ("refine_cold", "refine_warm"):
+        drv.state.p.copy_(saved[0])
+        drv.state.r.copy_(saved[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = drv.refine(5e-8)
+        torch.cuda.synchronize()
+        res[tag + "_ms"] = (time.perf_counter() - t0) * 1e3
+        res[tag + "_rounds"] = st.rounds
     print(json.dumps({"shape": sh["tag"], "nvidia_smi": smi, **res}), flush=True)
-    del drv
+    del drv, saved
 """
 
 TURN_SUMMARY = ("updates_per_s", "rounds_per_slide", "syncs_per_slide", "wall_per_round_ms",
-                "peak_mem_gib", "kernel_launches_per_slide", "replays_per_round", "eager_rounds")
+                "peak_mem_gib", "kernel_launches_per_slide", "replays_per_round", "eager_rounds",
+                "refine_cold_ms", "refine_warm_ms", "refine_cold_rounds")
 
 
 def turns(argv: list[str]) -> int:

@@ -34,9 +34,9 @@ records (the segment-sum library loads its module lazily). Then the same
 function is captured into a graph that shares the cache's one memory pool:
 the graphs replay one after another, and nothing crosses between them
 through the pool. A failed capture raises; nothing falls back to eager
-launches on CUDA. The segment sum counts a launch when its wrapper runs, so
-a capture's count is taken back out of ``segsum.LAUNCHES`` and added again
-on every replay.
+launches on CUDA. A kernel's wrapper counts a launch when it runs, so a
+capture's counts are taken back out of every kernel module's ``LAUNCHES``
+(``KERNEL_COUNTS``) and added again on every replay.
 
 On CPU tensors ``run`` calls the step's function: the same functions on
 the same buffers, eagerly. That is the plain path the tests take, chosen by the
@@ -51,9 +51,12 @@ from typing import Callable, Hashable
 
 import torch
 
-from pprx_torch.engine import segsum
+from pprx_torch.engine import rowpass, segsum
 
 N_COUNTS = 5  # cn, fed, fre, n_active, edge_work
+
+# every kernel module's launch counts, which a replay adds to
+KERNEL_COUNTS = (segsum.LAUNCHES, rowpass.LAUNCHES)
 
 
 def tensor_ptrs(obj) -> tuple[int, ...]:
@@ -97,7 +100,7 @@ class RoundGraphs:
         self.cand = torch.full((max(width, n + 1),), n, dtype=torch.int32, device=self.device)
         self.counts = torch.zeros(N_COUNTS, dtype=torch.int64, device=self.device)
         self.c0n = torch.zeros((), dtype=torch.int64, device=self.device)
-        self.graphs: dict[Hashable, tuple[torch.cuda.CUDAGraph, dict]] = {}
+        self.graphs: dict[Hashable, tuple[torch.cuda.CUDAGraph, list[dict]]] = {}
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
@@ -168,8 +171,9 @@ class RoundGraphs:
         if hit is not None:
             graph, launched = hit
             graph.replay()
-            for k, c in launched.items():
-                segsum.LAUNCHES[k] += c
+            for counts, added in zip(KERNEL_COUNTS, launched):
+                for k, c in added.items():
+                    counts[k] += c
             self.replays += 1
             return
         main = torch.cuda.current_stream(self.device)
@@ -180,13 +184,15 @@ class RoundGraphs:
         self.eager += 1
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        before = dict(segsum.LAUNCHES)
+        before = [dict(counts) for counts in KERNEL_COUNTS]
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 fn()
         finally:
-            launched = {k: segsum.LAUNCHES[k] - before[k] for k in before}
-            segsum.LAUNCHES.update(before)
+            launched = [{k: counts[k] - was[k] for k in was}
+                        for counts, was in zip(KERNEL_COUNTS, before)]
+            for counts, was in zip(KERNEL_COUNTS, before):
+                counts.update(was)
         self.graphs[key] = (graph, launched)
         self.captures += 1
         self.capture_s += time.perf_counter() - t0

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from pprx_torch.config import PprConfig
+from pprx_torch.engine.rowpass import active_mask
 from pprx_torch.engine.state import FORWARD, PprState, PushStats
 from pprx_torch.engine.update import edge_blocks
 from pprx_torch.graph.dynamic import WindowGraph
@@ -35,11 +36,7 @@ def _active_mask(state: PprState, graph: WindowGraph, cfg: PprConfig) -> torch.T
     Forward: |r[v]| > eps * max(d_out(v), 1); reverse: |r[v]| > eps.
     The phantom row N never activates because its residual is always zero.
     """
-    absr = state.r.abs()
-    if state.mode == FORWARD:
-        thresh = cfg.eps * graph.deg.clamp(min=1).to(state.r.dtype)
-        return absr > thresh[:, None]
-    return absr > cfg.eps
+    return active_mask(state.r, graph.deg, cfg.eps, state.mode == FORWARD)
 
 
 def push_round(

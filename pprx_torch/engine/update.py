@@ -76,15 +76,41 @@ def apply_edge_batch(
 ) -> tuple[PprState, WindowGraph]:
     """Apply one batch of edge deletions then insertions.
 
-    Returns a new ``r`` (and in forward mode a new ``p``) and a new ``deg``;
-    the inputs are not modified, and the COO ring itself is rewritten by
-    the stream driver: reverse-mode corrections read the old ring, so call
-    this before overwriting expiring slots. Deletion batches must be valid:
-    every (u,w) currently in the graph, with multiplicity.
+    Returns a new state and a new window (new ``p``, ``r`` and ``deg``, the
+    same ring); the inputs are not modified. ``apply_edge_batch_`` on
+    copies: see there."""
+    out = PprState(p=state.p.clone(), r=state.r.clone(), mode=state.mode)
+    new_graph = WindowGraph(src=graph.src, dst=graph.dst, deg=graph.deg.clone())
+    return apply_edge_batch_(out, new_graph, ins_src, ins_dst, del_src, del_dst, cfg, rowsum)
+
+
+def apply_edge_batch_(
+    state: PprState,
+    graph: WindowGraph,
+    ins_src: torch.Tensor,
+    ins_dst: torch.Tensor,
+    del_src: torch.Tensor,
+    del_dst: torch.Tensor,
+    cfg: PprConfig,
+    rowsum: torch.Tensor | None = None,
+) -> tuple[PprState, WindowGraph]:
+    """Apply one batch of edge deletions then insertions in place:
+    ``state.r``, in forward mode ``state.p``, and ``graph.deg`` are
+    updated; returns ``(state, graph)``. The COO ring itself is rewritten
+    by the stream driver: reverse-mode corrections read the old ring, so
+    call this before overwriting expiring slots. Deletion batches must be
+    valid: every (u,w) currently in the graph, with multiplicity.
+
+    Forward, both per-edge scatters go into ``r`` first (the insert
+    payload is ``beta * p[u] * s1[u] / d1[u]``, ``s1`` the delete phase's
+    row scale: the post-delete ``p'[u]``), then one row pass
+    ``r += c_r * p; p *= c_p`` with ``c_r = r_add - r_sub * s1`` and
+    ``c_p = s1 * s2`` per row: the two phases' row updates in one.
 
     ``rowsum`` (reverse mode only): the ``[N+1, S]`` sums of ``p`` over each
     vertex's out-row in the old window, where the caller has them;
-    ``None`` sums them here (``out_row_sums``).
+    ``None`` sums them here (``out_row_sums``). It is read, not written;
+    the new row sums take one ``[N+1, S]`` temporary.
     """
     dtype = state.r.dtype
     n_rows = state.p.shape[0]
@@ -96,52 +122,57 @@ def apply_edge_batch(
     p, r = state.p, state.r
     deg_new = d0 - k_del + k_ins
     deg_new[-1:].fill_(0)  # phantom row degree pinned (a slice: capturable)
-    new_graph = WindowGraph(src=graph.src, dst=graph.dst, deg=deg_new)
 
     if state.mode != FORWARD:
         if rowsum is None:
             rowsum = out_row_sums(p, graph)
         d0f = d0.clamp(min=1).to(dtype)
-        pp_old = torch.where((d0 == 0)[:, None], p, rowsum / d0f[:, None])
-        s_new = rowsum.index_add(0, del_src, p[del_dst], alpha=-1)
-        s_new.index_add_(0, ins_src, p[ins_dst])
         d_newf = deg_new.clamp(min=1).to(dtype)
-        pp_new = torch.where((deg_new == 0)[:, None], p, s_new / d_newf[:, None])
-        r = r + beta * (pp_new - pp_old)
+        # pp_new - pp_old, built in the one temporary: pp is the mean of p
+        # over the out-row, or p itself on a dangling row (whose old row sum
+        # is 0)
+        diff = rowsum.index_add(0, del_src, p[del_dst], alpha=-1)
+        diff.index_add_(0, ins_src, p[ins_dst])
+        diff.div_(d_newf[:, None])
+        torch.where((deg_new == 0)[:, None], p, diff, out=diff)
+        diff.addcdiv_(rowsum, d0f[:, None], value=-1)
+        diff.addcmul_(p, (d0 == 0).to(dtype)[:, None], value=-1)
+        # beta * diff rounded, then added: the out-of-place form's two
+        # roundings (``add_(diff, alpha=beta)`` may fuse them on CUDA)
+        r.add_(diff.mul_(beta))
         r[-1] = 0.0
-        return PprState(p=p, r=r, mode=state.mode), new_graph
+        graph.deg.copy_(deg_new)
+        return state, graph
 
     # ---- delete phase (old p, old degrees) ----
     d0f = d0.clamp(min=1).to(dtype)
-    per_edge = beta * p[del_src] / d0f[del_src, None]  # [B, S]
-    r = r.index_add(0, del_dst, per_edge, alpha=-1)
+    r.index_add_(0, del_dst, beta * p[del_src] / d0f[del_src, None], alpha=-1)
     D = d0 - k_del
     touched = k_del > 0
     full = touched & (D == 0)
-    scale_p = torch.where(touched, D.clamp(min=1).to(dtype) / d0f, 1.0)
+    s1 = torch.where(touched, D.clamp(min=1).to(dtype) / d0f, 1.0)
     kd = k_del.to(dtype)
     num = torch.where(full, kd - alpha, kd)
     r_add = torch.where(touched, num / (alpha * d0f), 0.0)
-    r = r + r_add[:, None] * p
-    p = p * scale_p[:, None]
 
-    # ---- insert phase (post-delete p, post-delete degrees) ----
+    # ---- insert phase (post-delete p = p * s1, post-delete degrees) ----
     d1 = D
     d1f = d1.clamp(min=1).to(dtype)
-    per_edge = beta * p[ins_src] / d1f[ins_src, None]
-    r = r.index_add(0, ins_dst, per_edge)
+    r.index_add_(0, ins_dst, beta * (p[ins_src] * s1[ins_src, None]) / d1f[ins_src, None])
     touched = k_ins > 0
     from_dangling = touched & (d1 == 0)
     ki = k_ins.to(dtype)
-    scale_p = torch.where(
+    s2 = torch.where(
         touched, torch.where(from_dangling, ki, (d1 + k_ins).to(dtype) / d1f), 1.0
     )
     num = torch.where(from_dangling, ki - alpha, ki)
     denom = torch.where(from_dangling, alpha, alpha * d1f)
     r_sub = torch.where(touched, num / denom, 0.0)
-    r = r - r_sub[:, None] * p
-    p = p * scale_p[:, None]
 
+    # ---- both phases' row updates in one pass ----
+    r.addcmul_(p, (r_add - r_sub * s1)[:, None])
+    p.mul_((s1 * s2)[:, None])
     p[-1] = 0.0
     r[-1] = 0.0
-    return PprState(p=p, r=r, mode=state.mode), new_graph
+    graph.deg.copy_(deg_new)
+    return state, graph

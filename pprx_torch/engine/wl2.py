@@ -31,6 +31,10 @@ How the port differs:
   reference hands to its kernel is never built. The TPU kernel's lane
   padding, EC padding and tile offsets are gone; per-row offsets
   (``d_off``, ``fd_off``) take their place.
+- A scan round's elementwise work (the activity test, the mass moved onto
+  ``p``, the ``moving`` rows, its counts) is one pass over the state, and
+  so is a rescan's activity test (``pprx_torch.engine.rowpass``: Hopper
+  kernels on CUDA tensors, where XLA fused the same ops on the TPU).
 - A scan round's next-frontier stats are a graph of their own
   (``_frontier_stats``), run after the scan's counts are read and only for
   a light scan, as the reference's ``lax.cond`` skips them: a second read
@@ -51,7 +55,7 @@ import torch
 
 from pprx_torch.config import PprConfig
 from pprx_torch.engine.graphs import RoundGraphs, copy_into_
-from pprx_torch.engine.push import _active_mask
+from pprx_torch.engine.rowpass import frontier_rows, scan_pass_
 from pprx_torch.engine.segsum import row_offsets, segsum_gather_add_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats
 from pprx_torch.graph.dynamic import WindowGraph
@@ -198,38 +202,32 @@ def dense_round_sorted(
     ``bf16d`` delivers the increments in bf16 (f32 accumulation); the
     residual removal, and in reverse mode the per-row scale, stay exact in
     the state's dtype."""
-    dtype = state.r.dtype
-    alpha = cfg.alpha
     n = kg.n
     deg = kg.window.deg
-    act = _active_mask(state, kg.window, cfg)
-    mass = torch.where(act, state.r, 0.0)
-    dangling = (deg == 0)[:, None]
-    state.p.add_(torch.where(dangling, mass, alpha * mass))
-    state.r.sub_(mass)
-    inv_deg = 1.0 / deg.clamp(min=1).to(dtype)
-    if state.mode == FORWARD:
-        moving = (1.0 - alpha) * mass * inv_deg[:, None]
+    forward = state.mode == FORWARD
+    dev = state.r.device
+    # the round's elementwise work, one pass over the state (rowpass K2)
+    moving = torch.empty_like(state.r, dtype=torch.bfloat16 if bf16d else state.r.dtype)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    row_act = None if forward else torch.empty(n + 1, dtype=torch.int32, device=dev)
+    scan_pass_(state.p, state.r, deg, moving, counts, row_act, eps=cfg.eps, alpha=cfg.alpha,
+               forward=forward)
+    if forward:
         scale = None
-        edge_pushes = (act * deg[:, None]).sum()
+        edge_pushes = counts[1]
     else:
-        beta = (1.0 - alpha) / alpha
-        moving = torch.where(dangling, beta * mass, (1.0 - alpha) * mass)
         # the delivery row is the receiver: its 1/d_out is one factor on
         # the row's sum
-        scale = inv_deg[:n]
+        scale = 1.0 / deg[:n].clamp(min=1).to(state.r.dtype)
         # killed and unfilled slots name row n, whose count is 0
-        n_act = act.sum(dim=1)
-        edge_pushes = n_act[kg.d_gat].sum() + n_act[kg.fr_gat].sum()
-    if bf16d:
-        moving = moving.to(torch.bfloat16)
+        edge_pushes = row_act[kg.d_gat].sum() + row_act[kg.fr_gat].sum()
     # rows [0, n) only: the phantom row's edges (ring padding, unfilled
     # fresh slots) are never read, and row n is zeroed anyway
     segsum_gather_add_(state.r[:n], moving, kg.d_gat, kg.d_off[: n + 1], row_scale=scale)
     segsum_gather_add_(state.r[:n], moving, kg.fd_gat, kg.fd_off[: n + 1], row_scale=scale)
     state.p[-1] = 0.0
     state.r[-1] = 0.0
-    return state, act.sum(), edge_pushes
+    return state, counts[0], edge_pushes
 
 
 def rld_expand(
@@ -281,14 +279,13 @@ def make_tiers2(
 
 
 def _frontier_stats(state: PprState, kg: KillGraph, cfg: PprConfig, emit_w: int):
-    """Next frontier by a full activity rescan: (cand2, cn2, fed2, fre2)."""
+    """Next frontier by a full activity rescan (rowpass K3, one read of
+    ``r``): (cand2, cn2, fed2, fre2)."""
     n = kg.n
-    any2 = _active_mask(state, kg.window, cfg)[:n].any(dim=1)
-    cand2 = compact(any2, emit_w, n)
-    cn2 = any2.sum()
-    fed2 = torch.where(any2, kg.row_len[:n], 0).sum()
-    fre2 = torch.where(any2, kg.f_len[:n], 0).sum()
-    return cand2, cn2, fed2, fre2
+    any2, cn2, fed2, fre2 = frontier_rows(
+        state.r[:n], kg.window.deg[:n], kg.row_len[:n], kg.f_len[:n], eps=cfg.eps,
+        forward=state.mode == FORWARD)
+    return compact(any2, emit_w, n), cn2, fed2, fre2
 
 
 def sorted_deliver_(

@@ -24,10 +24,10 @@ import torch
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.device import resolve_device
 from pprx_torch.convert import kill_graph_from_arrays, state_from_arrays
-from pprx_torch.engine.graphs import RoundGraphs, copy_into_
+from pprx_torch.engine.graphs import RoundGraphs
 from pprx_torch.engine.segsum import segsum_gather_add_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats, init_state
-from pprx_torch.engine.update import apply_edge_batch
+from pprx_torch.engine.update import apply_edge_batch_
 from pprx_torch.engine.wl2 import (
     KillGraph,
     first_count,
@@ -128,12 +128,8 @@ def _slide_prologue(state: PprState, kg: KillGraph, pack: torch.Tensor, cfg: Ppr
     # corrections read the old degrees (and in reverse mode the old window's
     # row sums), so they run before any mutation
     rowsum = None if forward else window_row_sums(state.p, kg)
-    corrected, w = apply_edge_batch(
-        state, kg.window, new_src, new_dst, old_src, old_dst, cfg, rowsum=rowsum
-    )
-    copy_into_(state, corrected)
-    kg.window.deg.copy_(w.deg)
-    del corrected, w
+    apply_edge_batch_(state, kg.window, new_src, new_dst, old_src, old_dst, cfg, rowsum=rowsum)
+    del rowsum
     # kill the expiring edges in both snapshot views (their slots are
     # snapshot-era: the driver keeps rebuild_every * slide <= window)
     kg.nbr.index_fill_(0, kg.snap_pos[slots].long(), n)

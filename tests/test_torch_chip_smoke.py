@@ -242,3 +242,44 @@ def test_hybrid_phase_16_on_the_cpu(tmp_path):
     by_path["hybrid_forward"] = {"segsum_add": 0, "segsum_gather_add": 1}
     with pytest.raises(AssertionError, match="hybrid_forward runs plain torch ops"):
         chip_smoke.check_no_launch(by_path)
+
+
+def test_row_pass_phase_on_the_cpu(monkeypatch):
+    """Phase 3b's control flow and its kernels-line entries on the CPU at a
+    small size (the wrappers run their plain versions here, so the bits
+    agree trivially; CUDA's timers are replaced by stand-ins): every case
+    held and timed, entries exactly at the threshold left inactive, and
+    the entries carry every key the kernels line needs."""
+    monkeypatch.setattr(chip_smoke, "ROWPASS_SHAPES", (
+        ("headline", 501, 128, 7, 5000), ("config2", 401, 16, 2, 4000),
+        ("config3", 301, 8, 3, 3000)))
+    monkeypatch.setattr(chip_smoke, "ROWPASS_AT_THRESHOLD", 50)
+    monkeypatch.setattr(chip_smoke, "in_turns", lambda fns, **kw: {k: 1.0 for k in fns})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    rp = chip_smoke.check_rowpass(torch.device("cpu"))
+    for shape in ("headline", "config2", "config3"):
+        for mode in ("fwd", "rev"):
+            pre = f"{shape}_{mode}_"
+            assert rp[f"{pre}dangling_rows"] > 0
+            for k in ("scan_pass_f32", "scan_pass_bf16", "frontier_rows"):
+                assert rp[f"{pre}{k}_max_abs_err"] == 0.0
+                assert rp[f"{pre}{k}_bound_by"] == "bytes"
+            pairs = rp[f"{pre}rows"] * rp[f"{pre}s"]
+            assert 0.3 * pairs < rp[f"{pre}scan_pass_f32_active_pairs"] < 0.7 * pairs
+    assert rp["headline_fwd_scan_pass_f32_bound_ms"] == pytest.approx(
+        501 * 128 * 20 / 3.35e9 + 501 * 4 / 3.35e9)
+    inp = chip_smoke.rowpass_inputs(chip_smoke.window_degrees(torch.device("cpu"), 301, 3, 3000),
+                                    8, 3, forward=True)
+    th = chip_smoke.ROWPASS_EPS * inp["deg"].clamp(min=1).float()
+    at = inp["r"].abs() == th[:, None]
+    assert at.sum() >= 45 and not (at & (inp["r"].abs() > th[:, None])).any()
+    launches = {"forward": {"scan_pass": 5, "frontier_rows": 2}, "hybrid_forward": {
+        "scan_pass": 0, "frontier_rows": 0}}
+    for name in chip_smoke.ROWPASS_KERNELS:
+        entry = chip_smoke.rowpass_entry(name, rp, launches)
+        assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(entry)
+        assert entry["library_ms"] is None and entry["launches"] == launches["forward"][name]
+        assert len(entry["cases"]) == (12 if name == "scan_pass" else 6)
+    with pytest.raises(AssertionError, match="hybrid_forward runs plain torch ops"):
+        chip_smoke.check_no_launch({"hybrid_forward": {"segsum_add": 0, "scan_pass": 1}})

@@ -1134,3 +1134,193 @@ def test_driver_on_an_explicit_index_replays_its_rounds(monkeypatch):
         torch.cuda.synchronize(dev)
     assert abs(sum(eager) - sum(replayed)) <= 1
     assert settled_distance(drv.state, end[0], 0.15) <= 1e-5
+
+
+# ---- the row passes (pprx_torch.engine.rowpass): K2 and K3 on the card
+
+ROW_WIDTHS = [3, 8, 16, 128]
+
+
+def _row_state(dev, s: int, forward: bool, rows: int = 20_001, seed: int = 0):
+    """A state on power-law out-degrees (dangling rows among them, the
+    phantom row last): ``|r|`` below twice each row's threshold, a few
+    hundred entries exactly at it, ``p`` >= 0; and row lengths."""
+    rng = np.random.default_rng(seed)
+    deg = np.minimum(rng.zipf(1.6, size=rows) - 1, 5000).astype(np.int32)
+    deg[-1] = 0
+    assert (deg[:-1] == 0).any()
+    deg_t = torch.from_numpy(deg).to(dev)
+    th = (1e-6 * deg_t.clamp(min=1).float()) if forward else torch.full((rows,), 1e-6, device=dev)
+    r = torch.from_numpy(rng.uniform(-2, 2, (rows, s)).astype(np.float32)).to(dev) * th[:, None]
+    at = torch.from_numpy(rng.integers(0, (rows - 1) * s, 300)).to(dev)
+    r.view(-1)[at] = th.repeat_interleave(s)[at]
+    r[-1] = 0.0
+    p = torch.from_numpy(rng.random((rows, s), dtype=np.float32) * 1e-3).to(dev)
+    f_len = torch.from_numpy(rng.integers(0, 4, rows).astype(np.int32)).to(dev)
+    return p, r, deg_t, f_len
+
+
+def _scan(fn, p, r, deg, forward, mdt):
+    p, r = p.clone(), r.clone()
+    moving = torch.empty(r.shape, dtype=mdt, device=r.device)
+    counts = torch.zeros(2, dtype=torch.int64, device=r.device)
+    row_act = None if forward else torch.empty(r.shape[0], dtype=torch.int32, device=r.device)
+    fn(p, r, deg, moving, counts, row_act, eps=1e-6, alpha=0.15, forward=forward)
+    return [p, r, moving, counts] + ([] if forward else [row_act])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", ROW_WIDTHS)
+@pytest.mark.parametrize("forward", [True, False])
+def test_scan_pass_kernel_is_the_plain_version_bit_for_bit(forward, s, mdt):
+    """K2 against ``scan_pass_plain`` on the card: p, r, moving (f32, or
+    bf16 rounded to nearest even), the counts and each row's count, bit for
+    bit, with entries exactly at the threshold and dangling rows; two
+    launches agree; one launch counted a call."""
+    from pprx_torch.engine import rowpass
+
+    dev = _cuda()
+    p, r, deg, _ = _row_state(dev, s, forward)
+    before = rowpass.launches()
+    got = _scan(rowpass.scan_pass_, p, r, deg, forward, mdt)
+    again = _scan(rowpass.scan_pass_, p, r, deg, forward, mdt)
+    plain = _scan(rowpass.scan_pass_plain, p, r, deg, forward, mdt)
+    torch.cuda.synchronize()
+    assert rowpass.launches() == before + 2
+    assert 0 < int(got[3][0]) < r[:-1].numel()
+    for a, b, c in zip(got, again, plain):
+        assert a.dtype == c.dtype and torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", ROW_WIDTHS)
+@pytest.mark.parametrize("forward", [True, False])
+def test_frontier_rows_kernel_is_the_plain_version(forward, s):
+    """K3 against ``frontier_rows_plain`` on ``r[:n]``: the rows and the
+    three counts equal; two launches agree."""
+    from pprx_torch.engine import rowpass
+
+    dev = _cuda()
+    p, r, deg, f_len = _row_state(dev, s, forward, seed=1)
+    r[::7] = 0.0  # whole rows with nothing active
+    view = (r[:-1], deg[:-1], deg[:-1], f_len[:-1])
+    got = rowpass.frontier_rows(*view, eps=1e-6, forward=forward)
+    again = rowpass.frontier_rows(*view, eps=1e-6, forward=forward)
+    plain = rowpass.frontier_rows_plain(*view, eps=1e-6, forward=forward)
+    torch.cuda.synchronize()
+    assert 0 < int(got[1]) < r.shape[0] - 1
+    for a, b, c in zip(got, again, plain):
+        assert a.dtype == c.dtype and torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_row_passes_refuse_on_card():
+    """What the kernels do not take raises before a launch: an f64 state, an
+    int64 degree, a strided view, a misaligned ``moving``, a bf16 ``r`` for
+    K3; nothing is counted."""
+    from pprx_torch.engine import rowpass
+
+    dev = _cuda()
+    p, r, deg, f_len = _row_state(dev, 8, True, rows=101)
+    moving = torch.empty_like(r)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    kw = dict(eps=1e-6, alpha=0.15, forward=True)
+    before = rowpass.launches()
+    for args in ((p.double(), r.double(), deg, moving.double(), counts),
+                 (p, r, deg.long(), moving, counts),
+                 (p, torch.empty(101, 16, device=dev)[:, ::2], deg, moving, counts),
+                 (p, r, deg, torch.empty(101 * 8 + 1, device=dev)[1:].view(101, 8), counts),
+                 (p, r, deg, moving, counts.int())):
+        with pytest.raises((TypeError, ValueError)):
+            rowpass.scan_pass_(*args, **kw)
+    with pytest.raises(TypeError):
+        rowpass.frontier_rows(r.bfloat16(), deg, deg, f_len, eps=1e-6, forward=True)
+    with pytest.raises(ValueError):
+        rowpass.frontier_rows(r, deg.cpu(), deg, f_len, eps=1e-6, forward=True)
+    assert rowpass.launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forward", [True, False])
+def test_row_passes_replay_as_eager_and_count_each_replay(forward):
+    """Both row passes captured into one graph (``RoundGraphs.run``) and
+    replayed: each replay's outputs equal an eager call's on the same
+    inputs bit for bit, and each replay counts one launch of each kernel
+    (the capture's own launches taken back)."""
+    from pprx_torch.engine import rowpass
+    from pprx_torch.engine.graphs import RoundGraphs
+
+    dev = _cuda()
+    p0, r0, deg, f_len = _row_state(dev, 16, forward, seed=2)
+    p, r = p0.clone(), r0.clone()
+    moving = torch.empty_like(r)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    out = {}
+
+    def step():
+        counts.zero_()
+        rowpass.scan_pass_(p, r, deg, moving, counts, eps=1e-6, alpha=0.15, forward=forward)
+        out["rows"] = rowpass.frontier_rows(r[:-1], deg[:-1], deg[:-1], f_len[:-1], eps=1e-7,
+                                            forward=forward)
+
+    g = RoundGraphs(10, 10, dev)
+    g.run("rows", step)  # eager on a side stream, then the capture
+    before = dict(rowpass.LAUNCHES)
+    assert before["scan_pass"] >= 1
+    p.copy_(p0), r.copy_(r0)
+    g.run("rows", step)
+    torch.cuda.synchronize()
+    replayed = [t.clone() for t in (p, r, moving, counts, *out["rows"])]
+    assert g.replays == 1
+    assert {k: rowpass.LAUNCHES[k] - before[k] for k in before} == {
+        "scan_pass": 1, "frontier_rows": 1}
+    p.copy_(p0), r.copy_(r0)
+    step()
+    torch.cuda.synchronize()
+    eager = [p, r, moving, counts, *out["rows"]]
+    for a, b in zip(replayed, eager):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_reverse_corrections_in_place_round_as_out_of_place_on_card():
+    """The reverse corrections in place on the card give the bits of the
+    out-of-place arithmetic (``r + beta * (pp_new - pp_old)``: the product
+    rounded, then the sum), on a batch whose scatter rows are distinct, so
+    that no atomic order enters."""
+    from pprx_torch.engine.state import PprState
+    from pprx_torch.engine.update import apply_edge_batch_
+    from pprx_torch.graph.dynamic import WindowGraph
+
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    n, m, s, b = 2000, 20_000, 16, 200
+    src = rng.integers(0, n, m)
+    dst = (src + 1 + rng.integers(0, n - 1, m)) % n
+    w = WindowGraph.from_coo(src, dst, n, device=dev)
+    first = np.unique(src, return_index=True)[1][:b]  # one deleted edge a row
+    del_src, del_dst = (torch.from_numpy(a[first]).to(dev) for a in (src, dst))
+    ins_src = torch.from_numpy(rng.choice(n, b, replace=False)).to(dev)
+    ins_dst = (ins_src + 1) % n
+    p = torch.from_numpy(rng.random((n + 1, s), dtype=np.float32) * 1e-2).to(dev)
+    r = torch.from_numpy(rng.normal(size=(n + 1, s)).astype(np.float32) * 1e-3).to(dev)
+    p[-1] = r[-1] = 0.0
+    rowsum = out_row_sums(p, w)
+    d0 = w.deg.clone()
+    deg_new = d0.clone()
+    deg_new.index_add_(0, del_src.int(), torch.full((b,), -1, dtype=torch.int32, device=dev))
+    deg_new.index_add_(0, ins_src.int(), torch.ones(b, dtype=torch.int32, device=dev))
+    beta = (1.0 - 0.15) / 0.15
+    pp_old = torch.where((d0 == 0)[:, None], p, rowsum / d0.clamp(min=1).float()[:, None])
+    s_new = rowsum.index_add(0, del_src, p[del_dst], alpha=-1)
+    s_new.index_add_(0, ins_src, p[ins_dst])
+    pp_new = torch.where((deg_new == 0)[:, None], p, s_new / deg_new.clamp(min=1).float()[:, None])
+    want = r + beta * (pp_new - pp_old)
+    want[-1] = 0.0
+    st = PprState(p=p.clone(), r=r.clone(), mode=REVERSE)
+    apply_edge_batch_(st, w, ins_src, ins_dst, del_src, del_dst, PprConfig(alpha=0.15, eps=1e-6),
+                      rowsum=rowsum)
+    torch.cuda.synchronize()
+    assert torch.equal(w.deg, deg_new) and torch.equal(st.p, p)
+    assert torch.equal(st.r, want)

@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (pprx_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --turns [--out FILE] ROOT [ROOT ...]
+    python3 chip_smoke.py --turns [--out FILE] [--shapes TAG,...] ROOT [ROOT ...]
 
 Drives the port's paths once on the card, and checks them: the main path
 (the headline forward stream that bench.py times for the JAX package), the
@@ -108,7 +108,9 @@ round trip. Phases, one line each:
    warm-up and 5 timed slides), f32 and with bf16 delivery, each held to
    exact PPR on 16 sampled sources (L1 within eps * W; mass within 1e-3 in
    f32, and in bf16 within 1e-4 of the same run through the port on the
-   CPU) and its sharded top-100 to the single-device head's;
+   CPU) and its sharded top-100 to the single-device head's; each run's
+   dense rounds must each launch the scan pass once and the rescan at most
+   once (``14a dense rounds``);
    14b the sharding tax: ``FastStreamDriver`` on the same stream and shapes,
    timed the same way; 14c the dense sharded engine in both modes on phase
    12's stream, held to exact PPR, launching nothing; 14e ``stream --engine
@@ -122,7 +124,8 @@ round trip. Phases, one line each:
    with 6 slides to spare, the stream's first edges again): updates/s,
    rounds, one slide under
    the profiler, the gather entry's scaled and unscaled launches (the
-   rounds' receiver 1/d_out, the row-sum sweep), peak memory, the
+   rounds' receiver 1/d_out, the row-sum sweep), the dense rounds' row
+   passes as 14a holds them, peak memory, the
    reverse contract on 16 sampled
    targets, and ``FastStreamDriver`` in reverse on the same stream timed
    the same way (the reverse sharding tax); 15b anomaly (ii): on 3 slides
@@ -169,13 +172,17 @@ JAX or of the JAX package ``pprx`` is imported.
 
 ``--turns`` compares trees on one card instead: each ROOT (the root of a
 checkout of this repository) is a turn, one process started there that
-imports that root's ``chip_smoke`` and ``pprx_torch`` and drives
-``FastStreamDriver`` over the stream shapes of this file's phases 4, 5, 8
-and 11 (``turn_shapes``: the headline forward in f32 and with bf16
-delivery, the headline in reverse, config 2, config 3 at S=8) through that
-root's ``run_stream`` and ``profile_slides``, then refines to 5e-8 twice
-from the same state (the first call captures the new eps's rounds). One summary line a shape goes
-to stdout, each whole record, with the card's name and power limit, to
+imports that root's ``chip_smoke`` and ``pprx_torch`` and runs this file's
+``turn_record`` over the shapes of its phases 4, 5, 8, 11, 14a and 15a
+(``turn_shapes``: the headline forward in f32 and with bf16 delivery, the
+headline in reverse, config 2, config 3 at S=8 on ``FastStreamDriver``
+through that root's ``run_stream`` and ``profile_slides``, each then
+refined to 5e-8 twice from the same state, the first call capturing the
+new eps's rounds; and config 5 forward in f32 and in reverse,
+``config5_f32`` and ``config5_rev``, the sharded wl engine at mesh 1x1,
+its spare slide profiled with its peak memory), or those ``--shapes``
+names. One summary line a shape goes to
+stdout, each whole record, with the card's name and power limit, to
 ``--out`` (JSON lines). Compare two trees only inside one run, in turns
 (A, B, B, A).
 """
@@ -184,6 +191,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import inspect
 import io
 import json
 import os
@@ -223,7 +231,7 @@ from pprx_torch.engine.rowpass import (
     scan_pass_,
     scan_pass_plain,
 )
-from pprx_torch.engine.state import REVERSE, PprState, settled_distance
+from pprx_torch.engine.state import FORWARD, REVERSE, PprState, settled_distance
 from pprx_torch.engine.update import apply_edge_batch
 from pprx_torch.eval.metrics import l1_error, precision_at_k
 from pprx_torch.graph import fast_stream
@@ -737,8 +745,8 @@ def check_rowpass(dev) -> dict:
             tag = f"{pre}frontier_rows"
             view = (inp["r"][:-1], inp["deg"][:-1], inp["row_len"][:-1], inp["f_len"][:-1])
             kw = dict(eps=ROWPASS_EPS, forward=forward)
-            got, again = frontier_rows(*view, **kw), frontier_rows(*view, **kw)
             plain = frontier_rows_plain(*view, **kw)
+            got, again = frontier_rows(*view, **kw), frontier_rows(*view, **kw)
             res[f"{tag}_max_abs_err"] = bit_for_bit(tag, list(got), list(again), list(plain))
             res[f"{tag}_rows_active"] = n_hit = int(got[1])
             fns = {f"{tag}_ms": lambda: frontier_rows(*view, **kw),
@@ -1561,7 +1569,7 @@ def config5_check(dev, bf16d: bool, n_check: int = 16, k: int = 100, prof: bool 
         res["profile"] = profile_slides(drv, 1)
         res["slide_peak_gib"] = peak_gib(dev)
     res.update(launches_by_entry=launches_by_entry(),
-               round_kinds=dict(getattr(drv.eng, "round_kinds", {})))
+               round_kinds=dict(drv.eng.round_kinds))
     twin = None
     if bf16d:
         t0 = time.perf_counter()
@@ -1720,7 +1728,8 @@ def config5_reverse_check(dev, n_check: int = 16, prof: bool = False,
     if prof:
         res["profile"] = profile_slides(drv, 1)
     res.update(launches_by_entry=launches_by_entry(),
-               launches_scaled=launches_by_entry(scaled=True))
+               launches_scaled=launches_by_entry(scaled=True),
+               round_kinds=dict(drv.eng.round_kinds))
     res["launches_unscaled"] = {e: res["launches_by_entry"][e] - res["launches_scaled"][e]
                                 for e in segsum.ENTRIES}
     res["contract"] = reverse_contract(as_fast(drv), drv.cfg.eps, n_check=n_check)
@@ -2136,6 +2145,23 @@ def check_no_launch(by_path: dict) -> dict:
     return by_path
 
 
+def check_dense_row_passes(runs: dict) -> dict:
+    """Every sharded wl run named (its ``launches_by_entry`` and its
+    engine's ``round_kinds``, both counted from one reset): each dense round
+    launched ``scan_pass`` once, and ``frontier_rows`` ran at least once
+    and at most once a dense round. Returns path -> (dense rounds, the two
+    launches)."""
+    out = {}
+    for path, res in runs.items():
+        dense = res["round_kinds"]["dense"]
+        scans, rescans = (res["launches_by_entry"][e] for e in ("scan_pass", "frontier_rows"))
+        if dense <= 0 or scans != dense or not 0 < rescans <= dense:
+            raise AssertionError(f"{path}: {dense} dense rounds launched scan_pass {scans} and "
+                                 f"frontier_rows {rescans} times")
+        out[path] = {"dense_rounds": dense, "scan_pass": scans, "frontier_rows": rescans}
+    return out
+
+
 def check_launched(by_path: dict, entry: str = "segsum_gather_add") -> dict:
     """Every path named launched ``entry``."""
     for path, counts in by_path.items():
@@ -2378,6 +2404,8 @@ def main() -> None:
             log(f"14a config5 {tag}", **res)
         sharded_by_path = check_launched({f"config5_{tag}": res["launches_by_entry"]
                                           for tag, res in config5.items()})
+        log("14a dense rounds", **check_dense_row_passes(
+            {f"config5_{tag}": res for tag, res in config5.items()}))
         torch.cuda.empty_cache()
         log("14b sharding tax", **sharding_tax(dev, config5["f32"]["updates_per_sec"]))
         torch.cuda.empty_cache()
@@ -2396,6 +2424,7 @@ def main() -> None:
         rev, rev_drv = config5_reverse_check(dev, prof=True)
         rev["tax"] = sharding_tax(dev, rev["updates_per_sec"], mode=REVERSE)
         log("15a config5 reverse", **rev)
+        log("15a dense rounds", **check_dense_row_passes({"config5_rev": rev}))
         log("15b reverse rowsum sweep", **sweep_check(rev_drv))
         wlp = config5_check(dev, bf16d=False, prof=True, engine="wlp")
         wlp["wl_slide_peak_gib"] = config5["f32"].get("slide_peak_gib")
@@ -2456,78 +2485,129 @@ def main() -> None:
 
 
 def turn_shapes() -> list[dict]:
-    """The stream shapes ``--turns`` drives: phases 4 and 5 (the headline
-    forward, f32 and bf16 delivery), phase 8's headline reverse and config 3
-    at S=8, phase 11's config 2 in f32."""
+    """The shapes ``--turns`` drives: phases 4 and 5 (the headline forward,
+    f32 and bf16 delivery), phase 8's headline reverse and config 3 at S=8,
+    phase 11's config 2 in f32, and phases 14a's and 15a's config 5, forward
+    in f32 and reverse (the sharded wl engine at mesh 1x1; its stream has
+    one slide to spare, profiled)."""
     h = dict(HEADLINE)
     h["rebuild_every"], h["warmup"] = headline_schedule(h["w"], h["b"])
     c3 = dict(CONFIG3, s=8, prof_steps=h["prof_steps"])
     c2 = dict(CONFIG2, s=C2_S, prof_steps=h["prof_steps"])
+    c5 = dict(n=h["n"], w=h["w"], b=h["b"], s=h["s"], steps=5, prof_steps=1)
     return [dict(h, tag="headline_fwd_f32", reverse=False, bf16d=False),
             dict(h, tag="headline_fwd_bf16", reverse=False, bf16d=True),
             dict(h, tag="headline_rev", reverse=True, bf16d=False),
             dict(c2, tag="config2_f32", reverse=False, bf16d=False),
-            dict(c3, tag="config3_s8_rev", reverse=True, bf16d=False)]
+            dict(c3, tag="config3_s8_rev", reverse=True, bf16d=False),
+            dict(c5, tag="config5_f32", reverse=False, bf16d=False, sharded=True),
+            dict(c5, tag="config5_rev", reverse=True, bf16d=False, sharded=True)]
+
+
+def turn_record(cs, sh: dict, dev) -> dict:
+    """One shape of a turn through ``cs``, the chip_smoke module of the
+    root the turn runs in (this function's source is run in each, so it
+    uses only what each root has: ``run_stream``, ``profile_slides``,
+    ``sync``, the ``segsum`` and ``rowpass`` modules). A stream shape:
+    ``run_stream`` and ``profile_slides`` on ``FastStreamDriver``, then
+    two refines to 5e-8 from one state, the first of which captures the
+    new eps's rounds (``refine_ms``, ``refine_rounds``). A sharded
+    shape: ``config5_run`` (seed, 3 warm-up and ``steps`` timed slides),
+    its launches by entry and round kinds, then its spare slide under the
+    profiler with that slide's peak memory (``slide_peak_gib``)."""
+    cuda = dev.type == "cuda"
+    mods = (cs.segsum, cs.rowpass)
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    if sh.get("sharded"):
+        for m in mods:
+            m.reset_launches()
+        rep, drv = config5_run(n=sh["n"], w=sh["w"], b=sh["b"], s=sh["s"], steps=sh["steps"],
+                               bf16d=sh["bf16d"], mode="reverse" if sh["reverse"] else "forward",
+                               device=dev)
+        res = {"updates_per_s": rep["updates_per_sec"], "wall_s": rep["wall_s"],
+               "rounds_per_slide": rep["rounds"] / rep["steps"],
+               "wl_rounds_per_slide": rep["wl_rounds"] / rep["steps"], "peak_mem_gib": peak(),
+               "launches_by_entry": {e: m.launches(e) for m in mods for e in m.ENTRIES},
+               "round_kinds": dict(drv.eng.round_kinds)}
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        res["profile"] = cs.profile_slides(drv, sh["prof_steps"])
+        res["slide_peak_gib"] = peak()
+        return res
+    n, w, b = sh["n"], sh["w"], sh["b"]
+    src, dst, n = synthetic_powerlaw_stream(
+        n, w + (sh["warmup"] + sh["steps"] + sh["prof_steps"] + 1) * b, seed=sh["seed"])
+    drv = FastStreamDriver(src, dst, n, list(range(sh["s"])),
+                           PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000),
+                           StreamConfig(window=w, slide=b),
+                           mode=REVERSE if sh["reverse"] else FORWARD, dtype=torch.float32,
+                           rebuild_every=sh["rebuild_every"], bf16d=sh["bf16d"], device=dev)
+    res = cs.run_stream(drv, sh["warmup"], sh["steps"])
+    res["peak_mem_gib"] = peak()
+    res["profile"] = cs.profile_slides(drv, sh["prof_steps"])
+    saved = (drv.state.p.clone(), drv.state.r.clone())
+    res["refine_ms"], res["refine_rounds"] = [], []
+    for _ in range(2):
+        drv.state.p.copy_(saved[0])
+        drv.state.r.copy_(saved[1])
+        cs.sync(dev)
+        t0 = time.perf_counter()
+        st = drv.refine(5e-8)
+        cs.sync(dev)
+        res["refine_ms"].append((time.perf_counter() - t0) * 1e3)
+        res["refine_rounds"].append(st.rounds)
+    return res
 
 
 # one turn: run in a tree's root, so that its chip_smoke and pprx_torch load
 TURN = """
 import json, sys, time, torch
 import chip_smoke as cs
+from pprx_torch.bench.run import config5_run
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.engine.state import FORWARD, REVERSE
 from pprx_torch.graph.fast_stream import FastStreamDriver
 from pprx_torch.graph.io import synthetic_powerlaw_stream
 
+{turn_record}
 smi = cs.nvidia_smi()
 for sh in json.loads(sys.argv[1]):
-    n, w, b = sh["n"], sh["w"], sh["b"]
-    src, dst, n = synthetic_powerlaw_stream(
-        n, w + (sh["warmup"] + sh["steps"] + sh["prof_steps"] + 1) * b, seed=sh["seed"])
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    drv = FastStreamDriver(src, dst, n, list(range(sh["s"])),
-                           PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000),
-                           StreamConfig(window=w, slide=b),
-                           mode=REVERSE if sh["reverse"] else FORWARD, dtype=torch.float32,
-                           rebuild_every=sh["rebuild_every"], bf16d=sh["bf16d"],
-                           device=torch.device("cuda", 0))
-    res = cs.run_stream(drv, sh["warmup"], sh["steps"])
-    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    res["profile"] = cs.profile_slides(drv, sh["prof_steps"])
-    # the refine to 5e-8: its first call (the new eps's captures in it), then
-    # again from the same state
-    saved = (drv.state.p.clone(), drv.state.r.clone())
-    for tag in ("refine_cold", "refine_warm"):
-        drv.state.p.copy_(saved[0])
-        drv.state.r.copy_(saved[1])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = drv.refine(5e-8)
-        torch.cuda.synchronize()
-        res[tag + "_ms"] = (time.perf_counter() - t0) * 1e3
-        res[tag + "_rounds"] = st.rounds
-    print(json.dumps({"shape": sh["tag"], "nvidia_smi": smi, **res}), flush=True)
-    del drv, saved
+    res = turn_record(cs, sh, torch.device("cuda", 0))
+    print(json.dumps({{"shape": sh["tag"], "nvidia_smi": smi, **res}}), flush=True)
 """
 
 TURN_SUMMARY = ("updates_per_s", "rounds_per_slide", "syncs_per_slide", "wall_per_round_ms",
-                "peak_mem_gib", "kernel_launches_per_slide", "replays_per_round", "eager_rounds",
-                "refine_cold_ms", "refine_warm_ms", "refine_cold_rounds")
+                "peak_mem_gib", "slide_peak_gib", "kernel_launches_per_slide",
+                "row_pass_launches_per_slide", "replays_per_round", "eager_rounds",
+                "refine_ms", "refine_rounds", "round_kinds", "launches_by_entry")
 
 
 def turns(argv: list[str]) -> int:
-    """``--turns [--out FILE] ROOT ...``: each root's stream shapes in turn."""
-    out = os.devnull
-    if argv[:1] == ["--out"]:
-        out, argv = argv[1], argv[2:]
-        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
-    shapes = json.dumps(turn_shapes())
+    """``--turns [--out FILE] [--shapes TAG,...] ROOT ...``: each root's
+    shapes (``turn_shapes``, or those named) in turn."""
+    out, names = os.devnull, None
+    while argv[:1] in (["--out"], ["--shapes"]):
+        opt, val, argv = argv[0], argv[1], argv[2:]
+        if opt == "--out":
+            out = val
+            os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        else:
+            names = val.split(",")
+    shapes = [sh for sh in turn_shapes() if names is None or sh["tag"] in names]
+    if names is not None and len(shapes) != len(names):
+        raise SystemExit(f"--shapes: unknown among {names}")
+    script = TURN.format(turn_record=inspect.getsource(turn_record))
     with open(out, "w") as rec_file:
         for i, root in enumerate(argv):
             root = os.path.abspath(root)
             t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-c", TURN, shapes], cwd=root,
+            proc = subprocess.run([sys.executable, "-c", script, json.dumps(shapes)], cwd=root,
                                   env=dict(os.environ, PYTHONPATH=root),
                                   capture_output=True, text=True)
             for line in proc.stdout.splitlines():
@@ -2537,7 +2617,7 @@ def turns(argv: list[str]) -> int:
                 rec_file.write(json.dumps(rec) + "\n")
                 prof = rec["profile"]
                 print(json.dumps({"turn": i, "root": root, "shape": rec["shape"],
-                                  **{k: rec.get(k) for k in TURN_SUMMARY},
+                                  **{k: rec[k] for k in TURN_SUMMARY if k in rec},
                                   "idle": prof["device_idle_share"],
                                   "busy_ms": prof["device_busy_ms"],
                                   "api": prof.get("launches_per_slide")}), flush=True)

@@ -34,9 +34,10 @@
 // one warp a row; S=16: four lanes; S=8: two). So a warp step reads 512
 // consecutive bytes of each of r and p at every width that is a multiple
 // of 4. A row's own count (row_act, any) is a shuffle inside its group.
-// A launch is one wave at most: as many blocks as the card holds at once,
-// whose warps stride over the row steps, so no second, partial wave of
-// blocks runs at the end.
+// K2 moves one row step a warp at a time; K3 loads U row steps at once
+// before it reduces any (see frontier_rows_kernel). A launch is one wave at
+// most: as many blocks as the card holds at once, whose warps stride over
+// the row steps, so no second, partial wave of blocks runs at the end.
 // The whole-state counts are integers: each block sums its rows and adds
 // its sums with one 64-bit integer atomic each, so they are exact and the
 // same on every run. Every other output is elementwise: two runs on the
@@ -84,6 +85,20 @@ __device__ __forceinline__ void store(float* dst, const float (&x)[VEC]) {
     *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
   } else {
     *dst = x[0];
+  }
+}
+
+// Data read once (K3's r): a streaming load, evict-first in L1 and L2
+template <int VEC>
+__device__ __forceinline__ void load_once(const float* src, float (&x)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(src));
+    x[0] = t.x;
+    x[1] = t.y;
+    x[2] = t.z;
+    x[3] = t.w;
+  } else {
+    x[0] = __ldcs(src);
   }
 }
 
@@ -188,6 +203,28 @@ __global__ void __launch_bounds__(kThreads)
   add_counts<2>(acc, counts);
 }
 
+// K3's design. Its first form walked one row a warp step: it loaded the row
+// (at S=128 512 bytes, one 16-byte load a lane), reduced it, and only then
+// loaded the two lengths of a row it found active, a second round trip,
+// before it moved to its next row: 0.0658 ms forward and 0.0572 reverse at
+// the headline on an H100 80GB HBM3 at 700 W, against a byte bound of 0.031
+// ms (48-54%). This form was chosen by CUDA-event timings of its variants,
+// without a profiler's counters: each warp issues the loads of U row steps
+// at once, with their deg, row_len and f_len beside them, all independent
+// of each other, and reduces only then. The threshold test is
+// max_j |r[v, j]| > th, which is any_j |r[v, j]| > th (a NaN passes
+// neither), so the loop over a row's columns waits on no deg. The lengths
+// are read for every row, active or not: 8 bytes a row against a row's 4 *
+// S. r is read once, by streaming loads. U (kRowsInFlight) = 2 was the
+// fastest of 1, 2, 4 and 8 at S=128 and S=16, level with 4 at S=8: each
+// step of U takes registers, so resident warps, and U = 4 and 8 lost more to
+// that than they gained in loads a warp keeps in flight; capping the
+// registers by launch bounds to hold more blocks an SM spilled and was
+// slower (PERF.md keeps the sweep). (A producer warp streaming tiles through
+// shared memory with bulk copies would keep as many bytes in flight, but
+// adds a handshake for data read once and reduced to one bit.)
+constexpr int kRowsInFlight = 2;
+
 template <int VEC, bool FORWARD>
 __global__ void __launch_bounds__(kThreads)
     frontier_rows_kernel(const float* __restrict__ r, const int* __restrict__ deg,
@@ -198,33 +235,48 @@ __global__ void __launch_bounds__(kThreads)
   const int sub = lane / lanes;
   const int own = lane & (lanes - 1);
   const int rows_per_step = kWarp / lanes;
+  constexpr int U = kRowsInFlight;
+  const long long rows_per_warp = static_cast<long long>(rows_per_step) * U;
   const long long warp = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
   const long long n_warps = static_cast<long long>(gridDim.x) * kWarpsPerBlock;
   long long acc[3] = {0, 0, 0};
-  for (long long base = warp * rows_per_step; base < n_rows; base += n_warps * rows_per_step) {
-    const long long v = base + sub;
-    int hit = 0;
-    if (v < n_rows) {
-      float th = eps;
-      if (FORWARD) {
-        const int d = deg[v];
-        th = __fmul_rn(eps, __int2float_rn(d > 1 ? d : 1));
-      }
-      const long long row = v * s;
-      for (int j = own * VEC; j < s; j += lanes * VEC) {
-        float rr[VEC];
-        load(r + row + j, rr);
+  for (long long base = warp * rows_per_warp; base < n_rows; base += n_warps * rows_per_warp) {
+    long long v[U], at[U];
+    int d[U], len[U], flen[U];
+    float top[U];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) hit |= fabsf(rr[e]) > th;
+    for (int u = 0; u < U; ++u) {
+      v[u] = base + u * rows_per_step + sub;
+      // a row past the end reads the last row and writes nothing
+      at[u] = v[u] < n_rows ? v[u] : n_rows - 1;
+      d[u] = FORWARD ? deg[at[u]] : 0;
+      len[u] = row_len[at[u]];
+      flen[u] = f_len[at[u]];
+      top[u] = 0.f;
+    }
+    for (int j = own * VEC; j < s; j += lanes * VEC) {
+      float rr[U][VEC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) load_once(r + at[u] * s + j, rr[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) top[u] = fmaxf(top[u], fabsf(rr[u][e]));
       }
     }
-    for (int o = lanes / 2; o > 0; o >>= 1) hit |= __shfl_xor_sync(kFull, hit, o);
-    if (v < n_rows && own == 0) {
-      any[v] = static_cast<unsigned char>(hit);
-      if (hit) {
-        acc[0] += 1;
-        acc[1] += row_len[v];
-        acc[2] += f_len[v];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      for (int o = lanes / 2; o > 0; o >>= 1)
+        top[u] = fmaxf(top[u], __shfl_xor_sync(kFull, top[u], o));
+      const float th = FORWARD ? __fmul_rn(eps, __int2float_rn(d[u] > 1 ? d[u] : 1)) : eps;
+      const bool hit = top[u] > th;
+      if (v[u] < n_rows && own == 0) {
+        any[v[u]] = static_cast<unsigned char>(hit);
+        if (hit) {
+          acc[0] += 1;
+          acc[1] += len[u];
+          acc[2] += flen[u];
+        }
       }
     }
   }
@@ -310,13 +362,16 @@ int pprx_scan_pass_bf16(float* p, float* r, const int* deg, void* moving, long l
 }
 
 // r: f32 [n_rows, s]; deg, row_len, f_len: int32 [n_rows]; any: bool
-// [n_rows]; counts: int64 [3].
+// [n_rows]; counts: int64 [3]; blocks as for K2 (a warp takes
+// kRowsInFlight of those row steps at once, so it launches that many times
+// fewer).
 int pprx_frontier_rows(const float* r, const int* deg, const int* row_len, const int* f_len,
                        void* any, long long* counts, long long n_rows, int s, int vec,
                        int lanes, int blocks, int forward, float eps, void* stream) {
-  return vec == 4 ? frontier_rows_vec<4>(forward, blocks, stream, r, deg, row_len, f_len, any,
+  const int wanted = (blocks + kRowsInFlight - 1) / kRowsInFlight;
+  return vec == 4 ? frontier_rows_vec<4>(forward, wanted, stream, r, deg, row_len, f_len, any,
                                          counts, n_rows, s, lanes, eps)
-                  : frontier_rows_vec<1>(forward, blocks, stream, r, deg, row_len, f_len, any,
+                  : frontier_rows_vec<1>(forward, wanted, stream, r, deg, row_len, f_len, any,
                                          counts, n_rows, s, lanes, eps);
 }
 

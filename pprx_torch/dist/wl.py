@@ -30,6 +30,11 @@ How the port differs:
   the TPU kernel's boundary-chunk double count and rides it too.
 - The K = 1 compact round is the single-device port's sorted delivery
   (``pprx_torch.engine.wl2.sorted_deliver_``).
+- A dense round's elementwise work (the activity test, ``p`` and ``r`` in
+  place, the moved mass written into the delivery table, the row counts)
+  is one pass over the state, and so is its rescan
+  (``pprx_torch.engine.rowpass``: Hopper kernels on CUDA tensors, where XLA
+  fused the same ops on the TPU).
 - The dense round's stats-skip is a branch: it reads back the frontier's
   edge mass first (the row group's maximum) and runs the rescan only for a
   light round. Its threshold is ``STATS_GUARD * (e_top + g_top)``, the
@@ -71,6 +76,7 @@ from pprx_torch.dist.sharded import (
     reverse_apply,
     write_window_,
 )
+from pprx_torch.engine.rowpass import frontier_rows, scan_pass_
 from pprx_torch.engine.segsum import segsum_gather_add_
 from pprx_torch.engine.state import FORWARD
 from pprx_torch.engine.wl2 import (
@@ -493,20 +499,21 @@ class ShardedWlEngine(ShardedEngine):
         segments and the carry go into ``acc`` and one reduce-scatter. Then
         the rescan, unless the row group's heaviest frontier is above the
         stats-skip threshold (read back first: a skipped rescan is not
-        run). Returns (p, r, cand2, carry, stats)."""
-        alpha, dtype, s = self.cfg.alpha, p.dtype, p.shape[1]
-        n_local, mesh = self.n_local, self.mesh
-        act = self._active(r, deg)
-        mass = torch.where(act, r, 0.0)
-        dang = (deg == 0)[:, None]
-        inv_deg = 1.0 / deg.clamp(min=1).to(dtype)
-        p = p + torch.where(dang, mass, alpha * mass)
-        r = r - mass
-        moving = self._moving(mass, dang, inv_deg[:, None])
-        moving_ext = torch.cat([moving, torch.zeros((1, s), dtype=dtype, device=p.device)])
-        if self.bf16d:
-            moving_ext = moving_ext.to(torch.bfloat16)
-        scale = None if self.mode == FORWARD else inv_deg
+        run). ``p`` and ``r`` are updated in place (at K > 1 ``r`` is
+        replaced). Returns (p, r, cand2, carry, stats)."""
+        dtype, s = p.dtype, p.shape[1]
+        n_local, mesh, forward = self.n_local, self.mesh, self.mode == FORWARD
+        # the round's elementwise work in one pass (rowpass K2): p and r in
+        # place, the moved mass written straight into the delivery table,
+        # whose last row, the zero row dead edges gather, stays 0
+        moving_ext = torch.empty((n_local + 1, s), dtype=torch.bfloat16 if self.bf16d else dtype,
+                                 device=p.device)
+        moving_ext[-1] = 0.0
+        counts = torch.zeros(2, dtype=torch.int64, device=p.device)
+        row_act = torch.empty(n_local, dtype=torch.int32, device=p.device)
+        scan_pass_(p, r, deg, moving_ext[:n_local], counts, row_act, eps=self.cfg.eps,
+                   alpha=self.cfg.alpha, forward=forward)
+        scale = self._inv_deg(deg, dtype)
         for view in ("d", "fd"):
             segsum_gather_add_(r, moving_ext, snap[f"{view}_gat"], snap[f"{view}_loff"],
                                row_scale=scale)
@@ -516,22 +523,22 @@ class ShardedWlEngine(ShardedEngine):
             for view in ("d", "fd"):
                 segsum_gather_add_(carry, moving_ext, snap[f"{view}_gat"], snap[f"{view}_roff"])
             delta = reduce_scatter_rows(carry, mesh.row_group)
-            r = r + (delta if scale is None else delta * inv_deg[:, None])
+            r = r + (delta if scale is None else delta * scale[:, None])
             carry.zero_()
         srl, f_len = snap["srl"], snap["f_len"]
-        n_act = act.sum(dim=1)
+        n_act = row_act.long()
         edges = srl + f_len
-        heavy_in = [torch.where(n_act > 0, edges, 0).sum(), n_act.sum(), (n_act * edges).sum()]
+        heavy_in = [torch.where(n_act > 0, edges, 0).sum(), counts[0], (n_act * edges).sum()]
         got = gather_stats(heavy_in, mesh.row_group, self.device)
         na, ew = (int(v) for v in got[mesh.row if mesh.row_group is not None else 0, 1:])
         if int(got[:, 0].max()) > self.heavy_ew:
             # the successor is another dense round: no rescan
             return p, r, None, carry, [_BIG, _BIG, _BIG, 0, 0, na, ew]
-        any2 = self._active(r, deg).any(dim=1)
+        # the rescan, one read of r (rowpass K3)
+        any2, cn2, fed2, fre2 = frontier_rows(r, deg, srl, f_len, eps=self.cfg.eps,
+                                              forward=forward)
         cand2 = compact(any2, self.wcarry, n_local)
-        stats = [any2.sum(), torch.where(any2, srl, 0).sum(), torch.where(any2, f_len, 0).sum(),
-                 1, 0, na, ew]
-        return p, r, cand2, carry, stats
+        return p, r, cand2, carry, [cn2, fed2, fre2, 1, 0, na, ew]
 
     def _wl_loop(self, p, r, deg, snap, cand0, ok0: int):
         """Push to convergence: (p, r, rounds, pushes, edge_pushes,

@@ -38,15 +38,37 @@ def random_multigraph(rng, n, m):
 
 
 def graph(kind: str, seed: int = 0, n: int = 50, m: int = 300):
-    """(src, dst, n): ``random`` multigraph, or the ``star`` (hub 3 fans out
-    to every spoke and back)."""
+    """(src, dst, n): ``random`` multigraph, ``dangling`` (the same with the
+    out-edges of every fifth vertex dropped), or the ``star`` (hub 3 fans
+    out to every spoke and back)."""
     if kind == "star":
         hub = 3
         src = np.concatenate([np.full(n - 1, hub), np.arange(1, n) % n])
         dst = np.concatenate([np.arange(1, n), np.full(n - 1, hub)])
         return src, dst, n
     src, dst = random_multigraph(np.random.default_rng(seed), n, m)
+    if kind == "dangling":
+        keep = src % 5 != 0
+        src, dst = src[keep], dst[keep]
     return src, dst, n
+
+
+def threshold_state(n: int, n_pad: int, src, s: int, eps: float, forward: bool, seed: int):
+    """A push state with work at every row's threshold (``eps * max(deg,
+    1)`` forward, ``eps`` reverse; ``deg`` the out-degrees of ``src``):
+    ``|r|`` uniform below twice it at both signs, an eighth of the entries
+    exactly at it (not active), ``p`` in [0, 1e-3), the padding rows zero.
+    Returns (p, r), global ``[n_pad, s]`` f64."""
+    rng = np.random.default_rng(seed)
+    deg = np.bincount(np.asarray(src, np.int64), minlength=n_pad)[:n_pad]
+    th = eps * np.maximum(deg, 1).astype(np.float64) if forward else np.full(n_pad, eps)
+    th = np.broadcast_to(th[:, None], (n_pad, s))
+    r = rng.uniform(-2.0, 2.0, (n_pad, s)) * th
+    at = rng.random((n_pad, s)) < 0.125
+    r[at] = np.where(r[at] < 0, -th[at], th[at])
+    p = rng.random((n_pad, s)) * 1e-3
+    p[n:] = r[n:] = 0.0
+    return p, r
 
 
 def stream(seed: int, n: int = 40, total: int = 500):
@@ -168,11 +190,11 @@ def slides(mesh, engine: str, mode: int = 0, seed: int = 2, steps: int = 6,
 def wl_push(mesh, mode: int, ccap=64, kind="random", seed: int = 0, n: int = 50, m: int = 300,
             queries=(0, 7, 13, 25, 31, 44, 7, 2), dtype: str = "f64", eps: float = 1e-8,
             bf16d: bool = False, seeded: bool = False, sort_bucket_min=None, e_top=None,
-            fring=None, heavy_ew=None, proportional: bool = False):
-    """ShardedWlEngine.push_wl from the one-hot state; ``seeded``: with the
-    query rows as the first candidate list; ``heavy_ew`` replaces the
-    stats-skip threshold; ``proportional``: the wlp loop, with its round
-    kinds counted."""
+            fring=None, heavy_ew=None, proportional: bool = False, state_seed=None):
+    """ShardedWlEngine.push_wl from the one-hot state (with ``state_seed``:
+    from ``threshold_state``'s); ``seeded``: with the query rows as the
+    first candidate list; ``heavy_ew`` replaces the stats-skip threshold;
+    ``proportional``: the wlp loop. Round kinds are counted."""
     import pprx_torch.dist.wl as wl
 
     src, dst, n = graph(kind, seed, n, m)
@@ -182,6 +204,10 @@ def wl_push(mesh, mode: int, ccap=64, kind="random", seed: int = 0, n: int = 50,
     if heavy_ew is not None:
         eng.heavy_ew = heavy_ew
     p, r = eng.init_state(queries)
+    if state_seed is not None:
+        block = (slice(eng.row0, eng.row0 + eng.n_local), slice(eng.col0, eng.col0 + eng.s_loc))
+        p, r = (torch.from_numpy(np.ascontiguousarray(a[block])).to(_dtype(dtype)) for a in
+                threshold_state(n, eng.n_pad, src, len(queries), eps, mode == 0, state_seed))
     deg, egl, eog, eva, counts, snap = eng.device_graph_wl(src, dst)
     cand0, ok0 = None, 0
     if seeded:

@@ -283,3 +283,54 @@ def test_row_pass_phase_on_the_cpu(monkeypatch):
         assert len(entry["cases"]) == (12 if name == "scan_pass" else 6)
     with pytest.raises(AssertionError, match="hybrid_forward runs plain torch ops"):
         chip_smoke.check_no_launch({"hybrid_forward": {"segsum_add": 0, "scan_pass": 1}})
+
+
+def test_config5_turn_on_the_cpu():
+    """``--turns``'s config 5 shape (phase 14a's run: the sharded wl engine
+    at mesh 1x1) through ``turn_record`` on the CPU at a small size, as each
+    root's turn runs it: rate, rounds, round kinds, the launches by entry
+    (none here) and one profiled slide; the turn's script, with this
+    function's source in it, compiles; and the dense rounds' launch check
+    holds a run to one ``scan_pass`` a dense round."""
+    import inspect
+
+    shapes = {sh["tag"]: sh for sh in chip_smoke.turn_shapes()}
+    c5 = shapes["config5_f32"]
+    assert c5["sharded"] and (c5["n"], c5["w"], c5["b"], c5["s"]) == (200_000, 2_000_000,
+                                                                     160_000, 128)
+    res = chip_smoke.turn_record(chip_smoke, dict(c5, n=2000, w=6000, b=300, s=8),
+                                 torch.device("cpu"))
+    assert res["updates_per_s"] > 0 and res["rounds_per_slide"] > 0
+    assert res["round_kinds"]["dense"] >= 1 and res["peak_mem_gib"] is None
+    assert not any(res["launches_by_entry"].values())
+    assert len(res["profile"]["rounds"]) == 1
+    compile(chip_smoke.TURN.format(turn_record=inspect.getsource(chip_smoke.turn_record)),
+            "turn", "exec")
+    run = {"round_kinds": {"dense": 3}, "launches_by_entry": {"scan_pass": 3, "frontier_rows": 2}}
+    assert chip_smoke.check_dense_row_passes({"config5_f32": run})["config5_f32"] == {
+        "dense_rounds": 3, "scan_pass": 3, "frontier_rows": 2}
+    for scans, rescans in ((2, 2), (3, 0), (3, 4)):
+        run["launches_by_entry"] = {"scan_pass": scans, "frontier_rows": rescans}
+        with pytest.raises(AssertionError, match="config5_f32: 3 dense rounds"):
+            chip_smoke.check_dense_row_passes({"config5_f32": run})
+
+
+def test_config5_reverse_turn_on_the_cpu():
+    """``--turns``'s config 5 reverse shape (phase 15a's run) through
+    ``turn_record`` on the CPU at a small size: the same shapes as the
+    forward one, in reverse, with its rate, rounds, dense rounds and one
+    profiled slide; ``--shapes`` picks it alone and refuses an unknown
+    tag."""
+    shapes = {sh["tag"]: sh for sh in chip_smoke.turn_shapes()}
+    rev, fwd = shapes["config5_rev"], shapes["config5_f32"]
+    assert rev["reverse"] and not fwd["reverse"]
+    assert {k: v for k, v in rev.items() if k not in ("tag", "reverse")} == {
+        k: v for k, v in fwd.items() if k not in ("tag", "reverse")}
+    res = chip_smoke.turn_record(chip_smoke, dict(rev, n=2000, w=6000, b=300, s=8),
+                                 torch.device("cpu"))
+    assert res["updates_per_s"] > 0 and res["rounds_per_slide"] > 0
+    assert res["round_kinds"]["dense"] >= 1
+    assert not any(res["launches_by_entry"].values())
+    assert len(res["profile"]["rounds"]) == 1
+    with pytest.raises(SystemExit, match="unknown"):
+        chip_smoke.turns(["--shapes", "config5_rev,config9", "."])

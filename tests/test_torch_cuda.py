@@ -1194,24 +1194,70 @@ def test_scan_pass_kernel_is_the_plain_version_bit_for_bit(forward, s, mdt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [5, 20_001])
 @pytest.mark.parametrize("s", ROW_WIDTHS)
 @pytest.mark.parametrize("forward", [True, False])
-def test_frontier_rows_kernel_is_the_plain_version(forward, s):
-    """K3 against ``frontier_rows_plain`` on ``r[:n]``: the rows and the
-    three counts equal; two launches agree."""
+def test_frontier_rows_kernel_is_the_plain_version(forward, s, rows):
+    """K3 against ``frontier_rows_plain`` on ``r[:n]``, on states with whole
+    rows of zeros and entries exactly at the threshold, and on fewer rows
+    than one warp step holds: the rows and the three counts equal; two
+    launches agree; each call counted once."""
     from pprx_torch.engine import rowpass
 
     dev = _cuda()
-    p, r, deg, f_len = _row_state(dev, s, forward, seed=1)
+    p, r, deg, f_len = _row_state(dev, s, forward, rows=rows, seed=1)
     r[::7] = 0.0  # whole rows with nothing active
     view = (r[:-1], deg[:-1], deg[:-1], f_len[:-1])
+    before = rowpass.launches("frontier_rows")
     got = rowpass.frontier_rows(*view, eps=1e-6, forward=forward)
     again = rowpass.frontier_rows(*view, eps=1e-6, forward=forward)
     plain = rowpass.frontier_rows_plain(*view, eps=1e-6, forward=forward)
     torch.cuda.synchronize()
-    assert 0 < int(got[1]) < r.shape[0] - 1
+    assert rowpass.launches("frontier_rows") == before + 2
+    if rows > 5:
+        assert 0 < int(got[1]) < rows - 1
     for a, b, c in zip(got, again, plain):
         assert a.dtype == c.dtype and torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16d", [False, True])
+@pytest.mark.parametrize("mode", [0, REVERSE])
+def test_sharded_dense_round_launches_each_row_pass_once(mode, bf16d):
+    """ShardedWlEngine.push_wl at mesh 1x1 on the card, from a state with
+    work at every row's threshold on a graph with dangling rows and a ladder
+    so small that most rounds are dense: each dense round launches
+    ``scan_pass`` once and ``frontier_rows`` at most once, no other round
+    either; the state is the CPU's (f64, plain versions) within 1e-5 in
+    ``p + alpha r`` (f32, and with bf16 delivery the rounding of the moved
+    mass)."""
+    from pprx_torch.dist.mesh import make_row_mesh
+    from pprx_torch.dist.wl import ShardedWlEngine
+    from pprx_torch.engine import rowpass
+    from pprx_torch.engine.state import PprState
+    from _torch_dist_worker import graph, threshold_state  # tests/ is on the path
+
+    dev = _cuda()
+    src, dst, n = graph("dangling", 5, 2000, 20_000)
+    s, eps = 16, 1e-6
+    out = {}
+    for tag, device, dtype in (("card", dev, torch.float32), ("cpu", "cpu", torch.float64)):
+        eng = ShardedWlEngine(make_row_mesh(1, 1), n, s, ecap=src.size, bcap=8,
+                              cfg=PprConfig(alpha=0.15, eps=eps, max_rounds=10_000), mode=mode,
+                              dtype=dtype, e_top=1024, fring=1024, bf16d=bf16d, device=device)
+        deg, _, _, _, _, snap = eng.device_graph_wl(src, dst)
+        p, r = (torch.from_numpy(a).to(device=device, dtype=dtype) for a in threshold_state(
+            n, eng.n_pad, src, s, eps, mode == 0, 11))
+        rowpass.reset_launches()
+        p, r, rounds, *_ = eng.push_wl(p, r, deg, snap)
+        torch.cuda.synchronize()
+        out[tag] = (PprState(p=p[:n], r=r[:n], mode=mode), dict(rowpass.LAUNCHES),
+                    dict(eng.round_kinds))
+    (card, launched, kinds), (cpu, _, _) = out["card"], out["cpu"]
+    assert kinds["dense"] >= 2 and launched["scan_pass"] == kinds["dense"]
+    assert 1 <= launched["frontier_rows"] <= kinds["dense"]
+    assert settled_distance(PprState(p=card.p.cpu().double(), r=card.r.cpu().double(),
+                                     mode=mode), cpu, 0.15) <= 1e-5
 
 
 @pytest.mark.cuda

@@ -9,8 +9,9 @@ reverse stream, the static configs on the dense engine, and a checkpoint
 round trip. Phases, one line each:
 
 1. device: the card's name, count and nvidia-smi name/power limit;
-2. build: both kernel sources of pprx_torch/csrc, the segment sum and the
-   row passes, one ``nvcc`` each, started together (seconds, ptxas lines);
+2. build: the three kernel sources of pprx_torch/csrc, the segment sum, the
+   row passes and the loop's control, one ``nvcc`` each, started together
+   (seconds, ptxas lines);
 3. kernel: both entries (``segsum_add_`` and ``segsum_gather_add_``, the
    gather fused in) against their plain PyTorch versions at the shapes the
    stream gives them (R=200,001 rows, S=128: a window scan of 2.0M sorted
@@ -37,17 +38,31 @@ round trip. Phases, one line each:
    dangling rows; two launches bit for bit; in turns each kernel's device
    time, its time with the host side, its plain version's and its bound
    from the bytes this run moves (``check_rowpass``);
+3c. loop control: K4 (``pprx_torch/csrc/loop.cu``: the convergence loop's
+   four one-thread steps, prime, decide, after_scan and tally) against its
+   plain steps on every case of ``K4_CASES`` (a table of carries that
+   covers every rule of the loop), whole carries equal; each step's device
+   time, its plain step's and its bound; the CUDA driver's and runtime's
+   versions; and a loop graph of fill-kernel branches timed by its
+   rounds: what the WHILE, the SWITCH and K4 add to a round, and what a
+   kernel node costs inside a loop's body (``check_k4``). From
+   here on every fast-driver loop logs its rounds (``graphs.LOG_SINK``),
+   and each phase's line replays the rounds of the loops run since the
+   line before through the plain ``decide`` and ``after_scan`` on the
+   counts each round logged (``round_logs``): the branches must be equal;
 4. stream f32: FastStreamDriver at N=200k, W=2M, b=160k, S=128, eps=1e-6,
    alpha=0.15 (bench.py's shapes): seed, warm-up, 8 timed slides, with the
-   driver's captured rounds (``graphs``: graphs held, captures and their
-   seconds; in the timed slides the replays a round and the rounds run
+   driver's captured graphs (``graphs``: graphs and loop graphs held,
+   captures and their seconds; in the timed slides the graph launches a
+   slide, one a slide and a second where it rebuilds, and the rounds run
    eagerly, which should be 0); then two more slides under
    ``torch.profiler`` (a ``profile`` line: the device's busy and idle
    shares, the kernels that took the most device time, kernels inside
-   replayed graphs among them, and the host's launch calls a slide by API:
-   ``cudaGraphLaunch`` the replays, the rest eager launches and copies) and
-   two with a sync where the loop starts (a ``prologue`` line: the slide's
-   prologue, itself one captured graph, against its loop of replays);
+   launched graphs among them, and the host's launch calls a slide by API:
+   ``cudaGraphLaunch`` the loops and rebuilds, the rest eager launches and
+   copies) and two with a sync where the loop starts (a ``prologue`` line:
+   the slide's prologue, itself one captured graph, replayed apart from its
+   loop's graph);
 5. stream bf16: the same segment with bf16 delivery;
 6. serve: refine to eps=5e-8 (timed on the second call), top-100, and the
    exact-PPR contract on 16 sampled sources (f64 power iteration on the
@@ -158,9 +173,9 @@ round trip. Phases, one line each:
    and ``retrieve --from-checkpoint`` on the forward stream's file. Every
    hybrid path must launch no kernel (no segment-sum entry, no row pass).
 
-Then a JSON line of the kernels, the segment sum's two entries and the two
-row passes (``launches``: the main path's, phases 4 to 6, which must launch
-the gather entry and both row passes; ``launches_by_path``: every path's,
+Then a JSON line of the kernels, the segment sum's two entries, the two
+row passes and K4's four steps (``launches``: the main path's, phases 4 to
+6, which must launch the gather entry, both row passes and every K4 step; ``launches_by_path``: every path's,
 each counted with the counts set to 0 before it: the main path, each of the
 three reverse runs of phase 8, phases 9 and 10, each run of phase 11, each
 command of phase 13, each config 5 run and sharded command of phases 14
@@ -176,9 +191,12 @@ imports that root's ``chip_smoke`` and ``pprx_torch`` and runs this file's
 ``turn_record`` over the shapes of its phases 4, 5, 8, 11, 14a and 15a
 (``turn_shapes``: the headline forward in f32 and with bf16 delivery, the
 headline in reverse, config 2, config 3 at S=8 on ``FastStreamDriver``
-through that root's ``run_stream`` and ``profile_slides``, each then
-refined to 5e-8 twice from the same state, the first call capturing the
-new eps's rounds; and config 5 forward in f32 and in reverse,
+through that root's ``run_stream`` and ``profile_slides``, then 2 slides
+with CUDA events around every graph launch (the device's time inside
+graphs a slide, which ``torch.profiler`` misreads inside a loop graph's
+conditional bodies), each then refined to 5e-8 twice from the same state,
+the first call capturing the new eps's rounds; and config 5 forward in f32
+and in reverse,
 ``config5_f32`` and ``config5_rev``, the sharded wl engine at mesh 1x1,
 its spare slide profiled with its peak memory), or those ``--shapes``
 names. One summary line a shape goes to
@@ -215,8 +233,8 @@ from pprx_torch.device import require_cuda
 from pprx_torch.dist.mesh import all_to_all_rows, gather_stats, make_row_mesh, reduce_scatter_rows
 from pprx_torch.dist.retrieve import make_sharded_topk
 from pprx_torch.dist.stream import ShardedStreamDriver
-from pprx_torch.engine import rowpass, segsum, sparse
-from pprx_torch.engine.graphs import copy_into_
+from pprx_torch.engine import graphs, loop, rowpass, segsum, sparse
+from pprx_torch.engine.graphs import RoundGraphs, copy_into_
 from pprx_torch.engine.segsum import (
     row_offsets,
     segment_ids,
@@ -233,6 +251,7 @@ from pprx_torch.engine.rowpass import (
 )
 from pprx_torch.engine.state import FORWARD, REVERSE, PprState, settled_distance
 from pprx_torch.engine.update import apply_edge_batch
+from pprx_torch.engine.wl2 import loop_table
 from pprx_torch.eval.metrics import l1_error, precision_at_k
 from pprx_torch.graph import fast_stream
 from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
@@ -281,6 +300,10 @@ F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, same sheet
 
 
 def log(phase: str, **kw) -> None:
+    """One phase's line; where loops were logged since the last line
+    (``graphs.LOG_SINK``), their rounds replayed first (``round_logs``)."""
+    if graphs.LOG_SINK:
+        kw["round_logs"] = check_round_logs()
     print(f"[{phase}] " + json.dumps(kw), flush=True)
 
 
@@ -762,15 +785,189 @@ def check_rowpass(dev) -> dict:
     return res
 
 
+# ---- K4, the loop's control (pprx_torch/csrc/loop.cu), held to its plain
+# steps (pprx_torch/engine/loop.py) on a table of carries that covers every
+# rule of the loop. The ladder: three tiers, none of which reseeds by a
+# rescan at n = 1000, so each emits its next tier's width (64, 256, 256);
+# a scan is heavy above STATS_GUARD * (2048 + 64) = 4224 edge work.
+K4_TABLE = loop_table(((8, 32, 4), (64, 512, 16), (256, 2048, 64)), 1000)
+# every case starts from this carry (a loop two rounds in, one compact and
+# one scan, at most 6 rounds), then sets its own slots
+K4_BASE = {loop.ROUNDS: 2, loop.MAX_ROUNDS: 6, loop.C0OK: 1, loop.OK: 1, loop.CN: 1,
+           loop.FED: 1, loop.FRE: 1, loop.NA: 3, loop.EW: 40, loop.PUSHES: 100,
+           loop.EDGE_PUSHES: 1000, loop.WL_ROUNDS: 1, loop.SCANS_CAND: 1,
+           loop.EXECS: 1, loop.EXECS + 3: 1}
+_Z = (0, 0, 0, 0, 0)
+# (name, step, the case's slots, counts: cn, fed, fre, n_active, edge_work)
+K4_CASES = (
+    # prime: an invalid list, an empty valid one, a valid one, no rounds
+    ("prime_invalid_list", "prime", {loop.C0OK: 0}, (5, 10, 1, 0, 0)),
+    ("prime_empty_list", "prime", {loop.C0OK: 1}, _Z),
+    ("prime_valid_list", "prime", {loop.C0OK: 1}, (3, 9, 2, 0, 0)),
+    ("prime_no_rounds", "prime", {loop.C0OK: 0, loop.MAX_ROUNDS: 0}, (3, 9, 2, 0, 0)),
+    # decide: an invalid list; each count on and past each tier's border
+    ("decide_invalid_list", "decide", {loop.OK: 0}, _Z),
+    ("decide_tier0_border", "decide", {loop.CN: 8, loop.FED: 32, loop.FRE: 4}, _Z),
+    ("decide_cn_past_tier0", "decide", {loop.CN: 9, loop.FED: 32, loop.FRE: 4}, _Z),
+    ("decide_fed_past_tier0", "decide", {loop.CN: 8, loop.FED: 33, loop.FRE: 4}, _Z),
+    ("decide_fre_past_tier0", "decide", {loop.CN: 8, loop.FED: 32, loop.FRE: 5}, _Z),
+    ("decide_tier1_border", "decide", {loop.CN: 64, loop.FED: 512, loop.FRE: 16}, _Z),
+    ("decide_cn_past_tier1", "decide", {loop.CN: 65, loop.FED: 512, loop.FRE: 16}, _Z),
+    ("decide_fed_skips_tier1", "decide", {loop.CN: 9, loop.FED: 600, loop.FRE: 0}, _Z),
+    ("decide_top_border", "decide", {loop.CN: 256, loop.FED: 2048, loop.FRE: 64}, _Z),
+    ("decide_cn_past_top", "decide", {loop.CN: 257, loop.FED: 0, loop.FRE: 0}, _Z),
+    ("decide_fed_past_top", "decide", {loop.CN: 0, loop.FED: 2049, loop.FRE: 0}, _Z),
+    ("decide_fre_past_top", "decide", {loop.CN: 0, loop.FED: 0, loop.FRE: 65}, _Z),
+    ("decide_skip_sentinel", "decide", {loop.CN: loop.BIG, loop.FED: loop.BIG,
+                                        loop.FRE: loop.BIG}, _Z),
+    ("decide_past_the_log", "decide", {loop.ROUNDS: loop.LOG_CAP}, _Z),
+    # after_scan: light and heavy scans, no active pair, the last round
+    ("after_scan_light", "after_scan", {loop.BRANCH: 3}, (0, 0, 0, 7, 4224)),
+    ("after_scan_heavy", "after_scan", {loop.BRANCH: 3}, (0, 0, 0, 7, 4225)),
+    ("after_scan_no_active", "after_scan", {loop.BRANCH: 3}, (0, 0, 0, 0, 10)),
+    ("after_scan_last_round", "after_scan", {loop.BRANCH: 3, loop.ROUNDS: 5}, (0, 0, 0, 7, 10)),
+    ("after_scan_next_to_last", "after_scan", {loop.BRANCH: 3, loop.ROUNDS: 4},
+     (0, 0, 0, 7, 10)),
+    ("after_scan_after_a_tier", "after_scan", {loop.BRANCH: 1}, (0, 0, 0, 7, 10)),
+    # tally: a tier's list within and past its emit width; light scans with
+    # and without their stats, after an invalid list and over the top
+    # tier's edges; a heavy scan; the round cap; no active pair
+    ("tally_tier_fits_emit", "tally", {loop.BRANCH: 0}, (64, 100, 3, 12, 400)),
+    ("tally_tier_past_emit", "tally", {loop.BRANCH: 0}, (65, 100, 3, 12, 400)),
+    ("tally_top_tier", "tally", {loop.BRANCH: 2}, (300, 100, 3, 12, 400)),
+    ("tally_light_scan_stats", "tally", {loop.BRANCH: 3, loop.STATS: 1, loop.OK: 0,
+                                         loop.FED: 3000, loop.FRE: 70}, (40, 50, 6, 9, 100)),
+    ("tally_light_scan_no_stats", "tally", {loop.BRANCH: 3, loop.FED: 10, loop.FRE: 1},
+     (40, 50, 6, 0, 100)),
+    ("tally_heavy_scan", "tally", {loop.BRANCH: 3, loop.HEAVY: 1, loop.FED: loop.BIG,
+                                   loop.FRE: loop.BIG, loop.OK: 0}, (40, 50, 6, 9, 5000)),
+    ("tally_reaches_max_rounds", "tally", {loop.BRANCH: 0, loop.ROUNDS: 5}, (1, 1, 1, 9, 10)),
+    ("tally_goes_on", "tally", {loop.BRANCH: 0, loop.ROUNDS: 4}, (1, 1, 1, 9, 10)),
+    ("tally_no_active", "tally", {loop.BRANCH: 1}, (1, 1, 1, 0, 0)),
+)
+
+
+def k4_case(case) -> tuple[torch.Tensor, torch.Tensor]:
+    """A case's carry and counts on the CPU. The carry's log holds a row
+    for round 0, which no step may disturb (``decide`` and ``tally`` write
+    the row of the carry's round)."""
+    _, _, slots, counts = case
+    carry = loop.new_carry("cpu")
+    for slot, v in {**K4_BASE, **slots}.items():
+        carry[slot] = v
+    carry[loop.HEAD:loop.HEAD + loop.LOG_W] = torch.arange(1, loop.LOG_W + 1)
+    return carry, torch.tensor(counts, dtype=torch.int64)
+
+
+def check_k4(dev) -> dict:
+    """K4 against its plain steps on every case of ``K4_CASES``: the whole
+    carry equal (decisions, tallies, log), and so each branch choice; then
+    each step's device time (one launch, queued behind a spinning kernel:
+    the launch floor), its plain step's host time, and its bound from the
+    bytes a step moves (the carry's head read and written, the counts read,
+    a log row written). Then ``loop_overhead``: what a loop graph's round
+    costs the device beyond its kernels, and a kernel node inside its
+    body against one in a top-level graph."""
+    res = {"versions": loop.versions(), "cases": len(K4_CASES)}
+    choices, errs = {}, {step: 0 for step in loop.STEPS}
+    for case in K4_CASES:
+        name, step, _, _ = case
+        carry, counts = k4_case(case)
+        want = carry.clone()
+        loop.step_(step, want, counts, K4_TABLE)
+        got = carry.to(dev)
+        loop.step_(step, got, counts.to(dev), K4_TABLE)
+        got = got.cpu()
+        if not torch.equal(got, want):
+            diff = (got != want).nonzero().flatten().tolist()[:8]
+            raise AssertionError(f"K4 {step} on {name}: slots {diff} are "
+                                 f"{got[diff].tolist()}, the plain step's {want[diff].tolist()}")
+        choices[name] = [int(got[i]) for i in (loop.BRANCH, loop.STATS, loop.GO)]
+        errs[step] = max(errs[step], int((got - want).abs().max()))
+    res["choices"] = choices
+    carry, counts = (t.to(dev) for t in k4_case(K4_CASES[0]))
+    n_bytes = 2 * loop.HEAD * 8 + 5 * 8 + loop.LOG_W * 8
+    for step in loop.STEPS:
+        ms = in_turns({step: lambda: loop.step_(step, carry, counts, K4_TABLE)})[step]
+        plain_carry, plain_counts = k4_case(K4_CASES[0])
+        t0 = time.perf_counter()
+        for _ in range(200):
+            loop.step_(step, plain_carry, plain_counts, K4_TABLE)
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        res[step] = {"ms": ms, "plain_ms": (time.perf_counter() - t0) * 1e3 / 200,
+                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs[step]}
+    res.update(loop_overhead(dev))
+    return res
+
+
+def loop_overhead(dev, rounds: int = 257, wide: int = 21) -> dict:
+    """A loop of one tier whose branches are fill kernels (the tier's and
+    the scan's set n_active to 1, the stats' clear cn, fed, fre): from an
+    invalid list it runs one scan, its stats, then tier rounds to
+    ``rounds``. Its device time a round (launches of ``rounds`` and of 1,
+    by CUDA events) with one kernel in the tier's branch, against a
+    captured graph of 64 of the same kernels: what the WHILE, the SWITCH
+    and K4's two steps add to a tier round beyond its three kernel nodes
+    at a graph's floor; and with ``wide`` kernels there: what a kernel node
+    costs inside a loop's body."""
+    g = RoundGraphs(8, 8, dev)
+    table = loop.Table(tiers=((8, 32, 4),), emit=(8,), heavy_ew=100)
+    na = g.counts[3:4]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    per_round = {}
+    for width in (1, wide):
+        def tier(width=width):
+            for _ in range(width):
+                na.fill_(1)
+
+        branches = [(("tier", width), tier), ("scan", lambda: na.fill_(1)),
+                    ("stats", lambda: g.counts[:3].zero_())]
+        times = {}
+        for r in (1, rounds):
+            values, reads = g.loop(None, branches, table, False, r)
+            execs = values[loop.EXECS:loop.EXECS + 3]
+            if values[loop.ROUNDS] != r or execs != [r - 1, 1, int(r > 1)] or reads != 1:
+                raise AssertionError(f"a loop of {r} rounds ran {values[loop.ROUNDS]}: {execs}")
+            graph = next(lg for key, (lg, _) in g.loops.items() if key[1][0] == ("tier", width))
+            times[r] = cuda_ms(lambda: graph.launch(stream))
+        per_round[width] = (times[rounds] - times[1]) / (rounds - 1)
+    plain = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(plain):
+        for _ in range(64):
+            na.fill_(1)
+    floor = cuda_ms(plain.replay) / 64
+    return {"loop_round_ms": per_round[1], "graph_kernel_floor_ms": floor,
+            "conditional_overhead_ms_per_round": per_round[1] - 3 * floor,
+            "body_kernel_ms": (per_round[wide] - per_round[1]) / (wide - 1)}
+
+
+def check_round_logs() -> dict:
+    """Every loop logged since the last call (``graphs.LOG_SINK``): each
+    round's branch and stats choice replayed through the plain ``decide``
+    and ``after_scan`` from the counts the round logged must be the one the
+    loop made. Empties the sink; returns the loops and rounds checked."""
+    loops = rounds = 0
+    for rec in graphs.LOG_SINK:
+        made = [(row[0], row[7]) for row in rec["rows"]]
+        if loop.replay_log(rec["rows"], rec["table"], rec["max_rounds"]) != made:
+            raise AssertionError(f"a loop's branches differ from the plain steps' on its "
+                                 f"logged counts: {rec['rows'][:4]}")
+        loops += 1
+        rounds += len(made)
+    graphs.LOG_SINK.clear()
+    return {"loops": loops, "rounds": rounds}
+
+
 def reset_launches() -> None:
     """Every kernel's launch count to 0."""
     segsum.reset_launches()
     rowpass.reset_launches()
+    loop.reset_launches()
 
 
 def all_launches() -> int:
     """Launches of every kernel since the last reset."""
-    return segsum.launches() + rowpass.launches()
+    return segsum.launches() + rowpass.launches() + loop.launches()
 
 
 def launches_by_entry(scaled: bool | None = None) -> dict:
@@ -780,6 +977,7 @@ def launches_by_entry(scaled: bool | None = None) -> dict:
     out = {entry: segsum.launches(entry, scaled) for entry in segsum.ENTRIES}
     if scaled is None:
         out.update({entry: rowpass.launches(entry) for entry in rowpass.ENTRIES})
+        out.update({f"loop_{step}": loop.launches(step) for step in loop.STEPS})
     return out
 
 
@@ -833,6 +1031,7 @@ def run_stream(drv: FastStreamDriver, warmup: int, steps: int) -> dict:
         "edge_pushes_per_s": sum(st.edge_pushes for st in stats) / wall,
         "graphs": g1,
         "replays_per_round": (g1["replays"] - g0["replays"]) / rounds,
+        "graph_launches_per_slide": (g1["graph_launches"] - g0["graph_launches"]) / steps,
         "eager_rounds": g1["eager_rounds"] - g0["eager_rounds"],
     }
 
@@ -848,8 +1047,8 @@ def profile_slides(drv, steps: int, top: int = 10) -> dict:
     sum of the device-side kernel and copy times (one stream, so they do not
     overlap; kernels inside a replayed CUDA graph are traced one by one),
     the ``top`` of them, and the host's launch calls a slide by API
-    (``launches_per_slide``: ``cudaGraphLaunch`` is a round's replay, the
-    others are eager launches and copies)."""
+    (``launches_per_slide``: ``cudaGraphLaunch`` is a loop's or a replay's
+    launch, the others are eager launches and copies)."""
     dev = drv.device
     sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -881,18 +1080,20 @@ def prologue_split(drv: FastStreamDriver, steps: int) -> dict:
     the convergence loop starts, the slide's prologue (the rebuild when one
     is due, the batch's upload, and the replay of the captured prologue:
     sorts, corrections, kills, ring append, fresh re-sort, first counts)
-    timed apart from its loop (round replays and their reads). The sync
-    adds one wait a slide, so these slides are not the timed ones."""
+    timed apart from its loop (the launch of the loop's graph, here without
+    the prologue inside: ``split_prologue``, and its read). The sync adds
+    one wait a slide, so these slides are not the timed ones."""
     dev = drv.device
-    loop = fast_stream.converge_wl2
+    converge = fast_stream.converge_wl2
     marks = []
 
     def timed_loop(*args, **kw):
         sync(dev)
         marks.append(time.perf_counter())
-        return loop(*args, **kw)
+        return converge(*args, **kw)
 
     fast_stream.converge_wl2 = timed_loop
+    drv.round_graphs.split_prologue = True
     try:
         pro, tot = [], []
         for _ in range(steps):
@@ -904,7 +1105,8 @@ def prologue_split(drv: FastStreamDriver, steps: int) -> dict:
             tot.append(time.perf_counter() - t0)
             pro.append(marks[-1] - t0)
     finally:
-        fast_stream.converge_wl2 = loop
+        fast_stream.converge_wl2 = converge
+        drv.round_graphs.split_prologue = False
     return {"slides": steps, "prologue_ms": [x * 1e3 for x in pro],
             "slide_ms": [x * 1e3 for x in tot], "prologue_share": sum(pro) / sum(tot)}
 
@@ -2256,6 +2458,24 @@ def rowpass_entry(name: str, rp: dict, launches: dict) -> dict:
     return out
 
 
+def loop_entry(step: str, k4: dict, launches: dict) -> dict:
+    """One K4 step's entry of the kernels line from phase 3c's numbers;
+    ``launches`` as for ``kernel_entry``."""
+    by_path = {path: counts[f"loop_{step}"] for path, counts in launches.items()}
+    return {
+        "name": f"loop_{step}", "route": "cuda", "source": "pprx_torch/csrc/loop.cu",
+        "replaces": "pprx/engine/wl2.py:687",
+        "tpu_work": "the lax.while_loop of push_to_convergence_wl2, its lax.switch over the "
+                    "tiers and its lax.cond (pprx/engine/wl2.py:617-687); no pl.pallas_call",
+        "launches": by_path["forward"], "launches_by_path": by_path,
+        **k4[step], "library_ms": None,
+        "library_call": "none: no PyTorch call sets a graph's conditions",
+        "graph_kernel_floor_ms": k4["graph_kernel_floor_ms"],
+        "body_kernel_ms": k4["body_kernel_ms"],
+        "conditional_overhead_ms_per_round": k4["conditional_overhead_ms_per_round"],
+    }
+
+
 def build_all() -> dict:
     """Every kernel source built at once, one ``nvcc`` each, in parallel."""
     with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
@@ -2265,7 +2485,7 @@ def build_all() -> dict:
     return builds
 
 
-KERNEL_SOURCES = ("segsum", "rowpass")
+KERNEL_SOURCES = ("segsum", "rowpass", "loop")
 
 
 def main() -> None:
@@ -2293,6 +2513,11 @@ def main() -> None:
     rp = check_rowpass(dev)
     log("3b row passes", **rp, seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
+    k4 = check_k4(dev)
+    log("3c loop control", **k4)
+    # every fast-driver loop from here on logs its rounds, and each phase's
+    # line replays them through the plain steps
+    graphs.LOG_SINK = []
 
     steps, prof_steps = HEADLINE["steps"], HEADLINE["prof_steps"]
     rebuild_every, warmup = headline_schedule(w, b)
@@ -2316,7 +2541,7 @@ def main() -> None:
         tiers=[list(t) for t in drv.tiers], **f32)
     log("4 profile", **profile_slides(drv, prof_steps))
     log("4 prologue", **prologue_split(drv, prof_steps),
-        note="the slide's prologue (one replay) against its loop of graph replays")
+        note="the slide's prologue (one replay) against its loop (one graph launch)")
 
     drv16 = FastStreamDriver(src, dst, n, queries, cfg, scfg, dtype=torch.float32,
                              rebuild_every=rebuild_every, bf16d=True, device=dev)
@@ -2331,7 +2556,8 @@ def main() -> None:
     serve = serve_check(drv, eps_r=5e-8, k=k)
     launches = segsum.launches()
     by_entry = launches_by_entry()
-    if min(launches, by_entry["scan_pass"], by_entry["frontier_rows"]) <= 0:
+    if min(launches, by_entry["scan_pass"], by_entry["frontier_rows"],
+           *(by_entry[f"loop_{step}"] for step in loop.STEPS)) <= 0:
         raise AssertionError(f"the main path never launched one of its kernels: {by_entry}")
     contract = exact_contract(drv, serve.pop("ids"), k, 16, l1_bound=cfg.eps * w)
     log("6 serve", eps_retrieve=5e-8, k=k, **serve, **contract, launches_total=launches,
@@ -2479,6 +2705,7 @@ def main() -> None:
         kernel_entry("segsum_add", "add", kern, launches),
         kernel_entry("segsum_gather_add", "gather", kern, launches),
         *(rowpass_entry(name, rp, launches) for name in ROWPASS_KERNELS),
+        *(loop_entry(step, k4, launches) for step in loop.STEPS),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
@@ -2511,8 +2738,13 @@ def turn_record(cs, sh: dict, dev) -> dict:
     ``sync``, the ``segsum`` and ``rowpass`` modules). A stream shape:
     ``run_stream`` and ``profile_slides`` on ``FastStreamDriver``, then
     two refines to 5e-8 from one state, the first of which captures the
-    new eps's rounds (``refine_ms``, ``refine_rounds``). A sharded
-    shape: ``config5_run`` (seed, 3 warm-up and ``steps`` timed slides),
+    new eps's rounds (``refine_ms``, ``refine_rounds``); before them, 2
+    more slides with CUDA events around every graph launch (a root's round
+    replays, or its loop graphs, and the rebuild's replays): the device's
+    time inside graphs a slide (``graph_device_ms``), beside the slides'
+    wall (``slide_wall_ms``), and the share of the wall the device spent
+    outside graphs (``event_idle_share``), where no profiler is running. A
+    sharded shape: ``config5_run`` (seed, 3 warm-up and ``steps`` timed slides),
     its launches by entry and round kinds, then its spare slide under the
     profiler with that slide's peak memory (``slide_peak_gib``)."""
     cuda = dev.type == "cuda"
@@ -2542,7 +2774,7 @@ def turn_record(cs, sh: dict, dev) -> dict:
         return res
     n, w, b = sh["n"], sh["w"], sh["b"]
     src, dst, n = synthetic_powerlaw_stream(
-        n, w + (sh["warmup"] + sh["steps"] + sh["prof_steps"] + 1) * b, seed=sh["seed"])
+        n, w + (sh["warmup"] + sh["steps"] + sh["prof_steps"] + 3) * b, seed=sh["seed"])
     drv = FastStreamDriver(src, dst, n, list(range(sh["s"])),
                            PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000),
                            StreamConfig(window=w, slide=b),
@@ -2551,6 +2783,38 @@ def turn_record(cs, sh: dict, dev) -> dict:
     res = cs.run_stream(drv, sh["warmup"], sh["steps"])
     res["peak_mem_gib"] = peak()
     res["profile"] = cs.profile_slides(drv, sh["prof_steps"])
+    marks, patched = [], [(torch.cuda.CUDAGraph, "replay")]
+    try:
+        from pprx_torch.engine.loop import LoopGraph
+        patched.append((LoopGraph, "launch"))
+    except ImportError:  # a tree whose loop runs on the host
+        pass
+
+    def timed(fn):
+        def call(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            marks.append((start, end))
+            return out
+        return call
+
+    originals = [(cls, name, getattr(cls, name)) for cls, name in patched]
+    for cls, name, fn in originals:
+        setattr(cls, name, timed(fn))
+    try:
+        cs.sync(dev)
+        t0 = time.perf_counter()
+        slides = len(list(drv.run(2)))
+        cs.sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for cls, name, fn in originals:
+            setattr(cls, name, fn)
+    graph_ms = sum(start.elapsed_time(end) for start, end in marks)
+    res.update(graph_device_ms=graph_ms / slides, slide_wall_ms=wall_ms / slides,
+               event_idle_share=1.0 - graph_ms / wall_ms, graph_launches=len(marks) / slides)
     saved = (drv.state.p.clone(), drv.state.r.clone())
     res["refine_ms"], res["refine_rounds"] = [], []
     for _ in range(2):
@@ -2582,7 +2846,9 @@ for sh in json.loads(sys.argv[1]):
     print(json.dumps({{"shape": sh["tag"], "nvidia_smi": smi, **res}}), flush=True)
 """
 
-TURN_SUMMARY = ("updates_per_s", "rounds_per_slide", "syncs_per_slide", "wall_per_round_ms",
+TURN_SUMMARY = ("updates_per_s", "rounds_per_slide", "syncs_per_slide",
+                "graph_launches_per_slide", "graph_device_ms", "slide_wall_ms",
+                "event_idle_share", "wall_per_round_ms",
                 "peak_mem_gib", "slide_peak_gib", "kernel_launches_per_slide",
                 "row_pass_launches_per_slide", "replays_per_round", "eager_rounds",
                 "refine_ms", "refine_rounds", "round_kinds", "launches_by_entry")

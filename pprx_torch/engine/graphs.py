@@ -1,14 +1,20 @@
-"""Captured CUDA graphs of the wl2 slides and convergence rounds: the port's
+"""Captured CUDA graphs of the wl2 slides and convergence loops: the port's
 counterpart of the reference's compiled slide, seed and refine programs
 (``pprx/graph/fast_stream.py``'s jitted ``wl2_slide_step`` and
 ``_seed_wl2_jit``, ``_refine_wl2_jit``).
 
 The reference runs a whole convergence loop as one device program: a
-``lax.while_loop`` whose branches are ``lax.cond``. Torch has no device-side
-branch, so the port keeps the loop on the host with one packed readback a
-round, which picks the next branch (``pprx_torch.engine.wl2``). What a
-graph removes is the rest: each round's ~70 eager launches and the Python
-around them, and a slide prologue's ~160, become one ``CUDAGraph.replay()``.
+``lax.while_loop`` whose branches are ``lax.switch`` and ``lax.cond``. On
+the card so does the port (``RoundGraphs.loop``): each branch (a compact
+tier, the scan round, its stats) and the loop's prologue (a slide's, or a
+seed's first count) is captured once with torch, and the loop is one CUDA
+graph built around them (``pprx_torch/csrc/loop.cu``): ``[prologue] ->
+prime -> WHILE { decide -> SWITCH { tier_0 | .. | tier_k-1 | scan ->
+after_scan -> IF { stats } } -> tally }``, where the four steps are K4's
+one-thread kernels on the loop's carry (``pprx_torch.engine.loop``), which
+set the conditions. A loop is one graph launch and one read of the carry
+(its statistics) by the host. On the CPU the same branches run eagerly
+under a host loop of K4's plain steps, with a read of the counts a round.
 
 A graph reads and writes fixed addresses, so:
 
@@ -21,22 +27,26 @@ A graph reads and writes fixed addresses, so:
   graphs' memory pool: the candidate list ``cand`` (int32, ``width``
   entries: ``n + 1`` or the widest tier; a tier reads its first ``w_i``
   entries, a round writes its list and ``n`` past it), the counters
-  ``counts`` (int64 ``[5]``: cn, fed, fre, n_active, edge_work) and
-  ``c0n``, the seed list's length. The host reads ``counts`` through a
-  pinned buffer and an event.
+  ``counts`` (int64 ``[5]``: cn, fed, fre, n_active, edge_work), ``c0n``,
+  the seed list's length, and the loop's ``carry``. The host reads the
+  carry (or, in the host loop, ``counts``) through a pinned buffer and an
+  event.
 
-A graph is captured at the first use of its key (the caller's: mode, bf16
-delivery, eps, alpha and the step's shape). The steps are the rounds
-(``pprx_torch.engine.wl2``), a slide's prologue and the kill graph's
-rebuild (``pprx_torch.graph.fast_stream``). That step first runs eagerly
-on a side stream: its own work, which also loads every kernel the capture
-records (the segment-sum library loads its module lazily). Then the same
-function is captured into a graph that shares the cache's one memory pool:
-the graphs replay one after another, and nothing crosses between them
-through the pool. A failed capture raises; nothing falls back to eager
-launches on CUDA. A kernel's wrapper counts a launch when it runs, so a
-capture's counts are taken back out of every kernel module's ``LAUNCHES``
-(``KERNEL_COUNTS``) and added again on every replay.
+Every branch of a loop is captured before its loop graph is built, and an
+unused branch must not run on the live state: each is warmed up by a
+throwaway capture in relaxed mode, which runs nothing but loads every
+kernel it records, then captured for keeps (``keep_graph=True``) into the
+cache's one memory pool; the branches run one after another, and nothing
+crosses between them through the pool. A loop graph holds clones of its
+branches' topology, not their memory, so the cache keeps every captured
+graph as long as itself. A step that the host schedules apart (the kill
+graph's rebuild) is ``run``: run eagerly once on a side stream, captured,
+then replayed. A failed capture, build or launch raises; nothing falls
+back to eager launches or to the host loop on CUDA. A kernel's wrapper
+counts a launch when it runs, so a capture's counts are taken back out of
+every kernel module's ``LAUNCHES`` (``KERNEL_COUNTS``) and added again for
+each replay, and for each of a loop's branch executions, which the carry
+counts.
 
 On CPU tensors ``run`` calls the step's function: the same functions on
 the same buffers, eagerly. That is the plain path the tests take, chosen by the
@@ -51,12 +61,21 @@ from typing import Callable, Hashable
 
 import torch
 
-from pprx_torch.engine import rowpass, segsum
+from pprx_torch import _ext
+from pprx_torch.engine import loop, rowpass, segsum
 
 N_COUNTS = 5  # cn, fed, fre, n_active, edge_work
 
 # every kernel module's launch counts, which a replay adds to
-KERNEL_COUNTS = (segsum.LAUNCHES, rowpass.LAUNCHES)
+KERNEL_COUNTS = (segsum.LAUNCHES, rowpass.LAUNCHES, loop.LAUNCHES)
+
+# Where every loop's round log goes while it is a list (``None``: nowhere,
+# and a loop on the card reads its carry's head alone): one dict a loop,
+# with its ``table``, ``max_rounds`` and logged ``rows``
+# (``loop.replay_log`` replays them).
+LOG_SINK: list | None = None
+
+Step = tuple[Hashable, Callable[[], None]]  # a graph's key and its function
 
 
 def tensor_ptrs(obj) -> tuple[int, ...]:
@@ -88,10 +107,13 @@ def copy_into_(dst, src) -> None:
 
 
 class RoundGraphs:
-    """One driver's round buffers, and on CUDA its captured round graphs.
+    """One driver's round buffers, and on CUDA its captured graphs.
 
-    ``captures``, ``capture_s``, ``replays`` and ``eager`` (rounds run
-    eagerly on CUDA: each capture's warm-up) count since construction.
+    ``captures`` and ``capture_s`` count captures since construction (each
+    branch and prologue of a loop once, and each ``run`` step), ``replays``
+    the ``run`` steps' replays and ``eager`` their warm-ups (runs on
+    CUDA), ``loop_launches`` the loop graphs' launches and
+    ``branch_execs`` the branches those ran.
     """
 
     def __init__(self, n: int, width: int, device: torch.device | str):
@@ -101,16 +123,27 @@ class RoundGraphs:
         self.counts = torch.zeros(N_COUNTS, dtype=torch.int64, device=self.device)
         self.c0n = torch.zeros((), dtype=torch.int64, device=self.device)
         self.graphs: dict[Hashable, tuple[torch.cuda.CUDAGraph, list[dict]]] = {}
+        self.kept: dict[Hashable, tuple[torch.cuda.CUDAGraph, list[dict]]] = {}
+        self.loops: dict[Hashable, tuple[loop.LoopGraph, list]] = {}
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
         self.eager = 0
+        self.loop_launches = 0
+        self.branch_execs = 0
+        # measurement: a slide's prologue replayed apart, before its loop
+        self.split_prologue = False
         self._bound: tuple[int, ...] | None = None
         self._pack: int | None = None
+        self._inputs: tuple[int, int] | None = None
         if self.device.type == "cuda":
             self.pool = torch.cuda.graph_pool_handle()
             self.side = torch.cuda.Stream(self.device)
             self.host = torch.empty(N_COUNTS, dtype=torch.int64, pin_memory=True)
+            # the loop's carry on the card (the host loop keeps its own)
+            self.carry = loop.new_carry(self.device)
+            self.carry_host = torch.empty(loop.SIZE, dtype=torch.int64, pin_memory=True)
+            self.inputs_host = torch.empty(2, dtype=torch.int64, pin_memory=True)
             self.ready = torch.cuda.Event()
 
     def bind(self, state, kg, pack: torch.Tensor | None = None) -> None:
@@ -198,7 +231,7 @@ class RoundGraphs:
         self.capture_s += time.perf_counter() - t0
 
     def read(self) -> list[int]:
-        """``counts`` on the host: the round's one sync."""
+        """``counts`` on the host: the host loop's read a round."""
         if self.device.type != "cuda":
             return self.counts.tolist()
         self.host.copy_(self.counts, non_blocking=True)
@@ -206,6 +239,124 @@ class RoundGraphs:
         self.ready.synchronize()
         return self.host.tolist()
 
+    def capture(self, key: Hashable, fn: Callable[[], None]):
+        """``fn`` captured for a loop graph, at the key's first use: warmed
+        up by a throwaway capture in relaxed mode (it runs nothing, so a
+        branch the loop may never take leaves the state alone), then
+        captured for keeps. Returns (graph, launches by kernel module)."""
+        hit = self.kept.get(key)
+        if hit is not None:
+            return hit
+        t0 = time.perf_counter()
+        before = [dict(counts) for counts in KERNEL_COUNTS]
+        try:
+            with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=self.side,
+                                  capture_error_mode="relaxed"):
+                fn()
+            for counts, was in zip(KERNEL_COUNTS, before):
+                counts.update(was)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph, pool=self.pool):
+                fn()
+            launched = [{k: counts[k] - was[k] for k in was}
+                        for counts, was in zip(KERNEL_COUNTS, before)]
+        finally:
+            for counts, was in zip(KERNEL_COUNTS, before):
+                counts.update(was)
+        self.kept[key] = (graph, launched)
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return self.kept[key]
+
+    def loop(self, prologue: Step | None, branches: list[Step], table: loop.Table,
+             c0ok: bool, max_rounds: int) -> tuple[list[int], int]:
+        """One convergence loop: ``prologue``, then rounds of ``branches``
+        (the tiers', the scan's and its stats', as ``table`` numbers them)
+        as K4's steps pick them, from the counts the prologue (or the
+        caller) left in ``counts``. On CUDA one launch of the loop's graph
+        (built at its first use) and one read of the carry; on the CPU
+        ``host_loop``. Returns (the carry's values: its head, and the round
+        log where ``LOG_SINK`` takes it; the host's reads)."""
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                values, reads = self._device_loop(prologue, branches, table, c0ok, max_rounds)
+        else:
+            values, reads = self.host_loop(prologue, branches, table, c0ok, max_rounds)
+        if LOG_SINK is not None:
+            LOG_SINK.append({"table": table, "max_rounds": int(max_rounds),
+                             "rows": loop.log_rows(values)})
+        return values, reads
+
+    def host_loop(self, prologue: Step | None, branches: list[Step], table: loop.Table,
+                  c0ok: bool, max_rounds: int) -> tuple[list[int], int]:
+        """The loop on the host, as ``loop``: each step by ``run`` and
+        K4's plain steps on a carry on the CPU, with a read of ``counts``
+        after the prologue and after each round and each stats run."""
+        carry = loop.new_carry("cpu")
+        if prologue is not None:
+            self.run(*prologue)
+        loop.set_inputs(carry, c0ok, max_rounds)
+        counts = self.read()
+        reads = 1
+        go = loop.prime(carry, counts, table)
+        while go:
+            b = loop.decide(carry, table)
+            self.run(*branches[b])
+            counts = self.read()
+            reads += 1
+            if b == table.scan and loop.after_scan(carry, counts, table):
+                self.run(*branches[-1])
+                counts = self.read()
+                reads += 1
+            go = loop.tally(carry, counts, table)
+        n = loop.HEAD if LOG_SINK is None else loop.SIZE
+        return carry[:n].tolist(), reads
+
+    def _device_loop(self, prologue, branches, table, c0ok, max_rounds):
+        key = (None if prologue is None else prologue[0], tuple(k for k, _ in branches), table)
+        hit = self.loops.get(key)
+        if hit is None:
+            for name in ("segsum", "rowpass", "loop"):
+                _ext.load(name)
+            parts = [self.capture(*step) for step in [prologue] * (prologue is not None)
+                     + branches]
+            raw = [graph.raw_cuda_graph() for graph, _ in parts]
+            head = raw.pop(0) if prologue is not None else None
+            graph = loop.LoopGraph(head, raw, self.carry, self.counts, table)
+            hit = self.loops[key] = (graph, parts)
+        graph, parts = hit
+        stream = torch.cuda.current_stream(self.device)
+        inputs = (int(max_rounds), int(bool(c0ok)))
+        if inputs != self._inputs:
+            # the host's buffer is not written again before a read has
+            # waited on this copy
+            self.inputs_host.copy_(torch.tensor(inputs))
+            self.carry[loop.MAX_ROUNDS:loop.C0OK + 1].copy_(self.inputs_host, non_blocking=True)
+            self._inputs = inputs
+        graph.launch(stream.cuda_stream)
+        self.loop_launches += 1
+        n = loop.HEAD if LOG_SINK is None else loop.SIZE
+        self.carry_host[:n].copy_(self.carry[:n], non_blocking=True)
+        self.ready.record(stream)
+        self.ready.synchronize()
+        values = self.carry_host[:n].tolist()
+        # what the loop launched: its prologue once, each branch as often
+        # as it ran, and K4's steps
+        execs = values[loop.EXECS:loop.EXECS + len(branches)]
+        for (_, launched), times in zip(parts, [1] * (prologue is not None) + execs):
+            for counts, added in zip(KERNEL_COUNTS, launched):
+                for k, c in added.items():
+                    counts[k] += c * times
+        loop.LAUNCHES["prime"] += 1
+        loop.LAUNCHES["decide"] += values[loop.ROUNDS]
+        loop.LAUNCHES["tally"] += values[loop.ROUNDS]
+        loop.LAUNCHES["after_scan"] += execs[table.scan]  # in the scan's arm
+        self.branch_execs += sum(execs)
+        return values, 1
+
     def summary(self) -> dict:
-        return {"graphs": len(self.graphs), "captures": self.captures,
-                "capture_s": self.capture_s, "replays": self.replays, "eager_rounds": self.eager}
+        return {"graphs": len(self.graphs) + len(self.kept), "loops": len(self.loops),
+                "captures": self.captures, "capture_s": self.capture_s,
+                "replays": self.replays, "eager_rounds": self.eager,
+                "loop_launches": self.loop_launches, "branch_execs": self.branch_execs,
+                "graph_launches": self.replays + self.loop_launches}

@@ -1,0 +1,365 @@
+"""The wl2 convergence loop's carry and its control steps (K4's plain
+version).
+
+The reference runs a whole convergence loop on the device: a
+``lax.while_loop`` whose body picks a capacity tier with ``lax.switch`` and
+worklist or scan with ``lax.cond``, and skips a heavy scan's stats with
+another ``lax.cond`` (``pprx/engine/wl2.py:574-687``). The port keeps what
+those decisions read and write in one small int64 tensor, the *carry*, and
+writes each decision as a step on it:
+
+- ``prime``: the loop's start, from the first list's exact counts;
+- ``decide``: the round's branch, a compact tier (its index is the number
+  of lower tiers whose capacities the counts miss) or the scan;
+- ``after_scan``: whether a scan's next-frontier stats run (the port's
+  stats-skip: not for a heavy scan, nor where no round follows);
+- ``tally``: the round's statistics, the next round's counts and whether
+  the loop goes on.
+
+On CUDA these steps are the one-thread kernels of
+``pprx_torch/csrc/loop.cu`` (K4) inside one conditional CUDA graph per loop
+(``pprx_torch.engine.graphs.RoundGraphs.loop``), where each also sets the
+graph's branch and loop conditions. On the CPU the host loop of
+``pprx_torch.engine.wl2`` calls the plain steps below, which nothing on
+CUDA calls; ``step_`` runs one step on a carry where it lies, the kernel on
+a card or the plain step on the CPU. Both write the same carry.
+
+Branches are numbered: the ``k`` tiers ``0 .. k-1``, the scan ``k`` and its
+stats ``k + 1``. The carry also counts each branch's executions (what a
+loop graph's kernels launched follows from them) and logs each round's
+branch with the counts its decisions read, so that a run on the card can
+be replayed through ``decide`` (``replay_log``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+
+from pprx_torch import _ext
+
+# ---- the carry's slots (int64; csrc/loop.cu's enum Slot holds the same)
+CN, FED, FRE, OK, NA, EW = range(6)  # the counts the next decision reads
+ROUNDS, MAX_ROUNDS, C0OK = 6, 7, 8  # MAX_ROUNDS and C0OK: set before a loop
+PUSHES, EDGE_PUSHES, WL_ROUNDS, SCANS_CAND, SCANS_FED, SCANS_LIV, STATS_READS = range(9, 16)
+BRANCH, HEAVY, STATS, GO = 16, 17, 18, 19  # the round's decisions
+EXECS = 20  # executions of each branch, MAX_BRANCHES slots
+HEAD = 32  # the slots above; the round log follows
+
+MAX_TIERS = 8
+MAX_BRANCHES = MAX_TIERS + 2
+LOG_W = 8  # a round: branch, ok, cn, fed, fre (what decide read), na, ew, stats
+LOG_CAP = 1024  # rounds logged; later rounds are not
+SIZE = HEAD + LOG_CAP * LOG_W
+
+# ---- the table of a tier ladder (int64; csrc/loop.cu's enum Tab)
+T_TIERS, T_HEAVY, T_W = 0, 1, 2
+T_E, T_G, T_EMIT = T_W + MAX_TIERS, T_W + 2 * MAX_TIERS, T_W + 3 * MAX_TIERS
+TAB = T_W + 4 * MAX_TIERS
+
+BIG = 2**31 // 2 - 1  # the reference's "skip" sentinel (int32 max // 2)
+
+STEPS = ("prime", "decide", "after_scan", "tally")
+# K4's launches since the last reset, by step (as ``segsum.LAUNCHES``); a
+# loop graph's are counted from its carry when it is read
+LAUNCHES = {step: 0 for step in STEPS}
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def launches(entry: str | None = None, since: dict | None = None) -> int:
+    """Launches counted since the last reset, or since ``since`` (an earlier
+    ``dict(LAUNCHES)``): of one step or of all."""
+    return sum(count - (since[key] if since else 0)
+               for key, count in LAUNCHES.items() if entry in (None, key))
+
+
+@dataclasses.dataclass(frozen=True)
+class Table:
+    """What the decisions know of a loop besides its carry: the tier ladder
+    ``tiers`` ((w, e, g), smallest first), the list width each tier's round
+    emits (``emit``: its next tier's, or ``n + 1`` where the round reseeds
+    by a rescan) and ``heavy_ew``, the edge work above which a scan skips
+    its stats."""
+
+    tiers: tuple[tuple[int, int, int], ...]
+    emit: tuple[int, ...]
+    heavy_ew: int
+
+    def __post_init__(self):
+        if not 1 <= len(self.tiers) <= MAX_TIERS or len(self.emit) != len(self.tiers):
+            raise ValueError(f"a loop takes 1 to {MAX_TIERS} tiers, each with its emit width: "
+                             f"{self.tiers}, {self.emit}")
+
+    @property
+    def scan(self) -> int:
+        """The scan's branch; its stats' is ``scan + 1``."""
+        return len(self.tiers)
+
+    def values(self) -> list[int]:
+        """The table as K4 reads it: ``TAB`` int64 values."""
+        out = [0] * TAB
+        out[T_TIERS], out[T_HEAVY] = len(self.tiers), self.heavy_ew
+        for i, ((w, e, g), emit) in enumerate(zip(self.tiers, self.emit)):
+            out[T_W + i], out[T_E + i], out[T_G + i], out[T_EMIT + i] = w, e, g, emit
+        return out
+
+
+def new_carry(device: torch.device | str) -> torch.Tensor:
+    return torch.zeros(SIZE, dtype=torch.int64, device=device)
+
+
+def set_inputs(carry: torch.Tensor, c0ok: bool, max_rounds: int) -> None:
+    """What a loop takes from its caller, on a CPU carry: whether the first
+    list is valid, and the most rounds it runs."""
+    carry[MAX_ROUNDS], carry[C0OK] = int(max_rounds), int(bool(c0ok))
+
+
+# ---- the plain steps, on a list of the carry's head (``c``) and the
+# round's counts (cn, fed, fre, na, ew): what each K4 kernel computes
+
+def _prime(c: list[int], counts) -> None:
+    max_rounds, c0ok = c[MAX_ROUNDS], c[C0OK]
+    c[:] = [0] * HEAD
+    c[MAX_ROUNDS], c[C0OK] = max_rounds, c0ok
+    c[CN], c[FED], c[FRE] = counts[0], counts[1], counts[2]
+    c[OK] = int(c0ok != 0)
+    # zero candidates in a valid list means zero active rows (candidates
+    # are a frontier superset); otherwise force one scan round
+    c[NA] = int(c[CN] > 0) if c[OK] else 1
+    c[GO] = int(c[NA] > 0 and 0 < max_rounds)
+
+
+def _decide(c: list[int], t: Table) -> int:
+    w_top, e_top, g_top = t.tiers[-1]
+    cn, fed, fre = c[CN], c[FED], c[FRE]
+    if c[OK] and cn <= w_top and fed <= e_top and fre <= g_top:
+        b = sum(not (cn <= w and fed <= e and fre <= g) for (w, e, g) in t.tiers[:-1])
+    else:
+        b = t.scan
+    c[BRANCH], c[HEAVY], c[STATS] = b, 0, 0
+    return b
+
+
+def _after_scan(c: list[int], counts, t: Table) -> bool:
+    stats = False
+    if c[BRANCH] == t.scan:
+        na, ew = counts[3], counts[4]
+        heavy = ew > t.heavy_ew
+        # the stats only where a round follows and may use them
+        stats = not heavy and na > 0 and c[ROUNDS] + 1 < c[MAX_ROUNDS]
+        c[HEAVY] = int(heavy)
+    c[STATS] = int(stats)
+    return stats
+
+
+def _tally(c: list[int], counts, t: Table) -> bool:
+    b = c[BRANCH]
+    na, ew = counts[3], counts[4]
+    if b < t.scan:
+        cn2, fed2, fre2 = counts[0], counts[1], counts[2]
+        ok2 = int(cn2 <= t.emit[b])
+    else:
+        if c[STATS]:
+            cn2, fed2, fre2 = counts[0], counts[1], counts[2]
+            c[STATS_READS] += 1
+        else:
+            cn2 = fed2 = fre2 = 0
+        ok2 = 1
+        if c[HEAVY]:
+            # stats-skip: the successor round is another scan
+            cn2 = fed2 = fre2 = BIG
+            ok2 = 0
+        _, e_top, g_top = t.tiers[-1]
+        c[SCANS_CAND] += int(not c[OK])
+        c[SCANS_FED] += int(c[FED] > e_top)
+        c[SCANS_LIV] += int(c[FRE] > g_top)
+    c[ROUNDS] += 1
+    c[PUSHES] += na
+    c[EDGE_PUSHES] += ew
+    c[WL_ROUNDS] += int(b < t.scan)
+    c[EXECS + b] += 1
+    c[EXECS + t.scan + 1] += c[STATS]
+    c[CN], c[FED], c[FRE], c[OK], c[NA], c[EW] = cn2, fed2, fre2, ok2, na, ew
+    c[GO] = int(na > 0 and c[ROUNDS] < c[MAX_ROUNDS])
+    return bool(c[GO])
+
+
+def _log_at(carry: torch.Tensor, rnd: int, at: int, values: list[int]) -> None:
+    if rnd < LOG_CAP:
+        o = HEAD + rnd * LOG_W + at
+        carry[o:o + len(values)] = torch.tensor(values, dtype=torch.int64)
+
+
+def _ints(counts) -> list[int]:
+    return counts.tolist() if isinstance(counts, torch.Tensor) else [int(x) for x in counts]
+
+
+def _on_head(carry: torch.Tensor, fn, *args):
+    c = carry[:HEAD].tolist()
+    out = fn(c, *args)
+    carry[:HEAD] = torch.tensor(c, dtype=torch.int64)
+    return out
+
+
+def prime(carry: torch.Tensor, counts, table: Table) -> bool:
+    """Start a loop from the first list's exact counts (cn, fed, fre):
+    every slot but the inputs cleared; returns whether a round runs."""
+    _on_head(carry, _prime, _ints(counts))
+    return bool(carry[GO])
+
+
+def decide(carry: torch.Tensor, table: Table) -> int:
+    """The round's branch (``BRANCH``), logged with the counts it read."""
+    ok, cn, fed, fre = (int(carry[i]) for i in (OK, CN, FED, FRE))
+    b = _on_head(carry, _decide, table)
+    _log_at(carry, int(carry[ROUNDS]), 0, [b, ok, cn, fed, fre, 0, 0, 0])
+    return b
+
+
+def after_scan(carry: torch.Tensor, counts, table: Table) -> bool:
+    """Whether the round's stats run (``STATS``): after a light scan that
+    another round follows. The loop runs it in scan rounds alone (after a
+    tier's round it writes what ``decide`` wrote)."""
+    return _on_head(carry, _after_scan, _ints(counts), table)
+
+
+def tally(carry: torch.Tensor, counts, table: Table) -> bool:
+    """The round's statistics and the next round's counts from the round's
+    (with a scan's stats where they ran); returns whether the loop goes
+    on (``GO``)."""
+    counts = _ints(counts)
+    rnd = int(carry[ROUNDS])
+    go = _on_head(carry, _tally, counts, table)
+    _log_at(carry, rnd, 5, [counts[3], counts[4], int(carry[STATS])])
+    return go
+
+
+PLAIN = {"prime": prime, "decide": decide, "after_scan": after_scan, "tally": tally}
+
+
+# ---- K4 on the card
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built ``loop`` library, its entries typed."""
+    lib = _ext.load("loop")
+    # which, carry, counts, table (host int64[TAB]), stream
+    lib.pprx_loop_step.argtypes = [_INT, _PTR, _PTR, _PTR, _PTR]
+    # prologue, branches, n_branches, carry, counts, table, out
+    lib.pprx_loop_build.argtypes = [_PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR]
+    lib.pprx_loop_launch.argtypes = [_PTR, _PTR]
+    lib.pprx_loop_free.argtypes = [_PTR]
+    lib.pprx_loop_versions.argtypes = [_PTR]
+    for fn in (lib.pprx_loop_step, lib.pprx_loop_build, lib.pprx_loop_launch,
+               lib.pprx_loop_free, lib.pprx_loop_versions):
+        fn.restype = _INT
+    return lib
+
+
+def _table_arg(table: Table):
+    return (ctypes.c_longlong * TAB)(*table.values())
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: cudaError {err}")
+
+
+def versions() -> dict:
+    """The CUDA driver's and the runtime's versions the loop library sees
+    (e.g. 12090 for 12.9): a loop graph's SWITCH node needs 12.8 of both."""
+    out = (ctypes.c_int * 2)()
+    _check(_lib().pprx_loop_versions(out), "cudaDriverGetVersion")
+    return {"driver": out[0], "runtime": out[1]}
+
+
+def _check_operands(carry: torch.Tensor, counts) -> None:
+    if carry.dtype != torch.int64 or carry.shape != (SIZE,) or not carry.is_contiguous():
+        raise ValueError(f"a carry is int64 [{SIZE}], contiguous")
+    if isinstance(counts, torch.Tensor) and (
+            counts.dtype != torch.int64 or counts.numel() < 5 or counts.device != carry.device
+            or not counts.is_contiguous()):
+        raise ValueError("counts are int64 [5] on the carry's device, contiguous")
+
+
+def step_(name: str, carry: torch.Tensor, counts, table: Table):
+    """One step on ``carry`` where it lies: on a card the K4 kernel (with
+    no graph around it: it writes the carry and sets no condition), on the
+    CPU the plain step, which returns the decision."""
+    _check_operands(carry, counts)
+    if carry.device.type == "cpu":
+        args = (carry, table) if name == "decide" else (carry, counts, table)
+        return PLAIN[name](*args)
+    if not isinstance(counts, torch.Tensor):
+        raise ValueError("K4 reads its counts from a tensor on the card")
+    with torch.cuda.device(carry.device):
+        err = _lib().pprx_loop_step(STEPS.index(name), carry.data_ptr(), counts.data_ptr(),
+                                    _table_arg(table),
+                                    torch.cuda.current_stream(carry.device).cuda_stream)
+    _check(err, f"K4 {name} launch")
+    LAUNCHES[name] += 1
+    return None
+
+
+class LoopGraph:
+    """One convergence loop as an instantiated CUDA graph (``loop.cu``'s
+    ``pprx_loop_build``): ``[prologue] -> prime -> WHILE { decide ->
+    SWITCH { tier_0 | .. | tier_k-1 | scan -> after_scan -> IF { stats } }
+    -> tally }``, each arm a clone of the branch's captured graph.
+    ``prologue`` and ``branches`` are raw ``cudaGraph_t`` handles (torch's
+    ``CUDAGraph(keep_graph=True).raw_cuda_graph()``); the graph reads the
+    carry, the counts and the table's values baked in at build."""
+
+    def __init__(self, prologue: int | None, branches: list[int], carry: torch.Tensor,
+                 counts: torch.Tensor, table: Table):
+        if len(branches) != table.scan + 2:
+            raise ValueError(f"{len(branches)} branch graphs for {table.scan} tiers")
+        _check_operands(carry, counts)
+        lib = _lib()
+        arr = (ctypes.c_void_p * len(branches))(*branches)
+        out = ctypes.c_void_p()
+        _check(lib.pprx_loop_build(prologue, arr, len(branches), carry.data_ptr(),
+                                   counts.data_ptr(), _table_arg(table), ctypes.byref(out)),
+               "building the loop graph")
+        self._handle = out.value
+        self._free = lib.pprx_loop_free
+
+    def launch(self, stream: int) -> None:
+        _check(_lib().pprx_loop_launch(self._handle, stream), "cudaGraphLaunch of a loop")
+
+    def __del__(self):
+        handle, self._handle = getattr(self, "_handle", None), None
+        if handle:
+            try:
+                self._free(handle)
+            except Exception:
+                pass  # at interpreter exit the library may be gone
+
+
+def log_rows(values: list[int]) -> list[list[int]]:
+    """The logged rounds of a carry read whole (``SIZE`` values)."""
+    n = min(values[ROUNDS], LOG_CAP)
+    return [values[HEAD + i * LOG_W: HEAD + (i + 1) * LOG_W] for i in range(n)]
+
+
+def replay_log(rows: list[list[int]], table: Table, max_rounds: int) -> list[tuple[int, int]]:
+    """Each logged round's (branch, stats) as the plain ``decide`` and
+    ``after_scan`` choose them from the counts the round logged: equal to
+    the rows' own ``(row[0], row[7])`` where the device decided alike."""
+    out = []
+    for rnd, (_, ok, cn, fed, fre, na, ew, _) in enumerate(rows):
+        c = [0] * HEAD
+        c[OK], c[CN], c[FED], c[FRE], c[ROUNDS], c[MAX_ROUNDS] = ok, cn, fed, fre, rnd, max_rounds
+        b = _decide(c, table)
+        out.append((b, int(_after_scan(c, [0, 0, 0, na, ew], table))))
+    return out

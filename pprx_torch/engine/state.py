@@ -69,10 +69,14 @@ class PushStats:
     path); scans_cand/scans_fed/scans_liv (why rounds fell back to a scan:
     candidate-list overflow, snapshot-edge bound, fresh-edge bound).
 
-    The port's loop runs on the host, so it adds ``syncs``: the number of
-    device-to-host reads the loop waited on; and ``stats_reads``: the scan
-    rounds of the wl2 loop that read their counts before they ran their
-    next-frontier stats (the light scans, a second read each: F1).
+    The port adds ``syncs``: the number of device-to-host reads the loop
+    waited on (on CUDA the wl2 loop runs on the card and reads once, its
+    statistics at its end; the CPU's host loop reads the counts after its
+    first step and after each round; the other engines' host loops a read a
+    round or more); and ``stats_reads``: the scan rounds of the wl2 loop
+    that ran their next-frontier stats (the light scans that another round
+    follows), counted alike on the card and the CPU (the host loop reads
+    the counts a second time after each).
     """
 
     rounds: int = 0

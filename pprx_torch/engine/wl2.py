@@ -13,13 +13,15 @@ What the engine does is the reference's (see ``pprx/engine/wl2.py``):
 
 How the port differs:
 
-- The loop runs on the host. Per round, the device scalars the next
-  decision needs (cn, fed, fre, na, ew) land in one small buffer that is
-  read back once: one host sync per round, counted in ``PushStats.syncs``.
-  On CUDA every round is the replay of a captured graph
-  (``pprx_torch.engine.graphs``: the counterpart of the reference's jitted
-  programs); rounds update the state in place and hand the next candidate
-  list over in a static buffer, so that a graph's addresses stay fixed.
+- On CUDA the whole loop runs on the card, as the reference's
+  ``lax.while_loop`` does: one conditional CUDA graph whose branches are
+  the captured rounds, steered by the control kernel K4 on a small carry
+  (``pprx_torch.engine.graphs``, ``pprx_torch.engine.loop``), launched
+  once and read once (``PushStats.syncs`` is 1). On the CPU a host loop
+  runs K4's plain steps and reads the round's device scalars (cn, fed,
+  fre, na, ew) from one small buffer each round. Rounds update the state
+  in place and hand the next candidate list over in a static buffer, so
+  that a graph's addresses stay fixed.
 - ``jnp.nonzero(size=, fill_value=)`` becomes ``compact``: a fixed-size
   cumsum-scatter compaction with no sync and a static shape.
 - Multi-operand ``lax.sort`` becomes ``torch.sort(stable=True)`` plus
@@ -35,10 +37,11 @@ How the port differs:
   ``p``, the ``moving`` rows, its counts) is one pass over the state, and
   so is a rescan's activity test (``pprx_torch.engine.rowpass``: Hopper
   kernels on CUDA tensors, where XLA fused the same ops on the TPU).
-- A scan round's next-frontier stats are a graph of their own
-  (``_frontier_stats``), run after the scan's counts are read and only for
-  a light scan, as the reference's ``lax.cond`` skips them: a second read
-  in light scan rounds (``PushStats.stats_reads``). The round schedule is
+- A scan round's next-frontier stats are a branch of their own
+  (``_frontier_stats``), run after the scan's counts are known and only for
+  a light scan that another round follows, as the reference's ``lax.cond``
+  skips them for a heavy one (``PushStats.stats_reads`` counts the runs;
+  the host loop reads the counts again after each). The round schedule is
   the reference's.
 - Reverse scan rounds hand the receiver's 1/d_out to the segment sum as its
   per-row scale (the delivery row is the receiver), where the reference
@@ -54,7 +57,9 @@ import dataclasses
 import torch
 
 from pprx_torch.config import PprConfig
+from pprx_torch.engine import loop
 from pprx_torch.engine.graphs import RoundGraphs, copy_into_
+from pprx_torch.engine.loop import Table
 from pprx_torch.engine.rowpass import frontier_rows, scan_pass_
 from pprx_torch.engine.segsum import row_offsets, segsum_gather_add_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats
@@ -70,7 +75,7 @@ STATS_GUARD = 2
 # kept for parity, to be re-swept on the H100).
 SORT_DELIVER_MIN = 131_072
 
-_BIG = 2**31 // 2 - 1  # the reference's "skip" sentinel (int32 max // 2)
+_BIG = loop.BIG  # the reference's "skip" sentinel (int32 max // 2)
 
 
 @dataclasses.dataclass
@@ -475,15 +480,32 @@ def push_to_convergence_wl2(
     state's tensors in place and return it.
 
     ``graphs``: the caller's round buffers and, on CUDA, its captured
-    rounds, bound to ``state`` and ``kg`` (a driver keeps one for its
-    life); ``None`` makes a new one, which on CUDA captures every round
-    kind this call meets.
+    rounds and loops, bound to ``state`` and ``kg`` (a driver keeps one for
+    its life); ``None`` makes a new one, which on CUDA captures every branch
+    of the loop.
     """
     tiers = tuple(tiers)
     g = round_graphs_for(state, kg, tiers, cand0.device, graphs)
     g.seed(cand0, c0n)
-    g.run((*graph_key(state, cfg, bf16d), "first"), lambda: first_count(kg, g))
-    return state, converge_wl2(state, kg, cfg, c0ok, tiers, g, bf16d)
+    first = ((*graph_key(state, cfg, bf16d), "first"), lambda: first_count(kg, g))
+    return state, converge_wl2(state, kg, cfg, c0ok, tiers, g, bf16d, prologue=first)
+
+
+def loop_table(tiers: tuple[tuple[int, int, int], ...], n: int) -> Table:
+    """The loop's table of a tier ladder: each tier's emitted list width
+    (its next tier's; ``n + 1`` where the tier reseeds by a rescan) and the
+    stats-skip threshold."""
+    _, e_top, g_top = tiers[-1]
+    emit = tuple(_emit(tiers, i, n)[1] for i in range(len(tiers)))
+    return Table(tiers=tuple(tiers), emit=emit, heavy_ew=STATS_GUARD * (e_top + g_top))
+
+
+def _emit(tiers, i: int, n: int) -> tuple[bool, int]:
+    """Tier ``i``'s (rescan, emitted list width): big tiers reseed by
+    rescan (cheaper than slot-dedup there) and emit a list of ``n + 1``."""
+    w_i, e_i, g_i = tiers[i]
+    rescan = (e_i + g_i) > max(n // 2, 4096)
+    return rescan, n + 1 if rescan else tiers[min(i + 1, len(tiers) - 1)][0]
 
 
 def converge_wl2(
@@ -494,67 +516,35 @@ def converge_wl2(
     tiers: tuple[tuple[int, int, int], ...],
     g: RoundGraphs,
     bf16d: bool = False,
+    prologue: tuple | None = None,
 ) -> PushStats:
     """The convergence loop of ``push_to_convergence_wl2`` from a candidate
-    list and its exact counts already in ``g`` (``cand``, ``counts[:3]``;
-    the slide step's prologue writes them)."""
+    list and its exact counts in ``g`` (``cand``, ``counts[:3]``), which
+    ``prologue`` (a graph key and its step: a slide's, or a seed's first
+    count) writes where it is given, as the loop's first step.
+
+    The round schedule is the reference's (``pprx_torch.engine.loop``'s
+    steps):
+    on CUDA the whole loop is one launch of a conditional graph and one
+    read (``RoundGraphs.loop``), on the CPU a host loop of the same
+    branches with a read of the counts a round (and a second after a light
+    scan's stats), each counted in ``PushStats.syncs``."""
     n = kg.n
     tiers = tuple(tiers)
-    w_top, e_top, g_top = tiers[-1]
-    scan_w = n + 1
-    heavy_ew = STATS_GUARD * (e_top + g_top)
-    stats = PushStats()
     key = graph_key(state, cfg, bf16d)
 
-    cn, fed, fre = g.read()[:3]
-    stats.syncs += 1
-    ok = bool(c0ok)
-    # zero candidates in a valid list means zero active rows (candidates
-    # are a frontier superset); otherwise force one scan round
-    na = int(cn > 0) if ok else 1
+    def tier(i: int):
+        rescan, emit_w = _emit(tiers, i, n)
+        return ((*key, "compact", tiers[i], emit_w, rescan),
+                lambda: _compact_step(state, kg, cfg, g, tiers[i], emit_w, rescan))
 
-    while na > 0 and stats.rounds < cfg.max_rounds:
-        use_wl = ok and cn <= w_top and fed <= e_top and fre <= g_top
-        if use_wl:
-            i = sum(
-                not (cn <= w_i and fed <= e_i and fre <= g_i)
-                for (w_i, e_i, g_i) in tiers[:-1]
-            )
-            w_i, e_i, g_i = tiers[i]
-            # big tiers reseed by rescan (cheaper than slot-dedup there)
-            rescan = (e_i + g_i) > max(n // 2, 4096)
-            emit_w = scan_w if rescan else tiers[min(i + 1, len(tiers) - 1)][0]
-            g.run((*key, "compact", tiers[i], emit_w, rescan),
-                  lambda: _compact_step(state, kg, cfg, g, tiers[i], emit_w, rescan))
-            # the round's one host sync: everything the next decision reads
-            cn2, fed2, fre2, na, ew = g.read()
-            stats.syncs += 1
-            ok2 = cn2 <= emit_w
-        else:
-            g.run((*key, "scan"), lambda: _scan_step(state, kg, cfg, g, bf16d))
-            na, ew = g.read()[3:]
-            stats.syncs += 1
-            # the stats only where a round follows and may use them
-            heavy = ew > heavy_ew
-            if not heavy and na > 0 and stats.rounds + 1 < cfg.max_rounds:
-                g.run((*key, "stats"), lambda: _stats_step(state, kg, cfg, g))
-                cn2, fed2, fre2 = g.read()[:3]
-                stats.syncs += 1
-                stats.stats_reads += 1
-            else:
-                cn2 = fed2 = fre2 = 0
-            ok2 = True
-            if heavy:
-                # stats-skip: the successor round is another scan
-                cn2 = fed2 = fre2 = _BIG
-                ok2 = False
-        stats.rounds += 1
-        stats.pushes += na
-        stats.edge_pushes += ew
-        stats.wl_rounds += int(use_wl)
-        if not use_wl:
-            stats.scans_cand += int(not ok)
-            stats.scans_fed += int(fed > e_top)
-            stats.scans_liv += int(fre > g_top)
-        cn, fed, fre, ok = cn2, fed2, fre2, ok2
-    return stats
+    branches = [tier(i) for i in range(len(tiers))] + [
+        ((*key, "scan"), lambda: _scan_step(state, kg, cfg, g, bf16d)),
+        ((*key, "stats"), lambda: _stats_step(state, kg, cfg, g)),
+    ]
+    values, reads = g.loop(prologue, branches, loop_table(tiers, n), c0ok, cfg.max_rounds)
+    return PushStats(
+        rounds=values[loop.ROUNDS], pushes=values[loop.PUSHES],
+        edge_pushes=values[loop.EDGE_PUSHES], wl_rounds=values[loop.WL_ROUNDS],
+        scans_cand=values[loop.SCANS_CAND], scans_fed=values[loop.SCANS_FED],
+        scans_liv=values[loop.SCANS_LIV], syncs=reads, stats_reads=values[loop.STATS_READS])

@@ -4,7 +4,10 @@ Per slide: expiries are killed in place in the CSR snapshot, fresh edges
 join a mini-CSR re-sorted each slide, and the convergence loop runs compact
 rounds with exact tier selection (``pprx_torch.engine.wl2``). The new batch
 goes to the device in one int32 transfer; the expiring batch, the endpoint
-sorts and the candidate seeds are derived on the device.
+sorts and the candidate seeds are derived on the device. On CUDA a slide is
+one launch of its loop's graph, the prologue inside, and one read of the
+loop's statistics; a slide that rebuilds the kill graph first replays the
+rebuild's graph, a second launch.
 
 The driver's state and kill graph are its buffers for its whole life: the
 slide step, the rebuild and ``from_arrays`` write into their tensors, never
@@ -79,8 +82,11 @@ def wl2_slide_step(
     degrees, the ring, the kill marks, the fresh ring and its views) and
     returns the same objects; ``graphs`` as for ``push_to_convergence_wl2``,
     bound to ``pack`` too. On CUDA the prologue (everything before the first
-    round) is one captured graph that reads ``pack`` where it lies: a driver
-    uploads each batch into the same tensor.
+    round) is one captured graph that reads ``pack`` where it lies (a driver
+    uploads each batch into the same tensor), and the loop's graph runs it
+    first: a slide is one graph launch and one read of the loop's
+    statistics. ``graphs.split_prologue`` (a measurement) replays the
+    prologue apart, before the loop's launch.
     """
     b = (pack.shape[0] - 2) // 2
     fring = kg.fr_gat.shape[0]
@@ -91,9 +97,12 @@ def wl2_slide_step(
     tiers = tuple(tiers)
     g = round_graphs_for(state, kg, tiers, pack.device, graphs)
     g.bind(state, kg, pack)
-    g.run((*graph_key(state, cfg, bf16d), "slide", b),
-          lambda: _slide_prologue(state, kg, pack, cfg, g))
-    return state, kg, converge_wl2(state, kg, cfg, True, tiers, g, bf16d)
+    prologue = ((*graph_key(state, cfg, bf16d), "slide", b),
+                lambda: _slide_prologue(state, kg, pack, cfg, g))
+    if g.split_prologue:
+        g.run(*prologue)
+        prologue = None
+    return state, kg, converge_wl2(state, kg, cfg, True, tiers, g, bf16d, prologue=prologue)
 
 
 def _slide_prologue(state: PprState, kg: KillGraph, pack: torch.Tensor, cfg: PprConfig,

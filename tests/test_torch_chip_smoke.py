@@ -84,6 +84,32 @@ def test_exact_contract_holds_bf16_mass_to_a_witness():
         chip_smoke.exact_contract(drv, None, 10, 4, cfg.eps * w)
 
 
+def test_prologue_split_and_round_logs_on_the_cpu(monkeypatch):
+    """Phase 4's prologue line on the CPU: each slide's prologue runs apart
+    before its loop (``split_prologue``, put back after), and the same
+    slides' loops, logged, replay through the plain steps; a log whose
+    branch the counts do not give is refused."""
+    from pprx_torch.engine import graphs
+
+    w, b = 4000, 100
+    src, dst, n = synthetic_powerlaw_stream(500, w + 6 * b, seed=2)
+    drv = FastStreamDriver(src, dst, n, list(range(8)), PprConfig(alpha=0.15, eps=1e-6),
+                           StreamConfig(window=w, slide=b), rebuild_every=4, device="cpu")
+    drv.seed()
+    monkeypatch.setattr(graphs, "LOG_SINK", [])
+    res = chip_smoke.prologue_split(drv, 2)
+    assert res["slides"] == 2 and 0 < res["prologue_share"] < 1
+    assert not drv.round_graphs.split_prologue
+    assert chip_smoke.check_round_logs()["loops"] == 2 and graphs.LOG_SINK == []
+    list(drv.run(1))
+    rec = graphs.LOG_SINK[0]
+    assert rec["rows"] and chip_smoke.check_round_logs()["rounds"] == len(rec["rows"])
+    rec["rows"][0][0] = len(rec["table"].tiers) + 5  # no branch decide can give
+    graphs.LOG_SINK.append(rec)
+    with pytest.raises(AssertionError, match="differ from the plain steps"):
+        chip_smoke.check_round_logs()
+
+
 def test_serve_split_on_the_cpu(tmp_path):
     graph = str(tmp_path / "g.npz")
     save_packed(graph, *synthetic_powerlaw_stream(500, 4000 + 9 * 200, seed=7))

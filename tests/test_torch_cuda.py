@@ -962,10 +962,12 @@ def test_kernel_launch_lands_in_the_graph():
 
 @pytest.mark.cuda
 def test_failed_capture_raises():
-    """A host sync inside a captured round (an ``int()`` of a device count)
-    makes the capture fail, and the failure raises: there is no fall-back
-    to eager launches. In a process of its own, so that a failed capture
-    leaves nothing behind for the other tests."""
+    """A host sync inside a captured step (an ``int()`` of a device count
+    in a seed's first count, the loop's prologue) makes its warm-up capture
+    fail, and the failure raises: nothing ran eagerly, nothing was
+    captured, and there is no fall-back to eager launches or to the host
+    loop. In a process of its own, so that a failed capture leaves nothing
+    behind for the other tests."""
     import subprocess
     import sys
     import textwrap
@@ -999,16 +1001,17 @@ def test_failed_capture_raises():
     proc = subprocess.run([sys.executable, "-c", prog], capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.startswith("RAISED 1 0"), proc.stdout + proc.stderr[-3000:]
+    assert proc.stdout.startswith("RAISED 0 0"), proc.stdout + proc.stderr[-3000:]
 
 
 @pytest.mark.cuda
 def test_driver_rounds_replay_once_captured():
-    """A driver's slides after its rounds are captured run by replay alone:
-    the same slides again from a restored snapshot capture nothing new and
-    run no round eagerly, replay at least one graph a round, and land
-    where the first pass landed (within the atomics' last bits, settled);
-    the buffers keep their addresses throughout."""
+    """A driver's slides after its loops are built run by launches alone:
+    the same slides again from a restored snapshot capture nothing new, run
+    no step eagerly, launch one loop graph a slide with one read each, run
+    a branch a round, and land where the first pass landed (within the
+    atomics' last bits, settled); the buffers keep their addresses
+    throughout."""
     from pprx_torch.bench import headline
     from pprx_torch.engine.graphs import tensor_ptrs
 
@@ -1020,11 +1023,14 @@ def test_driver_rounds_replay_once_captured():
     end = headline.snapshot(drv)
     g0 = drv.round_graphs.summary()
     headline.restore(drv, snap)
-    again = [st.rounds for st in drv.run(2)]
+    stats = list(drv.run(2))
+    again = [st.rounds for st in stats]
     g1 = drv.round_graphs.summary()
     assert tensor_ptrs(drv.state) + tensor_ptrs(drv.graph) == ptrs
     assert (g1["captures"], g1["eager_rounds"]) == (g0["captures"], g0["eager_rounds"])
-    assert g1["replays"] - g0["replays"] >= sum(again) + 2
+    assert g1["loop_launches"] - g0["loop_launches"] == 2
+    assert [st.syncs for st in stats] == [1, 1]
+    assert g1["branch_execs"] - g0["branch_execs"] >= sum(again)
     assert abs(sum(again) - sum(first)) <= 1
     assert settled_distance(drv.state, end[0], 0.15) <= 1e-5
 
@@ -1108,11 +1114,11 @@ def test_slide_prologue_replay_matches_eager(mode, part):
 @pytest.mark.cuda
 def test_driver_on_an_explicit_index_replays_its_rounds(monkeypatch):
     """A driver built on an explicit device index (the last card) while
-    the current device is card 0 captures on its own card's stream: two
-    slides run by replay from a snapshot land where the same two slides
-    land with every step run eagerly (rounds within 1, settled within
-    1e-5), and the replays moved the state. A capture recorded on another
-    card's stream would replay an empty graph and leave the state alone."""
+    the current device is card 0 captures and launches on its own card's
+    stream: two slides run by loop graphs from a snapshot land where the
+    same two slides land under the host loop with every step run eagerly
+    (rounds within 1, settled within 1e-5), and the loops moved the state.
+    A capture recorded on another card's stream would leave it alone."""
     from pprx_torch.bench import headline
     from pprx_torch.engine.graphs import RoundGraphs
 
@@ -1126,14 +1132,102 @@ def test_driver_on_an_explicit_index_replays_its_rounds(monkeypatch):
         replayed = [st.rounds for st in drv.run(2)]
         g1 = drv.round_graphs.summary()
         end = headline.snapshot(drv)
-        assert g1["replays"] - g0["replays"] >= sum(replayed)
+        assert g1["loop_launches"] - g0["loop_launches"] == len(replayed)
+        assert g1["branch_execs"] - g0["branch_execs"] >= sum(replayed)
         assert settled_distance(end[0], snap[0], 0.15) > 1e-4
         headline.restore(drv, snap)
         monkeypatch.setattr(RoundGraphs, "run", lambda g, key, fn: fn())
+        monkeypatch.setattr(RoundGraphs, "loop", RoundGraphs.host_loop)
         eager = [st.rounds for st in drv.run(2)]
         torch.cuda.synchronize(dev)
     assert abs(sum(eager) - sum(replayed)) <= 1
     assert settled_distance(drv.state, end[0], 0.15) <= 1e-5
+
+
+# ---- the loop on the card: K4 and the loop graphs (pprx_torch.engine.loop)
+
+@pytest.mark.cuda
+def test_k4_matches_its_plain_steps_on_the_table():
+    """K4's four kernels against their plain steps on every case of the
+    smoke script's table of carries: the whole carry equal (decisions,
+    tallies, log), so each branch choice; one launch counted a case."""
+    import chip_smoke
+    from pprx_torch.engine import loop
+
+    dev = _cuda()
+    before = dict(loop.LAUNCHES)
+    for case in chip_smoke.K4_CASES:
+        name, step, _, _ = case
+        carry, counts = chip_smoke.k4_case(case)
+        want = carry.clone()
+        loop.step_(step, want, counts, chip_smoke.K4_TABLE)
+        got = carry.to(dev)
+        loop.step_(step, got, counts.to(dev), chip_smoke.K4_TABLE)
+        assert torch.equal(got.cpu(), want), name
+    assert loop.launches(since=before) == len(chip_smoke.K4_CASES)
+
+
+@pytest.mark.cuda
+def test_loop_graph_runs_its_branches_as_k4_picks_them():
+    """A loop graph of one-kernel branches (the smoke script's
+    ``loop_overhead``): from an invalid list one scan, its stats, then tier
+    rounds up to the cap, each counted in the carry, with one read."""
+    import chip_smoke
+
+    res = chip_smoke.loop_overhead(_cuda(), rounds=33)
+    assert res["loop_round_ms"] > 0 and res["graph_kernel_floor_ms"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, REVERSE])
+def test_device_loop_slides_seed_and_refine_hold_the_contract(monkeypatch, mode):
+    """A seed, slides, a refine and serve's budgeted refine (6 rounds), each
+    one loop graph on the card: one read a loop (``syncs`` 1), one loop
+    launch a slide and the rebuild's graph beside it where one is due, each
+    loop's round log replayed through the plain ``decide`` and
+    ``after_scan``, and the state held to exact PPR (forward: L1 within
+    eps * W a source; reverse: within 2 eps of the columns of M)."""
+    from pprx_torch.engine import graphs, loop
+
+    dev = _cuda()
+    sink = []
+    monkeypatch.setattr(graphs, "LOG_SINK", sink)
+    w, b = 20_000, 200
+    src, dst, n = synthetic_powerlaw_stream(2000, w + 12 * b, seed=2)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
+    queries = list(range(16))
+    drv = FastStreamDriver(src, dst, n, queries, cfg, StreamConfig(window=w, slide=b),
+                           mode=mode, rebuild_every=4, device=dev)
+    g = drv.round_graphs
+    stats = [drv.seed()]
+    rebuilds = 0
+    for _ in range(10):
+        s0 = g.summary()
+        rebuild = drv.fcnt + b > drv.fring
+        stats += list(drv.run(1))
+        s1 = g.summary()
+        rebuilds += rebuild
+        assert s1["loop_launches"] - s0["loop_launches"] == 1
+        assert (s1["replays"] + s1["eager_rounds"]) - (s0["replays"] + s0["eager_rounds"]) == (
+            rebuild)
+    assert rebuilds >= 2
+    stats.append(drv.refine(1e-7))
+    stats.append(drv.refine(5e-8, rounds=6))
+    assert stats[-1].rounds <= 6 and all(st.syncs == 1 for st in stats)
+    assert len(sink) == len(stats)
+    for rec, st in zip(sink, stats):
+        rows = rec["rows"]
+        assert len(rows) == st.rounds and sum(r[7] for r in rows) == st.stats_reads
+        assert loop.replay_log(rows, rec["table"], rec["max_rounds"]) == [
+            (r[0], r[7]) for r in rows]
+    p = drv.state.p[:n].cpu().double().numpy()
+    if mode == REVERSE:
+        cols = exact_ppr_columns(drv.hsrc, drv.hdst, n, queries, cfg.alpha, device=dev)
+        assert np.abs(p - cols.T).max() <= 2 * cfg.eps
+    else:
+        exact = exact_ppr(drv.hsrc, drv.hdst, n, queries, cfg.alpha, tol=1e-11, device=dev)
+        for j, pi in enumerate(exact):
+            assert np.abs(p[:, j] - pi).sum() <= cfg.eps * w
 
 
 # ---- the row passes (pprx_torch.engine.rowpass): K2 and K3 on the card

@@ -1,0 +1,217 @@
+"""The wl2 convergence loop's carry and control steps (pprx_torch.engine.loop,
+K4's plain version) on the CPU.
+
+Each case of the smoke script's table (``chip_smoke.K4_CASES``, the table
+the card holds K4 to) is held to values written by hand from the
+reference's rules at ``pprx/engine/wl2.py:574-684`` (the prime, ``use_wl``,
+the tier index as a count of misses, the emitted list's validity, the
+stats-skip, the ``scans_*`` tallies, the loop's condition) and the port's
+stats-skip (no stats where no round follows). Then the host loop on those
+steps against the JAX package's driver on a stream, f64, both modes: the
+same rounds and tallies, p/r at 1e-12, and its round log replays through
+``decide``.
+"""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from pprx.config import PprConfig, StreamConfig
+from pprx.graph.fast_stream import FastStreamDriver as JaxDriver
+from pprx.graph.io import synthetic_powerlaw_stream
+from pprx_torch.engine import graphs, loop
+from pprx_torch.engine.state import FORWARD, REVERSE
+from pprx_torch.graph.fast_stream import FastStreamDriver
+
+torch.set_num_threads(1)
+
+L = loop
+BIG = loop.BIG
+PRIME_KEEPS = (L.MAX_ROUNDS, L.C0OK)
+
+# what each step leaves, written from the reference's rules: prime clears
+# the head but for MAX_ROUNDS and C0OK and sets these slots; the other steps
+# change these slots (and log rows: {round: {column: value}}) alone
+EXPECTED = {
+    "prime_invalid_list": {L.CN: 5, L.FED: 10, L.FRE: 1, L.OK: 0, L.NA: 1, L.GO: 1},
+    "prime_empty_list": {L.OK: 1, L.NA: 0, L.GO: 0},
+    "prime_valid_list": {L.CN: 3, L.FED: 9, L.FRE: 2, L.OK: 1, L.NA: 1, L.GO: 1},
+    "prime_no_rounds": {L.CN: 3, L.FED: 9, L.FRE: 2, L.OK: 0, L.NA: 1, L.GO: 0},
+    "decide_invalid_list": {L.BRANCH: 3, "log": {2: [3, 0, 1, 1, 1, 0, 0, 0]}},
+    "decide_tier0_border": {L.BRANCH: 0, "log": {2: [0, 1, 8, 32, 4, 0, 0, 0]}},
+    "decide_cn_past_tier0": {L.BRANCH: 1, "log": {2: [1, 1, 9, 32, 4, 0, 0, 0]}},
+    "decide_fed_past_tier0": {L.BRANCH: 1, "log": {2: [1, 1, 8, 33, 4, 0, 0, 0]}},
+    "decide_fre_past_tier0": {L.BRANCH: 1, "log": {2: [1, 1, 8, 32, 5, 0, 0, 0]}},
+    "decide_tier1_border": {L.BRANCH: 1, "log": {2: [1, 1, 64, 512, 16, 0, 0, 0]}},
+    "decide_cn_past_tier1": {L.BRANCH: 2, "log": {2: [2, 1, 65, 512, 16, 0, 0, 0]}},
+    "decide_fed_skips_tier1": {L.BRANCH: 2, "log": {2: [2, 1, 9, 600, 0, 0, 0, 0]}},
+    "decide_top_border": {L.BRANCH: 2, "log": {2: [2, 1, 256, 2048, 64, 0, 0, 0]}},
+    "decide_cn_past_top": {L.BRANCH: 3, "log": {2: [3, 1, 257, 0, 0, 0, 0, 0]}},
+    "decide_fed_past_top": {L.BRANCH: 3, "log": {2: [3, 1, 0, 2049, 0, 0, 0, 0]}},
+    "decide_fre_past_top": {L.BRANCH: 3, "log": {2: [3, 1, 0, 0, 65, 0, 0, 0]}},
+    "decide_skip_sentinel": {L.BRANCH: 3, "log": {2: [3, 1, BIG, BIG, BIG, 0, 0, 0]}},
+    "decide_past_the_log": {L.BRANCH: 0},  # round 1024 is not logged
+    "after_scan_light": {L.HEAVY: 0, L.STATS: 1},
+    "after_scan_heavy": {L.HEAVY: 1, L.STATS: 0},
+    "after_scan_no_active": {L.HEAVY: 0, L.STATS: 0},
+    "after_scan_last_round": {L.HEAVY: 0, L.STATS: 0},
+    "after_scan_next_to_last": {L.HEAVY: 0, L.STATS: 1},
+    "after_scan_after_a_tier": {L.STATS: 0},
+    "tally_tier_fits_emit": {
+        L.CN: 64, L.FED: 100, L.FRE: 3, L.OK: 1, L.NA: 12, L.EW: 400, L.ROUNDS: 3,
+        L.PUSHES: 112, L.EDGE_PUSHES: 1400, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 1,
+        "log": {2: {5: 12, 6: 400, 7: 0}}},
+    "tally_tier_past_emit": {
+        L.CN: 65, L.FED: 100, L.FRE: 3, L.OK: 0, L.NA: 12, L.EW: 400, L.ROUNDS: 3,
+        L.PUSHES: 112, L.EDGE_PUSHES: 1400, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 1,
+        "log": {2: {5: 12, 6: 400, 7: 0}}},
+    "tally_top_tier": {
+        L.CN: 300, L.FED: 100, L.FRE: 3, L.OK: 0, L.NA: 12, L.EW: 400, L.ROUNDS: 3,
+        L.PUSHES: 112, L.EDGE_PUSHES: 1400, L.WL_ROUNDS: 2, L.EXECS + 2: 1, L.GO: 1,
+        "log": {2: {5: 12, 6: 400, 7: 0}}},
+    "tally_light_scan_stats": {
+        L.CN: 40, L.FED: 50, L.FRE: 6, L.OK: 1, L.NA: 9, L.EW: 100, L.ROUNDS: 3,
+        L.PUSHES: 109, L.EDGE_PUSHES: 1100, L.STATS_READS: 1, L.SCANS_CAND: 2,
+        L.SCANS_FED: 1, L.SCANS_LIV: 1, L.EXECS + 3: 2, L.EXECS + 4: 1, L.GO: 1,
+        "log": {2: {5: 9, 6: 100, 7: 1}}},
+    "tally_light_scan_no_stats": {
+        L.CN: 0, L.FED: 0, L.FRE: 0, L.OK: 1, L.NA: 0, L.EW: 100, L.ROUNDS: 3,
+        L.EDGE_PUSHES: 1100, L.EXECS + 3: 2, L.GO: 0, "log": {2: {5: 0, 6: 100, 7: 0}}},
+    "tally_heavy_scan": {
+        L.CN: BIG, L.FED: BIG, L.FRE: BIG, L.OK: 0, L.NA: 9, L.EW: 5000, L.ROUNDS: 3,
+        L.PUSHES: 109, L.EDGE_PUSHES: 6000, L.SCANS_CAND: 2, L.SCANS_FED: 1,
+        L.SCANS_LIV: 1, L.EXECS + 3: 2, L.GO: 1, "log": {2: {5: 9, 6: 5000, 7: 0}}},
+    "tally_reaches_max_rounds": {
+        L.CN: 1, L.FED: 1, L.FRE: 1, L.OK: 1, L.NA: 9, L.EW: 10, L.ROUNDS: 6,
+        L.PUSHES: 109, L.EDGE_PUSHES: 1010, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 0,
+        "log": {5: {5: 9, 6: 10, 7: 0}}},
+    "tally_goes_on": {
+        L.CN: 1, L.FED: 1, L.FRE: 1, L.OK: 1, L.NA: 9, L.EW: 10, L.ROUNDS: 5,
+        L.PUSHES: 109, L.EDGE_PUSHES: 1010, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 1,
+        "log": {4: {5: 9, 6: 10, 7: 0}}},
+    "tally_no_active": {
+        L.CN: 1, L.FED: 1, L.FRE: 1, L.OK: 1, L.NA: 0, L.EW: 0, L.ROUNDS: 3,
+        L.WL_ROUNDS: 2, L.EXECS + 1: 1, L.GO: 0, "log": {2: {5: 0, 6: 0, 7: 0}}},
+}
+
+CASES = {case[0]: case for case in chip_smoke.K4_CASES}
+
+
+def test_the_table_covers_every_case():
+    assert set(EXPECTED) == set(CASES)
+    assert chip_smoke.K4_TABLE.emit == (64, 256, 256)  # no tier reseeds by rescan
+    assert chip_smoke.K4_TABLE.heavy_ew == 4224
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_step_on_the_table(name):
+    """Each step leaves the carry as the reference's rules say, and returns
+    the decision it wrote."""
+    _, step, _, counts = CASES[name]
+    carry, counts_t = chip_smoke.k4_case(CASES[name])
+    want = carry.clone()
+    if step == "prime":
+        want[:L.HEAD] = 0
+        for slot in PRIME_KEEPS:
+            want[slot] = carry[slot]
+    exp = dict(EXPECTED[name])
+    for rnd, row in exp.pop("log", {}).items():
+        cols = row.items() if isinstance(row, dict) else enumerate(row)
+        for col, v in cols:
+            want[L.HEAD + rnd * L.LOG_W + col] = v
+    for slot, v in exp.items():
+        want[slot] = v
+    # the plain steps take the counts as a tensor or as the host's read
+    for given in (counts_t, list(counts)):
+        got = carry.clone()
+        out = loop.step_(step, got, given, chip_smoke.K4_TABLE)
+        assert torch.equal(got, want), (got != want).nonzero().flatten().tolist()
+        decision = {"prime": L.GO, "decide": L.BRANCH, "after_scan": L.STATS,
+                    "tally": L.GO}[step]
+        assert int(out) == int(want[decision])
+
+
+def test_slots_match_the_kernel_source():
+    """``csrc/loop.cu``'s enums and constants name the same slots as
+    ``loop.py``: K4 and the plain steps read one layout."""
+    src = (Path(loop.__file__).resolve().parent.parent / "csrc" / "loop.cu").read_text()
+    enums = dict((k, int(v)) for k, v in re.findall(r"\bk(\w+) = (\d+)", src))
+    pairs = {"Cn": L.CN, "Fed": L.FED, "Fre": L.FRE, "Ok": L.OK, "Na": L.NA, "Ew": L.EW,
+             "Rounds": L.ROUNDS, "MaxRounds": L.MAX_ROUNDS, "C0ok": L.C0OK,
+             "Pushes": L.PUSHES, "EdgePushes": L.EDGE_PUSHES, "WlRounds": L.WL_ROUNDS,
+             "ScansCand": L.SCANS_CAND, "ScansFed": L.SCANS_FED, "ScansLiv": L.SCANS_LIV,
+             "StatsReads": L.STATS_READS, "Branch": L.BRANCH, "Heavy": L.HEAVY,
+             "Stats": L.STATS, "Go": L.GO, "Execs": L.EXECS, "Head": L.HEAD,
+             "Tiers": L.T_TIERS, "HeavyEw": L.T_HEAVY, "W": L.T_W}
+    assert {k: enums[k] for k in pairs} == pairs
+    consts = dict(re.findall(r"constexpr int k(\w+) = (\d+);", src))
+    assert {k: int(consts[k]) for k in ("MaxTiers", "LogW", "LogCap")} == {
+        "MaxTiers": L.MAX_TIERS, "LogW": L.LOG_W, "LogCap": L.LOG_CAP}
+    assert "(1LL << 31) / 2 - 1" in src and BIG == (1 << 31) // 2 - 1
+    assert L.EXECS + L.MAX_BRANCHES <= L.HEAD
+    assert (L.T_E, L.T_G, L.T_EMIT, L.TAB) == tuple(
+        L.T_W + i * L.MAX_TIERS for i in (1, 2, 3, 4))
+
+
+def test_table_refuses_a_ladder_it_cannot_hold():
+    with pytest.raises(ValueError, match="tiers"):
+        loop.Table(tiers=((1, 1, 1),) * 9, emit=(1,) * 9, heavy_ew=1)
+    with pytest.raises(ValueError, match="tiers"):
+        loop.Table(tiers=((1, 1, 1),), emit=(), heavy_ew=1)
+    with pytest.raises(ValueError, match="carry"):
+        loop.step_("decide", torch.zeros(8, dtype=torch.int64), [0] * 5, chip_smoke.K4_TABLE)
+
+
+CFG = PprConfig(alpha=0.2, eps=1e-8, max_rounds=10_000)
+SCFG = StreamConfig(window=250, slide=25)
+QUERIES = [0, 6, 17]
+N = 35
+TALLIES = ("rounds", "wl_rounds", "scans_cand", "scans_fed", "scans_liv")
+
+
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+def test_host_loop_matches_jax_and_its_log_replays(monkeypatch, mode):
+    """The port's host loop on the plain steps against the JAX driver: a
+    seed, 10 slides (three rebuilds), a refine and a refine cut at 6
+    rounds, f64; every loop's rounds, wl rounds and scans by reason equal,
+    p/r at 1e-12 at the end; each loop's log holds its rounds, its branches
+    count its compact rounds, and it replays through the plain ``decide``
+    and ``after_scan``."""
+    src, dst, _ = synthetic_powerlaw_stream(N, 500, seed=11)
+    kw = dict(mode=mode, rebuild_every=3, e_top=64, n_tiers=3)
+    a = JaxDriver(src, dst, N, QUERIES, CFG, SCFG, dtype=jnp.float64, segsum=False, **kw)
+    b = FastStreamDriver(src, dst, N, QUERIES, CFG, SCFG, dtype=torch.float64, device="cpu",
+                         **kw)
+    sink = []
+    monkeypatch.setattr(graphs, "LOG_SINK", sink)
+    ja = [a.seed(), *a.run(10), a.refine(1e-10), a.refine(1e-11, rounds=6)]
+    tb = [b.seed(), *b.run(10), b.refine(1e-10), b.refine(1e-11, rounds=6)]
+    for sa, sb in zip(ja, tb, strict=True):
+        assert tuple(getattr(sb, k) for k in TALLIES) == tuple(
+            int(getattr(sa, k)) for k in TALLIES)
+        assert sb.syncs == sb.rounds + 1 + sb.stats_reads
+    assert tb[-1].rounds == 6
+    assert sum(st.rounds - st.wl_rounds for st in tb) > 0 and sum(st.wl_rounds for st in tb) > 0
+    np.testing.assert_allclose(b.state.p.numpy(), np.asarray(a.state.p), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(b.state.r.numpy(), np.asarray(a.state.r), rtol=0, atol=1e-12)
+    assert len(sink) == len(tb)
+    for rec, st in zip(sink, tb):
+        rows = rec["rows"]
+        assert len(rows) == st.rounds
+        assert sum(row[0] < len(b.tiers) for row in rows) == st.wl_rounds
+        assert sum(row[7] for row in rows) == st.stats_reads
+        assert loop.replay_log(rows, rec["table"], rec["max_rounds"]) == [
+            (row[0], row[7]) for row in rows]
+
+
+def test_replay_finds_a_wrong_branch():
+    """A log whose branch the counts do not give is not replayed as made."""
+    rows = [[1, 1, 8, 32, 4, 3, 40, 0]]  # tier-0 counts logged as tier 1
+    assert loop.replay_log(rows, chip_smoke.K4_TABLE, 6) == [(0, 0)]
+    assert loop.log_rows([0] * loop.ROUNDS + [1] + [0] * (loop.SIZE - loop.ROUNDS - 1)) == [
+        [0] * loop.LOG_W]

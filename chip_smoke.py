@@ -45,8 +45,10 @@ round trip. Phases, one line each:
    time, its plain step's and its bound; the CUDA driver's and runtime's
    versions; and a loop graph of fill-kernel branches timed by its
    rounds: what the WHILE, the SWITCH and K4 add to a round, and what a
-   kernel node costs inside a loop's body (``check_k4``). From
-   here on every fast-driver loop logs its rounds (``graphs.LOG_SINK``),
+   kernel node costs inside a loop's body (``check_k4``); the table's
+   ``sharded_*`` cases run under the sharded wl engine's rule
+   (``k4_table``). From
+   here on every loop graph logs its rounds (``graphs.LOG_SINK``),
    and each phase's line replays the rounds of the loops run since the
    line before through the plain ``decide`` and ``after_scan`` on the
    counts each round logged (``round_logs``): the branches must be equal;
@@ -126,6 +128,10 @@ round trip. Phases, one line each:
    CPU) and its sharded top-100 to the single-device head's; each run's
    dense rounds must each launch the scan pass once and the rescan at most
    once (``14a dense rounds``);
+   the wl engine's loops run as loop graphs on the card, K4 steering them
+   under the sharded rule: one loop graph launch and one read of the carry
+   a loop (the seed's and each slide's), no loop on the host (``graphs``),
+   and K4 launched on every wl path; the loops' round logs replay;
    14b the sharding tax: ``FastStreamDriver`` on the same stream and shapes,
    timed the same way; 14c the dense sharded engine in both modes on phase
    12's stream, held to exact PPR, launching nothing; 14e ``stream --engine
@@ -151,7 +157,8 @@ round trip. Phases, one line each:
    14a's wl engine's, the exact-PPR
    contract; 15d a sharded checkpoint of 15a's driver: save and load timed
    apart, both stepped 2 slides and held to each other as phase 10 holds
-   its pair, and to the reverse contract; 15e ``stream --engine sharded-wl
+   its pair, and to the reverse contract, the loaded engine's loops graphs
+   of its own; 15e ``stream --engine sharded-wl
    --mode rev`` and ``stream --engine sharded-wlp`` (``--mesh 1,1``) on
    phase 13's file. Each path must launch the gather entry;
 16. the hybrid engine (``HybridStreamDriver``: CSR snapshot, signed overlay,
@@ -209,6 +216,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import inspect
 import io
 import json
@@ -798,7 +806,12 @@ K4_BASE = {loop.ROUNDS: 2, loop.MAX_ROUNDS: 6, loop.C0OK: 1, loop.OK: 1, loop.CN
            loop.EDGE_PUSHES: 1000, loop.WL_ROUNDS: 1, loop.SCANS_CAND: 1,
            loop.EXECS: 1, loop.EXECS + 3: 1}
 _Z = (0, 0, 0, 0, 0)
+_Z6 = _Z + (0,)
+# the sharded wl engine's rule on the same ladder (pprx_torch.dist.wl in a
+# world of one shard): every tier emits the candidate buffer's width, n + 1
+K4_SHARDED = dataclasses.replace(K4_TABLE, emit=(1001,) * 3, sharded=True)
 # (name, step, the case's slots, counts: cn, fed, fre, n_active, edge_work)
+# under K4_TABLE; the sharded_* cases under K4_SHARDED (k4_table)
 K4_CASES = (
     # prime: an invalid list, an empty valid one, a valid one, no rounds
     ("prime_invalid_list", "prime", {loop.C0OK: 0}, (5, 10, 1, 0, 0)),
@@ -844,7 +857,32 @@ K4_CASES = (
     ("tally_reaches_max_rounds", "tally", {loop.BRANCH: 0, loop.ROUNDS: 5}, (1, 1, 1, 9, 10)),
     ("tally_goes_on", "tally", {loop.BRANCH: 0, loop.ROUNDS: 4}, (1, 1, 1, 9, 10)),
     ("tally_no_active", "tally", {loop.BRANCH: 1}, (1, 1, 1, 0, 0)),
+    # the sharded rule (K4_SHARDED; counts: cn, fed, fre, n_active,
+    # edge_work, ewr): the first round runs from any list, but at no rounds
+    ("sharded_prime_empty_list", "prime", {loop.C0OK: 1}, _Z6),
+    ("sharded_prime_valid_list", "prime", {loop.C0OK: 1}, (3, 9, 2, 0, 0, 0)),
+    ("sharded_prime_no_rounds", "prime", {loop.C0OK: 1, loop.MAX_ROUNDS: 0}, _Z6),
+    ("sharded_decide_top_border", "decide", {loop.CN: 256, loop.FED: 2048, loop.FRE: 64},
+     _Z6),
+    # the heavy test reads ewr, not the edge work; no stats where no round
+    # follows
+    ("sharded_after_scan_light_ewr", "after_scan", {loop.BRANCH: 3}, (0, 0, 0, 7, 9999, 4224)),
+    ("sharded_after_scan_heavy_ewr", "after_scan", {loop.BRANCH: 3}, (0, 0, 0, 7, 10, 4225)),
+    ("sharded_after_scan_last_round", "after_scan", {loop.BRANCH: 3, loop.ROUNDS: 5},
+     (0, 0, 0, 7, 10, 10)),
+    # a tier's list is always valid (its emit width is the buffer's); a
+    # heavy scan logs the ewr it read
+    ("sharded_tally_tier_list", "tally", {loop.BRANCH: 0}, (65, 100, 3, 12, 400, 0)),
+    ("sharded_tally_heavy_scan", "tally", {loop.BRANCH: 3, loop.HEAVY: 1, loop.FED: loop.BIG,
+                                           loop.FRE: loop.BIG, loop.OK: 0},
+     (40, 50, 6, 9, 5000, 4300)),
 )
+
+
+def k4_table(case) -> loop.Table:
+    """The table a case of ``K4_CASES`` runs under: the sharded rule's for
+    a case named ``sharded_*``."""
+    return K4_SHARDED if case[0].startswith("sharded_") else K4_TABLE
 
 
 def k4_case(case) -> tuple[torch.Tensor, torch.Tensor]:
@@ -860,7 +898,8 @@ def k4_case(case) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def check_k4(dev) -> dict:
-    """K4 against its plain steps on every case of ``K4_CASES``: the whole
+    """K4 against its plain steps on every case of ``K4_CASES``, each under
+    its table (``k4_table``: wl2's rule, or the sharded engine's): the whole
     carry equal (decisions, tallies, log), and so each branch choice; then
     each step's device time (one launch, queued behind a spinning kernel:
     the launch floor), its plain step's host time, and its bound from the
@@ -874,9 +913,9 @@ def check_k4(dev) -> dict:
         name, step, _, _ = case
         carry, counts = k4_case(case)
         want = carry.clone()
-        loop.step_(step, want, counts, K4_TABLE)
+        loop.step_(step, want, counts, k4_table(case))
         got = carry.to(dev)
-        loop.step_(step, got, counts.to(dev), K4_TABLE)
+        loop.step_(step, got, counts.to(dev), k4_table(case))
         got = got.cpu()
         if not torch.equal(got, want):
             diff = (got != want).nonzero().flatten().tolist()[:8]
@@ -1747,6 +1786,41 @@ def sharded_topk_check(drv: ShardedStreamDriver, k: int) -> dict:
             **times}
 
 
+@contextlib.contextmanager
+def no_host_loop(dev):
+    """While this holds on the card, ``RoundGraphs.host_loop`` raises: a
+    loop that ran on the host there would fail the phase."""
+    if dev.type != "cuda":
+        yield
+        return
+    host_loop = RoundGraphs.host_loop
+
+    def refused(*args, **kw):
+        raise AssertionError("a convergence loop ran on the host on the card")
+
+    RoundGraphs.host_loop = refused
+    try:
+        yield
+    finally:
+        RoundGraphs.host_loop = host_loop
+
+
+def sharded_loops(drv: ShardedStreamDriver, loops: int) -> dict | None:
+    """A 1x1 wl driver's device loop on the card after ``loops`` loops (its
+    seed's and its slides'): its ``RoundGraphs`` summary, which must show
+    one loop graph launch and one read of the carry a loop; every round
+    ran inside those graphs (``no_host_loop`` held). None elsewhere."""
+    g = drv.eng.round_graphs
+    if drv.device.type != "cuda" or g is None:
+        return None
+    res = {**g.summary(), "loops": loops}
+    if res["loop_launches"] != loops or res["reads"] != loops:
+        raise AssertionError(f"{loops} loops ran as {res['loop_launches']} loop graph launches "
+                             f"and {res['reads']} reads: {res}")
+    return {**res, "launches_per_loop": res["loop_launches"] / loops,
+            "reads_per_loop": res["reads"] / loops, "rounds_outside_graphs": 0}
+
+
 def config5_check(dev, bf16d: bool, n_check: int = 16, k: int = 100, prof: bool = False,
                   **shape) -> dict:
     """14a: ``config5_run`` (``run_config(5)``'s run: the headline shapes
@@ -1758,13 +1832,17 @@ def config5_check(dev, bf16d: bool, n_check: int = 16, k: int = 100, prof: bool 
     held to a witness: the same run through the port on the CPU, where the
     plain version sums and no kernel runs (``cpu_witness_s``: what it took);
     the loss is the reference's too (PERF.md §2). 15c runs it with
-    ``engine="wlp"``; ``round_kinds`` counts the engine's rounds by kind."""
+    ``engine="wlp"``; ``round_kinds`` counts the engine's rounds by kind.
+    The wl engine's loops run on the card as loop graphs (``graphs``:
+    ``sharded_loops``, the seed's and 8 slides' before the profile)."""
     reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    rep, drv = config5_run(device=dev, bf16d=bf16d, **shape)
+    with no_host_loop(dev):
+        rep, drv = config5_run(device=dev, bf16d=bf16d, **shape)
     res = {**rep, "bf16d": bf16d, "rounds_per_slide": rep["rounds"] / rep["steps"],
-           "wl_rounds_per_slide": rep["wl_rounds"] / rep["steps"], "peak_mem_gib": peak_gib(dev)}
+           "wl_rounds_per_slide": rep["wl_rounds"] / rep["steps"], "peak_mem_gib": peak_gib(dev),
+           "graphs": sharded_loops(drv, 4 + rep["steps"])}
     if prof:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -1919,14 +1997,17 @@ def config5_reverse_check(dev, n_check: int = 16, prof: bool = False,
     with ``prof`` one more slide under the profiler, the gather entry's
     launches scaled (the dense and compact rounds' receiver 1/d_out) and
     unscaled (the row-sum sweep) apart, peak memory, and the reverse
-    contract on ``n_check`` sampled targets (phase 8's). Returns (result,
-    driver)."""
+    contract on ``n_check`` sampled targets (phase 8's); its loops as
+    14a's (``graphs``). Returns (result, driver)."""
     reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    rep, drv = config5_run(device=dev, mode="reverse", extra_slides=REVERSE_SPARE - 1, **shape)
+    with no_host_loop(dev):
+        rep, drv = config5_run(device=dev, mode="reverse", extra_slides=REVERSE_SPARE - 1,
+                               **shape)
     res = {**rep, "rounds_per_slide": rep["rounds"] / rep["steps"],
-           "wl_rounds_per_slide": rep["wl_rounds"] / rep["steps"], "peak_mem_gib": peak_gib(dev)}
+           "wl_rounds_per_slide": rep["wl_rounds"] / rep["steps"], "peak_mem_gib": peak_gib(dev),
+           "graphs": sharded_loops(drv, 4 + rep["steps"])}
     if prof:
         res["profile"] = profile_slides(drv, 1)
     res.update(launches_by_entry=launches_by_entry(),
@@ -1946,7 +2027,7 @@ def rowsum_compare(eng, p, snap, egl, eog, eva, pack, counts) -> dict:
     state's dtype for the engine's, in f64 for the plain one). At 1x1 the
     sweep is all local."""
     b, dev = eng.bcap, p.device
-    _, _, clear, _, wdl, wsg = pack.reshape(6, b).unbind(0)
+    _, _, clear, _, wdl, wsg = pack[:6 * b].reshape(6, b).unbind(0)
     got, again = (eng.rowsum_sweep(p, snap)[0] for _ in range(2))
     p64 = p.double()
     p_ext = torch.cat([p64, torch.zeros((1, p.shape[1]), dtype=p64.dtype, device=dev)])
@@ -1998,7 +2079,8 @@ def sharded_checkpoint_check(drv: ShardedStreamDriver, tmp: str, n_check: int = 
     save and the load timed apart; both drivers step 2 slides and must agree
     to 1e-5 in ``settled_distance``, as phase 10 holds its pair (the small
     scatters use atomics on CUDA: no bit-identity here), and each holds the
-    reverse contract."""
+    reverse contract. The loaded engine's loops run on the card as loop
+    graphs of its own (``twin_graphs``)."""
     dev = drv.device
     path = os.path.join(tmp, "sharded.npz")
     t0 = time.perf_counter()
@@ -2012,9 +2094,12 @@ def sharded_checkpoint_check(drv: ShardedStreamDriver, tmp: str, n_check: int = 
     os.remove(path)
     if (twin.head, twin.step_idx, twin.eng.tiers) != (drv.head, drv.step_idx, drv.eng.tiers):
         raise AssertionError("the loaded sharded driver is not where the saved one was")
-    rounds = [[st["rounds"] for st in d.run(2)] for d in (drv, twin)]
+    with no_host_loop(dev):
+        rounds = [[st["rounds"] for st in d.run(2)] for d in (drv, twin)]
     if any(len(r) != 2 for r in rounds):
         raise AssertionError("no 2 slides left in the stream")
+    # the loaded engine binds graphs of its own: 2 loops, 2 launches
+    twin_loops = sharded_loops(twin, 2)
     sync(dev)
     diff = settled_distance(PprState(drv.p, drv.r, drv.mode), PprState(twin.p, twin.r, twin.mode),
                             drv.cfg.alpha)
@@ -2023,6 +2108,7 @@ def sharded_checkpoint_check(drv: ShardedStreamDriver, tmp: str, n_check: int = 
             f"saved and loaded sharded drivers differ after 2 slides: max |d(p + alpha r)| {diff}")
     contracts = [reverse_contract(as_fast(d), d.cfg.eps, n_check=n_check) for d in (drv, twin)]
     return {"save_s": save_s, "load_s": load_s, "file_mb": size_mb, "rounds": rounds,
+            "twin_graphs": twin_loops,
             "max_abs_settled": diff, "max_abs_dp": float((drv.p - twin.p).abs().max()),
             "max_abs_err": [c["max_abs_err"] for c in contracts],
             "bound": [c["bound"] for c in contracts]}
@@ -2466,7 +2552,8 @@ def loop_entry(step: str, k4: dict, launches: dict) -> dict:
         "name": f"loop_{step}", "route": "cuda", "source": "pprx_torch/csrc/loop.cu",
         "replaces": "pprx/engine/wl2.py:687",
         "tpu_work": "the lax.while_loop of push_to_convergence_wl2, its lax.switch over the "
-                    "tiers and its lax.cond (pprx/engine/wl2.py:617-687); no pl.pallas_call",
+                    "tiers and its lax.cond (pprx/engine/wl2.py:617-687), and of the sharded "
+                    "wl engine at 1x1 (pprx/dist/wl.py:954-1025); no pl.pallas_call",
         "launches": by_path["forward"], "launches_by_path": by_path,
         **k4[step], "library_ms": None,
         "library_call": "none: no PyTorch call sets a graph's conditions",
@@ -2642,6 +2729,9 @@ def main() -> None:
             log(f"14e {tag.replace('_', ' ')}", **res)
         sharded_by_path.update(check_launched({path: cli5[path]["launches_by_entry"]
                                                for path in SHARDED_CLI_PATHS}))
+        # the wl engine's loops at 1x1 are loop graphs: K4 steers each
+        check_launched({path: sharded_by_path[path] for path in (
+            "config5_f32", "config5_bf16", *SHARDED_CLI_PATHS)}, "loop_prime")
         torch.cuda.empty_cache()
         log("14d collectives", **collectives_check(dev, tmp))
 
@@ -2664,6 +2754,8 @@ def main() -> None:
         sharded_by_path.update(check_launched(
             {"config5_rev": rev["launches_by_entry"], "config5_wlp": wlp["launches_by_entry"],
              **{path: cli15[path]["launches_by_entry"] for path in SHARDED_CLI_PATHS_15}}))
+        check_launched({path: sharded_by_path[path] for path in (
+            "config5_rev", "cli_stream_sharded_wl_rev")}, "loop_prime")
         if min(rev["launches_unscaled"]["segsum_gather_add"],
                rev["launches_scaled"]["segsum_gather_add"]) <= 0:
             raise AssertionError(f"config5_rev: the sweep or the scaled rounds never launched "
@@ -2745,13 +2837,110 @@ def turn_record(cs, sh: dict, dev) -> dict:
     wall (``slide_wall_ms``), and the share of the wall the device spent
     outside graphs (``event_idle_share``), where no profiler is running. A
     sharded shape: ``config5_run`` (seed, 3 warm-up and ``steps`` timed slides),
-    its launches by entry and round kinds, then its spare slide under the
-    profiler with that slide's peak memory (``slide_peak_gib``)."""
+    its launches by entry and round kinds, then 2 slides as above, where
+    the host's reads are counted too (``host_reads_per_slide``: the stats
+    reductions' and the loop graphs' carry reads; ``sync_ops_per_slide``:
+    every blocking transfer, the upload's too, by torch's sync debug mode)
+    and the driver's bookkeeping before the engine's slide (grouping,
+    packing, the free stacks, a due rebuild, the upload: ``driver_host_ms``)
+    is timed apart from the engine's slide (``engine_ms``); then its spare
+    slide under the profiler with that slide's peak memory
+    (``slide_peak_gib``) and the host's time a round outside the device's
+    busy time (``host_ms_per_round``)."""
+    import warnings
+
     cuda = dev.type == "cuda"
     mods = (cs.segsum, cs.rowpass)
 
     def peak():
         return torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+
+    def event_slides(drv, k, sharded):
+        marks, patched = [], [(torch.cuda.CUDAGraph, "replay")]
+        try:
+            from pprx_torch.engine.loop import LoopGraph
+            patched.append((LoopGraph, "launch"))
+        except ImportError:  # a tree whose loop runs on the host
+            pass
+        reads, spans = [0], []
+
+        def timed(fn):
+            def call(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kw)
+                end.record()
+                marks.append((start, end))
+                return out
+            return call
+
+        def counted(fn):
+            def call(*args, **kw):
+                reads[0] += 1
+                return fn(*args, **kw)
+            return call
+
+        originals = [(cls, name, getattr(cls, name)) for cls, name in patched] if cuda else []
+        if sharded:
+            import pprx_torch.dist.sharded as sharded_mod
+            import pprx_torch.dist.wl as wl_mod
+            reads_at = [(m, "gather_stats") for m in (sharded_mod, wl_mod)
+                        if hasattr(m, "gather_stats")]
+            if cuda:
+                reads_at.append((torch.cuda.Event, "synchronize"))
+            originals += [(m, name, getattr(m, name)) for m, name in reads_at]
+            slide = drv.eng.slide_wl
+
+            def slide_wl(*args, **kw):
+                t1 = time.perf_counter()
+                out = slide(*args, **kw)
+                spans[-1].append(t1)
+                spans[-1].append(time.perf_counter())
+                return out
+
+            drv.eng.slide_wl = slide_wl
+        for cls, name, fn in originals:
+            wrap = counted if name in ("gather_stats", "synchronize") else timed
+            setattr(cls, name, wrap(fn))
+        caught = []
+        try:
+            cs.sync(dev)
+            it = drv.run(k)
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if cuda and sharded:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    while True:
+                        spans.append([time.perf_counter()])
+                        if next(it, None) is None:
+                            spans.pop()
+                            break
+                finally:
+                    if cuda:
+                        torch.cuda.set_sync_debug_mode(0)
+            cs.sync(dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for cls, name, fn in originals:
+                setattr(cls, name, fn)
+            if sharded:
+                del drv.eng.slide_wl
+        slides = len(spans)
+        out = {"slide_wall_ms": wall_ms / slides, "graph_launches": len(marks) / slides}
+        if cuda:
+            graph_ms = sum(start.elapsed_time(end) for start, end in marks)
+            out.update(graph_device_ms=graph_ms / slides,
+                       event_idle_share=1.0 - graph_ms / wall_ms)
+        if sharded:
+            out.update(host_reads_per_slide=reads[0] / slides,
+                       sync_ops_per_slide=sum("synchroniz" in str(w.message)
+                                              for w in caught) / slides,
+                       driver_host_ms=sum(s[1] - s[0] for s in spans) * 1e3 / slides,
+                       engine_ms=sum(s[2] - s[1] for s in spans) * 1e3 / slides)
+        return out
 
     if cuda:
         torch.cuda.empty_cache()
@@ -2761,16 +2950,23 @@ def turn_record(cs, sh: dict, dev) -> dict:
             m.reset_launches()
         rep, drv = config5_run(n=sh["n"], w=sh["w"], b=sh["b"], s=sh["s"], steps=sh["steps"],
                                bf16d=sh["bf16d"], mode="reverse" if sh["reverse"] else "forward",
-                               device=dev)
+                               device=dev, extra_slides=2)
         res = {"updates_per_s": rep["updates_per_sec"], "wall_s": rep["wall_s"],
                "rounds_per_slide": rep["rounds"] / rep["steps"],
                "wl_rounds_per_slide": rep["wl_rounds"] / rep["steps"], "peak_mem_gib": peak(),
                "launches_by_entry": {e: m.launches(e) for m in mods for e in m.ENTRIES},
                "round_kinds": dict(drv.eng.round_kinds)}
+        g = getattr(drv.eng, "round_graphs", None)  # a tree with the device loop
+        if g is not None:
+            res["graphs"] = g.summary()
+        res.update(event_slides(drv, 2, sharded=True))
         if cuda:
             torch.cuda.reset_peak_memory_stats()
-        res["profile"] = cs.profile_slides(drv, sh["prof_steps"])
+        res["profile"] = prof = cs.profile_slides(drv, sh["prof_steps"])
         res["slide_peak_gib"] = peak()
+        if prof["device_busy_ms"] is not None:
+            res["host_ms_per_round"] = (prof["wall_ms"] - prof["device_busy_ms"]) / sum(
+                prof["rounds"])
         return res
     n, w, b = sh["n"], sh["w"], sh["b"]
     src, dst, n = synthetic_powerlaw_stream(
@@ -2783,38 +2979,7 @@ def turn_record(cs, sh: dict, dev) -> dict:
     res = cs.run_stream(drv, sh["warmup"], sh["steps"])
     res["peak_mem_gib"] = peak()
     res["profile"] = cs.profile_slides(drv, sh["prof_steps"])
-    marks, patched = [], [(torch.cuda.CUDAGraph, "replay")]
-    try:
-        from pprx_torch.engine.loop import LoopGraph
-        patched.append((LoopGraph, "launch"))
-    except ImportError:  # a tree whose loop runs on the host
-        pass
-
-    def timed(fn):
-        def call(*args, **kw):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kw)
-            end.record()
-            marks.append((start, end))
-            return out
-        return call
-
-    originals = [(cls, name, getattr(cls, name)) for cls, name in patched]
-    for cls, name, fn in originals:
-        setattr(cls, name, timed(fn))
-    try:
-        cs.sync(dev)
-        t0 = time.perf_counter()
-        slides = len(list(drv.run(2)))
-        cs.sync(dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        for cls, name, fn in originals:
-            setattr(cls, name, fn)
-    graph_ms = sum(start.elapsed_time(end) for start, end in marks)
-    res.update(graph_device_ms=graph_ms / slides, slide_wall_ms=wall_ms / slides,
-               event_idle_share=1.0 - graph_ms / wall_ms, graph_launches=len(marks) / slides)
+    res.update(event_slides(drv, 2, sharded=False))
     saved = (drv.state.p.clone(), drv.state.r.clone())
     res["refine_ms"], res["refine_rounds"] = [], []
     for _ in range(2):
@@ -2851,7 +3016,9 @@ TURN_SUMMARY = ("updates_per_s", "rounds_per_slide", "syncs_per_slide",
                 "event_idle_share", "wall_per_round_ms",
                 "peak_mem_gib", "slide_peak_gib", "kernel_launches_per_slide",
                 "row_pass_launches_per_slide", "replays_per_round", "eager_rounds",
-                "refine_ms", "refine_rounds", "round_kinds", "launches_by_entry")
+                "refine_ms", "refine_rounds", "round_kinds", "launches_by_entry",
+                "host_reads_per_slide", "sync_ops_per_slide", "driver_host_ms", "engine_ms",
+                "host_ms_per_round", "graph_launches", "graphs")
 
 
 def turns(argv: list[str]) -> int:

@@ -1,5 +1,6 @@
-// K4: the wl2 convergence loop's control on the card (sm_90a), and the
-// CUDA graph that runs a whole loop:
+// K4: the compact-frontier convergence loops' control on the card (sm_90a),
+// the wl2 engine's and the sharded wl engine's in a world of one shard, and
+// the CUDA graph that runs a whole loop:
 //
 //   [prologue] -> prime -> WHILE { decide -> SWITCH { tier_0 | ... | tier_k-1
 //                                    | scan -> after_scan -> IF { stats } }
@@ -18,6 +19,9 @@
 //               scan, nor where no round follows);
 //   tally       the round's statistics, the next round's counts, the
 //               branch's execution count, and whether the loop goes on.
+// The table's rule field picks the sharded engine's loop: its first round
+// always runs, and its heavy test reads ewr, the counts' sixth slot, where
+// wl2's reads the edge work ew (pprx/dist/wl.py:911-917, 1023).
 // Each does what its plain step in pprx_torch/engine/loop.py does, on the
 // same slots, and sets the graph's conditions with cudaGraphSetConditional:
 // prime and tally the WHILE's, decide the SWITCH's (the branch's number),
@@ -28,10 +32,13 @@
 // No Pallas kernel is replaced. K4 is the counterpart of the reference's
 // on-device control flow, the lax.while_loop at pprx/engine/wl2.py:687
 // with its lax.switch over the tiers (:617) and lax.cond over worklist or
-// scan (:657) and over a scan's stats (:662). Its bound is the launch
-// floor: a step reads and writes a few hundred bytes; what the design
-// saves is the host's read of the counts and the next launch each round,
-// which the whole loop in one graph replaces by one launch and one read.
+// scan (:657) and over a scan's stats (:662), and of the sharded engine's
+// at pprx/dist/wl.py:1025 with its lax.switch over the tiers and the
+// dense round (:995) and lax.cond over the dense round's stats (:954). Its
+// bound is the launch floor: a step reads and writes a few hundred bytes;
+// what the design saves is the host's read of the counts and the next
+// launch each round, which the whole loop in one graph replaces by one
+// launch and one read.
 //
 // Plain C interface, loaded with ctypes (pprx_torch/engine/loop.py): every
 // entry returns a cudaError_t, 0 on success, and allocates nothing on the
@@ -61,14 +68,17 @@ enum Slot : int {
 };
 
 constexpr int kMaxTiers = 8;
-constexpr int kLogW = 8;  // branch, ok, cn, fed, fre, na, ew, stats
+constexpr int kLogW = 8;  // branch, ok, cn, fed, fre, na, the heavy count, stats
 constexpr int kLogCap = 1024;
 constexpr i64 kBig = (1LL << 31) / 2 - 1;
 
+// the counts' slot of the sharded rule's heavy test: loop.py's EWR
+constexpr int kEwr = 5;
+
 // the table of a tier ladder: loop.py's T_TIERS .. TAB
 enum Tab : int {
-  kTiers = 0, kHeavyEw = 1,
-  kW = 2, kE = kW + kMaxTiers, kG = kE + kMaxTiers, kEmit = kG + kMaxTiers,
+  kTiers = 0, kHeavyEw = 1, kRule = 2,
+  kW = 3, kE = kW + kMaxTiers, kG = kE + kMaxTiers, kEmit = kG + kMaxTiers,
   kTabLen = kEmit + kMaxTiers,
 };
 
@@ -92,7 +102,10 @@ __device__ __forceinline__ i64* log_row(i64* c, i64 rnd) {
   return rnd < kLogCap ? c + kHead + rnd * kLogW : nullptr;
 }
 
-__global__ void k4_prime(i64* c, const i64* counts, Table, Handles h) {
+// the counts' slot the heavy test reads: ew, or ewr under the sharded rule
+__device__ __forceinline__ int heavy_at(const Table& t) { return t.v[kRule] ? kEwr : 4; }
+
+__global__ void k4_prime(i64* c, const i64* counts, Table t, Handles h) {
   const i64 max_rounds = c[kMaxRounds], c0ok = c[kC0ok];
   for (int i = 0; i < kHead; ++i) c[i] = 0;
   c[kMaxRounds] = max_rounds;
@@ -101,8 +114,9 @@ __global__ void k4_prime(i64* c, const i64* counts, Table, Handles h) {
   c[kFed] = counts[1];
   c[kFre] = counts[2];
   c[kOk] = c0ok != 0;
-  // zero candidates in a valid list means zero active rows
-  c[kNa] = c[kOk] ? (c[kCn] > 0) : 1;
+  // zero candidates in a valid list means zero active rows; the sharded
+  // rule runs the first round whatever the list
+  c[kNa] = c[kOk] && !t.v[kRule] ? (c[kCn] > 0) : 1;
   c[kGo] = c[kNa] > 0 && 0 < max_rounds;
   set_cond(h, h.loop, c[kGo]);
 }
@@ -134,8 +148,8 @@ __global__ void k4_after_scan(i64* c, const i64* counts, Table t, Handles h) {
   const int k = static_cast<int>(t.v[kTiers]);
   bool stats = false;
   if (c[kBranch] == k) {
-    const i64 na = counts[3], ew = counts[4];
-    const bool heavy = ew > t.v[kHeavyEw];
+    const i64 na = counts[3];
+    const bool heavy = counts[heavy_at(t)] > t.v[kHeavyEw];
     stats = !heavy && na > 0 && c[kRounds] + 1 < c[kMaxRounds];
     c[kHeavy] = heavy;
   }
@@ -173,7 +187,7 @@ __global__ void k4_tally(i64* c, const i64* counts, Table t, Handles h) {
   const i64 rnd = c[kRounds];
   if (i64* row = log_row(c, rnd)) {
     row[5] = na;
-    row[6] = ew;
+    row[6] = counts[heavy_at(t)];
     row[7] = c[kStats];
   }
   c[kRounds] = rnd + 1;

@@ -158,12 +158,13 @@ def reverse_apply(p, r, deg, del_u, del_v, ins_u, ins_v, s_old, s_new, alpha: fl
 def write_window_(egl, eog, eva, clear_slots, write_slots, gat, sca, val) -> None:
     """The slide's window-buffer mutation, in place: expiring slots go
     invalid, then the new edges take their slots (padding targets the trash
-    slot, which never stays live)."""
-    eva[clear_slots] = 0
+    slot, which never stays live). No op takes a value from the host, so a
+    CUDA graph captures it."""
+    eva.index_fill_(0, clear_slots.long(), 0)
     egl[write_slots] = gat
     eog[write_slots] = sca
     eva[write_slots] = val
-    eva[-1] = 0
+    eva[-1:].fill_(0)
 
 
 def reverse_corrections(p, r, deg, egl, eog, eva, del_u, del_v, ins_u, ins_v,

@@ -11,8 +11,12 @@ How the port differs: every process runs the same host bookkeeping over
 the whole stream (it is deterministic, so the ranks agree), then uploads
 only its own shard's row of the batch, as one int32 transfer a slide. The
 wl engines' forward slide ships the shard's fresh edges, their reverse
-slide its six batch rows; the counts stay on the host. ``host_p``,
-``host_r`` and ``host_deg`` assemble the global arrays over the world.
+slide its six batch rows, each followed by the slide's scalars
+(``ShardedWlEngine.slide_tail``), into one tensor that every slide reuses
+(a captured prologue reads it where it lies); the host keeps its own
+counts. The wl engines rebuild their snapshot in place
+(``ShardedWlEngine.rebuild_``). ``host_p``, ``host_r`` and ``host_deg``
+assemble the global arrays over the world.
 """
 
 from __future__ import annotations
@@ -134,6 +138,7 @@ class ShardedStreamDriver:
         self.head = w
         self.step_idx = 0
         self.ring = self._device_ring() if self._wl and mode == FORWARD else None
+        self._pack = None  # the wl slides' upload, allocated at the first slide
 
     # -- helpers -------------------------------------------------------
     def _device_ring(self) -> dict:
@@ -157,11 +162,19 @@ class ShardedStreamDriver:
             ftop[k] = t
         return eng.make_ring(oring, np.zeros(k_rows, np.int32), tl, fstack, ftop)
 
-    def _upload(self, rows: list[np.ndarray]) -> torch.Tensor:
+    def _upload(self, rows: list[np.ndarray], tail: np.ndarray | None = None) -> torch.Tensor:
         """``[len(rows), b]``: this shard's row of each packed ``[K*b]``
-        batch, as one transfer."""
+        batch, as one transfer. With a ``tail`` (the wl slides' scalars):
+        the rows flat, then the tail, copied into the driver's one pack."""
         b, k = self.scfg.slide, self.mesh.row
-        return torch.from_numpy(np.stack([a[k * b:(k + 1) * b] for a in rows])).to(self.device)
+        mine = np.stack([a[k * b:(k + 1) * b] for a in rows])
+        if tail is None:
+            return torch.from_numpy(mine).to(self.device)
+        host = torch.from_numpy(np.concatenate([mine.reshape(-1), tail]))
+        if self._pack is None:
+            self._pack = torch.empty(host.shape, dtype=torch.int32, device=self.device)
+        self._pack.copy_(host)
+        return self._pack
 
     def seed(self) -> dict:
         if self._wl:
@@ -231,7 +244,7 @@ class ShardedStreamDriver:
                 # or the oldest fresh edge would outlive the window
                 if ((self._fcnt_host + cnt_w > eng.fring).any()
                         or (self._since_rb + 1) * b > self.scfg.window):
-                    self.snap = eng.rebuild(self.egl, self.eog, self.eva)
+                    eng.rebuild_(self.snap, self.egl, self.eog, self.eva)
                     self._fcnt_host[:] = 0
                     self._since_rb = 0
             if self._wl and self.mode == FORWARD:
@@ -266,21 +279,21 @@ class ShardedStreamDriver:
                     _pack(flat_w, src[fresh].astype(np.int32), k_rows * b),
                     _pack(flat_w, ones, k_rows * b),
                 ]
-            dev_batch = self._upload(batch)
             extra = {}
             if self._wl:
-                row = self.mesh.row
+                mine = [c[self.mesh.row] for c in counts]
+                pack = self._upload(batch, eng.slide_tail(mine, self.ring, self.snap))
                 (self.p, self.r, rounds, pushes, epushes, wl, self.deg, self.egl, self.eog,
                  self.eva, self.snap, self.ring) = eng.slide_wl(
                     self.p, self.r, self.deg, self.egl, self.eog, self.eva, self.snap,
-                    dev_batch.reshape(-1), self.ring, [c[row] for c in counts])
+                    pack, self.ring, mine)
                 extra = {"wl_rounds": wl}
                 self._fcnt_host += cnt_w
                 self._since_rb += 1
             else:
                 (self.p, self.r, rounds, pushes, epushes, self.deg, self.egl, self.eog,
                  self.eva) = eng.slide(self.p, self.r, self.deg, self.egl, self.eog, self.eva,
-                                       *dev_batch.unbind(0))
+                                       *self._upload(batch).unbind(0))
             self.head += b
             self.step_idx += 1
             yield {"rounds": rounds, "pushes": float(pushes), "edge_pushes": float(epushes),

@@ -18,10 +18,19 @@ the carry is a dummy.
 
 How the port differs:
 
-- One process per shard, a host loop with one stats reduction a round
-  (``mesh.gather_stats`` over the world: the next decision's counts, the
-  pending carry, the active pairs and edge pushes); every rank reads the
-  same world sums and its row group's maxima from it.
+- In a world of one shard (a 1x1 mesh, not ``proportional``) the
+  convergence loop is the reference's ``lax.while_loop``: each round is a
+  branch (a tier's compact round, the dense round's scan, its stats)
+  chosen by K4's steps under the sharded rule
+  (``pprx_torch.engine.loop``), and on the card a slide's prologue and its
+  loop are one launch of a conditional CUDA graph with one read of the
+  carry (``RoundGraphs.loop``); on the CPU the same branches run under
+  ``RoundGraphs.host_loop``. The engine's blocks, snapshot, ring and pack
+  are then fixed buffers that every slide and rebuild writes in place.
+- Elsewhere, one process per shard, a host loop with one stats reduction a
+  round (``mesh.gather_stats`` over the world: the next decision's counts,
+  the pending carry, the active pairs and edge pushes); every rank reads
+  the same world sums and its row group's maxima from it.
 - The delivery views keep per-row edge ranges instead of the TPU kernel's
   tile offsets: ``*_loff`` over the shard's rows for the local segment,
   ``*_roff`` over the global rows for the remote one (K > 1; it starts past
@@ -35,15 +44,17 @@ How the port differs:
   is one pass over the state, and so is its rescan
   (``pprx_torch.engine.rowpass``: Hopper kernels on CUDA tensors, where XLA
   fused the same ops on the TPU).
-- The dense round's stats-skip is a branch: it reads back the frontier's
-  edge mass first (the row group's maximum) and runs the rescan only for a
-  light round. Its threshold is ``STATS_GUARD * (e_top + g_top)``, the
-  single-device form, where the reference leaves out the fresh cap.
+- The dense round's stats-skip is a branch: the rescan runs only for a
+  light round (read back first by the host loop at K > 1). Its threshold is
+  ``STATS_GUARD * (e_top + g_top)``, the single-device form, where the
+  reference leaves out the fresh cap.
 - The forward slide's slot ring keeps its arrays on the device and its
-  three counters on the host, which knows each slide's counts already; the
-  slide's one transfer is this shard's fresh edges. The reverse slide's
-  transfer is its six batch rows (the reference's ``PACK_R`` words but for
-  the three counts, which stay on the host).
+  three counters on the host, which knows each slide's counts already. The
+  slide's one transfer (its *pack*) is this shard's fresh edges, then the
+  slide's scalars (``slide_tail``): the counts, the ring's counters and
+  the fresh ring's fill, which the device reads from there and the host
+  keeps its own copies of. The reverse slide's pack is its six batch rows
+  (the reference's ``PACK_R`` words), then its counts and the fill.
 - The reverse slide's row-sum sweep runs through ``segsum_gather_add_``
   over the same local-first views as the dense rounds (the reference keeps
   it on a sorted scatter; its anomaly (ii)). The view ranges are exact, so
@@ -64,11 +75,15 @@ reference's documented gap).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from pprx_torch.config import PprConfig
 from pprx_torch.dist.mesh import RowMesh, all_to_all_rows, gather_stats, reduce_scatter_rows
+from pprx_torch.engine import loop
+from pprx_torch.engine.graphs import RoundGraphs
 from pprx_torch.dist.sharded import (
     ShardedEngine,
     forward_corrections,
@@ -126,7 +141,8 @@ def make_wl_tiers(
 SORT_BUCKET_MIN = 65_536
 
 # The per-shard snapshot's keys. The reference's d_sca/d_toff/d_toffl (and
-# fd_*) are the per-row ranges d_loff/d_roff here; fcnt is a host integer.
+# fd_*) are the per-row ranges d_loff/d_roff here; fcnt is a host integer
+# (the device reads it from each slide's pack).
 WL_SNAP_KEYS = (
     "soff", "snbr", "srl", "spos",
     "d_gat", "d_pos", "d_loff", "d_roff",
@@ -137,7 +153,7 @@ WL_SNAP_KEYS = (
 # The forward slide's slot ring: a FIFO of occupied slots in insertion order
 # (each shard's expiring edges are its oldest entries) and a LIFO stack of
 # free slots; the reference's keys. oring and fstack live on the device, the
-# three counters on the host.
+# three counters on the host (the device reads them from each slide's pack).
 WL_RING_KEYS = ("oring", "hd", "tl", "fstack", "ftop")
 
 
@@ -271,6 +287,30 @@ class ShardedWlEngine(ShardedEngine):
         self.heavy_ew = STATS_GUARD * (e_top_ + g_top_)
         # rounds of each kind over the engine's life (read, not reset, here)
         self.round_kinds = dict.fromkeys(("compact", "dense", "drain", "rescan"), 0)
+        # what every dense round writes, once per engine: the moved mass
+        # with the zero row dead edges gather (the last, never written),
+        # the row pass's counts and each row's active pairs; and the
+        # reverse row-sum sweep's copy of p with its zero row
+        dev, s, nl = self.device, self.s_loc, self.n_local
+        if not self.proportional:
+            self._moving_ext = torch.zeros(
+                (nl + 1, s), dtype=torch.bfloat16 if self.bf16d else dtype, device=dev)
+            self._scan_counts = torch.zeros(2, dtype=torch.int64, device=dev)
+            self._row_act = torch.empty(nl, dtype=torch.int32, device=dev)
+        self._p_ext = (None if mode == FORWARD
+                       else torch.zeros((nl + 1, s), dtype=dtype, device=dev))
+        # the device loop's buffers and, on the card, its captured graphs
+        self.round_graphs = (RoundGraphs(nl, self.wcarry, dev, n_counts=loop.N_COUNTS)
+                             if self.on_graphs else None)
+
+    @property
+    def on_graphs(self) -> bool:
+        """Whether the loop runs as ``RoundGraphs.loop`` (one conditional
+        graph on the card, its host loop on the CPU): in a world of one
+        shard, for the wl loop. Elsewhere it is the host loop with a stats
+        reduction a round (``_wl_loop``, ``_prop_loop``), whose work is the
+        world's."""
+        return self.mesh.size == 1 and not self.proportional
 
     # ------------------------------------------------------------------
     # the snapshot and its delivery views
@@ -325,41 +365,69 @@ class ShardedWlEngine(ShardedEngine):
             "fcnt": 0,
         }
 
+    def rebuild_(self, snap: dict, egl, eog, eva) -> None:
+        """``rebuild`` into the tensors of ``snap``, in place: the driver's
+        rebuild before a slide. In a world of one shard on the card it is a
+        captured graph, replayed from its second call (``RoundGraphs.run``)."""
+        def fn():
+            for key, v in self.rebuild(egl, eog, eva).items():
+                if isinstance(v, torch.Tensor):
+                    if snap[key].shape != v.shape:
+                        raise ValueError(f"snapshot {key}: cannot copy {tuple(v.shape)} into "
+                                         f"{tuple(snap[key].shape)}")
+                    snap[key].copy_(v)
+
+        if self.on_graphs:
+            self._hold(snap=snap, window=(egl, eog, eva))
+            self.round_graphs.run(self._key("rebuild"), fn)
+        else:
+            fn()
+        snap["fcnt"] = 0
+
     def device_graph_wl(self, src, dst):
         """``device_graph`` plus the snapshot: (deg, egl, eog, eva, counts,
         snap)."""
         deg, egl, eog, eva, counts = self.device_graph(src, dst)
         return deg, egl, eog, eva, counts, self.rebuild(egl, eog, eva)
 
-    def _mutate(self, snap: dict, clear_slots, gat, sca, val, cnt: int) -> None:
+    def _claim_fresh(self, snap: dict, cnt: int) -> None:
+        """The host's fresh-ring fill advanced by a slide's ``cnt`` fresh
+        edges; an overflow raises (the driver rebuilds before one)."""
+        fcnt = snap["fcnt"]
+        if fcnt + cnt > self.fring:
+            raise ValueError(f"fresh ring overflow: fcnt {fcnt} + {cnt} > fring {self.fring}")
+        snap["fcnt"] = fcnt + cnt
+
+    def _mutate(self, snap: dict, clear_slots, gat, sca, val, fcnt) -> None:
         """Kill the expiring edges in the snapshot (both views; their slots
         are snapshot-era, which the driver's rebuild rule keeps true),
-        append the fresh batch to the ring (a valid prefix of ``cnt``
-        edges; padding lands in the trash slot) and re-sort the fresh
-        mini-CSR and its delivery view. In place."""
+        append the fresh batch to the ring from its fill ``fcnt`` (a device
+        scalar; a valid prefix of edges, padding lands in the trash slot)
+        and re-sort the fresh mini-CSR and its delivery view. In place,
+        into the snapshot's tensors."""
         n_local, n_pad, fring = self.n_local, self.n_pad, self.fring
-        fcnt = snap["fcnt"]
-        if fcnt + cnt > fring:
-            raise ValueError(f"fresh ring overflow: fcnt {fcnt} + {cnt} > fring {fring}")
-        snap["snbr"][snap["spos"][clear_slots]] = n_pad
+        snap["snbr"].index_fill_(0, snap["spos"][clear_slots].long(), n_pad)
         # the delivery view: point the gather at the zero row (ranges stay)
-        snap["d_gat"][snap["d_pos"][clear_slots]] = n_local
+        snap["d_gat"].index_fill_(0, snap["d_pos"][clear_slots].long(), n_local)
         iota = torch.arange(gat.shape[0], device=gat.device)
         on = val > 0
         pos = torch.where(on, fcnt + iota, fring)
         fr_gat, fr_sca = snap["fr_gat"], snap["fr_sca"]
         fr_gat[pos] = torch.where(on, gat, n_local)
-        fr_gat[fring] = n_local
+        fr_gat[fring:].fill_(n_local)
         fr_sca[pos] = torch.where(on, sca, n_pad)
-        fr_sca[fring] = n_pad
+        fr_sca[fring:].fill_(n_pad)
         snap["f_len"].index_add_(0, gat.clamp(0, n_local - 1), val)
         _, order = torch.sort(fr_gat, stable=True)
         zero = torch.zeros(1, dtype=torch.int32, device=gat.device)
         fd_gat, _, fd_loff, fd_roff = self._delivery_view(fr_sca, fr_gat, fr_sca < n_pad,
                                                           need_pos=False)
-        snap.update(f_nbr=fr_sca[order],
-                    f_off=torch.cat([zero, torch.cumsum(snap["f_len"], 0, dtype=torch.int32)]),
-                    fd_gat=fd_gat, fd_loff=fd_loff, fd_roff=fd_roff, fcnt=fcnt + cnt)
+        snap["f_nbr"].copy_(fr_sca[order])
+        snap["f_off"].copy_(torch.cat([zero, torch.cumsum(snap["f_len"], 0, dtype=torch.int32)]))
+        snap["fd_gat"].copy_(fd_gat)
+        snap["fd_loff"].copy_(fd_loff)
+        if fd_roff is not None:
+            snap["fd_roff"].copy_(fd_roff)
 
     # ------------------------------------------------------------------
     # the push loop (block-local)
@@ -493,55 +561,134 @@ class ShardedWlEngine(ShardedEngine):
         fre2 = torch.where(win, snap["f_len"][kc], 0).sum()
         return cand2, carry, [cn2, fed2, fre2, cn2 <= wcarry, pend, na, ew]
 
-    def _dense_round(self, p, r, deg, snap, carry):
-        """One round over every active pair, delivered local-first through
-        the segment sum (window view, then fresh view); at K > 1 the remote
-        segments and the carry go into ``acc`` and one reduce-scatter. Then
-        the rescan, unless the row group's heaviest frontier is above the
-        stats-skip threshold (read back first: a skipped rescan is not
-        run). ``p`` and ``r`` are updated in place (at K > 1 ``r`` is
-        replaced). Returns (p, r, cand2, carry, stats)."""
-        dtype, s = p.dtype, p.shape[1]
-        n_local, mesh, forward = self.n_local, self.mesh, self.mode == FORWARD
+    def _scan(self, p, r, deg, snap):
+        """A dense round's pass over every active pair, in place in ``p``
+        and ``r``, delivered local-first through the segment sum (window
+        view, then fresh view) from the engine's delivery table, whose
+        remote segments stay there for the caller at K > 1. Returns the
+        round's counts as device scalars: (na, ew, ewr), ``ewr`` the
+        stats-skip's (the window and fresh edges of every row with an
+        active pair)."""
+        n_local = self.n_local
+        moving_ext, counts, row_act = self._moving_ext, self._scan_counts, self._row_act
+        counts.zero_()
         # the round's elementwise work in one pass (rowpass K2): p and r in
-        # place, the moved mass written straight into the delivery table,
-        # whose last row, the zero row dead edges gather, stays 0
-        moving_ext = torch.empty((n_local + 1, s), dtype=torch.bfloat16 if self.bf16d else dtype,
-                                 device=p.device)
-        moving_ext[-1] = 0.0
-        counts = torch.zeros(2, dtype=torch.int64, device=p.device)
-        row_act = torch.empty(n_local, dtype=torch.int32, device=p.device)
+        # place, the moved mass written straight into the delivery table
         scan_pass_(p, r, deg, moving_ext[:n_local], counts, row_act, eps=self.cfg.eps,
-                   alpha=self.cfg.alpha, forward=forward)
-        scale = self._inv_deg(deg, dtype)
+                   alpha=self.cfg.alpha, forward=self.mode == FORWARD)
+        scale = self._inv_deg(deg, p.dtype)
         for view in ("d", "fd"):
             segsum_gather_add_(r, moving_ext, snap[f"{view}_gat"], snap[f"{view}_loff"],
                                row_scale=scale)
+        n_act = row_act.long()
+        edges = snap["srl"] + snap["f_len"]
+        return counts[0], (n_act * edges).sum(), torch.where(n_act > 0, edges, 0).sum()
+
+    def _rescan(self, r, deg, snap):
+        """The dense round's stats: the next frontier, one read of ``r``
+        (rowpass K3). Returns (cand2 [wcarry], cn2, fed2, fre2)."""
+        any2, cn2, fed2, fre2 = frontier_rows(r, deg, snap["srl"], snap["f_len"],
+                                              eps=self.cfg.eps, forward=self.mode == FORWARD)
+        return compact(any2, self.wcarry, self.n_local), cn2, fed2, fre2
+
+    def _dense_round(self, p, r, deg, snap, carry):
+        """One round over every active pair (``_scan``); at K > 1 the
+        remote segments and the carry go into ``acc`` and one
+        reduce-scatter. Then the rescan, unless the row group's heaviest
+        frontier is above the stats-skip threshold (read back first: a
+        skipped rescan is not run). ``p`` and ``r`` are updated in place
+        (at K > 1 ``r`` is replaced). Returns (p, r, cand2, carry,
+        stats)."""
+        mesh = self.mesh
+        na, ew, ewr = self._scan(p, r, deg, snap)
         if self.n_rows > 1:
             # the carry outbox joins the remote mass; the owners apply
             # 1/d_out after the reduce-scatter in reverse mode
             for view in ("d", "fd"):
-                segsum_gather_add_(carry, moving_ext, snap[f"{view}_gat"], snap[f"{view}_roff"])
+                segsum_gather_add_(carry, self._moving_ext, snap[f"{view}_gat"],
+                                   snap[f"{view}_roff"])
             delta = reduce_scatter_rows(carry, mesh.row_group)
+            scale = self._inv_deg(deg, p.dtype)
             r = r + (delta if scale is None else delta * scale[:, None])
             carry.zero_()
-        srl, f_len = snap["srl"], snap["f_len"]
-        n_act = row_act.long()
-        edges = srl + f_len
-        heavy_in = [torch.where(n_act > 0, edges, 0).sum(), counts[0], (n_act * edges).sum()]
-        got = gather_stats(heavy_in, mesh.row_group, self.device)
+        got = gather_stats([ewr, na, ew], mesh.row_group, self.device)
         na, ew = (int(v) for v in got[mesh.row if mesh.row_group is not None else 0, 1:])
         if int(got[:, 0].max()) > self.heavy_ew:
             # the successor is another dense round: no rescan
             return p, r, None, carry, [_BIG, _BIG, _BIG, 0, 0, na, ew]
-        # the rescan, one read of r (rowpass K3)
-        any2, cn2, fed2, fre2 = frontier_rows(r, deg, srl, f_len, eps=self.cfg.eps,
-                                              forward=forward)
-        cand2 = compact(any2, self.wcarry, n_local)
+        cand2, cn2, fed2, fre2 = self._rescan(r, deg, snap)
         return p, r, cand2, carry, [cn2, fed2, fre2, 1, 0, na, ew]
 
+    # ------------------------------------------------------------------
+    # the device loop (a world of one shard): the rounds as loop branches
+    # that read and write the RoundGraphs buffers, and the loop's table
+    # ------------------------------------------------------------------
+    def _key(self, *parts) -> tuple:
+        """A captured graph's key: what it bakes in besides its shapes."""
+        return (self.mode, self.bf16d, self.cfg.eps, self.cfg.alpha, *parts)
+
+    def _hold(self, blocks=None, snap=None, window=None, ring=None, pack=None) -> None:
+        """Each named group of tensors must be the one the graphs hold."""
+        g = self.round_graphs
+        for what, objs in (("the engine's p, r and deg", blocks), ("the snapshot", snap),
+                           ("the window", window), ("the ring", ring), ("a slide's pack", pack)):
+            if objs is not None:
+                g.hold(what, objs)
+
+    def loop_table(self) -> loop.Table:
+        """The loop's table: the ladder, each tier's list (``wcarry``: a
+        compact round's list is always valid at K = 1), the stats-skip
+        threshold and the sharded rule."""
+        return loop.Table(tiers=self.tiers, emit=(self.wcarry,) * len(self.tiers),
+                          heavy_ew=self.heavy_ew, sharded=True)
+
+    def _first_count(self, snap) -> None:
+        """The counts of the list in ``cand``: its live rows, their window
+        and fresh edges."""
+        g, n_local = self.round_graphs, self.n_local
+        live = g.cand < n_local
+        c = g.cand.clamp(0, n_local - 1)
+        g.put(0, live.sum(), torch.where(live, snap["srl"][c], 0).sum(),
+              torch.where(live, snap["f_len"][c], 0).sum())
+
+    def _tier_step(self, i: int, p, r, deg, snap) -> None:
+        """A compact round at tier ``i`` from the list in ``cand``."""
+        g = self.round_graphs
+        cand2, _, (cn2, fed2, fre2, _, _, na, ew) = self._compact_round(
+            i, p, r, deg, snap, g.cand, None, 0)
+        g.emit(cand2)
+        g.put(0, cn2, fed2, fre2, na, ew)
+
+    def _scan_step(self, p, r, deg, snap) -> None:
+        self.round_graphs.put(3, *self._scan(p, r, deg, snap))
+
+    def _stats_step(self, r, deg, snap) -> None:
+        g = self.round_graphs
+        cand2, cn2, fed2, fre2 = self._rescan(r, deg, snap)
+        g.emit(cand2)
+        g.put(0, cn2, fed2, fre2)
+
+    def _graph_loop(self, p, r, deg, snap, c0ok: bool, prologue):
+        """The convergence loop as ``RoundGraphs.loop``: ``prologue`` (a
+        graph key and its step), then the rounds K4 picks from the list and
+        counts it leaves, each a branch on the engine's buffers. Returns
+        ``_wl_loop``'s six values; the round kinds are counted from the
+        carry's branch executions."""
+        k = len(self.tiers)
+        branches = [(self._key("tier", i), functools.partial(self._tier_step, i, p, r, deg, snap))
+                    for i in range(k)]
+        branches += [(self._key("scan"), lambda: self._scan_step(p, r, deg, snap)),
+                     (self._key("stats"), lambda: self._stats_step(r, deg, snap))]
+        values, _ = self.round_graphs.loop(prologue, branches, self.loop_table(), c0ok,
+                                           self.cfg.max_rounds)
+        execs = values[loop.EXECS:loop.EXECS + k + 1]
+        self.round_kinds["compact"] += sum(execs[:k])
+        self.round_kinds["dense"] += execs[k]
+        return (p, r, values[loop.ROUNDS], values[loop.PUSHES], values[loop.EDGE_PUSHES],
+                values[loop.WL_ROUNDS])
+
     def _wl_loop(self, p, r, deg, snap, cand0, ok0: int):
-        """Push to convergence: (p, r, rounds, pushes, edge_pushes,
+        """Push to convergence on the host: (p, r, rounds, pushes, edge_pushes,
         wl_rounds), the counts summed over the world and ``wl_rounds`` this
         row group's. ``cand0`` [wcarry]: unique ascending local rows,
         padded with n_local, covering every active row when ``ok0`` (else
@@ -701,51 +848,90 @@ class ShardedWlEngine(ShardedEngine):
     def push_wl(self, p, r, deg, snap, cand0=None, ok0: int = 0):
         """Push to convergence with the compact-frontier loop (or the
         proportional one). With no ``cand0`` the first round is a dense
-        round or a rescan (exact)."""
+        round or a rescan (exact). In a world of one shard ``p``, ``r``,
+        ``deg`` and ``snap`` become the tensors the engine's graphs hold."""
         if cand0 is None:
             cand0 = torch.full((self.wcarry,), self.n_local, dtype=torch.int32,
                                device=self.device)
             ok0 = 0
-        return self._loop(p, r, deg, snap, cand0, ok0)
+        if not self.on_graphs:
+            return self._loop(p, r, deg, snap, cand0, ok0)
+        self._hold(blocks=(p, r, deg), snap=snap)
+        self.round_graphs.emit(cand0)
+        return self._graph_loop(p, r, deg, snap, bool(ok0),
+                                (self._key("first"), lambda: self._first_count(snap)))
+
+    def slide_tail(self, counts, ring, snap) -> np.ndarray:
+        """The scalars a slide's pack carries after its batch rows (int32):
+        forward this shard's (fresh, expiring) counts and the ring's ``hd``,
+        ``tl`` and ``ftop``; reverse its (expiring, fresh, written) counts;
+        then the fresh ring's fill. The host keeps its own copies, which
+        ``slide_wl`` advances."""
+        ints = [int(c) for c in counts]
+        if self.mode == FORWARD:
+            ints += [ring["hd"], ring["tl"], ring["ftop"]]
+        return np.asarray(ints + [snap["fcnt"]], np.int32)
 
     def slide_wl(self, p, r, deg, egl, eog, eva, snap, pack, ring, counts):
         """One window slide on the compact-frontier loop (or the
         proportional one). Forward: ``pack`` is this shard's fresh edges on
         the device (``ins_u`` local, then ``ins_w`` global, ``bcap`` each, a
-        valid prefix), ``counts`` the host's (fresh, expiring) counts for
-        this shard; the expiring edges and the slot schedule come from
-        ``ring``. Reverse: ``pack`` is the six batch rows ``_slide_reverse``
-        reads, and ``counts`` its three, ``ring`` None. The corrections' touched
-        rows seed the candidate list. Returns (p, r, rounds, pushes,
-        edge_pushes, wl_rounds, deg2, egl, eog, eva, snap, ring), the
-        buffers, the snapshot and the ring updated in place."""
+        valid prefix) and ``slide_tail``'s scalars, ``counts`` the host's
+        (fresh, expiring) counts for this shard; the expiring edges and the
+        slot schedule come from ``ring``. Reverse: ``pack`` is the six batch
+        rows ``_slide_reverse`` reads and its tail, and ``counts`` its
+        three, ``ring`` None. The corrections' touched rows seed the
+        candidate list. Returns (p, r, rounds, pushes, edge_pushes,
+        wl_rounds, deg2, egl, eog, eva, snap, ring), the buffers, the
+        snapshot and the ring updated in place (in a world of one shard
+        ``p``, ``r`` and ``deg`` too: the same tensors come back)."""
         if self.mode != FORWARD:
             return (*self._slide_reverse(p, r, deg, egl, eog, eva, snap, pack, counts), None)
         cnt_w, cnt_c = (int(c) for c in counts)
+        self._claim_fresh(snap, cnt_w)
+        rcap = self.ecap + 1  # FIFO ring modulus (live slots <= ecap)
+        ring2 = {**ring, "hd": (ring["hd"] + cnt_c) % rcap, "tl": (ring["tl"] + cnt_w) % rcap,
+                 "ftop": ring["ftop"] + cnt_c - cnt_w}
+        if self.on_graphs:
+            self._hold(blocks=(p, r, deg), snap=snap, window=(egl, eog, eva),
+                       ring=(ring["oring"], ring["fstack"]), pack=pack)
+            prologue = (self._key("slide"), lambda: self._forward_prologue(
+                p, r, deg, egl, eog, eva, snap, pack, ring))
+            return (*self._graph_loop(p, r, deg, snap, True, prologue), deg, egl, eog, eva,
+                    snap, ring2)
+        p, r, deg2, cand0, carry0 = self._forward_corrections(p, r, deg, egl, eog, eva, snap,
+                                                              pack, ring)
+        p, r, rounds, pushes, epushes, wl = self._loop(p, r, deg2, snap, cand0, 1, carry0)
+        return p, r, rounds, pushes, epushes, wl, deg2, egl, eog, eva, snap, ring2
+
+    def _forward_corrections(self, p, r, deg, egl, eog, eva, snap, pack, ring):
+        """The forward slide up to its loop, from the scalars of ``pack``:
+        the ring's schedule, the corrections, the window's and the
+        snapshot's mutation. Returns (p, r, deg2, cand0, carry0), ``carry0``
+        the proportional loop's seed (else None)."""
         b, ecap, n_local, n_pad = self.bcap, self.ecap, self.n_local, self.n_pad
         alpha, dev = self.cfg.alpha, pack.device
         ins_u, ins_w = pack[:b], pack[b:2 * b]
+        cnt_w, cnt_c, hd, tl, ft, fcnt = pack[2 * b:2 * b + 6].long().unbind(0)
         iota = torch.arange(b, device=dev)
         ins_v = (iota < cnt_w).to(torch.int32)
-        rcap = ecap + 1  # FIFO ring modulus (live slots <= ecap)
-        hd, tl, ft = ring["hd"], ring["tl"], ring["ftop"]
+        rcap = ecap + 1
         oring, fstack = ring["oring"], ring["fstack"]
         # expiring slots: this shard's cnt_c oldest ring entries
         clear_slots = torch.where(iota < cnt_c, oring[(hd + iota) % rcap], ecap)
         # push the freed slots (index ecap is the stack's dump), then pop
         # the fresh batch's top first (entry i <-> ins_* i)
         fstack[torch.where(iota < cnt_c, ft + iota, ecap)] = clear_slots
-        ft += cnt_c
+        ft = ft + cnt_c
         write_slots = torch.where(iota < cnt_w, fstack[(ft - 1 - iota).clamp(0, ecap)], ecap)
-        ft -= cnt_w
         # the claimed slots join the ring's tail (index rcap is its dump)
         oring[torch.where(iota < cnt_w, (tl + iota) % rcap, rcap)] = write_slots
-        ring = {"oring": oring, "fstack": fstack, "hd": (hd + cnt_c) % rcap,
-                "tl": (tl + cnt_w) % rcap, "ftop": ft}
         del_u, del_w, del_v = egl[clear_slots], eog[clear_slots], eva[clear_slots]
+        # (index_fill_, not ``x[idx] = True``: that copies the value from
+        # the host, which a capture refuses)
         mark = torch.zeros(n_local + 1, dtype=torch.bool, device=dev)
-        mark[torch.where(del_v > 0, del_u, n_local)] = True
-        mark[torch.where(ins_v > 0, ins_u, n_local)] = True
+        mark.index_fill_(0, torch.where(del_v > 0, del_u, n_local).long(), True)
+        mark.index_fill_(0, torch.where(ins_v > 0, ins_u, n_local).long(), True)
         carry0 = None
         if self.proportional:
             # the correction pairs ride one bucketed all-to-all (exact mass);
@@ -758,7 +944,7 @@ class ShardedWlEngine(ShardedEngine):
             recv_ids = all_to_all_rows(send_ids.reshape(k, q), group).reshape(-1)
             recv_mass = all_to_all_rows(send_mass.reshape(k, q, -1), group)
             r.index_add_(0, recv_ids.clamp(0, n_local - 1), recv_mass.reshape(k * q, -1))
-            mark[recv_ids.clamp(0, n_local)] = True
+            mark.index_fill_(0, recv_ids.clamp(0, n_local).long(), True)
             carry0 = (cids, cmass, pend)
         elif self.n_rows == 1:
             # no wire: the correction pairs run straight into r
@@ -766,7 +952,7 @@ class ShardedWlEngine(ShardedEngine):
                 p, r, deg, del_u, del_w, del_v, ins_u, ins_w, ins_v, alpha, n_pad)
             valid = ids < n_pad
             r.index_add_(0, ids.clamp(0, n_local - 1), vals * valid.to(p.dtype)[:, None])
-            mark[torch.where(valid, ids, n_local)] = True
+            mark.index_fill_(0, torch.where(valid, ids, n_local).long(), True)
         else:
             p, r, acc, deg2 = forward_corrections(
                 p, r, deg, del_u, del_w, del_v, ins_u, ins_w, ins_v, alpha, n_pad)
@@ -775,18 +961,31 @@ class ShardedWlEngine(ShardedEngine):
             mark[:n_local] |= (delta != 0).any(dim=1)
         cand0 = compact(mark[:n_local], self.wcarry, n_local)
         write_window_(egl, eog, eva, clear_slots, write_slots, ins_u, ins_w, ins_v)
-        self._mutate(snap, clear_slots, ins_u, ins_w, ins_v, cnt_w)
-        p, r, rounds, pushes, epushes, wl = self._loop(p, r, deg2, snap, cand0, 1, carry0)
-        return p, r, rounds, pushes, epushes, wl, deg2, egl, eog, eva, snap, ring
+        self._mutate(snap, clear_slots, ins_u, ins_w, ins_v, fcnt)
+        return p, r, deg2, cand0, carry0
+
+    def _forward_prologue(self, p, r, deg, egl, eog, eva, snap, pack, ring) -> None:
+        """A forward slide up to its loop on the engine's buffers: the
+        corrections into ``p``, ``r`` and ``deg``, the first list and its
+        counts into the loop's buffers. A world of one shard."""
+        p2, r2, deg2, cand0, _ = self._forward_corrections(p, r, deg, egl, eog, eva, snap,
+                                                           pack, ring)
+        p.copy_(p2)
+        r.copy_(r2)
+        deg.copy_(deg2)
+        self.round_graphs.emit(cand0)
+        self._first_count(snap)
 
     def rowsum_sweep(self, p, snap):
         """The reverse slide's row sums of ``p`` over the live window edges
         (the snapshot's view after kills plus the fresh view), local-first
         through the segment sum: (s_loc [n_local, S], the sums of this
         shard's rows over the edges it holds; acc [n_pad, S], the rest by
-        global row, None at K = 1)."""
+        global row, None at K = 1). ``p`` is copied into the engine's table
+        with its zero row."""
         s = p.shape[1]
-        p_ext = torch.cat([p, torch.zeros((1, s), dtype=p.dtype, device=p.device)])
+        p_ext = self._p_ext
+        p_ext[:-1].copy_(p)
         s_loc = torch.zeros_like(p)
         for view in ("d", "fd"):
             segsum_gather_add_(s_loc, p_ext, snap[f"{view}_gat"], snap[f"{view}_loff"])
@@ -800,13 +999,30 @@ class ShardedWlEngine(ShardedEngine):
     def _slide_reverse(self, p, r, deg, egl, eog, eva, snap, pack, counts):
         """The reverse slide: ``pack`` holds ``del_u``, ``ins_u`` (by source
         owner), ``clear_slots``, ``write_slots``, ``write_dl``, ``write_sg``
-        (by destination owner), ``bcap`` each; ``counts`` the host's
-        (expiring, fresh, written) counts for this shard. The old row sums
-        come from the sweep, the batch's delta beside them in one
-        ``[n_pad, 2S]`` reduce-scatter along the row group."""
-        cnt_o, cnt_n, cnt_w = (int(c) for c in counts)
+        (by destination owner), ``bcap`` each, then ``slide_tail``'s
+        scalars; ``counts`` the host's (expiring, fresh, written) counts for
+        this shard."""
+        self._claim_fresh(snap, int(counts[2]))
+        if self.on_graphs:
+            self._hold(blocks=(p, r, deg), snap=snap, window=(egl, eog, eva), pack=pack)
+            prologue = (self._key("slide"), lambda: self._reverse_prologue(
+                p, r, deg, egl, eog, eva, snap, pack))
+            return (*self._graph_loop(p, r, deg, snap, True, prologue), deg, egl, eog, eva,
+                    snap)
+        r, d_new, cand0 = self._reverse_corrections(p, r, deg, egl, eog, eva, snap, pack)
+        p, r, rounds, pushes, epushes, wl = self._loop(p, r, d_new, snap, cand0, 1)
+        return p, r, rounds, pushes, epushes, wl, d_new, egl, eog, eva, snap
+
+    def _reverse_corrections(self, p, r, deg, egl, eog, eva, snap, pack):
+        """The reverse slide up to its loop, from the scalars of ``pack``:
+        the old row sums from the sweep, the batch's delta beside them in
+        one ``[n_pad, 2S]`` reduce-scatter along the row group, the
+        corrections, the window's and the snapshot's mutation. Returns (r2,
+        d_new, cand0)."""
         b, n_local, dtype = self.bcap, self.n_local, p.dtype
-        del_u, ins_u, clear_slots, write_slots, write_dl, write_sg = pack.reshape(6, b).unbind(0)
+        del_u, ins_u, clear_slots, write_slots, write_dl, write_sg = pack[:6 * b].reshape(
+            6, b).unbind(0)
+        cnt_o, cnt_n, cnt_w, fcnt = pack[6 * b:6 * b + 4].long().unbind(0)
         iota = torch.arange(b, device=pack.device)
         del_v, ins_v, write_v = ((iota < c).to(torch.int32) for c in (cnt_o, cnt_n, cnt_w))
         s_loc, acc_old = self.rowsum_sweep(p, snap)
@@ -828,13 +1044,22 @@ class ShardedWlEngine(ShardedEngine):
                                  self.cfg.alpha)
         # a row whose correction is not zero has a changed row sum or degree
         mark = torch.zeros(n_local + 1, dtype=torch.bool, device=p.device)
-        mark[torch.where(del_v > 0, del_u, n_local)] = True
-        mark[torch.where(ins_v > 0, ins_u, n_local)] = True
+        mark.index_fill_(0, torch.where(del_v > 0, del_u, n_local).long(), True)
+        mark.index_fill_(0, torch.where(ins_v > 0, ins_u, n_local).long(), True)
         mark[:n_local] |= (s_new != s_old).any(dim=1) | (d_new != deg)
         cand0 = compact(mark[:n_local], self.wcarry, n_local)
-        self._mutate(snap, clear_slots, write_dl, write_sg, write_v, cnt_w)
-        p, r, rounds, pushes, epushes, wl = self._loop(p, r, d_new, snap, cand0, 1)
-        return p, r, rounds, pushes, epushes, wl, d_new, egl, eog, eva, snap
+        self._mutate(snap, clear_slots, write_dl, write_sg, write_v, fcnt)
+        return r, d_new, cand0
+
+    def _reverse_prologue(self, p, r, deg, egl, eog, eva, snap, pack) -> None:
+        """A reverse slide up to its loop on the engine's buffers: the
+        corrections into ``r`` and ``deg``, the first list and its counts
+        into the loop's buffers. A world of one shard."""
+        r2, d_new, cand0 = self._reverse_corrections(p, r, deg, egl, eog, eva, snap, pack)
+        r.copy_(r2)
+        deg.copy_(d_new)
+        self.round_graphs.emit(cand0)
+        self._first_count(snap)
 
     def make_ring(self, oring, hd, tl, fstack, ftop) -> dict:
         """This shard's slot ring from the host's ``[K, ...]`` arrays: oring

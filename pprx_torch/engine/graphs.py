@@ -1,7 +1,9 @@
-"""Captured CUDA graphs of the wl2 slides and convergence loops: the port's
-counterpart of the reference's compiled slide, seed and refine programs
+"""Captured CUDA graphs of the wl2 slides and convergence loops, and of the
+sharded wl engine's in a world of one shard: the port's counterpart of the
+reference's compiled slide, seed and refine programs
 (``pprx/graph/fast_stream.py``'s jitted ``wl2_slide_step`` and
-``_seed_wl2_jit``, ``_refine_wl2_jit``).
+``_seed_wl2_jit``, ``_refine_wl2_jit``; ``pprx/dist/wl.py``'s jitted
+``push_wl`` and ``slide_wl``).
 
 The reference runs a whole convergence loop as one device program: a
 ``lax.while_loop`` whose branches are ``lax.switch`` and ``lax.cond``. On
@@ -19,15 +21,17 @@ under a host loop of K4's plain steps, with a read of the counts a round.
 A graph reads and writes fixed addresses, so:
 
 - the state's ``p`` and ``r`` and every tensor of the kill graph (its window
-  too) are the driver's buffers for its whole life: the slide step, the
-  rebuild and a restore copy into them (``copy_into_``), and ``bind``
-  refuses a state, graph or slide's pack whose tensors are not the ones
+  too), or the sharded engine's blocks, snapshot and ring, are the
+  driver's buffers for its whole life: the slide step, the rebuild and a
+  restore copy into them (``copy_into_``), and ``bind`` and ``hold``
+  refuse a state, graph or slide's pack whose tensors are not the ones
   captured;
 - what one round hands the next, or the host, lives here, outside the
   graphs' memory pool: the candidate list ``cand`` (int32, ``width``
   entries: ``n + 1`` or the widest tier; a tier reads its first ``w_i``
   entries, a round writes its list and ``n`` past it), the counters
-  ``counts`` (int64 ``[5]``: cn, fed, fre, n_active, edge_work), ``c0n``,
+  ``counts`` (int64 ``[5]``: cn, fed, fre, n_active, edge_work; the
+  sharded loop's ``[6]`` add ``ewr``), ``c0n``,
   the seed list's length, and the loop's ``carry``. The host reads the
   carry (or, in the host loop, ``counts``) through a pinned buffer and an
   event.
@@ -64,7 +68,7 @@ import torch
 from pprx_torch import _ext
 from pprx_torch.engine import loop, rowpass, segsum
 
-N_COUNTS = 5  # cn, fed, fre, n_active, edge_work
+N_COUNTS = 5  # cn, fed, fre, n_active, edge_work (the sharded loop adds ewr)
 
 # every kernel module's launch counts, which a replay adds to
 KERNEL_COUNTS = (segsum.LAUNCHES, rowpass.LAUNCHES, loop.LAUNCHES)
@@ -79,16 +83,20 @@ Step = tuple[Hashable, Callable[[], None]]  # a graph's key and its function
 
 
 def tensor_ptrs(obj) -> tuple[int, ...]:
-    """``data_ptr()`` of every tensor of a dataclass of tensors (nested
-    dataclasses too), in field order."""
-    ptrs = []
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        if isinstance(v, torch.Tensor):
-            ptrs.append(v.data_ptr())
-        elif dataclasses.is_dataclass(v):
-            ptrs.extend(tensor_ptrs(v))
-    return tuple(ptrs)
+    """``data_ptr()`` of every tensor of ``obj``: a tensor, or a dataclass,
+    dict, tuple or list of them (nested too), in field, key or item order;
+    anything else holds none."""
+    if isinstance(obj, torch.Tensor):
+        return (obj.data_ptr(),)
+    if dataclasses.is_dataclass(obj):
+        items = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    elif isinstance(obj, dict):
+        items = list(obj.values())
+    elif isinstance(obj, (tuple, list)):
+        items = obj
+    else:
+        return ()
+    return tuple(ptr for v in items for ptr in tensor_ptrs(v))
 
 
 def copy_into_(dst, src) -> None:
@@ -112,15 +120,17 @@ class RoundGraphs:
     ``captures`` and ``capture_s`` count captures since construction (each
     branch and prologue of a loop once, and each ``run`` step), ``replays``
     the ``run`` steps' replays and ``eager`` their warm-ups (runs on
-    CUDA), ``loop_launches`` the loop graphs' launches and
-    ``branch_execs`` the branches those ran.
+    CUDA), ``loop_launches`` the loop graphs' launches,
+    ``branch_execs`` the branches those ran and ``reads`` the host's reads
+    of a loop's counts or carry (one a loop on CUDA).
     """
 
-    def __init__(self, n: int, width: int, device: torch.device | str):
+    def __init__(self, n: int, width: int, device: torch.device | str,
+                 n_counts: int = N_COUNTS):
         self.device = torch.device(device)
         self.n = n
         self.cand = torch.full((max(width, n + 1),), n, dtype=torch.int32, device=self.device)
-        self.counts = torch.zeros(N_COUNTS, dtype=torch.int64, device=self.device)
+        self.counts = torch.zeros(n_counts, dtype=torch.int64, device=self.device)
         self.c0n = torch.zeros((), dtype=torch.int64, device=self.device)
         self.graphs: dict[Hashable, tuple[torch.cuda.CUDAGraph, list[dict]]] = {}
         self.kept: dict[Hashable, tuple[torch.cuda.CUDAGraph, list[dict]]] = {}
@@ -131,15 +141,15 @@ class RoundGraphs:
         self.eager = 0
         self.loop_launches = 0
         self.branch_execs = 0
+        self.reads = 0
         # measurement: a slide's prologue replayed apart, before its loop
         self.split_prologue = False
-        self._bound: tuple[int, ...] | None = None
-        self._pack: int | None = None
+        self._held: dict[str, tuple[int, ...]] = {}
         self._inputs: tuple[int, int] | None = None
         if self.device.type == "cuda":
             self.pool = torch.cuda.graph_pool_handle()
             self.side = torch.cuda.Stream(self.device)
-            self.host = torch.empty(N_COUNTS, dtype=torch.int64, pin_memory=True)
+            self.host = torch.empty(n_counts, dtype=torch.int64, pin_memory=True)
             # the loop's carry on the card (the host loop keeps its own)
             self.carry = loop.new_carry(self.device)
             self.carry_host = torch.empty(loop.SIZE, dtype=torch.int64, pin_memory=True)
@@ -150,21 +160,20 @@ class RoundGraphs:
         """Tie the cache to the tensors of ``state`` and ``kg`` at its first
         call, and to a slide's ``pack`` at the first call that passes one;
         later calls must hand over the same tensors."""
-        ptrs = tensor_ptrs(state) + tensor_ptrs(kg)
-        if self._bound is None:
-            self._bound = ptrs
-        elif ptrs != self._bound:
+        self.hold("the state or the kill graph", state, kg)
+        if pack is not None:
+            self.hold("a slide's pack", pack)
+
+    def hold(self, what: str, *objs) -> None:
+        """Tie the cache to the tensors of ``objs`` (``tensor_ptrs``) under
+        the name ``what`` at its first call; later calls under that name
+        must hand over the same tensors: a captured graph reads them where
+        they lie."""
+        ptrs = tensor_ptrs(objs)
+        if self._held.setdefault(what, ptrs) != ptrs:
             raise RuntimeError(
-                "the state or the kill graph was rebound after its rounds were captured: "
-                "copy into the driver's tensors (copy_into_) instead")
-        if pack is None:
-            return
-        if self._pack is None:
-            self._pack = pack.data_ptr()
-        elif pack.data_ptr() != self._pack:
-            raise RuntimeError(
-                "a slide's pack was rebound after its prologue was captured: "
-                "upload each batch into the same tensor instead")
+                f"{what} was rebound after its rounds were captured: copy into the "
+                "tensors bound first (copy_into_), or upload into the same tensor, instead")
 
     def seed(self, cand0: torch.Tensor, c0n: torch.Tensor | int) -> None:
         """The first candidate list: ``cand0`` (phantom-padded), then ``n``;
@@ -282,6 +291,7 @@ class RoundGraphs:
                 values, reads = self._device_loop(prologue, branches, table, c0ok, max_rounds)
         else:
             values, reads = self.host_loop(prologue, branches, table, c0ok, max_rounds)
+        self.reads += reads
         if LOG_SINK is not None:
             LOG_SINK.append({"table": table, "max_rounds": int(max_rounds),
                              "rows": loop.log_rows(values)})
@@ -359,4 +369,5 @@ class RoundGraphs:
                 "captures": self.captures, "capture_s": self.capture_s,
                 "replays": self.replays, "eager_rounds": self.eager,
                 "loop_launches": self.loop_launches, "branch_execs": self.branch_execs,
+                "reads": self.reads,
                 "graph_launches": self.replays + self.loop_launches}

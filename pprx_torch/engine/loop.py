@@ -1,12 +1,14 @@
-"""The wl2 convergence loop's carry and its control steps (K4's plain
-version).
+"""The compact-frontier convergence loops' carry and their control steps
+(K4's plain version): the wl2 engine's and, in a world of one shard, the
+sharded wl engine's.
 
 The reference runs a whole convergence loop on the device: a
 ``lax.while_loop`` whose body picks a capacity tier with ``lax.switch`` and
 worklist or scan with ``lax.cond``, and skips a heavy scan's stats with
-another ``lax.cond`` (``pprx/engine/wl2.py:574-687``). The port keeps what
-those decisions read and write in one small int64 tensor, the *carry*, and
-writes each decision as a step on it:
+another ``lax.cond`` (``pprx/engine/wl2.py:574-687``; the sharded engine's
+``pprx/dist/wl.py:954-1025``). The port keeps what those decisions read and
+write in one small int64 tensor, the *carry*, and writes each decision as a
+step on it:
 
 - ``prime``: the loop's start, from the first list's exact counts;
 - ``decide``: the round's branch, a compact tier (its index is the number
@@ -16,13 +18,29 @@ writes each decision as a step on it:
 - ``tally``: the round's statistics, the next round's counts and whether
   the loop goes on.
 
+The two engines' loops differ in two rules, which a table's ``sharded``
+field picks (``pprx/dist/wl.py:1023``, ``:911-917``):
+
+- the sharded loop's first round always runs (the reference starts its
+  work at 1), where wl2's runs none from a valid empty list;
+- its scan skips the stats when ``ewr`` is heavy: the window and fresh
+  edges of every row with an active pair (the counts' sixth slot), where
+  wl2 weighs a row by its active pairs (``ew``, the fifth).
+
+Both keep the port's test that the stats run only where a round follows.
+The sharded reference has none, and needs none: the stats read ``r`` and
+write only the next list and its counts, and where no round follows
+(``n_active`` 0, or the round cap) nothing reads those. So ``p``, ``r``
+and the rounds are the reference's.
+
 On CUDA these steps are the one-thread kernels of
 ``pprx_torch/csrc/loop.cu`` (K4) inside one conditional CUDA graph per loop
 (``pprx_torch.engine.graphs.RoundGraphs.loop``), where each also sets the
-graph's branch and loop conditions. On the CPU the host loop of
-``pprx_torch.engine.wl2`` calls the plain steps below, which nothing on
-CUDA calls; ``step_`` runs one step on a carry where it lies, the kernel on
-a card or the plain step on the CPU. Both write the same carry.
+graph's branch and loop conditions. On the CPU the host loops of
+``pprx_torch.engine.wl2`` and ``pprx_torch.dist.wl`` call the plain steps
+below, which nothing on CUDA calls; ``step_`` runs one step on a carry
+where it lies, the kernel on a card or the plain step on the CPU. Both
+write the same carry.
 
 Branches are numbered: the ``k`` tiers ``0 .. k-1``, the scan ``k`` and its
 stats ``k + 1``. The carry also counts each branch's executions (what a
@@ -51,12 +69,19 @@ HEAD = 32  # the slots above; the round log follows
 
 MAX_TIERS = 8
 MAX_BRANCHES = MAX_TIERS + 2
-LOG_W = 8  # a round: branch, ok, cn, fed, fre (what decide read), na, ew, stats
+# a round: branch, ok, cn, fed, fre (what decide read), na, the heavy test's
+# count (ew; ewr under the sharded rule), stats
+LOG_W = 8
 LOG_CAP = 1024  # rounds logged; later rounds are not
 SIZE = HEAD + LOG_CAP * LOG_W
 
+# ---- the round's counts: cn, fed, fre, n_active, edge_work, and the
+# sharded rule's heavy count ewr
+N_COUNTS = 6
+EWR = 5
+
 # ---- the table of a tier ladder (int64; csrc/loop.cu's enum Tab)
-T_TIERS, T_HEAVY, T_W = 0, 1, 2
+T_TIERS, T_HEAVY, T_RULE, T_W = 0, 1, 2, 3
 T_E, T_G, T_EMIT = T_W + MAX_TIERS, T_W + 2 * MAX_TIERS, T_W + 3 * MAX_TIERS
 TAB = T_W + 4 * MAX_TIERS
 
@@ -85,12 +110,14 @@ class Table:
     """What the decisions know of a loop besides its carry: the tier ladder
     ``tiers`` ((w, e, g), smallest first), the list width each tier's round
     emits (``emit``: its next tier's, or ``n + 1`` where the round reseeds
-    by a rescan) and ``heavy_ew``, the edge work above which a scan skips
-    its stats."""
+    by a rescan), ``heavy_ew``, the edge work above which a scan skips
+    its stats, and ``sharded``, the sharded engine's rule (the module
+    docstring)."""
 
     tiers: tuple[tuple[int, int, int], ...]
     emit: tuple[int, ...]
     heavy_ew: int
+    sharded: bool = False
 
     def __post_init__(self):
         if not 1 <= len(self.tiers) <= MAX_TIERS or len(self.emit) != len(self.tiers):
@@ -102,10 +129,20 @@ class Table:
         """The scan's branch; its stats' is ``scan + 1``."""
         return len(self.tiers)
 
+    @property
+    def heavy_at(self) -> int:
+        """The counts' slot the heavy test reads."""
+        return EWR if self.sharded else 4
+
+    @property
+    def n_counts(self) -> int:
+        """The counts a step reads."""
+        return self.heavy_at + 1
+
     def values(self) -> list[int]:
         """The table as K4 reads it: ``TAB`` int64 values."""
         out = [0] * TAB
-        out[T_TIERS], out[T_HEAVY] = len(self.tiers), self.heavy_ew
+        out[T_TIERS], out[T_HEAVY], out[T_RULE] = len(self.tiers), self.heavy_ew, int(self.sharded)
         for i, ((w, e, g), emit) in enumerate(zip(self.tiers, self.emit)):
             out[T_W + i], out[T_E + i], out[T_G + i], out[T_EMIT + i] = w, e, g, emit
         return out
@@ -122,17 +159,18 @@ def set_inputs(carry: torch.Tensor, c0ok: bool, max_rounds: int) -> None:
 
 
 # ---- the plain steps, on a list of the carry's head (``c``) and the
-# round's counts (cn, fed, fre, na, ew): what each K4 kernel computes
+# round's counts (cn, fed, fre, na, ew[, ewr]): what each K4 kernel computes
 
-def _prime(c: list[int], counts) -> None:
+def _prime(c: list[int], counts, t: Table) -> None:
     max_rounds, c0ok = c[MAX_ROUNDS], c[C0OK]
     c[:] = [0] * HEAD
     c[MAX_ROUNDS], c[C0OK] = max_rounds, c0ok
     c[CN], c[FED], c[FRE] = counts[0], counts[1], counts[2]
     c[OK] = int(c0ok != 0)
     # zero candidates in a valid list means zero active rows (candidates
-    # are a frontier superset); otherwise force one scan round
-    c[NA] = int(c[CN] > 0) if c[OK] else 1
+    # are a frontier superset); otherwise force one scan round. The sharded
+    # rule runs the first round whatever the list.
+    c[NA] = int(c[CN] > 0) if c[OK] and not t.sharded else 1
     c[GO] = int(c[NA] > 0 and 0 < max_rounds)
 
 
@@ -150,8 +188,8 @@ def _decide(c: list[int], t: Table) -> int:
 def _after_scan(c: list[int], counts, t: Table) -> bool:
     stats = False
     if c[BRANCH] == t.scan:
-        na, ew = counts[3], counts[4]
-        heavy = ew > t.heavy_ew
+        na = counts[3]
+        heavy = counts[t.heavy_at] > t.heavy_ew
         # the stats only where a round follows and may use them
         stats = not heavy and na > 0 and c[ROUNDS] + 1 < c[MAX_ROUNDS]
         c[HEAVY] = int(heavy)
@@ -211,7 +249,7 @@ def _on_head(carry: torch.Tensor, fn, *args):
 def prime(carry: torch.Tensor, counts, table: Table) -> bool:
     """Start a loop from the first list's exact counts (cn, fed, fre):
     every slot but the inputs cleared; returns whether a round runs."""
-    _on_head(carry, _prime, _ints(counts))
+    _on_head(carry, _prime, _ints(counts), table)
     return bool(carry[GO])
 
 
@@ -237,7 +275,7 @@ def tally(carry: torch.Tensor, counts, table: Table) -> bool:
     counts = _ints(counts)
     rnd = int(carry[ROUNDS])
     go = _on_head(carry, _tally, counts, table)
-    _log_at(carry, rnd, 5, [counts[3], counts[4], int(carry[STATS])])
+    _log_at(carry, rnd, 5, [counts[3], counts[table.heavy_at], int(carry[STATS])])
     return go
 
 
@@ -283,20 +321,21 @@ def versions() -> dict:
     return {"driver": out[0], "runtime": out[1]}
 
 
-def _check_operands(carry: torch.Tensor, counts) -> None:
+def _check_operands(carry: torch.Tensor, counts, table: Table) -> None:
     if carry.dtype != torch.int64 or carry.shape != (SIZE,) or not carry.is_contiguous():
         raise ValueError(f"a carry is int64 [{SIZE}], contiguous")
+    n = table.n_counts
     if isinstance(counts, torch.Tensor) and (
-            counts.dtype != torch.int64 or counts.numel() < 5 or counts.device != carry.device
+            counts.dtype != torch.int64 or counts.numel() < n or counts.device != carry.device
             or not counts.is_contiguous()):
-        raise ValueError("counts are int64 [5] on the carry's device, contiguous")
+        raise ValueError(f"counts are int64 [{n}] on the carry's device, contiguous")
 
 
 def step_(name: str, carry: torch.Tensor, counts, table: Table):
     """One step on ``carry`` where it lies: on a card the K4 kernel (with
     no graph around it: it writes the carry and sets no condition), on the
     CPU the plain step, which returns the decision."""
-    _check_operands(carry, counts)
+    _check_operands(carry, counts, table)
     if carry.device.type == "cpu":
         args = (carry, table) if name == "decide" else (carry, counts, table)
         return PLAIN[name](*args)
@@ -324,7 +363,7 @@ class LoopGraph:
                  counts: torch.Tensor, table: Table):
         if len(branches) != table.scan + 2:
             raise ValueError(f"{len(branches)} branch graphs for {table.scan} tiers")
-        _check_operands(carry, counts)
+        _check_operands(carry, counts, table)
         lib = _lib()
         arr = (ctypes.c_void_p * len(branches))(*branches)
         out = ctypes.c_void_p()
@@ -357,9 +396,11 @@ def replay_log(rows: list[list[int]], table: Table, max_rounds: int) -> list[tup
     ``after_scan`` choose them from the counts the round logged: equal to
     the rows' own ``(row[0], row[7])`` where the device decided alike."""
     out = []
-    for rnd, (_, ok, cn, fed, fre, na, ew, _) in enumerate(rows):
+    for rnd, (_, ok, cn, fed, fre, na, heavy, _) in enumerate(rows):
         c = [0] * HEAD
         c[OK], c[CN], c[FED], c[FRE], c[ROUNDS], c[MAX_ROUNDS] = ok, cn, fed, fre, rnd, max_rounds
         b = _decide(c, table)
-        out.append((b, int(_after_scan(c, [0, 0, 0, na, ew], table))))
+        counts = [0, 0, 0, na, 0, 0]
+        counts[table.heavy_at] = heavy
+        out.append((b, int(_after_scan(c, counts, table))))
     return out

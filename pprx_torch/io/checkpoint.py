@@ -275,4 +275,5 @@ def load_sharded_checkpoint(
     drv.head, drv.step_idx = meta["head"], meta["step_idx"]
     # the forward wl slide's ring follows from the host's bookkeeping
     drv.ring = drv._device_ring() if wl and drv.mode == FORWARD else None
+    drv._pack = None
     return drv

@@ -270,7 +270,8 @@ def membound(mesh, proportional: bool, reverse_slide: bool = False, seed: int = 
     out = {"n_local": eng.n_local, "n_pad": eng.n_pad, "s": len(queries),
            "ccarry": getattr(eng, "ccarry", 0)}
     if reverse_slide:
-        pack = torch.zeros(6 * eng.bcap, dtype=torch.int32)
+        tail = eng.slide_tail((0, 0, 0), None, snap)
+        pack = torch.cat([torch.zeros(6 * eng.bcap, dtype=torch.int32), torch.from_numpy(tail)])
         out["biggest"] = max_float_temp_size(eng.slide_wl, p, r, deg, egl, eog, eva, snap, pack,
                                              None, (0, 0, 0))
         return out

@@ -360,3 +360,46 @@ def test_config5_reverse_turn_on_the_cpu():
     assert len(res["profile"]["rounds"]) == 1
     with pytest.raises(SystemExit, match="unknown"):
         chip_smoke.turns(["--shapes", "config5_rev,config9", "."])
+
+
+def test_sharded_loop_checks():
+    """Phases 14a, 15a and 15d's device-loop keys: ``sharded_loops`` is
+    None off the card and for ``wlp``; on the card it holds a driver's loop
+    graph launches and carry reads each to one a loop and raises
+    otherwise; ``no_host_loop`` refuses ``RoundGraphs.host_loop`` on the
+    card while it holds, and leaves the CPU's alone. The ``--turns``
+    config 5 record carries the host's reads, the driver's and the
+    engine's shares of a slide and the loop's summary."""
+    import types
+
+    from pprx_torch.engine.graphs import RoundGraphs
+
+    def drv(summary, dev="cuda"):
+        g = None if summary is None else types.SimpleNamespace(summary=lambda: dict(summary))
+        return types.SimpleNamespace(device=torch.device(dev),
+                                     eng=types.SimpleNamespace(round_graphs=g))
+
+    good = {"loop_launches": 9, "reads": 9}
+    assert chip_smoke.sharded_loops(drv(good, "cpu"), 9) is None
+    assert chip_smoke.sharded_loops(drv(None), 9) is None
+    res = chip_smoke.sharded_loops(drv(good), 9)
+    assert (res["launches_per_loop"], res["reads_per_loop"], res["rounds_outside_graphs"]) == (
+        1.0, 1.0, 0)
+    for bad in ({"loop_launches": 8, "reads": 9}, {"loop_launches": 9, "reads": 20}):
+        with pytest.raises(AssertionError, match="9 loops ran"):
+            chip_smoke.sharded_loops(drv(bad), 9)
+    host_loop = RoundGraphs.host_loop
+    with chip_smoke.no_host_loop(torch.device("cpu")):
+        assert RoundGraphs.host_loop is host_loop
+    with chip_smoke.no_host_loop(torch.device("cuda")):
+        with pytest.raises(AssertionError, match="on the host on the card"):
+            RoundGraphs.host_loop(None)
+    assert RoundGraphs.host_loop is host_loop
+    c5 = {sh["tag"]: sh for sh in chip_smoke.turn_shapes()}["config5_f32"]
+    res = chip_smoke.turn_record(chip_smoke, dict(c5, n=2000, w=6000, b=300, s=8),
+                                 torch.device("cpu"))
+    # the CPU's host loop reads its counts a round (``graphs``' reads); no
+    # stats gather and no carry wait is left to count
+    assert res["host_reads_per_slide"] == 0 and res["graph_launches"] == 0
+    assert res["driver_host_ms"] > 0 and res["engine_ms"] > 0
+    assert res["graphs"]["loop_launches"] == 0 and res["graphs"]["reads"] > 0

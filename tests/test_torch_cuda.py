@@ -1160,9 +1160,9 @@ def test_k4_matches_its_plain_steps_on_the_table():
         name, step, _, _ = case
         carry, counts = chip_smoke.k4_case(case)
         want = carry.clone()
-        loop.step_(step, want, counts, chip_smoke.K4_TABLE)
+        loop.step_(step, want, counts, chip_smoke.k4_table(case))
         got = carry.to(dev)
-        loop.step_(step, got, counts.to(dev), chip_smoke.K4_TABLE)
+        loop.step_(step, got, counts.to(dev), chip_smoke.k4_table(case))
         assert torch.equal(got.cpu(), want), name
     assert loop.launches(since=before) == len(chip_smoke.K4_CASES)
 
@@ -1228,6 +1228,136 @@ def test_device_loop_slides_seed_and_refine_hold_the_contract(monkeypatch, mode)
         exact = exact_ppr(drv.hsrc, drv.hdst, n, queries, cfg.alpha, tol=1e-11, device=dev)
         for j, pi in enumerate(exact):
             assert np.abs(p[:, j] - pi).sum() <= cfg.eps * w
+
+
+# ---- the sharded wl engine's loop at 1x1 (pprx_torch.dist.wl): one loop
+# graph a loop, K4 under the sharded rule
+
+@pytest.mark.cuda
+def test_k4_sharded_rule_equals_its_plain_steps():
+    """K4 under the sharded wl engine's rule (``chip_smoke.K4_SHARDED``: the
+    first round runs whatever the list, the stats-skip reads ``ewr``)
+    against its plain steps on each ``sharded_*`` case: the whole carry
+    equal."""
+    import chip_smoke
+    from pprx_torch.engine import loop
+
+    dev = _cuda()
+    cases = [c for c in chip_smoke.K4_CASES if c[0].startswith("sharded_")]
+    assert len(cases) >= 9
+    for case in cases:
+        name, step, _, _ = case
+        carry, counts = chip_smoke.k4_case(case)
+        assert chip_smoke.k4_table(case).sharded and counts.numel() == loop.N_COUNTS
+        want = carry.clone()
+        loop.step_(step, want, counts, chip_smoke.K4_SHARDED)
+        got = carry.to(dev)
+        loop.step_(step, got, counts.to(dev), chip_smoke.K4_SHARDED)
+        assert torch.equal(got.cpu(), want), name
+
+
+def _sharded_driver(dev, mode):
+    from pprx_torch.dist.mesh import make_row_mesh
+    from pprx_torch.dist.stream import ShardedStreamDriver
+
+    w, b = 20_000, 200
+    src, dst, n = synthetic_powerlaw_stream(2000, w + 10 * b, seed=2)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
+    return ShardedStreamDriver(src, dst, n, list(range(16)), cfg, StreamConfig(window=w, slide=b),
+                               make_row_mesh(1, 1), mode=mode, engine="wl", device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, REVERSE])
+def test_sharded_device_loop_gives_the_host_loops_rounds(monkeypatch, mode):
+    """``ShardedStreamDriver(engine="wl")`` at 1x1 on the card, a seed and 8
+    slides (a rebuild every 2): each loop one loop graph launch and one
+    read, its round log replayed through the plain steps under the sharded
+    rule; the same run with the loop forced onto the host
+    (``RoundGraphs.host_loop``, the branches replayed one by one) gives the
+    same rounds a loop; both states held to exact PPR (forward: L1 within
+    eps * W a source; reverse: within 2 eps of the columns of M)."""
+    from pprx_torch.engine import graphs, loop
+    from pprx_torch.engine.graphs import RoundGraphs
+
+    dev = _cuda()
+    sink = []
+    monkeypatch.setattr(graphs, "LOG_SINK", sink)
+    runs = {}
+    for tag in ("device", "host"):
+        if tag == "host":
+            monkeypatch.setattr(RoundGraphs, "loop", RoundGraphs.host_loop)
+        drv = _sharded_driver(dev, mode)
+        rounds = [drv.seed()["rounds"]] + [st["rounds"] for st in drv.run(8)]
+        runs[tag] = (drv, rounds, drv.eng.round_graphs.summary())
+    (drv, rounds, g), (host, host_rounds, hg) = runs["device"], runs["host"]
+    assert rounds == host_rounds
+    assert g["loop_launches"] == g["reads"] == 9 and hg["loop_launches"] == 0
+    assert len(sink) == 9 and [len(rec["rows"]) for rec in sink] == rounds
+    for rec in sink:
+        assert rec["table"].sharded
+        assert loop.replay_log(rec["rows"], rec["table"], rec["max_rounds"]) == [
+            (row[0], row[7]) for row in rec["rows"]]
+    w, head = drv.scfg.window, drv.head
+    hs, hd = drv.stream_src[head - w:head], drv.stream_dst[head - w:head]
+    for d in (drv, host):
+        p = d.host_p()[:d.n].astype(np.float64)
+        if mode == REVERSE:
+            cols = exact_ppr_columns(hs, hd, d.n, list(range(16)), d.cfg.alpha, device=dev)
+            assert np.abs(p - cols.T).max() <= 2 * d.cfg.eps
+        else:
+            exact = exact_ppr(hs, hd, d.n, list(range(16)), d.cfg.alpha, tol=1e-11, device=dev)
+            for j, pi in enumerate(exact):
+                assert np.abs(p[:, j] - pi).sum() <= d.cfg.eps * w
+
+
+@pytest.mark.cuda
+def test_sharded_failed_capture_raises():
+    """A host sync inside the sharded engine's captured first count (the
+    seed loop's prologue) makes its warm-up capture fail, and the failure
+    raises: nothing ran eagerly, nothing was captured, no loop ran on the
+    host. In a process of its own, as ``test_failed_capture_raises``."""
+    import subprocess
+    import sys
+    import textwrap
+
+    _cuda()
+    prog = textwrap.dedent("""
+        import torch
+        from pprx_torch.config import PprConfig, StreamConfig
+        from pprx_torch.dist import wl
+        from pprx_torch.dist.mesh import make_row_mesh
+        from pprx_torch.dist.stream import ShardedStreamDriver
+        from pprx_torch.engine.graphs import RoundGraphs
+        from pprx_torch.graph.io import synthetic_powerlaw_stream
+
+        first = wl.ShardedWlEngine._first_count
+
+        def with_a_sync(self, snap):
+            first(self, snap)
+            int(self.round_graphs.counts[0])
+
+        def refused(*args, **kw):
+            raise AssertionError("a loop ran on the host")
+
+        wl.ShardedWlEngine._first_count = with_a_sync
+        RoundGraphs.host_loop = refused
+        src, dst, n = synthetic_powerlaw_stream(300, 2000, seed=3)
+        drv = ShardedStreamDriver(src, dst, n, [0, 5], PprConfig(alpha=0.15, eps=1e-6),
+                                  StreamConfig(window=1000, slide=100), make_row_mesh(1, 1),
+                                  engine="wl", device="cuda")
+        g = drv.eng.round_graphs
+        try:
+            drv.seed()
+        except RuntimeError as e:
+            print("RAISED", g.eager, g.captures, g.loop_launches, repr(e)[:300])
+        else:
+            print("NO ERROR", g.summary())
+    """)
+    proc = subprocess.run([sys.executable, "-c", prog], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("RAISED 0 0 0"), proc.stdout + proc.stderr[-3000:]
 
 
 # ---- the row passes (pprx_torch.engine.rowpass): K2 and K3 on the card

@@ -6,7 +6,9 @@ the card holds K4 to) is held to values written by hand from the
 reference's rules at ``pprx/engine/wl2.py:574-684`` (the prime, ``use_wl``,
 the tier index as a count of misses, the emitted list's validity, the
 stats-skip, the ``scans_*`` tallies, the loop's condition) and the port's
-stats-skip (no stats where no round follows). Then the host loop on those
+stats-skip (no stats where no round follows); its ``sharded_*`` cases under
+the sharded wl engine's rule from ``pprx/dist/wl.py`` (the first round runs
+whatever the list; the stats-skip reads ``ewr``). Then the host loop on those
 steps against the JAX package's driver on a stream, f64, both modes: the
 same rounds and tallies, p/r at 1e-12, and its round log replays through
 ``decide``.
@@ -97,6 +99,24 @@ EXPECTED = {
     "tally_no_active": {
         L.CN: 1, L.FED: 1, L.FRE: 1, L.OK: 1, L.NA: 0, L.EW: 0, L.ROUNDS: 3,
         L.WL_ROUNDS: 2, L.EXECS + 1: 1, L.GO: 0, "log": {2: {5: 0, 6: 0, 7: 0}}},
+    # the sharded rule, written from pprx/dist/wl.py: the loop starts with
+    # work 1 (:1023), so the first round runs from an empty valid list; the
+    # stats-skip reads ewr (:911-917), and the log its count
+    "sharded_prime_empty_list": {L.OK: 1, L.NA: 1, L.GO: 1},
+    "sharded_prime_valid_list": {L.CN: 3, L.FED: 9, L.FRE: 2, L.OK: 1, L.NA: 1, L.GO: 1},
+    "sharded_prime_no_rounds": {L.OK: 1, L.NA: 1, L.GO: 0},
+    "sharded_decide_top_border": {L.BRANCH: 2, "log": {2: [2, 1, 256, 2048, 64, 0, 0, 0]}},
+    "sharded_after_scan_light_ewr": {L.HEAVY: 0, L.STATS: 1},
+    "sharded_after_scan_heavy_ewr": {L.HEAVY: 1, L.STATS: 0},
+    "sharded_after_scan_last_round": {L.HEAVY: 0, L.STATS: 0},
+    "sharded_tally_tier_list": {
+        L.CN: 65, L.FED: 100, L.FRE: 3, L.OK: 1, L.NA: 12, L.EW: 400, L.ROUNDS: 3,
+        L.PUSHES: 112, L.EDGE_PUSHES: 1400, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 1,
+        "log": {2: {5: 12, 6: 0, 7: 0}}},
+    "sharded_tally_heavy_scan": {
+        L.CN: BIG, L.FED: BIG, L.FRE: BIG, L.OK: 0, L.NA: 9, L.EW: 5000, L.ROUNDS: 3,
+        L.PUSHES: 109, L.EDGE_PUSHES: 6000, L.SCANS_CAND: 2, L.SCANS_FED: 1,
+        L.SCANS_LIV: 1, L.EXECS + 3: 2, L.GO: 1, "log": {2: {5: 9, 6: 4300, 7: 0}}},
 }
 
 CASES = {case[0]: case for case in chip_smoke.K4_CASES}
@@ -129,7 +149,7 @@ def test_plain_step_on_the_table(name):
     # the plain steps take the counts as a tensor or as the host's read
     for given in (counts_t, list(counts)):
         got = carry.clone()
-        out = loop.step_(step, got, given, chip_smoke.K4_TABLE)
+        out = loop.step_(step, got, given, chip_smoke.k4_table(CASES[name]))
         assert torch.equal(got, want), (got != want).nonzero().flatten().tolist()
         decision = {"prime": L.GO, "decide": L.BRANCH, "after_scan": L.STATS,
                     "tally": L.GO}[step]
@@ -147,11 +167,11 @@ def test_slots_match_the_kernel_source():
              "ScansCand": L.SCANS_CAND, "ScansFed": L.SCANS_FED, "ScansLiv": L.SCANS_LIV,
              "StatsReads": L.STATS_READS, "Branch": L.BRANCH, "Heavy": L.HEAVY,
              "Stats": L.STATS, "Go": L.GO, "Execs": L.EXECS, "Head": L.HEAD,
-             "Tiers": L.T_TIERS, "HeavyEw": L.T_HEAVY, "W": L.T_W}
+             "Tiers": L.T_TIERS, "HeavyEw": L.T_HEAVY, "Rule": L.T_RULE, "W": L.T_W}
     assert {k: enums[k] for k in pairs} == pairs
     consts = dict(re.findall(r"constexpr int k(\w+) = (\d+);", src))
-    assert {k: int(consts[k]) for k in ("MaxTiers", "LogW", "LogCap")} == {
-        "MaxTiers": L.MAX_TIERS, "LogW": L.LOG_W, "LogCap": L.LOG_CAP}
+    assert {k: int(consts[k]) for k in ("MaxTiers", "LogW", "LogCap", "Ewr")} == {
+        "MaxTiers": L.MAX_TIERS, "LogW": L.LOG_W, "LogCap": L.LOG_CAP, "Ewr": L.EWR}
     assert "(1LL << 31) / 2 - 1" in src and BIG == (1 << 31) // 2 - 1
     assert L.EXECS + L.MAX_BRANCHES <= L.HEAD
     assert (L.T_E, L.T_G, L.T_EMIT, L.TAB) == tuple(

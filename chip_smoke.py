@@ -39,15 +39,16 @@ round trip. Phases, one line each:
    time, its time with the host side, its plain version's and its bound
    from the bytes this run moves (``check_rowpass``);
 3c. loop control: K4 (``pprx_torch/csrc/loop.cu``: the convergence loop's
-   four one-thread steps, prime, decide, after_scan and tally) against its
-   plain steps on every case of ``K4_CASES`` (a table of carries that
-   covers every rule of the loop), whole carries equal; each step's device
-   time, its plain step's and its bound; the CUDA driver's and runtime's
-   versions; and a loop graph of fill-kernel branches timed by its
-   rounds: what the WHILE, the SWITCH and K4 add to a round, and what a
-   kernel node costs inside a loop's body (``check_k4``); the table's
-   ``sharded_*`` cases run under the sharded wl engine's rule
-   (``k4_table``). From
+   three one-warp steps, prime, turn and after_scan) against its plain
+   steps on every case of ``K4_CASES`` (a table of carries that covers
+   every rule of the loop), each through the kernel the loop graph
+   launches for it (``k4_launch``: a decision or a tally is a turn), whole
+   carries equal; each kernel's device time, its plain step's and its
+   bound; the CUDA driver's and runtime's versions; and a loop graph of
+   fill-kernel branches timed by its rounds: what the WHILE, the SWITCH
+   and a turn add to a round, and what a kernel node costs inside a loop's
+   body (``check_k4``); the table's ``sharded_*`` cases run under the
+   sharded wl engine's rule (``k4_table``). From
    here on every loop graph logs its rounds (``graphs.LOG_SINK``),
    and each phase's line replays the rounds of the loops run since the
    line before through the plain ``decide`` and ``after_scan`` on the
@@ -181,7 +182,7 @@ round trip. Phases, one line each:
    hybrid path must launch no kernel (no segment-sum entry, no row pass).
 
 Then a JSON line of the kernels, the segment sum's two entries, the two
-row passes and K4's four steps (``launches``: the main path's, phases 4 to
+row passes and K4's three steps (``launches``: the main path's, phases 4 to
 6, which must launch the gather entry, both row passes and every K4 step; ``launches_by_path``: every path's,
 each counted with the counts set to 0 before it: the main path, each of the
 three reverse runs of phase 8, phases 9 and 10, each run of phase 11, each
@@ -857,6 +858,20 @@ K4_CASES = (
     ("tally_reaches_max_rounds", "tally", {loop.BRANCH: 0, loop.ROUNDS: 5}, (1, 1, 1, 9, 10)),
     ("tally_goes_on", "tally", {loop.BRANCH: 0, loop.ROUNDS: 4}, (1, 1, 1, 9, 10)),
     ("tally_no_active", "tally", {loop.BRANCH: 1}, (1, 1, 1, 0, 0)),
+    # turn: a round pending (tallied) and the next one decided, or the
+    # loop's end (no decision; the SWITCH's value past its arms); nothing
+    # pending (the loop's first turn: a decision alone)
+    ("turn_tier_then_tier", "turn", {loop.PENDING: 1, loop.BRANCH: 0}, (64, 100, 3, 12, 400)),
+    ("turn_heavy_scan_then_scan", "turn", {loop.PENDING: 1, loop.BRANCH: 3, loop.HEAVY: 1,
+                                           loop.FED: loop.BIG, loop.FRE: loop.BIG, loop.OK: 0},
+     (40, 50, 6, 9, 5000)),
+    ("turn_light_scan_stats_then_tier", "turn", {loop.PENDING: 1, loop.BRANCH: 3, loop.STATS: 1,
+                                                 loop.OK: 0, loop.FED: 3000, loop.FRE: 70},
+     (40, 50, 6, 9, 100)),
+    ("turn_reaches_max_rounds", "turn", {loop.PENDING: 1, loop.BRANCH: 0, loop.ROUNDS: 5},
+     (1, 1, 1, 9, 10)),
+    ("turn_no_active", "turn", {loop.PENDING: 1, loop.BRANCH: 1}, (1, 1, 1, 0, 0)),
+    ("turn_nothing_pending", "turn", {loop.GO: 1, loop.CN: 8, loop.FED: 32, loop.FRE: 4}, _Z),
     # the sharded rule (K4_SHARDED; counts: cn, fed, fre, n_active,
     # edge_work, ewr): the first round runs from any list, but at no rounds
     ("sharded_prime_empty_list", "prime", {loop.C0OK: 1}, _Z6),
@@ -876,6 +891,10 @@ K4_CASES = (
     ("sharded_tally_heavy_scan", "tally", {loop.BRANCH: 3, loop.HEAVY: 1, loop.FED: loop.BIG,
                                            loop.FRE: loop.BIG, loop.OK: 0},
      (40, 50, 6, 9, 5000, 4300)),
+    # a tier's list past wl2's emit width stays valid, and the next round
+    # is a tier where wl2's would scan
+    ("sharded_turn_tier_list_then_tier", "turn", {loop.PENDING: 1, loop.BRANCH: 0},
+     (65, 100, 3, 12, 400, 0)),
 )
 
 
@@ -897,21 +916,45 @@ def k4_case(case) -> tuple[torch.Tensor, torch.Tensor]:
     return carry, torch.tensor(counts, dtype=torch.int64)
 
 
+def k4_launch(case) -> tuple[str, torch.Tensor, torch.Tensor]:
+    """The K4 kernel a loop graph launches for a case's step, and the carry
+    and counts it finds there: a ``decide`` case is a ``turn`` with no
+    round pending while the loop goes on, a ``tally`` case a ``turn`` with
+    one pending; the other steps are kernels of their own."""
+    _, step, _, _ = case
+    carry, counts = k4_case(case)
+    if step == "decide":
+        carry[loop.PENDING], carry[loop.GO] = 0, 1
+    elif step == "tally":
+        carry[loop.PENDING] = 1
+    return ("turn" if step in ("decide", "tally") else step), carry, counts
+
+
+# the case each K4 kernel is timed on, as it runs most often: a turn that
+# tallies a round and decides the next, with no round cap in reach
+K4_TIMED = {"prime": "prime_valid_list", "turn": "turn_tier_then_tier",
+            "after_scan": "after_scan_light"}
+
+
 def check_k4(dev) -> dict:
-    """K4 against its plain steps on every case of ``K4_CASES``, each under
-    its table (``k4_table``: wl2's rule, or the sharded engine's): the whole
-    carry equal (decisions, tallies, log), and so each branch choice; then
-    each step's device time (one launch, queued behind a spinning kernel:
-    the launch floor), its plain step's host time, and its bound from the
-    bytes a step moves (the carry's head read and written, the counts read,
-    a log row written). Then ``loop_overhead``: what a loop graph's round
-    costs the device beyond its kernels, and a kernel node inside its
-    body against one in a top-level graph."""
+    """K4's kernels against their plain steps on every case of
+    ``K4_CASES``, each case through the kernel the loop graph launches for
+    it (``k4_launch``) and under its table (``k4_table``: wl2's rule, or
+    the sharded engine's): the whole carry equal (decisions, tallies, log),
+    and so each branch choice; then each kernel's device time (one launch,
+    queued behind a spinning kernel: the launch floor), its time as a node
+    of a captured graph of 64 of its launches (``graph_ms``: what a loop
+    graph's node of it costs, against ``graph_kernel_floor_ms``), its plain
+    step's host time, and its bound from the bytes a step moves (the
+    carry's head read and written, the counts read, a log row written). Then
+    ``loop_overhead``: what a loop graph's round costs the device beyond
+    its kernels, and a kernel node inside its body against one in a
+    top-level graph."""
     res = {"versions": loop.versions(), "cases": len(K4_CASES)}
     choices, errs = {}, {step: 0 for step in loop.STEPS}
     for case in K4_CASES:
-        name, step, _, _ = case
-        carry, counts = k4_case(case)
+        name = case[0]
+        step, carry, counts = k4_launch(case)
         want = carry.clone()
         loop.step_(step, want, counts, k4_table(case))
         got = carry.to(dev)
@@ -921,62 +964,80 @@ def check_k4(dev) -> dict:
             diff = (got != want).nonzero().flatten().tolist()[:8]
             raise AssertionError(f"K4 {step} on {name}: slots {diff} are "
                                  f"{got[diff].tolist()}, the plain step's {want[diff].tolist()}")
-        choices[name] = [int(got[i]) for i in (loop.BRANCH, loop.STATS, loop.GO)]
+        choices[name] = [int(got[i]) for i in (loop.BRANCH, loop.STATS, loop.GO, loop.PENDING)]
         errs[step] = max(errs[step], int((got - want).abs().max()))
     res["choices"] = choices
-    carry, counts = (t.to(dev) for t in k4_case(K4_CASES[0]))
     n_bytes = 2 * loop.HEAD * 8 + 5 * 8 + loop.LOG_W * 8
+    cases = {case[0]: case for case in K4_CASES}
     for step in loop.STEPS:
-        ms = in_turns({step: lambda: loop.step_(step, carry, counts, K4_TABLE)})[step]
-        plain_carry, plain_counts = k4_case(K4_CASES[0])
+        _, carry, counts = k4_launch(cases[K4_TIMED[step]])
+        carry[loop.MAX_ROUNDS] = 1 << 40
+        plain_carry = carry.clone()
+        carry, counts_dev = carry.to(dev), counts.to(dev)
+        ms = in_turns({step: lambda: loop.step_(step, carry, counts_dev, K4_TABLE)})[step]
+        nodes = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(nodes):
+            for _ in range(64):
+                loop.step_(step, carry, counts_dev, K4_TABLE)
+        graph_ms = cuda_ms(nodes.replay) / 64
         t0 = time.perf_counter()
         for _ in range(200):
-            loop.step_(step, plain_carry, plain_counts, K4_TABLE)
+            loop.step_(step, plain_carry, counts, K4_TABLE)
         b_ms, b_by = bound_ms(n_bytes, 0)
-        res[step] = {"ms": ms, "plain_ms": (time.perf_counter() - t0) * 1e3 / 200,
+        res[step] = {"ms": ms, "graph_ms": graph_ms,
+                     "plain_ms": (time.perf_counter() - t0) * 1e3 / 200,
                      "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs[step]}
     res.update(loop_overhead(dev))
     return res
 
 
-def loop_overhead(dev, rounds: int = 257, wide: int = 21) -> dict:
-    """A loop of one tier whose branches are fill kernels (the tier's and
-    the scan's set n_active to 1, the stats' clear cn, fed, fre): from an
-    invalid list it runs one scan, its stats, then tier rounds to
-    ``rounds``. Its device time a round (launches of ``rounds`` and of 1,
-    by CUDA events) with one kernel in the tier's branch, against a
-    captured graph of 64 of the same kernels: what the WHILE, the SWITCH
-    and K4's two steps add to a tier round beyond its three kernel nodes
-    at a graph's floor; and with ``wide`` kernels there: what a kernel node
-    costs inside a loop's body."""
-    g = RoundGraphs(8, 8, dev)
-    table = loop.Table(tiers=((8, 32, 4),), emit=(8,), heavy_ew=100)
+def fill_branches(g: RoundGraphs, width: int = 1) -> list:
+    """A one-tier loop's branches as fill kernels on ``g``'s counts (the
+    tier's, ``width`` kernels, and the scan's set n_active to 1, the
+    stats' clear cn, fed, fre) under ``FILL_TABLE``: from an invalid list
+    a loop runs one scan, its stats, then tier rounds to its cap; from a
+    valid empty one, none."""
     na = g.counts[3:4]
+
+    def tier():
+        for _ in range(width):
+            na.fill_(1)
+
+    return [(("tier", width), tier), ("scan", lambda: na.fill_(1)),
+            ("stats", lambda: g.counts[:3].zero_())]
+
+
+FILL_TABLE = loop.Table(tiers=((8, 32, 4),), emit=(8,), heavy_ew=100)
+
+
+def loop_overhead(dev, rounds: int = 257, wide: int = 21) -> dict:
+    """A loop of ``fill_branches``: its device time a round (launches of
+    ``rounds`` and of 1, by CUDA events) with one kernel in the tier's
+    branch, against a captured graph of 64 of the same kernels: what the
+    WHILE, the SWITCH and a turn add to a tier round beyond its two kernel
+    nodes (the turn and the tier's) at a graph's floor; and with ``wide``
+    kernels there: what a kernel node costs inside a loop's body."""
+    g = RoundGraphs(8, 8, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     per_round = {}
     for width in (1, wide):
-        def tier(width=width):
-            for _ in range(width):
-                na.fill_(1)
-
-        branches = [(("tier", width), tier), ("scan", lambda: na.fill_(1)),
-                    ("stats", lambda: g.counts[:3].zero_())]
         times = {}
         for r in (1, rounds):
-            values, reads = g.loop(None, branches, table, False, r)
+            values, reads = g.loop(None, fill_branches(g, width), FILL_TABLE, False, r)
             execs = values[loop.EXECS:loop.EXECS + 3]
             if values[loop.ROUNDS] != r or execs != [r - 1, 1, int(r > 1)] or reads != 1:
                 raise AssertionError(f"a loop of {r} rounds ran {values[loop.ROUNDS]}: {execs}")
             graph = next(lg for key, (lg, _) in g.loops.items() if key[1][0] == ("tier", width))
             times[r] = cuda_ms(lambda: graph.launch(stream))
         per_round[width] = (times[rounds] - times[1]) / (rounds - 1)
+    na = g.counts[3:4]
     plain = torch.cuda.CUDAGraph()
     with torch.cuda.graph(plain):
         for _ in range(64):
             na.fill_(1)
     floor = cuda_ms(plain.replay) / 64
     return {"loop_round_ms": per_round[1], "graph_kernel_floor_ms": floor,
-            "conditional_overhead_ms_per_round": per_round[1] - 3 * floor,
+            "conditional_overhead_ms_per_round": per_round[1] - 2 * floor,
             "body_kernel_ms": (per_round[wide] - per_round[1]) / (wide - 1)}
 
 
@@ -2808,7 +2869,8 @@ def turn_shapes() -> list[dict]:
     f32 and bf16 delivery), phase 8's headline reverse and config 3 at S=8,
     phase 11's config 2 in f32, and phases 14a's and 15a's config 5, forward
     in f32 and reverse (the sharded wl engine at mesh 1x1; its stream has
-    one slide to spare, profiled)."""
+    one slide to spare, profiled). ``--shapes`` also takes
+    ``TURN_EXTRA``'s, which no default run drives."""
     h = dict(HEADLINE)
     h["rebuild_every"], h["warmup"] = headline_schedule(h["w"], h["b"])
     c3 = dict(CONFIG3, s=8, prof_steps=h["prof_steps"])
@@ -2823,11 +2885,18 @@ def turn_shapes() -> list[dict]:
             dict(c5, tag="config5_rev", reverse=True, bf16d=False, sharded=True)]
 
 
+# shapes ``--turns`` drives only where ``--shapes`` names them: phase 3c,
+# K4 and the loop graph's cost a round (``check_k4``)
+TURN_EXTRA = [{"tag": "loop_control"}]
+
+
 def turn_record(cs, sh: dict, dev) -> dict:
     """One shape of a turn through ``cs``, the chip_smoke module of the
     root the turn runs in (this function's source is run in each, so it
     uses only what each root has: ``run_stream``, ``profile_slides``,
-    ``sync``, the ``segsum`` and ``rowpass`` modules). A stream shape:
+    ``sync``, ``check_k4``, the ``segsum``, ``rowpass`` and ``loop``
+    modules). ``loop_control``: the root's phase 3c, under that key. A
+    stream shape:
     ``run_stream`` and ``profile_slides`` on ``FastStreamDriver``, then
     two refines to 5e-8 from one state, the first of which captures the
     new eps's rounds (``refine_ms``, ``refine_rounds``); before them, 2
@@ -2835,7 +2904,8 @@ def turn_record(cs, sh: dict, dev) -> dict:
     replays, or its loop graphs, and the rebuild's replays): the device's
     time inside graphs a slide (``graph_device_ms``), beside the slides'
     wall (``slide_wall_ms``), and the share of the wall the device spent
-    outside graphs (``event_idle_share``), where no profiler is running. A
+    outside graphs (``event_idle_share``), where no profiler is running,
+    and K4's launches a slide by kernel (``k4_launches_per_slide``). A
     sharded shape: ``config5_run`` (seed, 3 warm-up and ``steps`` timed slides),
     its launches by entry and round kinds, then 2 slides as above, where
     the host's reads are counted too (``host_reads_per_slide``: the stats
@@ -2849,8 +2919,11 @@ def turn_record(cs, sh: dict, dev) -> dict:
     busy time (``host_ms_per_round``)."""
     import warnings
 
+    if sh["tag"] == "loop_control":
+        return {"loop_control": cs.check_k4(dev)}
     cuda = dev.type == "cuda"
     mods = (cs.segsum, cs.rowpass)
+    k4 = cs.loop.LAUNCHES if hasattr(cs, "loop") else {}  # a tree whose loop runs on the host
 
     def peak():
         return torch.cuda.max_memory_allocated() / 2**30 if cuda else None
@@ -2904,6 +2977,7 @@ def turn_record(cs, sh: dict, dev) -> dict:
             wrap = counted if name in ("gather_stats", "synchronize") else timed
             setattr(cls, name, wrap(fn))
         caught = []
+        k4_before = dict(k4)
         try:
             cs.sync(dev)
             it = drv.run(k)
@@ -2929,7 +3003,9 @@ def turn_record(cs, sh: dict, dev) -> dict:
             if sharded:
                 del drv.eng.slide_wl
         slides = len(spans)
-        out = {"slide_wall_ms": wall_ms / slides, "graph_launches": len(marks) / slides}
+        out = {"slide_wall_ms": wall_ms / slides, "graph_launches": len(marks) / slides,
+               "k4_launches_per_slide": {step: (k4[step] - k4_before[step]) / slides
+                                         for step in k4}}
         if cuda:
             graph_ms = sum(start.elapsed_time(end) for start, end in marks)
             out.update(graph_device_ms=graph_ms / slides,
@@ -3018,7 +3094,10 @@ TURN_SUMMARY = ("updates_per_s", "rounds_per_slide", "syncs_per_slide",
                 "row_pass_launches_per_slide", "replays_per_round", "eager_rounds",
                 "refine_ms", "refine_rounds", "round_kinds", "launches_by_entry",
                 "host_reads_per_slide", "sync_ops_per_slide", "driver_host_ms", "engine_ms",
-                "host_ms_per_round", "graph_launches", "graphs")
+                "host_ms_per_round", "graph_launches", "graphs", "k4_launches_per_slide")
+# phase 3c's numbers in a ``loop_control`` record
+K4_SUMMARY = ("loop_round_ms", "graph_kernel_floor_ms", "conditional_overhead_ms_per_round",
+              "body_kernel_ms")
 
 
 def turns(argv: list[str]) -> int:
@@ -3032,7 +3111,8 @@ def turns(argv: list[str]) -> int:
             os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
         else:
             names = val.split(",")
-    shapes = [sh for sh in turn_shapes() if names is None or sh["tag"] in names]
+    shapes = turn_shapes() if names is None else [
+        sh for sh in turn_shapes() + TURN_EXTRA if sh["tag"] in names]
     if names is not None and len(shapes) != len(names):
         raise SystemExit(f"--shapes: unknown among {names}")
     script = TURN.format(turn_record=inspect.getsource(turn_record))
@@ -3048,11 +3128,14 @@ def turns(argv: list[str]) -> int:
                     continue
                 rec = {"turn": i, "root": root, **json.loads(line)}
                 rec_file.write(json.dumps(rec) + "\n")
-                prof = rec["profile"]
+                prof, k4 = rec.get("profile", {}), rec.get("loop_control", {})
                 print(json.dumps({"turn": i, "root": root, "shape": rec["shape"],
                                   **{k: rec[k] for k in TURN_SUMMARY if k in rec},
-                                  "idle": prof["device_idle_share"],
-                                  "busy_ms": prof["device_busy_ms"],
+                                  **{k: k4[k] for k in K4_SUMMARY if k in k4},
+                                  **{f"{k}_ms": v["ms"] for k, v in k4.items()
+                                     if isinstance(v, dict) and "max_abs_err" in v},
+                                  "idle": prof.get("device_idle_share"),
+                                  "busy_ms": prof.get("device_busy_ms"),
                                   "api": prof.get("launches_per_slide")}), flush=True)
             print(json.dumps({"turn": i, "root": root, "rc": proc.returncode,
                               "seconds": time.perf_counter() - t0}), flush=True)

@@ -2,43 +2,62 @@
 // the wl2 engine's and the sharded wl engine's in a world of one shard, and
 // the CUDA graph that runs a whole loop:
 //
-//   [prologue] -> prime -> WHILE { decide -> SWITCH { tier_0 | ... | tier_k-1
-//                                    | scan -> after_scan -> IF { stats } }
-//                                  -> tally }
+//   [prologue] -> prime -> WHILE { turn -> SWITCH { tier_0 | ... | tier_k-1
+//                                                 | scan -> after_scan -> IF { stats } } }
 //
 // Each body of the SWITCH holds a child graph, a clone of the branch that
 // the port captured with torch (a compact tier, the scan round), and the
 // scan's body also its stats under an IF; the prologue (a slide's, or a
-// seed's first count) is a child graph likewise. The four control
-// steps are one-thread kernels on the loop's carry, a small int64 array:
+// seed's first count) is a child graph likewise. The three control steps
+// work on the loop's carry, a small int64 array:
 //   prime       the loop's start from the first list's counts;
-//   decide      the round's branch: a compact tier (the count of lower tiers
-//               whose capacities the counts miss) or the scan; logs the
-//               counts it read;
+//   turn        the last round's tally, where one is pending (its
+//               statistics, the next round's counts, the branch's execution
+//               count, whether the loop goes on), then, where the loop goes
+//               on, the next round's branch: a compact tier (the count of
+//               lower tiers whose capacities the counts miss) or the scan,
+//               logged with the counts it read. Where the loop ends it gives
+//               the SWITCH k + 1, past its last arm, and the SWITCH runs
+//               nothing;
 //   after_scan  whether a scan's next-frontier stats run (not after a heavy
-//               scan, nor where no round follows);
-//   tally       the round's statistics, the next round's counts, the
-//               branch's execution count, and whether the loop goes on.
-// The table's rule field picks the sharded engine's loop: its first round
-// always runs, and its heavy test reads ewr, the counts' sixth slot, where
-// wl2's reads the edge work ew (pprx/dist/wl.py:911-917, 1023).
-// Each does what its plain step in pprx_torch/engine/loop.py does, on the
-// same slots, and sets the graph's conditions with cudaGraphSetConditional:
-// prime and tally the WHILE's, decide the SWITCH's (the branch's number),
-// after_scan the stats IF's. A SWITCH node (CUDA 12.8) takes one node's
-// evaluation a round where a chain of IF nodes, one a branch, takes k + 1:
-// on the card each conditional node costs a few microseconds of the round.
+//               scan, nor where no round follows).
+// A loop of R >= 1 rounds runs R + 1 turns: one K4 node a tier round, two a
+// scan round; a loop that prime stops runs none. The table's rule field
+// picks the sharded engine's loop: its first round always runs, and its
+// heavy test reads ewr, the counts' sixth slot, where wl2's reads the edge
+// work ew (pprx/dist/wl.py:911-917, 1023). Each step does what its plain
+// step in pprx_torch/engine/loop.py does, on the same slots, and sets the
+// graph's conditions with cudaGraphSetConditional: prime the WHILE's, turn
+// the SWITCH's (the branch's number) and the WHILE's, after_scan the stats
+// IF's. A SWITCH node (CUDA 12.8) takes one node's evaluation a round where
+// a chain of IF nodes, one a branch, takes k + 1.
 //
 // No Pallas kernel is replaced. K4 is the counterpart of the reference's
 // on-device control flow, the lax.while_loop at pprx/engine/wl2.py:687
 // with its lax.switch over the tiers (:617) and lax.cond over worklist or
 // scan (:657) and over a scan's stats (:662), and of the sharded engine's
 // at pprx/dist/wl.py:1025 with its lax.switch over the tiers and the
-// dense round (:995) and lax.cond over the dense round's stats (:954). Its
-// bound is the launch floor: a step reads and writes a few hundred bytes;
-// what the design saves is the host's read of the counts and the next
-// launch each round, which the whole loop in one graph replaces by one
-// launch and one read.
+// dense round (:995) and lax.cond over the dense round's stats (:954).
+//
+// What bounds K4 on this card is latency, not bytes: a step moves about
+// 600 bytes (2e-7 ms at 3.35 TB/s), and a kernel node inside a graph costs
+// about a microsecond however little it does. The design cuts both the
+// nodes and each node's time beyond that floor:
+// - the tally of a round and the decision of the next are one kernel, so a
+//   tier round runs one K4 node, not two. The decision stays at the body's
+//   start, in the same run of the body as the SWITCH that reads it: a turn
+//   at the body's end would need the SWITCH's value to survive from one run
+//   of the body to the next, which a handle reset at each run
+//   (cudaGraphCondAssignDefault) does not promise;
+// - a step runs as one warp. The lanes load the carry's head (32 slots,
+//   256 bytes, a slot a lane) and the counts in one coalesced access into
+//   shared memory; one lane runs the step on that copy, where each of its
+//   twenty-odd reads costs shared memory's latency instead of a round trip
+//   to L2 (a one-thread step on the carry in device memory interleaves its
+//   reads with its writes, and the compiler, not knowing they do not alias,
+//   issues them one after another), and sets the conditions; then the warp
+//   stores the head back in one access. That lane stores the round log's
+//   few values itself: a store does not stall it.
 //
 // Plain C interface, loaded with ctypes (pprx_torch/engine/loop.py): every
 // entry returns a cudaError_t, 0 on success, and allocates nothing on the
@@ -63,7 +82,7 @@ enum Slot : int {
   kPushes = 9, kEdgePushes = 10, kWlRounds = 11,
   kScansCand = 12, kScansFed = 13, kScansLiv = 14, kStatsReads = 15,
   kBranch = 16, kHeavy = 17, kStats = 18, kGo = 19,
-  kExecs = 20,
+  kExecs = 20, kPending = 30,
   kHead = 32,
 };
 
@@ -74,6 +93,14 @@ constexpr i64 kBig = (1LL << 31) / 2 - 1;
 
 // the counts' slot of the sharded rule's heavy test: loop.py's EWR
 constexpr int kEwr = 5;
+constexpr int kMaxCounts = kEwr + 1;
+
+// a step's lanes: one a slot of the carry's head
+constexpr int kWarp = 32;
+static_assert(kHead == kWarp, "a warp loads the carry's head, a slot a lane");
+
+// the steps, as pprx_loop_step numbers them
+constexpr int kPrime = 0, kTurn = 1, kAfterScan = 2;
 
 // the table of a tier ladder: loop.py's T_TIERS .. TAB
 enum Tab : int {
@@ -98,21 +125,24 @@ __device__ __forceinline__ void set_cond(const Handles& h, cudaGraphConditionalH
   if (h.live) cudaGraphSetConditional(c, v);
 }
 
-__device__ __forceinline__ i64* log_row(i64* c, i64 rnd) {
-  return rnd < kLogCap ? c + kHead + rnd * kLogW : nullptr;
+__device__ __forceinline__ i64* log_row(i64* log, i64 rnd) {
+  return rnd < kLogCap ? log + rnd * kLogW : nullptr;
 }
 
 // the counts' slot the heavy test reads: ew, or ewr under the sharded rule
 __device__ __forceinline__ int heavy_at(const Table& t) { return t.v[kRule] ? kEwr : 4; }
 
-__global__ void k4_prime(i64* c, const i64* counts, Table t, Handles h) {
+// The steps, run by one lane on the shared copies of the carry's head `c`
+// and the round's counts `n`; `log` is the carry's round log, in place.
+
+__device__ void prime(i64* c, const i64* n, const Table& t, const Handles& h) {
   const i64 max_rounds = c[kMaxRounds], c0ok = c[kC0ok];
   for (int i = 0; i < kHead; ++i) c[i] = 0;
   c[kMaxRounds] = max_rounds;
   c[kC0ok] = c0ok;
-  c[kCn] = counts[0];
-  c[kFed] = counts[1];
-  c[kFre] = counts[2];
+  c[kCn] = n[0];
+  c[kFed] = n[1];
+  c[kFre] = n[2];
   c[kOk] = c0ok != 0;
   // zero candidates in a valid list means zero active rows; the sharded
   // rule runs the first round whatever the list
@@ -121,56 +151,22 @@ __global__ void k4_prime(i64* c, const i64* counts, Table t, Handles h) {
   set_cond(h, h.loop, c[kGo]);
 }
 
-__global__ void k4_decide(i64* c, const i64*, Table t, Handles h) {
+// the round's statistics and the next round's counts, from the round's
+// (with a scan's stats where they ran)
+__device__ void tally(i64* c, const i64* n, i64* log, const Table& t) {
   const int k = static_cast<int>(t.v[kTiers]);
-  const i64 ok = c[kOk], cn = c[kCn], fed = c[kFed], fre = c[kFre];
-  int b = k;  // the scan
-  if (ok && cn <= t.v[kW + k - 1] && fed <= t.v[kE + k - 1] && fre <= t.v[kG + k - 1]) {
-    b = 0;
-    for (int i = 0; i < k - 1; ++i)
-      b += !(cn <= t.v[kW + i] && fed <= t.v[kE + i] && fre <= t.v[kG + i]);
-  }
-  c[kBranch] = b;
-  c[kHeavy] = 0;
-  c[kStats] = 0;
-  if (i64* row = log_row(c, c[kRounds])) {
-    row[0] = b;
-    row[1] = ok;
-    row[2] = cn;
-    row[3] = fed;
-    row[4] = fre;
-    row[5] = row[6] = row[7] = 0;
-  }
-  set_cond(h, h.branch, b);
-}
-
-__global__ void k4_after_scan(i64* c, const i64* counts, Table t, Handles h) {
-  const int k = static_cast<int>(t.v[kTiers]);
-  bool stats = false;
-  if (c[kBranch] == k) {
-    const i64 na = counts[3];
-    const bool heavy = counts[heavy_at(t)] > t.v[kHeavyEw];
-    stats = !heavy && na > 0 && c[kRounds] + 1 < c[kMaxRounds];
-    c[kHeavy] = heavy;
-  }
-  c[kStats] = stats;
-  set_cond(h, h.stats, stats);
-}
-
-__global__ void k4_tally(i64* c, const i64* counts, Table t, Handles h) {
-  const int k = static_cast<int>(t.v[kTiers]);
-  const i64 b = c[kBranch], na = counts[3], ew = counts[4];
+  const i64 b = c[kBranch], na = n[3], ew = n[4];
   i64 cn2, fed2, fre2, ok2;
   if (b < k) {
-    cn2 = counts[0];
-    fed2 = counts[1];
-    fre2 = counts[2];
+    cn2 = n[0];
+    fed2 = n[1];
+    fre2 = n[2];
     ok2 = cn2 <= t.v[kEmit + b];
   } else {
     if (c[kStats]) {
-      cn2 = counts[0];
-      fed2 = counts[1];
-      fre2 = counts[2];
+      cn2 = n[0];
+      fed2 = n[1];
+      fre2 = n[2];
       c[kStatsReads] += 1;
     } else {
       cn2 = fed2 = fre2 = 0;
@@ -185,9 +181,9 @@ __global__ void k4_tally(i64* c, const i64* counts, Table t, Handles h) {
     c[kScansLiv] += c[kFre] > t.v[kG + k - 1];
   }
   const i64 rnd = c[kRounds];
-  if (i64* row = log_row(c, rnd)) {
+  if (i64* row = log_row(log, rnd)) {
     row[5] = na;
-    row[6] = counts[heavy_at(t)];
+    row[6] = n[heavy_at(t)];
     row[7] = c[kStats];
   }
   c[kRounds] = rnd + 1;
@@ -203,10 +199,78 @@ __global__ void k4_tally(i64* c, const i64* counts, Table t, Handles h) {
   c[kNa] = na;
   c[kEw] = ew;
   c[kGo] = na > 0 && c[kRounds] < c[kMaxRounds];
+}
+
+// the round's branch, logged with the counts it read
+__device__ int decide(i64* c, i64* log, const Table& t) {
+  const int k = static_cast<int>(t.v[kTiers]);
+  const i64 ok = c[kOk], cn = c[kCn], fed = c[kFed], fre = c[kFre];
+  int b = k;  // the scan
+  if (ok && cn <= t.v[kW + k - 1] && fed <= t.v[kE + k - 1] && fre <= t.v[kG + k - 1]) {
+    b = 0;
+    for (int i = 0; i < k - 1; ++i)
+      b += !(cn <= t.v[kW + i] && fed <= t.v[kE + i] && fre <= t.v[kG + i]);
+  }
+  c[kBranch] = b;
+  c[kHeavy] = 0;
+  c[kStats] = 0;
+  if (i64* row = log_row(log, c[kRounds])) {
+    row[0] = b;
+    row[1] = ok;
+    row[2] = cn;
+    row[3] = fed;
+    row[4] = fre;
+    row[5] = row[6] = row[7] = 0;
+  }
+  return b;
+}
+
+__device__ void turn(i64* c, const i64* n, i64* log, const Table& t, const Handles& h) {
+  if (c[kPending]) tally(c, n, log, t);
+  // where the loop ends, a value past the SWITCH's k + 1 arms: it runs none
+  const int arm = c[kGo] ? decide(c, log, t) : static_cast<int>(t.v[kTiers]) + 1;
+  c[kPending] = c[kGo];
+  set_cond(h, h.branch, arm);
   set_cond(h, h.loop, c[kGo]);
 }
 
-using Step = void (*)(i64*, const i64*, Table, Handles);
+__device__ void after_scan(i64* c, const i64* n, const Table& t, const Handles& h) {
+  const int k = static_cast<int>(t.v[kTiers]);
+  bool stats = false;
+  if (c[kBranch] == k) {
+    const i64 na = n[3];
+    const bool heavy = n[heavy_at(t)] > t.v[kHeavyEw];
+    stats = !heavy && na > 0 && c[kRounds] + 1 < c[kMaxRounds];
+    c[kHeavy] = heavy;
+  }
+  c[kStats] = stats;
+  set_cond(h, h.stats, stats);
+}
+
+// A step as one warp: the head and the counts into shared memory, a slot a
+// lane, the step on lane 0, the head back.
+template <int kStep>
+__global__ void __launch_bounds__(kWarp)
+    k4(i64* __restrict__ carry, const i64* __restrict__ counts, const Table t, const Handles h) {
+  __shared__ i64 c[kHead];
+  __shared__ i64 n[kMaxCounts];
+  const int lane = threadIdx.x;
+  c[lane] = carry[lane];
+  if (lane <= heavy_at(t)) n[lane] = counts[lane];
+  __syncwarp();
+  if (lane == 0) {
+    if constexpr (kStep == kPrime)
+      prime(c, n, t, h);
+    else if constexpr (kStep == kTurn)
+      turn(c, n, carry + kHead, t, h);
+    else
+      after_scan(c, n, t, h);
+  }
+  __syncwarp();
+  carry[lane] = c[lane];
+}
+
+using Kernel = void (*)(i64*, const i64*, Table, Handles);
 
 Table table_of(const i64* tab) {
   Table t;
@@ -223,14 +287,14 @@ cudaError_t add_node(cudaGraphNode_t* node, cudaGraph_t g, const cudaGraphNode_t
 #endif
 }
 
-// a K4 step as a kernel node after `dep` (none where it is null)
-cudaError_t add_step(cudaGraphNode_t* node, cudaGraph_t g, const cudaGraphNode_t* dep, Step fn,
+// a K4 step as a kernel node of one warp after `dep` (none where it is null)
+cudaError_t add_step(cudaGraphNode_t* node, cudaGraph_t g, const cudaGraphNode_t* dep, Kernel fn,
                      i64* carry, const i64* counts, const Table& t, const Handles& h) {
   cudaKernelNodeParams p = {};
   void* args[] = {&carry, &counts, const_cast<Table*>(&t), const_cast<Handles*>(&h)};
   p.func = reinterpret_cast<void*>(fn);
   p.gridDim = dim3(1);
-  p.blockDim = dim3(1);
+  p.blockDim = dim3(kWarp);
   p.kernelParams = args;
   return cudaGraphAddKernelNode(node, g, dep, dep ? 1 : 0, &p);
 }
@@ -274,11 +338,13 @@ cudaError_t build(Loop* L, cudaGraph_t prologue, cudaGraph_t const* branches, in
     return e;
   Handles h = {};
   h.live = 1;
-  // every condition is reset to 0 at each launch; prime sets the WHILE's
-  // before the loop, and decide and after_scan set theirs before their nodes
+  // every condition is reset to 0 at each run of the graph that holds it;
+  // prime sets the WHILE's before the loop, turn the SWITCH's and the
+  // WHILE's in each run of the body, before the SWITCH, and after_scan the
+  // stats IF's before that IF
   if ((e = cudaGraphConditionalHandleCreate(&h.loop, L->graph, 0, cudaGraphCondAssignDefault)))
     return e;
-  if ((e = add_step(&node, L->graph, last ? &last : nullptr, k4_prime, carry, counts, t, h)))
+  if ((e = add_step(&node, L->graph, last ? &last : nullptr, k4<kPrime>, carry, counts, t, h)))
     return e;
   last = node;
   cudaGraph_t body, arms[kMaxTiers + 1], stats;
@@ -288,20 +354,18 @@ cudaError_t build(Loop* L, cudaGraph_t prologue, cudaGraph_t const* branches, in
   // scan's arm: each to the graph that holds its node
   if ((e = cudaGraphConditionalHandleCreate(&h.branch, body, 0, cudaGraphCondAssignDefault)))
     return e;
-  if ((e = add_step(&last, body, nullptr, k4_decide, carry, counts, t, h))) return e;
+  if ((e = add_step(&last, body, nullptr, k4<kTurn>, carry, counts, t, h))) return e;
   if ((e = add_cond(&node, body, &last, h.branch, cudaGraphCondTypeSwitch, k + 1, arms)))
     return e;
-  last = node;
   for (int i = 0; i <= k; ++i)  // the tiers, then the scan
     if ((e = cudaGraphAddChildGraphNode(&inner, arms[i], nullptr, 0, branches[i]))) return e;
   // the scan's arm goes on: after_scan, then the stats under an IF
   if ((e = cudaGraphConditionalHandleCreate(&h.stats, arms[k], 0, cudaGraphCondAssignDefault)))
     return e;
   cudaGraphNode_t after;
-  if ((e = add_step(&after, arms[k], &inner, k4_after_scan, carry, counts, t, h))) return e;
+  if ((e = add_step(&after, arms[k], &inner, k4<kAfterScan>, carry, counts, t, h))) return e;
   if ((e = add_cond(&node, arms[k], &after, h.stats, cudaGraphCondTypeIf, 1, &stats))) return e;
   if ((e = cudaGraphAddChildGraphNode(&inner, stats, nullptr, 0, branches[k + 1]))) return e;
-  if ((e = add_step(&node, body, &last, k4_tally, carry, counts, t, h))) return e;
   return cudaGraphInstantiate(&L->exec, L->graph, 0);
 }
 
@@ -309,17 +373,16 @@ cudaError_t build(Loop* L, cudaGraph_t prologue, cudaGraph_t const* branches, in
 
 extern "C" {
 
-// One step (0 prime, 1 decide, 2 after_scan, 3 tally) on `carry` with no
-// graph around it: it writes the carry and sets no condition. `tab` is the
+// One step (0 prime, 1 turn, 2 after_scan) on `carry` with no graph around
+// it: it writes the carry and sets no condition. `tab` is the
 // table on the host (kTabLen values).
 int pprx_loop_step(int which, i64* carry, const i64* counts, const i64* tab, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Table t = table_of(tab);
   switch (which) {
-    case 0: k4_prime<<<1, 1, 0, s>>>(carry, counts, t, Handles{}); break;
-    case 1: k4_decide<<<1, 1, 0, s>>>(carry, counts, t, Handles{}); break;
-    case 2: k4_after_scan<<<1, 1, 0, s>>>(carry, counts, t, Handles{}); break;
-    case 3: k4_tally<<<1, 1, 0, s>>>(carry, counts, t, Handles{}); break;
+    case kPrime: k4<kPrime><<<1, kWarp, 0, s>>>(carry, counts, t, Handles{}); break;
+    case kTurn: k4<kTurn><<<1, kWarp, 0, s>>>(carry, counts, t, Handles{}); break;
+    case kAfterScan: k4<kAfterScan><<<1, kWarp, 0, s>>>(carry, counts, t, Handles{}); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();

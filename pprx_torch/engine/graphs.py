@@ -11,10 +11,11 @@ the card so does the port (``RoundGraphs.loop``): each branch (a compact
 tier, the scan round, its stats) and the loop's prologue (a slide's, or a
 seed's first count) is captured once with torch, and the loop is one CUDA
 graph built around them (``pprx_torch/csrc/loop.cu``): ``[prologue] ->
-prime -> WHILE { decide -> SWITCH { tier_0 | .. | tier_k-1 | scan ->
-after_scan -> IF { stats } } -> tally }``, where the four steps are K4's
-one-thread kernels on the loop's carry (``pprx_torch.engine.loop``), which
-set the conditions. A loop is one graph launch and one read of the carry
+prime -> WHILE { turn -> SWITCH { tier_0 | .. | tier_k-1 | scan ->
+after_scan -> IF { stats } } }``, where the three steps are K4's one-warp
+kernels on the loop's carry (``pprx_torch.engine.loop``), which set the
+conditions: a turn tallies the round before and picks the next one's
+branch, or none. A loop is one graph launch and one read of the carry
 (its statistics) by the host. On the CPU the same branches run eagerly
 under a host loop of K4's plain steps, with a read of the counts a round.
 
@@ -299,26 +300,26 @@ class RoundGraphs:
 
     def host_loop(self, prologue: Step | None, branches: list[Step], table: loop.Table,
                   c0ok: bool, max_rounds: int) -> tuple[list[int], int]:
-        """The loop on the host, as ``loop``: each step by ``run`` and
-        K4's plain steps on a carry on the CPU, with a read of ``counts``
-        after the prologue and after each round and each stats run."""
+        """The loop on the host, as ``loop``: the loop graph's sequence,
+        each branch by ``run`` and K4's plain steps on a carry on the CPU,
+        with a read of ``counts`` after the prologue and after each round
+        and each stats run."""
         carry = loop.new_carry("cpu")
         if prologue is not None:
             self.run(*prologue)
         loop.set_inputs(carry, c0ok, max_rounds)
         counts = self.read()
         reads = 1
-        go = loop.prime(carry, counts, table)
-        while go:
-            b = loop.decide(carry, table)
-            self.run(*branches[b])
-            counts = self.read()
-            reads += 1
-            if b == table.scan and loop.after_scan(carry, counts, table):
-                self.run(*branches[-1])
+        if loop.prime(carry, counts, table):
+            # the WHILE's body: a turn, then the SWITCH over its branch
+            while (b := loop.turn(carry, counts, table)) != table.stop:
+                self.run(*branches[b])
                 counts = self.read()
                 reads += 1
-            go = loop.tally(carry, counts, table)
+                if b == table.scan and loop.after_scan(carry, counts, table):
+                    self.run(*branches[-1])
+                    counts = self.read()
+                    reads += 1
         n = loop.HEAD if LOG_SINK is None else loop.SIZE
         return carry[:n].tolist(), reads
 
@@ -351,16 +352,17 @@ class RoundGraphs:
         self.ready.synchronize()
         values = self.carry_host[:n].tolist()
         # what the loop launched: its prologue once, each branch as often
-        # as it ran, and K4's steps
+        # as it ran, and K4's steps: a turn a round and one to end the loop
+        # (none where prime stopped it), after_scan in the scan's arm
         execs = values[loop.EXECS:loop.EXECS + len(branches)]
         for (_, launched), times in zip(parts, [1] * (prologue is not None) + execs):
             for counts, added in zip(KERNEL_COUNTS, launched):
                 for k, c in added.items():
                     counts[k] += c * times
+        rounds = values[loop.ROUNDS]
         loop.LAUNCHES["prime"] += 1
-        loop.LAUNCHES["decide"] += values[loop.ROUNDS]
-        loop.LAUNCHES["tally"] += values[loop.ROUNDS]
-        loop.LAUNCHES["after_scan"] += execs[table.scan]  # in the scan's arm
+        loop.LAUNCHES["turn"] += rounds + 1 if rounds else 0
+        loop.LAUNCHES["after_scan"] += execs[table.scan]
         self.branch_execs += sum(execs)
         return values, 1
 

@@ -11,12 +11,15 @@ write in one small int64 tensor, the *carry*, and writes each decision as a
 step on it:
 
 - ``prime``: the loop's start, from the first list's exact counts;
-- ``decide``: the round's branch, a compact tier (its index is the number
-  of lower tiers whose capacities the counts miss) or the scan;
+- ``turn``: the last round's ``tally``, where one is pending (its
+  statistics, the next round's counts and whether the loop goes on), then,
+  where the loop goes on, the next round's ``decide``: its branch, a
+  compact tier (its index is the number of lower tiers whose capacities
+  the counts miss) or the scan;
 - ``after_scan``: whether a scan's next-frontier stats run (the port's
-  stats-skip: not for a heavy scan, nor where no round follows);
-- ``tally``: the round's statistics, the next round's counts and whether
-  the loop goes on.
+  stats-skip: not for a heavy scan, nor where no round follows).
+
+A loop of R rounds takes R + 1 turns (none where ``prime`` stops it).
 
 The two engines' loops differ in two rules, which a table's ``sharded``
 field picks (``pprx/dist/wl.py:1023``, ``:911-917``):
@@ -33,14 +36,15 @@ write only the next list and its counts, and where no round follows
 (``n_active`` 0, or the round cap) nothing reads those. So ``p``, ``r``
 and the rounds are the reference's.
 
-On CUDA these steps are the one-thread kernels of
+On CUDA ``prime``, ``turn`` and ``after_scan`` are the one-warp kernels of
 ``pprx_torch/csrc/loop.cu`` (K4) inside one conditional CUDA graph per loop
 (``pprx_torch.engine.graphs.RoundGraphs.loop``), where each also sets the
 graph's branch and loop conditions. On the CPU the host loops of
 ``pprx_torch.engine.wl2`` and ``pprx_torch.dist.wl`` call the plain steps
 below, which nothing on CUDA calls; ``step_`` runs one step on a carry
 where it lies, the kernel on a card or the plain step on the CPU. Both
-write the same carry.
+write the same carry. ``decide`` and ``tally`` have no kernel of their own:
+they are ``turn``'s parts, and ``replay_log``'s.
 
 Branches are numbered: the ``k`` tiers ``0 .. k-1``, the scan ``k`` and its
 stats ``k + 1``. The carry also counts each branch's executions (what a
@@ -65,6 +69,7 @@ ROUNDS, MAX_ROUNDS, C0OK = 6, 7, 8  # MAX_ROUNDS and C0OK: set before a loop
 PUSHES, EDGE_PUSHES, WL_ROUNDS, SCANS_CAND, SCANS_FED, SCANS_LIV, STATS_READS = range(9, 16)
 BRANCH, HEAVY, STATS, GO = 16, 17, 18, 19  # the round's decisions
 EXECS = 20  # executions of each branch, MAX_BRANCHES slots
+PENDING = 30  # a round decided and not yet tallied
 HEAD = 32  # the slots above; the round log follows
 
 MAX_TIERS = 8
@@ -87,7 +92,8 @@ TAB = T_W + 4 * MAX_TIERS
 
 BIG = 2**31 // 2 - 1  # the reference's "skip" sentinel (int32 max // 2)
 
-STEPS = ("prime", "decide", "after_scan", "tally")
+# K4's kernels, as ``pprx_loop_step`` numbers them
+STEPS = ("prime", "turn", "after_scan")
 # K4's launches since the last reset, by step (as ``segsum.LAUNCHES``); a
 # loop graph's are counted from its carry when it is read
 LAUNCHES = {step: 0 for step in STEPS}
@@ -128,6 +134,12 @@ class Table:
     def scan(self) -> int:
         """The scan's branch; its stats' is ``scan + 1``."""
         return len(self.tiers)
+
+    @property
+    def stop(self) -> int:
+        """The branch ``turn`` gives where the loop ends: past the
+        SWITCH's arms (the tiers and the scan), so that it runs none."""
+        return self.scan + 1
 
     @property
     def heavy_at(self) -> int:
@@ -279,7 +291,20 @@ def tally(carry: torch.Tensor, counts, table: Table) -> bool:
     return go
 
 
-PLAIN = {"prime": prime, "decide": decide, "after_scan": after_scan, "tally": tally}
+def turn(carry: torch.Tensor, counts, table: Table) -> int:
+    """The loop body's first step: ``tally`` of the round pending, if one
+    is (``PENDING``), then, if the loop goes on (``GO``), ``decide`` of the
+    next; returns that round's branch, or ``table.stop`` where the loop
+    ends."""
+    if carry[PENDING]:
+        tally(carry, counts, table)
+    go = bool(carry[GO])
+    carry[PENDING] = int(go)
+    return decide(carry, table) if go else table.stop
+
+
+PLAIN = {"prime": prime, "decide": decide, "after_scan": after_scan, "tally": tally,
+         "turn": turn}
 
 
 # ---- K4 on the card
@@ -332,13 +357,16 @@ def _check_operands(carry: torch.Tensor, counts, table: Table) -> None:
 
 
 def step_(name: str, carry: torch.Tensor, counts, table: Table):
-    """One step on ``carry`` where it lies: on a card the K4 kernel (with
-    no graph around it: it writes the carry and sets no condition), on the
-    CPU the plain step, which returns the decision."""
+    """One step on ``carry`` where it lies: on a card the K4 kernel (one of
+    ``STEPS``, with no graph around it: it writes the carry and sets no
+    condition), on the CPU the plain step (any of ``PLAIN``), which returns
+    the decision."""
     _check_operands(carry, counts, table)
     if carry.device.type == "cpu":
         args = (carry, table) if name == "decide" else (carry, counts, table)
         return PLAIN[name](*args)
+    if name not in STEPS:
+        raise ValueError(f"K4 has no kernel {name!r}: its kernels are {STEPS}")
     if not isinstance(counts, torch.Tensor):
         raise ValueError("K4 reads its counts from a tensor on the card")
     with torch.cuda.device(carry.device):
@@ -352,9 +380,9 @@ def step_(name: str, carry: torch.Tensor, counts, table: Table):
 
 class LoopGraph:
     """One convergence loop as an instantiated CUDA graph (``loop.cu``'s
-    ``pprx_loop_build``): ``[prologue] -> prime -> WHILE { decide ->
-    SWITCH { tier_0 | .. | tier_k-1 | scan -> after_scan -> IF { stats } }
-    -> tally }``, each arm a clone of the branch's captured graph.
+    ``pprx_loop_build``): ``[prologue] -> prime -> WHILE { turn -> SWITCH
+    { tier_0 | .. | tier_k-1 | scan -> after_scan -> IF { stats } } }``,
+    each arm a clone of the branch's captured graph.
     ``prologue`` and ``branches`` are raw ``cudaGraph_t`` handles (torch's
     ``CUDAGraph(keep_graph=True).raw_cuda_graph()``); the graph reads the
     carry, the counts and the table's values baked in at build."""

@@ -403,3 +403,42 @@ def test_sharded_loop_checks():
     assert res["host_reads_per_slide"] == 0 and res["graph_launches"] == 0
     assert res["driver_host_ms"] > 0 and res["engine_ms"] > 0
     assert res["graphs"]["loop_launches"] == 0 and res["graphs"]["reads"] > 0
+
+
+def test_loop_control_entries_and_turn_shape():
+    """Phase 3c's parts that run without a card: each K4 kernel's entry of
+    the kernels line (``loop_prime``, ``loop_turn``, ``loop_after_scan``)
+    holds the contract's keys and its main-path launches; each kernel is
+    timed on a case the loop graph launches it for (``K4_TIMED``,
+    ``k4_launch``); ``--shapes loop_control`` runs phase 3c in each root,
+    and no default ``--turns`` run does."""
+    from pprx_torch.engine import loop
+
+    assert loop.STEPS == ("prime", "turn", "after_scan")
+    timing = {"ms": 0.001, "plain_ms": 0.02, "bound_ms": 2e-7, "bound_by": "bytes",
+              "max_abs_err": 0}
+    k4 = {**{step: dict(timing) for step in loop.STEPS}, "graph_kernel_floor_ms": 0.001,
+          "body_kernel_ms": 0.001, "conditional_overhead_ms_per_round": 0.003}
+    launches = {"forward": {"loop_prime": 32, "loop_turn": 552, "loop_after_scan": 320},
+                "config5_f32": {"loop_prime": 10, "loop_turn": 149, "loop_after_scan": 100}}
+    for step in loop.STEPS:
+        entry = chip_smoke.loop_entry(step, k4, launches)
+        assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(entry)
+        assert entry["name"] == f"loop_{step}" and entry["route"] == "cuda"
+        assert entry["launches"] == launches["forward"][f"loop_{step}"]
+        assert entry["launches_by_path"]["config5_f32"] == launches["config5_f32"][f"loop_{step}"]
+    cases = {case[0]: case for case in chip_smoke.K4_CASES}
+    assert set(chip_smoke.K4_TIMED) == set(loop.STEPS)
+    for step, name in chip_smoke.K4_TIMED.items():
+        assert chip_smoke.k4_launch(cases[name])[0] == step
+    assert "loop_control" not in {sh["tag"] for sh in chip_smoke.turn_shapes()}
+    assert len(chip_smoke.turn_shapes()) == 7
+    assert chip_smoke.turns(["--shapes", "loop_control"]) == 0
+    # a root's phase 3c goes under its own key: the kernel ``turn`` must
+    # not overwrite the record's turn
+    import types
+
+    cs = types.SimpleNamespace(check_k4=lambda dev: {"turn": dict(timing), **k4})
+    rec = chip_smoke.turn_record(cs, {"tag": "loop_control"}, torch.device("cpu"))
+    assert list(rec) == ["loop_control"] and rec["loop_control"]["turn"] == timing

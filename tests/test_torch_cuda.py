@@ -1148,23 +1148,68 @@ def test_driver_on_an_explicit_index_replays_its_rounds(monkeypatch):
 
 @pytest.mark.cuda
 def test_k4_matches_its_plain_steps_on_the_table():
-    """K4's four kernels against their plain steps on every case of the
-    smoke script's table of carries: the whole carry equal (decisions,
-    tallies, log), so each branch choice; one launch counted a case."""
+    """K4's three kernels against their plain steps on every case of the
+    smoke script's table of carries, each case through the kernel the loop
+    graph launches for it (``chip_smoke.k4_launch``: a ``decide`` case is a
+    turn with no round pending, a ``tally`` case a turn with one): the
+    whole carry equal (decisions, tallies, log), so each branch choice; one
+    launch counted a case, by kernel."""
     import chip_smoke
     from pprx_torch.engine import loop
 
     dev = _cuda()
     before = dict(loop.LAUNCHES)
+    launched = dict.fromkeys(loop.STEPS, 0)
     for case in chip_smoke.K4_CASES:
-        name, step, _, _ = case
-        carry, counts = chip_smoke.k4_case(case)
+        step, carry, counts = chip_smoke.k4_launch(case)
         want = carry.clone()
         loop.step_(step, want, counts, chip_smoke.k4_table(case))
         got = carry.to(dev)
         loop.step_(step, got, counts.to(dev), chip_smoke.k4_table(case))
-        assert torch.equal(got.cpu(), want), name
-    assert loop.launches(since=before) == len(chip_smoke.K4_CASES)
+        assert torch.equal(got.cpu(), want), case[0]
+        launched[step] += 1
+    assert {step: loop.launches(step, since=before) for step in loop.STEPS} == launched
+    assert launched["turn"] == sum(case[1] in ("decide", "tally", "turn")
+                                   for case in chip_smoke.K4_CASES)
+    with pytest.raises(ValueError, match="no kernel"):
+        loop.step_("decide", carry.to(dev), counts.to(dev), chip_smoke.K4_TABLE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c0ok, max_rounds", [(False, 9), (False, 1), (True, 9), (False, 0)])
+def test_loop_graph_leaves_the_host_loops_carry(monkeypatch, c0ok, max_rounds):
+    """A loop graph of the smoke script's fill-kernel branches (every round
+    leaves an active pair) against the host loop on the same branches: a
+    loop cut at its cap, a one-round loop, and two that ``prime`` stops (a
+    valid empty list, no round allowed) leave the same carry head and round
+    log; a loop that runs launches ``turn`` its rounds + 1 times, one that
+    ``prime`` stops none. Each branch counts its own runs on the card: the
+    SWITCH given a value past its arms, where the loop ends, runs none."""
+    import chip_smoke
+    from pprx_torch.engine import graphs, loop
+    from pprx_torch.engine.graphs import RoundGraphs
+
+    dev = _cuda()
+    monkeypatch.setattr(graphs, "LOG_SINK", [])
+    runs = {}
+    for tag in ("device", "host"):
+        g = RoundGraphs(8, 8, dev)
+        hits = torch.zeros(3, dtype=torch.int64, device=dev)
+        branches = [(key, lambda fn=fn, i=i: (fn(), hits[i:i + 1].add_(1)))
+                    for i, (key, fn) in enumerate(chip_smoke.fill_branches(g))]
+        loop_fn = g.loop if tag == "device" else g.host_loop
+        before = dict(loop.LAUNCHES)
+        values, reads = loop_fn(None, branches, chip_smoke.FILL_TABLE, c0ok, max_rounds)
+        torch.cuda.synchronize(dev)
+        runs[tag] = (values[:loop.HEAD], loop.log_rows(values),
+                     {step: loop.launches(step, since=before) for step in loop.STEPS})
+        assert hits.tolist() == values[loop.EXECS:loop.EXECS + 3], tag
+    (head, rows, launched), (host_head, host_rows, _) = runs["device"], runs["host"]
+    assert head == host_head and rows == host_rows
+    rounds = head[loop.ROUNDS]
+    assert rounds == (0 if c0ok else max_rounds)
+    assert launched == {"prime": 1, "turn": rounds + 1 if rounds else 0,
+                        "after_scan": int(rounds > 0)}
 
 
 @pytest.mark.cuda
@@ -1237,17 +1282,18 @@ def test_device_loop_slides_seed_and_refine_hold_the_contract(monkeypatch, mode)
 def test_k4_sharded_rule_equals_its_plain_steps():
     """K4 under the sharded wl engine's rule (``chip_smoke.K4_SHARDED``: the
     first round runs whatever the list, the stats-skip reads ``ewr``)
-    against its plain steps on each ``sharded_*`` case: the whole carry
-    equal."""
+    against its plain steps on each ``sharded_*`` case, through the kernel
+    the loop graph launches for it (``chip_smoke.k4_launch``): the whole
+    carry equal."""
     import chip_smoke
     from pprx_torch.engine import loop
 
     dev = _cuda()
     cases = [c for c in chip_smoke.K4_CASES if c[0].startswith("sharded_")]
-    assert len(cases) >= 9
+    assert len(cases) >= 10
     for case in cases:
-        name, step, _, _ = case
-        carry, counts = chip_smoke.k4_case(case)
+        name = case[0]
+        step, carry, counts = chip_smoke.k4_launch(case)
         assert chip_smoke.k4_table(case).sharded and counts.numel() == loop.N_COUNTS
         want = carry.clone()
         loop.step_(step, want, counts, chip_smoke.K4_SHARDED)

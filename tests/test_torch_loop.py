@@ -11,7 +11,9 @@ the sharded wl engine's rule from ``pprx/dist/wl.py`` (the first round runs
 whatever the list; the stats-skip reads ``ewr``). Then the host loop on those
 steps against the JAX package's driver on a stream, f64, both modes: the
 same rounds and tallies, p/r at 1e-12, and its round log replays through
-``decide``.
+``decide``. The host loop runs the steps the loop graph launches: ``prime``,
+then a ``turn`` (the last round's ``tally``, the next one's ``decide``) a
+round and one more, and ``after_scan`` in scan rounds.
 """
 
 import re
@@ -99,6 +101,34 @@ EXPECTED = {
     "tally_no_active": {
         L.CN: 1, L.FED: 1, L.FRE: 1, L.OK: 1, L.NA: 0, L.EW: 0, L.ROUNDS: 3,
         L.WL_ROUNDS: 2, L.EXECS + 1: 1, L.GO: 0, "log": {2: {5: 0, 6: 0, 7: 0}}},
+    # a turn: the pending round's tally as above, then the next round's
+    # decision from the counts the tally left (logged in the next row, the
+    # round pending again), or, where the loop ends, none (nothing pending)
+    "turn_tier_then_tier": {
+        L.CN: 64, L.FED: 100, L.FRE: 3, L.OK: 1, L.NA: 12, L.EW: 400, L.ROUNDS: 3,
+        L.PUSHES: 112, L.EDGE_PUSHES: 1400, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 1,
+        L.BRANCH: 1, L.PENDING: 1,
+        "log": {2: {5: 12, 6: 400, 7: 0}, 3: [1, 1, 64, 100, 3, 0, 0, 0]}},
+    "turn_heavy_scan_then_scan": {
+        L.CN: BIG, L.FED: BIG, L.FRE: BIG, L.OK: 0, L.NA: 9, L.EW: 5000, L.ROUNDS: 3,
+        L.PUSHES: 109, L.EDGE_PUSHES: 6000, L.SCANS_CAND: 2, L.SCANS_FED: 1,
+        L.SCANS_LIV: 1, L.EXECS + 3: 2, L.GO: 1, L.BRANCH: 3, L.HEAVY: 0, L.PENDING: 1,
+        "log": {2: {5: 9, 6: 5000, 7: 0}, 3: [3, 0, BIG, BIG, BIG, 0, 0, 0]}},
+    "turn_light_scan_stats_then_tier": {
+        L.CN: 40, L.FED: 50, L.FRE: 6, L.OK: 1, L.NA: 9, L.EW: 100, L.ROUNDS: 3,
+        L.PUSHES: 109, L.EDGE_PUSHES: 1100, L.STATS_READS: 1, L.SCANS_CAND: 2,
+        L.SCANS_FED: 1, L.SCANS_LIV: 1, L.EXECS + 3: 2, L.EXECS + 4: 1, L.GO: 1,
+        L.BRANCH: 1, L.STATS: 0, L.PENDING: 1,
+        "log": {2: {5: 9, 6: 100, 7: 1}, 3: [1, 1, 40, 50, 6, 0, 0, 0]}},
+    "turn_reaches_max_rounds": {
+        L.CN: 1, L.FED: 1, L.FRE: 1, L.OK: 1, L.NA: 9, L.EW: 10, L.ROUNDS: 6,
+        L.PUSHES: 109, L.EDGE_PUSHES: 1010, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 0,
+        L.PENDING: 0, "log": {5: {5: 9, 6: 10, 7: 0}}},
+    "turn_no_active": {
+        L.CN: 1, L.FED: 1, L.FRE: 1, L.OK: 1, L.NA: 0, L.EW: 0, L.ROUNDS: 3,
+        L.WL_ROUNDS: 2, L.EXECS + 1: 1, L.GO: 0, L.PENDING: 0,
+        "log": {2: {5: 0, 6: 0, 7: 0}}},
+    "turn_nothing_pending": {L.BRANCH: 0, L.PENDING: 1, "log": {2: [0, 1, 8, 32, 4, 0, 0, 0]}},
     # the sharded rule, written from pprx/dist/wl.py: the loop starts with
     # work 1 (:1023), so the first round runs from an empty valid list; the
     # stats-skip reads ewr (:911-917), and the log its count
@@ -117,6 +147,12 @@ EXPECTED = {
         L.CN: BIG, L.FED: BIG, L.FRE: BIG, L.OK: 0, L.NA: 9, L.EW: 5000, L.ROUNDS: 3,
         L.PUSHES: 109, L.EDGE_PUSHES: 6000, L.SCANS_CAND: 2, L.SCANS_FED: 1,
         L.SCANS_LIV: 1, L.EXECS + 3: 2, L.GO: 1, "log": {2: {5: 9, 6: 4300, 7: 0}}},
+    # wl2's rule would find the list invalid (65 > 64) and scan next
+    "sharded_turn_tier_list_then_tier": {
+        L.CN: 65, L.FED: 100, L.FRE: 3, L.OK: 1, L.NA: 12, L.EW: 400, L.ROUNDS: 3,
+        L.PUSHES: 112, L.EDGE_PUSHES: 1400, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 1,
+        L.BRANCH: 2, L.PENDING: 1,
+        "log": {2: {5: 12, 6: 0, 7: 0}, 3: [2, 1, 65, 100, 3, 0, 0, 0]}},
 }
 
 CASES = {case[0]: case for case in chip_smoke.K4_CASES}
@@ -131,7 +167,8 @@ def test_the_table_covers_every_case():
 @pytest.mark.parametrize("name", list(CASES))
 def test_plain_step_on_the_table(name):
     """Each step leaves the carry as the reference's rules say, and returns
-    the decision it wrote."""
+    the decision it wrote (a turn: the next round's branch, or the table's
+    ``stop`` where the loop ends)."""
     _, step, _, counts = CASES[name]
     carry, counts_t = chip_smoke.k4_case(CASES[name])
     want = carry.clone()
@@ -147,13 +184,17 @@ def test_plain_step_on_the_table(name):
     for slot, v in exp.items():
         want[slot] = v
     # the plain steps take the counts as a tensor or as the host's read
+    table = chip_smoke.k4_table(CASES[name])
     for given in (counts_t, list(counts)):
         got = carry.clone()
-        out = loop.step_(step, got, given, chip_smoke.k4_table(CASES[name]))
+        out = loop.step_(step, got, given, table)
         assert torch.equal(got, want), (got != want).nonzero().flatten().tolist()
-        decision = {"prime": L.GO, "decide": L.BRANCH, "after_scan": L.STATS,
-                    "tally": L.GO}[step]
-        assert int(out) == int(want[decision])
+        if step == "turn":
+            assert out == (int(want[L.BRANCH]) if want[L.GO] else table.stop)
+        else:
+            decision = {"prime": L.GO, "decide": L.BRANCH, "after_scan": L.STATS,
+                        "tally": L.GO}[step]
+            assert int(out) == int(want[decision])
 
 
 def test_slots_match_the_kernel_source():
@@ -166,16 +207,45 @@ def test_slots_match_the_kernel_source():
              "Pushes": L.PUSHES, "EdgePushes": L.EDGE_PUSHES, "WlRounds": L.WL_ROUNDS,
              "ScansCand": L.SCANS_CAND, "ScansFed": L.SCANS_FED, "ScansLiv": L.SCANS_LIV,
              "StatsReads": L.STATS_READS, "Branch": L.BRANCH, "Heavy": L.HEAVY,
-             "Stats": L.STATS, "Go": L.GO, "Execs": L.EXECS, "Head": L.HEAD,
+             "Stats": L.STATS, "Go": L.GO, "Execs": L.EXECS, "Pending": L.PENDING,
+             "Head": L.HEAD,
              "Tiers": L.T_TIERS, "HeavyEw": L.T_HEAVY, "Rule": L.T_RULE, "W": L.T_W}
     assert {k: enums[k] for k in pairs} == pairs
     consts = dict(re.findall(r"constexpr int k(\w+) = (\d+);", src))
     assert {k: int(consts[k]) for k in ("MaxTiers", "LogW", "LogCap", "Ewr")} == {
         "MaxTiers": L.MAX_TIERS, "LogW": L.LOG_W, "LogCap": L.LOG_CAP, "Ewr": L.EWR}
     assert "(1LL << 31) / 2 - 1" in src and BIG == (1 << 31) // 2 - 1
-    assert L.EXECS + L.MAX_BRANCHES <= L.HEAD
+    assert L.EXECS + L.MAX_BRANCHES <= L.PENDING < L.HEAD
+    # pprx_loop_step's numbering of the kernels
+    assert {k: enums[k] for k in ("Prime", "Turn", "AfterScan")} == {
+        "Prime": L.STEPS.index("prime"), "Turn": L.STEPS.index("turn"),
+        "AfterScan": L.STEPS.index("after_scan")}
     assert (L.T_E, L.T_G, L.T_EMIT, L.TAB) == tuple(
         L.T_W + i * L.MAX_TIERS for i in (1, 2, 3, 4))
+
+
+@pytest.mark.parametrize("name", [n for n, case in CASES.items()
+                                  if case[1] in ("decide", "tally")])
+def test_turn_is_tally_then_decide(name):
+    """The loop graph runs each ``decide`` and ``tally`` case as a turn
+    (``chip_smoke.k4_launch``, as the card holds the kernel to it): with no
+    round pending a turn is ``decide``, the round then pending; with one
+    pending it is ``tally``, then ``decide`` where the loop goes on, or,
+    where it ends, nothing more: no round pending, and the branch past the
+    SWITCH's arms."""
+    case = CASES[name]
+    table = chip_smoke.k4_table(case)
+    step, carry, counts = chip_smoke.k4_launch(case)
+    assert step == "turn" and int(carry[L.PENDING]) == (case[1] == "tally")
+    got = carry.clone()
+    arm = loop.step_("turn", got, counts, table)
+    want = carry.clone()
+    if case[1] == "tally":
+        loop.step_("tally", want, counts, table)
+    go = bool(want[L.GO])
+    want[L.PENDING] = int(go)
+    assert arm == (loop.step_("decide", want, counts, table) if go else table.stop)
+    assert torch.equal(got, want), (got != want).nonzero().flatten().tolist()
 
 
 def test_table_refuses_a_ladder_it_cannot_hold():
@@ -185,6 +255,35 @@ def test_table_refuses_a_ladder_it_cannot_hold():
         loop.Table(tiers=((1, 1, 1),), emit=(), heavy_ew=1)
     with pytest.raises(ValueError, match="carry"):
         loop.step_("decide", torch.zeros(8, dtype=torch.int64), [0] * 5, chip_smoke.K4_TABLE)
+
+
+@pytest.mark.parametrize("c0ok, max_rounds, rounds", [
+    (False, 1, 1), (False, 2, 2), (False, 7, 7), (True, 7, 0), (False, 0, 0)])
+def test_host_loop_takes_a_turn_a_round_and_one_more(monkeypatch, c0ok, max_rounds, rounds):
+    """The host loop walks the loop graph's sequence on the smoke script's
+    fill-kernel branches (every round leaves an active pair, so a loop ends
+    at its cap): from an invalid list a scan, its stats where a round
+    follows, then tier rounds; R rounds take R + 1 turns and ``after_scan``
+    once, and a loop that ``prime`` stops (a valid empty list, or no round
+    allowed) takes none; a read after each round and each stats run."""
+    calls = {"turn": 0, "after_scan": 0}
+
+    def counted(name, fn):
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        return call
+
+    for name in calls:
+        monkeypatch.setattr(loop, name, counted(name, getattr(loop, name)))
+    g = graphs.RoundGraphs(8, 8, "cpu")
+    values, reads = g.loop(None, chip_smoke.fill_branches(g), chip_smoke.FILL_TABLE, c0ok,
+                           max_rounds)
+    assert values[L.ROUNDS] == rounds and not values[L.PENDING]
+    assert calls == {"turn": rounds + 1 if rounds else 0, "after_scan": int(rounds > 0)}
+    execs = [rounds - 1, 1, int(rounds > 1)] if rounds else [0, 0, 0]
+    assert values[L.EXECS:L.EXECS + 3] == execs
+    assert reads == 1 + rounds + execs[2]
 
 
 CFG = PprConfig(alpha=0.2, eps=1e-8, max_rounds=10_000)

@@ -30,10 +30,15 @@ round trip. Phases, one line each:
    to the plain version without timing, every other layout config 3's
    stream launches: window and fresh view (80k edges), scaled and not, at
    S=8 and at S=128, and its 140,000-lane compact round (int64 ``gat``);
+   and the gather entry at config 4's dense rounds (R=500,001, S=512, the
+   5M-edge window in its forward delivery view), timed beside its bound,
+   its plain version, the library call and the parent's round's delivery
+   (the gather, then ``index_add_`` in edge blocks; ``check_kernel_config4``);
 3b. row passes: ``scan_pass_`` (K2, a scan round's elementwise work) and
    ``frontier_rows`` (K3, the rescan) against their plain versions, bit for
    bit with equal counts, at the headline's (R=200,001, S=128), config 2's
-   (S=16) and config 3's (R=100,001, S=8) shapes, both modes, K2 with f32
+   (S=16), config 3's (R=100,001, S=8) and config 4's (R=500,001, S=512)
+   shapes, both modes, K2 with f32
    and bf16 ``moving``, on states with entries exactly at the threshold and
    dangling rows; two launches bit for bit; in turns each kernel's device
    time, its time with the host side, its plain version's and its bound
@@ -48,11 +53,16 @@ round trip. Phases, one line each:
    fill-kernel branches timed by its rounds: what the WHILE, the SWITCH
    and a turn add to a round, and what a kernel node costs inside a loop's
    body (``check_k4``); the table's ``sharded_*`` cases run under the
-   sharded wl engine's rule (``k4_table``). From
+   sharded wl engine's rule and its ``dense_*`` cases under the dense
+   engine's (``k4_table``), and one-arm loop graphs of the dense rule (0
+   active at the start, one round, stopped at the cap) leave the host
+   loop's carry (``dense_loop_check``). From
    here on every loop graph logs its rounds (``graphs.LOG_SINK``),
    and each phase's line replays the rounds of the loops run since the
    line before through the plain ``decide`` and ``after_scan`` on the
-   counts each round logged (``round_logs``): the branches must be equal;
+   counts each round logged (``round_logs``): the branches must be equal
+   (a loop logs its first ``loop.LOG_CAP`` rounds: ``rounds_not_logged``
+   counts the rest, which are not checked);
 4. stream f32: FastStreamDriver at N=200k, W=2M, b=160k, S=128, eps=1e-6,
    alpha=0.15 (bench.py's shapes): seed, warm-up, 8 timed slides, with the
    driver's captured graphs (``graphs``: graphs and loop graphs held,
@@ -86,7 +96,10 @@ round trip. Phases, one line each:
    ``2 eps``; each must launch the scaled entry and the scan pass;
 9. static: ``run_config(1)`` (with its exact check) and ``run_config(4)``
    (cold dense push of 512 sources on 5M edges, top-100, 16 sampled
-   sources held to exact PPR) at scale 1;
+   sources held to exact PPR) at scale 1, on the dense engine: each push
+   one launch of its loop graph and one read, its rounds K2 then K1, its
+   first count K3, K4 steering (``static_check``: rounds, the loop's
+   captures and their seconds, the launches by entry, peak memory);
 10. checkpoint: the f32 forward driver saved mid-stream and loaded; both
    step one slide and are held to the exact-PPR contract and to each other
    (in ``p + alpha r``, which does not depend on which residuals at their
@@ -101,8 +114,9 @@ round trip. Phases, one line each:
    stream through the port on the CPU, where no kernel runs); each run
    must launch the segment sum and the scan pass;
 12. dense driver: ``StreamDriver`` in both modes on a small window, with
-   slides of 100 edges and of 1 edge, held to exact PPR. It runs plain
-   torch ops: no kernel launch is expected, and any is a failure;
+   slides of 100 edges and of 1 edge, held to exact PPR; each loop (the
+   seed's, each slide's) one loop graph launch and one read, and K1, K2,
+   K3 and K4 launched (``DENSE_ENTRIES``);
 13. the command line (``pprx_torch.cli.main`` called in this process, its
    output captured; ``cli_phase``) at bench.py's headline shapes: 13a
    ``convert`` of the headline stream written as text, held to the port's
@@ -116,7 +130,7 @@ round trip. Phases, one line each:
    precision@100 >= 0.95, L1 mean <= eps * W) and ``bench --config 2`` on
    the converted file; 13f ``python3 -m pprx_torch.cli static`` in a
    subprocess. Each run through the fast driver must launch the gather
-   entry; the static, cold and dense runs must launch nothing. Then
+   entry, and the static, cold and dense runs each of ``DENSE_ENTRIES``. Then
    ``serve_split``: the budget-mode loop with the slide, the budgeted
    refine and the top-k read each timed apart, with the driver's default
    ``rebuild_every`` (8, as ``serve`` runs) and with bench.py's rule (2);
@@ -183,10 +197,11 @@ round trip. Phases, one line each:
 
 Then a JSON line of the kernels, the segment sum's two entries, the two
 row passes and K4's three steps (``launches``: the main path's, phases 4 to
-6, which must launch the gather entry, both row passes and every K4 step; ``launches_by_path``: every path's,
-each counted with the counts set to 0 before it: the main path, each of the
-three reverse runs of phase 8, phases 9 and 10, each run of phase 11, each
-command of phase 13, each config 5 run and sharded command of phases 14
+6, which must launch the gather entry, both row passes and every K4 step;
+``launches_by_path``: every path's, each counted with the counts set to 0
+before it: the main path, each of the three reverse runs of phase 8, each
+config of phase 9, phase 10, each run of phase 11, phase 12, each command
+of phase 13, each config 5 run and sharded command of phases 14
 and 15, each hybrid run and command of phase 16), the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure
@@ -207,7 +222,9 @@ the first call capturing the new eps's rounds; and config 5 forward in f32
 and in reverse,
 ``config5_f32`` and ``config5_rev``, the sharded wl engine at mesh 1x1,
 its spare slide profiled with its peak memory), or those ``--shapes``
-names. One summary line a shape goes to
+names; ``--shapes`` also takes ``loop_control`` (phase 3c), ``config4``
+(phase 9's cold push, twice) and ``dense_driver`` (phase 12's driver,
+timed), which no default run drives. One summary line a shape goes to
 stdout, each whole record, with the card's name and power limit, to
 ``--out`` (JSON lines). Compare two trees only inside one run, in turns
 (A, B, B, A).
@@ -259,10 +276,11 @@ from pprx_torch.engine.rowpass import (
     scan_pass_plain,
 )
 from pprx_torch.engine.state import FORWARD, REVERSE, PprState, settled_distance
-from pprx_torch.engine.update import apply_edge_batch
+from pprx_torch.engine.update import apply_edge_batch, edge_blocks
 from pprx_torch.engine.wl2 import loop_table
 from pprx_torch.eval.metrics import l1_error, precision_at_k
 from pprx_torch.graph import fast_stream
+from pprx_torch.graph.dynamic import WindowGraph, delivery_view
 from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
 from pprx_torch.graph import native_io
 from pprx_torch.graph.hybrid_stream import TUNING as HYBRID_TUNING
@@ -663,11 +681,79 @@ def check_kernel_config2(dev) -> dict:
     return res
 
 
+# config 4: N=500k, 5M edges, S=512 (the dense engine's static push)
+C4_N, C4_EDGES, C4_S, C4_SEED = 500_000, 5_000_000, 512, 4
+C4_REF_BLOCK = 1 << 19  # edges of the f64 reference's gathered rows at once
+
+
+def check_kernel_config4(dev, n: int = C4_N, n_edges: int = C4_EDGES, s: int = C4_S) -> dict:
+    """The gather entry at the shape config 4's dense rounds give it
+    (``c4_*``): R = n + 1 rows, S = 512, the window of ``n_edges``
+    power-law edges (config 4's graph, stream seed 4) in its forward
+    delivery view (sorted by ``dst``, ``gat`` its ``src``,
+    ``pprx_torch.graph.dynamic.delivery_view``), ``rin`` the ``n`` real
+    rows of ``r``, a random f32 table for ``moving``. Held to the plain
+    sum in f64 (summed in edge blocks) within KERNEL_TOL, two launches bit
+    for bit; then, in turns, device times of the kernel, its plain version
+    (``segsum_gather_add_plain``), the library call
+    (``torch.sparse.addmm`` on a unit CSR, as phase 3) and the parent's
+    round's delivery (``parent_ms``: the gather then ``index_add_`` in edge
+    blocks over the ring as it lies, ``push_round``'s forward delivery),
+    the kernel's and the library call's with the host side, and the bound
+    from this run's bytes (each table row the edges name, ``gat``, ``rin``
+    read and written, the offsets) and its f32 additions."""
+    src, dst, n = synthetic_powerlaw_stream(n, n_edges, seed=C4_SEED)
+    window = WindowGraph.from_coo(src, dst, n, device=dev)
+    view = delivery_view(window, FORWARD)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = n + 1
+    table = torch.rand((rows, s), generator=gen, device=dev)
+    rin = torch.rand((n, s), generator=gen, device=dev)
+    gat, off = view.gat, view.off
+    used = int(off[-1] - off[0])
+    tag = "c4_gather_f32"
+    res = {"c4_rows": rows, "c4_s": s, "c4_edges": n_edges, "c4_edges_used": used,
+           "c4_chunk": segsum.chunk_for(gat.shape[0], s),
+           "c4_max_row_edges": int(off.diff().max())}
+    ids = segment_ids(off)
+    ref = rin.double()
+    for lo in range(0, used, C4_REF_BLOCK):
+        hi = min(lo + C4_REF_BLOCK, used)
+        ref.index_add_(0, ids[lo:hi], table[gat[lo:hi]].double())
+    res[f"{tag}_max_abs_err"] = held_to_plain(
+        tag, lambda r: segsum_gather_add_(r, table, gat, off), ref, rin)
+    del ref
+    acc = rin.clone()
+    csr = torch.sparse_csr_tensor(off.to(torch.int32), gat[:used], torch.ones(used, device=dev),
+                                  size=(n, rows))
+    ring_src, ring_dst = window.src, window.dst
+    row_bytes = s * 4
+
+    def parent():
+        for lo, hi in edge_blocks(n_edges, row_bytes):
+            acc.index_add_(0, ring_dst[lo:hi], table[ring_src[lo:hi]])
+
+    fns = {f"{tag}_ms": lambda: segsum_gather_add_(acc, table, gat, off),
+           f"{tag}_plain_ms": lambda: segsum_gather_add_plain(acc, table, gat, off),
+           f"{tag}_library_ms": lambda: torch.sparse.addmm(acc, csr, table),
+           f"{tag}_parent_ms": parent}
+    res.update(in_turns(fns))
+    res.update(in_turns({f"{tag}_call_ms": fns[f"{tag}_ms"],
+                         f"{tag}_library_call_ms": fns[f"{tag}_library_ms"]}, primed=False))
+    table_rows = int(gat[:used].unique().numel())
+    res[f"{tag}_bound_ms"], res[f"{tag}_bound_by"] = bound_ms(
+        table_rows * s * 4 + used * 4 + 2 * n * s * 4 + rows * 4, used * s)
+    res[f"{tag}_share_of_bound"] = res[f"{tag}_bound_ms"] / res[f"{tag}_ms"]
+    res["c4_table_rows_read"] = table_rows
+    return res
+
+
 # phase 3b: the row passes at the streams' shapes: (tag, rows, S, stream
-# seed, window) of the headline, config 2 and config 3
+# seed, window) of the headline, config 2, config 3 and config 4
 ROWPASS_SHAPES = (("headline", HEADLINE["n"] + 1, HEADLINE["s"], HEADLINE["seed"], HEADLINE["w"]),
                   ("config2", C2_ROWS, C2_S, CONFIG2["seed"], CONFIG2["w"]),
-                  ("config3", C3_ROWS, 8, CONFIG3["seed"], CONFIG3["w"]))
+                  ("config3", C3_ROWS, 8, CONFIG3["seed"], CONFIG3["w"]),
+                  ("config4", C4_N + 1, C4_S, C4_SEED, C4_EDGES))
 ROWPASS_EPS, ROWPASS_ALPHA = 1e-6, 0.15
 ROWPASS_AT_THRESHOLD = 1000  # entries set exactly at the threshold: not active
 
@@ -810,9 +896,10 @@ _Z = (0, 0, 0, 0, 0)
 _Z6 = _Z + (0,)
 # the sharded wl engine's rule on the same ladder (pprx_torch.dist.wl in a
 # world of one shard): every tier emits the candidate buffer's width, n + 1
-K4_SHARDED = dataclasses.replace(K4_TABLE, emit=(1001,) * 3, sharded=True)
+K4_SHARDED = dataclasses.replace(K4_TABLE, emit=(1001,) * 3, rule=loop.SHARDED)
 # (name, step, the case's slots, counts: cn, fed, fre, n_active, edge_work)
-# under K4_TABLE; the sharded_* cases under K4_SHARDED (k4_table)
+# under K4_TABLE; the sharded_* cases under K4_SHARDED, the dense_* cases
+# under loop.DENSE_TABLE (k4_table)
 K4_CASES = (
     # prime: an invalid list, an empty valid one, a valid one, no rounds
     ("prime_invalid_list", "prime", {loop.C0OK: 0}, (5, 10, 1, 0, 0)),
@@ -895,13 +982,38 @@ K4_CASES = (
     # is a tier where wl2's would scan
     ("sharded_turn_tier_list_then_tier", "turn", {loop.PENDING: 1, loop.BRANCH: 0},
      (65, 100, 3, 12, 400, 0)),
+    # the dense rule (loop.DENSE_TABLE; counts: n_active and edge pushes in
+    # their slots, 3 and 4): prime stops a loop from 0 active at the start
+    # or at no rounds, and reads nothing of a list
+    ("dense_prime_converged", "prime", {loop.C0OK: 1}, _Z),
+    ("dense_prime_active", "prime", {loop.C0OK: 1}, (5, 10, 1, 7, 0)),
+    ("dense_prime_no_rounds", "prime", {loop.MAX_ROUNDS: 0}, (0, 0, 0, 7, 0)),
+    # one arm: the round, whatever the counts; no stats
+    ("dense_decide", "decide", {}, _Z),
+    ("dense_after_scan_no_stats", "after_scan", {loop.BRANCH: 0}, (0, 0, 0, 7, 10)),
+    # a round's tally goes on while it found an active pair, to the cap
+    ("dense_tally_goes_on", "tally", {loop.BRANCH: 0}, (0, 0, 0, 9, 40)),
+    ("dense_tally_empty_round", "tally", {loop.BRANCH: 0}, _Z),
+    ("dense_tally_reaches_max_rounds", "tally", {loop.BRANCH: 0, loop.ROUNDS: 5},
+     (0, 0, 0, 9, 40)),
+    # turns: a round then the next, a reverse round (its edge pushes, the
+    # in-degree work, below its active pairs), the loop's end at an empty
+    # round and at the cap, and the loop's first turn
+    ("dense_turn_round_then_round", "turn", {loop.PENDING: 1, loop.BRANCH: 0},
+     (0, 0, 0, 9, 40)),
+    ("dense_turn_reverse_round", "turn", {loop.PENDING: 1, loop.BRANCH: 0}, (0, 0, 0, 12, 3)),
+    ("dense_turn_empty_round_ends", "turn", {loop.PENDING: 1, loop.BRANCH: 0}, _Z),
+    ("dense_turn_reaches_max_rounds", "turn", {loop.PENDING: 1, loop.BRANCH: 0,
+                                               loop.ROUNDS: 5}, (0, 0, 0, 9, 40)),
+    ("dense_turn_nothing_pending", "turn", {loop.GO: 1}, _Z),
 )
 
 
 def k4_table(case) -> loop.Table:
     """The table a case of ``K4_CASES`` runs under: the sharded rule's for
-    a case named ``sharded_*``."""
-    return K4_SHARDED if case[0].startswith("sharded_") else K4_TABLE
+    a case named ``sharded_*``, the dense rule's for ``dense_*``."""
+    rule = case[0].split("_")[0]
+    return {"sharded": K4_SHARDED, "dense": loop.DENSE_TABLE}.get(rule, K4_TABLE)
 
 
 def k4_case(case) -> tuple[torch.Tensor, torch.Tensor]:
@@ -988,6 +1100,7 @@ def check_k4(dev) -> dict:
                      "plain_ms": (time.perf_counter() - t0) * 1e3 / 200,
                      "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs[step]}
     res.update(loop_overhead(dev))
+    res["dense_loops"] = dense_loop_check(dev)
     return res
 
 
@@ -1008,6 +1121,44 @@ def fill_branches(g: RoundGraphs, width: int = 1) -> list:
 
 
 FILL_TABLE = loop.Table(tiers=((8, 32, 4),), emit=(8,), heavy_ew=100)
+
+
+def dense_fill(g: RoundGraphs, na0: int) -> tuple:
+    """A dense loop's prologue and round as fill kernels on ``g``'s counts:
+    the first count ``na0``, and a round that leaves an active pair and 3
+    edge pushes, so that a loop that starts runs to its cap."""
+    first = (("first", na0), lambda: g.counts[3:4].fill_(na0))
+    return first, [("round", lambda: (g.counts[3:4].fill_(1), g.counts[4:5].fill_(3)))]
+
+
+# (first count, max_rounds) of the dense loops phase 3c runs: 0 active at
+# the start, one round, stopped at the cap, no round allowed
+DENSE_FILL_LOOPS = ((0, 5), (1, 1), (1, 7), (1, 0))
+
+
+def dense_loop_check(dev) -> dict:
+    """Loop graphs of the dense rule's one-arm form (``dense_fill``
+    branches) on the card against the host loop of the same branches on
+    the CPU: the whole carry equal, K4's launches prime 1 and turn R + 1
+    (none where prime stops the loop), the round's branch run R times."""
+    res = {}
+    for na0, max_rounds in DENSE_FILL_LOOPS:
+        got = {}
+        for where in (dev, torch.device("cpu")):
+            g = RoundGraphs(8, 1, where)
+            before = dict(loop.LAUNCHES)
+            first, branches = dense_fill(g, na0)
+            values, reads = g.loop(first, branches, loop.DENSE_TABLE, True, max_rounds)
+            got[where.type] = (values, reads, {k: loop.LAUNCHES[k] - before[k] for k in before})
+        (values, reads, k4), (want, _, _) = got[dev.type], got["cpu"]
+        rounds = values[loop.ROUNDS]
+        if values != want or reads != 1 or k4 != {
+                "prime": 1, "turn": rounds + 1 if rounds else 0, "after_scan": 0}:
+            raise AssertionError(f"a dense loop from {na0} active, at most {max_rounds} rounds, "
+                                 f"left {values[:loop.HEAD]} ({reads} reads, K4 {k4}) where "
+                                 f"the host loop left {want[:loop.HEAD]}")
+        res[f"{na0}_active_{max_rounds}_rounds"] = rounds
+    return res
 
 
 def loop_overhead(dev, rounds: int = 257, wide: int = 21) -> dict:
@@ -1045,8 +1196,10 @@ def check_round_logs() -> dict:
     """Every loop logged since the last call (``graphs.LOG_SINK``): each
     round's branch and stats choice replayed through the plain ``decide``
     and ``after_scan`` from the counts the round logged must be the one the
-    loop made. Empties the sink; returns the loops and rounds checked."""
-    loops = rounds = 0
+    loop made. A carry logs a loop's first ``loop.LOG_CAP`` rounds: the
+    later ones are not checked, and are counted apart. Empties the sink;
+    returns the loops and rounds checked, and the rounds not logged."""
+    loops = rounds = unlogged = 0
     for rec in graphs.LOG_SINK:
         made = [(row[0], row[7]) for row in rec["rows"]]
         if loop.replay_log(rec["rows"], rec["table"], rec["max_rounds"]) != made:
@@ -1054,8 +1207,9 @@ def check_round_logs() -> dict:
                                  f"logged counts: {rec['rows'][:4]}")
         loops += 1
         rounds += len(made)
+        unlogged += rec["rounds"] - len(made)
     graphs.LOG_SINK.clear()
-    return {"loops": loops, "rounds": rounds}
+    return {"loops": loops, "rounds": rounds, "rounds_not_logged": unlogged}
 
 
 def reset_launches() -> None:
@@ -1469,13 +1623,42 @@ def forward_run(dev, n: int, w: int, b: int, s: int, rebuild_every: int, warmup:
     return res
 
 
+# what a path through the dense engine launches on the card: K1's gather
+# entry and K2 each round, K3 each loop's first count, K4's prime and turn
+DENSE_ENTRIES = ("segsum_gather_add", "scan_pass", "frontier_rows", "loop_prime", "loop_turn")
+
+
+def check_dense_launched(by_path: dict) -> dict:
+    """Every path named (its launches by entry) launched each of
+    ``DENSE_ENTRIES``."""
+    for path, counts in by_path.items():
+        missing = [e for e in DENSE_ENTRIES if counts[e] <= 0]
+        if missing:
+            raise AssertionError(f"{path} never launched {missing}: {counts}")
+    return by_path
+
+
+def dense_loops(g: RoundGraphs, loops: int, dev) -> dict:
+    """A dense engine's ``RoundGraphs`` summary after ``loops`` loops; on
+    the card each loop must have been one loop graph launch and one read of
+    its carry (run under ``no_host_loop``)."""
+    res = {**g.summary(), "loops": loops}
+    if dev.type == "cuda" and not res["loop_launches"] == res["reads"] == loops:
+        raise AssertionError(f"{loops} dense loops ran as {res['loop_launches']} loop graph "
+                             f"launches and {res['reads']} reads: {res}")
+    return res
+
+
 def dense_check(dev) -> dict:
-    """The dense driver (``StreamDriver``: plain torch ops over the COO
-    ring, no kernel of the port's) on the card, both modes, at N=300 and a
-    window of 1,500 edges, with slides of 100 edges and of 1 edge: after the
-    slides every query is held to exact PPR on the window the driver then
-    holds (forward: L1 within eps * W and mass within 1e-3; reverse: max
-    error within 2 eps)."""
+    """The dense driver (``StreamDriver``: its rounds K2 then K1, each loop
+    one conditional graph steered by K4 on the card) on the card, both
+    modes, at N=300 and a window of 1,500 edges, with slides of 100 edges
+    and of 1 edge: after the slides every query is held to exact PPR on the
+    window the driver then holds (forward: L1 within eps * W and mass within
+    1e-3; reverse: max error within 2 eps). On the card each driver's loops
+    (its seed's and each slide's) must each be one loop graph launch and
+    one read (``dense_loops``), and every kernel of ``DENSE_ENTRIES`` must
+    have launched."""
     w = 1500
     src, dst, n = synthetic_powerlaw_stream(300, 3000, seed=5)
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
@@ -1486,8 +1669,10 @@ def dense_check(dev) -> dict:
         for b, slides in ((100, 8), (1, 60)):
             drv = StreamDriver(src, dst, n, queries, cfg, StreamConfig(window=w, slide=b),
                                mode=mode, device=dev)
-            rounds = drv.seed().rounds + sum(st.rounds for st in drv.run(slides))
+            with no_host_loop(dev):
+                rounds = drv.seed().rounds + sum(st.rounds for st in drv.run(slides))
             sync(dev)
+            res[f"{tag}_slide{b}_graphs"] = dense_loops(drv.round_graphs, 1 + slides, dev)
             if drv.state.p.device.type != dev.type or drv.head != w + slides * b:
                 raise AssertionError(f"the dense driver did not run its slides on {dev}")
             hs, hd = src[drv.head - w:drv.head], dst[drv.head - w:drv.head]
@@ -1508,9 +1693,36 @@ def dense_check(dev) -> dict:
             if not err <= bound:
                 raise AssertionError(f"dense {tag} stream, slide {b}: error {err} > {bound}")
     res["kernel_launches"] = all_launches()
-    if res["kernel_launches"] != 0:
-        raise AssertionError("the dense driver launched a kernel")
+    res["launches_by_entry"] = launches_by_entry()
+    if dev.type == "cuda":
+        check_dense_launched({"dense_driver": res["launches_by_entry"]})
     return res
+
+
+def static_check(dev, idx: int) -> dict:
+    """Phase 9: ``run_config(idx)`` for config 1 (with its exact check) or
+    config 4 (16 sampled sources held to exact PPR) on the dense engine,
+    through a ``RoundGraphs`` of this function's, so that its summary (the
+    loop graph's launch, its captures and their seconds, the host's reads)
+    is reported beside the config's keys; with the launches by entry (the
+    counts set to 0 just before) and the peak memory. On the card the push
+    must be one loop graph launch and one read, and launch every kernel of
+    ``DENSE_ENTRIES``."""
+    g = RoundGraphs({1: 1000, 4: C4_N}[idx], 1, dev)
+    kw = {"check_exact": 16} if idx == 4 else {}
+    reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with no_host_loop(dev):
+        out = run_config(idx, device=dev, graphs=g, **kw)
+    out["launches_by_entry"] = launches_by_entry()
+    out["graphs"] = dense_loops(g, 1, dev)
+    out["peak_mem_gib"] = peak_gib(dev)
+    if dev.type == "cuda":
+        check_dense_launched({f"static_config{idx}": out["launches_by_entry"]})
+    if not out["within_bound"]:
+        raise AssertionError(f"config {idx}'s pushed state misses its bound: {out}")
+    return out
 
 
 def checkpoint_check(drv: FastStreamDriver, n_check: int, l1_bound: float) -> dict:
@@ -1614,7 +1826,7 @@ def serve_precision(log_path: str, graph: str, head: int, w: int, queries: list[
 
 FAST_CLI_PATHS = ("cli_serve_budget", "cli_serve_event", "cli_stream", "cli_retrieve_refine",
                   "cli_bench_headline", "cli_bench_config2")
-PLAIN_CLI_PATHS = ("cli_static", "cli_retrieve_cold", "cli_stream_dense")
+DENSE_CLI_PATHS = ("cli_static", "cli_retrieve_cold", "cli_stream_dense")
 
 
 def cli_phase(dev, tmp: str, n: int, w: int, b: int, s: int, k: int = 100,
@@ -1683,7 +1895,7 @@ def cli_phase(dev, tmp: str, n: int, w: int, b: int, s: int, k: int = 100,
     if out["batch"] != len(queries) or out["refine_rounds"] <= 0:
         raise AssertionError(f"retrieve --from-checkpoint did not refine: {out}")
     res["cli_retrieve_refine"] = out
-    # ... and the paths that run plain torch ops, on small graphs
+    # ... and the paths through the dense engine, on small graphs
     small_graph = os.path.join(tmp, "small.npz")
     save_packed(small_graph, *synthetic_powerlaw_stream(small[0], small[1], seed=1))
     out = run_cli(["static", small_graph, "--check-exact", *dv])
@@ -1770,14 +1982,13 @@ def serve_split(dev, graph: str, w: int, b: int, s: int, steps: int = 8, budget:
 
 def check_cli_launches(res: dict) -> dict:
     """Phase 13's launches by path: every path through the fast driver
-    launched the gather entry, and the plain paths launched nothing."""
-    by_path = {path: res[path]["launches_by_entry"] for path in FAST_CLI_PATHS + PLAIN_CLI_PATHS}
+    launched the gather entry, and every path through the dense engine
+    each kernel of ``DENSE_ENTRIES``."""
+    by_path = {path: res[path]["launches_by_entry"] for path in FAST_CLI_PATHS + DENSE_CLI_PATHS}
     for path in FAST_CLI_PATHS:
         if by_path[path]["segsum_gather_add"] <= 0:
             raise AssertionError(f"{path} never launched segsum_gather_add: {by_path[path]}")
-    for path in PLAIN_CLI_PATHS:
-        if any(by_path[path].values()):
-            raise AssertionError(f"{path} runs plain torch ops but launched {by_path[path]}")
+    check_dense_launched({path: by_path[path] for path in DENSE_CLI_PATHS})
     return by_path
 
 
@@ -2537,6 +2748,8 @@ def kernel_entry(name: str, key: str, kern: dict, launches: dict) -> dict:
     errs = {k: v for k, v in kern.items()
             if re.fullmatch(rf"\w*?{key}_(f32|bf16)_max_abs_err", k)}
     timed = {f"{lay}{key}_{dt}_max_abs_err" for lay in plain + scaled for dt in ("f32", "bf16")}
+    # config 4's window (gather entry, f32): the dense round's delivery
+    timed |= {k for k in errs if k.startswith("c4_")}
     whats = ["ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound",
              "call_ms", "library_call_ms"]
     by_path = {path: counts[name] for path, counts in launches.items()}
@@ -2566,6 +2779,8 @@ def kernel_entry(name: str, key: str, kern: dict, launches: dict) -> dict:
                 if f"{lay}{tag}{what}" in rows:  # a layout's tag that ends as a key begins
                     raise AssertionError(f"kernels line: {lay}{tag}{what} names two numbers")
                 rows[f"{lay}{tag}{what}"] = kern[f"{lay}{key}_{dt}_{what}"]
+    if key == "gather":
+        rows.update({k: v for k, v in kern.items() if k.startswith("c4_")})
     return {**out, **rows}
 
 
@@ -2613,8 +2828,9 @@ def loop_entry(step: str, k4: dict, launches: dict) -> dict:
         "name": f"loop_{step}", "route": "cuda", "source": "pprx_torch/csrc/loop.cu",
         "replaces": "pprx/engine/wl2.py:687",
         "tpu_work": "the lax.while_loop of push_to_convergence_wl2, its lax.switch over the "
-                    "tiers and its lax.cond (pprx/engine/wl2.py:617-687), and of the sharded "
-                    "wl engine at 1x1 (pprx/dist/wl.py:954-1025); no pl.pallas_call",
+                    "tiers and its lax.cond (pprx/engine/wl2.py:617-687), of the sharded wl "
+                    "engine at 1x1 (pprx/dist/wl.py:954-1025) and of the dense engine's "
+                    "push_to_convergence (pprx/engine/push.py:94-119); no pl.pallas_call",
         "launches": by_path["forward"], "launches_by_path": by_path,
         **k4[step], "library_ms": None,
         "library_call": "none: no PyTorch call sets a graph's conditions",
@@ -2655,6 +2871,8 @@ def main() -> None:
     kern = check_kernel(dev, n, w, s)
     kern.update(check_kernel_config3(dev))
     kern.update(check_kernel_config2(dev))
+    torch.cuda.empty_cache()
+    kern.update(check_kernel_config4(dev))
     log("3 kernel", **kern)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2728,19 +2946,13 @@ def main() -> None:
         log(f"8 reverse {tag.replace('_', ' ')}", **res)
     torch.cuda.empty_cache()
 
-    # the static configs on the dense engine (plain torch ops: no kernel)
-    reset_launches()
-    c1 = run_config(1, device=dev)
-    if not c1["within_bound"]:
-        raise AssertionError(f"config 1 misses its L1 bound: {c1}")
-    log("9 static config1", **c1)
-    torch.cuda.reset_peak_memory_stats()
-    c4 = run_config(4, device=dev, check_exact=16)
-    if not c4["within_bound"]:
-        raise AssertionError(f"config 4's pushed state misses exact PPR: {c4}")
-    log("9 static config4", **c4, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-    static_by_entry = launches_by_entry()
-    torch.cuda.empty_cache()
+    # the static configs on the dense engine: each push one loop graph
+    # launch; each run sets the counts to 0 and reads them itself
+    static = {}
+    for idx in (1, 4):
+        static[idx] = static_check(dev, idx)
+        log(f"9 static config{idx}", **static[idx])
+        torch.cuda.empty_cache()
 
     reset_launches()
     log("10 checkpoint", **checkpoint_check(drv, 16, l1_bound=cfg.eps * w))
@@ -2755,8 +2967,9 @@ def main() -> None:
         log(f"11 forward config2 {tag}", **res)
     torch.cuda.empty_cache()
 
-    log("12 dense driver", **dense_check(dev),
-        note="plain torch ops on the card: no kernel launch is expected")
+    dense = dense_check(dev)
+    log("12 dense driver", **dense,
+        note="K2 then K1 each round, each loop one graph launch steered by K4")
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2852,7 +3065,9 @@ def main() -> None:
                 **{f"forward_config2_{tag}": res["launches_by_entry"]
                    for tag, res in config2.items()},
                 **{f"reverse_{tag}": res["launches_by_entry"] for tag, res in reverse.items()},
-                "static": static_by_entry, "checkpoint": ckpt_by_entry, **cli_by_path,
+                **{f"static_config{idx}": res["launches_by_entry"] for idx, res in static.items()},
+                "dense_driver": dense["launches_by_entry"], "checkpoint": ckpt_by_entry,
+                **cli_by_path,
                 **sharded_by_path, **hybrid_by_path}
     print(json.dumps({"kernels": [
         kernel_entry("segsum_add", "add", kern, launches),
@@ -2886,8 +3101,13 @@ def turn_shapes() -> list[dict]:
 
 
 # shapes ``--turns`` drives only where ``--shapes`` names them: phase 3c,
-# K4 and the loop graph's cost a round (``check_k4``)
-TURN_EXTRA = [{"tag": "loop_control"}]
+# K4 and the loop graph's cost a round (``check_k4``); phase 9's config 4
+# (its cold push, twice); phase 12's dense driver, both modes, slides of
+# 100 edges and of 1, then the first run again (the first is the first of
+# its process)
+TURN_EXTRA = [{"tag": "loop_control"}, {"tag": "config4", "pushes": 2},
+              {"tag": "dense_driver", "n": 300, "w": 1500, "seed": 5,
+               "runs": [[0, 100, 8], [0, 1, 60], [1, 100, 8], [1, 1, 60], [0, 100, 8]]}]
 
 
 def turn_record(cs, sh: dict, dev) -> dict:
@@ -2895,7 +3115,17 @@ def turn_record(cs, sh: dict, dev) -> dict:
     root the turn runs in (this function's source is run in each, so it
     uses only what each root has: ``run_stream``, ``profile_slides``,
     ``sync``, ``check_k4``, the ``segsum``, ``rowpass`` and ``loop``
-    modules). ``loop_control``: the root's phase 3c, under that key. A
+    modules). ``loop_control``: the root's phase 3c, under that key.
+    ``config4``: ``run_config(4)`` ``pushes`` times, each a cold push
+    (the kernels built before): its ``cold_push_s``, rounds, top-100 ms,
+    peak memory, the device's time from the push's first launch to its last
+    by CUDA events around ``push_to_convergence`` (``push_event_ms``) and
+    inside loop graphs by events around each launch (``graph_device_ms``,
+    none in a tree whose loop runs on the host), the host's reads, and the
+    launches by entry. ``dense_driver``: ``StreamDriver`` on phase 12's
+    stream, each run (mode, slide, slides) seeded, then its slides timed
+    on the host clock around a sync (``slide_ms`` and each slide's
+    ``slide_ms_each``, rounds a slide, the graph time a slide as above). A
     stream shape:
     ``run_stream`` and ``profile_slides`` on ``FastStreamDriver``, then
     two refines to 5e-8 from one state, the first of which captures the
@@ -2922,6 +3152,83 @@ def turn_record(cs, sh: dict, dev) -> dict:
     if sh["tag"] == "loop_control":
         return {"loop_control": cs.check_k4(dev)}
     cuda = dev.type == "cuda"
+    if sh["tag"] in ("config4", "dense_driver"):
+        import pprx_torch.bench.run as run_mod
+        from pprx_torch.graph.stream import StreamDriver
+
+        if cuda and hasattr(cs, "build_all"):
+            cs.build_all()
+        marks, pushes = [], []
+
+        def evented(fn, into):
+            def call(*args, **kw):
+                if not cuda:
+                    return fn(*args, **kw)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kw)
+                end.record()
+                into.append((start, end))
+                return out
+            return call
+
+        def ms(pairs):
+            if not cuda:
+                return None
+            torch.cuda.synchronize()
+            return sum(a.elapsed_time(b) for a, b in pairs)
+
+        patched = [(run_mod, "push_to_convergence", pushes)]
+        try:
+            from pprx_torch.engine.loop import LoopGraph
+            patched.append((LoopGraph, "launch", marks))
+        except ImportError:  # a tree whose loop runs on the host
+            pass
+        originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+        for obj, name, into in patched:
+            setattr(obj, name, evented(getattr(obj, name), into))
+        runs = []
+        try:
+            if sh["tag"] == "config4":
+                for _ in range(sh["pushes"]):
+                    del marks[:], pushes[:]
+                    cs.reset_launches()
+                    if cuda:
+                        torch.cuda.empty_cache()
+                        torch.cuda.reset_peak_memory_stats()
+                    rep = cs.run_config(4, device=dev)
+                    runs.append({**rep, "push_event_ms": ms(pushes), "graph_device_ms": ms(marks),
+                                 "graph_launches": len(marks),
+                                 "launches_by_entry": cs.launches_by_entry(),
+                                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30
+                                 if cuda else None})
+                return {"config4": runs}
+            src, dst, n = synthetic_powerlaw_stream(sh["n"], 2 * sh["w"], seed=sh["seed"])
+            cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
+            for mode, b, k in sh["runs"]:
+                drv = StreamDriver(src, dst, n, [0, 7, 99], cfg,
+                                   StreamConfig(window=sh["w"], slide=b), mode=mode, device=dev)
+                drv.seed()
+                cs.sync(dev)
+                del marks[:]
+                each, rounds = [], 0
+                t0 = time.perf_counter()
+                for st in drv.run(k):
+                    rounds += st.rounds
+                    each.append((time.perf_counter() - t0) * 1e3 - sum(each))
+                cs.sync(dev)
+                wall = (time.perf_counter() - t0) * 1e3
+                graph_ms = ms(marks)
+                runs.append({"mode": mode, "slide": b, "slides": k, "slide_ms": wall / k,
+                             "slide_ms_each": each,
+                             "rounds_per_slide": rounds / k,
+                             "graph_device_ms": graph_ms and graph_ms / k,
+                             "graph_launches_per_slide": len(marks) / k})
+            return {"dense_driver": runs}
+        finally:
+            for obj, name, fn in originals:
+                setattr(obj, name, fn)
     mods = (cs.segsum, cs.rowpass)
     k4 = cs.loop.LAUNCHES if hasattr(cs, "loop") else {}  # a tree whose loop runs on the host
 
@@ -3094,7 +3401,8 @@ TURN_SUMMARY = ("updates_per_s", "rounds_per_slide", "syncs_per_slide",
                 "row_pass_launches_per_slide", "replays_per_round", "eager_rounds",
                 "refine_ms", "refine_rounds", "round_kinds", "launches_by_entry",
                 "host_reads_per_slide", "sync_ops_per_slide", "driver_host_ms", "engine_ms",
-                "host_ms_per_round", "graph_launches", "graphs", "k4_launches_per_slide")
+                "host_ms_per_round", "graph_launches", "graphs", "k4_launches_per_slide",
+                "config4", "dense_driver")
 # phase 3c's numbers in a ``loop_control`` record
 K4_SUMMARY = ("loop_round_ms", "graph_kernel_floor_ms", "conditional_overhead_ms_per_round",
               "body_kernel_ms")

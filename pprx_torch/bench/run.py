@@ -8,6 +8,12 @@ on a packed edge file instead (``pprx_torch.graph.io.load_packed``; the
 ``convert`` subcommand writes one). Config 5 runs the sharded engines on
 this process's shard of the mesh (``pprx_torch.dist``): a mesh of one on
 one card, or one process per shard started by ``torchrun``.
+
+Configs 1 and 4 push on the dense engine: on the card its loop is one
+conditional CUDA graph (``pprx_torch.engine.push``), captured inside the
+timed push, as the reference's jit compile is inside its timing.
+``graphs=`` (not in the reference) hands them the ``RoundGraphs`` to push
+through, whose ``summary()`` the caller reads afterwards.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch.distributed as dist
 
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.device import device_name, resolve_device
+from pprx_torch.engine.graphs import RoundGraphs
 from pprx_torch.engine.push import push_to_convergence
 from pprx_torch.engine.state import FORWARD, REVERSE, init_state
 from pprx_torch.eval.metrics import l1_error
@@ -49,7 +56,8 @@ def _stream(graph: str | None, n: int, need: int, seed: int):
 
 def config1_static_forward(scale: int = 1, check_exact: bool = True,
                            graph: str | None = None,
-                           device: torch.device | str | None = None) -> dict:
+                           device: torch.device | str | None = None,
+                           graphs: RoundGraphs | None = None) -> dict:
     """Single-source forward push on a static wiki-Vote-like graph, accuracy
     against exact PPR (f64 power iteration on the same device)."""
     device = resolve_device(device)
@@ -62,7 +70,7 @@ def config1_static_forward(scale: int = 1, check_exact: bool = True,
     state = init_state(n, queries, mode=FORWARD, device=device)
     sync(device)
     t0 = time.perf_counter()
-    state, stats = push_to_convergence(state, window, cfg)
+    state, stats = push_to_convergence(state, window, cfg, graphs)
     sync(device)
     out = {
         "config": 1,
@@ -142,7 +150,7 @@ def config3_reverse_dynamic(scale: int = 1, graph: str | None = None,
 def config4_retrieval(scale: int = 1, s: int = 512, k: int = 100,
                       graph: str | None = None,
                       device: torch.device | str | None = None,
-                      check_exact: int = 0) -> dict:
+                      check_exact: int = 0, graphs: RoundGraphs | None = None) -> dict:
     """Multi-source batched retrieval: a cold dense push of S sources, then
     the top-k read from the converged reserve. ``check_exact`` (not in the
     reference) holds that many evenly spaced sources of the pushed state to
@@ -161,7 +169,7 @@ def config4_retrieval(scale: int = 1, s: int = 512, k: int = 100,
     state = init_state(n, queries, mode=FORWARD, device=device)
     sync(device)
     t0 = time.perf_counter()
-    state, stats = push_to_convergence(state, window, cfg)
+    state, stats = push_to_convergence(state, window, cfg, graphs)
     sync(device)
     cold_s = time.perf_counter() - t0
 

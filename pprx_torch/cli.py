@@ -21,9 +21,11 @@ prints, and ``--checkpoint`` writes the reference's sharded file. As in the
 reference, ``retrieve --from-checkpoint`` refuses a sharded file.
 
 The fast engine delivers through the segment-sum kernel, which takes f32
-or bf16: ``--f64`` with the fast engine on a CUDA device exits before any
-work. The dense and the hybrid engine run plain torch ops in any dtype on
-any device.
+or bf16, and the dense engine (``static``, a cold ``retrieve``, ``stream
+--engine dense``) runs its rounds on the segment sum and the row pass,
+which take f32: ``--f64`` with either on a CUDA device exits before any
+work. The hybrid engine and the sharded dense engine run plain torch ops
+in any dtype on any device.
 """
 
 from __future__ import annotations
@@ -93,13 +95,21 @@ def _dtype(args) -> torch.dtype:
     return torch.float64 if args.f64 else torch.float32
 
 
-def _kernel_dtype(args, device: torch.device, what: str) -> None:
-    """Exit before any work where the fast engine would meet a dtype its
-    kernel does not take."""
+# what each engine's kernels take on a card
+_KERNEL_TYPES = {
+    "fast": ("the fast engine's segment-sum kernel takes f32 or bf16 only", "the dense"),
+    "dense": ("the dense engine's kernels (the segment sum, the row pass) take f32 only",
+              "the hybrid"),
+}
+
+
+def _kernel_dtype(args, device: torch.device, what: str, engine: str = "fast") -> None:
+    """Exit before any work where the fast or the dense engine would meet a
+    dtype its kernels do not take."""
     if args.f64 and device.type == "cuda":
-        raise SystemExit(
-            f"{what}: --f64 on {device}: the fast engine's segment-sum kernel takes f32 "
-            "or bf16 only; drop --f64, or run on --device cpu (or the dense engine)")
+        takes, other = _KERNEL_TYPES[engine]
+        raise SystemExit(f"{what}: --f64 on {device}: {takes}; drop --f64, or run on "
+                         f"--device cpu (or {other} engine)")
 
 
 def _device_key(device: torch.device) -> dict:
@@ -123,6 +133,7 @@ def cmd_static(args):
     from pprx_torch.sync import sync
 
     device = _device(args)
+    _kernel_dtype(args, device, "static", "dense")
     src, dst, n = _load(args)
     queries = _queries(args, n)
     graph = WindowGraph.from_coo(src, dst, n, device=device)
@@ -233,8 +244,9 @@ def cmd_stream(args):
     sharded = args.engine in SHARDED_ENGINES
     mesh = _sharded_mesh(args) if sharded else None
     device = _shard_device(args)
-    if args.engine in ("fast", "sharded-wl", "sharded-wlp"):
-        _kernel_dtype(args, device, f"stream --engine {args.engine}")
+    if args.engine in ("fast", "dense", "sharded-wl", "sharded-wlp"):
+        _kernel_dtype(args, device, f"stream --engine {args.engine}",
+                      "dense" if args.engine == "dense" else "fast")
     src, dst, n = _load(args)
     queries = _queries(args, n)
     scfg = StreamConfig(window=args.window, slide=args.slide)
@@ -289,6 +301,8 @@ def cmd_retrieve(args):
     device = _device(args)
     if args.from_checkpoint and args.refine_eps:
         _kernel_dtype(args, device, "retrieve --refine-eps")
+    elif not args.from_checkpoint:
+        _kernel_dtype(args, device, "retrieve", "dense")
     src, dst, n = _load(args)
     refine_info = {}
     if args.from_checkpoint:

@@ -1,9 +1,12 @@
-// K4: the compact-frontier convergence loops' control on the card (sm_90a),
-// the wl2 engine's and the sharded wl engine's in a world of one shard, and
-// the CUDA graph that runs a whole loop:
+// K4: the convergence loops' control on the card (sm_90a), the
+// compact-frontier loops of the wl2 engine and of the sharded wl engine in a
+// world of one shard, and the dense engine's loop, and the CUDA graph that
+// runs a whole loop:
 //
 //   [prologue] -> prime -> WHILE { turn -> SWITCH { tier_0 | ... | tier_k-1
 //                                                 | scan -> after_scan -> IF { stats } } }
+//
+// or, under the dense rule, one arm: WHILE { turn -> SWITCH { round } }.
 //
 // Each body of the SWITCH holds a child graph, a clone of the branch that
 // the port captured with torch (a compact tier, the scan round), and the
@@ -25,7 +28,11 @@
 // scan round; a loop that prime stops runs none. The table's rule field
 // picks the sharded engine's loop: its first round always runs, and its
 // heavy test reads ewr, the counts' sixth slot, where wl2's reads the edge
-// work ew (pprx/dist/wl.py:911-917, 1023). Each step does what its plain
+// work ew (pprx/dist/wl.py:911-917, 1023). Or the dense engine's
+// (pprx/engine/push.py:94-119): prime reads the first active count, the
+// reference's n0, and a turn tallies the round's active pairs and edge
+// pushes and goes on while the round found an active pair, as the
+// reference's cond does; no tiers, no stats. Each step does what its plain
 // step in pprx_torch/engine/loop.py does, on the same slots, and sets the
 // graph's conditions with cudaGraphSetConditional: prime the WHILE's, turn
 // the SWITCH's (the branch's number) and the WHILE's, after_scan the stats
@@ -35,9 +42,10 @@
 // No Pallas kernel is replaced. K4 is the counterpart of the reference's
 // on-device control flow, the lax.while_loop at pprx/engine/wl2.py:687
 // with its lax.switch over the tiers (:617) and lax.cond over worklist or
-// scan (:657) and over a scan's stats (:662), and of the sharded engine's
-// at pprx/dist/wl.py:1025 with its lax.switch over the tiers and the
-// dense round (:995) and lax.cond over the dense round's stats (:954).
+// scan (:657) and over a scan's stats (:662), of the sharded engine's at
+// pprx/dist/wl.py:1025 with its lax.switch over the tiers and the dense
+// round (:995) and lax.cond over the dense round's stats (:954), and of
+// the dense engine's at pprx/engine/push.py:118.
 //
 // What bounds K4 on this card is latency, not bytes: a step moves about
 // 600 bytes (2e-7 ms at 3.35 TB/s), and a kernel node inside a graph costs
@@ -102,6 +110,9 @@ static_assert(kHead == kWarp, "a warp loads the carry's head, a slot a lane");
 // the steps, as pprx_loop_step numbers them
 constexpr int kPrime = 0, kTurn = 1, kAfterScan = 2;
 
+// the rules a table's kRule names: loop.py's WL2, SHARDED, DENSE
+enum Rule : int { kWl2 = 0, kSharded = 1, kDense = 2 };
+
 // the table of a tier ladder: loop.py's T_TIERS .. TAB
 enum Tab : int {
   kTiers = 0, kHeavyEw = 1, kRule = 2,
@@ -130,7 +141,9 @@ __device__ __forceinline__ i64* log_row(i64* log, i64 rnd) {
 }
 
 // the counts' slot the heavy test reads: ew, or ewr under the sharded rule
-__device__ __forceinline__ int heavy_at(const Table& t) { return t.v[kRule] ? kEwr : 4; }
+__device__ __forceinline__ int heavy_at(const Table& t) {
+  return t.v[kRule] == kSharded ? kEwr : 4;
+}
 
 // The steps, run by one lane on the shared copies of the carry's head `c`
 // and the round's counts `n`; `log` is the carry's round log, in place.
@@ -140,13 +153,17 @@ __device__ void prime(i64* c, const i64* n, const Table& t, const Handles& h) {
   for (int i = 0; i < kHead; ++i) c[i] = 0;
   c[kMaxRounds] = max_rounds;
   c[kC0ok] = c0ok;
-  c[kCn] = n[0];
-  c[kFed] = n[1];
-  c[kFre] = n[2];
-  c[kOk] = c0ok != 0;
-  // zero candidates in a valid list means zero active rows; the sharded
-  // rule runs the first round whatever the list
-  c[kNa] = c[kOk] && !t.v[kRule] ? (c[kCn] > 0) : 1;
+  if (t.v[kRule] == kDense) {
+    c[kNa] = n[3];  // the first active count: no round from a converged state
+  } else {
+    c[kCn] = n[0];
+    c[kFed] = n[1];
+    c[kFre] = n[2];
+    c[kOk] = c0ok != 0;
+    // zero candidates in a valid list means zero active rows; the sharded
+    // rule runs the first round whatever the list
+    c[kNa] = c[kOk] && t.v[kRule] == kWl2 ? (c[kCn] > 0) : 1;
+  }
   c[kGo] = c[kNa] > 0 && 0 < max_rounds;
   set_cond(h, h.loop, c[kGo]);
 }
@@ -157,7 +174,12 @@ __device__ void tally(i64* c, const i64* n, i64* log, const Table& t) {
   const int k = static_cast<int>(t.v[kTiers]);
   const i64 b = c[kBranch], na = n[3], ew = n[4];
   i64 cn2, fed2, fre2, ok2;
-  if (b < k) {
+  if (t.v[kRule] == kDense) {  // no list: the counts stay as prime left them
+    cn2 = c[kCn];
+    fed2 = c[kFed];
+    fre2 = c[kFre];
+    ok2 = c[kOk];
+  } else if (b < k) {
     cn2 = n[0];
     fed2 = n[1];
     fre2 = n[2];
@@ -205,8 +227,9 @@ __device__ void tally(i64* c, const i64* n, i64* log, const Table& t) {
 __device__ int decide(i64* c, i64* log, const Table& t) {
   const int k = static_cast<int>(t.v[kTiers]);
   const i64 ok = c[kOk], cn = c[kCn], fed = c[kFed], fre = c[kFre];
-  int b = k;  // the scan
-  if (ok && cn <= t.v[kW + k - 1] && fed <= t.v[kE + k - 1] && fre <= t.v[kG + k - 1]) {
+  int b = k;  // the scan; under the dense rule (k = 0) the round
+  if (t.v[kRule] != kDense && ok && cn <= t.v[kW + k - 1] && fed <= t.v[kE + k - 1] &&
+      fre <= t.v[kG + k - 1]) {
     b = 0;
     for (int i = 0; i < k - 1; ++i)
       b += !(cn <= t.v[kW + i] && fed <= t.v[kE + i] && fre <= t.v[kG + i]);
@@ -237,7 +260,7 @@ __device__ void turn(i64* c, const i64* n, i64* log, const Table& t, const Handl
 __device__ void after_scan(i64* c, const i64* n, const Table& t, const Handles& h) {
   const int k = static_cast<int>(t.v[kTiers]);
   bool stats = false;
-  if (c[kBranch] == k) {
+  if (c[kBranch] == k && t.v[kRule] != kDense) {
     const i64 na = n[3];
     const bool heavy = n[heavy_at(t)] > t.v[kHeavyEw];
     stats = !heavy && na > 0 && c[kRounds] + 1 < c[kMaxRounds];
@@ -327,7 +350,10 @@ struct Loop {
 cudaError_t build(Loop* L, cudaGraph_t prologue, cudaGraph_t const* branches, int n_branches,
                   i64* carry, const i64* counts, const Table& t) {
   const int k = static_cast<int>(t.v[kTiers]);
-  if (k < 1 || k > kMaxTiers || n_branches != k + 2) return cudaErrorInvalidValue;
+  // the dense rule: no tiers, one arm (the round) and no stats
+  const bool dense = t.v[kRule] == kDense;
+  if (dense ? (k != 0 || n_branches != 1) : (k < 1 || k > kMaxTiers || n_branches != k + 2))
+    return cudaErrorInvalidValue;
   int driver = 0;
   cudaError_t e = cudaDriverGetVersion(&driver);
   if (e != cudaSuccess) return e;
@@ -357,8 +383,9 @@ cudaError_t build(Loop* L, cudaGraph_t prologue, cudaGraph_t const* branches, in
   if ((e = add_step(&last, body, nullptr, k4<kTurn>, carry, counts, t, h))) return e;
   if ((e = add_cond(&node, body, &last, h.branch, cudaGraphCondTypeSwitch, k + 1, arms)))
     return e;
-  for (int i = 0; i <= k; ++i)  // the tiers, then the scan
+  for (int i = 0; i <= k; ++i)  // the tiers, then the scan (the dense round)
     if ((e = cudaGraphAddChildGraphNode(&inner, arms[i], nullptr, 0, branches[i]))) return e;
+  if (dense) return cudaGraphInstantiate(&L->exec, L->graph, 0);
   // the scan's arm goes on: after_scan, then the stats under an IF
   if ((e = cudaGraphConditionalHandleCreate(&h.stats, arms[k], 0, cudaGraphCondAssignDefault)))
     return e;
@@ -389,10 +416,10 @@ int pprx_loop_step(int which, i64* carry, const i64* counts, const i64* tab, voi
 }
 
 // Build and instantiate a loop graph: `prologue` (a cudaGraph_t or null),
-// `branches` the k tiers', the scan's and the stats' cudaGraph_t (k + 2),
-// each cloned into the graph; `carry` and `counts` device pointers, `tab`
-// the table on the host. `*out` gets the loop's handle for
-// pprx_loop_launch and pprx_loop_free.
+// `branches` the k tiers', the scan's and the stats' cudaGraph_t (k + 2;
+// under the dense rule the round's alone), each cloned into the graph;
+// `carry` and `counts` device pointers, `tab` the table on the host.
+// `*out` gets the loop's handle for pprx_loop_launch and pprx_loop_free.
 int pprx_loop_build(void* prologue, void* const* branches, int n_branches, i64* carry,
                     const i64* counts, const i64* tab, void** out) {
   Loop* L = new (std::nothrow) Loop;

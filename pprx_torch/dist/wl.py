@@ -640,7 +640,7 @@ class ShardedWlEngine(ShardedEngine):
         compact round's list is always valid at K = 1), the stats-skip
         threshold and the sharded rule."""
         return loop.Table(tiers=self.tiers, emit=(self.wcarry,) * len(self.tiers),
-                          heavy_ew=self.heavy_ew, sharded=True)
+                          heavy_ew=self.heavy_ew, rule=loop.SHARDED)
 
     def _first_count(self, snap) -> None:
         """The counts of the list in ``cand``: its live rows, their window

@@ -1,9 +1,10 @@
-"""Captured CUDA graphs of the wl2 slides and convergence loops, and of the
-sharded wl engine's in a world of one shard: the port's counterpart of the
-reference's compiled slide, seed and refine programs
-(``pprx/graph/fast_stream.py``'s jitted ``wl2_slide_step`` and
-``_seed_wl2_jit``, ``_refine_wl2_jit``; ``pprx/dist/wl.py``'s jitted
-``push_wl`` and ``slide_wl``).
+"""Captured CUDA graphs of the wl2 slides and convergence loops, of the
+sharded wl engine's in a world of one shard, and of the dense engine's
+loop: the port's counterpart of the reference's compiled slide, seed and
+refine programs (``pprx/graph/fast_stream.py``'s jitted ``wl2_slide_step``
+and ``_seed_wl2_jit``, ``_refine_wl2_jit``; ``pprx/dist/wl.py``'s jitted
+``push_wl`` and ``slide_wl``; ``pprx/engine/push.py``'s
+``push_to_convergence``).
 
 The reference runs a whole convergence loop as one device program: a
 ``lax.while_loop`` whose branches are ``lax.switch`` and ``lax.cond``. On
@@ -12,18 +13,20 @@ tier, the scan round, its stats) and the loop's prologue (a slide's, or a
 seed's first count) is captured once with torch, and the loop is one CUDA
 graph built around them (``pprx_torch/csrc/loop.cu``): ``[prologue] ->
 prime -> WHILE { turn -> SWITCH { tier_0 | .. | tier_k-1 | scan ->
-after_scan -> IF { stats } } }``, where the three steps are K4's one-warp
-kernels on the loop's carry (``pprx_torch.engine.loop``), which set the
-conditions: a turn tallies the round before and picks the next one's
-branch, or none. A loop is one graph launch and one read of the carry
-(its statistics) by the host. On the CPU the same branches run eagerly
+after_scan -> IF { stats } } }`` (the dense engine's: ``WHILE { turn ->
+SWITCH { round } }``), where the three steps are K4's one-warp kernels on
+the loop's carry (``pprx_torch.engine.loop``), which set the conditions: a
+turn tallies the round before and picks the next one's branch, or none. A
+loop is one graph launch and one read of the carry (its statistics) by the
+host. On the CPU the same branches run eagerly
 under a host loop of K4's plain steps, with a read of the counts a round.
 
 A graph reads and writes fixed addresses, so:
 
 - the state's ``p`` and ``r`` and every tensor of the kill graph (its window
-  too), or the sharded engine's blocks, snapshot and ring, are the
-  driver's buffers for its whole life: the slide step, the rebuild and a
+  too), or the sharded engine's blocks, snapshot and ring, or the dense
+  engine's window and its delivery-sorted view, are the driver's buffers
+  for its whole life: the slide step, the rebuild and a
   restore copy into them (``copy_into_``), and ``bind`` and ``hold``
   refuse a state, graph or slide's pack whose tensors are not the ones
   captured;
@@ -76,8 +79,8 @@ KERNEL_COUNTS = (segsum.LAUNCHES, rowpass.LAUNCHES, loop.LAUNCHES)
 
 # Where every loop's round log goes while it is a list (``None``: nowhere,
 # and a loop on the card reads its carry's head alone): one dict a loop,
-# with its ``table``, ``max_rounds`` and logged ``rows``
-# (``loop.replay_log`` replays them).
+# with its ``table``, ``max_rounds``, ``rounds`` and logged ``rows`` (the
+# first ``loop.LOG_CAP`` rounds; ``loop.replay_log`` replays them).
 LOG_SINK: list | None = None
 
 Step = tuple[Hashable, Callable[[], None]]  # a graph's key and its function
@@ -281,7 +284,8 @@ class RoundGraphs:
     def loop(self, prologue: Step | None, branches: list[Step], table: loop.Table,
              c0ok: bool, max_rounds: int) -> tuple[list[int], int]:
         """One convergence loop: ``prologue``, then rounds of ``branches``
-        (the tiers', the scan's and its stats', as ``table`` numbers them)
+        (the tiers', the scan's and its stats', as ``table`` numbers them;
+        under the dense rule the round's alone)
         as K4's steps pick them, from the counts the prologue (or the
         caller) left in ``counts``. On CUDA one launch of the loop's graph
         (built at its first use) and one read of the carry; on the CPU
@@ -295,7 +299,7 @@ class RoundGraphs:
         self.reads += reads
         if LOG_SINK is not None:
             LOG_SINK.append({"table": table, "max_rounds": int(max_rounds),
-                             "rows": loop.log_rows(values)})
+                             "rounds": values[loop.ROUNDS], "rows": loop.log_rows(values)})
         return values, reads
 
     def host_loop(self, prologue: Step | None, branches: list[Step], table: loop.Table,
@@ -316,7 +320,8 @@ class RoundGraphs:
                 self.run(*branches[b])
                 counts = self.read()
                 reads += 1
-                if b == table.scan and loop.after_scan(carry, counts, table):
+                if b == table.scan and not table.dense and loop.after_scan(
+                        carry, counts, table):
                     self.run(*branches[-1])
                     counts = self.read()
                     reads += 1
@@ -362,7 +367,7 @@ class RoundGraphs:
         rounds = values[loop.ROUNDS]
         loop.LAUNCHES["prime"] += 1
         loop.LAUNCHES["turn"] += rounds + 1 if rounds else 0
-        loop.LAUNCHES["after_scan"] += execs[table.scan]
+        loop.LAUNCHES["after_scan"] += 0 if table.dense else execs[table.scan]
         self.branch_execs += sum(execs)
         return values, 1
 

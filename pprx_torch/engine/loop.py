@@ -1,6 +1,6 @@
-"""The compact-frontier convergence loops' carry and their control steps
-(K4's plain version): the wl2 engine's and, in a world of one shard, the
-sharded wl engine's.
+"""The convergence loops' carry and their control steps (K4's plain
+version): the wl2 engine's and, in a world of one shard, the sharded wl
+engine's compact-frontier loops, and the dense engine's loop.
 
 The reference runs a whole convergence loop on the device: a
 ``lax.while_loop`` whose body picks a capacity tier with ``lax.switch`` and
@@ -21,14 +21,22 @@ step on it:
 
 A loop of R rounds takes R + 1 turns (none where ``prime`` stops it).
 
-The two engines' loops differ in two rules, which a table's ``sharded``
-field picks (``pprx/dist/wl.py:1023``, ``:911-917``):
+A table's ``rule`` picks one of three loops. The two compact-frontier
+loops differ in two rules (``pprx/dist/wl.py:1023``, ``:911-917``):
 
 - the sharded loop's first round always runs (the reference starts its
   work at 1), where wl2's runs none from a valid empty list;
 - its scan skips the stats when ``ewr`` is heavy: the window and fresh
   edges of every row with an active pair (the counts' sixth slot), where
   wl2 weighs a row by its active pairs (``ew``, the fifth).
+
+The dense rule is the dense engine's loop (``pprx/engine/push.py:94-119``):
+no tiers, one arm (the dense round, branch 0) and no stats. ``prime``
+reads the first active count (the counts' ``n_active``, the reference's
+``n0``) and runs no round from a converged state; a turn tallies the
+pending round (its rounds, pushes and edge pushes) and goes on while that
+round found an active pair and the cap is not reached, as the reference's
+``cond`` reads the last round's count; ``after_scan`` is not used.
 
 Both keep the port's test that the stats run only where a round follows.
 The sharded reference has none, and needs none: the stats read ``r`` and
@@ -40,10 +48,10 @@ On CUDA ``prime``, ``turn`` and ``after_scan`` are the one-warp kernels of
 ``pprx_torch/csrc/loop.cu`` (K4) inside one conditional CUDA graph per loop
 (``pprx_torch.engine.graphs.RoundGraphs.loop``), where each also sets the
 graph's branch and loop conditions. On the CPU the host loops of
-``pprx_torch.engine.wl2`` and ``pprx_torch.dist.wl`` call the plain steps
-below, which nothing on CUDA calls; ``step_`` runs one step on a carry
-where it lies, the kernel on a card or the plain step on the CPU. Both
-write the same carry. ``decide`` and ``tally`` have no kernel of their own:
+``pprx_torch.engine.wl2``, ``pprx_torch.dist.wl`` and
+``pprx_torch.engine.push`` call the plain steps below, which nothing on
+CUDA calls; ``step_`` runs one step on a carry where it lies, the kernel on
+a card or the plain step on the CPU. Both write the same carry. ``decide`` and ``tally`` have no kernel of their own:
 they are ``turn``'s parts, and ``replay_log``'s.
 
 Branches are numbered: the ``k`` tiers ``0 .. k-1``, the scan ``k`` and its
@@ -87,6 +95,8 @@ EWR = 5
 
 # ---- the table of a tier ladder (int64; csrc/loop.cu's enum Tab)
 T_TIERS, T_HEAVY, T_RULE, T_W = 0, 1, 2, 3
+# the rules a table's T_RULE names (the module docstring)
+WL2, SHARDED, DENSE = 0, 1, 2
 T_E, T_G, T_EMIT = T_W + MAX_TIERS, T_W + 2 * MAX_TIERS, T_W + 3 * MAX_TIERS
 TAB = T_W + 4 * MAX_TIERS
 
@@ -117,22 +127,37 @@ class Table:
     ``tiers`` ((w, e, g), smallest first), the list width each tier's round
     emits (``emit``: its next tier's, or ``n + 1`` where the round reseeds
     by a rescan), ``heavy_ew``, the edge work above which a scan skips
-    its stats, and ``sharded``, the sharded engine's rule (the module
-    docstring)."""
+    its stats, and ``rule``: ``WL2``, ``SHARDED`` (the sharded engine's)
+    or ``DENSE`` (the dense engine's: no tiers; ``DENSE_TABLE``), as the
+    module docstring says."""
 
     tiers: tuple[tuple[int, int, int], ...]
     emit: tuple[int, ...]
     heavy_ew: int
-    sharded: bool = False
+    rule: int = WL2
 
     def __post_init__(self):
-        if not 1 <= len(self.tiers) <= MAX_TIERS or len(self.emit) != len(self.tiers):
+        if self.rule == DENSE:
+            if self.tiers or self.emit:
+                raise ValueError(f"the dense rule takes no tiers: {self.tiers}")
+        elif self.rule not in (WL2, SHARDED):
+            raise ValueError(f"no loop rule {self.rule}")
+        elif not 1 <= len(self.tiers) <= MAX_TIERS or len(self.emit) != len(self.tiers):
             raise ValueError(f"a loop takes 1 to {MAX_TIERS} tiers, each with its emit width: "
                              f"{self.tiers}, {self.emit}")
 
     @property
+    def sharded(self) -> bool:
+        return self.rule == SHARDED
+
+    @property
+    def dense(self) -> bool:
+        return self.rule == DENSE
+
+    @property
     def scan(self) -> int:
-        """The scan's branch; its stats' is ``scan + 1``."""
+        """The scan's branch (under the dense rule the round's, 0); its
+        stats' is ``scan + 1``."""
         return len(self.tiers)
 
     @property
@@ -140,6 +165,12 @@ class Table:
         """The branch ``turn`` gives where the loop ends: past the
         SWITCH's arms (the tiers and the scan), so that it runs none."""
         return self.scan + 1
+
+    @property
+    def n_branches(self) -> int:
+        """The branches a loop takes: the SWITCH's arms, and the scan's
+        stats but under the dense rule."""
+        return self.scan + 1 + (not self.dense)
 
     @property
     def heavy_at(self) -> int:
@@ -154,10 +185,14 @@ class Table:
     def values(self) -> list[int]:
         """The table as K4 reads it: ``TAB`` int64 values."""
         out = [0] * TAB
-        out[T_TIERS], out[T_HEAVY], out[T_RULE] = len(self.tiers), self.heavy_ew, int(self.sharded)
+        out[T_TIERS], out[T_HEAVY], out[T_RULE] = len(self.tiers), self.heavy_ew, self.rule
         for i, ((w, e, g), emit) in enumerate(zip(self.tiers, self.emit)):
             out[T_W + i], out[T_E + i], out[T_G + i], out[T_EMIT + i] = w, e, g, emit
         return out
+
+
+# the dense engine's loop: one arm, the dense round
+DENSE_TABLE = Table(tiers=(), emit=(), heavy_ew=0, rule=DENSE)
 
 
 def new_carry(device: torch.device | str) -> torch.Tensor:
@@ -177,19 +212,24 @@ def _prime(c: list[int], counts, t: Table) -> None:
     max_rounds, c0ok = c[MAX_ROUNDS], c[C0OK]
     c[:] = [0] * HEAD
     c[MAX_ROUNDS], c[C0OK] = max_rounds, c0ok
-    c[CN], c[FED], c[FRE] = counts[0], counts[1], counts[2]
-    c[OK] = int(c0ok != 0)
-    # zero candidates in a valid list means zero active rows (candidates
-    # are a frontier superset); otherwise force one scan round. The sharded
-    # rule runs the first round whatever the list.
-    c[NA] = int(c[CN] > 0) if c[OK] and not t.sharded else 1
+    if t.dense:
+        # the first active count: no round from a converged state
+        c[NA] = counts[3]
+    else:
+        c[CN], c[FED], c[FRE] = counts[0], counts[1], counts[2]
+        c[OK] = int(c0ok != 0)
+        # zero candidates in a valid list means zero active rows (candidates
+        # are a frontier superset); otherwise force one scan round. The
+        # sharded rule runs the first round whatever the list.
+        c[NA] = int(c[CN] > 0) if c[OK] and not t.sharded else 1
     c[GO] = int(c[NA] > 0 and 0 < max_rounds)
 
 
 def _decide(c: list[int], t: Table) -> int:
-    w_top, e_top, g_top = t.tiers[-1]
     cn, fed, fre = c[CN], c[FED], c[FRE]
-    if c[OK] and cn <= w_top and fed <= e_top and fre <= g_top:
+    if t.dense:
+        b = 0  # the round, the one arm
+    elif c[OK] and cn <= t.tiers[-1][0] and fed <= t.tiers[-1][1] and fre <= t.tiers[-1][2]:
         b = sum(not (cn <= w and fed <= e and fre <= g) for (w, e, g) in t.tiers[:-1])
     else:
         b = t.scan
@@ -199,7 +239,7 @@ def _decide(c: list[int], t: Table) -> int:
 
 def _after_scan(c: list[int], counts, t: Table) -> bool:
     stats = False
-    if c[BRANCH] == t.scan:
+    if c[BRANCH] == t.scan and not t.dense:
         na = counts[3]
         heavy = counts[t.heavy_at] > t.heavy_ew
         # the stats only where a round follows and may use them
@@ -212,7 +252,9 @@ def _after_scan(c: list[int], counts, t: Table) -> bool:
 def _tally(c: list[int], counts, t: Table) -> bool:
     b = c[BRANCH]
     na, ew = counts[3], counts[4]
-    if b < t.scan:
+    if t.dense:
+        cn2, fed2, fre2, ok2 = c[CN], c[FED], c[FRE], c[OK]
+    elif b < t.scan:
         cn2, fed2, fre2 = counts[0], counts[1], counts[2]
         ok2 = int(cn2 <= t.emit[b])
     else:
@@ -382,15 +424,16 @@ class LoopGraph:
     """One convergence loop as an instantiated CUDA graph (``loop.cu``'s
     ``pprx_loop_build``): ``[prologue] -> prime -> WHILE { turn -> SWITCH
     { tier_0 | .. | tier_k-1 | scan -> after_scan -> IF { stats } } }``,
-    each arm a clone of the branch's captured graph.
+    or under the dense rule ``WHILE { turn -> SWITCH { round } }``, each
+    arm a clone of the branch's captured graph.
     ``prologue`` and ``branches`` are raw ``cudaGraph_t`` handles (torch's
     ``CUDAGraph(keep_graph=True).raw_cuda_graph()``); the graph reads the
     carry, the counts and the table's values baked in at build."""
 
     def __init__(self, prologue: int | None, branches: list[int], carry: torch.Tensor,
                  counts: torch.Tensor, table: Table):
-        if len(branches) != table.scan + 2:
-            raise ValueError(f"{len(branches)} branch graphs for {table.scan} tiers")
+        if len(branches) != table.n_branches:
+            raise ValueError(f"{len(branches)} branch graphs for a loop of {table.n_branches}")
         _check_operands(carry, counts, table)
         lib = _lib()
         arr = (ctypes.c_void_p * len(branches))(*branches)

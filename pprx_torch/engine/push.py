@@ -1,22 +1,34 @@
 """Dense push engine (port of ``pprx.engine.push``): one round over the whole
 COO window, and the push-to-convergence loop.
 
-A round processes every active (vertex, query) pair as gather + scatter-add
-over the COO ring. Signed residuals (deletions) are handled by |r|
-thresholds throughout; the push rules and the closed-form handling of
-dangling vertices are the reference's (``pprx/ref/push.py``).
+A round processes every active (vertex, query) pair: the residual's mass
+is taken onto the reserve and what leaves along the edges is delivered.
+Signed residuals (deletions) are handled by |r| thresholds throughout; the
+push rules and the closed-form handling of dangling vertices are the
+reference's (``pprx/ref/push.py``).
 
 How the port differs:
 
-- The reference's ``[W, S]`` gathers (``scale[graph.src]``,
-  ``outmass[graph.dst]``) were fused away by XLA. Here the ring is processed
-  in edge blocks (``index_add_`` per block), so the largest temporary is one
-  block of gathered rows. The ring is rewritten every slide, so it is not
-  sorted per round.
-- The loop runs on the host with one packed readback per round, counted in
-  ``PushStats.syncs``, as the wl2 port's does.
-- ``index_add_`` runs on atomics on CUDA: f32 sums there may differ from run
-  to run in the last bits.
+- ``push_to_convergence`` runs its rounds as ``dense_round_``, in place:
+  the round's elementwise work is one pass over the state (K2,
+  ``rowpass.scan_pass_``) and its delivery one segment sum over the
+  window's delivery-sorted view (K1, ``segsum_gather_add_``), which sums a
+  row's edges in their order, deterministically, where the reference
+  scatters over the ring (``pprx/engine/push.py:73, 83``; XLA's scatter is
+  deterministic on the TPU). No ``[N+1, S]`` temporary is built beyond the
+  delivered rows (``moving``). A reverse round scales a row's sum by its
+  1/d_out once, where the reference scales every edge: the f32 bits move,
+  not the f64 parity.
+- The loop is the reference's ``lax.while_loop`` (``pprx/engine/push.py:
+  94-119``) under K4's dense rule (``pprx_torch.engine.loop``): on CUDA one
+  launch of a conditional CUDA graph, ``first count -> prime -> WHILE {
+  turn -> SWITCH { dense round } }`` (``RoundGraphs.loop``), and one read of
+  its carry (``PushStats.syncs`` 1); on the CPU a host loop of K4's plain
+  steps over the same functions, with a read of the counts a round.
+- ``push_round`` and ``push_round_given_act`` are the reference's rounds
+  on the ring as it lies (gather, then ``index_add_`` in edge blocks, on
+  atomics on CUDA). The hybrid engine's dense fallback calls the latter
+  (``pprx_torch.engine.sparse``); ``push_to_convergence`` calls neither.
 """
 
 from __future__ import annotations
@@ -24,10 +36,13 @@ from __future__ import annotations
 import torch
 
 from pprx_torch.config import PprConfig
-from pprx_torch.engine.rowpass import active_mask
+from pprx_torch.engine import loop
+from pprx_torch.engine.graphs import RoundGraphs
+from pprx_torch.engine.rowpass import active_mask, frontier_rows, scan_pass_
+from pprx_torch.engine.segsum import segsum_gather_add_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats
 from pprx_torch.engine.update import edge_blocks
-from pprx_torch.graph.dynamic import WindowGraph
+from pprx_torch.graph.dynamic import DeliveryView, WindowGraph, delivery_view
 
 
 def _active_mask(state: PprState, graph: WindowGraph, cfg: PprConfig) -> torch.Tensor:
@@ -42,10 +57,10 @@ def _active_mask(state: PprState, graph: WindowGraph, cfg: PprConfig) -> torch.T
 def push_round(
     state: PprState, graph: WindowGraph, cfg: PprConfig
 ) -> tuple[PprState, torch.Tensor, torch.Tensor]:
-    """One dense push round over every active (vertex, query) pair.
-
-    Returns (new_state, n_active_pairs, n_edge_pushes), the counts as int64
-    device scalars.
+    """One dense push round over every active (vertex, query) pair, on the
+    ring as it lies (the hybrid engine's form; ``dense_round_`` is the
+    loop's). Returns (new_state, n_active_pairs, n_edge_pushes), the counts
+    as int64 device scalars.
     """
     return push_round_given_act(state, _active_mask(state, graph, cfg), graph, cfg)
 
@@ -53,7 +68,9 @@ def push_round(
 def push_round_given_act(
     state: PprState, act: torch.Tensor, graph: WindowGraph, cfg: PprConfig
 ) -> tuple[PprState, torch.Tensor, torch.Tensor]:
-    """Dense round with the activity mask supplied by the caller."""
+    """Dense round with the activity mask supplied by the caller: the
+    hybrid engine's dense fallback, which brings its own mask. New ``p``
+    and ``r``; the ring in edge blocks (``index_add_`` a block)."""
     dtype = state.r.dtype
     alpha = cfg.alpha
     mass = torch.where(act, state.r, 0.0)  # [N+1, S]
@@ -91,20 +108,75 @@ def push_round_given_act(
     return PprState(p=p_new, r=r_new, mode=state.mode), act.sum(), edge_pushes
 
 
+def dense_round_(
+    state: PprState, graph: WindowGraph, view: DeliveryView, cfg: PprConfig,
+    counts: torch.Tensor,
+) -> None:
+    """One dense round in place on ``state.p`` and ``state.r``: K2 takes
+    every active pair's mass off ``r`` onto ``p`` and writes the rows that
+    leave (``moving``), then K1 delivers them over ``view``, the window's
+    delivery-sorted view (``delivery_view(graph, state.mode)``): forward
+    ``r[w] += sum of moving[u]`` over the edges ``(u, w)``, reverse
+    ``r[u] += (sum of moving[w]) / max(d_out(u), 1)``.
+
+    counts: int64 [2], overwritten with the round's active pairs and edge
+    pushes (forward each active pair's out-degree, reverse each edge's
+    active pairs at its ``dst``: ``pprx/engine/push.py:76, 84-85``).
+    """
+    n = graph.n
+    forward = state.mode == FORWARD
+    r = state.r
+    counts.zero_()
+    moving = torch.empty_like(r)
+    row_act = None if forward else torch.empty(n + 1, dtype=torch.int32, device=r.device)
+    scan_pass_(state.p, r, graph.deg, moving, counts, row_act, eps=cfg.eps, alpha=cfg.alpha,
+               forward=forward)
+    scale = None
+    if not forward:
+        scale = 1.0 / graph.deg[:n].clamp(min=1).to(r.dtype)
+        # the view's gat is each edge's dst; the phantom slots' row N has 0
+        counts[1:].copy_(row_act[view.gat].sum())
+    segsum_gather_add_(r[:n], moving, view.gat, view.off, row_scale=scale)
+    # keep the phantom row identically zero
+    state.p[-1] = 0.0
+    r[-1] = 0.0
+
+
+def _first_count(state: PprState, graph: WindowGraph, cfg: PprConfig,
+                 counts: torch.Tensor) -> None:
+    """What ``prime`` reads in ``counts[3]``: the rows that hold an active
+    pair (K3, ``frontier_rows``, one read of ``r``), which is 0 exactly
+    where the reference's first count of active pairs (``n0``) is."""
+    deg = graph.deg
+    _, rows, _, _ = frontier_rows(state.r, deg, deg, deg, eps=cfg.eps,
+                                  forward=state.mode == FORWARD)
+    counts[3:4].copy_(rows)
+
+
 def push_to_convergence(
-    state: PprState, graph: WindowGraph, cfg: PprConfig
+    state: PprState, graph: WindowGraph, cfg: PprConfig,
+    graphs: RoundGraphs | None = None, view: DeliveryView | None = None,
 ) -> tuple[PprState, PushStats]:
-    """Iterate push rounds until no (vertex, query) pair is active or
-    ``cfg.max_rounds`` is hit. One host sync per round (the round's counts),
-    plus one for the first activity count."""
-    stats = PushStats()
-    na = int(_active_mask(state, graph, cfg).sum())
-    stats.syncs += 1
-    while na > 0 and stats.rounds < cfg.max_rounds:
-        state, na_t, ew_t = push_round(state, graph, cfg)
-        na, ew = torch.stack([na_t, ew_t]).tolist()
-        stats.syncs += 1
-        stats.rounds += 1
-        stats.pushes += na
-        stats.edge_pushes += ew
-    return state, stats
+    """Push rounds (``dense_round_``) until one finds no active (vertex,
+    query) pair or ``cfg.max_rounds`` is hit, as the reference's loop; from
+    a converged state none. Updates ``state.p`` and ``state.r`` in place and
+    returns the state.
+
+    ``graphs``: the caller's round buffers and, on CUDA, its captured loop,
+    bound to ``state``, ``graph`` and ``view`` (a driver keeps one for its
+    life and rebuilds the view into the same tensors); ``None`` makes a new
+    one, which on CUDA captures the loop's first count and round. ``view``:
+    the window's delivery-sorted view in the state's mode; ``None`` builds
+    it. On CUDA the state is f32 (K1's and K2's type), and the loop is one
+    graph launch and one read (``PushStats.syncs``); on the CPU a host
+    loop with a read a round and one before the first.
+    """
+    view = delivery_view(graph, state.mode) if view is None else view
+    g = RoundGraphs(graph.n, 1, state.r.device) if graphs is None else graphs
+    g.hold("the dense state, window and view", state, graph, view)
+    key = ("dense", state.mode, cfg.eps, cfg.alpha)
+    first = ((*key, "first"), lambda: _first_count(state, graph, cfg, g.counts))
+    rnd = ((*key, "round"), lambda: dense_round_(state, graph, view, cfg, g.counts[3:5]))
+    values, reads = g.loop(first, [rnd], loop.DENSE_TABLE, True, cfg.max_rounds)
+    return state, PushStats(rounds=values[loop.ROUNDS], pushes=values[loop.PUSHES],
+                            edge_pushes=values[loop.EDGE_PUSHES], syncs=reads)

@@ -5,6 +5,10 @@ so the store is a circular COO ring of fixed capacity: a slide overwrites
 exactly the slots whose edges expire. Unfilled slots point at the phantom
 vertex N. Storage is int32; callers cast at the point of use where an op
 wants int64 indices.
+
+The port adds the window's delivery-sorted view (``DeliveryView``), which
+the dense engine's rounds deliver through with the segment sum: the
+reference scatters over the ring as it lies (``pprx/engine/push.py:73, 83``).
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import numpy as np
 import torch
 
 from pprx_torch.device import resolve_device
+from pprx_torch.engine.segsum import row_offsets
+from pprx_torch.engine.state import FORWARD
 
 
 @dataclasses.dataclass
@@ -54,3 +60,28 @@ class WindowGraph:
             dst=torch.from_numpy(np.concatenate([dst, pad])).to(device),
             deg=torch.from_numpy(deg).to(device),
         )
+
+
+@dataclasses.dataclass
+class DeliveryView:
+    """The window's edges in delivery order, as the segment sum (K1,
+    ``segsum_gather_add_``) reads them: a stable sort of the ring by the
+    endpoint that receives (forward ``dst``, reverse ``src``), so that
+    each row's edges keep their ring order.
+
+    gat: int32 [capacity], the other endpoint of each sorted edge, the row
+        of the pushed table it reads (forward ``src``, reverse ``dst``).
+    off: int32 [N+1], row ``w``'s edges ``[off[w], off[w+1])`` for the N
+        real rows; the phantom-padded slots ``(N, N)`` sort past ``off[N]``
+        and are never read, so row N receives nothing.
+    """
+
+    gat: torch.Tensor
+    off: torch.Tensor
+
+
+def delivery_view(graph: WindowGraph, mode: int) -> DeliveryView:
+    """``graph``'s delivery-sorted view in ``mode`` (new tensors)."""
+    sca, gat = (graph.dst, graph.src) if mode == FORWARD else (graph.src, graph.dst)
+    sca_s, order = torch.sort(sca, stable=True)
+    return DeliveryView(gat=gat[order], off=row_offsets(sca_s, graph.n))

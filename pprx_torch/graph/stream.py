@@ -3,9 +3,14 @@
 
 The host loop slides the window one batch per step: the b new edges
 overwrite the ring slots of the b expiring ones, the state is corrected
-(``apply_edge_batch``) and pushed back to convergence over the whole COO
+(``apply_edge_batch_``) and pushed back to convergence over the whole COO
 window (``push_to_convergence``). ``slide=1`` is the per-edge mode: every
 edge event is absorbed before the next is read.
+
+The driver's state, ring, degrees and delivery-sorted view are fixed
+buffers for its life, updated in place, and it keeps one ``RoundGraphs``:
+on CUDA each loop (the seed's, each slide's) is one launch of the loop
+graph it captured at its first loop, and one read.
 """
 
 from __future__ import annotations
@@ -18,31 +23,35 @@ import torch
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.convert import state_from_arrays, window_from_arrays
 from pprx_torch.device import resolve_device
+from pprx_torch.engine.graphs import RoundGraphs, copy_into_
 from pprx_torch.engine.push import push_to_convergence
 from pprx_torch.engine.state import FORWARD, PprState, PushStats, init_state
-from pprx_torch.engine.update import apply_edge_batch
-from pprx_torch.graph.dynamic import WindowGraph
+from pprx_torch.engine.update import apply_edge_batch_
+from pprx_torch.graph.dynamic import DeliveryView, WindowGraph, delivery_view
 
 
-def slide_step(
+def slide_step_(
     state: PprState,
     graph: WindowGraph,
+    view: DeliveryView,
     new_src: torch.Tensor,
     new_dst: torch.Tensor,
     slots: torch.Tensor,
     cfg: PprConfig,
-) -> tuple[PprState, WindowGraph, PushStats]:
-    """One window slide: delete the expiring edges at ``slots``, insert the
-    new ones there, correct the state, push to convergence. Rewrites the
-    ring in place: callers must not keep the pre-slide graph."""
+    graphs: RoundGraphs | None = None,
+) -> PushStats:
+    """One window slide, in place: delete the expiring edges at ``slots``,
+    insert the new ones there, correct the state and the degrees, rebuild
+    the delivery-sorted ``view`` into its tensors, push to convergence
+    (through ``graphs``, as ``push_to_convergence``)."""
     old_src = graph.src[slots]
     old_dst = graph.dst[slots]
     # corrections read the old ring (reverse-mode row sums) and old degrees
-    state, graph = apply_edge_batch(state, graph, new_src, new_dst, old_src, old_dst, cfg)
+    apply_edge_batch_(state, graph, new_src, new_dst, old_src, old_dst, cfg)
     graph.src[slots] = new_src
     graph.dst[slots] = new_dst
-    state, stats = push_to_convergence(state, graph, cfg)
-    return state, graph, stats
+    copy_into_(view, delivery_view(graph, state.mode))
+    return push_to_convergence(state, graph, cfg, graphs, view)[1]
 
 
 class StreamDriver:
@@ -79,6 +88,13 @@ class StreamDriver:
         self.state = init_state(n, queries, mode=mode, dtype=dtype, device=self.device)
         self.head = w  # next stream position to insert
         self.step_idx = 0
+        self._hold()
+
+    def _hold(self) -> None:
+        """The delivery-sorted view and the round buffers, for the
+        driver's life."""
+        self.view = delivery_view(self.graph, self.mode)
+        self.round_graphs = RoundGraphs(self.n, 1, self.device)
 
     @classmethod
     def from_arrays(
@@ -105,12 +121,13 @@ class StreamDriver:
         drv.graph = window_from_arrays(arrays, drv.device)
         drv.head = int(meta["head"])
         drv.step_idx = int(meta["step_idx"])
+        drv._hold()
         return drv
 
     def seed(self) -> PushStats:
         """Static push on the initial window."""
-        self.state, stats = push_to_convergence(self.state, self.graph, self.cfg)
-        return stats
+        return push_to_convergence(self.state, self.graph, self.cfg, self.round_graphs,
+                                   self.view)[1]
 
     @property
     def steps_available(self) -> int:
@@ -132,9 +149,8 @@ class StreamDriver:
                 (np.arange(self.head, self.head + b) % w).astype(np.int32),
             ])
             pack = torch.from_numpy(pack).to(self.device)
-            self.state, self.graph, stats = slide_step(
-                self.state, self.graph, pack[:b], pack[b : 2 * b], pack[2 * b :], self.cfg
-            )
+            stats = slide_step_(self.state, self.graph, self.view, pack[:b], pack[b : 2 * b],
+                                pack[2 * b :], self.cfg, self.round_graphs)
             self.head += b
             self.step_idx += 1
             yield stats

@@ -88,7 +88,8 @@ def test_config4_retrieval_matches_jax(small):
 def test_config4_exact_check(small, monkeypatch):
     """``check_exact``: sampled sources of config 4's pushed state against
     exact PPR (L1 within the residual's, mass 1); the reference's keys stay.
-    A push that drops an edge block's deliveries is caught."""
+    A push that drops the deliveries of the window's first 10,000 edges in
+    delivery order (its view's offsets cut) is caught."""
     plain = trun.run_config(4, s=8, k=10, device="cpu")
     held = trun.run_config(4, s=8, k=10, device="cpu", check_exact=3)
     assert set(held) == set(plain) | {"l1_error", "residual_l1", "mass_error", "within_bound"}
@@ -97,10 +98,15 @@ def test_config4_exact_check(small, monkeypatch):
     assert 0 < max(held["residual_l1"]) <= 1e-6 * held["edges"]
 
     import pprx_torch.engine.push as tpush
+    from pprx_torch.graph.dynamic import DeliveryView
 
-    blocks = tpush.edge_blocks
-    monkeypatch.setattr(tpush, "edge_blocks",
-                        lambda n_edges, row_bytes: list(blocks(n_edges - 1000, row_bytes)))
+    view_of = tpush.delivery_view
+
+    def dropping(graph, mode):
+        v = view_of(graph, mode)
+        return DeliveryView(gat=v.gat, off=v.off.clamp(min=int(v.off[0]) + 10_000))
+
+    monkeypatch.setattr(tpush, "delivery_view", dropping)
     assert trun.run_config(4, s=8, k=10, device="cpu", check_exact=3)["within_bound"] is False
 
 

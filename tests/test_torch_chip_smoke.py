@@ -45,14 +45,41 @@ def test_settled_distance_ignores_a_push_at_the_threshold():
 
 def test_dense_check_on_the_cpu():
     """Phase 12 as the card runs it, on the CPU: both modes, slides of 100
-    edges and of 1 edge, every query within its bound of exact PPR, and no
-    launch of the segment sum."""
+    edges and of 1 edge, every query within its bound of exact PPR; each
+    driver's loops through its ``RoundGraphs`` on the host (a read a round
+    and one a loop), no launch here, which the card's launch check refuses;
+    and the check of a loop's launches and reads, which holds on the card
+    alone."""
     res = chip_smoke.dense_check(torch.device("cpu"))
-    assert res["kernel_launches"] == 0
+    assert res["kernel_launches"] == 0 and not any(res["launches_by_entry"].values())
     for mode in ("forward", "reverse"):
-        for b in (100, 1):
+        for b, slides in ((100, 8), (1, 60)):
             assert res[f"{mode}_slide{b}_err"] <= res[f"{mode}_slide{b}_bound"]
             assert res[f"{mode}_slide{b}_rounds"] > 0
+            g = res[f"{mode}_slide{b}_graphs"]
+            assert g["loops"] == 1 + slides and g["loop_launches"] == 0
+            assert g["reads"] == res[f"{mode}_slide{b}_rounds"] + 1 + slides
+    with pytest.raises(AssertionError, match="dense_driver never launched"):
+        chip_smoke.check_dense_launched({"dense_driver": res["launches_by_entry"]})
+    counts = {e: 1 for e in chip_smoke.DENSE_ENTRIES}
+    assert chip_smoke.check_dense_launched({"p": counts}) == {"p": counts}
+    import types
+
+    g = types.SimpleNamespace(summary=lambda: {"loop_launches": 3, "reads": 3})
+    assert chip_smoke.dense_loops(g, 3, torch.device("cuda"))["loops"] == 3
+    with pytest.raises(AssertionError, match="4 dense loops ran as 3 loop graph launches"):
+        chip_smoke.dense_loops(g, 4, torch.device("cuda"))
+
+
+def test_static_check_on_the_cpu():
+    """Phase 9's config 1 as the card runs it, on the CPU: within its L1
+    bound through the dense engine's host loop, with the loop's summary
+    (one loop, a read a round and one more) and the launches by entry
+    (none here)."""
+    res = chip_smoke.static_check(torch.device("cpu"), 1)
+    assert res["within_bound"] and res["rounds"] > 0 and res["peak_mem_gib"] is None
+    assert res["graphs"]["loops"] == 1 and res["graphs"]["reads"] == res["rounds"] + 1
+    assert not any(res["launches_by_entry"].values())
 
 
 def test_exact_contract_holds_bf16_mass_to_a_witness():
@@ -122,12 +149,12 @@ def test_cli_phase_on_the_cpu(tmp_path, monkeypatch):
     """Phase 13 as the card runs it, on the CPU at a small size (the
     headline runner through its environment): every command's checks pass,
     and no run launches a kernel here, which the launch check refuses for
-    the paths through the fast driver."""
+    the paths through the fast driver and through the dense engine."""
     for k, v in dict(N=300, W=1500, B=100, S=4, STEPS=2, REPS=2).items():
         monkeypatch.setenv(f"PPRX_BENCH_{k}", str(v))
     res = chip_smoke.cli_phase(torch.device("cpu"), str(tmp_path), n=2000, w=6000, b=300, s=16,
                                k=20, small=(300, 3000))
-    paths = chip_smoke.FAST_CLI_PATHS + chip_smoke.PLAIN_CLI_PATHS
+    paths = chip_smoke.FAST_CLI_PATHS + chip_smoke.DENSE_CLI_PATHS
     assert set(paths) | {"cli_convert", "cli_subprocess_static"} == set(res)
     assert res["cli_convert"]["edges"] == 6000 + 10 * 300
     assert res["cli_serve_budget"]["exact"]["precision_at_k"] >= 0.95
@@ -141,9 +168,13 @@ def test_cli_phase_on_the_cpu(tmp_path, monkeypatch):
         chip_smoke.check_cli_launches(res)
     for p in chip_smoke.FAST_CLI_PATHS:
         res[p]["launches_by_entry"] = {"segsum_add": 0, "segsum_gather_add": 3}
+    with pytest.raises(AssertionError, match="cli_static never launched"):
+        chip_smoke.check_cli_launches(res)
+    for p in chip_smoke.DENSE_CLI_PATHS:
+        res[p]["launches_by_entry"] = {e: 2 for e in chip_smoke.DENSE_ENTRIES}
     assert chip_smoke.check_cli_launches(res)["cli_bench_config2"]["segsum_gather_add"] == 3
-    res["cli_static"]["launches_by_entry"]["segsum_add"] = 1
-    with pytest.raises(AssertionError, match="cli_static runs plain torch ops"):
+    res["cli_static"]["launches_by_entry"]["scan_pass"] = 0
+    with pytest.raises(AssertionError, match=r"cli_static never launched \['scan_pass'\]"):
         chip_smoke.check_cli_launches(res)
 
 

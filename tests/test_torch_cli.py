@@ -305,9 +305,17 @@ def test_bench_without_config_runs_the_headline(monkeypatch, capsys):
      "serve: --f64 on cuda"),
     (["retrieve", "G", "--from-checkpoint", "G", "--refine-eps", "1e-7", "--f64", "--device",
       "cuda"], "retrieve --refine-eps: --f64 on cuda"),
+    # the dense engine's rounds run K1 and K2 on the card, which take f32
+    (["static", "G", "--f64", "--device", "cuda"],
+     "static: --f64 on cuda: the dense engine's kernels .* take f32 only"),
+    (["retrieve", "G", "--queries", "0,5", "--f64", "--device", "cuda"],
+     "retrieve: --f64 on cuda: the dense engine's kernels"),
+    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "dense", "--f64",
+      "--device", "cuda"], "stream --engine dense: --f64 on cuda: the dense engine's kernels"),
 ], ids=["sharded", "static-query-n",
         "static-query-negative", "stream-query", "dense-query", "retrieve-query", "serve-query",
-        "serve-reverse", "stream-f64-cuda", "serve-f64-cuda", "retrieve-f64-cuda"])
+        "serve-reverse", "stream-f64-cuda", "serve-f64-cuda", "retrieve-f64-cuda",
+        "static-f64-cuda", "retrieve-cold-f64-cuda", "stream-dense-f64-cuda"])
 def test_refusals_name_the_reason(graph_npz, monkeypatch, argv, reason):
     """What the port does not run exits with a message that names why, before
     any state is built (the f64 refusals before any device is touched)."""

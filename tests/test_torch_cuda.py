@@ -511,9 +511,10 @@ def test_checkpoint_round_trip_on_card(tmp_path):
 
 @pytest.mark.cuda
 def test_cli_fast_engine_refuses_f64_on_card(tmp_path):
-    """``--f64`` meets the kernel's f32/bf16 only: the fast engine's
-    subcommands exit with the reason before any work; the dense engine runs
-    f64 on the card."""
+    """``--f64`` meets the kernels' types: the fast engine's subcommands
+    exit with the reason before any work (its kernel takes f32 or bf16), and
+    so does the dense engine's stream (its kernels take f32); the hybrid
+    engine runs f64 on the card, launching no kernel."""
     from pprx_torch import cli
     from pprx_torch.graph.io import save_packed
 
@@ -525,8 +526,11 @@ def test_cli_fast_engine_refuses_f64_on_card(tmp_path):
                  ["serve", graph, "--window", "300", "--slide", "30", "--f64"]):
         with pytest.raises(SystemExit, match="segment-sum kernel takes f32 or bf16 only"):
             cli.main(argv + ["--device", str(dev)])
+    with pytest.raises(SystemExit, match="the dense engine's kernels .* take f32 only"):
+        cli.main(["stream", graph, "--window", "300", "--slide", "30", "--steps", "2", "--f64",
+                  "--engine", "dense", "--device", str(dev)])
     cli.main(["stream", graph, "--window", "300", "--slide", "30", "--steps", "2", "--f64",
-              "--engine", "dense", "--log", str(tmp_path / "log.jsonl")])
+              "--engine", "hybrid", "--log", str(tmp_path / "log.jsonl")])
     assert segsum.launches() == before
 
 
@@ -1640,3 +1644,144 @@ def test_reverse_corrections_in_place_round_as_out_of_place_on_card():
     torch.cuda.synchronize()
     assert torch.equal(w.deg, deg_new) and torch.equal(st.p, p)
     assert torch.equal(st.r, want)
+
+
+# ---- the dense engine on the card: its rounds on K2 and K1, its loop one
+# conditional graph steered by K4 under the dense rule
+
+
+def _dense_inputs(dev, mode, s=16, n=2000, m=20_000, seed=3):
+    """A window on a power-law stream (dangling rows among them) with
+    phantom padding, and the initial state of ``s`` queries."""
+    from pprx_torch.graph.dynamic import WindowGraph
+
+    src, dst, n = synthetic_powerlaw_stream(n, m, seed=seed)
+    w = WindowGraph.from_coo(src, dst, n, capacity=m + 37, device=dev)
+    return w, init_state(n, list(range(0, 5 * s, 5)), mode=mode, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, REVERSE])
+def test_dense_loop_graph_leaves_the_host_loops_state(monkeypatch, mode):
+    """``push_to_convergence`` on the card (one loop graph launch, one
+    read) against the same push with ``RoundGraphs.loop`` forced to the
+    host loop on the same card and inputs: the same rounds, pushes and edge
+    pushes, and ``p`` and ``r`` bit for bit (the same kernels, K1 without
+    atomics); each round launched K2 and K1 once, the loop K3 once (its
+    first count), K4's prime once and turn R + 1 times. Pushed again from
+    the converged state, the loop runs no round."""
+    from pprx_torch.engine import loop, rowpass
+    from pprx_torch.engine.graphs import RoundGraphs
+    from pprx_torch.engine.push import push_to_convergence
+
+    dev = _cuda()
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
+    w, st = _dense_inputs(dev, mode)
+    before = (dict(segsum.LAUNCHES), dict(rowpass.LAUNCHES), dict(loop.LAUNCHES))
+    g = RoundGraphs(w.n, 1, dev)
+    _, stats = push_to_convergence(st, w, cfg, g)
+    torch.cuda.synchronize()
+    rounds = stats.rounds
+    assert rounds > 1 and stats.syncs == 1 and g.summary()["loop_launches"] == 1
+    assert segsum.launches("segsum_gather_add", since=before[0]) == rounds
+    assert {k: rowpass.LAUNCHES[k] - before[1][k] for k in before[1]} == {
+        "scan_pass": rounds, "frontier_rows": 1}
+    assert {k: loop.LAUNCHES[k] - before[2][k] for k in before[2]} == {
+        "prime": 1, "turn": rounds + 1, "after_scan": 0}
+    again = push_to_convergence(st, w, cfg, g)[1]
+    assert (again.rounds, again.syncs, g.summary()["loop_launches"]) == (0, 1, 2)
+    w2, st2 = _dense_inputs(dev, mode)
+    monkeypatch.setattr(RoundGraphs, "loop", RoundGraphs.host_loop)
+    _, host = push_to_convergence(st2, w2, cfg)
+    assert (host.rounds, host.pushes, host.edge_pushes) == (rounds, stats.pushes,
+                                                            stats.edge_pushes)
+    assert host.syncs == rounds + 1
+    assert torch.equal(st.p, st2.p) and torch.equal(st.r, st2.r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, REVERSE])
+def test_dense_push_on_card_holds_exact_ppr(mode):
+    """The dense loop on the card in f32 against exact PPR (f64 power
+    iteration): forward L1 within eps * W of each source's row of M and
+    the mass kept; reverse each target's column within 2 eps."""
+    from pprx_torch.engine.push import push_to_convergence
+
+    from pprx_torch.graph.dynamic import WindowGraph
+
+    dev = _cuda()
+    cfg = PprConfig(alpha=0.15, eps=1e-7, max_rounds=10_000)
+    src, dst, n = synthetic_powerlaw_stream(300, 3000, seed=5)
+    w = WindowGraph.from_coo(src, dst, n, device=dev)
+    queries = [0, 7, 99]
+    st = init_state(n, queries, mode=mode, device=dev)
+    push_to_convergence(st, w, cfg)
+    p = st.p[:n].double().cpu().numpy()
+    if mode == REVERSE:
+        exact = exact_ppr_columns(src, dst, n, queries, 0.15, tol=1e-12, device=dev)
+        assert np.abs(p - exact.T).max() <= 2 * cfg.eps
+    else:
+        exact = exact_ppr(src, dst, n, queries, 0.15, tol=1e-12, device=dev)
+        assert max(np.abs(p[:, j] - pi).sum() for j, pi in enumerate(exact)) <= cfg.eps * 3000
+        assert abs(float(st.p.sum() + st.r.sum()) - len(queries)) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forward", [True, False])
+def test_k1_and_k2_at_config4_width(forward):
+    """Config 4's width, S = 512 (the wide layout round a warp's lanes four
+    times): K2 bit for bit its plain version, f32 ``moving``, and K1's
+    gather entry over a delivery-sorted power-law window within 1e-4 of
+    its plain version's f64 sum (reverse with the per-row scale), two
+    launches alike."""
+    from pprx_torch.engine import rowpass
+    from pprx_torch.engine.segsum import row_offsets, segsum_gather_add_plain
+
+    dev = _cuda()
+    s = 512
+    p, r, deg, _ = _row_state(dev, s, forward, rows=5001, seed=4)
+    got = _scan(rowpass.scan_pass_, p, r, deg, forward, torch.float32)
+    plain = _scan(rowpass.scan_pass_plain, p, r, deg, forward, torch.float32)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    n = 5000
+    src, dst, _ = synthetic_powerlaw_stream(n, 60_000, seed=4)
+    sca, gat = (dst, src) if forward else (src, dst)
+    order = np.argsort(sca, kind="stable")
+    gat_t = torch.from_numpy(gat[order].astype(np.int32)).to(dev)
+    off = row_offsets(torch.from_numpy(sca[order].astype(np.int32)).to(dev), n)
+    table = got[2]
+    scale = None if forward else 1.0 / deg[:n].clamp(min=1).float()
+    rin = r[:n].contiguous()
+    outs = [segsum_gather_add_(rin.clone(), table, gat_t, off, row_scale=scale)
+            for _ in range(2)]
+    ref = segsum_gather_add_plain(rin.double(), table.double(), gat_t, off,
+                                  None if scale is None else scale.double())
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(outs[0].double(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k4_dense_rule_equals_its_plain_steps():
+    """K4 under the dense rule: each ``dense_*`` case of the smoke script's
+    table through the kernel the loop graph launches for it, whole carries
+    equal; and one-arm loop graphs of fill-kernel branches (0 active at the
+    start, one round, stopped at the cap, no round allowed) leave the host
+    loop's carry (``chip_smoke.dense_loop_check``)."""
+    import chip_smoke
+    from pprx_torch.engine import loop
+
+    dev = _cuda()
+    cases = [c for c in chip_smoke.K4_CASES if c[0].startswith("dense_")]
+    assert len(cases) == 13
+    for case in cases:
+        step, carry, counts = chip_smoke.k4_launch(case)
+        want = carry.clone()
+        loop.step_(step, want, counts, loop.DENSE_TABLE)
+        got = carry.to(dev)
+        loop.step_(step, got, counts.to(dev), loop.DENSE_TABLE)
+        assert torch.equal(got.cpu(), want), case[0]
+    res = chip_smoke.dense_loop_check(dev)
+    assert res == {"0_active_5_rounds": 0, "1_active_1_rounds": 1, "1_active_7_rounds": 7,
+                   "1_active_0_rounds": 0}

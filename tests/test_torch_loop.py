@@ -153,6 +153,41 @@ EXPECTED = {
         L.PUSHES: 112, L.EDGE_PUSHES: 1400, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 1,
         L.BRANCH: 2, L.PENDING: 1,
         "log": {2: {5: 12, 6: 0, 7: 0}, 3: [2, 1, 65, 100, 3, 0, 0, 0]}},
+    # the dense rule, written from pprx/engine/push.py:94-119: prime reads
+    # n0 (the counts' n_active) and runs no round from 0, nor at no rounds;
+    # the list's counts stay 0. Each round is the one arm, branch 0; its
+    # tally adds its active pairs and edge pushes, and the loop goes on
+    # while the round found an active pair and the cap is not reached. The
+    # base carry's list counts (cn, fed, fre, ok: 1) stay as they are.
+    "dense_prime_converged": {L.NA: 0, L.GO: 0},
+    "dense_prime_active": {L.NA: 7, L.GO: 1},
+    "dense_prime_no_rounds": {L.NA: 7, L.GO: 0},
+    "dense_decide": {L.BRANCH: 0, "log": {2: [0, 1, 1, 1, 1, 0, 0, 0]}},
+    "dense_after_scan_no_stats": {L.STATS: 0},
+    "dense_tally_goes_on": {
+        L.NA: 9, L.EW: 40, L.ROUNDS: 3, L.PUSHES: 109, L.EDGE_PUSHES: 1040, L.EXECS: 2,
+        L.GO: 1, "log": {2: {5: 9, 6: 40, 7: 0}}},
+    "dense_tally_empty_round": {
+        L.NA: 0, L.EW: 0, L.ROUNDS: 3, L.EXECS: 2, L.GO: 0, "log": {2: {5: 0, 6: 0, 7: 0}}},
+    "dense_tally_reaches_max_rounds": {
+        L.NA: 9, L.EW: 40, L.ROUNDS: 6, L.PUSHES: 109, L.EDGE_PUSHES: 1040, L.EXECS: 2,
+        L.GO: 0, "log": {5: {5: 9, 6: 40, 7: 0}}},
+    "dense_turn_round_then_round": {
+        L.NA: 9, L.EW: 40, L.ROUNDS: 3, L.PUSHES: 109, L.EDGE_PUSHES: 1040, L.EXECS: 2,
+        L.GO: 1, L.BRANCH: 0, L.PENDING: 1,
+        "log": {2: {5: 9, 6: 40, 7: 0}, 3: [0, 1, 1, 1, 1, 0, 0, 0]}},
+    "dense_turn_reverse_round": {
+        L.NA: 12, L.EW: 3, L.ROUNDS: 3, L.PUSHES: 112, L.EDGE_PUSHES: 1003, L.EXECS: 2,
+        L.GO: 1, L.BRANCH: 0, L.PENDING: 1,
+        "log": {2: {5: 12, 6: 3, 7: 0}, 3: [0, 1, 1, 1, 1, 0, 0, 0]}},
+    "dense_turn_empty_round_ends": {
+        L.NA: 0, L.EW: 0, L.ROUNDS: 3, L.EXECS: 2, L.GO: 0, L.PENDING: 0,
+        "log": {2: {5: 0, 6: 0, 7: 0}}},
+    "dense_turn_reaches_max_rounds": {
+        L.NA: 9, L.EW: 40, L.ROUNDS: 6, L.PUSHES: 109, L.EDGE_PUSHES: 1040, L.EXECS: 2,
+        L.GO: 0, L.PENDING: 0, "log": {5: {5: 9, 6: 40, 7: 0}}},
+    "dense_turn_nothing_pending": {L.BRANCH: 0, L.PENDING: 1,
+                                   "log": {2: [0, 1, 1, 1, 1, 0, 0, 0]}},
 }
 
 CASES = {case[0]: case for case in chip_smoke.K4_CASES}
@@ -222,6 +257,10 @@ def test_slots_match_the_kernel_source():
         "AfterScan": L.STEPS.index("after_scan")}
     assert (L.T_E, L.T_G, L.T_EMIT, L.TAB) == tuple(
         L.T_W + i * L.MAX_TIERS for i in (1, 2, 3, 4))
+    # the rules a table names
+    assert {k: enums[k] for k in ("Wl2", "Sharded", "Dense")} == {
+        "Wl2": L.WL2, "Sharded": L.SHARDED, "Dense": L.DENSE}
+    assert L.DENSE_TABLE.values()[L.T_RULE] == L.DENSE
 
 
 @pytest.mark.parametrize("name", [n for n, case in CASES.items()
@@ -255,6 +294,11 @@ def test_table_refuses_a_ladder_it_cannot_hold():
         loop.Table(tiers=((1, 1, 1),), emit=(), heavy_ew=1)
     with pytest.raises(ValueError, match="carry"):
         loop.step_("decide", torch.zeros(8, dtype=torch.int64), [0] * 5, chip_smoke.K4_TABLE)
+    with pytest.raises(ValueError, match="dense rule takes no tiers"):
+        loop.Table(tiers=((1, 1, 1),), emit=(1,), heavy_ew=1, rule=loop.DENSE)
+    with pytest.raises(ValueError, match="no loop rule"):
+        loop.Table(tiers=((1, 1, 1),), emit=(1,), heavy_ew=1, rule=3)
+    assert (L.DENSE_TABLE.scan, L.DENSE_TABLE.stop, L.DENSE_TABLE.n_branches) == (0, 1, 1)
 
 
 @pytest.mark.parametrize("c0ok, max_rounds, rounds", [
@@ -284,6 +328,38 @@ def test_host_loop_takes_a_turn_a_round_and_one_more(monkeypatch, c0ok, max_roun
     execs = [rounds - 1, 1, int(rounds > 1)] if rounds else [0, 0, 0]
     assert values[L.EXECS:L.EXECS + 3] == execs
     assert reads == 1 + rounds + execs[2]
+
+
+@pytest.mark.parametrize("na0, max_rounds, rounds", [
+    (1, 1, 1), (1, 5, 5), (0, 5, 0), (1, 0, 0)])
+def test_dense_host_loop_turns(monkeypatch, na0, max_rounds, rounds):
+    """The dense rule's loop on the host: ``prime`` stops it from a first
+    count of 0 or at no rounds; else R rounds of its one arm take R + 1
+    turns and no ``after_scan``, a read after the prologue and each round,
+    each round's counts tallied, and its log replays (the smoke script's
+    ``dense_fill`` branches, which phase 3c runs as loop graphs)."""
+    calls = {"turn": 0, "after_scan": 0}
+
+    def counted(name, fn):
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        return call
+
+    for name in calls:
+        monkeypatch.setattr(loop, name, counted(name, getattr(loop, name)))
+    sink = []
+    monkeypatch.setattr(graphs, "LOG_SINK", sink)
+    g = graphs.RoundGraphs(8, 1, "cpu")
+    first, branches = chip_smoke.dense_fill(g, na0)
+    values, reads = g.loop(first, branches, loop.DENSE_TABLE, True, max_rounds)
+    assert values[L.ROUNDS] == rounds and not values[L.PENDING]
+    assert calls == {"turn": rounds + 1 if rounds else 0, "after_scan": 0}
+    assert (values[L.EXECS], values[L.EXECS + 1]) == (rounds, 0)
+    assert (values[L.PUSHES], values[L.EDGE_PUSHES], values[L.WL_ROUNDS]) == (rounds, 3 * rounds, 0)
+    assert reads == 1 + rounds
+    assert sink[0]["rounds"] == rounds and len(sink[0]["rows"]) == rounds
+    assert loop.replay_log(sink[0]["rows"], loop.DENSE_TABLE, max_rounds) == [(0, 0)] * rounds
 
 
 CFG = PprConfig(alpha=0.2, eps=1e-8, max_rounds=10_000)

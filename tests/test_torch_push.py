@@ -1,7 +1,11 @@
 """Port of the dense engine and its driver (pprx_torch.engine.push,
 pprx_torch.graph.stream) against the JAX package in f64: element by element
 at 1e-12 with equal rounds (the same arithmetic in the same order on the
-CPU), and against the exact-PPR matrix, both modes."""
+CPU), and against the exact-PPR matrix, both modes. The loop's round
+(``dense_round_``: K2's and K1's plain versions over the window's
+delivery-sorted view) against the reference's ``push_round``, and the loop
+(K4's plain steps on the host) against its ``push_to_convergence``, with
+its edge cases: a converged start and the round cap."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,9 +21,15 @@ from pprx.graph.dynamic import WindowGraph as JaxWindow
 from pprx.graph.io import synthetic_powerlaw_stream
 from pprx.graph.stream import StreamDriver as JaxStreamDriver
 from pprx.ref.exact import exact_ppr_matrix
-from pprx_torch.engine.push import push_round, push_round_given_act, push_to_convergence
+import pprx_torch.engine.push as tpush
+from pprx_torch.engine.push import (
+    dense_round_,
+    push_round,
+    push_round_given_act,
+    push_to_convergence,
+)
 from pprx_torch.engine.state import FORWARD, REVERSE, init_state
-from pprx_torch.graph.dynamic import WindowGraph
+from pprx_torch.graph.dynamic import WindowGraph, delivery_view
 from pprx_torch.graph.stream import StreamDriver
 from tests.conftest import random_multigraph
 
@@ -102,6 +112,88 @@ def test_push_round_in_edge_blocks_matches_jax(monkeypatch, mode, block_edges):
         assert int(tna) == float(jna) and int(tew) == float(jew) and int(tew) > 0
         np.testing.assert_allclose(tst.p.numpy(), np.asarray(jst.p), rtol=0, atol=1e-12)
         np.testing.assert_allclose(tst.r.numpy(), np.asarray(jst.r), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("seed", [2, 4])
+def test_dense_round_matches_jax_push_round(mode, seed):
+    """Three of the loop's rounds (``dense_round_``: the plain K2 and K1 in
+    place over the delivery-sorted view) from the initial state, with
+    dangling rows and a ring above its edge count: p and r the reference's
+    ``push_round``'s at 1e-12, the active pairs and edge pushes equal."""
+    src, dst, n = _graph(seed)
+    queries = [0, 3, 9, 11]  # 3 and 11 dangling
+    cfg = PprConfig(alpha=ALPHA, eps=1e-3)
+    jw = JaxWindow.from_coo(src, dst, n, capacity=137)
+    tw = WindowGraph.from_coo(src, dst, n, capacity=137, device="cpu")
+    assert int((tw.deg[:n] == 0).sum()) >= 2
+    jst = jax_init_state(n, queries, mode=mode, dtype=jnp.float64)
+    tst = init_state(n, queries, mode=mode, dtype=torch.float64, device="cpu")
+    view = delivery_view(tw, mode)
+    counts = torch.zeros(2, dtype=torch.int64)
+    for _ in range(3):
+        jst, jna, jew = jax_push_round(jst, jw, cfg)
+        dense_round_(tst, tw, view, cfg, counts)
+        assert counts.tolist() == [float(jna), float(jew)] and int(jew) > 0
+        np.testing.assert_allclose(tst.p.numpy(), np.asarray(jst.p), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(tst.r.numpy(), np.asarray(jst.r), rtol=0, atol=1e-12)
+        assert tst.p[-1].abs().sum() == 0 and tst.r[-1].abs().sum() == 0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_delivery_view_sorts_the_ring_stably(mode):
+    """The view holds every edge once, grouped by the receiving endpoint in
+    ring order, each beside its other endpoint; the phantom padding sorts
+    past the real rows."""
+    src, dst, n = _graph(5)
+    tw = WindowGraph.from_coo(src, dst, n, capacity=130, device="cpu")
+    view = delivery_view(tw, mode)
+    sca, gat = (dst, src) if mode == FORWARD else (src, dst)
+    order = np.argsort(sca, kind="stable")
+    assert view.off.dtype == view.gat.dtype == torch.int32 and view.off.shape == (n + 1,)
+    np.testing.assert_array_equal(view.gat.numpy()[:len(src)], gat[order])
+    np.testing.assert_array_equal(view.gat.numpy()[len(src):], n)
+    np.testing.assert_array_equal(view.off.numpy(),
+                                  np.searchsorted(sca[order], np.arange(n + 1)))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", ["converged", "capped"])
+def test_push_to_convergence_edge_cases_match_jax(monkeypatch, mode, case):
+    """From a converged state the loop runs no round, as the reference's
+    (its first count is 0), and leaves the state alone; under a round cap
+    it stops at the cap with the reference's state. Neither runs the
+    ring's round (``push_round_given_act``)."""
+    def ring_round(*a, **k):
+        raise AssertionError("the loop ran the hybrid engine's round")
+
+    monkeypatch.setattr(tpush, "push_round_given_act", ring_round)
+    src, dst, n = _graph(1)
+    queries = [0, 3, 7]
+    jw = JaxWindow.from_coo(src, dst, n, capacity=130)
+    tw = WindowGraph.from_coo(src, dst, n, capacity=130, device="cpu")
+    jst = jax_init_state(n, queries, mode=mode, dtype=jnp.float64)
+    tst = init_state(n, queries, mode=mode, dtype=torch.float64, device="cpu")
+    cfg = CFG
+    if case == "converged":
+        jst, _ = jax_push_to_convergence(jst, jw, CFG)
+        tst, _ = push_to_convergence(tst, tw, CFG)
+    else:
+        cfg = PprConfig(alpha=ALPHA, eps=1e-7, max_rounds=4)
+    jst, jstats = jax_push_to_convergence(jst, jw, cfg)
+    before = (tst.p.clone(), tst.r.clone())
+    tst, tstats = push_to_convergence(tst, tw, cfg)
+    want = {"converged": 0, "capped": 4}[case]
+    assert tstats.rounds == int(jstats.rounds) == want
+    assert tstats.syncs == want + 1
+    assert (tstats.pushes, tstats.edge_pushes) == (float(jstats.pushes),
+                                                   float(jstats.edge_pushes))
+    if case == "converged":
+        assert torch.equal(tst.p, before[0]) and torch.equal(tst.r, before[1])
+    else:
+        assert tstats.pushes > 0
+    np.testing.assert_allclose(tst.p.numpy(), np.asarray(jst.p), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(tst.r.numpy(), np.asarray(jst.r), rtol=0, atol=1e-12)
 
 
 def test_push_round_given_act_uses_the_callers_mask():

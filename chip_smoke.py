@@ -988,9 +988,8 @@ K4_CASES = (
     ("dense_prime_converged", "prime", {loop.C0OK: 1}, _Z),
     ("dense_prime_active", "prime", {loop.C0OK: 1}, (5, 10, 1, 7, 0)),
     ("dense_prime_no_rounds", "prime", {loop.MAX_ROUNDS: 0}, (0, 0, 0, 7, 0)),
-    # one arm: the round, whatever the counts; no stats
+    # one arm: the round, whatever the counts
     ("dense_decide", "decide", {}, _Z),
-    ("dense_after_scan_no_stats", "after_scan", {loop.BRANCH: 0}, (0, 0, 0, 7, 10)),
     # a round's tally goes on while it found an active pair, to the cap
     ("dense_tally_goes_on", "tally", {loop.BRANCH: 0}, (0, 0, 0, 9, 40)),
     ("dense_tally_empty_round", "tally", {loop.BRANCH: 0}, _Z),
@@ -3103,11 +3102,15 @@ def turn_shapes() -> list[dict]:
 # shapes ``--turns`` drives only where ``--shapes`` names them: phase 3c,
 # K4 and the loop graph's cost a round (``check_k4``); phase 9's config 4
 # (its cold push, twice); phase 12's dense driver, both modes, slides of
-# 100 edges and of 1, then the first run again (the first is the first of
-# its process)
+# 100 and of 1, then the first run again (the first is the first of
+# its process); the dense driver at the headline stream's shapes (N=200k,
+# W=2M, b=160k, S=128), both modes
 TURN_EXTRA = [{"tag": "loop_control"}, {"tag": "config4", "pushes": 2},
               {"tag": "dense_driver", "n": 300, "w": 1500, "seed": 5,
-               "runs": [[0, 100, 8], [0, 1, 60], [1, 100, 8], [1, 1, 60], [0, 100, 8]]}]
+               "runs": [[0, 100, 8], [0, 1, 60], [1, 100, 8], [1, 1, 60], [0, 100, 8]]},
+              {"tag": "dense_driver_headline", "n": HEADLINE["n"], "w": HEADLINE["w"],
+               "s": HEADLINE["s"], "seed": HEADLINE["seed"],
+               "runs": [[0, HEADLINE["b"], 4], [1, HEADLINE["b"], 4]]}]
 
 
 def turn_record(cs, sh: dict, dev) -> dict:
@@ -3123,9 +3126,16 @@ def turn_record(cs, sh: dict, dev) -> dict:
     inside loop graphs by events around each launch (``graph_device_ms``,
     none in a tree whose loop runs on the host), the host's reads, and the
     launches by entry. ``dense_driver``: ``StreamDriver`` on phase 12's
-    stream, each run (mode, slide, slides) seeded, then its slides timed
-    on the host clock around a sync (``slide_ms`` and each slide's
-    ``slide_ms_each``, rounds a slide, the graph time a slide as above). A
+    stream (``dense_driver_headline``: on the headline stream's, S=128),
+    each run (mode, slide, slides) seeded (its ms, rounds, capture seconds
+    and loop graph ms), then its slides one at a time, each timed on the
+    host clock around a sync (``slide_ms`` and ``slide_ms_each``, rounds a
+    slide, the graph time a slide as above), each split by CUDA events into
+    its parts as the tree's stream module calls them (``corrections``,
+    ``view_sort``, ``view_copy``, ``push``: ``device_ms_by_part``) with
+    its capture seconds and loop graph ms; the first slide of a run also
+    on the host clock, a sync before and after each part
+    (``host_ms_by_part``). A
     stream shape:
     ``run_stream`` and ``profile_slides`` on ``FastStreamDriver``, then
     two refines to 5e-8 from one state, the first of which captures the
@@ -3152,7 +3162,7 @@ def turn_record(cs, sh: dict, dev) -> dict:
     if sh["tag"] == "loop_control":
         return {"loop_control": cs.check_k4(dev)}
     cuda = dev.type == "cuda"
-    if sh["tag"] in ("config4", "dense_driver"):
+    if sh["tag"] in ("config4", "dense_driver", "dense_driver_headline"):
         import pprx_torch.bench.run as run_mod
         from pprx_torch.graph.stream import StreamDriver
 
@@ -3204,27 +3214,96 @@ def turn_record(cs, sh: dict, dev) -> dict:
                                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30
                                  if cuda else None})
                 return {"config4": runs}
+            import numpy as np
+
+            import pprx_torch.graph.stream as stream_mod
+
+            # a slide's parts, by the names each tree's stream module calls
+            # them: the corrections (in place or copying), the view's sort
+            # and its copy into the held view, the push (a capture, the loop)
+            part_of = {"apply_edge_batch_": "corrections", "apply_edge_batch": "corrections",
+                       "delivery_view": "view_sort", "copy_into_": "view_copy",
+                       "push_to_convergence": "push"}
+            spans, walls, split = {}, {}, [False]
+
+            def parted(fn, part):
+                def call(*args, **kw):
+                    if split[0]:
+                        cs.sync(dev)
+                        t = time.perf_counter()
+                    if cuda:
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                    out = fn(*args, **kw)
+                    if cuda:
+                        end.record()
+                        spans.setdefault(part, []).append((start, end))
+                    if split[0]:
+                        cs.sync(dev)
+                        walls[part] = walls.get(part, 0.0) + (time.perf_counter() - t) * 1e3
+                    return out
+                return call
+
+            for name, part in part_of.items():
+                if hasattr(stream_mod, name):
+                    originals.append((stream_mod, name, getattr(stream_mod, name)))
+                    setattr(stream_mod, name, parted(getattr(stream_mod, name), part))
+
+            def capture_s(drv):
+                g = getattr(drv, "round_graphs", None)  # none in a tree whose loop runs on the host
+                return g.summary()["capture_s"] if g is not None else 0.0
+
             src, dst, n = synthetic_powerlaw_stream(sh["n"], 2 * sh["w"], seed=sh["seed"])
             cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
+            queries = list(range(sh["s"])) if "s" in sh else [0, 7, 99]
             for mode, b, k in sh["runs"]:
-                drv = StreamDriver(src, dst, n, [0, 7, 99], cfg,
+                drv = StreamDriver(src, dst, n, queries, cfg,
                                    StreamConfig(window=sh["w"], slide=b), mode=mode, device=dev)
-                drv.seed()
-                cs.sync(dev)
                 del marks[:]
-                each, rounds = [], 0
                 t0 = time.perf_counter()
-                for st in drv.run(k):
-                    rounds += st.rounds
-                    each.append((time.perf_counter() - t0) * 1e3 - sum(each))
+                seed = drv.seed()
                 cs.sync(dev)
-                wall = (time.perf_counter() - t0) * 1e3
-                graph_ms = ms(marks)
-                runs.append({"mode": mode, "slide": b, "slides": k, "slide_ms": wall / k,
-                             "slide_ms_each": each,
+                seed_rec = {"ms": (time.perf_counter() - t0) * 1e3, "rounds": seed.rounds,
+                            "capture_s": capture_s(drv), "graph_device_ms": ms(marks)}
+                each, rounds, by_slide = [], 0, []
+                wall = 0.0
+                for i in range(k):
+                    del marks[:]
+                    spans.clear()
+                    walls.clear()
+                    split[0] = i == 0
+                    cap0 = capture_s(drv)
+                    t0 = time.perf_counter()
+                    st = next(drv.run(1))
+                    cs.sync(dev)
+                    each.append((time.perf_counter() - t0) * 1e3)
+                    wall += each[-1]
+                    rounds += st.rounds
+                    by_slide.append({"rounds": st.rounds, "capture_s": capture_s(drv) - cap0,
+                                     "loop_graph_ms": ms(marks), "graph_launches": len(marks),
+                                     "device_ms_by_part": {p: ms(v) for p, v in spans.items()},
+                                     **({"host_ms_by_part": dict(walls)} if i == 0 else {})})
+                split[0] = False
+                r_l1 = drv.state.r[:n].double().abs().sum(0)
+                runs.append({"mode": mode, "slide": b, "slides": k, "sources": len(queries),
+                             "seed": seed_rec, "slide_ms": wall / k, "slide_ms_each": each,
                              "rounds_per_slide": rounds / k,
-                             "graph_device_ms": graph_ms and graph_ms / k,
-                             "graph_launches_per_slide": len(marks) / k})
+                             "graph_device_ms": sum(x["loop_graph_ms"] or 0 for x in by_slide)
+                             / k if cuda else None,
+                             "graph_launches_per_slide": sum(x["graph_launches"] for x in by_slide)
+                             / k,
+                             "first_slide": by_slide[0],
+                             "later_median": {
+                                 key: float(np.median([x[key] or 0 for x in by_slide[1:]]))
+                                 for key in ("capture_s", "loop_graph_ms")} | {
+                                 "device_ms_by_part": {
+                                     p: float(np.median([x["device_ms_by_part"][p]
+                                                         for x in by_slide[1:]]))
+                                     for p in by_slide[0]["device_ms_by_part"]}},
+                             "p_plus_r_max": float((drv.state.p[:n].double().sum(0)
+                                            + drv.state.r[:n].double().sum(0)).max()),
+                             "residual_l1_max": float(r_l1.max())})
             return {"dense_driver": runs}
         finally:
             for obj, name, fn in originals:

@@ -260,7 +260,7 @@ __device__ void turn(i64* c, const i64* n, i64* log, const Table& t, const Handl
 __device__ void after_scan(i64* c, const i64* n, const Table& t, const Handles& h) {
   const int k = static_cast<int>(t.v[kTiers]);
   bool stats = false;
-  if (c[kBranch] == k && t.v[kRule] != kDense) {
+  if (c[kBranch] == k) {
     const i64 na = n[3];
     const bool heavy = n[heavy_at(t)] > t.v[kHeavyEw];
     stats = !heavy && na > 0 && c[kRounds] + 1 < c[kMaxRounds];

@@ -36,7 +36,9 @@ reads the first active count (the counts' ``n_active``, the reference's
 ``n0``) and runs no round from a converged state; a turn tallies the
 pending round (its rounds, pushes and edge pushes) and goes on while that
 round found an active pair and the cap is not reached, as the reference's
-``cond`` reads the last round's count; ``after_scan`` is not used.
+``cond`` reads the last round's count. Its loops call no ``after_scan``
+(the loop graph holds none; the host loop and ``replay_log`` skip it), so
+that step has no dense case.
 
 Both keep the port's test that the stats run only where a round follows.
 The sharded reference has none, and needs none: the stats read ``r`` and
@@ -51,8 +53,9 @@ graph's branch and loop conditions. On the CPU the host loops of
 ``pprx_torch.engine.wl2``, ``pprx_torch.dist.wl`` and
 ``pprx_torch.engine.push`` call the plain steps below, which nothing on
 CUDA calls; ``step_`` runs one step on a carry where it lies, the kernel on
-a card or the plain step on the CPU. Both write the same carry. ``decide`` and ``tally`` have no kernel of their own:
-they are ``turn``'s parts, and ``replay_log``'s.
+a card or the plain step on the CPU. Both write the same carry. ``decide``
+and ``tally`` have no kernel of their own: they are ``turn``'s parts, and
+``replay_log``'s.
 
 Branches are numbered: the ``k`` tiers ``0 .. k-1``, the scan ``k`` and its
 stats ``k + 1``. The carry also counts each branch's executions (what a
@@ -239,7 +242,7 @@ def _decide(c: list[int], t: Table) -> int:
 
 def _after_scan(c: list[int], counts, t: Table) -> bool:
     stats = False
-    if c[BRANCH] == t.scan and not t.dense:
+    if c[BRANCH] == t.scan:
         na = counts[3]
         heavy = counts[t.heavy_at] > t.heavy_ew
         # the stats only where a round follows and may use them
@@ -473,5 +476,6 @@ def replay_log(rows: list[list[int]], table: Table, max_rounds: int) -> list[tup
         b = _decide(c, table)
         counts = [0, 0, 0, na, 0, 0]
         counts[table.heavy_at] = heavy
-        out.append((b, int(_after_scan(c, counts, table))))
+        # the dense rule has no stats arm: its loops call no after_scan
+        out.append((b, 0 if table.dense else int(_after_scan(c, counts, table))))
     return out

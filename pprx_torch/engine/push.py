@@ -109,34 +109,40 @@ def push_round_given_act(
 
 
 def dense_round_(
-    state: PprState, graph: WindowGraph, view: DeliveryView, cfg: PprConfig,
-    counts: torch.Tensor,
+    state: PprState, deg: torch.Tensor, views: list[tuple[torch.Tensor, torch.Tensor]],
+    cfg: PprConfig, counts: torch.Tensor, moving_dtype: torch.dtype | None = None,
 ) -> None:
     """One dense round in place on ``state.p`` and ``state.r``: K2 takes
     every active pair's mass off ``r`` onto ``p`` and writes the rows that
-    leave (``moving``), then K1 delivers them over ``view``, the window's
-    delivery-sorted view (``delivery_view(graph, state.mode)``): forward
-    ``r[w] += sum of moving[u]`` over the edges ``(u, w)``, reverse
-    ``r[u] += (sum of moving[w]) / max(d_out(u), 1)``.
+    leave (``moving``, in ``moving_dtype``, by default the state's), then K1
+    delivers them over each of ``views``, ``(gat, off)`` pairs of a
+    delivery-sorted view with ``off`` over rows ``[0, N]`` (the dense
+    engine's window, ``delivery_view(graph, state.mode)``; the wl2 scan
+    round's window and fresh views): forward ``r[w] += sum of moving[u]``
+    over the edges ``(u, w)``, reverse ``r[u] += (sum of moving[w]) /
+    max(d_out(u), 1)``, the scale exact in the state's dtype.
 
     counts: int64 [2], overwritten with the round's active pairs and edge
     pushes (forward each active pair's out-degree, reverse each edge's
     active pairs at its ``dst``: ``pprx/engine/push.py:76, 84-85``).
     """
-    n = graph.n
+    n = deg.shape[0] - 1
     forward = state.mode == FORWARD
     r = state.r
     counts.zero_()
-    moving = torch.empty_like(r)
+    moving = torch.empty_like(r, dtype=moving_dtype or r.dtype)
     row_act = None if forward else torch.empty(n + 1, dtype=torch.int32, device=r.device)
-    scan_pass_(state.p, r, graph.deg, moving, counts, row_act, eps=cfg.eps, alpha=cfg.alpha,
+    scan_pass_(state.p, r, deg, moving, counts, row_act, eps=cfg.eps, alpha=cfg.alpha,
                forward=forward)
     scale = None
     if not forward:
-        scale = 1.0 / graph.deg[:n].clamp(min=1).to(r.dtype)
-        # the view's gat is each edge's dst; the phantom slots' row N has 0
-        counts[1:].copy_(row_act[view.gat].sum())
-    segsum_gather_add_(r[:n], moving, view.gat, view.off, row_scale=scale)
+        scale = 1.0 / deg[:n].clamp(min=1).to(r.dtype)
+        # a view's gat is each edge's dst; phantom, killed and unfilled
+        # slots name row N, whose count is 0
+        counts[1:].copy_(torch.stack([row_act[gat].sum() for gat, _ in views]).sum())
+    # rows [0, N) only: the phantom row's edges are never read
+    for gat, off in views:
+        segsum_gather_add_(r[:n], moving, gat, off, row_scale=scale)
     # keep the phantom row identically zero
     state.p[-1] = 0.0
     r[-1] = 0.0
@@ -176,7 +182,8 @@ def push_to_convergence(
     g.hold("the dense state, window and view", state, graph, view)
     key = ("dense", state.mode, cfg.eps, cfg.alpha)
     first = ((*key, "first"), lambda: _first_count(state, graph, cfg, g.counts))
-    rnd = ((*key, "round"), lambda: dense_round_(state, graph, view, cfg, g.counts[3:5]))
+    rnd = ((*key, "round"),
+           lambda: dense_round_(state, graph.deg, [(view.gat, view.off)], cfg, g.counts[3:5]))
     values, reads = g.loop(first, [rnd], loop.DENSE_TABLE, True, cfg.max_rounds)
     return state, PushStats(rounds=values[loop.ROUNDS], pushes=values[loop.PUSHES],
                             edge_pushes=values[loop.EDGE_PUSHES], syncs=reads)

@@ -60,7 +60,8 @@ from pprx_torch.config import PprConfig
 from pprx_torch.engine import loop
 from pprx_torch.engine.graphs import RoundGraphs, copy_into_
 from pprx_torch.engine.loop import Table
-from pprx_torch.engine.rowpass import frontier_rows, scan_pass_
+from pprx_torch.engine.push import dense_round_
+from pprx_torch.engine.rowpass import frontier_rows
 from pprx_torch.engine.segsum import row_offsets, segsum_gather_add_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats
 from pprx_torch.graph.dynamic import WindowGraph
@@ -201,38 +202,19 @@ def dense_round_sorted(
 ) -> tuple[PprState, torch.Tensor, torch.Tensor]:
     """One push round over every active (vertex, query) pair, delivered in
     scatter-endpoint order through the segment sum (window view, then
-    fresh view). Updates ``state.p`` and ``state.r`` in place and returns
-    (state, n_active, edge_pushes) with int64 device scalars.
+    fresh view): the dense engine's round (``push.dense_round_``) over the
+    kill graph's two views. Updates ``state.p`` and ``state.r`` in place and
+    returns (state, n_active, edge_pushes) with int64 device scalars.
 
     ``bf16d`` delivers the increments in bf16 (f32 accumulation); the
     residual removal, and in reverse mode the per-row scale, stay exact in
     the state's dtype."""
     n = kg.n
-    deg = kg.window.deg
-    forward = state.mode == FORWARD
-    dev = state.r.device
-    # the round's elementwise work, one pass over the state (rowpass K2)
-    moving = torch.empty_like(state.r, dtype=torch.bfloat16 if bf16d else state.r.dtype)
-    counts = torch.zeros(2, dtype=torch.int64, device=dev)
-    row_act = None if forward else torch.empty(n + 1, dtype=torch.int32, device=dev)
-    scan_pass_(state.p, state.r, deg, moving, counts, row_act, eps=cfg.eps, alpha=cfg.alpha,
-               forward=forward)
-    if forward:
-        scale = None
-        edge_pushes = counts[1]
-    else:
-        # the delivery row is the receiver: its 1/d_out is one factor on
-        # the row's sum
-        scale = 1.0 / deg[:n].clamp(min=1).to(state.r.dtype)
-        # killed and unfilled slots name row n, whose count is 0
-        edge_pushes = row_act[kg.d_gat].sum() + row_act[kg.fr_gat].sum()
-    # rows [0, n) only: the phantom row's edges (ring padding, unfilled
-    # fresh slots) are never read, and row n is zeroed anyway
-    segsum_gather_add_(state.r[:n], moving, kg.d_gat, kg.d_off[: n + 1], row_scale=scale)
-    segsum_gather_add_(state.r[:n], moving, kg.fd_gat, kg.fd_off[: n + 1], row_scale=scale)
-    state.p[-1] = 0.0
-    state.r[-1] = 0.0
-    return state, counts[0], edge_pushes
+    counts = torch.zeros(2, dtype=torch.int64, device=state.r.device)
+    dense_round_(state, kg.window.deg,
+                 [(kg.d_gat, kg.d_off[: n + 1]), (kg.fd_gat, kg.fd_off[: n + 1])], cfg, counts,
+                 torch.bfloat16 if bf16d else None)
+    return state, counts[0], counts[1]
 
 
 def rld_expand(

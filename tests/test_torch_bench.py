@@ -88,8 +88,9 @@ def test_config4_retrieval_matches_jax(small):
 def test_config4_exact_check(small, monkeypatch):
     """``check_exact``: sampled sources of config 4's pushed state against
     exact PPR (L1 within the residual's, mass 1); the reference's keys stay.
-    A push that drops the deliveries of the window's first 10,000 edges in
-    delivery order (its view's offsets cut) is caught."""
+    A push that drops the deliveries of the ring's last 1,000 edges (its
+    delivery view built from a ring whose last 1,000 slots are the phantom
+    ``(N, N)``, the degrees kept) is caught."""
     plain = trun.run_config(4, s=8, k=10, device="cpu")
     held = trun.run_config(4, s=8, k=10, device="cpu", check_exact=3)
     assert set(held) == set(plain) | {"l1_error", "residual_l1", "mass_error", "within_bound"}
@@ -98,13 +99,15 @@ def test_config4_exact_check(small, monkeypatch):
     assert 0 < max(held["residual_l1"]) <= 1e-6 * held["edges"]
 
     import pprx_torch.engine.push as tpush
-    from pprx_torch.graph.dynamic import DeliveryView
+    from pprx_torch.graph.dynamic import WindowGraph
 
     view_of = tpush.delivery_view
 
     def dropping(graph, mode):
-        v = view_of(graph, mode)
-        return DeliveryView(gat=v.gat, off=v.off.clamp(min=int(v.off[0]) + 10_000))
+        src, dst = graph.src.clone(), graph.dst.clone()
+        src[-1000:] = graph.n
+        dst[-1000:] = graph.n
+        return view_of(WindowGraph(src=src, dst=dst, deg=graph.deg), mode)
 
     monkeypatch.setattr(tpush, "delivery_view", dropping)
     assert trun.run_config(4, s=8, k=10, device="cpu", check_exact=3)["within_bound"] is False

@@ -372,6 +372,31 @@ def test_config5_turn_on_the_cpu():
             chip_smoke.check_dense_row_passes({"config5_f32": run})
 
 
+def test_dense_driver_turn_on_the_cpu():
+    """``--turns``'s dense driver shapes through ``turn_record`` on the CPU
+    at a small size, as each root's turn runs them: the headline one keeps
+    the headline stream's shapes; each run is seeded and its slides timed,
+    rounds a slide counted, and its first slide split on the host clock
+    into the stream module's parts (corrections, the view's sort and copy,
+    the push), which sum to no more than the slide."""
+    extra = {sh["tag"]: sh for sh in chip_smoke.TURN_EXTRA}
+    head = extra["dense_driver_headline"]
+    assert (head["n"], head["w"], head["s"]) == (200_000, 2_000_000, 128)
+    assert {b for _, b, _ in head["runs"]} == {160_000}
+    res = chip_smoke.turn_record(chip_smoke, dict(head, n=300, w=1500, s=4,
+                                                  runs=[[0, 100, 3], [1, 100, 2]]),
+                                 torch.device("cpu"))
+    runs = res["dense_driver"]
+    assert [(r["mode"], r["slides"], r["sources"]) for r in runs] == [(0, 3, 4), (1, 2, 4)]
+    for r in runs:
+        assert r["seed"]["rounds"] > 0 and r["rounds_per_slide"] > 0
+        assert len(r["slide_ms_each"]) == r["slides"]
+        parts = r["first_slide"]["host_ms_by_part"]
+        assert set(parts) == {"corrections", "view_sort", "view_copy", "push"}
+        assert sum(parts.values()) <= r["slide_ms_each"][0]
+        assert r["residual_l1_max"] > 0
+
+
 def test_config5_reverse_turn_on_the_cpu():
     """``--turns``'s config 5 reverse shape (phase 15a's run) through
     ``turn_record`` on the CPU at a small size: the same shapes as the

@@ -140,19 +140,22 @@ def test_reverse_stream_against_exact_columns():
 def test_fast_stream_sorted_compact_delivery_matches_jax(monkeypatch):
     """``SORT_DELIVER_MIN`` lowered in both packages, so every compact round
     of the stream sorts its lanes and delivers through the segment sum (the
-    port: the gather entry on ``vals`` under the sort order)."""
+    port: the gather entry on ``vals`` under the sort order). Scan rounds
+    deliver through the dense engine's round (``push.dense_round_``)."""
     import pprx.engine.wl2 as jwl2
+    import pprx_torch.engine.push as tpush
     import pprx_torch.engine.wl2 as twl2
 
     monkeypatch.setattr(jwl2, "SORT_DELIVER_MIN", 1)
     monkeypatch.setattr(twl2, "SORT_DELIVER_MIN", 1)
     calls = []
     fused = twl2.segsum_gather_add_
-    monkeypatch.setattr(
-        twl2, "segsum_gather_add_",
-        lambda rin, table, gat, off, **kw: (
-            calls.append(gat.dtype), fused(rin, table, gat, off, **kw))[1],
-    )
+    for mod in (twl2, tpush):
+        monkeypatch.setattr(
+            mod, "segsum_gather_add_",
+            lambda rin, table, gat, off, **kw: (
+                calls.append(gat.dtype), fused(rin, table, gat, off, **kw))[1],
+        )
     a, b = _pair()
     a.seed(), b.seed()
     ra = [(int(s.rounds), int(s.wl_rounds)) for s in a.run(6)]

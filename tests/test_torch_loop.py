@@ -163,7 +163,6 @@ EXPECTED = {
     "dense_prime_active": {L.NA: 7, L.GO: 1},
     "dense_prime_no_rounds": {L.NA: 7, L.GO: 0},
     "dense_decide": {L.BRANCH: 0, "log": {2: [0, 1, 1, 1, 1, 0, 0, 0]}},
-    "dense_after_scan_no_stats": {L.STATS: 0},
     "dense_tally_goes_on": {
         L.NA: 9, L.EW: 40, L.ROUNDS: 3, L.PUSHES: 109, L.EDGE_PUSHES: 1040, L.EXECS: 2,
         L.GO: 1, "log": {2: {5: 9, 6: 40, 7: 0}}},

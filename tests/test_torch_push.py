@@ -133,7 +133,7 @@ def test_dense_round_matches_jax_push_round(mode, seed):
     counts = torch.zeros(2, dtype=torch.int64)
     for _ in range(3):
         jst, jna, jew = jax_push_round(jst, jw, cfg)
-        dense_round_(tst, tw, view, cfg, counts)
+        dense_round_(tst, tw.deg, [(view.gat, view.off)], cfg, counts)
         assert counts.tolist() == [float(jna), float(jew)] and int(jew) > 0
         np.testing.assert_allclose(tst.p.numpy(), np.asarray(jst.p), rtol=0, atol=1e-12)
         np.testing.assert_allclose(tst.r.numpy(), np.asarray(jst.r), rtol=0, atol=1e-12)

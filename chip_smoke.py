@@ -897,9 +897,13 @@ _Z6 = _Z + (0,)
 # the sharded wl engine's rule on the same ladder (pprx_torch.dist.wl in a
 # world of one shard): every tier emits the candidate buffer's width, n + 1
 K4_SHARDED = dataclasses.replace(K4_TABLE, emit=(1001,) * 3, rule=loop.SHARDED)
+# the memory-proportional rule (wlp in a world of one shard) on the same
+# ladder, whose top tier takes any list: arms the tiers 0-2, the drain 3 and
+# the rescan 4; no stats-skip
+K4_PROPORTIONAL = dataclasses.replace(K4_SHARDED, heavy_ew=0, rule=loop.PROPORTIONAL)
 # (name, step, the case's slots, counts: cn, fed, fre, n_active, edge_work)
 # under K4_TABLE; the sharded_* cases under K4_SHARDED, the dense_* cases
-# under loop.DENSE_TABLE (k4_table)
+# under loop.DENSE_TABLE, the prop_* cases under K4_PROPORTIONAL (k4_table)
 K4_CASES = (
     # prime: an invalid list, an empty valid one, a valid one, no rounds
     ("prime_invalid_list", "prime", {loop.C0OK: 0}, (5, 10, 1, 0, 0)),
@@ -1005,14 +1009,49 @@ K4_CASES = (
     ("dense_turn_reaches_max_rounds", "turn", {loop.PENDING: 1, loop.BRANCH: 0,
                                                loop.ROUNDS: 5}, (0, 0, 0, 9, 40)),
     ("dense_turn_nothing_pending", "turn", {loop.GO: 1}, _Z),
+    # the proportional rule (K4_PROPORTIONAL; counts: cn, fed, fre, n_active,
+    # edge_work, the pending carry): the first round runs from any list, a
+    # carry the corrections left is pending, no round at no rounds
+    ("prop_prime_valid_list", "prime", {loop.C0OK: 1}, (3, 9, 2, 0, 0, 0)),
+    ("prop_prime_first_round_forced", "prime", {loop.C0OK: 1}, _Z6),
+    ("prop_prime_carry_pending", "prime", {loop.C0OK: 1}, (3, 9, 2, 0, 0, 5)),
+    ("prop_prime_no_rounds", "prime", {loop.C0OK: 0, loop.MAX_ROUNDS: 0}, _Z6),
+    # a pending carry drains over a valid list; an invalid list rescans; a
+    # valid one takes its tier, and past the top tier's border still the top
+    ("prop_decide_drain_over_valid_list", "decide", {loop.PEND: 4, loop.CN: 8, loop.FED: 32,
+                                                     loop.FRE: 4}, _Z6),
+    ("prop_decide_rescan", "decide", {loop.OK: 0}, _Z6),
+    ("prop_decide_tier0_border", "decide", {loop.CN: 8, loop.FED: 32, loop.FRE: 4}, _Z6),
+    ("prop_decide_past_the_top_border", "decide", {loop.CN: 257, loop.FED: 0, loop.FRE: 0},
+     _Z6),
+    # a round's count or a pending carry goes on; a drain counts whether it
+    # left a list and keeps the list's validity; a rescan makes it valid
+    ("prop_tally_tier_goes_on", "tally", {loop.BRANCH: 0}, (65, 100, 3, 12, 400, 0)),
+    ("prop_tally_tier_leaves_carry", "tally", {loop.BRANCH: 1}, (10, 20, 2, 0, 0, 3)),
+    ("prop_tally_drain_goes_on", "tally", {loop.BRANCH: 3, loop.PEND: 2}, (5, 6, 1, 0, 0, 0)),
+    ("prop_tally_drain_ends_loop", "tally", {loop.BRANCH: 3, loop.PEND: 2, loop.OK: 0}, _Z6),
+    ("prop_tally_rescan", "tally", {loop.BRANCH: 4, loop.OK: 0}, (40, 50, 6, 9, 100, 0)),
+    ("prop_tally_reaches_max_rounds", "tally", {loop.BRANCH: 0, loop.ROUNDS: 5},
+     (1, 1, 1, 9, 10, 0)),
+    # turns: a tier round that leaves a carry, then the drain; a drain that
+    # ends the loop (the SWITCH's value past its five arms); the cap; the
+    # loop's first turn from an invalid list
+    ("prop_turn_tier_then_drain", "turn", {loop.PENDING: 1, loop.BRANCH: 0},
+     (65, 100, 3, 12, 400, 7)),
+    ("prop_turn_drain_ends", "turn", {loop.PENDING: 1, loop.BRANCH: 3, loop.PEND: 2}, _Z6),
+    ("prop_turn_reaches_max_rounds", "turn", {loop.PENDING: 1, loop.BRANCH: 0, loop.ROUNDS: 5},
+     (1, 1, 1, 9, 10, 0)),
+    ("prop_turn_nothing_pending", "turn", {loop.GO: 1, loop.OK: 0}, _Z6),
 )
 
 
 def k4_table(case) -> loop.Table:
     """The table a case of ``K4_CASES`` runs under: the sharded rule's for
-    a case named ``sharded_*``, the dense rule's for ``dense_*``."""
+    a case named ``sharded_*``, the dense rule's for ``dense_*``, the
+    proportional rule's for ``prop_*``."""
     rule = case[0].split("_")[0]
-    return {"sharded": K4_SHARDED, "dense": loop.DENSE_TABLE}.get(rule, K4_TABLE)
+    return {"sharded": K4_SHARDED, "dense": loop.DENSE_TABLE,
+            "prop": K4_PROPORTIONAL}.get(rule, K4_TABLE)
 
 
 def k4_case(case) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1100,6 +1139,7 @@ def check_k4(dev) -> dict:
                      "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs[step]}
     res.update(loop_overhead(dev))
     res["dense_loops"] = dense_loop_check(dev)
+    res["prop_loops"] = prop_loop_check(dev)
     return res
 
 
@@ -1157,6 +1197,67 @@ def dense_loop_check(dev) -> dict:
                                  f"left {values[:loop.HEAD]} ({reads} reads, K4 {k4}) where "
                                  f"the host loop left {want[:loop.HEAD]}")
         res[f"{na0}_active_{max_rounds}_rounds"] = rounds
+    return res
+
+
+PROP_FILL_TABLE = loop.Table(tiers=((8, 32, 4),), emit=(8,), heavy_ew=0,
+                             rule=loop.PROPORTIONAL)
+
+
+def prop_fill(g: RoundGraphs, pend0: int) -> tuple:
+    """A proportional loop's prologue and arms as fill kernels on ``g``'s
+    counts under ``PROP_FILL_TABLE`` (the tier 0, the drain 1, the rescan
+    2): the first list's counts and a pending carry ``pend0``; a tier round
+    or a rescan that leaves an active pair and no carry, so that the loop
+    runs to its cap, and a drain that leaves no list and no carry, which
+    ends it."""
+    c = g.counts
+
+    def first():
+        c[:3].fill_(1)
+        c[loop.N_PEND:].fill_(pend0)
+
+    def active():
+        c[3:4].fill_(1)
+        c[loop.N_PEND:].zero_()
+
+    def drain():
+        c[:5].zero_()
+        c[loop.N_PEND:].zero_()
+
+    return (("first", pend0), first), [("tier", active), ("drain", drain), ("rescan", active)]
+
+
+# (c0ok, pending carry, max_rounds) of the proportional loops phase 3c runs:
+# an invalid list (a rescan, then tiers to the cap), a pending carry (one
+# drain, which ends the loop), a valid list to the cap, no round allowed
+PROP_FILL_LOOPS = ((False, 0, 3), (True, 2, 5), (True, 0, 4), (True, 0, 0))
+
+
+def prop_loop_check(dev) -> dict:
+    """Loop graphs of the proportional rule's form (``prop_fill`` arms: the
+    tier, the drain, the rescan, no stats) on the card against the host
+    loop of the same arms on the CPU: the whole carry equal, K4's launches
+    prime 1, turn R + 1 (none where prime stops the loop) and no
+    after_scan, one read."""
+    res = {}
+    for c0ok, pend0, max_rounds in PROP_FILL_LOOPS:
+        got = {}
+        for where in (dev, torch.device("cpu")):
+            g = RoundGraphs(8, 8, where, n_counts=loop.N_COUNTS)
+            before = dict(loop.LAUNCHES)
+            first, branches = prop_fill(g, pend0)
+            values, reads = g.loop(first, branches, PROP_FILL_TABLE, c0ok, max_rounds)
+            got[where.type] = (values, reads, {k: loop.LAUNCHES[k] - before[k] for k in before})
+        (values, reads, k4), (want, _, _) = got[dev.type], got["cpu"]
+        rounds = values[loop.ROUNDS]
+        if values != want or reads != 1 or k4 != {
+                "prime": 1, "turn": rounds + 1 if rounds else 0, "after_scan": 0}:
+            raise AssertionError(f"a proportional loop (c0ok {c0ok}, carry {pend0}, at most "
+                                 f"{max_rounds} rounds) left {values[:loop.HEAD]} ({reads} "
+                                 f"reads, K4 {k4}) where the host loop left {want[:loop.HEAD]}")
+        res[f"ok{int(c0ok)}_carry{pend0}_{max_rounds}_rounds"] = {
+            "rounds": rounds, "execs": values[loop.EXECS:loop.EXECS + 3]}
     return res
 
 
@@ -2099,13 +2200,16 @@ def config5_check(dev, bf16d: bool, n_check: int = 16, k: int = 100, prof: bool 
     timed slides at mesh 1x1), with the counts set to 0 before it; with
     ``prof`` the stream's one slide left under the profiler, with the peak
     memory of that slide alone (``slide_peak_gib``); then the contract and
-    the sharded top-k against the single-device head. With bf16 delivery the mass is
-    held to a witness: the same run through the port on the CPU, where the
-    plain version sums and no kernel runs (``cpu_witness_s``: what it took);
-    the loss is the reference's too (PERF.md §2). 15c runs it with
-    ``engine="wlp"``; ``round_kinds`` counts the engine's rounds by kind.
-    The wl engine's loops run on the card as loop graphs (``graphs``:
-    ``sharded_loops``, the seed's and 8 slides' before the profile)."""
+    (forward) the sharded top-k against the single-device head. With bf16
+    delivery the mass is held to a witness: the same run through the port
+    on the CPU, where the plain version sums and no kernel runs
+    (``cpu_witness_s``: what it took); the loss is the reference's too
+    (PERF.md §2). 14c runs it with ``engine="dense"`` and 15c with
+    ``engine="wlp"``, each in both modes (``mode="reverse"``: the reverse
+    contract, 15a's); ``round_kinds`` counts a wl engine's rounds by kind,
+    from the loop's branch executions. The engine's loops run on the card
+    as loop graphs (``graphs``: ``sharded_loops``, the seed's and 8 slides'
+    before the profile) under the rules ``loop_rules`` names."""
     reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -2120,14 +2224,20 @@ def config5_check(dev, bf16d: bool, n_check: int = 16, k: int = 100, prof: bool 
         res["profile"] = profile_slides(drv, 1)
         res["slide_peak_gib"] = peak_gib(dev)
     res.update(launches_by_entry=launches_by_entry(),
-               round_kinds=dict(drv.eng.round_kinds))
+               round_kinds=dict(getattr(drv.eng, "round_kinds", {})))
+    g = drv.eng.round_graphs
+    if g is not None:  # the rules the engine's loop graphs run under
+        res["loop_rules"] = sorted({table.rule for _, _, table in g.loops})
     twin = None
     if bf16d:
         t0 = time.perf_counter()
         twin = config5_run(device="cpu", bf16d=True, **shape)[1]
         res["cpu_witness_s"] = time.perf_counter() - t0
-    res["contract"] = sharded_contract(drv, n_check, twin)
-    res["topk"] = sharded_topk_check(drv, k)
+    if shape.get("mode", "forward") == "forward":
+        res["contract"] = sharded_contract(drv, n_check, twin)
+        res["topk"] = sharded_topk_check(drv, k)
+    else:  # the reverse state's columns are not retrieved by top-k (15a's)
+        res["contract"] = reverse_contract(as_fast(drv), drv.cfg.eps, n_check=n_check)
     return res
 
 
@@ -2158,7 +2268,9 @@ def sharded_dense_check(dev) -> dict:
     """14c: ``ShardedStreamDriver(engine="dense")`` at mesh 1x1 in both modes
     on phase 12's stream (N=300, W=1,500; slides of 100 edges and of 1),
     every query held to exact PPR on the window it then holds, as phase 12
-    holds the dense driver. Plain torch ops: no kernel launch."""
+    holds the dense driver. Each loop (the seed's, each slide's) is one loop
+    graph launch and one read of its carry, none on the host, and the runs
+    launch K1, K2, K3 and K4 (``DENSE_ENTRIES``)."""
     w = 1500
     src, dst, n = synthetic_powerlaw_stream(300, 3000, seed=5)
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
@@ -2169,7 +2281,9 @@ def sharded_dense_check(dev) -> dict:
         for b, slides in ((100, 8), (1, 60)):
             drv = ShardedStreamDriver(src, dst, n, queries, cfg, StreamConfig(window=w, slide=b),
                                       make_row_mesh(1, 1), mode=mode, engine="dense", device=dev)
-            rounds = drv.seed()["rounds"] + sum(st["rounds"] for st in drv.run(slides))
+            with no_host_loop(dev):
+                rounds = drv.seed()["rounds"] + sum(st["rounds"] for st in drv.run(slides))
+            res[f"{tag}_slide{b}_graphs"] = sharded_loops(drv, 1 + slides)
             hs, hd = src[drv.head - w:drv.head], dst[drv.head - w:drv.head]
             p = drv.host_p()[:n].astype(np.float64)
             if mode == REVERSE:
@@ -2186,9 +2300,9 @@ def sharded_dense_check(dev) -> dict:
                         f"{tag}_slide{b}_bound": bound})
             if not err <= bound:
                 raise AssertionError(f"sharded dense {tag}, slide {b}: error {err} > {bound}")
-    res["kernel_launches"] = all_launches()
-    if res["kernel_launches"] != 0:
-        raise AssertionError("the sharded dense engine launched a kernel")
+    res["launches_by_entry"] = launches_by_entry()
+    if dev.type == "cuda":
+        check_dense_launched({"sharded_dense_small": res["launches_by_entry"]})
     return res
 
 
@@ -2223,21 +2337,27 @@ def collectives_check(dev, tmp: str) -> dict:
     return {"backend": backend, **checks}
 
 
-SHARDED_CLI_PATHS = ("cli_stream_sharded_wl", "cli_bench_config5")
+SHARDED_CLI_PATHS = ("cli_stream_sharded_wl", "cli_stream_sharded_dense",
+                     "cli_bench_config5")
 
 
 def sharded_cli(dev, tmp: str, graph: str, w: int, b: int, s: int) -> dict:
-    """14e: ``stream --engine sharded-wl --mesh 1,1`` (4 slides) on phase
-    13's converted file and ``bench --config 5``, in this process."""
+    """14e: ``stream --engine sharded-wl --mesh 1,1`` and ``stream --engine
+    sharded --mesh 1,1`` (the dense engine; 4 slides each) on phase 13's
+    converted file, no loop on the host, and ``bench --config 5``, in this
+    process."""
     n_graph = int(load_packed(graph)[2])
     queries = ",".join(map(str, range(min(s, n_graph))))
     dv = ["--device", str(dev)]
-    res = {"cli_stream_sharded_wl": run_cli([
-        "stream", graph, "--window", str(w), "--slide", str(b), "--steps", "4", "--engine",
-        "sharded-wl", "--mesh", "1,1", "--queries", queries, "--log",
-        os.path.join(tmp, "sharded.jsonl"), *dv])}
-    if res["cli_stream_sharded_wl"]["steps"] != 4 or res["cli_stream_sharded_wl"]["n_chips"] != 1:
-        raise AssertionError(f"stream --engine sharded-wl: {res['cli_stream_sharded_wl']}")
+    res = {}
+    for path, engine in zip(SHARDED_CLI_PATHS, ("sharded-wl", "sharded")):
+        with no_host_loop(dev):
+            res[path] = run_cli([
+                "stream", graph, "--window", str(w), "--slide", str(b), "--steps", "4",
+                "--engine", engine, "--mesh", "1,1", "--queries", queries, "--log",
+                os.path.join(tmp, f"{path}.jsonl"), *dv])
+        if res[path]["steps"] != 4 or res[path]["n_chips"] != 1:
+            raise AssertionError(f"stream --engine {engine}: {res[path]}")
     out = run_cli(["bench", "--config", "5", *dv])
     if out["config"] != 5 or out["mesh"] != "1x1" or out["updates_per_sec"] <= 0:
         raise AssertionError(f"bench --config 5: {out}")
@@ -2391,15 +2511,16 @@ SHARDED_CLI_PATHS_15 = ("cli_stream_sharded_wl_rev", "cli_stream_sharded_wlp")
 def sharded_cli_15(dev, tmp: str, graph: str, w: int, b: int, s: int) -> dict:
     """15e: ``stream --engine sharded-wl --mode rev --mesh 1,1`` and
     ``stream --engine sharded-wlp --mesh 1,1`` (4 slides each) on phase
-    13's converted file, in this process."""
+    13's converted file, in this process, no loop on the host."""
     n_graph = int(load_packed(graph)[2])
     queries = ",".join(map(str, range(min(s, n_graph))))
     res = {}
     for path, extra in zip(SHARDED_CLI_PATHS_15, (["sharded-wl", "--mode", "rev"],
                                                   ["sharded-wlp"])):
-        out = run_cli(["stream", graph, "--window", str(w), "--slide", str(b), "--steps", "4",
-                       "--engine", *extra, "--mesh", "1,1", "--queries", queries, "--log",
-                       os.path.join(tmp, f"{path}.jsonl"), "--device", str(dev)])
+        with no_host_loop(dev):  # each loop a loop graph
+            out = run_cli(["stream", graph, "--window", str(w), "--slide", str(b), "--steps",
+                           "4", "--engine", *extra, "--mesh", "1,1", "--queries", queries,
+                           "--log", os.path.join(tmp, f"{path}.jsonl"), "--device", str(dev)])
         if out["steps"] != 4 or out["n_chips"] != 1 or out["updates_per_sec"] <= 0:
             raise AssertionError(f"{path}: {out}")
         res[path] = out
@@ -2828,8 +2949,10 @@ def loop_entry(step: str, k4: dict, launches: dict) -> dict:
         "replaces": "pprx/engine/wl2.py:687",
         "tpu_work": "the lax.while_loop of push_to_convergence_wl2, its lax.switch over the "
                     "tiers and its lax.cond (pprx/engine/wl2.py:617-687), of the sharded wl "
-                    "engine at 1x1 (pprx/dist/wl.py:954-1025) and of the dense engine's "
-                    "push_to_convergence (pprx/engine/push.py:94-119); no pl.pallas_call",
+                    "engine at 1x1 (pprx/dist/wl.py:954-1025) and its memory-proportional "
+                    "loop (pprx/dist/wl.py:1177-1214), of the dense engine's "
+                    "push_to_convergence (pprx/engine/push.py:94-119) and of the sharded "
+                    "dense engine at 1x1 (pprx/dist/sharded.py:378-398); no pl.pallas_call",
         "launches": by_path["forward"], "launches_by_path": by_path,
         **k4[step], "library_ms": None,
         "library_call": "none: no PyTorch call sets a graph's conditions",
@@ -2995,14 +3118,29 @@ def main() -> None:
         torch.cuda.empty_cache()
         log("14b sharding tax", **sharding_tax(dev, config5["f32"]["updates_per_sec"]))
         torch.cuda.empty_cache()
-        log("14c sharded dense", **sharded_dense_check(dev),
-            note="plain torch ops on the card: no kernel launch is expected")
+        dense14 = sharded_dense_check(dev)
+        sharded_by_path["sharded_dense_small"] = dense14["launches_by_entry"]
+        log("14c sharded dense", **dense14,
+            note="K2 then K1 each round over the window's slot view, each loop one graph "
+                 "launch steered by K4")
+        torch.cuda.empty_cache()
+        # the dense engine at config 5's shapes; each run sets the counts to 0
+        for mode in ("forward", "reverse"):
+            res = config5_check(dev, bf16d=False, engine="dense", mode=mode)
+            if res["loop_rules"] != [loop.DENSE]:
+                raise AssertionError(f"dense {mode}: its loops ran under {res['loop_rules']}")
+            log(f"14c config5 dense {mode}", **res)
+            sharded_by_path[f"config5_dense_{mode}"] = res["launches_by_entry"]
+            del res
+            torch.cuda.empty_cache()
         cli5 = sharded_cli(dev, tmp, os.path.join(tmp, "stream.npz"), w, b, s)
         for tag, res in cli5.items():
             log(f"14e {tag.replace('_', ' ')}", **res)
         sharded_by_path.update(check_launched({path: cli5[path]["launches_by_entry"]
                                                for path in SHARDED_CLI_PATHS}))
-        # the wl engine's loops at 1x1 are loop graphs: K4 steers each
+        check_dense_launched({path: sharded_by_path[path] for path in (
+            "config5_dense_forward", "config5_dense_reverse", "cli_stream_sharded_dense")})
+        # the sharded engines' loops at 1x1 are loop graphs: K4 steers each
         check_launched({path: sharded_by_path[path] for path in (
             "config5_f32", "config5_bf16", *SHARDED_CLI_PATHS)}, "loop_prime")
         torch.cuda.empty_cache()
@@ -3015,9 +3153,15 @@ def main() -> None:
         log("15a config5 reverse", **rev)
         log("15a dense rounds", **check_dense_row_passes({"config5_rev": rev}))
         log("15b reverse rowsum sweep", **sweep_check(rev_drv))
-        wlp = config5_check(dev, bf16d=False, prof=True, engine="wlp")
-        wlp["wl_slide_peak_gib"] = config5["f32"].get("slide_peak_gib")
-        log("15c config5 wlp", **wlp)
+        # wlp in both modes: its loops are loop graphs under K4's
+        # proportional rule
+        wlp = {mode: config5_check(dev, bf16d=False, prof=mode == "forward", engine="wlp",
+                                   mode=mode) for mode in ("forward", "reverse")}
+        wlp["forward"]["wl_slide_peak_gib"] = config5["f32"].get("slide_peak_gib")
+        for mode, res in wlp.items():
+            if res["loop_rules"] != [loop.PROPORTIONAL]:
+                raise AssertionError(f"wlp {mode}: its loops ran under {res['loop_rules']}")
+            log(f"15c config5 wlp{'' if mode == 'forward' else ' reverse'}", **res)
         log("15d sharded checkpoint", **sharded_checkpoint_check(rev_drv, tmp))
         del rev_drv
         torch.cuda.empty_cache()
@@ -3025,10 +3169,14 @@ def main() -> None:
         for tag, res in cli15.items():
             log(f"15e {tag.replace('_', ' ')}", **res)
         sharded_by_path.update(check_launched(
-            {"config5_rev": rev["launches_by_entry"], "config5_wlp": wlp["launches_by_entry"],
+            {"config5_rev": rev["launches_by_entry"],
+             "config5_wlp": wlp["forward"]["launches_by_entry"],
+             "config5_wlp_rev": wlp["reverse"]["launches_by_entry"],
              **{path: cli15[path]["launches_by_entry"] for path in SHARDED_CLI_PATHS_15}}))
-        check_launched({path: sharded_by_path[path] for path in (
-            "config5_rev", "cli_stream_sharded_wl_rev")}, "loop_prime")
+        for entry in ("loop_prime", "loop_turn"):
+            check_launched({path: sharded_by_path[path] for path in (
+                "config5_rev", "config5_wlp", "config5_wlp_rev",
+                *SHARDED_CLI_PATHS_15)}, entry)
         if min(rev["launches_unscaled"]["segsum_gather_add"],
                rev["launches_scaled"]["segsum_gather_add"]) <= 0:
             raise AssertionError(f"config5_rev: the sweep or the scaled rounds never launched "
@@ -3104,8 +3252,15 @@ def turn_shapes() -> list[dict]:
 # (its cold push, twice); phase 12's dense driver, both modes, slides of
 # 100 and of 1, then the first run again (the first is the first of
 # its process); the dense driver at the headline stream's shapes (N=200k,
-# W=2M, b=160k, S=128), both modes
+# W=2M, b=160k, S=128), both modes; phase 14c's sharded dense engine at
+# config 5's shapes, both modes, and phase 15c's wlp forward, as the
+# sharded shapes of ``turn_shapes`` are run
+_C5 = dict(n=HEADLINE["n"], w=HEADLINE["w"], b=HEADLINE["b"], s=HEADLINE["s"], steps=5,
+           prof_steps=1, bf16d=False, sharded=True)
 TURN_EXTRA = [{"tag": "loop_control"}, {"tag": "config4", "pushes": 2},
+              dict(_C5, tag="config5_dense_f32", reverse=False, engine="dense"),
+              dict(_C5, tag="config5_dense_rev", reverse=True, engine="dense"),
+              dict(_C5, tag="config5_wlp", reverse=False, engine="wlp"),
               {"tag": "dense_driver", "n": 300, "w": 1500, "seed": 5,
                "runs": [[0, 100, 8], [0, 1, 60], [1, 100, 8], [1, 1, 60], [0, 100, 8]]},
               {"tag": "dense_driver_headline", "n": HEADLINE["n"], "w": HEADLINE["w"],
@@ -3146,7 +3301,8 @@ def turn_record(cs, sh: dict, dev) -> dict:
     wall (``slide_wall_ms``), and the share of the wall the device spent
     outside graphs (``event_idle_share``), where no profiler is running,
     and K4's launches a slide by kernel (``k4_launches_per_slide``). A
-    sharded shape: ``config5_run`` (seed, 3 warm-up and ``steps`` timed slides),
+    sharded shape: ``config5_run`` on its ``engine`` (the wl engine unless it
+    names ``dense`` or ``wlp``; seed, 3 warm-up and ``steps`` timed slides),
     its launches by entry and round kinds, then 2 slides as above, where
     the host's reads are counted too (``host_reads_per_slide``: the stats
     reductions' and the loop graphs' carry reads; ``sync_ops_per_slide``:
@@ -3349,7 +3505,9 @@ def turn_record(cs, sh: dict, dev) -> dict:
             if cuda:
                 reads_at.append((torch.cuda.Event, "synchronize"))
             originals += [(m, name, getattr(m, name)) for m, name in reads_at]
-            slide = drv.eng.slide_wl
+            # the engine's slide: the wl engines' slide_wl, the dense one's slide
+            slide_name = "slide_wl" if drv._wl else "slide"
+            slide = getattr(drv.eng, slide_name)
 
             def slide_wl(*args, **kw):
                 t1 = time.perf_counter()
@@ -3358,7 +3516,7 @@ def turn_record(cs, sh: dict, dev) -> dict:
                 spans[-1].append(time.perf_counter())
                 return out
 
-            drv.eng.slide_wl = slide_wl
+            setattr(drv.eng, slide_name, slide_wl)
         for cls, name, fn in originals:
             wrap = counted if name in ("gather_stats", "synchronize") else timed
             setattr(cls, name, wrap(fn))
@@ -3387,7 +3545,7 @@ def turn_record(cs, sh: dict, dev) -> dict:
             for cls, name, fn in originals:
                 setattr(cls, name, fn)
             if sharded:
-                del drv.eng.slide_wl
+                delattr(drv.eng, slide_name)
         slides = len(spans)
         out = {"slide_wall_ms": wall_ms / slides, "graph_launches": len(marks) / slides,
                "k4_launches_per_slide": {step: (k4[step] - k4_before[step]) / slides
@@ -3412,12 +3570,12 @@ def turn_record(cs, sh: dict, dev) -> dict:
             m.reset_launches()
         rep, drv = config5_run(n=sh["n"], w=sh["w"], b=sh["b"], s=sh["s"], steps=sh["steps"],
                                bf16d=sh["bf16d"], mode="reverse" if sh["reverse"] else "forward",
-                               device=dev, extra_slides=2)
+                               engine=sh.get("engine", "wl"), device=dev, extra_slides=2)
         res = {"updates_per_s": rep["updates_per_sec"], "wall_s": rep["wall_s"],
                "rounds_per_slide": rep["rounds"] / rep["steps"],
                "wl_rounds_per_slide": rep["wl_rounds"] / rep["steps"], "peak_mem_gib": peak(),
                "launches_by_entry": {e: m.launches(e) for m in mods for e in m.ENTRIES},
-               "round_kinds": dict(drv.eng.round_kinds)}
+               "round_kinds": dict(getattr(drv.eng, "round_kinds", {}))}
         g = getattr(drv.eng, "round_graphs", None)  # a tree with the device loop
         if g is not None:
             res["graphs"] = g.summary()

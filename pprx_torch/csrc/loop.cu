@@ -1,12 +1,15 @@
 // K4: the convergence loops' control on the card (sm_90a), the
 // compact-frontier loops of the wl2 engine and of the sharded wl engine in a
-// world of one shard, and the dense engine's loop, and the CUDA graph that
-// runs a whole loop:
+// world of one shard, the dense loop of the dense engine and of the sharded
+// dense engine in that world, and that world's memory-proportional loop
+// (wlp), and the CUDA graph that runs a whole loop:
 //
 //   [prologue] -> prime -> WHILE { turn -> SWITCH { tier_0 | ... | tier_k-1
 //                                                 | scan -> after_scan -> IF { stats } } }
 //
-// or, under the dense rule, one arm: WHILE { turn -> SWITCH { round } }.
+// or, under the dense rule, one arm: WHILE { turn -> SWITCH { round } };
+// under the proportional rule, no stats:
+// WHILE { turn -> SWITCH { tier_0 | ... | tier_k-1 | drain | rescan } }.
 //
 // Each body of the SWITCH holds a child graph, a clone of the branch that
 // the port captured with torch (a compact tier, the scan round), and the
@@ -32,7 +35,12 @@
 // (pprx/engine/push.py:94-119): prime reads the first active count, the
 // reference's n0, and a turn tallies the round's active pairs and edge
 // pushes and goes on while the round found an active pair, as the
-// reference's cond does; no tiers, no stats. Each step does what its plain
+// reference's cond does; no tiers, no stats. Or the proportional loop
+// (pprx/dist/wl.py:1177-1214): a pending carry (the counts' sixth slot,
+// kept in the carry's kPend) takes the drain, else a valid list its tier
+// and an invalid one the rescan; a turn tallies the round's count (its
+// active pairs; a drain's, whether it left a list) and goes on while that
+// or the pending carry is not zero. Each step does what its plain
 // step in pprx_torch/engine/loop.py does, on the same slots, and sets the
 // graph's conditions with cudaGraphSetConditional: prime the WHILE's, turn
 // the SWITCH's (the branch's number) and the WHILE's, after_scan the stats
@@ -44,8 +52,10 @@
 // with its lax.switch over the tiers (:617) and lax.cond over worklist or
 // scan (:657) and over a scan's stats (:662), of the sharded engine's at
 // pprx/dist/wl.py:1025 with its lax.switch over the tiers and the dense
-// round (:995) and lax.cond over the dense round's stats (:954), and of
-// the dense engine's at pprx/engine/push.py:118.
+// round (:995) and lax.cond over the dense round's stats (:954) and
+// with its lax.switch over the tiers, the drain and the rescan (:1214), and
+// of the dense engines' at pprx/engine/push.py:118 and
+// pprx/dist/sharded.py:398.
 //
 // What bounds K4 on this card is latency, not bytes: a step moves about
 // 600 bytes (2e-7 ms at 3.35 TB/s), and a kernel node inside a graph costs
@@ -90,7 +100,7 @@ enum Slot : int {
   kPushes = 9, kEdgePushes = 10, kWlRounds = 11,
   kScansCand = 12, kScansFed = 13, kScansLiv = 14, kStatsReads = 15,
   kBranch = 16, kHeavy = 17, kStats = 18, kGo = 19,
-  kExecs = 20, kPending = 30,
+  kExecs = 20, kPending = 30, kPend = 31,
   kHead = 32,
 };
 
@@ -99,7 +109,8 @@ constexpr int kLogW = 8;  // branch, ok, cn, fed, fre, na, the heavy count, stat
 constexpr int kLogCap = 1024;
 constexpr i64 kBig = (1LL << 31) / 2 - 1;
 
-// the counts' slot of the sharded rule's heavy test: loop.py's EWR
+// the counts' slot of the sharded rule's heavy test: loop.py's EWR; the
+// proportional rule's pending carry takes it (loop.py's N_PEND)
 constexpr int kEwr = 5;
 constexpr int kMaxCounts = kEwr + 1;
 
@@ -110,8 +121,8 @@ static_assert(kHead == kWarp, "a warp loads the carry's head, a slot a lane");
 // the steps, as pprx_loop_step numbers them
 constexpr int kPrime = 0, kTurn = 1, kAfterScan = 2;
 
-// the rules a table's kRule names: loop.py's WL2, SHARDED, DENSE
-enum Rule : int { kWl2 = 0, kSharded = 1, kDense = 2 };
+// the rules a table's kRule names: loop.py's WL2, SHARDED, DENSE, PROPORTIONAL
+enum Rule : int { kWl2 = 0, kSharded = 1, kDense = 2, kProportional = 3 };
 
 // the table of a tier ladder: loop.py's T_TIERS .. TAB
 enum Tab : int {
@@ -145,6 +156,18 @@ __device__ __forceinline__ int heavy_at(const Table& t) {
   return t.v[kRule] == kSharded ? kEwr : 4;
 }
 
+// the counts a step reads: the heavy count's slot and those below; under
+// the proportional rule the pending carry's
+__device__ __forceinline__ int n_counts(const Table& t) {
+  return t.v[kRule] == kProportional ? kEwr + 1 : heavy_at(t) + 1;
+}
+
+// the SWITCH's arms: the tiers and the scan (under the dense rule the round;
+// under the proportional rule the tiers, the drain and the rescan)
+__host__ __device__ __forceinline__ int n_arms(const Table& t) {
+  return static_cast<int>(t.v[kTiers]) + 1 + (t.v[kRule] == kProportional);
+}
+
 // The steps, run by one lane on the shared copies of the carry's head `c`
 // and the round's counts `n`; `log` is the carry's round log, in place.
 
@@ -155,6 +178,15 @@ __device__ void prime(i64* c, const i64* n, const Table& t, const Handles& h) {
   c[kC0ok] = c0ok;
   if (t.v[kRule] == kDense) {
     c[kNa] = n[3];  // the first active count: no round from a converged state
+  } else if (t.v[kRule] == kProportional) {
+    // the first round runs whatever the list; a carry the corrections
+    // left is pending
+    c[kCn] = n[0];
+    c[kFed] = n[1];
+    c[kFre] = n[2];
+    c[kOk] = c0ok != 0;
+    c[kPend] = n[kEwr];
+    c[kNa] = 1;
   } else {
     c[kCn] = n[0];
     c[kFed] = n[1];
@@ -173,6 +205,34 @@ __device__ void prime(i64* c, const i64* n, const Table& t, const Handles& h) {
 __device__ void tally(i64* c, const i64* n, i64* log, const Table& t) {
   const int k = static_cast<int>(t.v[kTiers]);
   const i64 b = c[kBranch], na = n[3], ew = n[4];
+  const i64 rnd = c[kRounds];
+  if (t.v[kRule] == kProportional) {
+    // a drain pushes nothing: its count is whether it left a list, and it
+    // keeps the list's validity; the log keeps the pending carry that the
+    // round's decision read
+    const bool drain = b == k;
+    const i64 pend = n[kEwr];
+    const i64 work = (drain ? n[0] > 0 : na) + (pend > 0);
+    if (i64* row = log_row(log, rnd)) {
+      row[5] = na;
+      row[6] = c[kPend];
+      row[7] = 0;
+    }
+    c[kRounds] = rnd + 1;
+    c[kPushes] += na;
+    c[kEdgePushes] += ew;
+    c[kWlRounds] += 1;
+    c[kExecs + b] += 1;
+    c[kCn] = n[0];
+    c[kFed] = n[1];
+    c[kFre] = n[2];
+    c[kNa] = na;
+    c[kEw] = ew;
+    if (!drain) c[kOk] = 1;
+    c[kPend] = pend;
+    c[kGo] = work > 0 && c[kRounds] < c[kMaxRounds];
+    return;
+  }
   i64 cn2, fed2, fre2, ok2;
   if (t.v[kRule] == kDense) {  // no list: the counts stay as prime left them
     cn2 = c[kCn];
@@ -202,7 +262,6 @@ __device__ void tally(i64* c, const i64* n, i64* log, const Table& t) {
     c[kScansFed] += c[kFed] > t.v[kE + k - 1];
     c[kScansLiv] += c[kFre] > t.v[kG + k - 1];
   }
-  const i64 rnd = c[kRounds];
   if (i64* row = log_row(log, rnd)) {
     row[5] = na;
     row[6] = n[heavy_at(t)];
@@ -227,13 +286,23 @@ __device__ void tally(i64* c, const i64* n, i64* log, const Table& t) {
 __device__ int decide(i64* c, i64* log, const Table& t) {
   const int k = static_cast<int>(t.v[kTiers]);
   const i64 ok = c[kOk], cn = c[kCn], fed = c[kFed], fre = c[kFre];
-  int b = k;  // the scan; under the dense rule (k = 0) the round
-  if (t.v[kRule] != kDense && ok && cn <= t.v[kW + k - 1] && fed <= t.v[kE + k - 1] &&
-      fre <= t.v[kG + k - 1]) {
-    b = 0;
-    for (int i = 0; i < k - 1; ++i)
-      b += !(cn <= t.v[kW + i] && fed <= t.v[kE + i] && fre <= t.v[kG + i]);
-  }
+  const bool prop = t.v[kRule] == kProportional;
+  // the tier that holds the counts: the count of lower tiers they miss
+  const auto tier = [&] {
+    int i = 0;
+    for (int j = 0; j < k - 1; ++j)
+      i += !(cn <= t.v[kW + j] && fed <= t.v[kE + j] && fre <= t.v[kG + j]);
+    return i;
+  };
+  int b;
+  if (prop)  // a pending carry drains, a valid list takes its tier (the top
+             // one covers any frontier), an invalid one rescans
+    b = c[kPend] > 0 ? k : ok ? tier() : k + 1;
+  else if (t.v[kRule] != kDense && ok && cn <= t.v[kW + k - 1] && fed <= t.v[kE + k - 1] &&
+           fre <= t.v[kG + k - 1])
+    b = tier();
+  else
+    b = k;  // the scan; under the dense rule (k = 0) the round
   c[kBranch] = b;
   c[kHeavy] = 0;
   c[kStats] = 0;
@@ -243,15 +312,16 @@ __device__ int decide(i64* c, i64* log, const Table& t) {
     row[2] = cn;
     row[3] = fed;
     row[4] = fre;
-    row[5] = row[6] = row[7] = 0;
+    row[5] = row[7] = 0;
+    row[6] = prop ? c[kPend] : 0;
   }
   return b;
 }
 
 __device__ void turn(i64* c, const i64* n, i64* log, const Table& t, const Handles& h) {
   if (c[kPending]) tally(c, n, log, t);
-  // where the loop ends, a value past the SWITCH's k + 1 arms: it runs none
-  const int arm = c[kGo] ? decide(c, log, t) : static_cast<int>(t.v[kTiers]) + 1;
+  // where the loop ends, a value past the SWITCH's arms: it runs none
+  const int arm = c[kGo] ? decide(c, log, t) : n_arms(t);
   c[kPending] = c[kGo];
   set_cond(h, h.branch, arm);
   set_cond(h, h.loop, c[kGo]);
@@ -279,7 +349,7 @@ __global__ void __launch_bounds__(kWarp)
   __shared__ i64 n[kMaxCounts];
   const int lane = threadIdx.x;
   c[lane] = carry[lane];
-  if (lane <= heavy_at(t)) n[lane] = counts[lane];
+  if (lane < n_counts(t)) n[lane] = counts[lane];
   __syncwarp();
   if (lane == 0) {
     if constexpr (kStep == kPrime)
@@ -350,9 +420,13 @@ struct Loop {
 cudaError_t build(Loop* L, cudaGraph_t prologue, cudaGraph_t const* branches, int n_branches,
                   i64* carry, const i64* counts, const Table& t) {
   const int k = static_cast<int>(t.v[kTiers]);
-  // the dense rule: no tiers, one arm (the round) and no stats
-  const bool dense = t.v[kRule] == kDense;
-  if (dense ? (k != 0 || n_branches != 1) : (k < 1 || k > kMaxTiers || n_branches != k + 2))
+  // the dense rule: no tiers, one arm (the round) and no stats; the
+  // proportional rule: k + 2 arms (the tiers, the drain, the rescan) and no
+  // stats
+  const bool dense = t.v[kRule] == kDense, prop = t.v[kRule] == kProportional;
+  const int arms = n_arms(t);
+  if (dense ? (k != 0 || n_branches != 1)
+            : (k < 1 || k > kMaxTiers || n_branches != k + 2))
     return cudaErrorInvalidValue;
   int driver = 0;
   cudaError_t e = cudaDriverGetVersion(&driver);
@@ -373,7 +447,7 @@ cudaError_t build(Loop* L, cudaGraph_t prologue, cudaGraph_t const* branches, in
   if ((e = add_step(&node, L->graph, last ? &last : nullptr, k4<kPrime>, carry, counts, t, h)))
     return e;
   last = node;
-  cudaGraph_t body, arms[kMaxTiers + 1], stats;
+  cudaGraph_t body, bodies[kMaxTiers + 2], stats;
   if ((e = add_cond(&node, L->graph, &last, h.loop, cudaGraphCondTypeWhile, 1, &body)))
     return e;
   // the SWITCH's handle belongs to the WHILE's body, the stats IF's to the
@@ -381,17 +455,18 @@ cudaError_t build(Loop* L, cudaGraph_t prologue, cudaGraph_t const* branches, in
   if ((e = cudaGraphConditionalHandleCreate(&h.branch, body, 0, cudaGraphCondAssignDefault)))
     return e;
   if ((e = add_step(&last, body, nullptr, k4<kTurn>, carry, counts, t, h))) return e;
-  if ((e = add_cond(&node, body, &last, h.branch, cudaGraphCondTypeSwitch, k + 1, arms)))
+  if ((e = add_cond(&node, body, &last, h.branch, cudaGraphCondTypeSwitch, arms, bodies)))
     return e;
-  for (int i = 0; i <= k; ++i)  // the tiers, then the scan (the dense round)
-    if ((e = cudaGraphAddChildGraphNode(&inner, arms[i], nullptr, 0, branches[i]))) return e;
-  if (dense) return cudaGraphInstantiate(&L->exec, L->graph, 0);
+  // the tiers, then the scan (the dense round; the drain and the rescan)
+  for (int i = 0; i < arms; ++i)
+    if ((e = cudaGraphAddChildGraphNode(&inner, bodies[i], nullptr, 0, branches[i]))) return e;
+  if (dense || prop) return cudaGraphInstantiate(&L->exec, L->graph, 0);
   // the scan's arm goes on: after_scan, then the stats under an IF
-  if ((e = cudaGraphConditionalHandleCreate(&h.stats, arms[k], 0, cudaGraphCondAssignDefault)))
+  if ((e = cudaGraphConditionalHandleCreate(&h.stats, bodies[k], 0, cudaGraphCondAssignDefault)))
     return e;
   cudaGraphNode_t after;
-  if ((e = add_step(&after, arms[k], &inner, k4<kAfterScan>, carry, counts, t, h))) return e;
-  if ((e = add_cond(&node, arms[k], &after, h.stats, cudaGraphCondTypeIf, 1, &stats))) return e;
+  if ((e = add_step(&after, bodies[k], &inner, k4<kAfterScan>, carry, counts, t, h))) return e;
+  if ((e = add_cond(&node, bodies[k], &after, h.stats, cudaGraphCondTypeIf, 1, &stats))) return e;
   if ((e = cudaGraphAddChildGraphNode(&inner, stats, nullptr, 0, branches[k + 1]))) return e;
   return cudaGraphInstantiate(&L->exec, L->graph, 0);
 }
@@ -417,7 +492,8 @@ int pprx_loop_step(int which, i64* carry, const i64* counts, const i64* tab, voi
 
 // Build and instantiate a loop graph: `prologue` (a cudaGraph_t or null),
 // `branches` the k tiers', the scan's and the stats' cudaGraph_t (k + 2;
-// under the dense rule the round's alone), each cloned into the graph;
+// under the dense rule the round's alone; under the proportional rule the k
+// tiers', the drain's and the rescan's), each cloned into the graph;
 // `carry` and `counts` device pointers, `tab` the table on the host.
 // `*out` gets the loop's handle for pprx_loop_launch and pprx_loop_free.
 int pprx_loop_build(void* prologue, void* const* branches, int n_branches, i64* carry,

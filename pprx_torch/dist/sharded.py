@@ -19,9 +19,25 @@ How the port differs:
   ``shard_map`` over global arrays becomes SPMD code on the local block, and
   its collectives the wrappers of ``pprx_torch.dist.mesh``. At ``K = 1`` the
   row collectives are absent.
-- The ``lax.while_loop`` is a host loop with one stats reduction a round
-  (``gather_stats`` over the world: the active count, the edge pushes and
-  whether a carry is pending), whose world sums every rank reads alike.
+- In a world of one shard under ``dense_rs`` (what
+  ``ShardedStreamDriver`` builds at a 1x1 mesh) the ``lax.while_loop`` is
+  the dense engine's loop (``pprx_torch.engine.push``): rounds of
+  ``dense_round_`` (K2, then K1's gather entry) over ``slot_view``, the
+  window's live slots in delivery order, under K4's dense rule
+  (``loop.DENSE_TABLE``; nothing is pending there), its first count K3.
+  On the card a push, and a slide's corrections, window write and view
+  rebuild, are one launch of a conditional CUDA graph and one read of its
+  carry (``RoundGraphs.loop``); on the CPU the same functions run under
+  ``RoundGraphs.host_loop``. No ``[W, S]`` temporary is built: a reverse
+  slide's row sums go through K1 over the view too. The blocks ``p``,
+  ``r``, ``deg``, the window and the slide's batch rows are then the
+  tensors the loop holds, updated in place; the view is rebuilt into its
+  tensors after every window write.
+- Elsewhere (more than one shard, or ``exchange="a2a"``) a round holds
+  collectives or a capped carry, and the ``lax.while_loop`` is a host loop
+  with one stats reduction a round (``gather_stats`` over the world: the
+  active count, the edge pushes and whether a carry is pending), whose
+  world sums every rank reads alike.
 - The window buffers are updated in place: callers hand the returned
   tensors on and keep no others.
 """
@@ -37,7 +53,13 @@ import torch
 from pprx_torch.config import PprConfig
 from pprx_torch.device import resolve_device
 from pprx_torch.dist.mesh import RowMesh, all_to_all_rows, gather_stats, reduce_scatter_rows
-from pprx_torch.engine.state import FORWARD
+from pprx_torch.engine import loop
+from pprx_torch.engine.graphs import RoundGraphs, copy_into_
+from pprx_torch.engine.push import dense_round_, first_count
+from pprx_torch.engine.segsum import row_offsets, segsum_gather_add_
+from pprx_torch.engine.state import FORWARD, PprState
+from pprx_torch.engine.wl2 import sorted_deliver_
+from pprx_torch.graph.dynamic import DeliveryView
 
 
 class EdgePartition(NamedTuple):
@@ -155,6 +177,31 @@ def reverse_apply(p, r, deg, del_u, del_v, ins_u, ins_v, s_old, s_new, alpha: fl
     return r + beta * (pp_new - pp_old), d_new
 
 
+def check_slot_values(values, what: str) -> None:
+    """Window slots are dead (0) or live (1): the delivery through the slot
+    view (K1) takes no per-edge weight, so any other value is refused, not
+    reweighted. ``values``: a NumPy array or a tensor (read here)."""
+    v = torch.as_tensor(values)
+    if bool(((v != 0) & (v != 1)).any()):
+        raise ValueError(f"{what}: a slot's value must be 0 or 1, found "
+                         f"{sorted(set(v.unique().tolist()) - {0, 1})[:4]}")
+
+
+def slot_view(egl, eog, eva, n: int) -> DeliveryView:
+    """The window's live slots (``eva > 0``) in delivery order, in a world
+    of one shard: a stable sort by the row each delivers to, ``eog`` (the
+    destination in forward mode, the source in reverse), so that a row's
+    edges keep their slot order. ``gat`` is each sorted slot's ``egl`` (the
+    row of the pushed table it reads), ``off`` runs over rows ``[0, n]``.
+    Dead, cleared and trash slots sort past ``off[n]`` and gather row
+    ``n``, the zero phantom row: they deliver nothing, and a reverse
+    round's count of active pairs over ``gat`` finds none there."""
+    live = eva > 0
+    key_s, order = torch.sort(torch.where(live, eog, n), stable=True)
+    return DeliveryView(gat=torch.where(live, egl, n)[order].to(torch.int32),
+                        off=row_offsets(key_s, n))
+
+
 def write_window_(egl, eog, eva, clear_slots, write_slots, gat, sca, val) -> None:
     """The slide's window-buffer mutation, in place: expiring slots go
     invalid, then the new edges take their slots (padding targets the trash
@@ -250,6 +297,19 @@ class ShardedEngine:
         self.ccap = min(ccap, self.n_local)
         self.row0 = mesh.row * self.n_local  # first global row of this shard
         self.col0 = mesh.src * self.s_loc  # first global query column
+        # the device loop's buffers and, on the card, its captured graphs,
+        # and the window's slot view: made at the first push or slide
+        self.round_graphs: RoundGraphs | None = None
+        self._view: DeliveryView | None = None
+
+    @property
+    def on_graphs(self) -> bool:
+        """Whether the loop runs as ``RoundGraphs.loop`` (one conditional
+        graph on the card, its host loop on the CPU): in a world of one
+        shard under ``dense_rs``. Elsewhere a round holds collectives or a
+        capped carry, and the loop is a host loop with a stats reduction a
+        round (``_host_push``)."""
+        return self.mesh.size == 1 and self.exchange == "dense_rs"
 
     # -- the reductions every rank reads alike --------------------------
     def _world(self, values) -> np.ndarray:
@@ -279,6 +339,7 @@ class ShardedEngine:
         counts of every shard."""
         by = "src" if self.mode == FORWARD else "dst"
         part = partition_edges(src, dst, self.n_local, self.n_rows, self.ecap, by)
+        check_slot_values(part.valid, "the window")
         deg = np.bincount(np.asarray(src, np.int64), minlength=self.n_pad)[: self.n_pad]
         lo, stride = self.mesh.row, self.slot_stride
 
@@ -313,7 +374,91 @@ class ShardedEngine:
 
     def push(self, p, r, deg, egl, eog, eva):
         """Push to convergence on this block: (p, r, rounds, pushes,
-        edge_pushes), the counts summed over the world."""
+        edge_pushes), the counts summed over the world. In a world of one
+        shard under ``dense_rs`` (``on_graphs``) ``p`` and ``r`` are
+        updated in place and come back."""
+        if self.on_graphs:
+            self._dense_graphs(p, r, deg, egl, eog, eva)
+            return self._dense_loop(p, r, deg, "first", lambda: None)
+        return self._host_push(p, r, deg, egl, eog, eva)
+
+    # -- the device loop (a world of one shard under dense_rs) -----------
+    def _key(self, *parts) -> tuple:
+        """A captured graph's key: what it bakes in besides its shapes."""
+        return ("sharded_dense", self.mode, self.cfg.eps, self.cfg.alpha, *parts)
+
+    def _dense_graphs(self, p, r, deg, egl, eog, eva) -> RoundGraphs:
+        """The loop's buffers, made at the first push or slide: its round
+        graphs and the window's slot view (one read there: the window's
+        values are 0 or 1). The blocks and the window are held from then on:
+        a captured graph reads them where they lie."""
+        if self.round_graphs is None:
+            check_slot_values(eva, "the window")
+            self.round_graphs = RoundGraphs(self.n_local - 1, 1, self.device)
+            self._view = slot_view(egl, eog, eva, self.n_local - 1)
+        self.round_graphs.hold("the engine's blocks and window", p, r, deg, egl, eog, eva)
+        return self.round_graphs
+
+    def _dense_loop(self, p, r, deg, key: str, before):
+        """The dense loop as ``RoundGraphs.loop`` under ``loop.DENSE_TABLE``:
+        ``before()`` (a slide's corrections, window write and view rebuild)
+        and the first count as its prologue, then rounds of
+        ``dense_round_`` over the slot view. ``n_local`` is ``n + 1`` here:
+        the last row is the phantom row, which the round keeps zero."""
+        g, cfg, view = self.round_graphs, self.cfg, self._view
+        state = PprState(p=p, r=r, mode=self.mode)
+
+        def first():
+            before()
+            first_count(state, deg, cfg, g.counts)
+
+        rnd = (self._key("round"),
+               lambda: dense_round_(state, deg, [(view.gat, view.off)], cfg, g.counts[3:5]))
+        values, _ = g.loop((self._key(key), first), [rnd], loop.DENSE_TABLE, True, cfg.max_rounds)
+        return p, r, values[loop.ROUNDS], values[loop.PUSHES], values[loop.EDGE_PUSHES]
+
+    def _rebuild_view(self, egl, eog, eva) -> None:
+        copy_into_(self._view, slot_view(egl, eog, eva, self.n_local - 1))
+
+    def _dense_forward_prologue(self, p, r, deg, egl, eog, eva, del_u, del_w, del_v, ins_u,
+                                ins_w, ins_v, clear_slots, write_slots) -> None:
+        """A forward slide up to its loop, in place: the corrections, whose
+        cross-row pairs run straight into ``r`` (no wire) through K1 in a
+        stable sort's order (deterministic, where ``index_add_`` runs on
+        atomics; invalid pairs, id ``n_pad``, add nothing), the window
+        write and the view's rebuild."""
+        p2, r2, ids, vals, deg2 = forward_corrections_pairs(
+            p, r, deg, del_u, del_w, del_v, ins_u, ins_w, ins_v, self.cfg.alpha, self.n_pad)
+        sorted_deliver_(r2[:self.n_local - 1], ids, vals)
+        p.copy_(p2)
+        r.copy_(r2)
+        deg.copy_(deg2)
+        write_window_(egl, eog, eva, clear_slots, write_slots, ins_u, ins_w, ins_v)
+        self._rebuild_view(egl, eog, eva)
+
+    def _dense_reverse_prologue(self, p, r, deg, egl, eog, eva, del_u, del_v, ins_u, ins_v,
+                                clear_slots, write_slots, write_dl, write_sg, write_v) -> None:
+        """A reverse slide up to its loop, in place: the live window's row
+        sums of ``p`` through the slot view (K1) and the batch's delta
+        beside them (K1 in a stable sort's order: deterministic), the
+        window write, the corrections and the view's rebuild."""
+        dtype, n = p.dtype, self.n_local - 1
+        view = self._view
+        s_old = torch.zeros_like(p)
+        segsum_gather_add_(s_old[:n], p, view.gat, view.off)
+        s_new = s_old.clone()
+        old_v = eva[clear_slots].to(dtype)[:, None]
+        delta = torch.cat([-p[egl[clear_slots]] * old_v, p[write_dl] * write_v.to(dtype)[:, None]])
+        sorted_deliver_(s_new[:n], torch.cat([eog[clear_slots], write_sg]), delta)
+        write_window_(egl, eog, eva, clear_slots, write_slots, write_dl, write_sg, write_v)
+        r2, d_new = reverse_apply(p, r, deg, del_u, del_v, ins_u, ins_v, s_old, s_new,
+                                  self.cfg.alpha)
+        r.copy_(r2)
+        deg.copy_(d_new)
+        self._rebuild_view(egl, eog, eva)
+
+    def _host_push(self, p, r, deg, egl, eog, eva):
+        """The host loop: a stats reduction over the world a round."""
         cfg, dtype = self.cfg, self.dtype
         alpha = cfg.alpha
         inv_deg = (1.0 / deg.clamp(min=1).to(dtype))[:, None]
@@ -360,8 +505,25 @@ class ShardedEngine:
         ``del_u, del_w, del_v, ins_u, ins_w, ins_v, clear_slots,
         write_slots``. Reverse: ``del_u, del_v, ins_u, ins_v`` by src owner
         (degree updates), ``clear_slots, write_slots, write_dl, write_sg,
-        write_v`` by dst owner (new edges: dst local, src global)."""
+        write_v`` by dst owner (new edges: dst local, src global).
+
+        In a world of one shard under ``dense_rs`` the corrections, the
+        window write, the view's rebuild and the loop are one loop graph
+        launch and one read on the card; ``p``, ``r`` and ``deg`` are
+        updated in place and come back, and the batch rows must be the
+        tensors of the first slide (views of the driver's one upload)."""
         alpha, n_pad = self.cfg.alpha, self.n_pad
+        if self.on_graphs:
+            g = self._dense_graphs(p, r, deg, egl, eog, eva)
+            g.hold("a slide's batch rows", batches)
+            val = batches[5] if self.mode == FORWARD else batches[8]
+            if val.device.type == "cpu":  # on the card the driver writes ones
+                check_slot_values(val, "a slide's new edges")
+            prologue = (self._dense_forward_prologue if self.mode == FORWARD
+                        else self._dense_reverse_prologue)
+            p, r, rounds, pushes, epushes = self._dense_loop(
+                p, r, deg, "slide", lambda: prologue(p, r, deg, egl, eog, eva, *batches))
+            return p, r, rounds, pushes, epushes, deg, egl, eog, eva
         if self.mode == FORWARD:
             del_u, del_w, del_v, ins_u, ins_w, ins_v, clear_slots, write_slots = batches
             p, r, acc, deg2 = forward_corrections(

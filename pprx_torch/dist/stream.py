@@ -14,7 +14,9 @@ wl engines' forward slide ships the shard's fresh edges, their reverse
 slide its six batch rows, each followed by the slide's scalars
 (``ShardedWlEngine.slide_tail``), into one tensor that every slide reuses
 (a captured prologue reads it where it lies); the host keeps its own
-counts. The wl engines rebuild their snapshot in place
+counts. The dense engine's slide in a world of one shard uploads its
+batch rows into one such tensor too, and hands the engine views of it.
+The wl engines rebuild their snapshot in place
 (``ShardedWlEngine.rebuild_``). ``host_p``, ``host_r`` and ``host_deg``
 assemble the global arrays over the world.
 """
@@ -164,8 +166,9 @@ class ShardedStreamDriver:
 
     def _upload(self, rows: list[np.ndarray], tail: np.ndarray | None = None) -> torch.Tensor:
         """``[len(rows), b]``: this shard's row of each packed ``[K*b]``
-        batch, as one transfer. With a ``tail`` (the wl slides' scalars):
-        the rows flat, then the tail, copied into the driver's one pack."""
+        batch, as one transfer. With a ``tail`` (the wl slides' scalars,
+        none for the dense engine's): the rows flat, then the tail, copied
+        into the driver's one pack."""
         b, k = self.scfg.slide, self.mesh.row
         mine = np.stack([a[k * b:(k + 1) * b] for a in rows])
         if tail is None:
@@ -291,9 +294,13 @@ class ShardedStreamDriver:
                 self._fcnt_host += cnt_w
                 self._since_rb += 1
             else:
+                if eng.on_graphs:  # the loop graph reads the rows where they lie
+                    rows = self._upload(batch, np.zeros(0, np.int32)).view(len(batch), b)
+                else:
+                    rows = self._upload(batch)
                 (self.p, self.r, rounds, pushes, epushes, self.deg, self.egl, self.eog,
                  self.eva) = eng.slide(self.p, self.r, self.deg, self.egl, self.eog, self.eva,
-                                       *self._upload(batch).unbind(0))
+                                       *rows.unbind(0))
             self.head += b
             self.step_idx += 1
             yield {"rounds": rounds, "pushes": float(pushes), "edge_pushes": float(epushes),

@@ -18,15 +18,17 @@ the carry is a dummy.
 
 How the port differs:
 
-- In a world of one shard (a 1x1 mesh, not ``proportional``) the
-  convergence loop is the reference's ``lax.while_loop``: each round is a
-  branch (a tier's compact round, the dense round's scan, its stats)
-  chosen by K4's steps under the sharded rule
-  (``pprx_torch.engine.loop``), and on the card a slide's prologue and its
-  loop are one launch of a conditional CUDA graph with one read of the
-  carry (``RoundGraphs.loop``); on the CPU the same branches run under
-  ``RoundGraphs.host_loop``. The engine's blocks, snapshot, ring and pack
-  are then fixed buffers that every slide and rebuild writes in place.
+- In a world of one shard (a 1x1 mesh) the convergence loop is the
+  reference's ``lax.while_loop``: each round is a branch (a tier's compact
+  round, the dense round's scan, its stats; for ``proportional`` a tier's
+  compact round, the drain, the rescan) chosen by K4's steps under the
+  sharded rule, or the proportional one (``pprx_torch.engine.loop``), and
+  on the card a slide's prologue and its loop are one launch of a
+  conditional CUDA graph with one read of the carry (``RoundGraphs.loop``);
+  on the CPU the same branches run under ``RoundGraphs.host_loop``. The
+  engine's blocks, snapshot, ring and pack, and the proportional loop's
+  carry, are then fixed buffers that every slide and rebuild writes in
+  place.
 - Elsewhere, one process per shard, a host loop with one stats reduction a
   round (``mesh.gather_stats`` over the world: the next decision's counts,
   the pending carry, the active pairs and edge pushes); every rank reads
@@ -299,18 +301,24 @@ class ShardedWlEngine(ShardedEngine):
             self._row_act = torch.empty(nl, dtype=torch.int32, device=dev)
         self._p_ext = (None if mode == FORWARD
                        else torch.zeros((nl + 1, s), dtype=dtype, device=dev))
-        # the device loop's buffers and, on the card, its captured graphs
+        # the device loop's buffers and, on the card, its captured graphs;
+        # the proportional loop's carry (its pending count is the counts'
+        # N_PEND) and the rescan's list, every local row
         self.round_graphs = (RoundGraphs(nl, self.wcarry, dev, n_counts=loop.N_COUNTS)
                              if self.on_graphs else None)
+        if self.on_graphs and self.proportional:
+            self._cids = torch.full((self.ccarry,), self.n_pad, dtype=torch.int32, device=dev)
+            self._cmass = torch.zeros((self.ccarry, s), dtype=dtype, device=dev)
+            self._every_row = torch.arange(nl + 1, dtype=torch.int32, device=dev)
 
     @property
     def on_graphs(self) -> bool:
         """Whether the loop runs as ``RoundGraphs.loop`` (one conditional
         graph on the card, its host loop on the CPU): in a world of one
-        shard, for the wl loop. Elsewhere it is the host loop with a stats
-        reduction a round (``_wl_loop``, ``_prop_loop``), whose work is the
-        world's."""
-        return self.mesh.size == 1 and not self.proportional
+        shard, for the wl loop and the proportional one. Elsewhere it is
+        the host loop with a stats reduction a round (``_wl_loop``,
+        ``_prop_loop``), whose work is the world's."""
+        return self.mesh.size == 1
 
     # ------------------------------------------------------------------
     # the snapshot and its delivery views
@@ -638,7 +646,11 @@ class ShardedWlEngine(ShardedEngine):
     def loop_table(self) -> loop.Table:
         """The loop's table: the ladder, each tier's list (``wcarry``: a
         compact round's list is always valid at K = 1), the stats-skip
-        threshold and the sharded rule."""
+        threshold and the sharded rule; for ``proportional`` the
+        proportional rule, which reads no stats-skip threshold."""
+        if self.proportional:
+            return loop.Table(tiers=self.tiers, emit=(self.wcarry,) * len(self.tiers),
+                              heavy_ew=0, rule=loop.PROPORTIONAL)
         return loop.Table(tiers=self.tiers, emit=(self.wcarry,) * len(self.tiers),
                           heavy_ew=self.heavy_ew, rule=loop.SHARDED)
 
@@ -684,6 +696,67 @@ class ShardedWlEngine(ShardedEngine):
         execs = values[loop.EXECS:loop.EXECS + k + 1]
         self.round_kinds["compact"] += sum(execs[:k])
         self.round_kinds["dense"] += execs[k]
+        return (p, r, values[loop.ROUNDS], values[loop.PUSHES], values[loop.EDGE_PUSHES],
+                values[loop.WL_ROUNDS])
+
+    # -- the proportional loop's branches, on the loop's carry buffers
+    def _carry_into(self, carry) -> None:
+        """A round's (cids, cmass, pend) into the loop's carry: the
+        buffers, and ``pend`` into the counts' ``N_PEND``."""
+        cids, cmass, pend = carry
+        self._cids.copy_(cids)
+        self._cmass.copy_(cmass)
+        self.round_graphs.put(loop.N_PEND, pend)
+
+    def _prop_first(self, snap) -> None:
+        """A push's prologue: an empty carry and the list's counts."""
+        self._cids.fill_(self.n_pad)
+        self._cmass.zero_()
+        self.round_graphs.counts[loop.N_PEND:].zero_()
+        self._first_count(snap)
+
+    def _prop_tier_step(self, i: int, p, r, deg, snap, candw=None) -> None:
+        """A compact round at tier ``i`` over ``candw``: the list in
+        ``cand`` (None), or every row (the rescan)."""
+        g = self.round_graphs
+        if candw is None:
+            candw = g.cand[:self.tiers[i][0]]
+        cand2, carry, (cn2, fed2, fre2, _, _, _, na, ew) = self._prop_compact(
+            i, p, r, deg, snap, candw)
+        g.emit(cand2)
+        g.put(0, cn2, fed2, fre2, na, ew)
+        self._carry_into(carry)
+
+    def _drain_step(self, r, deg, snap) -> None:
+        """A drain round: the carry shipped, the list kept and widened;
+        nothing pushed."""
+        g = self.round_graphs
+        # (the list's validity a drain keeps is the carry's: K4 keeps it)
+        cand2, carry, (cn2, fed2, fre2, _, _, _, _, _) = self._drain_round(
+            r, deg, snap, g.cand, (self._cids, self._cmass, None), 0)
+        g.emit(cand2)
+        g.put(0, cn2, fed2, fre2)
+        g.counts[3:5].zero_()
+        self._carry_into(carry)
+
+    def _prop_graph_loop(self, p, r, deg, snap, c0ok: bool, prologue):
+        """``_graph_loop`` for ``proportional``: the branches are each
+        tier's compact round on the list in ``cand``, the drain and the
+        rescan (the top tier over every local row), under the proportional
+        rule. Returns ``_prop_loop``'s six values; the round kinds are
+        counted from the carry's branch executions."""
+        k, g = len(self.tiers), self.round_graphs
+        branches = [(self._key("prop_tier", i),
+                     functools.partial(self._prop_tier_step, i, p, r, deg, snap))
+                    for i in range(k)]
+        branches += [(self._key("drain"), lambda: self._drain_step(r, deg, snap)),
+                     (self._key("rescan"), lambda: self._prop_tier_step(
+                         k - 1, p, r, deg, snap, self._every_row))]
+        values, _ = g.loop(prologue, branches, self.loop_table(), c0ok, self.cfg.max_rounds)
+        execs = values[loop.EXECS:loop.EXECS + k + 2]
+        self.round_kinds["compact"] += sum(execs[:k])
+        self.round_kinds["drain"] += execs[k]
+        self.round_kinds["rescan"] += execs[k + 1]
         return (p, r, values[loop.ROUNDS], values[loop.PUSHES], values[loop.EDGE_PUSHES],
                 values[loop.WL_ROUNDS])
 
@@ -761,10 +834,12 @@ class ShardedWlEngine(ShardedEngine):
         delivered to, with ``cand``'s live rows kept (drain rounds). Returns
         (cand2, cn2, fed2, fre2)."""
         n_local = self.n_local
+        # (index_fill_, not ``x[idx] = True``: that copies the value from
+        # the host, which a capture refuses)
         mark = torch.zeros(n_local + 1, dtype=torch.bool, device=recv_ids.device)
         if cand is not None:
-            mark[cand.clamp(0, n_local)] = True
-        mark[recv_ids.clamp(0, n_local)] = True
+            mark.index_fill_(0, cand.clamp(0, n_local).long(), True)
+        mark.index_fill_(0, recv_ids.clamp(0, n_local).long(), True)
         any2 = mark[:n_local]
         return (compact(any2, self.wcarry, n_local), any2.sum(),
                 torch.where(any2, snap["srl"], 0).sum(), torch.where(any2, snap["f_len"], 0).sum())
@@ -858,6 +933,9 @@ class ShardedWlEngine(ShardedEngine):
             return self._loop(p, r, deg, snap, cand0, ok0)
         self._hold(blocks=(p, r, deg), snap=snap)
         self.round_graphs.emit(cand0)
+        if self.proportional:
+            return self._prop_graph_loop(p, r, deg, snap, bool(ok0),
+                                         (self._key("first"), lambda: self._prop_first(snap)))
         return self._graph_loop(p, r, deg, snap, bool(ok0),
                                 (self._key("first"), lambda: self._first_count(snap)))
 
@@ -897,7 +975,7 @@ class ShardedWlEngine(ShardedEngine):
                        ring=(ring["oring"], ring["fstack"]), pack=pack)
             prologue = (self._key("slide"), lambda: self._forward_prologue(
                 p, r, deg, egl, eog, eva, snap, pack, ring))
-            return (*self._graph_loop(p, r, deg, snap, True, prologue), deg, egl, eog, eva,
+            return (*self._loop_on_graphs(p, r, deg, snap, prologue), deg, egl, eog, eva,
                     snap, ring2)
         p, r, deg2, cand0, carry0 = self._forward_corrections(p, r, deg, egl, eog, eva, snap,
                                                               pack, ring)
@@ -964,17 +1042,26 @@ class ShardedWlEngine(ShardedEngine):
         self._mutate(snap, clear_slots, ins_u, ins_w, ins_v, fcnt)
         return p, r, deg2, cand0, carry0
 
+    def _loop_on_graphs(self, p, r, deg, snap, prologue):
+        """A slide's loop in a world of one shard, from a valid list."""
+        if self.proportional:
+            return self._prop_graph_loop(p, r, deg, snap, True, prologue)
+        return self._graph_loop(p, r, deg, snap, True, prologue)
+
     def _forward_prologue(self, p, r, deg, egl, eog, eva, snap, pack, ring) -> None:
         """A forward slide up to its loop on the engine's buffers: the
         corrections into ``p``, ``r`` and ``deg``, the first list and its
-        counts into the loop's buffers. A world of one shard."""
-        p2, r2, deg2, cand0, _ = self._forward_corrections(p, r, deg, egl, eog, eva, snap,
-                                                           pack, ring)
+        counts into the loop's buffers (for ``proportional`` the carry the
+        corrections left too). A world of one shard."""
+        p2, r2, deg2, cand0, carry0 = self._forward_corrections(p, r, deg, egl, eog, eva, snap,
+                                                                pack, ring)
         p.copy_(p2)
         r.copy_(r2)
         deg.copy_(deg2)
         self.round_graphs.emit(cand0)
         self._first_count(snap)
+        if carry0 is not None:
+            self._carry_into(carry0)
 
     def rowsum_sweep(self, p, snap):
         """The reverse slide's row sums of ``p`` over the live window edges
@@ -1007,7 +1094,7 @@ class ShardedWlEngine(ShardedEngine):
             self._hold(blocks=(p, r, deg), snap=snap, window=(egl, eog, eva), pack=pack)
             prologue = (self._key("slide"), lambda: self._reverse_prologue(
                 p, r, deg, egl, eog, eva, snap, pack))
-            return (*self._graph_loop(p, r, deg, snap, True, prologue), deg, egl, eog, eva,
+            return (*self._loop_on_graphs(p, r, deg, snap, prologue), deg, egl, eog, eva,
                     snap)
         r, d_new, cand0 = self._reverse_corrections(p, r, deg, egl, eog, eva, snap, pack)
         p, r, rounds, pushes, epushes, wl = self._loop(p, r, d_new, snap, cand0, 1)
@@ -1059,7 +1146,10 @@ class ShardedWlEngine(ShardedEngine):
         r.copy_(r2)
         deg.copy_(d_new)
         self.round_graphs.emit(cand0)
-        self._first_count(snap)
+        if self.proportional:  # an empty carry
+            self._prop_first(snap)
+        else:
+            self._first_count(snap)
 
     def make_ring(self, oring, hd, tl, fstack, ftop) -> dict:
         """This shard's slot ring from the host's ``[K, ...]`` arrays: oring

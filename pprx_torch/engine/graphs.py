@@ -1,10 +1,12 @@
 """Captured CUDA graphs of the wl2 slides and convergence loops, of the
-sharded wl engine's in a world of one shard, and of the dense engine's
-loop: the port's counterpart of the reference's compiled slide, seed and
-refine programs (``pprx/graph/fast_stream.py``'s jitted ``wl2_slide_step``
-and ``_seed_wl2_jit``, ``_refine_wl2_jit``; ``pprx/dist/wl.py``'s jitted
-``push_wl`` and ``slide_wl``; ``pprx/engine/push.py``'s
-``push_to_convergence``).
+sharded engines' in a world of one shard (the wl loop, the
+memory-proportional ``wlp`` loop and the dense loop), and of the dense
+engine's loop: the port's counterpart of the reference's compiled slide,
+seed and refine programs (``pprx/graph/fast_stream.py``'s jitted
+``wl2_slide_step`` and ``_seed_wl2_jit``, ``_refine_wl2_jit``;
+``pprx/dist/wl.py``'s jitted ``push_wl`` and ``slide_wl``;
+``pprx/dist/sharded.py``'s ``push`` and ``slide``;
+``pprx/engine/push.py``'s ``push_to_convergence``).
 
 The reference runs a whole convergence loop as one device program: a
 ``lax.while_loop`` whose branches are ``lax.switch`` and ``lax.cond``. On
@@ -14,7 +16,8 @@ seed's first count) is captured once with torch, and the loop is one CUDA
 graph built around them (``pprx_torch/csrc/loop.cu``): ``[prologue] ->
 prime -> WHILE { turn -> SWITCH { tier_0 | .. | tier_k-1 | scan ->
 after_scan -> IF { stats } } }`` (the dense engine's: ``WHILE { turn ->
-SWITCH { round } }``), where the three steps are K4's one-warp kernels on
+SWITCH { round } }``; the proportional loop's: ``WHILE { turn -> SWITCH {
+tier_0 | .. | tier_k-1 | drain | rescan } }``), where the three steps are K4's one-warp kernels on
 the loop's carry (``pprx_torch.engine.loop``), which set the conditions: a
 turn tallies the round before and picks the next one's branch, or none. A
 loop is one graph launch and one read of the carry (its statistics) by the
@@ -285,7 +288,8 @@ class RoundGraphs:
              c0ok: bool, max_rounds: int) -> tuple[list[int], int]:
         """One convergence loop: ``prologue``, then rounds of ``branches``
         (the tiers', the scan's and its stats', as ``table`` numbers them;
-        under the dense rule the round's alone)
+        under the dense rule the round's alone; under the proportional rule
+        the tiers', the drain's and the rescan's)
         as K4's steps pick them, from the counts the prologue (or the
         caller) left in ``counts``. On CUDA one launch of the loop's graph
         (built at its first use) and one read of the carry; on the CPU
@@ -320,7 +324,7 @@ class RoundGraphs:
                 self.run(*branches[b])
                 counts = self.read()
                 reads += 1
-                if b == table.scan and not table.dense and loop.after_scan(
+                if b == table.scan and table.has_stats and loop.after_scan(
                         carry, counts, table):
                     self.run(*branches[-1])
                     counts = self.read()
@@ -358,7 +362,8 @@ class RoundGraphs:
         values = self.carry_host[:n].tolist()
         # what the loop launched: its prologue once, each branch as often
         # as it ran, and K4's steps: a turn a round and one to end the loop
-        # (none where prime stopped it), after_scan in the scan's arm
+        # (none where prime stopped it), after_scan in the scan's arm where
+        # the rule has stats
         execs = values[loop.EXECS:loop.EXECS + len(branches)]
         for (_, launched), times in zip(parts, [1] * (prologue is not None) + execs):
             for counts, added in zip(KERNEL_COUNTS, launched):
@@ -367,7 +372,7 @@ class RoundGraphs:
         rounds = values[loop.ROUNDS]
         loop.LAUNCHES["prime"] += 1
         loop.LAUNCHES["turn"] += rounds + 1 if rounds else 0
-        loop.LAUNCHES["after_scan"] += 0 if table.dense else execs[table.scan]
+        loop.LAUNCHES["after_scan"] += execs[table.scan] if table.has_stats else 0
         self.branch_execs += sum(execs)
         return values, 1
 

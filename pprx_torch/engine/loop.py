@@ -1,6 +1,8 @@
 """The convergence loops' carry and their control steps (K4's plain
 version): the wl2 engine's and, in a world of one shard, the sharded wl
-engine's compact-frontier loops, and the dense engine's loop.
+engine's compact-frontier loops, the dense loop of the dense engine and
+of the sharded dense engine in a world of one shard, and that world's
+memory-proportional loop (``wlp``).
 
 The reference runs a whole convergence loop on the device: a
 ``lax.while_loop`` whose body picks a capacity tier with ``lax.switch`` and
@@ -21,7 +23,7 @@ step on it:
 
 A loop of R rounds takes R + 1 turns (none where ``prime`` stops it).
 
-A table's ``rule`` picks one of three loops. The two compact-frontier
+A table's ``rule`` picks one of four loops. The two compact-frontier
 loops differ in two rules (``pprx/dist/wl.py:1023``, ``:911-917``):
 
 - the sharded loop's first round always runs (the reference starts its
@@ -30,7 +32,9 @@ loops differ in two rules (``pprx/dist/wl.py:1023``, ``:911-917``):
   edges of every row with an active pair (the counts' sixth slot), where
   wl2 weighs a row by its active pairs (``ew``, the fifth).
 
-The dense rule is the dense engine's loop (``pprx/engine/push.py:94-119``):
+The dense rule is the dense engine's loop (``pprx/engine/push.py:94-119``;
+the sharded dense engine's at ``pprx/dist/sharded.py:378-398``, where in a
+world of one shard under ``dense_rs`` nothing is ever pending):
 no tiers, one arm (the dense round, branch 0) and no stats. ``prime``
 reads the first active count (the counts' ``n_active``, the reference's
 ``n0``) and runs no round from a converged state; a turn tallies the
@@ -40,7 +44,21 @@ round found an active pair and the cap is not reached, as the reference's
 (the loop graph holds none; the host loop and ``replay_log`` skip it), so
 that step has no dense case.
 
-Both keep the port's test that the stats run only where a round follows.
+The proportional rule is the sharded engine's memory-proportional loop
+(``wlp``, ``pprx/dist/wl.py:1177-1214``): its SWITCH has the ``k`` compact
+tiers ``0 .. k-1``, the drain ``k`` and the rescan ``k + 1``, and no
+stats. A pending carry (the counts' sixth slot, ``N_PEND``, kept in the
+carry's ``PEND``) takes the drain; otherwise a valid list takes the tier
+that counts the lower tiers the counts miss (the top tier covers any
+frontier), and an invalid one the rescan. A round's tally goes on while
+its own count (its active pairs; a drain's: whether it left a list) or a
+pending carry is not zero, and the cap is not reached; a drain keeps the
+list's validity, a compact round or a rescan makes it valid. Its first
+round always runs, and every round counts as a wl round, as the
+reference's ``stats[3]``.
+
+The compact-frontier loops keep the port's test that the stats run only
+where a round follows.
 The sharded reference has none, and needs none: the stats read ``r`` and
 write only the next list and its counts, and where no round follows
 (``n_active`` 0, or the round cap) nothing reads those. So ``p``, ``r``
@@ -58,7 +76,8 @@ and ``tally`` have no kernel of their own: they are ``turn``'s parts, and
 ``replay_log``'s.
 
 Branches are numbered: the ``k`` tiers ``0 .. k-1``, the scan ``k`` and its
-stats ``k + 1``. The carry also counts each branch's executions (what a
+stats ``k + 1`` (under the proportional rule the drain ``k`` and the
+rescan ``k + 1``). The carry also counts each branch's executions (what a
 loop graph's kernels launched follows from them) and logs each round's
 branch with the counts its decisions read, so that a run on the card can
 be replayed through ``decide`` (``replay_log``).
@@ -81,25 +100,29 @@ PUSHES, EDGE_PUSHES, WL_ROUNDS, SCANS_CAND, SCANS_FED, SCANS_LIV, STATS_READS = 
 BRANCH, HEAVY, STATS, GO = 16, 17, 18, 19  # the round's decisions
 EXECS = 20  # executions of each branch, MAX_BRANCHES slots
 PENDING = 30  # a round decided and not yet tallied
+PEND = 31  # the proportional rule's pending carry, which the next decision reads
 HEAD = 32  # the slots above; the round log follows
 
 MAX_TIERS = 8
 MAX_BRANCHES = MAX_TIERS + 2
 # a round: branch, ok, cn, fed, fre (what decide read), na, the heavy test's
-# count (ew; ewr under the sharded rule), stats
+# count (ew; ewr under the sharded rule; under the proportional rule the
+# pending carry decide read), stats
 LOG_W = 8
 LOG_CAP = 1024  # rounds logged; later rounds are not
 SIZE = HEAD + LOG_CAP * LOG_W
 
 # ---- the round's counts: cn, fed, fre, n_active, edge_work, and the
-# sharded rule's heavy count ewr
+# sharded rule's heavy count ewr, whose slot the proportional rule's
+# pending carry takes
 N_COUNTS = 6
 EWR = 5
+N_PEND = EWR
 
 # ---- the table of a tier ladder (int64; csrc/loop.cu's enum Tab)
 T_TIERS, T_HEAVY, T_RULE, T_W = 0, 1, 2, 3
 # the rules a table's T_RULE names (the module docstring)
-WL2, SHARDED, DENSE = 0, 1, 2
+WL2, SHARDED, DENSE, PROPORTIONAL = 0, 1, 2, 3
 T_E, T_G, T_EMIT = T_W + MAX_TIERS, T_W + 2 * MAX_TIERS, T_W + 3 * MAX_TIERS
 TAB = T_W + 4 * MAX_TIERS
 
@@ -130,9 +153,11 @@ class Table:
     ``tiers`` ((w, e, g), smallest first), the list width each tier's round
     emits (``emit``: its next tier's, or ``n + 1`` where the round reseeds
     by a rescan), ``heavy_ew``, the edge work above which a scan skips
-    its stats, and ``rule``: ``WL2``, ``SHARDED`` (the sharded engine's)
-    or ``DENSE`` (the dense engine's: no tiers; ``DENSE_TABLE``), as the
-    module docstring says."""
+    its stats, and ``rule``: ``WL2``, ``SHARDED`` (the sharded engine's),
+    ``DENSE`` (the dense engine's: no tiers; ``DENSE_TABLE``) or
+    ``PROPORTIONAL`` (the sharded engine's memory-proportional loop: no
+    stats, the emit widths and ``heavy_ew`` unread), as the module
+    docstring says."""
 
     tiers: tuple[tuple[int, int, int], ...]
     emit: tuple[int, ...]
@@ -143,7 +168,7 @@ class Table:
         if self.rule == DENSE:
             if self.tiers or self.emit:
                 raise ValueError(f"the dense rule takes no tiers: {self.tiers}")
-        elif self.rule not in (WL2, SHARDED):
+        elif self.rule not in (WL2, SHARDED, PROPORTIONAL):
             raise ValueError(f"no loop rule {self.rule}")
         elif not 1 <= len(self.tiers) <= MAX_TIERS or len(self.emit) != len(self.tiers):
             raise ValueError(f"a loop takes 1 to {MAX_TIERS} tiers, each with its emit width: "
@@ -158,22 +183,34 @@ class Table:
         return self.rule == DENSE
 
     @property
+    def proportional(self) -> bool:
+        return self.rule == PROPORTIONAL
+
+    @property
+    def has_stats(self) -> bool:
+        """Whether the scan's arm runs ``after_scan`` and the stats: the
+        compact-frontier rules'."""
+        return self.rule in (WL2, SHARDED)
+
+    @property
     def scan(self) -> int:
-        """The scan's branch (under the dense rule the round's, 0); its
-        stats' is ``scan + 1``."""
+        """The scan's branch (under the dense rule the round's, 0; under
+        the proportional rule the drain's, the rescan's is ``scan + 1``);
+        its stats' is ``scan + 1``."""
         return len(self.tiers)
 
     @property
     def stop(self) -> int:
         """The branch ``turn`` gives where the loop ends: past the
-        SWITCH's arms (the tiers and the scan), so that it runs none."""
-        return self.scan + 1
+        SWITCH's arms (the tiers and the scan; the tiers, the drain and
+        the rescan), so that it runs none."""
+        return self.scan + 1 + self.proportional
 
     @property
     def n_branches(self) -> int:
         """The branches a loop takes: the SWITCH's arms, and the scan's
-        stats but under the dense rule."""
-        return self.scan + 1 + (not self.dense)
+        stats where ``has_stats``."""
+        return self.stop + self.has_stats
 
     @property
     def heavy_at(self) -> int:
@@ -183,7 +220,7 @@ class Table:
     @property
     def n_counts(self) -> int:
         """The counts a step reads."""
-        return self.heavy_at + 1
+        return N_PEND + 1 if self.proportional else self.heavy_at + 1
 
     def values(self) -> list[int]:
         """The table as K4 reads it: ``TAB`` int64 values."""
@@ -218,6 +255,13 @@ def _prime(c: list[int], counts, t: Table) -> None:
     if t.dense:
         # the first active count: no round from a converged state
         c[NA] = counts[3]
+    elif t.proportional:
+        # the first round runs whatever the list; a carry left by the
+        # corrections is pending
+        c[CN], c[FED], c[FRE] = counts[0], counts[1], counts[2]
+        c[OK] = int(c0ok != 0)
+        c[PEND] = counts[N_PEND]
+        c[NA] = 1
     else:
         c[CN], c[FED], c[FRE] = counts[0], counts[1], counts[2]
         c[OK] = int(c0ok != 0)
@@ -232,6 +276,15 @@ def _decide(c: list[int], t: Table) -> int:
     cn, fed, fre = c[CN], c[FED], c[FRE]
     if t.dense:
         b = 0  # the round, the one arm
+    elif t.proportional:
+        # a pending carry drains; a valid list takes its tier (the top one
+        # covers any frontier); else the rescan
+        if c[PEND] > 0:
+            b = t.scan
+        elif c[OK]:
+            b = sum(not (cn <= w and fed <= e and fre <= g) for (w, e, g) in t.tiers[:-1])
+        else:
+            b = t.scan + 1
     elif c[OK] and cn <= t.tiers[-1][0] and fed <= t.tiers[-1][1] and fre <= t.tiers[-1][2]:
         b = sum(not (cn <= w and fed <= e and fre <= g) for (w, e, g) in t.tiers[:-1])
     else:
@@ -255,6 +308,22 @@ def _after_scan(c: list[int], counts, t: Table) -> bool:
 def _tally(c: list[int], counts, t: Table) -> bool:
     b = c[BRANCH]
     na, ew = counts[3], counts[4]
+    if t.proportional:
+        # a drain pushes nothing: its count is whether it left a list, and
+        # it keeps the list's validity
+        drain = b == t.scan
+        pend = counts[N_PEND]
+        work = (counts[0] > 0 if drain else na) + (pend > 0)
+        c[ROUNDS] += 1
+        c[PUSHES] += na
+        c[EDGE_PUSHES] += ew
+        c[WL_ROUNDS] += 1
+        c[EXECS + b] += 1
+        c[CN], c[FED], c[FRE], c[NA], c[EW] = counts[0], counts[1], counts[2], na, ew
+        c[OK] = c[OK] if drain else 1
+        c[PEND] = pend
+        c[GO] = int(work > 0 and c[ROUNDS] < c[MAX_ROUNDS])
+        return bool(c[GO])
     if t.dense:
         cn2, fed2, fre2, ok2 = c[CN], c[FED], c[FRE], c[OK]
     elif b < t.scan:
@@ -312,9 +381,10 @@ def prime(carry: torch.Tensor, counts, table: Table) -> bool:
 
 def decide(carry: torch.Tensor, table: Table) -> int:
     """The round's branch (``BRANCH``), logged with the counts it read."""
-    ok, cn, fed, fre = (int(carry[i]) for i in (OK, CN, FED, FRE))
+    ok, cn, fed, fre, pend = (int(carry[i]) for i in (OK, CN, FED, FRE, PEND))
     b = _on_head(carry, _decide, table)
-    _log_at(carry, int(carry[ROUNDS]), 0, [b, ok, cn, fed, fre, 0, 0, 0])
+    _log_at(carry, int(carry[ROUNDS]), 0,
+            [b, ok, cn, fed, fre, 0, pend if table.proportional else 0, 0])
     return b
 
 
@@ -331,8 +401,10 @@ def tally(carry: torch.Tensor, counts, table: Table) -> bool:
     on (``GO``)."""
     counts = _ints(counts)
     rnd = int(carry[ROUNDS])
+    # the proportional rule's log keeps the pending carry its decision read
+    heavy = int(carry[PEND]) if table.proportional else counts[table.heavy_at]
     go = _on_head(carry, _tally, counts, table)
-    _log_at(carry, rnd, 5, [counts[3], counts[table.heavy_at], int(carry[STATS])])
+    _log_at(carry, rnd, 5, [counts[3], heavy, int(carry[STATS])])
     return go
 
 
@@ -427,8 +499,10 @@ class LoopGraph:
     """One convergence loop as an instantiated CUDA graph (``loop.cu``'s
     ``pprx_loop_build``): ``[prologue] -> prime -> WHILE { turn -> SWITCH
     { tier_0 | .. | tier_k-1 | scan -> after_scan -> IF { stats } } }``,
-    or under the dense rule ``WHILE { turn -> SWITCH { round } }``, each
-    arm a clone of the branch's captured graph.
+    or under the dense rule ``WHILE { turn -> SWITCH { round } }``, under
+    the proportional rule ``WHILE { turn -> SWITCH { tier_0 | .. |
+    tier_k-1 | drain | rescan } }``, each arm a clone of the branch's
+    captured graph.
     ``prologue`` and ``branches`` are raw ``cudaGraph_t`` handles (torch's
     ``CUDAGraph(keep_graph=True).raw_cuda_graph()``); the graph reads the
     carry, the counts and the table's values baked in at build."""
@@ -473,9 +547,12 @@ def replay_log(rows: list[list[int]], table: Table, max_rounds: int) -> list[tup
     for rnd, (_, ok, cn, fed, fre, na, heavy, _) in enumerate(rows):
         c = [0] * HEAD
         c[OK], c[CN], c[FED], c[FRE], c[ROUNDS], c[MAX_ROUNDS] = ok, cn, fed, fre, rnd, max_rounds
+        # the proportional rule logs the pending carry its decision read
+        c[PEND] = heavy if table.proportional else 0
         b = _decide(c, table)
         counts = [0, 0, 0, na, 0, 0]
         counts[table.heavy_at] = heavy
-        # the dense rule has no stats arm: its loops call no after_scan
-        out.append((b, 0 if table.dense else int(_after_scan(c, counts, table))))
+        # the dense and proportional rules have no stats arm: their loops
+        # call no after_scan
+        out.append((b, int(_after_scan(c, counts, table)) if table.has_stats else 0))
     return out

@@ -148,12 +148,11 @@ def dense_round_(
     r[-1] = 0.0
 
 
-def _first_count(state: PprState, graph: WindowGraph, cfg: PprConfig,
-                 counts: torch.Tensor) -> None:
+def first_count(state: PprState, deg: torch.Tensor, cfg: PprConfig,
+                counts: torch.Tensor) -> None:
     """What ``prime`` reads in ``counts[3]``: the rows that hold an active
     pair (K3, ``frontier_rows``, one read of ``r``), which is 0 exactly
     where the reference's first count of active pairs (``n0``) is."""
-    deg = graph.deg
     _, rows, _, _ = frontier_rows(state.r, deg, deg, deg, eps=cfg.eps,
                                   forward=state.mode == FORWARD)
     counts[3:4].copy_(rows)
@@ -181,7 +180,7 @@ def push_to_convergence(
     g = RoundGraphs(graph.n, 1, state.r.device) if graphs is None else graphs
     g.hold("the dense state, window and view", state, graph, view)
     key = ("dense", state.mode, cfg.eps, cfg.alpha)
-    first = ((*key, "first"), lambda: _first_count(state, graph, cfg, g.counts))
+    first = ((*key, "first"), lambda: first_count(state, graph.deg, cfg, g.counts))
     rnd = ((*key, "round"),
            lambda: dense_round_(state, graph.deg, [(view.gat, view.off)], cfg, g.counts[3:5]))
     values, reads = g.loop(first, [rnd], loop.DENSE_TABLE, True, cfg.max_rounds)

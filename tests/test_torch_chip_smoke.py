@@ -181,9 +181,10 @@ def test_cli_phase_on_the_cpu(tmp_path, monkeypatch):
 def test_sharded_phase_on_the_cpu(tmp_path, monkeypatch):
     """Phase 14 as the card runs it, on the CPU at a small size: config 5
     (f32 and bf16) within its contract with the sharded top-k equal to the
-    single-device head, the sharding tax, the dense sharded engine, the
-    collective wrappers through a gloo group of one, and the CLI; no run
-    launches a kernel here, which the launch check refuses."""
+    single-device head, the sharding tax, the dense sharded engine (phase
+    12's stream, and config 5's run in both modes within their contracts),
+    the collective wrappers through a gloo group of one, and the CLI; no
+    run launches a kernel here, which the launch checks refuse."""
     import functools
 
     import pprx_torch.bench.run as trun
@@ -207,9 +208,21 @@ def test_sharded_phase_on_the_cpu(tmp_path, monkeypatch):
     tax = chip_smoke.sharding_tax(dev, runs["f32"]["updates_per_sec"], **shape)
     assert tax["tax"] > 0 and tax["rebuild_every"] == 2
     dense = chip_smoke.sharded_dense_check(dev)
-    assert dense["kernel_launches"] == 0
+    assert not any(dense["launches_by_entry"].values())
     assert all(dense[f"{m}_slide{b}_err"] <= dense[f"{m}_slide{b}_bound"]
                for m in ("forward", "reverse") for b in (100, 1))
+    assert dense["forward_slide100_graphs"] is None  # the loop graphs' check is the card's
+    for mode in ("forward", "reverse"):
+        d5 = chip_smoke.config5_check(dev, bf16d=False, n_check=4, k=10, engine="dense",
+                                      mode=mode, **shape)
+        assert (d5["mesh"], d5["engine"], d5["mode"], d5["steps"]) == ("1x1", "dense", mode, 5)
+        assert d5["round_kinds"] == {} and d5["graphs"] is None
+        c = d5["contract"]
+        assert (c["l1_max"] <= c["l1_bound"]) if mode == "forward" else (
+            c["max_abs_err"] <= c["bound"])
+        assert d5["rounds_per_slide"] > 0 and not any(d5["launches_by_entry"].values())
+        with pytest.raises(AssertionError, match=f"config5_dense_{mode} never launched"):
+            chip_smoke.check_dense_launched({f"config5_dense_{mode}": d5["launches_by_entry"]})
     coll = chip_smoke.collectives_check(dev, str(tmp_path))
     assert coll.pop("backend") == "gloo" and all(coll.values())
     graph = str(tmp_path / "g.npz")
@@ -251,6 +264,13 @@ def test_sharded_phase_15_on_the_cpu(tmp_path):
     assert wlp["engine"] == "wlp" and wlp["contract"]["l1_max"] <= wlp["contract"]["l1_bound"]
     assert wlp["round_kinds"]["rescan"] >= 1 and wlp["round_kinds"]["dense"] == 0
     assert len(wlp["profile"]["rounds"]) == 1 and wlp["slide_peak_gib"] is None
+    # wlp in reverse, within the reverse contract; the CPU builds no loop graph
+    wlr = chip_smoke.config5_check(dev, bf16d=False, n_check=4, k=10, engine="wlp",
+                                   mode="reverse", **shape)
+    assert (wlr["engine"], wlr["mode"]) == ("wlp", "reverse")
+    assert wlr["contract"]["max_abs_err"] <= wlr["contract"]["bound"]
+    assert wlr["round_kinds"]["rescan"] >= 1 and wlr["round_kinds"]["dense"] == 0
+    assert wlp["loop_rules"] == wlr["loop_rules"] == []
     ck = chip_smoke.sharded_checkpoint_check(drv, str(tmp_path), n_check=4)
     assert ck["max_abs_settled"] <= 1e-5 and len(ck["rounds"][0]) == 2
     assert ck["rounds"][0] == ck["rounds"][1] and ck["max_abs_dp"] == 0.0
@@ -370,6 +390,28 @@ def test_config5_turn_on_the_cpu():
         run["launches_by_entry"] = {"scan_pass": scans, "frontier_rows": rescans}
         with pytest.raises(AssertionError, match="config5_f32: 3 dense rounds"):
             chip_smoke.check_dense_row_passes({"config5_f32": run})
+
+
+@pytest.mark.parametrize("tag", ["config5_dense_f32", "config5_dense_rev", "config5_wlp"])
+def test_sharded_dense_and_wlp_turn_shapes_on_the_cpu(tag):
+    """``--turns``'s shapes of phase 14c's sharded dense engine (both modes)
+    and 15c's wlp, named by ``--shapes`` alone, through ``turn_record`` on
+    the CPU at a small size: config 5's shapes otherwise, its engine, rate,
+    rounds, the host's reads (none beside the loops' here), the driver's and
+    the engine's shares of a slide, and one profiled slide."""
+    extra = {sh["tag"]: sh for sh in chip_smoke.TURN_EXTRA}
+    sh = extra[tag]
+    assert tag not in {s["tag"] for s in chip_smoke.turn_shapes()}
+    assert (sh["n"], sh["w"], sh["b"], sh["s"], sh["sharded"]) == (200_000, 2_000_000, 160_000,
+                                                                   128, True)
+    assert sh["reverse"] == tag.endswith("_rev")
+    res = chip_smoke.turn_record(chip_smoke, dict(sh, n=2000, w=6000, b=300, s=8),
+                                 torch.device("cpu"))
+    assert res["updates_per_s"] > 0 and res["rounds_per_slide"] > 0
+    assert res["host_reads_per_slide"] == 0 and res["engine_ms"] > 0
+    assert res["graphs"]["loop_launches"] == 0 and res["graphs"]["reads"] > 0
+    assert len(res["profile"]["rounds"]) == 1
+    assert (res["round_kinds"] == {}) == (sh["engine"] == "dense")
 
 
 def test_dense_driver_turn_on_the_cpu():

@@ -24,7 +24,7 @@ from pprx_torch.engine.segsum import (
     segsum_gather_add_,
     segsum_gather_add_plain,
 )
-from pprx_torch.engine.state import REVERSE, init_state, settled_distance
+from pprx_torch.engine.state import REVERSE, PprState, init_state, settled_distance
 from pprx_torch.engine.update import out_row_sums
 from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
 from pprx_torch.graph.hybrid_stream import TUNING, HybridStreamDriver
@@ -1306,7 +1306,7 @@ def test_k4_sharded_rule_equals_its_plain_steps():
         assert torch.equal(got.cpu(), want), name
 
 
-def _sharded_driver(dev, mode):
+def _sharded_driver(dev, mode, engine="wl"):
     from pprx_torch.dist.mesh import make_row_mesh
     from pprx_torch.dist.stream import ShardedStreamDriver
 
@@ -1314,7 +1314,7 @@ def _sharded_driver(dev, mode):
     src, dst, n = synthetic_powerlaw_stream(2000, w + 10 * b, seed=2)
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
     return ShardedStreamDriver(src, dst, n, list(range(16)), cfg, StreamConfig(window=w, slide=b),
-                               make_row_mesh(1, 1), mode=mode, engine="wl", device=dev)
+                               make_row_mesh(1, 1), mode=mode, engine=engine, device=dev)
 
 
 @pytest.mark.cuda
@@ -1785,3 +1785,117 @@ def test_k4_dense_rule_equals_its_plain_steps():
     res = chip_smoke.dense_loop_check(dev)
     assert res == {"0_active_5_rounds": 0, "1_active_1_rounds": 1, "1_active_7_rounds": 7,
                    "1_active_0_rounds": 0}
+
+
+# ---- the sharded dense engine and wlp at 1x1 (pprx_torch.dist.sharded,
+# pprx_torch.dist.wl): one loop graph a loop, K4 under the dense and the
+# proportional rules
+
+@pytest.mark.cuda
+def test_k4_proportional_rule_equals_its_plain_steps():
+    """K4 under the proportional rule (``chip_smoke.K4_PROPORTIONAL``: the
+    tiers, the drain and the rescan, the pending carry in the counts'
+    sixth slot) against its plain steps on each ``prop_*`` case, through
+    the kernel the loop graph launches for it: the whole carry equal; and
+    loop graphs of five-arm fill branches (a rescan then tiers to the cap,
+    a drain that ends the loop, tiers to the cap, no round allowed) leave
+    the host loop's carry (``chip_smoke.prop_loop_check``)."""
+    import chip_smoke
+    from pprx_torch.engine import loop
+
+    dev = _cuda()
+    cases = [c for c in chip_smoke.K4_CASES if c[0].startswith("prop_")]
+    assert len(cases) == 18
+    for case in cases:
+        step, carry, counts = chip_smoke.k4_launch(case)
+        assert chip_smoke.k4_table(case).proportional and counts.numel() == loop.N_COUNTS
+        want = carry.clone()
+        loop.step_(step, want, counts, chip_smoke.K4_PROPORTIONAL)
+        got = carry.to(dev)
+        loop.step_(step, got, counts.to(dev), chip_smoke.K4_PROPORTIONAL)
+        assert torch.equal(got.cpu(), want), case[0]
+    res = chip_smoke.prop_loop_check(dev)
+    assert [v["rounds"] for v in res.values()] == [3, 1, 4, 0]
+
+
+def _sharded_run(dev, mode, engine, tag, monkeypatch):
+    """A seed and 8 slides of ``_sharded_driver``'s stream on ``engine`` at
+    1x1: on the card's loop graphs, or (``tag`` "host") with
+    ``RoundGraphs.loop`` forced onto the host loop, the same branches one
+    by one. Returns (driver, each loop's (rounds, pushes, edge pushes), the
+    round graphs' summary, launches by kernel entry)."""
+    import chip_smoke
+    from pprx_torch.engine.graphs import RoundGraphs
+
+    if tag == "host":
+        monkeypatch.setattr(RoundGraphs, "loop", RoundGraphs.host_loop)
+    chip_smoke.reset_launches()
+    drv = _sharded_driver(dev, mode, engine)
+    stats = [drv.seed()] + list(drv.run(8))
+    tallies = [(st["rounds"], st["pushes"], st["edge_pushes"]) for st in stats]
+    return drv, tallies, drv.eng.round_graphs.summary(), chip_smoke.launches_by_entry()
+
+
+def _exact_on_window(drv, dev) -> None:
+    """Each query of a 1x1 driver held to exact PPR on the window it holds
+    (forward L1 within eps * W; reverse within 2 eps of the columns of M)."""
+    w, head = drv.scfg.window, drv.head
+    hs, hd = drv.stream_src[head - w:head], drv.stream_dst[head - w:head]
+    p = drv.host_p()[:drv.n].astype(np.float64)
+    queries = list(range(drv.eng.s_total))
+    if drv.mode == REVERSE:
+        cols = exact_ppr_columns(hs, hd, drv.n, queries, drv.cfg.alpha, device=dev)
+        assert np.abs(p - cols.T).max() <= 2 * drv.cfg.eps
+    else:
+        exact = exact_ppr(hs, hd, drv.n, queries, drv.cfg.alpha, tol=1e-11, device=dev)
+        for j, pi in enumerate(exact):
+            assert np.abs(p[:, j] - pi).sum() <= drv.cfg.eps * w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["dense", "wlp"])
+@pytest.mark.parametrize("mode", [0, REVERSE])
+def test_sharded_dense_and_wlp_device_loops_give_the_host_loops(monkeypatch, mode, engine):
+    """The sharded dense engine and wlp at 1x1 on the card, a seed and 8
+    slides: each loop one loop graph launch and one read, its round log
+    replayed through the plain steps under its rule (dense, proportional);
+    the same run with the loop forced onto the host, the same branches one
+    by one. The dense engine's slide is deterministic (K1, K2, K3; its
+    corrections summed through K1 in a sorted order): the same rounds,
+    pushes and edge pushes a loop and ``p`` and ``r`` bit for bit, K1, K2,
+    K3 and K4 launched. ``wlp``'s group sums and corrections run on
+    atomics (F6): its seed, from one fixed state, gives the same rounds,
+    pushes and edge pushes; its slides start from states that the atomics
+    left apart in their last bits, so pairs at their threshold flip and
+    their counts drift apart (by 2e-5 to 1.3e-4 after 8 reverse slides on
+    the card): they give the same rounds, and ``p + alpha r`` within 1e-5.
+    Both states held to exact PPR."""
+    import chip_smoke
+    from pprx_torch.engine import graphs, loop
+
+    dev = _cuda()
+    sink = []
+    monkeypatch.setattr(graphs, "LOG_SINK", sink)
+    drv, tallies, g, launched = _sharded_run(dev, mode, engine, "device", monkeypatch)
+    rules = [rec["table"].rule for rec in sink]
+    host, host_tallies, hg, _ = _sharded_run(dev, mode, engine, "host", monkeypatch)
+    if engine == "dense":
+        assert tallies == host_tallies
+        assert torch.equal(drv.p, host.p) and torch.equal(drv.r, host.r)
+    else:
+        assert tallies[0] == host_tallies[0]
+        assert [t[0] for t in tallies] == [t[0] for t in host_tallies]
+    assert g["loop_launches"] == g["reads"] == 9 and hg["loop_launches"] == 0
+    want = loop.DENSE if engine == "dense" else loop.PROPORTIONAL
+    assert rules == [want] * 9
+    for rec in sink:
+        assert loop.replay_log(rec["rows"], rec["table"], rec["max_rounds"]) == [
+            (row[0], row[7]) for row in rec["rows"]]
+    if engine == "dense":
+        chip_smoke.check_dense_launched({"sharded_dense": launched})
+    assert launched["loop_prime"] == 9 and launched["loop_after_scan"] == 0
+    n = drv.n
+    a, c = (PprState(p=d.p[:n], r=d.r[:n], mode=mode) for d in (drv, host))
+    assert settled_distance(a, c, drv.cfg.alpha) <= 1e-5
+    for d in (drv, host):
+        _exact_on_window(d, dev)

@@ -153,8 +153,8 @@ def test_slides_match_jax_through_the_host_loop(loops, mode):
 def test_the_loop_table_is_the_engines():
     """The table the loop runs under: the engine's ladder, each tier's list
     ``wcarry`` wide (always valid at K = 1), the engine's stats-skip
-    threshold (read when the loop runs) and the sharded rule; a world of
-    more than one shard, or the proportional loop, has no device loop."""
+    threshold (read when the loop runs) and the sharded rule; the
+    proportional loop's has its own rule (tests/test_torch_dist_prop_loop.py)."""
     src, dst, n = graph("random", 0, 50, 300)
     eng = twl.ShardedWlEngine(make_row_mesh(1, 1), n, 4, ecap=src.size, bcap=8,
                               cfg=TorchConfig(), device="cpu")
@@ -166,7 +166,7 @@ def test_the_loop_table_is_the_engines():
     assert eng.round_graphs.counts.shape == (loop.N_COUNTS,)
     wlp = twl.ShardedWlEngine(make_row_mesh(1, 1), n, 4, ecap=src.size, bcap=8,
                               cfg=TorchConfig(), proportional=True, device="cpu")
-    assert not wlp.on_graphs and wlp.round_graphs is None
+    assert wlp.on_graphs and wlp.loop_table().rule == loop.PROPORTIONAL
 
 
 def test_rebound_blocks_are_refused():

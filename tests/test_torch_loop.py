@@ -187,6 +187,57 @@ EXPECTED = {
         L.GO: 0, L.PENDING: 0, "log": {5: {5: 9, 6: 40, 7: 0}}},
     "dense_turn_nothing_pending": {L.BRANCH: 0, L.PENDING: 1,
                                    "log": {2: [0, 1, 1, 1, 1, 0, 0, 0]}},
+    # the proportional rule, written from pprx/dist/wl.py:1177-1214: the
+    # loop starts with work 1 and the corrections' pending carry; a pending
+    # carry drains (branch 3), a valid list takes its tier (the top one
+    # takes any), an invalid one rescans (4); a round goes on while its
+    # count (a drain's: cn2 > 0, :1169) or the pending carry is not zero; a
+    # drain keeps ok, a compact round or rescan sets it; every round is a
+    # wl round. The log keeps the pending carry each decision read (col 6).
+    "prop_prime_valid_list": {L.CN: 3, L.FED: 9, L.FRE: 2, L.OK: 1, L.NA: 1, L.GO: 1},
+    "prop_prime_first_round_forced": {L.OK: 1, L.NA: 1, L.GO: 1},
+    "prop_prime_carry_pending": {L.CN: 3, L.FED: 9, L.FRE: 2, L.OK: 1, L.PEND: 5, L.NA: 1,
+                                 L.GO: 1},
+    "prop_prime_no_rounds": {L.NA: 1, L.GO: 0},
+    "prop_decide_drain_over_valid_list": {L.BRANCH: 3, "log": {2: [3, 1, 8, 32, 4, 0, 4, 0]}},
+    "prop_decide_rescan": {L.BRANCH: 4, "log": {2: [4, 0, 1, 1, 1, 0, 0, 0]}},
+    "prop_decide_tier0_border": {L.BRANCH: 0, "log": {2: [0, 1, 8, 32, 4, 0, 0, 0]}},
+    "prop_decide_past_the_top_border": {L.BRANCH: 2, "log": {2: [2, 1, 257, 0, 0, 0, 0, 0]}},
+    "prop_tally_tier_goes_on": {
+        L.CN: 65, L.FED: 100, L.FRE: 3, L.OK: 1, L.NA: 12, L.EW: 400, L.ROUNDS: 3,
+        L.PUSHES: 112, L.EDGE_PUSHES: 1400, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 1,
+        "log": {2: {5: 12, 6: 0, 7: 0}}},
+    "prop_tally_tier_leaves_carry": {
+        L.CN: 10, L.FED: 20, L.FRE: 2, L.OK: 1, L.NA: 0, L.EW: 0, L.ROUNDS: 3,
+        L.WL_ROUNDS: 2, L.EXECS + 1: 1, L.PEND: 3, L.GO: 1, "log": {2: {5: 0, 6: 0, 7: 0}}},
+    "prop_tally_drain_goes_on": {
+        L.CN: 5, L.FED: 6, L.FRE: 1, L.OK: 1, L.NA: 0, L.EW: 0, L.ROUNDS: 3, L.WL_ROUNDS: 2,
+        L.EXECS + 3: 2, L.PEND: 0, L.GO: 1, "log": {2: {5: 0, 6: 2, 7: 0}}},
+    "prop_tally_drain_ends_loop": {
+        L.CN: 0, L.FED: 0, L.FRE: 0, L.OK: 0, L.NA: 0, L.EW: 0, L.ROUNDS: 3, L.WL_ROUNDS: 2,
+        L.EXECS + 3: 2, L.PEND: 0, L.GO: 0, "log": {2: {5: 0, 6: 2, 7: 0}}},
+    "prop_tally_rescan": {
+        L.CN: 40, L.FED: 50, L.FRE: 6, L.OK: 1, L.NA: 9, L.EW: 100, L.ROUNDS: 3,
+        L.PUSHES: 109, L.EDGE_PUSHES: 1100, L.WL_ROUNDS: 2, L.EXECS + 4: 1, L.GO: 1,
+        "log": {2: {5: 9, 6: 0, 7: 0}}},
+    "prop_tally_reaches_max_rounds": {
+        L.CN: 1, L.FED: 1, L.FRE: 1, L.OK: 1, L.NA: 9, L.EW: 10, L.ROUNDS: 6,
+        L.PUSHES: 109, L.EDGE_PUSHES: 1010, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 0,
+        "log": {5: {5: 9, 6: 0, 7: 0}}},
+    "prop_turn_tier_then_drain": {
+        L.CN: 65, L.FED: 100, L.FRE: 3, L.OK: 1, L.NA: 12, L.EW: 400, L.ROUNDS: 3,
+        L.PUSHES: 112, L.EDGE_PUSHES: 1400, L.WL_ROUNDS: 2, L.EXECS: 2, L.PEND: 7, L.GO: 1,
+        L.BRANCH: 3, L.PENDING: 1,
+        "log": {2: {5: 12, 6: 0, 7: 0}, 3: [3, 1, 65, 100, 3, 0, 7, 0]}},
+    "prop_turn_drain_ends": {
+        L.CN: 0, L.FED: 0, L.FRE: 0, L.OK: 1, L.NA: 0, L.EW: 0, L.ROUNDS: 3, L.WL_ROUNDS: 2,
+        L.EXECS + 3: 2, L.PEND: 0, L.GO: 0, L.PENDING: 0, "log": {2: {5: 0, 6: 2, 7: 0}}},
+    "prop_turn_reaches_max_rounds": {
+        L.CN: 1, L.FED: 1, L.FRE: 1, L.OK: 1, L.NA: 9, L.EW: 10, L.ROUNDS: 6,
+        L.PUSHES: 109, L.EDGE_PUSHES: 1010, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 0,
+        L.PENDING: 0, "log": {5: {5: 9, 6: 0, 7: 0}}},
+    "prop_turn_nothing_pending": {L.BRANCH: 4, L.PENDING: 1,
+                                  "log": {2: [4, 0, 1, 1, 1, 0, 0, 0]}},
 }
 
 CASES = {case[0]: case for case in chip_smoke.K4_CASES}
@@ -242,7 +293,7 @@ def test_slots_match_the_kernel_source():
              "ScansCand": L.SCANS_CAND, "ScansFed": L.SCANS_FED, "ScansLiv": L.SCANS_LIV,
              "StatsReads": L.STATS_READS, "Branch": L.BRANCH, "Heavy": L.HEAVY,
              "Stats": L.STATS, "Go": L.GO, "Execs": L.EXECS, "Pending": L.PENDING,
-             "Head": L.HEAD,
+             "Pend": L.PEND, "Head": L.HEAD,
              "Tiers": L.T_TIERS, "HeavyEw": L.T_HEAVY, "Rule": L.T_RULE, "W": L.T_W}
     assert {k: enums[k] for k in pairs} == pairs
     consts = dict(re.findall(r"constexpr int k(\w+) = (\d+);", src))
@@ -257,8 +308,9 @@ def test_slots_match_the_kernel_source():
     assert (L.T_E, L.T_G, L.T_EMIT, L.TAB) == tuple(
         L.T_W + i * L.MAX_TIERS for i in (1, 2, 3, 4))
     # the rules a table names
-    assert {k: enums[k] for k in ("Wl2", "Sharded", "Dense")} == {
-        "Wl2": L.WL2, "Sharded": L.SHARDED, "Dense": L.DENSE}
+    assert {k: enums[k] for k in ("Wl2", "Sharded", "Dense", "Proportional")} == {
+        "Wl2": L.WL2, "Sharded": L.SHARDED, "Dense": L.DENSE, "Proportional": L.PROPORTIONAL}
+    assert L.N_PEND == L.EWR  # the proportional rule's pending carry takes ewr's slot
     assert L.DENSE_TABLE.values()[L.T_RULE] == L.DENSE
 
 
@@ -296,8 +348,12 @@ def test_table_refuses_a_ladder_it_cannot_hold():
     with pytest.raises(ValueError, match="dense rule takes no tiers"):
         loop.Table(tiers=((1, 1, 1),), emit=(1,), heavy_ew=1, rule=loop.DENSE)
     with pytest.raises(ValueError, match="no loop rule"):
-        loop.Table(tiers=((1, 1, 1),), emit=(1,), heavy_ew=1, rule=3)
+        loop.Table(tiers=((1, 1, 1),), emit=(1,), heavy_ew=1, rule=4)
     assert (L.DENSE_TABLE.scan, L.DENSE_TABLE.stop, L.DENSE_TABLE.n_branches) == (0, 1, 1)
+    # the proportional rule: the tiers, the drain and the rescan, no stats
+    prop = chip_smoke.K4_PROPORTIONAL
+    assert (prop.scan, prop.stop, prop.n_branches, prop.has_stats, prop.n_counts) == (
+        3, 5, 5, False, 6)
 
 
 @pytest.mark.parametrize("c0ok, max_rounds, rounds", [
@@ -359,6 +415,42 @@ def test_dense_host_loop_turns(monkeypatch, na0, max_rounds, rounds):
     assert reads == 1 + rounds
     assert sink[0]["rounds"] == rounds and len(sink[0]["rows"]) == rounds
     assert loop.replay_log(sink[0]["rows"], loop.DENSE_TABLE, max_rounds) == [(0, 0)] * rounds
+
+
+@pytest.mark.parametrize("c0ok, pend0, max_rounds, rounds, execs", [
+    (False, 0, 3, 3, [2, 0, 1]), (True, 2, 5, 1, [0, 1, 0]), (True, 0, 4, 4, [4, 0, 0]),
+    (True, 0, 0, 0, [0, 0, 0])])
+def test_prop_host_loop_turns(monkeypatch, c0ok, pend0, max_rounds, rounds, execs):
+    """The proportional rule's loop on the host (the smoke script's
+    ``prop_fill`` arms, which phase 3c runs as loop graphs): an invalid list
+    rescans, then tiers run to the cap; a pending carry drains first (here
+    a drain that ends the loop); ``prime`` stops none but at no rounds. R
+    rounds take R + 1 turns and no ``after_scan``, a read after the
+    prologue and each round, every round a wl round, and the log
+    replays."""
+    calls = {"turn": 0, "after_scan": 0}
+
+    def counted(name, fn):
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        return call
+
+    for name in calls:
+        monkeypatch.setattr(loop, name, counted(name, getattr(loop, name)))
+    sink = []
+    monkeypatch.setattr(graphs, "LOG_SINK", sink)
+    g = graphs.RoundGraphs(8, 8, "cpu", n_counts=loop.N_COUNTS)
+    table = chip_smoke.PROP_FILL_TABLE
+    first, branches = chip_smoke.prop_fill(g, pend0)
+    values, reads = g.loop(first, branches, table, c0ok, max_rounds)
+    assert values[L.ROUNDS] == rounds == values[L.WL_ROUNDS] and not values[L.PENDING]
+    assert calls == {"turn": rounds + 1 if rounds else 0, "after_scan": 0}
+    assert values[L.EXECS:L.EXECS + 3] == execs
+    assert reads == 1 + rounds
+    rows = sink[0]["rows"]
+    assert [row[6] for row in rows[:1]] == [pend0] * min(rounds, 1)
+    assert loop.replay_log(rows, table, max_rounds) == [(row[0], 0) for row in rows]
 
 
 CFG = PprConfig(alpha=0.2, eps=1e-8, max_rounds=10_000)

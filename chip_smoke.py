@@ -53,10 +53,14 @@ round trip. Phases, one line each:
    fill-kernel branches timed by its rounds: what the WHILE, the SWITCH
    and a turn add to a round, and what a kernel node costs inside a loop's
    body (``check_k4``); the table's ``sharded_*`` cases run under the
-   sharded wl engine's rule and its ``dense_*`` cases under the dense
-   engine's (``k4_table``), and one-arm loop graphs of the dense rule (0
-   active at the start, one round, stopped at the cap) leave the host
-   loop's carry (``dense_loop_check``). From
+   sharded wl engine's rule, its ``dense_*`` cases under the dense
+   engine's, its ``prop_*`` cases under the proportional rule and its
+   ``hybrid_*`` and ``nowl_*`` cases under the hybrid rule, with and
+   without a worklist (``k4_table``), and one-arm loop graphs of the dense
+   rule (0 active at the start, one round, stopped at the cap) leave the
+   host loop's carry (``dense_loop_check``), as do loop graphs of the
+   proportional and the hybrid rules' fill-kernel arms
+   (``prop_loop_check``, ``hybrid_loop_check``). From
    here on every loop graph logs its rounds (``graphs.LOG_SINK``),
    and each phase's line replays the rounds of the loops run since the
    line before through the plain ``decide`` and ``after_scan`` on the
@@ -177,11 +181,14 @@ round trip. Phases, one line each:
    --mode rev`` and ``stream --engine sharded-wlp`` (``--mesh 1,1``) on
    phase 13's file. Each path must launch the gather entry;
 16. the hybrid engine (``HybridStreamDriver``: CSR snapshot, signed overlay,
-   worklist and scan rounds of plain torch ops): 16a the headline runner
+   worklist and scan rounds; each loop one conditional graph under K4's
+   hybrid rule, its scans counted by K3, its dense scans K2 then K1): 16a
+   the headline runner
    with ``PPRX_BENCH_ENGINE=hybrid`` (precision@100 >= 0.95), then the
    driver forward at its defaults (``rebuild_every=4``) on that stream: 6
    warm-up and 8 timed slides (updates/s, rounds a slide by kind, scans by
-   reason, syncs a slide, rebuilds), peak memory, one slide under the
+   reason, counts of the frontier and host reads a slide, rebuilds), peak
+   memory, one slide under the
    profiler, the exact-PPR contract on 16 sampled sources, and
    ``FastStreamDriver`` timed the same way on the same stream (both rates
    and their ratio; at one head the two states within 1e-5 settled, and
@@ -192,8 +199,13 @@ round trip. Phases, one line each:
    ``worklist=False`` on a small stream (N=20k, W=200k, b=4k, S=16) whose
    scan rounds run sparse, held to the contract and to the worklist
    driver; 16e ``stream --engine hybrid`` in both modes on phase 13's file
-   and ``retrieve --from-checkpoint`` on the forward stream's file. Every
-   hybrid path must launch no kernel (no segment-sum entry, no row pass).
+   and ``retrieve --from-checkpoint`` on the forward stream's file (no
+   loop: it reads the loaded state's top-k). Every hybrid loop on the card
+   must be one loop graph launch and one read of its carry
+   (``loop_tally``, the host loop refused), and every path that runs loops
+   must launch K4's prime and turn, and K3 where a scan or a count ran, K1
+   and K2 where a dense scan ran (``check_hybrid_launched``); 16c's loops
+   without a worklist must run a sparse scan arm, as their carries count.
 
 Then a JSON line of the kernels, the segment sum's two entries, the two
 row passes and K4's three steps (``launches``: the main path's, phases 4 to
@@ -259,7 +271,7 @@ from pprx_torch.device import require_cuda
 from pprx_torch.dist.mesh import all_to_all_rows, gather_stats, make_row_mesh, reduce_scatter_rows
 from pprx_torch.dist.retrieve import make_sharded_topk
 from pprx_torch.dist.stream import ShardedStreamDriver
-from pprx_torch.engine import graphs, loop, rowpass, segsum, sparse
+from pprx_torch.engine import graphs, loop, rowpass, segsum
 from pprx_torch.engine.graphs import RoundGraphs, copy_into_
 from pprx_torch.engine.segsum import (
     row_offsets,
@@ -275,6 +287,7 @@ from pprx_torch.engine.rowpass import (
     scan_pass_,
     scan_pass_plain,
 )
+from pprx_torch.engine.sparse import arm_kinds
 from pprx_torch.engine.state import FORWARD, REVERSE, PprState, settled_distance
 from pprx_torch.engine.update import apply_edge_batch, edge_blocks
 from pprx_torch.engine.wl2 import loop_table
@@ -901,9 +914,18 @@ K4_SHARDED = dataclasses.replace(K4_TABLE, emit=(1001,) * 3, rule=loop.SHARDED)
 # ladder, whose top tier takes any list: arms the tiers 0-2, the drain 3 and
 # the rescan 4; no stats-skip
 K4_PROPORTIONAL = dataclasses.replace(K4_SHARDED, heavy_ew=0, rule=loop.PROPORTIONAL)
+# the hybrid rule (the hybrid engine's worklist loop) on the same ladder:
+# arms the tiers 0-2, the scan tiers 3-5, the dense scan 6 and the count 7;
+# a sparse scan is worth it where its frontier's edges are at most
+# 10,000 / 2 - 100 = 4900
+K4_HYBRID = loop.hybrid_table(K4_TABLE.tiers, ((8, 32), (64, 512), (1001, 8192)), 100, 10_000)
+# and its loop without a worklist: the scan 0, the dense scan 1, the count 2
+K4_NOWL = loop.hybrid_table((), ((1001, 8192),), 100, 10_000)
 # (name, step, the case's slots, counts: cn, fed, fre, n_active, edge_work)
 # under K4_TABLE; the sharded_* cases under K4_SHARDED, the dense_* cases
-# under loop.DENSE_TABLE, the prop_* cases under K4_PROPORTIONAL (k4_table)
+# under loop.DENSE_TABLE, the prop_* cases under K4_PROPORTIONAL, the
+# hybrid_* cases under K4_HYBRID and the nowl_* cases under K4_NOWL
+# (k4_table)
 K4_CASES = (
     # prime: an invalid list, an empty valid one, a valid one, no rounds
     ("prime_invalid_list", "prime", {loop.C0OK: 0}, (5, 10, 1, 0, 0)),
@@ -1042,16 +1064,94 @@ K4_CASES = (
     ("prop_turn_reaches_max_rounds", "turn", {loop.PENDING: 1, loop.BRANCH: 0, loop.ROUNDS: 5},
      (1, 1, 1, 9, 10, 0)),
     ("prop_turn_nothing_pending", "turn", {loop.GO: 1, loop.OK: 0}, _Z6),
+    # the hybrid rule (K4_HYBRID; counts: cn, fed, fre, n_active, edge_work,
+    # the first list's validity on the device): a valid list goes while it
+    # has a candidate; without one the prologue's count (rows, edges in
+    # the n_active and edge_work slots) is the first scan's; a list that
+    # overflowed its buffer is counted first
+    ("hybrid_prime_valid_list", "prime", {loop.C0OK: 1}, (3, 9, 2, 0, 0, 1)),
+    ("hybrid_prime_empty_list", "prime", {loop.C0OK: 1}, (0, 0, 0, 0, 0, 1)),
+    ("hybrid_prime_counted", "prime", {loop.C0OK: 0}, (0, 0, 0, 5, 70, 0)),
+    ("hybrid_prime_counted_converged", "prime", {loop.C0OK: 0}, _Z6),
+    ("hybrid_prime_list_overflowed", "prime", {loop.C0OK: 1}, (256, 900, 30, 0, 0, 0)),
+    ("hybrid_prime_no_rounds", "prime", {loop.C0OK: 1, loop.MAX_ROUNDS: 0},
+     (3, 9, 2, 0, 0, 1)),
+    # a valid list that fits takes its tier; a scan counts first where the
+    # frontier is not known (XN -1), else takes the smallest scan tier
+    # that holds it where worth it, else the dense scan
+    ("hybrid_decide_tier0", "decide", {loop.CN: 8, loop.FED: 32, loop.FRE: 4, loop.XN: -1},
+     _Z6),
+    ("hybrid_decide_fed_skips_tier1", "decide", {loop.CN: 9, loop.FED: 600, loop.FRE: 0,
+                                                 loop.XN: -1}, _Z6),
+    ("hybrid_decide_count_past_top", "decide", {loop.CN: 257, loop.XN: -1}, _Z6),
+    ("hybrid_decide_count_invalid_list", "decide", {loop.OK: 0, loop.XN: -1}, _Z6),
+    ("hybrid_decide_scan_tier0", "decide", {loop.OK: 0, loop.XN: 8, loop.XF: 32}, _Z6),
+    ("hybrid_decide_scan_tier1", "decide", {loop.OK: 0, loop.XN: 9, loop.XF: 32}, _Z6),
+    ("hybrid_decide_worth_border", "decide", {loop.OK: 0, loop.XN: 5, loop.XF: 4900}, _Z6),
+    ("hybrid_decide_not_worth", "decide", {loop.OK: 0, loop.XN: 5, loop.XF: 4901}, _Z6),
+    ("hybrid_decide_rows_past_top", "decide", {loop.OK: 0, loop.XN: 1002, loop.XF: 10}, _Z6),
+    ("hybrid_decide_valid_list_over_top_edges", "decide", {
+        loop.CN: 40, loop.FED: 3000, loop.FRE: 5, loop.XN: 40, loop.XF: 3000}, _Z6),
+    ("hybrid_decide_past_the_log", "decide", {loop.ROUNDS: loop.LOG_CAP, loop.XN: -1}, _Z6),
+    # a tier's list within and past its own w; scans tally their reasons on
+    # the counts that sent them there, then the reseed's exact counts; a
+    # count is not a round, and before any round from an invalid list it
+    # stands for the prime
+    ("hybrid_tally_tier_list", "tally", {loop.BRANCH: 0, loop.XN: -1}, (8, 100, 3, 12, 400, 0)),
+    ("hybrid_tally_tier_cut", "tally", {loop.BRANCH: 0, loop.XN: -1}, (9, 100, 3, 12, 400, 0)),
+    ("hybrid_tally_top_tier_cut", "tally", {loop.BRANCH: 2, loop.XN: -1},
+     (300, 100, 3, 12, 400, 0)),
+    ("hybrid_tally_sparse_scan", "tally", {loop.BRANCH: 4, loop.OK: 0, loop.CN: 257,
+                                           loop.FED: 3000, loop.FRE: 70, loop.XN: 40,
+                                           loop.XF: 50}, (30, 200, 5, 9, 100, 0)),
+    ("hybrid_tally_dense_scan", "tally", {loop.BRANCH: 6, loop.CN: 10, loop.FED: 3000,
+                                          loop.FRE: 1, loop.XN: 10, loop.XF: 3000},
+     (300, 9000, 70, 50, 800, 0)),
+    ("hybrid_tally_count", "tally", {loop.BRANCH: 7, loop.GO: 1, loop.OK: 0, loop.CN: 257,
+                                     loop.FED: 3000, loop.FRE: 70, loop.XN: -1},
+     (0, 0, 0, 40, 50, 0)),
+    ("hybrid_tally_prime_count", "tally", {loop.BRANCH: 7, loop.GO: 1, loop.ROUNDS: 0,
+                                           loop.OK: 0, loop.XN: -1}, (0, 0, 0, 12, 90, 0)),
+    ("hybrid_tally_prime_count_converged", "tally", {loop.BRANCH: 7, loop.GO: 1,
+                                                     loop.ROUNDS: 0, loop.OK: 0, loop.XN: -1},
+     _Z6),
+    ("hybrid_tally_reaches_max_rounds", "tally", {loop.BRANCH: 0, loop.ROUNDS: 5, loop.XN: -1},
+     (1, 1, 1, 9, 10, 0)),
+    ("hybrid_tally_no_active", "tally", {loop.BRANCH: 3, loop.XN: 5, loop.XF: 5}, _Z6),
+    # turns: a tier that cut its list, then a count; a count, then its
+    # scan; the prime's count that finds no row ends the loop; a scan whose
+    # reseed fits a tier; the loop's first turn
+    ("hybrid_turn_tier_then_count", "turn", {loop.PENDING: 1, loop.BRANCH: 0, loop.XN: -1},
+     (300, 100, 3, 12, 400, 0)),
+    ("hybrid_turn_count_then_scan", "turn", {loop.PENDING: 1, loop.BRANCH: 7, loop.GO: 1,
+                                             loop.OK: 0, loop.CN: 257, loop.FED: 100,
+                                             loop.FRE: 3, loop.XN: -1}, (0, 0, 0, 40, 50, 0)),
+    ("hybrid_turn_prime_count_ends", "turn", {loop.PENDING: 1, loop.BRANCH: 7, loop.GO: 1,
+                                              loop.ROUNDS: 0, loop.OK: 0, loop.XN: -1}, _Z6),
+    ("hybrid_turn_scan_then_tier", "turn", {loop.PENDING: 1, loop.BRANCH: 3, loop.OK: 0,
+                                            loop.XN: 8, loop.XF: 32}, (6, 20, 2, 9, 50, 0)),
+    ("hybrid_turn_nothing_pending", "turn", {loop.GO: 1, loop.OK: 0, loop.XN: 8, loop.XF: 32},
+     _Z6),
+    # the loop without a worklist (K4_NOWL): every round a scan, sparse or
+    # dense, from the exact counts each leaves; no reasons
+    ("nowl_prime_counted", "prime", {loop.C0OK: 0}, (0, 0, 0, 5, 70, 0)),
+    ("nowl_decide_sparse", "decide", {loop.OK: 0, loop.XN: 5, loop.XF: 70}, _Z6),
+    ("nowl_decide_dense", "decide", {loop.OK: 0, loop.XN: 1002, loop.XF: 70}, _Z6),
+    ("nowl_tally_scan", "tally", {loop.BRANCH: 0, loop.OK: 0, loop.XN: 5, loop.XF: 70},
+     (4, 60, 0, 9, 100, 0)),
+    ("nowl_turn_scan_then_dense", "turn", {loop.PENDING: 1, loop.BRANCH: 0, loop.OK: 0,
+                                           loop.XN: 5, loop.XF: 70}, (2000, 100, 0, 9, 100, 0)),
 )
 
 
 def k4_table(case) -> loop.Table:
     """The table a case of ``K4_CASES`` runs under: the sharded rule's for
     a case named ``sharded_*``, the dense rule's for ``dense_*``, the
-    proportional rule's for ``prop_*``."""
+    proportional rule's for ``prop_*``, the hybrid rule's for ``hybrid_*``
+    and, without a worklist, for ``nowl_*``."""
     rule = case[0].split("_")[0]
-    return {"sharded": K4_SHARDED, "dense": loop.DENSE_TABLE,
-            "prop": K4_PROPORTIONAL}.get(rule, K4_TABLE)
+    return {"sharded": K4_SHARDED, "dense": loop.DENSE_TABLE, "prop": K4_PROPORTIONAL,
+            "hybrid": K4_HYBRID, "nowl": K4_NOWL}.get(rule, K4_TABLE)
 
 
 def k4_case(case) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1084,6 +1184,8 @@ def k4_launch(case) -> tuple[str, torch.Tensor, torch.Tensor]:
 # tallies a round and decides the next, with no round cap in reach
 K4_TIMED = {"prime": "prime_valid_list", "turn": "turn_tier_then_tier",
             "after_scan": "after_scan_light"}
+# and under the hybrid rule (no after_scan): a scan's tally, then a tier
+K4_TIMED_HYBRID = {"prime": "hybrid_prime_valid_list", "turn": "hybrid_turn_scan_then_tier"}
 
 
 def check_k4(dev) -> dict:
@@ -1096,10 +1198,13 @@ def check_k4(dev) -> dict:
     of a captured graph of 64 of its launches (``graph_ms``: what a loop
     graph's node of it costs, against ``graph_kernel_floor_ms``), its plain
     step's host time, and its bound from the bytes a step moves (the
-    carry's head read and written, the counts read, a log row written). Then
-    ``loop_overhead``: what a loop graph's round costs the device beyond
-    its kernels, and a kernel node inside its body against one in a
-    top-level graph."""
+    carry's head read and written, the counts read, a log row written);
+    ``prime`` and ``turn`` again under the hybrid rule (``hybrid_prime``,
+    ``hybrid_turn``). Then ``loop_overhead``: what a loop graph's round
+    costs the device beyond its kernels, and a kernel node inside its body
+    against one in a top-level graph; then the loop graphs of the dense,
+    proportional and hybrid rules' fill-kernel arms against the host
+    loop."""
     res = {"versions": loop.versions(), "cases": len(K4_CASES)}
     choices, errs = {}, {step: 0 for step in loop.STEPS}
     for case in K4_CASES:
@@ -1117,29 +1222,31 @@ def check_k4(dev) -> dict:
         choices[name] = [int(got[i]) for i in (loop.BRANCH, loop.STATS, loop.GO, loop.PENDING)]
         errs[step] = max(errs[step], int((got - want).abs().max()))
     res["choices"] = choices
-    n_bytes = 2 * loop.HEAD * 8 + 5 * 8 + loop.LOG_W * 8
     cases = {case[0]: case for case in K4_CASES}
-    for step in loop.STEPS:
-        _, carry, counts = k4_launch(cases[K4_TIMED[step]])
-        carry[loop.MAX_ROUNDS] = 1 << 40
-        plain_carry = carry.clone()
-        carry, counts_dev = carry.to(dev), counts.to(dev)
-        ms = in_turns({step: lambda: loop.step_(step, carry, counts_dev, K4_TABLE)})[step]
-        nodes = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(nodes):
-            for _ in range(64):
-                loop.step_(step, carry, counts_dev, K4_TABLE)
-        graph_ms = cuda_ms(nodes.replay) / 64
-        t0 = time.perf_counter()
-        for _ in range(200):
-            loop.step_(step, plain_carry, counts, K4_TABLE)
-        b_ms, b_by = bound_ms(n_bytes, 0)
-        res[step] = {"ms": ms, "graph_ms": graph_ms,
-                     "plain_ms": (time.perf_counter() - t0) * 1e3 / 200,
-                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs[step]}
+    for tag, table, timed in (("", K4_TABLE, K4_TIMED), ("hybrid_", K4_HYBRID, K4_TIMED_HYBRID)):
+        n_bytes = 2 * loop.HEAD * 8 + table.n_counts * 8 + loop.LOG_W * 8
+        for step, name in timed.items():
+            _, carry, counts = k4_launch(cases[name])
+            carry[loop.MAX_ROUNDS] = 1 << 40
+            plain_carry = carry.clone()
+            carry, counts_dev = carry.to(dev), counts.to(dev)
+            ms = in_turns({step: lambda: loop.step_(step, carry, counts_dev, table)})[step]
+            nodes = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(nodes):
+                for _ in range(64):
+                    loop.step_(step, carry, counts_dev, table)
+            graph_ms = cuda_ms(nodes.replay) / 64
+            t0 = time.perf_counter()
+            for _ in range(200):
+                loop.step_(step, plain_carry, counts, table)
+            b_ms, b_by = bound_ms(n_bytes, 0)
+            res[f"{tag}{step}"] = {"ms": ms, "graph_ms": graph_ms,
+                                   "plain_ms": (time.perf_counter() - t0) * 1e3 / 200,
+                                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": errs[step]}
     res.update(loop_overhead(dev))
     res["dense_loops"] = dense_loop_check(dev)
     res["prop_loops"] = prop_loop_check(dev)
+    res["hybrid_loops"] = hybrid_loop_check(dev)
     return res
 
 
@@ -1261,6 +1368,73 @@ def prop_loop_check(dev) -> dict:
     return res
 
 
+# the hybrid rule's loop of fill-kernel arms: the tier 0, the scan 1, the
+# dense scan 2, the count 3; a sparse scan is always worth it
+HYBRID_FILL_TABLE = loop.hybrid_table(((8, 32, 4),), ((8, 32),), 0, 1000)
+
+
+def hybrid_fill(g: RoundGraphs, c0v: int, first: int, count: int) -> tuple:
+    """A hybrid loop's prologue and arms as fill kernels on ``g``'s counts
+    under ``HYBRID_FILL_TABLE``: the prologue leaves a list of one row
+    (valid where ``c0v``) and a first count of ``first`` rows and edges; a
+    tier round marks 9 rows, past its own 8 (the list is cut: a count, then
+    a scan, follows), a count finds ``count`` rows and edges, and a scan
+    reseeds a list of one row, valid; every round leaves an active pair, so
+    that a loop that starts runs to its cap."""
+    c = g.counts
+
+    def prologue():
+        c[:3].fill_(1)
+        c[3:5].fill_(first)
+        c[loop.C0V:].fill_(c0v)
+
+    def tier():
+        c[:1].fill_(9)
+        c[1:5].fill_(1)
+
+    return (("first", c0v, first), prologue), [
+        ("tier", tier), ("scan", lambda: c[:5].fill_(1)), ("dense", lambda: c[:5].fill_(1)),
+        (("count", count), lambda: c[3:5].fill_(count))]
+
+
+# (c0ok, the list's validity, first count, count, max_rounds) of the hybrid
+# loops phase 3c runs, and the executions of each arm: a valid list (a tier,
+# then a count and a scan, in turn, to the cap), the state's first count (a
+# scan first), a first count of 0 (no round), a list that overflowed (a
+# count first, standing for the prime), one whose count finds no row (no
+# round), no round allowed
+HYBRID_FILL_LOOPS = (((True, 1, 0, 1, 5), [3, 2, 0, 2]), ((False, 0, 1, 1, 3), [1, 2, 0, 1]),
+                     ((False, 0, 0, 1, 3), [0, 0, 0, 0]), ((True, 0, 0, 1, 4), [2, 2, 0, 2]),
+                     ((True, 0, 0, 0, 4), [0, 0, 0, 1]), ((True, 1, 0, 1, 0), [0, 0, 0, 0]))
+
+
+def hybrid_loop_check(dev) -> dict:
+    """Loop graphs of the hybrid rule (``hybrid_fill`` arms: a worklist
+    tier, a sparse scan, the dense scan and the count, no stats) on the card
+    against the host loop of the same arms on the CPU: the whole carry
+    equal, each arm's executions, K4's launches prime 1 and turn R + C + 1
+    for R rounds and C counts (none where prime stops the loop) and no
+    after_scan, one read."""
+    res = {}
+    for (c0ok, c0v, first, count, max_rounds), execs in HYBRID_FILL_LOOPS:
+        got = {}
+        for where in (dev, torch.device("cpu")):
+            g = RoundGraphs(8, 8, where, n_counts=loop.N_COUNTS)
+            before = dict(loop.LAUNCHES)
+            pro, arms = hybrid_fill(g, c0v, first, count)
+            values, reads = g.loop(pro, arms, HYBRID_FILL_TABLE, c0ok, max_rounds)
+            got[where.type] = (values, reads, {k: loop.LAUNCHES[k] - before[k] for k in before})
+        (values, reads, k4), (want, _, _) = got[dev.type], got["cpu"]
+        steps = values[loop.ROUNDS] + values[loop.EXECS + 3]
+        tag = f"ok{int(c0ok)}_valid{c0v}_first{first}_count{count}_{max_rounds}_rounds"
+        if values != want or reads != 1 or values[loop.EXECS:loop.EXECS + 4] != execs or k4 != {
+                "prime": 1, "turn": steps + 1 if steps else 0, "after_scan": 0}:
+            raise AssertionError(f"a hybrid loop ({tag}) left {values[:loop.HEAD]} ({reads} "
+                                 f"reads, K4 {k4}) where the host loop left {want[:loop.HEAD]}")
+        res[tag] = {"rounds": values[loop.ROUNDS], "execs": execs}
+    return res
+
+
 def loop_overhead(dev, rounds: int = 257, wide: int = 21) -> dict:
     """A loop of ``fill_branches``: its device time a round (launches of
     ``rounds`` and of 1, by CUDA events) with one kernel in the tier's
@@ -1301,7 +1475,7 @@ def check_round_logs() -> dict:
     returns the loops and rounds checked, and the rounds not logged."""
     loops = rounds = unlogged = 0
     for rec in graphs.LOG_SINK:
-        made = [(row[0], row[7]) for row in rec["rows"]]
+        made = loop.logged(rec["rows"], rec["table"])
         if loop.replay_log(rec["rows"], rec["table"], rec["max_rounds"]) != made:
             raise AssertionError(f"a loop's branches differ from the plain steps' on its "
                                  f"logged counts: {rec['rows'][:4]}")
@@ -2556,26 +2730,49 @@ def environ(**env):
 
 
 @contextlib.contextmanager
-def scan_kinds():
-    """Counts of the hybrid engine's scan rounds by kind while the block
-    runs: ``sparse`` (a frontier round at a capacity tier) and ``dense``
-    (the COO round), read from the calls ``sparse._tiered_round`` makes."""
-    kinds = {"sparse": 0, "dense": 0}
-    own = {k: getattr(sparse, k) for k in ("sparse_round_given_act", "push_round_given_act")}
+def loop_tally():
+    """While this holds, the hybrid engine's convergence loops
+    (``RoundGraphs.loop`` under ``loop.HYBRID``) are counted: ``loops``,
+    the loop graph launches and the host's reads they took (on the card
+    one each a loop), their rounds, and their arms' executions by kind
+    (``sparse.arm_kinds``); ``other_loops`` counts the loops of other
+    rules."""
+    tally = {"loops": 0, "loop_graph_launches": 0, "reads": 0, "rounds": 0, "other_loops": 0,
+             "arms": {"wl": 0, "sparse": 0, "dense": 0, "count": 0}}
+    run = RoundGraphs.loop
 
-    def counted(kind, fn):
-        def call(*a, **kw):
-            kinds[kind] += 1
-            return fn(*a, **kw)
-        return call
+    def counted(g, prologue, branches, table, c0ok, max_rounds):
+        before = g.loop_launches
+        values, reads = run(g, prologue, branches, table, c0ok, max_rounds)
+        if not table.hybrid:
+            tally["other_loops"] += 1
+            return values, reads
+        tally["loops"] += 1
+        tally["loop_graph_launches"] += g.loop_launches - before
+        tally["reads"] += reads
+        tally["rounds"] += values[loop.ROUNDS]
+        for kind in tally["arms"]:
+            tally["arms"][kind] += arm_kinds(table, values)[kind]
+        return values, reads
 
-    sparse.sparse_round_given_act = counted("sparse", own["sparse_round_given_act"])
-    sparse.push_round_given_act = counted("dense", own["push_round_given_act"])
+    RoundGraphs.loop = counted
     try:
-        yield kinds
+        yield tally
     finally:
-        for k, fn in own.items():
-            setattr(sparse, k, fn)
+        RoundGraphs.loop = run
+
+
+def hybrid_loops(tally: dict, cuda: bool) -> dict:
+    """A path's hybrid loops (``loop_tally``): at least one ran, and on the
+    card each was one loop graph launch and one read of its carry (the host
+    loop refused, ``no_host_loop``)."""
+    if tally["loops"] <= 0:
+        raise AssertionError(f"no hybrid loop ran: {tally}")
+    if cuda and not tally["loop_graph_launches"] == tally["reads"] == tally["loops"]:
+        raise AssertionError(f"{tally['loops']} hybrid loops ran as "
+                             f"{tally['loop_graph_launches']} loop graph launches and "
+                             f"{tally['reads']} reads")
+    return {**tally, "reads_per_loop": tally["reads"] / tally["loops"]}
 
 
 def hybrid_bench(dev, **env) -> dict:
@@ -2587,9 +2784,11 @@ def hybrid_bench(dev, **env) -> dict:
     (``maintained_precision`` in 16a puts the fast driver's beside it).
     ``env``: more ``PPRX_BENCH_*`` settings."""
     reset_launches()
-    with environ(PPRX_BENCH_ENGINE="hybrid", **{f"PPRX_BENCH_{k}": v for k, v in env.items()}):
+    with environ(PPRX_BENCH_ENGINE="hybrid", **{f"PPRX_BENCH_{k}": v for k, v in env.items()}), \
+            loop_tally() as tally, no_host_loop(dev):
         out = headline.run(dev)
     out["launches_by_entry"] = launches_by_entry()
+    out["loops"] = hybrid_loops(tally, dev.type == "cuda")
     if (out["config"]["engine"] != "hybrid" or len(out["blocks"]) != 1
             or not out["l1_vs_exact_mean"] <= out["l1_bound_eps_E"]
             or out["impl"] != "pprx_torch"):
@@ -2600,9 +2799,10 @@ def hybrid_bench(dev, **env) -> dict:
 def hybrid_timed(drv: HybridStreamDriver, warmup: int, steps: int) -> dict:
     """Seed, warm up, then time ``steps`` slides of a hybrid driver (host
     clock around a device sync): updates/s, rounds a slide and their kinds
-    (worklist rounds; scans by reason: candidate list, edge bound,
-    live-overlay bound; sparse and dense scans), syncs a slide, snapshot
-    rebuilds in the timed slides."""
+    (worklist rounds, sparse and dense scans; scans by reason: candidate
+    list, edge bound, live-overlay bound), the frontier's counts a slide
+    (the count arm, not a round), the host's reads of a loop's counts a
+    slide (``syncs``), snapshot rebuilds in the timed slides."""
     dev, b = drv.device, drv.scfg.slide
     t0 = time.perf_counter()
     seed = drv.seed()
@@ -2610,24 +2810,25 @@ def hybrid_timed(drv: HybridStreamDriver, warmup: int, steps: int) -> dict:
     seed_s = time.perf_counter() - t0
     list(drv.run(warmup))
     sync(dev)
-    stats, rebuilds, snap = [], 0, drv.graph.snap
-    with scan_kinds() as kinds:
-        t0 = time.perf_counter()
-        for st in drv.run(steps):
-            stats.append(st)
-            rebuilds += drv.graph.snap is not snap
-            snap = drv.graph.snap
-        sync(dev)
-        wall = time.perf_counter() - t0
-    if len(stats) != steps:
-        raise AssertionError(f"stream ran {len(stats)} of {steps} slides")
+    stats, rebuilds, it = [], 0, drv.run(steps)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        rebuilds += drv.ov_count + 2 * b > drv.graph.ov.src.shape[0]
+        stats.append(next(it))
+    sync(dev)
+    wall = time.perf_counter() - t0
     per = {f"{k}_per_slide": sum(getattr(st, k) for st in stats) / steps
            for k in ("rounds", "wl_rounds", "scans_cand", "scans_fed", "scans_liv", "syncs")}
+    kinds = {f"{k}_per_slide": sum(st.arms[k] for st in stats) / steps
+             for k in ("sparse", "dense", "count")}
+    by_tier = [sum(ex) / steps for ex in zip(*(st.arms["sparse_by_tier"] for st in stats))]
     return {"updates_per_s": 2 * b * steps / wall, "wall_s": wall, "seed_s": seed_s,
-            "seed_rounds": seed.rounds, "warmup": warmup, "steps": steps, **per,
-            "rounds": [st.rounds for st in stats],
-            "sparse_scans_per_slide": kinds["sparse"] / steps,
-            "dense_scans_per_slide": kinds["dense"] / steps, "rebuilds": rebuilds,
+            "seed_rounds": seed.rounds, "seed_arms": seed.arms, "warmup": warmup,
+            "steps": steps, **per, "rounds": [st.rounds for st in stats],
+            "sparse_scans_per_slide": kinds["sparse_per_slide"],
+            "dense_scans_per_slide": kinds["dense_per_slide"],
+            "counts_per_slide": kinds["count_per_slide"],
+            "sparse_scans_by_tier_per_slide": by_tier, "rebuilds": rebuilds,
             "edge_pushes_per_s": sum(st.edge_pushes for st in stats) / wall}
 
 
@@ -2655,12 +2856,16 @@ def hybrid_forward(dev, n: int, w: int, b: int, s: int, warmup: int = 6, steps: 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     drv = HybridStreamDriver(src, dst, n, list(range(s)), cfg, scfg, device=dev)
-    res = {"n": n, "window": w, "slide": b, "sources": s, "rebuild_every": drv.rebuild_every,
-           "tiers": [list(t) for t in drv.tiers], "fcap": drv.fcap, "scan_ecap": drv.scan_ecap,
-           "overlay_cap": int(drv.graph.ov.src.shape[0]), **hybrid_timed(drv, warmup, steps),
-           "peak_mem_gib": peak_gib(dev)}
-    if prof_steps:
-        res["profile"] = profile_slides(drv, prof_steps)
+    with loop_tally() as tally, no_host_loop(dev):
+        res = {"n": n, "window": w, "slide": b, "sources": s,
+               "rebuild_every": drv.rebuild_every, "tiers": [list(t) for t in drv.tiers],
+               "fcap": drv.fcap, "scan_ecap": drv.scan_ecap,
+               "overlay_cap": int(drv.graph.ov.src.shape[0]), **hybrid_timed(drv, warmup, steps),
+               "peak_mem_gib": peak_gib(dev)}
+        if prof_steps:
+            res["profile"] = profile_slides(drv, prof_steps)
+    res["loops"] = hybrid_loops(tally, dev.type == "cuda")
+    res["graphs"] = drv.round_graphs.summary()
     res["launches_by_entry"] = launches_by_entry()
     res["contract"] = exact_contract(window_of(drv, range(s)), None, 0, n_check, cfg.eps * w)
     fast = FastStreamDriver(src, dst, n, list(range(s)), cfg, scfg, rebuild_every=every,
@@ -2711,8 +2916,10 @@ def hybrid_reverse(dev, n: int, w: int, b: int, s: int, warmup: int = 2, steps: 
         torch.cuda.reset_peak_memory_stats()
     drv = HybridStreamDriver(src, dst, n, list(range(s)), cfg, StreamConfig(window=w, slide=b),
                              mode=REVERSE, device=dev)
-    res = {"n": n, "window": w, "slide": b, "targets": s, **hybrid_timed(drv, warmup, steps),
-           "peak_mem_gib": peak_gib(dev), "launches_by_entry": launches_by_entry()}
+    with loop_tally() as tally, no_host_loop(dev):
+        res = {"n": n, "window": w, "slide": b, "targets": s, **hybrid_timed(drv, warmup, steps),
+               "peak_mem_gib": peak_gib(dev), "launches_by_entry": launches_by_entry()}
+    res["loops"] = hybrid_loops(tally, dev.type == "cuda")
     res["contract"] = reverse_contract(window_of(drv, range(s)), cfg.eps, n_check=n_check)
     return res
 
@@ -2724,21 +2931,25 @@ def hybrid_no_worklist(dev, n: int = 20_000, w: int = 200_000, b: int = 4000, s:
     (seed 3) whose overlay is small beside the window, with the counts set
     to 0 before it: seed and ``steps`` slides, the exact-PPR contract, and
     the worklist driver on the same stream within 1e-5 in
-    ``settled_distance``. Must run sparse scan rounds."""
+    ``settled_distance``. Must run sparse scan arms, as the loops' carries
+    count them (``scan_kinds``: each driver's arms by kind)."""
     src, dst, n = synthetic_powerlaw_stream(n, w + (steps + 1) * b, seed=3)
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
     scfg = StreamConfig(window=w, slide=b)
     reset_launches()
     res, drivers = {"n": n, "window": w, "slide": b, "sources": s}, {}
-    for wl in (False, True):
-        drv = HybridStreamDriver(src, dst, n, list(range(s)), cfg, scfg, worklist=wl,
-                                 device=dev)
-        with scan_kinds() as kinds:
-            rounds = [drv.seed().rounds] + [st.rounds for st in drv.run(steps)]
-        sync(dev)
-        tag = "worklist" if wl else "no_worklist"
-        res[f"{tag}_rounds"], res[f"{tag}_scan_kinds"] = rounds, kinds
-        drivers[wl] = drv
+    with loop_tally() as tally, no_host_loop(dev):
+        for wl in (False, True):
+            drv = HybridStreamDriver(src, dst, n, list(range(s)), cfg, scfg, worklist=wl,
+                                     device=dev)
+            stats = [drv.seed(), *drv.run(steps)]
+            sync(dev)
+            tag = "worklist" if wl else "no_worklist"
+            res[f"{tag}_rounds"] = [st.rounds for st in stats]
+            res[f"{tag}_scan_kinds"] = {k: sum(st.arms[k] for st in stats)
+                                        for k in ("wl", "sparse", "dense", "count")}
+            drivers[wl] = drv
+    res["loops"] = hybrid_loops(tally, dev.type == "cuda")
     res["launches_by_entry"] = launches_by_entry()
     res["contract"] = exact_contract(window_of(drivers[False], range(s)), None, 0, n_check,
                                      cfg.eps * w)
@@ -2771,9 +2982,11 @@ def hybrid_checkpoint_check(drv: HybridStreamDriver, n_check: int, l1_bound: flo
             drv.step_idx) or twin.ov_count != 0
             or any(getattr(twin, a) != getattr(drv, a) for a in HYBRID_TUNING)):
         raise AssertionError("the loaded hybrid driver is not where the saved one was")
-    rounds = [[st.rounds for st in d.run(2)] for d in (drv, twin)]
+    with loop_tally() as tally, no_host_loop(dev):
+        rounds = [[st.rounds for st in d.run(2)] for d in (drv, twin)]
     if any(len(r) != 2 for r in rounds):
         raise AssertionError("no 2 slides left in the stream")
+    loops = hybrid_loops(tally, dev.type == "cuda")
     sync(dev)
     diff = settled_distance(drv.state, twin.state, drv.cfg.alpha)
     if diff > 1e-5:
@@ -2787,6 +3000,7 @@ def hybrid_checkpoint_check(drv: HybridStreamDriver, n_check: int, l1_bound: flo
             "max_abs_dp": float((drv.state.p - twin.state.p).abs().max()),
             "l1_max": [c["l1_max"] for c in contracts],
             "mass_err_max": [c["mass_err_max"] for c in contracts],
+            "loops": loops, "twin_graphs": twin.round_graphs.summary(),
             "launches_by_entry": launches_by_entry()}
 
 
@@ -2802,13 +3016,18 @@ def hybrid_cli(dev, tmp: str, graph: str, w: int, b: int, s: int, k: int = 100) 
     res = {}
     for path, extra in zip(HYBRID_CLI_PATHS[:2], (["--checkpoint", ck, "--checkpoint-every", "4"],
                                                   ["--mode", "rev"])):
-        out = run_cli(["stream", graph, *shape, *qs, *extra, "--log",
-                       os.path.join(tmp, f"{path}.jsonl"), "--device", str(dev)])
+        with loop_tally() as tally, no_host_loop(dev):
+            out = run_cli(["stream", graph, *shape, *qs, *extra, "--log",
+                           os.path.join(tmp, f"{path}.jsonl"), "--device", str(dev)])
         if out["steps"] != 4 or out["updates_per_sec"] <= 0 or out["rounds"] <= 0:
             raise AssertionError(f"{path}: {out}")
+        out["loops"] = hybrid_loops(tally, dev.type == "cuda")
         res[path] = out
-    out = run_cli(["retrieve", graph, "--from-checkpoint", ck, "--k", str(k), "--device",
-                   str(dev)])
+    with loop_tally() as tally:
+        out = run_cli(["retrieve", graph, "--from-checkpoint", ck, "--k", str(k), "--device",
+                       str(dev)])
+    if tally["loops"] or any(out["launches_by_entry"].values()):
+        raise AssertionError(f"retrieve --from-checkpoint pushed: {tally}, {out}")
     if out["batch"] != min(s, n_graph) or out["k"] != k or out["queries_known"]:
         raise AssertionError(f"retrieve --from-checkpoint on a hybrid file: {out}")
     res["cli_retrieve_hybrid"] = out
@@ -2816,13 +3035,23 @@ def hybrid_cli(dev, tmp: str, graph: str, w: int, b: int, s: int, k: int = 100) 
     return res
 
 
-def check_no_launch(by_path: dict) -> dict:
-    """Every path named launched no kernel (no segment-sum entry, no row
-    pass): it runs plain torch ops."""
-    for path, counts in by_path.items():
-        if any(counts.values()):
-            raise AssertionError(f"{path} runs plain torch ops but launched {counts}")
-    return by_path
+def check_hybrid_launched(runs: dict) -> dict:
+    """Every hybrid path named (its ``launches_by_entry`` and its loops'
+    arms, ``loops["arms"]``, both counted from one reset) launched K4's
+    prime and turn; where a dense scan ran, K1's gather entry and K2; where
+    a scan or a count of the frontier ran, K3. Returns path -> launches."""
+    out = {}
+    for path, (counts, arms) in runs.items():
+        need = ["loop_prime", "loop_turn"]
+        if arms["dense"]:
+            need += ["segsum_gather_add", "scan_pass"]
+        if arms["sparse"] + arms["dense"] + arms["count"]:
+            need.append("frontier_rows")
+        missing = [e for e in need if counts[e] <= 0]
+        if missing:
+            raise AssertionError(f"{path} ran {arms} and never launched {missing}: {counts}")
+        out[path] = counts
+    return out
 
 
 def check_dense_row_passes(runs: dict) -> dict:
@@ -2951,10 +3180,12 @@ def loop_entry(step: str, k4: dict, launches: dict) -> dict:
                     "tiers and its lax.cond (pprx/engine/wl2.py:617-687), of the sharded wl "
                     "engine at 1x1 (pprx/dist/wl.py:954-1025) and its memory-proportional "
                     "loop (pprx/dist/wl.py:1177-1214), of the dense engine's "
-                    "push_to_convergence (pprx/engine/push.py:94-119) and of the sharded "
-                    "dense engine at 1x1 (pprx/dist/sharded.py:378-398); no pl.pallas_call",
+                    "push_to_convergence (pprx/engine/push.py:94-119), of the sharded "
+                    "dense engine at 1x1 (pprx/dist/sharded.py:378-398) and of the hybrid "
+                    "engine's two loops (pprx/engine/sparse.py:457-586, with the lax.switch "
+                    "over the scan tiers at :193-201); no pl.pallas_call",
         "launches": by_path["forward"], "launches_by_path": by_path,
-        **k4[step], "library_ms": None,
+        **k4[step], "hybrid": k4.get(f"hybrid_{step}"), "library_ms": None,
         "library_call": "none: no PyTorch call sets a graph's conditions",
         "graph_kernel_floor_ms": k4["graph_kernel_floor_ms"],
         "body_kernel_ms": k4["body_kernel_ms"],
@@ -3182,8 +3413,8 @@ def main() -> None:
             raise AssertionError(f"config5_rev: the sweep or the scaled rounds never launched "
                                  f"the gather entry: {rev['launches_scaled']}")
 
-        # the hybrid engine (plain torch ops: no kernel); each run sets the
-        # counts to 0 itself
+        # the hybrid engine: each loop one loop graph under K4's hybrid
+        # rule; each run sets the counts to 0 itself
         hybrid = {"hybrid_bench": hybrid_bench(dev)}
         log("16a bench hybrid", **hybrid["hybrid_bench"])
         res16, hyb = hybrid_forward(dev, n=200_000, w=w, b=b, s=s)
@@ -3201,9 +3432,10 @@ def main() -> None:
         cli16 = hybrid_cli(dev, tmp, os.path.join(tmp, "stream.npz"), w, b, s, k=k)
         for tag, res in cli16.items():
             log(f"16e {tag.replace('_', ' ')}", **res)
-        hybrid_by_path = check_no_launch(
-            {**{path: res["launches_by_entry"] for path, res in hybrid.items()},
-             **{path: cli16[path]["launches_by_entry"] for path in HYBRID_CLI_PATHS}})
+        runs16 = {**hybrid, **{path: cli16[path] for path in HYBRID_CLI_PATHS[:2]}}
+        hybrid_by_path = check_hybrid_launched(
+            {path: (res["launches_by_entry"], res["loops"]["arms"]) for path, res in runs16.items()})
+        hybrid_by_path["cli_retrieve_hybrid"] = cli16["cli_retrieve_hybrid"]["launches_by_entry"]
         torch.cuda.empty_cache()
 
     if "jax" in sys.modules or "pprx" in sys.modules:
@@ -3254,9 +3486,15 @@ def turn_shapes() -> list[dict]:
 # its process); the dense driver at the headline stream's shapes (N=200k,
 # W=2M, b=160k, S=128), both modes; phase 14c's sharded dense engine at
 # config 5's shapes, both modes, and phase 15c's wlp forward, as the
-# sharded shapes of ``turn_shapes`` are run
+# sharded shapes of ``turn_shapes`` are run; the hybrid driver forward and
+# in reverse at the headline shapes (phases 16a and 16b) and without a
+# worklist at 16c's (N=20k, W=200k, b=4k, S=16)
 _C5 = dict(n=HEADLINE["n"], w=HEADLINE["w"], b=HEADLINE["b"], s=HEADLINE["s"], steps=5,
            prof_steps=1, bf16d=False, sharded=True)
+# the hybrid driver at its defaults (rebuild_every=4) on the headline
+# stream, as phase 16a and 16b run it
+_HYB = dict(n=HEADLINE["n"], w=HEADLINE["w"], b=HEADLINE["b"], s=HEADLINE["s"], seed=7,
+            max_rounds=2000)
 TURN_EXTRA = [{"tag": "loop_control"}, {"tag": "config4", "pushes": 2},
               dict(_C5, tag="config5_dense_f32", reverse=False, engine="dense"),
               dict(_C5, tag="config5_dense_rev", reverse=True, engine="dense"),
@@ -3265,7 +3503,11 @@ TURN_EXTRA = [{"tag": "loop_control"}, {"tag": "config4", "pushes": 2},
                "runs": [[0, 100, 8], [0, 1, 60], [1, 100, 8], [1, 1, 60], [0, 100, 8]]},
               {"tag": "dense_driver_headline", "n": HEADLINE["n"], "w": HEADLINE["w"],
                "s": HEADLINE["s"], "seed": HEADLINE["seed"],
-               "runs": [[0, HEADLINE["b"], 4], [1, HEADLINE["b"], 4]]}]
+               "runs": [[0, HEADLINE["b"], 4], [1, HEADLINE["b"], 4]]},
+              dict(_HYB, tag="hybrid_fwd", reverse=False, worklist=True, warmup=6, steps=8),
+              dict(_HYB, tag="hybrid_rev", reverse=True, worklist=True, warmup=2, steps=3),
+              dict(n=20_000, w=200_000, b=4000, s=16, seed=3, max_rounds=10_000,
+                   tag="hybrid_no_worklist", reverse=False, worklist=False, warmup=2, steps=8)]
 
 
 def turn_record(cs, sh: dict, dev) -> dict:
@@ -3312,7 +3554,12 @@ def turn_record(cs, sh: dict, dev) -> dict:
     is timed apart from the engine's slide (``engine_ms``); then its spare
     slide under the profiler with that slide's peak memory
     (``slide_peak_gib``) and the host's time a round outside the device's
-    busy time (``host_ms_per_round``)."""
+    busy time (``host_ms_per_round``). A hybrid shape (``hybrid_*``):
+    ``HybridStreamDriver`` through the root's ``hybrid_timed`` (its rate,
+    rounds a slide by kind, host reads a slide), its peak memory and
+    launches by entry, then 2 slides with CUDA events around every graph
+    launch as above (none in a tree whose hybrid loops run on the host),
+    and one slide under the profiler."""
     import warnings
 
     if sh["tag"] == "loop_control":
@@ -3565,6 +3812,30 @@ def turn_record(cs, sh: dict, dev) -> dict:
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+    if sh["tag"].startswith("hybrid"):
+        from pprx_torch.graph.hybrid_stream import HybridStreamDriver
+
+        if cuda and hasattr(cs, "build_all"):
+            cs.build_all()
+        for m in mods:
+            m.reset_launches()
+        n, w, b = sh["n"], sh["w"], sh["b"]
+        src, dst, n = synthetic_powerlaw_stream(
+            n, w + (sh["warmup"] + sh["steps"] + 4) * b, seed=sh["seed"])
+        drv = HybridStreamDriver(src, dst, n, list(range(sh["s"])),
+                                 PprConfig(alpha=0.15, eps=1e-6, max_rounds=sh["max_rounds"]),
+                                 StreamConfig(window=w, slide=b),
+                                 mode=REVERSE if sh["reverse"] else FORWARD,
+                                 worklist=sh["worklist"], device=dev)
+        res = cs.hybrid_timed(drv, sh["warmup"], sh["steps"])
+        res["peak_mem_gib"] = peak()
+        res["launches_by_entry"] = {e: m.launches(e) for m in mods for e in m.ENTRIES}
+        res.update(event_slides(drv, 2, sharded=False))
+        res["profile"] = cs.profile_slides(drv, 1)
+        g = getattr(drv, "round_graphs", None)  # a tree whose hybrid loops run on the host
+        if g is not None:
+            res["graphs"] = g.summary()
+        return res
     if sh.get("sharded"):
         for m in mods:
             m.reset_launches()
@@ -3639,7 +3910,9 @@ TURN_SUMMARY = ("updates_per_s", "rounds_per_slide", "syncs_per_slide",
                 "refine_ms", "refine_rounds", "round_kinds", "launches_by_entry",
                 "host_reads_per_slide", "sync_ops_per_slide", "driver_host_ms", "engine_ms",
                 "host_ms_per_round", "graph_launches", "graphs", "k4_launches_per_slide",
-                "config4", "dense_driver")
+                "config4", "dense_driver", "wl_rounds_per_slide", "sparse_scans_per_slide",
+                "dense_scans_per_slide", "counts_per_slide", "sparse_scans_by_tier_per_slide",
+                "rebuilds")
 # phase 3c's numbers in a ``loop_control`` record
 K4_SUMMARY = ("loop_round_ms", "graph_kernel_floor_ms", "conditional_overhead_ms_per_round",
               "body_kernel_ms")

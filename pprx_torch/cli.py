@@ -22,10 +22,12 @@ reference, ``retrieve --from-checkpoint`` refuses a sharded file.
 
 The fast engine delivers through the segment-sum kernel, which takes f32
 or bf16, and the dense engine (``static``, a cold ``retrieve``, ``stream
---engine dense``) runs its rounds on the segment sum and the row pass,
-which take f32: ``--f64`` with either on a CUDA device exits before any
-work. The hybrid engine and the sharded dense engine run plain torch ops
-in any dtype on any device.
+--engine dense``), the hybrid engine's dense scan and the sharded dense
+engine in a world of one shard run their rounds on the segment sum and the
+row passes, which take f32: ``--f64`` with any of them on a CUDA device
+exits before any work. On the CPU every engine runs in f64 too, and so
+does the sharded dense engine across several shards, whose rounds run
+plain torch ops.
 """
 
 from __future__ import annotations
@@ -97,19 +99,20 @@ def _dtype(args) -> torch.dtype:
 
 # what each engine's kernels take on a card
 _KERNEL_TYPES = {
-    "fast": ("the fast engine's segment-sum kernel takes f32 or bf16 only", "the dense"),
-    "dense": ("the dense engine's kernels (the segment sum, the row pass) take f32 only",
-              "the hybrid"),
+    "fast": "the fast engine's segment-sum kernel takes f32 or bf16 only",
+    "dense": "the dense engine's kernels (the segment sum, the row pass) take f32 only",
+    "hybrid": "the hybrid engine's kernels (the segment sum, the row passes) take f32 only",
+    "sharded": "the sharded dense engine's kernels in a world of one shard (the segment sum, "
+               "the row pass) take f32 only",
 }
 
 
 def _kernel_dtype(args, device: torch.device, what: str, engine: str = "fast") -> None:
-    """Exit before any work where the fast or the dense engine would meet a
-    dtype its kernels do not take."""
+    """Exit before any work where an engine would meet a dtype its kernels
+    do not take."""
     if args.f64 and device.type == "cuda":
-        takes, other = _KERNEL_TYPES[engine]
-        raise SystemExit(f"{what}: --f64 on {device}: {takes}; drop --f64, or run on "
-                         f"--device cpu (or {other} engine)")
+        raise SystemExit(f"{what}: --f64 on {device}: {_KERNEL_TYPES[engine]}; drop --f64, "
+                         "or run on --device cpu")
 
 
 def _device_key(device: torch.device) -> dict:
@@ -244,9 +247,12 @@ def cmd_stream(args):
     sharded = args.engine in SHARDED_ENGINES
     mesh = _sharded_mesh(args) if sharded else None
     device = _shard_device(args)
-    if args.engine in ("fast", "dense", "sharded-wl", "sharded-wlp"):
-        _kernel_dtype(args, device, f"stream --engine {args.engine}",
-                      "dense" if args.engine == "dense" else "fast")
+    kernels = {"fast": "fast", "dense": "dense", "hybrid": "hybrid", "sharded-wl": "fast",
+               "sharded-wlp": "fast"}
+    if args.engine == "sharded" and mesh.size == 1:
+        kernels["sharded"] = "sharded"
+    if args.engine in kernels:
+        _kernel_dtype(args, device, f"stream --engine {args.engine}", kernels[args.engine])
     src, dst, n = _load(args)
     queries = _queries(args, n)
     scfg = StreamConfig(window=args.window, slide=args.slide)

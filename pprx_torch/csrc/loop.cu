@@ -1,15 +1,18 @@
 // K4: the convergence loops' control on the card (sm_90a), the
 // compact-frontier loops of the wl2 engine and of the sharded wl engine in a
 // world of one shard, the dense loop of the dense engine and of the sharded
-// dense engine in that world, and that world's memory-proportional loop
-// (wlp), and the CUDA graph that runs a whole loop:
+// dense engine in that world, that world's memory-proportional loop (wlp),
+// and the hybrid engine's two loops, and the CUDA graph that runs a whole
+// loop:
 //
 //   [prologue] -> prime -> WHILE { turn -> SWITCH { tier_0 | ... | tier_k-1
 //                                                 | scan -> after_scan -> IF { stats } } }
 //
 // or, under the dense rule, one arm: WHILE { turn -> SWITCH { round } };
 // under the proportional rule, no stats:
-// WHILE { turn -> SWITCH { tier_0 | ... | tier_k-1 | drain | rescan } }.
+// WHILE { turn -> SWITCH { tier_0 | ... | tier_k-1 | drain | rescan } };
+// under the hybrid rule, no stats: WHILE { turn -> SWITCH { tier_0 | ... |
+// tier_k-1 | scan_0 | ... | scan_ks-1 | dense | count } }.
 //
 // Each body of the SWITCH holds a child graph, a clone of the branch that
 // the port captured with torch (a compact tier, the scan round), and the
@@ -28,7 +31,8 @@
 //   after_scan  whether a scan's next-frontier stats run (not after a heavy
 //               scan, nor where no round follows).
 // A loop of R >= 1 rounds runs R + 1 turns: one K4 node a tier round, two a
-// scan round; a loop that prime stops runs none. The table's rule field
+// scan round (under the hybrid rule one, and a turn more for each count);
+// a loop that prime stops runs none. The table's rule field
 // picks the sharded engine's loop: its first round always runs, and its
 // heavy test reads ewr, the counts' sixth slot, where wl2's reads the edge
 // work ew (pprx/dist/wl.py:911-917, 1023). Or the dense engine's
@@ -40,7 +44,14 @@
 // kept in the carry's kPend) takes the drain, else a valid list its tier
 // and an invalid one the rescan; a turn tallies the round's count (its
 // active pairs; a drain's, whether it left a list) and goes on while that
-// or the pending carry is not zero. Each step does what its plain
+// or the pending carry is not zero. Or the hybrid engine's loops
+// (pprx/engine/sparse.py:457-586): a valid list whose counts fit the top
+// tier takes its tier; any other round is a scan, whose arm is chosen from
+// the exact frontier's rows and edges (kXn, kXf; kXn -1 where a worklist
+// round left bounds only, and then the count arm, which pushes nothing and
+// is not a round, runs first): the smallest scan tier that holds them where
+// the reference's worth test holds, else the dense scan. Each step does what
+// its plain
 // step in pprx_torch/engine/loop.py does, on the same slots, and sets the
 // graph's conditions with cudaGraphSetConditional: prime the WHILE's, turn
 // the SWITCH's (the branch's number) and the WHILE's, after_scan the stats
@@ -55,7 +66,10 @@
 // round (:995) and lax.cond over the dense round's stats (:954) and
 // with its lax.switch over the tiers, the drain and the rescan (:1214), and
 // of the dense engines' at pprx/engine/push.py:118 and
-// pprx/dist/sharded.py:398.
+// pprx/dist/sharded.py:398, and of the hybrid engine's at
+// pprx/engine/sparse.py:554 (its lax.cond over worklist or scan at :520,
+// its lax.switch over the tiers at :505 and over the scan tiers and the
+// dense round at :193-201) and :585.
 //
 // What bounds K4 on this card is latency, not bytes: a step moves about
 // 600 bytes (2e-7 ms at 3.35 TB/s), and a kernel node inside a graph costs
@@ -102,9 +116,12 @@ enum Slot : int {
   kBranch = 16, kHeavy = 17, kStats = 18, kGo = 19,
   kExecs = 20, kPending = 30, kPend = 31,
   kHead = 32,
+  // the hybrid rule's exact frontier rows and edges, in the stats-skip's slots
+  kXn = 17, kXf = 18,
 };
 
 constexpr int kMaxTiers = 8;
+constexpr int kMaxBranches = kMaxTiers + 2;
 constexpr int kLogW = 8;  // branch, ok, cn, fed, fre, na, the heavy count, stats
 constexpr int kLogCap = 1024;
 constexpr i64 kBig = (1LL << 31) / 2 - 1;
@@ -113,6 +130,8 @@ constexpr i64 kBig = (1LL << 31) / 2 - 1;
 // proportional rule's pending carry takes it (loop.py's N_PEND)
 constexpr int kEwr = 5;
 constexpr int kMaxCounts = kEwr + 1;
+// the hybrid rule's first list's validity on the device (loop.py's C0V)
+constexpr int kC0v = kEwr;
 
 // a step's lanes: one a slot of the carry's head
 constexpr int kWarp = 32;
@@ -121,14 +140,19 @@ static_assert(kHead == kWarp, "a warp loads the carry's head, a slot a lane");
 // the steps, as pprx_loop_step numbers them
 constexpr int kPrime = 0, kTurn = 1, kAfterScan = 2;
 
-// the rules a table's kRule names: loop.py's WL2, SHARDED, DENSE, PROPORTIONAL
-enum Rule : int { kWl2 = 0, kSharded = 1, kDense = 2, kProportional = 3 };
+// the rules a table's kRule names: loop.py's WL2, SHARDED, DENSE,
+// PROPORTIONAL, HYBRID
+enum Rule : int { kWl2 = 0, kSharded = 1, kDense = 2, kProportional = 3, kHybrid = 4 };
 
 // the table of a tier ladder: loop.py's T_TIERS .. TAB
 enum Tab : int {
   kTiers = 0, kHeavyEw = 1, kRule = 2,
   kW = 3, kE = kW + kMaxTiers, kG = kE + kMaxTiers, kEmit = kG + kMaxTiers,
-  kTabLen = kEmit + kMaxTiers,
+  // the hybrid rule's scan tiers (rows, edges), their number, the overlay's
+  // and the window's capacities
+  kF = kEmit + kMaxTiers, kSE = kF + kMaxTiers, kScans = kSE + kMaxTiers, kOv = kScans + 1,
+  kWin = kOv + 1,
+  kTabLen = kWin + 1,
 };
 
 struct Table {
@@ -157,14 +181,17 @@ __device__ __forceinline__ int heavy_at(const Table& t) {
 }
 
 // the counts a step reads: the heavy count's slot and those below; under
-// the proportional rule the pending carry's
+// the proportional rule the pending carry's, under the hybrid rule the
+// list's validity
 __device__ __forceinline__ int n_counts(const Table& t) {
-  return t.v[kRule] == kProportional ? kEwr + 1 : heavy_at(t) + 1;
+  return t.v[kRule] == kProportional || t.v[kRule] == kHybrid ? kEwr + 1 : heavy_at(t) + 1;
 }
 
 // the SWITCH's arms: the tiers and the scan (under the dense rule the round;
-// under the proportional rule the tiers, the drain and the rescan)
+// under the proportional rule the tiers, the drain and the rescan; under
+// the hybrid rule the tiers, the scan tiers, the dense scan and the count)
 __host__ __device__ __forceinline__ int n_arms(const Table& t) {
+  if (t.v[kRule] == kHybrid) return static_cast<int>(t.v[kTiers] + t.v[kScans]) + 2;
   return static_cast<int>(t.v[kTiers]) + 1 + (t.v[kRule] == kProportional);
 }
 
@@ -178,6 +205,23 @@ __device__ void prime(i64* c, const i64* n, const Table& t, const Handles& h) {
   c[kC0ok] = c0ok;
   if (t.v[kRule] == kDense) {
     c[kNa] = n[3];  // the first active count: no round from a converged state
+  } else if (t.v[kRule] == kHybrid) {
+    // the list's counts and its validity on the device
+    c[kCn] = n[0];
+    c[kFed] = n[1];
+    c[kFre] = n[2];
+    c[kOk] = c0ok != 0 && n[kC0v] != 0;
+    if (c[kOk]) {
+      c[kNa] = c[kCn] > 0;
+      c[kXn] = -1;
+    } else if (c0ok == 0) {  // no list: the prologue counted the state
+      c[kXn] = n[3];
+      c[kXf] = n[4];
+      c[kNa] = n[3];
+    } else {  // a list that overflowed its buffer: a count first
+      c[kNa] = 1;
+      c[kXn] = -1;
+    }
   } else if (t.v[kRule] == kProportional) {
     // the first round runs whatever the list; a carry the corrections
     // left is pending
@@ -202,10 +246,63 @@ __device__ void prime(i64* c, const i64* n, const Table& t, const Handles& h) {
 
 // the round's statistics and the next round's counts, from the round's
 // (with a scan's stats where they ran)
+// the hybrid rule's tally: a count's exact frontier (before any round from
+// a list that is not valid, the prime's count), or a round's statistics and
+// the next round's counts
+__device__ void tally_hybrid(i64* c, const i64* n, i64* log, const Table& t) {
+  const int k = static_cast<int>(t.v[kTiers]);
+  const int count = n_arms(t) - 1;
+  const i64 b = c[kBranch], na = n[3], ew = n[4];
+  const i64 rnd = c[kRounds];
+  c[kExecs + b] += 1;
+  if (b == count) {
+    c[kXn] = n[3];
+    c[kXf] = n[4];
+    if (rnd == 0 && !c[kOk]) {
+      c[kNa] = n[3];
+      c[kGo] = n[3] > 0;
+    }
+    return;
+  }
+  const i64 w_top = k ? t.v[kW + k - 1] : 0;
+  if (b < k) {  // a tier that marked more rows than its own w cut its list
+    const i64 cn2 = n[0] <= t.v[kEmit + b] ? n[0] : w_top + 1;
+    c[kCn] = cn2;
+    c[kFed] = n[1];
+    c[kFre] = n[2];
+    c[kOk] = cn2 <= w_top;
+    c[kXn] = -1;
+    c[kWlRounds] += 1;
+  } else {
+    if (k) {  // the reasons, on the counts that sent the round to a scan
+      c[kScansCand] += !c[kOk] || c[kCn] > w_top;
+      c[kScansFed] += c[kFed] > t.v[kE + k - 1];
+      c[kScansLiv] += c[kFre] > t.v[kG + k - 1];
+    }
+    c[kCn] = n[0];
+    c[kFed] = n[1];
+    c[kFre] = n[2];
+    c[kOk] = k > 0 && n[0] <= w_top;
+    c[kXn] = n[0];
+    c[kXf] = n[1];
+  }
+  if (i64* row = log_row(log, rnd)) row[5] = na;
+  c[kRounds] = rnd + 1;
+  c[kPushes] += na;
+  c[kEdgePushes] += ew;
+  c[kNa] = na;
+  c[kEw] = ew;
+  c[kGo] = na > 0 && c[kRounds] < c[kMaxRounds];
+}
+
 __device__ void tally(i64* c, const i64* n, i64* log, const Table& t) {
   const int k = static_cast<int>(t.v[kTiers]);
   const i64 b = c[kBranch], na = n[3], ew = n[4];
   const i64 rnd = c[kRounds];
+  if (t.v[kRule] == kHybrid) {
+    tally_hybrid(c, n, log, t);
+    return;
+  }
   if (t.v[kRule] == kProportional) {
     // a drain pushes nothing: its count is whether it left a list, and it
     // keeps the list's validity; the log keeps the pending carry that the
@@ -295,6 +392,36 @@ __device__ int decide(i64* c, i64* log, const Table& t) {
     return i;
   };
   int b;
+  if (t.v[kRule] == kHybrid) {
+    // a worklist tier where the list is valid and fits the top one; else a
+    // scan, from the exact frontier: counted first where it is not known,
+    // then the smallest scan tier that holds it where the sparse round is
+    // worth it, else the dense scan
+    const i64 xn = c[kXn], xf = c[kXf];
+    const int ks = static_cast<int>(t.v[kScans]);
+    if (k && ok && cn <= t.v[kW + k - 1] && fed <= t.v[kE + k - 1] && fre <= t.v[kG + k - 1]) {
+      b = tier();
+    } else if (xn < 0) {
+      b = k + ks + 1;
+    } else {
+      int i = 0;
+      for (int j = 0; j < ks; ++j) i += !(xn <= t.v[kF + j] && xf <= t.v[kSE + j]);
+      const bool worth = (xf + t.v[kOv]) * 2 <= t.v[kWin];
+      b = worth && i < ks ? k + i : k + ks;
+    }
+    c[kBranch] = b;
+    if (i64* row = log_row(log, c[kRounds])) {
+      row[0] = b;
+      row[1] = ok;
+      row[2] = cn;
+      row[3] = fed;
+      row[4] = fre;
+      row[5] = 0;
+      row[6] = xn;
+      row[7] = xf;
+    }
+    return b;
+  }
   if (prop)  // a pending carry drains, a valid list takes its tier (the top
              // one covers any frontier), an invalid one rescans
     b = c[kPend] > 0 ? k : ok ? tier() : k + 1;
@@ -422,11 +549,15 @@ cudaError_t build(Loop* L, cudaGraph_t prologue, cudaGraph_t const* branches, in
   const int k = static_cast<int>(t.v[kTiers]);
   // the dense rule: no tiers, one arm (the round) and no stats; the
   // proportional rule: k + 2 arms (the tiers, the drain, the rescan) and no
-  // stats
+  // stats; the hybrid rule: the tiers, the scan tiers, the dense scan and
+  // the count, no stats
   const bool dense = t.v[kRule] == kDense, prop = t.v[kRule] == kProportional;
+  const bool hybrid = t.v[kRule] == kHybrid;
   const int arms = n_arms(t);
-  if (dense ? (k != 0 || n_branches != 1)
-            : (k < 1 || k > kMaxTiers || n_branches != k + 2))
+  if (hybrid ? (k < 0 || k > kMaxTiers || t.v[kScans] < 1 || t.v[kScans] > kMaxTiers ||
+                arms > kMaxBranches || n_branches != arms)
+      : dense ? (k != 0 || n_branches != 1)
+              : (k < 1 || k > kMaxTiers || n_branches != k + 2))
     return cudaErrorInvalidValue;
   int driver = 0;
   cudaError_t e = cudaDriverGetVersion(&driver);
@@ -447,7 +578,7 @@ cudaError_t build(Loop* L, cudaGraph_t prologue, cudaGraph_t const* branches, in
   if ((e = add_step(&node, L->graph, last ? &last : nullptr, k4<kPrime>, carry, counts, t, h)))
     return e;
   last = node;
-  cudaGraph_t body, bodies[kMaxTiers + 2], stats;
+  cudaGraph_t body, bodies[kMaxBranches], stats;
   if ((e = add_cond(&node, L->graph, &last, h.loop, cudaGraphCondTypeWhile, 1, &body)))
     return e;
   // the SWITCH's handle belongs to the WHILE's body, the stats IF's to the
@@ -457,10 +588,11 @@ cudaError_t build(Loop* L, cudaGraph_t prologue, cudaGraph_t const* branches, in
   if ((e = add_step(&last, body, nullptr, k4<kTurn>, carry, counts, t, h))) return e;
   if ((e = add_cond(&node, body, &last, h.branch, cudaGraphCondTypeSwitch, arms, bodies)))
     return e;
-  // the tiers, then the scan (the dense round; the drain and the rescan)
+  // the tiers, then the scan (the dense round; the drain and the rescan;
+  // the scan tiers, the dense scan and the count)
   for (int i = 0; i < arms; ++i)
     if ((e = cudaGraphAddChildGraphNode(&inner, bodies[i], nullptr, 0, branches[i]))) return e;
-  if (dense || prop) return cudaGraphInstantiate(&L->exec, L->graph, 0);
+  if (dense || prop || hybrid) return cudaGraphInstantiate(&L->exec, L->graph, 0);
   // the scan's arm goes on: after_scan, then the stats under an IF
   if ((e = cudaGraphConditionalHandleCreate(&h.stats, bodies[k], 0, cudaGraphCondAssignDefault)))
     return e;
@@ -493,7 +625,9 @@ int pprx_loop_step(int which, i64* carry, const i64* counts, const i64* tab, voi
 // Build and instantiate a loop graph: `prologue` (a cudaGraph_t or null),
 // `branches` the k tiers', the scan's and the stats' cudaGraph_t (k + 2;
 // under the dense rule the round's alone; under the proportional rule the k
-// tiers', the drain's and the rescan's), each cloned into the graph;
+// tiers', the drain's and the rescan's; under the hybrid rule the k tiers',
+// the ks scan tiers', the dense scan's and the count's), each cloned into the
+// graph;
 // `carry` and `counts` device pointers, `tab` the table on the host.
 // `*out` gets the loop's handle for pprx_loop_launch and pprx_loop_free.
 int pprx_loop_build(void* prologue, void* const* branches, int n_branches, i64* carry,

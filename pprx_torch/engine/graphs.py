@@ -1,12 +1,14 @@
 """Captured CUDA graphs of the wl2 slides and convergence loops, of the
 sharded engines' in a world of one shard (the wl loop, the
-memory-proportional ``wlp`` loop and the dense loop), and of the dense
-engine's loop: the port's counterpart of the reference's compiled slide,
-seed and refine programs (``pprx/graph/fast_stream.py``'s jitted
-``wl2_slide_step`` and ``_seed_wl2_jit``, ``_refine_wl2_jit``;
-``pprx/dist/wl.py``'s jitted ``push_wl`` and ``slide_wl``;
-``pprx/dist/sharded.py``'s ``push`` and ``slide``;
-``pprx/engine/push.py``'s ``push_to_convergence``).
+memory-proportional ``wlp`` loop and the dense loop), of the dense
+engine's loop and of the hybrid engine's slides and two loops: the port's
+counterpart of the reference's compiled slide, seed and refine programs
+(``pprx/graph/fast_stream.py``'s jitted ``wl2_slide_step`` and
+``_seed_wl2_jit``, ``_refine_wl2_jit``; ``pprx/dist/wl.py``'s jitted
+``push_wl`` and ``slide_wl``; ``pprx/dist/sharded.py``'s ``push`` and
+``slide``; ``pprx/engine/push.py``'s ``push_to_convergence``;
+``pprx/graph/hybrid_stream.py``'s jitted ``hybrid_slide_step`` and
+``_seed_worklist_jit``).
 
 The reference runs a whole convergence loop as one device program: a
 ``lax.while_loop`` whose branches are ``lax.switch`` and ``lax.cond``. On
@@ -17,7 +19,10 @@ graph built around them (``pprx_torch/csrc/loop.cu``): ``[prologue] ->
 prime -> WHILE { turn -> SWITCH { tier_0 | .. | tier_k-1 | scan ->
 after_scan -> IF { stats } } }`` (the dense engine's: ``WHILE { turn ->
 SWITCH { round } }``; the proportional loop's: ``WHILE { turn -> SWITCH {
-tier_0 | .. | tier_k-1 | drain | rescan } }``), where the three steps are K4's one-warp kernels on
+tier_0 | .. | tier_k-1 | drain | rescan } }``; the hybrid engine's:
+``WHILE { turn -> SWITCH { tier_0 | .. | tier_k-1 | scan_0 | .. |
+scan_ks-1 | dense | count } }``, its loop without a worklist the same with
+no tier), where the three steps are K4's one-warp kernels on
 the loop's carry (``pprx_torch.engine.loop``), which set the conditions: a
 turn tallies the round before and picks the next one's branch, or none. A
 loop is one graph launch and one read of the carry (its statistics) by the
@@ -28,7 +33,8 @@ A graph reads and writes fixed addresses, so:
 
 - the state's ``p`` and ``r`` and every tensor of the kill graph (its window
   too), or the sharded engine's blocks, snapshot and ring, or the dense
-  engine's window and its delivery-sorted view, are the driver's buffers
+  engine's window and its delivery-sorted view, or the hybrid engine's
+  window, snapshot, overlay and view, are the driver's buffers
   for its whole life: the slide step, the rebuild and a
   restore copy into them (``copy_into_``), and ``bind`` and ``hold``
   refuse a state, graph or slide's pack whose tensors are not the ones
@@ -39,7 +45,9 @@ A graph reads and writes fixed addresses, so:
   entries, a round writes its list and ``n`` past it), the counters
   ``counts`` (int64 ``[5]``: cn, fed, fre, n_active, edge_work; the
   sharded loop's ``[6]`` add ``ewr``), ``c0n``,
-  the seed list's length, and the loop's ``carry``. The host reads the
+  the seed list's length, the loop's ``carry``, and what an engine keeps
+  between its rounds besides (``buffer``: the hybrid engine's frontier
+  rows). The host reads the
   carry (or, in the host loop, ``counts``) through a pinned buffer and an
   event.
 
@@ -152,6 +160,7 @@ class RoundGraphs:
         # measurement: a slide's prologue replayed apart, before its loop
         self.split_prologue = False
         self._held: dict[str, tuple[int, ...]] = {}
+        self._buffers: dict[str, torch.Tensor] = {}
         self._inputs: tuple[int, int] | None = None
         if self.device.type == "cuda":
             self.pool = torch.cuda.graph_pool_handle()
@@ -181,6 +190,18 @@ class RoundGraphs:
             raise RuntimeError(
                 f"{what} was rebound after its rounds were captured: copy into the "
                 "tensors bound first (copy_into_), or upload into the same tensor, instead")
+
+    def buffer(self, name: str, size: int, dtype: torch.dtype) -> torch.Tensor:
+        """A 1-D tensor of ``size`` kept under ``name`` for the cache's life,
+        allocated at its first use (outside any capture: call it before the
+        loop), zero-filled."""
+        buf = self._buffers.get(name)
+        if buf is None:
+            buf = self._buffers[name] = torch.zeros(size, dtype=dtype, device=self.device)
+        if buf.shape != (size,) or buf.dtype != dtype:
+            raise ValueError(f"buffer {name!r} is {buf.dtype} {tuple(buf.shape)}, "
+                             f"not {dtype} ({size},)")
+        return buf
 
     def seed(self, cand0: torch.Tensor, c0n: torch.Tensor | int) -> None:
         """The first candidate list: ``cand0`` (phantom-padded), then ``n``;
@@ -289,7 +310,8 @@ class RoundGraphs:
         """One convergence loop: ``prologue``, then rounds of ``branches``
         (the tiers', the scan's and its stats', as ``table`` numbers them;
         under the dense rule the round's alone; under the proportional rule
-        the tiers', the drain's and the rescan's)
+        the tiers', the drain's and the rescan's; under the hybrid rule the
+        tiers', the scan tiers', the dense scan's and the count's)
         as K4's steps pick them, from the counts the prologue (or the
         caller) left in ``counts``. On CUDA one launch of the loop's graph
         (built at its first use) and one read of the carry; on the CPU
@@ -361,17 +383,17 @@ class RoundGraphs:
         self.ready.synchronize()
         values = self.carry_host[:n].tolist()
         # what the loop launched: its prologue once, each branch as often
-        # as it ran, and K4's steps: a turn a round and one to end the loop
-        # (none where prime stopped it), after_scan in the scan's arm where
-        # the rule has stats
+        # as it ran, and K4's steps: a turn a round (and a count, which is
+        # not a round) and one to end the loop (none where prime stopped
+        # it), after_scan in the scan's arm where the rule has stats
         execs = values[loop.EXECS:loop.EXECS + len(branches)]
         for (_, launched), times in zip(parts, [1] * (prologue is not None) + execs):
             for counts, added in zip(KERNEL_COUNTS, launched):
                 for k, c in added.items():
                     counts[k] += c * times
-        rounds = values[loop.ROUNDS]
+        turns = values[loop.ROUNDS] + (execs[table.count_arm] if table.hybrid else 0)
         loop.LAUNCHES["prime"] += 1
-        loop.LAUNCHES["turn"] += rounds + 1 if rounds else 0
+        loop.LAUNCHES["turn"] += turns + 1 if turns else 0
         loop.LAUNCHES["after_scan"] += execs[table.scan] if table.has_stats else 0
         self.branch_execs += sum(execs)
         return values, 1

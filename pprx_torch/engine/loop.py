@@ -1,8 +1,8 @@
 """The convergence loops' carry and their control steps (K4's plain
 version): the wl2 engine's and, in a world of one shard, the sharded wl
 engine's compact-frontier loops, the dense loop of the dense engine and
-of the sharded dense engine in a world of one shard, and that world's
-memory-proportional loop (``wlp``).
+of the sharded dense engine in a world of one shard, that world's
+memory-proportional loop (``wlp``), and the hybrid engine's two loops.
 
 The reference runs a whole convergence loop on the device: a
 ``lax.while_loop`` whose body picks a capacity tier with ``lax.switch`` and
@@ -23,7 +23,7 @@ step on it:
 
 A loop of R rounds takes R + 1 turns (none where ``prime`` stops it).
 
-A table's ``rule`` picks one of four loops. The two compact-frontier
+A table's ``rule`` picks one of five loops. The two compact-frontier
 loops differ in two rules (``pprx/dist/wl.py:1023``, ``:911-917``):
 
 - the sharded loop's first round always runs (the reference starts its
@@ -57,6 +57,34 @@ list's validity, a compact round or a rescan makes it valid. Its first
 round always runs, and every round counts as a wl round, as the
 reference's ``stats[3]``.
 
+The hybrid rule is the hybrid engine's loops (``pprx/engine/sparse.py:
+457-559``, ``:153-201``, ``:562-586``). Its SWITCH has the ``k`` worklist
+tiers ``0 .. k-1``, the ``ks`` sparse scan arms ``k .. k+ks-1`` (the scan
+tiers, ``Table.scans``), the dense scan ``k + ks`` (``dense_arm``) and an
+arm that counts the frontier and pushes nothing (``count_arm``); no stats.
+A valid list whose counts fit the top tier takes its tier, as wl2's. Any
+other round is a scan, whose arm needs the exact frontier's rows and
+snapshot edges: ``XN`` and ``XF``, which take the stats-skip's slots (the
+rule has no stats), ``XN`` -1 where they are not known. A scan's reseed
+leaves them, and so does a prologue that counted the state; after a
+worklist round they are not known, and the count arm runs first (not a
+round: its tally counts its execution alone). The scan's arm is then the
+smallest scan tier that holds them, where the reference's ``worth`` holds
+(``(XF + overlay capacity) * 2 <= window capacity``), and the dense scan
+otherwise. A worklist tier's list is valid where it marked at most its own
+``w`` rows (else ``cn`` goes past the top tier's ``w``), a scan's where
+its exact count fits the top tier. A scan's tally counts its reasons on
+the counts that sent it to a scan (the count arm leaves them): the
+reference's ``not ok or cn > wcap``, ``fed > ecap`` and ``liv > ovacap``.
+``prime`` reads the list's counts and its validity on the device (the
+counts' sixth slot, ``C0V``): a valid list goes while it has a candidate;
+without one (``C0OK`` 0) the prologue counted the state, and the loop goes
+while that count is not 0; a list the caller passed that is not valid (it
+overflowed its buffer) goes to a count first, whose tally then stands for
+the prime's (no round has run and the list is not valid) and ends the
+loop where it counts no row. With no worklist tier (``push_to_convergence_
+hybrid``) every round is a scan and the reasons are not counted.
+
 The compact-frontier loops keep the port's test that the stats run only
 where a round follows.
 The sharded reference has none, and needs none: the stats read ``r`` and
@@ -68,19 +96,20 @@ On CUDA ``prime``, ``turn`` and ``after_scan`` are the one-warp kernels of
 ``pprx_torch/csrc/loop.cu`` (K4) inside one conditional CUDA graph per loop
 (``pprx_torch.engine.graphs.RoundGraphs.loop``), where each also sets the
 graph's branch and loop conditions. On the CPU the host loops of
-``pprx_torch.engine.wl2``, ``pprx_torch.dist.wl`` and
-``pprx_torch.engine.push`` call the plain steps below, which nothing on
-CUDA calls; ``step_`` runs one step on a carry where it lies, the kernel on
-a card or the plain step on the CPU. Both write the same carry. ``decide``
+``pprx_torch.engine.wl2``, ``pprx_torch.dist.wl``,
+``pprx_torch.engine.push`` and ``pprx_torch.engine.sparse`` call the plain
+steps below, which nothing on CUDA calls; ``step_`` runs one step on a
+carry where it lies, the kernel on a card or the plain step on the CPU. Both write the same carry. ``decide``
 and ``tally`` have no kernel of their own: they are ``turn``'s parts, and
 ``replay_log``'s.
 
 Branches are numbered: the ``k`` tiers ``0 .. k-1``, the scan ``k`` and its
 stats ``k + 1`` (under the proportional rule the drain ``k`` and the
-rescan ``k + 1``). The carry also counts each branch's executions (what a
-loop graph's kernels launched follows from them) and logs each round's
-branch with the counts its decisions read, so that a run on the card can
-be replayed through ``decide`` (``replay_log``).
+rescan ``k + 1``; under the hybrid rule as above). The carry also counts
+each branch's executions (what a loop graph's kernels launched follows
+from them) and logs each round's branch with the counts its decisions
+read, so that a run on the card can be replayed through ``decide``
+(``replay_log``).
 """
 
 from __future__ import annotations
@@ -102,29 +131,37 @@ EXECS = 20  # executions of each branch, MAX_BRANCHES slots
 PENDING = 30  # a round decided and not yet tallied
 PEND = 31  # the proportional rule's pending carry, which the next decision reads
 HEAD = 32  # the slots above; the round log follows
+# the hybrid rule's exact frontier rows and snapshot edges (XN -1: not
+# known), in the stats-skip's slots, which it has no use for
+XN, XF = HEAVY, STATS
 
 MAX_TIERS = 8
 MAX_BRANCHES = MAX_TIERS + 2
 # a round: branch, ok, cn, fed, fre (what decide read), na, the heavy test's
 # count (ew; ewr under the sharded rule; under the proportional rule the
-# pending carry decide read), stats
+# pending carry decide read), stats (under the hybrid rule the XN and XF
+# that decide read)
 LOG_W = 8
 LOG_CAP = 1024  # rounds logged; later rounds are not
 SIZE = HEAD + LOG_CAP * LOG_W
 
 # ---- the round's counts: cn, fed, fre, n_active, edge_work, and the
 # sharded rule's heavy count ewr, whose slot the proportional rule's
-# pending carry takes
+# pending carry takes, and the hybrid rule's first list's validity
 N_COUNTS = 6
 EWR = 5
-N_PEND = EWR
+N_PEND = C0V = EWR
 
 # ---- the table of a tier ladder (int64; csrc/loop.cu's enum Tab)
 T_TIERS, T_HEAVY, T_RULE, T_W = 0, 1, 2, 3
 # the rules a table's T_RULE names (the module docstring)
-WL2, SHARDED, DENSE, PROPORTIONAL = 0, 1, 2, 3
+WL2, SHARDED, DENSE, PROPORTIONAL, HYBRID = 0, 1, 2, 3, 4
 T_E, T_G, T_EMIT = T_W + MAX_TIERS, T_W + 2 * MAX_TIERS, T_W + 3 * MAX_TIERS
-TAB = T_W + 4 * MAX_TIERS
+# the hybrid rule's scan tiers (rows, snapshot edges), their number, and
+# the overlay's and the window's capacities
+T_F, T_SE = T_W + 4 * MAX_TIERS, T_W + 5 * MAX_TIERS
+T_SCANS, T_OV, T_WIN = T_W + 6 * MAX_TIERS, T_W + 6 * MAX_TIERS + 1, T_W + 6 * MAX_TIERS + 2
+TAB = T_WIN + 1
 
 BIG = 2**31 // 2 - 1  # the reference's "skip" sentinel (int32 max // 2)
 
@@ -154,25 +191,45 @@ class Table:
     emits (``emit``: its next tier's, or ``n + 1`` where the round reseeds
     by a rescan), ``heavy_ew``, the edge work above which a scan skips
     its stats, and ``rule``: ``WL2``, ``SHARDED`` (the sharded engine's),
-    ``DENSE`` (the dense engine's: no tiers; ``DENSE_TABLE``) or
+    ``DENSE`` (the dense engine's: no tiers; ``DENSE_TABLE``),
     ``PROPORTIONAL`` (the sharded engine's memory-proportional loop: no
-    stats, the emit widths and ``heavy_ew`` unread), as the module
-    docstring says."""
+    stats, the emit widths and ``heavy_ew`` unread) or ``HYBRID`` (the
+    hybrid engine's: ``tiers`` its worklist ladder, none without a
+    worklist, each tier emitting its own ``w``; ``scans`` its scan tiers
+    (rows, snapshot edges), smallest first; ``overlay`` and ``window`` the
+    capacities its ``worth`` test reads; ``heavy_ew`` unread), as the
+    module docstring says."""
 
     tiers: tuple[tuple[int, int, int], ...]
     emit: tuple[int, ...]
     heavy_ew: int
     rule: int = WL2
+    scans: tuple[tuple[int, int], ...] = ()
+    overlay: int = 0
+    window: int = 0
 
     def __post_init__(self):
         if self.rule == DENSE:
             if self.tiers or self.emit:
                 raise ValueError(f"the dense rule takes no tiers: {self.tiers}")
+        elif self.rule == HYBRID:
+            if (len(self.tiers) > MAX_TIERS or len(self.emit) != len(self.tiers)
+                    or not 1 <= len(self.scans) <= MAX_TIERS):
+                raise ValueError(f"the hybrid rule takes 0 to {MAX_TIERS} worklist tiers, each "
+                                 f"with its emit width, and 1 to {MAX_TIERS} scan tiers: "
+                                 f"{self.tiers}, {self.emit}, {self.scans}")
+            if self.n_branches > MAX_BRANCHES:
+                raise ValueError(
+                    f"the hybrid rule's {len(self.tiers)} worklist tiers and {len(self.scans)} "
+                    f"scan tiers, with its dense and count arms, need {self.n_branches} "
+                    f"branches: a loop holds {MAX_BRANCHES}")
         elif self.rule not in (WL2, SHARDED, PROPORTIONAL):
             raise ValueError(f"no loop rule {self.rule}")
         elif not 1 <= len(self.tiers) <= MAX_TIERS or len(self.emit) != len(self.tiers):
             raise ValueError(f"a loop takes 1 to {MAX_TIERS} tiers, each with its emit width: "
                              f"{self.tiers}, {self.emit}")
+        if self.scans and self.rule != HYBRID:
+            raise ValueError("only the hybrid rule takes scan tiers")
 
     @property
     def sharded(self) -> bool:
@@ -187,6 +244,10 @@ class Table:
         return self.rule == PROPORTIONAL
 
     @property
+    def hybrid(self) -> bool:
+        return self.rule == HYBRID
+
+    @property
     def has_stats(self) -> bool:
         """Whether the scan's arm runs ``after_scan`` and the stats: the
         compact-frontier rules'."""
@@ -195,15 +256,29 @@ class Table:
     @property
     def scan(self) -> int:
         """The scan's branch (under the dense rule the round's, 0; under
-        the proportional rule the drain's, the rescan's is ``scan + 1``);
-        its stats' is ``scan + 1``."""
+        the proportional rule the drain's, the rescan's is ``scan + 1``;
+        under the hybrid rule the first sparse scan's); its stats' is
+        ``scan + 1``."""
         return len(self.tiers)
+
+    @property
+    def dense_arm(self) -> int:
+        """The hybrid rule's dense scan."""
+        return len(self.tiers) + len(self.scans)
+
+    @property
+    def count_arm(self) -> int:
+        """The hybrid rule's count of the frontier, which pushes nothing."""
+        return self.dense_arm + 1
 
     @property
     def stop(self) -> int:
         """The branch ``turn`` gives where the loop ends: past the
         SWITCH's arms (the tiers and the scan; the tiers, the drain and
-        the rescan), so that it runs none."""
+        the rescan; the hybrid rule's tiers, scans and count), so that it
+        runs none."""
+        if self.hybrid:
+            return self.count_arm + 1
         return self.scan + 1 + self.proportional
 
     @property
@@ -220,7 +295,7 @@ class Table:
     @property
     def n_counts(self) -> int:
         """The counts a step reads."""
-        return N_PEND + 1 if self.proportional else self.heavy_at + 1
+        return N_PEND + 1 if self.proportional or self.hybrid else self.heavy_at + 1
 
     def values(self) -> list[int]:
         """The table as K4 reads it: ``TAB`` int64 values."""
@@ -228,7 +303,20 @@ class Table:
         out[T_TIERS], out[T_HEAVY], out[T_RULE] = len(self.tiers), self.heavy_ew, self.rule
         for i, ((w, e, g), emit) in enumerate(zip(self.tiers, self.emit)):
             out[T_W + i], out[T_E + i], out[T_G + i], out[T_EMIT + i] = w, e, g, emit
+        for i, (f, e) in enumerate(self.scans):
+            out[T_F + i], out[T_SE + i] = f, e
+        out[T_SCANS], out[T_OV], out[T_WIN] = len(self.scans), self.overlay, self.window
         return out
+
+
+def hybrid_table(tiers: tuple[tuple[int, int, int], ...], scans: tuple[tuple[int, int], ...],
+                 overlay: int, window: int) -> Table:
+    """The hybrid rule's table: the worklist ladder ``tiers`` (none for the
+    loop without a worklist), each tier emitting its own ``w``, and the scan
+    tiers ``scans``; ``overlay`` and ``window`` the capacities of the
+    ``worth`` test."""
+    return Table(tiers=tuple(tiers), emit=tuple(w for w, _, _ in tiers), heavy_ew=0,
+                 rule=HYBRID, scans=tuple(scans), overlay=overlay, window=window)
 
 
 # the dense engine's loop: one arm, the dense round
@@ -255,6 +343,20 @@ def _prime(c: list[int], counts, t: Table) -> None:
     if t.dense:
         # the first active count: no round from a converged state
         c[NA] = counts[3]
+    elif t.hybrid:
+        # the list's counts, and its validity on the device
+        c[CN], c[FED], c[FRE] = counts[0], counts[1], counts[2]
+        c[OK] = int(c0ok != 0 and counts[C0V] != 0)
+        if c[OK]:
+            c[NA], c[XN] = int(c[CN] > 0), -1
+        elif c0ok == 0:
+            # no list: the prologue counted the state, the first scan's counts
+            c[XN], c[XF] = counts[3], counts[4]
+            c[NA] = counts[3]
+        else:
+            # a list that overflowed its buffer: a count first, which
+            # stands for the prime's
+            c[NA], c[XN] = 1, -1
     elif t.proportional:
         # the first round runs whatever the list; a carry left by the
         # corrections is pending
@@ -272,8 +374,26 @@ def _prime(c: list[int], counts, t: Table) -> None:
     c[GO] = int(c[NA] > 0 and 0 < max_rounds)
 
 
+def _decide_hybrid(c: list[int], t: Table) -> int:
+    cn, fed, fre = c[CN], c[FED], c[FRE]
+    k = len(t.tiers)
+    if k and c[OK] and cn <= t.tiers[-1][0] and fed <= t.tiers[-1][1] and fre <= t.tiers[-1][2]:
+        return sum(not (cn <= w and fed <= e and fre <= g) for (w, e, g) in t.tiers[:-1])
+    if c[XN] < 0:
+        return t.count_arm  # a scan needs the exact frontier: count it first
+    xn, xf = c[XN], c[XF]
+    # the reference's worth test, then the smallest scan tier that holds
+    # the frontier
+    worth = (xf + t.overlay) * 2 <= t.window
+    i = sum(not (xn <= f and xf <= e) for (f, e) in t.scans)
+    return k + i if worth and i < len(t.scans) else t.dense_arm
+
+
 def _decide(c: list[int], t: Table) -> int:
     cn, fed, fre = c[CN], c[FED], c[FRE]
+    if t.hybrid:
+        c[BRANCH] = b = _decide_hybrid(c, t)
+        return b
     if t.dense:
         b = 0  # the round, the one arm
     elif t.proportional:
@@ -305,9 +425,51 @@ def _after_scan(c: list[int], counts, t: Table) -> bool:
     return stats
 
 
+def _tally_hybrid(c: list[int], counts, t: Table) -> bool:
+    b = c[BRANCH]
+    k = len(t.tiers)
+    c[EXECS + b] += 1
+    if b == t.count_arm:
+        # not a round: the exact frontier for the scan that follows; before
+        # any round from a list that is not valid, the prime's count
+        c[XN], c[XF] = counts[3], counts[4]
+        if c[ROUNDS] == 0 and not c[OK]:
+            c[NA] = counts[3]
+            c[GO] = int(c[NA] > 0)
+        return bool(c[GO])
+    na, ew = counts[3], counts[4]
+    w_top = t.tiers[-1][0] if k else 0
+    if b < k:
+        # a tier that marked more rows than its own w cut its list
+        cn2 = counts[0] if counts[0] <= t.emit[b] else w_top + 1
+        c[CN], c[FED], c[FRE] = cn2, counts[1], counts[2]
+        c[OK] = int(cn2 <= w_top)
+        c[XN] = -1
+        c[WL_ROUNDS] += 1
+    else:
+        if k:
+            # the reasons, on the counts that sent the round to a scan
+            _, e_top, g_top = t.tiers[-1]
+            c[SCANS_CAND] += int(not c[OK] or c[CN] > w_top)
+            c[SCANS_FED] += int(c[FED] > e_top)
+            c[SCANS_LIV] += int(c[FRE] > g_top)
+        # the reseed's exact counts
+        c[CN], c[FED], c[FRE] = counts[0], counts[1], counts[2]
+        c[OK] = int(k > 0 and c[CN] <= w_top)
+        c[XN], c[XF] = c[CN], c[FED]
+    c[ROUNDS] += 1
+    c[PUSHES] += na
+    c[EDGE_PUSHES] += ew
+    c[NA], c[EW] = na, ew
+    c[GO] = int(na > 0 and c[ROUNDS] < c[MAX_ROUNDS])
+    return bool(c[GO])
+
+
 def _tally(c: list[int], counts, t: Table) -> bool:
     b = c[BRANCH]
     na, ew = counts[3], counts[4]
+    if t.hybrid:
+        return _tally_hybrid(c, counts, t)
     if t.proportional:
         # a drain pushes nothing: its count is whether it left a list, and
         # it keeps the list's validity
@@ -381,10 +543,10 @@ def prime(carry: torch.Tensor, counts, table: Table) -> bool:
 
 def decide(carry: torch.Tensor, table: Table) -> int:
     """The round's branch (``BRANCH``), logged with the counts it read."""
-    ok, cn, fed, fre, pend = (int(carry[i]) for i in (OK, CN, FED, FRE, PEND))
+    ok, cn, fed, fre, pend, xn, xf = (int(carry[i]) for i in (OK, CN, FED, FRE, PEND, XN, XF))
     b = _on_head(carry, _decide, table)
-    _log_at(carry, int(carry[ROUNDS]), 0,
-            [b, ok, cn, fed, fre, 0, pend if table.proportional else 0, 0])
+    last = [xn, xf] if table.hybrid else [pend if table.proportional else 0, 0]
+    _log_at(carry, int(carry[ROUNDS]), 0, [b, ok, cn, fed, fre, 0, *last])
     return b
 
 
@@ -401,6 +563,14 @@ def tally(carry: torch.Tensor, counts, table: Table) -> bool:
     on (``GO``)."""
     counts = _ints(counts)
     rnd = int(carry[ROUNDS])
+    if table.hybrid:
+        # a count is not a round: the next decision writes the row; a
+        # round's row keeps the XN and XF its decision read
+        counted = int(carry[BRANCH]) == table.count_arm
+        go = _on_head(carry, _tally, counts, table)
+        if not counted:
+            _log_at(carry, rnd, 5, [counts[3]])
+        return go
     # the proportional rule's log keeps the pending carry its decision read
     heavy = int(carry[PEND]) if table.proportional else counts[table.heavy_at]
     go = _on_head(carry, _tally, counts, table)
@@ -501,8 +671,9 @@ class LoopGraph:
     { tier_0 | .. | tier_k-1 | scan -> after_scan -> IF { stats } } }``,
     or under the dense rule ``WHILE { turn -> SWITCH { round } }``, under
     the proportional rule ``WHILE { turn -> SWITCH { tier_0 | .. |
-    tier_k-1 | drain | rescan } }``, each arm a clone of the branch's
-    captured graph.
+    tier_k-1 | drain | rescan } }``, under the hybrid rule ``WHILE { turn
+    -> SWITCH { tier_0 | .. | tier_k-1 | scan_0 | .. | scan_ks-1 | dense |
+    count } }``, each arm a clone of the branch's captured graph.
     ``prologue`` and ``branches`` are raw ``cudaGraph_t`` handles (torch's
     ``CUDAGraph(keep_graph=True).raw_cuda_graph()``); the graph reads the
     carry, the counts and the table's values baked in at build."""
@@ -539,16 +710,26 @@ def log_rows(values: list[int]) -> list[list[int]]:
     return [values[HEAD + i * LOG_W: HEAD + (i + 1) * LOG_W] for i in range(n)]
 
 
+def logged(rows: list[list[int]], table: Table) -> list[tuple[int, int]]:
+    """Each logged round's (branch, stats) as the loop made them: what
+    ``replay_log`` gives where the plain steps decide alike (a rule
+    without stats logs other counts in the stats' column)."""
+    return [(row[0], row[7] if table.has_stats else 0) for row in rows]
+
+
 def replay_log(rows: list[list[int]], table: Table, max_rounds: int) -> list[tuple[int, int]]:
     """Each logged round's (branch, stats) as the plain ``decide`` and
     ``after_scan`` choose them from the counts the round logged: equal to
-    the rows' own ``(row[0], row[7])`` where the device decided alike."""
+    ``logged(rows, table)`` where the device decided alike."""
     out = []
-    for rnd, (_, ok, cn, fed, fre, na, heavy, _) in enumerate(rows):
+    for rnd, (_, ok, cn, fed, fre, na, heavy, last) in enumerate(rows):
         c = [0] * HEAD
         c[OK], c[CN], c[FED], c[FRE], c[ROUNDS], c[MAX_ROUNDS] = ok, cn, fed, fre, rnd, max_rounds
-        # the proportional rule logs the pending carry its decision read
+        # the proportional rule logs the pending carry its decision read,
+        # the hybrid rule the exact frontier's counts
         c[PEND] = heavy if table.proportional else 0
+        if table.hybrid:
+            c[XN], c[XF] = heavy, last
         b = _decide(c, table)
         counts = [0, 0, 0, na, 0, 0]
         counts[table.heavy_at] = heavy

@@ -25,10 +25,10 @@ How the port differs:
   turn -> SWITCH { dense round } }`` (``RoundGraphs.loop``), and one read of
   its carry (``PushStats.syncs`` 1); on the CPU a host loop of K4's plain
   steps over the same functions, with a read of the counts a round.
-- ``push_round`` and ``push_round_given_act`` are the reference's rounds
-  on the ring as it lies (gather, then ``index_add_`` in edge blocks, on
-  atomics on CUDA). The hybrid engine's dense fallback calls the latter
-  (``pprx_torch.engine.sparse``); ``push_to_convergence`` calls neither.
+- ``push_round`` is the reference's round on the ring as it lies (gather,
+  then ``index_add_`` in edge blocks, on atomics on CUDA), a plain witness
+  that the tests hold to the reference; no engine calls it (the hybrid
+  engine's dense fallback is ``dense_round_`` too).
 """
 
 from __future__ import annotations
@@ -58,21 +58,13 @@ def push_round(
     state: PprState, graph: WindowGraph, cfg: PprConfig
 ) -> tuple[PprState, torch.Tensor, torch.Tensor]:
     """One dense push round over every active (vertex, query) pair, on the
-    ring as it lies (the hybrid engine's form; ``dense_round_`` is the
-    loop's). Returns (new_state, n_active_pairs, n_edge_pushes), the counts
-    as int64 device scalars.
+    ring as it lies, in edge blocks (``index_add_`` a block; the loop's
+    round is ``dense_round_``). Returns (new_state, n_active_pairs,
+    n_edge_pushes), the counts as int64 device scalars.
     """
-    return push_round_given_act(state, _active_mask(state, graph, cfg), graph, cfg)
-
-
-def push_round_given_act(
-    state: PprState, act: torch.Tensor, graph: WindowGraph, cfg: PprConfig
-) -> tuple[PprState, torch.Tensor, torch.Tensor]:
-    """Dense round with the activity mask supplied by the caller: the
-    hybrid engine's dense fallback, which brings its own mask. New ``p``
-    and ``r``; the ring in edge blocks (``index_add_`` a block)."""
     dtype = state.r.dtype
     alpha = cfg.alpha
+    act = _active_mask(state, graph, cfg)
     mass = torch.where(act, state.r, 0.0)  # [N+1, S]
     deg = graph.deg
     dangling = (deg == 0)[:, None]

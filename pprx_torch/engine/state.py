@@ -76,7 +76,11 @@ class PushStats:
     round or more); and ``stats_reads``: the scan rounds of the wl2 loop
     that ran their next-frontier stats (the light scans that another round
     follows), counted alike on the card and the CPU (the host loop reads
-    the counts a second time after each).
+    the counts a second time after each); and ``arms``: the hybrid loops'
+    executions by kind of arm (``wl`` the worklist tiers, ``sparse`` and
+    ``dense`` the scans, ``count`` the frontier's counts, which are not
+    rounds; ``sparse_by_tier`` the sparse scans by scan tier), from the
+    loop's carry.
     """
 
     rounds: int = 0
@@ -88,6 +92,7 @@ class PushStats:
     scans_liv: int = 0
     syncs: int = 0
     stats_reads: int = 0
+    arms: dict = dataclasses.field(default_factory=dict)
 
     @property
     def scan_rounds(self) -> int:

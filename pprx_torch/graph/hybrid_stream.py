@@ -8,8 +8,19 @@ the worklist loop, seeded with the 4b endpoints the corrections touched,
 or with ``worklist=False`` the single-tier adaptive loop. The CSR snapshot
 is re-sorted from the window, and the overlay cleared, whenever the next
 slide's 2b entries would not fit the overlay (every ``rebuild_every``
-slides). The new batch and its slots go to the device in one int32
-transfer.
+slides). The new batch, its slots and the overlay's fill go to the device
+in one int32 transfer.
+
+The driver's state, window, snapshot, overlay and the window's
+delivery-sorted view (the dense scan's) are its buffers for its whole
+life, and it keeps one ``RoundGraphs``: the slide (the corrections, the
+overlay append at the fill the pack carries, the ring writes, the view's
+rebuild and the first list with its validity, which stays on the device)
+is the loop's prologue, so that on CUDA a slide is one launch of its loop's
+graph and one read of the loop's statistics, as the reference's slide is
+one jitted program. The rebuild writes into the held snapshot and clears
+the overlay in place (``RoundGraphs.run``: on CUDA a replay of its graph, a
+second launch). The seed and ``from_arrays`` take the same loops.
 """
 
 from __future__ import annotations
@@ -22,17 +33,26 @@ import torch
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.convert import state_from_arrays, window_from_arrays
 from pprx_torch.device import resolve_device
+from pprx_torch.engine import loop
+from pprx_torch.engine.graphs import RoundGraphs, copy_into_
+from pprx_torch.engine.segsum import segsum_gather_add_
 from pprx_torch.engine.sparse import (
     HybridGraph,
     _dedup_compact,
+    converge,
+    count_frontier,
+    graph_key,
+    list_counts,
     make_tiers,
     push_to_convergence_hybrid,
     push_to_convergence_worklist,
-    rebuild_snapshot,
+    rebuild_snapshot_,
+    round_graphs_for,
+    scan_tiers,
 )
 from pprx_torch.engine.state import FORWARD, PprState, PushStats, init_state
-from pprx_torch.engine.update import apply_edge_batch
-from pprx_torch.graph.dynamic import WindowGraph
+from pprx_torch.engine.update import apply_edge_batch_
+from pprx_torch.graph.dynamic import DeliveryView, WindowGraph, delivery_view
 
 # The driver's capacities, which a checkpoint carries: a resumed driver runs
 # the writer's, not ones derived again.
@@ -53,44 +73,103 @@ def hybrid_slide_step(
     tiers: tuple[tuple[int, int, int], ...] = (),
     worklist: bool = True,
 ) -> tuple[PprState, HybridGraph, PushStats]:
-    """One window slide. ``ov_count`` is the overlay's fill; the 2b new
-    entries must fit behind it (the reference's ``dynamic_update_slice``
-    would clamp the start and overwrite live entries; the driver rebuilds
-    before that). Rewrites the ring and the overlay in place: callers must
-    not keep the pre-slide graph. ``scan_ecap`` (0: ``ecap``) sizes only
-    the worklist loop's scan rounds."""
-    b = new_src.shape[0]
-    ov = graph.ov
-    if ov_count + 2 * b > ov.src.shape[0]:
+    """One window slide, in place: ``slide_`` on a pack of the batch, its
+    ring ``slots`` and the overlay's fill ``ov_count``, with round buffers
+    and a delivery-sorted view of its own (a driver keeps its own for its
+    life). Returns the same state and graph, and the loop's statistics."""
+    fill = torch.full((1,), ov_count, dtype=torch.int32, device=slots.device)
+    pack = torch.cat([new_src, new_dst, slots, fill]).to(torch.int32)
+    g, view = round_graphs_for(state, graph, None, tiers[-1][0] if worklist else 1, None)
+    stats = slide_(state, graph, view, pack, ov_count, cfg, fcap, ecap, scan_ecap, tiers,
+                   worklist, g)
+    return state, graph, stats
+
+
+def slide_(
+    state: PprState,
+    graph: HybridGraph,
+    view: DeliveryView,
+    pack: torch.Tensor,
+    ov_count: int,
+    cfg: PprConfig,
+    fcap: int,
+    ecap: int,
+    scan_ecap: int,
+    tiers: tuple[tuple[int, int, int], ...],
+    worklist: bool,
+    graphs: RoundGraphs,
+) -> PushStats:
+    """One window slide in place. ``pack`` is int32 ``[3b + 1]`` on the
+    device: the batch's new_src and new_dst, their ring slots, and the
+    overlay's fill ``ov_count``, which the host passes too, to refuse an
+    overflow. ``scan_ecap`` (0: ``ecap``) sizes only the worklist loop's
+    scan rounds. ``graphs`` is bound to ``state``, ``graph``, ``view`` and
+    ``pack``: on CUDA the slide up to its first round is one captured
+    prologue that reads ``pack`` where it lies, and the loop's graph runs
+    it first (``graphs.split_prologue``, a measurement, replays it apart)."""
+    b = (pack.shape[0] - 1) // 3
+    if ov_count + 2 * b > graph.ov.src.shape[0]:
+        # the reference's dynamic_update_slice would clamp the start and
+        # overwrite live entries; the driver rebuilds before that
         raise ValueError(f"overlay overflow: ov_count {ov_count} + 2b {2 * b} > "
-                         f"capacity {ov.src.shape[0]}")
-    scan_ecap = scan_ecap if scan_ecap > 0 else ecap
-    w = graph.window
-    old_src = w.src[slots]
-    old_dst = w.dst[slots]
-    # corrections read the old ring (reverse-mode row sums) and old degrees
-    state, w = apply_edge_batch(state, w, new_src, new_dst, old_src, old_dst, cfg)
-    # overlay: expirations (-1) then insertions (+1) at [ov_count, ov_count + 2b)
-    at = slice(ov_count, ov_count + 2 * b)
-    ov.src[at] = torch.cat([old_src, new_src])
-    ov.dst[at] = torch.cat([old_dst, new_dst])
-    ov.sign[ov_count:ov_count + b] = -1
-    ov.sign[ov_count + b:at.stop] = 1
+                         f"capacity {graph.ov.src.shape[0]}")
+    g = graphs
+    g.hold("the hybrid state, graph and view", state, graph, view)
+    g.hold("a slide's pack", pack)
+    wcap = tiers[-1][0] if worklist else 0
+    front = g.buffer("front", graph.n, torch.bool)
+    prologue = ((*graph_key(state, cfg), "slide", b, wcap),
+                lambda: _slide_prologue(state, graph, view, pack, cfg, g, front, wcap))
+    if g.split_prologue:
+        g.run(*prologue)
+        prologue = None
+    if worklist:
+        scans = scan_tiers(tiers, fcap, scan_ecap if scan_ecap > 0 else ecap)
+        return converge(state, graph, view, cfg, g, tuple(tiers), scans, True, prologue)
+    return converge(state, graph, view, cfg, g, (), ((fcap, ecap),), False, prologue)
+
+
+def _slide_prologue(state: PprState, graph: HybridGraph, view: DeliveryView, pack: torch.Tensor,
+                    cfg: PprConfig, g: RoundGraphs, front: torch.Tensor, wcap: int) -> None:
+    """A slide up to its first round: the corrections, the overlay append,
+    the ring writes, the view's rebuild, and the first list with its counts
+    and validity (``wcap`` > 0), or the state's first count (its rows into
+    ``front``). Shapes depend on ``b`` alone; the overlay's fill is read
+    from ``pack`` on the device."""
+    n = graph.n
+    b = (pack.shape[0] - 1) // 3
+    forward = state.mode == FORWARD
+    new_src, new_dst, slots = pack[:b], pack[b:2 * b], pack[2 * b:3 * b]
+    w, ov = graph.window, graph.ov
+    old_src, old_dst = w.src[slots], w.dst[slots]
+    # corrections read the old degrees, and in reverse mode the old window's
+    # row sums (K1 over the old view: sorted by src, gathering dst)
+    rowsum = None
+    if not forward:
+        rowsum = torch.zeros_like(state.p)
+        segsum_gather_add_(rowsum[:n], state.p, view.gat, view.off)
+    apply_edge_batch_(state, w, new_src, new_dst, old_src, old_dst, cfg, rowsum=rowsum)
+    del rowsum
+    # overlay: expiries (-1) then insertions (+1) at [ov_count, ov_count + 2b)
+    at = (pack[3 * b] + torch.arange(2 * b, device=pack.device)).long()
+    ov.src.index_copy_(0, at, torch.cat([old_src, new_src]))
+    ov.dst.index_copy_(0, at, torch.cat([old_dst, new_dst]))
+    sign = torch.ones(2 * b, dtype=ov.sign.dtype, device=pack.device)
+    sign[:b].fill_(-1)
+    ov.sign.index_copy_(0, at, sign)
     w.src[slots] = new_src
     w.dst[slots] = new_dst
-    graph = HybridGraph(window=w, snap=graph.snap, ov=ov)
-    if not worklist:
-        state, stats = push_to_convergence_hybrid(state, graph, cfg, fcap, ecap)
-        return state, graph, stats
-    # the corrections inject mass only at the 4b batch endpoints: they are
-    # the whole initial candidate set
-    wcap = tiers[-1][0]
-    cand0, c0n = _dedup_compact(torch.cat([old_src, old_dst, new_src, new_dst]), wcap, graph.n)
-    # the list holds at most 4b ids, so it fits without a read where 4b <= wcap
-    cand0_ok = True if 4 * b <= wcap else c0n <= wcap
-    state, stats = push_to_convergence_worklist(
-        state, graph, cfg, cand0, cand0_ok, tiers, fcap, scan_ecap)
-    return state, graph, stats
+    copy_into_(view, delivery_view(w, state.mode))
+    if wcap:
+        # the corrections inject mass only at the 4b batch endpoints: they
+        # are the whole first list; its validity stays on the device
+        cand0, c0n = _dedup_compact(torch.cat([old_src, old_dst, new_src, new_dst]), wcap, n)
+        g.emit(cand0)
+        g.counts[loop.C0V:loop.C0V + 1].copy_((c0n <= wcap).reshape(1))
+        list_counts(graph, state.mode, g, wcap)
+    else:
+        g.counts[:3].zero_()
+        count_frontier(state, graph, cfg, g, front)
 
 
 class HybridStreamDriver:
@@ -146,6 +225,15 @@ class HybridStreamDriver:
         self.ov_count = 0
         self.head = w
         self.step_idx = 0
+        self._hold()
+
+    def _hold(self) -> None:
+        """The delivery-sorted view, the round buffers and the slide's
+        pack, for the driver's life."""
+        self.view = delivery_view(self.graph.window, self.mode)
+        self.round_graphs = RoundGraphs(self.n, self.wcap if self.worklist else 1, self.device,
+                                        n_counts=loop.N_COUNTS)
+        self._pack = torch.zeros(3 * self.scfg.slide + 1, dtype=torch.int32, device=self.device)
 
     @classmethod
     def from_arrays(
@@ -183,20 +271,20 @@ class HybridStreamDriver:
         drv.worklist = bool(tune["worklist"])
         drv.head = int(meta["head"])
         drv.step_idx = int(meta["step_idx"])
+        drv._hold()
         return drv
 
     def seed(self) -> PushStats:
         """Static push on the initial window (the worklist loop starts with
         a scan)."""
+        g, view = self.round_graphs, self.view
         if self.worklist:
             cand0 = torch.full((self.wcap,), self.n, dtype=torch.int32, device=self.device)
-            self.state, stats = push_to_convergence_worklist(
-                self.state, self.graph, self.cfg, cand0, False, self.tiers,
-                self.fcap, self.scan_ecap)
-        else:
-            self.state, stats = push_to_convergence_hybrid(
-                self.state, self.graph, self.cfg, self.fcap, self.ecap)
-        return stats
+            return push_to_convergence_worklist(
+                self.state, self.graph, self.cfg, cand0, False, self.tiers, self.fcap,
+                self.scan_ecap, graphs=g, view=view)[1]
+        return push_to_convergence_hybrid(self.state, self.graph, self.cfg, self.fcap, self.ecap,
+                                          graphs=g, view=view)[1]
 
     @property
     def steps_available(self) -> int:
@@ -212,19 +300,19 @@ class HybridStreamDriver:
             if self.head + b > self.stream_src.shape[0]:
                 return
             if self.ov_count + 2 * b > self.graph.ov.src.shape[0]:
-                self.graph = rebuild_snapshot(self.graph, self.mode)
+                self.round_graphs.run(("rebuild", self.mode),
+                                      lambda: rebuild_snapshot_(self.graph, self.mode))
                 self.ov_count = 0
-            pack = np.concatenate([
+            # the batch's one upload, into the tensor the captured prologue reads
+            self._pack.copy_(torch.from_numpy(np.concatenate([
                 self.stream_src[self.head : self.head + b],
                 self.stream_dst[self.head : self.head + b],
-                (np.arange(self.head, self.head + b) % w).astype(np.int32),
-            ])
-            pack = torch.from_numpy(pack).to(self.device)
-            self.state, self.graph, stats = hybrid_slide_step(
-                self.state, self.graph, pack[:b], pack[b : 2 * b], pack[2 * b :],
-                self.ov_count, self.cfg, self.fcap, self.ecap, self.scan_ecap,
-                self.tiers, self.worklist,
-            )
+                np.arange(self.head, self.head + b) % w,
+                [self.ov_count],
+            ]).astype(np.int32)))
+            stats = slide_(self.state, self.graph, self.view, self._pack, self.ov_count,
+                           self.cfg, self.fcap, self.ecap, self.scan_ecap, self.tiers,
+                           self.worklist, self.round_graphs)
             self.ov_count += 2 * b
             self.head += b
             self.step_idx += 1

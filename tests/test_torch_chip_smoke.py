@@ -284,41 +284,65 @@ def test_sharded_phase_15_on_the_cpu(tmp_path):
 def test_hybrid_phase_16_on_the_cpu(tmp_path):
     """Phase 16 as the card runs it, on the CPU at a small size: the
     headline runner on the hybrid engine, the forward driver (its rebuilds,
-    scan kinds, profile, contract and the fast driver's rate beside it), a
-    checkpoint round trip, reverse within the reverse contract,
-    ``worklist=False`` with sparse scan rounds, and the CLI; no run launches
-    a kernel, which is what the launch check holds every hybrid path to."""
+    rounds by kind, profile, contract and the fast driver's rate beside
+    it), a checkpoint round trip, reverse within the reverse contract,
+    ``worklist=False`` with sparse scan arms, and the CLI. Every path but
+    the checkpoint's read runs hybrid loops (the host loop here: a read
+    after each arm), each tallied by kind of arm; and the launch check
+    holds a path that ran a dense scan, a scan or a count to the kernels
+    those arms launch on the card."""
     dev = torch.device("cpu")
     bench = chip_smoke.hybrid_bench(dev, N=300, W=1500, B=100, S=4, STEPS=2, REPS=2)
     assert bench["device"] == "cpu" and bench["refine_ms"] is None
+    assert bench["loops"]["loops"] > 0 and bench["loops"]["other_loops"] == 0
     shape = dict(n=2000, w=6000, b=300, s=8)
     fwd, drv = chip_smoke.hybrid_forward(dev, n_check=4, **shape)
     assert fwd["rebuild_every"] == 4 and fwd["rebuilds"] == 2 and len(fwd["rounds"]) == 8
     assert fwd["wl_rounds_per_slide"] > 0 and fwd["syncs_per_slide"] > fwd["rounds_per_slide"]
+    # the host loop reads after the prologue and after each arm
+    assert fwd["syncs_per_slide"] == fwd["rounds_per_slide"] + fwd["counts_per_slide"] + 1
+    # the seed starts with a scan (sparse here: the window is small)
+    assert fwd["seed_arms"]["sparse"] + fwd["seed_arms"]["dense"] > 0
     assert fwd["contract"]["l1_max"] <= fwd["contract"]["l1_bound"] == 1e-6 * 6000
     assert len(fwd["profile"]["rounds"]) == 1 and fwd["peak_mem_gib"] is None
     assert fwd["fast_over_hybrid"] > 0 and fwd["fast"]["rebuild_every"] == 3
     assert set(fwd["maintained_precision"]) == {"hybrid", "fast"}
     assert fwd["settled_vs_fast"] <= 1e-5
+    # the seed, 6 warm-up, 8 timed and 1 profiled slides: a loop each
+    assert fwd["loops"]["loops"] == 16 and fwd["loops"]["other_loops"] == 0
     assert drv.steps_available == 3
     ck = chip_smoke.hybrid_checkpoint_check(drv, 4, l1_bound=1e-6 * 6000)
     assert ck["max_abs_settled"] <= 1e-5 and ck["ov_count_saved"] > 0
-    assert ck["rounds"][0] == ck["rounds"][1]
+    assert ck["rounds"][0] == ck["rounds"][1] and ck["loops"]["loops"] == 4
     rev = chip_smoke.hybrid_reverse(dev, n_check=4, **shape)
     assert rev["contract"]["max_abs_err"] <= rev["contract"]["bound"]
+    assert rev["loops"]["arms"]["sparse"] + rev["loops"]["arms"]["dense"] > 0
     nowl = chip_smoke.hybrid_no_worklist(dev, n=2000, w=20_000, b=400, s=4, n_check=4)
     assert nowl["no_worklist_scan_kinds"]["sparse"] > 0
+    assert nowl["no_worklist_scan_kinds"]["count"] == 0
     assert nowl["worklist_rounds"] == nowl["no_worklist_rounds"]
     graph = str(tmp_path / "g.npz")
     save_packed(graph, *synthetic_powerlaw_stream(2000, 6000 + 6 * 300, seed=7))
     cli = chip_smoke.hybrid_cli(dev, str(tmp_path), graph, 6000, 300, 8, k=10)
     assert set(cli) == set(chip_smoke.HYBRID_CLI_PATHS)
-    by_path = {"hybrid_forward": fwd["launches_by_entry"], **{
-        p: r["launches_by_entry"] for p, r in cli.items()}}
-    assert chip_smoke.check_no_launch(by_path) == by_path
-    by_path["hybrid_forward"] = {"segsum_add": 0, "segsum_gather_add": 1}
-    with pytest.raises(AssertionError, match="hybrid_forward runs plain torch ops"):
-        chip_smoke.check_no_launch(by_path)
+    assert all(cli[p]["loops"]["loops"] == 5 for p in chip_smoke.HYBRID_CLI_PATHS[:2])
+    runs = {"hybrid_bench": bench, "hybrid_forward": fwd, "hybrid_checkpoint": ck,
+            "hybrid_reverse": rev, "hybrid_no_worklist": nowl,
+            **{p: cli[p] for p in chip_smoke.HYBRID_CLI_PATHS[:2]}}
+    # the CPU launches no kernel: the check, held to what the card launches
+    card = {"loop_prime": 1, "loop_turn": 3, "segsum_gather_add": 2, "scan_pass": 2,
+            "frontier_rows": 4, "segsum_add": 0}
+    by_path = {p: (card, r["loops"]["arms"]) for p, r in runs.items()}
+    assert chip_smoke.check_hybrid_launched(by_path) == {p: card for p in runs}
+    every = {"wl": 1, "sparse": 1, "dense": 1, "count": 1}
+    for entry in ("frontier_rows", "segsum_gather_add", "scan_pass", "loop_prime", "loop_turn"):
+        by_path["hybrid_reverse"] = ({**card, entry: 0}, every)
+        with pytest.raises(AssertionError, match=f"hybrid_reverse ran .* never launched "
+                                                 f"\\['{entry}'\\]"):
+            chip_smoke.check_hybrid_launched(by_path)
+    # a path with no dense scan need not launch K1 or K2
+    arms = {"wl": 3, "sparse": 1, "dense": 0, "count": 1}
+    assert chip_smoke.check_hybrid_launched({"p": ({**card, "scan_pass": 0}, arms)})
 
 
 def test_row_pass_phase_on_the_cpu(monkeypatch):
@@ -358,8 +382,10 @@ def test_row_pass_phase_on_the_cpu(monkeypatch):
                 "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(entry)
         assert entry["library_ms"] is None and entry["launches"] == launches["forward"][name]
         assert len(entry["cases"]) == (12 if name == "scan_pass" else 6)
-    with pytest.raises(AssertionError, match="hybrid_forward runs plain torch ops"):
-        chip_smoke.check_no_launch({"hybrid_forward": {"segsum_add": 0, "scan_pass": 1}})
+    with pytest.raises(AssertionError, match=r"hybrid_forward ran .* never launched"):
+        chip_smoke.check_hybrid_launched({"hybrid_forward": (
+            {"loop_prime": 1, "loop_turn": 2, "scan_pass": 0, "segsum_gather_add": 1,
+             "frontier_rows": 1}, {"wl": 0, "sparse": 0, "dense": 1, "count": 0})})
 
 
 def test_config5_turn_on_the_cpu():
@@ -530,6 +556,14 @@ def test_loop_control_entries_and_turn_shape():
     assert set(chip_smoke.K4_TIMED) == set(loop.STEPS)
     for step, name in chip_smoke.K4_TIMED.items():
         assert chip_smoke.k4_launch(cases[name])[0] == step
+    # the hybrid rule's prime and turn are timed too, on its own cases
+    assert set(chip_smoke.K4_TIMED_HYBRID) == {"prime", "turn"}
+    for step, name in chip_smoke.K4_TIMED_HYBRID.items():
+        assert chip_smoke.k4_launch(cases[name])[0] == step
+        assert chip_smoke.k4_table(cases[name]) is chip_smoke.K4_HYBRID
+    k4["hybrid_turn"] = dict(timing)
+    assert chip_smoke.loop_entry("turn", k4, launches)["hybrid"] == timing
+    assert chip_smoke.loop_entry("after_scan", k4, launches)["hybrid"] is None
     assert "loop_control" not in {sh["tag"] for sh in chip_smoke.turn_shapes()}
     assert len(chip_smoke.turn_shapes()) == 7
     assert chip_smoke.turns(["--shapes", "loop_control"]) == 0

@@ -312,10 +312,19 @@ def test_bench_without_config_runs_the_headline(monkeypatch, capsys):
      "retrieve: --f64 on cuda: the dense engine's kernels"),
     (["stream", "G", "--window", "300", "--slide", "30", "--engine", "dense", "--f64",
       "--device", "cuda"], "stream --engine dense: --f64 on cuda: the dense engine's kernels"),
+    # so do the hybrid engine's dense scans, and the sharded dense engine's
+    # rounds in a world of one shard
+    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "hybrid", "--f64",
+      "--device", "cuda"], "stream --engine hybrid: --f64 on cuda: the hybrid engine's kernels"),
+    (["stream", "G", "--window", "300", "--slide", "30", "--engine", "sharded", "--mesh", "1,1",
+      "--f64", "--device", "cuda"],
+     "stream --engine sharded: --f64 on cuda: the sharded dense engine's kernels in a world "
+     "of one shard"),
 ], ids=["sharded", "static-query-n",
         "static-query-negative", "stream-query", "dense-query", "retrieve-query", "serve-query",
         "serve-reverse", "stream-f64-cuda", "serve-f64-cuda", "retrieve-f64-cuda",
-        "static-f64-cuda", "retrieve-cold-f64-cuda", "stream-dense-f64-cuda"])
+        "static-f64-cuda", "retrieve-cold-f64-cuda", "stream-dense-f64-cuda",
+        "stream-hybrid-f64-cuda", "stream-sharded-f64-cuda"])
 def test_refusals_name_the_reason(graph_npz, monkeypatch, argv, reason):
     """What the port does not run exits with a message that names why, before
     any state is built (the f64 refusals before any device is touched)."""
@@ -327,6 +336,7 @@ def test_refusals_name_the_reason(graph_npz, monkeypatch, argv, reason):
     monkeypatch.setattr(tstate, "init_state", no_state)
     monkeypatch.setattr("pprx_torch.graph.fast_stream.init_state", no_state)
     monkeypatch.setattr("pprx_torch.graph.stream.init_state", no_state)
+    monkeypatch.setattr("pprx_torch.graph.hybrid_stream.init_state", no_state)
     argv = [graph_npz if a == "G" else a for a in argv]
     with pytest.raises(SystemExit, match=reason):
         tcli.main(argv)

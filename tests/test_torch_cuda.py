@@ -513,8 +513,8 @@ def test_checkpoint_round_trip_on_card(tmp_path):
 def test_cli_fast_engine_refuses_f64_on_card(tmp_path):
     """``--f64`` meets the kernels' types: the fast engine's subcommands
     exit with the reason before any work (its kernel takes f32 or bf16), and
-    so does the dense engine's stream (its kernels take f32); the hybrid
-    engine runs f64 on the card, launching no kernel."""
+    so do the dense and the hybrid engines' streams (their kernels take
+    f32), launching nothing."""
     from pprx_torch import cli
     from pprx_torch.graph.io import save_packed
 
@@ -529,8 +529,9 @@ def test_cli_fast_engine_refuses_f64_on_card(tmp_path):
     with pytest.raises(SystemExit, match="the dense engine's kernels .* take f32 only"):
         cli.main(["stream", graph, "--window", "300", "--slide", "30", "--steps", "2", "--f64",
                   "--engine", "dense", "--device", str(dev)])
-    cli.main(["stream", graph, "--window", "300", "--slide", "30", "--steps", "2", "--f64",
-              "--engine", "hybrid", "--log", str(tmp_path / "log.jsonl")])
+    with pytest.raises(SystemExit, match="the hybrid engine's kernels .* take f32 only"):
+        cli.main(["stream", graph, "--window", "300", "--slide", "30", "--steps", "2", "--f64",
+                  "--engine", "hybrid", "--log", str(tmp_path / "log.jsonl")])
     assert segsum.launches() == before
 
 
@@ -771,14 +772,39 @@ def test_hybrid_stream_on_card_matches_cpu(mode, worklist):
     """The hybrid driver on the card (f32) and on the CPU (f64), 8 slides
     across rebuilds: each query held to exact PPR on the final window
     (forward: L1 within eps * W and mass within 1e-3; reverse: within
-    2 eps), the two states within 1e-5, and no segment-sum launch."""
+    2 eps), the two states within 1e-5; on the card each loop (the seed's,
+    each slide's) one loop graph launch and one read of its carry, with no
+    loop on the host, K4 launched, K3 by every scan and count, and K1 and
+    K2 by every dense scan (the seed's first scans)."""
+    from pprx_torch.engine import loop, rowpass
+    from pprx_torch.engine.graphs import RoundGraphs
+
     dev = _cuda()
     gpu, cpu = _hybrid_pair(dev, mode, worklist)
-    before = segsum.launches()
+    before = (dict(segsum.LAUNCHES), dict(rowpass.LAUNCHES), dict(loop.LAUNCHES))
+
+    def refused(*a, **k):
+        raise AssertionError("a hybrid loop ran on the host on the card")
+
     for d in (gpu, cpu):
-        d.seed()
-        assert len(list(d.run(8))) == 8
-    assert segsum.launches() == before
+        with pytest.MonkeyPatch.context() as mp:
+            if d is gpu:
+                mp.setattr(RoundGraphs, "host_loop", refused)
+            st = [d.seed(), *d.run(8)]
+        assert len(st) == 9
+        if d is gpu:
+            assert all(s.syncs == 1 for s in st)
+            arms = {k: sum(s.arms[k] for s in st) for k in ("wl", "sparse", "dense", "count")}
+            turns = sum(s.rounds + s.arms["count"] + 1 for s in st if s.rounds + s.arms["count"])
+    g = gpu.round_graphs.summary()
+    assert g["loop_launches"] == g["reads"] == 9
+    assert arms["sparse"] + arms["dense"] > 0
+    assert segsum.launches("segsum_gather_add", since=before[0]) >= arms["dense"]
+    assert rowpass.launches("scan_pass", since=before[1]) == arms["dense"]
+    assert rowpass.launches("frontier_rows", since=before[1]) >= (
+        arms["sparse"] + arms["dense"] + arms["count"])
+    assert loop.launches("prime", since=before[2]) == 9
+    assert loop.launches("turn", since=before[2]) == turns
     assert gpu.state.p.device.type == "cuda"
     n, w, head = gpu.n, gpu.scfg.window, gpu.head
     hs, hd = gpu.stream_src[head - w:head], gpu.stream_dst[head - w:head]
@@ -799,10 +825,10 @@ def test_hybrid_stream_on_card_matches_cpu(mode, worklist):
 def test_hybrid_checkpoint_on_card(tmp_path):
     """A hybrid checkpoint saved on the card loads on the card and on the
     CPU with the writer's tuning; one slide each: the same state to 1e-5
-    (the scatters use atomics on CUDA), and no segment-sum launch."""
+    (the scatters use atomics on CUDA); the loaded driver on the card runs
+    its slide as one loop graph launch and one read."""
     dev = _cuda()
     a, _ = _hybrid_pair(dev, 0, True, ecap=64)
-    before = segsum.launches()
     a.seed()
     list(a.run(4))
     path = str(tmp_path / "ck.npz")
@@ -817,35 +843,45 @@ def test_hybrid_checkpoint_on_card(tmp_path):
         assert d.ecap == 64
     for d in (a, b, c):
         list(d.run(1))
-    assert segsum.launches() == before
+    summary = b.round_graphs.summary()
+    assert summary["loop_launches"] == summary["reads"] == 1
     for d in (b, c):
         assert settled_distance(a.state, d.state, 0.15) <= 1e-5
 
 
 @pytest.mark.cuda
 def test_cli_hybrid_engine_on_card(tmp_path, capsys):
-    """``stream --engine hybrid`` runs on the card in f32 and in f64 (plain
-    torch ops: no dtype refusal), both modes, and ``retrieve
-    --from-checkpoint`` reads its file; nothing launches the kernel."""
+    """``stream --engine hybrid`` with ``--f64`` on the card exits before any
+    work (its kernels take f32); in f32 it runs both modes, each loop a loop
+    graph under K4 (its prime launched once a loop: the seed's and 2
+    slides'), and ``retrieve --from-checkpoint`` reads its file, pushing
+    nothing."""
     import json
 
     from pprx_torch import cli
+    from pprx_torch.engine import loop
     from pprx_torch.graph.io import save_packed
 
     _cuda()
     graph, ck = str(tmp_path / "g.npz"), str(tmp_path / "ck.npz")
     save_packed(graph, *synthetic_powerlaw_stream(50, 600, seed=1))
-    before = segsum.launches()
-    for extra in (["--f64"], ["--mode", "rev"], ["--checkpoint", ck, "--checkpoint-every", "2"]):
-        cli.main(["stream", graph, "--window", "300", "--slide", "30", "--steps", "2",
-                  "--engine", "hybrid", "--queries", "0,3", "--log",
-                  str(tmp_path / "log.jsonl"), *extra])
+    argv = ["stream", graph, "--window", "300", "--slide", "30", "--steps", "2", "--engine",
+            "hybrid", "--queries", "0,3", "--log", str(tmp_path / "log.jsonl")]
+    before, k4 = segsum.launches(), dict(loop.LAUNCHES)
+    with pytest.raises(SystemExit, match="the hybrid engine's kernels .* take f32 only"):
+        cli.main([*argv, "--f64"])
+    assert segsum.launches() == before and loop.launches(since=k4) == 0
+    for extra in (["--mode", "rev"], ["--checkpoint", ck, "--checkpoint-every", "2"]):
+        k4 = dict(loop.LAUNCHES)
+        cli.main([*argv, *extra])
         out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert out["steps"] == 2 and out["device"] == torch.cuda.get_device_name(0)
+        assert loop.launches("prime", k4) == 3 and loop.launches("turn", k4) > 3
+    before, k4 = segsum.launches(), dict(loop.LAUNCHES)
     cli.main(["retrieve", graph, "--from-checkpoint", ck, "--k", "5"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["batch"] == 2 and len(out["top1"]) == 2
-    assert segsum.launches() == before
+    assert segsum.launches() == before and loop.launches(since=k4) == 0
 
 
 # ---- the convergence rounds as captured CUDA graphs (pprx_torch.engine.graphs)
@@ -1899,3 +1935,77 @@ def test_sharded_dense_and_wlp_device_loops_give_the_host_loops(monkeypatch, mod
     assert settled_distance(a, c, drv.cfg.alpha) <= 1e-5
     for d in (drv, host):
         _exact_on_window(d, dev)
+
+
+# ---- the hybrid engine's loops (pprx_torch.engine.sparse): one loop graph
+# a loop under K4's hybrid rule
+
+@pytest.mark.cuda
+def test_k4_hybrid_rule_equals_its_plain_steps():
+    """K4 under the hybrid rule (``chip_smoke.K4_HYBRID``, and without a
+    worklist ``K4_NOWL``: the tiers, the scan tiers, the dense scan and the
+    count; the first list's validity in the counts' sixth slot) against
+    its plain steps on each ``hybrid_*`` and ``nowl_*`` case, through the
+    kernel the loop graph launches for it: the whole carry equal; and loop
+    graphs of fill-kernel arms leave the host loop's carry, each arm's
+    executions and K4's launches (``chip_smoke.hybrid_loop_check``)."""
+    import chip_smoke
+    from pprx_torch.engine import loop
+
+    dev = _cuda()
+    cases = [c for c in chip_smoke.K4_CASES if c[0].startswith(("hybrid_", "nowl_"))]
+    assert len(cases) == 37
+    for case in cases:
+        table = chip_smoke.k4_table(case)
+        step, carry, counts = chip_smoke.k4_launch(case)
+        assert table.hybrid and counts.numel() == loop.N_COUNTS
+        want = carry.clone()
+        loop.step_(step, want, counts, table)
+        got = carry.to(dev)
+        loop.step_(step, got, counts.to(dev), table)
+        assert torch.equal(got.cpu(), want), case[0]
+    res = chip_smoke.hybrid_loop_check(dev)
+    assert [v["rounds"] for v in res.values()] == [5, 3, 0, 4, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, REVERSE])
+def test_hybrid_loop_graph_leaves_the_host_loops_state(monkeypatch, mode):
+    """``push_to_convergence_hybrid`` on the card (one loop graph launch,
+    one read) over a window whose overlay is too big for a sparse scan to
+    be worth it, against the same loop forced onto the host loop on the
+    same card and inputs: the same rounds, pushes and edge pushes, and
+    ``p`` and ``r`` bit for bit (every round the dense scan: K2, then K1
+    without atomics); each round launched K2 and K1 once, K3 once a round
+    and once for the first count, K4's prime once and turn R + 1 times."""
+    from pprx_torch.engine import loop, rowpass, sparse
+    from pprx_torch.engine.graphs import RoundGraphs
+    from pprx_torch.graph.dynamic import WindowGraph
+
+    dev = _cuda()
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
+
+    def inputs():
+        src, dst, n = synthetic_powerlaw_stream(3000, 30_000, seed=4)
+        w = WindowGraph.from_coo(src, dst, n, device=dev)
+        return sparse.HybridGraph.build(w, mode, 30_000), init_state(
+            n, list(range(8)), mode=mode, device=dev)
+
+    graph, st = inputs()
+    before = (dict(segsum.LAUNCHES), dict(rowpass.LAUNCHES), dict(loop.LAUNCHES))
+    _, stats = sparse.push_to_convergence_hybrid(st, graph, cfg, graph.n + 1, 30_000)
+    torch.cuda.synchronize()
+    rounds = stats.rounds
+    assert rounds > 1 and stats.syncs == 1 and stats.arms["dense"] == rounds
+    assert segsum.launches("segsum_gather_add", since=before[0]) == rounds
+    assert {k: rowpass.LAUNCHES[k] - before[1][k] for k in before[1]} == {
+        "scan_pass": rounds, "frontier_rows": rounds + 1}
+    assert {k: loop.LAUNCHES[k] - before[2][k] for k in before[2]} == {
+        "prime": 1, "turn": rounds + 1, "after_scan": 0}
+    graph2, st2 = inputs()
+    monkeypatch.setattr(RoundGraphs, "loop", RoundGraphs.host_loop)
+    _, host = sparse.push_to_convergence_hybrid(st2, graph2, cfg, graph2.n + 1, 30_000)
+    assert (host.rounds, host.pushes, host.edge_pushes) == (rounds, stats.pushes,
+                                                            stats.edge_pushes)
+    assert host.syncs == rounds + 1
+    assert torch.equal(st.p, st2.p) and torch.equal(st.r, st2.r)

@@ -60,7 +60,9 @@ def test_hybrid_stream_matches_jax(mode, worklist, shape):
     sb = list(b.run(10))
     assert [_stats(s) for s in sb] == sa
     for s in sb:
-        assert s.syncs >= s.rounds + 1  # one read a round, one for the list
+        # the host loop: a read after the prologue, one after each arm (a
+        # round, or a count of the frontier)
+        assert s.syncs == s.rounds + s.arms["count"] + 1
     np.testing.assert_allclose(b.state.p.numpy(), np.asarray(a.state.p), rtol=0, atol=1e-12)
     np.testing.assert_allclose(b.state.r.numpy(), np.asarray(a.state.r), rtol=0, atol=1e-12)
     assert (b.head, b.step_idx, b.ov_count) == (a.head, a.step_idx, a.ov_count)
@@ -130,3 +132,32 @@ def test_idle_slide_runs_no_round():
     (sa,), (sb,) = list(a.run(1)), list(b.run(1))
     assert _stats(sb) == _stats(sa) and isinstance(sb, PushStats)
     assert sb.rounds == 1 and sb.pushes == 0 and sb.syncs == 2
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_captured_steps_take_nothing_from_the_host(monkeypatch, mode):
+    """Every step the driver captures on the card (the seed's first count,
+    the slide's prologue, the worklist tiers, the sparse and dense scans,
+    the count, the rebuild) runs here under the dispatch mode that finds
+    host values (tests/test_torch_fast_stream.py's): a capture on the card
+    refuses them. Both loops, on streams whose scans run sparse and dense,
+    over rebuilds: every step kind, none takes a host value."""
+    from pprx_torch.engine.graphs import RoundGraphs
+    from tests.test_torch_fast_stream import _HostValues
+
+    watch = _HostValues()
+    kinds = set()
+    run = RoundGraphs.run
+
+    def watched(g, key, fn):
+        kinds.update(k for k in key if isinstance(k, str))
+        with watch:
+            run(g, key, fn)
+
+    monkeypatch.setattr(RoundGraphs, "run", watched)
+    for worklist, shape in ((True, "tight"), (True, "default"), (False, "tight")):
+        _, b = _drivers(mode, worklist, shape)
+        b.seed()
+        list(b.run(4))
+    assert kinds == {"hybrid", "first", "slide", "tier", "scan", "dense", "count", "rebuild"}
+    assert watch.taken == []

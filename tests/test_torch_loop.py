@@ -238,6 +238,98 @@ EXPECTED = {
         L.PENDING: 0, "log": {5: {5: 9, 6: 0, 7: 0}}},
     "prop_turn_nothing_pending": {L.BRANCH: 4, L.PENDING: 1,
                                   "log": {2: [4, 0, 1, 1, 1, 0, 0, 0]}},
+    # the hybrid rule, written from pprx/engine/sparse.py:457-559 and
+    # :153-201: a valid list goes while it has a candidate (:547), else the
+    # first count (:550); use_wl is the list's validity and the top tier's
+    # fit (:480), the tier a count of misses (:498-504); a scan's arm the
+    # smallest scan tier that holds the exact frontier where worth it
+    # (:176, :187-200), else dense (arms 3-5, 6); a scan counts the
+    # frontier first (arm 7, not a round) where a worklist round left
+    # bounds; a tier past its own w pushes cn past wcap (:484); a scan
+    # tallies its reasons on the counts that sent it there (:531-533) and
+    # leaves the reseed's exact counts, valid where they fit wcap (:539)
+    "hybrid_prime_valid_list": {L.CN: 3, L.FED: 9, L.FRE: 2, L.OK: 1, L.NA: 1, L.XN: -1,
+                                L.GO: 1},
+    "hybrid_prime_empty_list": {L.OK: 1, L.NA: 0, L.XN: -1, L.GO: 0},
+    "hybrid_prime_counted": {L.OK: 0, L.XN: 5, L.XF: 70, L.NA: 5, L.GO: 1},
+    "hybrid_prime_counted_converged": {L.NA: 0, L.GO: 0},
+    "hybrid_prime_list_overflowed": {L.CN: 256, L.FED: 900, L.FRE: 30, L.OK: 0, L.NA: 1,
+                                     L.XN: -1, L.GO: 1},
+    "hybrid_prime_no_rounds": {L.CN: 3, L.FED: 9, L.FRE: 2, L.OK: 1, L.NA: 1, L.XN: -1,
+                               L.GO: 0},
+    "hybrid_decide_tier0": {L.BRANCH: 0, "log": {2: [0, 1, 8, 32, 4, 0, -1, 0]}},
+    "hybrid_decide_fed_skips_tier1": {L.BRANCH: 2, "log": {2: [2, 1, 9, 600, 0, 0, -1, 0]}},
+    "hybrid_decide_count_past_top": {L.BRANCH: 7, "log": {2: [7, 1, 257, 1, 1, 0, -1, 0]}},
+    "hybrid_decide_count_invalid_list": {L.BRANCH: 7, "log": {2: [7, 0, 1, 1, 1, 0, -1, 0]}},
+    "hybrid_decide_scan_tier0": {L.BRANCH: 3, "log": {2: [3, 0, 1, 1, 1, 0, 8, 32]}},
+    "hybrid_decide_scan_tier1": {L.BRANCH: 4, "log": {2: [4, 0, 1, 1, 1, 0, 9, 32]}},
+    "hybrid_decide_worth_border": {L.BRANCH: 5, "log": {2: [5, 0, 1, 1, 1, 0, 5, 4900]}},
+    "hybrid_decide_not_worth": {L.BRANCH: 6, "log": {2: [6, 0, 1, 1, 1, 0, 5, 4901]}},
+    "hybrid_decide_rows_past_top": {L.BRANCH: 6, "log": {2: [6, 0, 1, 1, 1, 0, 1002, 10]}},
+    "hybrid_decide_valid_list_over_top_edges": {
+        L.BRANCH: 5, "log": {2: [5, 1, 40, 3000, 5, 0, 40, 3000]}},
+    "hybrid_decide_past_the_log": {L.BRANCH: 0},
+    "hybrid_tally_tier_list": {
+        L.CN: 8, L.FED: 100, L.FRE: 3, L.OK: 1, L.NA: 12, L.EW: 400, L.ROUNDS: 3,
+        L.PUSHES: 112, L.EDGE_PUSHES: 1400, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 1,
+        "log": {2: {5: 12}}},
+    "hybrid_tally_tier_cut": {
+        L.CN: 257, L.FED: 100, L.FRE: 3, L.OK: 0, L.NA: 12, L.EW: 400, L.ROUNDS: 3,
+        L.PUSHES: 112, L.EDGE_PUSHES: 1400, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 1,
+        "log": {2: {5: 12}}},
+    "hybrid_tally_top_tier_cut": {
+        L.CN: 257, L.FED: 100, L.FRE: 3, L.OK: 0, L.NA: 12, L.EW: 400, L.ROUNDS: 3,
+        L.PUSHES: 112, L.EDGE_PUSHES: 1400, L.WL_ROUNDS: 2, L.EXECS + 2: 1, L.GO: 1,
+        "log": {2: {5: 12}}},
+    "hybrid_tally_sparse_scan": {
+        L.CN: 30, L.FED: 200, L.FRE: 5, L.OK: 1, L.XN: 30, L.XF: 200, L.NA: 9, L.EW: 100,
+        L.ROUNDS: 3, L.PUSHES: 109, L.EDGE_PUSHES: 1100, L.SCANS_CAND: 2, L.SCANS_FED: 1,
+        L.SCANS_LIV: 1, L.EXECS + 4: 1, L.GO: 1, "log": {2: {5: 9}}},
+    "hybrid_tally_dense_scan": {
+        L.CN: 300, L.FED: 9000, L.FRE: 70, L.OK: 0, L.XN: 300, L.XF: 9000, L.NA: 50,
+        L.EW: 800, L.ROUNDS: 3, L.PUSHES: 150, L.EDGE_PUSHES: 1800, L.SCANS_FED: 1,
+        L.EXECS + 6: 1, L.GO: 1, "log": {2: {5: 50}}},
+    "hybrid_tally_count": {L.XN: 40, L.XF: 50, L.EXECS + 7: 1},
+    "hybrid_tally_prime_count": {L.XN: 12, L.XF: 90, L.NA: 12, L.GO: 1, L.EXECS + 7: 1},
+    "hybrid_tally_prime_count_converged": {L.XN: 0, L.XF: 0, L.NA: 0, L.GO: 0,
+                                           L.EXECS + 7: 1},
+    "hybrid_tally_reaches_max_rounds": {
+        L.CN: 1, L.FED: 1, L.FRE: 1, L.OK: 1, L.NA: 9, L.EW: 10, L.ROUNDS: 6,
+        L.PUSHES: 109, L.EDGE_PUSHES: 1010, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 0,
+        "log": {5: {5: 9}}},
+    "hybrid_tally_no_active": {
+        L.CN: 0, L.FED: 0, L.FRE: 0, L.OK: 1, L.XN: 0, L.XF: 0, L.NA: 0, L.EW: 0,
+        L.ROUNDS: 3, L.EXECS + 3: 2, L.GO: 0, "log": {2: {5: 0}}},
+    "hybrid_turn_tier_then_count": {
+        L.CN: 257, L.FED: 100, L.FRE: 3, L.OK: 0, L.NA: 12, L.EW: 400, L.ROUNDS: 3,
+        L.PUSHES: 112, L.EDGE_PUSHES: 1400, L.WL_ROUNDS: 2, L.EXECS: 2, L.GO: 1,
+        L.BRANCH: 7, L.PENDING: 1,
+        "log": {2: {5: 12}, 3: [7, 0, 257, 100, 3, 0, -1, 0]}},
+    "hybrid_turn_count_then_scan": {
+        L.XN: 40, L.XF: 50, L.EXECS + 7: 1, L.BRANCH: 4, L.PENDING: 1,
+        "log": {2: [4, 0, 257, 100, 3, 0, 40, 50]}},
+    "hybrid_turn_prime_count_ends": {L.XN: 0, L.XF: 0, L.NA: 0, L.GO: 0, L.EXECS + 7: 1,
+                                     L.PENDING: 0},
+    "hybrid_turn_scan_then_tier": {
+        L.CN: 6, L.FED: 20, L.FRE: 2, L.OK: 1, L.XN: 6, L.XF: 20, L.NA: 9, L.EW: 50,
+        L.ROUNDS: 3, L.PUSHES: 109, L.EDGE_PUSHES: 1050, L.SCANS_CAND: 2, L.EXECS + 3: 2,
+        L.GO: 1, L.BRANCH: 0, L.PENDING: 1,
+        "log": {2: {5: 9}, 3: [0, 1, 6, 20, 2, 0, 6, 20]}},
+    "hybrid_turn_nothing_pending": {L.BRANCH: 3, L.PENDING: 1,
+                                    "log": {2: [3, 0, 1, 1, 1, 0, 8, 32]}},
+    # without a worklist (pprx/engine/sparse.py:562-586): the first count,
+    # then scans alone, each leaving the next exact counts; no reasons
+    "nowl_prime_counted": {L.OK: 0, L.XN: 5, L.XF: 70, L.NA: 5, L.GO: 1},
+    "nowl_decide_sparse": {L.BRANCH: 0, "log": {2: [0, 0, 1, 1, 1, 0, 5, 70]}},
+    "nowl_decide_dense": {L.BRANCH: 1, "log": {2: [1, 0, 1, 1, 1, 0, 1002, 70]}},
+    "nowl_tally_scan": {
+        L.CN: 4, L.FED: 60, L.FRE: 0, L.OK: 0, L.XN: 4, L.XF: 60, L.NA: 9, L.EW: 100,
+        L.ROUNDS: 3, L.PUSHES: 109, L.EDGE_PUSHES: 1100, L.EXECS: 2, L.GO: 1,
+        "log": {2: {5: 9}}},
+    "nowl_turn_scan_then_dense": {
+        L.CN: 2000, L.FED: 100, L.FRE: 0, L.OK: 0, L.XN: 2000, L.XF: 100, L.NA: 9, L.EW: 100,
+        L.ROUNDS: 3, L.PUSHES: 109, L.EDGE_PUSHES: 1100, L.EXECS: 2, L.GO: 1, L.BRANCH: 1,
+        L.PENDING: 1, "log": {2: {5: 9}, 3: [1, 0, 2000, 100, 0, 0, 2000, 100]}},
 }
 
 CASES = {case[0]: case for case in chip_smoke.K4_CASES}
@@ -293,7 +385,7 @@ def test_slots_match_the_kernel_source():
              "ScansCand": L.SCANS_CAND, "ScansFed": L.SCANS_FED, "ScansLiv": L.SCANS_LIV,
              "StatsReads": L.STATS_READS, "Branch": L.BRANCH, "Heavy": L.HEAVY,
              "Stats": L.STATS, "Go": L.GO, "Execs": L.EXECS, "Pending": L.PENDING,
-             "Pend": L.PEND, "Head": L.HEAD,
+             "Pend": L.PEND, "Head": L.HEAD, "Xn": L.XN, "Xf": L.XF,
              "Tiers": L.T_TIERS, "HeavyEw": L.T_HEAVY, "Rule": L.T_RULE, "W": L.T_W}
     assert {k: enums[k] for k in pairs} == pairs
     consts = dict(re.findall(r"constexpr int k(\w+) = (\d+);", src))
@@ -305,12 +397,20 @@ def test_slots_match_the_kernel_source():
     assert {k: enums[k] for k in ("Prime", "Turn", "AfterScan")} == {
         "Prime": L.STEPS.index("prime"), "Turn": L.STEPS.index("turn"),
         "AfterScan": L.STEPS.index("after_scan")}
-    assert (L.T_E, L.T_G, L.T_EMIT, L.TAB) == tuple(
-        L.T_W + i * L.MAX_TIERS for i in (1, 2, 3, 4))
+    assert (L.T_E, L.T_G, L.T_EMIT, L.T_F, L.T_SE, L.T_SCANS) == tuple(
+        L.T_W + i * L.MAX_TIERS for i in (1, 2, 3, 4, 5, 6))
+    assert (L.T_OV, L.T_WIN, L.TAB) == (L.T_SCANS + 1, L.T_SCANS + 2, L.T_SCANS + 3)
+    assert ("kF = kEmit + kMaxTiers, kSE = kF + kMaxTiers, kScans = kSE + kMaxTiers, "
+            "kOv = kScans + 1,\n  kWin = kOv + 1,\n  kTabLen = kWin + 1,") in src
     # the rules a table names
-    assert {k: enums[k] for k in ("Wl2", "Sharded", "Dense", "Proportional")} == {
-        "Wl2": L.WL2, "Sharded": L.SHARDED, "Dense": L.DENSE, "Proportional": L.PROPORTIONAL}
+    assert {k: enums[k] for k in ("Wl2", "Sharded", "Dense", "Proportional", "Hybrid")} == {
+        "Wl2": L.WL2, "Sharded": L.SHARDED, "Dense": L.DENSE, "Proportional": L.PROPORTIONAL,
+        "Hybrid": L.HYBRID}
     assert L.N_PEND == L.EWR  # the proportional rule's pending carry takes ewr's slot
+    # and the hybrid rule's first list's validity
+    assert L.C0V == L.EWR and "constexpr int kC0v = kEwr;" in src
+    assert "constexpr int kMaxBranches = kMaxTiers + 2;" in src
+    assert L.MAX_BRANCHES == L.MAX_TIERS + 2
     assert L.DENSE_TABLE.values()[L.T_RULE] == L.DENSE
 
 
@@ -348,12 +448,25 @@ def test_table_refuses_a_ladder_it_cannot_hold():
     with pytest.raises(ValueError, match="dense rule takes no tiers"):
         loop.Table(tiers=((1, 1, 1),), emit=(1,), heavy_ew=1, rule=loop.DENSE)
     with pytest.raises(ValueError, match="no loop rule"):
-        loop.Table(tiers=((1, 1, 1),), emit=(1,), heavy_ew=1, rule=4)
+        loop.Table(tiers=((1, 1, 1),), emit=(1,), heavy_ew=1, rule=5)
     assert (L.DENSE_TABLE.scan, L.DENSE_TABLE.stop, L.DENSE_TABLE.n_branches) == (0, 1, 1)
     # the proportional rule: the tiers, the drain and the rescan, no stats
     prop = chip_smoke.K4_PROPORTIONAL
     assert (prop.scan, prop.stop, prop.n_branches, prop.has_stats, prop.n_counts) == (
         3, 5, 5, False, 6)
+    # the hybrid rule: the worklist tiers, the scan tiers, the dense scan
+    # and the count, no stats; a ladder whose arms a loop cannot hold
+    hyb, nowl = chip_smoke.K4_HYBRID, chip_smoke.K4_NOWL
+    assert (hyb.scan, hyb.dense_arm, hyb.count_arm, hyb.stop, hyb.n_branches,
+            hyb.has_stats, hyb.n_counts) == (3, 6, 7, 8, 8, False, 6)
+    assert (nowl.dense_arm, nowl.count_arm, nowl.stop, nowl.n_branches) == (1, 2, 3, 3)
+    assert loop.hybrid_table(((1, 1, 1),) * 4, ((1, 1),) * 4, 1, 1).n_branches == 10
+    with pytest.raises(ValueError, match="need 11 branches: a loop holds 10"):
+        loop.hybrid_table(((1, 1, 1),) * 4, ((1, 1),) * 5, 1, 1)
+    with pytest.raises(ValueError, match="1 to 8 scan tiers"):
+        loop.hybrid_table(((1, 1, 1),), (), 1, 1)
+    with pytest.raises(ValueError, match="only the hybrid rule takes scan tiers"):
+        loop.Table(tiers=((1, 1, 1),), emit=(1,), heavy_ew=1, scans=((1, 1),))
 
 
 @pytest.mark.parametrize("c0ok, max_rounds, rounds", [
@@ -451,6 +564,55 @@ def test_prop_host_loop_turns(monkeypatch, c0ok, pend0, max_rounds, rounds, exec
     rows = sink[0]["rows"]
     assert [row[6] for row in rows[:1]] == [pend0] * min(rounds, 1)
     assert loop.replay_log(rows, table, max_rounds) == [(row[0], 0) for row in rows]
+
+
+@pytest.mark.parametrize("case", chip_smoke.HYBRID_FILL_LOOPS)
+def test_hybrid_host_loop_turns(monkeypatch, case):
+    """The hybrid rule's loop on the host (the smoke script's
+    ``hybrid_fill`` arms, which phase 3c runs as loop graphs): a valid list
+    takes its tier; a tier that cut its list is followed by a count, then
+    a scan; the state's first count starts with a scan, and stops the loop
+    where it is 0; a list that overflowed is counted first, and that count
+    stands for the prime. R rounds and C counts take R + C + 1 turns and no
+    ``after_scan``, a read after the prologue and each arm; the scans tally
+    their reasons, and the log replays."""
+    (c0ok, c0v, first, count, max_rounds), execs = case
+    calls = {"turn": 0, "after_scan": 0}
+
+    def counted(name, fn):
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        return call
+
+    for name in calls:
+        monkeypatch.setattr(loop, name, counted(name, getattr(loop, name)))
+    sink = []
+    monkeypatch.setattr(graphs, "LOG_SINK", sink)
+    g = graphs.RoundGraphs(8, 8, "cpu", n_counts=loop.N_COUNTS)
+    table = chip_smoke.HYBRID_FILL_TABLE
+    pro, arms = chip_smoke.hybrid_fill(g, c0v, first, count)
+    values, reads = g.loop(pro, arms, table, c0ok, max_rounds)
+    rounds, counts = values[L.ROUNDS], values[L.EXECS + table.count_arm]
+    assert values[L.EXECS:L.EXECS + 4] == execs and not values[L.PENDING]
+    assert rounds == execs[0] + execs[1] + execs[2] and values[L.WL_ROUNDS] == execs[0]
+    assert calls == {"turn": rounds + counts + 1 if rounds + counts else 0, "after_scan": 0}
+    assert reads == 1 + rounds + counts
+    # every scan followed a list that was not valid (none, or a cut one)
+    assert values[L.SCANS_CAND] == execs[1]
+    rows = sink[0]["rows"]
+    assert len(rows) == rounds
+    assert loop.replay_log(rows, table, max_rounds) == loop.logged(rows, table)
+
+
+def test_hybrid_replay_finds_a_wrong_branch():
+    """A hybrid log row whose arm its counts do not give is not replayed
+    as made: the scan tier its exact frontier fits, or the count where it
+    is not known."""
+    table = chip_smoke.K4_HYBRID
+    rows = [[3, 0, 1, 1, 1, 9, 40, 50], [3, 0, 1, 1, 1, 9, -1, 0], [0, 1, 8, 32, 4, 9, -1, 0]]
+    assert loop.replay_log(rows, table, 6) == [(4, 0), (7, 0), (0, 0)]
+    assert loop.logged(rows, table) == [(3, 0), (3, 0), (0, 0)]
 
 
 CFG = PprConfig(alpha=0.2, eps=1e-8, max_rounds=10_000)

@@ -25,7 +25,6 @@ import pprx_torch.engine.push as tpush
 from pprx_torch.engine.push import (
     dense_round_,
     push_round,
-    push_round_given_act,
     push_to_convergence,
 )
 from pprx_torch.engine.state import FORWARD, REVERSE, init_state
@@ -163,11 +162,11 @@ def test_push_to_convergence_edge_cases_match_jax(monkeypatch, mode, case):
     """From a converged state the loop runs no round, as the reference's
     (its first count is 0), and leaves the state alone; under a round cap
     it stops at the cap with the reference's state. Neither runs the
-    ring's round (``push_round_given_act``)."""
+    ring's round (``push_round``)."""
     def ring_round(*a, **k):
-        raise AssertionError("the loop ran the hybrid engine's round")
+        raise AssertionError("the loop ran the ring's round")
 
-    monkeypatch.setattr(tpush, "push_round_given_act", ring_round)
+    monkeypatch.setattr(tpush, "push_round", ring_round)
     src, dst, n = _graph(1)
     queries = [0, 3, 7]
     jw = JaxWindow.from_coo(src, dst, n, capacity=130)
@@ -194,16 +193,6 @@ def test_push_to_convergence_edge_cases_match_jax(monkeypatch, mode, case):
         assert tstats.pushes > 0
     np.testing.assert_allclose(tst.p.numpy(), np.asarray(jst.p), rtol=0, atol=1e-12)
     np.testing.assert_allclose(tst.r.numpy(), np.asarray(jst.r), rtol=0, atol=1e-12)
-
-
-def test_push_round_given_act_uses_the_callers_mask():
-    src, dst, n = _graph(3)
-    tw = WindowGraph.from_coo(src, dst, n, device="cpu")
-    st = init_state(n, [0, 5], dtype=torch.float64, device="cpu")
-    act = torch.zeros_like(st.r, dtype=torch.bool)
-    st2, na, ew = push_round_given_act(st, act, tw, CFG)
-    assert int(na) == 0 and int(ew) == 0
-    assert torch.equal(st2.r, st.r) and torch.equal(st2.p, st.p)
 
 
 def _drivers(mode, scfg, seed=11, n=35, total=500, queries=(0, 6, 17)):

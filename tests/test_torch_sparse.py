@@ -311,9 +311,10 @@ def test_worklist_loop_matches_jax(mode, tiers, start):
         port_state(jst), tg, LOOSE, torch.from_numpy(np.array(cand0)), ok, tiers, *scan)
     assert _stats(ts) == _stats(js)
     assert_state(t2, j2)
-    # one read a round, one for the list, and one before each scan round
-    # that follows a worklist round (or starts the loop without a list)
-    assert ts.rounds + 1 <= ts.syncs <= 2 * ts.rounds + 2
+    # the host loop: one read after the prologue and one after each arm,
+    # a round or a count of the frontier (before a scan that follows a
+    # worklist round)
+    assert ts.syncs == ts.rounds + ts.arms["count"] + 1
     assert ts.rounds > 0
 
 

@@ -174,19 +174,25 @@ round trip. Phases, one line each:
    ``wlp``, forward (``config5_run(engine="wlp")``): rates, round kinds,
    its last slide under the profiler with that slide's peak memory beside
    14a's wl engine's, the exact-PPR
-   contract; 15d a sharded checkpoint of 15a's driver: save and load timed
-   apart, both stepped 2 slides and held to each other as phase 10 holds
-   its pair, and to the reverse contract, the loaded engine's loops graphs
-   of its own; 15e ``stream --engine sharded-wl
-   --mode rev`` and ``stream --engine sharded-wlp`` (``--mesh 1,1``) on
-   phase 13's file. Each path must launch the gather entry;
+   contract, K1's launches by call site (both modes must run its group sum
+   there), and K1 at the shape of the largest group sum of one more slide
+   (its loops on the host, so that each arm's first run is eager and its
+   inputs recorded: ``slide_deliveries``; its values drawn anew in
+   [0, 1), ``refilled``), held to the f64 plain sum and timed beside its
+   bound, its plain version and ``index_add_``; 15d a
+   sharded checkpoint of 15a's driver: save and load timed apart, both
+   stepped 2 slides and held to each other as phase 10 holds its pair,
+   and to the reverse contract, the loaded engine's loops graphs of its
+   own; 15e ``stream --engine sharded-wl --mode rev`` and ``stream
+   --engine sharded-wlp`` (``--mesh 1,1``) on phase 13's file. Each path
+   must launch the gather entry;
 16. the hybrid engine (``HybridStreamDriver``: CSR snapshot, signed overlay,
    worklist and scan rounds; each loop one conditional graph under K4's
    hybrid rule, its scans counted by K3, its dense scans K2 then K1): 16a
-   the headline runner
-   with ``PPRX_BENCH_ENGINE=hybrid`` (precision@100 >= 0.95), then the
-   driver forward at its defaults (``rebuild_every=4``) on that stream: 6
-   warm-up and 8 timed slides (updates/s, rounds a slide by kind, scans by
+   the headline runner with ``PPRX_BENCH_ENGINE=hybrid`` (its maintained
+   precision@100 reported, not held: bench.py refines only the fast
+   driver), then the driver forward at its defaults (``rebuild_every=4``)
+   on that stream: 6 warm-up and 8 timed slides (updates/s, rounds a slide by kind, scans by
    reason, counts of the frontier and host reads a slide, rebuilds), peak
    memory, one slide under the
    profiler, the exact-PPR contract on 16 sampled sources, and
@@ -198,16 +204,27 @@ round trip. Phases, one line each:
    warm-up and 3 timed slides) held to the reverse contract; 16c
    ``worklist=False`` on a small stream (N=20k, W=200k, b=4k, S=16) whose
    scan rounds run sparse, held to the contract and to the worklist
-   driver; 16e ``stream --engine hybrid`` in both modes on phase 13's file
-   and ``retrieve --from-checkpoint`` on the forward stream's file (no
-   loop: it reads the loaded state's top-k). Every hybrid loop on the card
-   must be one loop graph launch and one read of its carry
-   (``loop_tally``, the host loop refused), and every path that runs loops
-   must launch K4's prime and turn, and K3 where a scan or a count ran, K1
-   and K2 where a dense scan ran (``check_hybrid_launched``); 16c's loops
-   without a worklist must run a sparse scan arm, as their carries count.
+   driver, then K1 at the shapes of its sparse scan and of the worklist
+   driver's top and smallest tiers, from one more slide of each, as 16f;
+   16e ``stream --engine hybrid`` in both modes on phase 13's file and
+   ``retrieve --from-checkpoint`` on the forward stream's file (no loop:
+   it reads the loaded state's top-k); 16f one more slide of 16a's driver,
+   its loops on the host so that each arm's first run is eager and its
+   deliveries recorded (``slide_deliveries``): K1 at the shapes of
+   its top and smallest worklist tiers' deliveries (their values drawn
+   anew in [0, 1)), held to the f64 plain sum and timed beside its bound,
+   its plain version and ``index_add_``. Every hybrid
+   loop on the card must be one loop graph launch and one read of its
+   carry (``loop_tally``, the host loop refused), K1 launched once at the
+   worklist or sparse-scan site for each worklist round or sparse scan the
+   carries count, and every path that runs loops must launch K4's prime
+   and turn, and K3 where a scan or a count ran, K1 and K2 where a dense
+   scan ran (``check_hybrid_launched``); 16c's loops without a worklist
+   must run a sparse scan arm, as their carries count.
 
-Then a JSON line of the kernels, the segment sum's two entries, the two
+Then a JSON line of the kernels, the segment sum's two entries (the
+gather entry's also at the shapes 15c, 16c and 16f recorded, and its
+launches by call site on the hybrid and ``wlp`` paths), the two
 row passes and K4's three steps (``launches``: the main path's, phases 4 to
 6, which must launch the gather entry, both row passes and every K4 step;
 ``launches_by_path``: every path's, each counted with the counts set to 0
@@ -235,8 +252,12 @@ and in reverse,
 ``config5_f32`` and ``config5_rev``, the sharded wl engine at mesh 1x1,
 its spare slide profiled with its peak memory), or those ``--shapes``
 names; ``--shapes`` also takes ``loop_control`` (phase 3c), ``config4``
-(phase 9's cold push, twice) and ``dense_driver`` (phase 12's driver,
-timed), which no default run drives. One summary line a shape goes to
+(phase 9's cold push, twice), ``dense_driver`` (phase 12's driver,
+timed), ``hybrid_small_worklist`` (16c's stream with a worklist) and
+``delivery_forms`` (one root: ``delivery_forms_turn``, a recorded
+slide's hybrid deliveries in both forms, sorted and scattered, at the
+headline's and 16c's shapes), which no default
+run drives. One summary line a shape goes to
 stdout, each whole record, with the card's name and power limit, to
 ``--out`` (JSON lines). Compare two trees only inside one run, in turns
 (A, B, B, A).
@@ -271,7 +292,8 @@ from pprx_torch.device import require_cuda
 from pprx_torch.dist.mesh import all_to_all_rows, gather_stats, make_row_mesh, reduce_scatter_rows
 from pprx_torch.dist.retrieve import make_sharded_topk
 from pprx_torch.dist.stream import ShardedStreamDriver
-from pprx_torch.engine import graphs, loop, rowpass, segsum
+from pprx_torch.dist import wl as dist_wl
+from pprx_torch.engine import graphs, loop, rowpass, segsum, sparse
 from pprx_torch.engine.graphs import RoundGraphs, copy_into_
 from pprx_torch.engine.segsum import (
     row_offsets,
@@ -433,7 +455,7 @@ def held_to_plain(tag: str, kernel, plain_f64: torch.Tensor, rin: torch.Tensor) 
     with the plain version's f64 sum within KERNEL_TOL and with each other
     bit for bit. Returns the largest absolute difference."""
     out, again = kernel(rin.clone()), kernel(rin.clone())
-    torch.cuda.synchronize()
+    sync(out.device)
     if not torch.equal(out, again):
         raise AssertionError(f"kernel {tag}: two launches on the same inputs differ")
     err = float((out.double() - plain_f64).abs().max())
@@ -443,7 +465,7 @@ def held_to_plain(tag: str, kernel, plain_f64: torch.Tensor, rin: torch.Tensor) 
 
 
 def check_layout(layout: str, rin, row_off, table, gat, contrib=None, row_scale=None,
-                 timed: bool = True) -> dict:
+                 timed: bool = True, touched_rows: bool = False) -> dict:
     """One edge layout: the gather entry (and ``segsum_add_`` where
     ``contrib`` is given) against the plain version's f64 sum of the same
     values, f32 and bf16 sources, repeat launches bit for bit. Then the
@@ -459,7 +481,9 @@ def check_layout(layout: str, rin, row_off, table, gat, contrib=None, row_scale=
     the edge's own position for ``segsum_add_``), and the pair and
     ``index_add_`` figures are left out. Bounds from this layout's byte and
     operation counts: the edges the offsets cover, the table rows they
-    name, ``rin`` read and written, the scale read. ``timed=False`` holds
+    name, ``rin`` read and written (with ``touched_rows`` only its rows
+    that hold an edge: the kernel touches no other, and a group sum's
+    ``rin`` has a row a lane), the scale read. ``timed=False`` holds
     the entries to the plain version and times nothing. The times are the
     device's (``cuda_ms`` primed); ``*_call_ms`` are each kernel's and its
     library call's with the calls issued back to back, host side included;
@@ -480,7 +504,8 @@ def check_layout(layout: str, rin, row_off, table, gat, contrib=None, row_scale=
         f"{layout}max_row_edges": int(row_off.diff().max()),
     }
     scaled = row_scale is not None
-    rin_bytes = 2 * rows * s * 4 + (rows + 1) * 4 + scaled * rows * 4
+    rw_rows = int((row_off.diff() > 0).sum()) if touched_rows else rows
+    rin_bytes = 2 * rw_rows * s * 4 + (rows + 1) * 4 + scaled * rows * 4
     if timed:
         table_rows = int(gat[lo:hi].unique().numel())
         values = row_scale[ids] if scaled else torch.ones(used, device=rin.device)
@@ -1509,6 +1534,13 @@ def launches_by_entry(scaled: bool | None = None) -> dict:
     return out
 
 
+def k1_by_site() -> dict:
+    """K1's launches since the last reset by call site (``segsum.SITES``):
+    the hybrid engine's worklist rounds and sparse scans, ``wlp``'s group
+    sum, and every other call."""
+    return dict(segsum.SITE_LAUNCHES)
+
+
 def run_stream(drv: FastStreamDriver, warmup: int, steps: int) -> dict:
     """Seed, warm up, then time ``steps`` slides (host clock around a
     device sync) and summarise the per-slide push statistics, with the
@@ -2368,7 +2400,7 @@ def sharded_loops(drv: ShardedStreamDriver, loops: int) -> dict | None:
 
 
 def config5_check(dev, bf16d: bool, n_check: int = 16, k: int = 100, prof: bool = False,
-                  **shape) -> dict:
+                  deliveries: bool = False, **shape) -> dict:
     """14a: ``config5_run`` (``run_config(5)``'s run: the headline shapes
     unless ``shape`` says otherwise; stream seed 5; seed, 3 warm-up and 5
     timed slides at mesh 1x1), with the counts set to 0 before it; with
@@ -2383,7 +2415,11 @@ def config5_check(dev, bf16d: bool, n_check: int = 16, k: int = 100, prof: bool 
     contract, 15a's); ``round_kinds`` counts a wl engine's rounds by kind,
     from the loop's branch executions. The engine's loops run on the card
     as loop graphs (``graphs``: ``sharded_loops``, the seed's and 8 slides'
-    before the profile) under the rules ``loop_rules`` names."""
+    before the profile) under the rules ``loop_rules`` names; K1's launches
+    by call site beside the launches by entry (``k1_by_site``). With
+    ``deliveries`` (``wlp``, its stream a slide longer:
+    ``extra_slides=1``), last, K1 at the shape of the largest group sum of
+    one more slide (``slide_deliveries``)."""
     reset_launches()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -2397,7 +2433,7 @@ def config5_check(dev, bf16d: bool, n_check: int = 16, k: int = 100, prof: bool 
             torch.cuda.reset_peak_memory_stats()
         res["profile"] = profile_slides(drv, 1)
         res["slide_peak_gib"] = peak_gib(dev)
-    res.update(launches_by_entry=launches_by_entry(),
+    res.update(launches_by_entry=launches_by_entry(), k1_by_site=k1_by_site(),
                round_kinds=dict(getattr(drv.eng, "round_kinds", {})))
     g = drv.eng.round_graphs
     if g is not None:  # the rules the engine's loop graphs run under
@@ -2412,6 +2448,8 @@ def config5_check(dev, bf16d: bool, n_check: int = 16, k: int = 100, prof: bool 
         res["topk"] = sharded_topk_check(drv, k)
     else:  # the reverse state's columns are not retrieved by top-k (15a's)
         res["contract"] = reverse_contract(as_fast(drv), drv.cfg.eps, n_check=n_check)
+    if deliveries:
+        res["deliveries"] = slide_deliveries(drv, {"group_sum": ("group_sum",)})
     return res
 
 
@@ -2765,14 +2803,20 @@ def loop_tally():
 def hybrid_loops(tally: dict, cuda: bool) -> dict:
     """A path's hybrid loops (``loop_tally``): at least one ran, and on the
     card each was one loop graph launch and one read of its carry (the host
-    loop refused, ``no_host_loop``)."""
+    loop refused, ``no_host_loop``), and K1's launches at the worklist and
+    sparse-scan sites (counted from the carry: each arm's captured launches
+    times its executions) are those arms' executions, one each. Call it
+    right after the path, whose counts were set to 0 before it."""
     if tally["loops"] <= 0:
         raise AssertionError(f"no hybrid loop ran: {tally}")
     if cuda and not tally["loop_graph_launches"] == tally["reads"] == tally["loops"]:
         raise AssertionError(f"{tally['loops']} hybrid loops ran as "
                              f"{tally['loop_graph_launches']} loop graph launches and "
                              f"{tally['reads']} reads")
-    return {**tally, "reads_per_loop": tally["reads"] / tally["loops"]}
+    sites, arms = k1_by_site(), tally["arms"]
+    if cuda and (sites["worklist"], sites["sparse_scan"]) != (arms["wl"], arms["sparse"]):
+        raise AssertionError(f"K1 launched {sites} by call site where the arms ran {arms}")
+    return {**tally, "reads_per_loop": tally["reads"] / tally["loops"], "k1_by_site": sites}
 
 
 def hybrid_bench(dev, **env) -> dict:
@@ -2925,14 +2969,19 @@ def hybrid_reverse(dev, n: int, w: int, b: int, s: int, warmup: int = 2, steps: 
 
 
 def hybrid_no_worklist(dev, n: int = 20_000, w: int = 200_000, b: int = 4000, s: int = 16,
-                       steps: int = 4, n_check: int = 8) -> dict:
+                       steps: int = 4, n_check: int = 8, deliveries: bool = False) -> dict:
     """16c: ``worklist=False`` (``push_to_convergence_hybrid``: every round a
     scan, sparse where the frontier fits and is worth it) on a small stream
     (seed 3) whose overlay is small beside the window, with the counts set
     to 0 before it: seed and ``steps`` slides, the exact-PPR contract, and
     the worklist driver on the same stream within 1e-5 in
     ``settled_distance``. Must run sparse scan arms, as the loops' carries
-    count them (``scan_kinds``: each driver's arms by kind)."""
+    count them (``scan_kinds``: each driver's arms by kind). With
+    ``deliveries``, last, K1 at the shape of the driver's sparse scan, from
+    one more slide without a worklist, and at the worklist driver's top and
+    smallest tiers (tags ``small_wl_*``), from one more slide of it
+    (``slide_deliveries``): the arms of a small stream, whose shapes 16f's
+    headline tiers do not show."""
     src, dst, n = synthetic_powerlaw_stream(n, w + (steps + 1) * b, seed=3)
     cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
     scfg = StreamConfig(window=w, slide=b)
@@ -2957,6 +3006,10 @@ def hybrid_no_worklist(dev, n: int = 20_000, w: int = 200_000, b: int = 4000, s:
                                                cfg.alpha)
     if res["settled_distance"] > 1e-5 or res["no_worklist_scan_kinds"]["sparse"] <= 0:
         raise AssertionError(f"worklist=False: {res}")
+    if deliveries:
+        res["deliveries"] = slide_deliveries(drivers[False], hybrid_arm_keys(drivers[False]))
+        res["worklist_deliveries"] = slide_deliveries(
+            drivers[True], {f"small_{t}": key for t, key in hybrid_arm_keys(drivers[True]).items()})
     return res
 
 
@@ -3035,6 +3088,240 @@ def hybrid_cli(dev, tmp: str, graph: str, w: int, b: int, s: int, k: int = 100) 
     return res
 
 
+@contextlib.contextmanager
+def recorded_deliveries():
+    """While this holds, convergence loops run on the host
+    (``RoundGraphs.host_loop``: each arm's first run is eager, later ones
+    replay its capture) and the inputs of eager deliveries are kept (on
+    the card: a capture takes none): the hybrid engine's
+    (``sparse._deliver_``), the first of each arm's shape under (site,
+    snapshot lanes, overlay lanes), and ``wlp``'s group sum (the gather
+    entry under the ``group_sum`` site), the one with the most lanes under
+    ("group_sum",). Yields that dict."""
+    got = {}
+    deliver, gather, run_loop = sparse._deliver_, dist_wl.segsum_gather_add_, RoundGraphs.loop
+
+    def eager() -> bool:
+        return not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing())
+
+    def kept_deliver(r, moving_f, t, nbr, valid, mov_ov, sca, inv_deg, site):
+        key = (site, nbr.shape[0], mov_ov.shape[0])
+        if eager() and key not in got:
+            got[key] = {"r": r.clone(), "moving_f": moving_f.clone(), "t": t.clone(),
+                        "nbr": nbr.clone(), "valid": valid.clone(), "mov_ov": mov_ov.clone(),
+                        "sca": sca.clone(), "site": site,
+                        "inv_deg": None if inv_deg is None else inv_deg.clone()}
+        return deliver(r, moving_f, t, nbr, valid, mov_ov, sca, inv_deg, site)
+
+    def kept_gather(rin, table, gat, row_off, row_scale=None, site="other"):
+        old = got.get(("group_sum",))
+        if site == "group_sum" and eager() and (old is None or gat.shape[0] > old["gat"].shape[0]):
+            got[("group_sum",)] = {"rin": rin.clone(), "table": table.clone(),
+                                   "gat": gat.clone(), "row_off": row_off.clone()}
+        return gather(rin, table, gat, row_off, row_scale, site)
+
+    sparse._deliver_, dist_wl.segsum_gather_add_ = kept_deliver, kept_gather
+    RoundGraphs.loop = RoundGraphs.host_loop
+    try:
+        yield got
+    finally:
+        sparse._deliver_, dist_wl.segsum_gather_add_ = deliver, gather
+        RoundGraphs.loop = run_loop
+
+
+def delivery_inputs(rec: dict) -> tuple:
+    """A recorded hybrid delivery as K1 takes it: (``rin``, the sorted
+    keys' row offsets, the table ``[moving_f; mov_ov]``, the sorted lanes'
+    table rows, the per-row scale or None), from ``sparse.delivery_lanes``
+    as ``sparse._deliver_`` sorts them."""
+    r, n = rec["r"], rec["r"].shape[0] - 1
+    keys, table, rows = sparse.delivery_lanes(
+        n, *(rec[k] for k in ("moving_f", "t", "nbr", "valid", "mov_ov", "sca")))
+    keys_s, order = torch.sort(keys, stable=True)
+    scale = None if rec["inv_deg"] is None else rec["inv_deg"][:n].contiguous()
+    return r[:n].contiguous(), row_offsets(keys_s, n), table, rows[order].contiguous(), scale
+
+
+def refilled(rec: dict, seed: int = 0) -> dict:
+    """A recorded delivery with the values it sums (a hybrid record's
+    ``moving_f`` and ``mov_ov``, a group sum's ``table``) drawn anew in
+    [0, 1) from ``seed``, as phase 3's tables are: the recorded layout
+    (keys, lanes, rows, scale) with sums that KERNEL_TOL can hold. A
+    round's own mass is ~1e-5 a lane, under KERNEL_TOL's absolute part, so
+    a dropped or misrouted lane would pass unseen at the recorded values."""
+    out = dict(rec)
+    for k in ("moving_f", "mov_ov", "table"):
+        if k in rec:
+            v = rec[k]
+            gen = torch.Generator(device=v.device).manual_seed(seed)
+            out[k] = torch.rand(v.shape, generator=gen, dtype=v.dtype, device=v.device)
+    return out
+
+
+def captured(fn):
+    """``fn`` captured in a CUDA graph, as a hybrid arm's work is (warmed up
+    on a side stream first); the kernel launches the capture counted are
+    taken back out."""
+    counts = [dict(c) for c in graphs.KERNEL_COUNTS]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    for c, old in zip(graphs.KERNEL_COUNTS, counts):
+        c.update(old)
+    return graph
+
+
+def scatter_form_(acc: torch.Tensor, rec: dict) -> None:
+    """A recorded hybrid delivery as the reference writes it, with torch's
+    scatter: the ``[ecap, S]`` contributions ``moving_f[t] * valid`` (in
+    reverse times the receiver's 1/d_out, per lane), then ``index_add_``
+    of them and of the overlay's rows into ``acc`` (``[N+1, S]``; the
+    phantom row takes the invalid lanes). The port's arms do not run it:
+    ``--turns``' ``delivery_forms`` times it beside theirs."""
+    contrib = rec["moving_f"][rec["t"]] * rec["valid"].to(acc.dtype)[:, None]
+    mov_ov, inv_deg = rec["mov_ov"], rec["inv_deg"]
+    if inv_deg is not None:
+        contrib = contrib * inv_deg[rec["nbr"]][:, None]
+        mov_ov = mov_ov * inv_deg[rec["sca"]][:, None]
+    acc.index_add_(0, rec["nbr"], contrib)
+    acc.index_add_(0, rec["sca"], mov_ov)
+
+
+def delivery_forms(rec: dict) -> dict:
+    """One recorded hybrid delivery in both forms: the port's sorted one
+    (``sparse._deliver_``: a stable sort, then K1) and the reference's
+    scatter (``scatter_form_``), each held to the f64 plain sum of the
+    same lanes within KERNEL_TOL, then timed in turns (device ms): issued eagerly (``<form>_ms``; ``host_paced`` names the
+    forms whose eager time was the host's, not the device's) and as one
+    replay of each form captured in a CUDA graph (``<form>_graph_ms``), as
+    the loop's arms run them. Hold it at values in [0, 1) (``refilled``)."""
+    args = [rec[k] for k in ("moving_f", "t", "nbr", "valid", "mov_ov", "sca", "inv_deg",
+                             "site")]
+    n = rec["r"].shape[0] - 1
+    forms = {"sorted_form": lambda acc: sparse._deliver_(acc, *args),
+             "index_add_form": lambda acc: scatter_form_(acc, rec)}
+    rin, row_off, table, gat, scale = delivery_inputs(rec)
+    ref = segsum_gather_add_plain(rin.double(), table.double(), gat, row_off,
+                                  None if scale is None else scale.double())
+    res = {}
+    for name, form in forms.items():
+        acc = rec["r"].clone()
+        form(acc)
+        got = acc[:n].double()
+        res[f"{name}_max_abs_err"] = float((got - ref).abs().max())
+        if not torch.allclose(got, ref, rtol=KERNEL_TOL, atol=KERNEL_TOL):
+            raise AssertionError(f"the {name} of a {rec['site']} delivery disagrees with the "
+                                 f"plain sum: {res}")
+    acc = rec["r"].clone()
+    paced = set()
+    res.update(in_turns({f"{name}_ms": (lambda form=form: form(acc))
+                         for name, form in forms.items()}, host_paced=paced))
+    replays = {f"{name}_graph_ms": captured(lambda form=form: form(acc)).replay
+               for name, form in forms.items()}
+    res.update(in_turns(replays))
+    res["host_paced"] = sorted(paced)
+    return res
+
+
+def recorded_rows(got: dict, tags: dict, timed: bool = True, forms: bool = False) -> dict:
+    """K1 at the shapes of recorded deliveries (``recorded_deliveries``):
+    for each tag, the record its key names (a hybrid arm's, or the group
+    sum's), its values drawn anew in [0, 1) (``refilled``), held to the f64
+    plain sum and timed as phase 3 times a layout (``check_layout``:
+    kernel, plain version, library call, ``index_add_`` of the gathered
+    rows; the bound from the rows of ``rin`` the lanes touch); with
+    ``forms``, a hybrid delivery's two forms too (``delivery_forms``).
+    ``missing``: the tags whose arm ran no delivery in the recorded
+    slides."""
+    res = {"missing": sorted(t for t, key in tags.items() if key not in got)}
+    for tag, key in tags.items():
+        if key not in got:
+            continue
+        rec = refilled(got[key])
+        if key[0] == "group_sum":
+            rin, row_off, table, gat, scale = (rec["rin"], rec["row_off"], rec["table"],
+                                               rec["gat"], None)
+        else:
+            rin, row_off, table, gat, scale = delivery_inputs(rec)
+            res[f"{tag}_lanes"] = {"snapshot": key[1], "overlay": key[2]}
+            if forms:
+                res.update({f"{tag}_{k}": v for k, v in delivery_forms(rec).items()})
+        res.update(check_layout(f"{tag}_", rin, row_off, table, gat, row_scale=scale,
+                                timed=timed, touched_rows=True))
+        res[f"{tag}_touched_rows"] = int((row_off.diff() > 0).sum())
+        res[f"{tag}_valid_lanes"] = int(row_off[-1] - row_off[0])
+        del rec, rin, table, gat
+        torch.cuda.empty_cache()
+    return res
+
+
+def hybrid_arm_keys(drv: HybridStreamDriver) -> dict:
+    """The recorded-delivery keys (``recorded_deliveries``) of a hybrid
+    driver's top and smallest worklist tiers, or without a worklist of its
+    sparse scan."""
+    ovcap = drv.graph.ov.src.shape[0]
+    if not drv.worklist:
+        return {"scan": ("sparse_scan", drv.ecap, ovcap)}
+    (_, e0, o0), (_, e1, o1) = drv.tiers[0], drv.tiers[-1]
+    return {"wl_top": ("worklist", e1, o1 or ovcap), "wl_smallest": ("worklist", e0, o0 or ovcap)}
+
+
+def slide_deliveries(drv, tags: dict, forms: bool = False, timed: bool = True) -> dict:
+    """One slide of ``drv`` (a hybrid or a sharded driver with a slide of
+    stream left) with its loops on the host, so that each arm's first run
+    is eager, and its deliveries recorded (``recorded_deliveries``); then
+    K1 at the recorded shapes ``tags`` names (``recorded_rows``): held to
+    the f64 plain sum, timed beside its bound, its plain version and
+    ``index_add_`` (``timed``); with ``forms``, a hybrid delivery's two
+    forms timed in turns."""
+    with recorded_deliveries() as got:
+        if len(list(drv.run(1))) != 1:
+            raise AssertionError("no slide left in the stream")
+    sync(drv.device)
+    out = {"recorded": sorted(map(str, got)), **recorded_rows(got, tags, timed, forms)}
+    if len(out["missing"]) == len(tags):
+        raise AssertionError(f"the recorded slide ran none of {tags}: {out['recorded']}")
+    return out
+
+
+# ``--turns``' ``delivery_forms`` streams: (nodes, window, slide, sources,
+# worklist, seed): the headline's (16a) and 16c's, the latter without a
+# worklist, with one, and with one at S=64
+FORM_STREAMS = {"headline": (200_000, 2_000_000, 160_000, 128, True, 7),
+                "small_scan": (20_000, 200_000, 4000, 16, False, 3),
+                "small_wl": (20_000, 200_000, 4000, 16, True, 3),
+                "small_wl_s64": (20_000, 200_000, 4000, 64, True, 3)}
+
+
+def delivery_forms_turn(dev, warmup: int = 2) -> dict:
+    """``--turns``' ``delivery_forms``: for each stream of ``FORM_STREAMS``,
+    a forward hybrid driver seeded and stepped ``warmup`` slides, then one
+    slide recorded (``slide_deliveries``, untimed): at the shapes of its
+    top and smallest worklist tiers (or of its sparse scan), both forms of
+    the delivery, the sorted one and the scatter, held to the f64 plain
+    sum and timed in turns."""
+    out = {}
+    for tag, (n, w, b, s, worklist, seed) in FORM_STREAMS.items():
+        src, dst, n = synthetic_powerlaw_stream(n, w + (warmup + 2) * b, seed=seed)
+        drv = HybridStreamDriver(src, dst, n, list(range(s)),
+                                 PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000),
+                                 StreamConfig(window=w, slide=b), worklist=worklist, device=dev)
+        drv.seed()
+        list(drv.run(warmup))
+        rows = slide_deliveries(drv, hybrid_arm_keys(drv), forms=True, timed=False)
+        out[tag] = {k: v for k, v in rows.items()
+                    if "form" in k or k.endswith(("_lanes", "missing", "host_paced"))}
+        out[tag]["sources"] = s
+        del drv
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_hybrid_launched(runs: dict) -> dict:
     """Every hybrid path named (its ``launches_by_entry`` and its loops'
     arms, ``loops["arms"]``, both counted from one reset) launched K4's
@@ -3079,7 +3366,31 @@ def check_launched(by_path: dict, entry: str = "segsum_gather_add") -> dict:
     return by_path
 
 
-def kernel_entry(name: str, key: str, kern: dict, launches: dict) -> dict:
+# the kernels line's K1 rows at the shapes of recorded deliveries: the
+# numbers ``recorded_rows`` keeps of each (f32 and bf16 tables)
+RECORDED_WHATS = ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound", "library_ms",
+                  "index_add_ms", "pair_ms", "max_abs_err", "call_ms")
+
+
+def recorded_entry(rows: dict, tags) -> dict:
+    """Each of ``tags``' numbers (``RECORDED_WHATS`` for the f32 and the
+    bf16 table, the lanes, and a hybrid delivery's two forms) from
+    ``recorded_rows``' output."""
+    out = {}
+    for tag in tags:
+        if f"{tag}_gather_f32_ms" not in rows:
+            continue
+        out[tag] = {f"{dt}_{what}": rows[f"{tag}_gather_{dt}_{what}"]
+                    for dt in ("f32", "bf16") for what in RECORDED_WHATS}
+        out[tag].update({k[len(tag) + 1:]: v for k, v in rows.items()
+                         if k.startswith(f"{tag}_") and "form" in k or k in (
+                             f"{tag}_lanes", f"{tag}_valid_lanes", f"{tag}_edges",
+                             f"{tag}_touched_rows")})
+    return out
+
+
+def kernel_entry(name: str, key: str, kern: dict, launches: dict,
+                 recorded: dict | None = None, sites: dict | None = None) -> dict:
     """One entry of the kernels line from phase 3's numbers: the window
     scan's f32 figures (power-law rows) under the plain names; bf16, the
     other layouts (uniform rows, the short fresh view, for the gather entry
@@ -3090,7 +3401,11 @@ def kernel_entry(name: str, key: str, kern: dict, launches: dict) -> dict:
     ``launches`` maps each path driven to its count by entry: the main
     (forward) path's is the entry's ``launches``, and every path's stands
     under ``launches_by_path``. ``max_abs_err`` is the largest over every
-    layout held, config 3's untimed ones (``held_untimed``) included."""
+    layout held, config 3's untimed ones (``held_untimed``) included. The
+    gather entry's ``recorded``: its rows at the shapes of recorded
+    deliveries (``recorded_entry``: the hybrid's worklist tiers, 16c's
+    sparse scan and worklist tiers, ``wlp``'s group sum), whose errors count too; ``sites``:
+    each path's launches by call site (``k1_by_site``)."""
     plain = ["", "uniform_", "short_"] + (["compact_"] if key == "gather" else [])
     plain += ["s8_unscaled_", "s8_fresh_unscaled_", "s16_", "s16_fresh_"]
     scaled = ["scaled_", "scaled_short_", "s8_", "s8_fresh_"]
@@ -3102,6 +3417,7 @@ def kernel_entry(name: str, key: str, kern: dict, launches: dict) -> dict:
     whats = ["ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound",
              "call_ms", "library_call_ms"]
     by_path = {path: counts[name] for path, counts in launches.items()}
+    recorded = recorded or {}
     out = {
         "name": name,
         "route": "cuda",
@@ -3109,7 +3425,9 @@ def kernel_entry(name: str, key: str, kern: dict, launches: dict) -> dict:
         "replaces": "pprx/engine/segsum.py:184",
         "launches": by_path["forward"],
         "launches_by_path": by_path,
-        "max_abs_err": max(errs.values()),
+        "max_abs_err": max([*errs.values(), *(v for row in recorded.values()
+                                               for k, v in row.items()
+                                               if k.endswith("max_abs_err"))]),
         "held_untimed": sorted({k.split(f"{key}_")[0] for k in set(errs) - timed}),
         "library_call": ("torch.sparse.addmm on a unit-valued CSR (a bf16 table through "
                          "table.float() first, timed with it: two calls)"
@@ -3130,6 +3448,7 @@ def kernel_entry(name: str, key: str, kern: dict, launches: dict) -> dict:
                 rows[f"{lay}{tag}{what}"] = kern[f"{lay}{key}_{dt}_{what}"]
     if key == "gather":
         rows.update({k: v for k, v in kern.items() if k.startswith("c4_")})
+        rows.update(at_recorded_shapes=recorded, launches_by_site_by_path=sites or {})
     return {**out, **rows}
 
 
@@ -3386,12 +3705,18 @@ def main() -> None:
         log("15b reverse rowsum sweep", **sweep_check(rev_drv))
         # wlp in both modes: its loops are loop graphs under K4's
         # proportional rule
+        # wlp forward: its stream a slide longer, for K1 at its largest
+        # group sum's shape
         wlp = {mode: config5_check(dev, bf16d=False, prof=mode == "forward", engine="wlp",
-                                   mode=mode) for mode in ("forward", "reverse")}
+                                   mode=mode, **({"deliveries": True, "extra_slides": 1}
+                                                 if mode == "forward" else {}))
+               for mode in ("forward", "reverse")}
         wlp["forward"]["wl_slide_peak_gib"] = config5["f32"].get("slide_peak_gib")
         for mode, res in wlp.items():
             if res["loop_rules"] != [loop.PROPORTIONAL]:
                 raise AssertionError(f"wlp {mode}: its loops ran under {res['loop_rules']}")
+            if res["k1_by_site"]["group_sum"] <= 0:
+                raise AssertionError(f"wlp {mode}: K1 never summed a group: {res['k1_by_site']}")
             log(f"15c config5 wlp{'' if mode == 'forward' else ' reverse'}", **res)
         log("15d sharded checkpoint", **sharded_checkpoint_check(rev_drv, tmp))
         del rev_drv
@@ -3422,12 +3747,15 @@ def main() -> None:
         log("16a hybrid forward", **res16)
         hybrid["hybrid_checkpoint"] = hybrid_checkpoint_check(hyb, 16, l1_bound=cfg.eps * w)
         log("16d hybrid checkpoint", **hybrid["hybrid_checkpoint"])
+        deliveries16 = slide_deliveries(hyb, hybrid_arm_keys(hyb))
+        log("16f hybrid deliveries", **deliveries16,
+            note="K1 at the worklist tiers' recorded deliveries, and both forms of each")
         del hyb
         torch.cuda.empty_cache()
         hybrid["hybrid_reverse"] = hybrid_reverse(dev, n=200_000, w=w, b=b, s=s)
         log("16b hybrid reverse", **hybrid["hybrid_reverse"])
         torch.cuda.empty_cache()
-        hybrid["hybrid_no_worklist"] = hybrid_no_worklist(dev)
+        hybrid["hybrid_no_worklist"] = hybrid_no_worklist(dev, deliveries=True)
         log("16c hybrid no worklist", **hybrid["hybrid_no_worklist"])
         cli16 = hybrid_cli(dev, tmp, os.path.join(tmp, "stream.npz"), w, b, s, k=k)
         for tag, res in cli16.items():
@@ -3448,9 +3776,18 @@ def main() -> None:
                 "dense_driver": dense["launches_by_entry"], "checkpoint": ckpt_by_entry,
                 **cli_by_path,
                 **sharded_by_path, **hybrid_by_path}
+    # K1 at the recorded shapes, and by call site where the new ones launch
+    recorded = {**recorded_entry(deliveries16, ("wl_top", "wl_smallest")),
+                **recorded_entry(hybrid["hybrid_no_worklist"]["deliveries"], ("scan",)),
+                **recorded_entry(hybrid["hybrid_no_worklist"]["worklist_deliveries"],
+                                 ("small_wl_top", "small_wl_smallest")),
+                **recorded_entry(wlp["forward"]["deliveries"], ("group_sum",))}
+    sites = {**{path: res["loops"]["k1_by_site"] for path, res in runs16.items()},
+             **{f"config5_wlp{'' if m == 'forward' else '_rev'}": wlp[m]["k1_by_site"]
+                for m in wlp}}
     print(json.dumps({"kernels": [
         kernel_entry("segsum_add", "add", kern, launches),
-        kernel_entry("segsum_gather_add", "gather", kern, launches),
+        kernel_entry("segsum_gather_add", "gather", kern, launches, recorded, sites),
         *(rowpass_entry(name, rp, launches) for name in ROWPASS_KERNELS),
         *(loop_entry(step, k4, launches) for step in loop.STEPS),
     ]}))
@@ -3507,7 +3844,11 @@ TURN_EXTRA = [{"tag": "loop_control"}, {"tag": "config4", "pushes": 2},
               dict(_HYB, tag="hybrid_fwd", reverse=False, worklist=True, warmup=6, steps=8),
               dict(_HYB, tag="hybrid_rev", reverse=True, worklist=True, warmup=2, steps=3),
               dict(n=20_000, w=200_000, b=4000, s=16, seed=3, max_rounds=10_000,
-                   tag="hybrid_no_worklist", reverse=False, worklist=False, warmup=2, steps=8)]
+                   tag="hybrid_no_worklist", reverse=False, worklist=False, warmup=2, steps=8),
+              dict(n=20_000, w=200_000, b=4000, s=16, seed=3, max_rounds=10_000,
+                   tag="hybrid_small_worklist", reverse=False, worklist=True, warmup=2,
+                   steps=8),
+              {"tag": "delivery_forms"}]
 
 
 def turn_record(cs, sh: dict, dev) -> dict:
@@ -3559,11 +3900,18 @@ def turn_record(cs, sh: dict, dev) -> dict:
     rounds a slide by kind, host reads a slide), its peak memory and
     launches by entry, then 2 slides with CUDA events around every graph
     launch as above (none in a tree whose hybrid loops run on the host),
-    and one slide under the profiler."""
+    with K1's launches a slide, by call site where the tree counts them,
+    then ``arm_split`` (a slide's prologue, loop graph and each arm
+    replayed alone, by CUDA events), and one slide under the profiler. A
+    sharded shape's K1 launches a slide are counted over its 2 evented
+    slides the same way."""
     import warnings
 
     if sh["tag"] == "loop_control":
         return {"loop_control": cs.check_k4(dev)}
+    if sh["tag"] == "delivery_forms":
+        cs.build_all()
+        return {"delivery_forms": cs.delivery_forms_turn(dev)}
     cuda = dev.type == "cuda"
     if sh["tag"] in ("config4", "dense_driver", "dense_driver_headline"):
         import pprx_torch.bench.run as run_mod
@@ -3717,6 +4065,19 @@ def turn_record(cs, sh: dict, dev) -> dict:
     def peak():
         return torch.cuda.max_memory_allocated() / 2**30 if cuda else None
 
+    def evented_k1(drv, sharded, slides=2):
+        """``event_slides`` over ``slides`` slides, with K1's launches a
+        slide in them, by call site where the tree counts them."""
+        by_entry = dict(cs.segsum.LAUNCHES)
+        by_site = dict(getattr(cs.segsum, "SITE_LAUNCHES", {}))
+        out = event_slides(drv, slides, sharded=sharded)
+        out["k1_launches_per_slide"] = sum(
+            cs.segsum.LAUNCHES[k] - c for k, c in by_entry.items()
+            if k[0] == "segsum_gather_add") / slides
+        out["k1_by_site_per_slide"] = {site: (cs.segsum.SITE_LAUNCHES[site] - c) / slides
+                                       for site, c in by_site.items()}
+        return out
+
     def event_slides(drv, k, sharded):
         marks, patched = [], [(torch.cuda.CUDAGraph, "replay")]
         try:
@@ -3809,6 +4170,101 @@ def turn_record(cs, sh: dict, dev) -> dict:
                        engine_ms=sum(s[2] - s[1] for s in spans) * 1e3 / slides)
         return out
 
+    def arm_split(drv, reps=5):
+        """A hybrid slide's loop split by arm: two slides with the
+        prologue replayed apart (the first captures it), the second's
+        prologue, its loop graph and its rebuild (if due) timed by CUDA
+        events, the state each arm writes saved where the loop starts and
+        where it ends, and each arm's captured graph replayed alone
+        ``reps`` times from the saved start (median ms): with the loop's
+        executions of each arm, what the arms take of the loop; then the
+        heaviest arm's kernels, from one more replay under the profiler
+        (``heaviest_arm``)."""
+        g = getattr(drv, "round_graphs", None)
+        if not cuda or g is None or not hasattr(g, "kept"):
+            return None
+        import numpy as np
+
+        from pprx_torch.engine.graphs import RoundGraphs
+
+        held = [drv.state.p, drv.state.r, g.cand, g.counts, *g._buffers.values()]
+        got = {}
+        run_loop, run_step = RoundGraphs.loop, RoundGraphs.run
+
+        def events():
+            return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+        def looped(self, prologue, branches, *args):
+            got["pre"] = [t.clone() for t in held]
+            got["branches"] = [k for k, _ in branches]
+            start, end = events()
+            start.record()
+            out = run_loop(self, prologue, branches, *args)
+            end.record()
+            got["loop"] = (start, end)
+            got["execs"] = out[0][cs.loop.EXECS:cs.loop.EXECS + len(branches)]
+            got["post"] = [t.clone() for t in held]
+            return out
+
+        def ran(self, key, fn):
+            start, end = events()
+            start.record()
+            run_step(self, key, fn)
+            end.record()
+            got["prologue" if "slide" in key else "rebuild"] = (start, end)
+
+        RoundGraphs.loop, RoundGraphs.run = looped, ran
+        g.split_prologue = True
+        try:
+            for _ in range(2):
+                got.clear()
+                if len(list(drv.run(1))) != 1:
+                    raise AssertionError("no slide left in the stream")
+        finally:
+            RoundGraphs.loop, RoundGraphs.run = run_loop, run_step
+            g.split_prologue = False
+        torch.cuda.synchronize()
+        out = {k: got[k][0].elapsed_time(got[k][1]) for k in ("prologue", "loop", "rebuild")
+               if k in got}
+        out = {f"{k}_ms": v for k, v in out.items()}
+        arms = {}
+        for key, execs in zip(got["branches"], got["execs"]):
+            graph = g.kept[key][0]
+            times = []
+            for i in range(reps + 1):  # the first replay instantiates
+                for t, v in zip(held, got["pre"]):
+                    t.copy_(v)
+                start, end = events()
+                start.record()
+                graph.replay()
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            arms[" ".join(map(str, key[4:]))] = {"ms": float(np.median(times[1:])),
+                                                 "execs": execs}
+        # the heaviest arm's kernels: one more replay from the saved start
+        # under the profiler (a plain graph's kernels are traced one by one)
+        name, key = max(zip(arms, got["branches"]),
+                        key=lambda a: arms[a[0]]["ms"] * arms[a[0]]["execs"])
+        for t, v in zip(held, got["pre"]):
+            t.copy_(v)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            g.kept[key][0].replay()
+            torch.cuda.synchronize()
+        on_dev = sorted((e for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.self_device_time_total, reverse=True)
+        out["heaviest_arm"] = {"arm": name, "kernels": [
+            {"name": e.key[:80], "ms": e.self_device_time_total / 1e3, "calls": e.count}
+            for e in on_dev[:12]]}
+        for t, v in zip(held, got["post"]):
+            t.copy_(v)
+        torch.cuda.synchronize()
+        out["arms"] = arms
+        out["arms_ms_by_execs"] = sum(a["ms"] * a["execs"] for a in arms.values())
+        return out
+
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3821,7 +4277,7 @@ def turn_record(cs, sh: dict, dev) -> dict:
             m.reset_launches()
         n, w, b = sh["n"], sh["w"], sh["b"]
         src, dst, n = synthetic_powerlaw_stream(
-            n, w + (sh["warmup"] + sh["steps"] + 4) * b, seed=sh["seed"])
+            n, w + (sh["warmup"] + sh["steps"] + 6) * b, seed=sh["seed"])
         drv = HybridStreamDriver(src, dst, n, list(range(sh["s"])),
                                  PprConfig(alpha=0.15, eps=1e-6, max_rounds=sh["max_rounds"]),
                                  StreamConfig(window=w, slide=b),
@@ -3830,7 +4286,8 @@ def turn_record(cs, sh: dict, dev) -> dict:
         res = cs.hybrid_timed(drv, sh["warmup"], sh["steps"])
         res["peak_mem_gib"] = peak()
         res["launches_by_entry"] = {e: m.launches(e) for m in mods for e in m.ENTRIES}
-        res.update(event_slides(drv, 2, sharded=False))
+        res.update(evented_k1(drv, sharded=False))
+        res["arm_split"] = arm_split(drv)
         res["profile"] = cs.profile_slides(drv, 1)
         g = getattr(drv, "round_graphs", None)  # a tree whose hybrid loops run on the host
         if g is not None:
@@ -3850,7 +4307,7 @@ def turn_record(cs, sh: dict, dev) -> dict:
         g = getattr(drv.eng, "round_graphs", None)  # a tree with the device loop
         if g is not None:
             res["graphs"] = g.summary()
-        res.update(event_slides(drv, 2, sharded=True))
+        res.update(evented_k1(drv, sharded=True))
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         res["profile"] = prof = cs.profile_slides(drv, sh["prof_steps"])
@@ -3912,7 +4369,8 @@ TURN_SUMMARY = ("updates_per_s", "rounds_per_slide", "syncs_per_slide",
                 "host_ms_per_round", "graph_launches", "graphs", "k4_launches_per_slide",
                 "config4", "dense_driver", "wl_rounds_per_slide", "sparse_scans_per_slide",
                 "dense_scans_per_slide", "counts_per_slide", "sparse_scans_by_tier_per_slide",
-                "rebuilds")
+                "rebuilds", "k1_launches_per_slide", "k1_by_site_per_slide", "arm_split",
+                "delivery_forms")
 # phase 3c's numbers in a ``loop_control`` record
 K4_SUMMARY = ("loop_round_ms", "graph_kernel_floor_ms", "conditional_overhead_ms_per_round",
               "body_kernel_ms")

@@ -40,7 +40,9 @@ How the port differs:
   kernel reads exact edge ranges, so the remote accumulator has none of
   the TPU kernel's boundary-chunk double count and rides it too.
 - The K = 1 compact round is the single-device port's sorted delivery
-  (``pprx_torch.engine.wl2.sorted_deliver_``).
+  (``pprx_torch.engine.wl2.sorted_deliver_``), and ``sorted_bucket_rows``'
+  group sum (the reference's sorted ``.at[sidx].add``) is the segment sum's
+  gather entry over the sorted lanes.
 - A dense round's elementwise work (the activity test, ``p`` and ``r`` in
   place, the moved mass written into the delivery table, the row counts)
   is one pass over the state, and so is its rescan
@@ -94,7 +96,7 @@ from pprx_torch.dist.sharded import (
     write_window_,
 )
 from pprx_torch.engine.rowpass import frontier_rows, scan_pass_
-from pprx_torch.engine.segsum import segsum_gather_add_
+from pprx_torch.engine.segsum import row_offsets, segsum_gather_add_
 from pprx_torch.engine.state import FORWARD
 from pprx_torch.engine.wl2 import (
     _BIG,
@@ -169,8 +171,9 @@ def sorted_bucket(ids, vals, k: int, n_local: int, n_pad: int, ccap: int, ccarry
 def sorted_bucket_rows(ids, rows, moving, k: int, n_local: int, n_pad: int, ccap: int,
                        ccarry: int):
     """``sorted_bucket`` where lane j's mass is ``moving[rows[j]]``: one
-    stable sort groups duplicate ids, a sorted segment sum adds each group's
-    mass, the owners are contiguous in the sorted order, and the ``[K,
+    stable sort groups duplicate ids, the segment sum's gather entry adds
+    each group's mass (no ``[L, S]`` array of sorted rows is built), the
+    owners are contiguous in the sorted order, and the ``[K,
     ccap]`` send buffers are gathers from it. Returns (send_ids [K*ccap]
     local ids, pad n_local; send_mass [K*ccap, S]; carry_ids [ccarry]
     sorted global ids, pad n_pad; carry_mass [ccarry, S]; pend), the
@@ -189,8 +192,10 @@ def sorted_bucket_rows(ids, rows, moving, k: int, n_local: int, n_pad: int, ccap
     # past the last real one keep n_pad
     gids = torch.full((length,), n_pad, dtype=torch.int32, device=ids.device)
     gids.scatter_(0, sidx, ids_s.to(torch.int32))
+    # group g sums the lanes [off[g], off[g+1]); groups past the last real
+    # one get empty ranges and stay zero
     gmass = torch.zeros((length, moving.shape[1]), dtype=moving.dtype, device=moving.device)
-    gmass.index_add_(0, sidx, moving[rows_s])
+    segsum_gather_add_(gmass, moving, rows_s, row_offsets(sidx, length), site="group_sum")
     return _bucket_tail(gids, gmass, k, n_local, n_pad, ccap, ccarry)
 
 

@@ -86,7 +86,7 @@ from pprx_torch.engine import loop, rowpass, segsum
 N_COUNTS = 5  # cn, fed, fre, n_active, edge_work (the sharded loop adds ewr)
 
 # every kernel module's launch counts, which a replay adds to
-KERNEL_COUNTS = (segsum.LAUNCHES, rowpass.LAUNCHES, loop.LAUNCHES)
+KERNEL_COUNTS = (segsum.LAUNCHES, segsum.SITE_LAUNCHES, rowpass.LAUNCHES, loop.LAUNCHES)
 
 # Where every loop's round log goes while it is a list (``None``: nowhere,
 # and a loop on the card reads its carry's head alone): one dict a loop,

@@ -49,10 +49,17 @@ from pprx_torch import _ext
 ENTRIES = ("segsum_add", "segsum_gather_add")
 LAUNCHES = {(entry, scaled): 0 for entry in ENTRIES for scaled in (False, True)}
 
+# The same calls by call site (a wrapper's ``site``): the hybrid engine's
+# worklist rounds and sparse scans, ``wlp``'s group sum, and every other
+# call.
+SITES = ("worklist", "sparse_scan", "group_sum", "other")
+SITE_LAUNCHES = {site: 0 for site in SITES}
+
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, SITE_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def launches(entry: str | None = None, scaled: bool | None = None,
@@ -239,7 +246,7 @@ def _check(what, rin, source, name, gat, row_off, row_scale) -> None:
         raise ValueError(f"{what} on CUDA needs 16-byte-aligned rin and {name}")
 
 
-def _launch(entry: str, rin, source, gat, row_off, row_scale) -> None:
+def _launch(entry: str, rin, source, gat, row_off, row_scale, site: str) -> None:
     """Both launches of one call on checked CUDA operands, on the current
     stream. The grid and the scratch are sized from the length of the edge
     array, which bounds ``row_off[R] - row_off[0]``: nothing is read back
@@ -265,6 +272,7 @@ def _launch(entry: str, rin, source, gat, row_off, row_scale) -> None:
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
     LAUNCHES[entry, row_scale is not None] += 1
+    SITE_LAUNCHES[site] += 1
 
 
 def segsum_add_(
@@ -290,7 +298,7 @@ def segsum_add_(
     _check("segsum_add_", rin, contribs, "contribs", None, row_off, row_scale)
     if rin.device.type == "cpu":
         return segsum_add_plain(rin, contribs, row_off, row_scale)
-    _launch("segsum_add", rin, contribs, None, row_off, row_scale)
+    _launch("segsum_add", rin, contribs, None, row_off, row_scale, "other")
     return rin
 
 
@@ -300,6 +308,7 @@ def segsum_gather_add_(
     gat: torch.Tensor,
     row_off: torch.Tensor,
     row_scale: torch.Tensor | None = None,
+    site: str = "other",
 ) -> torch.Tensor:
     """``rin[w] += [row_scale[w] *] sum_{j in [row_off[w], row_off[w+1])}
     table[gat[j]]``, in place; returns ``rin``:
@@ -313,9 +322,12 @@ def segsum_gather_add_(
         edge; the kernel does not check that they lie in ``[0, T)``.
     row_off: int32 [R+1], as for ``segsum_add_``.
     row_scale: optional [R], as for ``segsum_add_``.
+    site: the call site a launch is counted under (``SITES``).
     """
     _check("segsum_gather_add_", rin, table, "table", gat, row_off, row_scale)
+    if site not in SITE_LAUNCHES:
+        raise ValueError(f"segsum_gather_add_: unknown call site {site!r}")
     if rin.device.type == "cpu":
         return segsum_gather_add_plain(rin, table, gat, row_off, row_scale)
-    _launch("segsum_gather_add", rin, table, gat, row_off, row_scale)
+    _launch("segsum_gather_add", rin, table, gat, row_off, row_scale, site)
     return rin

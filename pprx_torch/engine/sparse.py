@@ -39,6 +39,18 @@ How the port differs:
 - The dense fallback is the dense engine's round (``push.dense_round_``:
   K2, then K1 over the window's delivery-sorted view), not a scatter over
   the ring; it counts what the reference's dense round counts.
+- A worklist round or a sparse scan delivers its snapshot lanes and its
+  overlay lanes in one sorted call (``wl2.sorted_deliver_``: a stable sort
+  of the keys, then K1's gather entry over ``[moving_f; mov_ov]``), where
+  the reference scatters the ``[ecap, S]`` contributions and the overlay's
+  rows; invalid lanes key the phantom row and are dropped, and in reverse
+  mode the receiver's 1/d_out is K1's per-row scale, one factor on each
+  row's sum. Unlike the fast driver's compact rounds, every arm delivers
+  so, however small: on an H100 the hybrid driver ran faster end to end
+  with every arm sorted than with the arms under 2M lanes times S
+  scattering, on a small stream (S=16) as on the headline's (PERF.md),
+  though one such arm's first delivery, timed alone, is faster by scatter
+  (the smallest worklist tier at S=16 or S=64).
 - Every arm updates ``state.p`` and ``state.r`` in place, after every read
   of the pre-round ``r``: the loops and rounds consume the state they are
   given. Lists and counts go between arms through ``RoundGraphs``' fixed
@@ -69,7 +81,7 @@ from pprx_torch.engine.graphs import RoundGraphs, Step, copy_into_
 from pprx_torch.engine.push import dense_round_
 from pprx_torch.engine.rowpass import active_mask, frontier_rows
 from pprx_torch.engine.state import FORWARD, PprState, PushStats
-from pprx_torch.engine.wl2 import compact
+from pprx_torch.engine.wl2 import compact, sorted_deliver_
 from pprx_torch.graph.dynamic import DeliveryView, WindowGraph, delivery_view
 
 
@@ -151,7 +163,6 @@ def _sparse_scan_(state: PprState, graph: HybridGraph, cfg: PprConfig, front: to
 
     # snapshot expansion
     t, nbr, valid, _ = expand(fidx, graph.snap, ecap)
-    contrib = moving_f[t] * valid.to(dtype)[:, None]
 
     # the signed overlay, gathered at the mode's gather endpoint
     ov = graph.ov
@@ -163,19 +174,41 @@ def _sparse_scan_(state: PprState, graph: HybridGraph, cfg: PprConfig, front: to
     else:
         mov_ov = torch.where((deg[gat] == 0)[:, None], beta * mass_ov, (1.0 - alpha) * mass_ov)
     mov_ov = mov_ov * ov.sign.to(dtype)[:, None]
-    if not forward:
-        # the receiver's 1/d_out, per lane
-        contrib = contrib * inv_deg[nbr][:, None]
-        mov_ov = mov_ov * inv_deg[sca][:, None]
 
     # every read of the pre-round r is done: update in place
     p.index_add_(0, fidx, torch.where(dang_f, mass_f, alpha * mass_f))
     r.index_add_(0, fidx, mass_f, alpha=-1)
-    r.index_add_(0, nbr, contrib)
-    r.index_add_(0, sca, mov_ov)
+    _deliver_(r, moving_f, t, nbr, valid, mov_ov, sca, None if forward else inv_deg,
+              "sparse_scan")
     p[-1] = 0.0
     r[-1] = 0.0
     return n_act.sum(), (n_act * graph.snap.row_len[fidx]).sum()
+
+
+def _deliver_(r: torch.Tensor, moving_f: torch.Tensor, t: torch.Tensor, nbr: torch.Tensor,
+              valid: torch.Tensor, mov_ov: torch.Tensor, sca: torch.Tensor,
+              inv_deg: torch.Tensor | None, site: str) -> None:
+    """A round's delivery into ``r`` in place: ``moving_f[t[j]]`` at
+    ``nbr[j]`` for each valid snapshot lane and ``mov_ov[k]`` at ``sca[k]``
+    for each overlay lane, in reverse mode (``inv_deg`` given) times the
+    receiver's 1/d_out: one sorted call over ``[moving_f; mov_ov]`` with the
+    scale per row, the invalid lanes keyed the phantom row N, which it
+    drops, and its launch counted under ``site``."""
+    n = r.shape[0] - 1
+    keys, table, rows = delivery_lanes(n, moving_f, t, nbr, valid, mov_ov, sca)
+    sorted_deliver_(r[:n], keys, table, rows,
+                    row_scale=None if inv_deg is None else inv_deg[:n], site=site)
+
+
+def delivery_lanes(n: int, moving_f: torch.Tensor, t: torch.Tensor, nbr: torch.Tensor,
+                   valid: torch.Tensor, mov_ov: torch.Tensor, sca: torch.Tensor) -> tuple:
+    """``_deliver_``'s lanes before the sort: (keys, the table ``[moving_f;
+    mov_ov]``, each lane's table row), a snapshot lane keyed ``nbr`` (the
+    phantom row ``n`` where it is invalid), an overlay lane ``sca``."""
+    fcap, ova = moving_f.shape[0], mov_ov.shape[0]
+    keys = torch.cat([torch.where(valid, nbr, n), sca])
+    rows = torch.cat([t, torch.arange(fcap, fcap + ova, dtype=t.dtype, device=t.device)])
+    return keys, torch.cat([moving_f, mov_ov]), rows
 
 
 def _dense_scan_(state: PprState, graph: HybridGraph, view: DeliveryView, cfg: PprConfig,
@@ -316,7 +349,6 @@ def worklist_round(
     else:
         moving_f = torch.where(dang_f, beta * mass_f, (1.0 - alpha) * mass_f)
     t, nbr, valid, _ = expand(fidx, graph.snap, ecap)
-    contrib = moving_f[t] * valid.to(dtype)[:, None]
 
     # overlay sweep restricted to live entries: those whose gather endpoint
     # is in this round's frontier (1-D mark and compaction over the ring)
@@ -337,16 +369,12 @@ def worklist_round(
     else:
         mov_ov = torch.where(dangling[gat][:, None], beta * mass_ov, (1.0 - alpha) * mass_ov)
     mov_ov = mov_ov * sign_c.to(dtype)[:, None]
-    if not forward:
-        # the receiver's 1/d_out, per lane
-        contrib = contrib * inv_deg[nbr][:, None]
-        mov_ov = mov_ov * inv_deg[sca][:, None]
 
     # every read of the pre-round r is done: update in place
     p = state.p.index_add_(0, fidx, torch.where(dang_f, mass_f, alpha * mass_f))
     r = state.r.index_add_(0, fidx, mass_f, alpha=-1)
-    r.index_add_(0, nbr, contrib)
-    r.index_add_(0, sca, mov_ov)
+    _deliver_(r, moving_f, t, nbr, valid, mov_ov, sca, None if forward else inv_deg,
+              "worklist")
     p[-1] = 0.0
     r[-1] = 0.0
 

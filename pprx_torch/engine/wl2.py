@@ -278,16 +278,19 @@ def _frontier_stats(state: PprState, kg: KillGraph, cfg: PprConfig, emit_w: int)
 def sorted_deliver_(
     rin: torch.Tensor, keys: torch.Tensor, table: torch.Tensor,
     rows: torch.Tensor | None = None, row_scale: torch.Tensor | None = None,
+    site: str = "other",
 ) -> torch.Tensor:
     """``rin[keys[j]] += table[rows[j]]`` (``table[j]`` without ``rows``)
     for every lane whose key lies in ``[0, R)``, R = ``rin``'s rows, in
     place: one stable sort of the keys, then the segment sum's gather
     entry over the sorted lanes (no ``[L, S]`` array of sorted rows is
     built), each row's sum times ``row_scale[row]`` where one is given.
-    Lanes keyed R or above are dropped. Returns the sorted keys."""
+    Lanes keyed R or above are dropped. ``site`` names the call site its
+    launch is counted under (``segsum.SITES``). Returns the sorted keys."""
     keys_s, order = torch.sort(keys, stable=True)
     gat = order if rows is None else rows[order]
-    segsum_gather_add_(rin, table, gat, row_offsets(keys_s, rin.shape[0]), row_scale=row_scale)
+    segsum_gather_add_(rin, table, gat, row_offsets(keys_s, rin.shape[0]), row_scale=row_scale,
+                       site=site)
     return keys_s
 
 

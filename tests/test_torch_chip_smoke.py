@@ -574,3 +574,116 @@ def test_loop_control_entries_and_turn_shape():
     cs = types.SimpleNamespace(check_k4=lambda dev: {"turn": dict(timing), **k4})
     rec = chip_smoke.turn_record(cs, {"tag": "loop_control"}, torch.device("cpu"))
     assert list(rec) == ["loop_control"] and rec["loop_control"]["turn"] == timing
+
+
+def test_recorded_deliveries_on_the_cpu():
+    """16f's and 15c's recording on the CPU at a small size: one slide of a
+    hybrid driver and one of ``wlp`` with their loops on the host, each
+    hybrid arm's first delivery and the largest group sum recorded; each
+    hybrid record, rebuilt as K1 takes it (``delivery_inputs``), sums what
+    both forms deliver (the port's ``sparse._deliver_`` and the reference's
+    scatter, ``scatter_form_``), and the group sum's what ``index_add_``
+    adds. The hooks come off after."""
+    from pprx_torch.bench.run import config5_run
+    from pprx_torch.dist import wl as dist_wl
+    from pprx_torch.engine import sparse
+    from pprx_torch.engine.graphs import RoundGraphs
+    from pprx_torch.engine.segsum import segment_ids, segsum_gather_add_plain
+    from pprx_torch.graph.hybrid_stream import HybridStreamDriver
+
+    hooks = (sparse._deliver_, dist_wl.segsum_gather_add_, RoundGraphs.loop)
+    src, dst, n = synthetic_powerlaw_stream(2000, 6000 + 4 * 300, seed=7)
+    drv = HybridStreamDriver(src, dst, n, list(range(4)), PprConfig(alpha=0.15, eps=1e-6),
+                             StreamConfig(window=6000, slide=300), dtype=torch.float64,
+                             device="cpu")
+    drv.seed()
+    with chip_smoke.recorded_deliveries() as got:
+        list(drv.run(1))
+    assert (sparse._deliver_, dist_wl.segsum_gather_add_, RoundGraphs.loop) == hooks
+    keys = chip_smoke.hybrid_arm_keys(drv)
+    assert keys["wl_top"] == ("worklist", drv.tiers[-1][1], drv.tiers[-1][2])
+    assert got and all(key[0] in ("worklist", "sparse_scan") for key in got)
+    assert any(key in got for key in keys.values())
+    for rec in got.values():
+        rin, row_off, table, gat, scale = chip_smoke.delivery_inputs(rec)
+        assert scale is None and rin.shape[0] == n
+        want = segsum_gather_add_plain(rin.clone(), table, gat, row_off)
+        args = [rec[k] for k in ("moving_f", "t", "nbr", "valid", "mov_ov", "sca", "inv_deg",
+                                 "site")]
+        for form in (lambda acc: sparse._deliver_(acc, *args),
+                     lambda acc: chip_smoke.scatter_form_(acc, rec)):
+            acc = rec["r"].clone()
+            form(acc)
+            np.testing.assert_allclose(acc[:n].numpy(), want.numpy(), rtol=0, atol=1e-12)
+    _, wlp = config5_run(n=2000, w=6000, b=300, s=8, engine="wlp", device="cpu")
+    with chip_smoke.recorded_deliveries() as got:
+        list(wlp.run(1))
+    assert list(got) == [("group_sum",)]
+    rec = got["group_sum",]
+    lo, hi = int(rec["row_off"][0]), int(rec["row_off"][-1])
+    assert not rec["rin"].any() and hi - lo == rec["gat"].shape[0]
+    want = torch.zeros_like(rec["rin"]).index_add_(0, segment_ids(rec["row_off"]),
+                                                   rec["table"][rec["gat"]])
+    np.testing.assert_allclose(
+        segsum_gather_add_plain(rec["rin"].clone(), rec["table"], rec["gat"],
+                                rec["row_off"]).numpy(), want.numpy(), rtol=0, atol=1e-12)
+
+
+def _faulty(gather, fault: str):
+    """``gather`` with a planted fault at the first row that has two lanes
+    or more: its first lane dropped (the offsets past it move down by one)
+    or its last lane misrouted into the next row."""
+    def faulty(rin, table, gat, row_off, row_scale=None, site="other"):
+        row = int(torch.nonzero(row_off.diff() > 1)[0])
+        row_off = row_off.clone()
+        if fault == "dropped":
+            j = int(row_off[row])
+            gat = torch.cat([gat[:j], gat[j + 1:]])
+            row_off[row + 1:] -= 1
+        else:
+            row_off[row + 1] -= 1
+        return gather(rin, table, gat, row_off, row_scale, site)
+    return faulty
+
+
+@pytest.mark.parametrize("fault", ["dropped", "misrouted"])
+def test_recorded_rows_catch_a_planted_fault(monkeypatch, fault):
+    """The hold of K1 at recorded shapes (``recorded_rows``, untimed) on
+    the CPU, where the gather entry runs its plain version: a recorded
+    slide of a small hybrid driver passes, its values drawn anew in [0, 1)
+    (``refilled``: the same shapes, another table); with one lane dropped
+    or misrouted in every gather (a planted fault) it fails."""
+    from pprx_torch.graph.hybrid_stream import HybridStreamDriver
+
+    src, dst, n = synthetic_powerlaw_stream(2000, 6000 + 4 * 300, seed=7)
+    drv = HybridStreamDriver(src, dst, n, list(range(4)), PprConfig(alpha=0.15, eps=1e-6),
+                             StreamConfig(window=6000, slide=300), device="cpu")
+    drv.seed()
+    with chip_smoke.recorded_deliveries() as got:
+        list(drv.run(1))
+    tags = {k[0] + str(i): k for i, k in enumerate(got)}
+    rec = next(iter(got.values()))
+    again = chip_smoke.refilled(rec)
+    assert again["moving_f"].shape == rec["moving_f"].shape
+    assert 0 <= float(again["moving_f"].min()) and float(again["moving_f"].max()) < 1
+    assert torch.equal(again["moving_f"], chip_smoke.refilled(rec)["moving_f"])
+    assert again["nbr"] is rec["nbr"] and again["r"] is rec["r"]
+    rows = chip_smoke.recorded_rows(got, tags, timed=False)
+    assert rows["missing"] == [] and all(rows[f"{t}_gather_f32_max_abs_err"] < 1e-4 for t in tags)
+    monkeypatch.setattr(chip_smoke, "segsum_gather_add_",
+                        _faulty(chip_smoke.segsum_gather_add_, fault))
+    with pytest.raises(AssertionError, match="disagrees with the plain version"):
+        chip_smoke.recorded_rows(got, tags, timed=False)
+
+
+def test_hybrid_turn_on_the_cpu():
+    """``--turns``' hybrid shape without a worklist through ``turn_record``
+    on the CPU at a small size, as each root's turn runs it: its rate, K1's
+    launches a slide by call site (none here) and no arm split (no card)."""
+    extra = {sh["tag"]: sh for sh in chip_smoke.TURN_EXTRA}
+    sh = extra["hybrid_no_worklist"]
+    res = chip_smoke.turn_record(chip_smoke, dict(sh, n=2000, w=6000, b=300, s=4, warmup=1,
+                                                  steps=2), torch.device("cpu"))
+    assert res["updates_per_s"] > 0 and res["arm_split"] is None
+    assert res["k1_by_site_per_slide"] == {site: 0 for site in chip_smoke.segsum.SITES}
+    assert len(res["profile"]["rounds"]) == 1

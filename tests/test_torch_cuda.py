@@ -2009,3 +2009,156 @@ def test_hybrid_loop_graph_leaves_the_host_loops_state(monkeypatch, mode):
                                                             stats.edge_pushes)
     assert host.syncs == rounds + 1
     assert torch.equal(st.p, st2.p) and torch.equal(st.r, st2.r)
+
+
+# ---- the sorted deliveries of the hybrid engine's worklist rounds and
+# sparse scans, and of wlp's group sum: K1 under its call sites
+
+
+def _hybrid_round_inputs(dev, mode, s=8):
+    """A hybrid graph mid-stream (a snapshot one slide stale, an overlay of
+    its changes) on the CPU and on ``dev``, a state of residuals in [0, 1)
+    on every real row (f64 on the CPU, f32 on the card, the same values)
+    and a candidate list of every row: (cpu graph, cpu state, card graph,
+    card state, cpu list)."""
+    from pprx_torch.convert import hybrid_graph_from_arrays, hybrid_graph_to_arrays
+
+    src, dst, n = synthetic_powerlaw_stream(300, 3000, seed=3)
+    drv = HybridStreamDriver(src, dst, n, [0, 5, 9], PprConfig(alpha=0.15, eps=1e-6),
+                             StreamConfig(window=1500, slide=25), mode=mode, rebuild_every=3,
+                             dtype=torch.float64, device="cpu")
+    drv.seed()
+    list(drv.run(2))
+    graph = drv.graph
+    assert int((graph.ov.sign < 0).sum()) > 0
+    rng = np.random.default_rng(mode)
+    r = np.zeros((n + 1, s), np.float32)
+    r[:n] = rng.random((n, s), dtype=np.float32)
+    st = PprState(p=torch.zeros((n + 1, s), dtype=torch.float64),
+                  r=torch.from_numpy(r).double(), mode=mode)
+    card = PprState(p=st.p.float().to(dev), r=st.r.float().to(dev), mode=mode)
+    cand = torch.arange(n, dtype=torch.int32)
+    return (graph, st, hybrid_graph_from_arrays(hybrid_graph_to_arrays(graph), device=dev),
+            card, cand)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", ["worklist", "sparse_scan"])
+@pytest.mark.parametrize("mode", [0, REVERSE])
+def test_hybrid_sorted_delivery_on_card_matches_plain(mode, arm):
+    """A worklist round and a sparse scan over every row, each delivering
+    sorted: on the card (f32, K1 once under the arm's call site) against
+    the CPU's f64 plain version, rtol = atol = 1e-4 (the kernel checks'
+    tolerance); reverse scales each receiver row's sum."""
+    from pprx_torch.engine import sparse
+
+    dev = _cuda()
+    graph, st, graph_d, st_d, cand = _hybrid_round_inputs(dev, mode)
+    cfg = PprConfig(alpha=0.15, eps=1e-6)
+    n = graph.n
+    r0 = st.r.clone()
+    before = dict(segsum.SITE_LAUNCHES)
+    for g, state, c in ((graph, st, cand), (graph_d, st_d, cand.to(dev))):
+        if arm == "worklist":
+            sparse.worklist_round(state, g, cfg, c, n + 1, 2048, 0)
+        else:
+            sparse.sparse_round(state, g, cfg, n + 1, 2048)
+    torch.cuda.synchronize()
+    assert {k: segsum.SITE_LAUNCHES[k] - before[k] for k in before} == {
+        site: int(site == arm) for site in segsum.SITES}
+    assert not torch.allclose(st.r, r0)  # the round moved mass
+    for got, want in ((st_d.p, st.p), (st_d.r, st.r)):
+        torch.testing.assert_close(got.double().cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, REVERSE])
+def test_captured_worklist_arm_replays_bit_for_bit(mode):
+    """A worklist round, captured into a CUDA graph and replayed twice from
+    one saved state: ``p`` and ``r`` the same bits (the segment sum adds
+    without atomics; the residual removal's rows are unique)."""
+    from pprx_torch.engine import sparse
+
+    dev = _cuda()
+    graph, _, graph_d, st, cand = _hybrid_round_inputs(dev, mode)
+    cand = cand.to(dev)
+    cfg = PprConfig(alpha=0.15, eps=1e-6)
+
+    def arm():
+        sparse.worklist_round(st, graph_d, cfg, cand, graph.n + 1, 2048, 0)
+
+    saved = (st.p.clone(), st.r.clone())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        arm()
+    torch.cuda.current_stream().wait_stream(side)
+    captured = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(captured):
+        arm()
+    outs = []
+    for _ in range(2):
+        st.p.copy_(saved[0])
+        st.r.copy_(saved[1])
+        captured.replay()
+        torch.cuda.synchronize()
+        outs.append((st.p.clone(), st.r.clone()))
+    assert not torch.equal(outs[0][1], saved[1])
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, REVERSE])
+@pytest.mark.parametrize("worklist", [True, False])
+def test_hybrid_k1_launches_count_from_the_carry(worklist, mode):
+    """The hybrid driver on the card, seed and 6 slides: K1's launches at
+    the worklist and sparse-scan sites (each arm's captured launches times
+    its executions, which the carry counts) equal those arms' executions
+    (``chip_smoke.loop_tally``), and each captured worklist or sparse-scan
+    arm launched K1 once, under its site."""
+    import chip_smoke
+
+    dev = _cuda()
+    gpu, _ = _hybrid_pair(dev, mode, worklist)
+    before = dict(segsum.SITE_LAUNCHES)
+    with chip_smoke.loop_tally() as tally:
+        [gpu.seed(), *gpu.run(6)]
+    torch.cuda.synchronize()
+    sites = {k: segsum.SITE_LAUNCHES[k] - before[k] for k in before}
+    arms = tally["arms"]
+    assert arms["wl" if worklist else "sparse"] > 0
+    assert sites == {"worklist": arms["wl"], "sparse_scan": arms["sparse"], "group_sum": 0,
+                     "other": sites["other"]}
+    for key, (_, launched) in gpu.round_graphs.kept.items():
+        kind = {"tier": "worklist", "scan": "sparse_scan"}.get(key[4])
+        if kind is not None:
+            assert launched[1] == {site: int(site == kind) for site in segsum.SITES}, key
+
+
+@pytest.mark.cuda
+def test_group_sum_on_card_matches_plain():
+    """``sorted_bucket_rows`` on the card (f32; its group sum K1 once under
+    ``group_sum``) against the CPU's f64 plain version: heavy duplicates,
+    invalid lanes, the quotas' overflow into the carry."""
+    import pprx_torch.dist.wl as twl
+
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    k, n_local, ccap, length, s = 4, 5000, 512, 200_000, 32
+    n_pad = k * n_local
+    ids = rng.zipf(1.2, size=length) % (n_pad + 1)
+    moving = rng.random((60_000, s), dtype=np.float32)
+    rows = rng.integers(0, 60_000, size=length)
+    args = (k, n_local, n_pad, ccap, min(length, n_pad))
+    want = twl.sorted_bucket_rows(torch.from_numpy(ids.astype(np.int32)), torch.from_numpy(rows),
+                                  torch.from_numpy(moving).double(), *args)
+    before = dict(segsum.SITE_LAUNCHES)
+    got = twl.sorted_bucket_rows(torch.from_numpy(ids.astype(np.int32)).to(dev),
+                                 torch.from_numpy(rows).to(dev),
+                                 torch.from_numpy(moving).to(dev), *args)
+    torch.cuda.synchronize()
+    assert {k_: segsum.SITE_LAUNCHES[k_] - before[k_] for k_ in before} == {
+        site: int(site == "group_sum") for site in segsum.SITES}
+    assert int(got[4]) == int(want[4]) > 0
+    for a, b in zip(got[:4], want[:4]):
+        torch.testing.assert_close(a.cpu().to(b.dtype), b, rtol=1e-4, atol=1e-4)

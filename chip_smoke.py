@@ -220,11 +220,25 @@ round trip. Phases, one line each:
    carries count, and every path that runs loops must launch K4's prime
    and turn, and K3 where a scan or a count ran, K1 and K2 where a dense
    scan ran (``check_hybrid_launched``); 16c's loops without a worklist
-   must run a sparse scan arm, as their carries count.
+   must run a sparse scan arm, as their carries count;
+17. determinism: every single-card path twice on the same inputs
+   (``determinism_phase``: two drivers built from one stream, each seeded,
+   then stepped in turns, ``twin_run``): ``p`` and ``r`` bit for bit after
+   the seed and after every slide, and the same rounds every loop
+   (``same_bits``), one line a path, with K1's launches by call site. The
+   paths and shapes (``DETERMINISM``): the fast driver forward at the
+   headline, f32 and with bf16 delivery, 3 slides, and in reverse, 3
+   slides, then refined to 5e-8 in the same rounds (R1); the fast driver in
+   reverse at config 3's shapes and S=8 end to end (20 slides), refined the
+   same way; the dense driver in both modes on phase 12's stream; the
+   hybrid driver in both modes, with and without a worklist, on 16c's
+   stream, 3 slides; and at mesh 1x1 the sharded wl engine, ``wlp`` and the
+   sharded dense engine in both modes at config 5's shapes, 2 slides.
 
 Then a JSON line of the kernels, the segment sum's two entries (the
-gather entry's also at the shapes 15c, 16c and 16f recorded, and its
-launches by call site on the hybrid and ``wlp`` paths), the two
+gather entry's also at the shapes 15c, 16c and 16f recorded, and K1's
+launches by call site on every path that counts them: each must launch it
+at the ``corrections`` site), the two
 row passes and K4's three steps (``launches``: the main path's, phases 4 to
 6, which must launch the gather entry, both row passes and every K4 step;
 ``launches_by_path``: every path's, each counted with the counts set to 0
@@ -1785,8 +1799,8 @@ def reverse_contract(drv: FastStreamDriver, eps: float, gap_limit: float | None 
 def correction_rounding(drv: FastStreamDriver, n_check: int = 16) -> dict:
     """What the next slide's corrections, as the driver computes them (f32,
     the old window's row sums from the segment-sum kernel over the kill
-    graph's views), add to ``r`` beyond the same corrections in f64 with
-    the row sums from the COO ring: ``e = r_f32 - r_f64`` over all rows and
+    graph's views), add to ``r`` beyond the same corrections in f64 on the
+    CPU with the row sums from the COO ring: ``e = r_f32 - r_f64`` over all rows and
     targets, and ``max |M e|`` on sampled targets, which is what the slide
     adds to the invariant gap (M on the window after the slide). The state
     does not advance. A row-sum fault would show here as an ``e`` far above
@@ -1803,11 +1817,15 @@ def correction_rounding(drv: FastStreamDriver, n_check: int = 16) -> dict:
     st = drv.state
     got, _ = apply_edge_batch(st, win, *ins, *dels, drv.cfg,
                               rowsum=window_row_sums(st.p, drv.graph))
-    st64 = PprState(p=st.p.double(), r=st.r.double(), mode=st.mode)
-    want, _ = apply_edge_batch(st64, win, *ins, *dels, drv.cfg)
-    e = got.r.double() - want.r
+    # the f64 witness on the CPU, where K1's plain version sums (K1 on the
+    # card takes f32)
+    cpu = torch.device("cpu")
+    st64 = PprState(p=st.p.double().to(cpu), r=st.r.double().to(cpu), mode=st.mode)
+    win64 = WindowGraph(src=win.src.to(cpu), dst=win.dst.to(cpu), deg=win.deg.to(cpu))
+    want, _ = apply_edge_batch(st64, win64, *(t.to(cpu) for t in (*ins, *dels)), drv.cfg)
+    e = got.r.double() - want.r.to(dev)
     touched = int(((want.r - st64.r) != 0).any(dim=1).sum())
-    del got, want, st64
+    del got, want, st64, win64
     hsrc, hdst = drv.hsrc.copy(), drv.hdst.copy()
     hsrc[slots], hdst[slots] = drv.stream_src[lo:lo + b], drv.stream_dst[lo:lo + b]
     cols = np.unique(np.linspace(0, e.shape[1] - 1, min(n_check, e.shape[1])).astype(int))
@@ -1856,6 +1874,7 @@ def reverse_run(dev, n: int, w: int, b: int, s: int, rebuild_every: int, warmup:
         res["profile"] = profile_slides(drv, prof_steps)
     res["launches_by_entry"] = launches_by_entry()
     res["launches_scaled"] = launches_by_entry(scaled=True)
+    res["k1_by_site"] = k1_by_site()
     if res["launches_scaled"]["segsum_gather_add"] <= 0:
         raise AssertionError(f"the reverse stream never launched the scaled entry: {res}")
     if res["launches_by_entry"]["scan_pass"] <= 0:
@@ -1916,6 +1935,7 @@ def forward_run(dev, n: int, w: int, b: int, s: int, rebuild_every: int, warmup:
                                      twin and state_mass(twin, 16))
     serve = serve_check(drv, eps_r=eps_r, k=k)
     res["launches_by_entry"] = launches_by_entry()
+    res["k1_by_site"] = k1_by_site()
     if min(res["launches_by_entry"][e] for e in ("segsum_gather_add", "scan_pass")) <= 0:
         raise AssertionError(f"the stream never launched the segment sum or the scan pass: {res}")
     # what follows compares and launches nothing of the port's on the card
@@ -2000,6 +2020,7 @@ def dense_check(dev) -> dict:
                 raise AssertionError(f"dense {tag} stream, slide {b}: error {err} > {bound}")
     res["kernel_launches"] = all_launches()
     res["launches_by_entry"] = launches_by_entry()
+    res["k1_by_site"] = k1_by_site()
     if dev.type == "cuda":
         check_dense_launched({"dense_driver": res["launches_by_entry"]})
     return res
@@ -2614,7 +2635,7 @@ def config5_reverse_check(dev, n_check: int = 16, prof: bool = False,
     if prof:
         res["profile"] = profile_slides(drv, 1)
     res.update(launches_by_entry=launches_by_entry(),
-               launches_scaled=launches_by_entry(scaled=True),
+               launches_scaled=launches_by_entry(scaled=True), k1_by_site=k1_by_site(),
                round_kinds=dict(drv.eng.round_kinds))
     res["launches_unscaled"] = {e: res["launches_by_entry"][e] - res["launches_scaled"][e]
                                 for e in segsum.ENTRIES}
@@ -3512,6 +3533,129 @@ def loop_entry(step: str, k4: dict, launches: dict) -> dict:
     }
 
 
+# phase 17: each single-card path as a pair of drivers built from one
+# stream, at a shape the smoke runs: the headline (phases 4, 5 and 8; in
+# reverse refined to 5e-8: R1), config 3 at S=8 in reverse end to end
+# with its refine to 5e-8 (phase 8), phase 12's dense driver, 16c's small
+# stream (the hybrid driver with and without a worklist) and config 5
+# (phases 14 and 15: the sharded engines at mesh 1x1)
+_TWIN_HEAD = dict(n=HEADLINE["n"], w=HEADLINE["w"], b=HEADLINE["b"], s=HEADLINE["s"],
+                  seed=HEADLINE["seed"], slides=3)
+_TWIN_C5 = dict(_TWIN_HEAD, seed=5, slides=2)
+_TWIN_16C = dict(n=20_000, w=200_000, b=4000, s=16, seed=3, slides=3)
+_TWIN_P12 = dict(n=300, w=1500, b=100, s=3, seed=5, slides=3)
+DETERMINISM = {
+    "fast_forward": dict(_TWIN_HEAD, kind="fast"),
+    "fast_bf16": dict(_TWIN_HEAD, kind="fast", bf16d=True),
+    "fast_reverse": dict(_TWIN_HEAD, kind="fast", mode=REVERSE, refine=5e-8),
+    "fast_reverse_config3_s8": dict(kind="fast", mode=REVERSE, s=8, n=CONFIG3["n"],
+                                    w=CONFIG3["w"], b=CONFIG3["b"], seed=CONFIG3["seed"],
+                                    rebuild_every=CONFIG3["rebuild_every"],
+                                    slides=CONFIG3["warmup"] + CONFIG3["steps"], refine=5e-8),
+    "dense_forward": dict(_TWIN_P12, kind="dense"),
+    "dense_reverse": dict(_TWIN_P12, kind="dense", mode=REVERSE),
+    "hybrid_forward": dict(_TWIN_16C, kind="hybrid"),
+    "hybrid_reverse": dict(_TWIN_16C, kind="hybrid", mode=REVERSE),
+    "hybrid_no_worklist_forward": dict(_TWIN_16C, kind="hybrid", worklist=False),
+    "hybrid_no_worklist_reverse": dict(_TWIN_16C, kind="hybrid", mode=REVERSE, worklist=False),
+    "sharded_wl_forward": dict(_TWIN_C5, kind="sharded", engine="wl"),
+    "sharded_wl_reverse": dict(_TWIN_C5, kind="sharded", engine="wl", mode=REVERSE),
+    "wlp_forward": dict(_TWIN_C5, kind="sharded", engine="wlp"),
+    "wlp_reverse": dict(_TWIN_C5, kind="sharded", engine="wlp", mode=REVERSE),
+    "sharded_dense_forward": dict(_TWIN_C5, kind="sharded", engine="dense"),
+    "sharded_dense_reverse": dict(_TWIN_C5, kind="sharded", engine="dense", mode=REVERSE),
+}
+
+
+def twin_maker(dev, kind: str, n: int, w: int, b: int, s: int, seed: int, slides: int,
+               mode: int = FORWARD, bf16d: bool = False, worklist: bool = True,
+               engine: str = "wl", rebuild_every: int | None = None):
+    """A constructor of one path's driver on ``dev`` (``kind``: fast, dense,
+    hybrid or sharded at mesh 1x1) on the synthetic stream of ``seed``,
+    long enough for its seed and ``slides`` slides; each call builds a new
+    driver from the same stream."""
+    src, dst, n = synthetic_powerlaw_stream(n, w + (slides + 1) * b, seed=seed)
+    scfg = StreamConfig(window=w, slide=b)
+    queries = list(range(s))
+    if kind == "fast":
+        cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
+        every = rebuild_every or headline_schedule(w, b)[0]
+        return lambda: FastStreamDriver(src, dst, n, queries, cfg, scfg, mode=mode,
+                                        rebuild_every=every, bf16d=bf16d, device=dev)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=10_000)
+    if kind == "dense":
+        return lambda: StreamDriver(src, dst, n, queries, cfg, scfg, mode=mode, device=dev)
+    if kind == "hybrid":
+        return lambda: HybridStreamDriver(src, dst, n, queries, cfg, scfg, mode=mode,
+                                          worklist=worklist, device=dev)
+    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=2000)
+    return lambda: ShardedStreamDriver(src, dst, n, queries, cfg, scfg, make_row_mesh(1, 1),
+                                       mode=mode, engine=engine, device=dev)
+
+
+def twin_state(drv) -> tuple:
+    """A driver's ``(p, r)``: the state's, or the sharded driver's blocks."""
+    st = getattr(drv, "state", None)
+    return (st.p, st.r) if st is not None else (drv.p, drv.r)
+
+
+def same_bits(tag: str, a, b) -> None:
+    """Raises unless two drivers hold the same ``p`` and ``r``, bit for bit."""
+    for name, x, y in zip(("p", "r"), twin_state(a), twin_state(b)):
+        if not torch.equal(x, y):
+            off = x != y
+            raise AssertionError(
+                f"{tag}: {name} differs between two runs of the same inputs in "
+                f"{int(off.sum())} entries, max |d| {float((x - y).abs().max())}")
+
+
+def twin_run(tag: str, make, slides: int, refine: float | None = None) -> dict:
+    """Two drivers from ``make`` (one stream), each seeded, then stepped in
+    turns ``slides`` slides (and refined to ``refine``): the same rounds
+    every loop, and ``p`` and ``r`` bit for bit after each (``same_bits``).
+    Fails otherwise."""
+    t0 = time.perf_counter()
+    a, b = make(), make()
+
+    def rounds(st) -> int:
+        return int(st["rounds"] if isinstance(st, dict) else st.rounds)
+
+    got = [[rounds(a.seed())], [rounds(b.seed())]]
+    same_bits(f"{tag} seed", a, b)
+    for i, (sa, sb) in enumerate(zip(a.run(slides), b.run(slides), strict=True)):
+        got[0].append(rounds(sa))
+        got[1].append(rounds(sb))
+        same_bits(f"{tag} slide {i + 1}", a, b)
+    if len(got[0]) != slides + 1:
+        raise AssertionError(f"{tag}: {len(got[0]) - 1} of {slides} slides ran")
+    res = {}
+    if refine is not None:
+        res["refine_rounds"] = [rounds(d.refine(refine)) for d in (a, b)]
+        same_bits(f"{tag} refine", a, b)
+        if res["refine_rounds"][0] != res["refine_rounds"][1]:
+            raise AssertionError(f"{tag}: refines to {refine} took {res['refine_rounds']} rounds")
+    if got[0] != got[1]:
+        raise AssertionError(f"{tag}: the two runs took {got[0]} and {got[1]} rounds")
+    return {"slides": slides, "rounds": got[0], **res, "bit_for_bit": True,
+            "seconds": time.perf_counter() - t0}
+
+
+def determinism_phase(dev) -> dict:
+    """Phase 17: each path of ``DETERMINISM`` as a pair (``twin_run``), its
+    counts of K1's launches by call site (both drivers) beside it. One
+    result a path."""
+    out = {}
+    for path, shape in DETERMINISM.items():
+        reset_launches()
+        kw = dict(shape)
+        refine = kw.pop("refine", None)
+        res = twin_run(path, twin_maker(dev, **kw), kw["slides"], refine)
+        out[path] = {**res, "k1_by_site": k1_by_site()}
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def build_all() -> dict:
     """Every kernel source built at once, one ``nvcc`` each, in parallel."""
     with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
@@ -3594,12 +3738,13 @@ def main() -> None:
     serve = serve_check(drv, eps_r=5e-8, k=k)
     launches = segsum.launches()
     by_entry = launches_by_entry()
+    main_sites = k1_by_site()
     if min(launches, by_entry["scan_pass"], by_entry["frontier_rows"],
            *(by_entry[f"loop_{step}"] for step in loop.STEPS)) <= 0:
         raise AssertionError(f"the main path never launched one of its kernels: {by_entry}")
     contract = exact_contract(drv, serve.pop("ids"), k, 16, l1_bound=cfg.eps * w)
     log("6 serve", eps_retrieve=5e-8, k=k, **serve, **contract, launches_total=launches,
-        launches_by_entry=by_entry)
+        launches_by_entry=by_entry, k1_by_site=main_sites)
 
     parity = parity_small(dev)
     log("7 parity", **parity)
@@ -3675,12 +3820,14 @@ def main() -> None:
                  "launch steered by K4")
         torch.cuda.empty_cache()
         # the dense engine at config 5's shapes; each run sets the counts to 0
+        dense5_sites = {}
         for mode in ("forward", "reverse"):
             res = config5_check(dev, bf16d=False, engine="dense", mode=mode)
             if res["loop_rules"] != [loop.DENSE]:
                 raise AssertionError(f"dense {mode}: its loops ran under {res['loop_rules']}")
             log(f"14c config5 dense {mode}", **res)
             sharded_by_path[f"config5_dense_{mode}"] = res["launches_by_entry"]
+            dense5_sites[f"config5_dense_{mode}"] = res["k1_by_site"]
             del res
             torch.cuda.empty_cache()
         cli5 = sharded_cli(dev, tmp, os.path.join(tmp, "stream.npz"), w, b, s)
@@ -3766,6 +3913,13 @@ def main() -> None:
         hybrid_by_path["cli_retrieve_hybrid"] = cli16["cli_retrieve_hybrid"]["launches_by_entry"]
         torch.cuda.empty_cache()
 
+    # every single-card path twice on the same inputs: the same bits
+    t0 = time.perf_counter()
+    twins = determinism_phase(dev)
+    for path, res in twins.items():
+        log(f"17 determinism {path.replace('_', ' ')}", **res)
+    log("17 determinism", paths=len(twins), seconds=time.perf_counter() - t0)
+
     if "jax" in sys.modules or "pprx" in sys.modules:
         raise AssertionError("jax or the JAX package was imported")
     launches = {"forward": by_entry,
@@ -3782,9 +3936,18 @@ def main() -> None:
                 **recorded_entry(hybrid["hybrid_no_worklist"]["worklist_deliveries"],
                                  ("small_wl_top", "small_wl_smallest")),
                 **recorded_entry(wlp["forward"]["deliveries"], ("group_sum",))}
-    sites = {**{path: res["loops"]["k1_by_site"] for path, res in runs16.items()},
+    sites = {"forward": main_sites,
+             **{f"forward_config2_{tag}": res["k1_by_site"] for tag, res in config2.items()},
+             **{f"reverse_{tag}": res["k1_by_site"] for tag, res in reverse.items()},
+             "dense_driver": dense["k1_by_site"],
+             **{f"config5_{tag}": res["k1_by_site"] for tag, res in config5.items()},
+             "config5_rev": rev["k1_by_site"], **dense5_sites,
+             **{path: res["loops"]["k1_by_site"] for path, res in runs16.items()},
              **{f"config5_wlp{'' if m == 'forward' else '_rev'}": wlp[m]["k1_by_site"]
                 for m in wlp}}
+    corrections = {path: by_site["corrections"] for path, by_site in sites.items()}
+    if min(corrections.values()) <= 0:
+        raise AssertionError(f"a path's corrections never launched K1: {corrections}")
     print(json.dumps({"kernels": [
         kernel_entry("segsum_add", "add", kern, launches),
         kernel_entry("segsum_gather_add", "gather", kern, launches, recorded, sites),
@@ -3970,11 +4133,13 @@ def turn_record(cs, sh: dict, dev) -> dict:
             import pprx_torch.graph.stream as stream_mod
 
             # a slide's parts, by the names each tree's stream module calls
-            # them: the corrections (in place or copying), the view's sort
-            # and its copy into the held view, the push (a capture, the loop)
+            # them: the corrections (in place or copying), in reverse the
+            # old row sums where the module takes them from K1 over its view
+            # (else inside the corrections), the view's sort and its copy
+            # into the held view, the push (a capture, the loop)
             part_of = {"apply_edge_batch_": "corrections", "apply_edge_batch": "corrections",
-                       "delivery_view": "view_sort", "copy_into_": "view_copy",
-                       "push_to_convergence": "push"}
+                       "segsum_gather_add_": "row_sums", "delivery_view": "view_sort",
+                       "copy_into_": "view_copy", "push_to_convergence": "push"}
             spans, walls, split = {}, {}, [False]
 
             def parted(fn, part):

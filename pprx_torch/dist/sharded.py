@@ -56,9 +56,8 @@ from pprx_torch.dist.mesh import RowMesh, all_to_all_rows, gather_stats, reduce_
 from pprx_torch.engine import loop
 from pprx_torch.engine.graphs import RoundGraphs, copy_into_
 from pprx_torch.engine.push import dense_round_, first_count
-from pprx_torch.engine.segsum import row_offsets, segsum_gather_add_
+from pprx_torch.engine.segsum import row_offsets, segsum_gather_add_, sorted_deliver_
 from pprx_torch.engine.state import FORWARD, PprState
-from pprx_torch.engine.wl2 import sorted_deliver_
 from pprx_torch.graph.dynamic import DeliveryView
 
 
@@ -429,7 +428,7 @@ class ShardedEngine:
         write and the view's rebuild."""
         p2, r2, ids, vals, deg2 = forward_corrections_pairs(
             p, r, deg, del_u, del_w, del_v, ins_u, ins_w, ins_v, self.cfg.alpha, self.n_pad)
-        sorted_deliver_(r2[:self.n_local - 1], ids, vals)
+        sorted_deliver_(r2[:self.n_local - 1], ids, vals, site="corrections")
         p.copy_(p2)
         r.copy_(r2)
         deg.copy_(deg2)
@@ -449,7 +448,8 @@ class ShardedEngine:
         s_new = s_old.clone()
         old_v = eva[clear_slots].to(dtype)[:, None]
         delta = torch.cat([-p[egl[clear_slots]] * old_v, p[write_dl] * write_v.to(dtype)[:, None]])
-        sorted_deliver_(s_new[:n], torch.cat([eog[clear_slots], write_sg]), delta)
+        sorted_deliver_(s_new[:n], torch.cat([eog[clear_slots], write_sg]), delta,
+                        site="corrections")
         write_window_(egl, eog, eva, clear_slots, write_slots, write_dl, write_sg, write_v)
         r2, d_new = reverse_apply(p, r, deg, del_u, del_v, ins_u, ins_v, s_old, s_new,
                                   self.cfg.alpha)

@@ -40,7 +40,7 @@ How the port differs:
   kernel reads exact edge ranges, so the remote accumulator has none of
   the TPU kernel's boundary-chunk double count and rides it too.
 - The K = 1 compact round is the single-device port's sorted delivery
-  (``pprx_torch.engine.wl2.sorted_deliver_``), and ``sorted_bucket_rows``'
+  (``pprx_torch.engine.segsum.sorted_deliver_``), and ``sorted_bucket_rows``'
   group sum (the reference's sorted ``.at[sidx].add``) is the segment sum's
   gather entry over the sorted lanes.
 - A dense round's elementwise work (the activity test, ``p`` and ``r`` in
@@ -96,7 +96,7 @@ from pprx_torch.dist.sharded import (
     write_window_,
 )
 from pprx_torch.engine.rowpass import frontier_rows, scan_pass_
-from pprx_torch.engine.segsum import row_offsets, segsum_gather_add_
+from pprx_torch.engine.segsum import row_offsets, segsum_gather_add_, sorted_deliver_
 from pprx_torch.engine.state import FORWARD
 from pprx_torch.engine.wl2 import (
     _BIG,
@@ -104,7 +104,6 @@ from pprx_torch.engine.wl2 import (
     _inverse_perm,
     compact,
     rld_expand,
-    sorted_deliver_,
 )
 
 
@@ -816,22 +815,16 @@ class ShardedWlEngine(ShardedEngine):
     def _deliver(self, r, send_ids, send_mass, inv_deg):
         """The proportional rounds' exchange: one all-to-all of this shard's
         ``[K * q]`` (local id, mass) buckets, the received mass into ``r``
-        (sorted through the segment sum from ``SORT_BUCKET_MIN`` lanes on,
-        else by ``index_add_``; padding ids n_local add nothing). Returns
-        the received ids."""
-        k, n_local, s = self.n_rows, self.n_local, send_mass.shape[1]
+        (sorted through the segment sum at every size; padding ids n_local
+        add nothing). Returns the received ids."""
+        k, s = self.n_rows, send_mass.shape[1]
         q = send_ids.shape[0] // k
         if self.bf16d:
             send_mass = send_mass.to(torch.bfloat16)
         group = self.mesh.row_group
         recv_ids = all_to_all_rows(send_ids.reshape(k, q), group).reshape(-1)
         recv_mass = all_to_all_rows(send_mass.reshape(k, q, s), group).reshape(-1, s)
-        recv_mass = recv_mass.to(r.dtype)
-        if recv_ids.shape[0] >= SORT_BUCKET_MIN:
-            sorted_deliver_(r, recv_ids, recv_mass, row_scale=inv_deg)
-        else:
-            rc = recv_ids.clamp(0, n_local - 1)
-            r.index_add_(0, rc, recv_mass if inv_deg is None else recv_mass * inv_deg[rc, None])
+        sorted_deliver_(r, recv_ids, recv_mass.to(r.dtype), row_scale=inv_deg)
         return recv_ids
 
     def _next_marked(self, snap, recv_ids, cand=None):
@@ -1026,16 +1019,16 @@ class ShardedWlEngine(ShardedEngine):
                 ids, vals, k, n_local, n_pad, q, self.ccarry)
             recv_ids = all_to_all_rows(send_ids.reshape(k, q), group).reshape(-1)
             recv_mass = all_to_all_rows(send_mass.reshape(k, q, -1), group)
-            r.index_add_(0, recv_ids.clamp(0, n_local - 1), recv_mass.reshape(k * q, -1))
+            sorted_deliver_(r, recv_ids, recv_mass.reshape(k * q, -1), site="corrections")
             mark.index_fill_(0, recv_ids.clamp(0, n_local).long(), True)
             carry0 = (cids, cmass, pend)
         elif self.n_rows == 1:
-            # no wire: the correction pairs run straight into r
+            # no wire: the correction pairs run straight into r through K1,
+            # sorted (invalid pairs, id n_pad = n_local, are dropped)
             p, r, ids, vals, deg2 = forward_corrections_pairs(
                 p, r, deg, del_u, del_w, del_v, ins_u, ins_w, ins_v, alpha, n_pad)
-            valid = ids < n_pad
-            r.index_add_(0, ids.clamp(0, n_local - 1), vals * valid.to(p.dtype)[:, None])
-            mark.index_fill_(0, torch.where(valid, ids, n_local).long(), True)
+            sorted_deliver_(r, ids, vals, site="corrections")
+            mark.index_fill_(0, torch.where(ids < n_pad, ids, n_local).long(), True)
         else:
             p, r, acc, deg2 = forward_corrections(
                 p, r, deg, del_u, del_w, del_v, ins_u, ins_w, ins_v, alpha, n_pad)
@@ -1118,11 +1111,15 @@ class ShardedWlEngine(ShardedEngine):
         iota = torch.arange(b, device=pack.device)
         del_v, ins_v, write_v = ((iota < c).to(torch.int32) for c in (cnt_o, cnt_n, cnt_w))
         s_loc, acc_old = self.rowsum_sweep(p, snap)
-        # the batch's delta by global row: expiring edges out, fresh ones in
+        # the batch's delta by global row through K1, sorted: the expiring
+        # edges' rows negated, then the fresh edges' rows read from p
+        # (padding lanes keyed n_pad, dropped)
         acc_d = torch.zeros((self.n_pad, p.shape[1]), dtype=dtype, device=p.device)
         old_v = eva[clear_slots].to(dtype)[:, None]
-        acc_d.index_add_(0, eog[clear_slots], -p[egl[clear_slots]] * old_v)
-        acc_d.index_add_(0, write_sg, p[write_dl] * write_v.to(dtype)[:, None])
+        sorted_deliver_(acc_d, eog[clear_slots], p[egl[clear_slots]].mul_(-old_v),
+                        site="corrections")
+        sorted_deliver_(acc_d, torch.where(write_v > 0, write_sg, self.n_pad), p, write_dl,
+                        site="corrections")
         if acc_old is None:
             s_old = s_loc
             s_new = s_old + acc_d

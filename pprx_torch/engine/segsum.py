@@ -50,9 +50,10 @@ ENTRIES = ("segsum_add", "segsum_gather_add")
 LAUNCHES = {(entry, scaled): 0 for entry in ENTRIES for scaled in (False, True)}
 
 # The same calls by call site (a wrapper's ``site``): the hybrid engine's
-# worklist rounds and sparse scans, ``wlp``'s group sum, and every other
-# call.
-SITES = ("worklist", "sparse_scan", "group_sum", "other")
+# worklist rounds and sparse scans, ``wlp``'s group sum, a slide's edge
+# corrections (every driver's, and the 1x1 sharded engines'), and every
+# other call.
+SITES = ("worklist", "sparse_scan", "group_sum", "corrections", "other")
 SITE_LAUNCHES = {site: 0 for site in SITES}
 
 
@@ -246,6 +247,11 @@ def _check(what, rin, source, name, gat, row_off, row_scale) -> None:
         raise ValueError(f"{what} on CUDA needs 16-byte-aligned rin and {name}")
 
 
+def _check_site(what: str, site: str) -> None:
+    if site not in SITE_LAUNCHES:
+        raise ValueError(f"{what}: unknown call site {site!r}")
+
+
 def _launch(entry: str, rin, source, gat, row_off, row_scale, site: str) -> None:
     """Both launches of one call on checked CUDA operands, on the current
     stream. The grid and the scratch are sized from the length of the edge
@@ -280,6 +286,7 @@ def segsum_add_(
     contribs: torch.Tensor,
     row_off: torch.Tensor,
     row_scale: torch.Tensor | None = None,
+    site: str = "other",
 ) -> torch.Tensor:
     """``rin[w] += [row_scale[w] *] sum_{j in [row_off[w], row_off[w+1])}
     contribs[j]``, in place; returns ``rin``. Edges outside ``[row_off[0], row_off[R])`` are
@@ -294,11 +301,13 @@ def segsum_add_(
     row_scale: optional [R], one factor per row on the row's sum (f32 on
         CUDA); ``None`` is the plain sum, bit for bit what it was without
         the argument.
+    site: the call site a launch is counted under (``SITES``).
     """
     _check("segsum_add_", rin, contribs, "contribs", None, row_off, row_scale)
+    _check_site("segsum_add_", site)
     if rin.device.type == "cpu":
         return segsum_add_plain(rin, contribs, row_off, row_scale)
-    _launch("segsum_add", rin, contribs, None, row_off, row_scale, "other")
+    _launch("segsum_add", rin, contribs, None, row_off, row_scale, site)
     return rin
 
 
@@ -325,9 +334,27 @@ def segsum_gather_add_(
     site: the call site a launch is counted under (``SITES``).
     """
     _check("segsum_gather_add_", rin, table, "table", gat, row_off, row_scale)
-    if site not in SITE_LAUNCHES:
-        raise ValueError(f"segsum_gather_add_: unknown call site {site!r}")
+    _check_site("segsum_gather_add_", site)
     if rin.device.type == "cpu":
         return segsum_gather_add_plain(rin, table, gat, row_off, row_scale)
     _launch("segsum_gather_add", rin, table, gat, row_off, row_scale, site)
     return rin
+
+
+def sorted_deliver_(
+    rin: torch.Tensor, keys: torch.Tensor, table: torch.Tensor,
+    rows: torch.Tensor | None = None, row_scale: torch.Tensor | None = None,
+    site: str = "other",
+) -> torch.Tensor:
+    """``rin[keys[j]] += table[rows[j]]`` (``table[j]`` without ``rows``)
+    for every lane whose key lies in ``[0, R)``, R = ``rin``'s rows, in
+    place: one stable sort of the keys, then the segment sum's gather
+    entry over the sorted lanes (no ``[L, S]`` array of sorted rows is
+    built), each row's sum times ``row_scale[row]`` where one is given.
+    Lanes keyed R or above are dropped. ``site`` names the call site its
+    launch is counted under (``segsum.SITES``). Returns the sorted keys."""
+    keys_s, order = torch.sort(keys, stable=True)
+    gat = order if rows is None else rows[order]
+    segsum_gather_add_(rin, table, gat, row_offsets(keys_s, rin.shape[0]), row_scale=row_scale,
+                       site=site)
+    return keys_s

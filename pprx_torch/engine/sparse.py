@@ -40,7 +40,7 @@ How the port differs:
   K2, then K1 over the window's delivery-sorted view), not a scatter over
   the ring; it counts what the reference's dense round counts.
 - A worklist round or a sparse scan delivers its snapshot lanes and its
-  overlay lanes in one sorted call (``wl2.sorted_deliver_``: a stable sort
+  overlay lanes in one sorted call (``segsum.sorted_deliver_``: a stable sort
   of the keys, then K1's gather entry over ``[moving_f; mov_ov]``), where
   the reference scatters the ``[ecap, S]`` contributions and the overlay's
   rows; invalid lanes key the phantom row and are dropped, and in reverse
@@ -80,8 +80,9 @@ from pprx_torch.engine.frontier import (
 from pprx_torch.engine.graphs import RoundGraphs, Step, copy_into_
 from pprx_torch.engine.push import dense_round_
 from pprx_torch.engine.rowpass import active_mask, frontier_rows
+from pprx_torch.engine.segsum import sorted_deliver_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats
-from pprx_torch.engine.wl2 import compact, sorted_deliver_
+from pprx_torch.engine.wl2 import compact
 from pprx_torch.graph.dynamic import DeliveryView, WindowGraph, delivery_view
 
 

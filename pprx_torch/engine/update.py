@@ -16,16 +16,24 @@ Reverse mode (p unchanged; needs the row means of p over each out-row):
   (Pp)(u) = mean of p over u's out-row, or p(u) if u is dangling.
 
 ``(P'p) - (Pp)`` is non-zero only at rows whose out-edges changed, so the
-new row sums are the old ones plus two batch-sized scatters. The old row
-sums are one sweep of the whole window: the caller passes them in
-(``rowsum``; the fast driver gets them from the segment-sum kernel over its
-delivery-sorted views), or they are summed here from the COO ring in edge
-blocks, so that no ``[W, S]`` array is built.
+new row sums are the old ones plus two batch-sized sums. The old row sums
+are one sweep of the whole window: the caller passes them in (``rowsum``;
+every driver gets them from the segment-sum kernel over its delivery-sorted
+views), or they are summed here from the COO ring in edge blocks, so that
+no ``[W, S]`` array is built.
 
-Batches are phantom-padded (u = w = N); phantom entries are exact no-ops
-because p[N] = 0. The per-edge scatters use ``index_add_``, which runs on
-atomics on CUDA: f32 sums there may differ from run to run in the last bits
-(see ROADMAP queue 3, determinism).
+Every per-edge sum (forward into ``r``, reverse into the new row sums) is
+the segment sum K1 over the batch's lanes sorted by the row they add to:
+deletions, then insertions, each one call (``segsum_add_`` of the
+materialised forward payloads and of the negated reverse deletion rows,
+``segsum_gather_add_`` of the reverse insertion rows read from ``p``),
+counted under K1's ``corrections`` site. A caller whose batches arrive
+sorted by that row says so (``keys_sorted``) and the lanes go to K1 as
+they lie; otherwise one stable sort each (``segsum.sorted_deliver_``). On
+the card every run of the same inputs gives the same bits; on the CPU the
+plain version adds each row's lanes in their batch order, as the
+reference's scatter does. Batches are phantom-padded (u = w = N); phantom
+entries are exact no-ops because p[N] = 0.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from pprx_torch.config import PprConfig
+from pprx_torch.engine.segsum import row_offsets, segsum_add_, segsum_gather_add_, sorted_deliver_
 from pprx_torch.engine.state import FORWARD, PprState
 from pprx_torch.graph.dynamic import WindowGraph
 
@@ -64,6 +73,21 @@ def out_row_sums(p: torch.Tensor, graph: WindowGraph) -> torch.Tensor:
     return rowsum
 
 
+def _add_lanes_(rin: torch.Tensor, keys: torch.Tensor, table: torch.Tensor,
+                rows: torch.Tensor | None, keys_sorted: bool) -> None:
+    """``rin[keys[j]] += table[rows[j]]`` (``table[j]`` without ``rows``)
+    through K1 at the ``corrections`` site: over the lanes as they lie
+    where ``keys`` ascend, else after one stable sort."""
+    if not keys_sorted:
+        sorted_deliver_(rin, keys, table, rows, site="corrections")
+        return
+    off = row_offsets(keys, rin.shape[0])
+    if rows is None:
+        segsum_add_(rin, table, off, site="corrections")
+    else:
+        segsum_gather_add_(rin, table, rows, off, site="corrections")
+
+
 def apply_edge_batch(
     state: PprState,
     graph: WindowGraph,
@@ -73,6 +97,7 @@ def apply_edge_batch(
     del_dst: torch.Tensor,
     cfg: PprConfig,
     rowsum: torch.Tensor | None = None,
+    keys_sorted: bool = False,
 ) -> tuple[PprState, WindowGraph]:
     """Apply one batch of edge deletions then insertions.
 
@@ -81,7 +106,8 @@ def apply_edge_batch(
     copies: see there."""
     out = PprState(p=state.p.clone(), r=state.r.clone(), mode=state.mode)
     new_graph = WindowGraph(src=graph.src, dst=graph.dst, deg=graph.deg.clone())
-    return apply_edge_batch_(out, new_graph, ins_src, ins_dst, del_src, del_dst, cfg, rowsum)
+    return apply_edge_batch_(out, new_graph, ins_src, ins_dst, del_src, del_dst, cfg, rowsum,
+                             keys_sorted)
 
 
 def apply_edge_batch_(
@@ -93,6 +119,7 @@ def apply_edge_batch_(
     del_dst: torch.Tensor,
     cfg: PprConfig,
     rowsum: torch.Tensor | None = None,
+    keys_sorted: bool = False,
 ) -> tuple[PprState, WindowGraph]:
     """Apply one batch of edge deletions then insertions in place:
     ``state.r``, in forward mode ``state.p``, and ``graph.deg`` are
@@ -111,6 +138,11 @@ def apply_edge_batch_(
     vertex's out-row in the old window, where the caller has them;
     ``None`` sums them here (``out_row_sums``). It is read, not written;
     the new row sums take one ``[N+1, S]`` temporary.
+
+    ``keys_sorted``: each batch is already in ascending order of the row
+    its lanes add to (forward ``dst``, reverse ``src``), as the fast driver
+    sorts them, so K1 takes the lanes as they lie. Nothing checks it: a
+    captured prologue may not read the device.
     """
     dtype = state.r.dtype
     n_rows = state.p.shape[0]
@@ -130,9 +162,12 @@ def apply_edge_batch_(
         d_newf = deg_new.clamp(min=1).to(dtype)
         # pp_new - pp_old, built in the one temporary: pp is the mean of p
         # over the out-row, or p itself on a dangling row (whose old row sum
-        # is 0)
-        diff = rowsum.index_add(0, del_src, p[del_dst], alpha=-1)
-        diff.index_add_(0, ins_src, p[ins_dst])
+        # is 0). The deletions' rows negated, then the insertions' read
+        # from p, into it: each row's lanes in the order of the form
+        # ``rowsum - x1 - x2 + y1``
+        diff = rowsum.clone()
+        _add_lanes_(diff, del_src, p[del_dst].neg_(), None, keys_sorted)
+        _add_lanes_(diff, ins_src, p, ins_dst, keys_sorted)
         diff.div_(d_newf[:, None])
         torch.where((deg_new == 0)[:, None], p, diff, out=diff)
         diff.addcdiv_(rowsum, d0f[:, None], value=-1)
@@ -146,7 +181,7 @@ def apply_edge_batch_(
 
     # ---- delete phase (old p, old degrees) ----
     d0f = d0.clamp(min=1).to(dtype)
-    r.index_add_(0, del_dst, beta * p[del_src] / d0f[del_src, None], alpha=-1)
+    _add_lanes_(r, del_dst, (beta * p[del_src] / d0f[del_src, None]).neg_(), None, keys_sorted)
     D = d0 - k_del
     touched = k_del > 0
     full = touched & (D == 0)
@@ -158,7 +193,8 @@ def apply_edge_batch_(
     # ---- insert phase (post-delete p = p * s1, post-delete degrees) ----
     d1 = D
     d1f = d1.clamp(min=1).to(dtype)
-    r.index_add_(0, ins_dst, beta * (p[ins_src] * s1[ins_src, None]) / d1f[ins_src, None])
+    _add_lanes_(r, ins_dst, beta * (p[ins_src] * s1[ins_src, None]) / d1f[ins_src, None], None,
+                keys_sorted)
     touched = k_ins > 0
     from_dangling = touched & (d1 == 0)
     ki = k_ins.to(dtype)

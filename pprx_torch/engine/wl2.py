@@ -27,10 +27,13 @@ How the port differs:
 - Multi-operand ``lax.sort`` becomes ``torch.sort(stable=True)`` plus
   gathers; the slot -> position maps are inverse permutations, built with
   one scatter of ``arange`` instead of a second sort.
-- Every sorted delivery goes through ``segsum_gather_add_`` (the Hopper
-  kernel on CUDA tensors, its plain version on CPU tensors), which reads
+- Every delivery goes through ``segsum_gather_add_`` (the Hopper kernel on
+  CUDA tensors, its plain version on CPU tensors), which reads
   ``moving[gat[j]]`` itself: the ``[W, S]`` array ``moving[gat]`` that the
-  reference hands to its kernel is never built. The TPU kernel's lane
+  reference hands to its kernel is never built. A compact round sorts its
+  lanes and delivers through it at every size (``segsum.sorted_deliver_``),
+  where the reference scatters below ``SORT_DELIVER_MIN`` lanes: on the
+  card the same inputs give the same bits on every run. The TPU kernel's lane
   padding, EC padding and tile offsets are gone; per-row offsets
   (``d_off``, ``fd_off``) take their place.
 - A scan round's elementwise work (the activity test, the mass moved onto
@@ -62,7 +65,7 @@ from pprx_torch.engine.graphs import RoundGraphs, copy_into_
 from pprx_torch.engine.loop import Table
 from pprx_torch.engine.push import dense_round_
 from pprx_torch.engine.rowpass import frontier_rows
-from pprx_torch.engine.segsum import row_offsets, segsum_gather_add_
+from pprx_torch.engine.segsum import row_offsets, sorted_deliver_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats
 from pprx_torch.graph.dynamic import WindowGraph
 
@@ -70,11 +73,6 @@ from pprx_torch.graph.dynamic import WindowGraph
 # mass exceeds STATS_GUARD * the ladder top (the successor is another scan);
 # tuned on the TPU, kept for parity.
 STATS_GUARD = 2
-
-# Compact rounds with at least this many delivery lanes sort them and
-# deliver through the segment sum instead of an unsorted scatter (TPU A/B;
-# kept for parity, to be re-swept on the H100).
-SORT_DELIVER_MIN = 131_072
 
 _BIG = loop.BIG  # the reference's "skip" sentinel (int32 max // 2)
 
@@ -275,25 +273,6 @@ def _frontier_stats(state: PprState, kg: KillGraph, cfg: PprConfig, emit_w: int)
     return compact(any2, emit_w, n), cn2, fed2, fre2
 
 
-def sorted_deliver_(
-    rin: torch.Tensor, keys: torch.Tensor, table: torch.Tensor,
-    rows: torch.Tensor | None = None, row_scale: torch.Tensor | None = None,
-    site: str = "other",
-) -> torch.Tensor:
-    """``rin[keys[j]] += table[rows[j]]`` (``table[j]`` without ``rows``)
-    for every lane whose key lies in ``[0, R)``, R = ``rin``'s rows, in
-    place: one stable sort of the keys, then the segment sum's gather
-    entry over the sorted lanes (no ``[L, S]`` array of sorted rows is
-    built), each row's sum times ``row_scale[row]`` where one is given.
-    Lanes keyed R or above are dropped. ``site`` names the call site its
-    launch is counted under (``segsum.SITES``). Returns the sorted keys."""
-    keys_s, order = torch.sort(keys, stable=True)
-    gat = order if rows is None else rows[order]
-    segsum_gather_add_(rin, table, gat, row_offsets(keys_s, rin.shape[0]), row_scale=row_scale,
-                       site=site)
-    return keys_s
-
-
 def _compact_round(
     state: PprState,
     kg: KillGraph,
@@ -359,12 +338,11 @@ def _compact_round(
     tgt_d = torch.cat([nbr1, nbr2])
     keys = torch.cat([cand, tgt_d])
     vals = torch.cat([-mass, c1, c2])
-    if keys.shape[0] >= SORT_DELIVER_MIN:
-        # in place into state.r (nothing reads the pre-round r after this),
-        # rows [0, n) only: masked lanes and padding all key the phantom row
-        sorted_deliver_(state.r[:n], keys, vals)
-    else:
-        state.r.index_add_(0, keys, vals)
+    # sorted through K1 at every size (the reference scatters below its
+    # SORT_DELIVER_MIN lanes), in place into state.r (nothing reads the
+    # pre-round r after this), rows [0, n) only: masked lanes and padding
+    # all key the phantom row
+    sorted_deliver_(state.r[:n], keys, vals)
 
     edge_work = (act_c * (kg.row_len[cand] + kg.f_len[cand])[:, None]).sum()
 

@@ -119,7 +119,8 @@ def _slide_prologue(state: PprState, kg: KillGraph, pack: torch.Tensor, cfg: Ppr
     slots0 = (pack[2 * b] + lane) % kg.window.capacity
     old_src0 = kg.window.src[slots0]
     old_dst0 = kg.window.dst[slots0]
-    # sort both batches by their correction-scatter endpoint
+    # sort both batches by the row their corrections add to, so that K1
+    # takes them as they lie (``keys_sorted``)
     forward = state.mode == FORWARD
     _, pn = torch.sort(new_dst0 if forward else new_src0, stable=True)
     _, po = torch.sort(old_dst0 if forward else old_src0, stable=True)
@@ -137,7 +138,8 @@ def _slide_prologue(state: PprState, kg: KillGraph, pack: torch.Tensor, cfg: Ppr
     # corrections read the old degrees (and in reverse mode the old window's
     # row sums), so they run before any mutation
     rowsum = None if forward else window_row_sums(state.p, kg)
-    apply_edge_batch_(state, kg.window, new_src, new_dst, old_src, old_dst, cfg, rowsum=rowsum)
+    apply_edge_batch_(state, kg.window, new_src, new_dst, old_src, old_dst, cfg, rowsum=rowsum,
+                      keys_sorted=True)
     del rowsum
     # kill the expiring edges in both snapshot views (their slots are
     # snapshot-era: the driver keeps rebuild_every * slide <= window)

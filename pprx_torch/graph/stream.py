@@ -25,6 +25,7 @@ from pprx_torch.convert import state_from_arrays, window_from_arrays
 from pprx_torch.device import resolve_device
 from pprx_torch.engine.graphs import RoundGraphs, copy_into_
 from pprx_torch.engine.push import push_to_convergence
+from pprx_torch.engine.segsum import segsum_gather_add_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats, init_state
 from pprx_torch.engine.update import apply_edge_batch_
 from pprx_torch.graph.dynamic import DeliveryView, WindowGraph, delivery_view
@@ -46,8 +47,15 @@ def slide_step_(
     (through ``graphs``, as ``push_to_convergence``)."""
     old_src = graph.src[slots]
     old_dst = graph.dst[slots]
-    # corrections read the old ring (reverse-mode row sums) and old degrees
-    apply_edge_batch_(state, graph, new_src, new_dst, old_src, old_dst, cfg)
+    # corrections read the old degrees, and in reverse mode the old
+    # window's row sums: K1 over the view, which is still the old window's
+    # (sorted by src, gathering dst)
+    rowsum = None
+    if state.mode != FORWARD:
+        rowsum = torch.zeros_like(state.p)
+        segsum_gather_add_(rowsum[:graph.n], state.p, view.gat, view.off)
+    apply_edge_batch_(state, graph, new_src, new_dst, old_src, old_dst, cfg, rowsum=rowsum)
+    del rowsum
     graph.src[slots] = new_src
     graph.dst[slots] = new_dst
     copy_into_(view, delivery_view(graph, state.mode))

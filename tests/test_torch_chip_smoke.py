@@ -445,8 +445,9 @@ def test_dense_driver_turn_on_the_cpu():
     at a small size, as each root's turn runs them: the headline one keeps
     the headline stream's shapes; each run is seeded and its slides timed,
     rounds a slide counted, and its first slide split on the host clock
-    into the stream module's parts (corrections, the view's sort and copy,
-    the push), which sum to no more than the slide."""
+    into the stream module's parts (corrections, in reverse the old row
+    sums through K1 over the view, the view's sort and copy, the push),
+    which sum to no more than the slide."""
     extra = {sh["tag"]: sh for sh in chip_smoke.TURN_EXTRA}
     head = extra["dense_driver_headline"]
     assert (head["n"], head["w"], head["s"]) == (200_000, 2_000_000, 128)
@@ -460,7 +461,8 @@ def test_dense_driver_turn_on_the_cpu():
         assert r["seed"]["rounds"] > 0 and r["rounds_per_slide"] > 0
         assert len(r["slide_ms_each"]) == r["slides"]
         parts = r["first_slide"]["host_ms_by_part"]
-        assert set(parts) == {"corrections", "view_sort", "view_copy", "push"}
+        assert set(parts) == {"corrections", "view_sort", "view_copy", "push"} | (
+            {"row_sums"} if r["mode"] else set())
         assert sum(parts.values()) <= r["slide_ms_each"][0]
         assert r["residual_l1_max"] > 0
 
@@ -687,3 +689,51 @@ def test_hybrid_turn_on_the_cpu():
     assert res["updates_per_s"] > 0 and res["arm_split"] is None
     assert res["k1_by_site_per_slide"] == {site: 0 for site in chip_smoke.segsum.SITES}
     assert len(res["profile"]["rounds"]) == 1
+
+
+TINY_TWINS = dict(n=300, w=1500, b=100, s=4, seed=5, slides=2)
+
+
+def test_determinism_phase_on_the_cpu(monkeypatch):
+    """Phase 17 at a tiny size on the CPU: every path of ``DETERMINISM`` a
+    pair of drivers bit for bit, with equal rounds every loop, and config
+    3's pair equal refine rounds too."""
+    tiny = {path: {**shape, **TINY_TWINS, **({"slides": 3} if "refine" in shape else {})}
+            for path, shape in chip_smoke.DETERMINISM.items()}
+    monkeypatch.setattr(chip_smoke, "DETERMINISM", tiny)
+    out = chip_smoke.determinism_phase(torch.device("cpu"))
+    assert list(out) == list(tiny)
+    for path, res in out.items():
+        assert res["bit_for_bit"] and len(res["rounds"]) == res["slides"] + 1, path
+        assert sum(res["rounds"]) > 0, path
+    refined = out["fast_reverse_config3_s8"]["refine_rounds"]
+    assert refined[0] == refined[1] > 0
+
+
+@pytest.mark.parametrize("which", ["p", "r"])
+def test_determinism_checker_fails_a_pair_one_bit_apart(which):
+    """A pair whose second driver's ``p`` or ``r`` differs in the lowest
+    bit of one entry after its first slide fails ``twin_run``."""
+    shape = {**chip_smoke.DETERMINISM["fast_forward"], **TINY_TWINS}
+    make = chip_smoke.twin_maker(torch.device("cpu"), **shape)
+    made = []
+
+    def make_flipped():
+        drv = make()
+        made.append(drv)
+        if len(made) == 2:
+            run = drv.run
+
+            def flipped(n_steps):
+                for i, st in enumerate(run(n_steps)):
+                    if i == 0:
+                        t = chip_smoke.twin_state(drv)[("p", "r").index(which)]
+                        t.view(torch.int32).view(-1)[7] ^= 1
+                    yield st
+
+            drv.run = flipped
+        return drv
+
+    assert chip_smoke.twin_run("fast", make, 2)["bit_for_bit"]
+    with pytest.raises(AssertionError, match=f"fast slide 1: {which} differs .* in 1 entries"):
+        chip_smoke.twin_run("fast", make_flipped, 2)

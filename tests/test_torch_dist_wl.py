@@ -416,3 +416,46 @@ def test_sorted_bucket_matches_jax(k, ccap, length):
     with pytest.raises(ValueError, match="carry contract"):
         twl.sorted_bucket(torch.from_numpy(ids), torch.from_numpy(vals), k, n_local, n_pad,
                           ccap, ccarry - 1)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("engine", ["wl", "wlp"])
+def test_one_shard_corrections_sum_sorted_and_match_jax(monkeypatch, engine, mode):
+    """At mesh 1x1 (in this process, no group) a slide's corrections sum
+    through K1 over sorted keys (forward the pairs into ``r``, ``wlp``'s
+    after its bucketing; reverse the batch's delta of row sums): some
+    slide's live lanes meet in a row, and a seed and four slides match the
+    reference at 1e-12 with equal tallies. (``wlp`` forward sums the pairs
+    that meet in its bucketing's group sum, K1 too, and delivers unique
+    rows.)"""
+    from pprx_torch.config import StreamConfig as TorchStreamConfig
+    from pprx_torch.dist.mesh import make_row_mesh as torch_row_mesh
+    from pprx_torch.dist.stream import ShardedStreamDriver as TorchDriver
+
+    met = []
+    deliver = twl.sorted_deliver_
+
+    def spy(rin, keys, table, rows=None, row_scale=None, site="other"):
+        if site == "corrections":
+            vals = table if rows is None else table[rows]
+            live = keys[(keys < rin.shape[0]) & vals.ne(0).any(dim=1)]
+            met.append(live.unique().numel() < live.numel())
+        return deliver(rin, keys, table, rows, row_scale, site)
+
+    monkeypatch.setattr(twl, "sorted_deliver_", spy)
+    src, dst, n = stream(11)
+    queries = [0, 5, 9, 17]
+    kw = dict(engine=engine, ccap=64, fring=60)
+    a = ShardedStreamDriver(src, dst, n, queries, CFG, StreamConfig(300, 25), make_row_mesh(1, 1),
+                            mode=mode, dtype=jnp.float64, **kw)
+    b = TorchDriver(src, dst, n, queries, TorchConfig(alpha=0.15, eps=1e-8, max_rounds=10_000),
+                    TorchStreamConfig(300, 25), torch_row_mesh(1, 1), mode=mode,
+                    dtype=torch.float64, device="cpu", **kw)
+    ja, tb = [a.seed(), *a.run(4)], [b.seed(), *b.run(4)]
+    # a sorted call a forward slide, two a reverse one (deletions, insertions)
+    assert len(met) == 4 * (1 if mode == FORWARD else 2)
+    assert any(met) == (engine == "wl" or mode == REVERSE)
+    for sa, sb in zip(ja, tb, strict=True):
+        assert {k: sb[k] for k in ("rounds", "pushes")} == {k: sa[k] for k in ("rounds", "pushes")}
+    np.testing.assert_allclose(b.host_p(), a.host_p(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(b.host_r(), a.host_r(), rtol=0, atol=1e-12)

@@ -138,19 +138,19 @@ def test_reverse_stream_against_exact_columns():
 
 
 def test_fast_stream_sorted_compact_delivery_matches_jax(monkeypatch):
-    """``SORT_DELIVER_MIN`` lowered in both packages, so every compact round
-    of the stream sorts its lanes and delivers through the segment sum (the
-    port: the gather entry on ``vals`` under the sort order). Scan rounds
-    deliver through the dense engine's round (``push.dense_round_``)."""
+    """The reference's ``SORT_DELIVER_MIN`` lowered, so every compact round
+    of the stream sorts its lanes and delivers through the segment sum, as
+    the port's rounds do at every size (the gather entry on ``vals`` under
+    the sort order, ``segsum.sorted_deliver_``). Scan rounds deliver
+    through the dense engine's round (``push.dense_round_``)."""
     import pprx.engine.wl2 as jwl2
     import pprx_torch.engine.push as tpush
-    import pprx_torch.engine.wl2 as twl2
+    import pprx_torch.engine.segsum as tsegsum
 
     monkeypatch.setattr(jwl2, "SORT_DELIVER_MIN", 1)
-    monkeypatch.setattr(twl2, "SORT_DELIVER_MIN", 1)
     calls = []
-    fused = twl2.segsum_gather_add_
-    for mod in (twl2, tpush):
+    fused = tsegsum.segsum_gather_add_
+    for mod in (tsegsum, tpush):
         monkeypatch.setattr(
             mod, "segsum_gather_add_",
             lambda rin, table, gat, off, **kw: (
@@ -164,6 +164,35 @@ def test_fast_stream_sorted_compact_delivery_matches_jax(monkeypatch):
     assert_same_state(a, b)
     # compact rounds hand over torch.sort's int64 order, scan rounds int32 views
     assert torch.int64 in calls and torch.int32 in calls
+
+
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+def test_slides_hand_their_corrections_over_sorted(monkeypatch, mode):
+    """Each slide sorts both batches by the row their corrections add to
+    and tells ``apply_edge_batch_`` so (``keys_sorted``): K1 takes the
+    lanes as they lie, no second sort. The keys are ascending and repeat,
+    and ten slides match the reference at 1e-12 with equal rounds."""
+    import pprx_torch.graph.fast_stream as tfast
+
+    keys = []
+    apply = tfast.apply_edge_batch_
+
+    def spy(state, graph, ins_src, ins_dst, del_src, del_dst, cfg, **kw):
+        assert kw.pop("keys_sorted") is True
+        forward = state.mode == FORWARD
+        keys.extend([ins_dst if forward else ins_src, del_dst if forward else del_src])
+        return apply(state, graph, ins_src, ins_dst, del_src, del_dst, cfg, keys_sorted=True,
+                     **kw)
+
+    monkeypatch.setattr(tfast, "apply_edge_batch_", spy)
+    a, b = _pair(mode)
+    a.seed(), b.seed()
+    ra = [(int(st.rounds), int(st.wl_rounds)) for st in a.run(10)]
+    rb = [(st.rounds, st.wl_rounds) for st in b.run(10)]
+    assert ra == rb and len(keys) == 20
+    assert all(bool((k[1:] >= k[:-1]).all()) for k in keys)
+    assert any(k.unique().numel() < k.numel() for k in keys)
+    assert_same_state(a, b)
 
 
 def test_refine_then_topk_matches_jax():

@@ -220,6 +220,34 @@ def test_dense_stream_matches_jax(mode):
     assert list(b.run()) == []  # the stream has ended
 
 
+def test_dense_reverse_slides_take_their_row_sums_from_the_view(monkeypatch):
+    """In reverse each slide's old row sums are K1 over the driver's held
+    delivery view (still the old window's): equal to ``out_row_sums`` of
+    the ring at 1e-12 on every slide, which the driver no longer calls, and
+    the stream matches the reference at 1e-12 with equal rounds."""
+    import pprx_torch.graph.stream as tstream
+
+    seen = []
+    apply, row_sums = tstream.apply_edge_batch_, tupdate.out_row_sums
+
+    def spy(state, graph, *args, rowsum=None, **kw):
+        assert rowsum is not None
+        np.testing.assert_allclose(rowsum.numpy(), row_sums(state.p, graph).numpy(), rtol=0,
+                                   atol=1e-12)
+        seen.append(float(rowsum.abs().sum()))
+        return apply(state, graph, *args, rowsum=rowsum, **kw)
+
+    monkeypatch.setattr(tstream, "apply_edge_batch_", spy)
+    a, b, _, _ = _drivers(REVERSE, StreamConfig(window=250, slide=25))
+    a.seed(), b.seed()
+    monkeypatch.setattr(tupdate, "out_row_sums", None)  # a call would raise
+    ra = [int(st.rounds) for st in a.run(4)]
+    rb = [st.rounds for st in b.run(4)]
+    assert ra == rb and len(seen) == 4 and min(seen) > 0
+    np.testing.assert_allclose(b.state.p.numpy(), np.asarray(a.state.p), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(b.state.r.numpy(), np.asarray(a.state.r), rtol=0, atol=1e-12)
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_dense_stream_per_edge_mode(mode):
     """``slide=1``: every edge event is absorbed before the next is read.

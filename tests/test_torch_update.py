@@ -152,6 +152,66 @@ def test_reverse_batch_matches_jax(monkeypatch, seed, route):
     np.testing.assert_array_equal(state.r.numpy(), r)  # the input state is not modified
 
 
+def _colliding_batches(rng, n, src, dst, b, key_end):
+    """A valid delete batch and an insert batch whose correction endpoint
+    (``key_end``: 1 the destination, forward; 0 the source, reverse) falls
+    on three rows for most lanes, phantom-padded to length b."""
+    ends = (src, dst)[key_end]
+    hot = np.bincount(ends, minlength=n).argsort()[-3:]
+    sel = np.flatnonzero(np.isin(ends, hot))[: b - 4]
+    del_src = np.full(b, n, np.int32)
+    del_dst = np.full(b, n, np.int32)
+    del_src[: sel.size], del_dst[: sel.size] = src[sel], dst[sel]
+    keys = rng.choice(hot, size=b)
+    others = (keys + 1 + rng.integers(0, n - 1, size=b)) % n
+    ins_src, ins_dst = (others, keys) if key_end else (keys, others)
+    ins_src, ins_dst = ins_src.astype(np.int32), ins_dst.astype(np.int32)
+    ins_src[-2:] = ins_dst[-2:] = n
+    return ins_src, ins_dst, del_src, del_dst
+
+
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_colliding_endpoints_match_jax_sorted_or_not(seed, mode):
+    """Batches whose lanes meet in a few rows (the sums K1 takes over the
+    sorted lanes): the lanes as they come (one stable sort each) and sorted
+    by their row beforehand (``keys_sorted``, as the fast driver hands them
+    over) both match the reference at 1e-12, and each other bit for bit:
+    a stable sort keeps each row's lanes in their batch order."""
+    rng = np.random.default_rng(seed)
+    n, m, s, b = 30, 200, 4, 40
+    src, dst = random_multigraph(rng, n, m)
+    dst[src == dst] = (dst[src == dst] + 1) % n
+    key_end = 1 if mode == FORWARD else 0
+    batch = _colliding_batches(rng, n, src, dst, b, key_end)
+    assert np.bincount(batch[key_end], minlength=n + 1)[:n].max() >= 8
+    assert np.bincount(batch[2 + key_end], minlength=n + 1)[:n].max() >= 4
+    p = np.abs(rng.normal(size=(n + 1, s))) * 1e-2
+    r = rng.normal(size=(n + 1, s)) * 1e-3
+    p[-1] = r[-1] = 0.0
+    jst, jw = jax_apply(
+        JaxState(p=jnp.asarray(p), r=jnp.asarray(r), mode=mode),
+        JaxWindow.from_coo(src, dst, n),
+        *(jnp.asarray(x) for x in batch), CFG,
+    )
+    # sorted by the row each lane adds to, pairs kept together
+    po = np.argsort(batch[2 + key_end], kind="stable")
+    pn = np.argsort(batch[key_end], kind="stable")
+    ordered = (batch[0][pn], batch[1][pn], batch[2][po], batch[3][po])
+    got = []
+    for arrays, keys_sorted in ((batch, False), (ordered, True)):
+        window = WindowGraph.from_coo(src, dst, n, device="cpu")
+        state = PprState(p=torch.from_numpy(p), r=torch.from_numpy(r), mode=mode)
+        rowsum = None if mode == FORWARD else out_row_sums(state.p, window)
+        tst, tw = apply_edge_batch(state, window, *(torch.from_numpy(x) for x in arrays), CFG,
+                                   rowsum=rowsum, keys_sorted=keys_sorted)
+        np.testing.assert_array_equal(tw.deg.numpy(), np.asarray(jw.deg))
+        np.testing.assert_allclose(tst.p.numpy(), np.asarray(jst.p), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(tst.r.numpy(), np.asarray(jst.r), rtol=0, atol=1e-12)
+        got.append(tst)
+    assert torch.equal(got[0].p, got[1].p) and torch.equal(got[0].r, got[1].r)
+
+
 @pytest.mark.parametrize("block_edges", [1, 7, 64, 10**6])
 def test_out_row_sums_in_blocks(monkeypatch, block_edges):
     """The COO sweep cut into edge blocks of any size, against numpy; the

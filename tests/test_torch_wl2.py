@@ -75,11 +75,31 @@ def _case(tiers, mode=FORWARD):
     assert dstats.rounds == ts.rounds
     np.testing.assert_allclose(tst.p.numpy(), dst_.p.numpy(), rtol=0, atol=1e-12)
     np.testing.assert_allclose(tst.r.numpy(), dst_.r.numpy(), rtol=0, atol=1e-12)
+    return ts
 
 
 @pytest.mark.parametrize("tiers", TIERS)
 def test_wl2_convergence_matches_jax(tiers):
     _case(tiers)
+
+
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+@pytest.mark.parametrize("tiers", TIERS[:2])
+def test_small_compact_rounds_deliver_sorted_against_the_scatter(monkeypatch, tiers, mode):
+    """Compact rounds far below the reference's ``SORT_DELIVER_MIN`` lanes,
+    where it scatters: the port sorts each round's lanes and sums them
+    through K1 (one ``sorted_deliver_`` a round), and matches at 1e-12."""
+    lanes = []
+    deliver = twl2.sorted_deliver_
+
+    def spy(rin, keys, table, *args, **kw):
+        lanes.append(keys.shape[0])
+        return deliver(rin, keys, table, *args, **kw)
+
+    monkeypatch.setattr(twl2, "sorted_deliver_", spy)
+    ts = _case(tiers, mode)
+    assert len(lanes) == ts.wl_rounds > 0
+    assert max(lanes) < jwl2.SORT_DELIVER_MIN == 131_072
 
 
 @pytest.mark.parametrize("tiers", TIERS)
@@ -89,11 +109,11 @@ def test_wl2_reverse_convergence_matches_jax(tiers):
 
 @pytest.mark.parametrize("tiers", TIERS)
 def test_wl2_reverse_sorted_delivery_matches_jax(monkeypatch, tiers):
-    """Reverse mode with every compact round on the sorted delivery: the
-    lanes carry their receiver's 1/d_out and the residual removal at the
-    candidates goes unscaled in the same sum."""
+    """Reverse mode with every compact round on the sorted delivery (the
+    reference's ``SORT_DELIVER_MIN`` lowered; the port sorts at every size):
+    the lanes carry their receiver's 1/d_out and the residual removal at
+    the candidates goes unscaled in the same sum."""
     monkeypatch.setattr(jwl2, "SORT_DELIVER_MIN", 1)
-    monkeypatch.setattr(twl2, "SORT_DELIVER_MIN", 1)
     _case(tiers, REVERSE)
 
 
@@ -128,9 +148,9 @@ def test_reverse_scan_round_matches_jax_with_kills_and_fresh_edges():
 @pytest.mark.parametrize("tiers", TIERS)
 def test_wl2_sorted_delivery_matches_jax(monkeypatch, tiers):
     """Every compact round on the sorted segment-sum delivery, in both
-    packages."""
+    packages (the reference's ``SORT_DELIVER_MIN`` lowered; the port sorts
+    at every size)."""
     monkeypatch.setattr(jwl2, "SORT_DELIVER_MIN", 1)
-    monkeypatch.setattr(twl2, "SORT_DELIVER_MIN", 1)
     _case(tiers)
 
 

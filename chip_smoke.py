@@ -298,7 +298,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
-from pprx_torch import _ext, cli
+from pprx_torch import _ext, cli, trace
 from pprx_torch.bench import headline
 from pprx_torch.bench.run import config5_run, run_config
 from pprx_torch.config import PprConfig, StreamConfig
@@ -1650,39 +1650,38 @@ def profile_slides(drv, steps: int, top: int = 10) -> dict:
 
 
 def prologue_split(drv: FastStreamDriver, steps: int) -> dict:
-    """Where a slide's wall goes: ``steps`` slides with a device sync where
-    the convergence loop starts, the slide's prologue (the rebuild when one
-    is due, the batch's upload, and the replay of the captured prologue:
-    sorts, corrections, kills, ring append, fresh re-sort, first counts)
-    timed apart from its loop (the launch of the loop's graph, here without
-    the prologue inside: ``split_prologue``, and its read). The sync adds
-    one wait a slide, so these slides are not the timed ones."""
-    dev = drv.device
-    converge = fast_stream.converge_wl2
-    marks = []
-
-    def timed_loop(*args, **kw):
-        sync(dev)
-        marks.append(time.perf_counter())
-        return converge(*args, **kw)
-
-    fast_stream.converge_wl2 = timed_loop
-    drv.round_graphs.split_prologue = True
-    try:
-        pro, tot = [], []
-        for _ in range(steps):
-            sync(dev)
-            t0 = time.perf_counter()
-            if len(list(drv.run(1))) != 1:
-                raise AssertionError("no slide left in the stream")
-            sync(dev)
-            tot.append(time.perf_counter() - t0)
-            pro.append(marks[-1] - t0)
-    finally:
-        fast_stream.converge_wl2 = converge
-        drv.round_graphs.split_prologue = False
-    return {"slides": steps, "prologue_ms": [x * 1e3 for x in pro],
-            "slide_ms": [x * 1e3 for x in tot], "prologue_share": sum(pro) / sum(tot)}
+    """Where a slide's loop graph goes: ``steps`` slides as they run, each
+    loop split by the flight recorder's stamps (``pprx_torch.trace``) into
+    its prologue, from the loop's head to the end of ``prologue.first_count``
+    (by pass: the sorts and corrections, the kills and ring writes with the
+    fresh re-sort, the first count), and its rounds, to the loop's end; on
+    the card's clock there, on the host's on the CPU."""
+    rec = trace.RECORDER
+    mark = rec.mark()
+    if len(list(drv.run(steps))) != steps:
+        raise AssertionError("no slide left in the stream")
+    snap = rec.snapshot(since=mark)
+    names, st, lp = snap["names"], snap["stamps"], snap["loops"]
+    base = int(st["seq"][0]) if len(st["seq"]) else 0
+    passes = ("sort_corrections", "kill_ring", "first_count")
+    pro, tot, by_pass = [], [], {p: [] for p in passes}
+    for first, stop in zip(lp["first"], lp["stop"]):
+        tags = [names[t] for t in st["tag"][first - base:stop - base]]
+        ns = st["ns"][first - base:stop - base]
+        if "prologue.first_count" not in tags or tags[-2:] != ["loop.end", "loop.read"]:
+            continue
+        at = {t: i for i, t in enumerate(tags) if t.startswith(("prologue.", "loop."))}
+        end = at["prologue.first_count"] + 1
+        for p, q in zip(passes, [*passes[1:], None]):
+            nxt = end if q is None else at[f"prologue.{q}"]
+            by_pass[p].append((ns[nxt] - ns[at[f"prologue.{p}"]]) / 1e6)
+        pro.append((ns[end] - ns[at["loop.head"]]) / 1e6)
+        tot.append((ns[at["loop.end"]] - ns[at["loop.head"]]) / 1e6)
+    if len(pro) != steps:
+        raise AssertionError(f"{len(pro)} stamped slide loops of {steps} slides")
+    return {"slides": steps, "prologue_ms": pro, "loop_ms": tot,
+            "prologue_by_pass_ms": by_pass, "prologue_share": sum(pro) / sum(tot),
+            "dropped": snap["dropped"]}
 
 
 def serve_check(drv: FastStreamDriver, eps_r: float, k: int) -> dict:
@@ -3723,7 +3722,7 @@ def main() -> None:
         tiers=[list(t) for t in drv.tiers], **f32)
     log("4 profile", **profile_slides(drv, prof_steps))
     log("4 prologue", **prologue_split(drv, prof_steps),
-        note="the slide's prologue (one replay) against its loop (one graph launch)")
+        note="the slide's prologue against its loop graph, by the recorder's stamps")
 
     drv16 = FastStreamDriver(src, dst, n, queries, cfg, scfg, dtype=torch.float32,
                              rebuild_every=rebuild_every, bf16d=True, device=dev)
@@ -4337,14 +4336,15 @@ def turn_record(cs, sh: dict, dev) -> dict:
 
     def arm_split(drv, reps=5):
         """A hybrid slide's loop split by arm: two slides with the
-        prologue replayed apart (the first captures it), the second's
-        prologue, its loop graph and its rebuild (if due) timed by CUDA
-        events, the state each arm writes saved where the loop starts and
-        where it ends, and each arm's captured graph replayed alone
-        ``reps`` times from the saved start (median ms): with the loop's
-        executions of each arm, what the arms take of the loop; then the
-        heaviest arm's kernels, from one more replay under the profiler
-        (``heaviest_arm``)."""
+        prologue replayed apart by this hook (the first captures it), the
+        second's prologue, its loop graph and its rebuild (if due) timed by
+        CUDA events, and the prologue by the flight recorder's stamps
+        where the tree has one (``prologue_stamp_ms``), the state each arm
+        writes saved where the loop starts and where it ends, and each
+        arm's captured graph replayed alone ``reps`` times from the saved
+        start (median ms): with the loop's executions of each arm, what the
+        arms take of the loop; then the heaviest arm's kernels, from one
+        more replay under the profiler (``heaviest_arm``)."""
         g = getattr(drv, "round_graphs", None)
         if not cuda or g is None or not hasattr(g, "kept"):
             return None
@@ -4360,6 +4360,9 @@ def turn_record(cs, sh: dict, dev) -> dict:
             return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
         def looped(self, prologue, branches, *args):
+            if prologue is not None:  # apart, so that the arms start where it left
+                self.run(*prologue)
+                prologue = None
             got["pre"] = [t.clone() for t in held]
             got["branches"] = [k for k, _ in branches]
             start, end = events()
@@ -4378,20 +4381,30 @@ def turn_record(cs, sh: dict, dev) -> dict:
             end.record()
             got["prologue" if "slide" in key else "rebuild"] = (start, end)
 
+        try:
+            from pprx_torch import trace
+        except ImportError:  # a tree older than the recorder
+            trace = None
         RoundGraphs.loop, RoundGraphs.run = looped, ran
-        g.split_prologue = True
         try:
             for _ in range(2):
                 got.clear()
+                mark = trace.RECORDER.mark() if trace else None
                 if len(list(drv.run(1))) != 1:
                     raise AssertionError("no slide left in the stream")
         finally:
             RoundGraphs.loop, RoundGraphs.run = run_loop, run_step
-            g.split_prologue = False
         torch.cuda.synchronize()
         out = {k: got[k][0].elapsed_time(got[k][1]) for k in ("prologue", "loop", "rebuild")
                if k in got}
         out = {f"{k}_ms": v for k, v in out.items()}
+        if trace:
+            snap = trace.RECORDER.snapshot(since=mark)
+            tags = [snap["names"][t] for t in snap["stamps"]["tag"]]
+            ns = snap["stamps"]["ns"]
+            if "step.slide" in tags and "step.slide.end" in tags:
+                out["prologue_stamp_ms"] = float(
+                    ns[tags.index("step.slide.end")] - ns[tags.index("step.slide")]) / 1e6
         arms = {}
         for key, execs in zip(got["branches"], got["execs"]):
             graph = g.kept[key][0]

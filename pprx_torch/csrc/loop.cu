@@ -91,6 +91,15 @@
 //   stores the head back in one access. That lane stores the round log's
 //   few values itself: a store does not stall it.
 //
+// The flight recorder's stamp (pprx_torch/trace.py) lives here too, beside the
+// loop graph that places two of them: one thread reads %globaltimer (the
+// card's nanosecond clock) and writes it with a tag id into the next slot of
+// a ring of stamps, int64 [2 + 2 * slots]: the count of stamps ever written,
+// the ring's slots, then (tag, ns) pairs, stamp i at slot i % slots. A call
+// site launches it on its stream, so a capture records it as a kernel node;
+// the loop graph adds one before its prologue and one after its WHILE. A
+// second form writes one stamp into pinned host memory (stamp_slot).
+//
 // Plain C interface, loaded with ctypes (pprx_torch/engine/loop.py): every
 // entry returns a cudaError_t, 0 on success, and allocates nothing on the
 // card; a launch goes on the caller's stream.
@@ -492,6 +501,39 @@ __global__ void __launch_bounds__(kWarp)
 
 using Kernel = void (*)(i64*, const i64*, Table, Handles);
 
+// One stamp: the clock, then the slot. The ring's count takes an atomic add
+// so that stamps from two streams never share a slot.
+__global__ void __launch_bounds__(1) stamp(i64* __restrict__ ring, i64 tag) {
+  i64 now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  const auto i = atomicAdd(reinterpret_cast<unsigned long long*>(ring), 1ULL);
+  i64* slot = ring + 2 + 2 * static_cast<i64>(i % static_cast<unsigned long long>(ring[1]));
+  slot[0] = tag;
+  slot[1] = now;
+}
+
+// One stamp into a slot of two int64 (tag, ns) in mapped host memory: the
+// loop's last stamp, after the carry's copy, which the host reads as soon as
+// the read's event has fired.
+__global__ void __launch_bounds__(1) stamp_slot(i64* __restrict__ slot, i64 tag) {
+  i64 now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  slot[0] = tag;
+  slot[1] = now;
+}
+
+// a stamp as a kernel node of one thread after `dep` (none where it is null)
+cudaError_t add_stamp(cudaGraphNode_t* node, cudaGraph_t g, const cudaGraphNode_t* dep, i64* ring,
+                      i64 tag) {
+  cudaKernelNodeParams p = {};
+  void* args[] = {&ring, &tag};
+  p.func = reinterpret_cast<void*>(stamp);
+  p.gridDim = dim3(1);
+  p.blockDim = dim3(1);
+  p.kernelParams = args;
+  return cudaGraphAddKernelNode(node, g, dep, dep ? 1 : 0, &p);
+}
+
 Table table_of(const i64* tab) {
   Table t;
   for (int i = 0; i < kTabLen; ++i) t.v[i] = tab[i];
@@ -544,8 +586,10 @@ struct Loop {
   }
 };
 
+// `ring` gets a stamp of `tags[0]` before the prologue and one of `tags[1]`
+// after the WHILE
 cudaError_t build(Loop* L, cudaGraph_t prologue, cudaGraph_t const* branches, int n_branches,
-                  i64* carry, const i64* counts, const Table& t) {
+                  i64* carry, const i64* counts, const Table& t, i64* ring, const i64* tags) {
   const int k = static_cast<int>(t.v[kTiers]);
   // the dense rule: no tiers, one arm (the round) and no stats; the
   // proportional rule: k + 2 arms (the tiers, the drain, the rescan) and no
@@ -564,9 +608,12 @@ cudaError_t build(Loop* L, cudaGraph_t prologue, cudaGraph_t const* branches, in
   if (e != cudaSuccess) return e;
   if (driver < 12080) return cudaErrorNotSupported;  // no SWITCH node
   if ((e = cudaGraphCreate(&L->graph, 0))) return e;
-  cudaGraphNode_t last = nullptr, node, inner;
-  if (prologue && (e = cudaGraphAddChildGraphNode(&last, L->graph, nullptr, 0, prologue)))
-    return e;
+  cudaGraphNode_t last, node, inner;
+  if ((e = add_stamp(&last, L->graph, nullptr, ring, tags[0]))) return e;
+  if (prologue) {
+    if ((e = cudaGraphAddChildGraphNode(&node, L->graph, &last, 1, prologue))) return e;
+    last = node;
+  }
   Handles h = {};
   h.live = 1;
   // every condition is reset to 0 at each run of the graph that holds it;
@@ -575,12 +622,12 @@ cudaError_t build(Loop* L, cudaGraph_t prologue, cudaGraph_t const* branches, in
   // stats IF's before that IF
   if ((e = cudaGraphConditionalHandleCreate(&h.loop, L->graph, 0, cudaGraphCondAssignDefault)))
     return e;
-  if ((e = add_step(&node, L->graph, last ? &last : nullptr, k4<kPrime>, carry, counts, t, h)))
-    return e;
+  if ((e = add_step(&node, L->graph, &last, k4<kPrime>, carry, counts, t, h))) return e;
   last = node;
   cudaGraph_t body, bodies[kMaxBranches], stats;
   if ((e = add_cond(&node, L->graph, &last, h.loop, cudaGraphCondTypeWhile, 1, &body)))
     return e;
+  if ((e = add_stamp(&last, L->graph, &node, ring, tags[1]))) return e;
   // the SWITCH's handle belongs to the WHILE's body, the stats IF's to the
   // scan's arm: each to the graph that holds its node
   if ((e = cudaGraphConditionalHandleCreate(&h.branch, body, 0, cudaGraphCondAssignDefault)))
@@ -628,21 +675,39 @@ int pprx_loop_step(int which, i64* carry, const i64* counts, const i64* tab, voi
 // tiers', the drain's and the rescan's; under the hybrid rule the k tiers',
 // the ks scan tiers', the dense scan's and the count's), each cloned into the
 // graph;
-// `carry` and `counts` device pointers, `tab` the table on the host.
+// `carry` and `counts` device pointers, `tab` the table on the host;
+// `ring` a ring of stamps on the card and `tags` the head's and the end's
+// tag ids on the host.
 // `*out` gets the loop's handle for pprx_loop_launch and pprx_loop_free.
 int pprx_loop_build(void* prologue, void* const* branches, int n_branches, i64* carry,
-                    const i64* counts, const i64* tab, void** out) {
+                    const i64* counts, const i64* tab, i64* ring, const i64* tags, void** out) {
   Loop* L = new (std::nothrow) Loop;
   if (L == nullptr) return cudaErrorMemoryAllocation;
   const cudaError_t e = build(L, static_cast<cudaGraph_t>(prologue),
                               reinterpret_cast<cudaGraph_t const*>(branches), n_branches, carry,
-                              counts, table_of(tab));
+                              counts, table_of(tab), ring, tags);
   if (e != cudaSuccess) {
     delete L;
     return e;
   }
   *out = L;
   return cudaSuccess;
+}
+
+// One stamp into `ring` on `stream` (the recorder's eager stamps, and
+// every stamp a capture records).
+int pprx_stamp(i64* ring, i64 tag, void* stream) {
+  stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(ring, tag);
+  return cudaGetLastError();
+}
+
+// One stamp into `host`, two int64 of pinned host memory, on `stream`.
+int pprx_stamp_host(void* host, i64 tag, void* stream) {
+  void* dev = nullptr;
+  const cudaError_t e = cudaHostGetDevicePointer(&dev, host, 0);
+  if (e != cudaSuccess) return e;
+  stamp_slot<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<i64*>(dev), tag);
+  return cudaGetLastError();
 }
 
 int pprx_loop_launch(void* loop, void* stream) {

@@ -70,6 +70,16 @@ counts.
 On CPU tensors ``run`` calls the step's function: the same functions on
 the same buffers, eagerly. That is the plain path the tests take, chosen by the
 device the caller passed.
+
+The flight recorder (``pprx_torch.trace``) sees every loop: a stamp at
+each branch's start (``round.<kind>``, placed here for every engine), at a
+``run`` step's head and end, and, on the card, one launched just before the
+loop graph (``loop.launch``), two inside it, at its head and after its
+WHILE, and one after the carry's copy (``loop.read``). On the card the
+stamps go to a ring that lies just before the carry, so that the carry's
+one copy reads both, and the read's stamp into pinned host memory; the
+loop's launch and the read's return bracket them on the host's clock
+(``loop.wait``).
 """
 
 from __future__ import annotations
@@ -80,7 +90,7 @@ from typing import Callable, Hashable
 
 import torch
 
-from pprx_torch import _ext
+from pprx_torch import _ext, trace
 from pprx_torch.engine import loop, rowpass, segsum
 
 N_COUNTS = 5  # cn, fed, fre, n_active, edge_work (the sharded loop adds ewr)
@@ -112,6 +122,27 @@ def tensor_ptrs(obj) -> tuple[int, ...]:
     else:
         return ()
     return tuple(ptr for v in items for ptr in tensor_ptrs(v))
+
+
+def step_word(key: tuple) -> str:
+    """A captured step's kind: the last word of its key (a dense round's
+    ``round`` is ``dense``)."""
+    words = [x for x in key if isinstance(x, str)] or ["step"]
+    return "dense" if words[-1] == "round" else words[-1]
+
+
+def branch_names(branches: list) -> list[str]:
+    """The stamp of each branch's start: ``round.<kind>``, and its place
+    among the branches of its kind where there are several
+    (``round.compact.0`` .. ``round.compact.4``, ``round.scan``,
+    ``round.stats``; ``round.dense``)."""
+    words = [step_word(key) for key, _ in branches]
+    seen: dict[str, int] = {}
+    out = []
+    for w in words:
+        i = seen[w] = seen.get(w, -1) + 1
+        out.append(f"round.{w}.{i}" if words.count(w) > 1 else f"round.{w}")
+    return out
 
 
 def copy_into_(dst, src) -> None:
@@ -157,8 +188,7 @@ class RoundGraphs:
         self.loop_launches = 0
         self.branch_execs = 0
         self.reads = 0
-        # measurement: a slide's prologue replayed apart, before its loop
-        self.split_prologue = False
+        self._loop_tags: dict[Hashable, list[int]] = {}  # a loop's branch stamps' tags
         self._held: dict[str, tuple[int, ...]] = {}
         self._buffers: dict[str, torch.Tensor] = {}
         self._inputs: tuple[int, int] | None = None
@@ -166,9 +196,19 @@ class RoundGraphs:
             self.pool = torch.cuda.graph_pool_handle()
             self.side = torch.cuda.Stream(self.device)
             self.host = torch.empty(n_counts, dtype=torch.int64, pin_memory=True)
-            # the loop's carry on the card (the host loop keeps its own)
-            self.carry = loop.new_carry(self.device)
-            self.carry_host = torch.empty(loop.SIZE, dtype=torch.int64, pin_memory=True)
+            # the ring of stamps, then the loop's carry on the card (the host
+            # loop keeps its own): one copy reads both
+            at = trace.ring_len(trace.DEVICE_SLOTS)
+            self.flight = torch.zeros(at + loop.SIZE, dtype=torch.int64, device=self.device)
+            self.flight[1] = trace.DEVICE_SLOTS
+            self.ring = trace.DeviceRing(self.flight[:at])
+            trace.RECORDER.watch(self.ring)
+            self.carry = self.flight[at:]
+            # the copy of both, then the read's stamp, after the copy
+            self.flight_host = torch.empty(at + loop.SIZE + 2, dtype=torch.int64,
+                                           pin_memory=True)
+            self.carry_host = self.flight_host[at:at + loop.SIZE]
+            self.read_stamp = self.flight_host[at + loop.SIZE:]
             self.inputs_host = torch.empty(2, dtype=torch.int64, pin_memory=True)
             self.ready = torch.cuda.Event()
 
@@ -225,9 +265,36 @@ class RoundGraphs:
         """Device scalars into ``counts[at:]``."""
         self.counts[at:at + len(counts)].copy_(torch.stack(counts))
 
+    def stamped(self, name: str, fn: Callable[[], None], end: str | None = None):
+        """``fn`` with a stamp of ``name`` before it (and of ``end`` after
+        it)."""
+        head, tail = trace.tag(name), None if end is None else trace.tag(end)
+
+        def step():
+            trace.RECORDER.stamp(head, self.device)
+            fn()
+            if tail is not None:
+                trace.RECORDER.stamp(tail, self.device)
+
+        return step
+
+    def _targeted(self, fn: Callable[[], None]) -> None:
+        """``fn()`` with the device's stamps going to this cache's ring."""
+        rec = trace.RECORDER
+        was, rec.target = rec.target, self.ring
+        try:
+            fn()
+        finally:
+            rec.target = was
+
     def run(self, key: Hashable, fn: Callable[[], None]) -> None:
-        """One round: ``fn()`` on the CPU; on CUDA the replay of its graph,
-        captured at the key's first use (after ``fn`` ran eagerly once)."""
+        """One step: ``fn()`` on the CPU; on CUDA the replay of its graph,
+        captured at the key's first use (after ``fn`` ran eagerly once). A
+        step apart from any loop (not the host loop's) is stamped
+        ``step.<kind>`` at its head and ``step.<kind>.end`` at its end."""
+        if trace.RECORDER.host_loop is None:
+            word = step_word(key)
+            fn = self.stamped(f"step.{word}", fn, f"step.{word}.end")
         if self.device.type != "cuda":
             fn()
             return
@@ -249,7 +316,7 @@ class RoundGraphs:
         main = torch.cuda.current_stream(self.device)
         self.side.wait_stream(main)
         with torch.cuda.stream(self.side):
-            fn()
+            self._targeted(fn)
         main.wait_stream(self.side)
         self.eager += 1
         t0 = time.perf_counter()
@@ -257,7 +324,7 @@ class RoundGraphs:
         before = [dict(counts) for counts in KERNEL_COUNTS]
         try:
             with torch.cuda.graph(graph, pool=self.pool):
-                fn()
+                self._targeted(fn)
         finally:
             launched = [{k: counts[k] - was[k] for k in was}
                         for counts, was in zip(KERNEL_COUNTS, before)]
@@ -289,12 +356,12 @@ class RoundGraphs:
         try:
             with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=self.side,
                                   capture_error_mode="relaxed"):
-                fn()
+                self._targeted(fn)
             for counts, was in zip(KERNEL_COUNTS, before):
                 counts.update(was)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             with torch.cuda.graph(graph, pool=self.pool):
-                fn()
+                self._targeted(fn)
             launched = [{k: counts[k] - was[k] for k in was}
                         for counts, was in zip(KERNEL_COUNTS, before)]
         finally:
@@ -316,7 +383,9 @@ class RoundGraphs:
         caller) left in ``counts``. On CUDA one launch of the loop's graph
         (built at its first use) and one read of the carry; on the CPU
         ``host_loop``. Returns (the carry's values: its head, and the round
-        log where ``LOG_SINK`` takes it; the host's reads)."""
+        log where ``LOG_SINK`` takes it; the host's reads). Each branch
+        stamps its start (``branch_names``), and the recorder counts each
+        branch's executions in the loop from the carry."""
         if self.device.type == "cuda":
             with torch.cuda.device(self.device):
                 values, reads = self._device_loop(prologue, branches, table, c0ok, max_rounds)
@@ -328,29 +397,48 @@ class RoundGraphs:
                              "rounds": values[loop.ROUNDS], "rows": loop.log_rows(values)})
         return values, reads
 
+    def _stamped_branches(self, branches: list[Step]) -> tuple[list[Step], list[int]]:
+        """Each branch stamped at its start (``branch_names``), and the
+        stamps' tags."""
+        names = branch_names(branches)
+        return ([(key, self.stamped(name, fn)) for (key, fn), name in zip(branches, names)],
+                [trace.tag(name) for name in names])
+
     def host_loop(self, prologue: Step | None, branches: list[Step], table: loop.Table,
                   c0ok: bool, max_rounds: int) -> tuple[list[int], int]:
         """The loop on the host, as ``loop``: the loop graph's sequence,
-        each branch by ``run`` and K4's plain steps on a carry on the CPU,
-        with a read of ``counts`` after the prologue and after each round
-        and each stats run."""
-        carry = loop.new_carry("cpu")
-        if prologue is not None:
-            self.run(*prologue)
-        loop.set_inputs(carry, c0ok, max_rounds)
-        counts = self.read()
-        reads = 1
-        if loop.prime(carry, counts, table):
-            # the WHILE's body: a turn, then the SWITCH over its branch
-            while (b := loop.turn(carry, counts, table)) != table.stop:
-                self.run(*branches[b])
-                counts = self.read()
-                reads += 1
-                if b == table.scan and table.has_stats and loop.after_scan(
-                        carry, counts, table):
-                    self.run(*branches[-1])
+        each branch by ``run`` and K4's plain steps on a carry on the
+        CPU, with a read of ``counts`` after the prologue and after each
+        round and each stats run; the recorder's loop on the host clock,
+        stamped as the loop graph is."""
+        branches, tags = self._stamped_branches(branches)
+        rec = trace.RECORDER
+        seq = rec.loop_begin()
+        try:
+            rec.stamp(trace.LOOP_LAUNCH, self.device)
+            rec.stamp(trace.LOOP_HEAD, self.device)
+            carry = loop.new_carry("cpu")
+            if prologue is not None:
+                self.run(*prologue)
+            loop.set_inputs(carry, c0ok, max_rounds)
+            counts = self.read()
+            reads = 1
+            if loop.prime(carry, counts, table):
+                # the WHILE's body: a turn, then the SWITCH over its branch
+                while (b := loop.turn(carry, counts, table)) != table.stop:
+                    self.run(*branches[b])
                     counts = self.read()
                     reads += 1
+                    if b == table.scan and table.has_stats and loop.after_scan(
+                            carry, counts, table):
+                        self.run(*branches[-1])
+                        counts = self.read()
+                        reads += 1
+            rec.stamp(trace.LOOP_END, self.device)
+            rec.stamp(trace.LOOP_READ, self.device)
+        finally:
+            rec.loop_end(seq)
+        rec.count(seq, tags, carry[loop.EXECS:loop.EXECS + len(branches)].tolist())
         n = loop.HEAD if LOG_SINK is None else loop.SIZE
         return carry[:n].tolist(), reads
 
@@ -360,11 +448,13 @@ class RoundGraphs:
         if hit is None:
             for name in ("segsum", "rowpass", "loop"):
                 _ext.load(name)
+            branches, self._loop_tags[key] = self._stamped_branches(branches)
             parts = [self.capture(*step) for step in [prologue] * (prologue is not None)
                      + branches]
             raw = [graph.raw_cuda_graph() for graph, _ in parts]
             head = raw.pop(0) if prologue is not None else None
-            graph = loop.LoopGraph(head, raw, self.carry, self.counts, table)
+            graph = loop.LoopGraph(head, raw, self.carry, self.counts, table, self.ring.ring,
+                                   (trace.LOOP_HEAD, trace.LOOP_END))
             hit = self.loops[key] = (graph, parts)
         graph, parts = hit
         stream = torch.cuda.current_stream(self.device)
@@ -375,13 +465,25 @@ class RoundGraphs:
             self.inputs_host.copy_(torch.tensor(inputs))
             self.carry[loop.MAX_ROUNDS:loop.C0OK + 1].copy_(self.inputs_host, non_blocking=True)
             self._inputs = inputs
-        graph.launch(stream.cuda_stream)
+        rec = trace.RECORDER
+        wait = rec.wait()
+        handle = stream.cuda_stream
+        launch = loop.stamp_(self.ring.ring, trace.LOOP_LAUNCH, handle)
+        graph.launch(handle)
         self.loop_launches += 1
-        n = loop.HEAD if LOG_SINK is None else loop.SIZE
-        self.carry_host[:n].copy_(self.carry[:n], non_blocking=True)
+        # the ring of stamps and the carry's head (its log too where LOG_SINK
+        # takes it) in one copy; the read's stamp after it, on the host
+        n = self.ring.ring.shape[0] + (loop.HEAD if LOG_SINK is None else loop.SIZE)
+        self.flight_host[:n].copy_(self.flight[:n], non_blocking=True)
+        loop.stamp_host_(self.read_stamp, trace.LOOP_READ, handle)
         self.ready.record(stream)
         self.ready.synchronize()
+        done = time.perf_counter_ns()
+        rec.end(wait)
+        n -= self.ring.ring.shape[0]
         values = self.carry_host[:n].tolist()
+        seq = rec.device_loop(launch, done, self.ring, self.flight_host.numpy(),
+                              self.read_stamp.tolist())
         # what the loop launched: its prologue once, each branch as often
         # as it ran, and K4's steps: a turn a round (and a count, which is
         # not a round) and one to end the loop (none where prime stopped
@@ -396,6 +498,7 @@ class RoundGraphs:
         loop.LAUNCHES["turn"] += turns + 1 if turns else 0
         loop.LAUNCHES["after_scan"] += execs[table.scan] if table.has_stats else 0
         self.branch_execs += sum(execs)
+        rec.count(seq, self._loop_tags[key], execs)
         return values, 1
 
     def summary(self) -> dict:

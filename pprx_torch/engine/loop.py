@@ -117,6 +117,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import time
 
 import torch
 
@@ -605,13 +606,17 @@ def _lib() -> ctypes.CDLL:
     lib = _ext.load("loop")
     # which, carry, counts, table (host int64[TAB]), stream
     lib.pprx_loop_step.argtypes = [_INT, _PTR, _PTR, _PTR, _PTR]
-    # prologue, branches, n_branches, carry, counts, table, out
-    lib.pprx_loop_build.argtypes = [_PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR]
+    # prologue, branches, n_branches, carry, counts, table, ring, tags, out
+    lib.pprx_loop_build.argtypes = [_PTR, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR]
     lib.pprx_loop_launch.argtypes = [_PTR, _PTR]
     lib.pprx_loop_free.argtypes = [_PTR]
     lib.pprx_loop_versions.argtypes = [_PTR]
+    # ring (or a pinned host slot), tag, stream
+    lib.pprx_stamp.argtypes = [_PTR, ctypes.c_longlong, _PTR]
+    lib.pprx_stamp_host.argtypes = [_PTR, ctypes.c_longlong, _PTR]
     for fn in (lib.pprx_loop_step, lib.pprx_loop_build, lib.pprx_loop_launch,
-               lib.pprx_loop_free, lib.pprx_loop_versions):
+               lib.pprx_loop_free, lib.pprx_loop_versions, lib.pprx_stamp,
+               lib.pprx_stamp_host):
         fn.restype = _INT
     return lib
 
@@ -665,6 +670,29 @@ def step_(name: str, carry: torch.Tensor, counts, table: Table):
     return None
 
 
+def stamp_(ring: torch.Tensor, tag: int, stream: int | None = None) -> int:
+    """One stamp of the card's clock with ``tag`` into ``ring`` (``loop.cu``'s
+    ``stamp``: int64 ``[2 + 2 * slots]`` on the card) on ``stream`` (a
+    handle; ``None``: the current stream); inside a capture, a kernel node
+    of the graph. Returns the host's ``perf_counter_ns`` just before the
+    launch: the stamp cannot precede it."""
+    if stream is None:
+        stream = torch.cuda.current_stream(ring.device).cuda_stream
+    lib, ptr = _lib(), ring.data_ptr()
+    now = time.perf_counter_ns()
+    _check(lib.pprx_stamp(ptr, int(tag), stream), "a stamp's launch")
+    return now
+
+
+def stamp_host_(slot: torch.Tensor, tag: int, stream: int) -> None:
+    """One stamp of the card's clock with ``tag`` into ``slot``, two int64 of
+    pinned host memory, on ``stream``: readable on the host once an event
+    recorded after it has fired."""
+    if slot.device.type != "cpu" or not slot.is_pinned() or slot.numel() < 2:
+        raise ValueError("a host stamp's slot is two int64 of pinned host memory")
+    _check(_lib().pprx_stamp_host(slot.data_ptr(), int(tag), stream), "a host stamp's launch")
+
+
 class LoopGraph:
     """One convergence loop as an instantiated CUDA graph (``loop.cu``'s
     ``pprx_loop_build``): ``[prologue] -> prime -> WHILE { turn -> SWITCH
@@ -676,10 +704,12 @@ class LoopGraph:
     count } }``, each arm a clone of the branch's captured graph.
     ``prologue`` and ``branches`` are raw ``cudaGraph_t`` handles (torch's
     ``CUDAGraph(keep_graph=True).raw_cuda_graph()``); the graph reads the
-    carry, the counts and the table's values baked in at build."""
+    carry, the counts and the table's values baked in at build. ``ring``
+    (a ring of stamps, ``stamp_``'s) gets a stamp of ``tags[0]`` before the
+    prologue and one of ``tags[1]`` after the WHILE."""
 
     def __init__(self, prologue: int | None, branches: list[int], carry: torch.Tensor,
-                 counts: torch.Tensor, table: Table):
+                 counts: torch.Tensor, table: Table, ring: torch.Tensor, tags: tuple[int, int]):
         if len(branches) != table.n_branches:
             raise ValueError(f"{len(branches)} branch graphs for a loop of {table.n_branches}")
         _check_operands(carry, counts, table)
@@ -687,7 +717,8 @@ class LoopGraph:
         arr = (ctypes.c_void_p * len(branches))(*branches)
         out = ctypes.c_void_p()
         _check(lib.pprx_loop_build(prologue, arr, len(branches), carry.data_ptr(),
-                                   counts.data_ptr(), _table_arg(table), ctypes.byref(out)),
+                                   counts.data_ptr(), _table_arg(table), ring.data_ptr(),
+                                   (ctypes.c_longlong * 2)(*tags), ctypes.byref(out)),
                "building the loop graph")
         self._handle = out.value
         self._free = lib.pprx_loop_free

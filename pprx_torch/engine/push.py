@@ -25,6 +25,9 @@ How the port differs:
   turn -> SWITCH { dense round } }`` (``RoundGraphs.loop``), and one read of
   its carry (``PushStats.syncs`` 1); on the CPU a host loop of K4's plain
   steps over the same functions, with a read of the counts a round.
+- The flight recorder (``pprx_torch.trace``) stamps a dense round before
+  K2 (``k2``), before each K1 launch (``k1``; the wl2 scan round's
+  ``k1.window`` and ``k1.fresh``) and after the last (``k1.end``).
 - ``push_round`` is the reference's round on the ring as it lies (gather,
   then ``index_add_`` in edge blocks, on atomics on CUDA), a plain witness
   that the tests hold to the reference; no engine calls it (the hybrid
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from pprx_torch import trace
 from pprx_torch.config import PprConfig
 from pprx_torch.engine import loop
 from pprx_torch.engine.graphs import RoundGraphs
@@ -103,6 +107,7 @@ def push_round(
 def dense_round_(
     state: PprState, deg: torch.Tensor, views: list[tuple[torch.Tensor, torch.Tensor]],
     cfg: PprConfig, counts: torch.Tensor, moving_dtype: torch.dtype | None = None,
+    k1_stamps: tuple[str, ...] = ("k1",),
 ) -> None:
     """One dense round in place on ``state.p`` and ``state.r``: K2 takes
     every active pair's mass off ``r`` onto ``p`` and writes the rows that
@@ -117,6 +122,7 @@ def dense_round_(
     counts: int64 [2], overwritten with the round's active pairs and edge
     pushes (forward each active pair's out-degree, reverse each edge's
     active pairs at its ``dst``: ``pprx/engine/push.py:76, 84-85``).
+    ``k1_stamps``: the stamp before each view's K1 launch, one a view.
     """
     n = deg.shape[0] - 1
     forward = state.mode == FORWARD
@@ -124,6 +130,7 @@ def dense_round_(
     counts.zero_()
     moving = torch.empty_like(r, dtype=moving_dtype or r.dtype)
     row_act = None if forward else torch.empty(n + 1, dtype=torch.int32, device=r.device)
+    trace.stamp("k2", r.device)
     scan_pass_(state.p, r, deg, moving, counts, row_act, eps=cfg.eps, alpha=cfg.alpha,
                forward=forward)
     scale = None
@@ -133,8 +140,10 @@ def dense_round_(
         # slots name row N, whose count is 0
         counts[1:].copy_(torch.stack([row_act[gat].sum() for gat, _ in views]).sum())
     # rows [0, N) only: the phantom row's edges are never read
-    for gat, off in views:
+    for (gat, off), name in zip(views, k1_stamps, strict=True):
+        trace.stamp(name, r.device)
         segsum_gather_add_(r[:n], moving, gat, off, row_scale=scale)
+    trace.stamp("k1.end", r.device)
     # keep the phantom row identically zero
     state.p[-1] = 0.0
     r[-1] = 0.0

@@ -211,7 +211,7 @@ def dense_round_sorted(
     counts = torch.zeros(2, dtype=torch.int64, device=state.r.device)
     dense_round_(state, kg.window.deg,
                  [(kg.d_gat, kg.d_off[: n + 1]), (kg.fd_gat, kg.fd_off[: n + 1])], cfg, counts,
-                 torch.bfloat16 if bf16d else None)
+                 torch.bfloat16 if bf16d else None, k1_stamps=("k1.window", "k1.fresh"))
     return state, counts[0], counts[1]
 
 

@@ -9,6 +9,12 @@ one launch of its loop's graph, the prologue inside, and one read of the
 loop's statistics; a slide that rebuilds the kill graph first replays the
 rebuild's graph, a second launch.
 
+Each slide is a span of the flight recorder (``pprx_torch.trace``), its id
+the slide's ``step_idx``, with the host's steps as its children:
+``slide.rebuild``, ``slide.pack``, ``slide.upload``, ``slide.issue`` (up to
+the loop's launch), ``loop.wait`` (``RoundGraphs``) and ``slide.mirror``;
+the prologue stamps the card's clock at its passes.
+
 The driver's state and kill graph are its buffers for its whole life: the
 slide step, the rebuild and ``from_arrays`` write into their tensors, never
 rebind them, because on CUDA the convergence rounds are captured graphs
@@ -24,6 +30,7 @@ from typing import Iterator, Mapping
 import numpy as np
 import torch
 
+from pprx_torch import trace
 from pprx_torch.config import PprConfig, StreamConfig
 from pprx_torch.device import resolve_device
 from pprx_torch.convert import kill_graph_from_arrays, state_from_arrays
@@ -45,6 +52,11 @@ from pprx_torch.engine.wl2 import (
     round_graphs_for,
 )
 from pprx_torch.graph.dynamic import WindowGraph
+
+
+# the flight recorder's spans of a slide
+SLIDE, REBUILD, PACK, UPLOAD, ISSUE, MIRROR = (trace.tag(f"slide{x}") for x in (
+    "", ".rebuild", ".pack", ".upload", ".issue", ".mirror"))
 
 
 def window_row_sums(p: torch.Tensor, kg: KillGraph) -> torch.Tensor:
@@ -85,8 +97,7 @@ def wl2_slide_step(
     round) is one captured graph that reads ``pack`` where it lies (a driver
     uploads each batch into the same tensor), and the loop's graph runs it
     first: a slide is one graph launch and one read of the loop's
-    statistics. ``graphs.split_prologue`` (a measurement) replays the
-    prologue apart, before the loop's launch.
+    statistics.
     """
     b = (pack.shape[0] - 2) // 2
     fring = kg.fr_gat.shape[0]
@@ -99,9 +110,6 @@ def wl2_slide_step(
     g.bind(state, kg, pack)
     prologue = ((*graph_key(state, cfg, bf16d), "slide", b),
                 lambda: _slide_prologue(state, kg, pack, cfg, g))
-    if g.split_prologue:
-        g.run(*prologue)
-        prologue = None
     return state, kg, converge_wl2(state, kg, cfg, True, tiers, g, bf16d, prologue=prologue)
 
 
@@ -110,9 +118,12 @@ def _slide_prologue(state: PprState, kg: KillGraph, pack: torch.Tensor, cfg: Ppr
     """A slide up to its first round: the corrections, the kills, the ring
     writes, the fresh re-sort, and the first candidate list with its exact
     counts in ``g``. Shapes depend on ``b`` alone; the ring slot and the
-    fresh-ring fill are read from ``pack`` on the device."""
+    fresh-ring fill are read from ``pack`` on the device. Stamps mark its
+    three passes: the sorts and corrections, the kills and ring writes with
+    the fresh re-sort, the first count."""
     n = kg.n
     dev = pack.device
+    trace.stamp("prologue.sort_corrections", dev)
     b = (pack.shape[0] - 2) // 2
     new_src0, new_dst0 = pack[:b], pack[b:2 * b]
     lane = torch.arange(b, dtype=torch.int32, device=dev)
@@ -141,6 +152,7 @@ def _slide_prologue(state: PprState, kg: KillGraph, pack: torch.Tensor, cfg: Ppr
     apply_edge_batch_(state, kg.window, new_src, new_dst, old_src, old_dst, cfg, rowsum=rowsum,
                       keys_sorted=True)
     del rowsum
+    trace.stamp("prologue.kill_ring", dev)
     # kill the expiring edges in both snapshot views (their slots are
     # snapshot-era: the driver keeps rebuild_every * slide <= window)
     kg.nbr.index_fill_(0, kg.snap_pos[slots].long(), n)
@@ -156,6 +168,7 @@ def _slide_prologue(state: PprState, kg: KillGraph, pack: torch.Tensor, cfg: Ppr
     kg.f_len.index_add_(0, new_gat, torch.ones_like(new_gat))
     kg.f_len[n:].fill_(0)
     refresh_fresh_csr(kg)
+    trace.stamp("prologue.first_count", dev)
     g.seed(cand0, c0n)
     first_count(kg, g)
 
@@ -317,26 +330,34 @@ class FastStreamDriver:
         b = self.scfg.slide
         w = self.scfg.window
         total = self.steps_available if n_steps is None else n_steps
+        rec = trace.RECORDER
         for _ in range(total):
             if self.head + b > self.stream_src.shape[0]:
                 return
-            if self.fcnt + b > self.fring:
-                self.round_graphs.run(
-                    ("rebuild", self.mode, self.fring),
-                    lambda: rebuild_kill_graph_(self.graph, self.mode, self.fring))
-                self.fcnt = 0
-            slots = np.arange(self.head, self.head + b) % w
-            new_src = self.stream_src[self.head : self.head + b]
-            new_dst = self.stream_dst[self.head : self.head + b]
-            # the batch's one upload, into the tensor the captured prologue reads
-            self._pack.copy_(torch.from_numpy(
-                np.concatenate([new_src, new_dst, [self.head % w, self.fcnt]]).astype(np.int32)))
-            _, _, stats = wl2_slide_step(
-                self.state, self.graph, self._pack, self.fcnt,
-                self.cfg, self.tiers, bf16d=self.bf16d, graphs=self.round_graphs,
-            )
-            self.hsrc[slots] = new_src
-            self.hdst[slots] = new_dst
+            with rec.span(SLIDE, self.step_idx):
+                if self.fcnt + b > self.fring:
+                    with rec.span(REBUILD):
+                        self.round_graphs.run(
+                            ("rebuild", self.mode, self.fring),
+                            lambda: rebuild_kill_graph_(self.graph, self.mode, self.fring))
+                    self.fcnt = 0
+                with rec.span(PACK):
+                    slots = np.arange(self.head, self.head + b) % w
+                    new_src = self.stream_src[self.head : self.head + b]
+                    new_dst = self.stream_dst[self.head : self.head + b]
+                    pack = np.concatenate([new_src, new_dst, [self.head % w, self.fcnt]]).astype(
+                        np.int32)
+                # the batch's one upload, into the tensor the captured prologue reads
+                with rec.span(UPLOAD):
+                    self._pack.copy_(torch.from_numpy(pack))
+                with rec.span(ISSUE):  # ends at the loop's launch (``loop.wait``)
+                    _, _, stats = wl2_slide_step(
+                        self.state, self.graph, self._pack, self.fcnt,
+                        self.cfg, self.tiers, bf16d=self.bf16d, graphs=self.round_graphs,
+                    )
+                with rec.span(MIRROR):
+                    self.hsrc[slots] = new_src
+                    self.hdst[slots] = new_dst
             self.fcnt += b
             self.head += b
             self.step_idx += 1

@@ -106,7 +106,7 @@ def slide_(
     scan rounds. ``graphs`` is bound to ``state``, ``graph``, ``view`` and
     ``pack``: on CUDA the slide up to its first round is one captured
     prologue that reads ``pack`` where it lies, and the loop's graph runs
-    it first (``graphs.split_prologue``, a measurement, replays it apart)."""
+    it first."""
     b = (pack.shape[0] - 1) // 3
     if ov_count + 2 * b > graph.ov.src.shape[0]:
         # the reference's dynamic_update_slice would clamp the start and
@@ -120,9 +120,6 @@ def slide_(
     front = g.buffer("front", graph.n, torch.bool)
     prologue = ((*graph_key(state, cfg), "slide", b, wcap),
                 lambda: _slide_prologue(state, graph, view, pack, cfg, g, front, wcap))
-    if g.split_prologue:
-        g.run(*prologue)
-        prologue = None
     if worklist:
         scans = scan_tiers(tiers, fcap, scan_ecap if scan_ecap > 0 else ecap)
         return converge(state, graph, view, cfg, g, tuple(tiers), scans, True, prologue)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from pprx_torch import trace
 from pprx_torch.engine.state import PprState
 
 
@@ -19,9 +20,13 @@ def topk_candidates(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-query top-k vertices by reserve score: (scores [S, k], ids [S, k]),
     scores descending per query. ``exact`` is accepted for the reference's
-    signature; both values give the exact answer."""
+    signature; both values give the exact answer. The flight recorder
+    stamps its device work at ``topk`` and ``topk.end``."""
     del exact  # see module docstring
-    return torch.topk(p[:-1].T, k, dim=1, largest=True, sorted=True)
+    trace.stamp("topk", p.device)
+    out = torch.topk(p[:-1].T, k, dim=1, largest=True, sorted=True)
+    trace.stamp("topk.end", p.device)
+    return out
 
 
 def retrieve(state: PprState, k: int = 100, exact: bool = True):

@@ -112,10 +112,11 @@ def test_exact_contract_holds_bf16_mass_to_a_witness():
 
 
 def test_prologue_split_and_round_logs_on_the_cpu(monkeypatch):
-    """Phase 4's prologue line on the CPU: each slide's prologue runs apart
-    before its loop (``split_prologue``, put back after), and the same
-    slides' loops, logged, replay through the plain steps; a log whose
-    branch the counts do not give is refused."""
+    """Phase 4's prologue line on the CPU: each slide's prologue split from
+    its loop by the flight recorder's stamps (its three passes inside it,
+    the loop's rounds after), and the same slides' loops, logged, replay
+    through the plain steps; a log whose branch the counts do not give is
+    refused."""
     from pprx_torch.engine import graphs
 
     w, b = 4000, 100
@@ -125,8 +126,11 @@ def test_prologue_split_and_round_logs_on_the_cpu(monkeypatch):
     drv.seed()
     monkeypatch.setattr(graphs, "LOG_SINK", [])
     res = chip_smoke.prologue_split(drv, 2)
-    assert res["slides"] == 2 and 0 < res["prologue_share"] < 1
-    assert not drv.round_graphs.split_prologue
+    assert res["slides"] == 2 and 0 < res["prologue_share"] < 1 and res["dropped"] == 0
+    assert all(0 < p < t for p, t in zip(res["prologue_ms"], res["loop_ms"], strict=True))
+    for i, p in enumerate(res["prologue_ms"]):
+        parts = sum(res["prologue_by_pass_ms"][k][i] for k in res["prologue_by_pass_ms"])
+        assert 0 < parts <= p
     assert chip_smoke.check_round_logs()["loops"] == 2 and graphs.LOG_SINK == []
     list(drv.run(1))
     rec = graphs.LOG_SINK[0]

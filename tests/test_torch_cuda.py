@@ -2164,3 +2164,118 @@ def test_group_sum_on_card_matches_plain():
     assert int(got[4]) == int(want[4]) > 0
     for a, b in zip(got[:4], want[:4]):
         torch.testing.assert_close(a.cpu().to(b.dtype), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_stamp_kernel_writes_the_card_clock_into_its_ring():
+    """Six eager stamps into a ring of four slots: the count says six, the
+    host reads the last four in order (two counted lost), the card's clock
+    never runs back."""
+    from pprx_torch import trace
+    from pprx_torch.engine import loop
+
+    dev = _cuda()
+    ring = trace.new_ring(4, dev)
+    for t in range(6):
+        loop.stamp_(ring, 100 + t)
+    torch.cuda.synchronize()
+    rec = trace.Recorder()
+    rec.take(trace.DeviceRing(ring), ring.cpu().numpy())
+    snap = rec.snapshot(flush=False)
+    assert rec.lost == 2 and snap["stamps"]["tag"].tolist() == [102, 103, 104, 105]
+    ns = snap["stamps"]["ns"]
+    assert (np.diff(ns) >= 0).all() and ns[0] > 0
+
+
+@pytest.mark.cuda
+def test_loop_stamps_agree_with_cuda_events():
+    """Twenty slides at S=128: each loop graph's interval from its head
+    stamp to its end stamp against CUDA events around the same launch, in
+    sum within 1%; every loop's bracket meets the others' (the band's width
+    >= 0) and holds the band, and the median of the loops' own brackets,
+    the alignment each loop alone gives, is under 150 us (four runs of
+    this test on an H100 read 26-58 us, PERF.md)."""
+    from pprx_torch import trace
+    from pprx_torch.engine import loop
+
+    dev = _cuda()
+    n, w, b = 100_000, 1_000_000, 25_000
+    src, dst, n = synthetic_powerlaw_stream(n, w + 26 * b, seed=7)
+    drv = FastStreamDriver(src, dst, n, list(range(128)), PprConfig(alpha=0.15, eps=1e-6),
+                           StreamConfig(window=w, slide=b), rebuild_every=6, device=dev)
+    drv.seed()
+    list(drv.run(3))
+    torch.cuda.synchronize()
+    launch, marks = loop.LoopGraph.launch, []
+
+    def timed(self, stream):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        launch(self, stream)
+        end.record()
+        marks.append((start, end))
+
+    mark = trace.RECORDER.mark()
+    loop.LoopGraph.launch = timed
+    try:
+        assert len(list(drv.run(20))) == 20
+    finally:
+        loop.LoopGraph.launch = launch
+    torch.cuda.synchronize()
+    snap = trace.RECORDER.snapshot(since=mark)
+    st, lp = snap["stamps"], snap["loops"]
+    base = int(st["seq"][0])
+    names = snap["names"]
+    stamped = []
+    for first, stop in zip(lp["first"], lp["stop"]):
+        tags = [names[t] for t in st["tag"][first - base:stop - base]]
+        assert tags[:2] == ["loop.launch", "loop.head"] and tags[-2:] == ["loop.end", "loop.read"]
+        stamped.append((st["ns"][stop - base - 2] - st["ns"][first - base + 1]) / 1e6)
+    events = [a.elapsed_time(b_) for a, b_ in marks]
+    assert len(stamped) == len(events) == 20 and snap["dropped"] == 0
+    assert abs(sum(stamped) - sum(events)) / sum(events) < 0.01, (sum(stamped), sum(events))
+    width, bracket = snap["align"]["width"], snap["align"]["bracket"]
+    assert len(bracket) == 20 and (width >= 0).all() and (bracket >= width - 1e-3).all()
+    print("alignment us: band", np.unique(width / 1e3).tolist(), "brackets min q1 median q3 max",
+          np.percentile(bracket / 1e3, [0, 25, 50, 75, 100]).round(1).tolist())
+    assert np.median(bracket) < 150_000, bracket
+
+
+@pytest.mark.cuda
+def test_stamped_slides_give_the_same_bits_and_tags():
+    """The determinism slides (``tests/test_torch_determinism.py``'s
+    shapes on the card: two drivers from one stream, a seed, 4 slides with
+    a rebuild, a refine) with the recorder's stamps in their graphs: the
+    same rounds, ``p`` and ``r`` bit for bit, the same tags in every loop,
+    and a loop's round stamps as many as its rounds and stats."""
+    from pprx_torch import trace
+
+    dev = _cuda()
+    n, w, b = 20_000, 200_000, 20_000
+    src, dst, n = synthetic_powerlaw_stream(n, w + 5 * b, seed=5)
+    runs = []
+    for _ in range(2):
+        drv = FastStreamDriver(src, dst, n, list(range(16)), PprConfig(alpha=0.15, eps=1e-6),
+                               StreamConfig(window=w, slide=b), rebuild_every=3, device=dev)
+        mark = trace.RECORDER.mark()
+        stats = [drv.seed()]
+        states = []
+        for st in drv.run(4):
+            stats.append(st)
+            states.append((drv.state.p.clone(), drv.state.r.clone()))
+        stats.append(drv.refine(5e-8))
+        states.append((drv.state.p.clone(), drv.state.r.clone()))
+        snap = trace.RECORDER.snapshot(since=mark)
+        st, lp, names = snap["stamps"], snap["loops"], snap["names"]
+        base = int(st["seq"][0])
+        tags = [[names[t] for t in st["tag"][a - base:z - base]]
+                for a, z in zip(lp["first"], lp["stop"])]
+        for loop_tags, ps in zip(tags, stats, strict=True):
+            assert loop_tags[:2] == ["loop.launch", "loop.head"]
+            assert loop_tags[-2:] == ["loop.end", "loop.read"]
+            rounds = [t for t in loop_tags if t.startswith("round.")]
+            assert len(rounds) == ps.rounds + ps.stats_reads
+        runs.append(([s.rounds for s in stats], states, tags))
+    assert runs[0][0] == runs[1][0] and runs[0][2] == runs[1][2]
+    for (p0, r0), (p1, r1) in zip(runs[0][1], runs[1][1], strict=True):
+        assert torch.equal(p0, p1) and torch.equal(r0, r1)

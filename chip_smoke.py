@@ -9,9 +9,9 @@ reverse stream, the static configs on the dense engine, and a checkpoint
 round trip. Phases, one line each:
 
 1. device: the card's name, count and nvidia-smi name/power limit;
-2. build: the three kernel sources of pprx_torch/csrc, the segment sum, the
-   row passes and the loop's control, one ``nvcc`` each, started together
-   (seconds, ptxas lines);
+2. build: the four kernel sources of pprx_torch/csrc, the segment sum, the
+   row passes, the loop's control and the top-k, one ``nvcc`` each, started
+   together (seconds, ptxas lines);
 3. kernel: both entries (``segsum_add_`` and ``segsum_gather_add_``, the
    gather fused in) against their plain PyTorch versions at the shapes the
    stream gives them (R=200,001 rows, S=128: a window scan of 2.0M sorted
@@ -67,6 +67,13 @@ round trip. Phases, one line each:
    counts each round logged (``round_logs``): the branches must be equal
    (a loop logs its first ``loop.LOG_CAP`` rounds: ``rounds_not_logged``
    counts the rest, which are not checked);
+3d. top-k: K5 (``pprx_torch/csrc/topk.cu``, ``topk_candidates`` on the card)
+   at the retrieve cell's state, [8,000,001, 512], and at S=128 on
+   stream.b160k's N, top 100, on a PPR-like state made on the card: bit for
+   bit with its plain version and with a second call; its device time, its
+   bound (p read once), its plain version's time, ``torch.topk`` on the
+   transposed view's, its launches and its counts (candidates kept a
+   column, extra column passes; ``check_topk``);
 4. stream f32: FastStreamDriver at N=200k, W=2M, b=160k, S=128, eps=1e-6,
    alpha=0.15 (bench.py's shapes): seed, warm-up, 8 timed slides, with the
    driver's captured graphs (``graphs``: graphs and loop graphs held,
@@ -354,6 +361,7 @@ from pprx_torch.ref.exact import (
     ppr_matrix_times,
     reverse_invariant_gap,
 )
+from pprx_torch.retrieve import topk
 from pprx_torch.retrieve.topk import topk_candidates
 from pprx_torch.sync import sync
 
@@ -1183,6 +1191,88 @@ K4_CASES = (
 )
 
 
+# phase 3d: K5 at the retrieve cell's state ([8,000,001, 512]) and at the
+# stream cells' width, S=128, on stream.b160k's N; (tag, N, S), top 100
+TOPK_SHAPES = (("retrieve", 8_000_000, 512), ("s128", 4_847_571, 128))
+TOPK_K = 100
+
+
+def topk_state(dev, n: int, s: int, seed: int) -> torch.Tensor:
+    """A PPR-like [n + 1, s] f32 state made on the card in row blocks: 4 of
+    5 entries 0, the rest u^16 (u uniform in [0, 1)), so that a column's
+    mass sits in few entries and its small values repeat."""
+    p = torch.empty(n + 1, s, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = max(1, (1 << 26) // s)
+    for lo in range(0, n + 1, rows):
+        blk = p[lo:lo + rows]
+        torch.rand(blk.shape, generator=g, device=dev, out=blk)
+        blk.pow_(16).mul_(torch.rand(blk.shape, generator=g, device=dev) < 0.2)
+    return p
+
+
+def check_topk(dev, shapes=TOPK_SHAPES, k: int = TOPK_K) -> dict:
+    """Phase 3d: K5 (``topk_candidates`` on the card) at each shape, held
+    to its plain version and to a second call bit for bit: its ms (CUDA
+    events, 10 calls queued behind a spinning kernel) against its bound (p
+    read once over 3.35 TB/s), the plain version's ms, ``torch.topk`` on the
+    transposed view (``library_ms``: a copy of p, then the library's
+    selection), the launches and the kernel's counts over one call (set to
+    0 first), and the scratch it takes (peak memory over p)."""
+    out = {}
+    for tag, n, s in shapes:
+        p = topk_state(dev, n, s, seed=n)
+        counts = topk.counts(dev)
+        counts.zero_()
+        before = topk.launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = topk_candidates(p, k)
+        torch.cuda.synchronize()
+        scratch = torch.cuda.max_memory_allocated() - base
+        launched = topk.launches() - before
+        calls, extra, kept, most = counts.tolist()
+        for name, other in (("second call", topk_candidates(p, k)),
+                            ("plain version", topk.topk_plain(p, k))):
+            if not (torch.equal(other[1], got[1])
+                    and torch.equal(other[0].view(torch.int32), got[0].view(torch.int32))):
+                raise AssertionError(f"top-k {tag}: the kernel and its {name} differ")
+        del got, other
+        ms = cuda_ms(lambda: topk_candidates(p, k), reps=10)
+        plain_ms = cuda_ms(lambda: topk.topk_plain(p, k), reps=1)
+        library_ms = cuda_ms(lambda: torch.topk(p[:-1].T, k, dim=1), reps=3)
+        bms, by = bound_ms(4 * n * s, 0)
+        out[f"topk_{tag}"] = {
+            "n": n, "s": s, "k": k, "ms": ms, "bound_ms": bms, "bound_by": by,
+            "share_of_bound": bms / ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "launches": launched, "calls": calls, "kept_per_column": kept / s,
+            "most_kept": most, "extra_passes": extra, "scratch_gib": scratch / 2**30,
+            "plan": dataclasses.asdict(topk.plan(n, k)),
+        }
+        del p
+        torch.cuda.empty_cache()
+    return out
+
+
+def topk_entry(tk: dict, launches: dict) -> dict:
+    """K5's entry of the kernels line from phase 3d's numbers: the retrieve
+    shape under the plain names, both shapes beside them; ``launches`` as
+    for ``kernel_entry``."""
+    by_path = {path: counts.get("topk", 0) for path, counts in launches.items()}
+    main = tk["topk_retrieve"]
+    return {
+        "name": "topk", "route": "cuda", "source": "pprx_torch/csrc/topk.cu",
+        "replaces": "pprx/retrieve/topk.py",
+        "tpu_work": "lax.top_k over the transposed state (pprx/retrieve/topk.py); "
+                    "no pl.pallas_call",
+        "launches": by_path.get("forward", 0), "launches_by_path": by_path,
+        **{w: main[w] for w in ("ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+                                "library_ms")},
+        "library_call": "torch.topk(p[:-1].T, k, dim=1)", "cases": tk,
+    }
+
+
 def k4_table(case) -> loop.Table:
     """The table a case of ``K4_CASES`` runs under: the sharded rule's for
     a case named ``sharded_*``, the dense rule's for ``dense_*``, the
@@ -1530,21 +1620,23 @@ def reset_launches() -> None:
     segsum.reset_launches()
     rowpass.reset_launches()
     loop.reset_launches()
+    topk.reset_launches()
 
 
 def all_launches() -> int:
     """Launches of every kernel since the last reset."""
-    return segsum.launches() + rowpass.launches() + loop.launches()
+    return segsum.launches() + rowpass.launches() + loop.launches() + topk.launches()
 
 
 def launches_by_entry(scaled: bool | None = None) -> dict:
-    """The launches by entry since the last reset: the segment sum's and
-    the row passes'; ``scaled=True``: the segment sum's with a
+    """The launches by entry since the last reset: the segment sum's, the
+    row passes', K4's steps' and the top-k's; ``scaled=True``: the segment sum's with a
     ``row_scale`` alone."""
     out = {entry: segsum.launches(entry, scaled) for entry in segsum.ENTRIES}
     if scaled is None:
         out.update({entry: rowpass.launches(entry) for entry in rowpass.ENTRIES})
         out.update({f"loop_{step}": loop.launches(step) for step in loop.STEPS})
+        out["topk"] = topk.launches()
     return out
 
 
@@ -3664,7 +3756,7 @@ def build_all() -> dict:
     return builds
 
 
-KERNEL_SOURCES = ("segsum", "rowpass", "loop")
+KERNEL_SOURCES = ("segsum", "rowpass", "loop", "topk")
 
 
 def main() -> None:
@@ -3696,6 +3788,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     k4 = check_k4(dev)
     log("3c loop control", **k4)
+    torch.cuda.empty_cache()
+    tk = check_topk(dev)
+    log("3d top-k", **tk)
     # every fast-driver loop from here on logs its rounds, and each phase's
     # line replays them through the plain steps
     graphs.LOG_SINK = []
@@ -3952,6 +4047,7 @@ def main() -> None:
         kernel_entry("segsum_gather_add", "gather", kern, launches, recorded, sites),
         *(rowpass_entry(name, rp, launches) for name in ROWPASS_KERNELS),
         *(loop_entry(step, k4, launches) for step in loop.STEPS),
+        topk_entry(tk, launches),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -741,3 +741,30 @@ def test_determinism_checker_fails_a_pair_one_bit_apart(which):
     assert chip_smoke.twin_run("fast", make, 2)["bit_for_bit"]
     with pytest.raises(AssertionError, match=f"fast slide 1: {which} differs .* in 1 entries"):
         chip_smoke.twin_run("fast", make_flipped, 2)
+
+
+def test_topk_phase_on_the_cpu(monkeypatch):
+    """Phase 3d's control flow and its kernels-line entry on the CPU at a
+    small size (the head runs its plain version here, so the bits agree
+    trivially; CUDA's timers and memory counters are replaced by
+    stand-ins): every shape held and timed, its bound from p's bytes, its
+    plan and counts reported."""
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=20, **kw: (fn(), 1.0)[1])
+    dev = torch.device("cpu")
+    tk = chip_smoke.check_topk(dev, shapes=(("retrieve", 3000, 16), ("s128", 2000, 8)), k=10)
+    assert set(tk) == {"topk_retrieve", "topk_s128"}
+    row = tk["topk_retrieve"]
+    assert row["bound_ms"] == pytest.approx(3000 * 16 * 4 / 3.35e9)
+    assert row["bound_by"] == "bytes" and row["ms"] == row["plain_ms"] == row["library_ms"] == 1.0
+    assert row["plan"] == {"stride": 128, "m": 24, "cap": 3000}
+    assert row["launches"] == 0 and row["calls"] == 0  # the CPU launches no kernel
+    state = chip_smoke.topk_state(dev, 3000, 16, seed=3000)
+    assert 0.1 < float((state != 0).float().mean()) < 0.3
+    entry = chip_smoke.topk_entry(tk, {"forward": {"topk": 1}, "cli_retrieve": {"topk": 2}})
+    assert {"name", "route", "source", "replaces", "launches", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "cases"} <= set(entry)
+    assert entry["launches"] == 1 and entry["launches_by_path"]["cli_retrieve"] == 2

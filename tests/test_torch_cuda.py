@@ -2279,3 +2279,102 @@ def test_stamped_slides_give_the_same_bits_and_tags():
     assert runs[0][0] == runs[1][0] and runs[0][2] == runs[1][2]
     for (p0, r0), (p1, r1) in zip(runs[0][1], runs[1][1], strict=True):
         assert torch.equal(p0, p1) and torch.equal(r0, r1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [600, 50_000])
+@pytest.mark.parametrize("k", [1, 7, 100, None])
+@pytest.mark.parametrize("s", [1, 8, 16, 128, 512])
+def test_topk_kernel_matches_plain(s, k, n):
+    """K5 against the plain version on ``_topk_cases``' grid (ties at the
+    k-th position, an all-zero column with -0.0 in it, negative scores, a
+    +inf phantom row): the same score bits and ids, from one launch; at
+    N=50,000 the sample is every 128th row (at 600 every (600 // k)-th)."""
+    from _topk_cases import same_bits, state
+
+    from pprx_torch.retrieve import topk
+
+    dev = _cuda()
+    k = k or n
+    p = state(n, s, k).to(dev)
+    before = topk.launches()
+    got = topk.topk_candidates(p, k)
+    torch.cuda.synchronize()
+    assert topk.launches() == before + 1
+    same_bits(got, topk.topk_plain(p, k))
+
+
+@pytest.mark.cuda
+def test_topk_tie_overflows_into_another_pass():
+    """A 20,000-way tie at the k-th position that the sample sees only in
+    its highest rows: the filter keeps all 20,100 tied rows, past the list's
+    18,944, so every column takes another pass over p, and the answer is
+    still the plain version's (the 100 lowest tied rows)."""
+    from pprx_torch.retrieve import topk
+
+    dev = _cuda()
+    n, s, k = 300_000, 8, 100
+    pl = topk.plan(n, k)
+    assert (pl.stride, pl.cap) == (128, 18_944)
+    rng = np.random.default_rng(3)
+    p = rng.random((n + 1, s), dtype=np.float32)
+    unsampled = np.flatnonzero(np.arange(n) % pl.stride)
+    for j in range(s):
+        low = unsampled[j: j + 20_000]
+        high = (pl.m - 1 - np.arange(k)) * pl.stride  # the sample's k highest rows
+        p[low, j] = p[high, j] = 2.0
+    p = torch.from_numpy(p).to(dev)
+    before = topk.counts(dev).tolist()
+    got = topk.topk_candidates(p, k)
+    after = topk.counts(dev).tolist()
+    assert after[topk.EXTRA_PASSES] - before[topk.EXTRA_PASSES] >= s
+    assert after[topk.MOST_KEPT] >= 20_000 + k
+    sc, ids = topk.topk_plain(p, k)
+    assert torch.equal(ids, got[1]) and torch.equal(sc, got[0])
+    assert (sc == 2.0).all()
+
+
+@pytest.mark.cuda
+def test_topk_kernel_gives_the_same_bits_twice():
+    """Two launches on a PPR-like state (a few hundred thousand nonzeros a
+    column, many zeros, repeated values): the same bits, though the
+    candidates' slots come from atomics."""
+    from pprx_torch.retrieve import topk
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(7)
+    n, s, k = 2_000_000, 128, 100
+    p = torch.rand(n + 1, s, device=dev, generator=g) ** 16
+    p *= torch.rand(n + 1, s, device=dev, generator=g) < 0.2
+    p = (p * 2**20).round() / 2**20  # coarse, so values repeat
+    a = topk.topk_candidates(p, k)
+    b = topk.topk_candidates(p, k)
+    assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+    assert torch.equal(a[1], b[1])
+    sc, ids = topk.topk_plain(p, k)
+    assert torch.equal(ids, a[1]) and torch.equal(sc, a[0])
+
+
+@pytest.mark.cuda
+def test_topk_wrapper_refuses_what_the_kernel_does_not_take():
+    """f64 and bf16 states, a non-contiguous or misaligned one, k outside
+    [1, N] and a 1-D p raise; nothing is launched."""
+    from pprx_torch.retrieve import topk
+
+    dev = _cuda()
+    p = torch.rand(101, 8, device=dev)
+    before = topk.launches()
+    with pytest.raises(TypeError, match="f32"):
+        topk.topk_candidates(p.double(), 5)
+    with pytest.raises(TypeError, match="f32"):
+        topk.topk_candidates(p.bfloat16(), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        topk.topk_candidates(torch.rand(8, 101, device=dev).T, 5)
+    with pytest.raises(ValueError, match="aligned"):
+        topk.topk_candidates(torch.rand(101 * 3 + 1, device=dev)[1:].view(101, 3), 5)
+    for k in (0, 101):
+        with pytest.raises(ValueError, match="k must be"):
+            topk.topk_candidates(p, k)
+    with pytest.raises(ValueError, match="must be"):
+        topk.topk_candidates(p[:, 0], 1)
+    assert topk.launches() == before

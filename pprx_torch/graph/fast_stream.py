@@ -120,7 +120,8 @@ def _slide_prologue(state: PprState, kg: KillGraph, pack: torch.Tensor, cfg: Ppr
     counts in ``g``. Shapes depend on ``b`` alone; the ring slot and the
     fresh-ring fill are read from ``pack`` on the device. Stamps mark its
     three passes: the sorts and corrections, the kills and ring writes with
-    the fresh re-sort, the first count."""
+    the fresh re-sort, the first count; in reverse mode ``rev.rowsum`` and
+    ``rev.corrections`` split the first at the row-sum sweep's two ends."""
     n = kg.n
     dev = pack.device
     trace.stamp("prologue.sort_corrections", dev)
@@ -148,7 +149,11 @@ def _slide_prologue(state: PprState, kg: KillGraph, pack: torch.Tensor, cfg: Ppr
     cand0 = compact(mark[:n], min(4 * b, n + 1), n)
     # corrections read the old degrees (and in reverse mode the old window's
     # row sums), so they run before any mutation
-    rowsum = None if forward else window_row_sums(state.p, kg)
+    rowsum = None
+    if not forward:
+        trace.stamp("rev.rowsum", dev)
+        rowsum = window_row_sums(state.p, kg)
+        trace.stamp("rev.corrections", dev)
     apply_edge_batch_(state, kg.window, new_src, new_dst, old_src, old_dst, cfg, rowsum=rowsum,
                       keys_sorted=True)
     del rowsum

@@ -31,7 +31,9 @@ a reader takes ``RECORDER.snapshot()`` when it wants the record.
   ``round.<kind>`` (``RoundGraphs.loop``); a ``run`` step's
   ``step.<kind>`` and ``step.<kind>.end``; the wl2 slide prologue's
   ``prologue.sort_corrections``, ``prologue.kill_ring`` and
-  ``prologue.first_count``; a dense round's ``k2``, each K1 launch
+  ``prologue.first_count``, and in reverse mode ``rev.rowsum`` and
+  ``rev.corrections`` at the ends of its row-sum sweep (names that no
+  ``prologue.`` reader sums); a dense round's ``k2``, each K1 launch
   (``k1``; ``k1.window``, ``k1.fresh``) and ``k1.end``; the top-k's
   ``topk`` and ``topk.end``.
 - **Loops**: each loop's host launch and read-return times, its stamps,

@@ -3,9 +3,12 @@ wl2 slide and of a dense push follow their loops' round logs, spans nest,
 a full ring drops its oldest entries and counts them, the bracket
 arithmetic that puts the card's clock on the host's. The benchmark's
 readers of the recorder are tested with the benchmark
-(``benchmark/tests/test_benchmark_flight.py``)."""
+(``benchmark/tests/test_benchmark_flight.py``), but for its window sums
+over a reverse slide's sweep stamps, which are tested here."""
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import pytest
@@ -57,7 +60,8 @@ def _expected_rounds(rec: dict) -> list[str]:
 
 @pytest.mark.parametrize("mode", [FORWARD, REVERSE])
 def test_wl2_slide_stamps_follow_the_loop_log(monkeypatch, mode):
-    """Each slide's loop: its launch and head, the prologue's three passes, then one
+    """Each slide's loop: its launch and head, the prologue's three passes (in
+    reverse mode the row-sum sweep stamped at both ends inside the first), then one
     stamp a round in the order of ``LOG_SINK``'s branches (compact tiers
     and scans both; a scan's stats after it), each scan with its K2 and K1
     stamps inside, then the end and the read; the counts the recorder took from the
@@ -68,11 +72,12 @@ def test_wl2_slide_stamps_follow_the_loop_log(monkeypatch, mode):
     list(drv.run(3))
     snap = trace.RECORDER.snapshot(since=mark)
     assert len(snap["loops"]["seq"]) == len(graphs.LOG_SINK) == 3 and snap["dropped"] == 0
+    sweep = ["rev.rowsum", "rev.corrections"] if mode == REVERSE else []
     both = 0
     for i, rec in enumerate(graphs.LOG_SINK):
         tags = _loop_tags(snap, i)
-        assert tags[:5] == ["loop.launch", "loop.head", "prologue.sort_corrections",
-                            "prologue.kill_ring", "prologue.first_count"]
+        assert tags[:5 + len(sweep)] == ["loop.launch", "loop.head", "prologue.sort_corrections",
+                                         *sweep, "prologue.kill_ring", "prologue.first_count"]
         assert tags[-2:] == ["loop.end", "loop.read"]
         rounds = [t for t in tags if t.startswith("round.")]
         assert rounds == _expected_rounds(rec) and len(rec["rows"]) == rec["rounds"]
@@ -95,6 +100,45 @@ def test_wl2_slide_stamps_follow_the_loop_log(monkeypatch, mode):
     outside = [snap["names"][t] for t, lp in zip(snap["stamps"]["tag"], snap["stamps"]["loop"])
                if lp < 0]
     assert outside == ["step.rebuild", "step.rebuild.end"]
+
+
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+def test_the_reverse_sweep_is_stamped_and_summed_by_the_benchmark(mode):
+    """A reverse slide stamps ``rev.rowsum`` and then ``rev.corrections``, once each,
+    between ``prologue.sort_corrections`` and ``prologue.kill_ring``; a forward slide
+    stamps neither. The benchmark's sums over the window (``benchmark.flight``) give
+    each its intervals, and the prologue's passes as before: the sweep is no pass of
+    its own there, and the sorts' interval ends where it starts."""
+    from benchmark import flight
+
+    drv = _driver(mode)
+    mark = trace.RECORDER.mark()
+    t0 = time.perf_counter_ns()
+    list(drv.run(3))
+    t1 = time.perf_counter_ns()
+    snap = trace.RECORDER.snapshot(since=mark)
+    for i in range(3):
+        tags = _loop_tags(snap, i)
+        rev = [t for t in tags if t.startswith("rev.")]
+        if mode == FORWARD:
+            assert rev == []
+            continue
+        assert rev == ["rev.rowsum", "rev.corrections"]
+        at = tags.index("prologue.sort_corrections")
+        assert tags[at:at + 4] == ["prologue.sort_corrections", "rev.rowsum", "rev.corrections",
+                                   "prologue.kill_ring"]
+    got = flight.window_sums(snap, t0, t1)
+    assert got["loops"] == 3 and got["dropped"] == 0
+    assert set(got["prologue_ms"]) == {"ms", "sort_corrections", "kill_ring", "first_count"}
+    stamped = got["stamp_ms"]
+    if mode == FORWARD:
+        assert not any(k.startswith("rev.") for k in stamped)
+        return
+    for name in ("rev.rowsum", "rev.corrections"):
+        assert stamped[name]["n"] == 3 and 0 < stamped[name]["sum"] < got["prologue_ms"]["ms"]
+    passes = sum(got["prologue_ms"][k] for k in ("sort_corrections", "kill_ring", "first_count"))
+    assert passes + stamped["rev.rowsum"]["sum"] + stamped["rev.corrections"]["sum"] <= (
+        got["prologue_ms"]["ms"] * (1 + 1e-9))
 
 
 def test_dense_push_stamps_follow_the_loop_log(monkeypatch):

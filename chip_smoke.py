@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --turns [--out FILE] [--shapes TAG,...] ROOT [ROOT ...]
+    python3 chip_smoke.py --corrections
 
 Drives the port's paths once on the card, and checks them: the main path
 (the headline forward stream that bench.py times for the JAX package), the
@@ -74,6 +75,15 @@ round trip. Phases, one line each:
    bound (p read once), its plain version's time, ``torch.topk`` on the
    transposed view's, its launches and its counts (candidates kept a
    column, extra column passes; ``check_topk``);
+3e. corrections: a slide's corrections alone at the stream cells' shapes
+   (N=4,847,571, S=128, b=160,000; the expiring batch the oldest b edges of
+   a 68,993,773-edge power-law window drawn on the card, the new one the
+   next b), forward and reverse: the row work on the batch's source rows
+   (``update.apply_edge_batch_`` with ``source_rows``) against the same
+   corrections as a pass over every row (``tests/_corrections.py``), each
+   one captured graph, replayed in turns from the same state and timed by
+   CUDA events; both give the same bits (``check_corrections``; alone:
+   ``python3 chip_smoke.py --corrections``);
 4. stream f32: FastStreamDriver at N=200k, W=2M, b=160k, S=128, eps=1e-6,
    alpha=0.15 (bench.py's shapes): seed, warm-up, 8 timed slides, with the
    driver's captured graphs (``graphs``: graphs and loop graphs held,
@@ -332,7 +342,7 @@ from pprx_torch.engine.rowpass import (
 )
 from pprx_torch.engine.sparse import arm_kinds
 from pprx_torch.engine.state import FORWARD, REVERSE, PprState, settled_distance
-from pprx_torch.engine.update import apply_edge_batch, edge_blocks
+from pprx_torch.engine.update import apply_edge_batch, apply_edge_batch_, edge_blocks, source_rows
 from pprx_torch.engine.wl2 import loop_table
 from pprx_torch.eval.metrics import l1_error, precision_at_k
 from pprx_torch.graph import fast_stream
@@ -1251,6 +1261,115 @@ def check_topk(dev, shapes=TOPK_SHAPES, k: int = TOPK_K) -> dict:
             "plan": dataclasses.asdict(topk.plan(n, k)),
         }
         del p
+        torch.cuda.empty_cache()
+    return out
+
+
+# phase 3e: the stream cells' shapes (stream.b160k, stream-rev.b160k)
+CORR = dict(n=4_847_571, w=68_993_773, b=160_000, s=128, exponent=0.8, seed=7, reps=10)
+
+
+def powerlaw_ids(gen: torch.Generator, cdf: torch.Tensor, perm: torch.Tensor,
+                 k: int) -> torch.Tensor:
+    """``k`` int32 vertex ids drawn on the card with popularity
+    rank^-exponent (``cdf`` over the ranks, ``perm`` the ranks' vertices),
+    in blocks of 2^25."""
+    out = torch.empty(k, dtype=torch.int32, device=cdf.device)
+    for lo in range(0, k, 1 << 25):
+        u = torch.rand(min(1 << 25, k - lo), generator=gen, dtype=torch.float64,
+                       device=cdf.device)
+        out[lo:lo + u.shape[0]] = perm[torch.searchsorted(cdf, u, right=True).clamp_(
+            max=perm.shape[0] - 1)]
+    return out
+
+
+def check_corrections(dev, n: int = CORR["n"], w: int = CORR["w"], b: int = CORR["b"],
+                      s: int = CORR["s"], exponent: float = CORR["exponent"],
+                      seed: int = CORR["seed"], reps: int = CORR["reps"]) -> dict:
+    """Phase 3e: a slide's corrections alone, forward and reverse, the row
+    work on the batch's source rows (``new``) against the pass over every
+    row (``full``), each a captured graph replayed ``reps`` times a turn in
+    turns (full, new, new, full) from the same state (restored before each
+    replay, outside its events), and held to each other bit for bit."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import _corrections
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cdf = torch.arange(1, n + 1, dtype=torch.float64, device=dev).pow_(-exponent).cumsum_(0)
+    cdf /= cdf[-1].item()
+    perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    src = powerlaw_ids(gen, cdf, perm, w + b)
+    dst = powerlaw_ids(gen, cdf, perm, w + b)
+    loops = src == dst
+    dst[loops] = (dst[loops] + 1) % n
+    deg = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    deg.index_add_(0, src[:w], torch.ones(w, dtype=torch.int32, device=dev))
+    old_src, old_dst, new_src, new_dst = src[:b], dst[:b], src[w:], dst[w:]
+    del src, dst, loops
+    tiny = torch.zeros(1, dtype=torch.int32, device=dev)
+    cfg = PprConfig(alpha=0.15, eps=1e-6)
+    p0 = torch.rand((n + 1, s), generator=gen, device=dev).mul_(1e-3)
+    r0 = torch.randn((n + 1, s), generator=gen, device=dev).mul_(1e-6)
+    p0[-1] = r0[-1] = 0.0
+    out = {"n": n, "b": b, "s": s, "w": w}
+    for mode in (FORWARD, REVERSE):
+        forward = mode == FORWARD
+        # each batch sorted by the row its corrections add to, as the fast
+        # driver hands them over
+        on = torch.sort(new_dst if forward else new_src, stable=True)[1]
+        oo = torch.sort(old_dst if forward else old_src, stable=True)[1]
+        batch = (new_src[on], new_dst[on], old_src[oo], old_dst[oo])
+        state = PprState(p=p0.clone(), r=r0.clone(), mode=mode)
+        graph = WindowGraph(src=tiny, dst=tiny, deg=deg.clone())
+        rowsum = None
+        if not forward:  # any sums but a dangling row's, which are 0
+            rowsum = torch.rand((n + 1, s), generator=gen, device=dev)
+            rowsum.masked_fill_((deg == 0)[:, None], 0.0)
+        rows, count = source_rows(batch[2], batch[0], n + 1)
+
+        def restore():
+            state.p.copy_(p0)
+            state.r.copy_(r0)
+            graph.deg.copy_(deg)
+
+        def new():
+            rows, _ = source_rows(batch[2], batch[0], n + 1)
+            apply_edge_batch_(state, graph, *batch, cfg, rowsum=rowsum, keys_sorted=True,
+                              rows=rows)
+
+        def full():
+            _corrections.full_pass_(state, graph, *batch, cfg, rowsum=rowsum, keys_sorted=True)
+
+        replays = {"full": captured(full), "new": captured(new)}
+        got = {}
+        for name, graph_ in replays.items():
+            restore()
+            graph_.replay()
+            torch.cuda.synchronize()
+            got[name] = (state.p.clone(), state.r.clone(), graph.deg.clone())
+        same = all(torch.equal(a.view(torch.int32), c.view(torch.int32))
+                   for a, c in zip(got["full"], got["new"]))
+        del got
+        times = {k: [] for k in replays}
+        for name in ("full", "new", "new", "full"):
+            for _ in range(reps):
+                restore()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                replays[name].replay()
+                end.record()
+                end.synchronize()
+                times[name].append(start.elapsed_time(end))
+        out["forward" if forward else "reverse"] = {
+            "rows_listed": int(rows.shape[0]), "rows": int(count), "same_bits": same,
+            **{f"{k}_ms": float(np.mean(v)) for k, v in times.items()},
+            **{f"{k}_ms_min": float(np.min(v)) for k, v in times.items()},
+            **{f"{k}_ms_max": float(np.max(v)) for k, v in times.items()}}
+        if not same:
+            raise AssertionError(f"corrections {'forward' if forward else 'reverse'}: the "
+                                 "source rows' form is not bit for bit the full pass")
+        del replays, state, graph, rowsum, rows
         torch.cuda.empty_cache()
     return out
 
@@ -3791,6 +3910,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     tk = check_topk(dev)
     log("3d top-k", **tk)
+    torch.cuda.empty_cache()
+    log("3e corrections", **check_corrections(dev))
+    torch.cuda.empty_cache()
     # every fast-driver loop from here on logs its rounds, and each phase's
     # line replays them through the plain steps
     graphs.LOG_SINK = []
@@ -4695,7 +4817,16 @@ def turns(argv: list[str]) -> int:
     return 0
 
 
+def corrections_only() -> None:
+    """``--corrections``: phase 3e alone, after the build."""
+    dev = require_cuda()
+    build_all()
+    log("3e corrections", **check_corrections(dev), nvidia_smi=nvidia_smi())
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--turns"]:
         sys.exit(turns(sys.argv[2:]))
+    if sys.argv[1:2] == ["--corrections"]:
+        sys.exit(corrections_only())
     main()

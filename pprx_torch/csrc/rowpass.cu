@@ -1,4 +1,4 @@
-// Row passes over the [N+1, S] push state for Hopper (sm_90a), two entries:
+// Row passes over the [N+1, S] push state for Hopper (sm_90a), four entries:
 //
 //   scan_pass (K2): a scan round's elementwise work, in place, for every row v
 //     th = eps * max(deg[v], 1) (forward) or eps (reverse)
@@ -11,6 +11,13 @@
 //   frontier_rows (K3): the post-delivery rescan, reading r once
 //     any[v] = some |r[v, j]| > th;  counts += (sum any, sum any * row_len,
 //     sum any * f_len)
+//   corr_forward, corr_reverse: a slide's corrections' row work
+//     (pprx_torch/engine/update.py) on the rows of a list, the batch's
+//     source rows padded with the phantom row n, whose entries are skipped:
+//     forward  r[u] += p[u] * c_r[u] (one fma);  p[u] *= c_p[u]
+//     reverse  x = diff[i] / max(deg_new[u], 1), or p[u] where deg_new[u] == 0;
+//              x -= rowsum[u] / max(d0[u], 1);  x -= p[u] * (d0[u] == 0);
+//              r[u] += x * beta       (u = rows[i]; diff [T, S] in list order)
 //
 // No Pallas kernel is replaced: on the TPU this work was XLA's fusion of
 // `dense_round_sorted` (pprx/engine/wl2.py:177-290, its activity mask,
@@ -25,7 +32,17 @@
 //   K3 reads r, and deg, row_len and f_len, and writes one byte a row:
 //      about 105 MB, 0.031 ms.
 // At S=8 and S=16 (configs 3 and 2) both are at the launch floor, about
-// 0.004 ms of device time.
+// 0.004 ms of device time. The corrections' passes move T listed rows (at
+// the stream cells, b = 160,000: T = 320,000 entries, ~222k of them real):
+// forward reads and writes r and p, 4 * 4 S bytes a row; reverse reads
+// diff, rowsum, p and r and writes r, 5 * 4 S bytes a row.
+//
+// Why they are kernels: in torch the list's rows are gathered into a
+// [T, S] block, updated, and written back by index_copy_, whose padding
+// entries all write the phantom row: ~100k writers of one row, which cost
+// more than the rest of the work (0.53 ms a write-back at the stream cells
+// on an H100). Here a padding entry writes nothing, and a listed row is
+// read and written where it lies.
 //
 // Design: a group of lanes owns a row. Each lane moves 16 bytes of f32 at
 // a time (4 columns) where S is a multiple of 4, and one column at a time
@@ -283,6 +300,90 @@ __global__ void __launch_bounds__(kThreads)
   add_counts<3>(acc, counts);
 }
 
+// The corrections' row work: list entries are walked as K2 walks rows (a
+// group of lanes an entry, warp steps over the grid), each entry's row read
+// and written where it lies; an entry that names the phantom row (u >= n)
+// is skipped. The arithmetic is the plain version's (rowpass.py,
+// `corr_forward_plain`, `corr_reverse_plain`) op for op, as torch's kernels
+// round it: addcmul's a + value * b * c is one fma (value * b is exact at
+// value 1 or -1), held bit for bit on the card; addcdiv's a + value * (b /
+// c) rounds the quotient first; add is one rounded sum.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+    corr_forward_kernel(float* __restrict__ r, float* __restrict__ p,
+                        const long long* __restrict__ rows, const float* __restrict__ c_r,
+                        const float* __restrict__ c_p, long long t, long long n, int s,
+                        int lanes) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int sub = lane / lanes;
+  const int own = lane & (lanes - 1);
+  const int per_step = kWarp / lanes;
+  const long long warp = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
+  const long long n_warps = static_cast<long long>(gridDim.x) * kWarpsPerBlock;
+  for (long long base = warp * per_step; base < t; base += n_warps * per_step) {
+    const long long i = base + sub;
+    const long long u = i < t ? rows[i] : n;
+    if (u >= n) continue;
+    const float cr = c_r[u];
+    const float cp = c_p[u];
+    const long long row = u * s;
+    for (int j = own * VEC; j < s; j += lanes * VEC) {
+      float rr[VEC], pp[VEC];
+      load(r + row + j, rr);
+      load(p + row + j, pp);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        rr[e] = __fmaf_rn(pp[e], cr, rr[e]);
+        pp[e] = __fmul_rn(pp[e], cp);
+      }
+      store(r + row + j, rr);
+      store(p + row + j, pp);
+    }
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+    corr_reverse_kernel(float* __restrict__ r, const float* __restrict__ p,
+                        const float* __restrict__ rowsum, const float* __restrict__ diff,
+                        const long long* __restrict__ rows, const int* __restrict__ deg_new,
+                        const int* __restrict__ d0, long long t, long long n, int s, int lanes,
+                        float beta) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int sub = lane / lanes;
+  const int own = lane & (lanes - 1);
+  const int per_step = kWarp / lanes;
+  const long long warp = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
+  const long long n_warps = static_cast<long long>(gridDim.x) * kWarpsPerBlock;
+  for (long long base = warp * per_step; base < t; base += n_warps * per_step) {
+    const long long i = base + sub;
+    const long long u = i < t ? rows[i] : n;
+    if (u >= n) continue;
+    const int dn = deg_new[u];
+    const int dz = d0[u];
+    const float dnf = __int2float_rn(dn > 1 ? dn : 1);
+    const float d0f = __int2float_rn(dz > 1 ? dz : 1);
+    const float z = dz == 0 ? 1.f : 0.f;
+    const long long row = u * s;
+    const long long at = i * s;
+    for (int j = own * VEC; j < s; j += lanes * VEC) {
+      float x[VEC], rs[VEC], pp[VEC], rr[VEC];
+      load(diff + at + j, x);
+      load(rowsum + row + j, rs);
+      load(p + row + j, pp);
+      load(r + row + j, rr);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float v = dn == 0 ? pp[e] : __fdiv_rn(x[e], dnf);
+        v = __fsub_rn(v, __fdiv_rn(rs[e], d0f));
+        v = __fmaf_rn(-pp[e], z, v);
+        rr[e] = __fadd_rn(rr[e], __fmul_rn(v, beta));
+      }
+      store(r + row + j, rr);
+    }
+  }
+}
+
 // One launch on the caller's stream, of at most one wave: as many blocks as
 // the card holds at once (the occupancy calculator's count, found at a
 // kernel's first launch, times the SMs), each striding over the rows the
@@ -338,6 +439,29 @@ int frontier_rows_vec(int forward, int wanted, void* stream, const float* r, con
 }  // namespace
 
 extern "C" {
+
+// The corrections' passes: r, p (and rowsum): f32 [n + 1, s]; diff: f32 [t,
+// s]; rows: int64 [t]; c_r, c_p: f32 [n + 1]; deg_new, d0: int32 [n + 1];
+// vec, lanes and blocks as for K2, over the t list entries.
+
+int pprx_corr_forward(float* r, float* p, const long long* rows, const float* c_r,
+                      const float* c_p, long long t, long long n, int s, int vec, int lanes,
+                      int blocks, void* stream) {
+  return vec == 4 ? launch<corr_forward_kernel<4>>(blocks, stream, r, p, rows, c_r, c_p, t, n,
+                                                   s, lanes)
+                  : launch<corr_forward_kernel<1>>(blocks, stream, r, p, rows, c_r, c_p, t, n,
+                                                   s, lanes);
+}
+
+int pprx_corr_reverse(float* r, const float* p, const float* rowsum, const float* diff,
+                      const long long* rows, const int* deg_new, const int* d0, long long t,
+                      long long n, int s, int vec, int lanes, int blocks, float beta,
+                      void* stream) {
+  return vec == 4 ? launch<corr_reverse_kernel<4>>(blocks, stream, r, p, rowsum, diff, rows,
+                                                   deg_new, d0, t, n, s, lanes, beta)
+                  : launch<corr_reverse_kernel<1>>(blocks, stream, r, p, rowsum, diff, rows,
+                                                   deg_new, d0, t, n, s, lanes, beta);
+}
 
 // p, r: f32 [n_rows, s]; deg: int32 [n_rows]; moving: [n_rows, s] f32 or
 // bf16; counts: int64 [2]; row_act: int32 [n_rows] or null. vec is 4 (s a

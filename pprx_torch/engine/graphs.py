@@ -79,7 +79,11 @@ WHILE, and one after the carry's copy (``loop.read``). On the card the
 stamps go to a ring that lies just before the carry, so that the carry's
 one copy reads both, and the read's stamp into pinned host memory; the
 loop's launch and the read's return bracket them on the host's clock
-(``loop.wait``).
+(``loop.wait``). A loop's prologue may also write counters of its own
+(``count_``: the fast driver's slide writes ``corr.rows``, the rows its
+corrections work on), into slots between the ring and the carry that the
+same copy reads; the recorder counts them for the loop as it counts the
+branches' executions.
 """
 
 from __future__ import annotations
@@ -94,6 +98,8 @@ from pprx_torch import _ext, trace
 from pprx_torch.engine import loop, rowpass, segsum
 
 N_COUNTS = 5  # cn, fed, fre, n_active, edge_work (the sharded loop adds ewr)
+# the recorder's counters a loop's prologue may write (``RoundGraphs.count_``)
+COUNTERS = 8
 
 # every kernel module's launch counts, which a replay adds to
 KERNEL_COUNTS = (segsum.LAUNCHES, segsum.SITE_LAUNCHES, rowpass.LAUNCHES, loop.LAUNCHES)
@@ -169,6 +175,10 @@ class RoundGraphs:
     CUDA), ``loop_launches`` the loop graphs' launches,
     ``branch_execs`` the branches those ran and ``reads`` the host's reads
     of a loop's counts or carry (one a loop on CUDA).
+
+    ``counters`` holds the recorder's counters (``count_``), int64
+    ``[COUNTERS]``: on the card between the ring of stamps and the carry,
+    which one copy reads.
     """
 
     def __init__(self, n: int, width: int, device: torch.device | str,
@@ -189,6 +199,12 @@ class RoundGraphs:
         self.branch_execs = 0
         self.reads = 0
         self._loop_tags: dict[Hashable, list[int]] = {}  # a loop's branch stamps' tags
+        # each counter's slot, by its tag; the counters each captured step
+        # wrote, by its key, and each loop's prologue, by the loop's key
+        self._slots: dict[int, int] = {}
+        self._writes: dict[Hashable, tuple[int, ...]] = {}
+        self._loop_counters: dict[Hashable, tuple[int, ...]] = {}
+        self._wrote: list[int] | None = None  # what ``count_`` wrote, while a list
         self._held: dict[str, tuple[int, ...]] = {}
         self._buffers: dict[str, torch.Tensor] = {}
         self._inputs: tuple[int, int] | None = None
@@ -196,21 +212,25 @@ class RoundGraphs:
             self.pool = torch.cuda.graph_pool_handle()
             self.side = torch.cuda.Stream(self.device)
             self.host = torch.empty(n_counts, dtype=torch.int64, pin_memory=True)
-            # the ring of stamps, then the loop's carry on the card (the host
-            # loop keeps its own): one copy reads both
+            # the ring of stamps, the counters, then the loop's carry on the
+            # card (the host loop keeps its own): one copy reads them all
             at = trace.ring_len(trace.DEVICE_SLOTS)
-            self.flight = torch.zeros(at + loop.SIZE, dtype=torch.int64, device=self.device)
+            size = at + COUNTERS + loop.SIZE
+            self.flight = torch.zeros(size, dtype=torch.int64, device=self.device)
             self.flight[1] = trace.DEVICE_SLOTS
             self.ring = trace.DeviceRing(self.flight[:at])
             trace.RECORDER.watch(self.ring)
-            self.carry = self.flight[at:]
-            # the copy of both, then the read's stamp, after the copy
-            self.flight_host = torch.empty(at + loop.SIZE + 2, dtype=torch.int64,
-                                           pin_memory=True)
-            self.carry_host = self.flight_host[at:at + loop.SIZE]
-            self.read_stamp = self.flight_host[at + loop.SIZE:]
+            self.counters = self.flight[at:at + COUNTERS]
+            self.carry = self.flight[at + COUNTERS:]
+            # the copy of them, then the read's stamp, after the copy
+            self.flight_host = torch.empty(size + 2, dtype=torch.int64, pin_memory=True)
+            self.counters_host = self.flight_host[at:at + COUNTERS]
+            self.carry_host = self.flight_host[at + COUNTERS:size]
+            self.read_stamp = self.flight_host[size:]
             self.inputs_host = torch.empty(2, dtype=torch.int64, pin_memory=True)
             self.ready = torch.cuda.Event()
+        else:
+            self.counters = torch.zeros(COUNTERS, dtype=torch.int64)
 
     def bind(self, state, kg, pack: torch.Tensor | None = None) -> None:
         """Tie the cache to the tensors of ``state`` and ``kg`` at its first
@@ -264,6 +284,34 @@ class RoundGraphs:
     def put(self, at: int, *counts: torch.Tensor) -> None:
         """Device scalars into ``counts[at:]``."""
         self.counts[at:at + len(counts)].copy_(torch.stack(counts))
+
+    def count_(self, name: str, value: torch.Tensor) -> None:
+        """A counter of the step being run or captured: ``value`` (a device
+        scalar) into its slot, where the loop's carry read finds it; the
+        recorder counts it for each loop whose prologue wrote it (``loop``),
+        as it counts a branch's executions."""
+        t = trace.tag(name)
+        slot = self._slots.setdefault(t, len(self._slots))
+        if slot >= COUNTERS:
+            raise ValueError(f"more than {COUNTERS} counters: {name!r}")
+        self.counters[slot:slot + 1].copy_(value.reshape(1))
+        if self._wrote is not None:
+            self._wrote.append(t)
+
+    def _collect(self, fn: Callable[[], None]) -> tuple[int, ...]:
+        """``fn()``, and the tags of the counters it wrote (``count_``)."""
+        was, self._wrote = self._wrote, []
+        try:
+            fn()
+            return tuple(dict.fromkeys(self._wrote))
+        finally:
+            self._wrote = was
+
+    def _record_counters(self, seq: int, tags: tuple[int, ...], values: list[int]) -> None:
+        """The counters ``tags`` of loop ``seq`` into the recorder, from
+        ``values`` (the counters' slots as read)."""
+        if tags:
+            trace.RECORDER.count(seq, list(tags), [values[self._slots[t]] for t in tags])
 
     def stamped(self, name: str, fn: Callable[[], None], end: str | None = None):
         """``fn`` with a stamp of ``name`` before it (and of ``end`` after
@@ -353,15 +401,19 @@ class RoundGraphs:
             return hit
         t0 = time.perf_counter()
         before = [dict(counts) for counts in KERNEL_COUNTS]
-        try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+
+        def both():
             with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=self.side,
                                   capture_error_mode="relaxed"):
                 self._targeted(fn)
             for counts, was in zip(KERNEL_COUNTS, before):
                 counts.update(was)
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
             with torch.cuda.graph(graph, pool=self.pool):
                 self._targeted(fn)
+
+        try:
+            self._writes[key] = self._collect(both)
             launched = [{k: counts[k] - was[k] for k in was}
                         for counts, was in zip(KERNEL_COUNTS, before)]
         finally:
@@ -418,8 +470,7 @@ class RoundGraphs:
             rec.stamp(trace.LOOP_LAUNCH, self.device)
             rec.stamp(trace.LOOP_HEAD, self.device)
             carry = loop.new_carry("cpu")
-            if prologue is not None:
-                self.run(*prologue)
+            counters = () if prologue is None else self._collect(lambda: self.run(*prologue))
             loop.set_inputs(carry, c0ok, max_rounds)
             counts = self.read()
             reads = 1
@@ -439,6 +490,7 @@ class RoundGraphs:
         finally:
             rec.loop_end(seq)
         rec.count(seq, tags, carry[loop.EXECS:loop.EXECS + len(branches)].tolist())
+        self._record_counters(seq, counters, self.counters.tolist())
         n = loop.HEAD if LOG_SINK is None else loop.SIZE
         return carry[:n].tolist(), reads
 
@@ -451,6 +503,7 @@ class RoundGraphs:
             branches, self._loop_tags[key] = self._stamped_branches(branches)
             parts = [self.capture(*step) for step in [prologue] * (prologue is not None)
                      + branches]
+            self._loop_counters[key] = () if prologue is None else self._writes[prologue[0]]
             raw = [graph.raw_cuda_graph() for graph, _ in parts]
             head = raw.pop(0) if prologue is not None else None
             graph = loop.LoopGraph(head, raw, self.carry, self.counts, table, self.ring.ring,
@@ -471,17 +524,18 @@ class RoundGraphs:
         launch = loop.stamp_(self.ring.ring, trace.LOOP_LAUNCH, handle)
         graph.launch(handle)
         self.loop_launches += 1
-        # the ring of stamps and the carry's head (its log too where LOG_SINK
-        # takes it) in one copy; the read's stamp after it, on the host
-        n = self.ring.ring.shape[0] + (loop.HEAD if LOG_SINK is None else loop.SIZE)
+        # the ring of stamps, the counters and the carry's head (its log too
+        # where LOG_SINK takes it) in one copy; the read's stamp after it, on
+        # the host
+        at = self.ring.ring.shape[0] + COUNTERS
+        n = at + (loop.HEAD if LOG_SINK is None else loop.SIZE)
         self.flight_host[:n].copy_(self.flight[:n], non_blocking=True)
         loop.stamp_host_(self.read_stamp, trace.LOOP_READ, handle)
         self.ready.record(stream)
         self.ready.synchronize()
         done = time.perf_counter_ns()
         rec.end(wait)
-        n -= self.ring.ring.shape[0]
-        values = self.carry_host[:n].tolist()
+        values = self.carry_host[:n - at].tolist()
         seq = rec.device_loop(launch, done, self.ring, self.flight_host.numpy(),
                               self.read_stamp.tolist())
         # what the loop launched: its prologue once, each branch as often
@@ -499,6 +553,7 @@ class RoundGraphs:
         loop.LAUNCHES["after_scan"] += execs[table.scan] if table.has_stats else 0
         self.branch_execs += sum(execs)
         rec.count(seq, self._loop_tags[key], execs)
+        self._record_counters(seq, self._loop_counters[key], self.counters_host.tolist())
         return values, 1
 
     def summary(self) -> dict:

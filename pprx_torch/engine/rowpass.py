@@ -6,7 +6,10 @@ work and the post-delivery rescan, each one pass over the state.
   round's counts (active pairs; forward the edge pushes; reverse each row's
   active pairs, which the caller gathers over its edge views);
 - ``frontier_rows`` (K3): which rows hold an active pair, with the next
-  frontier's counts.
+  frontier's counts;
+- ``corr_forward_`` and ``corr_reverse_``: a slide's corrections' row work
+  (``pprx_torch.engine.update``) on a list of rows, the batch's source
+  rows padded with the phantom row, which they skip.
 
 No Pallas kernel stands behind them: on the TPU, XLA fused the same ops of
 ``dense_round_sorted`` (``pprx/engine/wl2.py:177-290``) and of the rescan
@@ -16,7 +19,8 @@ hand-written Hopper kernels of ``pprx_torch/csrc/rowpass.cu`` (built at
 first use by ``pprx_torch._ext``), which give the plain versions' bits. On
 CPU tensors they run the plain versions, ``scan_pass_plain`` and
 ``frontier_rows_plain``: the torch code of ``pprx_torch.engine.wl2`` that
-the kernels replace.
+the kernels replace (and ``corr_forward_plain``, ``corr_reverse_plain``:
+the corrections' torch code on the list's rows, gathered and written back).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from pprx_torch.engine.segsum import lanes_for
 
 # Calls that launched a kernel since the last reset, by entry (as
 # ``segsum.LAUNCHES``).
-LAUNCHES = {"scan_pass": 0, "frontier_rows": 0}
+LAUNCHES = {"scan_pass": 0, "frontier_rows": 0, "corr_forward": 0, "corr_reverse": 0}
 ENTRIES = tuple(LAUNCHES)
 
 THREADS = 256  # a block's threads: rowpass.cu's kThreads
@@ -88,6 +92,26 @@ def frontier_rows_plain(r, deg, row_len, f_len, *, eps, forward):
     return any2, cn2, fed2, fre2
 
 
+def corr_forward_plain(r, p, rows, c_r, c_p) -> None:
+    """The plain version of ``corr_forward_``: the listed rows gathered,
+    updated and written back (the phantom row's padding too)."""
+    p_rows = p[rows]
+    r.index_copy_(0, rows, r[rows].addcmul_(p_rows, c_r[rows, None]))
+    p.index_copy_(0, rows, p_rows.mul_(c_p[rows, None]))
+
+
+def corr_reverse_plain(r, p, rowsum, diff, rows, deg_new, d0, beta) -> None:
+    """The plain version of ``corr_reverse_``, in ``diff``."""
+    dtype = r.dtype
+    diff.div_(deg_new.clamp(min=1).to(dtype)[rows, None])
+    p_rows = p[rows]
+    torch.where((deg_new[rows] == 0)[:, None], p_rows, diff, out=diff)
+    diff.addcdiv_(rowsum[rows], d0.clamp(min=1).to(dtype)[rows, None], value=-1)
+    diff.addcmul_(p_rows, (d0[rows] == 0).to(dtype)[:, None], value=-1)
+    # beta * diff rounded, then added: the out-of-place form's two roundings
+    r.index_copy_(0, rows, r[rows].add_(diff.mul_(beta)))
+
+
 _PTR, _INT, _LONG, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
@@ -107,6 +131,16 @@ def _entries() -> dict:
     rows.argtypes = [*[_PTR] * 6, _LONG, *[_INT] * 5, _FLOAT, _PTR]
     rows.restype = _INT
     fns["frontier_rows"] = rows
+    fwd = lib.pprx_corr_forward
+    # r, p, rows, c_r, c_p, t, n, s, vec, lanes, blocks, stream
+    fwd.argtypes = [*[_PTR] * 5, _LONG, _LONG, *[_INT] * 4, _PTR]
+    fwd.restype = _INT
+    fns["corr_forward"] = fwd
+    rev = lib.pprx_corr_reverse
+    # r, p, rowsum, diff, rows, deg_new, d0, t, n, s, vec, lanes, blocks, beta, stream
+    rev.argtypes = [*[_PTR] * 7, _LONG, _LONG, *[_INT] * 4, _FLOAT, _PTR]
+    rev.restype = _INT
+    fns["corr_reverse"] = rev
     return fns
 
 
@@ -115,12 +149,13 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _grid(r: torch.Tensor) -> tuple[int, int, int]:
-    """(columns per lane, lanes per row, blocks) of a launch over ``r``: a
-    warp takes ``32 // lanes`` rows a step, and the blocks are as many as
-    the steps need; the kernel runs one wave of them at most, which strides
-    over the rest."""
-    n_rows, s = r.shape
+def _grid(r: torch.Tensor, n_rows: int | None = None) -> tuple[int, int, int]:
+    """(columns per lane, lanes per row, blocks) of a launch over ``r``'s
+    rows (or ``n_rows`` of them: a list's entries): a warp takes ``32 //
+    lanes`` rows a step, and the blocks are as many as the steps need; the
+    kernel runs one wave of them at most, which strides over the rest."""
+    s = r.shape[1]
+    n_rows = r.shape[0] if n_rows is None else n_rows
     vec, lanes = lanes_for(s)
     steps = -(-n_rows // (32 // lanes))
     return vec, lanes, min(-(-steps // (THREADS // 32)), 2**31 - 1)
@@ -254,3 +289,90 @@ def frontier_rows(
             raise RuntimeError(f"frontier_rows kernel launch failed: cudaError {err}")
         LAUNCHES["frontier_rows"] += 1
     return any2, counts[0], counts[1], counts[2]
+
+
+def _check_list(what: str, r: torch.Tensor, rows: torch.Tensor, per_row: dict,
+                blocks: dict) -> None:
+    """The corrections' operands: ``r``'s ``[R, S]`` shape for ``blocks``
+    given as ``"name": (tensor, rows)`` (``rows`` None: R), an int64 list
+    ``rows`` and the ``[R]`` operands ``per_row``, on one device."""
+    if r.dim() != 2:
+        raise ValueError(f"{what}: r must be [R, S], got {tuple(r.shape)}")
+    if rows.dim() != 1 or rows.dtype != torch.int64:
+        raise ValueError(f"{what}: rows must be a 1-D int64 tensor")
+    for name, (t, n) in blocks.items():
+        want = (r.shape[0] if n is None else n, r.shape[1])
+        if tuple(t.shape) != want:
+            raise ValueError(f"{what}: {name} must be {want}, got {tuple(t.shape)}")
+    for name, t in per_row.items():
+        if t.shape != r.shape[:1]:
+            raise ValueError(f"{what}: {name} must be [{r.shape[0]}], got {tuple(t.shape)}")
+    devs = {t.device for t in (rows, *per_row.values(), *(t for t, _ in blocks.values()))}
+    if len(devs) != 1:
+        raise ValueError(f"{what}: all operands must be on one device, got {devs}")
+
+
+def _launch_list(entry: str, r: torch.Tensor, rows: torch.Tensor, ptrs: list,
+                 last: tuple = ()) -> None:
+    t = rows.shape[0]
+    if t == 0 or r.shape[1] == 0:
+        return
+    vec, lanes, blocks = _grid(r, t)
+    with torch.cuda.device(r.device):
+        err = _entries()[entry](*ptrs, t, r.shape[0] - 1, r.shape[1], vec, lanes, blocks, *last,
+                                torch.cuda.current_stream(r.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+    LAUNCHES[entry] += 1
+
+
+def corr_forward_(r: torch.Tensor, p: torch.Tensor, rows: torch.Tensor, c_r: torch.Tensor,
+                  c_p: torch.Tensor) -> None:
+    """The forward corrections' row pass on the listed rows: for each ``u``
+    of ``rows`` (int64) below ``R - 1``, ``r[u] += p[u] * c_r[u]`` (torch's
+    ``addcmul``: one fma on the card) and ``p[u] *= c_p[u]``, in place.
+    ``R - 1``, the phantom row, pads the list: the kernel skips it, the
+    plain version writes it too (its caller zeroes it). ``c_r``, ``c_p``:
+    [R].
+
+    On CUDA: f32 ``r``, ``p``, ``c_r`` and ``c_p``, all contiguous, ``r``
+    and ``p`` 16-byte aligned.
+    """
+    _check_list("corr_forward_", r, rows, {"c_r": c_r, "c_p": c_p}, {"p": (p, None)})
+    if r.device.type == "cpu":
+        corr_forward_plain(r, p, rows, c_r, c_p)
+        return
+    _check_kernel("corr_forward_", {"r": (r, F32), "p": (p, F32), "c_r": (c_r, F32),
+                                    "c_p": (c_p, F32), "rows": (rows, (torch.int64,))},
+                  ("r", "p"))
+    _launch_list("corr_forward", r, rows, [r.data_ptr(), p.data_ptr(), rows.data_ptr(),
+                                           c_r.data_ptr(), c_p.data_ptr()])
+
+
+def corr_reverse_(r: torch.Tensor, p: torch.Tensor, rowsum: torch.Tensor, diff: torch.Tensor,
+                  rows: torch.Tensor, deg_new: torch.Tensor, d0: torch.Tensor,
+                  beta: float) -> None:
+    """The reverse corrections' row pass on the listed rows: for the ``i``-th
+    entry ``u`` of ``rows`` (int64) below ``R - 1``, with ``diff[i]`` the new
+    sums of ``p`` over ``u``'s out-row, ``x = diff[i] / max(deg_new[u], 1)``,
+    or ``p[u]`` where ``deg_new[u] == 0``; ``x -= rowsum[u] / max(d0[u],
+    1)``; ``x -= p[u] * (d0[u] == 0)``; ``r[u] += beta * x`` (the product
+    rounded, then the sum), in place. ``R - 1`` pads the list, as for
+    ``corr_forward_``. ``diff``: [T, S], T the list's length; the plain
+    version works in it. ``deg_new``, ``d0``: [R].
+
+    On CUDA: f32 ``r``, ``p``, ``rowsum`` and ``diff``, int32 ``deg_new``
+    and ``d0``, all contiguous, the f32 ones 16-byte aligned.
+    """
+    _check_list("corr_reverse_", r, rows, {"deg_new": deg_new, "d0": d0},
+                {"p": (p, None), "rowsum": (rowsum, None), "diff": (diff, rows.shape[0])})
+    if r.device.type == "cpu":
+        corr_reverse_plain(r, p, rowsum, diff, rows, deg_new, d0, beta)
+        return
+    _check_kernel("corr_reverse_", {
+        "r": (r, F32), "p": (p, F32), "rowsum": (rowsum, F32), "diff": (diff, F32),
+        "rows": (rows, (torch.int64,)), "deg_new": (deg_new, I32), "d0": (d0, I32),
+    }, ("r", "p", "rowsum", "diff"))
+    _launch_list("corr_reverse", r, rows, [
+        r.data_ptr(), p.data_ptr(), rowsum.data_ptr(), diff.data_ptr(), rows.data_ptr(),
+        deg_new.data_ptr(), d0.data_ptr()], (_f32(beta),))

@@ -34,6 +34,18 @@ the card every run of the same inputs gives the same bits; on the CPU the
 plain version adds each row's lanes in their batch order, as the
 reference's scatter does. Batches are phantom-padded (u = w = N); phantom
 entries are exact no-ops because p[N] = 0.
+
+Every row-wise factor is the identity outside the batch's source rows
+(forward ``c_r = 0``, ``c_p = 1``; reverse ``(P'p - Pp)(u) = 0``), so the
+row work runs on those rows alone (``source_rows``: a list of static
+length, at most the batches' lanes, padded with the phantom row): one pass
+over the listed rows (``rowpass.corr_forward_``, ``corr_reverse_``: a
+kernel on the card; on the CPU the same torch operations on the rows
+gathered, then written back), the same operations in the same order, so
+the bits of a pass over all ``N + 1`` rows, at a fraction of its bytes.
+Reverse mode's new row sums are built in a ``[T, S]`` block, T the list's
+length, each lane keyed by its row's place in the list (the list ascends,
+so sorted lanes stay sorted).
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ from __future__ import annotations
 import torch
 
 from pprx_torch.config import PprConfig
+from pprx_torch.engine.rowpass import corr_forward_, corr_reverse_
 from pprx_torch.engine.segsum import row_offsets, segsum_add_, segsum_gather_add_, sorted_deliver_
 from pprx_torch.engine.state import FORWARD, PprState
 from pprx_torch.graph.dynamic import WindowGraph
@@ -71,6 +84,23 @@ def out_row_sums(p: torch.Tensor, graph: WindowGraph) -> torch.Tensor:
     for lo, hi in edge_blocks(graph.capacity, p.shape[1] * p.element_size()):
         rowsum.index_add_(0, graph.src[lo:hi], p[graph.dst[lo:hi]])
     return rowsum
+
+
+def source_rows(del_src: torch.Tensor, ins_src: torch.Tensor,
+                n_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rows whose own values a batch's corrections change: the unique
+    source rows of both batches, ascending, int64 ``[min(L, n_rows)]`` (L
+    the batches' lanes together), padded with the phantom row ``n_rows -
+    1``; and how many are real rows, a device scalar (nothing is read back,
+    so a capture takes it)."""
+    from pprx_torch.engine.wl2 import compact  # wl2 imports this module (through push)
+
+    n = n_rows - 1
+    mark = torch.zeros(n_rows, dtype=torch.bool, device=del_src.device)
+    for src in (del_src, ins_src):
+        mark.index_fill_(0, src.long(), True)
+    size = min(del_src.shape[0] + ins_src.shape[0], n_rows)
+    return compact(mark[:n], size, n).long(), mark[:n].sum()
 
 
 def _add_lanes_(rin: torch.Tensor, keys: torch.Tensor, table: torch.Tensor,
@@ -120,6 +150,7 @@ def apply_edge_batch_(
     cfg: PprConfig,
     rowsum: torch.Tensor | None = None,
     keys_sorted: bool = False,
+    rows: torch.Tensor | None = None,
 ) -> tuple[PprState, WindowGraph]:
     """Apply one batch of edge deletions then insertions in place:
     ``state.r``, in forward mode ``state.p``, and ``graph.deg`` are
@@ -132,12 +163,16 @@ def apply_edge_batch_(
     payload is ``beta * p[u] * s1[u] / d1[u]``, ``s1`` the delete phase's
     row scale: the post-delete ``p'[u]``), then one row pass
     ``r += c_r * p; p *= c_p`` with ``c_r = r_add - r_sub * s1`` and
-    ``c_p = s1 * s2`` per row: the two phases' row updates in one.
+    ``c_p = s1 * s2`` per row: the two phases' row updates in one, on the
+    source rows alone.
 
     ``rowsum`` (reverse mode only): the ``[N+1, S]`` sums of ``p`` over each
     vertex's out-row in the old window, where the caller has them;
     ``None`` sums them here (``out_row_sums``). It is read, not written;
-    the new row sums take one ``[N+1, S]`` temporary.
+    the new row sums take a ``[T, S]`` block, T the source rows' list.
+
+    ``rows``: the batch's ``source_rows`` list, where the caller has made
+    it (the fast driver counts its rows); ``None`` makes it here.
 
     ``keys_sorted``: each batch is already in ascending order of the row
     its lanes add to (forward ``dst``, reverse ``src``), as the fast driver
@@ -154,27 +189,25 @@ def apply_edge_batch_(
     p, r = state.p, state.r
     deg_new = d0 - k_del + k_ins
     deg_new[-1:].fill_(0)  # phantom row degree pinned (a slice: capturable)
+    if rows is None:
+        rows = source_rows(del_src, ins_src, n_rows)[0]
 
     if state.mode != FORWARD:
         if rowsum is None:
             rowsum = out_row_sums(p, graph)
-        d0f = d0.clamp(min=1).to(dtype)
-        d_newf = deg_new.clamp(min=1).to(dtype)
-        # pp_new - pp_old, built in the one temporary: pp is the mean of p
-        # over the out-row, or p itself on a dangling row (whose old row sum
-        # is 0). The deletions' rows negated, then the insertions' read
-        # from p, into it: each row's lanes in the order of the form
-        # ``rowsum - x1 - x2 + y1``
-        diff = rowsum.clone()
-        _add_lanes_(diff, del_src, p[del_dst].neg_(), None, keys_sorted)
-        _add_lanes_(diff, ins_src, p, ins_dst, keys_sorted)
-        diff.div_(d_newf[:, None])
-        torch.where((deg_new == 0)[:, None], p, diff, out=diff)
-        diff.addcdiv_(rowsum, d0f[:, None], value=-1)
-        diff.addcmul_(p, (d0 == 0).to(dtype)[:, None], value=-1)
-        # beta * diff rounded, then added: the out-of-place form's two
-        # roundings (``add_(diff, alpha=beta)`` may fuse them on CUDA)
-        r.add_(diff.mul_(beta))
+        # pp_new - pp_old on the source rows (0 elsewhere), built in one
+        # [T, S] block: pp is the mean of p over the out-row, or p itself on
+        # a dangling row (whose old row sum is 0). The old sums' rows, then
+        # the deletions' rows negated and the insertions' read from p, each
+        # lane at its row's place in the list: each row's lanes in the order
+        # of the form ``rowsum - x1 - x2 + y1``
+        diff = rowsum[rows]
+        _add_lanes_(diff, torch.searchsorted(rows, del_src.long()), p[del_dst].neg_(), None,
+                    keys_sorted)
+        _add_lanes_(diff, torch.searchsorted(rows, ins_src.long()), p, ins_dst, keys_sorted)
+        # then the means, pp_new - pp_old and r += beta * it: one pass over
+        # the listed rows (``rowpass.corr_reverse_``)
+        corr_reverse_(r, p, rowsum, diff, rows, deg_new, d0, beta)
         r[-1] = 0.0
         graph.deg.copy_(deg_new)
         return state, graph
@@ -205,9 +238,8 @@ def apply_edge_batch_(
     denom = torch.where(from_dangling, alpha, alpha * d1f)
     r_sub = torch.where(touched, num / denom, 0.0)
 
-    # ---- both phases' row updates in one pass ----
-    r.addcmul_(p, (r_add - r_sub * s1)[:, None])
-    p.mul_((s1 * s2)[:, None])
+    # ---- both phases' row updates in one pass over the source rows ----
+    corr_forward_(r, p, rows, r_add - r_sub * s1, s1 * s2)
     p[-1] = 0.0
     r[-1] = 0.0
     graph.deg.copy_(deg_new)

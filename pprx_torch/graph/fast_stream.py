@@ -13,7 +13,8 @@ Each slide is a span of the flight recorder (``pprx_torch.trace``), its id
 the slide's ``step_idx``, with the host's steps as its children:
 ``slide.rebuild``, ``slide.pack``, ``slide.upload``, ``slide.issue`` (up to
 the loop's launch), ``loop.wait`` (``RoundGraphs``) and ``slide.mirror``;
-the prologue stamps the card's clock at its passes.
+the prologue stamps the card's clock at its passes and counts the rows its
+corrections work on (``corr.rows``, one count a slide's loop).
 
 The driver's state and kill graph are its buffers for its whole life: the
 slide step, the rebuild and ``from_arrays`` write into their tensors, never
@@ -37,7 +38,7 @@ from pprx_torch.convert import kill_graph_from_arrays, state_from_arrays
 from pprx_torch.engine.graphs import RoundGraphs
 from pprx_torch.engine.segsum import segsum_gather_add_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats, init_state
-from pprx_torch.engine.update import apply_edge_batch_
+from pprx_torch.engine.update import apply_edge_batch_, source_rows
 from pprx_torch.engine.wl2 import (
     KillGraph,
     first_count,
@@ -57,6 +58,8 @@ from pprx_torch.graph.dynamic import WindowGraph
 # the flight recorder's spans of a slide
 SLIDE, REBUILD, PACK, UPLOAD, ISSUE, MIRROR = (trace.tag(f"slide{x}") for x in (
     "", ".rebuild", ".pack", ".upload", ".issue", ".mirror"))
+# its counter: the distinct source rows a slide's corrections work on
+CORR_ROWS = "corr.rows"
 
 
 def window_row_sums(p: torch.Tensor, kg: KillGraph) -> torch.Tensor:
@@ -121,7 +124,9 @@ def _slide_prologue(state: PprState, kg: KillGraph, pack: torch.Tensor, cfg: Ppr
     fresh-ring fill are read from ``pack`` on the device. Stamps mark its
     three passes: the sorts and corrections, the kills and ring writes with
     the fresh re-sort, the first count; in reverse mode ``rev.rowsum`` and
-    ``rev.corrections`` split the first at the row-sum sweep's two ends."""
+    ``rev.corrections`` split the first at the row-sum sweep's two ends. The
+    count of the batch's distinct source rows goes to the recorder's
+    ``corr.rows`` (``RoundGraphs.count_``)."""
     n = kg.n
     dev = pack.device
     trace.stamp("prologue.sort_corrections", dev)
@@ -154,8 +159,12 @@ def _slide_prologue(state: PprState, kg: KillGraph, pack: torch.Tensor, cfg: Ppr
         trace.stamp("rev.rowsum", dev)
         rowsum = window_row_sums(state.p, kg)
         trace.stamp("rev.corrections", dev)
+    # the rows the corrections' row work runs on: the batch's sources, and
+    # how many (the recorder's ``corr.rows``, read with the loop's carry)
+    rows, n_rows = source_rows(old_src0, new_src0, n + 1)
+    g.count_(CORR_ROWS, n_rows)
     apply_edge_batch_(state, kg.window, new_src, new_dst, old_src, old_dst, cfg, rowsum=rowsum,
-                      keys_sorted=True)
+                      keys_sorted=True, rows=rows)
     del rowsum
     trace.stamp("prologue.kill_ring", dev)
     # kill the expiring edges in both snapshot views (their slots are

@@ -37,7 +37,10 @@ a reader takes ``RECORDER.snapshot()`` when it wants the record.
   (``k1``; ``k1.window``, ``k1.fresh``) and ``k1.end``; the top-k's
   ``topk`` and ``topk.end``.
 - **Loops**: each loop's host launch and read-return times, its stamps,
-  and the executions of each branch, read from the carry (counters).
+  and the executions of each branch, read from the carry (counters), with
+  the counters its prologue wrote (``RoundGraphs.count_``, read by the same
+  copy): the wl2 slide's ``corr.rows``, the distinct source rows its
+  corrections work on.
 - **One clock**: a loop's stamps lie between its launch and its read's
   return, which brackets the offset from the card's clock to the host's
   (``brackets``). The two clocks drift apart by some microseconds a second,
@@ -139,7 +142,7 @@ class Recorder:
              clock (``HOST`` or ``DEVICE``)
     loops    launch, read's return (host ns), first stamp, end of its
              stamps (sequence numbers), the clock
-    counts   loop, branch tag, executions
+    counts   loop, branch tag, executions (or a counter's tag and value)
     """
 
     def __init__(self, span_cap: int = SPAN_CAP, stamp_cap: int = STAMP_CAP,

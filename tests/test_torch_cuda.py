@@ -515,6 +515,51 @@ def test_two_fast_driver_runs_give_the_same_bits(mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, REVERSE])
+def test_source_row_corrections_in_a_captured_slide_equal_the_full_pass(monkeypatch, mode):
+    """Two drivers from one stream on the card, one whose captured prologue
+    runs the corrections' row work on the batch's source rows, the other
+    the same corrections as a pass over every row (``tests/_corrections.py``),
+    slid 3 times in turns: the same rounds, and ``p`` and ``r`` bit for bit
+    after each slide; the recorder's ``corr.rows`` of each slide's loop,
+    read with its carry, is the number of the batch's distinct source rows."""
+    import _corrections  # tests/ is on the path
+
+    import pprx_torch.graph.fast_stream as tfast
+    from pprx_torch import trace
+
+    dev = _cuda()
+    n, w, b = 20_000, 200_000, 20_000
+    src, dst, n = synthetic_powerlaw_stream(n, w + 4 * b, seed=5)
+
+    def driver():
+        drv = FastStreamDriver(src, dst, n, list(range(16)), PprConfig(alpha=0.15, eps=1e-6),
+                               StreamConfig(window=w, slide=b), mode=mode, rebuild_every=4,
+                               device=dev)
+        drv.seed()
+        return drv
+
+    def full_pass(*args, rows=None, **kw):
+        return _corrections.full_pass_(*args, **kw)
+
+    new, full = driver(), driver()
+    for _ in range(3):
+        at = np.arange(new.head, new.head + b)
+        sources = np.unique(np.concatenate([src[at], new.hsrc[at % w]]))
+        mark = trace.RECORDER.mark()
+        got = next(new.run(1))
+        snap = trace.RECORDER.snapshot(since=mark)
+        counted = {snap["names"][t]: c for t, c in zip(snap["counts"]["tag"],
+                                                       snap["counts"]["execs"])}
+        assert counted["corr.rows"] == sources.size
+        with monkeypatch.context() as m:
+            m.setattr(tfast, "apply_edge_batch_", full_pass)
+            want = next(full.run(1))
+        assert got.rounds == want.rounds
+        assert torch.equal(new.state.p, full.state.p) and torch.equal(new.state.r, full.state.r)
+
+
+@pytest.mark.cuda
 def test_checkpoint_round_trip_on_card(tmp_path):
     """Save on the card, load on the card and on the CPU, one slide each:
     the same state to 1e-5 (the small scatters use atomics on CUDA)."""
@@ -1642,13 +1687,57 @@ def test_row_passes_replay_as_eager_and_count_each_replay(forward):
     replayed = [t.clone() for t in (p, r, moving, counts, *out["rows"])]
     assert g.replays == 1
     assert {k: rowpass.LAUNCHES[k] - before[k] for k in before} == {
-        "scan_pass": 1, "frontier_rows": 1}
+        "scan_pass": 1, "frontier_rows": 1, "corr_forward": 0, "corr_reverse": 0}
     p.copy_(p0), r.copy_(r0)
     step()
     torch.cuda.synchronize()
     eager = [p, r, moving, counts, *out["rows"]]
     for a, b in zip(replayed, eager):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 3, 8, 16, 128])
+def test_corrections_row_passes_equal_their_plain_versions_on_card(s):
+    """``corr_forward_`` and ``corr_reverse_`` on the card give the bits of
+    their plain versions run on the card (torch's gathers, ``addcmul``,
+    ``addcdiv``, ``where`` and ``index_copy_``) on a list whose real rows
+    ascend, then pad with the phantom row: rows dangling before, after or
+    both; every state width layout (one column a lane, 16-byte loads, a
+    warp a row). The phantom row, which the kernels skip and the plain
+    versions write, is left aside. One launch each."""
+    from pprx_torch.engine import rowpass
+
+    dev = _cuda()
+    rng = np.random.default_rng(s)
+    n, t, real = 5000, 3000, 2000
+    rows = np.concatenate([np.sort(rng.choice(n, size=real, replace=False)), np.full(t - real, n)])
+    rows = torch.from_numpy(rows).to(dev)
+
+    def f32(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+
+    p = f32(rng.random((n + 1, s)) * 1e-2)
+    r = f32(rng.normal(size=(n + 1, s)) * 1e-3)
+    d0 = torch.from_numpy(rng.integers(0, 4, n + 1).astype(np.int32)).to(dev)
+    deg_new = torch.from_numpy(rng.integers(0, 4, n + 1).astype(np.int32)).to(dev)
+    rowsum = f32(rng.random((n + 1, s)))
+    rowsum[d0 == 0] = 0.0
+    diff = f32(rng.random((t, s)))
+    c_r, c_p = f32(rng.normal(size=n + 1)), f32(rng.random(n + 1) * 2)
+    before = dict(rowpass.LAUNCHES)
+    got, want = [r.clone(), p.clone()], [r.clone(), p.clone()]
+    rowpass.corr_forward_(*got, rows, c_r, c_p)
+    rowpass.corr_forward_plain(*want, rows, c_r, c_p)
+    got_r, want_r = r.clone(), r.clone()
+    rowpass.corr_reverse_(got_r, p, rowsum, diff.clone(), rows, deg_new, d0, 17 / 3)
+    rowpass.corr_reverse_plain(want_r, p, rowsum, diff.clone(), rows, deg_new, d0, 17 / 3)
+    torch.cuda.synchronize()
+    for a, b in zip([*got, got_r], [*want, want_r]):
+        assert torch.equal(a[:-1].view(torch.int32), b[:-1].view(torch.int32))
+    assert not torch.equal(got_r, r) and not torch.equal(got[1], p)
+    assert {k: rowpass.LAUNCHES[k] - before[k] for k in before} == {
+        "scan_pass": 0, "frontier_rows": 0, "corr_forward": 1, "corr_reverse": 1}
 
 
 @pytest.mark.cuda
@@ -1733,7 +1822,7 @@ def test_dense_loop_graph_leaves_the_host_loops_state(monkeypatch, mode):
     assert rounds > 1 and stats.syncs == 1 and g.summary()["loop_launches"] == 1
     assert segsum.launches("segsum_gather_add", since=before[0]) == rounds
     assert {k: rowpass.LAUNCHES[k] - before[1][k] for k in before[1]} == {
-        "scan_pass": rounds, "frontier_rows": 1}
+        "scan_pass": rounds, "frontier_rows": 1, "corr_forward": 0, "corr_reverse": 0}
     assert {k: loop.LAUNCHES[k] - before[2][k] for k in before[2]} == {
         "prime": 1, "turn": rounds + 1, "after_scan": 0}
     again = push_to_convergence(st, w, cfg, g)[1]
@@ -2000,7 +2089,7 @@ def test_hybrid_loop_graph_leaves_the_host_loops_state(monkeypatch, mode):
     assert rounds > 1 and stats.syncs == 1 and stats.arms["dense"] == rounds
     assert segsum.launches("segsum_gather_add", since=before[0]) == rounds
     assert {k: rowpass.LAUNCHES[k] - before[1][k] for k in before[1]} == {
-        "scan_pass": rounds, "frontier_rows": rounds + 1}
+        "scan_pass": rounds, "frontier_rows": rounds + 1, "corr_forward": 0, "corr_reverse": 0}
     assert {k: loop.LAUNCHES[k] - before[2][k] for k in before[2]} == {
         "prime": 1, "turn": rounds + 1, "after_scan": 0}
     graph2, st2 = inputs()

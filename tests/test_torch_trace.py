@@ -65,9 +65,13 @@ def test_wl2_slide_stamps_follow_the_loop_log(monkeypatch, mode):
     stamp a round in the order of ``LOG_SINK``'s branches (compact tiers
     and scans both; a scan's stats after it), each scan with its K2 and K1
     stamps inside, then the end and the read; the counts the recorder took from the
-    carry equal the stamps."""
+    carry equal the stamps, and its ``corr.rows`` is the slide's distinct source rows."""
     drv = _driver(mode)
     monkeypatch.setattr(graphs, "LOG_SINK", [])
+    b, w, head = drv.scfg.slide, drv.scfg.window, drv.head
+    sources = [np.unique(np.concatenate([drv.stream_src[head + i * b:head + (i + 1) * b],
+                                         drv.hsrc[(np.arange(b) + head + i * b) % w]]))
+               for i in range(3)]
     mark = trace.RECORDER.mark()
     list(drv.run(3))
     snap = trace.RECORDER.snapshot(since=mark)
@@ -89,6 +93,7 @@ def test_wl2_slide_stamps_follow_the_loop_log(monkeypatch, mode):
         mine = snap["counts"]["loop"] == seq
         counted = {snap["names"][t]: c for t, c in zip(snap["counts"]["tag"][mine],
                                                        snap["counts"]["execs"][mine])}
+        assert counted.pop("corr.rows") == sources[i].size
         assert counted == {r: rounds.count(r) for r in set(rounds)}
     assert both  # a slide with compact and scan rounds
     # the fifth slide's rebuild (the fresh ring holds four) is a step apart,

@@ -1,6 +1,8 @@
 """Port of the batched corrections (pprx_torch.engine.update), forward and
 reverse, against the JAX apply_edge_batch and the sequential per-edge
-oracle, f64, atol 1e-12 (same arithmetic; the summation order may differ)."""
+oracle, f64, atol 1e-12 (same arithmetic; the summation order may differ),
+and, bit for bit, against the same corrections as a pass over every row
+(``tests/_corrections.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,9 +17,10 @@ from pprx.ref.exact import exact_ppr_matrix
 from pprx.ref.push import (
     OracleGraph, PushState, apply_edge_event, forward_push, reverse_push,
 )
+import _corrections  # tests/ is on the path
 import pprx_torch.engine.update as tupdate
 from pprx_torch.engine.state import FORWARD, REVERSE, PprState
-from pprx_torch.engine.update import apply_edge_batch, out_row_sums
+from pprx_torch.engine.update import apply_edge_batch, out_row_sums, source_rows
 from pprx_torch.engine.wl2 import build_kill_graph
 from pprx_torch.graph.dynamic import WindowGraph
 from pprx_torch.graph.fast_stream import window_row_sums
@@ -330,3 +333,110 @@ def test_forward_batches_match_oracle_and_keep_invariant(seed):
             np.testing.assert_allclose(p[:, j], st.p, rtol=0, atol=1e-12)
             np.testing.assert_allclose(r[:, j], st.r, rtol=0, atol=1e-12)
             np.testing.assert_allclose(p[:, j] + r[:, j] @ M, M[q], rtol=0, atol=1e-10)
+
+
+# ---- the row work on the batch's source rows alone, against the pass over
+# every row
+
+ROW_CASES = ["deleted_to_dangling", "insert_from_dangling", "degree_kept", "hub_in_both",
+             "phantom_padded", "rows_cover_the_state"]
+
+
+def _fill(rng, src, dst, n, b, del_idx, ins_from, spare=(), pad=0):
+    """A valid deletion batch (the edges ``del_idx``, then other edges whose
+    source is not in ``spare``) and an insertion batch (from ``ins_from``,
+    then from sources not in ``spare``), each ``b`` lanes, the last ``pad``
+    phantom (u = w = n)."""
+    del_idx = list(del_idx)
+    others = np.flatnonzero(~np.isin(src, list(spare)) & ~np.isin(np.arange(src.size), del_idx))
+    del_idx += rng.choice(others, size=b - pad - len(del_idx), replace=False).tolist()
+    free = np.setdiff1d(np.arange(n), list(spare))
+    ins_src = np.concatenate([ins_from, rng.choice(free, size=b - pad - len(ins_from))])
+    ins_dst = (ins_src + 1 + rng.integers(0, n - 1, size=ins_src.size)) % n
+    phantom = np.full(pad, n)
+    return tuple(np.concatenate([x, phantom]).astype(np.int32) for x in (
+        ins_src, ins_dst, src[del_idx], dst[del_idx]))
+
+
+def _row_case(case, rng):
+    """A window and a batch that holds ``case``, and the case's row: its
+    source row, whose degree the batch sets as the case says."""
+    n, m, b = (8, 30, 6) if case == "rows_cover_the_state" else (40, 240, 12)
+    src, dst = random_multigraph(rng, n, m)
+    src[src == 3] = 4  # vertex 3 starts with no out-edges
+    dst[src == dst] = (dst[src == dst] + 1) % n
+    deg = np.bincount(src, minlength=n)
+    hub = int(deg.argmax())
+    few = int(np.flatnonzero((deg >= 1) & (deg <= 3))[0]) if case != "rows_cover_the_state" else 0
+    if case == "deleted_to_dangling":  # loses every out-edge, gets none
+        v, batch = few, _fill(rng, src, dst, n, b, np.flatnonzero(src == few), [], spare=[few])
+    elif case == "insert_from_dangling":
+        v, batch = 3, _fill(rng, src, dst, n, b, [], [3, 3], spare=[3])
+    elif case == "degree_kept":  # two out-edges go, two come
+        v = hub
+        batch = _fill(rng, src, dst, n, b, np.flatnonzero(src == hub)[:2], [hub, hub], spare=[hub])
+    elif case == "hub_in_both":
+        v = hub
+        batch = _fill(rng, src, dst, n, b, np.flatnonzero(src == hub)[:4], [hub] * 5)
+    else:  # phantom lanes in both batches; the list covers every row or not
+        v, batch = None, _fill(rng, src, dst, n, b, [], [], pad=b // 3)
+    return src, dst, n, v, batch
+
+
+@pytest.mark.parametrize("case", ROW_CASES)
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+def test_source_row_corrections_equal_the_full_pass(mode, case):
+    """The corrections with their row work on the batch's source rows alone
+    give the bits of the same corrections over every row (the lanes as they
+    come, and sorted by their row as the fast driver hands them over; f32
+    and f64), and leave every other row (forward: every row neither a
+    source nor a destination) bit for bit as it was. The list holds the
+    distinct source rows, ascending, then the phantom row, and counts them."""
+    rng = np.random.default_rng(ROW_CASES.index(case))
+    src, dst, n, v, batch = _row_case(case, rng)
+    ins_src, ins_dst, del_src, del_dst = batch
+    d0 = np.bincount(src, minlength=n + 1)
+    d_new = d0 - np.bincount(del_src, minlength=n + 1) + np.bincount(ins_src, minlength=n + 1)
+    want_case = {"deleted_to_dangling": lambda: d0[v] > 0 and d_new[v] == 0,
+                 "insert_from_dangling": lambda: d0[v] == 0 and d_new[v] == 2,
+                 "degree_kept": lambda: d_new[v] == d0[v] and v in del_src and v in ins_src,
+                 "hub_in_both": lambda: (del_src == v).sum() == 4 and (ins_src == v).sum() == 5,
+                 "phantom_padded": lambda: (del_src == n).sum() == (ins_src == n).sum() == 4,
+                 "rows_cover_the_state": lambda: del_src.size + ins_src.size >= n + 1}
+    assert want_case[case]()
+    sources = np.setdiff1d(np.concatenate([del_src, ins_src]), [n])
+    rows, count = source_rows(torch.from_numpy(del_src), torch.from_numpy(ins_src), n + 1)
+    size = min(del_src.size + ins_src.size, n + 1)
+    assert int(count) == sources.size
+    assert rows.tolist() == sources.tolist() + [n] * (size - sources.size)
+    kept = np.setdiff1d(np.arange(n), np.concatenate(
+        [sources, np.concatenate([del_dst, ins_dst]) if mode == FORWARD else []]))
+    assert kept.size  # rows the corrections leave alone
+
+    key = 1 if mode == FORWARD else 0
+    pn = np.argsort(batch[key], kind="stable")
+    po = np.argsort(batch[2 + key], kind="stable")
+    ordered = (ins_src[pn], ins_dst[pn], del_src[po], del_dst[po])
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+    for dtype, int_type in bits.items():
+        p = torch.from_numpy(np.abs(rng.normal(size=(n + 1, 4))) * 1e-2).to(dtype)
+        r = torch.from_numpy(rng.normal(size=(n + 1, 4)) * 1e-3).to(dtype)
+        p[-1] = r[-1] = 0.0
+        for arrays, keys_sorted in ((batch, False), (ordered, True)):
+            tensors = [torch.from_numpy(x) for x in arrays]
+            out = []
+            for apply in (tupdate.apply_edge_batch_, _corrections.full_pass_):
+                window = WindowGraph.from_coo(src, dst, n, capacity=src.size + 3, device="cpu")
+                state = PprState(p=p.clone(), r=r.clone(), mode=mode)
+                rowsum = None if mode == FORWARD else out_row_sums(state.p, window)
+                out.append(apply(state, window, *tensors, CFG, rowsum=rowsum,
+                                 keys_sorted=keys_sorted))
+            (got, got_w), (want, want_w) = out
+            assert torch.equal(got_w.deg, want_w.deg)
+            assert torch.equal(got.p.view(int_type), want.p.view(int_type))
+            assert torch.equal(got.r.view(int_type), want.r.view(int_type))
+            at = torch.from_numpy(kept)
+            assert torch.equal(got.p[at].view(int_type), p[at].view(int_type))
+            assert torch.equal(got.r[at].view(int_type), r[at].view(int_type))
+            if mode != FORWARD:
+                assert torch.equal(got.p.view(int_type), p.view(int_type))

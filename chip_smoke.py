@@ -342,12 +342,18 @@ from pprx_torch.engine.rowpass import (
 )
 from pprx_torch.engine.sparse import arm_kinds
 from pprx_torch.engine.state import FORWARD, REVERSE, PprState, settled_distance
-from pprx_torch.engine.update import apply_edge_batch, apply_edge_batch_, edge_blocks, source_rows
+from pprx_torch.engine.update import (
+    apply_edge_batch,
+    apply_edge_batch_,
+    edge_blocks,
+    source_rows,
+    window_row_sums,
+)
 from pprx_torch.engine.wl2 import loop_table
 from pprx_torch.eval.metrics import l1_error, precision_at_k
 from pprx_torch.graph import fast_stream
 from pprx_torch.graph.dynamic import WindowGraph, delivery_view
-from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
+from pprx_torch.graph.fast_stream import FastStreamDriver
 from pprx_torch.graph import native_io
 from pprx_torch.graph.hybrid_stream import TUNING as HYBRID_TUNING
 from pprx_torch.graph.hybrid_stream import HybridStreamDriver
@@ -2024,9 +2030,10 @@ def correction_rounding(drv: FastStreamDriver, n_check: int = 16) -> dict:
     win = drv.graph.window
     at = torch.from_numpy(slots).to(dev)
     dels = [win.src[at], win.dst[at]]
-    st = drv.state
-    got, _ = apply_edge_batch(st, win, *ins, *dels, drv.cfg,
-                              rowsum=window_row_sums(st.p, drv.graph))
+    st, kg = drv.state, drv.graph
+    rowsum = window_row_sums(st.p, [(kg.d_gat, kg.d_off[:kg.n + 1]),
+                                    (kg.fd_gat, kg.fd_off[:kg.n + 1])])
+    got, _ = apply_edge_batch(st, win, *ins, *dels, drv.cfg, rowsum=rowsum)
     # the f64 witness on the CPU, where K1's plain version sums (K1 on the
     # card takes f32)
     cpu = torch.device("cpu")
@@ -3310,7 +3317,9 @@ def hybrid_cli(dev, tmp: str, graph: str, w: int, b: int, s: int, k: int = 100) 
     with loop_tally() as tally:
         out = run_cli(["retrieve", graph, "--from-checkpoint", ck, "--k", str(k), "--device",
                        str(dev)])
-    if tally["loops"] or any(out["launches_by_entry"].values()):
+    # the top-k's own launches (K5 on a card) are the read, not a push
+    pushed = {e: v for e, v in out["launches_by_entry"].items() if v and e != "topk"}
+    if tally["loops"] or pushed:
         raise AssertionError(f"retrieve --from-checkpoint pushed: {tally}, {out}")
     if out["batch"] != min(s, n_graph) or out["k"] != k or out["queries_known"]:
         raise AssertionError(f"retrieve --from-checkpoint on a hybrid file: {out}")
@@ -4355,7 +4364,8 @@ def turn_record(cs, sh: dict, dev) -> dict:
             # (else inside the corrections), the view's sort and its copy
             # into the held view, the push (a capture, the loop)
             part_of = {"apply_edge_batch_": "corrections", "apply_edge_batch": "corrections",
-                       "segsum_gather_add_": "row_sums", "delivery_view": "view_sort",
+                       "segsum_gather_add_": "row_sums", "window_row_sums": "row_sums",
+                       "delivery_view": "view_sort",
                        "copy_into_": "view_copy", "push_to_convergence": "push"}
             spans, walls, split = {}, {}, [False]
 

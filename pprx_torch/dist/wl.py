@@ -96,13 +96,12 @@ from pprx_torch.dist.sharded import (
     write_window_,
 )
 from pprx_torch.engine.rowpass import frontier_rows, scan_pass_
-from pprx_torch.engine.segsum import row_offsets, segsum_gather_add_, sorted_deliver_
+from pprx_torch.engine.segsum import compact, row_offsets, segsum_gather_add_, sorted_deliver_
 from pprx_torch.engine.state import FORWARD
 from pprx_torch.engine.wl2 import (
     _BIG,
     STATS_GUARD,
     _inverse_perm,
-    compact,
     rld_expand,
 )
 

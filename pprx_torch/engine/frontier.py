@@ -16,7 +16,7 @@ What the module does is the reference's:
   light one.
 
 How the port differs: ``jnp.nonzero(size=, fill_value=)`` is
-``pprx_torch.engine.wl2.compact`` (no host sync), and the row offsets of a
+``pprx_torch.engine.segsum.compact`` (no host sync), and the row offsets of a
 sorted key come from a histogram and a cumsum, as in the reference.
 """
 
@@ -26,8 +26,8 @@ import dataclasses
 
 import torch
 
+from pprx_torch.engine.segsum import compact
 from pprx_torch.engine.update import _counts
-from pprx_torch.engine.wl2 import compact
 
 
 @dataclasses.dataclass

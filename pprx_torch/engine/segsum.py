@@ -31,6 +31,9 @@ The TPU kernel's tile offsets, EC padding, lane padding of narrow states
 to 128, ``[W_pad/128, 128]`` seg-id reshape and limb-split precision modes
 existed for Mosaic and are not ported: the port keeps per-row offsets
 (``row_offsets``) and accumulates in f32.
+
+The module also holds ``compact``, the engines' fixed-size
+``jnp.nonzero``, so that no engine imports another for a list primitive.
 """
 
 from __future__ import annotations
@@ -81,6 +84,20 @@ def row_offsets(sorted_ids: torch.Tensor, n_rows: int) -> torch.Tensor:
     off[n_rows]."""
     bounds = torch.arange(n_rows + 1, dtype=sorted_ids.dtype, device=sorted_ids.device)
     return torch.searchsorted(sorted_ids, bounds, out_int32=True)
+
+
+def compact(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """int32 [size]: positions of the True entries of a 1-D ``mask`` in
+    order, cut to ``size`` and padded with ``fill``. The counterpart of
+    ``jnp.nonzero(mask, size=size, fill_value=fill)`` with no host sync:
+    a cumsum gives each kept entry its slot, and entries past ``size`` go
+    to a dump slot that is dropped."""
+    m = mask.shape[0]
+    slot = torch.cumsum(mask, 0) - 1
+    slot = torch.where(mask & (slot < size), slot, size)
+    out = torch.full((size + 1,), fill, dtype=torch.int32, device=mask.device)
+    out.scatter_(0, slot, torch.arange(m, dtype=torch.int32, device=mask.device))
+    return out[:size]
 
 
 def segment_ids(row_off: torch.Tensor) -> torch.Tensor:

@@ -80,9 +80,8 @@ from pprx_torch.engine.frontier import (
 from pprx_torch.engine.graphs import RoundGraphs, Step, copy_into_
 from pprx_torch.engine.push import dense_round_
 from pprx_torch.engine.rowpass import active_mask, frontier_rows
-from pprx_torch.engine.segsum import sorted_deliver_
+from pprx_torch.engine.segsum import compact, sorted_deliver_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats
-from pprx_torch.engine.wl2 import compact
 from pprx_torch.graph.dynamic import DeliveryView, WindowGraph, delivery_view
 
 

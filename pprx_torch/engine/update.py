@@ -18,9 +18,10 @@ Reverse mode (p unchanged; needs the row means of p over each out-row):
 ``(P'p) - (Pp)`` is non-zero only at rows whose out-edges changed, so the
 new row sums are the old ones plus two batch-sized sums. The old row sums
 are one sweep of the whole window: the caller passes them in (``rowsum``;
-every driver gets them from the segment-sum kernel over its delivery-sorted
-views), or they are summed here from the COO ring in edge blocks, so that
-no ``[W, S]`` array is built.
+every driver gets them from ``window_row_sums``, the segment-sum kernel
+over its delivery-sorted views), or they are summed here from the COO ring
+in edge blocks (``out_row_sums``, the tests' witness), so that no
+``[W, S]`` array is built.
 
 Every per-edge sum (forward into ``r``, reverse into the new row sums) is
 the segment sum K1 over the batch's lanes sorted by the row they add to:
@@ -54,7 +55,8 @@ import torch
 
 from pprx_torch.config import PprConfig
 from pprx_torch.engine.rowpass import corr_forward_, corr_reverse_
-from pprx_torch.engine.segsum import row_offsets, segsum_add_, segsum_gather_add_, sorted_deliver_
+from pprx_torch.engine.segsum import (compact, row_offsets, segsum_add_, segsum_gather_add_,
+                                      sorted_deliver_)
 from pprx_torch.engine.state import FORWARD, PprState
 from pprx_torch.graph.dynamic import WindowGraph
 
@@ -77,6 +79,21 @@ def edge_blocks(n_edges: int, row_bytes: int):
         yield lo, min(lo + block, n_edges)
 
 
+def window_row_sums(p: torch.Tensor,
+                    views: list[tuple[torch.Tensor, torch.Tensor]]) -> torch.Tensor:
+    """Reverse mode's ``rowsum[u] = sum of p[w] over the window's edges
+    (u, w)`` from a driver's delivery views: ``(gat, off)`` pairs sorted by
+    ``src`` and gathering ``dst``, ``off`` over rows ``[0, N]``, which
+    together hold the old window (a slot killed or not yet filled names row
+    N, which is zero in ``p``), as ``push.dense_round_`` takes them. One
+    launch of the segment sum's gather entry into zeros per view, in the
+    order given: no ``[W, S]`` array and no atomics."""
+    rowsum = torch.zeros_like(p)
+    for gat, off in views:
+        segsum_gather_add_(rowsum[:p.shape[0] - 1], p, gat, off)
+    return rowsum
+
+
 def out_row_sums(p: torch.Tensor, graph: WindowGraph) -> torch.Tensor:
     """``rowsum[u] = sum of p[w] over the window's edges (u, w)``, from the
     COO ring in edge blocks (``index_add_`` per block)."""
@@ -93,8 +110,6 @@ def source_rows(del_src: torch.Tensor, ins_src: torch.Tensor,
     the batches' lanes together), padded with the phantom row ``n_rows -
     1``; and how many are real rows, a device scalar (nothing is read back,
     so a capture takes it)."""
-    from pprx_torch.engine.wl2 import compact  # wl2 imports this module (through push)
-
     n = n_rows - 1
     mark = torch.zeros(n_rows, dtype=torch.bool, device=del_src.device)
     for src in (del_src, ins_src):

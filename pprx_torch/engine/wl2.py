@@ -65,7 +65,7 @@ from pprx_torch.engine.graphs import RoundGraphs, copy_into_
 from pprx_torch.engine.loop import Table
 from pprx_torch.engine.push import dense_round_
 from pprx_torch.engine.rowpass import frontier_rows
-from pprx_torch.engine.segsum import row_offsets, sorted_deliver_
+from pprx_torch.engine.segsum import compact, row_offsets, sorted_deliver_
 from pprx_torch.engine.state import FORWARD, PprState, PushStats
 from pprx_torch.graph.dynamic import WindowGraph
 
@@ -120,20 +120,6 @@ def _inverse_perm(order: torch.Tensor) -> torch.Tensor:
     inv = torch.empty_like(order, dtype=torch.int32)
     inv[order] = torch.arange(order.shape[0], dtype=torch.int32, device=order.device)
     return inv
-
-
-def compact(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
-    """int32 [size]: positions of the True entries of a 1-D ``mask`` in
-    order, cut to ``size`` and padded with ``fill``. The counterpart of
-    ``jnp.nonzero(mask, size=size, fill_value=fill)`` with no host sync:
-    a cumsum gives each kept entry its slot, and entries past ``size`` go
-    to a dump slot that is dropped."""
-    m = mask.shape[0]
-    slot = torch.cumsum(mask, 0) - 1
-    slot = torch.where(mask & (slot < size), slot, size)
-    out = torch.full((size + 1,), fill, dtype=torch.int32, device=mask.device)
-    out.scatter_(0, slot, torch.arange(m, dtype=torch.int32, device=mask.device))
-    return out[:size]
 
 
 def build_kill_graph(window: WindowGraph, mode: int, fring: int) -> KillGraph:

@@ -9,12 +9,10 @@ one launch of its loop's graph, the prologue inside, and one read of the
 loop's statistics; a slide that rebuilds the kill graph first replays the
 rebuild's graph, a second launch.
 
-Each slide is a span of the flight recorder (``pprx_torch.trace``), its id
-the slide's ``step_idx``, with the host's steps as its children:
-``slide.rebuild``, ``slide.pack``, ``slide.upload``, ``slide.issue`` (up to
-the loop's launch), ``loop.wait`` (``RoundGraphs``) and ``slide.mirror``;
-the prologue stamps the card's clock at its passes and counts the rows its
-corrections work on (``corr.rows``, one count a slide's loop).
+The slide loop and its spans are the shell's (``pprx_torch.graph.driver``);
+this driver's slide has all of them, ``slide.mirror`` its host copy of the
+ring. The prologue stamps the card's clock at its passes and counts the
+rows its corrections work on (``corr.rows``, one count a slide's loop).
 
 The driver's state and kill graph are its buffers for its whole life: the
 slide step, the rebuild and ``from_arrays`` write into their tensors, never
@@ -26,24 +24,22 @@ puts a saved state back copies into them (``copy_into_``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Mapping
+from typing import Mapping
 
 import numpy as np
 import torch
 
 from pprx_torch import trace
 from pprx_torch.config import PprConfig, StreamConfig
-from pprx_torch.device import resolve_device
-from pprx_torch.convert import kill_graph_from_arrays, state_from_arrays
+from pprx_torch.convert import kill_graph_from_arrays, kill_graph_to_arrays
 from pprx_torch.engine.graphs import RoundGraphs
-from pprx_torch.engine.segsum import segsum_gather_add_
-from pprx_torch.engine.state import FORWARD, PprState, PushStats, init_state
-from pprx_torch.engine.update import apply_edge_batch_, source_rows
+from pprx_torch.engine.segsum import compact
+from pprx_torch.engine.state import FORWARD, PprState, PushStats
+from pprx_torch.engine.update import apply_edge_batch_, source_rows, window_row_sums
 from pprx_torch.engine.wl2 import (
     KillGraph,
     first_count,
     build_kill_graph,
-    compact,
     converge_wl2,
     graph_key,
     make_tiers2,
@@ -52,30 +48,11 @@ from pprx_torch.engine.wl2 import (
     refresh_fresh_csr,
     round_graphs_for,
 )
-from pprx_torch.graph.dynamic import WindowGraph
+from pprx_torch.graph.driver import WindowDriver
 
-
-# the flight recorder's spans of a slide
-SLIDE, REBUILD, PACK, UPLOAD, ISSUE, MIRROR = (trace.tag(f"slide{x}") for x in (
-    "", ".rebuild", ".pack", ".upload", ".issue", ".mirror"))
-# its counter: the distinct source rows a slide's corrections work on
+# the recorder's counter of a slide: the distinct source rows its
+# corrections work on
 CORR_ROWS = "corr.rows"
-
-
-def window_row_sums(p: torch.Tensor, kg: KillGraph) -> torch.Tensor:
-    """Reverse mode's ``rowsum[u] = sum of p[w] over the window's edges
-    (u, w)`` from the kill graph's delivery views, through the segment sum.
-
-    In reverse mode both views are sorted by ``src`` with ``d_gat = dst``,
-    and before a slide's kills and ring writes the live snapshot slots and
-    the fresh ring together are the old window (killed and unfilled slots
-    name row N, which is zero in ``p``). So the sweep is two launches of the
-    gather entry into zeros, with no ``[W, S]`` array and no atomics."""
-    n = kg.n
-    rowsum = torch.zeros_like(p)
-    segsum_gather_add_(rowsum[:n], p, kg.d_gat, kg.d_off[: n + 1])
-    segsum_gather_add_(rowsum[:n], p, kg.fd_gat, kg.fd_off[: n + 1])
-    return rowsum
 
 
 def wl2_slide_step(
@@ -153,11 +130,14 @@ def _slide_prologue(state: PprState, kg: KillGraph, pack: torch.Tensor, cfg: Ppr
     c0n = mark[:n].sum()
     cand0 = compact(mark[:n], min(4 * b, n + 1), n)
     # corrections read the old degrees (and in reverse mode the old window's
-    # row sums), so they run before any mutation
+    # row sums), so they run before any mutation. In reverse mode both views
+    # are sorted by src, gathering dst, and before the kills and ring writes
+    # the live snapshot slots and the fresh ring together are the old window
     rowsum = None
     if not forward:
         trace.stamp("rev.rowsum", dev)
-        rowsum = window_row_sums(state.p, kg)
+        rowsum = window_row_sums(state.p, [(kg.d_gat, kg.d_off[:n + 1]),
+                                           (kg.fd_gat, kg.fd_off[:n + 1])])
         trace.stamp("rev.corrections", dev)
     # the rows the corrections' row work runs on: the batch's sources, and
     # how many (the recorder's ``corr.rows``, read with the loop's carry)
@@ -187,8 +167,10 @@ def _slide_prologue(state: PprState, kg: KillGraph, pack: torch.Tensor, cfg: Ppr
     first_count(kg, g)
 
 
-class FastStreamDriver:
+class FastStreamDriver(WindowDriver):
     """Sliding-window stream driver on the wl2 compact-frontier engine."""
+
+    engine = "fast"
 
     def __init__(
         self,
@@ -206,28 +188,16 @@ class FastStreamDriver:
         bf16d: bool = False,
         device: torch.device | str | None = None,
     ):
-        if stream_src.shape[0] < scfg.window:
-            raise ValueError("stream shorter than one window")
+        super().__init__(stream_src, stream_dst, n, queries, cfg, scfg, mode, dtype, device)
         if rebuild_every * scfg.slide > scfg.window:
             raise ValueError(
                 "rebuild_every * slide must be <= window (fresh edges must "
                 f"not expire between rebuilds): {rebuild_every} * {scfg.slide}"
                 f" > {scfg.window}"
             )
-        self.device = resolve_device(device)
-        self.stream_src = np.asarray(stream_src, dtype=np.int32)
-        self.stream_dst = np.asarray(stream_dst, dtype=np.int32)
-        self.n = n
-        self.cfg = cfg
-        self.scfg = scfg
-        self.mode = mode
         w, b = scfg.window, scfg.slide
-        window = WindowGraph.from_coo(
-            self.stream_src[:w], self.stream_dst[:w], n, capacity=w, device=self.device
-        )
         self.fring = b * rebuild_every
-        self.graph = build_kill_graph(window, mode, self.fring)
-        self.state = init_state(n, queries, mode=mode, dtype=dtype, device=self.device)
+        self.graph = build_kill_graph(self.first_window(), mode, self.fring)
         # edge-lane tier top: the reference's TPU-tuned rule, kept for parity
         # (big post-slide frontiers fall to the delivery-sorted scan)
         if e_top is not None:
@@ -239,8 +209,6 @@ class FastStreamDriver:
         self.tiers = make_tiers2(n, w, self.fring, self.e_top, n_tiers=n_tiers)
         self.rebuild_every = rebuild_every
         self.fcnt = 0
-        self.head = w
-        self.step_idx = 0
         # host mirror of the ring (the window's edges, for exact-PPR checks)
         self.hsrc = self.stream_src[:w].copy()
         self.hdst = self.stream_dst[:w].copy()
@@ -248,50 +216,49 @@ class FastStreamDriver:
         self._queries = list(queries)
         # bf16 scan-round delivery; residual removal stays exact
         self.bf16d = bool(bf16d)
-        self.round_graphs = RoundGraphs(n, self.tiers[-1][0], self.device)
-        self._pack = torch.zeros(2 * b + 2, dtype=torch.int32, device=self.device)
+        self._hold()
 
-    @classmethod
-    def from_arrays(
-        cls,
-        stream_src: np.ndarray,
-        stream_dst: np.ndarray,
-        arrays: Mapping[str, np.ndarray],
-        meta: Mapping,
-        device: torch.device | str | None = None,
-    ) -> "FastStreamDriver":
-        """A driver mid-stream from the JAX package's fast-driver arrays and
-        metadata, in the layout ``pprx.io.checkpoint.save_checkpoint``
-        writes (``p, r, src, dst, deg`` and the ``kg_*`` arrays; ``meta``
-        with ``n, head, step_idx, mode, cfg, scfg, tuning``)."""
-        if meta.get("engine") != "fast":
-            raise ValueError(f"not a fast-driver state: engine={meta.get('engine')!r}")
-        tune = meta["tuning"]
-        drv = cls.__new__(cls)
-        drv.device = resolve_device(device)
-        drv.stream_src = np.asarray(stream_src, dtype=np.int32)
-        drv.stream_dst = np.asarray(stream_dst, dtype=np.int32)
-        drv.n = int(meta["n"])
-        drv.cfg = PprConfig(**meta["cfg"])
-        drv.scfg = StreamConfig(**meta["scfg"])
-        drv.mode = int(meta["mode"])
-        drv.state = state_from_arrays(arrays["p"], arrays["r"], drv.mode, drv.device)
-        drv.graph = kill_graph_from_arrays(arrays, drv.device)
-        drv.rebuild_every = int(tune["rebuild_every"])
-        drv.e_top = int(tune["e_top"])
-        drv.fring = int(tune["fring"])
-        drv.cap0 = int(tune["cap0"])
-        drv.fcnt = int(tune["fcnt"])
-        drv.tiers = tuple(tuple(int(x) for x in t) for t in tune["tiers"])
-        drv._queries = [int(q) for q in tune["queries"]]
-        drv.bf16d = bool(tune.get("bf16d", False))
-        drv.head = int(meta["head"])
-        drv.step_idx = int(meta["step_idx"])
-        drv.hsrc = np.asarray(arrays["src"], dtype=np.int32).copy()
-        drv.hdst = np.asarray(arrays["dst"], dtype=np.int32).copy()
-        drv.round_graphs = RoundGraphs(drv.n, drv.tiers[-1][0], drv.device)
-        drv._pack = torch.zeros(2 * drv.scfg.slide + 2, dtype=torch.int32, device=drv.device)
-        return drv
+    def _hold(self) -> None:
+        """The round buffers and the slide's pack, for the driver's life."""
+        self.round_graphs = RoundGraphs(self.n, self.tiers[-1][0], self.device)
+        self._hold_pack(2 * self.scfg.slide + 2)
+
+    def _resume(self, arrays: Mapping[str, np.ndarray], tune: Mapping) -> None:
+        """The kill graph from the ``kg_*`` arrays and the writer's tuning
+        (the JAX package's fast-driver layout too)."""
+        self.graph = kill_graph_from_arrays(arrays, self.device)
+        self.rebuild_every = int(tune["rebuild_every"])
+        self.e_top = int(tune["e_top"])
+        self.fring = int(tune["fring"])
+        self.cap0 = int(tune["cap0"])
+        self.fcnt = int(tune["fcnt"])
+        self.tiers = tuple(tuple(int(x) for x in t) for t in tune["tiers"])
+        self._queries = [int(q) for q in tune["queries"]]
+        self.bf16d = bool(tune.get("bf16d", False))
+        self.hsrc = np.asarray(arrays["src"], dtype=np.int32).copy()
+        self.hdst = np.asarray(arrays["dst"], dtype=np.int32).copy()
+        self._hold()
+
+    def tuning(self) -> dict:
+        """The capacities, the fresh ring's fill and the queries; ``segsum``
+        true: the port always delivers through its segment sum, and the
+        reference resumes on its kernel."""
+        return {
+            "tiers": [list(t) for t in self.tiers],
+            "rebuild_every": self.rebuild_every,
+            "e_top": self.e_top,
+            "fring": self.fring,
+            "cap0": self.cap0,
+            "fcnt": self.fcnt,
+            "queries": [int(q) for q in self._queries],
+            "segsum": True,
+            "bf16d": self.bf16d,
+        }
+
+    def extra_arrays(self) -> dict[str, np.ndarray]:
+        """Every ``kg_*`` array of the reference's KillGraph: the kill-in-place
+        snapshot and the fresh ring are part of the exact round schedule."""
+        return kill_graph_to_arrays(self.graph)
 
     @classmethod
     def from_checkpoint(
@@ -336,43 +303,26 @@ class FastStreamDriver:
         )
         return stats
 
-    @property
-    def steps_available(self) -> int:
-        return (self.stream_src.shape[0] - self.head) // self.scfg.slide
+    def _rebuild_due(self) -> bool:
+        return self.fcnt + self.scfg.slide > self.fring
 
-    def run(self, n_steps: int | None = None) -> Iterator[PushStats]:
-        b = self.scfg.slide
-        w = self.scfg.window
-        total = self.steps_available if n_steps is None else n_steps
-        rec = trace.RECORDER
-        for _ in range(total):
-            if self.head + b > self.stream_src.shape[0]:
-                return
-            with rec.span(SLIDE, self.step_idx):
-                if self.fcnt + b > self.fring:
-                    with rec.span(REBUILD):
-                        self.round_graphs.run(
-                            ("rebuild", self.mode, self.fring),
-                            lambda: rebuild_kill_graph_(self.graph, self.mode, self.fring))
-                    self.fcnt = 0
-                with rec.span(PACK):
-                    slots = np.arange(self.head, self.head + b) % w
-                    new_src = self.stream_src[self.head : self.head + b]
-                    new_dst = self.stream_dst[self.head : self.head + b]
-                    pack = np.concatenate([new_src, new_dst, [self.head % w, self.fcnt]]).astype(
-                        np.int32)
-                # the batch's one upload, into the tensor the captured prologue reads
-                with rec.span(UPLOAD):
-                    self._pack.copy_(torch.from_numpy(pack))
-                with rec.span(ISSUE):  # ends at the loop's launch (``loop.wait``)
-                    _, _, stats = wl2_slide_step(
-                        self.state, self.graph, self._pack, self.fcnt,
-                        self.cfg, self.tiers, bf16d=self.bf16d, graphs=self.round_graphs,
-                    )
-                with rec.span(MIRROR):
-                    self.hsrc[slots] = new_src
-                    self.hdst[slots] = new_dst
-            self.fcnt += b
-            self.head += b
-            self.step_idx += 1
-            yield stats
+    def _rebuild(self) -> None:
+        self.round_graphs.run(("rebuild", self.mode, self.fring),
+                              lambda: rebuild_kill_graph_(self.graph, self.mode, self.fring))
+        self.fcnt = 0
+
+    def _pack_batch(self) -> np.ndarray:
+        """``[new_src, new_dst, first ring slot, fresh-ring fill]``."""
+        return np.concatenate([*self._batch(), [self.head % self.scfg.window, self.fcnt]]
+                              ).astype(np.int32)
+
+    def _slide(self) -> PushStats:
+        return wl2_slide_step(self.state, self.graph, self._pack, self.fcnt, self.cfg,
+                              self.tiers, bf16d=self.bf16d, graphs=self.round_graphs)[2]
+
+    def _mirror(self) -> None:
+        slots = self._slots()
+        self.hsrc[slots], self.hdst[slots] = self._batch()
+
+    def _advance(self) -> None:
+        self.fcnt += self.scfg.slide

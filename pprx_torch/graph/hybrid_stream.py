@@ -20,22 +20,21 @@ is the loop's prologue, so that on CUDA a slide is one launch of its loop's
 graph and one read of the loop's statistics, as the reference's slide is
 one jitted program. The rebuild writes into the held snapshot and clears
 the overlay in place (``RoundGraphs.run``: on CUDA a replay of its graph, a
-second launch). The seed and ``from_arrays`` take the same loops.
+second launch). The seed and ``from_arrays`` take the same loops. The slide
+loop is the shell's (``pprx_torch.graph.driver``).
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Mapping
+from typing import Mapping
 
 import numpy as np
 import torch
 
 from pprx_torch.config import PprConfig, StreamConfig
-from pprx_torch.convert import state_from_arrays, window_from_arrays
-from pprx_torch.device import resolve_device
+from pprx_torch.convert import window_from_arrays
 from pprx_torch.engine import loop
 from pprx_torch.engine.graphs import RoundGraphs, copy_into_
-from pprx_torch.engine.segsum import segsum_gather_add_
 from pprx_torch.engine.sparse import (
     HybridGraph,
     _dedup_compact,
@@ -50,9 +49,10 @@ from pprx_torch.engine.sparse import (
     round_graphs_for,
     scan_tiers,
 )
-from pprx_torch.engine.state import FORWARD, PprState, PushStats, init_state
-from pprx_torch.engine.update import apply_edge_batch_
-from pprx_torch.graph.dynamic import DeliveryView, WindowGraph, delivery_view
+from pprx_torch.engine.state import FORWARD, PprState, PushStats
+from pprx_torch.engine.update import apply_edge_batch_, window_row_sums
+from pprx_torch.graph.dynamic import DeliveryView, delivery_view
+from pprx_torch.graph.driver import WindowDriver
 
 # The driver's capacities, which a checkpoint carries: a resumed driver runs
 # the writer's, not ones derived again.
@@ -141,10 +141,7 @@ def _slide_prologue(state: PprState, graph: HybridGraph, view: DeliveryView, pac
     old_src, old_dst = w.src[slots], w.dst[slots]
     # corrections read the old degrees, and in reverse mode the old window's
     # row sums (K1 over the old view: sorted by src, gathering dst)
-    rowsum = None
-    if not forward:
-        rowsum = torch.zeros_like(state.p)
-        segsum_gather_add_(rowsum[:n], state.p, view.gat, view.off)
+    rowsum = None if forward else window_row_sums(state.p, [(view.gat, view.off)])
     apply_edge_batch_(state, w, new_src, new_dst, old_src, old_dst, cfg, rowsum=rowsum)
     del rowsum
     # overlay: expiries (-1) then insertions (+1) at [ov_count, ov_count + 2b)
@@ -169,7 +166,7 @@ def _slide_prologue(state: PprState, graph: HybridGraph, view: DeliveryView, pac
         count_frontier(state, graph, cfg, g, front)
 
 
-class HybridStreamDriver:
+class HybridStreamDriver(WindowDriver):
     """Sliding-window stream driver on the hybrid engine. The capacities
     are the reference's (``pprx.graph.hybrid_stream.HybridStreamDriver``):
     ``fcap`` n+1 rows; ``ecap`` 8 slides' worth of edge lanes, at least
@@ -178,6 +175,8 @@ class HybridStreamDriver:
     entries ``ovacap`` 4 slides' worth (at least 32,768 and 8,192), on a
     ladder of ``n_tiers`` tiers (``make_tiers``); an overlay of
     ``2 * slide * rebuild_every`` entries."""
+
+    engine = "hybrid"
 
     def __init__(
         self,
@@ -196,21 +195,9 @@ class HybridStreamDriver:
         n_tiers: int = 3,
         device: torch.device | str | None = None,
     ):
-        if stream_src.shape[0] < scfg.window:
-            raise ValueError("stream shorter than one window")
-        self.device = resolve_device(device)
-        self.stream_src = np.asarray(stream_src, dtype=np.int32)
-        self.stream_dst = np.asarray(stream_dst, dtype=np.int32)
-        self.n = n
-        self.cfg = cfg
-        self.scfg = scfg
-        self.mode = mode
+        super().__init__(stream_src, stream_dst, n, queries, cfg, scfg, mode, dtype, device)
         w, b = scfg.window, scfg.slide
-        window = WindowGraph.from_coo(
-            self.stream_src[:w], self.stream_dst[:w], n, capacity=w, device=self.device
-        )
-        self.graph = HybridGraph.build(window, mode, 2 * b * rebuild_every)
-        self.state = init_state(n, queries, mode=mode, dtype=dtype, device=self.device)
+        self.graph = HybridGraph.build(self.first_window(), mode, 2 * b * rebuild_every)
         self.fcap = fcap if fcap is not None else n + 1
         self.ecap = ecap if ecap is not None else min(max(8 * b, 65_536), w)
         self.scan_ecap = min(4 * self.ecap, max(w // 2, self.ecap))
@@ -220,8 +207,6 @@ class HybridStreamDriver:
         self.tiers = make_tiers(self.wcap, self.ecap, self.ovacap, n_tiers=n_tiers)
         self.rebuild_every = rebuild_every
         self.ov_count = 0
-        self.head = w
-        self.step_idx = 0
         self._hold()
 
     def _hold(self) -> None:
@@ -230,46 +215,23 @@ class HybridStreamDriver:
         self.view = delivery_view(self.graph.window, self.mode)
         self.round_graphs = RoundGraphs(self.n, self.wcap if self.worklist else 1, self.device,
                                         n_counts=loop.N_COUNTS)
-        self._pack = torch.zeros(3 * self.scfg.slide + 1, dtype=torch.int32, device=self.device)
+        self._hold_pack(3 * self.scfg.slide + 1)
 
-    @classmethod
-    def from_arrays(
-        cls,
-        stream_src: np.ndarray,
-        stream_dst: np.ndarray,
-        arrays: Mapping[str, np.ndarray],
-        meta: Mapping,
-        device: torch.device | str | None = None,
-    ) -> "HybridStreamDriver":
-        """A driver mid-stream from the arrays (``p, r, src, dst, deg``) and
-        metadata (``n, head, step_idx, mode, cfg, scfg, tuning``) that
-        ``pprx.io.checkpoint.save_checkpoint`` writes for the reference's
-        hybrid driver. The tuning is the writer's; the snapshot is rebuilt
-        from the window and the overlay starts empty."""
-        if meta.get("engine") != "hybrid":
-            raise ValueError(f"not a hybrid-driver state: engine={meta.get('engine')!r}")
-        tune = meta["tuning"]
-        drv = cls.__new__(cls)
-        drv.device = resolve_device(device)
-        drv.stream_src = np.asarray(stream_src, dtype=np.int32)
-        drv.stream_dst = np.asarray(stream_dst, dtype=np.int32)
-        drv.n = int(meta["n"])
-        drv.cfg = PprConfig(**meta["cfg"])
-        drv.scfg = StreamConfig(**meta["scfg"])
-        drv.mode = int(meta["mode"])
-        drv.state = state_from_arrays(arrays["p"], arrays["r"], drv.mode, drv.device)
-        drv.rebuild_every = int(tune["rebuild_every"])
-        drv.graph = HybridGraph.build(window_from_arrays(arrays, drv.device), drv.mode,
-                                      2 * drv.scfg.slide * drv.rebuild_every)
-        drv.ov_count = 0
+    def _resume(self, arrays: Mapping[str, np.ndarray], tune: Mapping) -> None:
+        """The writer's tuning (the JAX package's hybrid driver's too); the
+        snapshot is rebuilt from the window and the overlay starts empty."""
+        self.rebuild_every = int(tune["rebuild_every"])
+        self.graph = HybridGraph.build(window_from_arrays(arrays, self.device), self.mode,
+                                       2 * self.scfg.slide * self.rebuild_every)
+        self.ov_count = 0
         for key in ("fcap", "ecap", "scan_ecap", "wcap", "ovacap"):
-            setattr(drv, key, int(tune[key]))
-        drv.tiers = tuple(tuple(int(x) for x in t) for t in tune["tiers"])
-        drv.worklist = bool(tune["worklist"])
-        drv.head = int(meta["head"])
-        drv.step_idx = int(meta["step_idx"])
-        drv._hold()
-        return drv
+            setattr(self, key, int(tune[key]))
+        self.tiers = tuple(tuple(int(x) for x in t) for t in tune["tiers"])
+        self.worklist = bool(tune["worklist"])
+        self._hold()
+
+    def tuning(self) -> dict:
+        return {k: getattr(self, k) for k in TUNING}
 
     def seed(self) -> PushStats:
         """Static push on the initial window (the worklist loop starts with
@@ -283,34 +245,22 @@ class HybridStreamDriver:
         return push_to_convergence_hybrid(self.state, self.graph, self.cfg, self.fcap, self.ecap,
                                           graphs=g, view=view)[1]
 
-    @property
-    def steps_available(self) -> int:
-        return (self.stream_src.shape[0] - self.head) // self.scfg.slide
+    def _rebuild_due(self) -> bool:
+        return self.ov_count + 2 * self.scfg.slide > self.graph.ov.src.shape[0]
 
-    def run(self, n_steps: int | None = None) -> Iterator[PushStats]:
-        """Slide the window ``n_steps`` times (default: until the stream
-        ends)."""
-        b = self.scfg.slide
-        w = self.scfg.window
-        total = self.steps_available if n_steps is None else n_steps
-        for _ in range(total):
-            if self.head + b > self.stream_src.shape[0]:
-                return
-            if self.ov_count + 2 * b > self.graph.ov.src.shape[0]:
-                self.round_graphs.run(("rebuild", self.mode),
-                                      lambda: rebuild_snapshot_(self.graph, self.mode))
-                self.ov_count = 0
-            # the batch's one upload, into the tensor the captured prologue reads
-            self._pack.copy_(torch.from_numpy(np.concatenate([
-                self.stream_src[self.head : self.head + b],
-                self.stream_dst[self.head : self.head + b],
-                np.arange(self.head, self.head + b) % w,
-                [self.ov_count],
-            ]).astype(np.int32)))
-            stats = slide_(self.state, self.graph, self.view, self._pack, self.ov_count,
-                           self.cfg, self.fcap, self.ecap, self.scan_ecap, self.tiers,
-                           self.worklist, self.round_graphs)
-            self.ov_count += 2 * b
-            self.head += b
-            self.step_idx += 1
-            yield stats
+    def _rebuild(self) -> None:
+        self.round_graphs.run(("rebuild", self.mode),
+                              lambda: rebuild_snapshot_(self.graph, self.mode))
+        self.ov_count = 0
+
+    def _pack_batch(self) -> np.ndarray:
+        """``[new_src, new_dst, slots, overlay fill]``."""
+        return np.concatenate([*self._batch(), self._slots(), [self.ov_count]]).astype(np.int32)
+
+    def _slide(self) -> PushStats:
+        return slide_(self.state, self.graph, self.view, self._pack, self.ov_count, self.cfg,
+                      self.fcap, self.ecap, self.scan_ecap, self.tiers, self.worklist,
+                      self.round_graphs)
+
+    def _advance(self) -> None:
+        self.ov_count += 2 * self.scfg.slide

@@ -1,19 +1,16 @@
 """Stream checkpoint/resume (port of ``pprx.io.checkpoint``, single device).
 
 One ``.npz`` in the reference's layout: a ``meta`` JSON (n, head, step_idx,
-mode, engine, cfg, scfg, and for the fast and the hybrid driver its
-tuning), ``p, r, src, dst, deg``, and for the fast driver every ``kg_*``
-array of the reference's KillGraph (the kill-in-place snapshot and the
-fresh ring are part of the exact round schedule). The hybrid driver's
-snapshot and overlay are derived state: its file holds the window, and the
-loader rebuilds the snapshot with an empty overlay; its tuning
-(``pprx_torch.graph.hybrid_stream.TUNING``) is the writer's. Files load both ways: a checkpoint of either package resumes in
-the other (``pprx_torch.convert`` bridges the two layouts of the
-delivery-sorted views).
-
-``meta["tuning"]["segsum"]`` is written true for the fast driver: the port
-always delivers through its segment sum, and the reference resumes on its
-kernel.
+mode, engine, cfg, scfg, and the driver's tuning where it has one),
+``p, r, src, dst, deg``, and the driver's own arrays. Each driver says what
+its file carries besides the state and the window (``engine``, ``tuning``,
+``extra_arrays``; ``pprx_torch.graph.driver``) and takes it back
+(``from_arrays``): the fast driver its capacities and every ``kg_*`` array
+of the reference's KillGraph, the hybrid driver its capacities, from which
+the loader rebuilds the snapshot with an empty overlay. Files load both
+ways: a checkpoint of either package resumes in the other
+(``pprx_torch.convert`` bridges the two layouts of the delivery-sorted
+views).
 
 Sharded checkpoints (``save_sharded_checkpoint``, ``load_sharded_checkpoint``)
 are the reference's too: one ``.npz`` of the global arrays (``p, r, deg``,
@@ -35,58 +32,37 @@ import numpy as np
 import torch
 
 from pprx_torch.config import PprConfig, StreamConfig
-from pprx_torch.convert import (
-    REFERENCE_WL_SNAP_KEYS,
-    kill_graph_to_arrays,
-    wl_snap_from_arrays,
-    wl_snap_to_arrays,
-)
+from pprx_torch.convert import REFERENCE_WL_SNAP_KEYS, wl_snap_from_arrays, wl_snap_to_arrays
 from pprx_torch.dist.mesh import RowMesh, all_gather_rows
 from pprx_torch.dist.sharded import ShardedEngine
 from pprx_torch.dist.stream import ShardedStreamDriver, assemble
 from pprx_torch.dist.wl import ShardedWlEngine
-from pprx_torch.engine.sparse import HybridGraph
 from pprx_torch.engine.state import FORWARD
-from pprx_torch.engine.wl2 import KillGraph
+from pprx_torch.graph.driver import WindowDriver
 from pprx_torch.graph.fast_stream import FastStreamDriver
-from pprx_torch.graph.hybrid_stream import TUNING as HYBRID_TUNING
 from pprx_torch.graph.hybrid_stream import HybridStreamDriver
 from pprx_torch.graph.stream import StreamDriver
 
-Driver = StreamDriver | FastStreamDriver | HybridStreamDriver
+# the single-card drivers by their engine's name in a file
+DRIVERS = {d.engine: d for d in (StreamDriver, FastStreamDriver, HybridStreamDriver)}
 
 
-def save_checkpoint(path: str, drv: Driver) -> None:
+def save_checkpoint(path: str, drv: WindowDriver) -> None:
     """Write ``drv`` (a ``StreamDriver``, ``FastStreamDriver`` or
     ``HybridStreamDriver``) mid-stream to ``path``."""
-    is_fast = isinstance(drv.graph, KillGraph)
-    is_hybrid = isinstance(drv.graph, HybridGraph)
-    window = drv.graph.window if (is_fast or is_hybrid) else drv.graph
+    window = drv.window
     meta = {
         "n": drv.n,
         "head": drv.head,
         "step_idx": drv.step_idx,
         "mode": drv.mode,
-        "engine": "hybrid" if is_hybrid else ("fast" if is_fast else "dense"),
+        "engine": drv.engine,
         "cfg": dataclasses.asdict(drv.cfg),
         "scfg": dataclasses.asdict(drv.scfg),
     }
-    extra = {}
-    if is_hybrid:
-        meta["tuning"] = {k: getattr(drv, k) for k in HYBRID_TUNING}
-    if is_fast:
-        meta["tuning"] = {
-            "tiers": [list(t) for t in drv.tiers],
-            "rebuild_every": drv.rebuild_every,
-            "e_top": drv.e_top,
-            "fring": drv.fring,
-            "cap0": drv.cap0,
-            "fcnt": drv.fcnt,
-            "queries": [int(q) for q in drv._queries],
-            "segsum": True,
-            "bf16d": drv.bf16d,
-        }
-        extra = kill_graph_to_arrays(drv.graph)
+    tuning = drv.tuning()
+    if tuning is not None:
+        meta["tuning"] = tuning
     np.savez_compressed(
         path,
         meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
@@ -95,7 +71,7 @@ def save_checkpoint(path: str, drv: Driver) -> None:
         src=window.src.cpu().numpy(),
         dst=window.dst.cpu().numpy(),
         deg=window.deg.cpu().numpy(),
-        **extra,
+        **drv.extra_arrays(),
     )
 
 
@@ -104,7 +80,7 @@ def load_checkpoint(
     stream_src: np.ndarray,
     stream_dst: np.ndarray,
     device: torch.device | str | None = None,
-) -> Driver:
+) -> WindowDriver:
     """Rebuild a driver mid-stream on ``device`` (``None``: the card) from a
     checkpoint of either package. The caller re-supplies the stream (it is
     input data, not state); everything else comes from the file."""
@@ -112,10 +88,9 @@ def load_checkpoint(
         arrays = {k: z[k] for k in z.files}
     meta = json.loads(bytes(arrays.pop("meta")).decode())
     engine = meta.get("engine", "dense")
-    drivers = {"fast": FastStreamDriver, "hybrid": HybridStreamDriver, "dense": StreamDriver}
-    if engine not in drivers:
+    if engine not in DRIVERS:
         raise ValueError(f"checkpoint of unknown engine {engine!r}")
-    return drivers[engine].from_arrays(stream_src, stream_dst, arrays, meta, device)
+    return DRIVERS[engine].from_arrays(stream_src, stream_dst, arrays, meta, device)
 
 
 def _row_blocks(arrays: dict[str, np.ndarray], mesh: RowMesh, device) -> dict[str, np.ndarray]:

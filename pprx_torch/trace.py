@@ -5,11 +5,12 @@ a reader takes ``RECORDER.snapshot()`` when it wants the record.
 
 - **Spans** (host): a name, start and end in ``time.perf_counter_ns()``,
   the span open when it began (its parent) and the id of its slide or
-  request, which a child takes from its parent. The drivers open them:
-  ``slide`` (``FastStreamDriver.run``, id the slide's ``step_idx``) with
-  ``slide.rebuild``, ``slide.pack``, ``slide.upload``, ``slide.issue``,
-  ``loop.wait`` and ``slide.mirror``. A span with no parent and no id
-  given takes its own sequence number as its id. ``loop.wait`` runs from a
+  request, which a child takes from its parent. The single-card stream
+  drivers open them: ``slide`` (``graph.driver.WindowDriver.run``, id the
+  slide's ``step_idx``) with ``slide.rebuild``, ``slide.pack``,
+  ``slide.upload``, ``slide.issue``, ``loop.wait`` and ``slide.mirror``.
+  A span with no parent and no id given takes its own sequence number as
+  its id. ``loop.wait`` runs from a
   loop graph's launch to the return of its carry's read, and ends the
   ``*.issue`` span open at the launch; it is a driver's span's child, and
   with none open there is none.

@@ -207,6 +207,42 @@ def test_port_checkpoint_resumes_in_port(tmp_path, engine):
     assert torch.equal(b.state.p, c.state.p) and torch.equal(b.state.r, c.state.r)
 
 
+# what each driver's file holds: its tuning's keys (none for the dense
+# driver) and its arrays besides ``meta, p, r, src, dst, deg``
+SAVED = {
+    "dense": (None, []),
+    "fast": (["tiers", "rebuild_every", "e_top", "fring", "cap0", "fcnt", "queries", "segsum",
+              "bf16d"],
+             [f"kg_{k}" for k in ("d_gat", "d_pos", "d_sca", "d_toff", "f_len", "f_nbr",
+                                  "f_off", "fd_gat", "fd_sca", "fd_toff", "fr_gat", "fr_sca",
+                                  "nbr", "offsets", "row_len", "snap_pos")]),
+    "hybrid": (["fcap", "ecap", "scan_ecap", "wcap", "ovacap", "tiers", "rebuild_every",
+                "worklist"], []),
+}
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_saved_file_holds_the_drivers_keys(tmp_path, engine):
+    """Each driver says what its file carries (``engine``, ``tuning``,
+    ``extra_arrays``): the meta's keys in order, the tuning's and the
+    arrays are the layout both packages read, and the file loads as the
+    driver that wrote it."""
+    b = _port(engine, FORWARD)
+    b.seed()
+    list(b.run(2))
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, b)
+    tuning, extra = SAVED[engine]
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["meta"]).decode())
+        assert sorted(z.files) == sorted(["meta", "p", "r", "src", "dst", "deg", *extra])
+    keys = ["n", "head", "step_idx", "mode", "engine", "cfg", "scfg"]
+    assert list(meta) == keys + ([] if tuning is None else ["tuning"])
+    assert meta["engine"] == engine and (meta["head"], meta["step_idx"]) == (b.head, 2)
+    assert tuning is None or list(meta["tuning"]) == tuning
+    assert type(load_checkpoint(path, *_stream(), device="cpu")) is type(b)
+
+
 def test_other_engines_are_refused(tmp_path):
     """A hybrid file now loads as the hybrid driver; the fast driver's own
     loader refuses a dense file."""

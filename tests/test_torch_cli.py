@@ -334,9 +334,8 @@ def test_refusals_name_the_reason(graph_npz, monkeypatch, argv, reason):
     import pprx_torch.engine.state as tstate
 
     monkeypatch.setattr(tstate, "init_state", no_state)
-    monkeypatch.setattr("pprx_torch.graph.fast_stream.init_state", no_state)
-    monkeypatch.setattr("pprx_torch.graph.stream.init_state", no_state)
-    monkeypatch.setattr("pprx_torch.graph.hybrid_stream.init_state", no_state)
+    # the three single-card drivers build their state in their shell
+    monkeypatch.setattr("pprx_torch.graph.driver.init_state", no_state)
     argv = [graph_npz if a == "G" else a for a in argv]
     with pytest.raises(SystemExit, match=reason):
         tcli.main(argv)

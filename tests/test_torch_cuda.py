@@ -25,8 +25,8 @@ from pprx_torch.engine.segsum import (
     segsum_gather_add_plain,
 )
 from pprx_torch.engine.state import REVERSE, PprState, init_state, settled_distance
-from pprx_torch.engine.update import out_row_sums
-from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
+from pprx_torch.engine.update import out_row_sums, window_row_sums
+from pprx_torch.graph.fast_stream import FastStreamDriver
 from pprx_torch.graph.hybrid_stream import TUNING, HybridStreamDriver
 from pprx_torch.graph.io import synthetic_powerlaw_stream
 from pprx_torch.graph.stream import StreamDriver
@@ -462,7 +462,9 @@ def test_reverse_stream_on_card_matches_cpu_f64():
     total = segsum.launches("segsum_gather_add", since=before)
     assert scaled > 0 and total >= scaled + 20  # scans, and two row-sum launches a slide
     np.testing.assert_allclose(gpu.state.p.cpu().numpy(), cpu.state.p.numpy(), atol=1e-5)
-    views = window_row_sums(gpu.state.p, gpu.graph)
+    kg = gpu.graph
+    views = window_row_sums(gpu.state.p, [(kg.d_gat, kg.d_off[:n + 1]),
+                                          (kg.fd_gat, kg.fd_off[:n + 1])])
     sweep = out_row_sums(gpu.state.p, gpu.graph.window)
     torch.testing.assert_close(views, sweep, rtol=1e-5, atol=1e-6)
     cols = exact_ppr_columns(gpu.hsrc, gpu.hdst, n, [0, 6, 17], cfg.alpha, device=dev)

@@ -26,8 +26,7 @@ from pprx_torch.config import PprConfig as TorchConfig
 from pprx_torch.dist import wl as twl
 from pprx_torch.dist.mesh import make_row_mesh as torch_row_mesh
 from pprx_torch.engine import rowpass
-from pprx_torch.engine.segsum import segsum_gather_add_
-from pprx_torch.engine.wl2 import compact
+from pprx_torch.engine.segsum import compact, segsum_gather_add_
 from tests._torch_dist_worker import graph, threshold_state, worlds
 
 torch.set_num_threads(1)

@@ -15,8 +15,8 @@ from pprx.graph.stream import StreamDriver as JaxDenseDriver
 from pprx.ref.exact import exact_ppr
 from pprx.retrieve.topk import topk_candidates as jax_topk
 from pprx_torch.engine.state import FORWARD, REVERSE
-from pprx_torch.engine.update import out_row_sums
-from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
+from pprx_torch.engine.update import out_row_sums, window_row_sums
+from pprx_torch.graph.fast_stream import FastStreamDriver
 from pprx_torch.graph.stream import StreamDriver
 from pprx_torch.ref.exact import exact_ppr_columns
 from pprx_torch.retrieve.topk import topk_candidates
@@ -109,7 +109,9 @@ def test_reverse_rowsum_routes_agree_on_every_slide():
     b.seed()
     seen = set()
     for _ in range(10):
-        views = window_row_sums(b.state.p, b.graph)
+        kg = b.graph
+        views = window_row_sums(b.state.p, [(kg.d_gat, kg.d_off[:N + 1]),
+                                            (kg.fd_gat, kg.fd_off[:N + 1])])
         sweep = out_row_sums(b.state.p, b.graph.window)
         np.testing.assert_allclose(views.numpy(), sweep.numpy(), rtol=0, atol=1e-12)
         assert float(sweep.abs().sum()) > 0

@@ -119,6 +119,36 @@ def test_driver_rebuilds_before_the_overlay_fills():
                      (50, 50)]
 
 
+def test_reverse_slides_take_their_row_sums_from_the_view(monkeypatch):
+    """In reverse each slide's old row sums are K1 over the driver's held
+    delivery view (still the old window's, across a rebuild): equal to
+    ``out_row_sums`` of the ring at 1e-12 on every slide, which the driver
+    no longer calls, and the stream matches the reference at 1e-12 with
+    equal rounds."""
+    import pprx_torch.engine.update as tupdate
+    import pprx_torch.graph.hybrid_stream as thybrid
+
+    seen = []
+    apply, row_sums = thybrid.apply_edge_batch_, tupdate.out_row_sums
+
+    def spy(state, graph, *args, rowsum=None, **kw):
+        assert rowsum is not None
+        np.testing.assert_allclose(rowsum.numpy(), row_sums(state.p, graph).numpy(), rtol=0,
+                                   atol=1e-12)
+        seen.append(float(rowsum.abs().sum()))
+        return apply(state, graph, *args, rowsum=rowsum, **kw)
+
+    monkeypatch.setattr(thybrid, "apply_edge_batch_", spy)
+    a, b = _drivers(REVERSE, True, "default")
+    a.seed(), b.seed()
+    monkeypatch.setattr(tupdate, "out_row_sums", None)  # a call would raise
+    ra = [_stats(st) for st in a.run(4)]
+    rb = [_stats(st) for st in b.run(4)]
+    assert ra == rb and len(seen) == 4 and min(seen) > 0
+    np.testing.assert_allclose(b.state.p.numpy(), np.asarray(a.state.p), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(b.state.r.numpy(), np.asarray(a.state.r), rtol=0, atol=1e-12)
+
+
 def test_idle_slide_runs_no_round():
     """A slide that re-inserts the edges it expires changes nothing: its
     candidate list holds only rows under their thresholds, and the loop

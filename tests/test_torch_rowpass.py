@@ -39,9 +39,14 @@ from pprx_torch.engine.rowpass import (
     scan_pass_plain,
 )
 from pprx_torch.engine.state import FORWARD, REVERSE, PprState
-from pprx_torch.engine.update import apply_edge_batch, apply_edge_batch_, out_row_sums
+from pprx_torch.engine.update import (
+    apply_edge_batch,
+    apply_edge_batch_,
+    out_row_sums,
+    window_row_sums,
+)
 from pprx_torch.graph.dynamic import WindowGraph
-from pprx_torch.graph.fast_stream import FastStreamDriver, window_row_sums
+from pprx_torch.graph.fast_stream import FastStreamDriver
 from pprx_torch.graph.io import synthetic_powerlaw_stream
 from tests.conftest import random_multigraph
 
@@ -297,7 +302,7 @@ def test_corrections_in_place_match_jax(mode, seed, route):
         if route == "none" or mode == FORWARD:
             return None
         kg = twl2.build_kill_graph(w, mode, fring=4)
-        return window_row_sums(st.p, kg)
+        return window_row_sums(st.p, [(kg.d_gat, kg.d_off[:n + 1]), (kg.fd_gat, kg.fd_off[:n + 1])])
 
     st, w = fresh()
     rs = rowsum(st, w)

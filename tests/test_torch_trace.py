@@ -20,15 +20,20 @@ from pprx_torch.engine import graphs, push
 from pprx_torch.engine.state import FORWARD, REVERSE, init_state
 from pprx_torch.graph.dynamic import WindowGraph
 from pprx_torch.graph.fast_stream import FastStreamDriver
+from pprx_torch.graph.hybrid_stream import HybridStreamDriver
 from pprx_torch.graph.io import synthetic_powerlaw_stream
+from pprx_torch.graph.stream import StreamDriver
 from pprx_torch.retrieve import topk
 
-def _driver(mode=FORWARD):
+def _driver(mode=FORWARD, engine="fast"):
+    """A seeded driver of ``engine``; the fast and the hybrid one rebuild
+    before every fifth slide."""
     w, b = 4000, 100
     src, dst, n = synthetic_powerlaw_stream(500, w + 8 * b, seed=2)
-    drv = FastStreamDriver(src, dst, n, list(range(8)), PprConfig(alpha=0.15, eps=1e-6),
-                           StreamConfig(window=w, slide=b), mode=mode, rebuild_every=4,
-                           device="cpu")
+    kind, kw = {"fast": (FastStreamDriver, dict(rebuild_every=4)), "dense": (StreamDriver, {}),
+                "hybrid": (HybridStreamDriver, dict(rebuild_every=4))}[engine]
+    drv = kind(src, dst, n, list(range(8)), PprConfig(alpha=0.15, eps=1e-6),
+               StreamConfig(window=w, slide=b), mode=mode, device="cpu", **kw)
     drv.seed()
     return drv
 
@@ -171,11 +176,13 @@ def test_dense_push_stamps_follow_the_loop_log(monkeypatch):
     assert len(snap["spans"]["seq"]) == 0
 
 
-def test_spans_nest_and_share_their_slides_id():
+@pytest.mark.parametrize("engine", ["fast", "dense", "hybrid"])
+def test_spans_nest_and_share_their_slides_id(engine):
     """Every span lies inside its parent and carries its parent's id; a
     slide's id is its ``step_idx``, and its children are the host's steps
-    in order (the fifth slide's rebuild first)."""
-    drv = _driver()
+    in order (the fifth slide's rebuild first, where the driver rebuilds;
+    the mirror last, where it keeps a host copy of the ring)."""
+    drv = _driver(engine=engine)
     mark = trace.RECORDER.mark()
     first = drv.step_idx
     list(drv.run(5))
@@ -193,8 +200,13 @@ def test_spans_nest_and_share_their_slides_id():
             assert sp["rid"][i] == sp["rid"][j]
     kids = [[names[sp["name"][i]] for i, p in enumerate(sp["parent"]) if p == sp["seq"][r]]
             for r in roots]
-    steps = ["slide.pack", "slide.upload", "slide.issue", "slide.mirror"]
-    assert kids[:4] == [steps] * 4 and kids[4] == ["slide.rebuild"] + steps
+    if engine == "fast":
+        steps = ["slide.pack", "slide.upload", "slide.issue", "slide.mirror"]
+        assert kids[:4] == [steps] * 4 and kids[4] == ["slide.rebuild"] + steps
+    else:  # no mirror; the dense driver never rebuilds
+        steps = ["slide.pack", "slide.upload", "slide.issue"]
+        first = ["slide.rebuild"] if engine == "hybrid" else []
+        assert kids[:4] == [steps] * 4 and kids[4] == first + steps
 
 
 def test_wait_ends_the_issue_span_and_takes_its_parent():

@@ -20,10 +20,9 @@ from pprx.ref.push import (
 import _corrections  # tests/ is on the path
 import pprx_torch.engine.update as tupdate
 from pprx_torch.engine.state import FORWARD, REVERSE, PprState
-from pprx_torch.engine.update import apply_edge_batch, out_row_sums, source_rows
+from pprx_torch.engine.update import apply_edge_batch, out_row_sums, source_rows, window_row_sums
 from pprx_torch.engine.wl2 import build_kill_graph
 from pprx_torch.graph.dynamic import WindowGraph
-from pprx_torch.graph.fast_stream import window_row_sums
 from tests.conftest import random_multigraph
 
 torch.set_num_threads(1)
@@ -96,7 +95,9 @@ def _rowsum_route(route, monkeypatch, p, window):
     edges), or handed in from the kill graph's delivery views through the
     segment sum, as the fast driver does."""
     if route == "views":
-        return window_row_sums(p, build_kill_graph(window, REVERSE, fring=8))
+        kg = build_kill_graph(window, REVERSE, fring=8)
+        n = kg.n
+        return window_row_sums(p, [(kg.d_gat, kg.d_off[:n + 1]), (kg.fd_gat, kg.fd_off[:n + 1])])
     if route == "blocks":
         monkeypatch.setattr(tupdate, "EDGE_BLOCK_BYTES", 7 * p.shape[1] * p.element_size())
     return None

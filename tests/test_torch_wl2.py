@@ -19,10 +19,10 @@ from pprx.config import PprConfig, StreamConfig
 from pprx.engine.state import init_state as jax_init_state
 from pprx.graph.dynamic import WindowGraph as JaxWindow
 from pprx.graph.io import synthetic_powerlaw_stream
-from pprx_torch.engine.segsum import segment_ids
+from pprx_torch.engine.segsum import compact, segment_ids
 from pprx_torch.engine.push import push_to_convergence
 from pprx_torch.engine.state import FORWARD, REVERSE, init_state
-from pprx_torch.engine.wl2 import compact, make_tiers2, rld_expand
+from pprx_torch.engine.wl2 import make_tiers2, rld_expand
 from pprx_torch.graph.dynamic import WindowGraph
 from tests.conftest import random_multigraph
 
